@@ -1,0 +1,113 @@
+"""Softmax attention forward: a CUDA C++ kernel for Hopper (``csrc/attention.cu``).
+
+Replaces the TPU kernel ``dmme_tpu/ops/attention.py:_attn_kernel`` (reached
+through ``_attention_pallas`` and ``attention``/``attention_heads``), which
+keeps one whole (T×T) score tile per batch·head in VMEM. That tile does not
+fit an SM, so the kernel takes one block per (batch·head, 64 queries) and
+loops over 64-key tiles with an online softmax, f32 running max/sum and an
+f32 accumulator, with the QKᵀ and PV products on the tensor cores (wmma).
+
+Bound on the card: bytes. At T ≤ 256 and D ≤ 256 it does far fewer
+operations per byte than the tensor cores need, so the least time is one
+read of q, k, v and one write of o. q, k and v are read in place through
+their strides (the UNet hands it strided views of the packed qkv
+projection), so no copy precedes the launch. Launches per call: 1.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dmme_tpu_torch.ops import build
+
+#: kernel launches since the last reset (incremented only by the launcher)
+launches = 0
+
+_FN = None
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on (BH, T, D): f32 scores,
+    softmax in f32, P cast to V's dtype before PV, f32 accumulation, output
+    in q's dtype."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    p = torch.softmax(s * scale, dim=-1).to(v.dtype)
+    return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        fn = build.library("attention").dmme_attention_fwd
+        ll, vp = ctypes.c_longlong, ctypes.c_void_p
+        fn.argtypes = [vp, vp, vp, vp] + [ctypes.c_int] * 4 + [ll] * 12 + [ctypes.c_float, vp]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def _aligned(x: torch.Tensor) -> bool:
+    return (x.stride(3) == 1 and x.data_ptr() % 16 == 0
+            and all(s % 8 == 0 for s in x.stride()[:3]))
+
+
+def _launch(q, k, v, scale: float) -> torch.Tensor:
+    """(N, T, H, D) bf16 views with unit stride along D → (N, T, H, D)."""
+    global launches
+    n, t, h, d = q.shape
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"attention kernel takes bf16, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if d % 16 or d > 256:
+        raise ValueError(f"attention kernel takes head dims that are multiples of 16 up to 256, got {d}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
+    # 16-byte vector loads need aligned rows; other layouts are copied first
+    q, k, v = (x if _aligned(x) else x.contiguous() for x in (q, k, v))
+    out = torch.empty((n, t, h, d), device=q.device, dtype=q.dtype)
+    strides = [s for x in (q, k, v, out) for s in (x.stride(0), x.stride(1), x.stride(2))]
+    status = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   n, h, t, d, *strides, float(scale),
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(status, "attention kernel launch")
+    launches += 1
+    return out
+
+
+def _check_device(x: torch.Tensor) -> bool:
+    """True for a CPU tensor (plain version); False for CUDA; raise otherwise."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"attention: no kernel for device {x.device}")
+    return False
+
+
+def attention_heads_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float) -> torch.Tensor:
+    """:func:`attention_plain` on (N, T, H, D) tensors, heads folded into the batch."""
+    n, t, h, d = q.shape
+
+    def flat(x):
+        return x.transpose(1, 2).reshape(n * h, t, d)
+
+    out = attention_plain(flat(q), flat(k), flat(v), scale)
+    return out.reshape(n, h, t, d).transpose(1, 2)
+
+
+def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """Multi-head attention on (N, T, H, D) tensors → (N, T, H, D)."""
+    if _check_device(q):
+        return attention_heads_plain(q, k, v, scale)
+    return _launch(q, k, v, scale)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """Batched attention: inputs (BH, T, D) → (BH, T, D)."""
+    if _check_device(q):
+        return attention_plain(q, k, v, scale)
+    return _launch(q[:, :, None], k[:, :, None], v[:, :, None], scale)[:, :, 0]

@@ -1,0 +1,160 @@
+"""Sampling server: serve a diffusion model over HTTP (mirrors ``dmme_tpu/serving.py``).
+
+* ``GET  /healthz``          → ``{"status": "ok", "step": N, ...}``
+* ``POST /sample`` JSON body → PNG grid or raw ``.npy`` bytes
+      {"n": 4,                # samples (rounded up to a batch bucket)
+       "sampler": "default",  # the harness's own sampler
+       "seed": 0,
+       "format": "png"}       # png (grid) | npy ((n,H,W,C) float32 [0,1])
+
+The stdlib ``ThreadingHTTPServer`` takes connections concurrently; generation
+runs under one lock, one device. Batch sizes are bucketed to powers of two.
+Only the ``"default"`` sampler is ported; the JAX package's other samplers
+are answered with 400.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from dmme_tpu_torch.utils.norm import denorm
+from dmme_tpu_torch.utils.vis import make_history
+
+_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+#: samplers of the JAX package's server that this port does not have yet
+NOT_PORTED = ("ddim", "dpm", "unipc", "edm", "cached", "deep", "deep_dpm")
+
+
+def _bucket(n: int) -> int:
+    for b in _BUCKETS:
+        if n <= b:
+            return b
+    return _BUCKETS[-1]
+
+
+def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
+    """``None`` means the CUDA device; there is no silent CPU fallback."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return device
+
+
+class Sampler:
+    """Serves samples of ``lit`` with the weights of ``state`` on one device."""
+
+    def __init__(self, lit, state, img_size: int,
+                 device: Union[None, str, torch.device] = None):
+        self.lit = lit
+        self.device = resolve_device(device)
+        self.state = state.to(self.device)
+        self.img_size = int(img_size)
+        self.step = int(state.step)
+        self._lock = threading.Lock()
+
+    def sample(self, n: int, sampler: str = "default",
+               steps: Optional[int] = None, seed: int = 0) -> np.ndarray:
+        """(n, H, W, C) float32 in [0, 1]."""
+        if not 1 <= n <= _BUCKETS[-1]:
+            raise ValueError(f"n must be in [1, {_BUCKETS[-1]}], got {n}")
+        if sampler in NOT_PORTED:
+            raise ValueError(f"sampler {sampler!r} is not yet ported; use 'default'")
+        if sampler != "default":
+            raise ValueError(f"unknown sampler {sampler!r}")
+        shape = (_bucket(n), self.img_size, self.img_size, self.lit.img_channels)
+        with self._lock:  # one device: serialise generation
+            generator = torch.Generator(device=self.device).manual_seed(int(seed))
+            out = self.lit.to_images(self.lit.generate(
+                self.state, generator, self.lit.sample_space_shape(shape)))
+            out = denorm(out).to(torch.float32).cpu().numpy()
+        return out[:n]
+
+
+def _png_bytes(images: np.ndarray) -> bytes:
+    grid = make_history([images])
+    from PIL import Image
+
+    img = (np.clip(grid, 0, 1) * 255).astype(np.uint8)
+    if img.shape[-1] == 1:
+        img = img[..., 0]
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _npy_bytes(images: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, images)
+    return buf.getvalue()
+
+
+def make_server(sampler: Sampler, host: str = "127.0.0.1", port: int = 8000):
+    """Build (not start) a ThreadingHTTPServer bound to (host, port);
+    ``port=0`` picks an ephemeral port (see ``server.server_address``)."""
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):  # quiet by default
+            pass
+
+        def _json(self, code: int, obj: dict):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path != "/healthz":
+                return self._json(404, {"error": "not found"})
+            self._json(200, {
+                "status": "ok",
+                "step": sampler.step,
+                "img_size": sampler.img_size,
+                "device": str(sampler.device),
+                "samplers": ["default"],
+            })
+
+        def do_POST(self):
+            if self.path != "/sample":
+                return self._json(404, {"error": "not found"})
+            try:
+                length = int(self.headers.get("Content-Length") or 0)
+                req = json.loads(self.rfile.read(length) or b"{}")
+                fmt = str(req.get("format", "png"))
+                if fmt not in ("npy", "png"):
+                    return self._json(400, {"error": f"unknown format {fmt!r}"})
+                images = sampler.sample(
+                    n=int(req.get("n", 1)),
+                    sampler=str(req.get("sampler", "default")),
+                    steps=req.get("steps"),
+                    seed=int(req.get("seed", 0)),
+                )
+                if fmt == "npy":
+                    body, ctype = _npy_bytes(images), "application/octet-stream"
+                else:
+                    body, ctype = _png_bytes(images), "image/png"
+            except (ValueError, KeyError, TypeError, json.JSONDecodeError) as e:
+                return self._json(400, {"error": str(e)})
+            except Exception as e:  # noqa: BLE001 — the client must get an answer
+                return self._json(500, {"error": f"{type(e).__name__}: {e}"})
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    return ThreadingHTTPServer((host, port), Handler)
+
+
+def serve_forever(sampler: Sampler, host: str = "127.0.0.1", port: int = 8000):
+    server = make_server(sampler, host, port)
+    print(f"serving on http://{server.server_address[0]}:{server.server_address[1]}")
+    server.serve_forever()

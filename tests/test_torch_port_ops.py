@@ -1,0 +1,251 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU each port wrapper takes its plain PyTorch version; the JAX side
+runs the Pallas kernels in interpret mode, as tests/test_ops.py does. f32
+tolerances are tests/test_ops.py's: rtol 2e-4 / atol 2e-5 for GroupNorm+SiLU
+and attention, rtol 1e-4 / atol 1e-5 for the fused ResBlock. The kernels
+themselves build and run only on a CUDA device; chip_smoke.py holds them
+against these plain versions there.
+"""
+
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dmme_tpu.ops.attention import attention as jax_attention
+from dmme_tpu.ops.attention import attention_heads as jax_attention_heads
+from dmme_tpu.ops.group_norm import group_norm_silu as jax_gn_silu
+from dmme_tpu.ops.resblock import resblock_forward as jax_resblock
+from dmme_tpu_torch.ops import attention as t_attention
+from dmme_tpu_torch.ops import build
+from dmme_tpu_torch.ops import group_norm as t_group_norm
+from dmme_tpu_torch.ops import resblock as t_resblock
+
+torch.set_num_threads(1)
+
+GN_TOL = dict(rtol=2e-4, atol=2e-5)
+ATTN_TOL = dict(rtol=2e-4, atol=2e-5)
+RES_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _rand(r, *shape):
+    return r.standard_normal(shape).astype(np.float32)
+
+
+class TestGroupNormSiLU:
+    @pytest.mark.parametrize("c,groups", [(16, 4), (32, 8)])
+    def test_plain_matches_interpret(self, c, groups):
+        r = np.random.default_rng(0)
+        x, gamma, beta = _rand(r, 2, 8, 8, c), _rand(r, c), _rand(r, c)
+        want = jax_gn_silu(jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta), groups,
+                           force="interpret")
+        got = t_group_norm.group_norm_silu(torch.tensor(x), torch.tensor(gamma),
+                                           torch.tensor(beta), groups)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GN_TOL)
+
+    def test_pre_bias(self):
+        r = np.random.default_rng(1)
+        x, bias = _rand(r, 2, 4, 4, 16), _rand(r, 2, 16)
+        gamma, beta = 1.0 + 0.1 * _rand(r, 16), _rand(r, 16)
+        want = jax_gn_silu(jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta), 4,
+                           pre_bias=jnp.asarray(bias), force="interpret")
+        got = t_group_norm.group_norm_silu(torch.tensor(x), torch.tensor(gamma),
+                                           torch.tensor(beta), 4, pre_bias=torch.tensor(bias))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GN_TOL)
+
+    def test_per_sample_film_affine(self):
+        r = np.random.default_rng(2)
+        x, s, b = _rand(r, 3, 4, 4, 16), _rand(r, 3, 16), _rand(r, 3, 16)
+        want = jax_gn_silu(jnp.asarray(x), 1.0 + jnp.asarray(s), jnp.asarray(b), 4,
+                           force="interpret")
+        got = t_group_norm.group_norm_silu(torch.tensor(x), 1.0 + torch.tensor(s),
+                                           torch.tensor(b), 4)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GN_TOL)
+
+    def test_stats_outputs(self):
+        """The (N, G) mean and inverse std match the statistics of x + bias."""
+        r = np.random.default_rng(3)
+        x, bias = torch.tensor(_rand(r, 2, 4, 4, 8)), torch.tensor(_rand(r, 2, 8))
+        _, mean, inv = t_group_norm.group_norm_silu_fwd(
+            x, torch.ones(8), torch.zeros(8), 2, pre_bias=bias)
+        u = (x + bias[:, None, None, :]).reshape(2, 16, 2, 4).double()
+        torch.testing.assert_close(mean.double(), u.mean(dim=(1, 3)), rtol=1e-5, atol=1e-6)
+        var = u.var(dim=(1, 3), unbiased=False)
+        torch.testing.assert_close(inv.double(), (var + 1e-5).rsqrt(), rtol=1e-4, atol=1e-5)
+
+
+class TestAttention:
+    @pytest.mark.parametrize("t,d", [(16, 32), (64, 16), (64, 64)])
+    def test_plain_matches_interpret(self, t, d):
+        r = np.random.default_rng(t + d)
+        q, k, v = (_rand(r, 3, t, d) for _ in range(3))
+        scale = d ** -0.5
+        want = jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale,
+                             force="interpret")
+        got = t_attention.attention(torch.tensor(q), torch.tensor(k), torch.tensor(v), scale)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+    def test_heads_matches_jax(self):
+        """(N, T, H, D) multi-head entry on strided views of a packed qkv."""
+        r = np.random.default_rng(7)
+        n, t, h, d = 2, 16, 4, 8
+        qkv = _rand(r, n, t, 3, h, d)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        want = jax_attention_heads(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.1)
+        tq = torch.tensor(qkv)
+        got = t_attention.attention_heads(tq[:, :, 0], tq[:, :, 1], tq[:, :, 2], 0.1)
+        assert got.shape == (n, t, h, d)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+def _resblock_inputs(r, n, hw, cin, cout, film, proj):
+    x = _rand(r, n, hw, hw, cin)
+    g1, b1v = 1.0 + 0.1 * _rand(r, n, cin), 0.1 * _rand(r, n, cin)
+    if film:  # FiLM folds into a per-sample affine with no pre-bias
+        pre2 = np.zeros((n, cout), np.float32)
+        g2, b2v = 1.0 + 0.3 * _rand(r, n, cout), 0.3 * _rand(r, n, cout)
+    else:
+        pre2 = _rand(r, n, cout)
+        g2 = np.broadcast_to(1.0 + 0.1 * _rand(r, cout), (n, cout)).copy()
+        b2v = np.broadcast_to(0.1 * _rand(r, cout), (n, cout)).copy()
+    w1 = 0.2 * _rand(r, 3, 3, cin, cout)
+    b1 = 0.1 * _rand(r, cout)
+    w2 = 0.2 * _rand(r, 3, 3, cout, cout)
+    b2 = 0.1 * _rand(r, cout)
+    wr = 0.3 * _rand(r, 1, 1, cin, cout) if proj else None
+    br = 0.1 * _rand(r, cout) if proj else None
+    return x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br
+
+
+class TestResBlock:
+    @pytest.mark.parametrize("film", [False, True], ids=["additive", "film"])
+    @pytest.mark.parametrize("cin,cout", [(16, 16), (8, 16)], ids=["identity", "proj"])
+    def test_plain_matches_interpret(self, film, cin, cout):
+        r = np.random.default_rng(cin * 10 + film)
+        args = _resblock_inputs(r, 2, 6, cin, cout, film, proj=cin != cout)
+        x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br = args
+        want = jax_resblock(*(jnp.asarray(a) for a in args[:10]),
+                            wr=None if wr is None else jnp.asarray(wr),
+                            br=None if br is None else jnp.asarray(br),
+                            num_groups=4, force="interpret")
+
+        def oihw(w):
+            return None if w is None else torch.tensor(w.transpose(3, 2, 0, 1).copy())
+
+        t = torch.tensor
+        got = t_resblock.resblock_forward(
+            t(x), t(g1), t(b1v), t(pre2), t(g2), t(b2v), oihw(w1), t(b1), oihw(w2), t(b2),
+            wr=oihw(wr), br=None if br is None else t(br), num_groups=4)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **RES_TOL)
+
+    def test_pack_weights_layout_and_cache(self):
+        """Tap-major bf16 weights, the projection's bias folded into b2, one
+        pack per weight state: the same tensors give the same pack until one
+        of them changes in place."""
+        r = np.random.default_rng(9)
+        cin, cout = 8, 16
+        w1, w2 = torch.tensor(_rand(r, cout, cin, 3, 3)), torch.tensor(_rand(r, cout, cout, 3, 3))
+        wr = torch.tensor(_rand(r, cout, cin, 1, 1))
+        b1, b2, br = (torch.tensor(_rand(r, cout)) for _ in range(3))
+        pw = t_resblock.pack_weights(w1, b1, w2, b2, wr, br)
+        assert pw.w1.dtype == pw.w2.dtype == pw.wr.dtype == torch.bfloat16
+        assert pw.w1.shape == (9 * cin, cout) and pw.w2.shape == (9 * cout, cout)
+        for tap in range(9):
+            dy, dx = divmod(tap, 3)
+            torch.testing.assert_close(pw.w1[tap * cin:(tap + 1) * cin],
+                                       w1[:, :, dy, dx].t().to(torch.bfloat16), rtol=0, atol=0)
+        torch.testing.assert_close(pw.wr, wr[:, :, 0, 0].t().to(torch.bfloat16), rtol=0, atol=0)
+        torch.testing.assert_close(pw.b2, b2 + br, rtol=0, atol=0)
+        assert t_resblock.pack_weights(w1, b1, w2, b2, wr, br) is pw
+        with torch.no_grad():
+            w1.mul_(-1.0)
+        again = t_resblock.pack_weights(w1, b1, w2, b2, wr, br)
+        assert again is not pw
+        torch.testing.assert_close(again.w1, -pw.w1, rtol=0, atol=0)
+
+    def test_broadcast_affine_rows_are_not_copied(self):
+        g = torch.arange(8, dtype=torch.float32)
+        for v in (g, g[None].expand(3, -1)):
+            row, stride = t_group_norm.broadcast_rows(v, 3, 8)
+            assert stride == 0 and row.data_ptr() == g.data_ptr()
+        per_sample = torch.arange(24, dtype=torch.float32).reshape(3, 8)
+        row, stride = t_group_norm.broadcast_rows(per_sample, 3, 8)
+        assert stride == 8 and row.data_ptr() == per_sample.data_ptr()
+        row, stride = t_group_norm.broadcast_rows(per_sample.t().contiguous().t(), 3, 8)
+        assert stride == 8 and row.is_contiguous()
+        torch.testing.assert_close(row, per_sample, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kernel", ["group_norm_silu", "resblock"])
+def test_launchers_take_bf16_only(kernel):
+    """The launchers refuse another dtype before they reach a kernel."""
+    x = torch.zeros((1, 4, 4, 64))
+    v = torch.ones(64)
+    with pytest.raises(TypeError, match="bf16"):
+        if kernel == "group_norm_silu":
+            t_group_norm._launch(x, v, v, None, 32, 1e-5)
+        else:
+            w = torch.zeros((64, 64, 3, 3))
+            t_resblock._launch(x, v, v, v, v, v, w, v, w, v, None, None, 32, 1e-5)
+
+
+def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
+    """On the CPU every wrapper takes its plain version: no triton import, no
+    ctypes library, and no launch is counted."""
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU tensor reached a kernel launcher")
+
+    monkeypatch.setattr(build, "library", refuse)
+    monkeypatch.setattr(build, "build_all", refuse)
+    monkeypatch.setattr(t_group_norm, "_triton_kernel", refuse)
+    before = (t_group_norm.launches, t_attention.launches, t_resblock.launches)
+    r = np.random.default_rng(0)
+    t_group_norm.group_norm_silu(torch.tensor(_rand(r, 1, 4, 4, 8)), torch.ones(8),
+                                 torch.zeros(8), 2)
+    q = torch.tensor(_rand(r, 1, 16, 16))
+    t_attention.attention(q, q, q, 0.25)
+    t_attention.attention_heads(q[:, :, None], q[:, :, None], q[:, :, None], 0.25)
+    args = _resblock_inputs(r, 1, 4, 8, 8, False, False)
+    t = torch.tensor
+    t_resblock.resblock_forward(*(t(a) for a in args[:6]),
+                                t(args[6].transpose(3, 2, 0, 1).copy()), t(args[7]),
+                                t(args[8].transpose(3, 2, 0, 1).copy()), t(args[9]),
+                                num_groups=2)
+    assert (t_group_norm.launches, t_attention.launches, t_resblock.launches) == before
+
+
+def test_other_devices_raise_instead_of_falling_back():
+    x = torch.empty((1, 4, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        t_group_norm.group_norm_silu(x, torch.ones(8), torch.zeros(8), 2)
+    q = torch.empty((1, 16, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        t_attention.attention(q, q, q, 0.25)
+    w = torch.empty((8, 8, 3, 3), device="meta")
+    v = torch.empty((1, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        t_resblock.resblock_forward(x, v, v, v, v, v, w, v[0], w, v[0], num_groups=2)
+
+
+def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
+    """A CUDA source that does not compile raises with the compiler's output,
+    and nothing is loaded. The Python interpreter stands in for a compiler
+    that rejects every argument."""
+    monkeypatch.setattr(build, "_nvcc", lambda: sys.executable)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="usage") as e:
+        build.build_all()
+    assert "nvcc attention.cu failed" in str(e.value)
+    assert "nvcc resblock.cu failed" in str(e.value)
+    assert not list((tmp_path / "build").glob("*.so")) and build._LIBS == {}
+
+
+def test_library_name_follows_the_source_hash():
+    name = build._target("resblock").name
+    assert name.startswith("libresblock-") and name.endswith(".so")
+    assert build._target("attention").name != name
