@@ -21,7 +21,27 @@ if the package is missing, or if any phase fails. Phases:
    that must return identical bytes; counts each kernel's launches; then one
    request of n = 1 and of n = 8 under ``torch.profiler``: device time by
    kernel and the device's idle share;
-6. the kernel table as one JSON line, then ``{"ok": true, "device": ...}``.
+6. train kernels — records the inputs of K1, K2, K3 and the attention
+   backward at every call site of one full-width bf16 training step at batch
+   128 (dropout on, random biases and affines) and holds each against its
+   plain version there, with times and bounds; SDPA's forward and backward
+   are timed beside K3 and the attention backward as yardsticks;
+7. train gradient — one ``loss_given`` + backward at batch 8, dropout 0, on
+   the same weights and numpy t, ε: bf16 on the card against f32 on the CPU
+   (relative L2 of the loss and of the gradient, overall and per top-level
+   module), every parameter's gradient finite and non-zero on the card, and
+   the launches of that step: K1 45, K2 45, K3 6, K4 0;
+8. fit     — ``fit(LitDDPM(dtype="bf16"), CIFAR10(synthetic=True,
+   batch_size=128))`` at the recipe's settings: warm steps, one step whose
+   parameter and EMA updates are checked, 20 logged steps (loss and
+   grad_norm finite, launches per step), 25 steps timed with CUDA events
+   (median step ms, imgs/s), and three steps under ``torch.profiler``
+   (device idle share; device time by kernel for one step);
+9. sample after training — a DDIM-50 n = 8 request from the trained raw
+   weights through K4, equal byte for byte to the same request after K4's
+   weight cache is cleared;
+10. the kernel table as one JSON line, the card's name and power limit, then
+   ``{"ok": true, "device": ...}``.
 
 ``--out`` also writes every measurement to a JSON file.
 """
@@ -57,6 +77,27 @@ TOL = {"group_norm_silu": (2e-2, 1e-2), "attention": (2e-2, 1e-2),
        "resblock": (2e-2, 5e-2)}
 # full UNet, bf16 on the card against f32 on the CPU: relative L2 error
 UNET_REL_L2 = 5e-2
+# K2 on the training path: gradients have no fixed scale, so atol is a share
+# of the largest reference value. dx is bf16, one rounding of an f32 value
+# (a bf16 ulp is 2^-8 of it), from group means summed in another order than
+# the plain version's; dγ, dβ and dbias are f32 sums over H·W in another order.
+TOL_BWD = {"dx": (2e-2, 1e-2), "vec": (1e-3, 1e-3)}
+# attention backward against autograd of the plain forward, relative L2: the
+# port rounds the scores to bf16 before the softmax, as the JAX backward does
+# (``_fused_bwd``), where the plain forward keeps them in f32
+ATTN_BWD_REL_L2 = 2e-2
+# one training step at batch 8, bf16 on the card against f32 on the CPU:
+# relative L2 of the flattened gradient
+GRAD_REL_L2 = 5e-2
+TRAIN_BATCH = 128
+FIT_WARM, FIT_STEPS, TIMED_STEPS = 3, 20, 25
+# launches of one training step of the full-width UNet
+PER_TRAIN_STEP = {"group_norm_silu": 45, "group_norm_silu_bwd": 45, "attention": 6,
+                  "resblock": 0}
+# bench.py:60-63: 3.53 TFLOP per batch-128 train step (forward, backward and
+# optimizer), a work count traced from the JAX package's XLA program, not a
+# time; over the card's bf16 peak it bounds a step from below
+TRAIN_STEP_TFLOP = 3.53
 
 
 def fail(msg: str) -> None:
@@ -122,51 +163,68 @@ def randomize_affines(torch, blocks, module, generator) -> None:
 
 
 def reset_counts(ops) -> None:
-    for m in ops.values():
-        m.launches = 0
+    """``ops``: {kernel: (module, counter attribute)}."""
+    for m, attr in ops.values():
+        setattr(m, attr, 0)
 
 
 def counts(ops) -> dict:
-    return {k: m.launches for k, m in ops.items()}
+    return {k: getattr(m, attr) for k, (m, attr) in ops.items()}
 
 
-def record_calls(blocks, fn):
-    """Run ``fn()`` with the three kernel entry points of the UNet blocks
-    wrapped so that the first call of each distinct signature keeps its
-    inputs. Returns {kernel: [(signature, count, args, kwargs)]}."""
-    seen = {"group_norm_silu": {}, "attention": {}, "resblock": {}}
+def _sig_gn(x, gamma, beta, groups, eps=None, pre_bias=None):
+    return (tuple(x.shape), gamma.dim() == 2, pre_bias is not None)
 
-    def sig_gn(x, gamma, beta, groups, eps=None, pre_bias=None):
-        return (tuple(x.shape), gamma.dim() == 2, pre_bias is not None)
 
-    def sig_attn(q, k, v, scale):
-        return (tuple(q.shape), tuple(q.stride()))
+def _sig_gn_bwd(x, dz, gamma, beta, pre_bias, mean, inv, groups):
+    return (tuple(x.shape), gamma.dim() == 2, pre_bias is not None)
 
-    def sig_res(x, *a, wr=None, **k):
-        return (tuple(x.shape), int(a[5].shape[0]), wr is not None)
 
-    originals = {}
+def _sig_attn(q, k, v, scale, *rest):
+    return (tuple(q.shape), tuple(q.stride()))
 
-    def wrap(attr, kind, sig):
-        orig = getattr(blocks, attr)
-        originals[attr] = orig
 
-        def wrapped(*a, **k):
-            key = sig(*a, **k)
-            entry = seen[kind].setdefault(key, [0, a, k])
+def _sig_res(x, *a, wr=None, **k):
+    return (tuple(x.shape), int(a[5].shape[0]), wr is not None)
+
+
+def serve_targets(blocks):
+    """The three kernel entry points of the UNet blocks' forward."""
+    return [(blocks, "group_norm_silu", "group_norm_silu", _sig_gn),
+            (blocks, "attention_heads", "attention", _sig_attn),
+            (blocks, "resblock_forward", "resblock", _sig_res)]
+
+
+def train_targets(blocks, k_gn, k_attn):
+    """The forward entry points and the two backward ones of a training step."""
+    return [(blocks, "group_norm_silu", "group_norm_silu", _sig_gn),
+            (k_gn, "group_norm_silu_bwd", "group_norm_silu_bwd", _sig_gn_bwd),
+            (blocks, "attention_heads", "attention", _sig_attn),
+            (k_attn, "attention_bwd", "attention_bwd", _sig_attn)]
+
+
+def record_calls(targets, fn):
+    """Run ``fn()`` with each ``(module, attribute, kind, signature)`` entry
+    point wrapped so that the first call of each distinct signature keeps
+    its inputs. Returns {kind: [(signature, count, args, kwargs)]}."""
+    seen = {kind: {} for _, _, kind, _ in targets}
+    originals = []
+
+    for module, attr, kind, sig in targets:
+        orig = getattr(module, attr)
+        originals.append((module, attr, orig))
+
+        def wrapped(*a, _orig=orig, _kind=kind, _sig=sig, **k):
+            entry = seen[_kind].setdefault(_sig(*a, **k), [0, a, k])
             entry[0] += 1
-            return orig(*a, **k)
+            return _orig(*a, **k)
 
-        setattr(blocks, attr, wrapped)
-
-    wrap("group_norm_silu", "group_norm_silu", sig_gn)
-    wrap("attention_heads", "attention", sig_attn)
-    wrap("resblock_forward", "resblock", sig_res)
+        setattr(module, attr, wrapped)
     try:
         fn()
     finally:
-        for attr, orig in originals.items():
-            setattr(blocks, attr, orig)
+        for module, attr, orig in originals:
+            setattr(module, attr, orig)
     return {kind: [(key, e[0], e[1], e[2]) for key, e in d.items()]
             for kind, d in seen.items()}
 
@@ -175,16 +233,22 @@ def _kernel_group(name: str) -> str:
     for needle, label in (("conv3x3_kernel", "K4 conv3x3 (resblock.cu)"),
                           ("gn_stats_kernel", "K4 gn_stats (resblock.cu)"),
                           ("attn_fwd_kernel", "K3 attention (attention.cu)"),
-                          ("gn_silu_fwd", "K1 group_norm_silu (triton)")):
+                          ("gn_silu_fwd", "K1 group_norm_silu (triton)"),
+                          ("gn_silu_bwd", "K2 group_norm_silu backward (triton)")):
         if needle in name:
             return label
     return name[:90]
 
 
 def profile_request(torch, sampler, n: int) -> dict:
-    """Device time by kernel over one ``/sample``-sized request, read from a
-    torch.profiler trace: busy time is the sum of kernel, copy and memset
-    durations on the device; idle share is 1 − busy / wall."""
+    """Device time by kernel over one ``/sample``-sized request."""
+    return profile_fn(torch, lambda: sampler.sample(n, seed=5))
+
+
+def profile_fn(torch, fn, top_n: int = 12) -> dict:
+    """Device time by kernel over ``fn()``, read from a torch.profiler trace:
+    busy time is the sum of kernel, copy and memset durations on the device;
+    idle share is 1 − busy / wall."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -192,7 +256,7 @@ def profile_request(torch, sampler, n: int) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sampler.sample(n, seed=5)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     with tempfile.TemporaryDirectory() as d:
@@ -209,9 +273,10 @@ def profile_request(torch, sampler, n: int) -> dict:
     busy = sum(v[0] for v in groups.values())
     if busy <= 0:
         fail("the profiler trace holds no device time")
-    top = sorted(((k, v[0], v[1]) for k, v in groups.items()), key=lambda r: -r[1])[:12]
+    ops = sum(v[1] for v in groups.values())
+    top = sorted(((k, v[0], v[1]) for k, v in groups.items()), key=lambda r: -r[1])[:top_n]
     return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
-            "top": top}
+            "device_ops": ops, "top": top}
 
 
 def _vector_bytes(v) -> int:
@@ -232,11 +297,27 @@ def bound_ms(kind: str, args, kwargs) -> tuple:
                   + 2 * n * groups * 4)
         ops = 10 * x.numel()  # sums, affine, sigmoid: ~10 f32 operations per element
         rate = F32_FLOPS
+    elif kind == "group_norm_silu_bwd":
+        x, dz, gamma, beta, pre_bias, mean, inv, groups = args
+        n, h, w, c = x.shape
+        # x, dz read and dx written once; the affines and pre-bias read, the
+        # (N, G) statistics read, the three (N, C) f32 sums written
+        nbytes = (3 * x.numel() * x.element_size() + _vector_bytes(gamma)
+                  + _vector_bytes(beta) + _vector_bytes(pre_bias) + 2 * n * groups * 4
+                  + 3 * n * c * 4)
+        ops = 25 * x.numel()  # x̂, y, σ, dy, four sums, dx: ~25 f32 operations per element
+        rate = F32_FLOPS
     elif kind == "attention":
         q = args[0]
         n, t, h, d = q.shape
         nbytes = 4 * q.numel() * q.element_size()
         ops = 4 * n * h * t * t * d
+        rate = BF16_FLOPS
+    elif kind == "attention_bwd":
+        q = args[0]
+        n, t, h, d = q.shape
+        nbytes = 7 * q.numel() * q.element_size()  # q, k, v, g in; dq, dk, dv out
+        ops = 10 * n * h * t * t * d  # QKᵀ again, then dV, dP, dQ, dK
         rate = BF16_FLOPS
     else:
         x, w1, w2 = args[0], args[6], args[8]
@@ -254,6 +335,367 @@ def bound_ms(kind: str, args, kwargs) -> tuple:
         rate = BF16_FLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_l2(got, want) -> float:
+    g, w = got.float().flatten(), want.float().flatten()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def scaled_errors(got, want, rtol: float, atol_share: float):
+    """:func:`errors` with atol a share of the largest reference value."""
+    return errors(got, want, rtol, atol_share * float(want.float().abs().max()))
+
+
+def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cls, dev,
+                  card: str) -> dict:
+    """Phase 6: K1, K2, K3 and the attention backward at every call site of one
+    full-width bf16 training step at batch 128, each held against its plain
+    version on the recorded inputs, with times and bounds."""
+    from dmme_tpu_torch.data import CIFAR10
+
+    lit = lit_cls(dtype="bf16")
+    init_weights(lit.model, torch.Generator().manual_seed(SEED))
+    randomize_affines(torch, blocks, lit.model, torch.Generator().manual_seed(SEED + 1))
+    params = {k: v.detach().to(dev).requires_grad_(True)
+              for k, v in lit.model.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = torch.randint(0, 256, (TRAIN_BATCH, 32, 32, 3), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    loss_fn = lit.make_loss_fn(CIFAR10(batch_size=TRAIN_BATCH))  # flip, process, loss
+
+    def step():
+        loss = loss_fn(params, gen, batch)
+        torch.autograd.grad(loss, list(params.values()))
+
+    calls = record_calls(train_targets(blocks, k_gn, k_attn), step)
+    sites = {k: sum(c for _, c, _, _ in v) for k, v in calls.items()}
+    print(f"call sites per training step: {json.dumps(sites)}", flush=True)
+    want_sites = {"group_norm_silu": 45, "group_norm_silu_bwd": 45, "attention": 6,
+                  "attention_bwd": 6}
+    if sites != want_sites:
+        fail(f"training step call sites {sites}, expected {want_sites}")
+
+    rows, failures = [], []
+    with torch.no_grad():
+        for key, count, a, k in calls["group_norm_silu"]:
+            rtol, atol = TOL["group_norm_silu"]
+            kern = lambda a=a, k=k: k_gn.group_norm_silu(*a, **k)  # noqa: E731
+            plain = lambda a=a, k=k: k_gn.gn_silu_plain(  # noqa: E731
+                a[0], a[1], a[2], k.get("pre_bias"), a[3], k.get("eps", k_gn.GN_EPS))[0]
+            got = kern()
+            torch.cuda.synchronize()
+            max_abs, _, ok = errors(got, plain(), rtol, atol)
+            rows.append(_train_row("group_norm_silu", key, count, max_abs, ok,
+                                   device_ms(torch, kern), device_ms(torch, plain), a, k))
+        for key, count, a, k in calls["group_norm_silu_bwd"]:
+            kern = lambda a=a: k_gn.group_norm_silu_bwd(*a)  # noqa: E731
+            plain = lambda a=a: k_gn.gn_silu_bwd_plain(*a)  # noqa: E731
+            got = kern()
+            torch.cuda.synchronize()
+            want = plain()
+            max_abs, ok = 0.0, True
+            for name, g_, w_ in zip(("dx", "dgamma", "dbeta", "dbias"), got, want):
+                rtol, share = TOL_BWD["dx" if name == "dx" else "vec"]
+                e_abs, _, e_ok = scaled_errors(g_, w_, rtol, share)
+                max_abs, ok = max(max_abs, e_abs), ok and e_ok and g_.dtype == w_.dtype
+            rows.append(_train_row("group_norm_silu_bwd", key, count, max_abs, ok,
+                                   device_ms(torch, kern), device_ms(torch, plain), a, k))
+        for key, count, a, k in calls["attention"]:
+            rtol, atol = TOL["attention"]
+            q, kk, v, scale = a
+            kern = lambda a=a: k_attn.attention_heads(*a)  # noqa: E731
+            plain = lambda a=a: k_attn.attention_heads_plain(*a)  # noqa: E731
+            got = kern()
+            torch.cuda.synchronize()
+            max_abs, _, ok = errors(got, plain(), rtol, atol)
+            row = _train_row("attention", key, count, max_abs, ok, device_ms(torch, kern),
+                             device_ms(torch, plain), a, k)
+            sdpa = lambda q=q, kk=kk, v=v, scale=scale: (  # noqa: E731
+                torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2), scale=scale))
+            row["library_ms"] = device_ms(torch, sdpa)
+            rows.append(row)
+    for key, count, a, k in calls["attention_bwd"]:
+        q, kk, v, g, scale = a
+
+        def kern(a=a):
+            with torch.no_grad():
+                return k_attn.attention_bwd(*a)
+
+        got = kern()
+        leaves = [t.detach().requires_grad_(True) for t in (q, kk, v)]
+        out = k_attn.attention_heads_plain(*leaves, scale)
+        want = torch.autograd.grad(out, leaves, g, retain_graph=True)
+        rel = max(rel_l2(g_, w_) for g_, w_ in zip(got, want))
+        max_abs = max(float((g_.float() - w_.float()).abs().max()) for g_, w_ in zip(got, want))
+        ok = rel <= ATTN_BWD_REL_L2 and all(bool(g_.isfinite().all()) for g_ in got)
+        plain = lambda out=out, leaves=leaves, g=g: torch.autograd.grad(  # noqa: E731
+            out, leaves, g, retain_graph=True)
+        sl = [t.detach().transpose(1, 2).requires_grad_(True) for t in (q, kk, v)]
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(*sl, scale=scale)
+        g_t = g.transpose(1, 2)
+        sdpa = lambda o=sdpa_out, sl=sl, g_t=g_t: torch.autograd.grad(  # noqa: E731
+            o, sl, g_t, retain_graph=True)
+        row = _train_row("attention_bwd", key, count, max_abs, ok, device_ms(torch, kern),
+                         device_ms(torch, plain), a, k)
+        row["rel_l2"], row["library_ms"] = rel, device_ms(torch, sdpa)
+        rows.append(row)
+    for r in rows:
+        print(f"{r['kernel']:20s} {r['key']:52s} sites {r['sites']:2d} "
+              f"max_abs {r['max_abs_err']:.3e}"
+              + (f" rel_l2 {r['rel_l2']:.3e} (<= {ATTN_BWD_REL_L2})" if "rel_l2" in r else "")
+              + f" ms {r['ms']:.4f} plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})"
+              + (f" sdpa {r['library_ms']:.4f}" if r["library_ms"] else "")
+              + ("" if r["ok"] else "  FAIL"), flush=True)
+        if not r["ok"]:
+            failures.append(f"{r['kernel']} {r['key']}")
+    print(f"tolerances: K1 {TOL['group_norm_silu']}, K3 {TOL['attention']}, K2 dx "
+          f"{TOL_BWD['dx']} and dγ/dβ/dbias "
+          f"{TOL_BWD['vec']} (rtol, atol as a share of the largest reference value), "
+          f"attention backward relative L2 <= {ATTN_BWD_REL_L2}", flush=True)
+    if failures:
+        fail(f"training kernels disagree with their plain versions: {failures}")
+    per_step = {}
+    for kname in ("group_norm_silu", "group_norm_silu_bwd", "attention", "attention_bwd"):
+        rs = [r for r in rows if r["kernel"] == kname]
+        per_step[kname] = {f: sum(r[f] * r["sites"] for r in rs)
+                           for f in ("ms", "plain_ms", "bound_ms")}
+        per_step[kname]["library_ms"] = (sum(r["library_ms"] * r["sites"] for r in rs)
+                                         if kname.startswith("attention") else None)
+        per_step[kname]["max_abs_err"] = max(r["max_abs_err"] for r in rs)
+        per_step[kname]["bound_by"] = max(rs, key=lambda r: r["bound_ms"] * r["sites"])[
+            "bound_by"]
+        print(f"per training step (batch {TRAIN_BATCH}), {kname}: "
+              + ", ".join(f"{f} {v:.4f}" for f, v in per_step[kname].items()
+                          if isinstance(v, float)) + f" [{card}]", flush=True)
+    return {"shapes": rows, "per_step": per_step}
+
+
+def _train_row(kind, key, count, max_abs, ok, ms, plain_ms, a, k) -> dict:
+    row = {"kernel": kind, "key": repr(key), "sites": count, "max_abs_err": max_abs, "ok": ok,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": None}
+    row["bound_ms"], row["bound_by"] = bound_ms(kind, a, k)
+    return row
+
+
+def train_gradient(torch, np, blocks, ddpm_models, init_weights, DDPM, dev, ops) -> dict:
+    """Phase 7: one loss_given + backward at batch 8, dropout 0, bf16 on the
+    card against f32 on the CPU on the same weights and numpy t, ε."""
+    from torch.func import functional_call
+
+    card = ddpm_models.UNet(dtype=torch.bfloat16, dropout=0.0, fused_norm=True,
+                            fused_block=True)
+    init_weights(card, torch.Generator().manual_seed(SEED))
+    randomize_affines(torch, blocks, card, torch.Generator().manual_seed(SEED + 1))
+    ref = ddpm_models.UNet(dtype=torch.float32, dropout=0.0, fused_norm=True, fused_block=True)
+    ref.load_state_dict(card.state_dict(), strict=True)
+    card = card.to(dev)
+    algo = DDPM.create(1000)
+    r = np.random.default_rng(SEED + 2)
+    x0 = torch.tensor(np.clip(r.standard_normal((BATCH, 32, 32, 3)), -1, 1).astype(np.float32))
+    t = torch.tensor(r.integers(1, 1000, (BATCH,)), dtype=torch.int64)
+    eps = torch.tensor(r.standard_normal((BATCH, 32, 32, 3)).astype(np.float32))
+
+    def loss_and_grads(model, device):
+        params = {k: v.detach().to(device).requires_grad_(True)
+                  for k, v in model.state_dict().items()}
+
+        def fn(p, x, tt, **kw):
+            return functional_call(model, p, (x, tt), kw)
+
+        loss = algo.loss_given(fn, params, x0.to(device), t.to(device), eps.to(device),
+                               train=True)
+        return loss.detach().cpu(), dict(zip(params, (
+            g.cpu() for g in torch.autograd.grad(loss, list(params.values())))))
+
+    reset_counts(ops)
+    loss_c, grads_c = loss_and_grads(card, dev)
+    torch.cuda.synchronize()
+    launches = counts(ops)
+    print(f"launches in one training step (loss + backward): {launches}", flush=True)
+    if launches != PER_TRAIN_STEP:
+        fail(f"a training step launched {launches}, expected {PER_TRAIN_STEP}")
+    bad = [k for k, g in grads_c.items()
+           if not bool(g.isfinite().all()) or float(g.abs().max()) == 0.0]
+    print(f"parameter tensors with a finite, non-zero gradient on the card: "
+          f"{len(grads_c) - len(bad)} of {len(grads_c)}", flush=True)
+    if bad:
+        fail(f"gradients zero or not finite on the card: {bad[:10]}")
+    loss_r, grads_r = loss_and_grads(ref, torch.device("cpu"))
+    flat_c = torch.cat([g.float().flatten() for g in grads_c.values()])
+    flat_r = torch.cat([grads_r[k].flatten() for k in grads_c])
+    out = {"loss_card": float(loss_c), "loss_cpu": float(loss_r),
+           "loss_rel_err": abs(float(loss_c) - float(loss_r)) / abs(float(loss_r)),
+           "grad_rel_l2": rel_l2(flat_c, flat_r), "launches": launches, "per_module": {}}
+    for top in dict.fromkeys(k.split(".")[0] for k in grads_c):
+        keys = [k for k in grads_c if k.split(".")[0] == top]
+        out["per_module"][top] = rel_l2(torch.cat([grads_c[k].float().flatten() for k in keys]),
+                                        torch.cat([grads_r[k].flatten() for k in keys]))
+    print(f"loss card {out['loss_card']:.6f} cpu {out['loss_cpu']:.6f} rel err "
+          f"{out['loss_rel_err']:.3e}; flattened gradient rel L2 {out['grad_rel_l2']:.3e} "
+          f"(<= {GRAD_REL_L2}); TF32 off for matmul and cuDNN", flush=True)
+    print("per top-level module: " + ", ".join(f"{k} {v:.2e}"
+                                               for k, v in out["per_module"].items()), flush=True)
+    if not out["grad_rel_l2"] <= GRAD_REL_L2:
+        fail(f"the card's gradient is {out['grad_rel_l2']:.3e} from the CPU's")
+    return out
+
+
+def run_fit(torch, np, blocks, dev, ops, report, card: str) -> tuple:
+    """Phase 8: ``fit`` at the recipe's settings, then timed and profiled
+    steps of the same train step. Returns (lit, state)."""
+    import contextlib
+
+    from dmme_tpu_torch.data import CIFAR10
+    from dmme_tpu_torch.parallel import make_train_step
+    from dmme_tpu_torch.training import LitDDPM, fit
+
+    lit = LitDDPM(dtype="bf16")  # lr 2e-4, warmup 5000, clip 1.0, EMA 0.9999, flips on
+    dm = CIFAR10(synthetic=True, batch_size=TRAIN_BATCH)
+    log = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stderr(log):
+        state = fit(lit, dm, max_steps=FIT_WARM, log_every=1)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    print(f"fit: {FIT_WARM} warm steps (init, first launches) in {warm_s:.1f} s", flush=True)
+
+    # one step of the same train step, its updates checked
+    step = make_train_step(lit.make_loss_fn(dm))
+    it = dm.train_iter(SEED + 7)
+
+    def batch():
+        return torch.from_numpy(next(it)).pin_memory().to(dev, non_blocking=True)
+
+    p0 = {k: v.clone() for k, v in state.params.items()}
+    e0 = {k: v.clone() for k, v in state.ema_params.items()}
+    lr = lit.make_optimizer().schedule(state.opt_state.count)
+    state, m = step(state, batch(), SEED)
+    deltas = torch.cat([(state.params[k] - p0[k]).abs().flatten() for k in p0])
+    unmoved = [k for k in p0 if torch.equal(state.params[k], p0[k])]
+    ema_err = max(float(((state.ema_params[k] - (lit.decay * e0[k] + (1 - lit.decay)
+                                                 * state.params[k])).abs()
+                         / (e0[k].abs() + 1e-12)).max()) for k in e0)
+    upd = {"lr": lr, "max_abs_dp": float(deltas.max()), "median_abs_dp": float(deltas.median()),
+           "unmoved_tensors": len(unmoved), "ema_max_rel_err": ema_err}
+    print(f"one step at lr {lr:.4e}: max |Δp| {upd['max_abs_dp']:.3e}, median |Δp| "
+          f"{upd['median_abs_dp']:.3e}, tensors unmoved {len(unmoved)}; EMA = "
+          f"decay·ema + (1−decay)·p to {ema_err:.2e} relative", flush=True)
+    if unmoved or not (upd["max_abs_dp"] <= 10 * lr and 0.1 * lr <= upd["median_abs_dp"] <= 2 * lr
+                       and ema_err <= 1e-5):
+        fail(f"the step did not move parameters and EMA by the expected amounts: {upd}")
+    del p0, e0
+
+    reset_counts(ops)
+    log = io.StringIO()
+    with contextlib.redirect_stderr(log):
+        state = fit(lit, dm, max_steps=state.step + FIT_STEPS, state=state, log_every=1)
+    torch.cuda.synchronize()
+    launches = counts(ops)
+    lines = [ln for ln in log.getvalue().splitlines() if ln.startswith("[step")]
+    for ln in lines:
+        print("  " + ln, flush=True)
+    logged = [dict(kv.split("=") for kv in ln.split("] ", 1)[1].split()) for ln in lines]
+    bad = [r for r in logged if not all(np.isfinite(float(r[f])) for f in ("loss", "grad_norm"))]
+    expect = {k: v * FIT_STEPS for k, v in PER_TRAIN_STEP.items()}
+    print(f"fit: {len(logged)} logged steps; launches {launches} (expected {expect})", flush=True)
+    if len(logged) != FIT_STEPS or bad:
+        fail(f"fit logged {len(logged)} steps, {len(bad)} with a loss or grad_norm not finite")
+    if launches != expect:
+        fail(f"fit launched {launches}, expected {expect}")
+
+    # timed steps: CUDA events around each step, no host wait between steps
+    torch.cuda.reset_peak_memory_stats()
+    batches = [batch() for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    pairs, metrics = [], []
+    t0 = time.perf_counter()
+    for b in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, b, SEED)
+        end.record()
+        pairs.append((start, end))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [s.elapsed_time(e) for s, e in pairs]
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    timing = {"step_ms_median": statistics.median(step_ms), "step_ms_min": min(step_ms),
+              "step_ms_max": max(step_ms),
+              "imgs_per_sec": TRAIN_BATCH * TIMED_STEPS / wall,
+              "imgs_per_sec_from_median": TRAIN_BATCH / (statistics.median(step_ms) / 1e3),
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "bound_ms": 1e3 * TRAIN_STEP_TFLOP * 1e12 / BF16_FLOPS,
+              "losses": losses, "grad_norms": norms}
+    print(f"{TIMED_STEPS} timed steps at batch {TRAIN_BATCH}: step {timing['step_ms_median']:.2f} ms "
+          f"median (min {timing['step_ms_min']:.2f}, max {timing['step_ms_max']:.2f}; CUDA "
+          f"events), {timing['imgs_per_sec']:.1f} imgs/s (host clock over the run), peak "
+          f"memory {timing['peak_mem_gib']:.2f} GiB; step bound {timing['bound_ms']:.2f} ms "
+          f"({TRAIN_STEP_TFLOP} TFLOP, bench.py:60-63, at {BF16_FLOPS / 1e12:.0f} TFLOP/s) "
+          f"[{card}]", flush=True)
+    print("losses " + " ".join(f"{v:.4f}" for v in losses), flush=True)
+    print("grad_norms " + " ".join(f"{v:.4f}" for v in norms), flush=True)
+    if not all(np.isfinite(losses + norms)):
+        fail("a timed step gave a loss or grad_norm that is not finite")
+    del batches
+
+    # the device's idle share over three steps, and one step by kernel
+    three = [batch() for _ in range(3)]
+    one = [batch()]
+    holder = {"state": state}
+
+    def run(bs):
+        for b in bs:
+            holder["state"], _ = step(holder["state"], b, SEED)
+
+    prof3 = profile_fn(torch, lambda: run(three))
+    prof1 = profile_fn(torch, lambda: run(one), top_n=16)
+    state = holder["state"]
+    print(f"3 steps under torch.profiler: wall {prof3['wall_ms']:.2f} ms, device busy "
+          f"{prof3['busy_ms']:.2f} ms, idle share {prof3['idle_share']:.3f}", flush=True)
+    print(f"1 step by kernel: wall {prof1['wall_ms']:.2f} ms, device busy "
+          f"{prof1['busy_ms']:.2f} ms in {prof1['device_ops']} kernels, copies and memsets, "
+          f"idle share {prof1['idle_share']:.3f}; against the unprofiled median step "
+          f"{1.0 - prof3['busy_ms'] / 3 / timing['step_ms_median']:.3f} [{card}]", flush=True)
+    for name, ms, count in prof1["top"]:
+        print(f"    {ms:9.3f} ms {count:6d}x  {name}", flush=True)
+    report["fit"] = {"warm_s": warm_s, "update": upd, "logged": logged, "launches": launches,
+                     "timing": timing, "profile_3_steps": prof3, "profile_1_step": prof1}
+    return lit, state
+
+
+def sample_after_training(torch, k_res, lit, state, dev, ops) -> dict:
+    """Phase 9: DDIM-50 n = 8 from the trained raw weights through K4, equal
+    byte for byte after K4's weight cache is cleared."""
+    from dmme_tpu_torch.training import LitDDIM
+
+    ddim = LitDDIM(model=lit.model)  # T=1000, DDIM-50, quadratic τ
+
+    def draw():
+        gen = torch.Generator(device=dev).manual_seed(11)
+        return ddim.generate(state, gen, (8, 32, 32, 3), use_ema=False)
+
+    reset_counts(ops)
+    a = draw()
+    torch.cuda.synchronize()
+    launches = counts(ops)
+    k_res._PACKED.clear()
+    b = draw()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(a, b))
+    ok = same and tuple(a.shape) == (8, 32, 32, 3) and bool(a.isfinite().all())
+    print(f"DDIM-50 n=8 from the trained raw weights: shape {tuple(a.shape)}, std "
+          f"{float(a.std()):.4f}, launches {launches}; after clearing K4's weight cache: "
+          f"{'identical bytes' if same else 'DIFFERENT'}", flush=True)
+    if launches["resblock"] != 22 * ddim.diffusion_model.sub_timesteps:
+        fail(f"sampling launched {launches}, expected 22 K4 calls per step")
+    if not ok:
+        fail("sampling after training is not repeatable through K4's weight cache")
+    return {"launches": launches, "identical": same}
 
 
 def main() -> int:
@@ -282,9 +724,10 @@ def main() -> int:
     from dmme_tpu_torch.ops import group_norm as k_gn
     from dmme_tpu_torch.ops import resblock as k_res
     from dmme_tpu_torch.serving import Sampler, make_server
-    from dmme_tpu_torch.training import LitDDIM, ParamsState
+    from dmme_tpu_torch.training import LitDDIM, TrainState
 
-    ops = {"group_norm_silu": k_gn, "attention": k_attn, "resblock": k_res}
+    ops = {"group_norm_silu": (k_gn, "launches"), "group_norm_silu_bwd": (k_gn, "bwd_launches"),
+           "attention": (k_attn, "launches"), "resblock": (k_res, "launches")}
     report = {"card": card, "torch": torch.__version__, "device": kind}
 
     phase("build")
@@ -318,7 +761,7 @@ def main() -> int:
     site_counts = {}
     for name, m in models.items():
         with torch.no_grad():
-            calls = record_calls(blocks, lambda: m(x_in.to(dev), t_in.to(dev)))
+            calls = record_calls(serve_targets(blocks), lambda: m(x_in.to(dev), t_in.to(dev)))
         site_counts[name] = {k: sum(c for _, c, _, _ in v) for k, v in calls.items()}
         for kind_, lst in calls.items():
             for key, count, a, k in lst:
@@ -384,8 +827,10 @@ def main() -> int:
     phase("unet forward, full width, bf16 on the card vs f32 on the CPU")
     torch.set_num_threads(max(1, os.cpu_count() or 1))
     unet = {}
-    expect = {"both": {"group_norm_silu": 1, "attention": 6, "resblock": 22},
-              "fused_norm": {"group_norm_silu": 45, "attention": 6, "resblock": 0}}
+    expect = {"both": {"group_norm_silu": 1, "group_norm_silu_bwd": 0, "attention": 6,
+                       "resblock": 22},
+              "fused_norm": {"group_norm_silu": 45, "group_norm_silu_bwd": 0, "attention": 6,
+                             "resblock": 0}}
     for name, m in models.items():
         ref_model = ddpm_models.UNet(dtype=torch.float32, **settings[name])
         ref_model.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()}, strict=True)
@@ -416,7 +861,8 @@ def main() -> int:
     lit = LitDDIM(dtype="bf16", timesteps=1000, sample_steps=50, tau_schedule="quadratic")
     lit.init_state(SEED)
     randomize_affines(torch, blocks, lit.model, torch.Generator().manual_seed(SEED + 1))
-    state = ParamsState.create({k: v.detach().clone() for k, v in lit.model.state_dict().items()})
+    state = TrainState.create({k: v.detach().clone() for k, v in lit.model.state_dict().items()},
+                              lit.make_optimizer())
     sampler = Sampler(lit, state, img_size=32, device="cuda")
     server = make_server(sampler, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -481,6 +927,33 @@ def main() -> int:
         for name, ms, count in prof["top"]:
             print(f"    {ms:9.3f} ms {count:6d}x  {name}", flush=True)
 
+    from dmme_tpu_torch.diffusion import DDPM
+    from dmme_tpu_torch.training import LitDDPM
+
+    del sampler, state
+    torch.cuda.empty_cache()
+    phase("train kernels: one full-width bf16 training step at batch 128")
+    train = train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, LitDDPM, dev,
+                          card)
+    report["train_kernels"] = train
+    torch.cuda.empty_cache()
+
+    phase("train gradient: loss_given + backward at batch 8, bf16 on the card vs f32 on the CPU")
+    report["train_gradient"] = train_gradient(torch, np, blocks, ddpm_models, init_weights,
+                                              DDPM, dev, ops)
+    torch.cuda.empty_cache()
+
+    # a user's defaults for the timed training: cuDNN may pick any algorithm
+    torch.backends.cudnn.deterministic = False
+    print("cudnn deterministic off for fit (the library default)", flush=True)
+    phase("fit: LitDDPM(dtype='bf16') on CIFAR10(synthetic=True, batch_size=128)")
+    trained_lit, trained = run_fit(torch, np, blocks, dev, ops, report, card)
+    fit_launches = report["fit"]["launches"]
+
+    phase("sample after training: DDIM-50 through K4 from the trained raw weights")
+    report["sample_after_training"] = sample_after_training(torch, k_res, trained_lit, trained,
+                                                            dev, ops)
+
     phase("kernels")
     sources = {
         "group_norm_silu": ("triton", "dmme_tpu_torch/ops/group_norm.py",
@@ -509,18 +982,27 @@ def main() -> int:
             "bound_by": max(recs, key=lambda r: r["bound_ms"] * r["sites"]["both"])["bound_by"],
             "library_ms": per_forward("library_ms") if kname == "attention" else None,
         })
+    k2 = train["per_step"]["group_norm_silu_bwd"]
+    table.insert(1, {
+        "name": "group_norm_silu_bwd", "route": "triton",
+        "source": "dmme_tpu_torch/ops/group_norm.py",
+        "replaces": "dmme_tpu/ops/group_norm.py:110",
+        "launches": fit_launches["group_norm_silu_bwd"],
+        "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
+    })
     report["kernels"] = table
-    print("kernels launched on the serving path and held against their plain versions: "
+    print("kernels launched on their paths and held against their plain versions: "
           + "; ".join(f"{k['name']} ({k['route']}, {k['source']}, replaces {k['replaces']}, "
-                      f"{k['launches']} launches, "
-                      f"{len([r for r in shapes if r['kernel'] == k['name']])} shapes)"
-                      for k in table), flush=True)
+                      f"{k['launches']} launches)" for k in table), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
-    print("(ms, plain_ms, bound_ms and library_ms: per UNet forward at batch 8, "
-          "summed over the serving path's call sites)", flush=True)
+    print("(K1, K3, K4: launches in the four serve requests; ms, plain_ms, bound_ms and "
+          "library_ms per UNet forward at batch 8, summed over the serving path's call sites. "
+          f"K2: launches in the {FIT_STEPS} logged fit steps; times per training step at "
+          f"batch {TRAIN_BATCH}, summed over its 45 call sites)", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,8 +8,11 @@ tests. Activations keep the JAX package's NHWC layout at every public function.
 * ``dmme_tpu_torch.ops``       — hand-written Hopper kernels (Triton, CUDA C++)
   with a plain PyTorch version of each, taken only for CPU tensors
 * ``dmme_tpu_torch.models``    — the DDPM UNet as ``nn.Module``s
-* ``dmme_tpu_torch.diffusion`` — DDPM / DDIM sampling
-* ``dmme_tpu_torch.training``  — the sampling surface of ``LitDDPM``/``LitDDIM``
+* ``dmme_tpu_torch.diffusion`` — DDPM / DDIM training loss and sampling
+* ``dmme_tpu_torch.data``      — CIFAR-10 (on-disk or synthetic), flips on the device
+* ``dmme_tpu_torch.training``  — ``LitDDPM``/``LitDDIM``, ``TrainState``, the
+  optimizer chain, EMA and ``fit``
+* ``dmme_tpu_torch.parallel``  — the train step (one device)
 * ``dmme_tpu_torch.serving``   — the HTTP sampling server
 
 Entry points run on the CUDA device unless the caller passes ``device="cpu"``.

@@ -1,4 +1,5 @@
 """DDIM sampling over a trained DDPM (mirrors ``dmme_tpu/diffusion/ddim.py``).
+Training is DDPM's, inherited.
 
 ``variant="canonical"`` (default) is the paper's Eq. 12, η-parameterised;
 ``variant="reference"`` divides x̂_0 by √ᾱ_{τ_{i−1}} and drops the
@@ -31,13 +32,14 @@ class DDIM(DDPM):
     def create(cls, timesteps: int = 1000, sub_timesteps: int = 50,
                tau_schedule: str = "quadratic", start: float = 0.0001, end: float = 0.02,
                eta: float = 0.0, variant: str = "canonical",
-               parameterization: str = "eps") -> "DDIM":
+               parameterization: str = "eps", snr_gamma: Optional[float] = None) -> "DDIM":
         assert parameterization in ("eps", "v"), parameterization
         beta = eq.ddpm.linear_schedule(timesteps, start, end)
         return cls(
             schedule=eq.ddpm.schedule_from_beta(beta),
             timesteps=timesteps,
             parameterization=parameterization,
+            snr_gamma=snr_gamma,
             tau=eq.ddim.make_tau(tau_schedule, timesteps, sub_timesteps),
             sub_timesteps=sub_timesteps,
             eta=eta,

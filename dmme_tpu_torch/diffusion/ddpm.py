@@ -1,8 +1,10 @@
-"""DDPM sampling (mirrors ``dmme_tpu/diffusion/ddpm.py``).
+"""DDPM training loss and sampling (mirrors ``dmme_tpu/diffusion/ddpm.py``).
 
-Denoiser contract: ``model_fn(params, x, t)`` returning the network output
-for NHWC ``x`` and integer ``t`` of shape (N,). The schedule is held in
-float32 with the 1-based indexing of :mod:`dmme_tpu_torch.equations.ddpm`.
+Denoiser contract: ``model_fn(params, x, t, *, train=False, generator=None)``
+returning the network output for NHWC ``x`` and integer ``t`` of shape (N,);
+with ``train`` the model draws its dropout from ``generator``. The schedule
+is held in float32 with the 1-based indexing of
+:mod:`dmme_tpu_torch.equations.ddpm`.
 """
 
 from __future__ import annotations
@@ -48,14 +50,16 @@ class DDPM:
     timesteps: int = 1000
     #: network output convention: "eps" or "v" (velocity)
     parameterization: str = "eps"
+    #: Min-SNR-γ loss weighting (Hang et al. 2023); None = uniform L_simple
+    snr_gamma: Optional[float] = None
 
     @classmethod
     def create(cls, timesteps: int = 1000, start: float = 0.0001, end: float = 0.02,
-               parameterization: str = "eps") -> "DDPM":
+               parameterization: str = "eps", snr_gamma: Optional[float] = None) -> "DDPM":
         assert parameterization in ("eps", "v"), parameterization
         beta = eq.ddpm.linear_schedule(timesteps, start, end)
         return cls(schedule=eq.ddpm.schedule_from_beta(beta), timesteps=timesteps,
-                   parameterization=parameterization)
+                   parameterization=parameterization, snr_gamma=snr_gamma)
 
     def to(self, device) -> "DDPM":
         """This algorithm with its tables on ``device``."""
@@ -68,6 +72,43 @@ class DDPM:
             return eq.ddpm.eps_from_v(out, x_t, alpha_bar_t)
         return out
 
+    # ------------------------------------------------------------------ train
+    def sample_timesteps(self, generator: torch.Generator, batch: int) -> torch.Tensor:
+        """t ~ Uniform{1, …, T−1} as int64 on the generator's device (T itself
+        is never drawn, as in the JAX package and its reference)."""
+        return torch.randint(1, self.timesteps, (batch,), generator=generator,
+                             device=generator.device)
+
+    def loss(self, model_fn: ModelFn, params: Any, generator: torch.Generator,
+             x_0: torch.Tensor, *, train: bool = True) -> torch.Tensor:
+        """L_simple = E‖ε − ε_θ(x_t, t)‖², with t, then ε, then the model's
+        dropout drawn from ``generator`` in that order (the JAX package's
+        t/ε/dropout key split)."""
+        t = self.sample_timesteps(generator, x_0.shape[0])
+        noise = torch.randn(x_0.shape, generator=generator, dtype=x_0.dtype,
+                            device=generator.device)
+        return self.loss_given(model_fn, params, x_0, t, noise, train=train,
+                               generator=generator)
+
+    def loss_given(self, model_fn: ModelFn, params: Any, x_0: torch.Tensor,
+                   t: torch.Tensor, noise: torch.Tensor, *, train: bool = False,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The loss with injected t and ε: the deterministic core of
+        :meth:`loss`, the entry the parity tests drive. The network output is
+        cast to x_0's dtype before the loss, which is taken in that dtype."""
+        alpha_bar_t = _bcast(self.schedule.alpha_bar.to(x_0.device)[t], x_0.dim())
+        x_t = eq.ddpm.q_sample(x_0, alpha_bar_t, noise)
+        out = model_fn(params, x_t, t, train=train, generator=generator).to(x_0.dtype)
+        if self.parameterization == "v":
+            target = eq.ddpm.v_target(x_0, alpha_bar_t, noise)
+        else:
+            target = noise
+        if self.snr_gamma is None:
+            return eq.ddpm.simple_loss(target, out)
+        w = eq.ddpm.min_snr_weight(alpha_bar_t, self.snr_gamma, self.parameterization)
+        return torch.mean(w * torch.square(target - out))
+
+    # ----------------------------------------------------------------- sample
     def sampling_step(self, model_fn: ModelFn, params: Any, x_t: torch.Tensor, t,
                       generator: Optional[torch.Generator] = None,
                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -47,9 +47,40 @@ def forward_process(x_0: torch.Tensor, alpha_bar_t: torch.Tensor) -> Gaussian:
     return Gaussian(mean, torch.sqrt(1.0 - alpha_bar_t).expand_as(mean))
 
 
+def q_sample(x_0: torch.Tensor, alpha_bar_t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """x_t = √ᾱ_t · x_0 + √(1 − ᾱ_t) · ε, the sampling form of :func:`forward_process`."""
+    return torch.sqrt(alpha_bar_t) * x_0 + torch.sqrt(1.0 - alpha_bar_t) * noise
+
+
+def v_target(x_0: torch.Tensor, alpha_bar_t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Velocity target v = √ᾱ_t·ε − √(1−ᾱ_t)·x₀ (Salimans & Ho 2022)."""
+    return torch.sqrt(alpha_bar_t) * noise - torch.sqrt(1.0 - alpha_bar_t) * x_0
+
+
 def eps_from_v(v: torch.Tensor, x_t: torch.Tensor, alpha_bar_t: torch.Tensor) -> torch.Tensor:
     """ε = √ᾱ_t·v + √(1−ᾱ_t)·x_t, the inverse of the v-parameterisation."""
     return torch.sqrt(alpha_bar_t) * v + torch.sqrt(1.0 - alpha_bar_t) * x_t
+
+
+def simple_loss(noise: torch.Tensor, estimated_noise: torch.Tensor) -> torch.Tensor:
+    """L_simple: the mean squared error between true and predicted noise."""
+    return torch.mean(torch.square(noise - estimated_noise))
+
+
+def snr(alpha_bar_t: torch.Tensor) -> torch.Tensor:
+    """Signal-to-noise ratio SNR(t) = ᾱ_t / (1 − ᾱ_t)."""
+    return alpha_bar_t / torch.clamp(1.0 - alpha_bar_t, min=1e-20)
+
+
+def min_snr_weight(alpha_bar_t: torch.Tensor, gamma: float,
+                   parameterization: str = "eps") -> torch.Tensor:
+    """Min-SNR-γ loss weight (Hang et al. 2023): min(SNR, γ)/SNR on the
+    ε-objective, min(SNR, γ)/(SNR + 1) on the v-objective."""
+    s = snr(alpha_bar_t)
+    clipped = torch.clamp(s, max=gamma)
+    if parameterization == "v":
+        return clipped / (s + 1.0)
+    return clipped / torch.clamp(s, min=1e-20)
 
 
 def reverse_process(

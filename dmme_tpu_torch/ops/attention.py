@@ -1,4 +1,5 @@
-"""Softmax attention forward: a CUDA C++ kernel for Hopper (``csrc/attention.cu``).
+"""Softmax attention: a CUDA C++ forward kernel for Hopper (``csrc/attention.cu``)
+and the autograd Function around it.
 
 Replaces the TPU kernel ``dmme_tpu/ops/attention.py:_attn_kernel`` (reached
 through ``_attention_pallas`` and ``attention``/``attention_heads``), which
@@ -12,6 +13,11 @@ operations per byte than the tensor cores need, so the least time is one
 read of q, k, v and one write of o. q, k and v are read in place through
 their strides (the UNet hands it strided views of the packed qkv
 projection), so no copy precedes the launch. Launches per call: 1.
+
+The backward, :func:`attention_bwd`, is not a kernel in the JAX package
+either: ``dmme_tpu/ops/attention.py:_fused_bwd`` recomputes the
+probabilities from the saved q, k, v and differentiates with XLA einsums.
+It is ported line by line as ``torch.matmul`` and elementwise ops.
 """
 
 from __future__ import annotations
@@ -97,17 +103,50 @@ def attention_heads_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(n, h, t, d).transpose(1, 2)
 
 
+def attention_bwd(q, k, v, g, scale: float):
+    """(dq, dk, dv) of softmax(QKᵀ·scale)·V on (N, T, H, D) tensors, the
+    arithmetic of ``_fused_bwd`` line by line: scores in the inputs' dtype,
+    softmax in f32, P cast to g's dtype for dv, dS cast to q's dtype."""
+    qh, kh, vh, gh = (x.transpose(1, 2) for x in (q, k, v, g))  # (N, H, T, D)
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    p = torch.softmax(s.to(torch.float32), dim=-1)
+    dv = torch.matmul(p.to(g.dtype).transpose(-1, -2), gh)
+    dp = torch.matmul(gh, vh.transpose(-1, -2)).to(torch.float32)
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    ds = (ds * scale).to(q.dtype)
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+class Attention(torch.autograd.Function):
+    """Multi-head softmax attention on (N, T, H, D) tensors: K3 forward on
+    a CUDA tensor, :func:`attention_heads_plain` on a CPU one; the
+    :func:`attention_bwd` recompute as backward on both. Saves q, k and v
+    as given (strided views of a packed projection stay views)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        if _check_device(q):
+            return attention_heads_plain(q, k, v, scale)
+        return _launch(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*attention_bwd(q, k, v, g, ctx.scale), None)
+
+
 def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """Multi-head attention on (N, T, H, D) tensors → (N, T, H, D)."""
-    if _check_device(q):
-        return attention_heads_plain(q, k, v, scale)
-    return _launch(q, k, v, scale)
+    """Multi-head attention on (N, T, H, D) tensors → (N, T, H, D), through
+    :class:`Attention` (differentiable in q, k and v)."""
+    return Attention.apply(q, k, v, scale)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> torch.Tensor:
     """Batched attention: inputs (BH, T, D) → (BH, T, D)."""
-    if _check_device(q):
-        return attention_plain(q, k, v, scale)
-    return _launch(q[:, :, None], k[:, :, None], v[:, :, None], scale)[:, :, 0]
+    return attention_heads(q[:, :, None], k[:, :, None], v[:, :, None], scale)[:, :, 0]

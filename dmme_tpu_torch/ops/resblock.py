@@ -199,8 +199,17 @@ def resblock_forward(
     num_groups: int = 32,
     eps: float = GN_EPS,
 ) -> torch.Tensor:
-    """Fused ResBlock forward (see module docstring), NHWC. Inference only.
-    CPU tensors take :func:`resblock_plain`; CUDA tensors the kernels."""
+    """Fused ResBlock forward (see module docstring), NHWC. Inference only:
+    it has no backward, so it raises under grad mode when any input requires
+    grad, on every device. CPU tensors take :func:`resblock_plain`; CUDA
+    tensors the kernels."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br)):
+        raise RuntimeError(
+            "resblock_forward is inference-only and has no backward, but an input "
+            "requires grad: call it under torch.no_grad(), or train through the "
+            "standard ResBlock path (train=True)")
     if x.device.type == "cpu":
         return resblock_plain(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br,
                               num_groups, eps)

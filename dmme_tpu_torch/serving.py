@@ -24,6 +24,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from dmme_tpu_torch.utils.device import resolve_device
 from dmme_tpu_torch.utils.norm import denorm
 from dmme_tpu_torch.utils.vis import make_history
 
@@ -37,14 +38,6 @@ def _bucket(n: int) -> int:
         if n <= b:
             return b
     return _BUCKETS[-1]
-
-
-def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
-    """``None`` means the CUDA device; there is no silent CPU fallback."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
-    return device
 
 
 class Sampler:

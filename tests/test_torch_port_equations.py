@@ -106,3 +106,26 @@ def test_pad_norm_denorm():
     v = torch.tensor([0.0, 0.25, 1.0])
     torch.testing.assert_close(denorm(norm(v)), v)
     torch.testing.assert_close(denorm(torch.tensor([-3.0, 3.0])), torch.tensor([0.0, 1.0]))
+
+
+@pytest.mark.parametrize("name", ["q_sample", "v_target", "simple_loss", "snr",
+                                  "min_snr_weight_eps", "min_snr_weight_v"])
+def test_training_equations_match(name):
+    """The loss-side equations on the same inputs, including ᾱ = 1 (the
+    sentinel), where SNR is clamped instead of dividing by zero. f32, rtol 1e-6."""
+    r = np.random.default_rng(5)
+    x0, eps = r.standard_normal((2, 3, 4, 4)).astype(np.float32), \
+        r.standard_normal((2, 3, 4, 4)).astype(np.float32)
+    ab = np.array([1.0, 0.7, 0.3, 4e-5], np.float32).reshape(2, 2, 1, 1)[:, :1]
+    fns = {
+        "q_sample": lambda m, a, x, e: m.q_sample(x, a, e),
+        "v_target": lambda m, a, x, e: m.v_target(x, a, e),
+        "simple_loss": lambda m, a, x, e: m.simple_loss(e, x),
+        "snr": lambda m, a, x, e: m.snr(a),
+        "min_snr_weight_eps": lambda m, a, x, e: m.min_snr_weight(a, 5.0),
+        "min_snr_weight_v": lambda m, a, x, e: m.min_snr_weight(a, 5.0, "v"),
+    }
+    got = fns[name](teq.ddpm, torch.tensor(ab), torch.tensor(x0), torch.tensor(eps))
+    want = fns[name](jeq.ddpm, jnp.asarray(ab), jnp.asarray(x0), jnp.asarray(eps))
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=0)

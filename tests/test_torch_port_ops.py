@@ -3,13 +3,16 @@
 On the CPU each port wrapper takes its plain PyTorch version; the JAX side
 runs the Pallas kernels in interpret mode, as tests/test_ops.py does. f32
 tolerances are tests/test_ops.py's: rtol 2e-4 / atol 2e-5 for GroupNorm+SiLU
-and attention, rtol 1e-4 / atol 1e-5 for the fused ResBlock. The kernels
+and attention forwards, rtol 2e-3 / atol 2e-4 for the GroupNorm+SiLU
+gradients, rtol 1e-4 / atol 1e-5 for the fused ResBlock. The kernels
 themselves build and run only on a CUDA device; chip_smoke.py holds them
 against these plain versions there.
 """
 
+import importlib
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,7 +29,12 @@ from dmme_tpu_torch.ops import resblock as t_resblock
 
 torch.set_num_threads(1)
 
+# the modules themselves: ``dmme_tpu.ops`` exports functions of the same names
+jax_attention_module = importlib.import_module("dmme_tpu.ops.attention")
+jax_group_norm_module = importlib.import_module("dmme_tpu.ops.group_norm")
+
 GN_TOL = dict(rtol=2e-4, atol=2e-5)
+GN_GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
 ATTN_TOL = dict(rtol=2e-4, atol=2e-5)
 RES_TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -77,6 +85,71 @@ class TestGroupNormSiLU:
         torch.testing.assert_close(inv.double(), (var + 1e-5).rsqrt(), rtol=1e-4, atol=1e-5)
 
 
+class TestGroupNormSiLUBackward:
+    @pytest.mark.parametrize("pre_bias", [False, True], ids=["no_bias", "pre_bias"])
+    @pytest.mark.parametrize("per_sample", [False, True], ids=["shared", "per_sample"])
+    def test_function_grads_match_jax(self, per_sample, pre_bias):
+        """jax.grad through the interpret-mode Pallas forward and backward
+        against autograd through :class:`GroupNormSiLU`: dx, dγ and dβ in
+        the shape they were given ((C,) shared by the batch, or (N, C)), and
+        d(pre_bias)."""
+        r = np.random.default_rng(11 + 2 * per_sample + pre_bias)
+        n, c = 2, 16
+        aff = (n, c) if per_sample else (c,)
+        x = _rand(r, n, 4, 4, c)
+        gamma, beta = 1.0 + 0.1 * _rand(r, *aff), 0.1 * _rand(r, *aff)
+        bias = 0.2 * _rand(r, n, c) if pre_bias else None
+
+        def jloss(args):
+            xx, gg, bb, cc = args
+            return jnp.sum(jnp.sin(jax_gn_silu(xx, gg, bb, 4, pre_bias=cc, force="interpret")))
+
+        jargs = tuple(None if a is None else jnp.asarray(a) for a in (x, gamma, beta, bias))
+        want = jax.grad(jloss)(jargs)
+        targs = [None if a is None else torch.tensor(a, requires_grad=True)
+                 for a in (x, gamma, beta, bias)]
+        y = t_group_norm.group_norm_silu(*targs[:3], 4, pre_bias=targs[3])
+        assert "GroupNormSiLU" in y.grad_fn.name()
+        torch.sin(y).sum().backward()
+        for name, t, w in zip(("dx", "dgamma", "dbeta", "dbias"), targs, want):
+            if t is None:
+                continue
+            assert t.grad.shape == t.shape, name
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), err_msg=name, **GN_GRAD_TOL)
+
+    def test_plain_backward_matches_bwd_kernel(self):
+        """:func:`gn_silu_bwd_plain` against ``_bwd_pallas`` in interpret
+        mode on the same statistics and incoming gradient: all four outputs."""
+        r = np.random.default_rng(21)
+        n, c, groups = 2, 32, 8
+        x, dz = _rand(r, n, 4, 4, c), _rand(r, n, 4, 4, c)
+        gamma, beta = 1.0 + 0.1 * _rand(r, n, c), 0.1 * _rand(r, n, c)
+        bias = 0.2 * _rand(r, n, c)
+        j = [jnp.asarray(a) for a in (x, gamma, beta, bias)]
+        _, mean, inv = jax_group_norm_module._fwd_pallas(*j, groups, 1e-5, n, interpret=True)
+        want = jax_group_norm_module._bwd_pallas(*j, mean, inv, jnp.asarray(dz), groups, 1e-5,
+                                                 n, interpret=True)
+        got = t_group_norm.gn_silu_bwd_plain(
+            torch.tensor(x), torch.tensor(dz), torch.tensor(gamma), torch.tensor(beta),
+            torch.tensor(bias), torch.tensor(np.asarray(mean)), torch.tensor(np.asarray(inv)),
+            groups)
+        for name, g, w in zip(("dx", "dgamma", "dbeta", "dbias"), got, want):
+            assert g.dtype == torch.float32 and g.shape == w.shape, name
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **GN_GRAD_TOL)
+
+    def test_bf16_pre_bias_gets_a_bf16_grad(self):
+        """The ResBlock's pre-bias arrives in bf16 from its Dense layer; its
+        gradient goes back in bf16, and a (C,) affine's in f32 (C,)."""
+        r = np.random.default_rng(23)
+        x = torch.tensor(_rand(r, 2, 4, 4, 8)).to(torch.bfloat16).requires_grad_()
+        bias = torch.tensor(_rand(r, 2, 8)).to(torch.bfloat16).requires_grad_()
+        gamma = torch.ones(8, requires_grad=True)
+        y = t_group_norm.group_norm_silu(x, gamma, torch.zeros(8), 2, pre_bias=bias)
+        y.float().sum().backward()
+        assert y.dtype == x.grad.dtype == bias.grad.dtype == torch.bfloat16
+        assert gamma.grad.dtype == torch.float32 and gamma.grad.shape == (8,)
+
+
 class TestAttention:
     @pytest.mark.parametrize("t,d", [(16, 32), (64, 16), (64, 64)])
     def test_plain_matches_interpret(self, t, d):
@@ -99,6 +172,30 @@ class TestAttention:
         got = t_attention.attention_heads(tq[:, :, 0], tq[:, :, 1], tq[:, :, 2], 0.1)
         assert got.shape == (n, t, h, d)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+    def test_function_backward_matches_fused_bwd(self):
+        """Autograd through :class:`Attention` on strided views of a packed
+        qkv against ``_fused_bwd``, the JAX package's recompute backward:
+        the packed gradient holds dq, dk and dv in place."""
+        r = np.random.default_rng(8)
+        n, t, h, d = 2, 16, 2, 8
+        qkv, g = _rand(r, n, t, 3, h, d), _rand(r, n, t, h, d)
+        scale = 0.3
+
+        def flat(a):  # (N, T, H, D) -> (N·H, T, D)
+            return jnp.asarray(a).transpose(0, 2, 1, 3).reshape(n * h, t, d)
+
+        res = tuple(flat(qkv[:, :, i]) for i in range(3))
+        want = jax_attention_module._fused_bwd(scale, res, flat(g))
+        tq = torch.tensor(qkv, requires_grad=True)
+        out = t_attention.attention_heads(tq[:, :, 0], tq[:, :, 1], tq[:, :, 2], scale)
+        assert "Attention" in out.grad_fn.name()
+        out.backward(torch.tensor(g))
+        for i, name in enumerate(("dq", "dk", "dv")):
+            got = tq.grad[:, :, i].transpose(1, 2).reshape(n * h, t, d)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want[i]), err_msg=name,
+                                       **ATTN_TOL)
 
 
 def _resblock_inputs(r, n, hw, cin, cout, film, proj):
@@ -179,7 +276,7 @@ class TestResBlock:
         torch.testing.assert_close(row, per_sample, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kernel", ["group_norm_silu", "resblock"])
+@pytest.mark.parametrize("kernel", ["group_norm_silu", "group_norm_silu_bwd", "resblock"])
 def test_launchers_take_bf16_only(kernel):
     """The launchers refuse another dtype before they reach a kernel."""
     x = torch.zeros((1, 4, 4, 64))
@@ -187,6 +284,9 @@ def test_launchers_take_bf16_only(kernel):
     with pytest.raises(TypeError, match="bf16"):
         if kernel == "group_norm_silu":
             t_group_norm._launch(x, v, v, None, 32, 1e-5)
+        elif kernel == "group_norm_silu_bwd":
+            stats = torch.zeros((1, 32))
+            t_group_norm._launch_bwd(x, x, v, v, None, stats, stats, 32)
         else:
             w = torch.zeros((64, 64, 3, 3))
             t_resblock._launch(x, v, v, v, v, v, w, v, w, v, None, None, 32, 1e-5)
@@ -202,12 +302,13 @@ def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
     monkeypatch.setattr(build, "library", refuse)
     monkeypatch.setattr(build, "build_all", refuse)
     monkeypatch.setattr(t_group_norm, "_triton_kernel", refuse)
-    before = (t_group_norm.launches, t_attention.launches, t_resblock.launches)
+    before = (t_group_norm.launches, t_group_norm.bwd_launches, t_attention.launches,
+              t_resblock.launches)
     r = np.random.default_rng(0)
-    t_group_norm.group_norm_silu(torch.tensor(_rand(r, 1, 4, 4, 8)), torch.ones(8),
-                                 torch.zeros(8), 2)
-    q = torch.tensor(_rand(r, 1, 16, 16))
-    t_attention.attention(q, q, q, 0.25)
+    x = torch.tensor(_rand(r, 1, 4, 4, 8), requires_grad=True)
+    t_group_norm.group_norm_silu(x, torch.ones(8), torch.zeros(8), 2).sum().backward()
+    q = torch.tensor(_rand(r, 1, 16, 16), requires_grad=True)
+    t_attention.attention(q, q, q, 0.25).sum().backward()
     t_attention.attention_heads(q[:, :, None], q[:, :, None], q[:, :, None], 0.25)
     args = _resblock_inputs(r, 1, 4, 8, 8, False, False)
     t = torch.tensor
@@ -215,7 +316,28 @@ def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
                                 t(args[6].transpose(3, 2, 0, 1).copy()), t(args[7]),
                                 t(args[8].transpose(3, 2, 0, 1).copy()), t(args[9]),
                                 num_groups=2)
-    assert (t_group_norm.launches, t_attention.launches, t_resblock.launches) == before
+    assert (t_group_norm.launches, t_group_norm.bwd_launches, t_attention.launches,
+            t_resblock.launches) == before
+
+
+@pytest.mark.parametrize("requires_grad", ["x", "w1", "pre2"])
+def test_resblock_refuses_to_run_under_grad(requires_grad):
+    """The fused ResBlock has no backward: with grad mode on and any input
+    requiring grad it raises, instead of returning a result detached from
+    that input; under no_grad the same call runs."""
+    r = np.random.default_rng(3)
+    x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, _, _ = _resblock_inputs(r, 1, 4, 8, 8, False,
+                                                                         False)
+    args = dict(x=torch.tensor(x), g1=torch.tensor(g1), b1v=torch.tensor(b1v),
+                pre2=torch.tensor(pre2), g2=torch.tensor(g2), b2v=torch.tensor(b2v),
+                w1=torch.tensor(w1.transpose(3, 2, 0, 1).copy()), b1=torch.tensor(b1),
+                w2=torch.tensor(w2.transpose(3, 2, 0, 1).copy()), b2=torch.tensor(b2))
+    args[requires_grad].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        t_resblock.resblock_forward(**args, num_groups=2)
+    with torch.no_grad():
+        out = t_resblock.resblock_forward(**args, num_groups=2)
+    assert out.shape == (1, 4, 4, 8) and torch.isfinite(out).all()
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -229,6 +351,9 @@ def test_other_devices_raise_instead_of_falling_back():
     v = torch.empty((1, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         t_resblock.resblock_forward(x, v, v, v, v, v, w, v[0], w, v[0], num_groups=2)
+    stats = torch.empty((1, 2), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        t_group_norm.group_norm_silu_bwd(x, x, v[0], v[0], None, stats, stats, 2)
 
 
 def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):

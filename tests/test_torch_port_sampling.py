@@ -20,7 +20,7 @@ from dmme_tpu.models import as_model_fn
 from dmme_tpu.models import ddpm as jax_ddpm
 from dmme_tpu_torch.diffusion import DDIM, DDPM
 from dmme_tpu_torch.models import ddpm as t_ddpm
-from dmme_tpu_torch.training import LitDDIM, ParamsState
+from dmme_tpu_torch.training import LitDDIM, TrainState
 from dmme_tpu_torch.utils.convert import from_flax
 
 torch.set_num_threads(1)
@@ -152,7 +152,7 @@ def test_ddpm_ancestral_trajectory_matches(models):
 def test_lit_ddim_generate_uses_ema_and_generator(models):
     _, _, tmodel, sd = models
     lit = LitDDIM(model=tmodel, timesteps=20, sample_steps=4)
-    state = ParamsState.create(sd)
+    state = TrainState.create(sd, lit.make_optimizer())
     state.params = {k: torch.zeros_like(v) for k, v in sd.items()}  # EMA copy is what samples
     a = lit.generate(state, torch.Generator().manual_seed(3), SHAPE)
     b = lit.generate(state, torch.Generator().manual_seed(3), SHAPE)

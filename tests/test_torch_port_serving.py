@@ -31,7 +31,7 @@ TINY = dict(pos_dim=4, emb_dim=8, num_groups=2, channels_per_depth=(4, 8, 8, 8),
 def lit_state():
     lit = LitDDPM(model=t_ddpm.UNet(**TINY, fused_norm=True, fused_block=True),
                   diffusion_model=DDPM.create(timesteps=6))
-    return lit, lit.init_state(0)
+    return lit, lit.init_state(0, device="cpu")
 
 
 @pytest.fixture(scope="module")
