@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and hold its kernels to account.
 
-    python3 chip_smoke.py [--out FILE.json]
+    python3 chip_smoke.py [--out FILE.json] [--kernels-only]
 
 Run from the repository root on a machine with a CUDA device and ``nvcc``.
 It exits non-zero, and prints no result line, if there is no CUDA device,
 if the package is missing, or if any phase fails. Phases:
 
 1. device  — the card's name and power limit (``nvidia-smi``), torch version;
-2. build   — compiles the CUDA sources of ``dmme_tpu_torch/ops/csrc`` in parallel;
+2. build   — compiles the CUDA sources of ``dmme_tpu_torch/ops/csrc`` in
+   parallel and prints each kernel's registers and spill bytes (``-Xptxas -v``);
 3. kernels — records the inputs each kernel receives at every call site of
-   one full-width bf16 UNet forward at batch 8 (both switch settings), then
-   holds each kernel against its plain PyTorch version on those inputs, with
-   times (CUDA events, median of 25; K4's weights are packed once per weight
-   state, before the timed runs) and the least time the card could take;
+   one full-width bf16 UNet forward at each serving batch, 1, 8 and 16 (both
+   switches on; at batch 8 also ``fused_norm`` only), then holds each kernel
+   against its plain PyTorch version on those inputs, with times (CUDA
+   events, median of 25; K4's weights are packed once per weight state,
+   before the timed runs) and the least time the card could take; beside
+   K3, SDPA; beside K4, the same ResBlock as a cuDNN sequence
+   (``cudnn_seq_ms``), which the port never calls;
 4. unet    — the full-width UNet forward on the card in bf16 under both switch
    settings against the same module and weights on the CPU in f32;
 5. serve   — ``LitDDIM`` (T=1000, DDIM-50, quadratic τ) behind ``make_server``,
@@ -43,7 +47,9 @@ if the package is missing, or if any phase fails. Phases:
 10. the kernel table as one JSON line, the card's name and power limit, then
    ``{"ok": true, "device": ...}``.
 
-``--out`` also writes every measurement to a JSON file.
+``--out`` also writes every measurement to a JSON file. ``--kernels-only``
+stops after phase 6 (build, kernels at serving and training shapes) and
+prints no result line: a short first check of new kernels.
 """
 
 from __future__ import annotations
@@ -66,6 +72,7 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 BATCH = 8
+SERVE_BATCHES = (1, 8, 16)  # the request sizes of the serve phase
 SEED = 0  # random weights (biases and GroupNorm affines included) and inputs
 # bf16 outputs compared in f32 against the plain version of the same math
 # (tests/test_ops.py::test_bf16_path's bound). The fused ResBlock rounds its
@@ -230,14 +237,68 @@ def record_calls(targets, fn):
 
 
 def _kernel_group(name: str) -> str:
-    for needle, label in (("conv3x3_kernel", "K4 conv3x3 (resblock.cu)"),
-                          ("gn_stats_kernel", "K4 gn_stats (resblock.cu)"),
+    for needle, label in (("conv_wgmma_kernel", "K4 conv (resblock.cu)"),
+                          ("gn_silu_kernel", "K4 gn_silu (resblock.cu)"),
+                          ("splitk_reduce_kernel", "K4 split-K sum (resblock.cu)"),
                           ("attn_fwd_kernel", "K3 attention (attention.cu)"),
+                          ("attn_combine_kernel", "K3 split merge (attention.cu)"),
                           ("gn_silu_fwd", "K1 group_norm_silu (triton)"),
                           ("gn_silu_bwd", "K2 group_norm_silu backward (triton)")):
         if needle in name:
             return label
     return name[:90]
+
+
+def ptxas_report(build) -> dict:
+    """{source: {kernel: registers and spill bytes}} of every CUDA source built
+    in this run, read from its ``-Xptxas -v`` log; names demangled where
+    ``c++filt`` is found, without the parameter list."""
+    out = {}
+    for src, log in build.LOGS.items():
+        usage = build.ptxas_usage(log)
+        names = list(usage)
+        try:
+            r = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, timeout=60, check=True)
+            plain = r.stdout.splitlines()
+        except (OSError, subprocess.SubprocessError):
+            plain = names
+        for mangled, name in zip(names, plain):
+            name = name.replace("(anonymous namespace)::", "").split("(")[0]
+            out.setdefault(src, {})[name.removeprefix("void ")] = usage[mangled]
+    return out
+
+
+def attention_plan(k_attn, q) -> dict:
+    """K3's plan for the recorded query tensor, as a dict."""
+    n, t, h, d = q.shape
+    return k_attn.attention_plan(n, h, t, d, k_attn.build.sm_count(q.device))._asdict()
+
+
+def cudnn_sequence(torch, pa):
+    """The ResBlock of one K4 call (``resblock_plain``'s arguments) as a
+    library sequence on bf16 channels-last tensors: F.group_norm, F.silu and
+    two F.conv2d (cuDNN), plus the skip. A yardstick the port never calls;
+    the weights are cast once, outside the returned function."""
+    F = torch.nn.functional
+    x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br, groups, eps = pa
+    bf16 = torch.bfloat16
+    w1c, w2c = (w.to(dtype=bf16, memory_format=torch.channels_last) for w in (w1, w2))
+    wrc = None if wr is None else wr.to(dtype=bf16, memory_format=torch.channels_last)
+    b1c, b2c = b1.to(bf16), b2.to(bf16)
+    brc = None if br is None else br.to(bf16)
+    ga1, be1, ga2, be2 = (v[0].to(bf16) for v in (g1, b1v, g2, b2v))
+    pre = pre2.to(bf16)[:, :, None, None]
+    xc = x.permute(0, 3, 1, 2)  # NHWC storage: a channels-last NCHW view
+
+    def run():
+        h = F.silu(F.group_norm(xc, groups, ga1, be1, eps))
+        h = F.conv2d(h, w1c, b1c, padding=1) + pre
+        h = F.silu(F.group_norm(h, groups, ga2, be2, eps))
+        h = F.conv2d(h, w2c, b2c, padding=1)
+        return h + (xc if wrc is None else F.conv2d(xc, wrc, brc))
+
+    return run
 
 
 def profile_request(torch, sampler, n: int) -> dict:
@@ -408,13 +469,15 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
             plain = lambda a=a: k_attn.attention_heads_plain(*a)  # noqa: E731
             got = kern()
             torch.cuda.synchronize()
-            max_abs, _, ok = errors(got, plain(), rtol, atol)
+            want = plain()
+            max_abs, _, ok = errors(got, want, rtol, atol)
             row = _train_row("attention", key, count, max_abs, ok, device_ms(torch, kern),
                              device_ms(torch, plain), a, k)
             sdpa = lambda q=q, kk=kk, v=v, scale=scale: (  # noqa: E731
                 torch.nn.functional.scaled_dot_product_attention(
                     q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2), scale=scale))
             row["library_ms"] = device_ms(torch, sdpa)
+            row["plan"] = attention_plan(k_attn, q)
             rows.append(row)
     for key, count, a, k in calls["attention_bwd"]:
         q, kk, v, g, scale = a
@@ -698,9 +761,35 @@ def sample_after_training(torch, k_res, lit, state, dev, ops) -> dict:
     return {"launches": launches, "identical": same}
 
 
+def write_report(path: str, report: dict) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(report, f, indent=1)
+
+
+def per_forward_summary(shapes, card: str) -> dict:
+    """K3's and K4's times summed over the call sites of one batch-8 UNet
+    forward (both switches on), beside their yardsticks."""
+    out = {}
+    for kname, extra in (("attention", ("library_ms",)), ("resblock", ("cudnn_seq_ms",))):
+        recs = [r for r in shapes if r["kernel"] == kname and "both" in r["sites"]]
+        row = {}
+        for f in ("ms", "bound_ms") + extra:
+            vals = [r.get(f) for r in recs]
+            row[f] = (None if any(v is None for v in vals)
+                      else sum(v * r["sites"]["both"] for v, r in zip(vals, recs)))
+        out[kname] = row
+        print(f"per batch-8 UNet forward, {kname}: "
+              + ", ".join(f"{f} {v:.4f}" for f, v in row.items() if v is not None)
+              + f" [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write all measurements here (JSON)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel phases (build, serving and training shapes)")
     args = ap.parse_args()
 
     import torch
@@ -735,6 +824,11 @@ def main() -> int:
     build.build_all(verbose=True)
     report["build_s"] = time.time() - t0
     print(f"built {', '.join(build.SOURCES)} in {report['build_s']:.1f} s", flush=True)
+    report["ptxas"] = ptxas_report(build)
+    for src, kernels in report["ptxas"].items():
+        for name, u in kernels.items():
+            print(f"  {src}.cu {name}: {u['registers']} registers, spill stores "
+                  f"{u['spill_stores']} B, spill loads {u['spill_loads']} B", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -749,6 +843,11 @@ def main() -> int:
     t_in = torch.randint(1, 1000, (BATCH,), generator=gen)
     settings = {"both": dict(fused_norm=True, fused_block=True),
                 "fused_norm": dict(fused_norm=True, fused_block=False)}
+    # kernel launches (and call sites) of one UNet forward
+    expect = {"both": {"group_norm_silu": 1, "group_norm_silu_bwd": 0, "attention": 6,
+                       "resblock": 22},
+              "fused_norm": {"group_norm_silu": 45, "group_norm_silu_bwd": 0, "attention": 6,
+                             "resblock": 0}}
     models = {}
     for name, sw in settings.items():
         m = ddpm_models.UNet(dtype=torch.bfloat16, **sw)
@@ -759,10 +858,23 @@ def main() -> int:
     phase("kernels against their plain versions")
     recorded = {"group_norm_silu": {}, "attention": {}, "resblock": {}}
     site_counts = {}
-    for name, m in models.items():
+    # the serving path's forwards: batch 8 under both switch settings, and
+    # the other request sizes the serve phase sends, 1 and 16, whose shapes
+    # take other plans (a key split, 4x4 tiles that reach past the batch)
+    forwards = {name: (name, BATCH) for name in models}
+    forwards.update({f"both_n{n}": ("both", n) for n in SERVE_BATCHES if n != BATCH})
+    for name, (setting, n) in forwards.items():
+        g = torch.Generator().manual_seed(SEED + n)
+        xs, ts = ((x_in, t_in) if n == BATCH else
+                  (torch.randn((n, 32, 32, 3), generator=g),
+                   torch.randint(1, 1000, (n,), generator=g)))
         with torch.no_grad():
-            calls = record_calls(serve_targets(blocks), lambda: m(x_in.to(dev), t_in.to(dev)))
+            calls = record_calls(serve_targets(blocks),
+                                 lambda m=models[setting], xs=xs, ts=ts: m(xs.to(dev), ts.to(dev)))
         site_counts[name] = {k: sum(c for _, c, _, _ in v) for k, v in calls.items()}
+        if site_counts[name] != {k: expect[setting][k] for k in site_counts[name]}:
+            fail(f"UNet forward ({name}) has call sites {site_counts[name]}, "
+                 f"expected {expect[setting]}")
         for kind_, lst in calls.items():
             for key, count, a, k in lst:
                 entry = recorded[kind_].setdefault(key, {"a": a, "k": k, "sites": {}})
@@ -810,12 +922,27 @@ def main() -> int:
                             q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
                             scale=scale))
                     rec["library_ms"] = device_ms(torch, sdpa)
+                    rec["plan"] = attention_plan(k_attn, q)
+                elif kind_ == "resblock":
+                    try:
+                        rec["cudnn_seq_ms"] = device_ms(torch, cudnn_sequence(torch, pa))
+                    except RuntimeError as err:  # a yardstick only: note it and go on
+                        rec["cudnn_seq_ms"] = None
+                        print(f"cudnn sequence at {key}: {err}", flush=True)
+                    x_ = a[0]
+                    cin_, cout_ = x_.shape[3], a[6].shape[0]
+                    p1 = k_res.conv_plan(*x_.shape[:3], cin_, cout_, 0, build.sm_count(dev))
+                    p2 = k_res.conv_plan(*x_.shape[:3], cout_, cout_,
+                                         cin_ if k.get("wr") is not None else 0,
+                                         build.sm_count(dev))
+                    rec["plan"] = {"conv1": p1._asdict(), "conv2": p2._asdict()}
                 shapes.append(rec)
                 print(f"{kind_:16s} {str(key):58s} sites {e['sites']} "
                       f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} (rtol {rtol}, atol {atol}) "
                       f"ms {rec['ms']:.4f} plain {rec['plain_ms']:.4f} bound {rec['bound_ms']:.4f} "
                       f"({rec['bound_by']})"
                       + (f" sdpa {rec['library_ms']:.4f}" if rec["library_ms"] else "")
+                      + (f" cudnn_seq {rec['cudnn_seq_ms']:.4f}" if rec.get("cudnn_seq_ms") else "")
                       + ("" if ok else "  FAIL"), flush=True)
                 if not ok:
                     failures.append(f"{kind_} {key}")
@@ -823,14 +950,23 @@ def main() -> int:
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
     del recorded
+    report["per_forward"] = per_forward_summary(shapes, card)
+    if args.kernels_only:
+        phase("train kernels: one full-width bf16 training step at batch 128")
+        from dmme_tpu_torch.training import LitDDPM
+
+        del models
+        torch.cuda.empty_cache()
+        report["train_kernels"] = train_kernels(torch, blocks, k_gn, k_attn, ddpm_models,
+                                                init_weights, LitDDPM, dev, card)
+        if args.out:
+            write_report(args.out, report)
+        print("--kernels-only: stopped after the kernel phases; no result line", flush=True)
+        return 0
 
     phase("unet forward, full width, bf16 on the card vs f32 on the CPU")
     torch.set_num_threads(max(1, os.cpu_count() or 1))
     unet = {}
-    expect = {"both": {"group_norm_silu": 1, "group_norm_silu_bwd": 0, "attention": 6,
-                       "resblock": 22},
-              "fused_norm": {"group_norm_silu": 45, "group_norm_silu_bwd": 0, "attention": 6,
-                             "resblock": 0}}
     for name, m in models.items():
         ref_model = ddpm_models.UNet(dtype=torch.float32, **settings[name])
         ref_model.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()}, strict=True)
@@ -996,9 +1132,7 @@ def main() -> int:
           + "; ".join(f"{k['name']} ({k['route']}, {k['source']}, replaces {k['replaces']}, "
                       f"{k['launches']} launches)" for k in table), flush=True)
     if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(report, f, indent=1)
+        write_report(args.out, report)
     print("(K1, K3, K4: launches in the four serve requests; ms, plain_ms, bound_ms and "
           "library_ms per UNet forward at batch 8, summed over the serving path's call sites. "
           f"K2: launches in the {FIT_STEPS} logged fit steps; times per training step at "

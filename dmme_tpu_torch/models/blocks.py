@@ -151,7 +151,10 @@ class SelfAttention2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, h, w, c = x.shape
         heads = self.num_heads
-        hx = self.GroupNorm_0(x).to(self.dtype)
+        # F.group_norm returns channel-major storage on CUDA; casting to NHWC
+        # in the same copy keeps the projection channels-last, so q, k and v
+        # are views with unit stride along the head dim that K3 reads in place
+        hx = self.GroupNorm_0(x).to(self.dtype, memory_format=torch.contiguous_format)
         qkv = self.qkv_proj(hx).reshape(n, h * w, 3, heads, c // heads)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (n, hw, heads, hd) views
         out = attention_heads(q, k, v, self.dim ** -0.5).reshape(n, h, w, c)

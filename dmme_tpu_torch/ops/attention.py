@@ -4,15 +4,21 @@ and the autograd Function around it.
 Replaces the TPU kernel ``dmme_tpu/ops/attention.py:_attn_kernel`` (reached
 through ``_attention_pallas`` and ``attention``/``attention_heads``), which
 keeps one whole (T×T) score tile per batch·head in VMEM. That tile does not
-fit an SM, so the kernel takes one block per (batch·head, 64 queries) and
-loops over 64-key tiles with an online softmax, f32 running max/sum and an
-f32 accumulator, with the QKᵀ and PV products on the tensor cores (wmma).
+fit an SM, so a block of one or two warpgroups takes 64 queries a
+warpgroup of one batch·head and walks the keys in tiles with an online
+softmax: QKᵀ on ``wgmma`` from shared memory, PV on ``wgmma`` with P from
+registers, scores, probabilities, the output accumulator and the running max
+and sum in registers, Q, K and V brought in by TMA (K and V double-buffered)
+and the output written by TMA stores. Where the blocks are few and the key
+loop long, the key tiles are split over more blocks and merged by a second,
+fixed-order launch (:func:`attention_plan`). Head dims 64, 128 and 256 only.
 
 Bound on the card: bytes. At T ≤ 256 and D ≤ 256 it does far fewer
 operations per byte than the tensor cores need, so the least time is one
 read of q, k, v and one write of o. q, k and v are read in place through
 their strides (the UNet hands it strided views of the packed qkv
-projection), so no copy precedes the launch. Launches per call: 1.
+projection), so no copy precedes the launch. Launches per call: 1, plus the
+merge where the keys are split (``launches`` counts calls).
 
 The backward, :func:`attention_bwd`, is not a kernel in the JAX package
 either: ``dmme_tpu/ops/attention.py:_fused_bwd`` recomputes the
@@ -23,6 +29,8 @@ It is ported line by line as ``torch.matmul`` and elementwise ops.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -44,18 +52,64 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
+# the kernel's instantiations: queries a block (64 a warpgroup) by head dim
+BLOCK_QUERIES = {64: (64,), 128: (64, 128), 256: (64,)}
+# key splits pay for their merge launch only where the blocks are few (batch
+# 1, not 8) and a block's key loop is at least this many (key, head dim)
+# products: measured on an H100 at T = 256 (PERF.md)
+SPLIT_MIN_WORK = 256 * 256
+
+
+class AttentionPlan(NamedTuple):
+    """Launch geometry of one K3 call."""
+
+    bq: int            # queries a block
+    bkv: int           # keys per tile
+    q_tiles: int       # blocks along the queries
+    kv_tiles: int      # key tiles along T
+    splits: int        # key splits (blockIdx.z); > 1 adds the merge launch
+    kv_per_split: int  # key tiles per split; the last split may take fewer
+
+    def split_tiles(self):
+        """The key tiles of each split, in order."""
+        return [range(z * self.kv_per_split, min(self.kv_tiles, (z + 1) * self.kv_per_split))
+                for z in range(self.splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(n: int, h: int, t: int, d: int, sms: int) -> AttentionPlan:
+    """K3's grid for (N, T, H, D) inputs on a card with ``sms`` SMs, made
+    once per shape. Blocks of 128 queries where D allows them and they alone
+    fill the SMs (two warpgroups sharing each K and V tile), else of 64.
+    Where the blocks fill at most an eighth of the SMs and a block's key loop
+    holds ``SPLIT_MIN_WORK``, its key tiles are split, two at least a split,
+    over up to one block per SM; no split is empty."""
+    if d not in BLOCK_QUERIES:
+        raise ValueError(f"attention kernel takes head dims {tuple(BLOCK_QUERIES)}, got {d}")
+    bq = max(b for b in BLOCK_QUERIES[d] if b == 64 or -(-t // b) * n * h >= sms)
+    bkv = 32 if d > 128 else 64
+    q_tiles, kv_tiles = -(-t // bq), -(-t // bkv)
+    blocks = q_tiles * n * h
+    few = 8 * blocks <= sms and t * d >= SPLIT_MIN_WORK
+    splits = min(-(-sms // blocks), kv_tiles // 2) if few else 1
+    per = -(-kv_tiles // max(1, splits))
+    return AttentionPlan(bq, bkv, q_tiles, kv_tiles, -(-kv_tiles // per), per)
+
+
 def _fn():
     global _FN
     if _FN is None:
         fn = build.library("attention").dmme_attention_fwd
         ll, vp = ctypes.c_longlong, ctypes.c_void_p
-        fn.argtypes = [vp, vp, vp, vp] + [ctypes.c_int] * 4 + [ll] * 12 + [ctypes.c_float, vp]
+        fn.argtypes = [vp] * 6 + [ctypes.c_int] * 7 + [ll] * 12 + [ctypes.c_float, vp]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
 def _aligned(x: torch.Tensor) -> bool:
+    """TMA reads (N, T, H, D) in place through its strides: unit stride
+    along D, 16-byte aligned, the other strides multiples of 16 bytes."""
     return (x.stride(3) == 1 and x.data_ptr() % 16 == 0
             and all(s % 8 == 0 for s in x.stride()[:3]))
 
@@ -66,16 +120,22 @@ def _launch(q, k, v, scale: float) -> torch.Tensor:
     n, t, h, d = q.shape
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"attention kernel takes bf16, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d % 16 or d > 256:
-        raise ValueError(f"attention kernel takes head dims that are multiples of 16 up to 256, got {d}")
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
-    # 16-byte vector loads need aligned rows; other layouts are copied first
+    plan = attention_plan(n, h, t, d, build.sm_count(q.device))
+    # TMA needs 16-byte aligned rows and strides; other layouts are copied first
     q, k, v = (x if _aligned(x) else x.contiguous() for x in (q, k, v))
     out = torch.empty((n, t, h, d), device=q.device, dtype=q.dtype)
+    o_part = ml_part = None  # the splits' partial outputs, only where the keys are split
+    if plan.splits > 1:
+        rows = plan.splits * n * h * t
+        o_part = torch.empty((rows * d,), device=q.device, dtype=torch.float32)
+        ml_part = torch.empty((rows * 2,), device=q.device, dtype=torch.float32)
     strides = [s for x in (q, k, v, out) for s in (x.stride(0), x.stride(1), x.stride(2))]
     status = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   n, h, t, d, *strides, float(scale),
+                   None if o_part is None else o_part.data_ptr(),
+                   None if ml_part is None else ml_part.data_ptr(), n, h, t, d, plan.bq,
+                   plan.splits, plan.kv_per_split, *strides, float(scale),
                    torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "attention kernel launch")
     launches += 1

@@ -2,20 +2,28 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes
 ``build/dmme_tpu_torch/lib<name>-<hash>.so`` beside the package, where the
-hash is that of the source text: an edited source is rebuilt, an unchanged
-one is loaded as it is. :func:`build_all` starts one ``nvcc`` per source, all
-at once, and waits for them together.
+hash is that of the source text and of every local header it includes
+(``#include "x.cuh"`` under ``csrc/``, followed recursively): an edited
+source or header is rebuilt, an unchanged one is loaded as it is.
+:func:`build_all` starts one ``nvcc`` per source, all at once, and waits for
+them together. No CUTLASS or CuTe header is used, so no include path is
+added; TMA descriptors are encoded through the driver entry point that the
+CUDA runtime hands out, so the libraries need no ``-lcuda``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dmme_tpu_torch"
@@ -26,6 +34,11 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: the compiler's output of each source built by this process (``-Xptxas -v``
+#: register and spill counts when :func:`build_all` ran with ``verbose``)
+LOGS: Dict[str, str] = {}
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -38,9 +51,26 @@ def _nvcc() -> str:
     return found
 
 
+def local_includes(path: Path) -> List[Path]:
+    """The files under ``csrc/`` that ``path`` includes with quotes, directly
+    or through another of them, in the order first met."""
+    seen: List[Path] = []
+    todo = [path]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop(0).read_text()):
+            dep = (CSRC / name).resolve()
+            if dep.is_file() and dep not in seen:
+                seen.append(dep)
+                todo.append(dep)
+    return seen
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256()
+    for f in (src, *local_includes(src)):
+        digest.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str, ctypes.CDLL]:
@@ -64,6 +94,7 @@ def build_all(names: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str
         if proc.returncode != 0:
             failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
             continue
+        LOGS[name] = log
         if verbose and log:
             print(f"[nvcc {name}.cu]\n{log}", flush=True)
         os.replace(tmp, out)
@@ -73,6 +104,39 @@ def build_all(names: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str
         if name not in _LIBS:
             _LIBS[name] = ctypes.CDLL(str(_target(name)))
     return {name: _LIBS[name] for name in names}
+
+
+def ptxas_usage(log: str) -> Dict[str, dict]:
+    """Per kernel (mangled name) of an ``-Xptxas -v`` log: registers a thread
+    and spill bytes stored and loaded."""
+    usage: Dict[str, dict] = {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            current = usage.setdefault(m.group(1), {"registers": None, "spill_stores": 0,
+                                                    "spill_loads": 0})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return usage
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device, asked of the driver once per device."""
+    device = torch.device(device)
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
 
 
 def library(name: str) -> ctypes.CDLL:

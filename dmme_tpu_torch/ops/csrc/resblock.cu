@@ -8,90 +8,112 @@
 // One 32x32x128 bf16 sample is 256 KB, more than the 227 KB of shared
 // memory a block can hold, so that residency does not map. The block runs
 // instead as four launches on one stream:
-//   1. gn_stats   : GN1 statistics of x per (sample, group) -> per-(n, c)
-//                   scale a1 and shift d1 (f32).
-//   2. conv3x3    : conv1 as an implicit GEMM, M = N*H*W pixels, K = 9*C_in,
-//                   N = C_out. The tile loader reads the 9 taps of the
-//                   unpadded input in place, applies silu(x*a1 + d1) and
-//                   rounds to bf16, so h0 never reaches device memory; a tap
-//                   outside the image reads 0 (the TPU kernel pads h0 after
-//                   the SiLU). + b1 in the epilogue; h1 is written in f32.
-//   3. gn_stats   : GN2 statistics of h1 + pre2 (pre-bias folded into the
-//                   channel sums), a separate pass instead of atomics so the
-//                   result is the same on every run.
-//   4. conv3x3    : conv2 with silu(h1*a2 + d2) in the loader and b2 plus the
-//                   skip in the epilogue: the identity in f32, or the 1x1
-//                   projection, which continues the same accumulation as a
-//                   GEMM over C_in.
-// Products take bf16 operands on the tensor cores (nvcuda::wmma 16x16x16)
-// with f32 accumulation, as the TPU kernel's 9 shifted matmuls do.
+//   1. gn_silu  : per (sample, group), the group held in shared memory: its
+//                 f32 statistics, then h0 = bf16(silu(x*a + d)) written once
+//                 (NHWC). The TPU kernel rounds h0 to the compute dtype
+//                 before the conv, as here.
+//   2. conv     : conv1 as an implicit GEMM over bf16 h0, M = N*H*W pixels,
+//                 K = 9*C_in, N = C_out; + b1 in the epilogue; h1 in f32.
+//   3. gn_silu  : GN2 of h1 + pre2 (the pre-bias folded into the channel
+//                 sums), h2 = bf16(silu(.)) written once. Where conv1 is
+//                 split over K, this pass sums its f32 slices (in slice
+//                 order, then + b1) as it reads them: no separate sum.
+//   4. conv     : conv2 over h2, + b2 and the skip in the epilogue: the
+//                 identity added in f32, or the 1x1 projection, which
+//                 continues the same accumulation over unshifted x tiles.
+// Separate statistics passes (not atomics) keep the result the same on
+// every run.
+//
+// The conv kernel (conv_wgmma_kernel) is warp-specialised. One producer
+// thread keeps a ring of STAGES shared-memory stages filled by TMA under
+// mbarriers; per 64-deep K step a stage holds
+//   A: BM pixels x 64 channels of one tap, a 4-D box (64, w, h, n) of the
+//      NHWC operand at coordinates shifted by the tap. TMA's zero fill
+//      outside the image is exactly the TPU kernel's zero padding after the
+//      SiLU;
+//   B: 128 output channels x the same 64 K of the packed weights,
+//      (C_out, 9*C_in [+ C_in]) K-major.
+// Both land in the 128-byte swizzle, which is the layout wgmma reads. One or
+// two consumer warpgroups (BM = 64 or 128) run wgmma m64n128k16 with f32
+// accumulators in registers and keep one K step in flight while the next
+// waits. The epilogue stays in registers: bias, the skip, two-element
+// stores. Where the output tiles are fewer than the SMs, the K steps are
+// split over blockIdx.z: each slice writes its f32 partial tile, and the
+// slices are summed in a fixed order, so the result does not depend on
+// scheduling: conv1's by the GN2 pass as it reads them, conv2's by one more
+// launch that also applies the epilogue. The tile, the boxes and the split
+// are planned in ops/resblock.py:conv_plan.
 //
 // Bound: operations. At the UNet's shapes a ResBlock does 2*M*C_out*
 // (9*C_in + 9*C_out [+ C_in]) operations on a few MB, well above the ~295
-// operations per byte of the H100's bf16 tensor cores. This first version
-// is a plain tiled kernel (64x64 output tiles, 32-deep K steps, no
-// pipelining), far from that bound; wgmma and TMA are the way there.
-// At 4x4 and 8x8 the output is only 8-32 tiles, fewer than the card's SMs,
-// and each tile walks up to 144 serial K steps. There a conv splits its K
-// steps over blockIdx.z: each slice writes its f32 partial tile, and one
-// more launch sums the slices in a fixed order and applies the epilogue,
-// so the result does not depend on scheduling.
+// operations per byte of the H100's bf16 tensor cores.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
 #include <math.h>
-#include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
+using namespace hopper;
 
 namespace {
 
-constexpr int STATS_THREADS = 256;
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int CONV_THREADS = 128;
-constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
+constexpr int GN_THREADS = 256;
+constexpr int BN = 128, BK = 64, STAGES = 4;
 
-__device__ inline float to_f32(float v) { return v; }
-__device__ inline float to_f32(bf16 v) { return __bfloat162float(v); }
-__device__ inline void from_f32(float& d, float v) { d = v; }
-__device__ inline void from_f32(bf16& d, float v) { d = __float2bfloat16(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
 
 // Per (sample, group): mean and inverse std of u = src + bias, as
-// E[u^2] - E[u]^2 from per-channel sums with the bias folded in, and the
-// per-channel coefficients a = inv*gamma, d = beta + (bias - mean)*inv*gamma
-// so that GN(u)*gamma + beta = src*a + d. Requires 256 % (C/G) == 0.
-// bias, gamma and beta are (N, C) rows apart by their own stride: C for a
-// per-sample vector, 0 for one shared by the batch.
-template <typename T>
-__global__ void __launch_bounds__(STATS_THREADS)
-gn_stats_kernel(const T* __restrict__ src, const float* __restrict__ bias, int s_bias,
-                const float* __restrict__ gamma, int s_gamma,
-                const float* __restrict__ beta, int s_beta,
-                float* __restrict__ a_out, float* __restrict__ d_out,
-                float* __restrict__ mean_out, float* __restrict__ inv_out,
-                int HW, int C, int G, float eps) {
-  __shared__ float sh_s[STATS_THREADS], sh_q[STATS_THREADS];
-  __shared__ float ch_u[STATS_THREADS], ch_uq[STATS_THREADS];
+// E[u^2] - E[u]^2 from per-channel sums with the bias folded in; then
+// dst = bf16(silu(src*a + d)) with a = inv*gamma, d = beta + (bias - mean)*
+// inv*gamma, so that GN(u)*gamma + beta = src*a + d. The group stays in
+// shared memory between the two steps (HW x C/G floats); the sums go thread
+// by thread (channel tid % cg, pixels tid / cg + k * GN_THREADS / cg), then
+// per channel in thread order, then over the group's channels in order.
+// Requires GN_THREADS % (C/G) == 0. bias, gamma
+// and beta are (N, C) rows apart by their own stride: C for a per-sample
+// vector, 0 for one shared by the batch. SLICES: src holds `slices` f32
+// split-K slices `slice` floats apart, summed in order, then + src_bias[c].
+template <typename T, bool SLICES>
+__global__ void __launch_bounds__(GN_THREADS)
+gn_silu_kernel(const T* __restrict__ src, int slices, size_t slice,
+               const float* __restrict__ src_bias, const float* __restrict__ bias, int s_bias,
+               const float* __restrict__ gamma, int s_gamma, const float* __restrict__ beta,
+               int s_beta, bf16* __restrict__ dst, int HW, int C, int G, float eps) {
+  extern __shared__ float held[];
+  __shared__ float sh_s[GN_THREADS], sh_q[GN_THREADS];
+  __shared__ float ch_u[GN_THREADS], ch_uq[GN_THREADS];
   __shared__ float sh_mean, sh_inv;
   const int g = blockIdx.x, n = blockIdx.y, tid = threadIdx.x;
-  const int cg = C / G;
+  const int cg = C / G, step = GN_THREADS / cg;
   const int c = g * cg + tid % cg;
-  const T* base = src + (size_t)n * HW * C + c;
+  const size_t base = (size_t)n * HW * C + c;
   float s = 0.f, q = 0.f;
-  for (int p = tid / cg; p < HW; p += STATS_THREADS / cg) {
-    const float v = to_f32(base[(size_t)p * C]);
+  // this thread's pixels p = tid/cg + k*step sit at held[tid + k*GN_THREADS]
+  for (int p = tid / cg, i = tid; p < HW; p += step, i += GN_THREADS) {
+    const size_t e = base + (size_t)p * C;
+    float v = to_f32(src[e]);
+    if constexpr (SLICES) {
+      for (int z = 1; z < slices; ++z) v += to_f32(src[z * slice + e]);
+      v += src_bias[c];
+    }
+    held[i] = v;
     s += v;
     q += v * v;
   }
   sh_s[tid] = s;
   sh_q[tid] = q;
   __syncthreads();
-  const float b = (tid < cg && bias) ? bias[n * s_bias + c] : 0.f;
+  const float b = bias ? bias[n * s_bias + c] : 0.f;
   if (tid < cg) {
     float cs = 0.f, cq = 0.f;
-    for (int j = tid; j < STATS_THREADS; j += cg) {
+    for (int j = tid; j < GN_THREADS; j += cg) {
       cs += sh_s[j];
       cq += sh_q[j];
     }
@@ -107,260 +129,315 @@ gn_stats_kernel(const T* __restrict__ src, const float* __restrict__ bias, int s
     }
     const float cnt = (float)HW * (float)cg;
     const float mean = gs / cnt;
-    const float inv = rsqrtf(gq / cnt - mean * mean + eps);
     sh_mean = mean;
-    sh_inv = inv;
-    mean_out[n * G + g] = mean;
-    inv_out[n * G + g] = inv;
+    sh_inv = rsqrtf(gq / cnt - mean * mean + eps);
   }
   __syncthreads();
-  if (tid < cg) {
-    const float gm = gamma[n * s_gamma + c];
-    a_out[n * C + c] = sh_inv * gm;
-    d_out[n * C + c] = beta[n * s_beta + c] + (b - sh_mean) * sh_inv * gm;
+  const float gm = gamma[n * s_gamma + c];
+  const float a = sh_inv * gm;
+  const float d = beta[n * s_beta + c] + (b - sh_mean) * sh_inv * gm;
+  for (int p = tid / cg, i = tid; p < HW; p += step, i += GN_THREADS) {
+    const float y = held[i] * a + d;
+    dst[base + (size_t)p * C] = __float2bfloat16(y / (1.f + expf(-y)));
   }
 }
 
-// 16 consecutive channels of one pixel as f32
-__device__ inline void load16(const bf16* p, float* v) {
-  const uint4 r0 = reinterpret_cast<const uint4*>(p)[0];
-  const uint4 r1 = reinterpret_cast<const uint4*>(p)[1];
-  const bf16* h0 = reinterpret_cast<const bf16*>(&r0);
-  const bf16* h1 = reinterpret_cast<const bf16*>(&r1);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    v[i] = __bfloat162float(h0[i]);
-    v[8 + i] = __bfloat162float(h1[i]);
-  }
-}
-__device__ inline void load16(const float* p, float* v) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 r = reinterpret_cast<const float4*>(p)[i];
-    v[4 * i] = r.x;
-    v[4 * i + 1] = r.y;
-    v[4 * i + 2] = r.z;
-    v[4 * i + 3] = r.w;
-  }
-}
+struct ConvArgs {
+  int H, W, M, Cout;
+  int csteps;      // 64-channel chunks per tap of the conv input
+  int conv_steps;  // 9 * csteps
+  int total;       // K steps: conv_steps, plus C0/64 of the 1x1 projection
+  int per;         // K steps per split slice
+  const float* bias;
+  const bf16* x;  // the block input (identity skip)
+  int C0;         // its channels
+  void* out;
+  float* partial;  // splits x M x Cout f32 when split
+};
 
-// out = acc + bias [+ x] for one row's 32 columns, x added in f32 (RESID)
-template <typename TOut, bool RESID>
-__device__ inline void epilogue_row(const float* acc, const float* __restrict__ bias,
-                                    const bf16* __restrict__ x, int C0,
-                                    TOut* __restrict__ out, int m, int co0, int Cout) {
-  for (int i = 0; i < 32; ++i) {
-    const int co = co0 + i;
-    float r = acc[i] + bias[co];
-    if (RESID) r += __bfloat162float(x[(size_t)m * C0 + co]);
-    from_f32(out[(size_t)m * Cout + co], r);
+template <int NWG>
+struct ConvSmem {
+  static constexpr int A = 64 * NWG * BK * 2;  // BM x 64 bf16
+  static constexpr int B = BN * BK * 2;        // 128 x 64 bf16
+  static constexpr int STAGE = A + B;
+  // alignment slack, the ring, full and empty barriers
+  static constexpr int BYTES = 1024 + STAGES * STAGE + 2 * STAGES * 8;
+};
+
+// One (BM x 128) output tile over the K steps [z*per, (z+1)*per) of slice
+// z = blockIdx.z. Warpgroups 0..NWG-1 consume (64 rows each), warpgroup NWG
+// produces. tm_h: the conv input (N, H, W, C1) bf16, box (64, bw, bh, bn);
+// tm_x: the block input, same box (projection steps); tm_w: the packed
+// weights (Cout, K) bf16, box (64, 128). out = acc + bias [+ x] (RESID).
+template <int NWG, typename TOut, bool RESID>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
+                  const __grid_constant__ CUtensorMap tm_x,
+                  const __grid_constant__ CUtensorMap tm_w, const ConvArgs args) {
+  using S = ConvSmem<NWG>;
+  constexpr int BM = 64 * NWG;
+  extern __shared__ unsigned char smem_raw[];
+  // TMA's 128-byte swizzle wants 1024-byte aligned tiles
+  unsigned char* smem =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                       ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * S::STAGE);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x, wg = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NWG);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
   }
-}
+  __syncthreads();
 
-// Implicit-GEMM 3x3 convolution (stride 1, zero padding 1) over NHWC `src`
-// with C1 channels, the tile loader applying silu(src*na + nd) per (n, c).
-// PROJ continues the accumulation with the 1x1 GEMM x.Wr over C0 channels;
-// RESID adds x (C0 == Cout) in f32 in the epilogue. out = acc + bias [+ x].
-// With gridDim.z > 1, slice z takes K steps [z*per, (z+1)*per) and writes
-// its raw f32 tile to partial[z] instead; splitk_reduce_kernel finishes.
-template <typename TIn, typename TOut, bool PROJ, bool RESID>
-__global__ void __launch_bounds__(CONV_THREADS)
-conv3x3_kernel(const TIn* __restrict__ src, const float* __restrict__ na,
-               const float* __restrict__ nd, const bf16* __restrict__ w9,
-               const bf16* __restrict__ x, const bf16* __restrict__ wr,
-               const float* __restrict__ bias, TOut* __restrict__ out,
-               float* __restrict__ partial, int per,
-               int Nb, int H, int W, int C1, int C0, int Cout) {
-  __shared__ __align__(128) bf16 sA[BM * LDA];
-  __shared__ __align__(128) bf16 sB[BK * LDB];
-  __shared__ __align__(128) float sC[BM * LDC];
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int M = Nb * H * W;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int s_begin = blockIdx.z * args.per;
+  const int s_end = min(args.total, s_begin + args.per);
 
-  // A loader: row arow (a pixel), 16 channels from acol; B loader: row brow, 16 cols
-  const int arow = tid >> 1, acol = (tid & 1) * 16;
-  const int brow = tid >> 2, bcol = (tid & 3) * 16;
-  const int m = m0 + arow;
-  const bool mvalid = m < M;
-  const int img = mvalid ? m / (H * W) : 0;
-  const int py = mvalid ? (m / W) % H : 0;
-  const int px = mvalid ? m % W : 0;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  auto mma_tile = [&]() {
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], sA + (wm + 16 * i) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], sB + kk * LDB + wn + 16 * j, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  };
-  auto load_b = [&](const bf16* wrow) {
-    const uint4* s = reinterpret_cast<const uint4*>(wrow);
-    uint4* d = reinterpret_cast<uint4*>(sB + brow * LDB + bcol);
-    d[0] = s[0];
-    d[1] = s[1];
-  };
-
-  // K steps: 9 taps x C1/BK channel chunks, then (PROJ) C0/BK chunks of x.Wr
-  const int csteps = C1 / BK, conv_steps = 9 * csteps;
-  const int total = conv_steps + (PROJ ? C0 / BK : 0);
-  const int s_end = min(total, (int)(blockIdx.z + 1) * per);
-  for (int s = blockIdx.z * per; s < s_end; ++s) {
-    if (s < conv_steps) {
-      const int tap = s / csteps, c0 = (s - tap * csteps) * BK;
-      const int yy = py + tap / 3 - 1, xx = px + tap % 3 - 1;
-      float v[16];
-      if (mvalid && yy >= 0 && yy < H && xx >= 0 && xx < W) {
-        const int c = c0 + acol;
-        load16(src + ((size_t)(img * H + yy) * W + xx) * C1 + c, v);
-        const float* a = na + (size_t)img * C1 + c;
-        const float* d = nd + (size_t)img * C1 + c;
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const float y = v[i] * a[i] + d[i];
-          v[i] = y / (1.f + expf(-y));
+  if (wg == NWG) {
+    // producer: one thread keeps the ring full
+    if (tid == NWG * 128) {
+      tma_prefetch_map(&tm_h);
+      tma_prefetch_map(&tm_w);
+      const int img = m0 / (args.H * args.W), y0 = (m0 / args.W) % args.H, x0 = m0 % args.W;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int s = s_begin; s < s_end; ++s) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* a = smem + stage * S::STAGE;
+        mbar_arrive_expect_tx(&full[stage], S::STAGE);
+        if (s < args.conv_steps) {
+          const int tap = s / args.csteps, c = (s - tap * args.csteps) * BK;
+          tma_load_4d(a, &tm_h, &full[stage], c, x0 + tap % 3 - 1, y0 + tap / 3 - 1, img);
+        } else {
+          tma_load_4d(a, &tm_x, &full[stage], (s - args.conv_steps) * BK, x0, y0, img);
         }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 16; ++i) v[i] = 0.f;
+        tma_load_2d(a + S::A, &tm_w, &full[stage], s * BK, n0);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
-#pragma unroll
-      for (int i = 0; i < 16; ++i) sA[arow * LDA + acol + i] = __float2bfloat16(v[i]);
-      load_b(w9 + ((size_t)tap * C1 + c0 + brow) * Cout + n0 + bcol);
-    } else {
-      const int c0 = (s - conv_steps) * BK;
-      if (mvalid) {
-        const uint4* xs = reinterpret_cast<const uint4*>(x + (size_t)m * C0 + c0 + acol);
-        uint4* d = reinterpret_cast<uint4*>(sA + arow * LDA + acol);
-        d[0] = xs[0];
-        d[1] = xs[1];
-      } else {
-#pragma unroll
-        for (int i = 0; i < 16; ++i) sA[arow * LDA + acol + i] = __float2bfloat16(0.f);
-      }
-      load_b(wr + (size_t)(c0 + brow) * Cout + n0 + bcol);
     }
-    __syncthreads();
-    mma_tile();
-    __syncthreads();
+    return;
   }
 
+  // consumers: warpgroup wg owns rows [64*wg, 64*wg + 64) of the tile
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  int stage = 0, prev = -1;
+  uint32_t phase = 0;
+  for (int s = s_begin; s < s_end; ++s) {
+    mbar_wait(&full[stage], phase);
+    const unsigned char* tile = smem + stage * S::STAGE;
+    const uint64_t da = sw128_desc(tile + wg * 64 * BK * 2), db = sw128_desc(tile + S::A);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(sC + (wm + 16 * i) * LDC + wn + 16 * j, acc[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-  const int orow = tid >> 1, ocol = (tid & 1) * 32;
-  const int om = m0 + orow;
-  if (om >= M) return;
-  const float* acc_row = sC + orow * LDC + ocol;
-  if (gridDim.z == 1) {
-    epilogue_row<TOut, RESID>(acc_row, bias, x, C0, out, om, n0 + ocol, Cout);
-  } else {
-    float* p = partial + ((size_t)blockIdx.z * M + om) * Cout + n0 + ocol;
-    for (int i = 0; i < 32; ++i) p[i] = acc_row[i];
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_ss(acc, da + 2 * kk, db + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's products are done: release its stage
+    if (prev >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+    }
+    prev = stage;
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // acc[4j + 2h + e]: row 16*warp + lane/4 + 8h, column 8j + 2*(lane%4) + e
+  const int row = m0 + wg * 64 + warp * 16 + (lane >> 2);
+  const int col = n0 + 2 * (lane & 3);
+  TOut* out = static_cast<TOut*>(args.out);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = row + 8 * h;
+    if (m >= args.M) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int co = col + 8 * j;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (gridDim.z > 1) {
+        store2(args.partial + ((size_t)blockIdx.z * args.M + m) * args.Cout + co, v0, v1);
+      } else {
+        float r0 = v0 + args.bias[co], r1 = v1 + args.bias[co + 1];
+        if (RESID) {
+          const __nv_bfloat162 xv =
+              *reinterpret_cast<const __nv_bfloat162*>(args.x + (size_t)m * args.C0 + co);
+          r0 += __low2float(xv);
+          r1 += __high2float(xv);
+        }
+        store2(out + (size_t)m * args.Cout + co, r0, r1);
+      }
+    }
   }
 }
 
-// Sums the split-K slices of conv3x3_kernel in slice order, then the same
-// epilogue. One thread per output element, so neighbouring threads read
-// neighbouring floats of each slice.
-template <typename TOut, bool RESID>
+// Sums conv2's split-K slices in slice order, then the same epilogue. Four
+// consecutive outputs a thread.
+template <bool RESID>
 __global__ void __launch_bounds__(256)
 splitk_reduce_kernel(const float* __restrict__ partial, int splits,
                      const float* __restrict__ bias, const bf16* __restrict__ x, int C0,
-                     TOut* __restrict__ out, int M, int Cout) {
-  const int total = M * Cout;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int co = idx % Cout;
-  float acc = 0.f;
-  for (int z = 0; z < splits; ++z) acc += partial[(size_t)z * total + idx];
-  float r = acc + bias[co];
-  if (RESID) r += __bfloat162float(x[(size_t)(idx / Cout) * C0 + co]);
-  from_f32(out[idx], r);
+                     bf16* __restrict__ out, int M, int Cout) {
+  const size_t total = (size_t)M * Cout;
+  const size_t e = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (e >= total) return;
+  const int co = e % Cout;
+  const size_t m = e / Cout;
+  float4 acc = *reinterpret_cast<const float4*>(partial + e);
+  for (int z = 1; z < splits; ++z) {
+    const float4 p = *reinterpret_cast<const float4*>(partial + z * total + e);
+    acc.x += p.x;
+    acc.y += p.y;
+    acc.z += p.z;
+    acc.w += p.w;
+  }
+  float r[4] = {acc.x + bias[co], acc.y + bias[co + 1], acc.z + bias[co + 2],
+                acc.w + bias[co + 3]};
+  if (RESID) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r[i] += __bfloat162float(x[m * C0 + co + i]);
+  }
+  store2(out + e, r[0], r[1]);
+  store2(out + e + 2, r[2], r[3]);
 }
 
-// One conv3x3_kernel launch over `splits` K slices, then the reduction if split.
-template <typename TIn, typename TOut, bool PROJ, bool RESID>
-void conv3x3(cudaStream_t s, int splits, const TIn* src, const float* na, const float* nd,
-             const bf16* w9, const bf16* x, const bf16* wr, const float* bias, TOut* out,
-             float* partial, int Nb, int H, int W, int C1, int C0, int Cout) {
-  const int M = Nb * H * W;
-  const int total = 9 * (C1 / BK) + (PROJ ? C0 / BK : 0);
-  const int per = (total + splits - 1) / splits;
-  const dim3 grid((M + BM - 1) / BM, Cout / BN, splits);
-  conv3x3_kernel<TIn, TOut, PROJ, RESID><<<grid, CONV_THREADS, 0, s>>>(
-      src, na, nd, w9, x, wr, bias, out, partial, per, Nb, H, W, C1, C0, Cout);
-  if (splits > 1) {
-    splitk_reduce_kernel<TOut, RESID><<<(M * Cout + 255) / 256, 256, 0, s>>>(
-        partial, splits, bias, x, C0, out, M, Cout);
-  }
+// ------------------------------------------------------------------ host
+
+// NHWC bf16 activations with C channels, read in boxes of 64 channels x bw
+// x bh x bn pixels; taps outside the image read zeros
+bool act_map(CUtensorMap* map, const void* ptr, int N, int H, int W, int C, int bw, int bh,
+             int bn) {
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)BK, (cuuint32_t)bw, (cuuint32_t)bh, (cuuint32_t)bn};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// packed weights (Cout, K) bf16, read in boxes of 64 K x 128 output channels
+bool weight_map(CUtensorMap* map, const void* ptr, int Cout, int K) {
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)Cout};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)BN};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// src holds `slices` slices (slice_bias added after their sum) when SLICES
+template <typename T, bool SLICES>
+cudaError_t gn_silu(cudaStream_t s, const T* src, int slices, const float* slice_bias,
+                    const float* bias, int s_bias, const float* gamma, int s_gamma,
+                    const float* beta, int s_beta, bf16* dst, int N, int HW, int C, int G,
+                    float eps) {
+  static int limits[64];
+  const int smem = HW * (C / G) * (int)sizeof(float);
+  const cudaError_t err = allow_smem(gn_silu_kernel<T, SLICES>, smem, limits);
+  if (err != cudaSuccess) return err;
+  gn_silu_kernel<T, SLICES><<<dim3(G, N), GN_THREADS, smem, s>>>(
+      src, slices, (size_t)N * HW * C, slice_bias, bias, s_bias, gamma, s_gamma, beta, s_beta,
+      dst, HW, C, G, eps);
+  return cudaSuccess;
+}
+
+// One conv launch over `splits` K slices
+template <int NWG, typename TOut, bool RESID>
+cudaError_t conv(cudaStream_t s, const CUtensorMap& th, const CUtensorMap& tx,
+                 const CUtensorMap& tw, const ConvArgs& a, int splits) {
+  static int limits[64];
+  constexpr int BM = 64 * NWG;
+  const cudaError_t err =
+      allow_smem(conv_wgmma_kernel<NWG, TOut, RESID>, ConvSmem<NWG>::BYTES, limits);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.M + BM - 1) / BM, a.Cout / BN, splits);
+  conv_wgmma_kernel<NWG, TOut, RESID><<<grid, 128 * (NWG + 1), ConvSmem<NWG>::BYTES, s>>>(
+      th, tx, tw, a);
+  return cudaSuccess;
+}
+
+// conv2: the conv, then, where split, the launch that sums its slices and
+// applies the epilogue
+template <bool RESID>
+cudaError_t conv2(int bm, cudaStream_t s, const CUtensorMap& th, const CUtensorMap& tx,
+                  const CUtensorMap& tw, const ConvArgs& a, int splits) {
+  const cudaError_t err = bm == 128 ? conv<2, bf16, RESID>(s, th, tx, tw, a, splits)
+                                    : conv<1, bf16, RESID>(s, th, tx, tw, a, splits);
+  if (err != cudaSuccess || splits == 1) return err;
+  splitk_reduce_kernel<RESID><<<(a.M * a.Cout / 4 + 255) / 256, 256, 0, s>>>(
+      a.partial, splits, a.bias, a.x, a.C0, static_cast<bf16*>(a.out), a.M, a.Cout);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // x: (N, H, W, Cin) bf16; g1, b1v: (N, Cin) f32; pre2, g2, b2v: (N, Cout) f32,
 // rows sg1, sb1, sp2, sg2, sb2 floats apart (0: one row for the whole batch);
-// w1: (9*Cin, Cout) bf16; b1: (Cout) f32; w2: (9*Cout, Cout) bf16;
-// b2: (Cout) f32, the projection's bias already added when wr is given;
-// wr: (Cin, Cout) bf16 or null (identity skip, Cin == Cout).
-// Scratch: h1 (N*H*W*Cout) f32; coef (2*N*Cin + 2*N*Cout) f32; stats (4*N*G) f32;
-// partial (max(splits1, splits2)*N*H*W*Cout) f32, unused when both are 1.
-// out: (N, H, W, Cout) bf16. Four launches, plus one per conv that is split.
+// w1: (Cout, 9*Cin) bf16, K ordered (dy, dx, c_in); b1: (Cout) f32;
+// w2: (Cout, 9*Cout [+ Cin]) bf16, the projection's (Cout, Cin) appended
+// when has_proj; b2: (Cout) f32, the projection's bias already added.
+// The plan (ops/resblock.py:conv_plan): bm = 64 or 128 output pixels a
+// tile, the pixel box (box_n, box_h, box_w) of one tile, and per conv its
+// split-K slices and K steps per slice.
+// Scratch: h (N*H*W*max(Cin, Cout)) bf16; h1 (N*H*W*Cout) f32, null when
+// conv1 is split; partial (max(splits)*N*H*W*Cout) f32, null when both are 1.
+// out: (N, H, W, Cout) bf16. Four launches, plus one if conv2 is split.
+// Cin and Cout are multiples of 64, Cout of 128. Returns a cudaError_t.
 extern "C" int dmme_resblock_fwd(const void* x, const float* g1, const float* b1v,
                                  const float* pre2, const float* g2, const float* b2v,
                                  const void* w1, const float* b1, const void* w2,
-                                 const float* b2, const void* wr, float* h1, float* coef,
-                                 float* stats, float* partial, void* out, int N, int H,
-                                 int W, int Cin, int Cout, int G, int splits1, int splits2,
-                                 int sg1, int sb1, int sp2, int sg2, int sb2, float eps,
-                                 void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int HW = H * W;
+                                 const float* b2, int has_proj, void* h, float* h1,
+                                 float* partial, void* out, int N, int H, int W, int Cin,
+                                 int Cout, int G, int bm, int box_n, int box_h, int box_w,
+                                 int splits1, int per1, int splits2, int per2, int sg1, int sb1,
+                                 int sp2, int sg2, int sb2, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!encode_tiled()) return (int)cudaErrorNotSupported;
+  const int HW = H * W, M = N * HW;
   const bf16* xb = static_cast<const bf16*>(x);
-  float* a1 = coef;
-  float* d1 = a1 + N * Cin;
-  float* a2 = d1 + N * Cin;
-  float* d2 = a2 + N * Cout;
-  const dim3 stats_grid(G, N);
-  const bf16* w1b = static_cast<const bf16*>(w1);
-  const bf16* w2b = static_cast<const bf16*>(w2);
-  const bf16* wrb = static_cast<const bf16*>(wr);
-  bf16* outb = static_cast<bf16*>(out);
+  bf16* hb = static_cast<bf16*>(h);
+  CUtensorMap tm_h0, tm_h2, tm_x, tm_w1, tm_w2;
+  const int k2 = 9 * Cout + (has_proj ? Cin : 0);
+  if (!act_map(&tm_h0, hb, N, H, W, Cin, box_w, box_h, box_n) ||
+      !act_map(&tm_h2, hb, N, H, W, Cout, box_w, box_h, box_n) ||
+      !act_map(&tm_x, xb, N, H, W, Cin, box_w, box_h, box_n) ||
+      !weight_map(&tm_w1, w1, Cout, 9 * Cin) || !weight_map(&tm_w2, w2, Cout, k2))
+    return (int)cudaErrorInvalidValue;
 
-  gn_stats_kernel<bf16><<<stats_grid, STATS_THREADS, 0, s>>>(
-      xb, nullptr, 0, g1, sg1, b1v, sb1, a1, d1, stats, stats + N * G, HW, Cin,
-      G, eps);
-  conv3x3<bf16, float, false, false>(s, splits1, xb, a1, d1, w1b, nullptr, nullptr, b1, h1,
-                                     partial, N, H, W, Cin, 0, Cout);
-  gn_stats_kernel<float><<<stats_grid, STATS_THREADS, 0, s>>>(
-      h1, pre2, sp2, g2, sg2, b2v, sb2, a2, d2, stats + 2 * N * G,
-      stats + 3 * N * G, HW, Cout, G, eps);
-  if (wrb) {
-    conv3x3<float, bf16, true, false>(s, splits2, h1, a2, d2, w2b, xb, wrb, b2, outb,
-                                      partial, N, H, W, Cout, Cin, Cout);
-  } else {
-    conv3x3<float, bf16, false, true>(s, splits2, h1, a2, d2, w2b, xb, nullptr, b2, outb,
-                                      partial, N, H, W, Cout, Cin, Cout);
-  }
+  cudaError_t err = gn_silu<bf16, false>(s, xb, 1, nullptr, nullptr, 0, g1, sg1, b1v, sb1, hb,
+                                         N, HW, Cin, G, eps);
+  if (err != cudaSuccess) return (int)err;
+  ConvArgs a1{H, W, M, Cout, Cin / BK, 9 * Cin / BK, 9 * Cin / BK, per1, b1,
+              nullptr, Cin, h1, partial};
+  err = bm == 128 ? conv<2, float, false>(s, tm_h0, tm_h0, tm_w1, a1, splits1)
+                  : conv<1, float, false>(s, tm_h0, tm_h0, tm_w1, a1, splits1);
+  if (err != cudaSuccess) return (int)err;
+  err = splits1 > 1 ? gn_silu<float, true>(s, partial, splits1, b1, pre2, sp2, g2, sg2, b2v, sb2,
+                                           hb, N, HW, Cout, G, eps)
+                    : gn_silu<float, false>(s, h1, 1, nullptr, pre2, sp2, g2, sg2, b2v, sb2, hb,
+                                            N, HW, Cout, G, eps);
+  if (err != cudaSuccess) return (int)err;
+  ConvArgs a2{H, W, M, Cout, Cout / BK, 9 * Cout / BK, k2 / BK, per2, b2, xb, Cin, out,
+              partial};
+  err = has_proj ? conv2<false>(bm, s, tm_h2, tm_x, tm_w2, a2, splits2)
+                 : conv2<true>(bm, s, tm_h2, tm_x, tm_w2, a2, splits2);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

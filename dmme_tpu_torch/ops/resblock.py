@@ -9,29 +9,33 @@ Replaces the TPU kernel ``dmme_tpu/ops/resblock.py:_resblock_kernel``
 
 The TPU kernel keeps a whole batch block in VMEM; a 32×32×128 bf16 sample
 alone exceeds an SM's shared memory, so here the block is four launches:
-GN1 statistics, conv1 as an implicit GEMM whose tile loader applies
-GN1+SiLU (h0 never reaches device memory; taps outside the image read 0),
-GN2 statistics of h1 + pre2 (a separate pass, not atomics, so runs agree bit
-for bit), and conv2 with GN2+SiLU in the loader and bias + skip (identity,
-or the 1×1 projection continuing the same accumulation) in the epilogue.
+GN1+SiLU (one pass per (sample, group) that holds the group on chip and
+writes h0 once, in bf16), conv1 as an implicit GEMM over h0, GN2+SiLU of
+h1 + pre2 (a separate pass, not atomics, so runs agree bit for bit), and
+conv2 with bias + skip (identity, or the 1×1 projection continuing the same
+accumulation) in the epilogue. The convs are warp-specialised: a producer
+thread fills a ring of shared-memory stages by TMA (4-D boxes of the NHWC
+operand shifted by the tap; the zero fill outside the image is the TPU
+kernel's zero padding), one or two consumer warpgroups run ``wgmma`` with
+f32 accumulators in registers.
 
 Bound on the card: operations (a ResBlock does hundreds of operations per
-byte it must move). This first version is a plain wmma-tiled kernel,
-without pipelining, far from that bound. Where a conv's 64×64 output tiles
-are fewer than the card's SMs (the 4×4 and 8×8 blocks), its K steps are
-split over more blocks whose f32 partial tiles one more launch sums in a
-fixed order. Launches per call: 4, plus 1 for each conv that is split
-(``launches`` counts calls). The wrapper lays the conv weights out in bf16,
-tap-major, once per weight state (:func:`pack_weights`), and hands affines
-shared by the batch over with a row stride of 0, so a call on the card
-issues the kernels' launches and no copies.
+byte it must move). Where a conv's output tiles are fewer than the card's
+SMs, its K steps are split over more blocks whose f32 partial tiles are
+summed in a fixed order (:func:`conv_plan`): conv1's by the GN2 pass as it
+reads them, conv2's by one more launch. Launches per call: 4, plus 1 if
+conv2 is split (``launches`` counts calls). The wrapper lays the conv
+weights out in bf16, K-major, once per weight state (:func:`pack_weights`),
+and hands affines shared by the batch over with a row stride of 0, so a
+call on the card issues the kernels' launches and no copies.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import OrderedDict
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,7 +48,9 @@ launches = 0
 
 _FN = None
 
-BM, BN, BK = 64, 64, 32  # the conv kernel's tile (csrc/resblock.cu)
+BN, BK = 128, 64  # output channels a tile and K a step (csrc/resblock.cu)
+MIN_STEPS = 4  # K steps a split slice takes at least
+GN_THREADS = 256  # threads of the GN+SiLU pass; a group's channels divide it
 
 
 def _conv3x3_plain(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -83,18 +89,20 @@ def _fn():
     if _FN is None:
         fn = build.library("resblock").dmme_resblock_fwd
         vp = ctypes.c_void_p
-        fn.argtypes = [vp] * 16 + [ctypes.c_int] * 13 + [ctypes.c_float, vp]
+        fn.argtypes = ([vp] * 10 + [ctypes.c_int] + [vp] * 4 + [ctypes.c_int] * 19
+                       + [ctypes.c_float, vp])
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
 class PackedWeights(NamedTuple):
-    """A ResBlock's weights in the kernel's layout."""
+    """A ResBlock's weights in the kernel's layout: K-major rows, one per
+    output channel, as TMA and ``wgmma`` read them."""
 
-    w1: torch.Tensor            # (9·C_in, C_out) bf16, rows ordered (dy, dx, c_in)
-    w2: torch.Tensor            # (9·C_out, C_out) bf16
-    wr: Optional[torch.Tensor]  # (C_in, C_out) bf16, or None for the identity skip
+    w1: torch.Tensor            # (C_out, 9·C_in) bf16, K ordered (dy, dx, c_in)
+    w2: torch.Tensor            # (C_out, 9·C_out [+ C_in]) bf16, wr's rows appended
+    wr: Optional[torch.Tensor]  # (C_out, C_in) bf16 view of w2's last C_in columns, or None
     b1: torch.Tensor            # (C_out,) f32
     b2: torch.Tensor            # (C_out,) f32, plus br when wr is given
 
@@ -121,15 +129,17 @@ def pack_weights(w1, b1, w2, b2, wr=None, br=None) -> PackedWeights:
         return hit[1]
     cout = w1.shape[0]
 
-    def taps(wt):  # OIHW -> (9·C_in, C_out), rows ordered (dy, dx, c_in)
-        return wt.permute(2, 3, 1, 0).reshape(9 * wt.shape[1], cout).to(torch.bfloat16).contiguous()
+    def taps(wt):  # OIHW -> (C_out, 9·C_in), K ordered (dy, dx, c_in)
+        return wt.permute(0, 2, 3, 1).reshape(cout, 9 * wt.shape[1]).to(torch.bfloat16)
 
     b2f = b2.to(torch.float32)
-    wr_m = None
+    w2p, wr_m = taps(w2).contiguous(), None
     if wr is not None:
-        wr_m = wr.reshape(cout, -1).t().to(torch.bfloat16).contiguous()
+        cin = wr.shape[1]
+        w2p = torch.cat([w2p, wr.reshape(cout, cin).to(torch.bfloat16)], dim=1)
+        wr_m = w2p[:, 9 * cout:]
         b2f = b2f + br.to(torch.float32)
-    packed = PackedWeights(taps(w1), taps(w2), wr_m, b1.to(torch.float32).contiguous(),
+    packed = PackedWeights(taps(w1).contiguous(), w2p, wr_m, b1.to(torch.float32).contiguous(),
                            b2f.contiguous())
     _PACKED[key] = (src, packed)
     if len(_PACKED) > _PACKED_MAX:
@@ -137,13 +147,63 @@ def pack_weights(w1, b1, w2, b2, wr=None, br=None) -> PackedWeights:
     return packed
 
 
-def _splits(m: int, cout: int, k_steps: int, sms: int) -> int:
-    """K slices for one conv: enough blocks for two per SM where the output
-    tiles alone are fewer than the SMs, at least 4 K steps per slice."""
-    blocks = -(-m // BM) * (cout // BN)
-    if blocks >= sms:
-        return 1
-    return max(1, min(-(-2 * sms // blocks), k_steps // 4))
+def pixel_box(h: int, w: int, bm: int) -> Tuple[int, int, int]:
+    """(images, rows, columns) of the NHWC pixels that one M tile of ``bm``
+    consecutive output pixels covers: one TMA box, in raster order."""
+    if w >= bm:
+        if w % bm:
+            raise ValueError(f"resblock kernel: width {w} is not a multiple of {bm}")
+        return 1, 1, bm
+    if bm % w:
+        raise ValueError(f"resblock kernel: {bm} pixels are not whole rows of {w}")
+    rows = bm // w
+    if h >= rows:
+        if h % rows:
+            raise ValueError(f"resblock kernel: height {h} is not a multiple of {rows} rows")
+        return 1, rows, w
+    if rows % h:
+        raise ValueError(f"resblock kernel: {rows} rows are not whole images of {h}")
+    return rows // h, h, w
+
+
+class ConvPlan(NamedTuple):
+    """Launch geometry of one conv of K4."""
+
+    bm: int                   # output pixels a tile (64 per consumer warpgroup)
+    box: Tuple[int, int, int]  # (images, rows, columns) of a tile: TMA box (64, w, h, n)
+    m_tiles: int
+    n_tiles: int              # tiles of BN output channels
+    steps: int                # 64-deep K steps: 9 taps × C_in/64 [+ C_proj/64]
+    splits: int               # split-K slices (blockIdx.z), summed in slice order
+    per: int                  # K steps a slice; the last may take fewer
+
+    def slices(self) -> List[range]:
+        """The K steps of each split slice, in order."""
+        return [range(z * self.per, min(self.steps, (z + 1) * self.per))
+                for z in range(self.splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(n: int, h: int, w: int, c_in: int, c_out: int, c_proj: int, sms: int) -> ConvPlan:
+    """The conv kernel's tile, TMA box and split-K for an (N, H, W, C_in)
+    operand, C_out outputs and a 1×1 projection over C_proj channels
+    continuing the accumulation (0 for none), on a card with ``sms`` SMs,
+    made once per shape. Tiles of 128 pixels where they alone make blocks
+    for a quarter of the SMs (the 32×32 layers at batch 8; measured faster
+    there, PERF.md), else 64; the rule reads only M and C_out, so both convs
+    of a ResBlock take the same tile. Then the K steps split into
+    ⌊SMs / tiles⌋ slices of at least ``MIN_STEPS`` steps, none empty."""
+    if c_in % BK or c_proj % BK or c_out % BN:
+        raise ValueError(f"resblock kernel takes C_in % {BK} == 0 and C_out % {BN} == 0, "
+                         f"got {c_in}, {c_out}")
+    m, n_tiles = n * h * w, c_out // BN
+    bm = 128 if 4 * -(-m // 128) * n_tiles >= sms else 64
+    box = pixel_box(h, w, bm)
+    steps = (9 * c_in + c_proj) // BK
+    m_tiles = -(-m // bm)
+    splits = max(1, min(sms // (m_tiles * n_tiles), steps // MIN_STEPS))
+    per = -(-steps // splits)
+    return ConvPlan(bm, box, m_tiles, n_tiles, steps, -(-steps // per), per)
 
 
 def _launch(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br,
@@ -154,33 +214,34 @@ def _launch(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br,
     if x.dtype != torch.bfloat16:
         raise TypeError(f"resblock kernel takes bf16 activations, got {x.dtype}")
     for c in (cin, cout):
-        if c % num_groups or 256 % (c // num_groups):
+        if c % num_groups or GN_THREADS % (c // num_groups):
             raise ValueError(f"resblock kernel: {c} channels in {num_groups} groups not supported")
-    if cin % 32 or cout % 64:
-        raise ValueError(f"resblock kernel takes C_in % 32 == 0 and C_out % 64 == 0, got {cin}, {cout}")
     if wr is None and cin != cout:
         raise ValueError("identity skip needs C_in == C_out")
     dev = x.device
+    sms = build.sm_count(dev)
+    p1 = conv_plan(n, h, w, cin, cout, 0, sms)
+    p2 = conv_plan(n, h, w, cout, cout, cin if wr is not None else 0, sms)
     x = x.contiguous()
     pw = pack_weights(w1, b1, w2, b2, wr, br)
     vecs = [broadcast_rows(v, n, c)
             for v, c in ((g1, cin), (b1v, cin), (pre2, cout), (g2, cout), (b2v, cout))]
-    f32 = dict(device=dev, dtype=torch.float32)
-    h1 = torch.empty((n * h * w * cout,), **f32)
-    coef = torch.empty((2 * n * (cin + cout),), **f32)
-    stats = torch.empty((4 * n * num_groups,), **f32)
-    out = torch.empty((n, h, w, cout), device=dev, dtype=torch.bfloat16)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     m = n * h * w
-    s1 = _splits(m, cout, 9 * cin // BK, sms)
-    s2 = _splits(m, cout, (9 * cout + (cin if wr is not None else 0)) // BK, sms)
-    partial = torch.empty((max(s1, s2) * m * cout if max(s1, s2) > 1 else 1,), **f32)
+    f32 = dict(device=dev, dtype=torch.float32)
+    hbuf = torch.empty((m * max(cin, cout),), device=dev, dtype=torch.bfloat16)
+    # conv1's f32 output where it is not split (split, GN2 reads the slices),
+    # and the slices of whichever conv is split
+    h1 = torch.empty((m * cout,), **f32) if p1.splits == 1 else None
+    splits = max(p1.splits, p2.splits)
+    partial = torch.empty((splits * m * cout,), **f32) if splits > 1 else None
+    out = torch.empty((n, h, w, cout), device=dev, dtype=torch.bfloat16)
     status = _fn()(
         x.data_ptr(), *(v.data_ptr() for v, _ in vecs),
         pw.w1.data_ptr(), pw.b1.data_ptr(), pw.w2.data_ptr(), pw.b2.data_ptr(),
-        None if pw.wr is None else pw.wr.data_ptr(),
-        h1.data_ptr(), coef.data_ptr(), stats.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        n, h, w, cin, cout, num_groups, s1, s2, *(stride for _, stride in vecs), float(eps),
+        int(pw.wr is not None), hbuf.data_ptr(), None if h1 is None else h1.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        out.data_ptr(), n, h, w, cin, cout, num_groups, p1.bm, *p1.box, p1.splits, p1.per,
+        p2.splits, p2.per, *(stride for _, stride in vecs), float(eps),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(status, "resblock kernel launch")

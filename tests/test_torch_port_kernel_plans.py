@@ -1,0 +1,215 @@
+"""Launch geometry of the port's CUDA kernels, planned in Python and checked
+on the CPU at every call site of the main path: K3 (attention) at serving
+batches 1, 8 and 16 and at training batch 128, K4 (fused ResBlock) at
+serving batches 1, 8 and 16. The call sites come from a full-width bf16 UNet
+forward on PyTorch's meta device (shapes only, no data), with the kernel
+entry points replaced by recorders. The card is an H100 SXM: 132 SMs.
+"""
+
+import functools
+import math
+
+import pytest
+import torch
+
+import dmme_tpu_torch.models.blocks as blocks
+from dmme_tpu_torch.models import ddpm as ddpm_models
+from dmme_tpu_torch.ops import attention as t_attention
+from dmme_tpu_torch.ops import resblock as t_resblock
+
+SMS = 132
+SERVE_BATCHES = (1, 8, 16)
+TRAIN_BATCH = 128
+
+
+@functools.lru_cache(maxsize=None)
+def call_sites(n: int) -> dict:
+    """{"attention": [q shape], "resblock": [(x shape, C_out,
+    projection?)]}, one entry per call of a full-width UNet forward at batch n."""
+    seen = {"attention": [], "resblock": []}
+
+    def attention(q, k, v, scale):
+        seen["attention"].append(tuple(q.shape))
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+    def resblock(x, *args, wr=None, br=None, num_groups=32, eps=None):
+        cout = args[5].shape[0]
+        seen["resblock"].append((tuple(x.shape), cout, wr is not None))
+        return torch.empty((*x.shape[:3], cout), dtype=x.dtype, device=x.device)
+
+    def gn_silu(x, gamma, beta, groups, eps=None, pre_bias=None):
+        return torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+
+    patched = {"attention_heads": attention, "resblock_forward": resblock,
+               "group_norm_silu": gn_silu}
+    saved = {k: getattr(blocks, k) for k in patched}
+    try:
+        for k, fn in patched.items():
+            setattr(blocks, k, fn)
+        with torch.device("meta"), torch.no_grad():
+            model = ddpm_models.UNet(dtype=torch.bfloat16, fused_norm=True, fused_block=True)
+            model.eval()
+            model(torch.empty((n, 32, 32, 3)), torch.zeros((n,), dtype=torch.int64))
+    finally:
+        for k, fn in saved.items():
+            setattr(blocks, k, fn)
+    return seen
+
+
+def test_call_sites_per_forward():
+    """6 attention and 22 ResBlock calls per forward, as chip_smoke counts
+    them; 3 and 11 distinct shapes."""
+    sites = call_sites(8)
+    assert len(sites["attention"]) == 6 and len(sites["resblock"]) == 22
+    assert len(set(sites["attention"])) == 3 and len(set(sites["resblock"])) == 11
+
+
+def _attention_shapes():
+    for n in SERVE_BATCHES + (TRAIN_BATCH,):
+        for shape in sorted(set(call_sites(n)["attention"])):
+            yield n, shape
+
+
+@pytest.mark.parametrize("n,shape", list(_attention_shapes()),
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_attention_plan_covers_every_key_tile_once(n, shape):
+    _, t, h, d = shape
+    plan = t_attention.attention_plan(n, h, t, d, SMS)
+    assert plan.bq in t_attention.BLOCK_QUERIES[d] and plan.bkv == (32 if d > 128 else 64)
+    if plan.bq == 128:  # two warpgroups only where such blocks alone fill the SMs
+        assert plan.q_tiles * n * h >= SMS
+    tiles = [j for r in plan.split_tiles() for j in r]
+    assert tiles == list(range(plan.kv_tiles))
+    assert all(len(r) > 0 for r in plan.split_tiles())
+    assert (plan.kv_tiles - 1) * plan.bkv < t <= plan.kv_tiles * plan.bkv
+    assert (plan.q_tiles - 1) * plan.bq < t <= plan.q_tiles * plan.bq
+    blocks_ = plan.q_tiles * n * h
+    if 8 * blocks_ > SMS or t * d < t_attention.SPLIT_MIN_WORK:
+        assert plan.splits == 1
+    else:  # split, two key tiles at least a split, up to about one block per SM
+        assert 1 < plan.splits <= min(plan.kv_tiles // 2, math.ceil(SMS / blocks_))
+        assert plan.kv_per_split >= 2
+    # the strided views of a packed (N, T, 3, H, D) projection are read in
+    # place by 16-byte copies
+    qkv = torch.empty((n, t, 3, h, d), dtype=torch.bfloat16, device="meta")
+    for i in range(3):
+        view = qkv[:, :, i]
+        assert t_attention._aligned(view)
+        assert all(s * 2 % 16 == 0 for s in view.stride()[:3]) and view.stride(3) == 1
+
+
+def test_attention_plan_splits_and_head_dims():
+    train = t_attention.attention_plan(128, 1, 256, 128, SMS)
+    assert (train.bq, train.q_tiles, train.kv_tiles, train.splits) == (128, 2, 4, 1)
+    assert t_attention.attention_plan(128, 1, 256, 256, SMS).bq == 64
+    assert t_attention.attention_plan(8, 1, 256, 128, SMS).bq == 64
+    # batch 1 at 256 x 256: 4 blocks, 8 key tiles of 32, split in 4
+    plan = t_attention.attention_plan(1, 1, 256, 256, SMS)
+    assert (plan.q_tiles, plan.kv_tiles, plan.splits) == (4, 8, 4)
+    assert [list(r) for r in plan.split_tiles()] == [[0, 1], [2, 3], [4, 5], [6, 7]]
+    # at 256 x 128 the key loop is too short to pay for the merge
+    assert t_attention.attention_plan(1, 1, 256, 128, SMS).splits == 1
+    assert t_attention.attention_plan(16, 1, 256, 256, SMS).splits == 1
+    # a longer key loop at batch 1: 9 splits asked, rounded to 8 of 4 tiles, none empty
+    plan = t_attention.attention_plan(1, 1, 1024, 256, SMS)
+    assert (plan.q_tiles, plan.kv_tiles, plan.splits, plan.kv_per_split) == (16, 32, 8, 4)
+    assert [len(r) for r in plan.split_tiles()] == [4] * 8
+    # as many splits as leave two key tiles each
+    plan = t_attention.attention_plan(2, 1, 320, 256, SMS)
+    assert (plan.kv_tiles, plan.kv_per_split, plan.splits) == (10, 2, 5)
+    assert [len(r) for r in plan.split_tiles()] == [2] * 5
+    # made once per shape: the launcher's repeated calls do no planning
+    assert t_attention.attention_plan(8, 1, 256, 256, SMS) is t_attention.attention_plan(
+        8, 1, 256, 256, SMS)
+    with pytest.raises(ValueError, match="head dims"):
+        t_attention.attention_plan(1, 1, 16, 96, SMS)
+
+
+def _resblock_shapes():
+    for n in SERVE_BATCHES:
+        for shape, cout, proj in sorted(set(call_sites(n)["resblock"])):
+            yield n, shape, cout, proj
+
+
+@pytest.mark.parametrize("n,shape,cout,proj", list(_resblock_shapes()),
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_resblock_plan_boxes_and_k_steps(n, shape, cout, proj):
+    _, h, w, cin = shape
+    p1 = t_resblock.conv_plan(n, h, w, cin, cout, 0, SMS)
+    p2 = t_resblock.conv_plan(n, h, w, cout, cout, cin if proj else 0, SMS)
+    m = n * h * w
+    for plan, c_conv, c_proj in ((p1, cin, 0), (p2, cout, cin if proj else 0)):
+        # every K step exactly once: 9 taps x 64-channel chunks, then the projection
+        assert plan.steps * t_resblock.BK == 9 * c_conv + c_proj
+        steps = [s for r in plan.slices() for s in r]
+        assert steps == list(range(plan.steps))
+        assert all(len(r) > 0 for r in plan.slices())
+        assert plan.splits == 1 or plan.per >= t_resblock.MIN_STEPS
+        # one TMA box of (64, w, h, n) is one tile of bm pixels in raster order
+        nb, hb, wb = plan.box
+        assert nb * hb * wb == plan.bm and max(t_resblock.BK, nb, hb, wb) <= 256
+        assert (nb == 1 or (hb == h and wb == w)) and (hb == 1 or wb == w)
+        assert h % hb == 0 and w % wb == 0
+        assert (plan.m_tiles - 1) * plan.bm < m <= plan.m_tiles * plan.bm
+        assert plan.n_tiles * t_resblock.BN == cout
+        # TMA's global strides, in bytes: the NHWC operands and the packed weights
+        for c in (c_conv, cin):
+            assert all(s % 16 == 0 for s in (2 * c, 2 * w * c, 2 * h * w * c))
+        assert 2 * (9 * c_conv + c_proj) % 16 == 0
+        assert plan.bm == (128 if 4 * -(-m // 128) * plan.n_tiles >= SMS else 64)
+        if plan.m_tiles * plan.n_tiles >= SMS:
+            assert plan.splits == 1
+        else:
+            assert plan.splits * plan.m_tiles * plan.n_tiles <= max(SMS, plan.m_tiles * plan.n_tiles)
+    assert p1.bm == p2.bm  # one tile for both convs of a call
+
+
+def test_resblock_plan_tile_choice_and_errors():
+    # 128-pixel tiles where they alone make blocks for a quarter of the SMs
+    plan = t_resblock.conv_plan(8, 32, 32, 128, 128, 0, SMS)
+    assert plan.bm == 128 and plan.box == (1, 4, 32) and plan.m_tiles == 64
+    assert plan.splits == 2 and plan.per == 9
+    assert t_resblock.conv_plan(8, 16, 16, 128, 256, 0, SMS).bm == 64
+    assert t_resblock.conv_plan(1, 32, 32, 128, 128, 0, SMS).bm == 64
+    plan = t_resblock.conv_plan(16, 16, 16, 128, 256, 0, SMS)
+    assert plan.bm == 128 and plan.box == (1, 8, 16) and plan.m_tiles == 32 and plan.splits == 2
+    # batch 1 at 4 x 4: one 64-pixel tile of four images, three of them past N
+    plan = t_resblock.conv_plan(1, 4, 4, 512, 256, 0, SMS)
+    assert (plan.bm, plan.box, plan.m_tiles, plan.n_tiles) == (64, (4, 4, 4), 1, 2)
+    assert t_resblock.conv_plan(1, 4, 4, 512, 256, 0, SMS) is plan  # made once per shape
+    assert t_resblock.pixel_box(4, 4, 128) == (8, 4, 4)
+    assert t_resblock.pixel_box(8, 8, 128) == (2, 8, 8)
+    assert t_resblock.pixel_box(16, 16, 128) == (1, 8, 16)
+    assert t_resblock.pixel_box(4, 256, 128) == (1, 1, 128)
+    for h, w in ((6, 6), (12, 8), (3, 16)):
+        with pytest.raises(ValueError, match="resblock kernel"):
+            t_resblock.pixel_box(h, w, 64)
+    with pytest.raises(ValueError, match="C_out"):
+        t_resblock.conv_plan(1, 8, 8, 96, 128, 0, SMS)
+    with pytest.raises(ValueError, match="resblock kernel"):
+        t_resblock.conv_plan(1, 6, 6, 128, 128, 0, SMS)
+
+
+# The input domains of the CUDA kernels, narrower than PR 1's (head dims that
+# are multiples of 16 up to 256; C_in % 32, C_out % 64): a model outside them
+# raises on the card (ROADMAP B.3, B.4). The CPU takes the plain versions,
+# which accept any shape.
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 128, 160, 192, 256, 320])
+def test_attention_kernel_head_dims(d):
+    if d in (64, 128, 256):
+        assert t_attention.attention_plan(8, 4, 256, d, SMS).bkv in (32, 64)
+    else:
+        with pytest.raises(ValueError, match="head dims"):
+            t_attention.attention_plan(8, 4, 256, d, SMS)
+
+
+@pytest.mark.parametrize("c_in,c_out", [(64, 128), (128, 128), (192, 384), (384, 768),
+                                        (32, 128), (96, 128), (128, 64), (192, 192),
+                                        (128, 320)])
+def test_resblock_kernel_channels(c_in, c_out):
+    if c_in % 64 == 0 and c_out % 128 == 0:
+        plan = t_resblock.conv_plan(8, 8, 8, c_in, c_out, 0, SMS)
+        assert plan.n_tiles * t_resblock.BN == c_out
+    else:
+        with pytest.raises(ValueError, match="C_out"):
+            t_resblock.conv_plan(8, 8, 8, c_in, c_out, 0, SMS)

@@ -239,9 +239,11 @@ class TestResBlock:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **RES_TOL)
 
     def test_pack_weights_layout_and_cache(self):
-        """Tap-major bf16 weights, the projection's bias folded into b2, one
-        pack per weight state: the same tensors give the same pack until one
-        of them changes in place."""
+        """K-major bf16 weights, one row per output channel with K ordered
+        (dy, dx, c_in), the projection's rows appended to conv2's and its
+        bias folded into b2: unpacked on the CPU they equal the OIHW weights
+        bit for bit. One pack per weight state: the same tensors give the
+        same pack until one of them changes in place."""
         r = np.random.default_rng(9)
         cin, cout = 8, 16
         w1, w2 = torch.tensor(_rand(r, cout, cin, 3, 3)), torch.tensor(_rand(r, cout, cout, 3, 3))
@@ -249,12 +251,16 @@ class TestResBlock:
         b1, b2, br = (torch.tensor(_rand(r, cout)) for _ in range(3))
         pw = t_resblock.pack_weights(w1, b1, w2, b2, wr, br)
         assert pw.w1.dtype == pw.w2.dtype == pw.wr.dtype == torch.bfloat16
-        assert pw.w1.shape == (9 * cin, cout) and pw.w2.shape == (9 * cout, cout)
-        for tap in range(9):
-            dy, dx = divmod(tap, 3)
-            torch.testing.assert_close(pw.w1[tap * cin:(tap + 1) * cin],
-                                       w1[:, :, dy, dx].t().to(torch.bfloat16), rtol=0, atol=0)
-        torch.testing.assert_close(pw.wr, wr[:, :, 0, 0].t().to(torch.bfloat16), rtol=0, atol=0)
+        assert pw.w1.shape == (cout, 9 * cin) and pw.w2.shape == (cout, 9 * cout + cin)
+        assert pw.w1.is_contiguous() and pw.w2.is_contiguous()
+
+        def unpack(p, c):  # (C_out, 9·C) -> OIHW
+            return p.reshape(cout, 3, 3, c).permute(0, 3, 1, 2)
+
+        assert torch.equal(unpack(pw.w1, cin), w1.to(torch.bfloat16))
+        assert torch.equal(unpack(pw.w2[:, :9 * cout], cout), w2.to(torch.bfloat16))
+        assert torch.equal(pw.wr, wr[:, :, 0, 0].to(torch.bfloat16))
+        assert pw.wr.data_ptr() == pw.w2[:, 9 * cout:].data_ptr()
         torch.testing.assert_close(pw.b2, b2 + br, rtol=0, atol=0)
         assert t_resblock.pack_weights(w1, b1, w2, b2, wr, br) is pw
         with torch.no_grad():
@@ -262,6 +268,10 @@ class TestResBlock:
         again = t_resblock.pack_weights(w1, b1, w2, b2, wr, br)
         assert again is not pw
         torch.testing.assert_close(again.w1, -pw.w1, rtol=0, atol=0)
+        identity = t_resblock.pack_weights(w2, b1, w2, b2)
+        assert identity.wr is None and identity.w2.shape == (cout, 9 * cout)
+        assert torch.equal(unpack(identity.w2, cout), w2.to(torch.bfloat16))
+        torch.testing.assert_close(identity.b2, b2, rtol=0, atol=0)
 
     def test_broadcast_affine_rows_are_not_copied(self):
         g = torch.arange(8, dtype=torch.float32)
@@ -374,3 +384,56 @@ def test_library_name_follows_the_source_hash():
     name = build._target("resblock").name
     assert name.startswith("libresblock-") and name.endswith(".so")
     assert build._target("attention").name != name
+    headers = {p.name for p in build.local_includes(build.CSRC / "resblock.cu")}
+    assert "hopper.cuh" in headers
+
+
+def test_library_name_follows_the_local_headers(tmp_path, monkeypatch):
+    """Editing a header that a source includes, directly or through another
+    header under csrc/, renames the library, so it is rebuilt."""
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include <cuda.h>\n#include "a.cuh"\nint f() { return A; }\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n#define A B\n')
+    (tmp_path / "b.cuh").write_text("#define B 1\n")
+    assert [p.name for p in build.local_includes(tmp_path / "k.cu")] == ["a.cuh", "b.cuh"]
+    names = [build._target("k").name]
+    (tmp_path / "b.cuh").write_text("#define B 2\n")
+    names.append(build._target("k").name)
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n#define A (B + 1)\n')
+    names.append(build._target("k").name)
+    assert len(set(names)) == 3 and all(n.startswith("libk-") for n in names)
+    (tmp_path / "unrelated.cuh").write_text("#define C 3\n")
+    assert build._target("k").name == names[-1]
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelILi2EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi2EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'
+ptxas info    : Function properties for _Z5otherv
+    24 bytes stack frame, 16 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, 360 bytes cmem[0]
+"""
+    assert build.ptxas_usage(log) == {
+        "_Z6kernelILi2EEvv": {"registers": 90, "spill_stores": 0, "spill_loads": 0},
+        "_Z5otherv": {"registers": 255, "spill_stores": 16, "spill_loads": 8}}
+
+
+def test_sm_count_is_asked_once_per_device(monkeypatch):
+    asked = []
+
+    class Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda i: asked.append(i) or Props)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 5)
+    build._sm_count.cache_clear()
+    try:
+        assert [build.sm_count("cuda:3") for _ in range(3)] == [132] * 3
+        assert build.sm_count("cuda") == build.sm_count(torch.device("cuda", 5)) == 132
+        assert asked == [3, 5]
+    finally:
+        build._sm_count.cache_clear()
