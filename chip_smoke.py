@@ -9,7 +9,8 @@ if the package is missing, or if any phase fails. Phases:
 
 1. device  — the card's name and power limit (``nvidia-smi``), torch version;
 2. build   — compiles the CUDA sources of ``dmme_tpu_torch/ops/csrc`` in
-   parallel and prints each kernel's registers and spill bytes (``-Xptxas -v``);
+   parallel (K1 and K2 in ``group_norm.cu``, K3, K4) and prints each
+   kernel's registers and spill bytes (``-Xptxas -v``);
 3. kernels — records the inputs each kernel receives at every call site of
    one full-width bf16 UNet forward at each serving batch, 1, 8 and 16 (both
    switches on; at batch 8 also ``fused_norm`` only), then holds each kernel
@@ -19,7 +20,12 @@ if the package is missing, or if any phase fails. Phases:
    K3, SDPA; beside K4, the same ResBlock as a cuDNN sequence
    (``cudnn_seq_ms``), which the port never calls;
 4. unet    — the full-width UNet forward on the card in bf16 under both switch
-   settings against the same module and weights on the CPU in f32;
+   settings against the same module and weights on the CPU in f32; then one
+   forward at the LSUN widths (``configs/ddpm/lsun_*.yaml``: channels
+   128/128/256/256/512/512, attention at depth 5, 256×256) at batch 1, both
+   switches on, the same way, with every K1, K3 and K4 call of it (head dim
+   512, 256×256 ResBlocks, a two-pass GroupNorm) held against its plain
+   version;
 5. serve   — ``LitDDIM`` (T=1000, DDIM-50, quadratic τ) behind ``make_server``,
    with ``/healthz`` and ``/sample`` requests of n = 1, 8 and 16, and a repeat
    that must return identical bytes; counts each kernel's launches; then one
@@ -28,8 +34,15 @@ if the package is missing, or if any phase fails. Phases:
 6. train kernels — records the inputs of K1, K2, K3 and the attention
    backward at every call site of one full-width bf16 training step at batch
    128 (dropout on, random biases and affines) and holds each against its
-   plain version there, with times and bounds; SDPA's forward and backward
-   are timed beside K3 and the attention backward as yardsticks;
+   plain version there, with times and bounds, and calls K1 and K2 twice
+   for identical bytes; SDPA's forward and backward are timed beside K3 and
+   the attention backward, ``F.group_norm`` + ``F.silu`` (and its autograd
+   backward) beside K1 and K2, as yardsticks;
+6b. off-path kernels — K1, K2, K3 and K4 at shapes off the main path (head
+   dims 16, 48, 96, 160 and 512, a key split at a padded head dim; C_in 32
+   and 96; C_out 32, 64 and 192; H×W that 64-pixel tiles of whole rows do
+   not cover; C/G = 3; GroupNorms that take two passes, forward and
+   backward), each held against its plain version;
 7. train gradient — one ``loss_given`` + backward at batch 8, dropout 0, on
    the same weights and numpy t, ε: bf16 on the card against f32 on the CPU
    (relative L2 of the loss and of the gradient, overall and per top-level
@@ -48,7 +61,7 @@ if the package is missing, or if any phase fails. Phases:
    ``{"ok": true, "device": ...}``.
 
 ``--out`` also writes every measurement to a JSON file. ``--kernels-only``
-stops after phase 6 (build, kernels at serving and training shapes) and
+runs phases 1–3, 6, 6b and the LSUN forward of phase 4, then stops and
 prints no result line: a short first check of new kernels.
 """
 
@@ -84,6 +97,9 @@ TOL = {"group_norm_silu": (2e-2, 1e-2), "attention": (2e-2, 1e-2),
        "resblock": (2e-2, 5e-2)}
 # full UNet, bf16 on the card against f32 on the CPU: relative L2 error
 UNET_REL_L2 = 5e-2
+# the LSUN widths of configs/ddpm/lsun_*.yaml, run at batch 1 and 256x256
+LSUN_WIDTHS = dict(channels_per_depth=(128, 128, 256, 256, 512, 512), attention_depths=(5,))
+LSUN_IMG = 256
 # K2 on the training path: gradients have no fixed scale, so atol is a share
 # of the largest reference value. dx is bf16, one rounding of an f32 value
 # (a bf16 ulp is 2^-8 of it), from group means summed in another order than
@@ -242,8 +258,12 @@ def _kernel_group(name: str) -> str:
                           ("splitk_reduce_kernel", "K4 split-K sum (resblock.cu)"),
                           ("attn_fwd_kernel", "K3 attention (attention.cu)"),
                           ("attn_combine_kernel", "K3 split merge (attention.cu)"),
-                          ("gn_silu_fwd", "K1 group_norm_silu (triton)"),
-                          ("gn_silu_bwd", "K2 group_norm_silu backward (triton)")):
+                          ("gn_fwd_cluster_kernel", "K1 group_norm_silu (group_norm.cu)"),
+                          ("gn_apply_kernel", "K1 two-pass apply (group_norm.cu)"),
+                          ("gn_bwd_cluster_kernel", "K2 group_norm_silu backward (group_norm.cu)"),
+                          ("gn_dx_kernel", "K2 two-pass dx (group_norm.cu)"),
+                          ("gn_partial_kernel", "K1/K2 two-pass partials (group_norm.cu)"),
+                          ("gn_finalize_kernel", "K1/K2 two-pass sums (group_norm.cu)")):
         if needle in name:
             return label
     return name[:90]
@@ -267,6 +287,32 @@ def ptxas_report(build) -> dict:
             name = name.replace("(anonymous namespace)::", "").split("(")[0]
             out.setdefault(src, {})[name.removeprefix("void ")] = usage[mangled]
     return out
+
+
+def gn_sequence(torch, a, k, dz=None):
+    """One K1 call's function as a library sequence on the same bf16 NHWC
+    tensor: the pre-bias add, ``F.group_norm`` and ``F.silu``; with ``dz``,
+    K2's: autograd through that sequence to x, γ, β and the pre-bias. A
+    yardstick the port never calls; the affine is the batch's (C,) row."""
+    F = torch.nn.functional
+    x, gamma, beta, groups = a[:4]
+    eps, bias = k.get("eps", 1e-5), k.get("pre_bias")
+    g, b = (v if v.dim() == 1 else v[0] for v in (gamma, beta))
+
+    def fwd(xx, gg, bb, pp):
+        u = xx if pp is None else xx + pp.to(xx.dtype)[:, None, None, :]
+        return F.silu(F.group_norm(u.permute(0, 3, 1, 2), groups, gg, bb, eps))
+
+    g, b = g.to(x.dtype), b.to(x.dtype)
+    if dz is None:
+        return lambda: fwd(x, g, b, bias)
+    leaves = [t.detach().requires_grad_(True) for t in (x, g, b)]
+    if bias is not None:
+        leaves.append(bias.detach().requires_grad_(True))
+    with torch.enable_grad():
+        out = fwd(*leaves[:3], leaves[3] if bias is not None else None)
+    dz = dz.permute(0, 3, 1, 2)
+    return lambda: torch.autograd.grad(out, leaves, dz, retain_graph=True)
 
 
 def attention_plan(k_attn, q) -> dict:
@@ -447,8 +493,12 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
             got = kern()
             torch.cuda.synchronize()
             max_abs, _, ok = errors(got, plain(), rtol, atol)
-            rows.append(_train_row("group_norm_silu", key, count, max_abs, ok,
-                                   device_ms(torch, kern), device_ms(torch, plain), a, k))
+            same = bool(torch.equal(got, kern()))
+            row = _train_row("group_norm_silu", key, count, max_abs, ok and same,
+                             device_ms(torch, kern), device_ms(torch, plain), a, k)
+            row["repeat_identical"], row["plan"] = same, gn_plan(k_gn, a[0], a[3], False)
+            row["torch_seq_ms"] = device_ms(torch, gn_sequence(torch, a, k))
+            rows.append(row)
         for key, count, a, k in calls["group_norm_silu_bwd"]:
             kern = lambda a=a: k_gn.group_norm_silu_bwd(*a)  # noqa: E731
             plain = lambda a=a: k_gn.gn_silu_bwd_plain(*a)  # noqa: E731
@@ -460,8 +510,13 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
                 rtol, share = TOL_BWD["dx" if name == "dx" else "vec"]
                 e_abs, _, e_ok = scaled_errors(g_, w_, rtol, share)
                 max_abs, ok = max(max_abs, e_abs), ok and e_ok and g_.dtype == w_.dtype
-            rows.append(_train_row("group_norm_silu_bwd", key, count, max_abs, ok,
-                                   device_ms(torch, kern), device_ms(torch, plain), a, k))
+            same = all(bool(torch.equal(g_, h_)) for g_, h_ in zip(got, kern()))
+            row = _train_row("group_norm_silu_bwd", key, count, max_abs, ok and same,
+                             device_ms(torch, kern), device_ms(torch, plain), a, k)
+            row["repeat_identical"], row["plan"] = same, gn_plan(k_gn, a[0], a[7], True)
+            row["torch_seq_ms"] = device_ms(
+                torch, gn_sequence(torch, (a[0], a[2], a[3], a[7]), {"pre_bias": a[4]}, a[1]))
+            rows.append(row)
         for key, count, a, k in calls["attention"]:
             rtol, atol = TOL["attention"]
             q, kk, v, scale = a
@@ -511,6 +566,10 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
               + f" ms {r['ms']:.4f} plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} "
               f"({r['bound_by']})"
               + (f" sdpa {r['library_ms']:.4f}" if r["library_ms"] else "")
+              + (f" torch_seq {r['torch_seq_ms']:.4f}" if r.get("torch_seq_ms") else "")
+              + (f" repeat {'identical' if r['repeat_identical'] else 'DIFFERENT'}"
+                 if "repeat_identical" in r else "")
+              + (f" plan {r['plan']}" if r["kernel"].startswith("group_norm") else "")
               + ("" if r["ok"] else "  FAIL"), flush=True)
         if not r["ok"]:
             failures.append(f"{r['kernel']} {r['key']}")
@@ -527,6 +586,8 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
                            for f in ("ms", "plain_ms", "bound_ms")}
         per_step[kname]["library_ms"] = (sum(r["library_ms"] * r["sites"] for r in rs)
                                          if kname.startswith("attention") else None)
+        if kname.startswith("group_norm"):
+            per_step[kname]["torch_seq_ms"] = sum(r["torch_seq_ms"] * r["sites"] for r in rs)
         per_step[kname]["max_abs_err"] = max(r["max_abs_err"] for r in rs)
         per_step[kname]["bound_by"] = max(rs, key=lambda r: r["bound_ms"] * r["sites"])[
             "bound_by"]
@@ -534,6 +595,12 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
               + ", ".join(f"{f} {v:.4f}" for f, v in per_step[kname].items()
                           if isinstance(v, float)) + f" [{card}]", flush=True)
     return {"shapes": rows, "per_step": per_step}
+
+
+def gn_plan(k_gn, x, groups, backward: bool) -> dict:
+    """K1's (or K2's) plan for the recorded input, as a dict."""
+    n, h, w, c = x.shape
+    return k_gn.gn_plan(n, h, w, c, groups, k_gn.build.sm_count(x.device), backward)._asdict()
 
 
 def _train_row(kind, key, count, max_abs, ok, ms, plain_ms, a, k) -> dict:
@@ -761,6 +828,155 @@ def sample_after_training(torch, k_res, lit, state, dev, ops) -> dict:
     return {"launches": launches, "identical": same}
 
 
+def _rows_report(rows, title: str) -> None:
+    """Print one line a checked call; fail if any disagreed."""
+    for r in rows:
+        print(f"{r['kernel']:20s} {r['key']:60s} max_abs {r['max_abs_err']:.3e}"
+              + ("" if r["ok"] else "  FAIL"), flush=True)
+    failures = [f"{r['kernel']} {r['key']}" for r in rows if not r["ok"]]
+    if failures:
+        fail(f"{title}: kernels disagree with their plain versions: {failures}")
+
+
+def offpath_kernels(torch, k_gn, k_attn, k_res, dev) -> list:
+    """Phase 6b: K1, K2, K3 and K4 at shapes off the main path, random
+    inputs from a seed, each held against its plain version on the card
+    (K1 and K2 also called twice for identical bytes)."""
+    gen = torch.Generator().manual_seed(SEED + 20)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=gen)).to(device=dev, dtype=dtype)
+
+    rows = []
+    with torch.no_grad():
+        # K1 and K2: C/G = 3, a 12x12 image, C = 1024, and samples that no
+        # cluster holds (two passes); per-sample affines and pre-biases
+        for n, h, w, c, per_sample, with_bias in ((4, 8, 8, 96, True, True),
+                                                  (2, 12, 12, 64, False, True),
+                                                  (2, 16, 16, 1024, True, False),
+                                                  (3, 32, 32, 512, True, True),
+                                                  (2, 64, 64, 256, False, True),
+                                                  (1, 256, 256, 128, True, True)):
+            aff = (n, c) if per_sample else (c,)
+            x = rnd(n, h, w, c, dtype=torch.bfloat16)
+            gamma, beta = 1.0 + rnd(*aff, scale=0.1), rnd(*aff, scale=0.1)
+            bias = rnd(n, c, scale=0.5) if with_bias else None
+            key = repr(((n, h, w, c), per_sample, with_bias))
+            y, mean, inv = k_gn.group_norm_silu_fwd(x, gamma, beta, 32, pre_bias=bias)
+            again = k_gn.group_norm_silu_fwd(x, gamma, beta, 32, pre_bias=bias)
+            y_p, mean_p, inv_p = k_gn.gn_silu_plain(x, gamma, beta, bias, 32)
+            max_abs, _, ok = errors(y, y_p, *TOL["group_norm_silu"])
+            for got, want in ((mean, mean_p), (inv, inv_p)):
+                ok = ok and scaled_errors(got, want, *TOL_BWD["vec"])[2]
+            same = all(bool(torch.equal(u, v)) for u, v in zip((y, mean, inv), again))
+            rows.append({"kernel": "group_norm_silu", "key": key, "max_abs_err": max_abs,
+                         "ok": ok and same, "repeat_identical": same,
+                         "plan": k_gn.gn_plan(n, h, w, c, 32, k_gn.build.sm_count(dev))._asdict()})
+            dz = rnd(n, h, w, c, dtype=torch.bfloat16)
+            args = (x, dz, gamma, beta, bias, mean, inv, 32)
+            got, again = k_gn.group_norm_silu_bwd(*args), k_gn.group_norm_silu_bwd(*args)
+            max_abs, ok = 0.0, True
+            for name, g_, w_ in zip(("dx", "dgamma", "dbeta", "dbias"), got,
+                                    k_gn.gn_silu_bwd_plain(*args)):
+                e_abs, _, e_ok = scaled_errors(g_, w_, *TOL_BWD["dx" if name == "dx" else "vec"])
+                max_abs, ok = max(max_abs, e_abs), ok and e_ok
+            same = all(bool(torch.equal(u, v)) for u, v in zip(got, again))
+            rows.append({"kernel": "group_norm_silu_bwd", "key": key, "max_abs_err": max_abs,
+                         "ok": ok and same, "repeat_identical": same,
+                         "plan": k_gn.gn_plan(n, h, w, c, 32, k_gn.build.sm_count(dev),
+                                              True)._asdict()})
+        # K3: head dims off the 64-wide panels, 512, ragged T, a key split at a
+        # padded head dim; q, k, v strided views of a packed projection
+        for n, t, hh, d in ((2, 100, 4, 16), (2, 100, 4, 48), (2, 100, 2, 96),
+                            (1, 1024, 1, 96), (2, 100, 2, 160), (2, 77, 1, 512),
+                            (1, 64, 1, 512), (1, 256, 1, 512)):
+            qkv = rnd(n, t, 3, hh, d, dtype=torch.bfloat16)
+            q, kk, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            scale = (hh * d) ** -0.5
+            got = k_attn.attention_heads(q, kk, v, scale)
+            max_abs, _, ok = errors(got, k_attn.attention_heads_plain(q, kk, v, scale),
+                                    *TOL["attention"])
+            rows.append({"kernel": "attention", "key": repr((n, t, hh, d)), "max_abs_err": max_abs,
+                         "ok": ok, "plan": attention_plan(k_attn, q)})
+        # K4: C_in 32 and 96, C_out 32, 64 and 192, H x W that whole 64-pixel
+        # rows do not tile (6x6, 12x20), identity and projection skips
+        for n, h, w, cin, cout in ((2, 8, 8, 32, 64), (2, 8, 8, 96, 192), (2, 6, 6, 64, 64),
+                                   (1, 12, 20, 128, 128), (2, 8, 8, 32, 32),
+                                   (1, 16, 16, 96, 64)):
+            x = rnd(n, h, w, cin, dtype=torch.bfloat16)
+            g1, b1v = 1.0 + rnd(n, cin, scale=0.1), rnd(n, cin, scale=0.1)
+            pre2, g2, b2v = rnd(n, cout, scale=0.5), 1.0 + rnd(n, cout, scale=0.1), rnd(
+                n, cout, scale=0.1)
+            w1, w2 = rnd(cout, cin, 3, 3, scale=(9 * cin) ** -0.5), rnd(
+                cout, cout, 3, 3, scale=(9 * cout) ** -0.5)
+            b1, b2 = rnd(cout, scale=0.1), rnd(cout, scale=0.1)
+            wr, br = ((rnd(cout, cin, 1, 1, scale=cin ** -0.5), rnd(cout, scale=0.1))
+                      if cin != cout else (None, None))
+            pa = (x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br, 32, k_gn.GN_EPS)
+            got = k_res.resblock_forward(*pa[:10], wr=wr, br=br, num_groups=32)
+            max_abs, _, ok = errors(got, k_res.resblock_plain(*pa), *TOL["resblock"])
+            p1 = k_res.conv_plan(n, h, w, cin, cout, 0, k_res.build.sm_count(dev))
+            rows.append({"kernel": "resblock", "key": repr(((n, h, w, cin), cout, wr is not None)),
+                         "max_abs_err": max_abs, "ok": ok, "plan": p1._asdict()})
+    torch.cuda.synchronize()
+    _rows_report(rows, "off-path shapes")
+    print(f"off-path shapes: {len(rows)} calls within TOL {TOL} and K2 {TOL_BWD} (K1's mean "
+          f"and inverse std within {TOL_BWD['vec']}); K1 and K2 repeat byte for byte", flush=True)
+    return rows
+
+
+def lsun_forward(torch, blocks, ddpm_models, init_weights, k_gn, k_attn, k_res, ops,
+                 dev) -> dict:
+    """Phase 4b: one UNet forward at the LSUN widths at batch 1, both switches
+    on: every K1, K3 and K4 call held against its plain version on its
+    recorded inputs, then the bf16 output against the same module and
+    weights in f32 on the CPU."""
+    m = ddpm_models.UNet(dtype=torch.bfloat16, fused_norm=True, fused_block=True, **LSUN_WIDTHS)
+    init_weights(m, torch.Generator().manual_seed(SEED))
+    randomize_affines(torch, blocks, m, torch.Generator().manual_seed(SEED + 1))
+    ref = ddpm_models.UNet(dtype=torch.float32, fused_norm=True, fused_block=True, **LSUN_WIDTHS)
+    ref.load_state_dict(m.state_dict(), strict=True)
+    m = m.to(dev).eval()
+    gen = torch.Generator().manual_seed(SEED + 30)
+    x = torch.randn((1, LSUN_IMG, LSUN_IMG, 3), generator=gen)
+    t = torch.randint(1, 1000, (1,), generator=gen)
+    with torch.no_grad():
+        reset_counts(ops)
+        out = {}
+        calls = record_calls(serve_targets(blocks),
+                             lambda: out.setdefault("y", m(x.to(dev), t.to(dev))))
+        torch.cuda.synchronize()
+        launches = counts(ops)
+        rows = []
+        plain = {"group_norm_silu": lambda a, k: k_gn.gn_silu_plain(
+                     a[0], a[1], a[2], k.get("pre_bias"), a[3], k.get("eps", k_gn.GN_EPS))[0],
+                 "attention": lambda a, k: k_attn.attention_heads_plain(*a, **k),
+                 "resblock": lambda a, k: k_res.resblock_plain(
+                     *a, k.get("wr"), k.get("br"), k.get("num_groups", 32),
+                     k.get("eps", k_gn.GN_EPS))}
+        kernel = {"group_norm_silu": k_gn.group_norm_silu, "attention": k_attn.attention_heads,
+                  "resblock": k_res.resblock_forward}
+        for kind_, lst in calls.items():
+            for key, count, a, k in lst:
+                max_abs, _, ok = errors(kernel[kind_](*a, **k), plain[kind_](a, k), *TOL[kind_])
+                rows.append({"kernel": kind_, "key": repr(key), "sites": count,
+                             "max_abs_err": max_abs, "ok": ok})
+        _rows_report(rows, "LSUN widths")
+        want = ref(x, t)
+    got = out["y"].float().cpu()
+    rel = rel_l2(got, want)
+    ok = bool(got.isfinite().all()) and got.shape == want.shape and rel <= UNET_REL_L2
+    sites = {k: sum(c for _, c, _, _ in v) for k, v in calls.items()}
+    print(f"LSUN widths, batch 1, {LSUN_IMG}x{LSUN_IMG}: shape {tuple(got.shape)} rel_l2 "
+          f"{rel:.3e} (<= {UNET_REL_L2}) launches {launches} call sites {sites}"
+          + ("" if ok else "  FAIL"), flush=True)
+    if not ok:
+        fail("UNet forward at the LSUN widths disagrees with the f32 CPU reference")
+    if {k: launches[k] for k in sites} != sites:
+        fail(f"the LSUN forward launched {launches} for call sites {sites}")
+    return {"rel_l2": rel, "launches": launches, "sites": sites, "shapes": rows}
+
+
 def write_report(path: str, report: dict) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
@@ -923,6 +1139,9 @@ def main() -> int:
                             scale=scale))
                     rec["library_ms"] = device_ms(torch, sdpa)
                     rec["plan"] = attention_plan(k_attn, q)
+                elif kind_ == "group_norm_silu":
+                    rec["plan"] = gn_plan(k_gn, a[0], a[3], False)
+                    rec["torch_seq_ms"] = device_ms(torch, gn_sequence(torch, a, k))
                 elif kind_ == "resblock":
                     try:
                         rec["cudnn_seq_ms"] = device_ms(torch, cudnn_sequence(torch, pa))
@@ -943,6 +1162,8 @@ def main() -> int:
                       f"({rec['bound_by']})"
                       + (f" sdpa {rec['library_ms']:.4f}" if rec["library_ms"] else "")
                       + (f" cudnn_seq {rec['cudnn_seq_ms']:.4f}" if rec.get("cudnn_seq_ms") else "")
+                      + (f" torch_seq {rec['torch_seq_ms']:.4f} plan {rec['plan']}"
+                         if kind_ == "group_norm_silu" else "")
                       + ("" if ok else "  FAIL"), flush=True)
                 if not ok:
                     failures.append(f"{kind_} {key}")
@@ -959,6 +1180,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         report["train_kernels"] = train_kernels(torch, blocks, k_gn, k_attn, ddpm_models,
                                                 init_weights, LitDDPM, dev, card)
+        phase("off-path kernels: shapes outside the main path against their plain versions")
+        report["offpath"] = offpath_kernels(torch, k_gn, k_attn, k_res, dev)
+        phase("LSUN widths: one UNet forward at batch 1, bf16 on the card vs f32 on the CPU")
+        torch.set_num_threads(max(1, os.cpu_count() or 1))
+        report["lsun"] = lsun_forward(torch, blocks, ddpm_models, init_weights, k_gn, k_attn,
+                                      k_res, ops, dev)
         if args.out:
             write_report(args.out, report)
         print("--kernels-only: stopped after the kernel phases; no result line", flush=True)
@@ -993,6 +1220,11 @@ def main() -> int:
     report["unet"] = unet
     del models
 
+    phase("LSUN widths: one UNet forward at batch 1, bf16 on the card vs f32 on the CPU")
+    report["lsun"] = lsun_forward(torch, blocks, ddpm_models, init_weights, k_gn, k_attn, k_res,
+                                  ops, dev)
+    torch.cuda.empty_cache()
+
     phase("serve: LitDDIM DDIM-50 over HTTP")
     lit = LitDDIM(dtype="bf16", timesteps=1000, sample_steps=50, tau_schedule="quadratic")
     lit.init_state(SEED)
@@ -1021,7 +1253,7 @@ def main() -> int:
                 data = r.read()
             return data, time.time() - t
 
-        post(1, 99)  # first request: Triton compiles, cuDNN plans
+        post(1, 99)  # first request: cuDNN plans, the sampler's first buffers
         reset_counts(ops)
         bodies = {}
         for n, seed in ((1, 1), (8, 2), (16, 3), (8, 2)):
@@ -1074,6 +1306,10 @@ def main() -> int:
     report["train_kernels"] = train
     torch.cuda.empty_cache()
 
+    phase("off-path kernels: shapes outside the main path against their plain versions")
+    report["offpath"] = offpath_kernels(torch, k_gn, k_attn, k_res, dev)
+    torch.cuda.empty_cache()
+
     phase("train gradient: loss_given + backward at batch 8, bf16 on the card vs f32 on the CPU")
     report["train_gradient"] = train_gradient(torch, np, blocks, ddpm_models, init_weights,
                                               DDPM, dev, ops)
@@ -1092,7 +1328,7 @@ def main() -> int:
 
     phase("kernels")
     sources = {
-        "group_norm_silu": ("triton", "dmme_tpu_torch/ops/group_norm.py",
+        "group_norm_silu": ("cuda", "dmme_tpu_torch/ops/csrc/group_norm.cu",
                             "dmme_tpu/ops/group_norm.py:72"),
         "attention": ("cuda", "dmme_tpu_torch/ops/csrc/attention.cu",
                       "dmme_tpu/ops/attention.py:47"),
@@ -1120,8 +1356,8 @@ def main() -> int:
         })
     k2 = train["per_step"]["group_norm_silu_bwd"]
     table.insert(1, {
-        "name": "group_norm_silu_bwd", "route": "triton",
-        "source": "dmme_tpu_torch/ops/group_norm.py",
+        "name": "group_norm_silu_bwd", "route": "cuda",
+        "source": "dmme_tpu_torch/ops/csrc/group_norm.cu",
         "replaces": "dmme_tpu/ops/group_norm.py:110",
         "launches": fit_launches["group_norm_silu_bwd"],
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],

@@ -5,7 +5,7 @@ file of the same name there and is held against it by the ``test_torch_port_*``
 tests. Activations keep the JAX package's NHWC layout at every public function.
 
 * ``dmme_tpu_torch.equations`` — schedule and reverse-process math on tensors
-* ``dmme_tpu_torch.ops``       — hand-written Hopper kernels (Triton, CUDA C++)
+* ``dmme_tpu_torch.ops``       — hand-written Hopper kernels (CUDA C++)
   with a plain PyTorch version of each, taken only for CPU tensors
 * ``dmme_tpu_torch.models``    — the DDPM UNet as ``nn.Module``s
 * ``dmme_tpu_torch.diffusion`` — DDPM / DDIM training loss and sampling

@@ -11,7 +11,11 @@ registers, scores, probabilities, the output accumulator and the running max
 and sum in registers, Q, K and V brought in by TMA (K and V double-buffered)
 and the output written by TMA stores. Where the blocks are few and the key
 loop long, the key tiles are split over more blocks and merged by a second,
-fixed-order launch (:func:`attention_plan`). Head dims 64, 128 and 256 only.
+fixed-order launch (:func:`attention_plan`). Head dims: any multiple of 16
+up to 256 (a head dim that is not a multiple of 64 runs the kernel of the
+next multiple, its last panel padded by TMA's zero fill and clipped on the
+store), and 512 (the output columns split over two blocks, each
+contracting QKᵀ over all 512).
 
 Bound on the card: bytes. At T ≤ 256 and D ≤ 256 it does far fewer
 operations per byte than the tensor cores need, so the least time is one
@@ -52,8 +56,9 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
-# the kernel's instantiations: queries a block (64 a warpgroup) by head dim
-BLOCK_QUERIES = {64: (64,), 128: (64, 128), 256: (64,)}
+# the kernel's instantiations: queries a block (64 a warpgroup) by the
+# kernel's head dim, the true one padded to a multiple of 64
+BLOCK_QUERIES = {64: (64,), 128: (64, 128), 192: (64,), 256: (64,), 512: (64,)}
 # key splits pay for their merge launch only where the blocks are few (batch
 # 1, not 8) and a block's key loop is at least this many (key, head dim)
 # products: measured on an H100 at T = 256 (PERF.md)
@@ -69,6 +74,8 @@ class AttentionPlan(NamedTuple):
     kv_tiles: int      # key tiles along T
     splits: int        # key splits (blockIdx.z); > 1 adds the merge launch
     kv_per_split: int  # key tiles per split; the last split may take fewer
+    dp: int = 0        # the kernel's head dim: D padded to a multiple of 64
+    halves: int = 1    # blocks along the output columns: 2 at D = 512
 
     def split_tiles(self):
         """The key tiles of each split, in order."""
@@ -79,21 +86,26 @@ class AttentionPlan(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def attention_plan(n: int, h: int, t: int, d: int, sms: int) -> AttentionPlan:
     """K3's grid for (N, T, H, D) inputs on a card with ``sms`` SMs, made
-    once per shape. Blocks of 128 queries where D allows them and they alone
-    fill the SMs (two warpgroups sharing each K and V tile), else of 64.
-    Where the blocks fill at most an eighth of the SMs and a block's key loop
-    holds ``SPLIT_MIN_WORK``, its key tiles are split, two at least a split,
-    over up to one block per SM; no split is empty."""
-    if d not in BLOCK_QUERIES:
-        raise ValueError(f"attention kernel takes head dims {tuple(BLOCK_QUERIES)}, got {d}")
-    bq = max(b for b in BLOCK_QUERIES[d] if b == 64 or -(-t // b) * n * h >= sms)
-    bkv = 32 if d > 128 else 64
+    once per shape. The kernel's head dim is D padded to a multiple of 64
+    (D = 512 runs as two blocks of 256 output columns). Blocks of 128
+    queries where that head dim allows them and they alone fill the SMs (two
+    warpgroups sharing each K and V tile), else of 64. Where the blocks fill
+    at most an eighth of the SMs and a block's key loop holds
+    ``SPLIT_MIN_WORK``, its key tiles are split, two at least a split, over
+    up to one block per SM; no split is empty. D = 512 is not split."""
+    if d % 16 or not (16 <= d <= 256 or d == 512):
+        raise ValueError(f"attention kernel takes head dims that are multiples of 16 up to "
+                         f"256, or 512, got {d}")
+    dp = -(-d // 64) * 64
+    halves = 2 if dp == 512 else 1
+    bq = max(b for b in BLOCK_QUERIES[dp] if b == 64 or -(-t // b) * n * h >= sms)
+    bkv = 32 if dp > 128 else 64
     q_tiles, kv_tiles = -(-t // bq), -(-t // bkv)
-    blocks = q_tiles * n * h
-    few = 8 * blocks <= sms and t * d >= SPLIT_MIN_WORK
+    blocks = q_tiles * n * h * halves
+    few = halves == 1 and 8 * blocks <= sms and t * dp >= SPLIT_MIN_WORK
     splits = min(-(-sms // blocks), kv_tiles // 2) if few else 1
     per = -(-kv_tiles // max(1, splits))
-    return AttentionPlan(bq, bkv, q_tiles, kv_tiles, -(-kv_tiles // per), per)
+    return AttentionPlan(bq, bkv, q_tiles, kv_tiles, -(-kv_tiles // per), per, dp, halves)
 
 
 def _fn():
@@ -101,7 +113,7 @@ def _fn():
     if _FN is None:
         fn = build.library("attention").dmme_attention_fwd
         ll, vp = ctypes.c_longlong, ctypes.c_void_p
-        fn.argtypes = [vp] * 6 + [ctypes.c_int] * 7 + [ll] * 12 + [ctypes.c_float, vp]
+        fn.argtypes = [vp] * 6 + [ctypes.c_int] * 8 + [ll] * 12 + [ctypes.c_float, vp]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -129,12 +141,12 @@ def _launch(q, k, v, scale: float) -> torch.Tensor:
     o_part = ml_part = None  # the splits' partial outputs, only where the keys are split
     if plan.splits > 1:
         rows = plan.splits * n * h * t
-        o_part = torch.empty((rows * d,), device=q.device, dtype=torch.float32)
+        o_part = torch.empty((rows * plan.dp,), device=q.device, dtype=torch.float32)
         ml_part = torch.empty((rows * 2,), device=q.device, dtype=torch.float32)
     strides = [s for x in (q, k, v, out) for s in (x.stride(0), x.stride(1), x.stride(2))]
     status = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    None if o_part is None else o_part.data_ptr(),
-                   None if ml_part is None else ml_part.data_ptr(), n, h, t, d, plan.bq,
+                   None if ml_part is None else ml_part.data_ptr(), n, h, t, d, plan.dp, plan.bq,
                    plan.splits, plan.kv_per_split, *strides, float(scale),
                    torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "attention kernel launch")

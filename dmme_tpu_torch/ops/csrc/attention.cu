@@ -26,7 +26,16 @@
 //     split writes its f32 partial O with its row max and sum, and
 //     attn_combine_kernel merges the splits in a fixed order, so a repeated
 //     call gives the same bytes.
-// Key tiles are 64 keys for D <= 128 and 32 for D = 256. A block is 64
+// Head dims: any multiple of 16 up to 256, and 512. A head dim that is not
+// a multiple of 64 runs the kernel of the next of 64, 128, 192, 256 (DP):
+// Q, K and V are then read by 4-D boxes of one 64-wide panel each over the
+// true D, whose zero fill pads the last panel (zero columns add nothing to
+// QK^T), and the TMA stores clip the padded output columns. D = 512 splits
+// the output columns over two blocks (blockIdx.y = bh*2 + half): each
+// contracts QK^T over all 512 and multiplies P by its 256 columns of V, so S
+// and O stay within the D = 256 kernel's registers. The softmax scale is
+// the caller's (the full-dim C^-0.5 of the UNet) in every case.
+// Key tiles are 64 keys for D <= 128 and 32 for D > 128. A block is 64
 // queries (one warpgroup) or, where the blocks fill the card (the plan
 // picks), 128 (two warpgroups sharing each K and V tile, which halves the
 // tiles fetched per query). An SM holds as many blocks as its shared memory
@@ -59,68 +68,87 @@ struct Strides {
   long long sn, st, sh;
 };
 
-// D: head dim; NWG: warpgroups a block, 64 queries each, 16 a warp
-template <int D, int NWG>
+// D: head dim of Q and K (a multiple of 64); DV: the columns of V and O a
+// block takes (D, or 256 of D = 512); NWG: warpgroups a block, 64 queries
+// each, 16 a warp
+template <int D, int DV, int NWG>
 struct Tile {
   static constexpr int BQ = 64 * NWG, THREADS = 128 * NWG;
   static constexpr int BKV = D > 128 ? 32 : 64;  // keys a tile
   static constexpr int STAGES = 2;               // of (K, V)
   static constexpr int PANELS = D / 64;  // 64-wide column panels of the swizzle
+  static constexpr int VPANELS = DV / 64;
   static constexpr int Q_PANEL = BQ * 128, KV_PANEL = BKV * 128;  // bytes
   static constexpr int Q_BYTES = PANELS * Q_PANEL, KV_BYTES = PANELS * KV_PANEL;
+  static constexpr int V_BYTES = VPANELS * KV_PANEL;
+  static constexpr int STAGE_BYTES = KV_BYTES + V_BYTES;
   // alignment slack, Q, the ring, barriers (Q, one per stage)
-  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + (1 + STAGES) * 8;
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES + (1 + STAGES) * 8;
   // blocks an SM holds: as many as 228 KB of shared memory allow, up to 16 warps
   static constexpr int FIT = 233472 / (SMEM + 1024);
   static constexpr int BLOCKS = FIT < 4 / NWG ? FIT : 4 / NWG;
 };
 
 // tm_q, tm_k, tm_v: 5-D maps of (64 values, H, T, D/64 panels, N), boxes of
-// one head's BQ (Q) or BKV (K, V) tokens with all panels, which land as
-// [panel][token][64 values]; tm_o: the output, boxes of 64 tokens of one
-// panel.
-template <int D, int NWG>
-__global__ void __launch_bounds__(Tile<D, NWG>::THREADS, (Tile<D, NWG>::BLOCKS))
+// one head's BQ (Q) or BKV (K, V) tokens with all panels (V: VPANELS), which
+// land as [panel][token][64 values]; tm_o: the output, boxes of 64 tokens of
+// one panel. With `pad` (a head dim that is not a multiple of 64) all four
+// are 4-D maps of (D values, H, T, N) over the true head dim, with boxes of
+// one 64-wide panel, loaded and stored panel by panel. `halves`: output
+// column blocks a (batch, head), 2 for D = 512.
+template <int D, int DV, int NWG>
+__global__ void __launch_bounds__(Tile<D, DV, NWG>::THREADS, (Tile<D, DV, NWG>::BLOCKS))
 attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
                 float* __restrict__ o_part, float2* __restrict__ ml_part, int H, int T,
-                int kv_per_split, float scale_log2) {
-  using TL = Tile<D, NWG>;
+                int kv_per_split, int pad, int halves, float scale_log2) {
+  using TL = Tile<D, DV, NWG>;
   constexpr int BQ = TL::BQ, BKV = TL::BKV, STAGES = TL::STAGES;
   constexpr int NS = BKV / 8;  // score fragments (16 x 8) a warp
-  constexpr int NO = D / 8;    // output fragments (16 x 8) a warp
+  constexpr int NO = DV / 8;   // output fragments (16 x 8) a warp
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ =
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                        ~uintptr_t(1023));
   unsigned char* sK = sQ + TL::Q_BYTES;            // [stage][panel][BKV tokens x 128 B]
-  unsigned char* sV = sK + STAGES * TL::KV_BYTES;  // the same
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + STAGES * TL::KV_BYTES);
+  unsigned char* sV = sK + STAGES * TL::KV_BYTES;  // the same, VPANELS panels
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + STAGES * TL::V_BYTES);
   uint64_t* full = q_full + 1;  // [STAGES]
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int wg = tid / 128, warp = (tid / 32) % 4;  // warpgroup, warp in it
-  const int q0 = blockIdx.x * BQ, bh = blockIdx.y, n = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * BQ, bh = blockIdx.y / halves, n = bh / H, h = bh % H;
+  const int v0 = (blockIdx.y % halves) * TL::VPANELS;  // first panel of V and O
   unsigned char* qa = sQ + wg * 64 * 128;  // this warpgroup's rows of each Q panel
   const int kv_tiles = (T + BKV - 1) / BKV;
   const int j0 = blockIdx.z * kv_per_split, j1 = min(kv_tiles, j0 + kv_per_split);
-  auto load_kv = [&](int stage, int j) {  // K and V of key tile j, one TMA each
-    mbar_arrive_expect_tx(&full[stage], 2 * TL::KV_BYTES);
-    tma_load_5d(sK + stage * TL::KV_BYTES, &tm_k, &full[stage], 0, h, j * BKV, 0, n);
-    tma_load_5d(sV + stage * TL::KV_BYTES, &tm_v, &full[stage], 0, h, j * BKV, 0, n);
+  // `panels` panels from `first` of one (batch, head)'s tokens from t0
+  auto load = [&](unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int t0, int first,
+                  int panels, int panel_bytes) {
+    if (pad) {
+      for (int p = 0; p < panels; ++p)
+        tma_load_4d(dst + p * panel_bytes, map, bar, 64 * (first + p), h, t0, n);
+    } else {
+      tma_load_5d(dst, map, bar, 0, h, t0, first, n);
+    }
+  };
+  auto load_kv = [&](int stage, int j) {  // K and V of key tile j
+    mbar_arrive_expect_tx(&full[stage], TL::STAGE_BYTES);
+    load(sK + stage * TL::KV_BYTES, &tm_k, &full[stage], j * BKV, 0, TL::PANELS, TL::KV_PANEL);
+    load(sV + stage * TL::V_BYTES, &tm_v, &full[stage], j * BKV, v0, TL::VPANELS, TL::KV_PANEL);
   };
   if (tid == 0) {
     for (int i = 0; i < 1 + STAGES; ++i) mbar_init(&q_full[i], 1);
     fence_barrier_init();
     mbar_arrive_expect_tx(q_full, TL::Q_BYTES);
-    tma_load_5d(sQ, &tm_q, q_full, 0, h, q0, 0, n);
+    load(sQ, &tm_q, q_full, q0, 0, TL::PANELS, TL::Q_PANEL);
     for (int j = j0; j < min(j1, j0 + STAGES); ++j) load_kv(j - j0, j);
   }
   __syncthreads();
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   // this thread's two rows: lane / 4 and lane / 4 + 8 of its warp's 16 queries
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   mbar_wait(q_full, 0);
@@ -129,7 +157,7 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     const int stage = (j - j0) % STAGES;
     mbar_wait(&full[stage], ((j - j0) / STAGES) & 1);
     const unsigned char* tK = sK + stage * TL::KV_BYTES;
-    const unsigned char* tV = sV + stage * TL::KV_BYTES;
+    const unsigned char* tV = sV + stage * TL::V_BYTES;
 
     // s[4i + 2r + e]: row lane/4 + 8r, key j*BKV + 8i + 2*(lane%4) + e
     float s[BKV / 2];
@@ -220,24 +248,30 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     }
     fence_proxy_async();
     __syncthreads();
-    if (tid == 0) {  // rows past T are not written
+    if (tid == 0) {  // rows past T, and with `pad` columns past D, are not written
       for (int w = 0; w < NWG; ++w)
-        for (int p = 0; p < TL::PANELS; ++p)
-          tma_store_5d(&tm_o, sQ + w * 64 * 128 + p * TL::Q_PANEL, 0, h, q0 + 64 * w, p, n);
+        for (int p = 0; p < TL::VPANELS; ++p) {
+          const unsigned char* src = sQ + w * 64 * 128 + p * TL::Q_PANEL;
+          if (pad)
+            tma_store_4d(&tm_o, src, 64 * (v0 + p), h, q0 + 64 * w, n);
+          else
+            tma_store_5d(&tm_o, src, 0, h, q0 + 64 * w, v0 + p, n);
+        }
       tma_store_commit_and_wait();
     }
   } else {
     const int r0 = q0 + wg * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
     const int c = 2 * (lane & 3);
+    // (key splits run with halves == 1: rows of DV = the head dim padded to 64)
     const size_t base = ((size_t)blockIdx.z * gridDim.y + bh) * T;  // this split's rows
-    float* ob = o_part + base * D;
+    float* ob = o_part + base * DV;
 #pragma unroll
     for (int i = 0; i < NO; ++i) {
       if (r0 < T)
-        *reinterpret_cast<float2*>(ob + (size_t)r0 * D + i * 8 + c) =
+        *reinterpret_cast<float2*>(ob + (size_t)r0 * DV + i * 8 + c) =
             make_float2(o[4 * i], o[4 * i + 1]);
       if (r1 < T)
-        *reinterpret_cast<float2*>(ob + (size_t)r1 * D + i * 8 + c) =
+        *reinterpret_cast<float2*>(ob + (size_t)r1 * DV + i * 8 + c) =
             make_float2(o[4 * i + 2], o[4 * i + 3]);
     }
     if ((lane & 3) == 0) {
@@ -248,15 +282,19 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 }
 
 // Merges the key splits of one output row in split order: weights
-// 2^(m_z - max m), O = sum_z w_z O_z / sum_z w_z l_z. D/4 threads a row.
+// 2^(m_z - max m), O = sum_z w_z O_z / sum_z w_z l_z. D/4 threads a row of
+// D (the head dim padded to 64); columns past `dim` are not written.
 template <int D>
 __global__ void __launch_bounds__(256)
 attn_combine_kernel(const float* __restrict__ o_part, const float2* __restrict__ ml_part,
-                    bf16* __restrict__ out, int splits, int NH, int H, int T, Strides os) {
+                    bf16* __restrict__ out, int splits, int NH, int H, int T, int dim,
+                    Strides os) {
   constexpr int TPR = D / 4, RPB = 256 / TPR;
+  if (threadIdx.x >= RPB * TPR) return;  // D = 192: 5 rows of 48 threads, 16 idle
   const int row = blockIdx.x * RPB + threadIdx.x / TPR;
   if (row >= NH * T) return;
   const int c = (threadIdx.x % TPR) * 4;
+  if (c >= dim) return;
   const size_t rows = (size_t)NH * T;
   float mmax = -INFINITY;
   for (int z = 0; z < splits; ++z) mmax = fmaxf(mmax, ml_part[z * rows + row].x);
@@ -295,29 +333,53 @@ bool qkv_map(CUtensorMap* map, const void* ptr, int N, int T, int H, int D, Stri
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int NWG>
+// The same tensor as a 4-D map of (D values, H, T, N) over the true head
+// dim, in boxes of one 64-wide panel of one (batch, head)'s `rows` tokens;
+// values past D read zeros and are not written
+bool qkv_map_padded(CUtensorMap* map, const void* ptr, int N, int T, int H, int D, Strides s,
+                    int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)N};
+  const cuuint64_t strides[3] = {(cuuint64_t)s.sh * 2, (cuuint64_t)s.st * 2,
+                                 (cuuint64_t)s.sn * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// DP: the kernel's head dim (the true `dim` padded to 64, or 512)
+template <int DP, int DV, int NWG>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* o_part,
-           float2* ml_part, int N, int H, int T, int splits, int kv_per_split, Strides qs,
-           Strides ks, Strides vs, Strides os, float scale, cudaStream_t stream) {
-  using TL = Tile<D, NWG>;
+           float2* ml_part, int N, int H, int T, int dim, int splits, int kv_per_split,
+           Strides qs, Strides ks, Strides vs, Strides os, float scale, cudaStream_t stream) {
+  using TL = Tile<DP, DV, NWG>;
   static int limits[64];
-  const cudaError_t err = allow_smem(attn_fwd_kernel<D, NWG>, TL::SMEM, limits);
+  const cudaError_t err = allow_smem(attn_fwd_kernel<DP, DV, NWG>, TL::SMEM, limits);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv, to;
   if (!encode_tiled()) return (int)cudaErrorNotSupported;
-  constexpr int P = TL::PANELS;
-  if (!qkv_map(&tq, q, N, T, H, D, qs, TL::BQ, P) ||
-      !qkv_map(&tk, k, N, T, H, D, ks, TL::BKV, P) ||
-      !qkv_map(&tv, v, N, T, H, D, vs, TL::BKV, P) ||
-      !qkv_map(&to, out, N, T, H, D, os, 64, 1))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + TL::BQ - 1) / TL::BQ, N * H, splits);
-  attn_fwd_kernel<D, NWG><<<grid, TL::THREADS, TL::SMEM, stream>>>(
-      tq, tk, tv, to, o_part, ml_part, H, T, kv_per_split, scale * 1.4426950408889634f);
+  const int pad = dim != DP;
+  const int halves = DP / DV;
+  const bool ok =
+      pad ? qkv_map_padded(&tq, q, N, T, H, dim, qs, TL::BQ) &&
+                qkv_map_padded(&tk, k, N, T, H, dim, ks, TL::BKV) &&
+                qkv_map_padded(&tv, v, N, T, H, dim, vs, TL::BKV) &&
+                qkv_map_padded(&to, out, N, T, H, dim, os, 64)
+          : qkv_map(&tq, q, N, T, H, DP, qs, TL::BQ, TL::PANELS) &&
+                qkv_map(&tk, k, N, T, H, DP, ks, TL::BKV, TL::PANELS) &&
+                qkv_map(&tv, v, N, T, H, DP, vs, TL::BKV, TL::VPANELS) &&
+                qkv_map(&to, out, N, T, H, DP, os, 64, 1);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const dim3 grid((T + TL::BQ - 1) / TL::BQ, N * H * halves, splits);
+  attn_fwd_kernel<DP, DV, NWG><<<grid, TL::THREADS, TL::SMEM, stream>>>(
+      tq, tk, tv, to, o_part, ml_part, H, T, kv_per_split, pad, halves,
+      scale * 1.4426950408889634f);
   if (splits > 1) {
-    constexpr int RPB = 256 / (D / 4);
-    attn_combine_kernel<D><<<(N * H * T + RPB - 1) / RPB, 256, 0, stream>>>(
-        o_part, ml_part, out, splits, N * H, H, T, os);
+    constexpr int RPB = 256 / (DV / 4);
+    attn_combine_kernel<DV><<<(N * H * T + RPB - 1) / RPB, 256, 0, stream>>>(
+        o_part, ml_part, out, splits, N * H, H, T, dim, os);
   }
   return (int)cudaGetLastError();
 }
@@ -326,13 +388,14 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* o_part
 
 // q, k, v: (N, T, H, D) bf16 with unit stride along D, 16-byte aligned, the
 // other strides multiples of 8 (TMA's 16 bytes); out: (N, T, H, D) bf16.
-// (D, bq queries a block): (64, 64), (128, 64), (128, 128) or (256, 64).
-// With splits > 1 (kv_per_split key tiles each), o_part holds splits*N*H*T*D
-// floats and ml_part splits*N*H*T float pairs; both are null, and not read,
-// when splits == 1. Returns a cudaError_t.
+// D a multiple of 16 up to 256, or 512; dp: D padded to the kernel's head
+// dim (64, 128, 192, 256 or 512); bq queries a block: 64, or 128 at dp = 128.
+// With splits > 1 (kv_per_split key tiles each; dp <= 256 only), o_part
+// holds splits*N*H*T*dp floats and ml_part splits*N*H*T float pairs; both
+// are null, and not read, when splits == 1. Returns a cudaError_t.
 extern "C" int dmme_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                   void* o_part, void* ml_part, int N, int H, int T, int D,
-                                  int bq, int splits, int kv_per_split,
+                                  int dp, int bq, int splits, int kv_per_split,
                                   long long q_sn, long long q_st, long long q_sh,
                                   long long k_sn, long long k_st, long long k_sh,
                                   long long v_sn, long long v_st, long long v_sh,
@@ -347,12 +410,16 @@ extern "C" int dmme_attention_fwd(const void* q, const void* k, const void* v, v
       os{o_sn, o_st, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto kernel_launch) {
-    return kernel_launch(qq, kk, vv, oo, op, ml, N, H, T, splits, kv_per_split, qs, ks, vs, os,
-                         scale, s);
+    return kernel_launch(qq, kk, vv, oo, op, ml, N, H, T, D, splits, kv_per_split, qs, ks, vs,
+                         os, scale, s);
   };
-  if (D == 64 && bq == 64) return run(launch<64, 1>);
-  if (D == 128 && bq == 64) return run(launch<128, 1>);
-  if (D == 128 && bq == 128) return run(launch<128, 2>);
-  if (D == 256 && bq == 64) return run(launch<256, 1>);
+  if (D % 16 || D > dp || (dp == 512 && (D != 512 || splits > 1)))
+    return (int)cudaErrorInvalidValue;
+  if (dp == 64 && bq == 64) return run(launch<64, 64, 1>);
+  if (dp == 128 && bq == 64) return run(launch<128, 128, 1>);
+  if (dp == 128 && bq == 128) return run(launch<128, 128, 2>);
+  if (dp == 192 && bq == 64) return run(launch<192, 192, 1>);
+  if (dp == 256 && bq == 64) return run(launch<256, 256, 1>);
+  if (dp == 512 && bq == 64) return run(launch<512, 256, 1>);
   return (int)cudaErrorInvalidValue;
 }

@@ -44,6 +44,15 @@
 // launch that also applies the epilogue. The tile, the boxes and the split
 // are planned in ops/resblock.py:conv_plan.
 //
+// Shapes: any C_in and C_out that are multiples of 8, any H x W. A channel
+// count that is not a multiple of 64 ends in a partial 64-channel K step:
+// the activation box reads zeros past C, so the weights in those K columns
+// (the next tap's, or zeros past K) multiply zeros. An output-channel tile
+// past C_out reads zero weights and is not stored. An M tile is one TMA box
+// of (bn images, bh rows, bw columns): in raster order (whole rows or whole
+// images) where the shape allows, else a spatial tile that may reach past
+// the image, whose pixels outside it read zeros and are not stored.
+//
 // Bound: operations. At the UNet's shapes a ResBlock does 2*M*C_out*
 // (9*C_in + 9*C_out [+ C_in]) operations on a few MB, well above the ~295
 // operations per byte of the H100's bf16 tensor cores.
@@ -72,15 +81,17 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 // Per (sample, group): mean and inverse std of u = src + bias, as
 // E[u^2] - E[u]^2 from per-channel sums with the bias folded in; then
 // dst = bf16(silu(src*a + d)) with a = inv*gamma, d = beta + (bias - mean)*
-// inv*gamma, so that GN(u)*gamma + beta = src*a + d. The group stays in
-// shared memory between the two steps (HW x C/G floats); the sums go thread
-// by thread (channel tid % cg, pixels tid / cg + k * GN_THREADS / cg), then
-// per channel in thread order, then over the group's channels in order.
-// Requires GN_THREADS % (C/G) == 0. bias, gamma
-// and beta are (N, C) rows apart by their own stride: C for a per-sample
-// vector, 0 for one shared by the batch. SLICES: src holds `slices` f32
-// split-K slices `slice` floats apart, summed in order, then + src_bias[c].
-template <typename T, bool SLICES>
+// inv*gamma, so that GN(u)*gamma + beta = src*a + d. HOLD: the group stays
+// in shared memory between the two steps (HW x C/G floats); else (a group
+// larger than shared memory) the second step reads src again. The sums go
+// thread by thread (channel tid % cg, pixels tid / cg + k * step, the
+// first step * cg threads taking part), then per channel in thread order,
+// then over the group's channels in order. Requires C/G <= GN_THREADS.
+// bias, gamma and beta are (N, C) rows apart by their own stride: C for a
+// per-sample vector, 0 for one shared by the batch. SLICES: src holds
+// `slices` f32 split-K slices `slice` floats apart, summed in order, then
+// + src_bias[c].
+template <typename T, bool SLICES, bool HOLD>
 __global__ void __launch_bounds__(GN_THREADS)
 gn_silu_kernel(const T* __restrict__ src, int slices, size_t slice,
                const float* __restrict__ src_bias, const float* __restrict__ bias, int s_bias,
@@ -91,21 +102,27 @@ gn_silu_kernel(const T* __restrict__ src, int slices, size_t slice,
   __shared__ float ch_u[GN_THREADS], ch_uq[GN_THREADS];
   __shared__ float sh_mean, sh_inv;
   const int g = blockIdx.x, n = blockIdx.y, tid = threadIdx.x;
-  const int cg = C / G, step = GN_THREADS / cg;
+  const int cg = C / G, step = GN_THREADS / cg, active = step * cg;
   const int c = g * cg + tid % cg;
   const size_t base = (size_t)n * HW * C + c;
-  float s = 0.f, q = 0.f;
-  // this thread's pixels p = tid/cg + k*step sit at held[tid + k*GN_THREADS]
-  for (int p = tid / cg, i = tid; p < HW; p += step, i += GN_THREADS) {
+  auto value = [&](int p) {
     const size_t e = base + (size_t)p * C;
     float v = to_f32(src[e]);
     if constexpr (SLICES) {
       for (int z = 1; z < slices; ++z) v += to_f32(src[z * slice + e]);
       v += src_bias[c];
     }
-    held[i] = v;
-    s += v;
-    q += v * v;
+    return v;
+  };
+  float s = 0.f, q = 0.f;
+  // this thread's pixels p = tid/cg + k*step sit at held[p*cg + tid%cg]
+  if (tid < active) {
+    for (int p = tid / cg, i = tid; p < HW; p += step, i += active) {
+      const float v = value(p);
+      if constexpr (HOLD) held[i] = v;
+      s += v;
+      q += v * v;
+    }
   }
   sh_s[tid] = s;
   sh_q[tid] = q;
@@ -113,7 +130,7 @@ gn_silu_kernel(const T* __restrict__ src, int slices, size_t slice,
   const float b = bias ? bias[n * s_bias + c] : 0.f;
   if (tid < cg) {
     float cs = 0.f, cq = 0.f;
-    for (int j = tid; j < GN_THREADS; j += cg) {
+    for (int j = tid; j < active; j += cg) {
       cs += sh_s[j];
       cq += sh_q[j];
     }
@@ -136,21 +153,29 @@ gn_silu_kernel(const T* __restrict__ src, int slices, size_t slice,
   const float gm = gamma[n * s_gamma + c];
   const float a = sh_inv * gm;
   const float d = beta[n * s_beta + c] + (b - sh_mean) * sh_inv * gm;
-  for (int p = tid / cg, i = tid; p < HW; p += step, i += GN_THREADS) {
-    const float y = held[i] * a + d;
+  if (tid >= active) return;
+  for (int p = tid / cg, i = tid; p < HW; p += step, i += active) {
+    float v;
+    if constexpr (HOLD)
+      v = held[i];
+    else
+      v = value(p);
+    const float y = v * a + d;
     dst[base + (size_t)p * C] = __float2bfloat16(y / (1.f + expf(-y)));
   }
 }
 
 struct ConvArgs {
-  int H, W, M, Cout;
-  int csteps;      // 64-channel chunks per tap of the conv input
+  int N, H, W, M, Cout;
+  int bn, bh, bw;  // the M tile's TMA box: images, rows, columns
+  int C1;          // channels of the conv input
+  int csteps;      // 64-channel chunks per tap of the conv input (the last may be partial)
   int conv_steps;  // 9 * csteps
   int total;       // K steps: conv_steps, plus C0/64 of the 1x1 projection
   int per;         // K steps per split slice
   const float* bias;
   const bf16* x;  // the block input (identity skip)
-  int C0;         // its channels
+  int C0;         // its channels (the projection's K: ceil(C0/64) steps)
   void* out;
   float* partial;  // splits x M x Cout f32 when split
 };
@@ -175,7 +200,6 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
                   const __grid_constant__ CUtensorMap tm_x,
                   const __grid_constant__ CUtensorMap tm_w, const ConvArgs args) {
   using S = ConvSmem<NWG>;
-  constexpr int BM = 64 * NWG;
   extern __shared__ unsigned char smem_raw[];
   // TMA's 128-byte swizzle wants 1024-byte aligned tiles
   unsigned char* smem =
@@ -193,7 +217,12 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
   }
   __syncthreads();
 
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  // the tile's box: images from img0, rows from y0, columns from x0
+  const int tiles_x = (args.W + args.bw - 1) / args.bw, tiles_y = (args.H + args.bh - 1) / args.bh;
+  const int ix = blockIdx.x % tiles_x, iy = (blockIdx.x / tiles_x) % tiles_y;
+  const int img0 = blockIdx.x / (tiles_x * tiles_y) * args.bn;
+  const int y0 = iy * args.bh, x0 = ix * args.bw;
+  const int n0 = blockIdx.y * BN;
   const int s_begin = blockIdx.z * args.per;
   const int s_end = min(args.total, s_begin + args.per);
 
@@ -202,20 +231,23 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
     if (tid == NWG * 128) {
       tma_prefetch_map(&tm_h);
       tma_prefetch_map(&tm_w);
-      const int img = m0 / (args.H * args.W), y0 = (m0 / args.W) % args.H, x0 = m0 % args.W;
       int stage = 0;
       uint32_t phase = 0;
       for (int s = s_begin; s < s_end; ++s) {
         mbar_wait(&empty[stage], phase ^ 1);
         unsigned char* a = smem + stage * S::STAGE;
         mbar_arrive_expect_tx(&full[stage], S::STAGE);
+        int k;  // the step's first column of the packed weights
         if (s < args.conv_steps) {
           const int tap = s / args.csteps, c = (s - tap * args.csteps) * BK;
-          tma_load_4d(a, &tm_h, &full[stage], c, x0 + tap % 3 - 1, y0 + tap / 3 - 1, img);
+          tma_load_4d(a, &tm_h, &full[stage], c, x0 + tap % 3 - 1, y0 + tap / 3 - 1, img0);
+          k = tap * args.C1 + c;
         } else {
-          tma_load_4d(a, &tm_x, &full[stage], (s - args.conv_steps) * BK, x0, y0, img);
+          const int c = (s - args.conv_steps) * BK;
+          tma_load_4d(a, &tm_x, &full[stage], c, x0, y0, img0);
+          k = 9 * args.C1 + c;
         }
-        tma_load_2d(a + S::A, &tm_w, &full[stage], s * BK, n0);
+        tma_load_2d(a + S::A, &tm_w, &full[stage], k, n0);
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
@@ -255,17 +287,22 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
   wgmma_wait<0>();
   fence_regs(acc);
 
-  // acc[4j + 2h + e]: row 16*warp + lane/4 + 8h, column 8j + 2*(lane%4) + e
-  const int row = m0 + wg * 64 + warp * 16 + (lane >> 2);
+  // acc[4j + 2h + e]: row 16*warp + lane/4 + 8h, column 8j + 2*(lane%4) + e;
+  // tile row r is pixel (img0 + r / (bh*bw), y0 + r / bw % bh, x0 + r % bw)
+  const int row = wg * 64 + warp * 16 + (lane >> 2);
   const int col = n0 + 2 * (lane & 3);
   TOut* out = static_cast<TOut*>(args.out);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int m = row + 8 * h;
-    if (m >= args.M) continue;
+    const int r = row + 8 * h;
+    const int img = img0 + r / (args.bh * args.bw), y = y0 + r / args.bw % args.bh,
+              x = x0 + r % args.bw;
+    if (img >= args.N || y >= args.H || x >= args.W) continue;
+    const int m = (img * args.H + y) * args.W + x;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int co = col + 8 * j;
+      if (co >= args.Cout) continue;
       const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
       if (gridDim.z > 1) {
         store2(args.partial + ((size_t)blockIdx.z * args.M + m) * args.Cout + co, v0, v1);
@@ -342,19 +379,31 @@ bool weight_map(CUtensorMap* map, const void* ptr, int Cout, int K) {
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the group held in shared memory up to this many bytes, beside the
+// kernel's 8 KB of static shared memory
+constexpr size_t GN_HOLD_MAX = 200 * 1024;
+
 // src holds `slices` slices (slice_bias added after their sum) when SLICES
 template <typename T, bool SLICES>
 cudaError_t gn_silu(cudaStream_t s, const T* src, int slices, const float* slice_bias,
                     const float* bias, int s_bias, const float* gamma, int s_gamma,
                     const float* beta, int s_beta, bf16* dst, int N, int HW, int C, int G,
                     float eps) {
+  const dim3 grid(G, N);
+  const size_t slice = (size_t)N * HW * C;
+  const size_t held = (size_t)HW * (C / G) * sizeof(float);
+  if (held > GN_HOLD_MAX) {
+    gn_silu_kernel<T, SLICES, false><<<grid, GN_THREADS, 0, s>>>(
+        src, slices, slice, slice_bias, bias, s_bias, gamma, s_gamma, beta, s_beta, dst, HW, C,
+        G, eps);
+    return cudaSuccess;
+  }
   static int limits[64];
-  const int smem = HW * (C / G) * (int)sizeof(float);
-  const cudaError_t err = allow_smem(gn_silu_kernel<T, SLICES>, smem, limits);
+  const cudaError_t err = allow_smem(gn_silu_kernel<T, SLICES, true>, (int)held, limits);
   if (err != cudaSuccess) return err;
-  gn_silu_kernel<T, SLICES><<<dim3(G, N), GN_THREADS, smem, s>>>(
-      src, slices, (size_t)N * HW * C, slice_bias, bias, s_bias, gamma, s_gamma, beta, s_beta,
-      dst, HW, C, G, eps);
+  gn_silu_kernel<T, SLICES, true><<<grid, GN_THREADS, held, s>>>(
+      src, slices, slice, slice_bias, bias, s_bias, gamma, s_gamma, beta, s_beta, dst, HW, C,
+      G, eps);
   return cudaSuccess;
 }
 
@@ -363,11 +412,12 @@ template <int NWG, typename TOut, bool RESID>
 cudaError_t conv(cudaStream_t s, const CUtensorMap& th, const CUtensorMap& tx,
                  const CUtensorMap& tw, const ConvArgs& a, int splits) {
   static int limits[64];
-  constexpr int BM = 64 * NWG;
   const cudaError_t err =
       allow_smem(conv_wgmma_kernel<NWG, TOut, RESID>, ConvSmem<NWG>::BYTES, limits);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.M + BM - 1) / BM, a.Cout / BN, splits);
+  const int m_tiles = (a.N + a.bn - 1) / a.bn * ((a.H + a.bh - 1) / a.bh) *
+                      ((a.W + a.bw - 1) / a.bw);
+  const dim3 grid(m_tiles, (a.Cout + BN - 1) / BN, splits);
   conv_wgmma_kernel<NWG, TOut, RESID><<<grid, 128 * (NWG + 1), ConvSmem<NWG>::BYTES, s>>>(
       th, tx, tw, a);
   return cudaSuccess;
@@ -394,12 +444,12 @@ cudaError_t conv2(int bm, cudaStream_t s, const CUtensorMap& th, const CUtensorM
 // w2: (Cout, 9*Cout [+ Cin]) bf16, the projection's (Cout, Cin) appended
 // when has_proj; b2: (Cout) f32, the projection's bias already added.
 // The plan (ops/resblock.py:conv_plan): bm = 64 or 128 output pixels a
-// tile, the pixel box (box_n, box_h, box_w) of one tile, and per conv its
-// split-K slices and K steps per slice.
+// tile, the pixel box (box_n, box_h, box_w) of one tile (bm pixels), and per
+// conv its split-K slices and K steps per slice.
 // Scratch: h (N*H*W*max(Cin, Cout)) bf16; h1 (N*H*W*Cout) f32, null when
 // conv1 is split; partial (max(splits)*N*H*W*Cout) f32, null when both are 1.
 // out: (N, H, W, Cout) bf16. Four launches, plus one if conv2 is split.
-// Cin and Cout are multiples of 64, Cout of 128. Returns a cudaError_t.
+// Cin and Cout are multiples of 8, C/G <= 256. Returns a cudaError_t.
 extern "C" int dmme_resblock_fwd(const void* x, const float* g1, const float* b1v,
                                  const float* pre2, const float* g2, const float* b2v,
                                  const void* w1, const float* b1, const void* w2,
@@ -424,7 +474,8 @@ extern "C" int dmme_resblock_fwd(const void* x, const float* g1, const float* b1
   cudaError_t err = gn_silu<bf16, false>(s, xb, 1, nullptr, nullptr, 0, g1, sg1, b1v, sb1, hb,
                                          N, HW, Cin, G, eps);
   if (err != cudaSuccess) return (int)err;
-  ConvArgs a1{H, W, M, Cout, Cin / BK, 9 * Cin / BK, 9 * Cin / BK, per1, b1,
+  const int cs1 = (Cin + BK - 1) / BK, cs2 = (Cout + BK - 1) / BK;
+  ConvArgs a1{N, H, W, M, Cout, box_n, box_h, box_w, Cin, cs1, 9 * cs1, 9 * cs1, per1, b1,
               nullptr, Cin, h1, partial};
   err = bm == 128 ? conv<2, float, false>(s, tm_h0, tm_h0, tm_w1, a1, splits1)
                   : conv<1, float, false>(s, tm_h0, tm_h0, tm_w1, a1, splits1);
@@ -434,8 +485,8 @@ extern "C" int dmme_resblock_fwd(const void* x, const float* g1, const float* b1
                     : gn_silu<float, false>(s, h1, 1, nullptr, pre2, sp2, g2, sg2, b2v, sb2, hb,
                                             N, HW, Cout, G, eps);
   if (err != cudaSuccess) return (int)err;
-  ConvArgs a2{H, W, M, Cout, Cout / BK, 9 * Cout / BK, k2 / BK, per2, b2, xb, Cin, out,
-              partial};
+  ConvArgs a2{N, H, W, M, Cout, box_n, box_h, box_w, Cout, cs2, 9 * cs2,
+              9 * cs2 + (has_proj ? cs1 : 0), per2, b2, xb, Cin, out, partial};
   err = has_proj ? conv2<false>(bm, s, tm_h2, tm_x, tm_w2, a2, splits2)
                  : conv2<true>(bm, s, tm_h2, tm_x, tm_w2, a2, splits2);
   if (err != cudaSuccess) return (int)err;

@@ -1,5 +1,6 @@
-"""GroupNorm(+pre-bias, +per-sample affine)+SiLU, forward and backward:
-two Triton kernels and the autograd Function that joins them.
+"""GroupNorm(+pre-bias, +per-sample affine)+SiLU, forward and backward: two
+CUDA C++ kernels for Hopper (``csrc/group_norm.cu``), their launch plan and
+the autograd Function that joins them.
 
 K1, the forward, replaces the TPU kernel
 ``dmme_tpu/ops/group_norm.py:_fwd_kernel`` (reached through ``_fwd_pallas``
@@ -22,22 +23,30 @@ with the group-mean corrections, dx = inv·(dy·γ − m1 − x̂·m2), plus the
 Bound on the card: bytes, for both. Each does a few tens of f32
 operations per element, far below the H100's ~295 bf16 operations per
 byte, so the least time is one read of every input and one write of every
-output (x→y; x, dz→dx). Design: one program per (sample, group) owns its
-whole group, so every group reduction is a plain in-program sum, with no
-float atomics and no second launch, and repeated runs agree bit for bit.
-Each kernel reads its group twice (K1: statistics, then normalise+SiLU;
-K2: the four per-channel sums, then dx); the second read mostly hits L2,
-which holds a 32×32×512 bf16 sample many times over. The one-hot group
-matmuls of the TPU kernels are a Mosaic workaround and have no
-counterpart. A γ or β shared by the batch is read through a row stride of
-0, not copied per sample. Launches per call: 1 each.
+output (x→y; x, dz→dx). Design (details in the source): a block owns a
+contiguous slab of one sample's NHWC pixels, all channels, brought into
+shared memory by TMA bulk copies and kept there between the statistics and
+the apply, so each input byte crosses DRAM once; threads own 16-byte
+vectors of 8 channels, and a group is summed from per-channel sums, so any
+C % 8 == 0 with C % G == 0 works. A sample larger than one block's slab is
+split over a thread-block cluster of up to 8 blocks that exchange their
+channel partials through distributed shared memory; one that no cluster
+holds takes two passes over global memory with per-chunk partials summed
+in chunk order. No float atomics: repeated runs agree bit for bit. The
+plan is :func:`gn_plan`, made once per shape. A γ or β shared by the batch
+is read through a row stride of 0, not copied per sample. Launches per
+call: 1 in one pass; 3 (K1) or 4 (K2) in two (``launches`` counts calls).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+
+from dmme_tpu_torch.ops import build
 
 GN_EPS = 1e-5
 
@@ -46,7 +55,24 @@ launches = 0
 #: K2 (backward) launches since the last reset (incremented only by its launcher)
 bwd_launches = 0
 
-_KERNELS = None
+_FWD = None
+_BWD = None
+
+# the plan's constants (csrc/group_norm.cu)
+VEC = 8                        # channels a 16-byte vector of bf16
+THREADS = 256                  # threads a block of K2 (where two fit an SM) and of two passes
+WIDE_THREADS = 512             # threads a one-pass K1 block, and a K2 block alone on its SM
+HALF_SM = 113 * 1024           # shared memory a block may take for two to share an SM
+MAX_CHUNKS = 16                # bulk copies a block
+CHUNK_BYTES = 32 * 1024        # bytes a bulk copy of a tensor, where the slab allows
+MAX_CLUSTER = 8                # blocks a cluster: the portable limit
+# cluster sizes, smallest first: on an H100 a cluster of 4 was slower than one
+# of 8 (or of 2 with twice the slab) at every training site (PERF.md)
+CLUSTERS = (1, 2, 8)
+SLAB_TARGET = 128 * 1024       # slab bytes a block that a cluster aims for
+SLAB_MIN = 8 * 1024            # a cluster grows for the SMs down to slabs of this
+SMEM_MAX = 232448              # dynamic shared memory a block may take (227 KB)
+TWO_PASS_BYTES = 64 * 1024     # bytes a block reads in a two-pass chunk
 
 
 def broadcast_rows(v: torch.Tensor, n: int, c: int) -> Tuple[torch.Tensor, int]:
@@ -116,120 +142,91 @@ def gn_silu_bwd_plain(x, dz, gamma, beta, bias, mean, inv, num_groups: int
     return du.to(x.dtype), dgamma, dbeta, du.sum(dim=(1, 2))
 
 
-def _triton_kernel():
-    global _KERNELS
-    if _KERNELS is None:
-        import triton
-        import triton.language as tl
+def _smem_bytes(backward: bool, pixels: int, c: int, threads: int) -> int:
+    """Dynamic shared memory of a one-pass block: the slab (x, and dz for
+    the backward), the row sums of two quantities, the channel partials,
+    totals, coefficients and the sample's rows, the mbarriers and alignment
+    slack. The arithmetic of ``Layout`` in csrc/group_norm.cu."""
+    slab = -(-pixels * c * 2 // 128) * 128
+    return (2 if backward else 1) * slab + 2 * threads * VEC * 4 + 12 * c * 4 + MAX_CHUNKS * 8 + 128
 
-        @triton.jit
-        def gn_silu_fwd(x_ptr, g_ptr, b_ptr, bias_ptr, y_ptr, mean_ptr, inv_ptr,
-                        HW, C, G, CG, SG, SB, SP, eps, HAS_BIAS: tl.constexpr,
-                        BLOCK_HW: tl.constexpr, BLOCK_C: tl.constexpr):
-            pid = tl.program_id(0)
-            n = pid // G
-            g = pid % G
-            offs_c = tl.arange(0, BLOCK_C)
-            cmask = offs_c < CG
-            ch = g * CG + offs_c
-            base = n.to(tl.int64) * HW * C
-            acc_s = tl.zeros([BLOCK_C], dtype=tl.float32)
-            acc_q = tl.zeros([BLOCK_C], dtype=tl.float32)
-            for start in range(0, HW, BLOCK_HW):
-                offs_p = start + tl.arange(0, BLOCK_HW)
-                m = (offs_p < HW)[:, None] & cmask[None, :]
-                v = tl.load(x_ptr + base + offs_p[:, None] * C + ch[None, :],
-                            mask=m, other=0.0).to(tl.float32)
-                acc_s += tl.sum(v, axis=0)
-                acc_q += tl.sum(v * v, axis=0)
-            if HAS_BIAS:
-                bias = tl.load(bias_ptr + n * SP + ch, mask=cmask, other=0.0)
-            else:
-                bias = tl.zeros([BLOCK_C], dtype=tl.float32)
-            usum = acc_s + HW * bias
-            usq = acc_q + 2.0 * bias * acc_s + HW * bias * bias
-            cnt = (HW * CG).to(tl.float32)
-            mean = tl.sum(usum, axis=0) / cnt
-            var = tl.sum(usq, axis=0) / cnt - mean * mean
-            inv = 1.0 / tl.sqrt(var + eps)
-            tl.store(mean_ptr + pid, mean)
-            tl.store(inv_ptr + pid, inv)
-            gamma = tl.load(g_ptr + n * SG + ch, mask=cmask, other=0.0)
-            beta = tl.load(b_ptr + n * SB + ch, mask=cmask, other=0.0)
-            a = inv * gamma
-            d = beta + (bias - mean) * inv * gamma
-            for start in range(0, HW, BLOCK_HW):
-                offs_p = start + tl.arange(0, BLOCK_HW)
-                m = (offs_p < HW)[:, None] & cmask[None, :]
-                off = base + offs_p[:, None] * C + ch[None, :]
-                v = tl.load(x_ptr + off, mask=m, other=0.0).to(tl.float32)
-                y = v * a[None, :] + d[None, :]
-                y = y / (1.0 + tl.exp(-y))
-                tl.store(y_ptr + off, y.to(y_ptr.dtype.element_ty), mask=m)
 
-        @triton.jit
-        def gn_silu_bwd(x_ptr, dz_ptr, g_ptr, b_ptr, bias_ptr, mean_ptr, inv_ptr,
-                        dx_ptr, dg_ptr, db_ptr, dbias_ptr, HW, C, G, CG, SG, SB, SP,
-                        HAS_BIAS: tl.constexpr, BLOCK_HW: tl.constexpr,
-                        BLOCK_C: tl.constexpr):
-            pid = tl.program_id(0)
-            n = pid // G
-            g = pid % G
-            offs_c = tl.arange(0, BLOCK_C)
-            cmask = offs_c < CG
-            ch = g * CG + offs_c
-            base = n.to(tl.int64) * HW * C
-            mean = tl.load(mean_ptr + pid)
-            inv = tl.load(inv_ptr + pid)
-            gamma = tl.load(g_ptr + n * SG + ch, mask=cmask, other=0.0)
-            beta = tl.load(b_ptr + n * SB + ch, mask=cmask, other=0.0)
-            if HAS_BIAS:
-                bias = tl.load(bias_ptr + n * SP + ch, mask=cmask, other=0.0)
-            else:
-                bias = tl.zeros([BLOCK_C], dtype=tl.float32)
-            shift = bias - mean
-            # pass 1: per-channel Σdy (dβ) and Σdy·x̂ (dγ); masked lanes load dz = 0
-            acc_dy = tl.zeros([BLOCK_C], dtype=tl.float32)
-            acc_dyx = tl.zeros([BLOCK_C], dtype=tl.float32)
-            for start in range(0, HW, BLOCK_HW):
-                offs_p = start + tl.arange(0, BLOCK_HW)
-                m = (offs_p < HW)[:, None] & cmask[None, :]
-                off = base + offs_p[:, None] * C + ch[None, :]
-                v = tl.load(x_ptr + off, mask=m, other=0.0).to(tl.float32)
-                dz = tl.load(dz_ptr + off, mask=m, other=0.0).to(tl.float32)
-                xh = (v + shift[None, :]) * inv
-                y = xh * gamma[None, :] + beta[None, :]
-                s = 1.0 / (1.0 + tl.exp(-y))
-                dy = dz * (s * (1.0 + y * (1.0 - s)))
-                acc_dy += tl.sum(dy, axis=0)
-                acc_dyx += tl.sum(dy * xh, axis=0)
-            row = n.to(tl.int64) * C + ch
-            tl.store(db_ptr + row, acc_dy, mask=cmask)
-            tl.store(dg_ptr + row, acc_dyx, mask=cmask)
-            # group means of dx̂ = dy·γ and of dx̂·x̂ (γ is 0 on masked channels)
-            cnt = (HW * CG).to(tl.float32)
-            m1 = tl.sum(acc_dy * gamma, axis=0) / cnt
-            m2 = tl.sum(acc_dyx * gamma, axis=0) / cnt
-            # pass 2: dx, and its per-channel sum (dbias)
-            acc_du = tl.zeros([BLOCK_C], dtype=tl.float32)
-            for start in range(0, HW, BLOCK_HW):
-                offs_p = start + tl.arange(0, BLOCK_HW)
-                m = (offs_p < HW)[:, None] & cmask[None, :]
-                off = base + offs_p[:, None] * C + ch[None, :]
-                v = tl.load(x_ptr + off, mask=m, other=0.0).to(tl.float32)
-                dz = tl.load(dz_ptr + off, mask=m, other=0.0).to(tl.float32)
-                xh = (v + shift[None, :]) * inv
-                y = xh * gamma[None, :] + beta[None, :]
-                s = 1.0 / (1.0 + tl.exp(-y))
-                dy = dz * (s * (1.0 + y * (1.0 - s)))
-                du = inv * (dy * gamma[None, :] - m1 - xh * m2)
-                du = tl.where(m, du, 0.0)
-                tl.store(dx_ptr + off, du.to(dx_ptr.dtype.element_ty), mask=m)
-                acc_du += tl.sum(du, axis=0)
-            tl.store(dbias_ptr + row, acc_du, mask=cmask)
+class GNPlan(NamedTuple):
+    """Launch geometry of one K1 or K2 call."""
 
-        _KERNELS = (triton, gn_silu_fwd, gn_silu_bwd)
-    return _KERNELS
+    blocks: int     # blocks along a sample's pixels: its cluster, or its two-pass chunks
+    pixels: int     # pixels a block; the last block may take fewer
+    chunk: int      # pixels a bulk copy (one pass)
+    threads: int
+    smem: int       # dynamic shared memory bytes a block (one pass; 0 in two)
+    two_pass: bool
+
+    def ranges(self, hw: int) -> List[range]:
+        """The pixels of each block of a sample, in order."""
+        return [range(b * self.pixels, min(hw, (b + 1) * self.pixels))
+                for b in range(self.blocks)]
+
+
+@functools.lru_cache(maxsize=None)
+def gn_plan(n: int, h: int, w: int, c: int, groups: int, sms: int,
+            backward: bool = False) -> GNPlan:
+    """K1's (or, with ``backward``, K2's) grid for (N, H, W, C) bf16 inputs
+    on a card with ``sms`` SMs, made once per shape. One pass where a
+    cluster of at most 8 blocks holds a sample in shared memory: the
+    smallest cluster of ``CLUSTERS`` whose blocks' slabs are at most
+    ``SLAB_TARGET`` bytes, then a larger one while the batch fills at most
+    half the SMs and the slabs stay above ``SLAB_MIN``. One-pass K1 blocks
+    take ``WIDE_THREADS``. A K2 thread holds about twice K1's registers, so
+    512 of them fill an SM's register file: K2 blocks take ``THREADS`` where
+    two such blocks share an SM's shared memory, else ``WIDE_THREADS``; any
+    block takes ``THREADS`` where ``WIDE_THREADS`` would not fit.
+    Where 8 blocks cannot hold a sample, two passes over chunks of
+    ``TWO_PASS_BYTES``."""
+    if c % groups:
+        raise ValueError(f"group_norm_silu kernel: {c} channels in {groups} groups")
+    if c % VEC or c > VEC * THREADS:
+        raise ValueError(f"group_norm_silu kernel takes C % {VEC} == 0 and C <= "
+                         f"{VEC * THREADS}, got {c}")
+    hw = h * w
+    bpp = 2 * c * (2 if backward else 1)  # slab bytes a pixel
+    i = next((i for i, k in enumerate(CLUSTERS) if -(-hw // k) * bpp <= SLAB_TARGET),
+             len(CLUSTERS) - 1)
+    while (i + 1 < len(CLUSTERS) and 2 * n * CLUSTERS[i] <= sms
+           and -(-hw // CLUSTERS[i + 1]) * bpp >= SLAB_MIN):
+        i += 1
+    pixels = -(-hw // CLUSTERS[i])
+    narrow = _smem_bytes(backward, pixels, c, THREADS)
+    wide = _smem_bytes(backward, pixels, c, WIDE_THREADS)
+    threads = THREADS if (backward and narrow <= HALF_SM) or wide > SMEM_MAX else WIDE_THREADS
+    smem = narrow if threads == THREADS else wide
+    if smem <= SMEM_MAX:
+        chunk = max(1, min(pixels, CHUNK_BYTES // (2 * c)), -(-pixels // MAX_CHUNKS))
+        return GNPlan(-(-hw // pixels), pixels, chunk, threads, smem, False)
+    pixels = max(1, TWO_PASS_BYTES // bpp)
+    return GNPlan(-(-hw // pixels), pixels, pixels, THREADS, 0, True)
+
+
+def _fwd_fn():
+    global _FWD
+    if _FWD is None:
+        fn = build.library("group_norm").dmme_gn_silu_fwd
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([vp] * 4 + [vp, i, vp, i, vp, i] + [i] * 4 + [ctypes.c_float]
+                       + [i] * 5 + [vp] * 3)
+        fn.restype = i
+        _FWD = fn
+    return _FWD
+
+
+def _bwd_fn():
+    global _BWD
+    if _BWD is None:
+        fn = build.library("group_norm").dmme_gn_silu_bwd
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 8 + [vp, i, vp, i, vp, i] + [i] * 4 + [i] * 5 + [vp] * 4
+        fn.restype = i
+        _BWD = fn
+    return _BWD
 
 
 def _check(x, num_groups: int, what: str) -> None:
@@ -240,30 +237,37 @@ def _check(x, num_groups: int, what: str) -> None:
         raise TypeError(f"{what} kernel takes bf16 activations, got {x.dtype}")
 
 
-def _blocks(triton, hw: int, cg: int, tile: int) -> Tuple[int, int]:
-    """(BLOCK_HW, BLOCK_C): a group's channels by up to ``tile`` elements."""
-    block_c = triton.next_power_of_2(cg)
-    return max(16, min(triton.next_power_of_2(hw), tile // block_c)), block_c
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous with a 16-byte aligned start, as the bulk copies read it."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _launch(x, gamma, beta, bias, num_groups: int, eps: float):
     global launches
     n, h, w, c = x.shape
     _check(x, num_groups, "group_norm_silu")
-    x = x.contiguous()
+    plan = gn_plan(n, h, w, c, num_groups, build.sm_count(x.device))
+    x = _aligned(x)
     (gamma, sg), (beta, sb) = broadcast_rows(gamma, n, c), broadcast_rows(beta, n, c)
-    has_bias = bias is not None
-    bias, sp = broadcast_rows(bias, n, c) if has_bias else (x, 0)  # x: an unread stand-in
-    triton, kernel, _ = _triton_kernel()
-    block_hw, block_c = _blocks(triton, h * w, c // num_groups, 4096)
+    bias, sp = broadcast_rows(bias, n, c) if bias is not None else (None, 0)
     y = torch.empty_like(x)
     mean = torch.empty((n, num_groups), device=x.device, dtype=torch.float32)
     inv = torch.empty_like(mean)
-    kernel[(n * num_groups,)](
-        x, gamma, beta, bias, y, mean, inv, h * w, c, num_groups, c // num_groups,
-        sg, sb, sp, eps,
-        HAS_BIAS=has_bias, BLOCK_HW=block_hw, BLOCK_C=block_c, num_warps=4,
-    )
+    part = coef = None  # two-pass scratch
+    if plan.two_pass:
+        part = torch.empty((n * plan.blocks * 2 * c,), device=x.device, dtype=torch.float32)
+        coef = torch.empty((n * 2 * c,), device=x.device, dtype=torch.float32)
+    status = _fwd_fn()(
+        x.data_ptr(), y.data_ptr(), mean.data_ptr(), inv.data_ptr(), gamma.data_ptr(), sg,
+        beta.data_ptr(), sb, _ptr(bias), sp, n, h * w, c, num_groups, float(eps),
+        plan.blocks, plan.pixels, plan.chunk, plan.threads, int(plan.two_pass),
+        _ptr(part), _ptr(coef), torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, "group_norm_silu kernel launch")
     launches += 1
     return y, mean, inv
 
@@ -278,22 +282,27 @@ def _launch_bwd(x, dz, gamma, beta, bias, mean, inv, num_groups: int):
         raise ValueError(f"dz shape {tuple(dz.shape)} differs from x's {tuple(x.shape)}")
     if mean.shape != (n, num_groups) or inv.shape != (n, num_groups):
         raise ValueError(f"statistics must be ({n}, {num_groups}), got {tuple(mean.shape)}")
-    x, dz = x.contiguous(), dz.contiguous()
+    plan = gn_plan(n, h, w, c, num_groups, build.sm_count(x.device), backward=True)
+    x, dz = _aligned(x), _aligned(dz)
     mean, inv = mean.to(torch.float32).contiguous(), inv.to(torch.float32).contiguous()
     (gamma, sg), (beta, sb) = broadcast_rows(gamma, n, c), broadcast_rows(beta, n, c)
-    has_bias = bias is not None
-    bias, sp = broadcast_rows(bias, n, c) if has_bias else (mean, 0)  # mean: an unread stand-in
-    triton, _, kernel = _triton_kernel()
-    # half K1's tile: each element holds twice the live f32 values
-    block_hw, block_c = _blocks(triton, h * w, c // num_groups, 2048)
+    bias, sp = broadcast_rows(bias, n, c) if bias is not None else (None, 0)
     dx = torch.empty_like(x)
     dgamma, dbeta, dbias = (torch.empty((n, c), device=x.device, dtype=torch.float32)
                             for _ in range(3))
-    kernel[(n * num_groups,)](
-        x, dz, gamma, beta, bias, mean, inv, dx, dgamma, dbeta, dbias,
-        h * w, c, num_groups, c // num_groups, sg, sb, sp,
-        HAS_BIAS=has_bias, BLOCK_HW=block_hw, BLOCK_C=block_c, num_warps=4,
-    )
+    part = part2 = coef = None  # two-pass scratch
+    if plan.two_pass:
+        f32 = dict(device=x.device, dtype=torch.float32)
+        part = torch.empty((n * plan.blocks * 2 * c,), **f32)
+        part2 = torch.empty((n * plan.blocks * c,), **f32)
+        coef = torch.empty((n * 2 * c,), **f32)
+    status = _bwd_fn()(
+        x.data_ptr(), dz.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+        dbias.data_ptr(), mean.data_ptr(), inv.data_ptr(), gamma.data_ptr(), sg,
+        beta.data_ptr(), sb, _ptr(bias), sp, n, h * w, c, num_groups,
+        plan.blocks, plan.pixels, plan.chunk, plan.threads, int(plan.two_pass),
+        _ptr(part), _ptr(part2), _ptr(coef), torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, "group_norm_silu backward kernel launch")
     bwd_launches += 1
     return dx, dgamma, dbeta, dbias
 

@@ -28,6 +28,12 @@ conv2 is split (``launches`` counts calls). The wrapper lays the conv
 weights out in bf16, K-major, once per weight state (:func:`pack_weights`),
 and hands affines shared by the batch over with a row stride of 0, so a
 call on the card issues the kernels' launches and no copies.
+
+Shapes: C_in and C_out multiples of 8 (a partial last 64-channel K step
+reads zeros past C from TMA; a partial output tile is masked at C_out) and
+any H×W (an M tile is a TMA box of whole rows or whole images where the
+shape allows, else a spatial box whose pixels outside the image read zeros
+and are not stored; :func:`pixel_box`).
 """
 
 from __future__ import annotations
@@ -50,7 +56,8 @@ _FN = None
 
 BN, BK = 128, 64  # output channels a tile and K a step (csrc/resblock.cu)
 MIN_STEPS = 4  # K steps a split slice takes at least
-GN_THREADS = 256  # threads of the GN+SiLU pass; a group's channels divide it
+GN_THREADS = 256  # threads of the GN+SiLU pass; at most this many channels a group
+CHANNELS = 8  # C_in and C_out are multiples of this: 16-byte TMA strides
 
 
 def _conv3x3_plain(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -149,21 +156,35 @@ def pack_weights(w1, b1, w2, b2, wr=None, br=None) -> PackedWeights:
 
 def pixel_box(h: int, w: int, bm: int) -> Tuple[int, int, int]:
     """(images, rows, columns) of the NHWC pixels that one M tile of ``bm``
-    consecutive output pixels covers: one TMA box, in raster order."""
-    if w >= bm:
-        if w % bm:
-            raise ValueError(f"resblock kernel: width {w} is not a multiple of {bm}")
+    output pixels covers: one TMA box. In raster order (segments of whole
+    rows, whole rows or whole images) where H and W allow; else a spatial
+    box of ``bm`` pixels, columns the power of two at or above W up to
+    ``bm``, which may reach past the image."""
+    if w >= bm and w % bm == 0:
         return 1, 1, bm
-    if bm % w:
-        raise ValueError(f"resblock kernel: {bm} pixels are not whole rows of {w}")
-    rows = bm // w
-    if h >= rows:
-        if h % rows:
-            raise ValueError(f"resblock kernel: height {h} is not a multiple of {rows} rows")
-        return 1, rows, w
-    if rows % h:
-        raise ValueError(f"resblock kernel: {rows} rows are not whole images of {h}")
-    return rows // h, h, w
+    if w < bm and bm % w == 0:
+        rows = bm // w
+        if h >= rows and h % rows == 0:
+            return 1, rows, w
+        if h < rows and rows % h == 0:
+            return rows // h, h, w
+    bw = min(bm, 1 << (w - 1).bit_length())
+    return 1, bm // bw, bw
+
+
+def tile_pixels(n: int, h: int, w: int, box: Tuple[int, int, int], tile: int) -> List[int]:
+    """The raster indices of the pixels that M tile ``tile`` stores, in
+    tile-row order (the kernel's epilogue): pixels outside the batch are
+    skipped."""
+    bn, bh, bw = box
+    tx, ty = -(-w // bw), -(-h // bh)
+    img0, y0, x0 = tile // (tx * ty) * bn, tile // tx % ty * bh, tile % tx * bw
+    out = []
+    for r in range(bn * bh * bw):
+        img, y, x = img0 + r // (bh * bw), y0 + r // bw % bh, x0 + r % bw
+        if img < n and y < h and x < w:
+            out.append((img * h + y) * w + x)
+    return out
 
 
 class ConvPlan(NamedTuple):
@@ -173,7 +194,7 @@ class ConvPlan(NamedTuple):
     box: Tuple[int, int, int]  # (images, rows, columns) of a tile: TMA box (64, w, h, n)
     m_tiles: int
     n_tiles: int              # tiles of BN output channels
-    steps: int                # 64-deep K steps: 9 taps × C_in/64 [+ C_proj/64]
+    steps: int                # 64-deep K steps: 9 taps × ⌈C_in/64⌉ [+ ⌈C_proj/64⌉]
     splits: int               # split-K slices (blockIdx.z), summed in slice order
     per: int                  # K steps a slice; the last may take fewer
 
@@ -193,14 +214,15 @@ def conv_plan(n: int, h: int, w: int, c_in: int, c_out: int, c_proj: int, sms: i
     there, PERF.md), else 64; the rule reads only M and C_out, so both convs
     of a ResBlock take the same tile. Then the K steps split into
     ⌊SMs / tiles⌋ slices of at least ``MIN_STEPS`` steps, none empty."""
-    if c_in % BK or c_proj % BK or c_out % BN:
-        raise ValueError(f"resblock kernel takes C_in % {BK} == 0 and C_out % {BN} == 0, "
-                         f"got {c_in}, {c_out}")
-    m, n_tiles = n * h * w, c_out // BN
+    if c_in % CHANNELS or c_proj % CHANNELS or c_out % CHANNELS:
+        raise ValueError(f"resblock kernel takes C_in and C_out that are multiples of "
+                         f"{CHANNELS}, got {c_in}, {c_out}")
+    m, n_tiles = n * h * w, -(-c_out // BN)
     bm = 128 if 4 * -(-m // 128) * n_tiles >= sms else 64
     box = pixel_box(h, w, bm)
-    steps = (9 * c_in + c_proj) // BK
-    m_tiles = -(-m // bm)
+    steps = 9 * -(-c_in // BK) + -(-c_proj // BK)
+    bn, bh, bw = box
+    m_tiles = -(-n // bn) * -(-h // bh) * -(-w // bw)
     splits = max(1, min(sms // (m_tiles * n_tiles), steps // MIN_STEPS))
     per = -(-steps // splits)
     return ConvPlan(bm, box, m_tiles, n_tiles, steps, -(-steps // per), per)
@@ -214,7 +236,7 @@ def _launch(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br,
     if x.dtype != torch.bfloat16:
         raise TypeError(f"resblock kernel takes bf16 activations, got {x.dtype}")
     for c in (cin, cout):
-        if c % num_groups or GN_THREADS % (c // num_groups):
+        if c % num_groups or c // num_groups > GN_THREADS:
             raise ValueError(f"resblock kernel: {c} channels in {num_groups} groups not supported")
     if wr is None and cin != cout:
         raise ValueError("identity skip needs C_in == C_out")

@@ -1,9 +1,12 @@
 """Launch geometry of the port's CUDA kernels, planned in Python and checked
 on the CPU at every call site of the main path: K3 (attention) at serving
 batches 1, 8 and 16 and at training batch 128, K4 (fused ResBlock) at
-serving batches 1, 8 and 16. The call sites come from a full-width bf16 UNet
-forward on PyTorch's meta device (shapes only, no data), with the kernel
-entry points replaced by recorders. The card is an H100 SXM: 132 SMs.
+serving batches 1, 8 and 16; and at the LSUN widths of
+``configs/ddpm/lsun_*.yaml`` (channels 128/128/256/256/512/512, attention at
+depth 5, 256×256 inputs) at batch 1 and 2. The call sites come from a
+full-width bf16 UNet forward on PyTorch's meta device (shapes only, no
+data), with the kernel entry points replaced by recorders. The card is an
+H100 SXM: 132 SMs.
 """
 
 import functools
@@ -20,12 +23,20 @@ from dmme_tpu_torch.ops import resblock as t_resblock
 SMS = 132
 SERVE_BATCHES = (1, 8, 16)
 TRAIN_BATCH = 128
+LSUN_BATCHES = (1, 2)
+# (UNet widths, image size) of the configs the port's DDPM UNet runs
+WIDTHS = {
+    "cifar10": ({}, 32),
+    "lsun": (dict(channels_per_depth=(128, 128, 256, 256, 512, 512), attention_depths=(5,)), 256),
+}
 
 
 @functools.lru_cache(maxsize=None)
-def call_sites(n: int) -> dict:
+def call_sites(n: int, widths: str = "cifar10") -> dict:
     """{"attention": [q shape], "resblock": [(x shape, C_out,
-    projection?)]}, one entry per call of a full-width UNet forward at batch n."""
+    projection?)]}, one entry per call of a full-width UNet forward at batch
+    n, at the widths and image size of ``WIDTHS[widths]``."""
+    kwargs, img = WIDTHS[widths]
     seen = {"attention": [], "resblock": []}
 
     def attention(q, k, v, scale):
@@ -47,9 +58,10 @@ def call_sites(n: int) -> dict:
         for k, fn in patched.items():
             setattr(blocks, k, fn)
         with torch.device("meta"), torch.no_grad():
-            model = ddpm_models.UNet(dtype=torch.bfloat16, fused_norm=True, fused_block=True)
+            model = ddpm_models.UNet(dtype=torch.bfloat16, fused_norm=True, fused_block=True,
+                                     **kwargs)
             model.eval()
-            model(torch.empty((n, 32, 32, 3)), torch.zeros((n,), dtype=torch.int64))
+            model(torch.empty((n, img, img, 3)), torch.zeros((n,), dtype=torch.int64))
     finally:
         for k, fn in saved.items():
             setattr(blocks, k, fn)
@@ -73,9 +85,15 @@ def _attention_shapes():
 @pytest.mark.parametrize("n,shape", list(_attention_shapes()),
                          ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
 def test_attention_plan_covers_every_key_tile_once(n, shape):
+    _check_attention_plan(n, shape)
+
+
+def _check_attention_plan(n, shape):
     _, t, h, d = shape
     plan = t_attention.attention_plan(n, h, t, d, SMS)
-    assert plan.bq in t_attention.BLOCK_QUERIES[d] and plan.bkv == (32 if d > 128 else 64)
+    assert plan.dp == -(-d // 64) * 64 and plan.halves == (2 if d == 512 else 1)
+    assert plan.bq in t_attention.BLOCK_QUERIES[plan.dp]
+    assert plan.bkv == (32 if plan.dp > 128 else 64)
     if plan.bq == 128:  # two warpgroups only where such blocks alone fill the SMs
         assert plan.q_tiles * n * h >= SMS
     tiles = [j for r in plan.split_tiles() for j in r]
@@ -83,8 +101,8 @@ def test_attention_plan_covers_every_key_tile_once(n, shape):
     assert all(len(r) > 0 for r in plan.split_tiles())
     assert (plan.kv_tiles - 1) * plan.bkv < t <= plan.kv_tiles * plan.bkv
     assert (plan.q_tiles - 1) * plan.bq < t <= plan.q_tiles * plan.bq
-    blocks_ = plan.q_tiles * n * h
-    if 8 * blocks_ > SMS or t * d < t_attention.SPLIT_MIN_WORK:
+    blocks_ = plan.q_tiles * n * h * plan.halves
+    if plan.halves > 1 or 8 * blocks_ > SMS or t * plan.dp < t_attention.SPLIT_MIN_WORK:
         assert plan.splits == 1
     else:  # split, two key tiles at least a split, up to about one block per SM
         assert 1 < plan.splits <= min(plan.kv_tiles // 2, math.ceil(SMS / blocks_))
@@ -121,8 +139,15 @@ def test_attention_plan_splits_and_head_dims():
     # made once per shape: the launcher's repeated calls do no planning
     assert t_attention.attention_plan(8, 1, 256, 256, SMS) is t_attention.attention_plan(
         8, 1, 256, 256, SMS)
-    with pytest.raises(ValueError, match="head dims"):
-        t_attention.attention_plan(1, 1, 16, 96, SMS)
+    for d in (40, 320):
+        with pytest.raises(ValueError, match="head dims"):
+            t_attention.attention_plan(1, 1, 16, d, SMS)
+    # head dims off the 64-wide panels run the next kernel, padded; 512 in halves
+    assert t_attention.attention_plan(8, 4, 256, 96, SMS).dp == 128
+    assert t_attention.attention_plan(8, 4, 256, 160, SMS)[-2:] == (192, 1)
+    plan = t_attention.attention_plan(1, 1, 64, 512, SMS)
+    assert (plan.dp, plan.halves, plan.bq, plan.bkv, plan.splits) == (512, 2, 64, 32, 1)
+    assert t_attention.attention_plan(1, 1, 1024, 512, SMS).splits == 1
 
 
 def _resblock_shapes():
@@ -134,6 +159,10 @@ def _resblock_shapes():
 @pytest.mark.parametrize("n,shape,cout,proj", list(_resblock_shapes()),
                          ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
 def test_resblock_plan_boxes_and_k_steps(n, shape, cout, proj):
+    _check_resblock_plan(n, shape, cout, proj)
+
+
+def _check_resblock_plan(n, shape, cout, proj):
     _, h, w, cin = shape
     p1 = t_resblock.conv_plan(n, h, w, cin, cout, 0, SMS)
     p2 = t_resblock.conv_plan(n, h, w, cout, cout, cin if proj else 0, SMS)
@@ -181,23 +210,28 @@ def test_resblock_plan_tile_choice_and_errors():
     assert t_resblock.pixel_box(8, 8, 128) == (2, 8, 8)
     assert t_resblock.pixel_box(16, 16, 128) == (1, 8, 16)
     assert t_resblock.pixel_box(4, 256, 128) == (1, 1, 128)
-    for h, w in ((6, 6), (12, 8), (3, 16)):
-        with pytest.raises(ValueError, match="resblock kernel"):
-            t_resblock.pixel_box(h, w, 64)
-    with pytest.raises(ValueError, match="C_out"):
-        t_resblock.conv_plan(1, 8, 8, 96, 128, 0, SMS)
-    with pytest.raises(ValueError, match="resblock kernel"):
-        t_resblock.conv_plan(1, 6, 6, 128, 128, 0, SMS)
+    # H x W that whole rows or images do not tile: spatial boxes reaching past the image
+    for (h, w), box in {(6, 6): (1, 8, 8), (12, 8): (1, 8, 8), (3, 16): (1, 4, 16),
+                        (5, 100): (1, 1, 64)}.items():
+        assert t_resblock.pixel_box(h, w, 64) == box
+    plan = t_resblock.conv_plan(1, 6, 6, 128, 128, 0, SMS)
+    assert (plan.box, plan.m_tiles) == ((1, 8, 8), 1)
+    for c_in, c_out in ((20, 128), (128, 100)):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            t_resblock.conv_plan(1, 8, 8, c_in, c_out, 0, SMS)
 
 
-# The input domains of the CUDA kernels, narrower than PR 1's (head dims that
-# are multiples of 16 up to 256; C_in % 32, C_out % 64): a model outside them
-# raises on the card (ROADMAP B.3, B.4). The CPU takes the plain versions,
-# which accept any shape.
-@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 128, 160, 192, 256, 320])
+# The input domains of the CUDA kernels: head dims that are multiples of 16
+# up to 256, and 512; C_in and C_out that are multiples of 8 and any H x W.
+# Outside them the kernel raises on the card. The CPU takes the plain
+# versions, which accept any shape.
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 128, 160, 192, 256, 320,
+                               8, 40, 208, 240, 384, 512])
 def test_attention_kernel_head_dims(d):
-    if d in (64, 128, 256):
-        assert t_attention.attention_plan(8, 4, 256, d, SMS).bkv in (32, 64)
+    if d % 16 == 0 and (d <= 256 or d == 512):
+        plan = t_attention.attention_plan(8, 4, 256, d, SMS)
+        assert plan.bkv in (32, 64) and plan.dp - 64 < d <= plan.dp
+        assert plan.dp in t_attention.BLOCK_QUERIES
     else:
         with pytest.raises(ValueError, match="head dims"):
             t_attention.attention_plan(8, 4, 256, d, SMS)
@@ -205,11 +239,149 @@ def test_attention_kernel_head_dims(d):
 
 @pytest.mark.parametrize("c_in,c_out", [(64, 128), (128, 128), (192, 384), (384, 768),
                                         (32, 128), (96, 128), (128, 64), (192, 192),
-                                        (128, 320)])
+                                        (128, 320), (32, 32), (96, 192), (20, 128),
+                                        (128, 100)])
 def test_resblock_kernel_channels(c_in, c_out):
-    if c_in % 64 == 0 and c_out % 128 == 0:
-        plan = t_resblock.conv_plan(8, 8, 8, c_in, c_out, 0, SMS)
-        assert plan.n_tiles * t_resblock.BN == c_out
+    if c_in % 8 == 0 and c_out % 8 == 0:
+        for c_proj in (0, c_in):
+            plan = t_resblock.conv_plan(8, 8, 8, c_in, c_out, c_proj, SMS)
+            assert (plan.n_tiles - 1) * t_resblock.BN < c_out <= plan.n_tiles * t_resblock.BN
+            # every K step once: 9 taps of 64-channel chunks, the last partial, then the projection
+            assert plan.steps == 9 * -(-c_in // 64) + -(-c_proj // 64)
+            assert [s for r in plan.slices() for s in r] == list(range(plan.steps))
     else:
-        with pytest.raises(ValueError, match="C_out"):
+        with pytest.raises(ValueError, match="multiples of 8"):
             t_resblock.conv_plan(8, 8, 8, c_in, c_out, 0, SMS)
+
+
+@pytest.mark.parametrize("n,h,w", [(1, 6, 6), (2, 12, 8), (3, 3, 16), (1, 5, 100), (2, 7, 9),
+                                   (8, 32, 32), (1, 4, 4)])
+def test_resblock_tiles_store_every_pixel_once(n, h, w):
+    """The M tiles of any H x W store every output pixel exactly once."""
+    for c_out in (64, 128):
+        plan = t_resblock.conv_plan(n, h, w, 96, c_out, 0, SMS)
+        stored = [m for t in range(plan.m_tiles)
+                  for m in t_resblock.tile_pixels(n, h, w, plan.box, t)]
+        assert sorted(stored) == list(range(n * h * w))
+        assert plan.box[0] * plan.box[1] * plan.box[2] == plan.bm
+        assert max(plan.box) <= 256
+
+
+# The main path's plans before the domain was widened: widening it changes none
+# (key: (N, T, H, D) -> (bq, bkv, q_tiles, kv_tiles, splits, kv_per_split);
+# (N, H, W, C_conv, C_out, C_proj) -> (bm, box, m_tiles, n_tiles, steps,
+# splits, per)).
+MAIN_ATTENTION = {
+    (1, 16, 1, 256): (64, 32, 1, 1, 1, 1), (1, 256, 1, 128): (64, 64, 4, 4, 1, 4),
+    (1, 256, 1, 256): (64, 32, 4, 8, 4, 2), (8, 16, 1, 256): (64, 32, 1, 1, 1, 1),
+    (8, 256, 1, 128): (64, 64, 4, 4, 1, 4), (8, 256, 1, 256): (64, 32, 4, 8, 1, 8),
+    (16, 16, 1, 256): (64, 32, 1, 1, 1, 1), (16, 256, 1, 128): (64, 64, 4, 4, 1, 4),
+    (16, 256, 1, 256): (64, 32, 4, 8, 1, 8), (128, 16, 1, 256): (64, 32, 1, 1, 1, 1),
+    (128, 256, 1, 128): (128, 64, 2, 4, 1, 4), (128, 256, 1, 256): (64, 32, 4, 8, 1, 8),
+}
+MAIN_CONV = {
+    (1, 16, 16, 128, 128, 256): (64, (1, 4, 16), 4, 1, 22, 5, 5),
+    (1, 16, 16, 128, 128, 512): (64, (1, 4, 16), 4, 1, 26, 6, 5),
+    (1, 16, 16, 128, 256, 0): (64, (1, 4, 16), 4, 2, 18, 4, 5),
+    (1, 16, 16, 256, 128, 0): (64, (1, 4, 16), 4, 1, 36, 9, 4),
+    (1, 16, 16, 256, 256, 0): (64, (1, 4, 16), 4, 2, 36, 9, 4),
+    (1, 16, 16, 256, 256, 128): (64, (1, 4, 16), 4, 2, 38, 8, 5),
+    (1, 16, 16, 256, 256, 512): (64, (1, 4, 16), 4, 2, 44, 11, 4),
+    (1, 16, 16, 512, 128, 0): (64, (1, 4, 16), 4, 1, 72, 18, 4),
+    (1, 16, 16, 512, 256, 0): (64, (1, 4, 16), 4, 2, 72, 15, 5),
+    (1, 32, 32, 128, 128, 0): (64, (1, 2, 32), 16, 1, 18, 4, 5),
+    (1, 32, 32, 128, 128, 256): (64, (1, 2, 32), 16, 1, 22, 5, 5),
+    (1, 32, 32, 256, 128, 0): (64, (1, 2, 32), 16, 1, 36, 8, 5),
+    (1, 4, 4, 256, 256, 0): (64, (4, 4, 4), 1, 2, 36, 9, 4),
+    (1, 4, 4, 256, 256, 512): (64, (4, 4, 4), 1, 2, 44, 11, 4),
+    (1, 4, 4, 512, 256, 0): (64, (4, 4, 4), 1, 2, 72, 18, 4),
+    (1, 8, 8, 256, 256, 0): (64, (1, 8, 8), 1, 2, 36, 9, 4),
+    (1, 8, 8, 256, 256, 512): (64, (1, 8, 8), 1, 2, 44, 11, 4),
+    (1, 8, 8, 512, 256, 0): (64, (1, 8, 8), 1, 2, 72, 18, 4),
+    (16, 16, 16, 128, 128, 256): (64, (1, 4, 16), 64, 1, 22, 2, 11),
+    (16, 16, 16, 128, 128, 512): (64, (1, 4, 16), 64, 1, 26, 2, 13),
+    (16, 16, 16, 128, 256, 0): (128, (1, 8, 16), 32, 2, 18, 2, 9),
+    (16, 16, 16, 256, 128, 0): (64, (1, 4, 16), 64, 1, 36, 2, 18),
+    (16, 16, 16, 256, 256, 0): (128, (1, 8, 16), 32, 2, 36, 2, 18),
+    (16, 16, 16, 256, 256, 128): (128, (1, 8, 16), 32, 2, 38, 2, 19),
+    (16, 16, 16, 256, 256, 512): (128, (1, 8, 16), 32, 2, 44, 2, 22),
+    (16, 16, 16, 512, 128, 0): (64, (1, 4, 16), 64, 1, 72, 2, 36),
+    (16, 16, 16, 512, 256, 0): (128, (1, 8, 16), 32, 2, 72, 2, 36),
+    (16, 32, 32, 128, 128, 0): (128, (1, 4, 32), 128, 1, 18, 1, 18),
+    (16, 32, 32, 128, 128, 256): (128, (1, 4, 32), 128, 1, 22, 1, 22),
+    (16, 32, 32, 256, 128, 0): (128, (1, 4, 32), 128, 1, 36, 1, 36),
+    (16, 4, 4, 256, 256, 0): (64, (4, 4, 4), 4, 2, 36, 9, 4),
+    (16, 4, 4, 256, 256, 512): (64, (4, 4, 4), 4, 2, 44, 11, 4),
+    (16, 4, 4, 512, 256, 0): (64, (4, 4, 4), 4, 2, 72, 15, 5),
+    (16, 8, 8, 256, 256, 0): (64, (1, 8, 8), 16, 2, 36, 4, 9),
+    (16, 8, 8, 256, 256, 512): (64, (1, 8, 8), 16, 2, 44, 4, 11),
+    (16, 8, 8, 512, 256, 0): (64, (1, 8, 8), 16, 2, 72, 4, 18),
+    (8, 16, 16, 128, 128, 256): (64, (1, 4, 16), 32, 1, 22, 4, 6),
+    (8, 16, 16, 128, 128, 512): (64, (1, 4, 16), 32, 1, 26, 4, 7),
+    (8, 16, 16, 128, 256, 0): (64, (1, 4, 16), 32, 2, 18, 2, 9),
+    (8, 16, 16, 256, 128, 0): (64, (1, 4, 16), 32, 1, 36, 4, 9),
+    (8, 16, 16, 256, 256, 0): (64, (1, 4, 16), 32, 2, 36, 2, 18),
+    (8, 16, 16, 256, 256, 128): (64, (1, 4, 16), 32, 2, 38, 2, 19),
+    (8, 16, 16, 256, 256, 512): (64, (1, 4, 16), 32, 2, 44, 2, 22),
+    (8, 16, 16, 512, 128, 0): (64, (1, 4, 16), 32, 1, 72, 4, 18),
+    (8, 16, 16, 512, 256, 0): (64, (1, 4, 16), 32, 2, 72, 2, 36),
+    (8, 32, 32, 128, 128, 0): (128, (1, 4, 32), 64, 1, 18, 2, 9),
+    (8, 32, 32, 128, 128, 256): (128, (1, 4, 32), 64, 1, 22, 2, 11),
+    (8, 32, 32, 256, 128, 0): (128, (1, 4, 32), 64, 1, 36, 2, 18),
+    (8, 4, 4, 256, 256, 0): (64, (4, 4, 4), 2, 2, 36, 9, 4),
+    (8, 4, 4, 256, 256, 512): (64, (4, 4, 4), 2, 2, 44, 11, 4),
+    (8, 4, 4, 512, 256, 0): (64, (4, 4, 4), 2, 2, 72, 18, 4),
+    (8, 8, 8, 256, 256, 0): (64, (1, 8, 8), 8, 2, 36, 8, 5),
+    (8, 8, 8, 256, 256, 512): (64, (1, 8, 8), 8, 2, 44, 8, 6),
+    (8, 8, 8, 512, 256, 0): (64, (1, 8, 8), 8, 2, 72, 8, 9),
+}
+
+
+def test_main_path_plans_are_unchanged():
+    """Every K3 and K4 plan of the main path equals the pinned one."""
+    seen_attn, seen_conv = {}, {}
+    for n in SERVE_BATCHES + (TRAIN_BATCH,):
+        for nn, t, h, d in set(call_sites(n)["attention"]):
+            seen_attn[(nn, t, h, d)] = tuple(t_attention.attention_plan(nn, h, t, d, SMS))[:6]
+    for n in SERVE_BATCHES:
+        for (nn, h, w, cin), cout, proj in set(call_sites(n)["resblock"]):
+            for c_conv, c_proj in ((cin, 0), (cout, cin if proj else 0)):
+                p = t_resblock.conv_plan(nn, h, w, c_conv, cout, c_proj, SMS)
+                seen_conv[(nn, h, w, c_conv, cout, c_proj)] = (p.bm, p.box, p.m_tiles, p.n_tiles,
+                                                               p.steps, p.splits, p.per)
+    assert seen_attn == MAIN_ATTENTION
+    assert seen_conv == MAIN_CONV
+
+
+def test_lsun_call_sites_per_forward():
+    """The LSUN widths: 6 attention calls (16x16 tokens of 512 and of 256
+    channels, 8x8 of 512: one head, so head dims 512 and 256) and 32
+    ResBlocks from 256x256 down to 8x8."""
+    sites = call_sites(1, "lsun")
+    assert len(sites["attention"]) == 6 and len(sites["resblock"]) == 32
+    assert set(sites["attention"]) == {(1, 256, 1, 512), (1, 256, 1, 256), (1, 64, 1, 512)}
+    assert {s[0][1] for s in sites["resblock"]} == {256, 128, 64, 32, 16, 8}
+
+
+def _lsun_attention():
+    for n in LSUN_BATCHES:
+        for shape in sorted(set(call_sites(n, "lsun")["attention"])):
+            yield n, shape
+
+
+def _lsun_resblock():
+    for n in LSUN_BATCHES:
+        for shape, cout, proj in sorted(set(call_sites(n, "lsun")["resblock"])):
+            yield n, shape, cout, proj
+
+
+@pytest.mark.parametrize("n,shape", list(_lsun_attention()),
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_lsun_attention_plan_covers_every_key_tile_once(n, shape):
+    _check_attention_plan(n, shape)
+
+
+@pytest.mark.parametrize("n,shape,cout,proj", list(_lsun_resblock()),
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_lsun_resblock_plan_boxes_and_k_steps(n, shape, cout, proj):
+    _check_resblock_plan(n, shape, cout, proj)

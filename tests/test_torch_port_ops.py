@@ -303,15 +303,16 @@ def test_launchers_take_bf16_only(kernel):
 
 
 def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
-    """On the CPU every wrapper takes its plain version: no triton import, no
-    ctypes library, and no launch is counted."""
+    """On the CPU every wrapper takes its plain version: no ctypes library is
+    built or bound, and no launch is counted."""
 
     def refuse(*a, **k):
         raise AssertionError("a CPU tensor reached a kernel launcher")
 
     monkeypatch.setattr(build, "library", refuse)
     monkeypatch.setattr(build, "build_all", refuse)
-    monkeypatch.setattr(t_group_norm, "_triton_kernel", refuse)
+    monkeypatch.setattr(t_group_norm, "_fwd_fn", refuse)
+    monkeypatch.setattr(t_group_norm, "_bwd_fn", refuse)
     before = (t_group_norm.launches, t_group_norm.bwd_launches, t_attention.launches,
               t_resblock.launches)
     r = np.random.default_rng(0)
