@@ -9,7 +9,8 @@ if the package is missing, or if any phase fails. Phases:
 
 1. device  — the card's name and power limit (``nvidia-smi``), torch version;
 2. build   — compiles the CUDA sources of ``dmme_tpu_torch/ops/csrc`` in
-   parallel (K1 and K2 in ``group_norm.cu``, K3, K4) and prints each
+   parallel (K1 and K2 in ``group_norm.cu``, K3, K4, and their f32/fp16
+   versions in ``simt.cu``) and prints each
    kernel's registers and spill bytes (``-Xptxas -v``);
 3. kernels — records the inputs each kernel receives at every call site of
    one full-width bf16 UNet forward at each serving batch, 1, 8 and 16 (both
@@ -57,7 +58,29 @@ if the package is missing, or if any phase fails. Phases:
 9. sample after training — a DDIM-50 n = 8 request from the trained raw
    weights through K4, equal byte for byte to the same request after K4's
    weight cache is cleared;
-10. the kernel table as one JSON line, the card's name and power limit, then
+9b. cli — ``dmme_tpu_torch.trainer.main`` in this process (deterministic
+   cuDNN): ``fit`` of ``configs/ddim/cifar10.yaml`` (synthetic data, full
+   width, batch 128, bf16) for 20 steps with checkpoints at 10 and 20, JSONL,
+   TensorBoard and GenerateImage grids (DDIM-50, n = 8) at 10 and 20, the
+   launches 45/45/6/0 a step and 1/0/6/22 a sampling forward; a resume to 30
+   against an uninterrupted 30-step run, bit for bit (parameters, EMA, Adam
+   moments); ``sample`` and ``predict`` from the resumed checkpoint, predict's
+   bytes equal to ``generate`` on a state restored in place after sampling
+   with other weights (K4's weight cache); ``configs/ddpm/shapes_demo.yaml``
+   for 20 steps in chunks of 10; ``configs/ddpm/shapes256_demo.yaml`` (LSUN
+   widths, 256 px, batch 16) for 2 steps with and without ``remat``, the
+   peak memory lower with it;
+10. f32 and fp16 — fault C.5: ``LitDDPM()`` (f32) and ``LitDDPM(dtype="fp16")``
+   each train one full-width step at batch 128 and take one DDIM step at
+   n = 8, launching the ``simt.cu`` kernels (K1/K2/K3 45/45/6 a step,
+   K1/K3/K4 1/6/22 a forward) and no bf16 kernel; every call site held
+   against its plain version and timed (the table's ``*_simt`` rows); the
+   loss, gradient (dropout off), a UNet forward and the DDIM step against
+   f32 on the CPU, f32 within ``F32_REL_L2`` (1e-4), fp16's forward and DDIM
+   step within ``UNET_REL_L2``; the bf16 harness on the same inputs is the control that
+   must miss ``F32_REL_L2``. Every bf16 path above launches no ``simt.cu``
+   kernel;
+11. the kernel table as one JSON line, the card's name and power limit, then
    ``{"ok": true, "device": ...}``.
 
 ``--out`` also writes every measurement to a JSON file. ``--kernels-only``
@@ -78,8 +101,8 @@ import threading
 import time
 import urllib.request
 
-# Peak rates of one H100 SXM (NVIDIA data sheet, dense): memory, bf16 tensor
-# cores, and f32 outside the tensor cores.
+# Peak rates of one H100 SXM (NVIDIA data sheet, dense): memory, bf16 (and
+# fp16) tensor cores, and f32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -97,6 +120,18 @@ TOL = {"group_norm_silu": (2e-2, 1e-2), "attention": (2e-2, 1e-2),
        "resblock": (2e-2, 5e-2)}
 # full UNet, bf16 on the card against f32 on the CPU: relative L2 error
 UNET_REL_L2 = 5e-2
+# the f32 harness on the card against f32 on the CPU, relative L2: the same
+# math summed in another order reads ~1e-6; the bf16 harness reads ~5e-3,
+# and fails this limit (the phase checks that it does)
+F32_REL_L2 = 1e-4
+# the f32/fp16 kernels of simt.cu against their plain versions on the same
+# inputs: (rtol, atol as a share of the largest reference value, least
+# atol). f32: the same arithmetic in another order, f32 rounding grown by
+# sums of up to ~1e5 terms. fp16: outputs rounded to fp16 (2^-11 relative,
+# and 2^-24 apart in its subnormal range, where a training step's small
+# gradients fall) from f32 values that differ in their last bits, and K3's
+# plain version rounds P to fp16 where the kernel keeps it in f32
+TOL_SIMT = {"torch.float32": (1e-4, 1e-5, 0.0), "torch.float16": (4e-3, 2e-3, 2.0 ** -24)}
 # the LSUN widths of configs/ddpm/lsun_*.yaml, run at batch 1 and 256x256
 LSUN_WIDTHS = dict(channels_per_depth=(128, 128, 256, 256, 512, 512), attention_depths=(5,))
 LSUN_IMG = 256
@@ -185,10 +220,28 @@ def randomize_affines(torch, blocks, module, generator) -> None:
                 draw(m.bias, 0.0)
 
 
+#: the launch counters of the f32/fp16 kernels of ``csrc/simt.cu``,
+#: {kernel: (module, attribute)}; set by main()
+SIMT = {}
+
+
 def reset_counts(ops) -> None:
-    """``ops``: {kernel: (module, counter attribute)}."""
-    for m, attr in ops.values():
+    """``ops``: {kernel: (module, counter attribute)}; the simt counters too."""
+    for m, attr in list(ops.values()) + list(SIMT.values()):
         setattr(m, attr, 0)
+
+
+def simt_counts() -> dict:
+    return {k: getattr(m, attr) for k, (m, attr) in SIMT.items()}
+
+
+def expect_no_simt(where: str) -> dict:
+    """Fail if a bf16 path launched an f32/fp16 kernel."""
+    got = simt_counts()
+    print(f"{where}: f32/fp16 (simt.cu) launches {got}", flush=True)
+    if any(got.values()):
+        fail(f"{where}: a bf16 path launched the f32/fp16 kernels: {got}")
+    return got
 
 
 def counts(ops) -> dict:
@@ -395,7 +448,9 @@ def _vector_bytes(v) -> int:
 
 def bound_ms(kind: str, args, kwargs) -> tuple:
     """(least ms, what bounds it) for the work of one call: each input read
-    once, each output written once, and the operations at the card's peak."""
+    once, each output written once, and the operations at the card's peak
+    for the activations' type (bf16 and fp16 on the tensor cores, f32 off
+    them; GroupNorm's arithmetic is f32 in every case)."""
     if kind == "group_norm_silu":
         x, gamma, beta, groups = args[:4]
         n, h, w, c = x.shape
@@ -419,27 +474,28 @@ def bound_ms(kind: str, args, kwargs) -> tuple:
         n, t, h, d = q.shape
         nbytes = 4 * q.numel() * q.element_size()
         ops = 4 * n * h * t * t * d
-        rate = BF16_FLOPS
+        rate = F32_FLOPS if q.element_size() == 4 else BF16_FLOPS
     elif kind == "attention_bwd":
         q = args[0]
         n, t, h, d = q.shape
         nbytes = 7 * q.numel() * q.element_size()  # q, k, v, g in; dq, dk, dv out
         ops = 10 * n * h * t * t * d  # QKᵀ again, then dV, dP, dQ, dK
-        rate = BF16_FLOPS
+        rate = F32_FLOPS if q.element_size() == 4 else BF16_FLOPS
     else:
         x, w1, w2 = args[0], args[6], args[8]
         wr = kwargs.get("wr")
         n, h, w, cin = x.shape
         cout = w1.shape[0]
         m = n * h * w
-        # x and out in bf16; the conv weights as the kernel reads them, bf16;
-        # b1 and b2 (+ br) f32; the five affine vectors f32
+        # x, out and the conv weights (as the kernel reads them) in x's
+        # dtype; b1 and b2 (+ br) f32; the five affine vectors f32
+        size = x.element_size()
         weights = w1.numel() + w2.numel() + (wr.numel() if wr is not None else 0)
-        nbytes = (2 * x.numel() + 2 * m * cout + 2 * weights + 2 * 4 * cout
+        nbytes = (size * (x.numel() + m * cout + weights) + 2 * 4 * cout
                   + sum(_vector_bytes(v) for v in args[1:6]))
         k = 9 * cin + 9 * cout + (cin if wr is not None else 0)
         ops = 2 * m * cout * k
-        rate = BF16_FLOPS
+        rate = F32_FLOPS if size == 4 else BF16_FLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -645,6 +701,7 @@ def train_gradient(torch, np, blocks, ddpm_models, init_weights, DDPM, dev, ops)
     torch.cuda.synchronize()
     launches = counts(ops)
     print(f"launches in one training step (loss + backward): {launches}", flush=True)
+    expect_no_simt("training step")
     if launches != PER_TRAIN_STEP:
         fail(f"a training step launched {launches}, expected {PER_TRAIN_STEP}")
     bad = [k for k, g in grads_c.items()
@@ -724,6 +781,7 @@ def run_fit(torch, np, blocks, dev, ops, report, card: str) -> tuple:
         state = fit(lit, dm, max_steps=state.step + FIT_STEPS, state=state, log_every=1)
     torch.cuda.synchronize()
     launches = counts(ops)
+    expect_no_simt("fit")
     lines = [ln for ln in log.getvalue().splitlines() if ln.startswith("[step")]
     for ln in lines:
         print("  " + ln, flush=True)
@@ -813,6 +871,7 @@ def sample_after_training(torch, k_res, lit, state, dev, ops) -> dict:
     a = draw()
     torch.cuda.synchronize()
     launches = counts(ops)
+    expect_no_simt("sampling after training")
     k_res._PACKED.clear()
     b = draw()
     torch.cuda.synchronize()
@@ -947,6 +1006,7 @@ def lsun_forward(torch, blocks, ddpm_models, init_weights, k_gn, k_attn, k_res, 
                              lambda: out.setdefault("y", m(x.to(dev), t.to(dev))))
         torch.cuda.synchronize()
         launches = counts(ops)
+        expect_no_simt("LSUN-width forward")
         rows = []
         plain = {"group_norm_silu": lambda a, k: k_gn.gn_silu_plain(
                      a[0], a[1], a[2], k.get("pre_bias"), a[3], k.get("eps", k_gn.GN_EPS))[0],
@@ -975,6 +1035,433 @@ def lsun_forward(torch, blocks, ddpm_models, init_weights, k_gn, k_attn, k_res, 
     if {k: launches[k] for k in sites} != sites:
         fail(f"the LSUN forward launched {launches} for call sites {sites}")
     return {"rel_l2": rel, "launches": launches, "sites": sites, "shapes": rows}
+
+
+def simt_rows(torch, k_gn, k_attn, k_res, calls, dtype) -> list:
+    """The f32/fp16 kernels of ``simt.cu`` at every recorded call site, each
+    held against its plain version on the same inputs (``TOL_SIMT``, atol a
+    share of the largest reference value), timed, bounded, and called twice
+    for identical bytes. K3 is timed beside SDPA on the same inputs."""
+    rtol, share, least = TOL_SIMT[str(dtype)]
+    rows = []
+    with torch.no_grad():
+        for kind, lst in calls.items():
+            for key, count, a, k in lst:
+                if kind == "group_norm_silu":
+                    kern = lambda a=a, k=k: k_gn.group_norm_silu(*a, **k)  # noqa: E731
+                    plain = lambda a=a, k=k: k_gn.gn_silu_plain(  # noqa: E731
+                        a[0], a[1], a[2], k.get("pre_bias"), a[3], k.get("eps", k_gn.GN_EPS))[0]
+                elif kind == "group_norm_silu_bwd":
+                    kern = lambda a=a: k_gn.group_norm_silu_bwd(*a)  # noqa: E731
+                    plain = lambda a=a: k_gn.gn_silu_bwd_plain(*a)  # noqa: E731
+                elif kind == "attention":
+                    kern = lambda a=a: k_attn.attention_heads(*a)  # noqa: E731
+                    plain = lambda a=a: k_attn.attention_heads_plain(*a)  # noqa: E731
+                elif kind == "resblock":
+                    pa = list(a) + [k.get("wr"), k.get("br"), k.get("num_groups", 32),
+                                    k.get("eps", k_gn.GN_EPS)]
+                    kern = lambda a=a, k=k: k_res.resblock_forward(*a, **k)  # noqa: E731
+                    plain = lambda pa=pa: k_res.resblock_plain(*pa)  # noqa: E731
+                else:  # the attention backward is torch ops in every dtype
+                    continue
+                got = kern()
+                torch.cuda.synchronize()
+                want = plain()
+                got, want = ((got, want) if isinstance(got, tuple) else ((got,), (want,)))
+                max_abs, ok = 0.0, True
+                for g_, w_ in zip(got, want):
+                    atol = max(share * float(w_.float().abs().max()), least)
+                    e_abs, _, e_ok = errors(g_, w_, rtol, atol)
+                    max_abs, ok = max(max_abs, e_abs), ok and e_ok and g_.dtype == w_.dtype
+                again = kern()
+                same = all(bool(torch.equal(g_, h_)) for g_, h_ in
+                           zip(got, again if isinstance(again, tuple) else (again,)))
+                row = _train_row(kind, key, count, max_abs, ok and same, device_ms(torch, kern),
+                                 device_ms(torch, plain), a, k)
+                row["repeat_identical"] = same
+                if kind == "attention":
+                    q, kk, v, scale = a
+                    row["library_ms"] = device_ms(
+                        torch, lambda q=q, kk=kk, v=v, scale=scale:
+                        torch.nn.functional.scaled_dot_product_attention(
+                            q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
+                            scale=scale))
+                rows.append(row)
+    for r in rows:
+        print(f"{str(dtype)[6:]:8s} {r['kernel']:20s} {r['key']:52s} sites {r['sites']:2d} "
+              f"max_abs {r['max_abs_err']:.3e} ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
+              f"bound {r['bound_ms']:.4f} ({r['bound_by']})"
+              + (f" sdpa {r['library_ms']:.4f}" if r["library_ms"] else "")
+              + f" repeat {'identical' if r['repeat_identical'] else 'DIFFERENT'}"
+              + ("" if r["ok"] else "  FAIL"), flush=True)
+    bad = [f"{r['kernel']} {r['key']}" for r in rows if not r["ok"]]
+    if bad:
+        fail(f"the {dtype} kernels disagree with their plain versions (rtol {rtol}, atol "
+             f"{share} of the largest reference value, at least {least}): {bad}")
+    return rows
+
+
+def per_site_sum(rows, kind: str) -> dict:
+    """Times and bounds of ``kind``'s rows summed over their call sites."""
+    rs = [r for r in rows if r["kernel"] == kind]
+    out = {f: sum(r[f] * r["sites"] for r in rs) for f in ("ms", "plain_ms", "bound_ms")}
+    out["library_ms"] = (sum(r["library_ms"] * r["sites"] for r in rs)
+                         if kind == "attention" else None)
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rs)
+    out["bound_by"] = max(rs, key=lambda r: r["bound_ms"] * r["sites"])["bound_by"]
+    return out
+
+
+def f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
+              card: str) -> dict:
+    """Phase 10: the default harness in f32 (fault C.5), then fp16. For each
+    dtype, one full-width ``LitDDPM`` training step at batch 128 and one
+    ``LitDDIM`` DDIM step at n = 8 on the card, launching K1/K2/K3 (45/45/6)
+    and K1/K3/K4 (1/6/22) of ``simt.cu`` and no bf16 kernel, every call site
+    held against its plain version (:func:`simt_rows`). Then, dropout off, the
+    loss and gradient of one step and one UNet forward (the DDIM step's ε
+    prediction) on the same weights and inputs against f32 on the CPU: f32
+    within ``F32_REL_L2``, fp16's forward within ``UNET_REL_L2``; the bf16 harness on
+    the same weights and inputs is the control that must miss ``F32_REL_L2``.
+    The DDIM step's output is held to the same limits."""
+    from dmme_tpu_torch.data import CIFAR10
+    from dmme_tpu_torch.parallel import make_train_step
+    from dmme_tpu_torch.training import LitDDIM, LitDDPM
+
+    want_train = {"group_norm_silu": 45, "group_norm_silu_bwd": 45, "attention": 6,
+                  "resblock": 0}
+    want_ddim = {"group_norm_silu": 1, "group_norm_silu_bwd": 0, "attention": 6, "resblock": 22}
+    none = {k: 0 for k in ops}
+    r = np.random.default_rng(SEED + 40)
+    x0 = torch.tensor(np.clip(r.standard_normal((TRAIN_BATCH, 32, 32, 3)), -1, 1),
+                      dtype=torch.float32)
+    t = torch.tensor(r.integers(1, 1000, (TRAIN_BATCH,)), dtype=torch.int64)
+    eps = torch.tensor(r.standard_normal((TRAIN_BATCH, 32, 32, 3)), dtype=torch.float32)
+    xs = torch.tensor(r.standard_normal((BATCH, 32, 32, 3)), dtype=torch.float32)
+    ts = torch.full((BATCH,), 980, dtype=torch.int64)
+    dm = CIFAR10(synthetic=True, synthetic_size=2 * TRAIN_BATCH, batch_size=TRAIN_BATCH)
+    dm.setup("fit")
+    batch = torch.from_numpy(next(dm.train_iter(SEED))).to(dev)
+    weights = None
+    out = {}
+
+    def measure(lit, device):
+        """Loss and flat gradient of one step (dropout off), the UNet's ε
+        prediction at (xs, ts) and one DDIM step from xs, on ``device``."""
+        params = {k: v.to(device).requires_grad_(True) for k, v in weights.items()}
+        loss = lit.diffusion_model.loss_given(lit.model_fn, params, x0.to(device), t.to(device),
+                                              eps.to(device), train=True)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        ddim = LitDDIM(model=lit.model)  # the same module, T=1000, DDIM-50
+        with torch.no_grad():
+            p = {k: v.detach() for k, v in params.items()}
+            pred = lit.model_fn(p, xs.to(device), ts.to(device))
+            step = ddim.diffusion_model.sampling_step(ddim.model_fn, p, xs.to(device), 50)
+        return {"loss": loss.detach().cpu(),
+                "grad": torch.cat([g.detach().float().flatten().cpu() for g in grads]),
+                "pred": pred.float().cpu(), "step": step.float().cpu()}
+
+    def readings(got, ref) -> dict:
+        return {"loss_rel_err": float(abs(got["loss"] - ref["loss"]) / abs(ref["loss"])),
+                "grad_rel_l2": rel_l2(got["grad"], ref["grad"]),
+                "pred_rel_l2": rel_l2(got["pred"], ref["pred"]),
+                "step_rel_l2": rel_l2(got["step"], ref["step"])}
+
+    ref = None
+    for name in ("f32", "fp16"):
+        lit = LitDDPM() if name == "f32" else LitDDPM(dtype="fp16")  # dropout 0.1
+        dtype = lit.model.dtype
+        if weights is None:
+            init_weights(lit.model, torch.Generator().manual_seed(SEED))
+            randomize_affines(torch, blocks, lit.model, torch.Generator().manual_seed(SEED + 1))
+            weights = {k: v.detach().clone() for k, v in lit.model.state_dict().items()}
+        state = lit.init_state(SEED, device=dev)
+        with torch.no_grad():
+            for k, v in state.params.items():
+                v.copy_(weights[k])
+        step_fn = make_train_step(lit.make_loss_fn(dm))
+        metrics = {}
+
+        def train(state=state, step_fn=step_fn):
+            metrics.update(step_fn(state, batch, SEED)[1])
+            torch.cuda.synchronize()
+
+        reset_counts(ops)
+        calls = record_calls(train_targets(blocks, k_gn, k_attn), train)
+        loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        rec = {"dtype": str(dtype), "train": {"loss": loss, "grad_norm": grad_norm,
+                                              "launches": counts(ops), "simt": simt_counts()}}
+        print(f"LitDDPM({'' if name == 'f32' else 'dtype=' + repr(name)}) one training step at "
+              f"batch {TRAIN_BATCH} on the card ({dtype}): loss {loss:.6f} grad_norm "
+              f"{grad_norm:.4f}; bf16 kernel launches {rec['train']['launches']}; simt.cu "
+              f"launches {rec['train']['simt']}", flush=True)
+        if not (np.isfinite(loss) and np.isfinite(grad_norm)):
+            fail(f"the {name} training step gave a loss or grad_norm that is not finite")
+        if rec["train"]["launches"] != none or rec["train"]["simt"] != want_train:
+            fail(f"the {name} step launched {rec['train']['launches']} bf16 and "
+                 f"{rec['train']['simt']} simt.cu kernels, expected none and {want_train}")
+
+        for mod in lit.model.modules():  # dropout off: the card and the CPU draw other masks
+            if isinstance(mod, blocks.ResBlock):
+                mod.dropout = 0.0
+        lit.model.to(dev)
+        ddim = LitDDIM(model=lit.model)
+        p_dev = {k: v.to(dev) for k, v in weights.items()}
+        reset_counts(ops)
+        with torch.no_grad():
+            sample_calls = record_calls(
+                serve_targets(blocks),
+                lambda: ddim.diffusion_model.sampling_step(ddim.model_fn, p_dev, xs.to(dev), 50))
+        torch.cuda.synchronize()
+        rec["ddim_step"] = {"launches": counts(ops), "simt": simt_counts()}
+        print(f"LitDDIM() one DDIM step at n={BATCH} ({dtype}): bf16 kernel launches "
+              f"{rec['ddim_step']['launches']}; simt.cu launches {rec['ddim_step']['simt']}",
+              flush=True)
+        if rec["ddim_step"]["launches"] != none or rec["ddim_step"]["simt"] != want_ddim:
+            fail(f"the {name} DDIM step launched {rec['ddim_step']['launches']} bf16 and "
+                 f"{rec['ddim_step']['simt']} simt.cu kernels, expected none and {want_ddim}")
+        rows = simt_rows(torch, k_gn, k_attn, k_res, calls, dtype)
+        rows_ddim = simt_rows(torch, k_gn, k_attn, k_res, sample_calls, dtype)
+        del calls, sample_calls
+        rec["rows"], rec["rows_ddim"] = rows, rows_ddim
+        # K1, K2 and K3 summed over a training step's call sites; K4 over a
+        # DDIM forward's at n = 8
+        rec["per_path"] = {kind: per_site_sum(rows, kind)
+                           for kind in ("group_norm_silu", "group_norm_silu_bwd", "attention")}
+        rec["per_path"]["resblock"] = per_site_sum(rows_ddim, "resblock")
+        for kind, v in rec["per_path"].items():
+            print(f"{name} {kind} summed over its call sites: ms {v['ms']:.4f} plain "
+                  f"{v['plain_ms']:.4f} bound {v['bound_ms']:.4f} ({v['bound_by']})"
+                  + (f" sdpa {v['library_ms']:.4f}" if v["library_ms"] else "")
+                  + f" [{card}]", flush=True)
+
+        reset_counts(ops)
+        got = measure(lit, dev)
+        torch.cuda.synchronize()
+        if not all(bool(v.isfinite().all()) for v in got.values()):
+            fail(f"the {name} step, forward or DDIM step on the card is not finite")
+        if ref is None:
+            cpu = LitDDPM()
+            cpu.model.load_state_dict(weights)
+            for mod in cpu.model.modules():
+                if isinstance(mod, blocks.ResBlock):
+                    mod.dropout = 0.0
+            ref = measure(cpu, torch.device("cpu"))
+        rec["vs_cpu"] = readings(got, ref)
+        # fp16 without loss scaling: gradients of order 1/numel fall below
+        # fp16's normal range, so its loss and gradient are reported, not held
+        held = (("loss_rel_err", "grad_rel_l2", "pred_rel_l2", "step_rel_l2") if name == "f32"
+                else ("pred_rel_l2", "step_rel_l2"))
+        limit = F32_REL_L2 if name == "f32" else UNET_REL_L2
+        print(f"{name} card vs f32 CPU: " + ", ".join(f"{k} {v:.3e}"
+                                                     for k, v in rec["vs_cpu"].items())
+              + f" ({', '.join(held)} <= {limit})", flush=True)
+        if not all(rec["vs_cpu"][k] <= limit for k in held):
+            fail(f"the {name} harness on the card disagrees with the f32 CPU reference")
+        out[name] = rec
+        del lit, state, p_dev
+        torch.cuda.empty_cache()
+
+    # the control: the bf16 harness on the same weights and inputs, through the
+    # same comparison, must miss F32_REL_L2 (the f32 check would see bf16 compute)
+    lit = LitDDPM(dtype="bf16")
+    lit.model.load_state_dict(weights)
+    for mod in lit.model.modules():
+        if isinstance(mod, blocks.ResBlock):
+            mod.dropout = 0.0
+    lit.model.to(dev)
+    out["bf16_control"] = readings(measure(lit, dev), ref)
+    print("bf16 control, card vs f32 CPU: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in out["bf16_control"].items())
+        + f" (the f32 limit {F32_REL_L2} must reject the gradient and the forward)", flush=True)
+    if not (out["bf16_control"]["grad_rel_l2"] > F32_REL_L2
+            and out["bf16_control"]["pred_rel_l2"] > F32_REL_L2):
+        fail("the f32 comparison does not tell bf16 compute from f32")
+    return out
+
+
+CLI_ROOT = os.path.join("build", "cli_run")
+
+
+def _cli_callback(root: str) -> str:
+    """GenerateImage every 10 steps into ``<root>/samples``, as a YAML value
+    that replaces the config's callback list."""
+    return ("[{class_path: dmme_tpu.callbacks.GenerateImage, init_args: {imgsize: [3, 32, 32], "
+            f"every_n_steps: 10, out_dir: {root}/samples}}}}]")
+
+
+def _jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def cli_phase(torch, np, ops, dev, card: str) -> dict:
+    """Phase 9b: the command line in this process (so the counters read its
+    launches), ``dmme_tpu_torch.trainer.main``, on the repo's configs: fit at
+    full width with checkpoints, JSONL, TensorBoard and GenerateImage grids;
+    a resume to step 30 against an uninterrupted 30-step run, bit for bit;
+    sample and predict from the resumed checkpoint, predict against
+    ``generate`` on a state restored in place; the Shapes recipe in chunks
+    of 10 steps; the LSUN widths at 256 px with and without remat."""
+    import shutil
+
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.callbacks import GenerateImage
+    from dmme_tpu_torch.parallel.train_step import step_generator
+    from dmme_tpu_torch.trainer import main as cli
+    from dmme_tpu_torch.training import CheckpointManager
+    from dmme_tpu_torch.utils.norm import denorm
+
+    torch.backends.cudnn.deterministic = True
+    print("cudnn deterministic on for the CLI phase", flush=True)
+    roots = {k: os.path.join("build", k) for k in ("cli_run", "cli_run_whole", "cli_shapes",
+                                                      "cli_remat", "cli_noremat")}
+    for root in roots.values():
+        shutil.rmtree(root, ignore_errors=True)
+    ddim_cfg = ["--config", "configs/ddim/cifar10.yaml", "--data.init_args.synthetic", "true"]
+    fit_args = ddim_cfg + ["--trainer.ckpt_every_n_steps", "10", "--trainer.log_every_n_steps",
+                           "10", "--trainer.tensorboard", "true"]
+    out = {}
+    sample_steps, gens = 50, {20: 3, 30: 4}
+
+    def run(name, argv, want=None):
+        reset_counts(ops)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cli(argv)
+        torch.cuda.synchronize()
+        rec = {"wall_s": time.time() - t0, "launches": counts(ops), "simt": simt_counts()}
+        print(f"{name}: {rec['wall_s']:.2f} s wall, launches {rec['launches']}, f32/fp16 "
+              f"launches {rec['simt']} [{card}]", flush=True)
+        if any(rec["simt"].values()):
+            fail(f"{name}: a bf16 path launched the f32/fp16 kernels")
+        if want is not None and rec["launches"] != want:
+            fail(f"{name} launched {rec['launches']}, expected {want}")
+        out[name] = rec
+        return rec
+
+    def fit_launches(steps, generations):
+        """K1/K2/K3 per training step and K1/K3/K4 per DDIM-50 forward of the grids."""
+        fwd = sample_steps * generations
+        return {"group_norm_silu": 45 * steps + fwd, "group_norm_silu_bwd": 45 * steps,
+                "attention": 6 * steps + 6 * fwd, "resblock": 22 * fwd}
+
+    root = roots["cli_run"]
+    rec = run("fit 20", ["fit", *fit_args, "--trainer.max_steps", "20",
+                         "--trainer.default_root_dir", root,
+                         "--trainer.callbacks", _cli_callback(root)], fit_launches(20, 3))
+    logged = _jsonl(os.path.join(root, "metrics.jsonl"))
+    step_ms = [1e3 * TRAIN_BATCH / r["imgs_per_sec"] for r in logged]
+    rec["logged_steps"], rec["step_ms_from_jsonl"] = [r["step"] for r in logged], step_ms
+    grids = sorted(os.listdir(os.path.join(root, "samples")))
+    tb = [f for f in os.listdir(os.path.join(root, "tb")) if f.startswith("events.out")]
+    rec.update(checkpoints=CheckpointManager(root).steps(), grids=grids, tb_files=tb)
+    print(f"fit 20: checkpoints {rec['checkpoints']}, JSONL steps {rec['logged_steps']} (losses "
+          f"{[round(r['loss'], 5) for r in logged]}), TensorBoard {tb}, grids {grids}; step ms "
+          f"from the JSONL imgs_per_sec {[round(v, 2) for v in step_ms]} (median "
+          f"{statistics.median(step_ms):.2f}; a window holds the checkpoint and grid of its "
+          f"first step) [{card}]", flush=True)
+    if (rec["checkpoints"] != [10, 20] or rec["logged_steps"] != [10, 20] or len(tb) != 1
+            or grids != ["step_00000010.png", "step_00000020.png"]
+            or not all(np.isfinite(r["loss"]) for r in logged)):
+        fail(f"fit through the CLI left {rec}")
+
+    run("resume 20 -> 30", ["fit", *fit_args, "--trainer.max_steps", "30", "--trainer.resume",
+                            "true", "--trainer.default_root_dir", root,
+                            "--trainer.callbacks", _cli_callback(root)], fit_launches(10, 2))
+    whole = roots["cli_run_whole"]
+    run("uninterrupted 30", ["fit", *fit_args, "--trainer.max_steps", "30",
+                             "--trainer.default_root_dir", whole,
+                             "--trainer.callbacks", _cli_callback(whole)], fit_launches(30, 4))
+    a, b = CheckpointManager(root).load(30), CheckpointManager(whole).load(30)
+    differ = [f"{part}.{k}" for part, x, y in (
+        ("params", a["params"], b["params"]), ("ema_params", a["ema_params"], b["ema_params"]),
+        ("mu", a["opt_state"]["mu"], b["opt_state"]["mu"]),
+        ("nu", a["opt_state"]["nu"], b["opt_state"]["nu"])) for k in x if not torch.equal(x[k], y[k])]
+    same_counts = (a["step"], a["opt_state"]["count"]) == (b["step"], b["opt_state"]["count"])
+    out["resume_bitwise"] = {"differing_tensors": len(differ), "first": differ[:8],
+                             "step_and_count_equal": same_counts}
+    print(f"resumed vs uninterrupted at step 30: {len(differ)} of "
+          f"{4 * len(a['params'])} tensors differ {differ[:8]}; step and Adam count equal: "
+          f"{same_counts}", flush=True)
+    if differ or not same_counts:
+        fail(f"the resumed run is not bitwise the uninterrupted one: {differ[:8]}")
+
+    run("sample", ["sample", *ddim_cfg, "--trainer.default_root_dir", root])
+    png = os.path.join(root, "samples", "step_00000030.png")
+    run("predict", ["predict", *ddim_cfg, "--trainer.default_root_dir", root,
+                    "--trainer.predict_batch", str(BATCH)])
+    pred = np.load(os.path.join(root, "predictions", "pred_00000.npy"))
+    # generate() on a state that sampled with other weights first (K4 packs
+    # them), then had the checkpoint restored into its tensors in place
+    config = tcfg.validate_config(tcfg.apply_overrides(tcfg.load_config(ddim_cfg[1]),
+                                                       ddim_cfg[2:]))
+    lit = tcfg.instantiate(config["model"])
+    state = lit.init_state(0, device=dev)
+    shape = (BATCH, 32, 32, 3)
+    lit.generate(state, step_generator(1337, 0, dev), shape)
+    CheckpointManager(root).restore(state)
+    want = denorm(lit.generate(state, step_generator(1337, 0, dev), shape)).float().cpu()
+    same = pred.tobytes() == want.numpy().tobytes()
+    out["predict"] = {"png": os.path.exists(png), "shape": list(pred.shape),
+                      "min": float(pred.min()), "max": float(pred.max()), "identical": same}
+    print(f"sample: {png} written {out['predict']['png']}; predict: {pred.shape} in "
+          f"[{pred.min():.4f}, {pred.max():.4f}], bytes equal to generate() on the restored "
+          f"state: {same}", flush=True)
+    if not (out["predict"]["png"] and pred.shape == shape and pred.min() >= 0.0
+            and pred.max() <= 1.0 and same):
+        fail(f"sample/predict from the resumed checkpoint: {out['predict']}")
+    # what the loop's cadences cost at full width: one checkpoint, one grid
+    timed = os.path.join(root, "timed")
+    t0 = time.time()
+    CheckpointManager(timed).save(30, state)
+    save_s = time.time() - t0
+    nbytes = os.path.getsize(os.path.join(timed, "30", "state.pt"))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    GenerateImage(imgsize=(3, 32, 32), out_dir=timed).generate_and_save(30, lit, state)
+    torch.cuda.synchronize()
+    out["cadence_cost"] = {"checkpoint_s": save_s, "checkpoint_bytes": nbytes,
+                           "grid_s": time.time() - t0}
+    print(f"one checkpoint save {save_s:.3f} s ({nbytes / 2**20:.1f} MiB); one GenerateImage "
+          f"grid (DDIM-50, n = 8, 10 frames) {out['cadence_cost']['grid_s']:.3f} s [{card}]",
+          flush=True)
+    del state, lit
+    torch.cuda.empty_cache()
+
+    shapes = roots["cli_shapes"]
+    rec = run("shapes_demo 20", ["fit", "--config", "configs/ddpm/shapes_demo.yaml",
+                                 "--trainer.max_steps", "20", "--trainer.log_every_n_steps",
+                                 "10", "--trainer.default_root_dir", shapes],
+              fit_launches(20, 0))
+    logged = _jsonl(os.path.join(shapes, "metrics.jsonl"))
+    rec["losses"] = [r["loss"] for r in logged]
+    rec["checkpoints"] = CheckpointManager(shapes).steps()
+    print(f"shapes_demo (steps_per_call 10): checkpoints {rec['checkpoints']}, losses "
+          f"{rec['losses']}", flush=True)
+    if rec["checkpoints"] != [20] or len(logged) != 2 or not np.isfinite(rec["losses"]).all():
+        fail(f"shapes_demo through the CLI left {rec}")
+
+    peaks = {}
+    for name, remat in (("cli_remat", "true"), ("cli_noremat", "false")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec = run(f"shapes256_demo remat {remat}", [
+            "fit", "--config", "configs/ddpm/shapes256_demo.yaml", "--trainer.max_steps", "2",
+            "--trainer.steps_per_call", "1", "--trainer.log_every_n_steps", "1",
+            "--trainer.default_root_dir", roots[name],
+            "--model.init_args.model.init_args.remat", remat])
+        peaks[remat] = rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["losses"] = [r["loss"] for r in _jsonl(os.path.join(roots[name], "metrics.jsonl"))]
+        print(f"shapes256_demo (LSUN widths, 256 px, batch 16) remat {remat}: peak memory "
+              f"{rec['peak_gib']:.3f} GiB, losses {rec['losses']} [{card}]", flush=True)
+        if len(rec["losses"]) != 2 or not np.isfinite(rec["losses"]).all():
+            fail(f"shapes256_demo remat {remat} left {rec}")
+    if not peaks["true"] < peaks["false"]:
+        fail(f"remat did not lower the peak memory: {peaks}")
+    for root in roots.values():
+        shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 def write_report(path: str, report: dict) -> None:
@@ -1033,6 +1520,9 @@ def main() -> int:
 
     ops = {"group_norm_silu": (k_gn, "launches"), "group_norm_silu_bwd": (k_gn, "bwd_launches"),
            "attention": (k_attn, "launches"), "resblock": (k_res, "launches")}
+    SIMT.update({"group_norm_silu": (k_gn, "simt_launches"),
+                 "group_norm_silu_bwd": (k_gn, "simt_bwd_launches"),
+                 "attention": (k_attn, "simt_launches"), "resblock": (k_res, "simt_launches")})
     report = {"card": card, "torch": torch.__version__, "device": kind}
 
     phase("build")
@@ -1203,6 +1693,7 @@ def main() -> int:
             got = m(x_in.to(dev), t_in.to(dev))
             torch.cuda.synchronize()
             per_call = counts(ops)
+            expect_no_simt(f"UNet forward ({name})")
             ms = device_ms(torch, lambda m=m: m(x_in.to(dev), t_in.to(dev)), reps=10)
         got = got.float().cpu()
         rel = float((got - want).norm() / want.norm())
@@ -1272,6 +1763,7 @@ def main() -> int:
                 fail("a repeated request with the same seed returned other bytes")
             bodies[(n, seed)] = data
         launches = counts(ops)
+        expect_no_simt("serve")
     finally:
         server.shutdown()
         server.server_close()
@@ -1325,6 +1817,17 @@ def main() -> int:
     phase("sample after training: DDIM-50 through K4 from the trained raw weights")
     report["sample_after_training"] = sample_after_training(torch, k_res, trained_lit, trained,
                                                             dev, ops)
+    del trained_lit, trained
+    k_res._PACKED.clear()
+    torch.cuda.empty_cache()
+
+    phase("cli: dmme_tpu_torch.trainer.main on the repo's configs, in this process")
+    report["cli"] = cli_phase(torch, np, ops, dev, card)
+    torch.cuda.empty_cache()
+
+    phase("f32 and fp16: LitDDPM() and LitDDIM() through simt.cu on the card (fault C.5)")
+    report["f32"] = f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
+                              card)
 
     phase("kernels")
     sources = {
@@ -1363,6 +1866,21 @@ def main() -> int:
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
     })
+    f32 = report["f32"]["f32"]
+    for kname, replaces in (("group_norm_silu", "dmme_tpu/ops/group_norm.py:72"),
+                            ("group_norm_silu_bwd", "dmme_tpu/ops/group_norm.py:110"),
+                            ("attention", "dmme_tpu/ops/attention.py:47"),
+                            ("resblock", "dmme_tpu/ops/resblock.py:88")):
+        v = f32["per_path"][kname]
+        table.append({
+            "name": f"{kname}_simt", "route": "cuda", "source": "dmme_tpu_torch/ops/csrc/simt.cu",
+            "replaces": replaces,
+            "launches": f32["train"]["simt"][kname] + f32["ddim_step"]["simt"][kname],
+            "max_abs_err": max(r["max_abs_err"] for r in f32["rows"] + f32["rows_ddim"]
+                               if r["kernel"] == kname),
+            "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"], "library_ms": v["library_ms"],
+        })
     report["kernels"] = table
     print("kernels launched on their paths and held against their plain versions: "
           + "; ".join(f"{k['name']} ({k['route']}, {k['source']}, replaces {k['replaces']}, "
@@ -1372,7 +1890,10 @@ def main() -> int:
     print("(K1, K3, K4: launches in the four serve requests; ms, plain_ms, bound_ms and "
           "library_ms per UNet forward at batch 8, summed over the serving path's call sites. "
           f"K2: launches in the {FIT_STEPS} logged fit steps; times per training step at "
-          f"batch {TRAIN_BATCH}, summed over its 45 call sites)", flush=True)
+          f"batch {TRAIN_BATCH}, summed over its 45 call sites. *_simt: the f32 kernels of "
+          f"simt.cu; launches in the f32 phase's training step and DDIM step; times per f32 "
+          f"training step at batch {TRAIN_BATCH} (K1, K2, K3) and per f32 UNet forward at "
+          f"n = {BATCH} (K4), summed over their call sites)", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

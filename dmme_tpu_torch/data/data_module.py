@@ -48,19 +48,38 @@ class DataModule:
     def setup_test(self) -> None:
         raise NotImplementedError
 
-    def train_iter(self, seed: int = 0) -> Iterator[np.ndarray]:
+    def train_iter(self, seed: int = 0, *, process_index: Optional[int] = None,
+                   process_count: Optional[int] = None,
+                   skip_batches: int = 0) -> Iterator[np.ndarray]:
         """Infinite shuffled uint8 batches: a fresh ``default_rng(seed)``
         permutation per epoch, the ragged tail dropped (the JAX package's
-        stream for one process)."""
+        stream).
+
+        With ``process_index``/``process_count`` every process draws the same
+        permutation and yields its ``batch_size / process_count`` slice of
+        each global batch (``batch_size`` stays the global batch).
+        ``skip_batches`` fast-forwards the stream without touching the data:
+        only the permutations advance (an exact resume)."""
         if self.train_data is None:
             raise RuntimeError("call setup('fit') first")
         data, labels = self.train_data, self.train_labels
         n = data.shape[0]
         rng = np.random.default_rng(seed)
+        lo, hi = 0, self.batch_size
+        if process_count is not None and process_count > 1:
+            if self.batch_size % process_count:
+                raise ValueError(f"global batch {self.batch_size} not divisible by "
+                                 f"{process_count} processes")
+            local = self.batch_size // process_count
+            lo, hi = process_index * local, (process_index + 1) * local
+        to_skip = skip_batches
         while True:
             perm = rng.permutation(n)
             for i in range(0, n - self.batch_size + 1, self.batch_size):
-                idx = perm[i : i + self.batch_size]
+                if to_skip > 0:
+                    to_skip -= 1
+                    continue
+                idx = perm[i : i + self.batch_size][lo:hi]
                 yield data[idx] if labels is None else (data[idx], labels[idx])
 
     def test_iter(self) -> Iterator[np.ndarray]:

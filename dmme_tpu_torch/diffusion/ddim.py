@@ -14,7 +14,8 @@ from typing import Any, Optional, Tuple
 import torch
 
 from dmme_tpu_torch import equations as eq
-from dmme_tpu_torch.diffusion.ddpm import DDPM, ModelFn, _bcast, _start, _timesteps
+from dmme_tpu_torch.diffusion.ddpm import (DDPM, HistoryCapture, ModelFn, _bcast, _start,
+                                           _timesteps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,11 +88,16 @@ class DDIM(DDPM):
     @torch.no_grad()
     def generate(self, model_fn: ModelFn, params: Any,
                  generator: Optional[torch.Generator], img_shape: Tuple[int, ...], *,
-                 x_T: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 x_T: Optional[torch.Tensor] = None, history_length: Optional[int] = None):
         """S-step strided reverse process from x_T (drawn from ``generator``
-        on its device unless given)."""
+        on its device unless given); with ``history_length``, ``(x_0,
+        history)`` as :meth:`DDPM.generate` returns it."""
         x = _start(img_shape, generator, x_T)
         algo = self.to(x.device)
-        for i in range(self.sub_timesteps, 0, -1):
+        capture = None if history_length is None else HistoryCapture(self.sub_timesteps,
+                                                                     history_length, x)
+        for k, i in enumerate(range(self.sub_timesteps, 0, -1)):
             x = algo.sampling_step(model_fn, params, x, i, generator)
-        return x
+            if capture is not None:
+                capture(k, x)
+        return x if capture is None else (x, capture.frames)

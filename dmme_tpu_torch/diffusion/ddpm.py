@@ -10,8 +10,9 @@ is held in float32 with the 1-based indexing of
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from dmme_tpu_torch import equations as eq
@@ -40,6 +41,39 @@ def _start(img_shape, generator: Optional[torch.Generator],
         raise ValueError("generate needs a generator or x_T")
     return torch.randn(tuple(img_shape), generator=generator, dtype=torch.float32,
                        device=generator.device)
+
+
+def history_slots(n_steps: int, history_length: int) -> Dict[int, int]:
+    """{0-based step index: frame} of the ``history_length`` contract of
+    ``make_history_capture``: frames at the steps that ``jnp.linspace(0,
+    n_steps − 1, history_length)`` rounds to (float32, half to even), in
+    order: the final x₀ among them unless there is one frame; where two
+    round to one step, the frames past the distinct steps stay zero."""
+    if history_length > 1:
+        # jnp.linspace as XLA compiles it, in float32: i · (stop · (1 / div))
+        stop = np.float32(n_steps - 1)
+        c = stop * (np.float32(1.0) / np.float32(history_length - 1))
+        idx = np.append(np.arange(history_length - 1, dtype=np.float32) * c, stop)
+    else:
+        idx = np.zeros((history_length,), np.float32)
+    idx = np.round(idx)
+    return {int(k): slot for slot, k in enumerate(sorted(set(idx.astype(np.int64).tolist())))}
+
+
+class HistoryCapture:
+    """Frames of a trajectory as the sampler steps, into one (L, *shape)
+    float32 buffer on the trajectory's device."""
+
+    def __init__(self, n_steps: int, history_length: int, x: torch.Tensor):
+        self.slots = history_slots(n_steps, history_length)
+        self.frames = torch.zeros((history_length,) + tuple(x.shape), dtype=torch.float32,
+                                  device=x.device)
+
+    def __call__(self, k: int, x: torch.Tensor) -> None:
+        """Keep ``x``, the state after 0-based step ``k``, if it is a frame."""
+        slot = self.slots.get(k)
+        if slot is not None:
+            self.frames[slot] = x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,11 +163,17 @@ class DDPM:
     @torch.no_grad()
     def generate(self, model_fn: ModelFn, params: Any,
                  generator: Optional[torch.Generator], img_shape: Tuple[int, ...], *,
-                 x_T: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 x_T: Optional[torch.Tensor] = None, history_length: Optional[int] = None):
         """Full reverse process x_T → x_0. x_T is drawn from ``generator`` (on
-        the generator's device) unless given."""
+        the generator's device) unless given. With ``history_length``,
+        returns ``(x_0, history)``, history (history_length, *img_shape): the
+        frames of :func:`history_slots`, the last one x_0."""
         x = _start(img_shape, generator, x_T)
         algo = self.to(x.device)
-        for t in range(self.timesteps, 0, -1):
+        capture = None if history_length is None else HistoryCapture(self.timesteps,
+                                                                     history_length, x)
+        for k, t in enumerate(range(self.timesteps, 0, -1)):
             x = algo.sampling_step(model_fn, params, x, t, generator)
-        return x
+            if capture is not None:
+                capture(k, x)
+        return x if capture is None else (x, capture.frames)

@@ -18,6 +18,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from dmme_tpu_torch.ops.attention import attention_heads
 from dmme_tpu_torch.ops.group_norm import group_norm_silu
@@ -192,19 +194,24 @@ class ResBlock(nn.Module):
       (shift, scale) = Dense(2·c_out)(emb)
 
     In training, dropout drops whole feature maps (torch ``Dropout2d``)
-    before the second conv. ``fused_norm`` routes each GN+SiLU through the
-    fused GroupNorm kernel; ``fused_block`` runs the whole block, in eval,
-    through the fused ResBlock kernel. Parameters are the same either way.
+    before the second conv; the mask is the block's only draw from the
+    generator and is drawn first, so with ``remat`` the recomputation in the
+    backward reuses it. ``remat`` recomputes the block's activations in the
+    backward instead of keeping them (``torch.utils.checkpoint``, as
+    ``nn.remat(ResBlock)`` in JAX). ``fused_norm`` routes each GN+SiLU
+    through the fused GroupNorm kernel; ``fused_block`` runs the whole block,
+    in eval, through the fused ResBlock kernel. Parameters are the same
+    either way.
     """
 
     def __init__(self, c_in: int, c_out: int, emb_dim: int, with_attention: bool = False,
                  num_heads: int = 1, film: bool = False, num_groups: int = 32,
                  dropout: float = 0.1, dtype=torch.float32, fused_norm: bool = False,
-                 fused_block: bool = False):
+                 fused_block: bool = False, remat: bool = False):
         super().__init__()
         self.c_out, self.film, self.num_groups = c_out, film, num_groups
         self.dropout, self.dtype = dropout, dtype
-        self.fused_norm, self.fused_block = fused_norm, fused_block
+        self.fused_norm, self.fused_block, self.remat = fused_norm, fused_block, remat
         norm = (lambda c: GNSiLU(num_groups, c, dtype)) if fused_norm else (
             lambda c: GroupNorm(num_groups, c))
         self.norm1 = norm(c_in)
@@ -217,16 +224,32 @@ class ResBlock(nn.Module):
                           if with_attention else None)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None, recompute: bool = False) -> torch.Tensor:
+        """``mask`` and ``recompute`` are the remat recomputation's: it runs
+        the block on the dropout mask drawn the first time."""
         if self.fused_block and not train:
             h = self._fused_block(x, emb)
-        else:
-            h = self._standard(x, emb, train, generator)
-        if self.attention is not None:
-            h = self.attention(h)
-        return h
+            return h if self.attention is None else self.attention(h)
+        if train and self.dropout > 0.0 and not recompute:
+            keep = 1.0 - self.dropout
+            mask = torch.rand((x.shape[0], 1, 1, self.c_out), generator=generator,
+                              device=x.device) < keep
+        if self.remat and train and torch.is_grad_enabled() and not recompute:
+            # the weights in effect now (those an outer functional_call bound)
+            # go in as inputs and are bound again for the recomputation, which
+            # runs in the backward, after the outer binding has ended
+            params = dict(self.named_parameters())
 
-    def _standard(self, x, emb, train, generator):
+            def body(x, emb, mask, *weights):
+                return functional_call(self, dict(zip(params, weights)), (x, emb),
+                                       {"train": True, "mask": mask, "recompute": True})
+
+            return checkpoint(body, x, emb, mask, *params.values(), use_reentrant=False)
+        h = self._standard(x, emb, mask)
+        return h if self.attention is None else self.attention(h)
+
+    def _standard(self, x, emb, mask):
         if self.fused_norm:
             h = self.norm1(x)
         else:
@@ -245,11 +268,9 @@ class ResBlock(nn.Module):
             h = self.norm2(h, pre_bias=cond)
         else:
             h = F.silu(self.norm2(h + cond[:, None, None, :]).to(self.dtype))
-        if train and self.dropout > 0.0:
-            n, _, _, c = h.shape
-            keep = 1.0 - self.dropout
-            mask = torch.rand((n, 1, 1, c), generator=generator, device=h.device) < keep
-            h = torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
+        if mask is not None:
+            h = torch.where(mask, h / (1.0 - self.dropout),
+                            torch.zeros((), dtype=h.dtype, device=h.device))
         h = self.conv2(h)
         skip = x if self.residual is None else self.residual(x)
         return h + skip

@@ -22,6 +22,7 @@ def UNet(
     fused_norm: bool = False,
     fused_block: bool = False,
     out_channels=None,
+    remat: bool = False,
 ) -> _UNet:
     return _UNet(
         in_channels=in_channels,
@@ -38,4 +39,5 @@ def UNet(
         dtype=dtype,
         fused_norm=fused_norm,
         fused_block=fused_block,
+        remat=remat,
     )

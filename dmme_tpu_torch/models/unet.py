@@ -88,7 +88,9 @@ class UNet(nn.Module):
 
     ``film=False, num_heads=1`` is the DDPM UNet; ``film=True`` with several
     heads the IDDPM one. ``fused_norm`` and ``fused_block`` select the fused
-    GroupNorm+SiLU and fused ResBlock kernels; they change no parameter.
+    GroupNorm+SiLU and fused ResBlock kernels; ``remat`` recomputes each
+    ResBlock's activations in the backward of a training forward. None of
+    the three changes a parameter.
     """
 
     def __init__(
@@ -107,9 +109,15 @@ class UNet(nn.Module):
         dtype: torch.dtype = torch.float32,
         fused_norm: bool = False,
         fused_block: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
+        self.channels_per_depth = tuple(channels_per_depth)
+        self.num_blocks = num_blocks
+        self.attention_depths = tuple(attention_depths)
+        self.dropout = dropout
         self.fused_norm = fused_norm
         self.down_specs, self.middle_specs, self.up_specs = build_topology(
             channels_per_depth, num_blocks, attention_depths
@@ -117,7 +125,7 @@ class UNet(nn.Module):
 
         def res(c_in, spec):
             return ResBlock(c_in, spec.c_out, emb_dim, spec.attention, num_heads, film,
-                            num_groups, dropout, dtype, fused_norm, fused_block)
+                            num_groups, dropout, dtype, fused_norm, fused_block, remat)
 
         self.time_embed = TimeEmbedding(pos_dim, emb_dim, dtype)
         c = channels_per_depth[0]

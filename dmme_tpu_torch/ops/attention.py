@@ -28,6 +28,11 @@ The backward, :func:`attention_bwd`, is not a kernel in the JAX package
 either: ``dmme_tpu/ops/attention.py:_fused_bwd`` recomputes the
 probabilities from the saved q, k, v and differentiates with XLA einsums.
 It is ported line by line as ``torch.matmul`` and elementwise ops.
+
+f32 and fp16 activations take K3's version in ``csrc/simt.cu``
+(:func:`_launch_simt`, ``simt_launches``): 16 queries a block, key tiles of
+32 in shared memory, an online softmax, products on the CUDA cores in f32;
+one launch a call.
 """
 
 from __future__ import annotations
@@ -38,12 +43,15 @@ from typing import NamedTuple
 
 import torch
 
-from dmme_tpu_torch.ops import build
+from dmme_tpu_torch.ops import build, route, simt_code
 
 #: kernel launches since the last reset (incremented only by the launcher)
 launches = 0
+#: launches of the f32/fp16 kernel of ``csrc/simt.cu`` (incremented only by its launcher)
+simt_launches = 0
 
 _FN = None
+_SIMT = None
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -154,13 +162,37 @@ def _launch(q, k, v, scale: float) -> torch.Tensor:
     return out
 
 
-def _check_device(x: torch.Tensor) -> bool:
-    """True for a CPU tensor (plain version); False for CUDA; raise otherwise."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"attention: no kernel for device {x.device}")
-    return False
+def _simt_fn():
+    global _SIMT
+    if _SIMT is None:
+        fn = build.library("simt").dmme_simt_attention
+        ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i] + [vp] * 4 + [i] * 4 + [ll] * 12 + [ctypes.c_float, vp]
+        fn.restype = i
+        _SIMT = fn
+    return _SIMT
+
+
+def _launch_simt(q, k, v, scale: float) -> torch.Tensor:
+    """K3 for f32 or fp16 (N, T, H, D) views (``csrc/simt.cu``): 16 queries
+    a block, head dims up to 512, read in place where D has unit stride."""
+    global simt_launches
+    n, t, h, d = q.shape
+    code = simt_code(q, "attention")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"attention simt kernel: q/k/v dtypes differ: {q.dtype}/{k.dtype}/{v.dtype}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
+    if not 1 <= d <= 512:
+        raise ValueError(f"attention simt kernel takes head dims up to 512, got {d}")
+    q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
+    out = torch.empty((n, t, h, d), device=q.device, dtype=q.dtype)
+    strides = [s for x in (q, k, v, out) for s in (x.stride(0), x.stride(1), x.stride(2))]
+    status = _simt_fn()(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, h, t,
+                        d, *strides, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(status, "attention simt kernel launch")
+    simt_launches += 1
+    return out
 
 
 def attention_heads_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -193,7 +225,8 @@ def attention_bwd(q, k, v, g, scale: float):
 
 class Attention(torch.autograd.Function):
     """Multi-head softmax attention on (N, T, H, D) tensors: K3 forward on
-    a CUDA tensor, :func:`attention_heads_plain` on a CPU one; the
+    a CUDA tensor (its ``simt.cu`` version for f32 and fp16),
+    :func:`attention_heads_plain` on a CPU one; the
     :func:`attention_bwd` recompute as backward on both. Saves q, k and v
     as given (strided views of a packed projection stay views)."""
 
@@ -201,9 +234,12 @@ class Attention(torch.autograd.Function):
     def forward(ctx, q, k, v, scale: float):
         ctx.save_for_backward(q, k, v)
         ctx.scale = scale
-        if _check_device(q):
-            return attention_heads_plain(q, k, v, scale)
-        return _launch(q, k, v, scale)
+        where = route(q.device, q.dtype, "attention")
+        if where == "kernel":
+            return _launch(q, k, v, scale)
+        if where == "simt":
+            return _launch_simt(q, k, v, scale)
+        return attention_heads_plain(q, k, v, scale)
 
     @staticmethod
     def backward(ctx, g):

@@ -36,6 +36,12 @@ in chunk order. No float atomics: repeated runs agree bit for bit. The
 plan is :func:`gn_plan`, made once per shape. A γ or β shared by the batch
 is read through a row stride of 0, not copied per sample. Launches per
 call: 1 in one pass; 3 (K1) or 4 (K2) in two (``launches`` counts calls).
+
+f32 and fp16 activations take K1's and K2's versions in ``csrc/simt.cu``
+(:func:`_launch_simt`, :func:`_launch_bwd_simt`; ``simt_launches`` and
+``simt_bwd_launches``): a block per (group, sample) sums per channel, then
+per group, in a fixed order, and passes over the group's pixels again for
+the output; one launch a call.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from dmme_tpu_torch.ops import build
+from dmme_tpu_torch.ops import build, route, simt_code
 
 GN_EPS = 1e-5
 
@@ -54,9 +60,15 @@ GN_EPS = 1e-5
 launches = 0
 #: K2 (backward) launches since the last reset (incremented only by its launcher)
 bwd_launches = 0
+#: launches of the f32/fp16 forward and backward of ``csrc/simt.cu``
+#: (:func:`dmme_tpu_torch.ops.route`), incremented only by their launchers
+simt_launches = 0
+simt_bwd_launches = 0
 
 _FWD = None
 _BWD = None
+_SIMT_FWD = None
+_SIMT_BWD = None
 
 # the plan's constants (csrc/group_norm.cu)
 VEC = 8                        # channels a 16-byte vector of bf16
@@ -307,31 +319,105 @@ def _launch_bwd(x, dz, gamma, beta, bias, mean, inv, num_groups: int):
     return dx, dgamma, dbeta, dbias
 
 
-def _on_cpu(x: torch.Tensor, what: str) -> bool:
-    """True for a CPU tensor (plain version); False for CUDA; raise otherwise."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: no kernel for device {x.device}")
-    return False
+def _simt_fwd_fn():
+    global _SIMT_FWD
+    if _SIMT_FWD is None:
+        fn = build.library("simt").dmme_simt_gn_fwd
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, i] + [vp] * 5 + [i, vp, i, vp, i] + [i] * 4 + [ctypes.c_float, vp]
+        fn.restype = i
+        _SIMT_FWD = fn
+    return _SIMT_FWD
+
+
+def _simt_bwd_fn():
+    global _SIMT_BWD
+    if _SIMT_BWD is None:
+        fn = build.library("simt").dmme_simt_gn_bwd
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i] + [vp] * 9 + [i, vp, i, vp, i] + [i] * 4 + [vp]
+        fn.restype = i
+        _SIMT_BWD = fn
+    return _SIMT_BWD
+
+
+def _launch_simt(x, gamma, beta, bias, num_groups: int, eps: float):
+    """K1 for f32 or fp16 ``x`` (``csrc/simt.cu``): a block per (group,
+    sample), the same outputs as :func:`_launch`."""
+    global simt_launches
+    n, h, w, c = x.shape
+    code = simt_code(x, "group_norm_silu")
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by {num_groups} groups")
+    x = x.contiguous()
+    (gamma, sg), (beta, sb) = broadcast_rows(gamma, n, c), broadcast_rows(beta, n, c)
+    bias, sp = broadcast_rows(bias, n, c) if bias is not None else (None, 0)
+    y = torch.empty_like(x)
+    mean = torch.empty((n, num_groups), device=x.device, dtype=torch.float32)
+    inv = torch.empty_like(mean)
+    status = _simt_fwd_fn()(
+        code, code, x.data_ptr(), y.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+        gamma.data_ptr(), sg, beta.data_ptr(), sb, _ptr(bias), sp, n, h * w, c, num_groups,
+        float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, "group_norm_silu simt kernel launch")
+    simt_launches += 1
+    return y, mean, inv
+
+
+def _launch_bwd_simt(x, dz, gamma, beta, bias, mean, inv, num_groups: int):
+    """K2 for f32 or fp16 ``x`` (``csrc/simt.cu``): the outputs of
+    :func:`_launch_bwd`."""
+    global simt_bwd_launches
+    n, h, w, c = x.shape
+    code = simt_code(x, "group_norm_silu backward")
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by {num_groups} groups")
+    if dz.shape != x.shape:
+        raise ValueError(f"dz shape {tuple(dz.shape)} differs from x's {tuple(x.shape)}")
+    if mean.shape != (n, num_groups) or inv.shape != (n, num_groups):
+        raise ValueError(f"statistics must be ({n}, {num_groups}), got {tuple(mean.shape)}")
+    x, dz = x.contiguous(), dz.to(x.dtype).contiguous()
+    mean, inv = mean.to(torch.float32).contiguous(), inv.to(torch.float32).contiguous()
+    (gamma, sg), (beta, sb) = broadcast_rows(gamma, n, c), broadcast_rows(beta, n, c)
+    bias, sp = broadcast_rows(bias, n, c) if bias is not None else (None, 0)
+    dx = torch.empty_like(x)
+    dgamma, dbeta, dbias = (torch.empty((n, c), device=x.device, dtype=torch.float32)
+                            for _ in range(3))
+    status = _simt_bwd_fn()(
+        code, x.data_ptr(), dz.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+        dbias.data_ptr(), mean.data_ptr(), inv.data_ptr(), gamma.data_ptr(), sg,
+        beta.data_ptr(), sb, _ptr(bias), sp, n, h * w, c, num_groups,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, "group_norm_silu backward simt kernel launch")
+    simt_bwd_launches += 1
+    return dx, dgamma, dbeta, dbias
 
 
 def group_norm_silu_fwd(x, gamma, beta, num_groups: int, eps: float = GN_EPS,
                         pre_bias: Optional[torch.Tensor] = None):
     """(y, mean, inv): y = silu(GN(x + pre_bias)·γ + β) and the (N, G) f32
-    statistics. CPU tensors take :func:`gn_silu_plain`; CUDA tensors K1."""
-    if _on_cpu(x, "group_norm_silu"):
-        return gn_silu_plain(x, gamma, beta, pre_bias, num_groups, eps)
-    return _launch(x, gamma, beta, pre_bias, num_groups, eps)
+    statistics. CPU tensors take :func:`gn_silu_plain`; bf16 CUDA tensors
+    K1, f32 and fp16 ones its ``simt.cu`` version
+    (:func:`~dmme_tpu_torch.ops.route`)."""
+    where = route(x.device, x.dtype, "group_norm_silu")
+    if where == "kernel":
+        return _launch(x, gamma, beta, pre_bias, num_groups, eps)
+    if where == "simt":
+        return _launch_simt(x, gamma, beta, pre_bias, num_groups, eps)
+    return gn_silu_plain(x, gamma, beta, pre_bias, num_groups, eps)
 
 
 def group_norm_silu_bwd(x, dz, gamma, beta, pre_bias, mean, inv, num_groups: int):
     """(dx, dγ, dβ, dbias) of :func:`group_norm_silu_fwd` from its saved
     statistics; the three vectors (N, C) f32. CPU tensors take
-    :func:`gn_silu_bwd_plain`; CUDA tensors K2."""
-    if _on_cpu(x, "group_norm_silu backward"):
-        return gn_silu_bwd_plain(x, dz, gamma, beta, pre_bias, mean, inv, num_groups)
-    return _launch_bwd(x, dz, gamma, beta, pre_bias, mean, inv, num_groups)
+    :func:`gn_silu_bwd_plain`; bf16 CUDA tensors K2, f32 and fp16 ones its
+    ``simt.cu`` version."""
+    where = route(x.device, x.dtype, "group_norm_silu backward")
+    if where == "kernel":
+        return _launch_bwd(x, dz, gamma, beta, pre_bias, mean, inv, num_groups)
+    if where == "simt":
+        return _launch_bwd_simt(x, dz, gamma, beta, pre_bias, mean, inv, num_groups)
+    return gn_silu_bwd_plain(x, dz, gamma, beta, pre_bias, mean, inv, num_groups)
 
 
 def _grad_like(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,12 @@ weights out in bf16, K-major, once per weight state (:func:`pack_weights`),
 and hands affines shared by the batch over with a row stride of 0, so a
 call on the card issues the kernels' launches and no copies.
 
+f32 and fp16 activations take K4's version in ``csrc/simt.cu``
+(:func:`_launch_simt`, ``simt_launches``): the same four steps, GN passes a
+block per (group, sample) and convs as implicit GEMMs of 64×64 output tiles
+on the CUDA cores, conv1's output kept in f32 for GN2 as in
+:func:`resblock_plain`; four launches a call.
+
 Shapes: C_in and C_out multiples of 8 (a partial last 64-channel K step
 reads zeros past C from TMA; a partial output tile is masked at C_out) and
 any H×W (an M tile is a TMA box of whole rows or whole images where the
@@ -46,13 +52,16 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from dmme_tpu_torch.ops import build
+from dmme_tpu_torch.ops import build, route, simt_code
 from dmme_tpu_torch.ops.group_norm import GN_EPS, broadcast_rows, gn_silu_plain
 
 #: ResBlock calls that launched the kernels since the last reset
 launches = 0
+#: f32/fp16 ResBlock calls that launched the kernels of ``csrc/simt.cu``
+simt_launches = 0
 
 _FN = None
+_SIMT = None
 
 BN, BK = 128, 64  # output channels a tile and K a step (csrc/resblock.cu)
 MIN_STEPS = 4  # K steps a split slice takes at least
@@ -107,9 +116,9 @@ class PackedWeights(NamedTuple):
     """A ResBlock's weights in the kernel's layout: K-major rows, one per
     output channel, as TMA and ``wgmma`` read them."""
 
-    w1: torch.Tensor            # (C_out, 9·C_in) bf16, K ordered (dy, dx, c_in)
-    w2: torch.Tensor            # (C_out, 9·C_out [+ C_in]) bf16, wr's rows appended
-    wr: Optional[torch.Tensor]  # (C_out, C_in) bf16 view of w2's last C_in columns, or None
+    w1: torch.Tensor            # (C_out, 9·C_in), K ordered (dy, dx, c_in)
+    w2: torch.Tensor            # (C_out, 9·C_out [+ C_in]), wr's rows appended
+    wr: Optional[torch.Tensor]  # (C_out, C_in) view of w2's last C_in columns, or None
     b1: torch.Tensor            # (C_out,) f32
     b2: torch.Tensor            # (C_out,) f32, plus br when wr is given
 
@@ -123,13 +132,15 @@ def _version(t: torch.Tensor) -> int:
     return 0 if t.is_inference() else t._version
 
 
-def pack_weights(w1, b1, w2, b2, wr=None, br=None) -> PackedWeights:
-    """The kernel's layout of a ResBlock's weights (OIHW f32 in), made once
-    per weight state. Entries are keyed on the identity and in-place version
-    of the source tensors and hold those tensors, so no key is reused while
-    its entry lives; an in-place update of a source makes a new entry."""
+def pack_weights(w1, b1, w2, b2, wr=None, br=None,
+                 dtype: torch.dtype = torch.bfloat16) -> PackedWeights:
+    """The kernels' layout of a ResBlock's weights (OIHW f32 in), the conv
+    weights in ``dtype`` (the activations'), made once per weight state.
+    Entries are keyed on the dtype and the identity and in-place version of
+    the source tensors and hold those tensors, so no key is reused while its
+    entry lives; an in-place update of a source makes a new entry."""
     src = (w1, b1, w2, b2, wr, br)
-    key = tuple(None if t is None else (id(t), _version(t)) for t in src)
+    key = (dtype,) + tuple(None if t is None else (id(t), _version(t)) for t in src)
     hit = _PACKED.get(key)
     if hit is not None:
         _PACKED.move_to_end(key)
@@ -137,13 +148,13 @@ def pack_weights(w1, b1, w2, b2, wr=None, br=None) -> PackedWeights:
     cout = w1.shape[0]
 
     def taps(wt):  # OIHW -> (C_out, 9·C_in), K ordered (dy, dx, c_in)
-        return wt.permute(0, 2, 3, 1).reshape(cout, 9 * wt.shape[1]).to(torch.bfloat16)
+        return wt.permute(0, 2, 3, 1).reshape(cout, 9 * wt.shape[1]).to(dtype)
 
     b2f = b2.to(torch.float32)
     w2p, wr_m = taps(w2).contiguous(), None
     if wr is not None:
         cin = wr.shape[1]
-        w2p = torch.cat([w2p, wr.reshape(cout, cin).to(torch.bfloat16)], dim=1)
+        w2p = torch.cat([w2p, wr.reshape(cout, cin).to(dtype)], dim=1)
         wr_m = w2p[:, 9 * cout:]
         b2f = b2f + br.to(torch.float32)
     packed = PackedWeights(taps(w1).contiguous(), w2p, wr_m, b1.to(torch.float32).contiguous(),
@@ -271,6 +282,55 @@ def _launch(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br,
     return out
 
 
+def _simt_fn():
+    global _SIMT
+    if _SIMT is None:
+        fn = build.library("simt").dmme_simt_resblock
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([i] + [vp] * 10 + [i] + [vp] * 5 + [i] * 6 + [ctypes.c_float] + [i] * 5
+                       + [vp])
+        fn.restype = i
+        _SIMT = fn
+    return _SIMT
+
+
+def _launch_simt(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br,
+                 num_groups: int, eps: float) -> torch.Tensor:
+    """K4 for f32 or fp16 ``x`` (``csrc/simt.cu``): GN1+SiLU, conv1, GN2+SiLU
+    of conv1 + pre2, conv2 with bias and skip, four launches. The convs'
+    weights are packed in x's dtype (:func:`pack_weights`); conv1's output
+    stays f32 for GN2, as in :func:`resblock_plain`."""
+    global simt_launches
+    n, h, w, cin = x.shape
+    cout = w1.shape[0]
+    code = simt_code(x, "resblock")
+    for c in (cin, cout):
+        if c % num_groups:
+            raise ValueError(f"resblock kernel: {c} channels in {num_groups} groups")
+    if wr is None and cin != cout:
+        raise ValueError("identity skip needs C_in == C_out")
+    dev = x.device
+    x = x.contiguous()
+    pw = pack_weights(w1, b1, w2, b2, wr, br, dtype=x.dtype)
+    vecs = [broadcast_rows(v, n, c)
+            for v, c in ((g1, cin), (b1v, cin), (pre2, cout), (g2, cout), (b2v, cout))]
+    m = n * h * w
+    h0 = torch.empty((m * cin,), device=dev, dtype=x.dtype)
+    h1 = torch.empty((m * cout,), device=dev, dtype=torch.float32)
+    h2 = torch.empty((m * cout,), device=dev, dtype=x.dtype)
+    stats = torch.empty((2 * n * num_groups,), device=dev, dtype=torch.float32)
+    out = torch.empty((n, h, w, cout), device=dev, dtype=x.dtype)
+    status = _simt_fn()(
+        code, x.data_ptr(), *(v.data_ptr() for v, _ in vecs), pw.w1.data_ptr(),
+        pw.b1.data_ptr(), pw.w2.data_ptr(), pw.b2.data_ptr(), int(pw.wr is not None),
+        h0.data_ptr(), h1.data_ptr(), h2.data_ptr(), stats.data_ptr(), out.data_ptr(), n, h, w,
+        cin, cout, num_groups, float(eps), *(stride for _, stride in vecs),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(status, "resblock simt kernel launch")
+    simt_launches += 1
+    return out
+
+
 def resblock_forward(
     x: torch.Tensor,
     g1, b1v,            # GN1 affine, (N, Cin) f32
@@ -284,8 +344,8 @@ def resblock_forward(
 ) -> torch.Tensor:
     """Fused ResBlock forward (see module docstring), NHWC. Inference only:
     it has no backward, so it raises under grad mode when any input requires
-    grad, on every device. CPU tensors take :func:`resblock_plain`; CUDA
-    tensors the kernels."""
+    grad, on every device. CPU tensors take :func:`resblock_plain`; bf16
+    CUDA tensors the kernels, f32 and fp16 ones those of ``simt.cu``."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br)):
@@ -293,9 +353,9 @@ def resblock_forward(
             "resblock_forward is inference-only and has no backward, but an input "
             "requires grad: call it under torch.no_grad(), or train through the "
             "standard ResBlock path (train=True)")
-    if x.device.type == "cpu":
-        return resblock_plain(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br,
-                              num_groups, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"resblock_forward: no kernel for device {x.device}")
-    return _launch(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br, num_groups, eps)
+    where = route(x.device, x.dtype, "resblock_forward")
+    if where == "kernel":
+        return _launch(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br, num_groups, eps)
+    if where == "simt":
+        return _launch_simt(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br, num_groups, eps)
+    return resblock_plain(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br, num_groups, eps)

@@ -31,30 +31,43 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(mixed & ((1 << 63) - 1))
 
 
-def make_train_step(loss_fn: LossFn):
+def make_train_step(loss_fn: LossFn, debug_nans: bool = False):
     """``step(state, batch, seed) -> (state, metrics)``: the loss and its
     gradient with respect to every parameter, one optimizer step in place,
     and the metrics ``loss`` and ``grad_norm`` (the norm before clipping) as
-    0-dim tensors on the device, read by the caller when it logs."""
+    0-dim tensors on the device, read by the caller when it logs. A
+    ``loss_fn`` marked ``is_grad_fn`` returns ``(loss, grads)`` itself
+    (gradient accumulation). With ``debug_nans`` the step reads both
+    metrics and raises ``FloatingPointError``, before the update, where one
+    is not finite."""
+    is_grad_fn = getattr(loss_fn, "is_grad_fn", False)
 
     def step(state, batch, seed: int):
         generator = step_generator(seed, state.step, _device(batch))
         params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-        with torch.enable_grad():
-            loss = loss_fn(params, generator, batch)
-            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        if is_grad_fn:
+            loss, grads = loss_fn(params, generator, batch)
+        else:
+            with torch.enable_grad():
+                loss = loss_fn(params, generator, batch)
+                grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads.values())}
+        if debug_nans and not all(bool(torch.isfinite(v)) for v in metrics.values()):
+            raise FloatingPointError(
+                f"step {state.step + 1}: loss {float(metrics['loss'])}, grad_norm "
+                f"{float(metrics['grad_norm'])} (debug_nans; the state is not updated)")
         state.apply_gradients(grads)
-        return state, {"loss": loss.detach(), "grad_norm": global_norm(grads.values())}
+        return state, metrics
 
     return step
 
 
-def make_train_chunk(loss_fn: LossFn, steps: int):
+def make_train_chunk(loss_fn: LossFn, steps: int, debug_nans: bool = False):
     """``chunk(state, batches, seed) -> (state, metrics)`` over ``batches``
     stacked on a leading axis of length ``steps``: the steps in order, with
     each metric stacked likewise. JAX scans the steps inside one program;
     here it is a Python loop over the same step."""
-    step = make_train_step(loss_fn)
+    step = make_train_step(loss_fn, debug_nans)
 
     def chunk(state, batches, seed: int):
         if isinstance(batches, (tuple, list)):

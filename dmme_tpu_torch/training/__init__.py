@@ -1,11 +1,20 @@
-"""Training and sampling harnesses and the training loop (mirrors ``dmme_tpu.training``)."""
+"""Training and sampling harnesses, the training loop and what it drives
+(mirrors ``dmme_tpu.training``): ``LitDDPM``/``LitDDIM``, ``TrainState``,
+``fit`` (``loop``), ``CheckpointManager`` (``checkpoint``), ``MetricLogger``
+(``metrics``) over the JSONL/TensorBoard/W&B backends of ``loggers``, and
+``validate`` (``evaluate``)."""
 
+from dmme_tpu_torch.training.checkpoint import CheckpointManager
 from dmme_tpu_torch.training.ema import ema_update
+from dmme_tpu_torch.training.evaluate import validate
 from dmme_tpu_torch.training.lit import LitDDIM, LitDDPM
+from dmme_tpu_torch.training.loggers import (JsonlLogger, MultiLogger, TensorBoardLogger,
+                                             WandbLogger)
 from dmme_tpu_torch.training.loop import fit
 from dmme_tpu_torch.training.lr_schedule import warmup_schedule
 from dmme_tpu_torch.training.metrics import MetricLogger
 from dmme_tpu_torch.training.state import TrainState
 
-__all__ = ["LitDDPM", "LitDDIM", "TrainState", "fit", "warmup_schedule", "ema_update",
-           "MetricLogger"]
+__all__ = ["LitDDPM", "LitDDIM", "TrainState", "fit", "validate", "warmup_schedule",
+           "ema_update", "CheckpointManager", "MetricLogger", "JsonlLogger",
+           "TensorBoardLogger", "WandbLogger", "MultiLogger"]

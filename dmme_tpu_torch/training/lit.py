@@ -25,11 +25,17 @@ from dmme_tpu_torch.training.optimizer import ClipAdam
 from dmme_tpu_torch.training.state import TrainState
 from dmme_tpu_torch.utils.device import resolve_device
 
-_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+#: dtype names the configs use, with the JAX package's aliases (``dmme_tpu/config.py``)
+_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+           "f32": torch.float32, "fp32": torch.float32, "float32": torch.float32,
+           "fp16": torch.float16, "float16": torch.float16}
 
 
 def resolve_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
-    """``"bf16"``/``"f32"`` (or a torch dtype) → the torch dtype."""
+    """A dtype name (``bf16``, ``fp32``/``f32``, ``fp16`` or the full names)
+    or a torch dtype → the torch dtype. On the card bf16 runs the tensor-core
+    kernels, f32 and fp16 their ``simt.cu`` versions
+    (:func:`dmme_tpu_torch.ops.route`)."""
     if isinstance(dtype, torch.dtype):
         return dtype
     try:
@@ -129,14 +135,16 @@ class LitDDPM:
 
     def generate(self, state: TrainState, generator: Optional[torch.Generator],
                  img_shape: Tuple[int, ...], *, use_ema: Optional[bool] = None,
-                 x_T: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 x_T: Optional[torch.Tensor] = None, history_length: Optional[int] = None):
         """Sample with the EMA weights unless ``validate_original_weights``
-        (or ``use_ema=False``) asks for the raw ones."""
+        (or ``use_ema=False``) asks for the raw ones. With ``history_length``,
+        returns ``(x_0, history)`` (see ``DDPM.generate``)."""
         if use_ema is None:
             use_ema = not self.validate_original_weights
         params = state.ema_params if use_ema else state.params
         model_fn, generator = self.sampling_model_fn(generator, img_shape[0])
-        return self.diffusion_model.generate(model_fn, params, generator, img_shape, x_T=x_T)
+        return self.diffusion_model.generate(model_fn, params, generator, img_shape, x_T=x_T,
+                                             history_length=history_length)
 
 
 class LitDDIM(LitDDPM):

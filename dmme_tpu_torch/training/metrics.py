@@ -1,26 +1,35 @@
-"""Scalar metric logging (mirrors ``dmme_tpu/training/metrics.py``, JSONL only).
+"""Scalar and image metric logging (mirrors ``dmme_tpu/training/metrics.py``).
 
-Each record goes to ``<log_dir>/<name>.jsonl`` when a ``log_dir`` is given,
-and is echoed to stderr as ``[step N] time=… key=value …``. Metric tensors
-are read (``float``) only here, at log boundaries, so the training loop
-does not wait for the device between them.
+``MetricLogger`` is what the training loop talks to: it composes the
+backends of :mod:`dmme_tpu_torch.training.loggers` (JSONL when a ``log_dir``
+is given, TensorBoard event files on request, or an explicit list) and
+echoes each record to stderr as ``[step N] time=… key=value …``. Metric
+tensors are read (``float``) only here, at log boundaries, so the training
+loop does not wait for the device between them.
 """
 
 from __future__ import annotations
 
-import json
 import os
 import sys
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
+
+from dmme_tpu_torch.training.loggers import JsonlLogger, MultiLogger, TensorBoardLogger
 
 
 class MetricLogger:
-    def __init__(self, log_dir: Optional[str] = None, name: str = "metrics"):
-        self._file = None
-        if log_dir is not None:
-            os.makedirs(log_dir, exist_ok=True)
-            self._file = open(os.path.join(log_dir, f"{name}.jsonl"), "a")
+    def __init__(self, log_dir: Optional[str] = None, name: str = "metrics",
+                 tensorboard: bool = False, loggers: Optional[Sequence[Any]] = None):
+        """``loggers`` replaces the default backends; else JSONL (with a
+        ``log_dir``) and TensorBoard under ``<log_dir>/tb`` (if asked)."""
+        if loggers is None:
+            loggers = []
+            if log_dir is not None:
+                loggers.append(JsonlLogger(log_dir, name))
+                if tensorboard:
+                    loggers.append(TensorBoardLogger(os.path.join(log_dir, "tb")))
+        self._multi = MultiLogger(loggers)
         self._t0 = time.time()
 
     def log(self, step: int, metrics: Dict[str, Any], echo: bool = True) -> Dict[str, Any]:
@@ -31,18 +40,15 @@ class MetricLogger:
                 record[k] = float(v)
             except (TypeError, ValueError):
                 record[k] = v
-        elapsed = time.time() - self._t0
-        if self._file is not None:
-            self._file.write(json.dumps({"step": int(step), "time": round(elapsed, 3), **record})
-                             + "\n")
-            self._file.flush()
+        self._multi.log_metrics(record, step)
         if echo:
             parts = " ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
                              for k, v in record.items())
-            print(f"[step {step}] time={elapsed:.3f} {parts}", file=sys.stderr)
+            print(f"[step {step}] time={time.time() - self._t0:.3f} {parts}", file=sys.stderr)
         return record
 
+    def log_image(self, tag: str, image, step: int) -> None:
+        self._multi.log_image(tag, image, step)
+
     def close(self) -> None:
-        if self._file is not None:
-            self._file.close()
-            self._file = None
+        self._multi.finalize()

@@ -438,3 +438,118 @@ def test_sm_count_is_asked_once_per_device(monkeypatch):
         assert asked == [3, 5]
     finally:
         build._sm_count.cache_clear()
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "kernel"), (torch.float32, "simt"),
+                                        (torch.float16, "simt")])
+def test_route_sends_bf16_to_the_kernel_and_other_dtypes_to_the_plain_path(dtype, want):
+    """bf16 CUDA tensors go to the tensor-core kernels, f32 and fp16 ones to
+    those of ``simt.cu``; only a CPU tensor takes the plain version."""
+    from dmme_tpu_torch.ops import route
+
+    assert route(torch.device("cuda"), dtype, "x") == want
+    assert route(torch.device("cuda", 1), dtype, "x") == want
+    assert route(torch.device("cpu"), dtype, "x") == "cpu"
+    with pytest.raises(ValueError, match="no kernel"):
+        route(torch.device("meta"), dtype, "x")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int32])
+def test_route_raises_on_the_card_for_a_dtype_without_a_kernel(dtype):
+    from dmme_tpu_torch.ops import route
+
+    assert route(torch.device("cpu"), dtype, "x") == "cpu"
+    with pytest.raises(TypeError, match="no kernel for"):
+        route(torch.device("cuda"), dtype, "x")
+
+
+@pytest.mark.parametrize("kernel", ["group_norm_silu", "group_norm_silu_bwd", "attention",
+                                    "resblock"])
+def test_simt_launchers_take_f32_and_fp16_only(kernel):
+    """The ``simt.cu`` launchers refuse bf16 before they reach a kernel."""
+    x = torch.zeros((1, 4, 4, 64), dtype=torch.bfloat16)
+    v = torch.ones(64)
+    with pytest.raises(TypeError, match="f32 or fp16"):
+        if kernel == "group_norm_silu":
+            t_group_norm._launch_simt(x, v, v, None, 32, 1e-5)
+        elif kernel == "group_norm_silu_bwd":
+            stats = torch.zeros((1, 32))
+            t_group_norm._launch_bwd_simt(x, x, v, v, None, stats, stats, 32)
+        elif kernel == "attention":
+            t_attention._launch_simt(x, x, x, 0.125)
+        else:
+            w = torch.zeros((64, 64, 3, 3))
+            t_resblock._launch_simt(x, v, v, v, v, v, w, v, w, v, None, None, 32, 1e-5)
+
+
+def test_pack_weights_caches_per_dtype():
+    """K4's packed weights are kept per dtype: the bf16 kernels and the
+    f32/fp16 ones each read the conv weights in their activations' dtype."""
+    r = np.random.default_rng(3)
+    w1, w2 = (torch.tensor(r.standard_normal((16, 16, 3, 3)), dtype=torch.float32)
+              for _ in range(2))
+    b1, b2 = torch.zeros(16), torch.ones(16)
+    packed = {dt: t_resblock.pack_weights(w1, b1, w2, b2, dtype=dt)
+              for dt in (torch.bfloat16, torch.float32, torch.float16)}
+    for dt, pw in packed.items():
+        assert pw.w1.dtype == pw.w2.dtype == dt and pw.b1.dtype == torch.float32
+        assert t_resblock.pack_weights(w1, b1, w2, b2, dtype=dt) is pw
+        np.testing.assert_array_equal(
+            pw.w1.float().numpy(),
+            w1.permute(0, 2, 3, 1).reshape(16, 144).to(dt).float().numpy())
+    assert t_resblock.pack_weights(w1, b1, w2, b2) is packed[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_wrappers_dispatch_on_the_card_by_dtype(monkeypatch, dtype):
+    """Each wrapper with its tensors taken for CUDA ones (``route`` asked as
+    for a CUDA device): bf16 reaches the tensor-core launcher, f32 and fp16
+    the ``simt.cu`` launcher; neither gives way to the plain version."""
+    from dmme_tpu_torch import ops
+
+    def as_cuda(device, dt, what):
+        return ops.route(torch.device("cuda"), dt, what)
+
+    launched = []
+
+    def launcher(name):
+        def fn(*a, **k):
+            launched.append(name)
+            raise RuntimeError("launched")
+        return fn
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    simt = dtype != torch.bfloat16
+    for mod in (t_group_norm, t_attention, t_resblock):
+        name = mod.__name__.split(".")[-1]
+        monkeypatch.setattr(mod, "route", as_cuda)
+        monkeypatch.setattr(mod, "_launch", launcher(name))
+        monkeypatch.setattr(mod, "_launch_simt", launcher(name + "_simt"))
+    monkeypatch.setattr(t_group_norm, "_launch_bwd", launcher("group_norm_bwd"))
+    monkeypatch.setattr(t_group_norm, "_launch_bwd_simt", launcher("group_norm_bwd_simt"))
+    for mod, fn in ((t_group_norm, "gn_silu_plain"), (t_group_norm, "gn_silu_bwd_plain"),
+                    (t_attention, "attention_heads_plain"), (t_resblock, "resblock_plain")):
+        monkeypatch.setattr(mod, fn, refuse)
+    r = np.random.default_rng(0)
+    x = torch.tensor(_rand(r, 1, 4, 4, 8)).to(dtype)
+    q = torch.tensor(_rand(r, 1, 16, 1, 16)).to(dtype)
+    args = _resblock_inputs(r, 1, 4, 8, 8, False, False)
+    t = torch.tensor
+    res = (t(args[0]).to(dtype), *(t(a) for a in args[1:6]),
+           t(args[6].transpose(3, 2, 0, 1).copy()), t(args[7]),
+           t(args[8].transpose(3, 2, 0, 1).copy()), t(args[9]))
+    stats = torch.zeros((1, 2))
+    calls = {
+        "group_norm": lambda: t_group_norm.group_norm_silu_fwd(x, torch.ones(8), torch.zeros(8),
+                                                               2),
+        "group_norm_bwd": lambda: t_group_norm.group_norm_silu_bwd(
+            x, x, torch.ones(8), torch.zeros(8), None, stats, stats + 1.0, 2),
+        "attention": lambda: t_attention.attention_heads(q, q, q, 0.25),
+        "resblock": lambda: t_resblock.resblock_forward(*res, num_groups=2),
+    }
+    for call in calls.values():
+        with pytest.raises(RuntimeError, match="launched"):
+            call()
+    assert launched == [name + ("_simt" if simt else "") for name in calls]

@@ -162,3 +162,45 @@ def test_lit_ddim_generate_uses_ema_and_generator(models):
     assert not torch.equal(a, c)
     raw = lit.generate(state, torch.Generator().manual_seed(3), SHAPE, use_ema=False)
     assert not torch.equal(a, raw)
+
+
+@pytest.mark.parametrize("n_steps,length", [(10, 4), (50, 10), (14, 11), (22, 15), (5, 8),
+                                            (7, 1)])
+def test_history_frames_are_jax_frames(n_steps, length):
+    """``history_slots`` picks the steps that ``make_history_capture``'s
+    ``jnp.linspace(...).round()`` picks, including where float32 rounding
+    moves one (14 steps, 11 frames: 6.5000005 → 7) and where two frames fall
+    on one step (5 steps, 8 frames)."""
+    from dmme_tpu.diffusion.ddpm import make_history_capture
+
+    from dmme_tpu_torch.diffusion.ddpm import history_slots
+
+    (want, slot), _ = make_history_capture(n_steps, length, (1,))
+    want, slot = np.asarray(want), np.asarray(slot)
+    got = history_slots(n_steps, length)
+    assert sorted(got) == [k for k in range(n_steps) if want[k]]
+    assert all(got[k] == slot[k] for k in got)
+    assert max(got) == (n_steps - 1 if length > 1 else 0)  # x_0 is a frame, if two or more
+
+
+def test_ddim_history_matches_jax(models):
+    """DDIM with a captured history of 4 frames from the JAX scan's x_T:
+    each frame as JAX captures it, the last one x_0."""
+    jmodel, params, tmodel, sd = models
+    T, S, L = 20, 10, 4
+    jalgo = JaxDDIM.create(timesteps=T, sub_timesteps=S, tau_schedule="quadratic")
+    talgo = DDIM.create(timesteps=T, sub_timesteps=S, tau_schedule="quadratic")
+    rng = jax.random.PRNGKey(6)
+    x0, hist = _jax_trajectory(jalgo, as_model_fn(jmodel), params, rng, L)
+    x_T, _ = _x_T(rng)
+    got, frames = talgo.generate(_model_fn(tmodel), sd, None, SHAPE, x_T=torch.tensor(x_T),
+                                 history_length=L)
+    assert frames.shape == (L,) + SHAPE and frames.dtype == torch.float32
+    np.testing.assert_allclose(frames.numpy(), hist, **TOL)
+    np.testing.assert_allclose(got.numpy(), x0, **TOL)
+    assert torch.equal(frames[-1], got)
+    lit = LitDDIM(model=tmodel, timesteps=T, sample_steps=S)
+    state = TrainState.create(sd, lit.make_optimizer())
+    a, ha = lit.generate(state, None, SHAPE, x_T=torch.tensor(x_T), history_length=L)
+    assert torch.equal(a, got) and torch.equal(ha, frames)
+    assert torch.equal(lit.generate(state, None, SHAPE, x_T=torch.tensor(x_T)), got)

@@ -292,10 +292,6 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(ckpt_dir="runs/x"), "A.7"), (dict(resume=True), "A.7"),
-    (dict(max_restarts=1), "A.7"), (dict(callbacks=[object()]), "A.7"),
-    (dict(loggers=[object()]), "A.7"), (dict(tensorboard=True), "A.7"),
-    (dict(debug_nans=True), "A.7"), (dict(accumulate_grad_batches=2), "A.7"),
     (dict(mesh=object()), "A.16"),
 ])
 def test_fit_arguments_not_ported_raise(kwargs, item):
