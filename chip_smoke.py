@@ -80,7 +80,33 @@ if the package is missing, or if any phase fails. Phases:
    step within ``UNET_REL_L2``; the bf16 harness on the same inputs is the control that
    must miss ``F32_REL_L2``. Every bf16 path above launches no ``simt.cu``
    kernel;
-11. the kernel table as one JSON line, the card's name and power limit, then
+11. IDDPM kernels — the IDDPM UNet of ``configs/iddpm/cifar10.yaml`` (FiLM at
+   the 22 ``norm2`` sites, 4-head attention at 11 sites, ε ‖ v output; random
+   biases, affines and FiLM ``condition`` Dense): K1, K3 and K4 at every call
+   site of forwards at n = 1, 8 and 16 (launches 1/11/22 a forward) and K1,
+   K2, K3 and the attention backward at every call site of one training
+   step at batch 128 (45/45/11/0), each held against its plain version and
+   timed as in phases 3 and 6;
+12. IDDPM gradient — the hybrid ``loss_given`` + backward at batch 8, T = 4000,
+   one sample at t = 1, dropout 0.3 with the card's masks replayed on the
+   CPU: bf16 on the card against f32 on the CPU within ``GRAD_REL_L2``, the
+   variance head's gradient reported apart;
+13. IDDPM fit — phase 8 for ``LitIDDPM(dtype="bf16")`` at the recipe's
+   settings (launches 45/45/11/0 a step);
+14. IDDPM serve — ``LitIDDPM(dtype="bf16", sample_steps=50)`` behind
+   ``make_server``: ``default`` at n = 1, 8, 16 (a repeat identical),
+   ``ddim``/``dpm``/``unipc`` at n = 8, ``cached`` answered 400, one request
+   under the profiler, 20 steps of the T = 4000 ancestral loop; phase 5 also
+   sends ``ddim``/``dpm``/``unipc`` to the DDPM model;
+15. the CLI phase (9b) also runs ``configs/iddpm/shapes_demo.yaml`` for 20
+   steps, ``sample --trainer.sampler dpm --trainer.sample_steps 20`` of
+   ``configs/iddpm/cifar10.yaml`` and ``configs/iddpm/shapes64_demo.yaml``
+   (64 px, batch 64) for 2 steps with and without remat;
+16. f32 IDDPM — ``LitIDDPM()`` one step at batch 128 and one respaced step at
+   n = 8 through ``simt.cu``, every call site against its plain version; the
+   loss, the gradient (the variance head included) and the step within
+   ``F32_REL_L2`` of the CPU, a bf16 control missing it;
+17. the kernel table as one JSON line, the card's name and power limit, then
    ``{"ok": true, "device": ...}``.
 
 ``--out`` also writes every measurement to a JSON file. ``--kernels-only``
@@ -99,6 +125,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense): memory, bf16 (and
@@ -511,10 +538,12 @@ def scaled_errors(got, want, rtol: float, atol_share: float):
 
 
 def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cls, dev,
-                  card: str) -> dict:
+                  card: str, ops=None) -> dict:
     """Phase 6: K1, K2, K3 and the attention backward at every call site of one
-    full-width bf16 training step at batch 128, each held against its plain
-    version on the recorded inputs, with times and bounds."""
+    full-width bf16 training step at batch 128 of ``lit_cls(dtype="bf16")``,
+    each held against its plain version on the recorded inputs, with times
+    and bounds. With ``ops``, the step's launches are held too: 45/45/n/0
+    (K1/K2/K3/K4, n the model's attention sites)."""
     from dmme_tpu_torch.data import CIFAR10
 
     lit = lit_cls(dtype="bf16")
@@ -531,13 +560,24 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
         loss = loss_fn(params, gen, batch)
         torch.autograd.grad(loss, list(params.values()))
 
+    if ops is not None:
+        reset_counts(ops)
     calls = record_calls(train_targets(blocks, k_gn, k_attn), step)
+    torch.cuda.synchronize()
+    launches = counts(ops) if ops is not None else None
     sites = {k: sum(c for _, c, _, _ in v) for k, v in calls.items()}
-    print(f"call sites per training step: {json.dumps(sites)}", flush=True)
-    want_sites = {"group_norm_silu": 45, "group_norm_silu_bwd": 45, "attention": 6,
-                  "attention_bwd": 6}
+    print(f"call sites per training step: {json.dumps(sites)}; launches {launches}", flush=True)
+    n_attn = sum(isinstance(m, blocks.SelfAttention2d) for m in lit.model.modules())
+    want_sites = {"group_norm_silu": 45, "group_norm_silu_bwd": 45, "attention": n_attn,
+                  "attention_bwd": n_attn}
     if sites != want_sites:
         fail(f"training step call sites {sites}, expected {want_sites}")
+    if launches is not None:
+        expect_no_simt("training step")
+        want = {"group_norm_silu": 45, "group_norm_silu_bwd": 45, "attention": n_attn,
+                "resblock": 0}
+        if launches != want:
+            fail(f"a training step launched {launches}, expected {want}")
 
     rows, failures = [], []
     with torch.no_grad():
@@ -650,7 +690,7 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
         print(f"per training step (batch {TRAIN_BATCH}), {kname}: "
               + ", ".join(f"{f} {v:.4f}" for f, v in per_step[kname].items()
                           if isinstance(v, float)) + f" [{card}]", flush=True)
-    return {"shapes": rows, "per_step": per_step}
+    return {"shapes": rows, "per_step": per_step, "launches": launches}
 
 
 def gn_plan(k_gn, x, groups, backward: bool) -> dict:
@@ -730,16 +770,19 @@ def train_gradient(torch, np, blocks, ddpm_models, init_weights, DDPM, dev, ops)
     return out
 
 
-def run_fit(torch, np, blocks, dev, ops, report, card: str) -> tuple:
-    """Phase 8: ``fit`` at the recipe's settings, then timed and profiled
-    steps of the same train step. Returns (lit, state)."""
+def run_fit(torch, np, blocks, dev, ops, report, card: str, lit=None,
+            per_step=PER_TRAIN_STEP, key: str = "fit") -> tuple:
+    """Phase 8: ``fit`` at the recipe's settings (``lit``, by default
+    ``LitDDPM(dtype="bf16")``), then timed and profiled steps of the same
+    train step, into ``report[key]``. Returns (lit, state)."""
     import contextlib
 
     from dmme_tpu_torch.data import CIFAR10
     from dmme_tpu_torch.parallel import make_train_step
     from dmme_tpu_torch.training import LitDDPM, fit
 
-    lit = LitDDPM(dtype="bf16")  # lr 2e-4, warmup 5000, clip 1.0, EMA 0.9999, flips on
+    if lit is None:
+        lit = LitDDPM(dtype="bf16")  # lr 2e-4, warmup 5000, clip 1.0, EMA 0.9999, flips on
     dm = CIFAR10(synthetic=True, batch_size=TRAIN_BATCH)
     log = io.StringIO()
     t0 = time.time()
@@ -787,7 +830,7 @@ def run_fit(torch, np, blocks, dev, ops, report, card: str) -> tuple:
         print("  " + ln, flush=True)
     logged = [dict(kv.split("=") for kv in ln.split("] ", 1)[1].split()) for ln in lines]
     bad = [r for r in logged if not all(np.isfinite(float(r[f])) for f in ("loss", "grad_norm"))]
-    expect = {k: v * FIT_STEPS for k, v in PER_TRAIN_STEP.items()}
+    expect = {k: v * FIT_STEPS for k, v in per_step.items()}
     print(f"fit: {len(logged)} logged steps; launches {launches} (expected {expect})", flush=True)
     if len(logged) != FIT_STEPS or bad:
         fail(f"fit logged {len(logged)} steps, {len(bad)} with a loss or grad_norm not finite")
@@ -817,14 +860,16 @@ def run_fit(torch, np, blocks, dev, ops, report, card: str) -> tuple:
               "imgs_per_sec": TRAIN_BATCH * TIMED_STEPS / wall,
               "imgs_per_sec_from_median": TRAIN_BATCH / (statistics.median(step_ms) / 1e3),
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-              "bound_ms": 1e3 * TRAIN_STEP_TFLOP * 1e12 / BF16_FLOPS,
-              "losses": losses, "grad_norms": norms}
+              "bound_ms": None, "losses": losses, "grad_norms": norms}
+    bound = ""
+    if key == "fit":  # bench.py's work count is the DDPM recipe's
+        timing["bound_ms"] = 1e3 * TRAIN_STEP_TFLOP * 1e12 / BF16_FLOPS
+        bound = (f"; step bound {timing['bound_ms']:.2f} ms ({TRAIN_STEP_TFLOP} TFLOP, "
+                 f"bench.py:60-63, at {BF16_FLOPS / 1e12:.0f} TFLOP/s)")
     print(f"{TIMED_STEPS} timed steps at batch {TRAIN_BATCH}: step {timing['step_ms_median']:.2f} ms "
           f"median (min {timing['step_ms_min']:.2f}, max {timing['step_ms_max']:.2f}; CUDA "
           f"events), {timing['imgs_per_sec']:.1f} imgs/s (host clock over the run), peak "
-          f"memory {timing['peak_mem_gib']:.2f} GiB; step bound {timing['bound_ms']:.2f} ms "
-          f"({TRAIN_STEP_TFLOP} TFLOP, bench.py:60-63, at {BF16_FLOPS / 1e12:.0f} TFLOP/s) "
-          f"[{card}]", flush=True)
+          f"memory {timing['peak_mem_gib']:.2f} GiB{bound} [{card}]", flush=True)
     print("losses " + " ".join(f"{v:.4f}" for v in losses), flush=True)
     print("grad_norms " + " ".join(f"{v:.4f}" for v in norms), flush=True)
     if not all(np.isfinite(losses + norms)):
@@ -851,8 +896,8 @@ def run_fit(torch, np, blocks, dev, ops, report, card: str) -> tuple:
           f"{1.0 - prof3['busy_ms'] / 3 / timing['step_ms_median']:.3f} [{card}]", flush=True)
     for name, ms, count in prof1["top"]:
         print(f"    {ms:9.3f} ms {count:6d}x  {name}", flush=True)
-    report["fit"] = {"warm_s": warm_s, "update": upd, "logged": logged, "launches": launches,
-                     "timing": timing, "profile_3_steps": prof3, "profile_1_step": prof1}
+    report[key] = {"warm_s": warm_s, "update": upd, "logged": logged, "launches": launches,
+                   "timing": timing, "profile_3_steps": prof3, "profile_1_step": prof1}
     return lit, state
 
 
@@ -1280,6 +1325,512 @@ def f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
     return out
 
 
+# configs/iddpm/cifar10.yaml's harness: T = 4000 linear β in [2.5e-5, 5e-3],
+# the hybrid loss with γ = 0.001, lr 1e-4, warmup 5000, EMA 0.9999
+IDDPM_CIFAR = dict(lr=1e-4, warmup=5000, decay=0.9999, schedule="linear", timesteps=4000,
+                   start=0.000025, end=0.005, loss_type="hybrid", gamma=0.001)
+# launches of one IDDPM training step and one eval forward (both switches on)
+PER_TRAIN_STEP_IDDPM = {"group_norm_silu": 45, "group_norm_silu_bwd": 45, "attention": 11,
+                        "resblock": 0}
+PER_FORWARD_IDDPM = {"group_norm_silu": 1, "group_norm_silu_bwd": 0, "attention": 11,
+                     "resblock": 22}
+# the variance head: channels 3-5 of the IDDPM UNet's output conv (ε ‖ v)
+VAR_HEAD = slice(3, 6)
+# At random weights v ≈ 0 ± 0.5, and at t = 1 (β̃ = 0, clamped to 1e-12) the
+# learned variance exp(v·log β_1 + (1 − v)·log 1e-12) has σ ≈ 1e-8 to 1e-4,
+# far below the 1/255 bins of the discretized NLL. A pixel whose mean lies
+# within a few σ of a bin edge has a bin mass that is the difference of two
+# CDF values a few f32 ulps below 1; an ulp of the mean or of erf (cuDNN
+# against the CPU) moves it by tens of percent, or across the 1e-12 clamp,
+# and its gradient d(−log p)/d log σ ≈ z² ≈ 25 outweighs a bulk KL pixel's
+# O(1). The variance head's gradient is then ill-conditioned in f32 itself.
+# The held reading sets the head so that v ≈ 1.2 ± 0.02 (σ at t = 1 ≈ 0.3):
+# the t = 1 sample stays in the batch and its NLL well-conditioned.
+VAR_HEAD_COND = (0.01, 1.2)  # (scale of the head's kernel, added to its bias)
+
+
+def iddpm_model(torch, blocks, init_weights, dtype, **kw):
+    """The IDDPM UNet of configs/iddpm/cifar10.yaml (36,168,070 parameters,
+    FiLM, 4 heads at depths 2 and 3, ε ‖ v), both switches on, with the
+    seed's weights and every bias and GroupNorm affine drawn at random."""
+    from dmme_tpu_torch.models import iddpm as iddpm_models
+
+    m = iddpm_models.UNet(dtype=dtype, fused_norm=True, fused_block=True, **kw)
+    init_weights(m, torch.Generator().manual_seed(SEED))
+    randomize_affines(torch, blocks, m, torch.Generator().manual_seed(SEED + 1))
+    return m
+
+
+def condition_var_head(weights: dict) -> dict:
+    """``weights`` with the variance head set per ``VAR_HEAD_COND``."""
+    scale, shift = VAR_HEAD_COND
+    out = dict(weights)
+    w, b = weights["output_conv.weight"].clone(), weights["output_conv.bias"].clone()
+    w[VAR_HEAD] *= scale
+    b[VAR_HEAD] += shift
+    out["output_conv.weight"], out["output_conv.bias"] = w, b
+    return out
+
+
+def iddpm_kernels(torch, blocks, k_gn, k_attn, k_res, build, init_weights, dev, ops,
+                  card: str) -> dict:
+    """Phase 11: K1, K3 and K4 at every call site of full-width IDDPM forwards
+    at n = 1, 8 and 16 (FiLM: per-sample GN2 affines at K4's 22 sites, 4-head
+    attention at head dims 64 and 32), and K1, K2, K3 and the attention
+    backward at every call site of one training step at batch 128, each held
+    against its plain version, timed and bounded; launches 1/11/22 a forward
+    and 45/45/11/0 a step, no ``simt.cu`` launch."""
+    import functools
+
+    from dmme_tpu_torch.training import LitIDDPM
+
+    m = iddpm_model(torch, blocks, init_weights, torch.bfloat16).to(dev).eval()
+    runs = {}
+    for n in SERVE_BATCHES:
+        g = torch.Generator().manual_seed(SEED + 50 + n)
+        runs[f"n{n}"] = (m, torch.randn((n, 32, 32, 3), generator=g),
+                         torch.randint(1, 4000, (n,), generator=g), PER_FORWARD_IDDPM)
+    reset_counts(ops)
+    recorded, sites = record_forwards(torch, blocks, runs, dev)
+    torch.cuda.synchronize()
+    launches = counts(ops)
+    expect_no_simt("IDDPM forwards")
+    print(f"IDDPM call sites per forward: {json.dumps(sites)}; launches of the "
+          f"{len(runs)} forwards {launches}", flush=True)
+    want = {k: v * len(runs) for k, v in PER_FORWARD_IDDPM.items()}
+    if launches != want:
+        fail(f"the IDDPM forwards launched {launches}, expected {want}")
+    rows, failures = forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded)
+    if failures:
+        fail(f"IDDPM forward kernels disagree with their plain versions: {failures}")
+    del m, recorded
+    torch.cuda.empty_cache()
+    n8 = [dict(r, sites=r["sites"]["n8"]) for r in rows if "n8" in r["sites"]]
+    per_forward = {kname: per_site_sum(n8, kname)
+                   for kname in ("group_norm_silu", "attention", "resblock")}
+    for kname, v in per_forward.items():
+        print(f"per IDDPM forward at n = {BATCH}, {kname}: " + ", ".join(
+            f"{f} {x:.4f}" for f, x in v.items() if isinstance(x, float)) + f" [{card}]",
+            flush=True)
+    lit = functools.partial(LitIDDPM, **IDDPM_CIFAR)
+    train = train_kernels(torch, blocks, k_gn, k_attn, None, init_weights, lit, dev, card, ops)
+    return {"forward_rows": rows, "sites": sites, "forward_launches": launches,
+            "per_forward": per_forward, "train": train}
+
+
+def _dropout_masks(blocks, model, record: dict, replay: bool):
+    """Patch each ResBlock of ``model`` to record the dropout mask it draws
+    (``replay=False``) or to run on the mask recorded for it (``replay=True``,
+    through the block's own ``mask``/``recompute`` arguments, as its remat
+    recomputation does). Returns the undo function."""
+    patched = []
+    for name, blk in model.named_modules():
+        if not isinstance(blk, blocks.ResBlock):
+            continue
+        if replay:
+            def fwd(x, emb, train=False, generator=None, _b=blk, _n=name, **kw):
+                return type(_b).forward(_b, x, emb, train, None,
+                                        mask=record[_n].to(x.device), recompute=True)
+            blk.forward = fwd
+            patched.append((blk, "forward"))
+        else:
+            def std(x, emb, mask, _b=blk, _n=name):
+                record[_n] = mask.cpu()
+                return type(_b)._standard(_b, x, emb, mask)
+            blk._standard = std
+            patched.append((blk, "_standard"))
+
+    def undo():
+        for blk, attr in patched:
+            delattr(blk, attr)
+    return undo
+
+
+def iddpm_gradient(torch, np, blocks, init_weights, dev, ops) -> dict:
+    """Phase 12: one hybrid-loss ``loss_given`` + backward of the IDDPM UNet
+    at batch 8 with T = 4000 (configs/iddpm/cifar10.yaml), dropout 0.3 on:
+    bf16 on the card against f32 on the CPU on the same weights, numpy t
+    (one sample at t = 1, the discretized-NLL branch), ε, and the dropout
+    masks the card drew, replayed on the CPU. The loss and the flattened
+    gradient within ``GRAD_REL_L2``; the variance head (channels 3-5 of
+    ``output_conv``) reported apart; launches 45/45/11/0."""
+    from torch.func import functional_call
+
+    from dmme_tpu_torch.diffusion import IDDPM
+
+    card = iddpm_model(torch, blocks, init_weights, torch.bfloat16)
+    ref = iddpm_model(torch, blocks, init_weights, torch.float32)
+    ref.load_state_dict(card.state_dict(), strict=True)
+    card = card.to(dev)
+    algo = IDDPM.create(**{k: IDDPM_CIFAR[k] for k in ("timesteps", "loss_type", "gamma",
+                                                        "schedule", "start", "end")})
+    r = np.random.default_rng(SEED + 3)
+    x0 = torch.tensor(np.clip(r.standard_normal((BATCH, 32, 32, 3)), -1, 1).astype(np.float32))
+    t = torch.tensor(r.integers(1, algo.timesteps, (BATCH,)), dtype=torch.int64)
+    t[0] = 1
+    eps = torch.tensor(r.standard_normal((BATCH, 32, 32, 3)).astype(np.float32))
+    masks = {}
+
+    def loss_and_grads(model, device, replay, w):
+        params = {k: v.detach().to(device).requires_grad_(True) for k, v in w.items()}
+        undo = _dropout_masks(blocks, model, masks, replay)
+        try:
+            loss = algo.loss_given(
+                lambda p, x, tt, **kw: functional_call(model, p, (x, tt), kw), params,
+                x0.to(device), t.to(device), eps.to(device), train=True,
+                generator=torch.Generator(device=device).manual_seed(SEED))
+            grads = torch.autograd.grad(loss, list(params.values()))
+        finally:
+            undo()
+        return loss.detach().cpu(), dict(zip(params, (g.cpu() for g in grads)))
+
+    weights = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+    reset_counts(ops)
+    loss_c, grads_c = loss_and_grads(card, dev, False, weights)
+    torch.cuda.synchronize()
+    launches = counts(ops)
+    expect_no_simt("IDDPM training step")
+    print(f"IDDPM hybrid loss_given + backward at batch {BATCH}: launches {launches}; "
+          f"t {t.tolist()}; {len(masks)} dropout masks recorded", flush=True)
+    if launches != PER_TRAIN_STEP_IDDPM:
+        fail(f"an IDDPM training step launched {launches}, expected {PER_TRAIN_STEP_IDDPM}")
+    bad = [k for k, g in grads_c.items()
+           if not bool(g.isfinite().all()) or float(g.abs().max()) == 0.0]
+    if bad:
+        fail(f"IDDPM gradients zero or not finite on the card: {bad[:10]}")
+    loss_r, grads_r = loss_and_grads(ref, torch.device("cpu"), True, weights)
+
+    def var_head(grads):
+        return torch.cat([grads[f"output_conv.{p}"][VAR_HEAD].float().flatten()
+                          for p in ("weight", "bias")])
+
+    out = {"loss_card": float(loss_c), "loss_cpu": float(loss_r),
+           "loss_rel_err": abs(float(loss_c) - float(loss_r)) / abs(float(loss_r)),
+           "grad_rel_l2": rel_l2(torch.cat([g.float().flatten() for g in grads_c.values()]),
+                                 torch.cat([grads_r[k].flatten() for k in grads_c])),
+           "var_head_rel_l2": rel_l2(var_head(grads_c), var_head(grads_r)),
+           "launches": launches, "t": t.tolist(), "per_module": {}}
+    for top in dict.fromkeys(k.split(".")[0] for k in grads_c):
+        keys = [k for k in grads_c if k.split(".")[0] == top]
+        out["per_module"][top] = rel_l2(torch.cat([grads_c[k].float().flatten() for k in keys]),
+                                        torch.cat([grads_r[k].flatten() for k in keys]))
+    # the same step with the variance head conditioned (VAR_HEAD_COND), masks
+    # drawn again on the card and replayed
+    cond = condition_var_head(weights)
+    _, cond_c = loss_and_grads(card, dev, False, cond)
+    _, cond_r = loss_and_grads(ref, torch.device("cpu"), True, cond)
+    out["var_head_rel_l2_conditioned"] = rel_l2(var_head(cond_c), var_head(cond_r))
+    print(f"IDDPM loss card {out['loss_card']:.6f} cpu {out['loss_cpu']:.6f} rel err "
+          f"{out['loss_rel_err']:.3e}; flattened gradient rel L2 {out['grad_rel_l2']:.3e} "
+          f"(<= {GRAD_REL_L2}); variance head (output_conv channels 3-5) rel L2 "
+          f"{out['var_head_rel_l2']:.3e}, {out['var_head_rel_l2_conditioned']:.3e} with the "
+          f"head conditioned (both reported)", flush=True)
+    print("per top-level module: " + ", ".join(f"{k} {v:.2e}"
+                                               for k, v in out["per_module"].items()), flush=True)
+    if not (out["loss_rel_err"] <= GRAD_REL_L2 and out["grad_rel_l2"] <= GRAD_REL_L2):
+        fail(f"the card's IDDPM loss or gradient is too far from the CPU's: {out}")
+    return out
+
+
+def _post(url: str, body: dict):
+    """POST /sample; returns (status, body bytes, seconds)."""
+    req = urllib.request.Request(url + "/sample", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.time()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read(), time.time() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), time.time() - t0
+
+
+def _serve(torch, sampler):
+    """A started server for ``sampler``: (url, stop)."""
+    from dmme_tpu_torch.serving import make_server
+
+    server = make_server(sampler, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def stop():
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    return "http://%s:%d" % server.server_address[:2], stop
+
+
+def default_requests(np, url: str, ops, model: str, card: str) -> tuple:
+    """``default`` requests of n = 1, 8, 16 and a repeat of 8 that must return
+    identical bytes, after one warm request (cuDNN plans, first buffers).
+    Returns (one record a request, the launches of the four)."""
+    _post(url, {"n": 1, "seed": 99, "format": "npy"})
+    reset_counts(ops)
+    requests, bodies = [], {}
+    for n, seed in ((1, 1), (8, 2), (16, 3), (8, 2)):
+        code, data, secs = _post(url, {"n": n, "seed": seed, "format": "npy"})
+        imgs = np.load(io.BytesIO(data)) if code == 200 else None
+        ok = bool(code == 200 and imgs.shape == (n, 32, 32, 3) and np.isfinite(imgs).all()
+                  and imgs.min() >= 0.0 and imgs.max() <= 1.0)
+        requests.append({"n": n, "seed": seed, "s": secs, "ok": ok,
+                         "mean": float(imgs.mean()) if ok else None,
+                         "std": float(imgs.std()) if ok else None})
+        print(f"{model}: POST /sample n={n:2d} seed={seed}: {secs:.3f} s"
+              + (f", range [{imgs.min():.3f}, {imgs.max():.3f}], std {imgs.std():.4f}"
+                 if ok else "  FAIL") + f" [{card}]", flush=True)
+        if not ok:
+            fail(f"{model}: /sample n={n} returned bad images")
+        if (n, seed) in bodies and bodies[(n, seed)] != data:
+            fail(f"{model}: a repeated request with the same seed returned other bytes")
+        bodies[(n, seed)] = data
+    launches = counts(ops)
+    expect_no_simt(f"{model} serve")
+    print(f"{model}: repeat of n=8 seed=2 identical bytes", flush=True)
+    return requests, launches
+
+
+def solver_requests(np, url: str, ops, model: str, card: str) -> list:
+    """``ddim``, ``dpm`` and ``unipc`` requests at n = 8 (their default
+    steps: 50, 20, 10), each repeated for identical bytes; launches
+    counted per request."""
+    out = []
+    for name, steps in (("ddim", 50), ("dpm", 20), ("unipc", 10)):
+        body = {"n": BATCH, "seed": 2, "format": "npy", "sampler": name}
+        reset_counts(ops)
+        code, data, secs = _post(url, body)
+        launches = counts(ops)
+        code2, again, secs2 = _post(url, body)
+        imgs = np.load(io.BytesIO(data)) if code == 200 else None
+        ok = bool(code == code2 == 200 and data == again and imgs.shape == (BATCH, 32, 32, 3)
+                  and np.isfinite(imgs).all() and imgs.min() >= 0.0 and imgs.max() <= 1.0)
+        out.append({"model": model, "sampler": name, "steps": steps, "s": secs, "s_repeat": secs2,
+                    "launches": launches, "ok": ok,
+                    "std": float(imgs.std()) if imgs is not None else None})
+        print(f"{model}: POST /sample sampler={name} (steps {steps}) n={BATCH}: {secs:.3f} s, "
+              f"repeat {secs2:.3f} s {'identical' if data == again else 'DIFFERENT'}, launches "
+              f"{launches} [{card}]" + ("" if ok else "  FAIL"), flush=True)
+        if not ok:
+            fail(f"{model}: the {name} request failed or was not repeatable")
+        expect_no_simt(f"{model} {name} request")
+    return out
+
+
+def iddpm_serve(torch, np, blocks, dev, ops, card: str) -> dict:
+    """Phase 14: ``LitIDDPM(dtype="bf16", sample_steps=50)`` (T = 1000,
+    cosine) behind ``make_server``: ``default`` requests (the 50-step
+    respaced ancestral sampler with learned variances) at n = 1, 8 and 16
+    and a repeat of 8 with identical bytes, launches 1/11/22 a forward;
+    ``ddim``/``dpm``/``unipc`` at n = 8 (ε-only adapter, clip_x0 on the
+    cosine schedule); ``cached`` answered 400; one n = 8 ``default`` request
+    under torch.profiler; 20 steps of the T = 4000 ancestral loop of
+    configs/iddpm/cifar10.yaml timed and extrapolated."""
+    from dmme_tpu_torch.serving import Sampler
+    from dmme_tpu_torch.training import LitIDDPM, TrainState
+
+    lit = LitIDDPM(dtype="bf16", sample_steps=50)
+    lit.init_state(SEED)
+    randomize_affines(torch, blocks, lit.model, torch.Generator().manual_seed(SEED + 1))
+    state = TrainState.create({k: v.detach().clone() for k, v in lit.model.state_dict().items()},
+                              lit.make_optimizer())
+    sampler = Sampler(lit, state, img_size=32, device=dev)
+    url, stop = _serve(torch, sampler)
+    out = {}
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        print(f"healthz {health}", flush=True)
+        if health.get("samplers") != ["default", "ddim", "dpm", "unipc"]:
+            fail(f"healthz: {health}")
+        out["requests"], launches = default_requests(np, url, ops, "IDDPM", card)
+        want = {k: v * 50 * 4 for k, v in PER_FORWARD_IDDPM.items()}
+        print(f"IDDPM: launches during the four default requests {launches} (expected {want})",
+              flush=True)
+        if launches != want:
+            fail(f"IDDPM serve launched {launches}, expected {want}")
+        out["launches"] = launches
+        out["solvers"] = solver_requests(np, url, ops, "IDDPM", card)
+        for r in out["solvers"]:
+            want = {k: v * r["steps"] for k, v in PER_FORWARD_IDDPM.items()}
+            if r["launches"] != want:
+                fail(f"IDDPM {r['sampler']} launched {r['launches']}, expected {want}")
+        code, data, _ = _post(url, {"n": 1, "sampler": "cached", "format": "npy"})
+        out["cached"] = {"code": code, "error": json.loads(data).get("error")}
+        print(f"IDDPM sampler=cached: {code} {out['cached']['error']}", flush=True)
+        if code != 400 or "A.5" not in out["cached"]["error"]:
+            fail(f"sampler=cached answered {code} {data!r}")
+    finally:
+        stop()
+    prof = profile_fn(torch, lambda: sampler.sample(BATCH, seed=5))
+    out["profile_n8"] = prof
+    print(f"IDDPM default n=8 under torch.profiler: wall {prof['wall_ms']:.2f} ms, device busy "
+          f"{prof['busy_ms']:.2f} ms, idle share {prof['idle_share']:.3f} [{card}]", flush=True)
+    for name, ms, count in prof["top"]:
+        print(f"    {ms:9.3f} ms {count:6d}x  {name}", flush=True)
+
+    # the T = 4000 ancestral loop of configs/iddpm/cifar10.yaml: 20 steps timed
+    full = LitIDDPM(model=lit.model, **IDDPM_CIFAR)
+    x = torch.randn((BATCH, 32, 32, 3), generator=torch.Generator().manual_seed(SEED)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    algo, params = full.diffusion_model.to(dev), sampler.state.ema_params
+    with torch.no_grad():
+        x = algo.sampling_step(full.model_fn, params, x, 4000, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(3999, 3979, -1):
+            x = algo.sampling_step(full.model_fn, params, x, t, gen)
+        torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / 20
+    out["t4000"] = {"step_s": per_step, "request_s_extrapolated": 4000 * per_step,
+                    "finite": bool(x.isfinite().all())}
+    print(f"T = 4000 ancestral sampling at n = {BATCH}: {1e3 * per_step:.3f} ms a step (20 "
+          f"steps, host clock), so {4000 * per_step:.1f} s a request [{card}]", flush=True)
+    if not out["t4000"]["finite"]:
+        fail("the T = 4000 ancestral steps are not finite")
+    return out
+
+
+def f32_iddpm_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
+                    card: str) -> dict:
+    """Phase 16: ``LitIDDPM()`` (f32, T = 1000 cosine, dropout 0.3) takes one
+    full-width training step at batch 128 and one 50-step respaced step at
+    n = 8 on the card through ``simt.cu`` (K1/K2/K3 45/45/11 a step, K1/K3/K4
+    1/11/22 a forward, no bf16 kernel), every call site held against its
+    plain version (:func:`simt_rows`). Then, dropout off, the hybrid
+    ``loss_given`` (t from the seed, one sample at t = 1) with its gradient
+    and the respaced step (injected noise) against f32 on the CPU, within
+    ``F32_REL_L2``, the variance head's gradient included; the bf16 harness
+    on the same inputs is the control that must miss that limit."""
+    from dmme_tpu_torch.data import CIFAR10
+    from dmme_tpu_torch.parallel import make_train_step
+    from dmme_tpu_torch.training import LitIDDPM
+
+    none = {k: 0 for k in ops}
+    want_step = PER_TRAIN_STEP_IDDPM
+    r = np.random.default_rng(SEED + 60)
+    x0 = torch.tensor(np.clip(r.standard_normal((TRAIN_BATCH, 32, 32, 3)), -1, 1),
+                      dtype=torch.float32)
+    t = torch.tensor(r.integers(1, 1000, (TRAIN_BATCH,)), dtype=torch.int64)
+    t[0] = 1
+    eps = torch.tensor(r.standard_normal((TRAIN_BATCH, 32, 32, 3)), dtype=torch.float32)
+    xs = torch.tensor(r.standard_normal((BATCH, 32, 32, 3)), dtype=torch.float32)
+    noise = torch.tensor(r.standard_normal((BATCH, 32, 32, 3)), dtype=torch.float32)
+    dm = CIFAR10(synthetic=True, synthetic_size=2 * TRAIN_BATCH, batch_size=TRAIN_BATCH)
+    dm.setup("fit")
+    batch = torch.from_numpy(next(dm.train_iter(SEED))).to(dev)
+
+    lit = LitIDDPM()
+    weights = {k: v.detach().clone() for k, v in iddpm_model(
+        torch, blocks, init_weights, torch.float32).state_dict().items()}
+    state = lit.init_state(SEED, device=dev)
+    with torch.no_grad():
+        for k, v in state.params.items():
+            v.copy_(weights[k])
+    metrics = {}
+
+    def train():
+        metrics.update(make_train_step(lit.make_loss_fn(dm))(state, batch, SEED)[1])
+        torch.cuda.synchronize()
+
+    reset_counts(ops)
+    calls = record_calls(train_targets(blocks, k_gn, k_attn), train)
+    out = {"train": {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                     "launches": counts(ops), "simt": simt_counts()}}
+    print(f"LitIDDPM() one training step at batch {TRAIN_BATCH} (f32): loss "
+          f"{out['train']['loss']:.6f} grad_norm {out['train']['grad_norm']:.4f}; bf16 kernel "
+          f"launches {out['train']['launches']}; simt.cu launches {out['train']['simt']}",
+          flush=True)
+    if not (np.isfinite(out["train"]["loss"]) and np.isfinite(out["train"]["grad_norm"])):
+        fail("the f32 IDDPM training step is not finite")
+    if out["train"]["launches"] != none or out["train"]["simt"] != want_step:
+        fail(f"the f32 IDDPM step launched {out['train']['launches']} bf16 and "
+             f"{out['train']['simt']} simt.cu kernels, expected none and {want_step}")
+    del state
+
+    for mod in lit.model.modules():  # dropout off: the card and the CPU draw other masks
+        if isinstance(mod, blocks.ResBlock):
+            mod.dropout = 0.0
+    lit.model.to(dev)
+    strided = lit.diffusion_model.strided(50)
+    p_dev = {k: v.to(dev) for k, v in weights.items()}
+    reset_counts(ops)
+    with torch.no_grad():
+        sample_calls = record_calls(serve_targets(blocks), lambda: strided.sampling_step(
+            lit.model_fn, p_dev, xs.to(dev), 50, noise=noise.to(dev)))
+    torch.cuda.synchronize()
+    out["strided_step"] = {"launches": counts(ops), "simt": simt_counts()}
+    want_fwd = PER_FORWARD_IDDPM
+    print(f"LitIDDPM() one respaced step at n={BATCH} (f32): bf16 kernel launches "
+          f"{out['strided_step']['launches']}; simt.cu launches {out['strided_step']['simt']}",
+          flush=True)
+    if out["strided_step"]["launches"] != none or out["strided_step"]["simt"] != want_fwd:
+        fail(f"the f32 respaced step launched {out['strided_step']}, expected {want_fwd}")
+    rows = simt_rows(torch, k_gn, k_attn, k_res, calls, torch.float32)
+    rows_fwd = simt_rows(torch, k_gn, k_attn, k_res, sample_calls, torch.float32)
+    del calls, sample_calls
+    out["rows"], out["rows_fwd"] = rows, rows_fwd
+    out["per_path"] = {kind: per_site_sum(rows, kind)
+                       for kind in ("group_norm_silu", "group_norm_silu_bwd", "attention")}
+    out["per_path"]["resblock"] = per_site_sum(rows_fwd, "resblock")
+    for kind, v in out["per_path"].items():
+        print(f"f32 IDDPM {kind} summed over its call sites: ms {v['ms']:.4f} plain "
+              f"{v['plain_ms']:.4f} bound {v['bound_ms']:.4f} ({v['bound_by']})"
+              + (f" sdpa {v['library_ms']:.4f}" if v["library_ms"] else "") + f" [{card}]",
+              flush=True)
+
+    def measure(harness, device, w):
+        params = {k: v.to(device).requires_grad_(True) for k, v in w.items()}
+        loss = harness.diffusion_model.loss_given(harness.model_fn, params, x0.to(device),
+                                                  t.to(device), eps.to(device), train=True)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        with torch.no_grad():
+            p = {k: v.detach() for k, v in params.items()}
+            step = strided.sampling_step(harness.model_fn, p, xs.to(device), 50,
+                                         noise=noise.to(device))
+        var_head = torch.cat([grads[f"output_conv.{n}"][VAR_HEAD].flatten()
+                              for n in ("weight", "bias")])
+        return {"loss": loss.detach().cpu(),
+                "grad": torch.cat([g.detach().float().flatten().cpu() for g in grads.values()]),
+                "var_head": var_head.detach().float().cpu(), "step": step.float().cpu()}
+
+    def readings(got, ref) -> dict:
+        return {"loss_rel_err": float(abs(got["loss"] - ref["loss"]) / abs(ref["loss"])),
+                "grad_rel_l2": rel_l2(got["grad"], ref["grad"]),
+                "var_head_rel_l2": rel_l2(got["var_head"], ref["var_head"]),
+                "step_rel_l2": rel_l2(got["step"], ref["step"])}
+
+    def harness(dtype):
+        h = LitIDDPM(dtype=dtype)
+        for mod in h.model.modules():
+            if isinstance(mod, blocks.ResBlock):
+                mod.dropout = 0.0
+        return h
+
+    cpu, control = harness("f32"), harness("bf16")
+    control.model.to(dev)
+    conditioned = condition_var_head(weights)
+    for name, w in (("as drawn", weights), ("v-head conditioned", conditioned)):
+        got = measure(lit, dev, w)
+        torch.cuda.synchronize()
+        if not all(bool(v.isfinite().all()) for v in got.values()):
+            fail("the f32 IDDPM loss, gradient or respaced step on the card is not finite")
+        ref = measure(cpu, torch.device("cpu"), w)
+        rec = out.setdefault(name, {})
+        rec["vs_cpu"] = readings(got, ref)
+        rec["bf16_control"] = readings(measure(control, dev, w), ref)
+        # as drawn, the t = 1 NLL is ill-conditioned in f32 (VAR_HEAD_COND):
+        # its variance-head reading is reported, the rest held
+        held = [k for k in rec["vs_cpu"] if name != "as drawn" or k != "var_head_rel_l2"]
+        print(f"f32 IDDPM ({name}) card vs f32 CPU: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rec["vs_cpu"].items()) + f" ({', '.join(held)} <= "
+            f"{F32_REL_L2}); bf16 control: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rec["bf16_control"].items()), flush=True)
+        if not all(rec["vs_cpu"][k] <= F32_REL_L2 for k in held):
+            fail(f"the f32 IDDPM harness ({name}) on the card disagrees with the f32 CPU "
+                 "reference")
+        if not rec["bf16_control"]["grad_rel_l2"] > F32_REL_L2:
+            fail("the f32 IDDPM comparison does not tell bf16 compute from f32")
+    return out
+
+
 CLI_ROOT = os.path.join("build", "cli_run")
 
 
@@ -1315,7 +1866,9 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
     torch.backends.cudnn.deterministic = True
     print("cudnn deterministic on for the CLI phase", flush=True)
     roots = {k: os.path.join("build", k) for k in ("cli_run", "cli_run_whole", "cli_shapes",
-                                                      "cli_remat", "cli_noremat")}
+                                                      "cli_remat", "cli_noremat",
+                                                      "cli_iddpm_shapes", "cli_iddpm_sample",
+                                                      "cli_iddpm64_remat", "cli_iddpm64_noremat")}
     for root in roots.values():
         shutil.rmtree(root, ignore_errors=True)
     ddim_cfg = ["--config", "configs/ddim/cifar10.yaml", "--data.init_args.synthetic", "true"]
@@ -1459,9 +2012,151 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
             fail(f"shapes256_demo remat {remat} left {rec}")
     if not peaks["true"] < peaks["false"]:
         fail(f"remat did not lower the peak memory: {peaks}")
+
+    # IDDPM: the Shapes recipe, a DPM-Solver++ grid of the CIFAR-10 recipe,
+    # and the ImageNet-64 widths at 64 px with and without remat
+    shapes = roots["cli_iddpm_shapes"]
+    rec = run("iddpm shapes_demo 20", ["fit", "--config", "configs/iddpm/shapes_demo.yaml",
+                                       "--trainer.max_steps", "20", "--trainer.log_every_n_steps",
+                                       "10", "--trainer.default_root_dir", shapes],
+              {k: 20 * v for k, v in PER_TRAIN_STEP_IDDPM.items()})
+    logged = _jsonl(os.path.join(shapes, "metrics.jsonl"))
+    rec["losses"] = [r["loss"] for r in logged]
+    rec["checkpoints"] = CheckpointManager(shapes).steps()
+    print(f"iddpm shapes_demo (steps_per_call 10): checkpoints {rec['checkpoints']}, losses "
+          f"{rec['losses']}", flush=True)
+    if rec["checkpoints"] != [20] or len(logged) != 2 or not np.isfinite(rec["losses"]).all():
+        fail(f"iddpm shapes_demo through the CLI left {rec}")
+    sample_root = roots["cli_iddpm_sample"]
+    rec = run("iddpm cifar10 sample dpm 20", [
+        "sample", "--config", "configs/iddpm/cifar10.yaml", "--data.init_args.synthetic", "true",
+        "--trainer.sampler", "dpm", "--trainer.sample_steps", "20",
+        "--trainer.default_root_dir", sample_root],
+        {k: 20 * v for k, v in PER_FORWARD_IDDPM.items()})
+    rec["grid"] = os.listdir(os.path.join(sample_root, "samples"))
+    print(f"iddpm cifar10 sample --trainer.sampler dpm: {rec['grid']}", flush=True)
+    if rec["grid"] != ["step_00000000_dpm20.png"]:
+        fail(f"the IDDPM dpm sample wrote {rec['grid']}")
+    peaks = {}
+    for name, remat in (("cli_iddpm64_remat", "true"), ("cli_iddpm64_noremat", "false")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec = run(f"iddpm shapes64_demo remat {remat}", [
+            "fit", "--config", "configs/iddpm/shapes64_demo.yaml", "--trainer.max_steps", "2",
+            "--trainer.steps_per_call", "1", "--trainer.log_every_n_steps", "1",
+            "--trainer.default_root_dir", roots[name],
+            "--model.init_args.model.init_args.remat", remat])
+        peaks[remat] = rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["losses"] = [r["loss"] for r in _jsonl(os.path.join(roots[name], "metrics.jsonl"))]
+        print(f"iddpm shapes64_demo (ImageNet-64 widths, 104,685,958 parameters, 64 px, batch "
+              f"64) remat {remat}: peak memory {rec['peak_gib']:.3f} GiB, losses "
+              f"{rec['losses']}, {rec['wall_s']:.2f} s [{card}]", flush=True)
+        if len(rec["losses"]) != 2 or not np.isfinite(rec["losses"]).all():
+            fail(f"iddpm shapes64_demo remat {remat} left {rec}")
+    if not peaks["true"] < peaks["false"]:
+        fail(f"remat did not lower the IDDPM peak memory: {peaks}")
     for root in roots.values():
         shutil.rmtree(root, ignore_errors=True)
     return out
+
+
+def record_forwards(torch, blocks, runs, dev) -> tuple:
+    """Record the K1/K3/K4 inputs of eval forwards. ``runs``: {name: (model,
+    x, t, expected call sites)}; fails if a forward's call sites differ.
+    Returns ({kind: {signature: {"a", "k", "sites": {name: count}}}},
+    {name: call sites})."""
+    recorded = {"group_norm_silu": {}, "attention": {}, "resblock": {}}
+    site_counts = {}
+    for name, (m, xs, ts, want) in runs.items():
+        with torch.no_grad():
+            calls = record_calls(serve_targets(blocks),
+                                 lambda m=m, xs=xs, ts=ts: m(xs.to(dev), ts.to(dev)))
+        site_counts[name] = {k: sum(c for _, c, _, _ in v) for k, v in calls.items()}
+        if site_counts[name] != {k: want[k] for k in site_counts[name]}:
+            fail(f"UNet forward ({name}) has call sites {site_counts[name]}, expected {want}")
+        for kind_, lst in calls.items():
+            for key, count, a, k in lst:
+                entry = recorded[kind_].setdefault(key, {"a": a, "k": k, "sites": {}})
+                entry["sites"][name] = count
+    return recorded, site_counts
+
+
+def forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded) -> tuple:
+    """Hold every recorded K1/K3/K4 call of a UNet forward against its plain
+    version (``TOL``) and time it: median of 25 CUDA-event runs, the bound,
+    SDPA beside K3, the library sequences beside K1 and K4. ``recorded``:
+    {kind: {signature: {"a", "k", "sites"}}}. Returns (rows, failures)."""
+    plain = {
+        "group_norm_silu": lambda x, g, b, groups, eps=k_gn.GN_EPS, pre_bias=None:
+            k_gn.gn_silu_plain(x, g, b, pre_bias, groups, eps)[0],
+        "attention": k_attn.attention_heads_plain,
+        "resblock": k_res.resblock_plain,
+    }
+    kernel = {"group_norm_silu": k_gn.group_norm_silu, "attention": k_attn.attention_heads,
+              "resblock": k_res.resblock_forward}
+    shapes = []
+    failures = []
+    with torch.no_grad():
+        for kind_, entries in recorded.items():
+            rtol, atol = TOL[kind_]
+            for key, e in entries.items():
+                a, k = e["a"], e["k"]
+                if kind_ == "resblock":
+                    pa = list(a) + [k.get("wr"), k.get("br"), k.get("num_groups", 32),
+                                    k.get("eps", k_gn.GN_EPS)]
+                    plain_fn = lambda pa=pa: plain["resblock"](*pa)  # noqa: E731
+                else:
+                    plain_fn = lambda a=a, k=k, kind_=kind_: plain[kind_](*a, **k)  # noqa: E731
+                kern_fn = lambda a=a, k=k, kind_=kind_: kernel[kind_](*a, **k)  # noqa: E731
+                got = kern_fn()
+                torch.cuda.synchronize()
+                want = plain_fn()
+                max_abs, max_rel, ok = errors(got, want, rtol, atol)
+                rec = {
+                    "kernel": kind_, "key": repr(key), "sites": e["sites"],
+                    "max_abs_err": max_abs, "max_rel_err": max_rel,
+                    "rtol": rtol, "atol": atol, "ok": ok,
+                    "ms": device_ms(torch, kern_fn), "plain_ms": device_ms(torch, plain_fn),
+                }
+                rec["bound_ms"], rec["bound_by"] = bound_ms(kind_, a, k)
+                rec["library_ms"] = None
+                if kind_ == "attention":
+                    q, kk, v, scale = a
+                    sdpa = lambda q=q, kk=kk, v=v, scale=scale: (  # noqa: E731
+                        torch.nn.functional.scaled_dot_product_attention(
+                            q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
+                            scale=scale))
+                    rec["library_ms"] = device_ms(torch, sdpa)
+                    rec["plan"] = attention_plan(k_attn, q)
+                elif kind_ == "group_norm_silu":
+                    rec["plan"] = gn_plan(k_gn, a[0], a[3], False)
+                    rec["torch_seq_ms"] = device_ms(torch, gn_sequence(torch, a, k))
+                elif kind_ == "resblock":
+                    try:
+                        rec["cudnn_seq_ms"] = device_ms(torch, cudnn_sequence(torch, pa))
+                    except RuntimeError as err:  # a yardstick only: note it and go on
+                        rec["cudnn_seq_ms"] = None
+                        print(f"cudnn sequence at {key}: {err}", flush=True)
+                    x_ = a[0]
+                    cin_, cout_ = x_.shape[3], a[6].shape[0]
+                    p1 = k_res.conv_plan(*x_.shape[:3], cin_, cout_, 0, build.sm_count(dev))
+                    p2 = k_res.conv_plan(*x_.shape[:3], cout_, cout_,
+                                         cin_ if k.get("wr") is not None else 0,
+                                         build.sm_count(dev))
+                    rec["plan"] = {"conv1": p1._asdict(), "conv2": p2._asdict()}
+                shapes.append(rec)
+                print(f"{kind_:16s} {str(key):58s} sites {e['sites']} "
+                      f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} (rtol {rtol}, atol {atol}) "
+                      f"ms {rec['ms']:.4f} plain {rec['plain_ms']:.4f} bound {rec['bound_ms']:.4f} "
+                      f"({rec['bound_by']})"
+                      + (f" sdpa {rec['library_ms']:.4f}" if rec["library_ms"] else "")
+                      + (f" cudnn_seq {rec['cudnn_seq_ms']:.4f}" if rec.get("cudnn_seq_ms") else "")
+                      + (f" torch_seq {rec['torch_seq_ms']:.4f} plan {rec['plan']}"
+                         if kind_ == "group_norm_silu" else "")
+                      + ("" if ok else "  FAIL"), flush=True)
+                if not ok:
+                    failures.append(f"{kind_} {key}")
+    return shapes, failures
 
 
 def write_report(path: str, report: dict) -> None:
@@ -1562,101 +2257,19 @@ def main() -> int:
         models[name] = m.to(dev).eval()
 
     phase("kernels against their plain versions")
-    recorded = {"group_norm_silu": {}, "attention": {}, "resblock": {}}
-    site_counts = {}
     # the serving path's forwards: batch 8 under both switch settings, and
     # the other request sizes the serve phase sends, 1 and 16, whose shapes
     # take other plans (a key split, 4x4 tiles that reach past the batch)
-    forwards = {name: (name, BATCH) for name in models}
-    forwards.update({f"both_n{n}": ("both", n) for n in SERVE_BATCHES if n != BATCH})
-    for name, (setting, n) in forwards.items():
-        g = torch.Generator().manual_seed(SEED + n)
-        xs, ts = ((x_in, t_in) if n == BATCH else
-                  (torch.randn((n, 32, 32, 3), generator=g),
-                   torch.randint(1, 1000, (n,), generator=g)))
-        with torch.no_grad():
-            calls = record_calls(serve_targets(blocks),
-                                 lambda m=models[setting], xs=xs, ts=ts: m(xs.to(dev), ts.to(dev)))
-        site_counts[name] = {k: sum(c for _, c, _, _ in v) for k, v in calls.items()}
-        if site_counts[name] != {k: expect[setting][k] for k in site_counts[name]}:
-            fail(f"UNet forward ({name}) has call sites {site_counts[name]}, "
-                 f"expected {expect[setting]}")
-        for kind_, lst in calls.items():
-            for key, count, a, k in lst:
-                entry = recorded[kind_].setdefault(key, {"a": a, "k": k, "sites": {}})
-                entry["sites"][name] = count
+    runs = {name: (models[name], x_in, t_in, expect[name]) for name in models}
+    for n in SERVE_BATCHES:
+        if n != BATCH:
+            g = torch.Generator().manual_seed(SEED + n)
+            runs[f"both_n{n}"] = (models["both"], torch.randn((n, 32, 32, 3), generator=g),
+                                  torch.randint(1, 1000, (n,), generator=g), expect["both"])
+    recorded, site_counts = record_forwards(torch, blocks, runs, dev)
     print(f"call sites per UNet forward: {json.dumps(site_counts)}", flush=True)
 
-    plain = {
-        "group_norm_silu": lambda x, g, b, groups, eps=k_gn.GN_EPS, pre_bias=None:
-            k_gn.gn_silu_plain(x, g, b, pre_bias, groups, eps)[0],
-        "attention": k_attn.attention_heads_plain,
-        "resblock": k_res.resblock_plain,
-    }
-    kernel = {"group_norm_silu": k_gn.group_norm_silu, "attention": k_attn.attention_heads,
-              "resblock": k_res.resblock_forward}
-    shapes = []
-    failures = []
-    with torch.no_grad():
-        for kind_, entries in recorded.items():
-            rtol, atol = TOL[kind_]
-            for key, e in entries.items():
-                a, k = e["a"], e["k"]
-                if kind_ == "resblock":
-                    pa = list(a) + [k.get("wr"), k.get("br"), k.get("num_groups", 32),
-                                    k.get("eps", k_gn.GN_EPS)]
-                    plain_fn = lambda pa=pa: plain["resblock"](*pa)  # noqa: E731
-                else:
-                    plain_fn = lambda a=a, k=k, kind_=kind_: plain[kind_](*a, **k)  # noqa: E731
-                kern_fn = lambda a=a, k=k, kind_=kind_: kernel[kind_](*a, **k)  # noqa: E731
-                got = kern_fn()
-                torch.cuda.synchronize()
-                want = plain_fn()
-                max_abs, max_rel, ok = errors(got, want, rtol, atol)
-                rec = {
-                    "kernel": kind_, "key": repr(key), "sites": e["sites"],
-                    "max_abs_err": max_abs, "max_rel_err": max_rel,
-                    "rtol": rtol, "atol": atol, "ok": ok,
-                    "ms": device_ms(torch, kern_fn), "plain_ms": device_ms(torch, plain_fn),
-                }
-                rec["bound_ms"], rec["bound_by"] = bound_ms(kind_, a, k)
-                rec["library_ms"] = None
-                if kind_ == "attention":
-                    q, kk, v, scale = a
-                    sdpa = lambda q=q, kk=kk, v=v, scale=scale: (  # noqa: E731
-                        torch.nn.functional.scaled_dot_product_attention(
-                            q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
-                            scale=scale))
-                    rec["library_ms"] = device_ms(torch, sdpa)
-                    rec["plan"] = attention_plan(k_attn, q)
-                elif kind_ == "group_norm_silu":
-                    rec["plan"] = gn_plan(k_gn, a[0], a[3], False)
-                    rec["torch_seq_ms"] = device_ms(torch, gn_sequence(torch, a, k))
-                elif kind_ == "resblock":
-                    try:
-                        rec["cudnn_seq_ms"] = device_ms(torch, cudnn_sequence(torch, pa))
-                    except RuntimeError as err:  # a yardstick only: note it and go on
-                        rec["cudnn_seq_ms"] = None
-                        print(f"cudnn sequence at {key}: {err}", flush=True)
-                    x_ = a[0]
-                    cin_, cout_ = x_.shape[3], a[6].shape[0]
-                    p1 = k_res.conv_plan(*x_.shape[:3], cin_, cout_, 0, build.sm_count(dev))
-                    p2 = k_res.conv_plan(*x_.shape[:3], cout_, cout_,
-                                         cin_ if k.get("wr") is not None else 0,
-                                         build.sm_count(dev))
-                    rec["plan"] = {"conv1": p1._asdict(), "conv2": p2._asdict()}
-                shapes.append(rec)
-                print(f"{kind_:16s} {str(key):58s} sites {e['sites']} "
-                      f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} (rtol {rtol}, atol {atol}) "
-                      f"ms {rec['ms']:.4f} plain {rec['plain_ms']:.4f} bound {rec['bound_ms']:.4f} "
-                      f"({rec['bound_by']})"
-                      + (f" sdpa {rec['library_ms']:.4f}" if rec["library_ms"] else "")
-                      + (f" cudnn_seq {rec['cudnn_seq_ms']:.4f}" if rec.get("cudnn_seq_ms") else "")
-                      + (f" torch_seq {rec['torch_seq_ms']:.4f} plan {rec['plan']}"
-                         if kind_ == "group_norm_silu" else "")
-                      + ("" if ok else "  FAIL"), flush=True)
-                if not ok:
-                    failures.append(f"{kind_} {key}")
+    shapes, failures = forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded)
     report["shapes"] = shapes
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
@@ -1723,52 +2336,22 @@ def main() -> int:
     state = TrainState.create({k: v.detach().clone() for k, v in lit.model.state_dict().items()},
                               lit.make_optimizer())
     sampler = Sampler(lit, state, img_size=32, device="cuda")
-    server = make_server(sampler, port=0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    url = "http://%s:%d" % server.server_address[:2]
-    serve = {"requests": []}
+    url, stop = _serve(torch, sampler)
+    serve = {}
     try:
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
         print(f"healthz {health}", flush=True)
         if health.get("status") != "ok":
             fail(f"healthz: {health}")
-
-        def post(n, seed):
-            body = json.dumps({"n": n, "seed": seed, "format": "npy"}).encode()
-            req = urllib.request.Request(url + "/sample", data=body,
-                                         headers={"Content-Type": "application/json"})
-            t = time.time()
-            with urllib.request.urlopen(req, timeout=600) as r:
-                data = r.read()
-            return data, time.time() - t
-
-        post(1, 99)  # first request: cuDNN plans, the sampler's first buffers
-        reset_counts(ops)
-        bodies = {}
-        for n, seed in ((1, 1), (8, 2), (16, 3), (8, 2)):
-            data, secs = post(n, seed)
-            imgs = np.load(io.BytesIO(data))
-            ok = bool(imgs.shape == (n, 32, 32, 3) and np.isfinite(imgs).all()
-                      and imgs.min() >= 0.0 and imgs.max() <= 1.0)
-            serve["requests"].append({"n": n, "seed": seed, "s": secs, "ok": ok,
-                                      "mean": float(imgs.mean()), "std": float(imgs.std())})
-            print(f"POST /sample n={n:2d} seed={seed}: {secs:.3f} s, shape {imgs.shape}, "
-                  f"range [{imgs.min():.3f}, {imgs.max():.3f}], std {imgs.std():.4f}"
-                  + ("" if ok else "  FAIL"), flush=True)
-            if not ok:
-                fail(f"/sample n={n} returned bad images")
-            if (n, seed) in bodies and bodies[(n, seed)] != data:
-                fail("a repeated request with the same seed returned other bytes")
-            bodies[(n, seed)] = data
-        launches = counts(ops)
-        expect_no_simt("serve")
+        serve["requests"], launches = default_requests(np, url, ops, "DDPM", card)
+        serve["solvers"] = solver_requests(np, url, ops, "DDPM", card)
+        for r in serve["solvers"]:
+            want = {k: v * r["steps"] for k, v in expect["both"].items()}
+            if r["launches"] != want:
+                fail(f"DDPM {r['sampler']} launched {r['launches']}, expected {want}")
     finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=60)
-    print("repeat of n=8 seed=2: identical bytes", flush=True)
+        stop()
     print(f"kernel launches during the four requests: {launches}", flush=True)
     per_request = {k: expect["both"][k] * lit.diffusion_model.sub_timesteps * 4
                    for k in launches}
@@ -1821,6 +2404,30 @@ def main() -> int:
     k_res._PACKED.clear()
     torch.cuda.empty_cache()
 
+    torch.backends.cudnn.deterministic = True
+    print("cudnn deterministic on for the IDDPM checks", flush=True)
+    phase("IDDPM kernels: full-width forwards at n = 1, 8, 16 and a training step at batch 128")
+    from dmme_tpu_torch.training import LitIDDPM
+
+    report["iddpm_kernels"] = iddpm_kernels(torch, blocks, k_gn, k_attn, k_res, build,
+                                            init_weights, dev, ops, card)
+    torch.cuda.empty_cache()
+    phase("IDDPM gradient: hybrid loss_given + backward at batch 8 with t = 1, bf16 card vs "
+          "f32 CPU")
+    report["iddpm_gradient"] = iddpm_gradient(torch, np, blocks, init_weights, dev, ops)
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    phase("IDDPM fit: LitIDDPM(configs/iddpm/cifar10.yaml, dtype='bf16') on "
+          "CIFAR10(synthetic=True, batch_size=128)")
+    run_fit(torch, np, blocks, dev, ops, report, card,
+            lit=LitIDDPM(dtype="bf16", **IDDPM_CIFAR), per_step=PER_TRAIN_STEP_IDDPM,
+            key="iddpm_fit")
+    iddpm_fit_launches = report["iddpm_fit"]["launches"]
+    torch.cuda.empty_cache()
+    phase("IDDPM serve: LitIDDPM(dtype='bf16', sample_steps=50) over HTTP, and the solvers")
+    report["iddpm_serve"] = iddpm_serve(torch, np, blocks, dev, ops, card)
+    torch.cuda.empty_cache()
+
     phase("cli: dmme_tpu_torch.trainer.main on the repo's configs, in this process")
     report["cli"] = cli_phase(torch, np, ops, dev, card)
     torch.cuda.empty_cache()
@@ -1828,6 +2435,10 @@ def main() -> int:
     phase("f32 and fp16: LitDDPM() and LitDDIM() through simt.cu on the card (fault C.5)")
     report["f32"] = f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
                               card)
+    torch.cuda.empty_cache()
+    phase("f32 IDDPM: LitIDDPM() through simt.cu on the card")
+    report["f32_iddpm"] = f32_iddpm_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res,
+                                          dev, ops, card)
 
     phase("kernels")
     sources = {
@@ -1881,6 +2492,27 @@ def main() -> int:
             "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
             "bound_by": v["bound_by"], "library_ms": v["library_ms"],
         })
+    # the IDDPM path: K1, K3, K4 per n = 8 forward (launches in the four
+    # default requests), K2 per training step (launches in the 20 fit steps)
+    ik = report["iddpm_kernels"]
+    for kname, replaces, v, n_launch in (
+            ("group_norm_silu", "dmme_tpu/ops/group_norm.py:72",
+             ik["per_forward"]["group_norm_silu"],
+             report["iddpm_serve"]["launches"]["group_norm_silu"]),
+            ("group_norm_silu_bwd", "dmme_tpu/ops/group_norm.py:110",
+             ik["train"]["per_step"]["group_norm_silu_bwd"],
+             iddpm_fit_launches["group_norm_silu_bwd"]),
+            ("attention", "dmme_tpu/ops/attention.py:47", ik["per_forward"]["attention"],
+             report["iddpm_serve"]["launches"]["attention"]),
+            ("resblock", "dmme_tpu/ops/resblock.py:88", ik["per_forward"]["resblock"],
+             report["iddpm_serve"]["launches"]["resblock"])):
+        src = {"attention": "attention.cu", "resblock": "resblock.cu"}.get(kname, "group_norm.cu")
+        table.append({
+            "name": f"{kname}_iddpm", "route": "cuda", "source": f"dmme_tpu_torch/ops/csrc/{src}",
+            "replaces": replaces, "launches": n_launch, "max_abs_err": v["max_abs_err"],
+            "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"], "library_ms": v["library_ms"],
+        })
     report["kernels"] = table
     print("kernels launched on their paths and held against their plain versions: "
           + "; ".join(f"{k['name']} ({k['route']}, {k['source']}, replaces {k['replaces']}, "
@@ -1893,7 +2525,10 @@ def main() -> int:
           f"batch {TRAIN_BATCH}, summed over its 45 call sites. *_simt: the f32 kernels of "
           f"simt.cu; launches in the f32 phase's training step and DDIM step; times per f32 "
           f"training step at batch {TRAIN_BATCH} (K1, K2, K3) and per f32 UNet forward at "
-          f"n = {BATCH} (K4), summed over their call sites)", flush=True)
+          f"n = {BATCH} (K4), summed over their call sites. *_iddpm: the IDDPM UNet of "
+          f"configs/iddpm/cifar10.yaml; K1, K3, K4 launches in the four default requests "
+          f"and times per n = {BATCH} forward, K2 launches in the {FIT_STEPS} IDDPM fit steps "
+          f"and times per batch-{TRAIN_BATCH} step)", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -25,8 +25,6 @@ from dmme_tpu_torch.training.lit import resolve_dtype
 #: what the port has not ported yet, by JAX class path (or its prefix), with
 #: the ROADMAP item that ports it
 _NOT_PORTED = {
-    "dmme_tpu.training.LitIDDPM": "A.4: IDDPM",
-    "dmme_tpu.models.iddpm": "A.4: IDDPM",
     "dmme_tpu.training.LitEDM": "A.6: guidance, CFG, ADM and the other harnesses",
     "dmme_tpu.training.LitFlow": "A.6: guidance, CFG, ADM and the other harnesses",
     "dmme_tpu.training.LitUpsampler": "A.6: guidance, CFG, ADM and the other harnesses",
@@ -251,9 +249,10 @@ def _check_signature(cls, init_args: Dict[str, Any], where: str) -> None:
     except (TypeError, ValueError):  # no introspectable signature
         return
     params = sig.parameters
-    if any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()):
-        return  # **kwargs constructors accept anything by design
     unknown = set(init_args) - set(params)
+    if any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()):
+        # **kwargs constructors take any name, but not one only the JAX package has
+        unknown &= set(_ARGS_NOT_PORTED)
     if unknown:
         items = sorted({_ARGS_NOT_PORTED[k] for k in unknown if k in _ARGS_NOT_PORTED})
         if items:

@@ -1,6 +1,10 @@
-"""Diffusion sampling algorithms (mirrors ``dmme_tpu.diffusion``)."""
+"""Diffusion algorithms and samplers (mirrors ``dmme_tpu.diffusion``)."""
 
 from dmme_tpu_torch.diffusion.ddim import DDIM
 from dmme_tpu_torch.diffusion.ddpm import DDPM
+from dmme_tpu_torch.diffusion.dpm_solver import DPMSolverPP
+from dmme_tpu_torch.diffusion.factory import make_sampler
+from dmme_tpu_torch.diffusion.iddpm import IDDPM, NoiseVariance
+from dmme_tpu_torch.diffusion.unipc import UniPC
 
-__all__ = ["DDPM", "DDIM"]
+__all__ = ["DDPM", "DDIM", "IDDPM", "NoiseVariance", "DPMSolverPP", "UniPC", "make_sampler"]

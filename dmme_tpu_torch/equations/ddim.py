@@ -4,6 +4,8 @@ canonical (paper Eq. 12) forms."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from dmme_tpu_torch.equations import ddpm as eq_ddpm
@@ -22,14 +24,56 @@ def quadratic_tau(timesteps: int, sub_timesteps: int) -> torch.Tensor:
     return torch.round((timesteps / sub_timesteps**2) * torch.square(all_i)).to(torch.int64)
 
 
-def make_tau(name: str, timesteps: int, sub_timesteps: int) -> torch.Tensor:
-    """τ table by spacing name: linear | quadratic."""
+def karras_tau(alpha_bar: torch.Tensor, sub_timesteps: int, rho: float = 7.0,
+               sigma_max: float = 80.0) -> torch.Tensor:
+    """τ table (length ``S+1``, τ_0 = 0) from the Karras et al. 2022 σ
+    spacing, snapped onto the trained discrete schedule.
+
+    S points evenly spaced in σ^{1/ρ} between min(σ(T), ``sigma_max``) and
+    σ(1), σ(t) = √(1−ᾱ_t)/√ᾱ_t, each snapped to the timestep nearest in
+    log σ. The σ_max clamp matters for cosine schedules, whose ᾱ_T ≈ 2e-15
+    puts σ(T) near 2·10⁷: a grid anchored there would collapse most of its
+    points onto the last timesteps. Snaps may repeat a timestep at small T;
+    the samplers take a repeated τ entry as an identity step."""
+    ab = alpha_bar.to(torch.float32)
+    # σ over the real timesteps 1..T (index 0 is the ᾱ = 1 sentinel, σ = 0)
+    sigma = torch.sqrt((1.0 - ab[1:]) / torch.clamp(ab[1:], min=1e-38))
+    s_min, s_max = sigma[0], torch.clamp(sigma[-1], max=sigma_max)
+    i = torch.arange(sub_timesteps, dtype=torch.float32, device=ab.device) / max(
+        sub_timesteps - 1, 1)
+    grid = (s_max ** (1.0 / rho) + i * (s_min ** (1.0 / rho) - s_max ** (1.0 / rho))) ** rho
+    t_of = torch.argmin(torch.abs(torch.log(sigma)[None, :] - torch.log(grid)[:, None]),
+                        dim=1) + 1
+    return torch.cat([torch.zeros((1,), dtype=torch.int64, device=ab.device),
+                      t_of.flip(0).to(torch.int64)])
+
+
+def lambda_coeffs(alpha_bar: torch.Tensor, t):
+    """(α_t, σ_t, λ_t) at integer timestep(s) ``t`` for the λ = log(α/σ)
+    solvers (DPM-Solver++, UniPC), f32. The σ clamp makes λ(τ=0) finite but
+    huge; the solvers' lower-order final steps rely on exp(−h) underflowing
+    to exactly 0 there."""
+    ab = alpha_bar[t]
+    alpha = torch.sqrt(ab)
+    sigma = torch.sqrt(1.0 - ab)
+    lam = torch.log(alpha) - torch.log(torch.clamp(sigma, min=1e-38))
+    return alpha, sigma, lam
+
+
+def make_tau(name: str, timesteps: int, sub_timesteps: int,
+             alpha_bar: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """τ table by spacing name: linear | quadratic | karras (which needs the
+    schedule's ``alpha_bar``)."""
     name = name.lower()
     if name == "linear":
         return linear_tau(timesteps, sub_timesteps)
     if name == "quadratic":
         return quadratic_tau(timesteps, sub_timesteps)
-    raise NotImplementedError(f"tau schedule {name!r} is not ported")
+    if name == "karras":
+        if alpha_bar is None:
+            raise ValueError("karras tau spacing needs the schedule's alpha_bar")
+        return karras_tau(alpha_bar, sub_timesteps)
+    raise NotImplementedError(f"unknown tau schedule: {name}")
 
 
 def predict_x0(x_t: torch.Tensor, alpha_bar_t: torch.Tensor,

@@ -1,7 +1,22 @@
 """UNet denoisers as ``nn.Module``s (mirrors ``dmme_tpu.models``)."""
 
-from dmme_tpu_torch.models import ddpm
+import torch
+
+from dmme_tpu_torch.models import ddpm, iddpm
 from dmme_tpu_torch.models.blocks import init_weights
 from dmme_tpu_torch.models.unet import UNet, build_topology
 
-__all__ = ["ddpm", "UNet", "build_topology", "init_weights"]
+
+def eps_only(model_fn):
+    """Adapt a variance-learning denoiser (2C output channels: ε ‖ v, the
+    IDDPM convention) to the ε-only contract of the ODE samplers, so that an
+    IDDPM-trained model drives DDIM, DPM-Solver++ or UniPC directly."""
+
+    def fn(params, x, t, **kwargs):
+        eps, _ = torch.chunk(model_fn(params, x, t, **kwargs), 2, dim=-1)
+        return eps
+
+    return fn
+
+
+__all__ = ["ddpm", "iddpm", "UNet", "build_topology", "init_weights", "eps_only"]

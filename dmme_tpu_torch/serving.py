@@ -3,14 +3,17 @@
 * ``GET  /healthz``          → ``{"status": "ok", "step": N, ...}``
 * ``POST /sample`` JSON body → PNG grid or raw ``.npy`` bytes
       {"n": 4,                # samples (rounded up to a batch bucket)
-       "sampler": "default",  # the harness's own sampler
+       "sampler": "dpm",      # default | ddim | dpm | unipc
+       "steps": 20,           # solver steps (the sampler's default if absent)
        "seed": 0,
        "format": "png"}       # png (grid) | npy ((n,H,W,C) float32 [0,1])
 
 The stdlib ``ThreadingHTTPServer`` takes connections concurrently; generation
 runs under one lock, one device. Batch sizes are bucketed to powers of two.
-Only the ``"default"`` sampler is ported; the JAX package's other samplers
-are answered with 400.
+``default`` is the harness's own sampler; ``ddim``, ``dpm`` and ``unipc``
+override it on the trained schedule (:mod:`dmme_tpu_torch.diffusion.factory`).
+The JAX package's other names are answered with 400, naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -24,13 +27,14 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from dmme_tpu_torch.diffusion.factory import STEP_DEFAULTS, check_sampler
 from dmme_tpu_torch.utils.device import resolve_device
 from dmme_tpu_torch.utils.norm import denorm
 from dmme_tpu_torch.utils.vis import make_history
 
 _BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
-#: samplers of the JAX package's server that this port does not have yet
-NOT_PORTED = ("ddim", "dpm", "unipc", "edm", "cached", "deep", "deep_dpm")
+#: the sampler names this server answers
+SAMPLERS = ("default",) + tuple(STEP_DEFAULTS)
 
 
 def _bucket(n: int) -> int:
@@ -57,15 +61,15 @@ class Sampler:
         """(n, H, W, C) float32 in [0, 1]."""
         if not 1 <= n <= _BUCKETS[-1]:
             raise ValueError(f"n must be in [1, {_BUCKETS[-1]}], got {n}")
-        if sampler in NOT_PORTED:
-            raise ValueError(f"sampler {sampler!r} is not yet ported; use 'default'")
         if sampler != "default":
-            raise ValueError(f"unknown sampler {sampler!r}")
-        shape = (_bucket(n), self.img_size, self.img_size, self.lit.img_channels)
+            check_sampler(sampler)
+        shape = self.lit.sample_space_shape(
+            (_bucket(n), self.img_size, self.img_size, self.lit.img_channels))
         with self._lock:  # one device: serialise generation
             generator = torch.Generator(device=self.device).manual_seed(int(seed))
             out = self.lit.to_images(self.lit.generate(
-                self.state, generator, self.lit.sample_space_shape(shape)))
+                self.state, generator, shape, steps=steps,
+                sampler=None if sampler == "default" else sampler))
             out = denorm(out).to(torch.float32).cpu().numpy()
         return out[:n]
 
@@ -112,7 +116,7 @@ def make_server(sampler: Sampler, host: str = "127.0.0.1", port: int = 8000):
                 "step": sampler.step,
                 "img_size": sampler.img_size,
                 "device": str(sampler.device),
-                "samplers": ["default"],
+                "samplers": list(SAMPLERS),
             })
 
         def do_POST(self):
@@ -134,7 +138,8 @@ def make_server(sampler: Sampler, host: str = "127.0.0.1", port: int = 8000):
                     body, ctype = _npy_bytes(images), "application/octet-stream"
                 else:
                     body, ctype = _png_bytes(images), "image/png"
-            except (ValueError, KeyError, TypeError, json.JSONDecodeError) as e:
+            except (ValueError, KeyError, TypeError, NotImplementedError,
+                    json.JSONDecodeError) as e:
                 return self._json(400, {"error": str(e)})
             except Exception as e:  # noqa: BLE001 — the client must get an answer
                 return self._json(500, {"error": f"{type(e).__name__}: {e}"})

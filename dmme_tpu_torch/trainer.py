@@ -33,6 +33,7 @@ import torch
 
 from dmme_tpu_torch.config import (TRAINER_KEYS, apply_overrides, describe_class, instantiate,
                                    load_config, validate_config)
+from dmme_tpu_torch.diffusion.factory import STEP_DEFAULTS, check_sampler
 from dmme_tpu_torch.parallel.train_step import step_generator
 from dmme_tpu_torch.utils.device import resolve_device
 
@@ -117,20 +118,41 @@ def _restore_state(model, data, tc: Dict[str, Any], device):
 
 
 def cmd_sample(config: Dict[str, Any], device) -> None:
-    """One sample grid (a trajectory a row) from the restored checkpoint,
-    written under ``<default_root_dir>/samples``."""
+    """One sample grid from the restored checkpoint, written under
+    ``<default_root_dir>/samples``: a trajectory a row with the model's own
+    sampler, or, with ``trainer.sampler`` (ddim | dpm | unipc) and
+    ``trainer.sample_steps``, the final images of that sampler on the trained
+    schedule (:func:`dmme_tpu_torch.diffusion.factory.make_sampler`), drawn
+    from a generator seeded with the checkpoint's step."""
     from dmme_tpu_torch.callbacks import GenerateImage
 
     model, data, tc, _ = _build(config)
-    if tc.get("sampler"):
-        raise NotImplementedError(
-            f"sample --trainer.sampler {tc['sampler']}: the other samplers are not ported yet "
-            "(ROADMAP A.5, the other samplers); drop it to sample with the model's own")
+    sampler = tc.get("sampler")
+    if sampler:
+        check_sampler(sampler)
     state, img_size, ckpt_dir = _restore_state(model, data, tc, device)
-    cb = GenerateImage(imgsize=(model.img_channels, img_size, img_size),
-                       num_samples=int(tc.get("sample_batch") or 8),
-                       out_dir=os.path.join(ckpt_dir or ".", "samples"))
-    print(cb.generate_and_save(int(state.step), model, state))
+    n = int(tc.get("sample_batch") or 8)
+    out_dir = os.path.join(ckpt_dir or ".", "samples")
+    step = int(state.step)
+    if not sampler:
+        cb = GenerateImage(imgsize=(model.img_channels, img_size, img_size), num_samples=n,
+                           out_dir=out_dir)
+        print(cb.generate_and_save(step, model, state))
+        return
+    from dmme_tpu_torch.training.loggers import _to_png
+    from dmme_tpu_torch.utils.norm import denorm
+    from dmme_tpu_torch.utils.vis import make_history
+
+    steps = int(tc.get("sample_steps") or STEP_DEFAULTS[sampler])
+    shape = model.sample_space_shape((n, img_size, img_size, model.img_channels))
+    out = model.to_images(model.generate(state, torch.Generator(device=device).manual_seed(step),
+                                         shape, sampler=sampler, steps=steps))
+    grid = make_history([denorm(out).to(torch.float32).cpu().numpy()])
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"step_{step:08d}_{sampler}{steps}.png")
+    with open(path, "wb") as f:
+        f.write(_to_png(grid)[0])
+    print(path)
 
 
 def cmd_predict(config: Dict[str, Any], device) -> None:

@@ -1,4 +1,5 @@
-"""``LitDDPM`` / ``LitDDIM``: the training and sampling harnesses of ``dmme_tpu/training/lit.py``.
+"""``LitDDPM`` / ``LitDDIM`` / ``LitIDDPM``: the training and sampling harnesses
+of ``dmme_tpu/training/lit.py``.
 
 The harness owns the denoiser module, the diffusion algorithm and the
 optimizer recipe; the weights live apart from the module in a
@@ -17,8 +18,9 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch.func import functional_call
 
-from dmme_tpu_torch.diffusion import DDIM, DDPM
+from dmme_tpu_torch.diffusion import DDIM, DDPM, IDDPM, make_sampler
 from dmme_tpu_torch.models import ddpm as ddpm_models
+from dmme_tpu_torch.models import iddpm as iddpm_models
 from dmme_tpu_torch.models import init_weights
 from dmme_tpu_torch.training.lr_schedule import warmup_schedule
 from dmme_tpu_torch.training.optimizer import ClipAdam
@@ -135,16 +137,28 @@ class LitDDPM:
 
     def generate(self, state: TrainState, generator: Optional[torch.Generator],
                  img_shape: Tuple[int, ...], *, use_ema: Optional[bool] = None,
-                 x_T: Optional[torch.Tensor] = None, history_length: Optional[int] = None):
+                 x_T: Optional[torch.Tensor] = None, history_length: Optional[int] = None,
+                 sampler: Optional[str] = None, steps: Optional[int] = None):
         """Sample with the EMA weights unless ``validate_original_weights``
         (or ``use_ema=False``) asks for the raw ones. With ``history_length``,
-        returns ``(x_0, history)`` (see ``DDPM.generate``)."""
+        returns ``(x_0, history)`` (see ``DDPM.generate``). ``sampler``
+        (ddim | dpm | unipc) replaces the harness's own sampler with that
+        solver in ``steps`` steps on the trained schedule
+        (:func:`~dmme_tpu_torch.diffusion.factory.make_sampler`)."""
         if use_ema is None:
             use_ema = not self.validate_original_weights
         params = state.ema_params if use_ema else state.params
         model_fn, generator = self.sampling_model_fn(generator, img_shape[0])
-        return self.diffusion_model.generate(model_fn, params, generator, img_shape, x_T=x_T,
-                                             history_length=history_length)
+        algo = self.sample_algorithm()
+        if sampler is not None:
+            algo, adapt = make_sampler(self.diffusion_model, sampler, steps)
+            model_fn = adapt(model_fn)
+        return algo.generate(model_fn, params, generator, img_shape, x_T=x_T,
+                             history_length=history_length)
+
+    def sample_algorithm(self):
+        """The algorithm :meth:`generate` samples with."""
+        return self.diffusion_model
 
 
 class LitDDIM(LitDDPM):
@@ -170,3 +184,47 @@ class LitDDIM(LitDDPM):
                                           variant=variant, parameterization=parameterization,
                                           snr_gamma=snr_gamma)
         super().__init__(lr, warmup, decay, diffusion_model, model, timesteps, **kwargs)
+
+
+class LitIDDPM(LitDDPM):
+    """IDDPM harness: the variance-learning UNet and the hybrid loss. With
+    ``sample_steps``, :meth:`generate` samples on the ``sample_steps``-step
+    respaced grid with the learned variances (``IDDPM.strided``); the other
+    keyword arguments are :class:`LitDDPM`'s."""
+
+    def __init__(
+        self,
+        lr: float = 1e-4,
+        warmup: int = 5000,
+        decay: float = 0.9999,
+        diffusion_model: Optional[IDDPM] = None,
+        model: Optional[torch.nn.Module] = None,
+        timesteps: int = 1000,
+        loss_type: str = "hybrid",
+        gamma: float = 0.001,
+        schedule: str = "cosine",
+        offset: float = 0.008,
+        start: float = 0.0001,
+        end: float = 0.02,
+        img_channels: int = 3,
+        dtype: Union[str, torch.dtype] = torch.float32,
+        sample_steps: Optional[int] = None,
+        **kwargs: Any,
+    ):
+        if kwargs.get("num_classes") is not None:
+            raise NotImplementedError("LitIDDPM(num_classes=...): class-conditional models are "
+                                      "not ported yet (ROADMAP A.6)")
+        kwargs.pop("num_classes", None)
+        if model is None:
+            model = iddpm_models.UNet(in_channels=img_channels, dtype=resolve_dtype(dtype),
+                                      fused_norm=True, fused_block=True)
+        if diffusion_model is None:
+            diffusion_model = IDDPM.create(timesteps, loss_type, gamma, schedule, offset, start,
+                                           end)
+        self.strided = (diffusion_model.strided(sample_steps)
+                        if sample_steps is not None else None)
+        super().__init__(lr, warmup, decay, diffusion_model, model, timesteps,
+                         img_channels=img_channels, dtype=dtype, **kwargs)
+
+    def sample_algorithm(self):
+        return self.diffusion_model if self.strided is None else self.strided

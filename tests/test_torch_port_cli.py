@@ -30,7 +30,8 @@ SHIPPED = sorted(os.path.relpath(p, ROOT)
 #: the shipped configs whose every class (and argument) the port has
 PORTED = {"configs/ddpm/cifar10.yaml", "configs/ddim/cifar10.yaml",
           "configs/ddpm/cifar10_vpred.yaml", "configs/ddpm/shapes_demo.yaml",
-          "configs/ddpm/shapes256_demo.yaml"}
+          "configs/ddpm/shapes256_demo.yaml", "configs/iddpm/cifar10.yaml",
+          "configs/iddpm/shapes_demo.yaml", "configs/iddpm/shapes64_demo.yaml"}
 
 TINY_YAML = """
 seed_everything: 7
@@ -49,6 +50,32 @@ model:
     model:
       class_path: dmme_tpu.models.ddpm.UNet
       init_args: {{pos_dim: 4, emb_dim: 8, num_groups: 2, channels_per_depth: [4, 8, 8, 8],
+                   num_blocks: 1, fused_norm: true, fused_block: true}}
+data:
+  class_path: dmme_tpu.data.CIFAR10
+  init_args: {{synthetic: true, synthetic_size: 16, batch_size: 4}}
+"""
+# the IDDPM harness at the same TINY widths: FiLM, 4 heads at depths 2 and 3,
+# the cosine schedule, the hybrid loss, strided sampling
+TINY_IDDPM_YAML = """
+seed_everything: 7
+trainer:
+  max_steps: 2
+  log_every_n_steps: 1
+  ckpt_every_n_steps: 100
+  default_root_dir: {root}
+model:
+  class_path: dmme_tpu.training.LitIDDPM
+  init_args:
+    warmup: 10
+    timesteps: 10
+    schedule: cosine
+    loss_type: hybrid
+    sample_steps: 4
+    dtype: f32
+    model:
+      class_path: dmme_tpu.models.iddpm.UNet
+      init_args: {{pos_dim: 4, emb_dim: 8, num_groups: 2, channels_per_depth: [8, 8, 16, 16],
                    num_blocks: 1, fused_norm: true, fused_block: true}}
 data:
   class_path: dmme_tpu.data.CIFAR10
@@ -142,7 +169,9 @@ def _dtype_name(dtype) -> str:
 
 @pytest.mark.parametrize("path", ["configs/ddpm/cifar10.yaml", "configs/ddim/cifar10.yaml",
                                   "configs/ddpm/shapes_demo.yaml",
-                                  "configs/ddpm/shapes256_demo.yaml"])
+                                  "configs/ddpm/shapes256_demo.yaml",
+                                  "configs/iddpm/cifar10.yaml", "configs/iddpm/shapes_demo.yaml",
+                                  "configs/iddpm/shapes64_demo.yaml"])
 def test_instantiated_hyperparameters_equal_jax(path):
     from dmme_tpu import config as jcfg
 
@@ -153,6 +182,17 @@ def test_instantiated_hyperparameters_equal_jax(path):
         assert getattr(tlit, name) == getattr(jlit, name), name
     assert tlit.diffusion_model.timesteps == jlit.diffusion_model.timesteps
     assert type(tlit).__name__ == type(jlit).__name__
+    if hasattr(jlit.diffusion_model, "loss_type"):  # IDDPM
+        for name in ("loss_type", "gamma"):
+            assert getattr(tlit.diffusion_model, name) == getattr(jlit.diffusion_model, name)
+        np.testing.assert_allclose(tlit.diffusion_model.schedule.alpha_bar.numpy(),
+                                   np.asarray(jlit.diffusion_model.schedule.alpha_bar), atol=1e-6)
+        jstrided = jlit.sample_algorithm
+        assert (tlit.strided is None) == (jstrided is None)
+        if jstrided is not None:
+            np.testing.assert_array_equal(tlit.strided.timestep_map.numpy(),
+                                          np.asarray(jstrided.timestep_map))
+        assert tlit.model.output_conv.weight.shape[0] == 2 * tlit.img_channels
     if hasattr(jlit.diffusion_model, "tau"):
         np.testing.assert_array_equal(tlit.diffusion_model.tau.numpy(),
                                       np.asarray(jlit.diffusion_model.tau))
@@ -183,7 +223,7 @@ def test_dtype_aliases_match_jax(alias, want):
 
 
 @pytest.mark.parametrize("path,item", [("dmme_tpu.training.LitEDM", "A.6"),
-                                       ("dmme_tpu.models.iddpm.UNet", "A.4"),
+                                       ("dmme_tpu.training.LitLatentDDPM", "A.8"),
                                        ("dmme_tpu.data.LSUN", "A.12"),
                                        ("dmme_tpu.models.dit.DiT", "A.7")])
 def test_an_unported_class_names_its_roadmap_item(path, item):
@@ -263,7 +303,9 @@ def test_unported_subcommands_and_options_name_their_roadmap_item(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
         main(["test", "--config", cfg], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        main(["sample", "--config", cfg, "--trainer.sampler", "dpm"], device="cpu")
+        main(["sample", "--config", cfg, "--trainer.sampler", "cached"], device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+        main(["sample", "--config", cfg, "--trainer.sampler", "edm"], device="cpu")
     with pytest.raises(NotImplementedError, match="A.16"):
         main(["fit", "--config", cfg, "--trainer.mesh.data", "-1"], device="cpu")
 
@@ -287,3 +329,89 @@ def test_the_command_line_runs_on_the_card(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["fit", "--config", str(_tiny(tmp_path))])
+
+
+# ----------------------------------------------------------------- IDDPM
+
+def _tiny_iddpm(tmp_path):
+    cfg = tmp_path / "iddpm.yaml"
+    cfg.write_text(TINY_IDDPM_YAML.format(root=tmp_path / "run"))
+    return str(cfg)
+
+
+def test_iddpm_fit_resume_and_sample_through_the_solvers(tmp_path, capsys):
+    """The IDDPM harness through the command line: fit, resume, then a grid
+    from the model's own strided sampler and one from each solver override,
+    named after it and its steps."""
+    cfg = _tiny_iddpm(tmp_path)
+    main(["fit", "--config", cfg], device="cpu")
+    main(["fit", "--config", cfg, "--trainer.max_steps", "3", "--trainer.resume", "true"],
+         device="cpu")
+    run = tmp_path / "run"
+    assert (run / "3").exists()
+    losses = [float(line.split('"loss": ')[1].split(",")[0])
+              for line in (run / "metrics.jsonl").read_text().splitlines()]
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    main(["sample", "--config", cfg, "--trainer.sample_batch", "2"], device="cpu")
+    for name, steps in (("dpm", 5), ("ddim", 4), ("unipc", 3)):
+        main(["sample", "--config", cfg, "--trainer.sampler", name, "--trainer.sample_steps",
+              str(steps), "--trainer.sample_batch", "2"], device="cpu")
+    assert sorted(os.listdir(run / "samples")) == [
+        "step_00000003.png", "step_00000003_ddim4.png", "step_00000003_dpm5.png",
+        "step_00000003_unipc3.png"]
+    from PIL import Image
+
+    grid = np.asarray(Image.open(run / "samples" / "step_00000003_dpm5.png"))
+    assert grid.shape[-1] == 3 and grid.std() > 0
+
+
+def test_iddpm_sample_override_is_the_factory_on_the_restored_state(tmp_path):
+    """``sample --trainer.sampler dpm`` draws what ``make_sampler`` gives on
+    the restored EMA weights from a generator seeded with the step."""
+    from PIL import Image
+
+    from dmme_tpu_torch.diffusion import make_sampler
+    from dmme_tpu_torch.training import CheckpointManager
+    from dmme_tpu_torch.utils.norm import denorm
+    from dmme_tpu_torch.utils.vis import make_history
+
+    cfg = _tiny_iddpm(tmp_path)
+    main(["fit", "--config", cfg], device="cpu")
+    main(["sample", "--config", cfg, "--trainer.sampler", "dpm", "--trainer.sample_batch", "2"],
+         device="cpu")
+    run = tmp_path / "run"
+    got = np.asarray(Image.open(run / "samples" / "step_00000002_dpm20.png"))
+    lit = tcfg.instantiate(tcfg.load_config(cfg)["model"])
+    state = CheckpointManager(str(run)).restore(lit.init_state(0, device="cpu"))
+    algo, adapt = make_sampler(lit.diffusion_model, "dpm")
+    assert algo.clip_x0 and algo.sub_timesteps == 20  # cosine: ᾱ_T ≈ 2e-15
+    out = algo.generate(adapt(lit.model_fn), state.ema_params, torch.Generator().manual_seed(2),
+                        (2, 32, 32, 3))
+    want = make_history([denorm(out).numpy()])
+    np.testing.assert_array_equal(got, (np.clip(want, 0, 1) * 255).astype(np.uint8))
+
+
+def test_imagenet64_names_what_it_waits_for():
+    """configs/iddpm/imagenet64.yaml: the model validates (the IDDPM UNet at
+    the ImageNet-64 widths), the data raises naming ROADMAP A.12, and with
+    other data its mesh raises naming A.11."""
+    path = os.path.join(ROOT, "configs/iddpm/imagenet64.yaml")
+    config = tcfg.load_config(path)
+    tcfg.validate_config(dict(config, data=None))
+    with pytest.raises(tcfg.ConfigError, match=r"ImageFolder64.*not ported.*ROADMAP A\.12"):
+        tcfg.validate_config(config)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.11"):
+        main(["fit", "--config", path, "--data.class_path", "dmme_tpu.data.Shapes",
+              "--data.init_args", "{size: 8, batch_size: 4, img_size: 64}"], device="cpu")
+
+
+@pytest.mark.parametrize("harness", ["LitIDDPM", "LitDDIM"])
+def test_num_classes_on_a_kwargs_harness_names_a6(tmp_path, harness):
+    """Harnesses that take ``**kwargs`` still reject the JAX package's
+    class-conditioning arguments at validation, naming ROADMAP A.6."""
+    config = tcfg.load_config(_tiny_iddpm(tmp_path) if harness == "LitIDDPM"
+                              else str(_tiny(tmp_path)))
+    assert config["model"]["class_path"].endswith(harness)
+    config["model"]["init_args"]["num_classes"] = 10
+    with pytest.raises(tcfg.ConfigError, match="ROADMAP A.6"):
+        tcfg.validate_config(config)

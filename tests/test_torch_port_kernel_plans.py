@@ -17,6 +17,7 @@ import torch
 
 import dmme_tpu_torch.models.blocks as blocks
 from dmme_tpu_torch.models import ddpm as ddpm_models
+from dmme_tpu_torch.models import iddpm as iddpm_models
 from dmme_tpu_torch.ops import attention as t_attention
 from dmme_tpu_torch.ops import resblock as t_resblock
 
@@ -24,10 +25,16 @@ SMS = 132
 SERVE_BATCHES = (1, 8, 16)
 TRAIN_BATCH = 128
 LSUN_BATCHES = (1, 2)
-# (UNet widths, image size) of the configs the port's DDPM UNet runs
+# (UNet, widths, image size) of the configs the port runs: the DDPM UNet of
+# configs/ddpm/{cifar10,lsun_*}.yaml and the IDDPM UNet (FiLM, 4 heads) of
+# configs/iddpm/{cifar10,shapes64_demo}.yaml
 WIDTHS = {
-    "cifar10": ({}, 32),
-    "lsun": (dict(channels_per_depth=(128, 128, 256, 256, 512, 512), attention_depths=(5,)), 256),
+    "cifar10": (ddpm_models.UNet, {}, 32),
+    "lsun": (ddpm_models.UNet,
+             dict(channels_per_depth=(128, 128, 256, 256, 512, 512), attention_depths=(5,)), 256),
+    "iddpm": (iddpm_models.UNet, {}, 32),
+    "iddpm64": (iddpm_models.UNet, dict(channels_per_depth=(128, 256, 384, 512), num_blocks=3,
+                                        attention_depths=(3, 4), dropout=0.0), 64),
 }
 
 
@@ -36,7 +43,7 @@ def call_sites(n: int, widths: str = "cifar10") -> dict:
     """{"attention": [q shape], "resblock": [(x shape, C_out,
     projection?)]}, one entry per call of a full-width UNet forward at batch
     n, at the widths and image size of ``WIDTHS[widths]``."""
-    kwargs, img = WIDTHS[widths]
+    unet, kwargs, img = WIDTHS[widths]
     seen = {"attention": [], "resblock": []}
 
     def attention(q, k, v, scale):
@@ -58,8 +65,7 @@ def call_sites(n: int, widths: str = "cifar10") -> dict:
         for k, fn in patched.items():
             setattr(blocks, k, fn)
         with torch.device("meta"), torch.no_grad():
-            model = ddpm_models.UNet(dtype=torch.bfloat16, fused_norm=True, fused_block=True,
-                                     **kwargs)
+            model = unet(dtype=torch.bfloat16, fused_norm=True, fused_block=True, **kwargs)
             model.eval()
             model(torch.empty((n, img, img, 3)), torch.zeros((n,), dtype=torch.int64))
     finally:
@@ -385,3 +391,64 @@ def test_lsun_attention_plan_covers_every_key_tile_once(n, shape):
                          ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
 def test_lsun_resblock_plan_boxes_and_k_steps(n, shape, cout, proj):
     _check_resblock_plan(n, shape, cout, proj)
+
+
+# The IDDPM UNet (FiLM, 4 heads): K3's plans at the 11 call sites of
+# configs/iddpm/cifar10.yaml (serving batches 1, 8, 16; training batch 128)
+# and the 15 of configs/iddpm/shapes64_demo.yaml (a grid of 8; training batch
+# 64), pinned as MAIN_ATTENTION pins the DDPM path's.
+IDDPM_ATTENTION = {
+    (n, t, 4, d): plan
+    for n in SERVE_BATCHES + (TRAIN_BATCH,)
+    for (t, d), plan in {(16, 64): (64, 64, 1, 1, 1, 1), (64, 64): (64, 64, 1, 1, 1, 1),
+                         (256, 32): (64, 64, 4, 4, 1, 4),
+                         (256, 64): (64, 64, 4, 4, 1, 4)}.items()
+}
+SHAPES64_BATCHES = (8, 64)
+SHAPES64_ATTENTION = {
+    (8, 64, 4, 96): (64, 64, 1, 1, 1, 1), (8, 64, 4, 128): (64, 64, 1, 1, 1, 1),
+    (8, 256, 4, 64): (64, 64, 4, 4, 1, 4), (8, 256, 4, 96): (64, 64, 4, 4, 1, 4),
+    (64, 64, 4, 96): (128, 64, 1, 1, 1, 1), (64, 64, 4, 128): (128, 64, 1, 1, 1, 1),
+    (64, 256, 4, 64): (64, 64, 4, 4, 1, 4), (64, 256, 4, 96): (128, 64, 2, 4, 1, 4),
+}
+
+
+def test_iddpm_call_sites_per_forward():
+    """configs/iddpm/cifar10.yaml: 11 four-head attention calls (T = 256 with
+    D = 64 three times and D = 32 twice, T = 64 with D = 64 five times, T = 16
+    once) and the DDPM path's 22 ResBlock shapes, whose K4 plans are pinned in
+    MAIN_CONV; shapes64_demo: 15 attention calls, D 64, 96 and 128."""
+    sites = call_sites(8, "iddpm")
+    counts = {}
+    for shape in sites["attention"]:
+        counts[shape] = counts.get(shape, 0) + 1
+    assert counts == {(8, 256, 4, 64): 3, (8, 256, 4, 32): 2, (8, 64, 4, 64): 5,
+                      (8, 16, 4, 64): 1}
+    assert sites["resblock"] == call_sites(8)["resblock"]
+    big = call_sites(8, "iddpm64")
+    assert len(big["attention"]) == 15 and len(big["resblock"]) == 30
+    assert {s[3] for s in big["attention"]} == {64, 96, 128}
+
+
+def _iddpm_attention():
+    for widths, batches in (("iddpm", SERVE_BATCHES + (TRAIN_BATCH,)),
+                            ("iddpm64", SHAPES64_BATCHES)):
+        for n in batches:
+            for shape in sorted(set(call_sites(n, widths)["attention"])):
+                yield widths, n, shape
+
+
+@pytest.mark.parametrize("widths,n,shape", list(_iddpm_attention()),
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_iddpm_attention_plan_covers_every_key_tile_once(widths, n, shape):
+    _check_attention_plan(n, shape)
+
+
+def test_iddpm_attention_plans_are_pinned():
+    for widths, batches, pinned in (("iddpm", SERVE_BATCHES + (TRAIN_BATCH,), IDDPM_ATTENTION),
+                                    ("iddpm64", SHAPES64_BATCHES, SHAPES64_ATTENTION)):
+        seen = {}
+        for n in batches:
+            for nn, t, h, d in set(call_sites(n, widths)["attention"]):
+                seen[(nn, t, h, d)] = tuple(t_attention.attention_plan(nn, h, t, d, SMS))[:6]
+        assert seen == pinned, widths

@@ -2,8 +2,9 @@
 
 Starts ``dmme_tpu_torch.serving.make_server`` on an ephemeral port and talks
 to it with urllib: healthz, npy shape/range, bucketing (n=3 → bucket 4,
-sliced back to 3), determinism per seed, and 400s on bad requests and on
-samplers not yet ported. A ``Sampler`` with no device needs CUDA.
+sliced back to 3), determinism per seed, the ddim/dpm/unipc override, and
+400s on bad requests and on samplers not yet ported, naming their ROADMAP
+item. A ``Sampler`` with no device needs CUDA.
 """
 
 import io
@@ -18,7 +19,8 @@ import torch
 
 from dmme_tpu_torch.diffusion import DDPM
 from dmme_tpu_torch.models import ddpm as t_ddpm
-from dmme_tpu_torch.serving import NOT_PORTED, Sampler, make_server
+from dmme_tpu_torch.diffusion.factory import NOT_PORTED
+from dmme_tpu_torch.serving import Sampler, make_server
 from dmme_tpu_torch.training import LitDDPM
 
 torch.set_num_threads(1)
@@ -65,7 +67,7 @@ def test_healthz(server_url):
     with urllib.request.urlopen(server_url + "/healthz", timeout=30) as r:
         info = json.loads(r.read())
     assert info == {"status": "ok", "step": 0, "img_size": 8, "device": "cpu",
-                    "samplers": ["default"]}
+                    "samplers": ["default", "ddim", "dpm", "unipc"]}
 
 
 def test_npy_roundtrip_and_bucketing(server_url):
@@ -105,6 +107,26 @@ def test_bad_requests_get_400(server_url, body, needle):
 def test_samplers_not_yet_ported_get_400(server_url, name):
     code, msg = _post_error(server_url, {"sampler": name, "format": "npy"})
     assert code == 400 and "not yet ported" in msg and name in msg
+    assert f"ROADMAP {NOT_PORTED[name]}" in msg
+
+
+@pytest.mark.parametrize("name,steps", [("ddim", 3), ("dpm", 4), ("unipc", None)])
+def test_solver_override_over_http(server_url, lit_state, name, steps):
+    """The override answers with the factory's algorithm on the served EMA
+    weights (6 timesteps: unipc's default of 10 steps repeats τ entries)."""
+    from dmme_tpu_torch.diffusion import make_sampler
+    from dmme_tpu_torch.utils.norm import denorm
+
+    body = {"n": 3, "seed": 4, "format": "npy", "sampler": name, "steps": steps}
+    a, b = (np.load(io.BytesIO(_post(server_url, body)[0])) for _ in range(2))
+    assert a.shape == (3, 8, 8, 3) and np.isfinite(a).all() and np.array_equal(a, b)
+    lit, state = lit_state
+    algo, adapt = make_sampler(lit.diffusion_model, name, steps)
+    want = algo.generate(adapt(lit.model_fn), state.ema_params,
+                         torch.Generator().manual_seed(4), (4, 8, 8, 3))
+    np.testing.assert_array_equal(a, denorm(want)[:3].numpy())
+    default = np.load(io.BytesIO(_post(server_url, dict(body, sampler="default"))[0]))
+    assert not np.array_equal(a, default)
 
 
 def test_unknown_paths_404(server_url):
