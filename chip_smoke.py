@@ -29,9 +29,12 @@ if the package is missing, or if any phase fails. Phases:
    version;
 5. serve   — ``LitDDIM`` (T=1000, DDIM-50, quadratic τ) behind ``make_server``,
    with ``/healthz`` and ``/sample`` requests of n = 1, 8 and 16, and a repeat
-   that must return identical bytes; counts each kernel's launches; then one
-   request of n = 1 and of n = 8 under ``torch.profiler``: device time by
-   kernel and the device's idle share;
+   that must return identical bytes; counts each kernel's launches; the
+   feature-caching samplers ``cached``, ``deep`` and ``deep_dpm`` at n = 8
+   (refresh interval 2: launches 1/6/22 a key forward, 1/4/14 a ``cached``
+   and 1/0/5 a ``deep`` non-key one), ``edm`` and ``flow`` answered 400;
+   then one request of n = 1 and of n = 8 under ``torch.profiler``: device
+   time by kernel and the device's idle share;
 6. train kernels — records the inputs of K1, K2, K3 and the attention
    backward at every call site of one full-width bf16 training step at batch
    128 (dropout on, random biases and affines) and holds each against its
@@ -106,7 +109,27 @@ if the package is missing, or if any phase fails. Phases:
    n = 8 through ``simt.cu``, every call site against its plain version; the
    loss, the gradient (the variance head included) and the step within
    ``F32_REL_L2`` of the CPU, a bf16 control missing it;
-17. the kernel table as one JSON line, the card's name and power limit, then
+17. new call sites — K1, K3 and K4 at every call site of EDM's σ-conditioned
+   forward, flow's t·1000 forward and the caching samplers' non-key
+   forwards at n = 8 (launches 1/6/22, 1/6/22, 1/4/14, 1/0/5), and K1, K2, K3
+   and the attention backward at every call site of one ``LitEDM`` and one
+   ``LitFlow`` training step at batch 128, each held against its plain
+   version (``TOL``) and timed;
+18. EDM gradient — phase 7 for ``EDM.loss_given`` with σ from 0.002 to 80;
+19. EDM fit — ``trainer.main fit`` of ``configs/edm/cifar10.yaml`` (synthetic
+   CIFAR-10, batch 128, bf16) for 20 steps with 18-step Heun grids at 10
+   and 20, launches 45/45/6/0 a step and 1/6/22 a sampling forward; then the
+   saved state's train step timed (median step ms) and profiled (idle share);
+20. EDM serve — ``LitEDM(dtype="bf16")`` over HTTP: ``default`` (18-step Heun,
+   35 evaluations) at n = 1, 8, 16 and a repeat, ``edm`` at 10 steps; the
+   other families' names answered 400; one request under the profiler;
+21. flow fit and serve — phase 19 for ``configs/flow/shapes_demo.yaml`` (no
+   grids) and phase 20 for ``LitFlow(dtype="bf16")``: ``default`` (25
+   midpoint steps, 50 evaluations) and ``flow`` at 10 steps at n = 8;
+22. f32 EDM — ``LitEDM()`` one step at batch 128 through ``simt.cu``; the loss
+   and gradient at batch 16 (σ from 0.002 to 80) and a mid-grid Heun step
+   against f32 on the CPU within ``F32_REL_L2``, a bf16 control missing it;
+23. the kernel table as one JSON line, the card's name and power limit, then
    ``{"ok": true, "device": ...}``.
 
 ``--out`` also writes every measurement to a JSON file. ``--kernels-only``
@@ -179,6 +202,20 @@ FIT_WARM, FIT_STEPS, TIMED_STEPS = 3, 20, 25
 # launches of one training step of the full-width UNet
 PER_TRAIN_STEP = {"group_norm_silu": 45, "group_norm_silu_bwd": 45, "attention": 6,
                   "resblock": 0}
+# launches of one eval forward of the DDPM UNet (both switches on): full, and
+# the partial forwards of the caching samplers' non-key steps: ``cached``
+# skips the down path (8 ResBlocks, 2 with attention), ``deep`` at
+# cache_depth 1 runs the 2 shallow down and 3 shallow up ResBlocks only
+PER_FORWARD = {"group_norm_silu": 1, "group_norm_silu_bwd": 0, "attention": 6, "resblock": 22}
+PER_FORWARD_CACHED = {"group_norm_silu": 1, "group_norm_silu_bwd": 0, "attention": 4,
+                      "resblock": 14}
+PER_FORWARD_DEEP = {"group_norm_silu": 1, "group_norm_silu_bwd": 0, "attention": 0,
+                    "resblock": 5}
+# the discrete-schedule solvers and their default steps; the caching samplers
+# (refresh interval 2, cache depth 1) and theirs
+SOLVERS = (("ddim", 50), ("dpm", 20), ("unipc", 10))
+CACHING = (("cached", 50, PER_FORWARD_CACHED), ("deep", 50, PER_FORWARD_DEEP),
+           ("deep_dpm", 20, PER_FORWARD_DEEP))
 # bench.py:60-63: 3.53 TFLOP per batch-128 train step (forward, backward and
 # optimizer), a work count traced from the JAX package's XLA program, not a
 # time; over the card's bf16 peak it bounds a step from below
@@ -189,8 +226,11 @@ def fail(msg: str) -> None:
     raise RuntimeError(msg)
 
 
+_T0 = time.time()
+
+
 def phase(name: str) -> None:
-    print(f"\n== {name} ==", flush=True)
+    print(f"\n== {name} == ({time.time() - _T0:.1f} s into the run)", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -427,9 +467,9 @@ def cudnn_sequence(torch, pa):
     return run
 
 
-def profile_request(torch, sampler, n: int) -> dict:
+def profile_request(torch, sampler, n: int, name: str = "default") -> dict:
     """Device time by kernel over one ``/sample``-sized request."""
-    return profile_fn(torch, lambda: sampler.sample(n, seed=5))
+    return profile_fn(torch, lambda: sampler.sample(n, sampler=name, seed=5))
 
 
 def profile_fn(torch, fn, top_n: int = 12) -> dict:
@@ -706,9 +746,20 @@ def _train_row(kind, key, count, max_abs, ok, ms, plain_ms, a, k) -> dict:
     return row
 
 
-def train_gradient(torch, np, blocks, ddpm_models, init_weights, DDPM, dev, ops) -> dict:
-    """Phase 7: one loss_given + backward at batch 8, dropout 0, bf16 on the
-    card against f32 on the CPU on the same weights and numpy t, ε."""
+def ddpm_draws(torch, np):
+    """Phase 7's numpy x₀, t, ε at batch 8 (T = 1000)."""
+    r = np.random.default_rng(SEED + 2)
+    x0 = torch.tensor(np.clip(r.standard_normal((BATCH, 32, 32, 3)), -1, 1).astype(np.float32))
+    t = torch.tensor(r.integers(1, 1000, (BATCH,)), dtype=torch.int64)
+    eps = torch.tensor(r.standard_normal((BATCH, 32, 32, 3)).astype(np.float32))
+    return x0, t, eps
+
+
+def train_gradient(torch, np, blocks, ddpm_models, init_weights, algo, draws, dev, ops,
+                   label: str = "training step") -> dict:
+    """Phase 7: one ``algo.loss_given`` + backward at batch 8 on ``draws``
+    (x₀, the noise level, the noise), dropout 0, bf16 on the card against f32
+    on the CPU on the same weights."""
     from torch.func import functional_call
 
     card = ddpm_models.UNet(dtype=torch.bfloat16, dropout=0.0, fused_norm=True,
@@ -718,11 +769,7 @@ def train_gradient(torch, np, blocks, ddpm_models, init_weights, DDPM, dev, ops)
     ref = ddpm_models.UNet(dtype=torch.float32, dropout=0.0, fused_norm=True, fused_block=True)
     ref.load_state_dict(card.state_dict(), strict=True)
     card = card.to(dev)
-    algo = DDPM.create(1000)
-    r = np.random.default_rng(SEED + 2)
-    x0 = torch.tensor(np.clip(r.standard_normal((BATCH, 32, 32, 3)), -1, 1).astype(np.float32))
-    t = torch.tensor(r.integers(1, 1000, (BATCH,)), dtype=torch.int64)
-    eps = torch.tensor(r.standard_normal((BATCH, 32, 32, 3)).astype(np.float32))
+    x0, t, eps = draws
 
     def loss_and_grads(model, device):
         params = {k: v.detach().to(device).requires_grad_(True)
@@ -740,10 +787,10 @@ def train_gradient(torch, np, blocks, ddpm_models, init_weights, DDPM, dev, ops)
     loss_c, grads_c = loss_and_grads(card, dev)
     torch.cuda.synchronize()
     launches = counts(ops)
-    print(f"launches in one training step (loss + backward): {launches}", flush=True)
-    expect_no_simt("training step")
+    print(f"launches in one {label} (loss + backward): {launches}", flush=True)
+    expect_no_simt(label)
     if launches != PER_TRAIN_STEP:
-        fail(f"a training step launched {launches}, expected {PER_TRAIN_STEP}")
+        fail(f"a {label} launched {launches}, expected {PER_TRAIN_STEP}")
     bad = [k for k, g in grads_c.items()
            if not bool(g.isfinite().all()) or float(g.abs().max()) == 0.0]
     print(f"parameter tensors with a finite, non-zero gradient on the card: "
@@ -765,9 +812,76 @@ def train_gradient(torch, np, blocks, ddpm_models, init_weights, DDPM, dev, ops)
           f"(<= {GRAD_REL_L2}); TF32 off for matmul and cuDNN", flush=True)
     print("per top-level module: " + ", ".join(f"{k} {v:.2e}"
                                                for k, v in out["per_module"].items()), flush=True)
-    if not out["grad_rel_l2"] <= GRAD_REL_L2:
-        fail(f"the card's gradient is {out['grad_rel_l2']:.3e} from the CPU's")
+    if not (out["grad_rel_l2"] <= GRAD_REL_L2 and out["loss_rel_err"] <= GRAD_REL_L2):
+        fail(f"the card's {label} is {out['grad_rel_l2']:.3e} (gradient) and "
+             f"{out['loss_rel_err']:.3e} (loss) from the CPU's")
     return out
+
+
+def timed_steps(torch, np, step, state, batch, card: str, bound_ms_=None) -> tuple:
+    """``TIMED_STEPS`` steps of ``step`` timed with CUDA events around each
+    (no host wait between steps): median, min and max step ms, imgs/s on
+    the host clock, peak memory; then three steps under torch.profiler (the
+    device's idle share) and one by kernel. ``batch()`` gives a device batch;
+    ``bound_ms_`` is a step's least time where known. Returns (state,
+    timing, profile of 3 steps, profile of 1 step)."""
+    torch.cuda.reset_peak_memory_stats()
+    batches = [batch() for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    pairs, metrics = [], []
+    t0 = time.perf_counter()
+    for b in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, b, SEED)
+        end.record()
+        pairs.append((start, end))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [s.elapsed_time(e) for s, e in pairs]
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    timing = {"step_ms_median": statistics.median(step_ms), "step_ms_min": min(step_ms),
+              "step_ms_max": max(step_ms),
+              "imgs_per_sec": TRAIN_BATCH * TIMED_STEPS / wall,
+              "imgs_per_sec_from_median": TRAIN_BATCH / (statistics.median(step_ms) / 1e3),
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "bound_ms": bound_ms_, "losses": losses, "grad_norms": norms}
+    bound = ""
+    if bound_ms_ is not None:  # bench.py's work count is the DDPM recipe's
+        bound = (f"; step bound {bound_ms_:.2f} ms ({TRAIN_STEP_TFLOP} TFLOP, "
+                 f"bench.py:60-63, at {BF16_FLOPS / 1e12:.0f} TFLOP/s)")
+    print(f"{TIMED_STEPS} timed steps at batch {TRAIN_BATCH}: step {timing['step_ms_median']:.2f} ms "
+          f"median (min {timing['step_ms_min']:.2f}, max {timing['step_ms_max']:.2f}; CUDA "
+          f"events), {timing['imgs_per_sec']:.1f} imgs/s (host clock over the run), peak "
+          f"memory {timing['peak_mem_gib']:.2f} GiB{bound} [{card}]", flush=True)
+    print("losses " + " ".join(f"{v:.4f}" for v in losses), flush=True)
+    print("grad_norms " + " ".join(f"{v:.4f}" for v in norms), flush=True)
+    if not all(np.isfinite(losses + norms)):
+        fail("a timed step gave a loss or grad_norm that is not finite")
+    del batches
+
+    # the device's idle share over three steps, and one step by kernel
+    three = [batch() for _ in range(3)]
+    one = [batch()]
+    holder = {"state": state}
+
+    def run(bs):
+        for b in bs:
+            holder["state"], _ = step(holder["state"], b, SEED)
+
+    prof3 = profile_fn(torch, lambda: run(three))
+    prof1 = profile_fn(torch, lambda: run(one), top_n=16)
+    print(f"3 steps under torch.profiler: wall {prof3['wall_ms']:.2f} ms, device busy "
+          f"{prof3['busy_ms']:.2f} ms, idle share {prof3['idle_share']:.3f}", flush=True)
+    print(f"1 step by kernel: wall {prof1['wall_ms']:.2f} ms, device busy "
+          f"{prof1['busy_ms']:.2f} ms in {prof1['device_ops']} kernels, copies and memsets, "
+          f"idle share {prof1['idle_share']:.3f}; against the unprofiled median step "
+          f"{1.0 - prof3['busy_ms'] / 3 / timing['step_ms_median']:.3f} [{card}]", flush=True)
+    for name, ms, count in prof1["top"]:
+        print(f"    {ms:9.3f} ms {count:6d}x  {name}", flush=True)
+    return holder["state"], timing, prof3, prof1
 
 
 def run_fit(torch, np, blocks, dev, ops, report, card: str, lit=None,
@@ -837,65 +951,8 @@ def run_fit(torch, np, blocks, dev, ops, report, card: str, lit=None,
     if launches != expect:
         fail(f"fit launched {launches}, expected {expect}")
 
-    # timed steps: CUDA events around each step, no host wait between steps
-    torch.cuda.reset_peak_memory_stats()
-    batches = [batch() for _ in range(TIMED_STEPS)]
-    torch.cuda.synchronize()
-    pairs, metrics = [], []
-    t0 = time.perf_counter()
-    for b in batches:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, m = step(state, b, SEED)
-        end.record()
-        pairs.append((start, end))
-        metrics.append(m)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    step_ms = [s.elapsed_time(e) for s, e in pairs]
-    losses = [float(m["loss"]) for m in metrics]
-    norms = [float(m["grad_norm"]) for m in metrics]
-    timing = {"step_ms_median": statistics.median(step_ms), "step_ms_min": min(step_ms),
-              "step_ms_max": max(step_ms),
-              "imgs_per_sec": TRAIN_BATCH * TIMED_STEPS / wall,
-              "imgs_per_sec_from_median": TRAIN_BATCH / (statistics.median(step_ms) / 1e3),
-              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-              "bound_ms": None, "losses": losses, "grad_norms": norms}
-    bound = ""
-    if key == "fit":  # bench.py's work count is the DDPM recipe's
-        timing["bound_ms"] = 1e3 * TRAIN_STEP_TFLOP * 1e12 / BF16_FLOPS
-        bound = (f"; step bound {timing['bound_ms']:.2f} ms ({TRAIN_STEP_TFLOP} TFLOP, "
-                 f"bench.py:60-63, at {BF16_FLOPS / 1e12:.0f} TFLOP/s)")
-    print(f"{TIMED_STEPS} timed steps at batch {TRAIN_BATCH}: step {timing['step_ms_median']:.2f} ms "
-          f"median (min {timing['step_ms_min']:.2f}, max {timing['step_ms_max']:.2f}; CUDA "
-          f"events), {timing['imgs_per_sec']:.1f} imgs/s (host clock over the run), peak "
-          f"memory {timing['peak_mem_gib']:.2f} GiB{bound} [{card}]", flush=True)
-    print("losses " + " ".join(f"{v:.4f}" for v in losses), flush=True)
-    print("grad_norms " + " ".join(f"{v:.4f}" for v in norms), flush=True)
-    if not all(np.isfinite(losses + norms)):
-        fail("a timed step gave a loss or grad_norm that is not finite")
-    del batches
-
-    # the device's idle share over three steps, and one step by kernel
-    three = [batch() for _ in range(3)]
-    one = [batch()]
-    holder = {"state": state}
-
-    def run(bs):
-        for b in bs:
-            holder["state"], _ = step(holder["state"], b, SEED)
-
-    prof3 = profile_fn(torch, lambda: run(three))
-    prof1 = profile_fn(torch, lambda: run(one), top_n=16)
-    state = holder["state"]
-    print(f"3 steps under torch.profiler: wall {prof3['wall_ms']:.2f} ms, device busy "
-          f"{prof3['busy_ms']:.2f} ms, idle share {prof3['idle_share']:.3f}", flush=True)
-    print(f"1 step by kernel: wall {prof1['wall_ms']:.2f} ms, device busy "
-          f"{prof1['busy_ms']:.2f} ms in {prof1['device_ops']} kernels, copies and memsets, "
-          f"idle share {prof1['idle_share']:.3f}; against the unprofiled median step "
-          f"{1.0 - prof3['busy_ms'] / 3 / timing['step_ms_median']:.3f} [{card}]", flush=True)
-    for name, ms, count in prof1["top"]:
-        print(f"    {ms:9.3f} ms {count:6d}x  {name}", flush=True)
+    bound_ms_ = 1e3 * TRAIN_STEP_TFLOP * 1e12 / BF16_FLOPS if key == "fit" else None
+    state, timing, prof3, prof1 = timed_steps(torch, np, step, state, batch, card, bound_ms_)
     report[key] = {"warm_s": warm_s, "update": upd, "logged": logged, "launches": launches,
                    "timing": timing, "profile_3_steps": prof3, "profile_1_step": prof1}
     return lit, state
@@ -1154,6 +1211,10 @@ def per_site_sum(rows, kind: str) -> dict:
                          if kind == "attention" else None)
     out["max_abs_err"] = max(r["max_abs_err"] for r in rs)
     out["bound_by"] = max(rs, key=lambda r: r["bound_ms"] * r["sites"])["bound_by"]
+    # the library sequences beside K1 and K4, where every row has one
+    for seq in ("torch_seq_ms", "cudnn_seq_ms"):
+        if rs and all(r.get(seq) is not None for r in rs):
+            out[seq] = sum(r[seq] * r["sites"] for r in rs)
     return out
 
 
@@ -1588,13 +1649,25 @@ def default_requests(np, url: str, ops, model: str, card: str) -> tuple:
     return requests, launches
 
 
-def solver_requests(np, url: str, ops, model: str, card: str) -> list:
-    """``ddim``, ``dpm`` and ``unipc`` requests at n = 8 (their default
-    steps: 50, 20, 10), each repeated for identical bytes; launches
-    counted per request."""
+def launches_for(per_forward: dict, forwards: int, partial: dict = None, key_every: int = 1):
+    """Kernel launches of a run of ``forwards`` network evaluations: every
+    one full (``per_forward``), or, with ``partial``, one in ``key_every``
+    full (a key step, counted from the first) and the rest partial."""
+    keys = -(-forwards // key_every) if partial is not None else forwards
+    rest = forwards - keys
+    return {k: v * keys + (partial[k] * rest if partial is not None else 0)
+            for k, v in per_forward.items()}
+
+
+def solver_requests(np, url: str, ops, model: str, card: str, samplers) -> list:
+    """Requests at n = 8, one a sampler, each repeated for identical bytes
+    and its launches held: ``samplers`` lists (name, steps or None for the
+    sampler's default, the launches the request must make)."""
     out = []
-    for name, steps in (("ddim", 50), ("dpm", 20), ("unipc", 10)):
+    for name, steps, want in samplers:
         body = {"n": BATCH, "seed": 2, "format": "npy", "sampler": name}
+        if steps is not None:
+            body["steps"] = steps
         reset_counts(ops)
         code, data, secs = _post(url, body)
         launches = counts(ops)
@@ -1611,7 +1684,19 @@ def solver_requests(np, url: str, ops, model: str, card: str) -> list:
         if not ok:
             fail(f"{model}: the {name} request failed or was not repeatable")
         expect_no_simt(f"{model} {name} request")
+        if launches != want:
+            fail(f"{model} {name} launched {launches}, expected {want}")
     return out
+
+
+def rejected(url: str, model: str, name: str, needle: str) -> dict:
+    """A request the model's family does not take: 400, naming why."""
+    code, data, _ = _post(url, {"n": 1, "sampler": name, "format": "npy"})
+    err = json.loads(data).get("error")
+    print(f"{model} sampler={name}: {code} {err}", flush=True)
+    if code != 400 or needle not in err:
+        fail(f"{model} sampler={name} answered {code} {data!r}")
+    return {"code": code, "error": err}
 
 
 def iddpm_serve(torch, np, blocks, dev, ops, card: str) -> dict:
@@ -1620,10 +1705,11 @@ def iddpm_serve(torch, np, blocks, dev, ops, card: str) -> dict:
     respaced ancestral sampler with learned variances) at n = 1, 8 and 16
     and a repeat of 8 with identical bytes, launches 1/11/22 a forward;
     ``ddim``/``dpm``/``unipc`` at n = 8 (ε-only adapter, clip_x0 on the
-    cosine schedule); ``cached`` answered 400; one n = 8 ``default`` request
+    cosine schedule); ``cached`` answered 400 (variance-learning models
+    have no ε-only decoder to cache); one n = 8 ``default`` request
     under torch.profiler; 20 steps of the T = 4000 ancestral loop of
     configs/iddpm/cifar10.yaml timed and extrapolated."""
-    from dmme_tpu_torch.serving import Sampler
+    from dmme_tpu_torch.serving import SAMPLERS, Sampler
     from dmme_tpu_torch.training import LitIDDPM, TrainState
 
     lit = LitIDDPM(dtype="bf16", sample_steps=50)
@@ -1638,7 +1724,7 @@ def iddpm_serve(torch, np, blocks, dev, ops, card: str) -> dict:
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
         print(f"healthz {health}", flush=True)
-        if health.get("samplers") != ["default", "ddim", "dpm", "unipc"]:
+        if health.get("samplers") != list(SAMPLERS):
             fail(f"healthz: {health}")
         out["requests"], launches = default_requests(np, url, ops, "IDDPM", card)
         want = {k: v * 50 * 4 for k, v in PER_FORWARD_IDDPM.items()}
@@ -1647,16 +1733,9 @@ def iddpm_serve(torch, np, blocks, dev, ops, card: str) -> dict:
         if launches != want:
             fail(f"IDDPM serve launched {launches}, expected {want}")
         out["launches"] = launches
-        out["solvers"] = solver_requests(np, url, ops, "IDDPM", card)
-        for r in out["solvers"]:
-            want = {k: v * r["steps"] for k, v in PER_FORWARD_IDDPM.items()}
-            if r["launches"] != want:
-                fail(f"IDDPM {r['sampler']} launched {r['launches']}, expected {want}")
-        code, data, _ = _post(url, {"n": 1, "sampler": "cached", "format": "npy"})
-        out["cached"] = {"code": code, "error": json.loads(data).get("error")}
-        print(f"IDDPM sampler=cached: {code} {out['cached']['error']}", flush=True)
-        if code != 400 or "A.5" not in out["cached"]["error"]:
-            fail(f"sampler=cached answered {code} {data!r}")
+        out["solvers"] = solver_requests(np, url, ops, "IDDPM", card, [
+            (name, steps, launches_for(PER_FORWARD_IDDPM, steps)) for name, steps in SOLVERS])
+        out["cached"] = rejected(url, "IDDPM", "cached", "variance-learning")
     finally:
         stop()
     prof = profile_fn(torch, lambda: sampler.sample(BATCH, seed=5))
@@ -1846,6 +1925,26 @@ def _jsonl(path: str) -> list:
         return [json.loads(line) for line in f]
 
 
+def cli_run(torch, ops, card: str, name: str, argv, want=None) -> dict:
+    """``dmme_tpu_torch.trainer.main(argv)`` in this process: its wall time
+    and launches, none of them of ``simt.cu``, and ``want`` if given."""
+    from dmme_tpu_torch.trainer import main as cli
+
+    reset_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cli(argv)
+    torch.cuda.synchronize()
+    rec = {"wall_s": time.time() - t0, "launches": counts(ops), "simt": simt_counts()}
+    print(f"{name}: {rec['wall_s']:.2f} s wall, launches {rec['launches']}, f32/fp16 "
+          f"launches {rec['simt']} [{card}]", flush=True)
+    if any(rec["simt"].values()):
+        fail(f"{name}: a bf16 path launched the f32/fp16 kernels")
+    if want is not None and rec["launches"] != want:
+        fail(f"{name} launched {rec['launches']}, expected {want}")
+    return rec
+
+
 def cli_phase(torch, np, ops, dev, card: str) -> dict:
     """Phase 9b: the command line in this process (so the counters read its
     launches), ``dmme_tpu_torch.trainer.main``, on the repo's configs: fit at
@@ -1859,7 +1958,6 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
     from dmme_tpu_torch import config as tcfg
     from dmme_tpu_torch.callbacks import GenerateImage
     from dmme_tpu_torch.parallel.train_step import step_generator
-    from dmme_tpu_torch.trainer import main as cli
     from dmme_tpu_torch.training import CheckpointManager
     from dmme_tpu_torch.utils.norm import denorm
 
@@ -1878,20 +1976,8 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
     sample_steps, gens = 50, {20: 3, 30: 4}
 
     def run(name, argv, want=None):
-        reset_counts(ops)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        cli(argv)
-        torch.cuda.synchronize()
-        rec = {"wall_s": time.time() - t0, "launches": counts(ops), "simt": simt_counts()}
-        print(f"{name}: {rec['wall_s']:.2f} s wall, launches {rec['launches']}, f32/fp16 "
-              f"launches {rec['simt']} [{card}]", flush=True)
-        if any(rec["simt"].values()):
-            fail(f"{name}: a bf16 path launched the f32/fp16 kernels")
-        if want is not None and rec["launches"] != want:
-            fail(f"{name} launched {rec['launches']}, expected {want}")
-        out[name] = rec
-        return rec
+        out[name] = cli_run(torch, ops, card, name, argv, want)
+        return out[name]
 
     def fit_launches(steps, generations):
         """K1/K2/K3 per training step and K1/K3/K4 per DDIM-50 forward of the grids."""
@@ -2060,17 +2146,341 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------- EDM, flow and the caches
+
+EDM_NFE = 2 * 18 - 1  # configs/edm/cifar10.yaml: 18-step Heun, no corrector on the last step
+FLOW_NFE = 2 * 25  # configs/flow/shapes_demo.yaml: 25 midpoint steps
+# the f32 EDM comparison's batch: σ spread from 0.002 (λ ≈ 2.5e5) to 80
+EDM_F32_BATCH = 16
+
+
+def edm_draws(torch, np, n: int, seed: int):
+    """Numpy x₀ in [−1, 1], σ geometric from 0.002 to 80, and unit noise."""
+    r = np.random.default_rng(seed)
+    x0 = torch.tensor(np.clip(r.standard_normal((n, 32, 32, 3)), -1, 1).astype(np.float32))
+    sigma = torch.tensor(np.geomspace(0.002, 80.0, n).astype(np.float32))
+    noise = torch.tensor(r.standard_normal((n, 32, 32, 3)).astype(np.float32))
+    return x0, sigma, noise
+
+
+def new_site_kernels(torch, np, blocks, k_gn, k_attn, k_res, build, ddpm_models, init_weights,
+                     dev, ops, card: str) -> dict:
+    """Phase 17: the call sites of K1–K4 that EDM, flow and the caching
+    samplers add, on the DDPM UNet (bf16, both switches, random biases and
+    affines). At n = 8: EDM's σ-conditioned forward (c_in·x at σ from 0.002
+    to 80, the float c_noise), flow's forward (t·1000), and the caching
+    samplers' non-key forwards (``cached`` on a key forward's encoder state,
+    ``deep`` on its deep-core output at cache_depth 1), each held to its
+    launches (1/6/22, 1/6/22, 1/4/14, 1/0/5) and every K1/K3/K4 call of it
+    against its plain version (``TOL``), timed; then K1, K2, K3 and the
+    attention backward at every call site of one ``LitEDM`` and one
+    ``LitFlow`` training step at batch 128 (:func:`train_kernels`)."""
+    from dmme_tpu_torch import equations as eq
+    from dmme_tpu_torch.training import LitEDM, LitFlow
+
+    m = ddpm_models.UNet(dtype=torch.bfloat16, fused_norm=True, fused_block=True)
+    init_weights(m, torch.Generator().manual_seed(SEED))
+    randomize_affines(torch, blocks, m, torch.Generator().manual_seed(SEED + 1))
+    m = m.to(dev).eval()
+    x0, sigma, noise = edm_draws(torch, np, BATCH, SEED + 70)
+    c = eq.edm.precond(sigma)
+    x_edm = c.c_in[:, None, None, None] * (x0 + sigma[:, None, None, None] * noise)
+    t_flow = torch.rand((BATCH,), generator=torch.Generator().manual_seed(SEED + 71))
+    x_flow = eq.flow.interpolate(x0, noise, t_flow)
+    g = torch.Generator().manual_seed(SEED + 72)
+    x_key, x_step = (torch.randn((BATCH, 32, 32, 3), generator=g) for _ in range(2))
+    t_key, t_step = torch.tensor([801] * BATCH), torch.tensor([768] * BATCH)
+    with torch.no_grad():
+        _, feats = m(x_key.to(dev), t_key.to(dev), return_features=True)
+        _, deep = m(x_key.to(dev), t_key.to(dev), cache_depth=1, return_deep=True)
+    kinds = {"edm": (x_edm, c.c_noise, {}, PER_FORWARD),
+             "flow": (x_flow, t_flow * 1000.0, {}, PER_FORWARD),
+             "cached": (x_step, t_step, {"cached": feats}, PER_FORWARD_CACHED),
+             "deep": (x_step, t_step, {"cache_depth": 1, "deep_cache": deep}, PER_FORWARD_DEEP)}
+    out = {}
+    for name, (xs, ts, kw, want) in kinds.items():
+        reset_counts(ops)
+        with torch.no_grad():
+            m(xs.to(dev), ts.to(dev), **kw)
+        torch.cuda.synchronize()
+        launches = counts(ops)
+        expect_no_simt(f"{name} forward")
+        print(f"{name} forward at n = {BATCH}: launches {launches} (expected {want})", flush=True)
+        if launches != want:
+            fail(f"the {name} forward launched {launches}, expected {want}")
+        recorded, _ = record_forwards(torch, blocks, {name: (m, xs, ts, want, kw)}, dev)
+        rows, failures = forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded)
+        if failures:
+            fail(f"{name} forward kernels disagree with their plain versions: {failures}")
+        flat = [dict(r, sites=r["sites"][name]) for r in rows]
+        per = {k: per_site_sum(flat, k) for k in ("group_norm_silu", "attention", "resblock")
+               if want[k]}
+        for k, v in per.items():
+            print(f"per {name} forward at n = {BATCH}, {k}: " + ", ".join(
+                f"{f} {x:.4f}" for f, x in v.items() if isinstance(x, float)) + f" [{card}]",
+                flush=True)
+        out[name] = {"launches": launches, "rows": rows, "per_forward": per}
+    del m, feats, deep
+    torch.cuda.empty_cache()
+    for name, lit_cls in (("edm_train", LitEDM), ("flow_train", LitFlow)):
+        print(f"-- {lit_cls.__name__}(dtype='bf16') training step at batch {TRAIN_BATCH}",
+              flush=True)
+        out[name] = train_kernels(torch, blocks, k_gn, k_attn, None, init_weights, lit_cls, dev,
+                                  card, ops)
+        torch.cuda.empty_cache()
+    return out
+
+
+EDM_ROOT = os.path.join("build", "cli_edm")
+FLOW_ROOT = os.path.join("build", "cli_flow")
+
+
+def continuous_fit(torch, np, ops, dev, card: str, family: str) -> dict:
+    """Phases 19 and 21: ``trainer.main fit`` for ``FIT_STEPS`` steps of
+    ``configs/edm/cifar10.yaml`` (synthetic CIFAR-10, GenerateImage every 10
+    steps: 18-step Heun grids at steps 10 and 20 and at the end) or of
+    ``configs/flow/shapes_demo.yaml`` (Shapes, 10 steps a call), full width,
+    batch 128, bf16: launches 45/45/6/0 a step and 1/6/22 a sampling forward,
+    the checkpoint, grids and JSONL (step ms from its ``imgs_per_sec``); then
+    ``TIMED_STEPS`` steps of the same train step from the saved state, on
+    synthetic CIFAR-10 batches, timed with CUDA events, and the device's idle
+    share under the profiler (:func:`timed_steps`)."""
+    import shutil
+
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.data import CIFAR10
+    from dmme_tpu_torch.parallel import make_train_step
+    from dmme_tpu_torch.training import CheckpointManager
+
+    root = EDM_ROOT if family == "edm" else FLOW_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    if family == "edm":
+        cfg = ["--config", "configs/edm/cifar10.yaml", "--data.init_args.synthetic", "true"]
+        extra = ["--trainer.log_every_n_steps", "1", "--trainer.callbacks", _cli_callback(root)]
+        grid_forwards = 3 * EDM_NFE
+    else:
+        cfg = ["--config", "configs/flow/shapes_demo.yaml"]
+        extra = ["--trainer.log_every_n_steps", "10"]
+        grid_forwards = 0
+    want = {k: v * FIT_STEPS + PER_FORWARD[k] * grid_forwards for k, v in PER_TRAIN_STEP.items()}
+    rec = cli_run(torch, ops, card, f"{family} fit {FIT_STEPS}",
+                  ["fit", *cfg, "--trainer.max_steps", str(FIT_STEPS),
+                   "--trainer.default_root_dir", root, *extra], want)
+    logged = _jsonl(os.path.join(root, "metrics.jsonl"))
+    rec["losses"] = [r["loss"] for r in logged]
+    rec["step_ms_from_jsonl"] = [1e3 * TRAIN_BATCH / r["imgs_per_sec"] for r in logged]
+    rec["checkpoints"] = CheckpointManager(root).steps()
+    rec["grids"] = (sorted(os.listdir(os.path.join(root, "samples"))) if family == "edm"
+                    else [])
+    print(f"{family} fit: checkpoints {rec['checkpoints']}, grids {rec['grids']}, losses "
+          f"{[round(v, 4) for v in rec['losses']]}; step ms from the JSONL "
+          f"{[round(v, 2) for v in rec['step_ms_from_jsonl']]} (median "
+          f"{statistics.median(rec['step_ms_from_jsonl']):.2f}) [{card}]", flush=True)
+    want_grids = ["step_00000010.png", "step_00000020.png"] if family == "edm" else []
+    if (rec["checkpoints"] != [FIT_STEPS] or rec["grids"] != want_grids
+            or len(logged) != (FIT_STEPS if family == "edm" else 2)
+            or not np.isfinite(rec["losses"]).all()):
+        fail(f"{family} fit through the CLI left {rec}")
+
+    config = tcfg.validate_config(tcfg.apply_overrides(tcfg.load_config(cfg[1]), cfg[2:]))
+    lit = tcfg.instantiate(config["model"])
+    state = CheckpointManager(root).restore(lit.init_state(0, device=dev))
+    dm = CIFAR10(synthetic=True, batch_size=TRAIN_BATCH)
+    dm.setup("fit")
+    it = dm.train_iter(SEED + 9)
+
+    def batch():
+        return torch.from_numpy(next(it)).pin_memory().to(dev, non_blocking=True)
+
+    step = make_train_step(lit.make_loss_fn(dm))
+    state, _ = step(state, batch(), SEED)  # first launches of this step object
+    state, rec["timing"], rec["profile_3_steps"], rec["profile_1_step"] = timed_steps(
+        torch, np, step, state, batch, card)
+    del state, lit
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def continuous_serve(torch, np, blocks, dev, ops, card: str, family: str) -> dict:
+    """Phases 20 and 21: ``LitEDM(dtype="bf16")`` (the harness of
+    configs/edm/cifar10.yaml) or ``LitFlow(dtype="bf16")`` behind
+    ``make_server``, random weights with random biases and affines. EDM:
+    ``default`` (18-step Heun, 35 evaluations) at n = 1, 8 and 16 and a repeat
+    of 8 with identical bytes, and ``edm`` at 10 steps (19 evaluations) at
+    n = 8; flow: ``default`` (25 midpoint steps, 50 evaluations) and ``flow``
+    at 10 steps at n = 8, each repeated. Launches 1/6/22 a forward; the other
+    family's name and the discrete-schedule samplers answered 400; one n = 8
+    ``default`` request under the profiler."""
+    from dmme_tpu_torch.serving import SAMPLERS, Sampler
+    from dmme_tpu_torch.training import LitEDM, LitFlow, TrainState
+
+    lit = (LitEDM if family == "edm" else LitFlow)(dtype="bf16")
+    lit.init_state(SEED)
+    randomize_affines(torch, blocks, lit.model, torch.Generator().manual_seed(SEED + 1))
+    state = TrainState.create({k: v.detach().clone() for k, v in lit.model.state_dict().items()},
+                              lit.make_optimizer())
+    sampler = Sampler(lit, state, img_size=32, device=dev)
+    url, stop = _serve(torch, sampler)
+    model = "EDM" if family == "edm" else "flow"
+    out = {}
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if health.get("samplers") != list(SAMPLERS):
+            fail(f"healthz: {health}")
+        if family == "edm":
+            out["requests"], launches = default_requests(np, url, ops, model, card)
+            want = launches_for(PER_FORWARD, 4 * EDM_NFE)
+            print(f"EDM: launches during the four default requests {launches} (expected {want})",
+                  flush=True)
+            if launches != want:
+                fail(f"EDM serve launched {launches}, expected {want}")
+            out["launches"] = launches
+            out["override"] = solver_requests(np, url, ops, model, card, [
+                ("edm", 10, launches_for(PER_FORWARD, 2 * 10 - 1))])
+        else:
+            out["requests"] = solver_requests(np, url, ops, model, card, [
+                ("default", None, launches_for(PER_FORWARD, FLOW_NFE)),
+                ("flow", 10, launches_for(PER_FORWARD, 2 * 10))])
+            out["launches"] = out["requests"][0]["launches"]
+        other = "flow" if family == "edm" else "edm"
+        needle = "flow-matching-trained" if family == "edm" else "EDM-trained"
+        out["rejected"] = {other: rejected(url, model, other, needle),
+                           "ddim": rejected(url, model, "ddim", "discrete-schedule"),
+                           "cached": rejected(url, model, "cached", "discrete-schedule")}
+    finally:
+        stop()
+    prof = profile_fn(torch, lambda: sampler.sample(BATCH, seed=5))
+    out["profile_n8"] = prof
+    print(f"{model} default n=8 under torch.profiler: wall {prof['wall_ms']:.2f} ms, device busy "
+          f"{prof['busy_ms']:.2f} ms, idle share {prof['idle_share']:.3f} [{card}]", flush=True)
+    for name, ms, count in prof["top"]:
+        print(f"    {ms:9.3f} ms {count:6d}x  {name}", flush=True)
+    return out
+
+
+def f32_edm_phase(torch, np, blocks, ddpm_models, init_weights, dev, ops, card: str) -> dict:
+    """Phase 22: ``LitEDM()`` (f32, the harness's default dtype) takes one
+    full-width training step at batch 128 on the card through ``simt.cu``
+    (K1/K2/K3 45/45/6, no bf16 kernel). Then, dropout off, on the same
+    weights: ``loss_given`` and its gradient at batch 16 with σ from 0.002
+    to 80, and the Heun step from the middle of the 18-step grid at n = 8
+    (two forwards, 2/12/44 ``simt.cu`` launches), against f32 on the CPU
+    within ``F32_REL_L2``; the bf16 harness on the same inputs is the
+    control that must miss it, in the gradient and in the step."""
+    from dmme_tpu_torch.data import CIFAR10
+    from dmme_tpu_torch.parallel import make_train_step
+    from dmme_tpu_torch.training import LitEDM
+
+    none = {k: 0 for k in ops}
+    w_model = ddpm_models.UNet(dtype=torch.float32)
+    init_weights(w_model, torch.Generator().manual_seed(SEED))
+    randomize_affines(torch, blocks, w_model, torch.Generator().manual_seed(SEED + 1))
+    weights = {k: v.detach().clone() for k, v in w_model.state_dict().items()}
+    dm = CIFAR10(synthetic=True, synthetic_size=2 * TRAIN_BATCH, batch_size=TRAIN_BATCH)
+    dm.setup("fit")
+    batch = torch.from_numpy(next(dm.train_iter(SEED))).to(dev)
+
+    lit = LitEDM()
+    state = lit.init_state(SEED, device=dev)
+    with torch.no_grad():
+        for k, v in state.params.items():
+            v.copy_(weights[k])
+    reset_counts(ops)
+    _, metrics = make_train_step(lit.make_loss_fn(dm))(state, batch, SEED)
+    torch.cuda.synchronize()
+    out = {"train": {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                     "launches": counts(ops), "simt": simt_counts()}}
+    print(f"LitEDM() one training step at batch {TRAIN_BATCH} (f32): loss "
+          f"{out['train']['loss']:.6f} grad_norm {out['train']['grad_norm']:.4f}; bf16 kernel "
+          f"launches {out['train']['launches']}; simt.cu launches {out['train']['simt']}",
+          flush=True)
+    if not (np.isfinite(out["train"]["loss"]) and np.isfinite(out["train"]["grad_norm"])):
+        fail("the f32 EDM training step is not finite")
+    if out["train"]["launches"] != none or out["train"]["simt"] != PER_TRAIN_STEP:
+        fail(f"the f32 EDM step launched {out['train']}, expected none and {PER_TRAIN_STEP}")
+    del state
+
+    x0, sigma, noise = edm_draws(torch, np, EDM_F32_BATCH, SEED + 90)
+    algo = lit.diffusion_model
+    # a mid-grid Heun step, where the network's output moves the state most
+    # (from σ_max the state's own scale, 80, hides bf16's error in the step)
+    i_heun = algo.steps // 2
+    x_i = x0[:BATCH] + algo.sigmas[i_heun] * noise[:BATCH]
+
+    def harness(dtype):
+        h = LitEDM(dtype=dtype)
+        for mod in h.model.modules():
+            if isinstance(mod, blocks.ResBlock):
+                mod.dropout = 0.0
+        return h
+
+    def measure(h, device):
+        params = {k: v.to(device).requires_grad_(True) for k, v in weights.items()}
+        loss = algo.loss_given(h.model_fn, params, x0.to(device), sigma.to(device),
+                               noise.to(device), train=True)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        with torch.no_grad():
+            p = {k: v.detach() for k, v in params.items()}
+            torch.cuda.synchronize()
+            reset_counts(ops)
+            step = algo.sampling_step(h.model_fn, p, x_i.to(device), i_heun)
+            torch.cuda.synchronize()
+            out["heun_launches"] = {"bf16": counts(ops), "simt": simt_counts()}
+        return {"loss": loss.detach().cpu(),
+                "grad": torch.cat([g.detach().float().flatten().cpu() for g in grads]),
+                "step": step.float().cpu()}
+
+    def readings(got, ref) -> dict:
+        return {"loss_rel_err": float(abs(got["loss"] - ref["loss"]) / abs(ref["loss"])),
+                "grad_rel_l2": rel_l2(got["grad"], ref["grad"]),
+                "step_rel_l2": rel_l2(got["step"], ref["step"])}
+
+    card_h = harness("f32")
+    card_h.model.to(dev)
+    got = measure(card_h, dev)
+    if not all(bool(v.isfinite().all()) for v in got.values()):
+        fail("the f32 EDM loss, gradient or Heun step on the card is not finite")
+    heun = out.pop("heun_launches")
+    want_heun = launches_for(PER_FORWARD, 2)
+    print(f"f32 Heun step at n = {BATCH}: bf16 launches {heun['bf16']}, simt.cu launches "
+          f"{heun['simt']} (expected {want_heun})", flush=True)
+    if heun["bf16"] != none or heun["simt"] != want_heun:
+        fail(f"the f32 Heun step launched {heun}, expected none and {want_heun}")
+    ref = measure(harness("f32"), torch.device("cpu"))
+    control = harness("bf16")
+    control.model.to(dev)
+    out["vs_cpu"] = readings(got, ref)
+    out["bf16_control"] = readings(measure(control, dev), ref)
+    out["heun_launches"] = heun
+    print(f"f32 EDM card vs f32 CPU (σ {float(sigma[0]):.3g}…{float(sigma[-1]):.3g}, batch "
+          f"{EDM_F32_BATCH}; Heun step {i_heun} from σ {float(algo.sigmas[i_heun]):.4g}): "
+          + ", ".join(
+              f"{k} {v:.3e}" for k, v in out["vs_cpu"].items()) + f" (<= {F32_REL_L2}); bf16 "
+          "control: " + ", ".join(f"{k} {v:.3e}" for k, v in out["bf16_control"].items()),
+          flush=True)
+    if not all(v <= F32_REL_L2 for v in out["vs_cpu"].values()):
+        fail("the f32 EDM harness on the card disagrees with the f32 CPU reference")
+    if not (out["bf16_control"]["grad_rel_l2"] > F32_REL_L2
+            and out["bf16_control"]["step_rel_l2"] > F32_REL_L2):
+        fail("the f32 EDM comparison does not tell bf16 compute from f32")
+    return out
+
+
 def record_forwards(torch, blocks, runs, dev) -> tuple:
     """Record the K1/K3/K4 inputs of eval forwards. ``runs``: {name: (model,
-    x, t, expected call sites)}; fails if a forward's call sites differ.
+    x, t, expected call sites[, forward keyword arguments])}; fails if a
+    forward's call sites differ.
     Returns ({kind: {signature: {"a", "k", "sites": {name: count}}}},
     {name: call sites})."""
     recorded = {"group_norm_silu": {}, "attention": {}, "resblock": {}}
     site_counts = {}
-    for name, (m, xs, ts, want) in runs.items():
+    for name, (m, xs, ts, want, *kw) in runs.items():
+        kw = kw[0] if kw else {}
         with torch.no_grad():
             calls = record_calls(serve_targets(blocks),
-                                 lambda m=m, xs=xs, ts=ts: m(xs.to(dev), ts.to(dev)))
+                                 lambda m=m, xs=xs, ts=ts, kw=kw: m(xs.to(dev), ts.to(dev), **kw))
         site_counts[name] = {k: sum(c for _, c, _, _ in v) for k, v in calls.items()}
         if site_counts[name] != {k: want[k] for k in site_counts[name]}:
             fail(f"UNet forward ({name}) has call sites {site_counts[name]}, expected {want}")
@@ -2159,6 +2569,21 @@ def forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded) -> tuple:
     return shapes, failures
 
 
+_REPLACES = {"group_norm_silu": ("group_norm.cu", "dmme_tpu/ops/group_norm.py:72"),
+             "group_norm_silu_bwd": ("group_norm.cu", "dmme_tpu/ops/group_norm.py:110"),
+             "attention": ("attention.cu", "dmme_tpu/ops/attention.py:47"),
+             "resblock": ("resblock.cu", "dmme_tpu/ops/resblock.py:88")}
+
+
+def _table_row(name: str, kname: str, v: dict, launches: int) -> dict:
+    """A row of the kernels line from per-site sums (:func:`per_site_sum`)."""
+    src, replaces = _REPLACES[kname]
+    return {"name": name, "route": "cuda", "source": f"dmme_tpu_torch/ops/csrc/{src}",
+            "replaces": replaces, "launches": launches, "max_abs_err": v["max_abs_err"],
+            "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"], "library_ms": v["library_ms"]}
+
+
 def write_report(path: str, report: dict) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
@@ -2197,9 +2622,9 @@ def main() -> int:
         print("no CUDA device: this script measures the port on a GPU", file=sys.stderr)
         return 1
     card = nvidia_smi()
-    kind = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     print(card, flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {device_name}", flush=True)
 
     import numpy as np
 
@@ -2210,7 +2635,7 @@ def main() -> int:
     from dmme_tpu_torch.ops import build
     from dmme_tpu_torch.ops import group_norm as k_gn
     from dmme_tpu_torch.ops import resblock as k_res
-    from dmme_tpu_torch.serving import Sampler, make_server
+    from dmme_tpu_torch.serving import SAMPLERS, Sampler, make_server
     from dmme_tpu_torch.training import LitDDIM, TrainState
 
     ops = {"group_norm_silu": (k_gn, "launches"), "group_norm_silu_bwd": (k_gn, "bwd_launches"),
@@ -2218,7 +2643,7 @@ def main() -> int:
     SIMT.update({"group_norm_silu": (k_gn, "simt_launches"),
                  "group_norm_silu_bwd": (k_gn, "simt_bwd_launches"),
                  "attention": (k_attn, "simt_launches"), "resblock": (k_res, "simt_launches")})
-    report = {"card": card, "torch": torch.__version__, "device": kind}
+    report = {"card": card, "torch": torch.__version__, "device": device_name}
 
     phase("build")
     t0 = time.time()
@@ -2342,14 +2767,18 @@ def main() -> int:
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
         print(f"healthz {health}", flush=True)
-        if health.get("status") != "ok":
+        if health.get("status") != "ok" or health.get("samplers") != list(SAMPLERS):
             fail(f"healthz: {health}")
         serve["requests"], launches = default_requests(np, url, ops, "DDPM", card)
-        serve["solvers"] = solver_requests(np, url, ops, "DDPM", card)
-        for r in serve["solvers"]:
-            want = {k: v * r["steps"] for k, v in expect["both"].items()}
-            if r["launches"] != want:
-                fail(f"DDPM {r['sampler']} launched {r['launches']}, expected {want}")
+        serve["solvers"] = solver_requests(np, url, ops, "DDPM", card, [
+            (name, steps, launches_for(PER_FORWARD, steps)) for name, steps in SOLVERS])
+        # the feature-caching samplers at refresh interval 2 (cache depth 1):
+        # key steps run the full forward, the others the partial one
+        serve["caching"] = solver_requests(np, url, ops, "DDPM", card, [
+            (name, steps, launches_for(PER_FORWARD, steps, partial, 2))
+            for name, steps, partial in CACHING])
+        serve["rejected"] = {name: rejected(url, "DDPM", name, needle) for name, needle in (
+            ("edm", "EDM-trained"), ("flow", "flow-matching-trained"))}
     finally:
         stop()
     print(f"kernel launches during the four requests: {launches}", flush=True)
@@ -2369,6 +2798,14 @@ def main() -> int:
               f"{prof['busy_ms']:.2f} ms, idle share {prof['idle_share']:.3f}", flush=True)
         for name, ms, count in prof["top"]:
             print(f"    {ms:9.3f} ms {count:6d}x  {name}", flush=True)
+    # each caching sampler beside the exact solver it approximates
+    report["profile_samplers"] = {}
+    for name in ("ddim", "cached", "deep", "dpm", "deep_dpm"):
+        prof = profile_request(torch, sampler, BATCH, name)
+        report["profile_samplers"][name] = prof
+        print(f"{name} n={BATCH}: wall {prof['wall_ms']:.2f} ms (profiled), device busy "
+              f"{prof['busy_ms']:.2f} ms in {prof['device_ops']} operations, idle share "
+              f"{prof['idle_share']:.3f} [{card}]", flush=True)
 
     from dmme_tpu_torch.diffusion import DDPM
     from dmme_tpu_torch.training import LitDDPM
@@ -2387,7 +2824,7 @@ def main() -> int:
 
     phase("train gradient: loss_given + backward at batch 8, bf16 on the card vs f32 on the CPU")
     report["train_gradient"] = train_gradient(torch, np, blocks, ddpm_models, init_weights,
-                                              DDPM, dev, ops)
+                                              DDPM.create(1000), ddpm_draws(torch, np), dev, ops)
     torch.cuda.empty_cache()
 
     # a user's defaults for the timed training: cuDNN may pick any algorithm
@@ -2439,6 +2876,36 @@ def main() -> int:
     phase("f32 IDDPM: LitIDDPM() through simt.cu on the card")
     report["f32_iddpm"] = f32_iddpm_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res,
                                           dev, ops, card)
+
+    torch.cuda.empty_cache()
+    phase("new call sites: EDM's and flow's forwards, the caching samplers' partial forwards, "
+          "and the EDM and flow training steps")
+    report["new_sites"] = new_site_kernels(torch, np, blocks, k_gn, k_attn, k_res, build,
+                                           ddpm_models, init_weights, dev, ops, card)
+    phase("EDM gradient: loss_given + backward at batch 8, σ from 0.002 to 80, bf16 card vs "
+          "f32 CPU")
+    from dmme_tpu_torch.diffusion import EDM
+
+    report["edm_gradient"] = train_gradient(torch, np, blocks, ddpm_models, init_weights,
+                                            EDM.create(), edm_draws(torch, np, BATCH, SEED + 80),
+                                            dev, ops, "EDM training step")
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    print("cudnn deterministic off for the EDM and flow fits", flush=True)
+    phase("EDM fit: trainer.main fit --config configs/edm/cifar10.yaml (synthetic data)")
+    report["edm_fit"] = continuous_fit(torch, np, ops, dev, card, "edm")
+    phase("EDM serve: LitEDM(dtype='bf16') over HTTP, default (18-step Heun) and edm")
+    report["edm_serve"] = continuous_serve(torch, np, blocks, dev, ops, card, "edm")
+    torch.cuda.empty_cache()
+    phase("flow fit: trainer.main fit --config configs/flow/shapes_demo.yaml")
+    report["flow_fit"] = continuous_fit(torch, np, ops, dev, card, "flow")
+    phase("flow serve: LitFlow(dtype='bf16') over HTTP, default (25 midpoint steps) and flow")
+    report["flow_serve"] = continuous_serve(torch, np, blocks, dev, ops, card, "flow")
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = True
+    phase("f32 EDM: LitEDM() through simt.cu on the card")
+    report["f32_edm"] = f32_edm_phase(torch, np, blocks, ddpm_models, init_weights, dev, ops,
+                                      card)
 
     phase("kernels")
     sources = {
@@ -2495,24 +2962,32 @@ def main() -> int:
     # the IDDPM path: K1, K3, K4 per n = 8 forward (launches in the four
     # default requests), K2 per training step (launches in the 20 fit steps)
     ik = report["iddpm_kernels"]
-    for kname, replaces, v, n_launch in (
-            ("group_norm_silu", "dmme_tpu/ops/group_norm.py:72",
-             ik["per_forward"]["group_norm_silu"],
-             report["iddpm_serve"]["launches"]["group_norm_silu"]),
-            ("group_norm_silu_bwd", "dmme_tpu/ops/group_norm.py:110",
-             ik["train"]["per_step"]["group_norm_silu_bwd"],
-             iddpm_fit_launches["group_norm_silu_bwd"]),
-            ("attention", "dmme_tpu/ops/attention.py:47", ik["per_forward"]["attention"],
-             report["iddpm_serve"]["launches"]["attention"]),
-            ("resblock", "dmme_tpu/ops/resblock.py:88", ik["per_forward"]["resblock"],
-             report["iddpm_serve"]["launches"]["resblock"])):
-        src = {"attention": "attention.cu", "resblock": "resblock.cu"}.get(kname, "group_norm.cu")
-        table.append({
-            "name": f"{kname}_iddpm", "route": "cuda", "source": f"dmme_tpu_torch/ops/csrc/{src}",
-            "replaces": replaces, "launches": n_launch, "max_abs_err": v["max_abs_err"],
-            "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
-            "bound_by": v["bound_by"], "library_ms": v["library_ms"],
-        })
+    for kname in ("group_norm_silu", "group_norm_silu_bwd", "attention", "resblock"):
+        if kname == "group_norm_silu_bwd":
+            v, n_launch = ik["train"]["per_step"][kname], iddpm_fit_launches[kname]
+        else:
+            v, n_launch = ik["per_forward"][kname], report["iddpm_serve"]["launches"][kname]
+        table.append(_table_row(f"{kname}_iddpm", kname, v, n_launch))
+    # this slice's call sites: K1/K3/K4 per n = 8 forward of EDM and flow
+    # (launches in their default requests) and of the caching samplers'
+    # non-key steps (launches in those steps of their n = 8 requests: the
+    # request's less its key forwards'), K1/K2/K3 per EDM and flow training
+    # step (launches in the CLI fits)
+    ns = report["new_sites"]
+    fwd_launches = {"edm": report["edm_serve"]["launches"],
+                    "flow": report["flow_serve"]["launches"]}
+    for (name, steps, _), req in zip(CACHING, report["serve"]["caching"]):
+        if name in ("cached", "deep"):
+            keys = -(-steps // 2)
+            fwd_launches[name] = {k: v - keys * PER_FORWARD[k] for k, v in req["launches"].items()}
+    for fam in ("edm", "flow", "cached", "deep"):
+        for kname, v in ns[fam]["per_forward"].items():
+            table.append(_table_row(f"{kname}_{fam}", kname, v, fwd_launches[fam][kname]))
+    for fam in ("edm", "flow"):
+        per_step = ns[f"{fam}_train"]["per_step"]
+        for kname in ("group_norm_silu", "group_norm_silu_bwd", "attention"):
+            table.append(_table_row(f"{kname}_{fam}_train", kname, per_step[kname],
+                                    report[f"{fam}_fit"]["launches"][kname]))
     report["kernels"] = table
     print("kernels launched on their paths and held against their plain versions: "
           + "; ".join(f"{k['name']} ({k['route']}, {k['source']}, replaces {k['replaces']}, "
@@ -2528,10 +3003,15 @@ def main() -> int:
           f"n = {BATCH} (K4), summed over their call sites. *_iddpm: the IDDPM UNet of "
           f"configs/iddpm/cifar10.yaml; K1, K3, K4 launches in the four default requests "
           f"and times per n = {BATCH} forward, K2 launches in the {FIT_STEPS} IDDPM fit steps "
-          f"and times per batch-{TRAIN_BATCH} step)", flush=True)
+          f"and times per batch-{TRAIN_BATCH} step. *_edm, *_flow: EDM's and flow's forwards, "
+          f"launches in their default requests; *_cached, *_deep: the caching samplers' non-key "
+          f"forwards, launches in the non-key steps of their n = {BATCH} requests; times per "
+          f"n = {BATCH} forward. *_train: per batch-{TRAIN_BATCH} EDM or flow training step, "
+          f"launches in the {FIT_STEPS}-step CLI fit, EDM's with its three sampling grids)",
+          flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

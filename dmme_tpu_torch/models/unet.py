@@ -152,26 +152,85 @@ class UNet(nn.Module):
         self.output_conv = conv3x3(c, out_channels or in_channels, 1, dtype)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, *, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Predict noise from NHWC ``x`` in [-1, 1] at integer timesteps ``t``
-        of shape (N,). ``train`` enables dropout, drawn from ``generator``."""
+                generator: Optional[torch.Generator] = None, return_features: bool = False,
+                cached=None, cache_depth: Optional[int] = None,
+                deep_cache: Optional[torch.Tensor] = None, return_deep: bool = False):
+        """Predict noise from NHWC ``x`` in [-1, 1] at timesteps ``t`` of shape
+        (N,): integers, or floats for the continuous-time algorithms (EDM's
+        c_noise, flow's t·1000). ``train`` enables dropout, drawn from
+        ``generator``.
+
+        The feature-capture arguments serve the caching samplers
+        (``diffusion/fast.py``, ``diffusion/deep_cache.py``):
+
+        * ``return_features`` also returns the encoder state ``(h_bottom,
+          skips)``; ``cached=<that state>`` skips the whole down path and
+          decodes with the current timestep embedding.
+        * with ``cache_depth``, resolution depths > ``cache_depth`` form the
+          deep core: ``return_deep`` also returns the core's output, and
+          ``deep_cache=<that tensor>`` skips the core (down suffix, middle,
+          up prefix) and runs only the shallow layers, with fresh skips.
+        """
+        n_shallow_down = n_deep_up = None
+        if deep_cache is not None and cache_depth is None:
+            raise ValueError("deep_cache requires cache_depth")
+        if cache_depth is not None:
+            if cached is not None:
+                raise ValueError("the deep cache and the encoder cache are exclusive")
+            if not 1 <= cache_depth < len(self.channels_per_depth):
+                raise ValueError(f"cache_depth must be in [1, {len(self.channels_per_depth)}), "
+                                 f"got {cache_depth}")
+            n_shallow_down = sum(1 for s in self.down_specs if s.depth <= cache_depth)
+            assert all(s.depth <= cache_depth for s in self.down_specs[:n_shallow_down])
+            assert all(s.depth > cache_depth for s in self.down_specs[n_shallow_down:])
+            # the deep core ends with the Upsample back to cache_depth's resolution
+            n_deep_up = next(i for i, s in enumerate(self.up_specs)
+                             if s.kind == "up" and s.depth == cache_depth) + 1
+
         emb = self.time_embed(t)
-        h = self.input_conv(x.to(self.dtype))
-        skips = [h]
-        for i, spec in enumerate(self.down_specs):
-            layer = getattr(self, f"down_{i}")
-            h = layer(h, emb, train, generator) if spec.kind == "res" else layer(h)
-            skips.append(h)
-        for i in range(len(self.middle_specs)):
-            h = getattr(self, f"middle_{i}")(h, emb, train, generator)
+        reuse_deep = deep_cache is not None
+        if cached is None:
+            h = self.input_conv(x.to(self.dtype))
+            skips = [h]
+            n_down = n_shallow_down if reuse_deep else len(self.down_specs)
+            for i, spec in enumerate(self.down_specs[:n_down]):
+                layer = getattr(self, f"down_{i}")
+                h = layer(h, emb, train, generator) if spec.kind == "res" else layer(h)
+                skips.append(h)
+        else:
+            h, skips = cached
+            skips = list(skips)
+        features = (h, tuple(skips))
+
+        deep = None
+        if reuse_deep:
+            h = deep_cache.to(self.dtype)
+            up_start = n_deep_up
+        else:
+            for i in range(len(self.middle_specs)):
+                h = getattr(self, f"middle_{i}")(h, emb, train, generator)
+            up_start = 0
         for i, spec in enumerate(self.up_specs):
+            if i < up_start:
+                continue
             layer = getattr(self, f"up_{i}")
             if spec.kind == "res":
                 h = layer(torch.cat([h, skips.pop()], dim=-1), emb, train, generator)
             else:
                 h = layer(h)
+            if return_deep and n_deep_up is not None and i == n_deep_up - 1:
+                deep = h
+        assert not skips, "unconsumed skip connections — topology mismatch"
+
         if self.fused_norm:
             h = self.out_norm(h)
         else:
             h = torch.nn.functional.silu(self.out_norm(h).to(self.dtype))
-        return self.output_conv(h)
+        h = self.output_conv(h)
+        if return_deep:
+            if deep is None:
+                raise ValueError("return_deep requires cache_depth")
+            return h, deep
+        if return_features:
+            return h, features
+        return h

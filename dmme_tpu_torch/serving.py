@@ -3,7 +3,8 @@
 * ``GET  /healthz``          → ``{"status": "ok", "step": N, ...}``
 * ``POST /sample`` JSON body → PNG grid or raw ``.npy`` bytes
       {"n": 4,                # samples (rounded up to a batch bucket)
-       "sampler": "dpm",      # default | ddim | dpm | unipc
+       "sampler": "dpm",      # default | ddim | dpm | unipc | edm | flow
+                              # | cached | deep | deep_dpm
        "steps": 20,           # solver steps (the sampler's default if absent)
        "seed": 0,
        "format": "png"}       # png (grid) | npy ((n,H,W,C) float32 [0,1])
@@ -11,9 +12,11 @@
 The stdlib ``ThreadingHTTPServer`` takes connections concurrently; generation
 runs under one lock, one device. Batch sizes are bucketed to powers of two.
 ``default`` is the harness's own sampler; ``ddim``, ``dpm`` and ``unipc``
-override it on the trained schedule (:mod:`dmme_tpu_torch.diffusion.factory`).
-The JAX package's other names are answered with 400, naming the ROADMAP item
-that ports them.
+override it on the trained schedule, ``edm`` and ``flow`` on an EDM or
+flow-matching model's trained hyperparameters, and ``cached``, ``deep`` and
+``deep_dpm`` with the feature-caching samplers on the UNet module
+(:mod:`dmme_tpu_torch.diffusion.factory`). A name the model's family does not
+take is answered with 400.
 """
 
 from __future__ import annotations
@@ -27,14 +30,15 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from dmme_tpu_torch.diffusion.factory import STEP_DEFAULTS, check_sampler
+from dmme_tpu_torch.diffusion.factory import MODULE_SAMPLERS, STEP_DEFAULTS, check_sampler
 from dmme_tpu_torch.utils.device import resolve_device
 from dmme_tpu_torch.utils.norm import denorm
 from dmme_tpu_torch.utils.vis import make_history
 
 _BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
-#: the sampler names this server answers
-SAMPLERS = ("default",) + tuple(STEP_DEFAULTS)
+#: the sampler names GET /healthz lists, as the JAX package's server lists
+#: them: it answers ``flow`` too, but does not list it
+SAMPLERS = ("default", *(n for n in STEP_DEFAULTS if n != "flow"), *MODULE_SAMPLERS)
 
 
 def _bucket(n: int) -> int:
@@ -45,14 +49,19 @@ def _bucket(n: int) -> int:
 
 
 class Sampler:
-    """Serves samples of ``lit`` with the weights of ``state`` on one device."""
+    """Serves samples of ``lit`` with the weights of ``state`` on one device.
+    ``refresh_interval`` and ``cache_depth`` configure the feature-caching
+    samplers (``trainer.refresh_interval`` / ``trainer.cache_depth``)."""
 
     def __init__(self, lit, state, img_size: int,
-                 device: Union[None, str, torch.device] = None):
+                 device: Union[None, str, torch.device] = None, refresh_interval: int = 2,
+                 cache_depth: int = 1):
         self.lit = lit
         self.device = resolve_device(device)
         self.state = state.to(self.device)
         self.img_size = int(img_size)
+        self.refresh_interval = int(refresh_interval)
+        self.cache_depth = int(cache_depth)
         self.step = int(state.step)
         self._lock = threading.Lock()
 
@@ -69,7 +78,8 @@ class Sampler:
             generator = torch.Generator(device=self.device).manual_seed(int(seed))
             out = self.lit.to_images(self.lit.generate(
                 self.state, generator, shape, steps=steps,
-                sampler=None if sampler == "default" else sampler))
+                sampler=None if sampler == "default" else sampler,
+                refresh_interval=self.refresh_interval, cache_depth=self.cache_depth))
             out = denorm(out).to(torch.float32).cpu().numpy()
         return out[:n]
 

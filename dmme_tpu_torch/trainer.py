@@ -33,7 +33,7 @@ import torch
 
 from dmme_tpu_torch.config import (TRAINER_KEYS, apply_overrides, describe_class, instantiate,
                                    load_config, validate_config)
-from dmme_tpu_torch.diffusion.factory import STEP_DEFAULTS, check_sampler
+from dmme_tpu_torch.diffusion.factory import check_sampler, default_steps
 from dmme_tpu_torch.parallel.train_step import step_generator
 from dmme_tpu_torch.utils.device import resolve_device
 
@@ -120,10 +120,14 @@ def _restore_state(model, data, tc: Dict[str, Any], device):
 def cmd_sample(config: Dict[str, Any], device) -> None:
     """One sample grid from the restored checkpoint, written under
     ``<default_root_dir>/samples``: a trajectory a row with the model's own
-    sampler, or, with ``trainer.sampler`` (ddim | dpm | unipc) and
-    ``trainer.sample_steps``, the final images of that sampler on the trained
-    schedule (:func:`dmme_tpu_torch.diffusion.factory.make_sampler`), drawn
-    from a generator seeded with the checkpoint's step."""
+    sampler, or, with ``trainer.sampler`` and ``trainer.sample_steps``, the
+    final images of that sampler, drawn from a generator seeded with the
+    checkpoint's step: ddim | dpm | unipc on the trained schedule, edm | flow
+    on an EDM or flow model's trained hyperparameters
+    (:func:`dmme_tpu_torch.diffusion.factory.make_sampler`), cached | deep |
+    deep_dpm with the feature-caching samplers, configured by
+    ``trainer.refresh_interval`` and ``trainer.cache_depth``
+    (:func:`dmme_tpu_torch.diffusion.factory.make_module_sampler`)."""
     from dmme_tpu_torch.callbacks import GenerateImage
 
     model, data, tc, _ = _build(config)
@@ -143,16 +147,24 @@ def cmd_sample(config: Dict[str, Any], device) -> None:
     from dmme_tpu_torch.utils.norm import denorm
     from dmme_tpu_torch.utils.vis import make_history
 
-    steps = int(tc.get("sample_steps") or STEP_DEFAULTS[sampler])
+    steps = int(tc.get("sample_steps") or default_steps(sampler))
     shape = model.sample_space_shape((n, img_size, img_size, model.img_channels))
-    out = model.to_images(model.generate(state, torch.Generator(device=device).manual_seed(step),
-                                         shape, sampler=sampler, steps=steps))
+    out = model.to_images(model.generate(
+        state, torch.Generator(device=device).manual_seed(step), shape, sampler=sampler,
+        steps=steps, **_cache_options(tc)))
     grid = make_history([denorm(out).to(torch.float32).cpu().numpy()])
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"step_{step:08d}_{sampler}{steps}.png")
     with open(path, "wb") as f:
         f.write(_to_png(grid)[0])
     print(path)
+
+
+def _cache_options(tc: Dict[str, Any]) -> Dict[str, int]:
+    """The feature-caching samplers' ``trainer.refresh_interval`` (default 2)
+    and ``trainer.cache_depth`` (default 1)."""
+    return {"refresh_interval": int(tc.get("refresh_interval") or 2),
+            "cache_depth": int(tc.get("cache_depth") or 1)}
 
 
 def cmd_predict(config: Dict[str, Any], device) -> None:
@@ -179,12 +191,13 @@ def cmd_predict(config: Dict[str, Any], device) -> None:
 
 def cmd_serve(config: Dict[str, Any], device) -> None:
     """Serve the restored checkpoint over HTTP (:mod:`dmme_tpu_torch.serving`):
-    GET /healthz, POST /sample {n, sampler, seed, format}."""
+    GET /healthz, POST /sample {n, sampler, steps, seed, format}."""
     from dmme_tpu_torch import serving
 
     model, data, tc, _ = _build(config)
     state, img_size, _ = _restore_state(model, data, tc, device)
-    serving.serve_forever(serving.Sampler(model, state, img_size, device=device),
+    serving.serve_forever(serving.Sampler(model, state, img_size, device=device,
+                                          **_cache_options(tc)),
                           host=str(tc.get("host", "127.0.0.1")), port=int(tc.get("port", 8000)))
 
 

@@ -1,5 +1,5 @@
-"""``LitDDPM`` / ``LitDDIM`` / ``LitIDDPM``: the training and sampling harnesses
-of ``dmme_tpu/training/lit.py``.
+"""``LitDDPM`` / ``LitDDIM`` / ``LitIDDPM`` / ``LitEDM`` / ``LitFlow``: the
+training and sampling harnesses of ``dmme_tpu/training/lit.py``.
 
 The harness owns the denoiser module, the diffusion algorithm and the
 optimizer recipe; the weights live apart from the module in a
@@ -18,7 +18,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch.func import functional_call
 
-from dmme_tpu_torch.diffusion import DDIM, DDPM, IDDPM, make_sampler
+from dmme_tpu_torch.diffusion import DDIM, DDPM, EDM, IDDPM, FlowMatching, make_sampler
+from dmme_tpu_torch.diffusion.factory import MODULE_SAMPLERS, make_module_sampler
 from dmme_tpu_torch.models import ddpm as ddpm_models
 from dmme_tpu_torch.models import iddpm as iddpm_models
 from dmme_tpu_torch.models import init_weights
@@ -138,16 +139,27 @@ class LitDDPM:
     def generate(self, state: TrainState, generator: Optional[torch.Generator],
                  img_shape: Tuple[int, ...], *, use_ema: Optional[bool] = None,
                  x_T: Optional[torch.Tensor] = None, history_length: Optional[int] = None,
-                 sampler: Optional[str] = None, steps: Optional[int] = None):
+                 sampler: Optional[str] = None, steps: Optional[int] = None,
+                 refresh_interval: int = 2, cache_depth: int = 1):
         """Sample with the EMA weights unless ``validate_original_weights``
         (or ``use_ema=False``) asks for the raw ones. With ``history_length``,
         returns ``(x_0, history)`` (see ``DDPM.generate``). ``sampler``
-        (ddim | dpm | unipc) replaces the harness's own sampler with that
-        solver in ``steps`` steps on the trained schedule
-        (:func:`~dmme_tpu_torch.diffusion.factory.make_sampler`)."""
+        replaces the harness's own sampler: ddim | dpm | unipc | edm | flow
+        with that solver in ``steps`` steps on the trained schedule or
+        hyperparameters (:func:`~dmme_tpu_torch.diffusion.factory.make_sampler`),
+        cached | deep | deep_dpm with the feature-caching sampler on the UNet
+        module, refreshed every ``refresh_interval`` steps (``cache_depth``:
+        the deep core's boundary; :func:`~dmme_tpu_torch.diffusion.factory.
+        make_module_sampler`)."""
         if use_ema is None:
             use_ema = not self.validate_original_weights
         params = state.ema_params if use_ema else state.params
+        if sampler in MODULE_SAMPLERS:
+            algo = make_module_sampler(self.diffusion_model, sampler, steps,
+                                       refresh_interval=refresh_interval,
+                                       cache_depth=cache_depth)
+            return algo.generate(self.model, params, generator, img_shape, x_T=x_T,
+                                 history_length=history_length)
         model_fn, generator = self.sampling_model_fn(generator, img_shape[0])
         algo = self.sample_algorithm()
         if sampler is not None:
@@ -228,3 +240,65 @@ class LitIDDPM(LitDDPM):
 
     def sample_algorithm(self):
         return self.diffusion_model if self.strided is None else self.strided
+
+
+class LitEDM(LitDDPM):
+    """EDM harness: continuous-σ preconditioned training (Karras et al. 2022)
+    of the DDPM UNet, sampled with the second-order Heun solver in
+    ``sample_steps`` steps (2·steps − 1 evaluations). The network is
+    conditioned on the float c_noise(σ) through its time embedding; the
+    other keyword arguments are :class:`LitDDPM`'s."""
+
+    def __init__(
+        self,
+        lr: float = 1e-3,
+        warmup: int = 5000,
+        decay: float = 0.9999,
+        diffusion_model: Optional[EDM] = None,
+        model: Optional[torch.nn.Module] = None,
+        sample_steps: int = 18,
+        sigma_min: float = 0.002,
+        sigma_max: float = 80.0,
+        rho: float = 7.0,
+        sigma_data: float = 0.5,
+        p_mean: float = -1.2,
+        p_std: float = 1.2,
+        order: int = 2,
+        s_churn: float = 0.0,
+        **kwargs: Any,
+    ):
+        if diffusion_model is None:
+            diffusion_model = EDM.create(steps=sample_steps, sigma_min=sigma_min,
+                                         sigma_max=sigma_max, rho=rho, sigma_data=sigma_data,
+                                         p_mean=p_mean, p_std=p_std, order=order,
+                                         s_churn=s_churn)
+        super().__init__(lr, warmup, decay, diffusion_model, model, **kwargs)
+
+
+class LitFlow(LitDDPM):
+    """Flow-matching / rectified-flow harness: straight-path velocity
+    regression (:class:`~dmme_tpu_torch.diffusion.FlowMatching`) of the DDPM
+    UNet, sampled by integrating the learned ODE with Euler (``order=1``) or
+    the midpoint rule in ``sample_steps`` steps. The network is conditioned
+    on ``t · 1000``; the other keyword arguments are :class:`LitDDPM`'s."""
+
+    def __init__(
+        self,
+        lr: float = 2e-4,
+        warmup: int = 5000,
+        decay: float = 0.9999,
+        diffusion_model: Optional[FlowMatching] = None,
+        model: Optional[torch.nn.Module] = None,
+        sample_steps: int = 25,
+        order: int = 2,
+        shift: float = 1.0,
+        t_sample: str = "logit_normal",
+        logit_mean: float = 0.0,
+        logit_std: float = 1.0,
+        **kwargs: Any,
+    ):
+        if diffusion_model is None:
+            diffusion_model = FlowMatching.create(steps=sample_steps, order=order, shift=shift,
+                                                  t_sample=t_sample, logit_mean=logit_mean,
+                                                  logit_std=logit_std)
+        super().__init__(lr, warmup, decay, diffusion_model, model, **kwargs)

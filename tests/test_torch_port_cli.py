@@ -7,6 +7,7 @@ package's strict validation rejects. The subcommands run a TINY config on
 the CPU through ``main(argv, device="cpu")``.
 """
 
+import dataclasses
 import glob
 import os
 import subprocess
@@ -31,7 +32,9 @@ SHIPPED = sorted(os.path.relpath(p, ROOT)
 PORTED = {"configs/ddpm/cifar10.yaml", "configs/ddim/cifar10.yaml",
           "configs/ddpm/cifar10_vpred.yaml", "configs/ddpm/shapes_demo.yaml",
           "configs/ddpm/shapes256_demo.yaml", "configs/iddpm/cifar10.yaml",
-          "configs/iddpm/shapes_demo.yaml", "configs/iddpm/shapes64_demo.yaml"}
+          "configs/iddpm/shapes_demo.yaml", "configs/iddpm/shapes64_demo.yaml",
+          "configs/edm/cifar10.yaml", "configs/edm/shapes_demo.yaml",
+          "configs/flow/shapes_demo.yaml"}
 
 TINY_YAML = """
 seed_everything: 7
@@ -222,7 +225,7 @@ def test_dtype_aliases_match_jax(alias, want):
     assert _dtype_name(tm.dtype) == _dtype_name(jm.dtype) == want
 
 
-@pytest.mark.parametrize("path,item", [("dmme_tpu.training.LitEDM", "A.6"),
+@pytest.mark.parametrize("path,item", [("dmme_tpu.training.LitUpsampler", "A.6"),
                                        ("dmme_tpu.training.LitLatentDDPM", "A.8"),
                                        ("dmme_tpu.data.LSUN", "A.12"),
                                        ("dmme_tpu.models.dit.DiT", "A.7")])
@@ -302,10 +305,11 @@ def test_unported_subcommands_and_options_name_their_roadmap_item(tmp_path):
     cfg = str(_tiny(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
         main(["test", "--config", cfg], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        main(["sample", "--config", cfg, "--trainer.sampler", "cached"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+    # a continuous-time family's sampler on a DDPM model: JAX's ValueError
+    with pytest.raises(ValueError, match="sampler=edm needs an EDM-trained model"):
         main(["sample", "--config", cfg, "--trainer.sampler", "edm"], device="cpu")
+    with pytest.raises(ValueError, match="sampler=flow needs a flow-matching-trained model"):
+        main(["sample", "--config", cfg, "--trainer.sampler", "flow"], device="cpu")
     with pytest.raises(NotImplementedError, match="A.16"):
         main(["fit", "--config", cfg, "--trainer.mesh.data", "-1"], device="cpu")
 
@@ -415,3 +419,208 @@ def test_num_classes_on_a_kwargs_harness_names_a6(tmp_path, harness):
     config["model"]["init_args"]["num_classes"] = 10
     with pytest.raises(tcfg.ConfigError, match="ROADMAP A.6"):
         tcfg.validate_config(config)
+
+
+# ----------------------------------------------------------- EDM and flow
+
+# the EDM and flow harnesses at the TINY widths, f32; EDM with the
+# GenerateImage callback of configs/edm/cifar10.yaml (history frames)
+TINY_EDM_YAML = """
+seed_everything: 7
+trainer:
+  max_steps: 2
+  log_every_n_steps: 1
+  ckpt_every_n_steps: 100
+  default_root_dir: {root}
+  callbacks:
+    - class_path: dmme_tpu.callbacks.GenerateImage
+      init_args: {{imgsize: [3, 32, 32], every_n_steps: 2, num_samples: 2,
+                   out_dir: {root}/grids}}
+model:
+  class_path: dmme_tpu.training.LitEDM
+  init_args:
+    warmup: 10
+    sample_steps: 3
+    dtype: f32
+    model:
+      class_path: dmme_tpu.models.ddpm.UNet
+      init_args: {{pos_dim: 4, emb_dim: 8, num_groups: 2, channels_per_depth: [4, 8, 8, 8],
+                   num_blocks: 1, fused_norm: true, fused_block: true}}
+data:
+  class_path: dmme_tpu.data.CIFAR10
+  init_args: {{synthetic: true, synthetic_size: 16, batch_size: 4}}
+"""
+TINY_FLOW_YAML = TINY_EDM_YAML.replace("LitEDM", "LitFlow").replace(
+    "sample_steps: 3", "sample_steps: 3\n    t_sample: uniform")
+
+
+def _tiny_family(tmp_path, family):
+    cfg = tmp_path / f"{family}.yaml"
+    cfg.write_text((TINY_EDM_YAML if family == "edm" else TINY_FLOW_YAML).format(
+        root=tmp_path / "run"))
+    return str(cfg)
+
+
+@pytest.mark.parametrize("path", ["configs/edm/cifar10.yaml", "configs/edm/shapes_demo.yaml",
+                                  "configs/flow/shapes_demo.yaml"])
+def test_edm_flow_hyperparameters_equal_jax(path):
+    """The EDM and flow configs build the JAX package's harnesses: the recipe,
+    the σ grid (or t grid) and every algorithm hyperparameter, the default
+    DDPM UNet with both switches on, in bf16."""
+    from dmme_tpu import config as jcfg
+
+    config = tcfg.load_config(os.path.join(ROOT, path))
+    tlit, jlit = tcfg.instantiate(config["model"]), jcfg.instantiate(config["model"])
+    assert type(tlit).__name__ == type(jlit).__name__
+    for name in ("lr", "warmup", "decay", "grad_clip"):
+        assert getattr(tlit, name) == getattr(jlit, name), name
+    ta, ja = tlit.diffusion_model, jlit.diffusion_model
+    assert type(ta).__name__ == type(ja).__name__
+    grid = "sigmas" if hasattr(ja, "sigmas") else "ts"
+    np.testing.assert_allclose(getattr(ta, grid).numpy(), np.asarray(getattr(ja, grid)), rtol=0,
+                               atol=1e-6)
+    for f in (f.name for f in dataclasses.fields(ta)):
+        if f != grid:
+            assert getattr(ta, f) == getattr(ja, f), f
+    tm = tlit.model
+    assert (tm.channels_per_depth, tm.num_blocks, tm.attention_depths) == ((128, 256, 256, 256),
+                                                                          2, (2,))
+    assert tm.fused_norm and _dtype_name(tm.dtype) == "bfloat16"
+    tdata, jdata = tcfg.instantiate(config["data"]), jcfg.instantiate(config["data"])
+    assert type(tdata).__name__ == type(jdata).__name__ and tdata.batch_size == jdata.batch_size
+
+
+@pytest.mark.parametrize("path", ["configs/flow/cifar10_dit.yaml",
+                                  "configs/flow/cifar10_dit_moe.yaml"])
+def test_flow_dit_configs_still_name_a7(path):
+    """LitFlow is ported; its DiT denoiser is not, and names ROADMAP A.7."""
+    config = tcfg.load_config(os.path.join(ROOT, path))
+    assert config["model"]["class_path"] == "dmme_tpu.training.LitFlow"
+    with pytest.raises(tcfg.ConfigError, match=r"dit.*not ported.*ROADMAP A\.7"):
+        tcfg.validate_config(config)
+
+
+def _serve_and_post(sampler, bodies):
+    """Start ``make_server(sampler)``, POST each body, stop; [(status, bytes)]."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from dmme_tpu_torch.serving import make_server
+
+    server = make_server(sampler, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = "http://%s:%d/sample" % server.server_address[:2]
+    out = []
+    try:
+        for body in bodies:
+            req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    out.append((r.status, r.read()))
+            except urllib.error.HTTPError as e:
+                out.append((e.code, e.read()))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+    return out
+
+
+@pytest.mark.parametrize("family", ["edm", "flow"])
+def test_edm_flow_fit_validate_sample_serve(tmp_path, capsys, monkeypatch, family):
+    """A TINY LitEDM / LitFlow through the command line: fit (GenerateImage
+    draws its history frames), validate, sample with the model's own sampler
+    and with its family's override, and serve: POST /sample answers
+    ``default`` and the family's name, and 400 for the other family and the
+    discrete-schedule samplers."""
+    import io
+
+    from dmme_tpu_torch import serving
+    from dmme_tpu_torch.training import CheckpointManager
+    from dmme_tpu_torch.utils.norm import denorm
+
+    cfg = _tiny_family(tmp_path, family)
+    run = tmp_path / "run"
+    main(["fit", "--config", cfg], device="cpu")
+    assert os.listdir(run / "grids") == ["step_00000002.png"]
+    losses = [float(line.split('"loss": ')[1].split(",")[0])
+              for line in (run / "metrics.jsonl").read_text().splitlines()]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    main(["validate", "--config", cfg, "--trainer.limit_val_batches", "1"], device="cpu")
+    assert "'val/loss'" in capsys.readouterr().out
+    main(["sample", "--config", cfg, "--trainer.sample_batch", "2"], device="cpu")
+    main(["sample", "--config", cfg, "--trainer.sampler", family, "--trainer.sample_batch", "2"],
+         device="cpu")
+    main(["sample", "--config", cfg, "--trainer.sampler", family, "--trainer.sample_steps", "2",
+          "--trainer.sample_batch", "2"], device="cpu")
+    default_steps = 18 if family == "edm" else 25
+    assert sorted(os.listdir(run / "samples")) == sorted([
+        "step_00000002.png", f"step_00000002_{family}2.png",
+        f"step_00000002_{family}{default_steps}.png"])
+    with pytest.raises(ValueError, match="needs a discrete-schedule model"):
+        main(["sample", "--config", cfg, "--trainer.sampler", "deep"], device="cpu")
+
+    served = {}
+    monkeypatch.setattr(serving, "serve_forever",
+                        lambda sampler, host, port: served.update(s=sampler))
+    main(["serve", "--config", cfg], device="cpu")
+    other = "flow" if family == "edm" else "edm"
+    names = ["default", family, other, "ddim", "cached", "deep", "deep_dpm"]
+    answers = _serve_and_post(served["s"], [{"n": 2, "seed": 3, "format": "npy", "sampler": n,
+                                             "steps": 2} for n in names])
+    codes = dict(zip(names, (code for code, _ in answers)))
+    assert codes == {n: 200 if n in ("default", family) else 400 for n in names}
+    lit = tcfg.instantiate(tcfg.load_config(cfg)["model"])
+    state = CheckpointManager(str(run)).restore(lit.init_state(0, device="cpu"))
+    want = lit.generate(state, torch.Generator().manual_seed(3), (2, 32, 32, 3), sampler=family,
+                        steps=2)
+    got = np.load(io.BytesIO(answers[1][1]))
+    np.testing.assert_array_equal(got, denorm(want).numpy())
+
+
+def test_feature_caching_samplers_through_the_command_line(tmp_path, monkeypatch):
+    """``sample --trainer.sampler cached|deep|deep_dpm`` and ``serve`` honour
+    ``trainer.refresh_interval`` and ``trainer.cache_depth``: the grid and the
+    served images are the factory's sampler with those knobs on the
+    restored EMA weights."""
+    from PIL import Image
+
+    from dmme_tpu_torch import serving
+    from dmme_tpu_torch.diffusion.factory import make_module_sampler
+    from dmme_tpu_torch.training import CheckpointManager
+    from dmme_tpu_torch.utils.norm import denorm
+    from dmme_tpu_torch.utils.vis import make_history
+
+    cfg = str(_tiny(tmp_path))
+    knobs = ["--trainer.refresh_interval", "3", "--trainer.cache_depth", "2"]
+    main(["fit", "--config", cfg], device="cpu")
+    run = tmp_path / "run"
+    for name in ("cached", "deep", "deep_dpm"):
+        main(["sample", "--config", cfg, "--trainer.sampler", name, "--trainer.sample_steps", "4",
+              "--trainer.sample_batch", "2", *knobs], device="cpu")
+    main(["sample", "--config", cfg, "--trainer.sampler", "deep", "--trainer.sample_batch", "2"],
+         device="cpu")
+    assert sorted(os.listdir(run / "samples")) == [
+        "step_00000002_cached4.png", "step_00000002_deep4.png", "step_00000002_deep50.png",
+        "step_00000002_deep_dpm4.png"]
+    lit = tcfg.instantiate(tcfg.load_config(cfg)["model"])
+    state = CheckpointManager(str(run)).restore(lit.init_state(0, device="cpu"))
+    algo = make_module_sampler(lit.diffusion_model, "deep", 4, refresh_interval=3, cache_depth=2)
+    out = algo.generate(lit.model, state.ema_params, torch.Generator().manual_seed(2),
+                        (2, 32, 32, 3))
+    want = (np.clip(make_history([denorm(out).numpy()]), 0, 1) * 255).astype(np.uint8)
+    np.testing.assert_array_equal(np.asarray(Image.open(run / "samples" /
+                                                        "step_00000002_deep4.png")), want)
+
+    served = {}
+    monkeypatch.setattr(serving, "serve_forever",
+                        lambda sampler, host, port: served.update(s=sampler))
+    main(["serve", "--config", cfg, *knobs], device="cpu")
+    assert (served["s"].refresh_interval, served["s"].cache_depth) == (3, 2)
+    got = served["s"].sample(2, sampler="deep", steps=4, seed=2)
+    np.testing.assert_array_equal(got, denorm(out).numpy())

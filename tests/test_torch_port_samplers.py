@@ -178,11 +178,32 @@ def test_ddim_override_equals_the_ddim_harness(models):
     assert torch.equal(algo.tau, want.tau)
 
 
-@pytest.mark.parametrize("name,item", [("edm", "A.6"), ("flow", "A.6"), ("cached", "A.5"),
-                                       ("deep", "A.5"), ("deep_dpm", "A.5")])
-def test_samplers_not_ported_name_their_item(models, name, item):
-    with pytest.raises(NotImplementedError, match=f"not yet ported .*ROADMAP {item}"):
-        make_sampler(models["ddpm"][5], name)
+@pytest.mark.parametrize("name", ["edm", "flow", "cached", "deep", "deep_dpm"])
+def test_samplers_not_ported_name_their_item(models, name):
+    """The five names the port once turned away, on the DDPM model: ``edm``
+    and ``flow`` raise JAX's ``ValueError`` naming the family they need, and
+    ``cached``/``deep``/``deep_dpm`` are module samplers, which
+    ``make_sampler`` does not take and ``make_module_sampler`` builds."""
+    from dmme_tpu.diffusion.factory import make_module_sampler as jax_make_module_sampler
+
+    from dmme_tpu_torch.diffusion import CachedDDIM, DeepCachedDDIM, DeepCachedDPM
+    from dmme_tpu_torch.diffusion.factory import make_module_sampler
+
+    _, _, _, _, jbase, tbase = models["ddpm"]
+    if name in ("edm", "flow"):
+        with pytest.raises(ValueError) as jerr:
+            jax_make_sampler(jbase, name)
+        with pytest.raises(ValueError, match=f"sampler={name} needs an? "
+                           + ("EDM" if name == "edm" else "flow-matching")) as terr:
+            make_sampler(tbase, name)
+        assert str(terr.value) == str(jerr.value)
+        return
+    with pytest.raises(ValueError, match="unknown sampler"):
+        make_sampler(tbase, name)
+    algo = make_module_sampler(tbase, name, 4)
+    want = {"cached": CachedDDIM, "deep": DeepCachedDDIM, "deep_dpm": DeepCachedDPM}[name]
+    assert type(algo) is want
+    assert type(jax_make_module_sampler(jbase, name, 4)).__name__ == want.__name__
 
 
 def test_unknown_sampler_and_scheduleless_base_raise(models):

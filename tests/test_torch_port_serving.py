@@ -2,9 +2,10 @@
 
 Starts ``dmme_tpu_torch.serving.make_server`` on an ephemeral port and talks
 to it with urllib: healthz, npy shape/range, bucketing (n=3 → bucket 4,
-sliced back to 3), determinism per seed, the ddim/dpm/unipc override, and
-400s on bad requests and on samplers not yet ported, naming their ROADMAP
-item. A ``Sampler`` with no device needs CUDA.
+sliced back to 3), determinism per seed, the ddim/dpm/unipc override, the
+feature-caching samplers, and 400s on bad requests and on a family's
+sampler (edm, flow) sent to another family's model. A ``Sampler`` with no
+device needs CUDA.
 """
 
 import io
@@ -19,7 +20,6 @@ import torch
 
 from dmme_tpu_torch.diffusion import DDPM
 from dmme_tpu_torch.models import ddpm as t_ddpm
-from dmme_tpu_torch.diffusion.factory import NOT_PORTED
 from dmme_tpu_torch.serving import Sampler, make_server
 from dmme_tpu_torch.training import LitDDPM
 
@@ -67,7 +67,8 @@ def test_healthz(server_url):
     with urllib.request.urlopen(server_url + "/healthz", timeout=30) as r:
         info = json.loads(r.read())
     assert info == {"status": "ok", "step": 0, "img_size": 8, "device": "cpu",
-                    "samplers": ["default", "ddim", "dpm", "unipc"]}
+                    "samplers": ["default", "ddim", "dpm", "unipc", "edm", "cached", "deep",
+                                 "deep_dpm"]}
 
 
 def test_npy_roundtrip_and_bucketing(server_url):
@@ -103,11 +104,27 @@ def test_bad_requests_get_400(server_url, body, needle):
     assert code == 400 and needle in msg
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_samplers_not_yet_ported_get_400(server_url, name):
-    code, msg = _post_error(server_url, {"sampler": name, "format": "npy"})
-    assert code == 400 and "not yet ported" in msg and name in msg
-    assert f"ROADMAP {NOT_PORTED[name]}" in msg
+@pytest.mark.parametrize("name", ["edm", "flow", "cached", "deep", "deep_dpm"])
+def test_samplers_not_yet_ported_get_400(server_url, lit_state, name):
+    """The names the port once answered with 400, on the DDPM server: ``edm``
+    and ``flow`` still get 400, naming the family they need; the
+    feature-caching samplers answer with the factory's sampler on the served
+    EMA weights."""
+    body = {"n": 3, "seed": 4, "format": "npy", "sampler": name, "steps": 4}
+    if name in ("edm", "flow"):
+        code, msg = _post_error(server_url, body)
+        assert code == 400 and f"sampler={name} needs" in msg
+        return
+    from dmme_tpu_torch.diffusion.factory import make_module_sampler
+    from dmme_tpu_torch.utils.norm import denorm
+
+    got = np.load(io.BytesIO(_post(server_url, body)[0]))
+    lit, state = lit_state
+    algo = make_module_sampler(lit.diffusion_model, name, 4)
+    want = algo.generate(lit.model, state.ema_params, torch.Generator().manual_seed(4),
+                         (4, 8, 8, 3))
+    assert got.shape == (3, 8, 8, 3)
+    np.testing.assert_array_equal(got, denorm(want)[:3].numpy())
 
 
 @pytest.mark.parametrize("name,steps", [("ddim", 3), ("dpm", 4), ("unipc", None)])
