@@ -9,8 +9,9 @@ if the package is missing, or if any phase fails. Phases:
 
 1. device  — the card's name and power limit (``nvidia-smi``), torch version;
 2. build   — compiles the CUDA sources of ``dmme_tpu_torch/ops/csrc`` in
-   parallel (K1 and K2 in ``group_norm.cu``, K3, K4, and their f32/fp16
-   versions in ``simt.cu``) and prints each
+   parallel (K1 and K2 in ``group_norm.cu`` and, for f32/fp16, ``simt.cu``;
+   K3 and K4 in bf16, fp16 and f32 in ``attention.cu`` and ``resblock.cu``)
+   and prints each
    kernel's registers and spill bytes (``-Xptxas -v``);
 3. kernels — records the inputs each kernel receives at every call site of
    one full-width bf16 UNet forward at each serving batch, 1, 8 and 16 (both
@@ -46,7 +47,9 @@ if the package is missing, or if any phase fails. Phases:
    dims 16, 48, 96, 160 and 512, a key split at a padded head dim; C_in 32
    and 96; C_out 32, 64 and 192; H×W that 64-pixel tiles of whole rows do
    not cover; C/G = 3; GroupNorms that take two passes, forward and
-   backward), each held against its plain version;
+   backward), each held against its plain version; K3 and K4 at those shapes
+   in fp16 and f32 too, within ``TOL_SIMT``, each called twice for identical
+   bytes;
 7. train gradient — one ``loss_given`` + backward at batch 8, dropout 0, on
    the same weights and numpy t, ε: bf16 on the card against f32 on the CPU
    (relative L2 of the loss and of the gradient, overall and per top-level
@@ -75,14 +78,18 @@ if the package is missing, or if any phase fails. Phases:
    peak memory lower with it;
 10. f32 and fp16 — fault C.5: ``LitDDPM()`` (f32) and ``LitDDPM(dtype="fp16")``
    each train one full-width step at batch 128 and take one DDIM step at
-   n = 8, launching the ``simt.cu`` kernels (K1/K2/K3 45/45/6 a step,
-   K1/K3/K4 1/6/22 a forward) and no bf16 kernel; every call site held
-   against its plain version and timed (the table's ``*_simt`` rows); the
-   loss, gradient (dropout off), a UNet forward and the DDIM step against
-   f32 on the CPU, f32 within ``F32_REL_L2`` (1e-4), fp16's forward and DDIM
-   step within ``UNET_REL_L2``; the bf16 harness on the same inputs is the control that
-   must miss ``F32_REL_L2``. Every bf16 path above launches no ``simt.cu``
-   kernel;
+   n = 8 (K1/K2/K3 45/45/6 a step, K1/K3/K4 1/6/22 a forward), launching K1
+   and K2 of ``simt.cu`` and K3 and K4 on the tensor cores in that dtype (f32
+   as 3xTF32), and no bf16 kernel; every call site held against its plain
+   version (``TOL_SIMT``), twice for identical bytes, and timed beside its
+   bounds, SDPA (K3) and the cuDNN sequence (K4) (the table's ``*_f32`` and
+   ``*_fp16`` rows); the loss, gradient (dropout off), a UNet forward and the
+   DDIM step against f32 on the CPU, f32 within ``F32_REL_L2`` (1e-4), fp16's
+   forward and DDIM step within ``UNET_REL_L2``; the bf16 harness on the same
+   inputs is the control that must miss ``F32_REL_L2``; then each harness's
+   training step (median of 25, device busy, idle share) and one DDIM-50
+   request at n = 8 (``scripts/torch_f32_time.py``). Every bf16 path above
+   launches no f32 or fp16 kernel;
 11. IDDPM kernels — the IDDPM UNet of ``configs/iddpm/cifar10.yaml`` (FiLM at
    the 22 ``norm2`` sites, 4-head attention at 11 sites, ε ‖ v output; random
    biases, affines and FiLM ``condition`` Dense): K1, K3 and K4 at every call
@@ -106,7 +113,8 @@ if the package is missing, or if any phase fails. Phases:
    ``configs/iddpm/cifar10.yaml`` and ``configs/iddpm/shapes64_demo.yaml``
    (64 px, batch 64) for 2 steps with and without remat;
 16. f32 IDDPM — ``LitIDDPM()`` one step at batch 128 and one respaced step at
-   n = 8 through ``simt.cu``, every call site against its plain version; the
+   n = 8 (K1/K2 on ``simt.cu``, K3/K4 in f32 on the tensor cores), every call
+   site against its plain version; the
    loss, the gradient (the variance head included) and the step within
    ``F32_REL_L2`` of the CPU, a bf16 control missing it;
 17. new call sites — K1, K3 and K4 at every call site of EDM's σ-conditioned
@@ -126,7 +134,8 @@ if the package is missing, or if any phase fails. Phases:
 21. flow fit and serve — phase 19 for ``configs/flow/shapes_demo.yaml`` (no
    grids) and phase 20 for ``LitFlow(dtype="bf16")``: ``default`` (25
    midpoint steps, 50 evaluations) and ``flow`` at 10 steps at n = 8;
-22. f32 EDM — ``LitEDM()`` one step at batch 128 through ``simt.cu``; the loss
+22. f32 EDM — ``LitEDM()`` one step at batch 128 (K1/K2 on ``simt.cu``, K3 in
+   f32 on the tensor cores); the loss
    and gradient at batch 16 (σ from 0.002 to 80) and a mid-grid Heun step
    against f32 on the CPU within ``F32_REL_L2``, a bf16 control missing it;
 23. the kernel table as one JSON line, the card's name and power limit, then
@@ -152,10 +161,14 @@ import urllib.error
 import urllib.request
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense): memory, bf16 (and
-# fp16) tensor cores, and f32 outside the tensor cores.
+# fp16) tensor cores, TF32 tensor cores, and f32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
+# K3 and K4 in f32 run as 3xTF32: three tf32 products for each f32 product,
+# the least time of f32-accurate products on the card
+F32_TC_FLOPS = TF32_FLOPS / 3
 
 BATCH = 8
 SERVE_BATCHES = (1, 8, 16)  # the request sizes of the serve phase
@@ -174,13 +187,13 @@ UNET_REL_L2 = 5e-2
 # math summed in another order reads ~1e-6; the bf16 harness reads ~5e-3,
 # and fails this limit (the phase checks that it does)
 F32_REL_L2 = 1e-4
-# the f32/fp16 kernels of simt.cu against their plain versions on the same
-# inputs: (rtol, atol as a share of the largest reference value, least
-# atol). f32: the same arithmetic in another order, f32 rounding grown by
-# sums of up to ~1e5 terms. fp16: outputs rounded to fp16 (2^-11 relative,
-# and 2^-24 apart in its subnormal range, where a training step's small
-# gradients fall) from f32 values that differ in their last bits, and K3's
-# plain version rounds P to fp16 where the kernel keeps it in f32
+# the f32/fp16 kernels (K1 and K2 of simt.cu, K3 and K4 on the tensor cores)
+# against their plain versions on the same inputs: (rtol, atol as a share of
+# the largest reference value, least atol). f32: the same arithmetic in
+# another order (K3 and K4 as 3xTF32, ~2^-21 a product), f32 rounding grown
+# by sums of up to ~1e5 terms. fp16: outputs rounded to fp16 (2^-11
+# relative, and 2^-24 apart in its subnormal range, where a training step's
+# small gradients fall) from f32 values that differ in their last bits
 TOL_SIMT = {"torch.float32": (1e-4, 1e-5, 0.0), "torch.float16": (4e-3, 2e-3, 2.0 ** -24)}
 # the LSUN widths of configs/ddpm/lsun_*.yaml, run at batch 1 and 256x256
 LSUN_WIDTHS = dict(channels_per_depth=(128, 128, 256, 256, 512, 512), attention_depths=(5,))
@@ -287,26 +300,38 @@ def randomize_affines(torch, blocks, module, generator) -> None:
                 draw(m.bias, 0.0)
 
 
-#: the launch counters of the f32/fp16 kernels of ``csrc/simt.cu``,
-#: {kernel: (module, attribute)}; set by main()
-SIMT = {}
+#: the launch counters of the kernels that take f32 and fp16 activations,
+#: {route: {kernel: (module, attribute)}}: K1's and K2's in ``csrc/simt.cu``
+#: ("simt", both dtypes), K3's and K4's tensor-core instances in fp16 and in
+#: f32; set by main()
+WIDE = {}
 
 
 def reset_counts(ops) -> None:
-    """``ops``: {kernel: (module, counter attribute)}; the simt counters too."""
-    for m, attr in list(ops.values()) + list(SIMT.values()):
+    """``ops``: {kernel: (module, counter attribute)}; the f32/fp16 counters too."""
+    for m, attr in list(ops.values()) + [v for d in WIDE.values() for v in d.values()]:
         setattr(m, attr, 0)
 
 
-def simt_counts() -> dict:
-    return {k: getattr(m, attr) for k, (m, attr) in SIMT.items()}
+def wide_counts() -> dict:
+    """{route: {kernel: launches}} of the f32/fp16 counters."""
+    return {r: {k: getattr(m, attr) for k, (m, attr) in d.items()} for r, d in WIDE.items()}
 
 
-def expect_no_simt(where: str) -> dict:
-    """Fail if a bf16 path launched an f32/fp16 kernel."""
-    got = simt_counts()
-    print(f"{where}: f32/fp16 (simt.cu) launches {got}", flush=True)
-    if any(got.values()):
+def wide_expected(dtype_name: str, per_kernel: dict) -> dict:
+    """What :func:`wide_counts` reads after ``per_kernel`` launches of K1–K4
+    in ``dtype_name`` ("f32" or "fp16"): K1 and K2 on ``simt.cu``, K3 and K4
+    on that dtype's tensor-core instance, nothing on the other's."""
+    return {r: {k: per_kernel[k] if r in ("simt", dtype_name) else 0 for k in d}
+            for r, d in WIDE.items()}
+
+
+def expect_bf16_only(where: str) -> dict:
+    """Fail if a bf16 path launched an f32 or fp16 kernel (``simt.cu``, or
+    K3's and K4's f32 and fp16 instances)."""
+    got = wide_counts()
+    print(f"{where}: f32/fp16 launches {got}", flush=True)
+    if any(v for d in got.values() for v in d.values()):
         fail(f"{where}: a bf16 path launched the f32/fp16 kernels: {got}")
     return got
 
@@ -435,26 +460,31 @@ def gn_sequence(torch, a, k, dz=None):
     return lambda: torch.autograd.grad(out, leaves, dz, retain_graph=True)
 
 
-def attention_plan(k_attn, q) -> dict:
-    """K3's plan for the recorded query tensor, as a dict."""
+def attention_plan(k_attn, q, k, v) -> dict:
+    """K3's plan for the recorded q, k, v (in f32, with the layout the
+    kernel reads them in), as a dict."""
     n, t, h, d = q.shape
-    return k_attn.attention_plan(n, h, t, d, k_attn.build.sm_count(q.device))._asdict()
+    size = q.element_size()
+    trans = size == 4 and k_attn.f32_layout(q, k, v, -(-d // 64) * 64)
+    plan = k_attn.attention_plan(n, h, t, d, k_attn.build.sm_count(q.device), size, trans)
+    return dict(plan._asdict(), trans=trans)
 
 
 def cudnn_sequence(torch, pa):
     """The ResBlock of one K4 call (``resblock_plain``'s arguments) as a
-    library sequence on bf16 channels-last tensors: F.group_norm, F.silu and
-    two F.conv2d (cuDNN), plus the skip. A yardstick the port never calls;
-    the weights are cast once, outside the returned function."""
+    library sequence on channels-last tensors in x's dtype: F.group_norm,
+    F.silu and two F.conv2d (cuDNN; f32 without TF32, as main() sets it),
+    plus the skip. A yardstick the port never calls; the weights are cast
+    once, outside the returned function."""
     F = torch.nn.functional
     x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br, groups, eps = pa
-    bf16 = torch.bfloat16
-    w1c, w2c = (w.to(dtype=bf16, memory_format=torch.channels_last) for w in (w1, w2))
-    wrc = None if wr is None else wr.to(dtype=bf16, memory_format=torch.channels_last)
-    b1c, b2c = b1.to(bf16), b2.to(bf16)
-    brc = None if br is None else br.to(bf16)
-    ga1, be1, ga2, be2 = (v[0].to(bf16) for v in (g1, b1v, g2, b2v))
-    pre = pre2.to(bf16)[:, :, None, None]
+    dt = x.dtype
+    w1c, w2c = (w.to(dtype=dt, memory_format=torch.channels_last) for w in (w1, w2))
+    wrc = None if wr is None else wr.to(dtype=dt, memory_format=torch.channels_last)
+    b1c, b2c = b1.to(dt), b2.to(dt)
+    brc = None if br is None else br.to(dt)
+    ga1, be1, ga2, be2 = (v[0].to(dt) for v in (g1, b1v, g2, b2v))
+    pre = pre2.to(dt)[:, :, None, None]
     xc = x.permute(0, 3, 1, 2)  # NHWC storage: a channels-last NCHW view
 
     def run():
@@ -513,11 +543,12 @@ def _vector_bytes(v) -> int:
     return 4 * (v.shape[-1] if v.dim() == 1 or v.stride(0) == 0 else v.numel())
 
 
-def bound_ms(kind: str, args, kwargs) -> tuple:
+def bound_ms(kind: str, args, kwargs, f32_rate: float = F32_TC_FLOPS) -> tuple:
     """(least ms, what bounds it) for the work of one call: each input read
     once, each output written once, and the operations at the card's peak
-    for the activations' type (bf16 and fp16 on the tensor cores, f32 off
-    them; GroupNorm's arithmetic is f32 in every case)."""
+    for the activations' type (bf16 and fp16 on the tensor cores; K3's and
+    K4's f32 products as 3xTF32 on them, ``f32_rate``; GroupNorm's
+    arithmetic and the attention backward's f32 off them)."""
     if kind == "group_norm_silu":
         x, gamma, beta, groups = args[:4]
         n, h, w, c = x.shape
@@ -541,7 +572,7 @@ def bound_ms(kind: str, args, kwargs) -> tuple:
         n, t, h, d = q.shape
         nbytes = 4 * q.numel() * q.element_size()
         ops = 4 * n * h * t * t * d
-        rate = F32_FLOPS if q.element_size() == 4 else BF16_FLOPS
+        rate = f32_rate if q.element_size() == 4 else BF16_FLOPS
     elif kind == "attention_bwd":
         q = args[0]
         n, t, h, d = q.shape
@@ -562,7 +593,7 @@ def bound_ms(kind: str, args, kwargs) -> tuple:
                   + sum(_vector_bytes(v) for v in args[1:6]))
         k = 9 * cin + 9 * cout + (cin if wr is not None else 0)
         ops = 2 * m * cout * k
-        rate = F32_FLOPS if size == 4 else BF16_FLOPS
+        rate = f32_rate if size == 4 else BF16_FLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -613,7 +644,7 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
     if sites != want_sites:
         fail(f"training step call sites {sites}, expected {want_sites}")
     if launches is not None:
-        expect_no_simt("training step")
+        expect_bf16_only("training step")
         want = {"group_norm_silu": 45, "group_norm_silu_bwd": 45, "attention": n_attn,
                 "resblock": 0}
         if launches != want:
@@ -668,7 +699,7 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
                 torch.nn.functional.scaled_dot_product_attention(
                     q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2), scale=scale))
             row["library_ms"] = device_ms(torch, sdpa)
-            row["plan"] = attention_plan(k_attn, q)
+            row["plan"] = attention_plan(k_attn, *a[:3])
             rows.append(row)
     for key, count, a, k in calls["attention_bwd"]:
         q, kk, v, g, scale = a
@@ -788,7 +819,7 @@ def train_gradient(torch, np, blocks, ddpm_models, init_weights, algo, draws, de
     torch.cuda.synchronize()
     launches = counts(ops)
     print(f"launches in one {label} (loss + backward): {launches}", flush=True)
-    expect_no_simt(label)
+    expect_bf16_only(label)
     if launches != PER_TRAIN_STEP:
         fail(f"a {label} launched {launches}, expected {PER_TRAIN_STEP}")
     bad = [k for k, g in grads_c.items()
@@ -938,7 +969,7 @@ def run_fit(torch, np, blocks, dev, ops, report, card: str, lit=None,
         state = fit(lit, dm, max_steps=state.step + FIT_STEPS, state=state, log_every=1)
     torch.cuda.synchronize()
     launches = counts(ops)
-    expect_no_simt("fit")
+    expect_bf16_only("fit")
     lines = [ln for ln in log.getvalue().splitlines() if ln.startswith("[step")]
     for ln in lines:
         print("  " + ln, flush=True)
@@ -973,7 +1004,7 @@ def sample_after_training(torch, k_res, lit, state, dev, ops) -> dict:
     a = draw()
     torch.cuda.synchronize()
     launches = counts(ops)
-    expect_no_simt("sampling after training")
+    expect_bf16_only("sampling after training")
     k_res._PACKED.clear()
     b = draw()
     torch.cuda.synchronize()
@@ -1047,24 +1078,32 @@ def offpath_kernels(torch, k_gn, k_attn, k_res, dev) -> list:
                          "plan": k_gn.gn_plan(n, h, w, c, 32, k_gn.build.sm_count(dev),
                                               True)._asdict()})
         # K3: head dims off the 64-wide panels, 512, ragged T, a key split at a
-        # padded head dim; q, k, v strided views of a packed projection
-        for n, t, hh, d in ((2, 100, 4, 16), (2, 100, 4, 48), (2, 100, 2, 96),
-                            (1, 1024, 1, 96), (2, 100, 2, 160), (2, 77, 1, 512),
-                            (1, 64, 1, 512), (1, 256, 1, 512)):
-            qkv = rnd(n, t, 3, hh, d, dtype=torch.bfloat16)
-            q, kk, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-            scale = (hh * d) ** -0.5
-            got = k_attn.attention_heads(q, kk, v, scale)
-            max_abs, _, ok = errors(got, k_attn.attention_heads_plain(q, kk, v, scale),
-                                    *TOL["attention"])
-            rows.append({"kernel": "attention", "key": repr((n, t, hh, d)), "max_abs_err": max_abs,
-                         "ok": ok, "plan": attention_plan(k_attn, q)})
+        # padded head dim; q, k, v strided views of a packed projection; in
+        # bf16, fp16 and f32 (the 3xTF32 kernel: D = 512 in halves of 16-key
+        # tiles, its own key split), the latter two within TOL_SIMT
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            for n, t, hh, d in ((2, 100, 4, 16), (2, 100, 4, 48), (2, 100, 2, 96),
+                                (1, 1024, 1, 96), (2, 100, 2, 160), (2, 77, 1, 512),
+                                (1, 64, 1, 512), (1, 256, 1, 512)):
+                qkv = rnd(n, t, 3, hh, d, dtype=dtype)
+                q, kk, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+                scale = (hh * d) ** -0.5
+                got = k_attn.attention_heads(q, kk, v, scale)
+                max_abs, ok = _offpath_errors(
+                    got, k_attn.attention_heads_plain(q, kk, v, scale), "attention")
+                same = bool(torch.equal(got, k_attn.attention_heads(q, kk, v, scale)))
+                rows.append({"kernel": "attention", "key": repr((str(dtype)[6:], n, t, hh, d)),
+                             "max_abs_err": max_abs, "ok": ok and same, "repeat_identical": same,
+                             "plan": attention_plan(k_attn, q, kk, v)})
         # K4: C_in 32 and 96, C_out 32, 64 and 192, H x W that whole 64-pixel
-        # rows do not tile (6x6, 12x20), identity and projection skips
-        for n, h, w, cin, cout in ((2, 8, 8, 32, 64), (2, 8, 8, 96, 192), (2, 6, 6, 64, 64),
-                                   (1, 12, 20, 128, 128), (2, 8, 8, 32, 32),
-                                   (1, 16, 16, 96, 64)):
-            x = rnd(n, h, w, cin, dtype=torch.bfloat16)
+        # rows do not tile (6x6, 12x20), identity and projection skips; in
+        # bf16, fp16 and f32 (3xTF32: 32-channel K steps, partial at 96 + 32)
+        for dtype, (n, h, w, cin, cout) in (
+                (dt, shape) for dt in (torch.bfloat16, torch.float16, torch.float32)
+                for shape in ((2, 8, 8, 32, 64), (2, 8, 8, 96, 192), (2, 6, 6, 64, 64),
+                              (1, 12, 20, 128, 128), (2, 8, 8, 32, 32), (1, 16, 16, 96, 64),
+                              (2, 8, 8, 40, 72))):
+            x = rnd(n, h, w, cin, dtype=dtype)
             g1, b1v = 1.0 + rnd(n, cin, scale=0.1), rnd(n, cin, scale=0.1)
             pre2, g2, b2v = rnd(n, cout, scale=0.5), 1.0 + rnd(n, cout, scale=0.1), rnd(
                 n, cout, scale=0.1)
@@ -1074,16 +1113,36 @@ def offpath_kernels(torch, k_gn, k_attn, k_res, dev) -> list:
             wr, br = ((rnd(cout, cin, 1, 1, scale=cin ** -0.5), rnd(cout, scale=0.1))
                       if cin != cout else (None, None))
             pa = (x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br, 32, k_gn.GN_EPS)
-            got = k_res.resblock_forward(*pa[:10], wr=wr, br=br, num_groups=32)
-            max_abs, _, ok = errors(got, k_res.resblock_plain(*pa), *TOL["resblock"])
-            p1 = k_res.conv_plan(n, h, w, cin, cout, 0, k_res.build.sm_count(dev))
-            rows.append({"kernel": "resblock", "key": repr(((n, h, w, cin), cout, wr is not None)),
-                         "max_abs_err": max_abs, "ok": ok, "plan": p1._asdict()})
+            groups = 8 if cin % 32 or cout % 32 else 32
+            pa = pa[:12] + (groups, k_gn.GN_EPS)
+            got = k_res.resblock_forward(*pa[:10], wr=wr, br=br, num_groups=groups)
+            max_abs, ok = _offpath_errors(got, k_res.resblock_plain(*pa), "resblock")
+            same = bool(torch.equal(got, k_res.resblock_forward(*pa[:10], wr=wr, br=br,
+                                                                num_groups=groups)))
+            p1 = k_res.conv_plan(n, h, w, cin, cout, 0, k_res.build.sm_count(dev),
+                                 x.element_size())
+            rows.append({"kernel": "resblock",
+                         "key": repr((str(dtype)[6:], (n, h, w, cin), cout, wr is not None)),
+                         "max_abs_err": max_abs, "ok": ok and same, "repeat_identical": same,
+                         "plan": p1._asdict()})
     torch.cuda.synchronize()
     _rows_report(rows, "off-path shapes")
     print(f"off-path shapes: {len(rows)} calls within TOL {TOL} and K2 {TOL_BWD} (K1's mean "
-          f"and inverse std within {TOL_BWD['vec']}); K1 and K2 repeat byte for byte", flush=True)
+          f"and inverse std within {TOL_BWD['vec']}; K3 and K4 in fp16 and f32 within TOL_SIMT "
+          f"{TOL_SIMT}); every call repeats byte for byte", flush=True)
     return rows
+
+
+def _offpath_errors(got, want, kind: str) -> tuple:
+    """(max abs error, ok): bf16 within ``TOL[kind]``, fp16 and f32 within
+    ``TOL_SIMT`` (atol a share of the largest reference value)."""
+    if got.dtype == want.dtype and str(got.dtype) in TOL_SIMT:
+        rtol, share, least = TOL_SIMT[str(got.dtype)]
+        max_abs, _, ok = errors(got, want, rtol, max(share * float(want.float().abs().max()),
+                                                      least))
+    else:
+        max_abs, _, ok = errors(got, want, *TOL[kind])
+    return max_abs, ok and got.dtype == want.dtype
 
 
 def lsun_forward(torch, blocks, ddpm_models, init_weights, k_gn, k_attn, k_res, ops,
@@ -1108,7 +1167,7 @@ def lsun_forward(torch, blocks, ddpm_models, init_weights, k_gn, k_attn, k_res, 
                              lambda: out.setdefault("y", m(x.to(dev), t.to(dev))))
         torch.cuda.synchronize()
         launches = counts(ops)
-        expect_no_simt("LSUN-width forward")
+        expect_bf16_only("LSUN-width forward")
         rows = []
         plain = {"group_norm_silu": lambda a, k: k_gn.gn_silu_plain(
                      a[0], a[1], a[2], k.get("pre_bias"), a[3], k.get("eps", k_gn.GN_EPS))[0],
@@ -1139,16 +1198,20 @@ def lsun_forward(torch, blocks, ddpm_models, init_weights, k_gn, k_attn, k_res, 
     return {"rel_l2": rel, "launches": launches, "sites": sites, "shapes": rows}
 
 
-def simt_rows(torch, k_gn, k_attn, k_res, calls, dtype) -> list:
-    """The f32/fp16 kernels of ``simt.cu`` at every recorded call site, each
-    held against its plain version on the same inputs (``TOL_SIMT``, atol a
-    share of the largest reference value), timed, bounded, and called twice
-    for identical bytes. K3 is timed beside SDPA on the same inputs."""
+def wide_rows(torch, k_gn, k_attn, k_res, calls, dtype) -> list:
+    """The f32 or fp16 kernels at every recorded call site (K1 and K2 of
+    ``simt.cu``, K3 and K4 on the tensor cores), each held against its plain
+    version on the same inputs (``TOL_SIMT``, atol a share of the largest
+    reference value), timed, bounded, and called twice for identical bytes.
+    Beside K3, SDPA on the same inputs; beside K4, the cuDNN sequence; in
+    f32, K3's and K4's bound at the f32 CUDA-core rate too
+    (``bound_cores_ms``), beside the 3xTF32 one."""
     rtol, share, least = TOL_SIMT[str(dtype)]
     rows = []
     with torch.no_grad():
         for kind, lst in calls.items():
             for key, count, a, k in lst:
+                pa = None
                 if kind == "group_norm_silu":
                     kern = lambda a=a, k=k: k_gn.group_norm_silu(*a, **k)  # noqa: E731
                     plain = lambda a=a, k=k: k_gn.gn_silu_plain(  # noqa: E731
@@ -1188,12 +1251,24 @@ def simt_rows(torch, k_gn, k_attn, k_res, calls, dtype) -> list:
                         torch.nn.functional.scaled_dot_product_attention(
                             q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
                             scale=scale))
+                    row["plan"] = attention_plan(k_attn, q, kk, v)
+                elif kind == "resblock":
+                    try:
+                        row["cudnn_seq_ms"] = device_ms(torch, cudnn_sequence(torch, pa))
+                    except RuntimeError as err:  # a yardstick only: note it and go on
+                        row["cudnn_seq_ms"] = None
+                        print(f"cudnn sequence at {key}: {err}", flush=True)
+                if kind in ("attention", "resblock") and dtype == torch.float32:
+                    row["bound_cores_ms"] = bound_ms(kind, a, k, F32_FLOPS)[0]
                 rows.append(row)
     for r in rows:
         print(f"{str(dtype)[6:]:8s} {r['kernel']:20s} {r['key']:52s} sites {r['sites']:2d} "
               f"max_abs {r['max_abs_err']:.3e} ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
               f"bound {r['bound_ms']:.4f} ({r['bound_by']})"
+              + (f" cores bound {r['bound_cores_ms']:.4f}" if r.get("bound_cores_ms") else "")
               + (f" sdpa {r['library_ms']:.4f}" if r["library_ms"] else "")
+              + (f" cudnn_seq {r['cudnn_seq_ms']:.4f}" if r.get("cudnn_seq_ms") else "")
+              + (" token-major" if r.get("plan", {}).get("trans") else "")
               + f" repeat {'identical' if r['repeat_identical'] else 'DIFFERENT'}"
               + ("" if r["ok"] else "  FAIL"), flush=True)
     bad = [f"{r['kernel']} {r['key']}" for r in rows if not r["ok"]]
@@ -1211,11 +1286,25 @@ def per_site_sum(rows, kind: str) -> dict:
                          if kind == "attention" else None)
     out["max_abs_err"] = max(r["max_abs_err"] for r in rs)
     out["bound_by"] = max(rs, key=lambda r: r["bound_ms"] * r["sites"])["bound_by"]
-    # the library sequences beside K1 and K4, where every row has one
-    for seq in ("torch_seq_ms", "cudnn_seq_ms"):
+    # the library sequences beside K1 and K4, and K3's and K4's f32
+    # CUDA-core bound, where every row has one
+    for seq in ("torch_seq_ms", "cudnn_seq_ms", "bound_cores_ms"):
         if rs and all(r.get(seq) is not None for r in rs):
             out[seq] = sum(r[seq] * r["sites"] for r in rs)
     return out
+
+
+def harness_timing(torch, dtype: str, dev) -> dict:
+    """``scripts/torch_f32_time.py:time_dtype`` on this checkout's package:
+    the ``LitDDPM(dtype=...)`` step and a DDIM-50 request at n = 8."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_f32_time.py")
+    spec = importlib.util.spec_from_file_location("torch_f32_time", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.time_dtype(torch, dtype, dev)
 
 
 def f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
@@ -1223,13 +1312,17 @@ def f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
     """Phase 10: the default harness in f32 (fault C.5), then fp16. For each
     dtype, one full-width ``LitDDPM`` training step at batch 128 and one
     ``LitDDIM`` DDIM step at n = 8 on the card, launching K1/K2/K3 (45/45/6)
-    and K1/K3/K4 (1/6/22) of ``simt.cu`` and no bf16 kernel, every call site
-    held against its plain version (:func:`simt_rows`). Then, dropout off, the
-    loss and gradient of one step and one UNet forward (the DDIM step's ε
-    prediction) on the same weights and inputs against f32 on the CPU: f32
-    within ``F32_REL_L2``, fp16's forward within ``UNET_REL_L2``; the bf16 harness on
+    and K1/K3/K4 (1/6/22): K1 and K2 of ``simt.cu``, K3 and K4 on the tensor
+    cores in that dtype, and no bf16 kernel; every call site held against its
+    plain version (:func:`wide_rows`). Then, dropout off, the loss and
+    gradient of one step and one UNet forward (the DDIM step's ε prediction)
+    on the same weights and inputs against f32 on the CPU: f32 within
+    ``F32_REL_L2``, fp16's forward within ``UNET_REL_L2``; the bf16 harness on
     the same weights and inputs is the control that must miss ``F32_REL_L2``.
-    The DDIM step's output is held to the same limits."""
+    The DDIM step's output is held to the same limits. Last, each dtype's
+    default harness timed (``scripts/torch_f32_time.py:time_dtype``): the
+    training step's median ms, device busy and idle share, and one DDIM-50
+    request at n = 8."""
     from dmme_tpu_torch.data import CIFAR10
     from dmme_tpu_torch.parallel import make_train_step
     from dmme_tpu_torch.training import LitDDIM, LitDDPM
@@ -1296,16 +1389,18 @@ def f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
         calls = record_calls(train_targets(blocks, k_gn, k_attn), train)
         loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
         rec = {"dtype": str(dtype), "train": {"loss": loss, "grad_norm": grad_norm,
-                                              "launches": counts(ops), "simt": simt_counts()}}
+                                              "launches": counts(ops), "wide": wide_counts()}}
         print(f"LitDDPM({'' if name == 'f32' else 'dtype=' + repr(name)}) one training step at "
               f"batch {TRAIN_BATCH} on the card ({dtype}): loss {loss:.6f} grad_norm "
-              f"{grad_norm:.4f}; bf16 kernel launches {rec['train']['launches']}; simt.cu "
-              f"launches {rec['train']['simt']}", flush=True)
+              f"{grad_norm:.4f}; bf16 kernel launches {rec['train']['launches']}; f32/fp16 "
+              f"launches {rec['train']['wide']}", flush=True)
         if not (np.isfinite(loss) and np.isfinite(grad_norm)):
             fail(f"the {name} training step gave a loss or grad_norm that is not finite")
-        if rec["train"]["launches"] != none or rec["train"]["simt"] != want_train:
+        if (rec["train"]["launches"] != none
+                or rec["train"]["wide"] != wide_expected(name, want_train)):
             fail(f"the {name} step launched {rec['train']['launches']} bf16 and "
-                 f"{rec['train']['simt']} simt.cu kernels, expected none and {want_train}")
+                 f"{rec['train']['wide']} f32/fp16 kernels, expected none and "
+                 f"{wide_expected(name, want_train)}")
 
         for mod in lit.model.modules():  # dropout off: the card and the CPU draw other masks
             if isinstance(mod, blocks.ResBlock):
@@ -1319,15 +1414,17 @@ def f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
                 serve_targets(blocks),
                 lambda: ddim.diffusion_model.sampling_step(ddim.model_fn, p_dev, xs.to(dev), 50))
         torch.cuda.synchronize()
-        rec["ddim_step"] = {"launches": counts(ops), "simt": simt_counts()}
+        rec["ddim_step"] = {"launches": counts(ops), "wide": wide_counts()}
         print(f"LitDDIM() one DDIM step at n={BATCH} ({dtype}): bf16 kernel launches "
-              f"{rec['ddim_step']['launches']}; simt.cu launches {rec['ddim_step']['simt']}",
+              f"{rec['ddim_step']['launches']}; f32/fp16 launches {rec['ddim_step']['wide']}",
               flush=True)
-        if rec["ddim_step"]["launches"] != none or rec["ddim_step"]["simt"] != want_ddim:
+        if (rec["ddim_step"]["launches"] != none
+                or rec["ddim_step"]["wide"] != wide_expected(name, want_ddim)):
             fail(f"the {name} DDIM step launched {rec['ddim_step']['launches']} bf16 and "
-                 f"{rec['ddim_step']['simt']} simt.cu kernels, expected none and {want_ddim}")
-        rows = simt_rows(torch, k_gn, k_attn, k_res, calls, dtype)
-        rows_ddim = simt_rows(torch, k_gn, k_attn, k_res, sample_calls, dtype)
+                 f"{rec['ddim_step']['wide']} f32/fp16 kernels, expected none and "
+                 f"{wide_expected(name, want_ddim)}")
+        rows = wide_rows(torch, k_gn, k_attn, k_res, calls, dtype)
+        rows_ddim = wide_rows(torch, k_gn, k_attn, k_res, sample_calls, dtype)
         del calls, sample_calls
         rec["rows"], rec["rows_ddim"] = rows, rows_ddim
         # K1, K2 and K3 summed over a training step's call sites; K4 over a
@@ -1338,7 +1435,10 @@ def f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
         for kind, v in rec["per_path"].items():
             print(f"{name} {kind} summed over its call sites: ms {v['ms']:.4f} plain "
                   f"{v['plain_ms']:.4f} bound {v['bound_ms']:.4f} ({v['bound_by']})"
+                  + (f" cores bound {v['bound_cores_ms']:.4f}" if v.get("bound_cores_ms")
+                     else "")
                   + (f" sdpa {v['library_ms']:.4f}" if v["library_ms"] else "")
+                  + (f" cudnn_seq {v['cudnn_seq_ms']:.4f}" if v.get("cudnn_seq_ms") else "")
                   + f" [{card}]", flush=True)
 
         reset_counts(ops)
@@ -1366,6 +1466,14 @@ def f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
             fail(f"the {name} harness on the card disagrees with the f32 CPU reference")
         out[name] = rec
         del lit, state, p_dev
+        torch.cuda.empty_cache()
+        rec["timing"] = harness_timing(torch, name, dev)
+        print(f"LitDDPM({name!r}): step {rec['timing']['step_ms']:.3f} ms median of 25 (device "
+              f"busy {rec['timing']['step_busy_ms']:.3f} ms, idle share "
+              f"{rec['timing']['step_idle_share']:.3f}); DDIM-50 n=8 request "
+              f"{rec['timing']['request_s']:.3f} s (device busy "
+              f"{rec['timing']['request_busy_ms']:.3f} ms, idle share "
+              f"{rec['timing']['request_idle_share']:.3f}) [{card}]", flush=True)
         torch.cuda.empty_cache()
 
     # the control: the bf16 harness on the same weights and inputs, through the
@@ -1440,7 +1548,7 @@ def iddpm_kernels(torch, blocks, k_gn, k_attn, k_res, build, init_weights, dev, 
     attention at head dims 64 and 32), and K1, K2, K3 and the attention
     backward at every call site of one training step at batch 128, each held
     against its plain version, timed and bounded; launches 1/11/22 a forward
-    and 45/45/11/0 a step, no ``simt.cu`` launch."""
+    and 45/45/11/0 a step, no f32 or fp16 launch."""
     import functools
 
     from dmme_tpu_torch.training import LitIDDPM
@@ -1455,7 +1563,7 @@ def iddpm_kernels(torch, blocks, k_gn, k_attn, k_res, build, init_weights, dev, 
     recorded, sites = record_forwards(torch, blocks, runs, dev)
     torch.cuda.synchronize()
     launches = counts(ops)
-    expect_no_simt("IDDPM forwards")
+    expect_bf16_only("IDDPM forwards")
     print(f"IDDPM call sites per forward: {json.dumps(sites)}; launches of the "
           f"{len(runs)} forwards {launches}", flush=True)
     want = {k: v * len(runs) for k, v in PER_FORWARD_IDDPM.items()}
@@ -1550,7 +1658,7 @@ def iddpm_gradient(torch, np, blocks, init_weights, dev, ops) -> dict:
     loss_c, grads_c = loss_and_grads(card, dev, False, weights)
     torch.cuda.synchronize()
     launches = counts(ops)
-    expect_no_simt("IDDPM training step")
+    expect_bf16_only("IDDPM training step")
     print(f"IDDPM hybrid loss_given + backward at batch {BATCH}: launches {launches}; "
           f"t {t.tolist()}; {len(masks)} dropout masks recorded", flush=True)
     if launches != PER_TRAIN_STEP_IDDPM:
@@ -1644,7 +1752,7 @@ def default_requests(np, url: str, ops, model: str, card: str) -> tuple:
             fail(f"{model}: a repeated request with the same seed returned other bytes")
         bodies[(n, seed)] = data
     launches = counts(ops)
-    expect_no_simt(f"{model} serve")
+    expect_bf16_only(f"{model} serve")
     print(f"{model}: repeat of n=8 seed=2 identical bytes", flush=True)
     return requests, launches
 
@@ -1683,7 +1791,7 @@ def solver_requests(np, url: str, ops, model: str, card: str, samplers) -> list:
               f"{launches} [{card}]" + ("" if ok else "  FAIL"), flush=True)
         if not ok:
             fail(f"{model}: the {name} request failed or was not repeatable")
-        expect_no_simt(f"{model} {name} request")
+        expect_bf16_only(f"{model} {name} request")
         if launches != want:
             fail(f"{model} {name} launched {launches}, expected {want}")
     return out
@@ -1771,9 +1879,10 @@ def f32_iddpm_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, o
                     card: str) -> dict:
     """Phase 16: ``LitIDDPM()`` (f32, T = 1000 cosine, dropout 0.3) takes one
     full-width training step at batch 128 and one 50-step respaced step at
-    n = 8 on the card through ``simt.cu`` (K1/K2/K3 45/45/11 a step, K1/K3/K4
-    1/11/22 a forward, no bf16 kernel), every call site held against its
-    plain version (:func:`simt_rows`). Then, dropout off, the hybrid
+    n = 8 on the card (K1/K2/K3 45/45/11 a step, K1/K3/K4 1/11/22 a forward:
+    K1 and K2 of ``simt.cu``, K3 and K4 in f32 on the tensor cores, no bf16
+    kernel), every call site held against its
+    plain version (:func:`wide_rows`). Then, dropout off, the hybrid
     ``loss_given`` (t from the seed, one sample at t = 1) with its gradient
     and the respaced step (injected noise) against f32 on the CPU, within
     ``F32_REL_L2``, the variance head's gradient included; the bf16 harness
@@ -1812,16 +1921,17 @@ def f32_iddpm_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, o
     reset_counts(ops)
     calls = record_calls(train_targets(blocks, k_gn, k_attn), train)
     out = {"train": {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-                     "launches": counts(ops), "simt": simt_counts()}}
+                     "launches": counts(ops), "wide": wide_counts()}}
     print(f"LitIDDPM() one training step at batch {TRAIN_BATCH} (f32): loss "
           f"{out['train']['loss']:.6f} grad_norm {out['train']['grad_norm']:.4f}; bf16 kernel "
-          f"launches {out['train']['launches']}; simt.cu launches {out['train']['simt']}",
+          f"launches {out['train']['launches']}; f32/fp16 launches {out['train']['wide']}",
           flush=True)
     if not (np.isfinite(out["train"]["loss"]) and np.isfinite(out["train"]["grad_norm"])):
         fail("the f32 IDDPM training step is not finite")
-    if out["train"]["launches"] != none or out["train"]["simt"] != want_step:
+    if out["train"]["launches"] != none or out["train"]["wide"] != wide_expected("f32", want_step):
         fail(f"the f32 IDDPM step launched {out['train']['launches']} bf16 and "
-             f"{out['train']['simt']} simt.cu kernels, expected none and {want_step}")
+             f"{out['train']['wide']} f32/fp16 kernels, expected none and "
+             f"{wide_expected('f32', want_step)}")
     del state
 
     for mod in lit.model.modules():  # dropout off: the card and the CPU draw other masks
@@ -1835,15 +1945,15 @@ def f32_iddpm_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, o
         sample_calls = record_calls(serve_targets(blocks), lambda: strided.sampling_step(
             lit.model_fn, p_dev, xs.to(dev), 50, noise=noise.to(dev)))
     torch.cuda.synchronize()
-    out["strided_step"] = {"launches": counts(ops), "simt": simt_counts()}
-    want_fwd = PER_FORWARD_IDDPM
+    out["strided_step"] = {"launches": counts(ops), "wide": wide_counts()}
+    want_fwd = wide_expected("f32", PER_FORWARD_IDDPM)
     print(f"LitIDDPM() one respaced step at n={BATCH} (f32): bf16 kernel launches "
-          f"{out['strided_step']['launches']}; simt.cu launches {out['strided_step']['simt']}",
+          f"{out['strided_step']['launches']}; f32/fp16 launches {out['strided_step']['wide']}",
           flush=True)
-    if out["strided_step"]["launches"] != none or out["strided_step"]["simt"] != want_fwd:
+    if out["strided_step"]["launches"] != none or out["strided_step"]["wide"] != want_fwd:
         fail(f"the f32 respaced step launched {out['strided_step']}, expected {want_fwd}")
-    rows = simt_rows(torch, k_gn, k_attn, k_res, calls, torch.float32)
-    rows_fwd = simt_rows(torch, k_gn, k_attn, k_res, sample_calls, torch.float32)
+    rows = wide_rows(torch, k_gn, k_attn, k_res, calls, torch.float32)
+    rows_fwd = wide_rows(torch, k_gn, k_attn, k_res, sample_calls, torch.float32)
     del calls, sample_calls
     out["rows"], out["rows_fwd"] = rows, rows_fwd
     out["per_path"] = {kind: per_site_sum(rows, kind)
@@ -1927,7 +2037,8 @@ def _jsonl(path: str) -> list:
 
 def cli_run(torch, ops, card: str, name: str, argv, want=None) -> dict:
     """``dmme_tpu_torch.trainer.main(argv)`` in this process: its wall time
-    and launches, none of them of ``simt.cu``, and ``want`` if given."""
+    and launches, none of them of an f32 or fp16 kernel, and ``want`` if
+    given."""
     from dmme_tpu_torch.trainer import main as cli
 
     reset_counts(ops)
@@ -1935,10 +2046,10 @@ def cli_run(torch, ops, card: str, name: str, argv, want=None) -> dict:
     t0 = time.time()
     cli(argv)
     torch.cuda.synchronize()
-    rec = {"wall_s": time.time() - t0, "launches": counts(ops), "simt": simt_counts()}
+    rec = {"wall_s": time.time() - t0, "launches": counts(ops), "wide": wide_counts()}
     print(f"{name}: {rec['wall_s']:.2f} s wall, launches {rec['launches']}, f32/fp16 "
-          f"launches {rec['simt']} [{card}]", flush=True)
-    if any(rec["simt"].values()):
+          f"launches {rec['wide']} [{card}]", flush=True)
+    if any(v for d in rec["wide"].values() for v in d.values()):
         fail(f"{name}: a bf16 path launched the f32/fp16 kernels")
     if want is not None and rec["launches"] != want:
         fail(f"{name} launched {rec['launches']}, expected {want}")
@@ -2204,7 +2315,7 @@ def new_site_kernels(torch, np, blocks, k_gn, k_attn, k_res, build, ddpm_models,
             m(xs.to(dev), ts.to(dev), **kw)
         torch.cuda.synchronize()
         launches = counts(ops)
-        expect_no_simt(f"{name} forward")
+        expect_bf16_only(f"{name} forward")
         print(f"{name} forward at n = {BATCH}: launches {launches} (expected {want})", flush=True)
         if launches != want:
             fail(f"the {name} forward launched {launches}, expected {want}")
@@ -2362,11 +2473,12 @@ def continuous_serve(torch, np, blocks, dev, ops, card: str, family: str) -> dic
 
 def f32_edm_phase(torch, np, blocks, ddpm_models, init_weights, dev, ops, card: str) -> dict:
     """Phase 22: ``LitEDM()`` (f32, the harness's default dtype) takes one
-    full-width training step at batch 128 on the card through ``simt.cu``
-    (K1/K2/K3 45/45/6, no bf16 kernel). Then, dropout off, on the same
-    weights: ``loss_given`` and its gradient at batch 16 with σ from 0.002
-    to 80, and the Heun step from the middle of the 18-step grid at n = 8
-    (two forwards, 2/12/44 ``simt.cu`` launches), against f32 on the CPU
+    full-width training step at batch 128 on the card (K1/K2/K3 45/45/6:
+    K1 and K2 of ``simt.cu``, K3 in f32 on the tensor cores; no bf16
+    kernel). Then, dropout off, on the same weights: ``loss_given`` and its
+    gradient at batch 16 with σ from 0.002 to 80, and the Heun step from the
+    middle of the 18-step grid at n = 8 (two forwards, K1/K3/K4 2/12/44
+    launches), against f32 on the CPU
     within ``F32_REL_L2``; the bf16 harness on the same inputs is the
     control that must miss it, in the gradient and in the step."""
     from dmme_tpu_torch.data import CIFAR10
@@ -2391,15 +2503,16 @@ def f32_edm_phase(torch, np, blocks, ddpm_models, init_weights, dev, ops, card: 
     _, metrics = make_train_step(lit.make_loss_fn(dm))(state, batch, SEED)
     torch.cuda.synchronize()
     out = {"train": {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-                     "launches": counts(ops), "simt": simt_counts()}}
+                     "launches": counts(ops), "wide": wide_counts()}}
     print(f"LitEDM() one training step at batch {TRAIN_BATCH} (f32): loss "
           f"{out['train']['loss']:.6f} grad_norm {out['train']['grad_norm']:.4f}; bf16 kernel "
-          f"launches {out['train']['launches']}; simt.cu launches {out['train']['simt']}",
+          f"launches {out['train']['launches']}; f32/fp16 launches {out['train']['wide']}",
           flush=True)
     if not (np.isfinite(out["train"]["loss"]) and np.isfinite(out["train"]["grad_norm"])):
         fail("the f32 EDM training step is not finite")
-    if out["train"]["launches"] != none or out["train"]["simt"] != PER_TRAIN_STEP:
-        fail(f"the f32 EDM step launched {out['train']}, expected none and {PER_TRAIN_STEP}")
+    want_step = wide_expected("f32", PER_TRAIN_STEP)
+    if out["train"]["launches"] != none or out["train"]["wide"] != want_step:
+        fail(f"the f32 EDM step launched {out['train']}, expected none and {want_step}")
     del state
 
     x0, sigma, noise = edm_draws(torch, np, EDM_F32_BATCH, SEED + 90)
@@ -2427,7 +2540,7 @@ def f32_edm_phase(torch, np, blocks, ddpm_models, init_weights, dev, ops, card: 
             reset_counts(ops)
             step = algo.sampling_step(h.model_fn, p, x_i.to(device), i_heun)
             torch.cuda.synchronize()
-            out["heun_launches"] = {"bf16": counts(ops), "simt": simt_counts()}
+            out["heun_launches"] = {"bf16": counts(ops), "wide": wide_counts()}
         return {"loss": loss.detach().cpu(),
                 "grad": torch.cat([g.detach().float().flatten().cpu() for g in grads]),
                 "step": step.float().cpu()}
@@ -2443,10 +2556,10 @@ def f32_edm_phase(torch, np, blocks, ddpm_models, init_weights, dev, ops, card: 
     if not all(bool(v.isfinite().all()) for v in got.values()):
         fail("the f32 EDM loss, gradient or Heun step on the card is not finite")
     heun = out.pop("heun_launches")
-    want_heun = launches_for(PER_FORWARD, 2)
-    print(f"f32 Heun step at n = {BATCH}: bf16 launches {heun['bf16']}, simt.cu launches "
-          f"{heun['simt']} (expected {want_heun})", flush=True)
-    if heun["bf16"] != none or heun["simt"] != want_heun:
+    want_heun = wide_expected("f32", launches_for(PER_FORWARD, 2))
+    print(f"f32 Heun step at n = {BATCH}: bf16 launches {heun['bf16']}, f32/fp16 launches "
+          f"{heun['wide']} (expected {want_heun})", flush=True)
+    if heun["bf16"] != none or heun["wide"] != want_heun:
         fail(f"the f32 Heun step launched {heun}, expected none and {want_heun}")
     ref = measure(harness("f32"), torch.device("cpu"))
     control = harness("bf16")
@@ -2537,7 +2650,7 @@ def forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded) -> tuple:
                             q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
                             scale=scale))
                     rec["library_ms"] = device_ms(torch, sdpa)
-                    rec["plan"] = attention_plan(k_attn, q)
+                    rec["plan"] = attention_plan(k_attn, q, kk, v)
                 elif kind_ == "group_norm_silu":
                     rec["plan"] = gn_plan(k_gn, a[0], a[3], False)
                     rec["torch_seq_ms"] = device_ms(torch, gn_sequence(torch, a, k))
@@ -2640,9 +2753,12 @@ def main() -> int:
 
     ops = {"group_norm_silu": (k_gn, "launches"), "group_norm_silu_bwd": (k_gn, "bwd_launches"),
            "attention": (k_attn, "launches"), "resblock": (k_res, "launches")}
-    SIMT.update({"group_norm_silu": (k_gn, "simt_launches"),
-                 "group_norm_silu_bwd": (k_gn, "simt_bwd_launches"),
-                 "attention": (k_attn, "simt_launches"), "resblock": (k_res, "simt_launches")})
+    WIDE.update({"simt": {"group_norm_silu": (k_gn, "simt_launches"),
+                          "group_norm_silu_bwd": (k_gn, "simt_bwd_launches")},
+                 "fp16": {"attention": (k_attn, "fp16_launches"),
+                          "resblock": (k_res, "fp16_launches")},
+                 "f32": {"attention": (k_attn, "f32_launches"),
+                         "resblock": (k_res, "f32_launches")}})
     report = {"card": card, "torch": torch.__version__, "device": device_name}
 
     phase("build")
@@ -2731,7 +2847,7 @@ def main() -> int:
             got = m(x_in.to(dev), t_in.to(dev))
             torch.cuda.synchronize()
             per_call = counts(ops)
-            expect_no_simt(f"UNet forward ({name})")
+            expect_bf16_only(f"UNet forward ({name})")
             ms = device_ms(torch, lambda m=m: m(x_in.to(dev), t_in.to(dev)), reps=10)
         got = got.float().cpu()
         rel = float((got - want).norm() / want.norm())
@@ -2869,11 +2985,12 @@ def main() -> int:
     report["cli"] = cli_phase(torch, np, ops, dev, card)
     torch.cuda.empty_cache()
 
-    phase("f32 and fp16: LitDDPM() and LitDDIM() through simt.cu on the card (fault C.5)")
+    phase("f32 and fp16: LitDDPM() and LitDDIM() on the card (fault C.5): K1/K2 on simt.cu, "
+          "K3/K4 on the tensor cores")
     report["f32"] = f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
                               card)
     torch.cuda.empty_cache()
-    phase("f32 IDDPM: LitIDDPM() through simt.cu on the card")
+    phase("f32 IDDPM: LitIDDPM() on the card (K3/K4 as 3xTF32)")
     report["f32_iddpm"] = f32_iddpm_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res,
                                           dev, ops, card)
 
@@ -2903,7 +3020,7 @@ def main() -> int:
     report["flow_serve"] = continuous_serve(torch, np, blocks, dev, ops, card, "flow")
     torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = True
-    phase("f32 EDM: LitEDM() through simt.cu on the card")
+    phase("f32 EDM: LitEDM() on the card (K3/K4 as 3xTF32)")
     report["f32_edm"] = f32_edm_phase(torch, np, blocks, ddpm_models, init_weights, dev, ops,
                                       card)
 
@@ -2944,21 +3061,20 @@ def main() -> int:
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
     })
-    f32 = report["f32"]["f32"]
-    for kname, replaces in (("group_norm_silu", "dmme_tpu/ops/group_norm.py:72"),
-                            ("group_norm_silu_bwd", "dmme_tpu/ops/group_norm.py:110"),
-                            ("attention", "dmme_tpu/ops/attention.py:47"),
-                            ("resblock", "dmme_tpu/ops/resblock.py:88")):
-        v = f32["per_path"][kname]
-        table.append({
-            "name": f"{kname}_simt", "route": "cuda", "source": "dmme_tpu_torch/ops/csrc/simt.cu",
-            "replaces": replaces,
-            "launches": f32["train"]["simt"][kname] + f32["ddim_step"]["simt"][kname],
-            "max_abs_err": max(r["max_abs_err"] for r in f32["rows"] + f32["rows_ddim"]
-                               if r["kernel"] == kname),
-            "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
-            "bound_by": v["bound_by"], "library_ms": v["library_ms"],
-        })
+    # the default harness's dtypes: K1 and K2 of simt.cu, K3 and K4 on the
+    # tensor cores, launches in the phase's training step and DDIM step
+    for dname in ("f32", "fp16"):
+        rec = report["f32"][dname]
+        for kname in ("group_norm_silu", "group_norm_silu_bwd", "attention", "resblock"):
+            route_ = "simt" if kname.startswith("group_norm") else dname
+            row = _table_row(f"{kname}_{dname}", kname, rec["per_path"][kname],
+                             rec["train"]["wide"][route_][kname]
+                             + rec["ddim_step"]["wide"][route_][kname])
+            if route_ == "simt":
+                row["source"] = "dmme_tpu_torch/ops/csrc/simt.cu"
+            row["max_abs_err"] = max(r["max_abs_err"] for r in rec["rows"] + rec["rows_ddim"]
+                                     if r["kernel"] == kname)
+            table.append(row)
     # the IDDPM path: K1, K3, K4 per n = 8 forward (launches in the four
     # default requests), K2 per training step (launches in the 20 fit steps)
     ik = report["iddpm_kernels"]
@@ -2997,9 +3113,10 @@ def main() -> int:
     print("(K1, K3, K4: launches in the four serve requests; ms, plain_ms, bound_ms and "
           "library_ms per UNet forward at batch 8, summed over the serving path's call sites. "
           f"K2: launches in the {FIT_STEPS} logged fit steps; times per training step at "
-          f"batch {TRAIN_BATCH}, summed over its 45 call sites. *_simt: the f32 kernels of "
-          f"simt.cu; launches in the f32 phase's training step and DDIM step; times per f32 "
-          f"training step at batch {TRAIN_BATCH} (K1, K2, K3) and per f32 UNet forward at "
+          f"batch {TRAIN_BATCH}, summed over its 45 call sites. *_f32, *_fp16: the default "
+          f"harness in that dtype (K1 and K2 of simt.cu, K3 and K4 on the tensor cores, f32 "
+          f"as 3xTF32); launches in the f32 phase's training step and DDIM step; times per "
+          f"training step at batch {TRAIN_BATCH} (K1, K2, K3) and per UNet forward at "
           f"n = {BATCH} (K4), summed over their call sites. *_iddpm: the IDDPM UNet of "
           f"configs/iddpm/cifar10.yaml; K1, K3, K4 launches in the four default requests "
           f"and times per n = {BATCH} forward, K2 launches in the {FIT_STEPS} IDDPM fit steps "

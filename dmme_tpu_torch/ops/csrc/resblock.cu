@@ -1,4 +1,4 @@
-// Fused ResBlock forward for Hopper (sm_90a), bf16 activations.
+// Fused ResBlock forward for Hopper (sm_90a): bf16, fp16 and f32 activations.
 //
 // Replaces the TPU kernel dmme_tpu/ops/resblock.py:_resblock_kernel (reached
 // through resblock_forward), which keeps a whole batch block resident in
@@ -9,13 +9,13 @@
 // memory a block can hold, so that residency does not map. The block runs
 // instead as four launches on one stream:
 //   1. gn_silu  : per (sample, group), the group held in shared memory: its
-//                 f32 statistics, then h0 = bf16(silu(x*a + d)) written once
-//                 (NHWC). The TPU kernel rounds h0 to the compute dtype
-//                 before the conv, as here.
-//   2. conv     : conv1 as an implicit GEMM over bf16 h0, M = N*H*W pixels,
+//                 f32 statistics, then h0 = E(silu(x*a + d)) written once
+//                 (NHWC; E the activations' type). The TPU kernel rounds h0
+//                 to the compute dtype before the conv, as here.
+//   2. conv     : conv1 as an implicit GEMM over h0, M = N*H*W pixels,
 //                 K = 9*C_in, N = C_out; + b1 in the epilogue; h1 in f32.
 //   3. gn_silu  : GN2 of h1 + pre2 (the pre-bias folded into the channel
-//                 sums), h2 = bf16(silu(.)) written once. Where conv1 is
+//                 sums), h2 = E(silu(.)) written once. Where conv1 is
 //                 split over K, this pass sums its f32 slices (in slice
 //                 order, then + b1) as it reads them: no separate sum.
 //   4. conv     : conv2 over h2, + b2 and the skip in the epilogue: the
@@ -27,14 +27,14 @@
 // The conv kernel (conv_wgmma_kernel) is warp-specialised. One producer
 // thread keeps a ring of STAGES shared-memory stages filled by TMA under
 // mbarriers; per 64-deep K step a stage holds
-//   A: BM pixels x 64 channels of one tap, a 4-D box (64, w, h, n) of the
+//   A: BM pixels x 64 channels (16-bit; 32 in f32) of one tap, a 4-D box of the
 //      NHWC operand at coordinates shifted by the tap. TMA's zero fill
 //      outside the image is exactly the TPU kernel's zero padding after the
 //      SiLU;
-//   B: 128 output channels x the same 64 K of the packed weights,
+//   B: 128 output channels x the same K of the packed weights,
 //      (C_out, 9*C_in [+ C_in]) K-major.
 // Both land in the 128-byte swizzle, which is the layout wgmma reads. One or
-// two consumer warpgroups (BM = 64 or 128) run wgmma m64n128k16 with f32
+// two consumer warpgroups (BM = 64 or 128) run wgmma m64n128 with f32
 // accumulators in registers and keep one K step in flight while the next
 // waits. The epilogue stays in registers: bias, the skip, two-element
 // stores. Where the output tiles are fewer than the SMs, the K steps are
@@ -45,7 +45,7 @@
 // are planned in ops/resblock.py:conv_plan.
 //
 // Shapes: any C_in and C_out that are multiples of 8, any H x W. A channel
-// count that is not a multiple of 64 ends in a partial 64-channel K step:
+// count that is not a multiple of the K step ends in a partial K step:
 // the activation box reads zeros past C, so the weights in those K columns
 // (the next tap's, or zeros past K) multiply zeros. An output-channel tile
 // past C_out reads zero weights and is not stored. An M tile is one TMA box
@@ -53,9 +53,27 @@
 // images) where the shape allows, else a spatial tile that may reach past
 // the image, whose pixels outside it read zeros and are not stored.
 //
+// fp16 runs the same code (the element type E a template parameter): the
+// GN passes write fp16, the TMA maps say FLOAT16 and the wgmmas .f16.
+//
+// f32 runs on the tensor cores as 3xTF32: x = hi + lo with hi = tf32(x) and
+// lo = tf32(x - hi) (hopper::tf32_split), each product hi*hi + hi*lo +
+// lo*hi accumulated in f32, about 2^-21 relative error a product where one
+// tf32 product keeps 2^-11. The split costs nothing in the main loop: the
+// GN passes write h0 and h2 as a hi plane and a lo plane of f32 (tf32 bits),
+// the GN1 pass also writes x's planes where the 1x1 projection reads x, and
+// the wrapper packs the weights as W_hi and W_lo once per weight state.
+// wgmma m64n128k8 .tf32 takes both operands K-major from shared memory, as
+// the NHWC activations and the packed weights already are; a K step is 32
+// channels (128 bytes a row, the same swizzle and descriptor steps as 64
+// 16-bit channels), and a stage holds the hi and lo planes of A and of B:
+// 48 KB at 64 pixels (4 stages), 64 KB at 128 (3 stages). Each K step
+// issues three wgmmas per 8 channels, the small products first.
+//
 // Bound: operations. At the UNet's shapes a ResBlock does 2*M*C_out*
 // (9*C_in + 9*C_out [+ C_in]) operations on a few MB, well above the ~295
-// operations per byte of the H100's bf16 tensor cores.
+// operations per byte of the H100's 16-bit tensor cores; in f32, three
+// tf32 products each at 495 TFLOP/s.
 
 #include <math.h>
 
@@ -67,36 +85,50 @@ using namespace hopper;
 namespace {
 
 constexpr int GN_THREADS = 256;
-constexpr int BN = 128, BK = 64, STAGES = 4;
+constexpr int BN = 128;
+
+template <typename E>
+constexpr bool is_f32 = std::is_same_v<E, float>;
+// channels a K step: one 128-byte swizzle row of E
+template <typename E>
+constexpr int BK = 128 / (int)sizeof(E);
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+  *reinterpret_cast<uint32_t*>(p) = pack2<bf16>(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack2<__half>(a, b);
 }
 
 // Per (sample, group): mean and inverse std of u = src + bias, as
 // E[u^2] - E[u]^2 from per-channel sums with the bias folded in; then
-// dst = bf16(silu(src*a + d)) with a = inv*gamma, d = beta + (bias - mean)*
-// inv*gamma, so that GN(u)*gamma + beta = src*a + d. HOLD: the group stays
-// in shared memory between the two steps (HW x C/G floats); else (a group
-// larger than shared memory) the second step reads src again. The sums go
-// thread by thread (channel tid % cg, pixels tid / cg + k * step, the
-// first step * cg threads taking part), then per channel in thread order,
-// then over the group's channels in order. Requires C/G <= GN_THREADS.
-// bias, gamma and beta are (N, C) rows apart by their own stride: C for a
-// per-sample vector, 0 for one shared by the batch. SLICES: src holds
-// `slices` f32 split-K slices `slice` floats apart, summed in order, then
-// + src_bias[c].
-template <typename T, bool SLICES, bool HOLD>
+// dst = E(silu(src*a + d)) with a = inv*gamma, d = beta + (bias - mean)*
+// inv*gamma, so that GN(u)*gamma + beta = src*a + d. For E = f32, dst and
+// dst_lo take the tf32 halves of silu(.), and where x_hi is given the
+// halves of src itself go to x_hi and x_lo (GN1: the projection's x).
+// HOLD: the group stays in shared memory between the two steps (HW x C/G
+// floats); else (a group larger than shared memory) the second step reads
+// src again. The sums go thread by thread (channel tid % cg, pixels tid / cg
+// + k * step, the first step * cg threads taking part), then per channel in
+// thread order, then over the group's channels in order. Requires C/G <=
+// GN_THREADS. bias, gamma and beta are (N, C) rows apart by their own
+// stride: C for a per-sample vector, 0 for one shared by the batch. SLICES:
+// src holds `slices` f32 split-K slices `slice` floats apart, summed in
+// order, then + src_bias[c].
+template <typename T, typename E, bool SLICES, bool HOLD>
 __global__ void __launch_bounds__(GN_THREADS)
 gn_silu_kernel(const T* __restrict__ src, int slices, size_t slice,
                const float* __restrict__ src_bias, const float* __restrict__ bias, int s_bias,
                const float* __restrict__ gamma, int s_gamma, const float* __restrict__ beta,
-               int s_beta, bf16* __restrict__ dst, int HW, int C, int G, float eps) {
+               int s_beta, E* __restrict__ dst, float* __restrict__ dst_lo,
+               float* __restrict__ x_hi, float* __restrict__ x_lo, int HW, int C, int G,
+               float eps) {
   extern __shared__ float held[];
   __shared__ float sh_s[GN_THREADS], sh_q[GN_THREADS];
   __shared__ float ch_u[GN_THREADS], ch_uq[GN_THREADS];
@@ -161,7 +193,23 @@ gn_silu_kernel(const T* __restrict__ src, int slices, size_t slice,
     else
       v = value(p);
     const float y = v * a + d;
-    dst[base + (size_t)p * C] = __float2bfloat16(y / (1.f + expf(-y)));
+    const float z = y / (1.f + expf(-y));
+    const size_t e = base + (size_t)p * C;
+    if constexpr (is_f32<E>) {
+      float hi, lo;
+      tf32_split(z, hi, lo);
+      dst[e] = hi;
+      dst_lo[e] = lo;
+      if (x_hi) {
+        tf32_split(v, hi, lo);
+        x_hi[e] = hi;
+        x_lo[e] = lo;
+      }
+    } else if constexpr (std::is_same_v<E, __half>) {
+      dst[e] = __float2half_rn(z);
+    } else {
+      dst[e] = __float2bfloat16(z);
+    }
   }
 }
 
@@ -169,37 +217,47 @@ struct ConvArgs {
   int N, H, W, M, Cout;
   int bn, bh, bw;  // the M tile's TMA box: images, rows, columns
   int C1;          // channels of the conv input
-  int csteps;      // 64-channel chunks per tap of the conv input (the last may be partial)
+  int csteps;      // K-step chunks of channels per tap of the conv input (the last may be partial)
   int conv_steps;  // 9 * csteps
-  int total;       // K steps: conv_steps, plus C0/64 of the 1x1 projection
+  int total;       // K steps: conv_steps, plus ceil(C0 / BK) of the 1x1 projection
   int per;         // K steps per split slice
   const float* bias;
-  const bf16* x;  // the block input (identity skip)
-  int C0;         // its channels (the projection's K: ceil(C0/64) steps)
+  const void* x;  // the block input in E (identity skip)
+  int C0;         // its channels (the projection's K)
   void* out;
   float* partial;  // splits x M x Cout f32 when split
 };
 
-template <int NWG>
+// A stage: A (BM pixels x one 128-byte row) and B (BN output channels x one
+// row), each a hi and a lo plane in f32 (tf32 halves)
+template <int NWG, typename E>
 struct ConvSmem {
-  static constexpr int A = 64 * NWG * BK * 2;  // BM x 64 bf16
-  static constexpr int B = BN * BK * 2;        // 128 x 64 bf16
+  static constexpr int PLANES = is_f32<E> ? 2 : 1;
+  static constexpr int A_PLANE = 64 * NWG * 128, B_PLANE = BN * 128;
+  static constexpr int A = PLANES * A_PLANE, B = PLANES * B_PLANE;
   static constexpr int STAGE = A + B;
+  static constexpr int STAGES = PLANES == 2 && NWG == 2 ? 3 : 4;
   // alignment slack, the ring, full and empty barriers
   static constexpr int BYTES = 1024 + STAGES * STAGE + 2 * STAGES * 8;
 };
 
 // One (BM x 128) output tile over the K steps [z*per, (z+1)*per) of slice
 // z = blockIdx.z. Warpgroups 0..NWG-1 consume (64 rows each), warpgroup NWG
-// produces. tm_h: the conv input (N, H, W, C1) bf16, box (64, bw, bh, bn);
+// produces. tm_h: the conv input (N, H, W, C1) in E, box (BK, bw, bh, bn);
 // tm_x: the block input, same box (projection steps); tm_w: the packed
-// weights (Cout, K) bf16, box (64, 128). out = acc + bias [+ x] (RESID).
-template <int NWG, typename TOut, bool RESID>
+// weights (Cout, K) in E, box (BK, 128). For E = f32 these are the hi
+// planes, and tm_hl, tm_xl, tm_wl the lo planes (unused otherwise).
+// out = acc + bias [+ x] (RESID).
+template <int NWG, typename E, typename TOut, bool RESID>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
                   const __grid_constant__ CUtensorMap tm_x,
-                  const __grid_constant__ CUtensorMap tm_w, const ConvArgs args) {
-  using S = ConvSmem<NWG>;
+                  const __grid_constant__ CUtensorMap tm_w,
+                  const __grid_constant__ CUtensorMap tm_hl,
+                  const __grid_constant__ CUtensorMap tm_xl,
+                  const __grid_constant__ CUtensorMap tm_wl, const ConvArgs args) {
+  using S = ConvSmem<NWG, E>;
+  constexpr int STAGES = S::STAGES;
   extern __shared__ unsigned char smem_raw[];
   // TMA's 128-byte swizzle wants 1024-byte aligned tiles
   unsigned char* smem =
@@ -237,17 +295,27 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
         mbar_wait(&empty[stage], phase ^ 1);
         unsigned char* a = smem + stage * S::STAGE;
         mbar_arrive_expect_tx(&full[stage], S::STAGE);
-        int k;  // the step's first column of the packed weights
+        // the step's activation map, coordinates and first column of the packed weights
+        const CUtensorMap *act = &tm_h, *act_lo = &tm_hl;
+        int c, xx = x0, yy = y0, k;
         if (s < args.conv_steps) {
-          const int tap = s / args.csteps, c = (s - tap * args.csteps) * BK;
-          tma_load_4d(a, &tm_h, &full[stage], c, x0 + tap % 3 - 1, y0 + tap / 3 - 1, img0);
+          const int tap = s / args.csteps;
+          c = (s - tap * args.csteps) * BK<E>;
+          xx += tap % 3 - 1;
+          yy += tap / 3 - 1;
           k = tap * args.C1 + c;
         } else {
-          const int c = (s - args.conv_steps) * BK;
-          tma_load_4d(a, &tm_x, &full[stage], c, x0, y0, img0);
+          act = &tm_x;
+          act_lo = &tm_xl;
+          c = (s - args.conv_steps) * BK<E>;
           k = 9 * args.C1 + c;
         }
+        tma_load_4d(a, act, &full[stage], c, xx, yy, img0);
         tma_load_2d(a + S::A, &tm_w, &full[stage], k, n0);
+        if constexpr (S::PLANES == 2) {
+          tma_load_4d(a + S::A_PLANE, act_lo, &full[stage], c, xx, yy, img0);
+          tma_load_2d(a + S::A + S::B_PLANE, &tm_wl, &full[stage], k, n0);
+        }
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
@@ -268,10 +336,21 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
   for (int s = s_begin; s < s_end; ++s) {
     mbar_wait(&full[stage], phase);
     const unsigned char* tile = smem + stage * S::STAGE;
-    const uint64_t da = sw128_desc(tile + wg * 64 * BK * 2), db = sw128_desc(tile + S::A);
+    const uint64_t da = sw128_desc(tile + wg * 64 * 128), db = sw128_desc(tile + S::A);
     wgmma_fence();
+    if constexpr (S::PLANES == 2) {  // 3xTF32, 8 channels (32 bytes) a wgmma
+      const uint64_t dal = sw128_desc(tile + S::A_PLANE + wg * 64 * 128);
+      const uint64_t dbl = sw128_desc(tile + S::A + S::B_PLANE);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) wgmma_ss(acc, da + 2 * kk, db + 2 * kk);
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss_tf32(acc, dal + 2 * kk, db + 2 * kk);
+        wgmma_ss_tf32(acc, da + 2 * kk, dbl + 2 * kk);
+        wgmma_ss_tf32(acc, da + 2 * kk, db + 2 * kk);
+      }
+    } else {  // 16 channels (32 bytes) a wgmma
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss<E>(acc, da + 2 * kk, db + 2 * kk);
+    }
     wgmma_commit();
     wgmma_wait<1>();  // the previous step's products are done: release its stage
     if (prev >= 0) {
@@ -292,13 +371,14 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
   const int row = wg * 64 + warp * 16 + (lane >> 2);
   const int col = n0 + 2 * (lane & 3);
   TOut* out = static_cast<TOut*>(args.out);
+  const E* x = static_cast<const E*>(args.x);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row + 8 * h;
     const int img = img0 + r / (args.bh * args.bw), y = y0 + r / args.bw % args.bh,
-              x = x0 + r % args.bw;
-    if (img >= args.N || y >= args.H || x >= args.W) continue;
-    const int m = (img * args.H + y) * args.W + x;
+              xc = x0 + r % args.bw;
+    if (img >= args.N || y >= args.H || xc >= args.W) continue;
+    const int m = (img * args.H + y) * args.W + xc;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int co = col + 8 * j;
@@ -309,10 +389,9 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
       } else {
         float r0 = v0 + args.bias[co], r1 = v1 + args.bias[co + 1];
         if (RESID) {
-          const __nv_bfloat162 xv =
-              *reinterpret_cast<const __nv_bfloat162*>(args.x + (size_t)m * args.C0 + co);
-          r0 += __low2float(xv);
-          r1 += __high2float(xv);
+          const float2 xv = load2(x + (size_t)m * args.C0 + co);
+          r0 += xv.x;
+          r1 += xv.y;
         }
         store2(out + (size_t)m * args.Cout + co, r0, r1);
       }
@@ -322,11 +401,11 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
 
 // Sums conv2's split-K slices in slice order, then the same epilogue. Four
 // consecutive outputs a thread.
-template <bool RESID>
+template <typename E, bool RESID>
 __global__ void __launch_bounds__(256)
 splitk_reduce_kernel(const float* __restrict__ partial, int splits,
-                     const float* __restrict__ bias, const bf16* __restrict__ x, int C0,
-                     bf16* __restrict__ out, int M, int Cout) {
+                     const float* __restrict__ bias, const E* __restrict__ x, int C0,
+                     E* __restrict__ out, int M, int Cout) {
   const size_t total = (size_t)M * Cout;
   const size_t e = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
   if (e >= total) return;
@@ -344,7 +423,7 @@ splitk_reduce_kernel(const float* __restrict__ partial, int splits,
                 acc.w + bias[co + 3]};
   if (RESID) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) r[i] += __bfloat162float(x[m * C0 + co + i]);
+    for (int i = 0; i < 4; ++i) r[i] += to_f32(x[m * C0 + co + i]);
   }
   store2(out + e, r[0], r[1]);
   store2(out + e + 2, r[2], r[3]);
@@ -352,30 +431,33 @@ splitk_reduce_kernel(const float* __restrict__ partial, int splits,
 
 // ------------------------------------------------------------------ host
 
-// NHWC bf16 activations with C channels, read in boxes of 64 channels x bw
-// x bh x bn pixels; taps outside the image read zeros
+// NHWC activations in E with C channels, read in boxes of BK<E> channels x
+// bw x bh x bn pixels; taps outside the image read zeros
+template <typename E>
 bool act_map(CUtensorMap* map, const void* ptr, int N, int H, int W, int C, int bw, int bh,
              int bn) {
+  constexpr cuuint64_t B = sizeof(E);
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)BK, (cuuint32_t)bw, (cuuint32_t)bh, (cuuint32_t)bn};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * B, (cuuint64_t)W * C * B,
+                                 (cuuint64_t)H * W * C * B};
+  const cuuint32_t box[4] = {(cuuint32_t)BK<E>, (cuuint32_t)bw, (cuuint32_t)bh, (cuuint32_t)bn};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return encode_tiled()(map, tma_type<E>(), 4, const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// packed weights (Cout, K) bf16, read in boxes of 64 K x 128 output channels
+// packed weights (Cout, K) in E, read in boxes of BK<E> K x 128 output channels
+template <typename E>
 bool weight_map(CUtensorMap* map, const void* ptr, int Cout, int K) {
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)Cout};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)BN};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(E)};
+  const cuuint32_t box[2] = {(cuuint32_t)BK<E>, (cuuint32_t)BN};
   const cuuint32_t unit[2] = {1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode_tiled()(map, tma_type<E>(), 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -384,72 +466,146 @@ bool weight_map(CUtensorMap* map, const void* ptr, int Cout, int K) {
 constexpr size_t GN_HOLD_MAX = 200 * 1024;
 
 // src holds `slices` slices (slice_bias added after their sum) when SLICES
-template <typename T, bool SLICES>
+template <typename T, typename E, bool SLICES>
 cudaError_t gn_silu(cudaStream_t s, const T* src, int slices, const float* slice_bias,
                     const float* bias, int s_bias, const float* gamma, int s_gamma,
-                    const float* beta, int s_beta, bf16* dst, int N, int HW, int C, int G,
-                    float eps) {
+                    const float* beta, int s_beta, E* dst, float* dst_lo, float* x_hi,
+                    float* x_lo, int N, int HW, int C, int G, float eps) {
   const dim3 grid(G, N);
   const size_t slice = (size_t)N * HW * C;
   const size_t held = (size_t)HW * (C / G) * sizeof(float);
   if (held > GN_HOLD_MAX) {
-    gn_silu_kernel<T, SLICES, false><<<grid, GN_THREADS, 0, s>>>(
-        src, slices, slice, slice_bias, bias, s_bias, gamma, s_gamma, beta, s_beta, dst, HW, C,
-        G, eps);
+    gn_silu_kernel<T, E, SLICES, false><<<grid, GN_THREADS, 0, s>>>(
+        src, slices, slice, slice_bias, bias, s_bias, gamma, s_gamma, beta, s_beta, dst, dst_lo,
+        x_hi, x_lo, HW, C, G, eps);
     return cudaSuccess;
   }
   static int limits[64];
-  const cudaError_t err = allow_smem(gn_silu_kernel<T, SLICES, true>, (int)held, limits);
+  const cudaError_t err = allow_smem(gn_silu_kernel<T, E, SLICES, true>, (int)held, limits);
   if (err != cudaSuccess) return err;
-  gn_silu_kernel<T, SLICES, true><<<grid, GN_THREADS, held, s>>>(
-      src, slices, slice, slice_bias, bias, s_bias, gamma, s_gamma, beta, s_beta, dst, HW, C,
-      G, eps);
+  gn_silu_kernel<T, E, SLICES, true><<<grid, GN_THREADS, held, s>>>(
+      src, slices, slice, slice_bias, bias, s_bias, gamma, s_gamma, beta, s_beta, dst, dst_lo,
+      x_hi, x_lo, HW, C, G, eps);
   return cudaSuccess;
 }
 
+// the tensor maps of one conv: input, block input, weights; their lo planes
+struct ConvMaps {
+  CUtensorMap h, x, w, hl, xl, wl;
+};
+
 // One conv launch over `splits` K slices
-template <int NWG, typename TOut, bool RESID>
-cudaError_t conv(cudaStream_t s, const CUtensorMap& th, const CUtensorMap& tx,
-                 const CUtensorMap& tw, const ConvArgs& a, int splits) {
+template <int NWG, typename E, typename TOut, bool RESID>
+cudaError_t conv(cudaStream_t s, const ConvMaps& t, const ConvArgs& a, int splits) {
+  using S = ConvSmem<NWG, E>;
   static int limits[64];
-  const cudaError_t err =
-      allow_smem(conv_wgmma_kernel<NWG, TOut, RESID>, ConvSmem<NWG>::BYTES, limits);
+  const cudaError_t err = allow_smem(conv_wgmma_kernel<NWG, E, TOut, RESID>, S::BYTES, limits);
   if (err != cudaSuccess) return err;
   const int m_tiles = (a.N + a.bn - 1) / a.bn * ((a.H + a.bh - 1) / a.bh) *
                       ((a.W + a.bw - 1) / a.bw);
   const dim3 grid(m_tiles, (a.Cout + BN - 1) / BN, splits);
-  conv_wgmma_kernel<NWG, TOut, RESID><<<grid, 128 * (NWG + 1), ConvSmem<NWG>::BYTES, s>>>(
-      th, tx, tw, a);
+  conv_wgmma_kernel<NWG, E, TOut, RESID><<<grid, 128 * (NWG + 1), S::BYTES, s>>>(
+      t.h, t.x, t.w, t.hl, t.xl, t.wl, a);
   return cudaSuccess;
 }
 
 // conv2: the conv, then, where split, the launch that sums its slices and
 // applies the epilogue
-template <bool RESID>
-cudaError_t conv2(int bm, cudaStream_t s, const CUtensorMap& th, const CUtensorMap& tx,
-                  const CUtensorMap& tw, const ConvArgs& a, int splits) {
-  const cudaError_t err = bm == 128 ? conv<2, bf16, RESID>(s, th, tx, tw, a, splits)
-                                    : conv<1, bf16, RESID>(s, th, tx, tw, a, splits);
+template <typename E, bool RESID>
+cudaError_t conv2(int bm, cudaStream_t s, const ConvMaps& t, const ConvArgs& a, int splits) {
+  const cudaError_t err = bm == 128 ? conv<2, E, E, RESID>(s, t, a, splits)
+                                    : conv<1, E, E, RESID>(s, t, a, splits);
   if (err != cudaSuccess || splits == 1) return err;
-  splitk_reduce_kernel<RESID><<<(a.M * a.Cout / 4 + 255) / 256, 256, 0, s>>>(
-      a.partial, splits, a.bias, a.x, a.C0, static_cast<bf16*>(a.out), a.M, a.Cout);
+  splitk_reduce_kernel<E, RESID><<<(a.M * a.Cout / 4 + 255) / 256, 256, 0, s>>>(
+      a.partial, splits, a.bias, static_cast<const E*>(a.x), a.C0, static_cast<E*>(a.out), a.M,
+      a.Cout);
   return cudaSuccess;
+}
+
+// The four or five launches of one ResBlock in E. For E = f32, h and h_lo
+// are the hi and lo planes of h0 and h2, x_hi and x_lo those of x (null
+// without the projection), w1_lo and w2_lo the weights' lo planes; all
+// null for 16-bit E.
+template <typename E>
+int resblock_fwd(const void* x, const float* g1, const float* b1v, const float* pre2,
+                 const float* g2, const float* b2v, const void* w1, const void* w1_lo,
+                 const float* b1, const void* w2, const void* w2_lo, const float* b2,
+                 int has_proj, void* h, float* h_lo, float* x_hi, float* x_lo, float* h1,
+                 float* partial, void* out, int N, int H, int W, int Cin, int Cout, int G, int bm,
+                 int box_n, int box_h, int box_w, int splits1, int per1, int splits2, int per2,
+                 int sg1, int sb1, int sp2, int sg2, int sb2, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!encode_tiled()) return (int)cudaErrorNotSupported;
+  if (is_f32<E> && !(h_lo && w1_lo && w2_lo && (!has_proj || (x_hi && x_lo))))
+    return (int)cudaErrorInvalidValue;
+  const int HW = H * W, M = N * HW;
+  const E* xe = static_cast<const E*>(x);
+  E* he = static_cast<E*>(h);
+  // the projection reads x's planes in f32, x itself in 16 bits (without
+  // the projection the map is not read: x stands in)
+  const void* xa = is_f32<E> && has_proj ? static_cast<const void*>(x_hi) : x;
+  ConvMaps t1, t2;
+  const int k2 = 9 * Cout + (has_proj ? Cin : 0);
+  bool ok = act_map<E>(&t1.h, h, N, H, W, Cin, box_w, box_h, box_n) &&
+            act_map<E>(&t2.h, h, N, H, W, Cout, box_w, box_h, box_n) &&
+            act_map<E>(&t2.x, xa, N, H, W, Cin, box_w, box_h, box_n) &&
+            weight_map<E>(&t1.w, w1, Cout, 9 * Cin) && weight_map<E>(&t2.w, w2, Cout, k2);
+  if constexpr (is_f32<E>) {
+    ok = ok && act_map<E>(&t1.hl, h_lo, N, H, W, Cin, box_w, box_h, box_n) &&
+         act_map<E>(&t2.hl, h_lo, N, H, W, Cout, box_w, box_h, box_n) &&
+         act_map<E>(&t2.xl, has_proj ? x_lo : h_lo, N, H, W, Cin, box_w, box_h, box_n) &&
+         weight_map<E>(&t1.wl, w1_lo, Cout, 9 * Cin) && weight_map<E>(&t2.wl, w2_lo, Cout, k2);
+  } else {
+    t1.hl = t1.h;
+    t1.wl = t1.w;
+    t2.hl = t2.h;
+    t2.xl = t2.x;
+    t2.wl = t2.w;
+  }
+  t1.x = t1.h;
+  t1.xl = t1.hl;
+  if (!ok) return (int)cudaErrorInvalidValue;
+
+  cudaError_t err = gn_silu<E, E, false>(s, xe, 1, nullptr, nullptr, 0, g1, sg1, b1v, sb1, he,
+                                         h_lo, has_proj ? x_hi : nullptr, x_lo, N, HW, Cin, G,
+                                         eps);
+  if (err != cudaSuccess) return (int)err;
+  const int cs1 = (Cin + BK<E> - 1) / BK<E>, cs2 = (Cout + BK<E> - 1) / BK<E>;
+  ConvArgs a1{N, H, W, M, Cout, box_n, box_h, box_w, Cin, cs1, 9 * cs1, 9 * cs1, per1, b1,
+              nullptr, Cin, h1, partial};
+  err = bm == 128 ? conv<2, E, float, false>(s, t1, a1, splits1)
+                  : conv<1, E, float, false>(s, t1, a1, splits1);
+  if (err != cudaSuccess) return (int)err;
+  err = splits1 > 1
+            ? gn_silu<float, E, true>(s, partial, splits1, b1, pre2, sp2, g2, sg2, b2v, sb2, he,
+                                      h_lo, nullptr, nullptr, N, HW, Cout, G, eps)
+            : gn_silu<float, E, false>(s, h1, 1, nullptr, pre2, sp2, g2, sg2, b2v, sb2, he, h_lo,
+                                       nullptr, nullptr, N, HW, Cout, G, eps);
+  if (err != cudaSuccess) return (int)err;
+  ConvArgs a2{N, H, W, M, Cout, box_n, box_h, box_w, Cout, cs2, 9 * cs2,
+              9 * cs2 + (has_proj ? cs1 : 0), per2, b2, x, Cin, out, partial};
+  err = has_proj ? conv2<E, false>(bm, s, t2, a2, splits2)
+                 : conv2<E, true>(bm, s, t2, a2, splits2);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x: (N, H, W, Cin) bf16; g1, b1v: (N, Cin) f32; pre2, g2, b2v: (N, Cout) f32,
-// rows sg1, sb1, sp2, sg2, sb2 floats apart (0: one row for the whole batch);
-// w1: (Cout, 9*Cin) bf16, K ordered (dy, dx, c_in); b1: (Cout) f32;
-// w2: (Cout, 9*Cout [+ Cin]) bf16, the projection's (Cout, Cin) appended
-// when has_proj; b2: (Cout) f32, the projection's bias already added.
-// The plan (ops/resblock.py:conv_plan): bm = 64 or 128 output pixels a
-// tile, the pixel box (box_n, box_h, box_w) of one tile (bm pixels), and per
-// conv its split-K slices and K steps per slice.
-// Scratch: h (N*H*W*max(Cin, Cout)) bf16; h1 (N*H*W*Cout) f32, null when
-// conv1 is split; partial (max(splits)*N*H*W*Cout) f32, null when both are 1.
-// out: (N, H, W, Cout) bf16. Four launches, plus one if conv2 is split.
-// Cin and Cout are multiples of 8, C/G <= 256. Returns a cudaError_t.
+// x: (N, H, W, Cin) in the activations' dtype: bf16 (dmme_resblock_fwd) or
+// fp16 (dmme_resblock_fwd_f16); g1, b1v: (N, Cin) f32; pre2, g2, b2v:
+// (N, Cout) f32, rows sg1, sb1, sp2, sg2, sb2 floats apart (0: one row for
+// the whole batch); w1: (Cout, 9*Cin) in x's dtype, K ordered (dy, dx,
+// c_in); b1: (Cout) f32; w2: (Cout, 9*Cout [+ Cin]), the projection's
+// (Cout, Cin) appended when has_proj; b2: (Cout) f32, the projection's bias
+// already added. The plan (ops/resblock.py:conv_plan): bm = 64 or 128
+// output pixels a tile, the pixel box (box_n, box_h, box_w) of one tile (bm
+// pixels), and per conv its split-K slices and K steps per slice.
+// Scratch: h (N*H*W*max(Cin, Cout)) in x's dtype; h1 (N*H*W*Cout) f32, null
+// when conv1 is split; partial (max(splits)*N*H*W*Cout) f32, null when both
+// are 1. out: (N, H, W, Cout) in x's dtype. Four launches, plus one if conv2
+// is split. Cin and Cout are multiples of 8, C/G <= 256. Returns a
+// cudaError_t.
 extern "C" int dmme_resblock_fwd(const void* x, const float* g1, const float* b1v,
                                  const float* pre2, const float* g2, const float* b2v,
                                  const void* w1, const float* b1, const void* w2,
@@ -458,37 +614,44 @@ extern "C" int dmme_resblock_fwd(const void* x, const float* g1, const float* b1
                                  int Cout, int G, int bm, int box_n, int box_h, int box_w,
                                  int splits1, int per1, int splits2, int per2, int sg1, int sb1,
                                  int sp2, int sg2, int sb2, float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!encode_tiled()) return (int)cudaErrorNotSupported;
-  const int HW = H * W, M = N * HW;
-  const bf16* xb = static_cast<const bf16*>(x);
-  bf16* hb = static_cast<bf16*>(h);
-  CUtensorMap tm_h0, tm_h2, tm_x, tm_w1, tm_w2;
-  const int k2 = 9 * Cout + (has_proj ? Cin : 0);
-  if (!act_map(&tm_h0, hb, N, H, W, Cin, box_w, box_h, box_n) ||
-      !act_map(&tm_h2, hb, N, H, W, Cout, box_w, box_h, box_n) ||
-      !act_map(&tm_x, xb, N, H, W, Cin, box_w, box_h, box_n) ||
-      !weight_map(&tm_w1, w1, Cout, 9 * Cin) || !weight_map(&tm_w2, w2, Cout, k2))
-    return (int)cudaErrorInvalidValue;
+  return resblock_fwd<bf16>(x, g1, b1v, pre2, g2, b2v, w1, nullptr, b1, w2, nullptr, b2,
+                            has_proj, h, nullptr, nullptr, nullptr, h1, partial, out, N, H, W,
+                            Cin, Cout, G, bm, box_n, box_h, box_w, splits1, per1, splits2, per2,
+                            sg1, sb1, sp2, sg2, sb2, eps, stream);
+}
 
-  cudaError_t err = gn_silu<bf16, false>(s, xb, 1, nullptr, nullptr, 0, g1, sg1, b1v, sb1, hb,
-                                         N, HW, Cin, G, eps);
-  if (err != cudaSuccess) return (int)err;
-  const int cs1 = (Cin + BK - 1) / BK, cs2 = (Cout + BK - 1) / BK;
-  ConvArgs a1{N, H, W, M, Cout, box_n, box_h, box_w, Cin, cs1, 9 * cs1, 9 * cs1, per1, b1,
-              nullptr, Cin, h1, partial};
-  err = bm == 128 ? conv<2, float, false>(s, tm_h0, tm_h0, tm_w1, a1, splits1)
-                  : conv<1, float, false>(s, tm_h0, tm_h0, tm_w1, a1, splits1);
-  if (err != cudaSuccess) return (int)err;
-  err = splits1 > 1 ? gn_silu<float, true>(s, partial, splits1, b1, pre2, sp2, g2, sg2, b2v, sb2,
-                                           hb, N, HW, Cout, G, eps)
-                    : gn_silu<float, false>(s, h1, 1, nullptr, pre2, sp2, g2, sg2, b2v, sb2, hb,
-                                            N, HW, Cout, G, eps);
-  if (err != cudaSuccess) return (int)err;
-  ConvArgs a2{N, H, W, M, Cout, box_n, box_h, box_w, Cout, cs2, 9 * cs2,
-              9 * cs2 + (has_proj ? cs1 : 0), per2, b2, xb, Cin, out, partial};
-  err = has_proj ? conv2<false>(bm, s, tm_h2, tm_x, tm_w2, a2, splits2)
-                 : conv2<true>(bm, s, tm_h2, tm_x, tm_w2, a2, splits2);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+extern "C" int dmme_resblock_fwd_f16(const void* x, const float* g1, const float* b1v,
+                                     const float* pre2, const float* g2, const float* b2v,
+                                     const void* w1, const float* b1, const void* w2,
+                                     const float* b2, int has_proj, void* h, float* h1,
+                                     float* partial, void* out, int N, int H, int W, int Cin,
+                                     int Cout, int G, int bm, int box_n, int box_h, int box_w,
+                                     int splits1, int per1, int splits2, int per2, int sg1,
+                                     int sb1, int sp2, int sg2, int sb2, float eps,
+                                     void* stream) {
+  return resblock_fwd<__half>(x, g1, b1v, pre2, g2, b2v, w1, nullptr, b1, w2, nullptr, b2,
+                              has_proj, h, nullptr, nullptr, nullptr, h1, partial, out, N, H, W,
+                              Cin, Cout, G, bm, box_n, box_h, box_w, splits1, per1, splits2,
+                              per2, sg1, sb1, sp2, sg2, sb2, eps, stream);
+}
+
+// f32: as above with x, h, out and the weights f32, and 3xTF32 operands: w1
+// and w2 the weights' tf32 hi planes and w1_lo, w2_lo their lo planes
+// (ops/resblock.py:tf32_split); h and h_lo (N*H*W*max(Cin, Cout) each) take
+// the hi and lo planes of h0 and h2; x_hi and x_lo (N*H*W*Cin each) those
+// of x where has_proj, else null.
+extern "C" int dmme_resblock_fwd_f32(const void* x, const float* g1, const float* b1v,
+                                     const float* pre2, const float* g2, const float* b2v,
+                                     const void* w1, const void* w1_lo, const float* b1,
+                                     const void* w2, const void* w2_lo, const float* b2,
+                                     int has_proj, void* h, float* h_lo, float* x_hi,
+                                     float* x_lo, float* h1, float* partial, void* out, int N,
+                                     int H, int W, int Cin, int Cout, int G, int bm, int box_n,
+                                     int box_h, int box_w, int splits1, int per1, int splits2,
+                                     int per2, int sg1, int sb1, int sp2, int sg2, int sb2,
+                                     float eps, void* stream) {
+  return resblock_fwd<float>(x, g1, b1v, pre2, g2, b2v, w1, w1_lo, b1, w2, w2_lo, b2, has_proj,
+                             h, h_lo, x_hi, x_lo, h1, partial, out, N, H, W, Cin, Cout, G, bm,
+                             box_n, box_h, box_w, splits1, per1, splits2, per2, sg1, sb1, sp2,
+                             sg2, sb2, eps, stream);
 }

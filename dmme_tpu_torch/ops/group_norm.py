@@ -412,7 +412,7 @@ def group_norm_silu_bwd(x, dz, gamma, beta, pre_bias, mean, inv, num_groups: int
     statistics; the three vectors (N, C) f32. CPU tensors take
     :func:`gn_silu_bwd_plain`; bf16 CUDA tensors K2, f32 and fp16 ones its
     ``simt.cu`` version."""
-    where = route(x.device, x.dtype, "group_norm_silu backward")
+    where = route(x.device, x.dtype, "group_norm_silu")
     if where == "kernel":
         return _launch_bwd(x, dz, gamma, beta, pre_bias, mean, inv, num_groups)
     if where == "simt":

@@ -10,8 +10,9 @@ Replaces the TPU kernel ``dmme_tpu/ops/resblock.py:_resblock_kernel``
 The TPU kernel keeps a whole batch block in VMEM; a 32×32×128 bf16 sample
 alone exceeds an SM's shared memory, so here the block is four launches:
 GN1+SiLU (one pass per (sample, group) that holds the group on chip and
-writes h0 once, in bf16), conv1 as an implicit GEMM over h0, GN2+SiLU of
-h1 + pre2 (a separate pass, not atomics, so runs agree bit for bit), and
+writes h0 once, in the activations' dtype), conv1 as an implicit GEMM over
+h0, GN2+SiLU of h1 + pre2 (a separate pass, not atomics, so runs agree bit
+for bit), and
 conv2 with bias + skip (identity, or the 1×1 projection continuing the same
 accumulation) in the epilogue. The convs are warp-specialised: a producer
 thread fills a ring of shared-memory stages by TMA (4-D boxes of the NHWC
@@ -24,16 +25,19 @@ byte it must move). Where a conv's output tiles are fewer than the card's
 SMs, its K steps are split over more blocks whose f32 partial tiles are
 summed in a fixed order (:func:`conv_plan`): conv1's by the GN2 pass as it
 reads them, conv2's by one more launch. Launches per call: 4, plus 1 if
-conv2 is split (``launches`` counts calls). The wrapper lays the conv
-weights out in bf16, K-major, once per weight state (:func:`pack_weights`),
+conv2 is split (the counters count calls). The wrapper lays the conv
+weights out K-major, once per weight state (:func:`pack_weights`),
 and hands affines shared by the batch over with a row stride of 0, so a
 call on the card issues the kernels' launches and no copies.
 
-f32 and fp16 activations take K4's version in ``csrc/simt.cu``
-(:func:`_launch_simt`, ``simt_launches``): the same four steps, GN passes a
-block per (group, sample) and convs as implicit GEMMs of 64×64 output tiles
-on the CUDA cores, conv1's output kept in f32 for GN2 as in
-:func:`resblock_plain`; four launches a call.
+fp16 activations take the same kernels with fp16 operands. f32 activations
+take them as 3xTF32 on the tensor cores: each operand x is split into
+hi = tf32(x) and lo = tf32(x − hi) (:func:`tf32_split`) and each product is
+hi·hi + hi·lo + lo·hi, accumulated in f32; the GN passes write h0 and h2 as
+hi and lo planes (and x's planes where the projection reads x), and
+:func:`pack_weights` stores the weights' planes once per weight state; a K
+step is 32 channels (:func:`conv_plan` with ``size`` 4). Launches are
+counted per dtype: ``launches`` (bf16), ``fp16_launches``, ``f32_launches``.
 
 Shapes: C_in and C_out multiples of 8 (a partial last 64-channel K step
 reads zeros past C from TMA; a partial output tile is masked at C_out) and
@@ -52,21 +56,30 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from dmme_tpu_torch.ops import build, route, simt_code
-from dmme_tpu_torch.ops.group_norm import GN_EPS, broadcast_rows, gn_silu_plain
+from dmme_tpu_torch.ops import build, route, tf32_split
+from dmme_tpu_torch.ops.group_norm import GN_EPS, _ptr, broadcast_rows, gn_silu_plain
 
-#: ResBlock calls that launched the kernels since the last reset
+#: ResBlock calls that launched the kernels since the last reset, by
+#: activation dtype (incremented only by the launcher): bf16, fp16, f32
 launches = 0
-#: f32/fp16 ResBlock calls that launched the kernels of ``csrc/simt.cu``
-simt_launches = 0
+fp16_launches = 0
+f32_launches = 0
 
-_FN = None
-_SIMT = None
+#: each dtype's C entry point in ``csrc/resblock.cu``
+ENTRY = {torch.bfloat16: "dmme_resblock_fwd", torch.float16: "dmme_resblock_fwd_f16",
+         torch.float32: "dmme_resblock_fwd_f32"}
+_FNS: dict = {}
 
-BN, BK = 128, 64  # output channels a tile and K a step (csrc/resblock.cu)
+BN, BK = 128, 64  # output channels a tile and K a step of 16-bit operands (csrc/resblock.cu)
 MIN_STEPS = 4  # K steps a split slice takes at least
 GN_THREADS = 256  # threads of the GN+SiLU pass; at most this many channels a group
 CHANNELS = 8  # C_in and C_out are multiples of this: 16-byte TMA strides
+
+
+def k_step(size: int) -> int:
+    """Channels a K step of ``size``-byte operands: one 128-byte row (64
+    bf16 or fp16, 32 f32)."""
+    return 128 // size
 
 
 def _conv3x3_plain(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -100,27 +113,33 @@ def resblock_plain(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br,
     return (h3 + skip).to(dtype)
 
 
-def _fn():
-    global _FN
-    if _FN is None:
-        fn = build.library("resblock").dmme_resblock_fwd
-        vp = ctypes.c_void_p
-        fn.argtypes = ([vp] * 10 + [ctypes.c_int] + [vp] * 4 + [ctypes.c_int] * 19
-                       + [ctypes.c_float, vp])
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+def _fn(dtype: torch.dtype = torch.bfloat16):
+    """The C entry point for ``dtype`` activations, bound once."""
+    fn = _FNS.get(dtype)
+    if fn is None:
+        fn = getattr(build.library("resblock"), ENTRY[dtype])
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        if dtype == torch.float32:  # the weights' and activations' lo planes besides
+            fn.argtypes = [vp] * 12 + [i] + [vp] * 7 + [i] * 19 + [ctypes.c_float, vp]
+        else:
+            fn.argtypes = [vp] * 10 + [i] + [vp] * 4 + [i] * 19 + [ctypes.c_float, vp]
+        fn.restype = i
+        _FNS[dtype] = fn
+    return fn
 
 
 class PackedWeights(NamedTuple):
     """A ResBlock's weights in the kernel's layout: K-major rows, one per
-    output channel, as TMA and ``wgmma`` read them."""
+    output channel, as TMA and ``wgmma`` read them. In f32, w1 and w2 are
+    the tf32 hi planes and w1_lo, w2_lo the lo planes (:func:`tf32_split`)."""
 
     w1: torch.Tensor            # (C_out, 9·C_in), K ordered (dy, dx, c_in)
     w2: torch.Tensor            # (C_out, 9·C_out [+ C_in]), wr's rows appended
     wr: Optional[torch.Tensor]  # (C_out, C_in) view of w2's last C_in columns, or None
     b1: torch.Tensor            # (C_out,) f32
     b2: torch.Tensor            # (C_out,) f32, plus br when wr is given
+    w1_lo: Optional[torch.Tensor] = None  # f32: w1's lo plane
+    w2_lo: Optional[torch.Tensor] = None  # f32: w2's lo plane
 
 
 #: packed weights by the identity and in-place version of their sources
@@ -135,7 +154,8 @@ def _version(t: torch.Tensor) -> int:
 def pack_weights(w1, b1, w2, b2, wr=None, br=None,
                  dtype: torch.dtype = torch.bfloat16) -> PackedWeights:
     """The kernels' layout of a ResBlock's weights (OIHW f32 in), the conv
-    weights in ``dtype`` (the activations'), made once per weight state.
+    weights in ``dtype`` (the activations'; for f32 as two tf32 planes),
+    made once per weight state.
     Entries are keyed on the dtype and the identity and in-place version of
     the source tensors and hold those tensors, so no key is reused while its
     entry lives; an in-place update of a source makes a new entry."""
@@ -157,8 +177,12 @@ def pack_weights(w1, b1, w2, b2, wr=None, br=None,
         w2p = torch.cat([w2p, wr.reshape(cout, cin).to(dtype)], dim=1)
         wr_m = w2p[:, 9 * cout:]
         b2f = b2f + br.to(torch.float32)
-    packed = PackedWeights(taps(w1).contiguous(), w2p, wr_m, b1.to(torch.float32).contiguous(),
-                           b2f.contiguous())
+    w1p, w1_lo, w2_lo = taps(w1).contiguous(), None, None
+    if dtype == torch.float32:
+        (w1p, w1_lo), (w2p, w2_lo) = tf32_split(w1p), tf32_split(w2p)
+        wr_m = None if wr is None else w2p[:, 9 * cout:]
+    packed = PackedWeights(w1p, w2p, wr_m, b1.to(torch.float32).contiguous(), b2f.contiguous(),
+                           w1_lo, w2_lo)
     _PACKED[key] = (src, packed)
     if len(_PACKED) > _PACKED_MAX:
         _PACKED.popitem(last=False)
@@ -216,22 +240,24 @@ class ConvPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def conv_plan(n: int, h: int, w: int, c_in: int, c_out: int, c_proj: int, sms: int) -> ConvPlan:
-    """The conv kernel's tile, TMA box and split-K for an (N, H, W, C_in)
-    operand, C_out outputs and a 1×1 projection over C_proj channels
-    continuing the accumulation (0 for none), on a card with ``sms`` SMs,
-    made once per shape. Tiles of 128 pixels where they alone make blocks
-    for a quarter of the SMs (the 32×32 layers at batch 8; measured faster
-    there, PERF.md), else 64; the rule reads only M and C_out, so both convs
-    of a ResBlock take the same tile. Then the K steps split into
-    ⌊SMs / tiles⌋ slices of at least ``MIN_STEPS`` steps, none empty."""
+def conv_plan(n: int, h: int, w: int, c_in: int, c_out: int, c_proj: int, sms: int,
+              size: int = 2) -> ConvPlan:
+    """The conv kernel's tile, TMA box and split-K for an (N, H, W, C_in) operand of
+    ``size``-byte elements (2: bf16 or fp16, 4: f32), C_out outputs and a 1×1 projection
+    over C_proj channels continuing the accumulation (0 for none), on a card with ``sms``
+    SMs, made once per shape. A K step is :func:`k_step` channels of one tap. Tiles of 128
+    pixels where they alone make blocks for a quarter of the SMs (the 32×32 layers at batch
+    8; measured faster there, PERF.md), else 64; the rule reads only M and C_out, so both
+    convs of a ResBlock take the same tile. Then the K steps split into ⌊SMs / tiles⌋ slices
+    of at least ``MIN_STEPS`` steps, none empty."""
     if c_in % CHANNELS or c_proj % CHANNELS or c_out % CHANNELS:
         raise ValueError(f"resblock kernel takes C_in and C_out that are multiples of "
                          f"{CHANNELS}, got {c_in}, {c_out}")
     m, n_tiles = n * h * w, -(-c_out // BN)
     bm = 128 if 4 * -(-m // 128) * n_tiles >= sms else 64
     box = pixel_box(h, w, bm)
-    steps = 9 * -(-c_in // BK) + -(-c_proj // BK)
+    bk = k_step(size)
+    steps = 9 * -(-c_in // bk) + -(-c_proj // bk)
     bn, bh, bw = box
     m_tiles = -(-n // bn) * -(-h // bh) * -(-w // bw)
     splits = max(1, min(sms // (m_tiles * n_tiles), steps // MIN_STEPS))
@@ -239,95 +265,74 @@ def conv_plan(n: int, h: int, w: int, c_in: int, c_out: int, c_proj: int, sms: i
     return ConvPlan(bm, box, m_tiles, n_tiles, steps, -(-steps // per), per)
 
 
+def conv_smem(plan: ConvPlan, size: int = 2) -> int:
+    """Dynamic shared memory of the conv kernel ``plan`` launches, in bytes
+    (``csrc/resblock.cu:ConvSmem``): 1 KB alignment, the ring of stages (a
+    128-byte row of each of bm pixels and BN weights; f32 a hi and a lo
+    plane of each, 3 stages at 128 pixels), full and empty barriers."""
+    planes = 2 if size == 4 else 1
+    stages = 3 if planes == 2 and plan.bm == 128 else 4
+    return 1024 + stages * planes * (plan.bm + BN) * 128 + 2 * stages * 8
+
+
 def _launch(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br,
             num_groups: int, eps: float) -> torch.Tensor:
-    global launches
+    """K4 on bf16, fp16 or f32 ``x``: GN1+SiLU, conv1, GN2+SiLU of conv1 +
+    pre2, conv2 with bias and skip; four launches, five where conv2 is
+    split."""
+    global launches, fp16_launches, f32_launches
     n, h, w, cin = x.shape
     cout = w1.shape[0]
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"resblock kernel takes bf16 activations, got {x.dtype}")
+    if x.dtype not in ENTRY:
+        raise TypeError(f"resblock kernel takes bf16, fp16 or f32 activations, got {x.dtype}")
     for c in (cin, cout):
         if c % num_groups or c // num_groups > GN_THREADS:
             raise ValueError(f"resblock kernel: {c} channels in {num_groups} groups not supported")
     if wr is None and cin != cout:
         raise ValueError("identity skip needs C_in == C_out")
-    dev = x.device
+    dev, dtype, size = x.device, x.dtype, x.element_size()
     sms = build.sm_count(dev)
-    p1 = conv_plan(n, h, w, cin, cout, 0, sms)
-    p2 = conv_plan(n, h, w, cout, cout, cin if wr is not None else 0, sms)
+    p1 = conv_plan(n, h, w, cin, cout, 0, sms, size)
+    p2 = conv_plan(n, h, w, cout, cout, cin if wr is not None else 0, sms, size)
     x = x.contiguous()
-    pw = pack_weights(w1, b1, w2, b2, wr, br)
+    pw = pack_weights(w1, b1, w2, b2, wr, br, dtype=dtype)
     vecs = [broadcast_rows(v, n, c)
             for v, c in ((g1, cin), (b1v, cin), (pre2, cout), (g2, cout), (b2v, cout))]
     m = n * h * w
     f32 = dict(device=dev, dtype=torch.float32)
-    hbuf = torch.empty((m * max(cin, cout),), device=dev, dtype=torch.bfloat16)
+    hbuf = torch.empty((m * max(cin, cout),), device=dev, dtype=dtype)
     # conv1's f32 output where it is not split (split, GN2 reads the slices),
     # and the slices of whichever conv is split
     h1 = torch.empty((m * cout,), **f32) if p1.splits == 1 else None
     splits = max(p1.splits, p2.splits)
     partial = torch.empty((splits * m * cout,), **f32) if splits > 1 else None
-    out = torch.empty((n, h, w, cout), device=dev, dtype=torch.bfloat16)
-    status = _fn()(
-        x.data_ptr(), *(v.data_ptr() for v, _ in vecs),
-        pw.w1.data_ptr(), pw.b1.data_ptr(), pw.w2.data_ptr(), pw.b2.data_ptr(),
-        int(pw.wr is not None), hbuf.data_ptr(), None if h1 is None else h1.data_ptr(),
-        None if partial is None else partial.data_ptr(),
-        out.data_ptr(), n, h, w, cin, cout, num_groups, p1.bm, *p1.box, p1.splits, p1.per,
-        p2.splits, p2.per, *(stride for _, stride in vecs), float(eps),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    build.check(status, "resblock kernel launch")
-    launches += 1
-    return out
-
-
-def _simt_fn():
-    global _SIMT
-    if _SIMT is None:
-        fn = build.library("simt").dmme_simt_resblock
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([i] + [vp] * 10 + [i] + [vp] * 5 + [i] * 6 + [ctypes.c_float] + [i] * 5
-                       + [vp])
-        fn.restype = i
-        _SIMT = fn
-    return _SIMT
-
-
-def _launch_simt(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br,
-                 num_groups: int, eps: float) -> torch.Tensor:
-    """K4 for f32 or fp16 ``x`` (``csrc/simt.cu``): GN1+SiLU, conv1, GN2+SiLU
-    of conv1 + pre2, conv2 with bias and skip, four launches. The convs'
-    weights are packed in x's dtype (:func:`pack_weights`); conv1's output
-    stays f32 for GN2, as in :func:`resblock_plain`."""
-    global simt_launches
-    n, h, w, cin = x.shape
-    cout = w1.shape[0]
-    code = simt_code(x, "resblock")
-    for c in (cin, cout):
-        if c % num_groups:
-            raise ValueError(f"resblock kernel: {c} channels in {num_groups} groups")
-    if wr is None and cin != cout:
-        raise ValueError("identity skip needs C_in == C_out")
-    dev = x.device
-    x = x.contiguous()
-    pw = pack_weights(w1, b1, w2, b2, wr, br, dtype=x.dtype)
-    vecs = [broadcast_rows(v, n, c)
-            for v, c in ((g1, cin), (b1v, cin), (pre2, cout), (g2, cout), (b2v, cout))]
-    m = n * h * w
-    h0 = torch.empty((m * cin,), device=dev, dtype=x.dtype)
-    h1 = torch.empty((m * cout,), device=dev, dtype=torch.float32)
-    h2 = torch.empty((m * cout,), device=dev, dtype=x.dtype)
-    stats = torch.empty((2 * n * num_groups,), device=dev, dtype=torch.float32)
-    out = torch.empty((n, h, w, cout), device=dev, dtype=x.dtype)
-    status = _simt_fn()(
-        code, x.data_ptr(), *(v.data_ptr() for v, _ in vecs), pw.w1.data_ptr(),
-        pw.b1.data_ptr(), pw.w2.data_ptr(), pw.b2.data_ptr(), int(pw.wr is not None),
-        h0.data_ptr(), h1.data_ptr(), h2.data_ptr(), stats.data_ptr(), out.data_ptr(), n, h, w,
-        cin, cout, num_groups, float(eps), *(stride for _, stride in vecs),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(status, "resblock simt kernel launch")
-    simt_launches += 1
+    out = torch.empty((n, h, w, cout), device=dev, dtype=dtype)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tail = (out.data_ptr(), n, h, w, cin, cout, num_groups, p1.bm, *p1.box, p1.splits, p1.per,
+            p2.splits, p2.per, *(stride for _, stride in vecs), float(eps), stream)
+    if dtype == torch.float32:
+        # the lo planes of h0/h2 and, for the projection, x's planes
+        h_lo = torch.empty_like(hbuf)
+        x_hi = x_lo = None
+        if wr is not None:
+            x_hi, x_lo = torch.empty((m * cin,), **f32), torch.empty((m * cin,), **f32)
+        status = _fn(dtype)(
+            x.data_ptr(), *(v.data_ptr() for v, _ in vecs),
+            pw.w1.data_ptr(), pw.w1_lo.data_ptr(), pw.b1.data_ptr(), pw.w2.data_ptr(),
+            pw.w2_lo.data_ptr(), pw.b2.data_ptr(), int(pw.wr is not None), hbuf.data_ptr(),
+            h_lo.data_ptr(), _ptr(x_hi), _ptr(x_lo), _ptr(h1), _ptr(partial), *tail)
+    else:
+        status = _fn(dtype)(
+            x.data_ptr(), *(v.data_ptr() for v, _ in vecs),
+            pw.w1.data_ptr(), pw.b1.data_ptr(), pw.w2.data_ptr(), pw.b2.data_ptr(),
+            int(pw.wr is not None), hbuf.data_ptr(), _ptr(h1), _ptr(partial), *tail)
+    build.check(status, f"resblock kernel launch ({dtype})")
+    if dtype == torch.bfloat16:
+        launches += 1
+    elif dtype == torch.float16:
+        fp16_launches += 1
+    else:
+        f32_launches += 1
     return out
 
 
@@ -344,8 +349,8 @@ def resblock_forward(
 ) -> torch.Tensor:
     """Fused ResBlock forward (see module docstring), NHWC. Inference only:
     it has no backward, so it raises under grad mode when any input requires
-    grad, on every device. CPU tensors take :func:`resblock_plain`; bf16
-    CUDA tensors the kernels, f32 and fp16 ones those of ``simt.cu``."""
+    grad, on every device. CPU tensors take :func:`resblock_plain`; bf16,
+    fp16 and f32 CUDA tensors the kernels."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br)):
@@ -353,9 +358,6 @@ def resblock_forward(
             "resblock_forward is inference-only and has no backward, but an input "
             "requires grad: call it under torch.no_grad(), or train through the "
             "standard ResBlock path (train=True)")
-    where = route(x.device, x.dtype, "resblock_forward")
-    if where == "kernel":
+    if route(x.device, x.dtype, "resblock") == "kernel":
         return _launch(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br, num_groups, eps)
-    if where == "simt":
-        return _launch_simt(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br, num_groups, eps)
     return resblock_plain(x, g1, b1v, pre2, g2, b2v, w1, b1, w2, b2, wr, br, num_groups, eps)

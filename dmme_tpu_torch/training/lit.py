@@ -36,8 +36,9 @@ _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
 
 def resolve_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     """A dtype name (``bf16``, ``fp32``/``f32``, ``fp16`` or the full names)
-    or a torch dtype → the torch dtype. On the card bf16 runs the tensor-core
-    kernels, f32 and fp16 their ``simt.cu`` versions
+    or a torch dtype → the torch dtype. On the card K3 and K4 run on the
+    tensor cores in every dtype (f32 as 3xTF32), K1 and K2 on them in bf16
+    and on the CUDA cores (``simt.cu``) in f32 and fp16
     (:func:`dmme_tpu_torch.ops.route`)."""
     if isinstance(dtype, torch.dtype):
         return dtype

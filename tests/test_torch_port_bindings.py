@@ -22,16 +22,20 @@ torch.set_num_threads(1)
 
 CSRC = Path(build.__file__).resolve().parent / "csrc"
 
-# (source, C function, module, binder, the module's cache of the binding)
+# (source, C function, module, binder, the module's cache of the binding,
+# the binder's arguments): K3 and K4 bind one entry point per activation
+# dtype, cached by dtype
 BINDINGS = [
-    ("group_norm", "dmme_gn_silu_fwd", t_group_norm, "_fwd_fn", "_FWD"),
-    ("group_norm", "dmme_gn_silu_bwd", t_group_norm, "_bwd_fn", "_BWD"),
-    ("attention", "dmme_attention_fwd", t_attention, "_fn", "_FN"),
-    ("resblock", "dmme_resblock_fwd", t_resblock, "_fn", "_FN"),
-    ("simt", "dmme_simt_gn_fwd", t_group_norm, "_simt_fwd_fn", "_SIMT_FWD"),
-    ("simt", "dmme_simt_gn_bwd", t_group_norm, "_simt_bwd_fn", "_SIMT_BWD"),
-    ("simt", "dmme_simt_attention", t_attention, "_simt_fn", "_SIMT"),
-    ("simt", "dmme_simt_resblock", t_resblock, "_simt_fn", "_SIMT"),
+    ("group_norm", "dmme_gn_silu_fwd", t_group_norm, "_fwd_fn", "_FWD", ()),
+    ("group_norm", "dmme_gn_silu_bwd", t_group_norm, "_bwd_fn", "_BWD", ()),
+    ("attention", "dmme_attention_fwd", t_attention, "_fn", "_FNS", (torch.bfloat16,)),
+    ("resblock", "dmme_resblock_fwd", t_resblock, "_fn", "_FNS", (torch.bfloat16,)),
+    ("simt", "dmme_simt_gn_fwd", t_group_norm, "_simt_fwd_fn", "_SIMT_FWD", ()),
+    ("simt", "dmme_simt_gn_bwd", t_group_norm, "_simt_bwd_fn", "_SIMT_BWD", ()),
+    ("attention", "dmme_attention_fwd_f16", t_attention, "_fn", "_FNS", (torch.float16,)),
+    ("attention", "dmme_attention_fwd_f32", t_attention, "_fn", "_FNS", (torch.float32,)),
+    ("resblock", "dmme_resblock_fwd_f16", t_resblock, "_fn", "_FNS", (torch.float16,)),
+    ("resblock", "dmme_resblock_fwd_f32", t_resblock, "_fn", "_FNS", (torch.float32,)),
 ]
 
 
@@ -70,15 +74,29 @@ def test_every_source_is_built():
     assert sorted(build.SOURCES) == sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-@pytest.mark.parametrize("source,name,module,binder,cache", BINDINGS,
+@pytest.mark.parametrize("source,name,module,binder,cache,args", BINDINGS,
                          ids=[b[1] for b in BINDINGS])
-def test_binding_matches_the_c_signature(monkeypatch, source, name, module, binder, cache):
+def test_binding_matches_the_c_signature(monkeypatch, source, name, module, binder, cache, args):
     lib = _Lib()
     asked = []
     monkeypatch.setattr(build, "library", lambda src: asked.append(src) or lib)
-    monkeypatch.setattr(module, cache, None)
-    fn = getattr(module, binder)()
+    monkeypatch.setattr(module, cache, {} if isinstance(getattr(module, cache), dict) else None)
+    fn = getattr(module, binder)(*args)
     assert asked == [source]
     assert fn.__name__ == name
     assert list(fn.argtypes) == c_params(source, name)
     assert fn.restype is ctypes.c_int
+    assert getattr(module, binder)(*args) is fn and asked == [source]  # bound once
+
+
+def test_each_dtype_binds_its_own_entry_point(monkeypatch):
+    """K3 and K4 bind bf16, fp16 and f32 to three C functions, and raise for
+    another dtype before any library is asked."""
+    lib = _Lib()
+    monkeypatch.setattr(build, "library", lambda src: lib)
+    for module in (t_attention, t_resblock):
+        monkeypatch.setattr(module, "_FNS", {})
+        names = {module._fn(dt).__name__ for dt in (torch.bfloat16, torch.float16, torch.float32)}
+        assert names == set(module.ENTRY.values()) and len(names) == 3
+        with pytest.raises(KeyError):
+            module._fn(torch.float64)

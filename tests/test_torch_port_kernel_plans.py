@@ -18,6 +18,7 @@ import torch
 import dmme_tpu_torch.models.blocks as blocks
 from dmme_tpu_torch.models import ddpm as ddpm_models
 from dmme_tpu_torch.models import iddpm as iddpm_models
+from dmme_tpu_torch.ops import SMEM_MAX
 from dmme_tpu_torch.ops import attention as t_attention
 from dmme_tpu_torch.ops import resblock as t_resblock
 
@@ -452,3 +453,129 @@ def test_iddpm_attention_plans_are_pinned():
             for nn, t, h, d in set(call_sites(n, widths)["attention"]):
                 seen[(nn, t, h, d)] = tuple(t_attention.attention_plan(nn, h, t, d, SMS))[:6]
         assert seen == pinned, widths
+
+
+# K3 and K4 at both element sizes: 2 (bf16 and fp16, which share the 16-bit
+# kernels and their plans) and 4 (f32: K3's 3xTF32 mma.sync kernel, K4's
+# 3xTF32 wgmma convs). At every call site of every configuration above, the
+# kernel's shared memory fits a block of an H100, a TMA box row (K3's 64-value
+# panels in 16 bits; K4's K step) is 128 bytes, f32 rows copy in 16-byte
+# pieces, and every key tile and K step falls in exactly one non-empty split.
+BATCHES = {"cifar10": SERVE_BATCHES + (TRAIN_BATCH,), "lsun": LSUN_BATCHES,
+           "iddpm": SERVE_BATCHES + (TRAIN_BATCH,), "iddpm64": SHAPES64_BATCHES}
+
+
+def _sites_by_size():
+    for widths, batches in BATCHES.items():
+        for size in (2, 4):
+            yield widths, batches, size
+
+
+def _check_attention_at(n, shape, size, trans=False):
+    _, t, h, d = shape
+    plan = t_attention.attention_plan(n, h, t, d, SMS, size, trans)
+    assert t_attention.attention_smem(plan, size, trans) <= SMEM_MAX
+    assert plan.dp % 64 == 0 and plan.dp - 64 < d <= plan.dp
+    if size == 2:
+        assert 64 * size == 128  # one swizzled panel row of Q, K, V and O
+        assert plan == t_attention.attention_plan(n, h, t, d, SMS)  # bf16's plan
+    else:
+        bkv = 8 if plan.dp == 512 else 16 if trans and plan.dp == 256 else 32
+        assert (plan.bq, plan.bkv) == (64, bkv)
+        # 16-byte copies: along D row-major, along T (a multiple of 4) token-major
+        assert plan.dp // plan.halves * size % 16 == 0 and d * size % 16 == 0
+        assert not trans or (t % 4 == 0 and plan.dp <= 256)
+    assert all(len(r) > 0 for r in plan.split_tiles())
+    assert [j for r in plan.split_tiles() for j in r] == list(range(plan.kv_tiles))
+    assert (plan.kv_tiles - 1) * plan.bkv < t <= plan.kv_tiles * plan.bkv
+    assert plan.splits == 1 or plan.halves == 1
+
+
+def _check_conv_at(n, shape, cout, proj, size):
+    _, h, w, cin = shape
+    bk = t_resblock.k_step(size)
+    assert bk * size == 128  # the K step is one 128-byte row of the swizzle
+    for c_conv, c_proj in ((cin, 0), (cout, cin if proj else 0)):
+        plan = t_resblock.conv_plan(n, h, w, c_conv, cout, c_proj, SMS, size)
+        assert t_resblock.conv_smem(plan, size) <= SMEM_MAX
+        assert plan.steps == 9 * -(-c_conv // bk) + -(-c_proj // bk)
+        assert [s for r in plan.slices() for s in r] == list(range(plan.steps))
+        assert all(len(r) > 0 for r in plan.slices())
+        assert plan.splits == 1 or plan.per >= t_resblock.MIN_STEPS
+        # the tile and box do not depend on the element size; TMA strides of 16 bytes
+        assert (plan.bm, plan.box) == (lambda p: (p.bm, p.box))(
+            t_resblock.conv_plan(n, h, w, c_conv, cout, c_proj, SMS))
+        assert all(c * size % 16 == 0 for c in (c_conv, cin, 9 * c_conv + c_proj))
+
+
+@pytest.mark.parametrize("widths,batches,size", list(_sites_by_size()))
+def test_plans_fit_at_both_element_sizes(widths, batches, size):
+    for n in batches:
+        sites = call_sites(n, widths)
+        for shape in set(sites["attention"]):
+            _check_attention_at(n, shape, size)
+            if size == 4 and shape[1] % 4 == 0 and shape[3] <= 256:
+                _check_attention_at(n, shape, size, trans=True)
+        if n != TRAIN_BATCH:  # a training step runs no K4
+            for shape, cout, proj in set(sites["resblock"]):
+                _check_conv_at(n, shape, cout, proj, size)
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 96, 128, 160, 192, 256, 512])
+@pytest.mark.parametrize("n,t", [(1, 16), (1, 256), (8, 256), (128, 256), (1, 1024)])
+def test_f32_attention_plans_at_every_head_dim(n, t, d):
+    """The f32 kernel's head dims and grids: shared memory within a block's
+    at D = 512 too (Q 64 x 516 floats and two stages of 16 keys), key splits
+    only where the blocks fill at most half the SMs (16 bits: an eighth)."""
+    _check_attention_at(n, (n, t, 1, d), 4)
+    if d <= 256:
+        _check_attention_at(n, (n, t, 1, d), 4, trans=True)
+    plan32 = t_attention.attention_plan(n, 1, t, d, SMS, 4)
+    blocks = plan32.q_tiles * n
+    if plan32.splits > 1:
+        assert plan32.halves == 1 and 2 * blocks <= SMS
+        assert 1 < plan32.splits <= min(plan32.kv_tiles // 2, -(-SMS // blocks))
+    elif plan32.halves == 1 and plan32.kv_tiles >= 4 and t * plan32.dp >= 256 * 256:
+        assert 2 * blocks > SMS
+
+
+def test_f32_shared_memory_by_head_dim():
+    """TileF32::SMEM of csrc/attention.cu (row-major and token-major) and
+    ConvSmem of csrc/resblock.cu at their instantiations, in bytes."""
+    want = {(64, False): 54272, (128, False): 103424, (192, False): 152576,
+            (256, False): 201728, (512, False): 183040, (64, True): 59392,
+            (128, True): 118784, (192, True): 178176, (256, True): 172032}
+    for (dp, trans), smem in want.items():
+        plan = t_attention.attention_plan(8, 1, 256, dp, SMS, 4, trans)
+        assert t_attention.attention_smem(plan, 4, trans) == smem
+    assert t_attention.attention_smem(t_attention.attention_plan(8, 1, 256, 256, SMS)) == 99352
+    p64 = t_resblock.conv_plan(8, 16, 16, 256, 256, 0, SMS, 4)
+    p128 = t_resblock.conv_plan(8, 32, 32, 128, 128, 0, SMS, 4)
+    assert (p64.bm, p128.bm) == (64, 128)
+    assert t_resblock.conv_smem(p64, 4) == 1024 + 4 * 48 * 1024 + 64
+    assert t_resblock.conv_smem(p128, 4) == 1024 + 3 * 64 * 1024 + 48
+    assert t_resblock.conv_smem(p128, 2) == 1024 + 4 * 32 * 1024 + 64
+
+
+def test_f32_layout_reads_the_projection_in_place():
+    """The f32 kernel reads the qkv projection's views as they come: row-major
+    (NHWC, unit stride along D) or token-major (the channel-major output of
+    an f32 convolution, unit stride along T), and falls back to row-major
+    copies for a T that is not a multiple of 4 or D = 512."""
+    def views(n, t, h, d, channel_major):
+        if channel_major:  # (N, 3C, T) storage seen as (N, T, 3, H, D)
+            qkv = torch.empty((n, 3 * h * d, t), device="meta").transpose(1, 2)
+            qkv = qkv.reshape(n, t, 3, h, d)
+        else:
+            qkv = torch.empty((n, t, 3, h, d), device="meta")
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+    for n, t, h, d in ((128, 256, 1, 256), (8, 16, 1, 256), (8, 256, 4, 64), (8, 64, 4, 32)):
+        dp = -(-d // 64) * 64
+        assert not t_attention.f32_layout(*views(n, t, h, d, False), dp)
+        assert t_attention.f32_layout(*views(n, t, h, d, True), dp)
+        q = views(n, t, h, d, True)[0]
+        assert q.stride(1) == 1 and t_attention._aligned(q, unit=1)
+    assert t_attention.f32_layout(*views(2, 100, 2, 48, True), 64)
+    assert not t_attention.f32_layout(*views(2, 98, 2, 48, True), 64)  # T % 4: unaligned
+    assert not t_attention.f32_layout(*views(1, 64, 1, 512, True), 512)

@@ -23,7 +23,7 @@ from dmme_tpu.ops.attention import attention_heads as jax_attention_heads
 from dmme_tpu.ops.group_norm import group_norm_silu as jax_gn_silu
 from dmme_tpu.ops.resblock import resblock_forward as jax_resblock
 from dmme_tpu_torch.ops import attention as t_attention
-from dmme_tpu_torch.ops import build
+from dmme_tpu_torch.ops import build, tf32_split
 from dmme_tpu_torch.ops import group_norm as t_group_norm
 from dmme_tpu_torch.ops import resblock as t_resblock
 
@@ -288,7 +288,9 @@ class TestResBlock:
 
 @pytest.mark.parametrize("kernel", ["group_norm_silu", "group_norm_silu_bwd", "resblock"])
 def test_launchers_take_bf16_only(kernel):
-    """The launchers refuse another dtype before they reach a kernel."""
+    """The tensor-core launchers refuse a dtype they have no kernel for
+    before they reach one: K1's and K2's take bf16 only (f32 here), K4's
+    bf16, fp16 and f32 (f64 here)."""
     x = torch.zeros((1, 4, 4, 64))
     v = torch.ones(64)
     with pytest.raises(TypeError, match="bf16"):
@@ -299,7 +301,7 @@ def test_launchers_take_bf16_only(kernel):
             t_group_norm._launch_bwd(x, x, v, v, None, stats, stats, 32)
         else:
             w = torch.zeros((64, 64, 3, 3))
-            t_resblock._launch(x, v, v, v, v, v, w, v, w, v, None, None, 32, 1e-5)
+            t_resblock._launch(x.double(), v, v, v, v, v, w, v, w, v, None, None, 32, 1e-5)
 
 
 def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
@@ -440,46 +442,56 @@ def test_sm_count_is_asked_once_per_device(monkeypatch):
         build._sm_count.cache_clear()
 
 
-@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "kernel"), (torch.float32, "simt"),
-                                        (torch.float16, "simt")])
-def test_route_sends_bf16_to_the_kernel_and_other_dtypes_to_the_plain_path(dtype, want):
-    """bf16 CUDA tensors go to the tensor-core kernels, f32 and fp16 ones to
-    those of ``simt.cu``; only a CPU tensor takes the plain version."""
+ROUTE_CASES = [(kernel, dtype, "simt" if kernel == "group_norm_silu" and dtype != torch.bfloat16
+                 else "kernel")
+               for kernel in ("group_norm_silu", "attention", "resblock")
+               for dtype in (torch.bfloat16, torch.float32, torch.float16)]
+
+
+@pytest.mark.parametrize("kernel,dtype,want", ROUTE_CASES)
+def test_route_sends_bf16_to_the_kernel_and_other_dtypes_to_the_plain_path(kernel, dtype, want):
+    """K3 and K4 send bf16, f32 and fp16 CUDA tensors to their tensor-core
+    kernels; K1 and K2 send bf16 to theirs and f32 and fp16 to those of
+    ``simt.cu``; only a CPU tensor takes the plain version."""
     from dmme_tpu_torch.ops import route
 
-    assert route(torch.device("cuda"), dtype, "x") == want
-    assert route(torch.device("cuda", 1), dtype, "x") == want
-    assert route(torch.device("cpu"), dtype, "x") == "cpu"
+    assert route(torch.device("cuda"), dtype, kernel) == want
+    assert route(torch.device("cuda", 1), dtype, kernel) == want
+    assert route(torch.device("cpu"), dtype, kernel) == "cpu"
     with pytest.raises(ValueError, match="no kernel"):
-        route(torch.device("meta"), dtype, "x")
+        route(torch.device("meta"), dtype, kernel)
 
 
+@pytest.mark.parametrize("kernel", ["group_norm_silu", "attention", "resblock"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.int32])
-def test_route_raises_on_the_card_for_a_dtype_without_a_kernel(dtype):
+def test_route_raises_on_the_card_for_a_dtype_without_a_kernel(dtype, kernel):
     from dmme_tpu_torch.ops import route
 
-    assert route(torch.device("cpu"), dtype, "x") == "cpu"
+    assert route(torch.device("cpu"), dtype, kernel) == "cpu"
     with pytest.raises(TypeError, match="no kernel for"):
-        route(torch.device("cuda"), dtype, "x")
+        route(torch.device("cuda"), dtype, kernel)
 
 
 @pytest.mark.parametrize("kernel", ["group_norm_silu", "group_norm_silu_bwd", "attention",
                                     "resblock"])
 def test_simt_launchers_take_f32_and_fp16_only(kernel):
-    """The ``simt.cu`` launchers refuse bf16 before they reach a kernel."""
+    """The ``simt.cu`` launchers (K1, K2) refuse bf16, and K3's and K4's
+    launchers, which take f32 and fp16 on the tensor cores, refuse f64,
+    before they reach a kernel."""
     x = torch.zeros((1, 4, 4, 64), dtype=torch.bfloat16)
     v = torch.ones(64)
-    with pytest.raises(TypeError, match="f32 or fp16"):
+    with pytest.raises(TypeError, match="f32"):
         if kernel == "group_norm_silu":
             t_group_norm._launch_simt(x, v, v, None, 32, 1e-5)
         elif kernel == "group_norm_silu_bwd":
             stats = torch.zeros((1, 32))
             t_group_norm._launch_bwd_simt(x, x, v, v, None, stats, stats, 32)
         elif kernel == "attention":
-            t_attention._launch_simt(x, x, x, 0.125)
+            q = x.double()
+            t_attention._launch(q, q, q, 0.125)
         else:
             w = torch.zeros((64, 64, 3, 3))
-            t_resblock._launch_simt(x, v, v, v, v, v, w, v, w, v, None, None, 32, 1e-5)
+            t_resblock._launch(x.double(), v, v, v, v, v, w, v, w, v, None, None, 32, 1e-5)
 
 
 def test_pack_weights_caches_per_dtype():
@@ -491,20 +503,27 @@ def test_pack_weights_caches_per_dtype():
     b1, b2 = torch.zeros(16), torch.ones(16)
     packed = {dt: t_resblock.pack_weights(w1, b1, w2, b2, dtype=dt)
               for dt in (torch.bfloat16, torch.float32, torch.float16)}
+    taps = w1.permute(0, 2, 3, 1).reshape(16, 144)
     for dt, pw in packed.items():
         assert pw.w1.dtype == pw.w2.dtype == dt and pw.b1.dtype == torch.float32
         assert t_resblock.pack_weights(w1, b1, w2, b2, dtype=dt) is pw
-        np.testing.assert_array_equal(
-            pw.w1.float().numpy(),
-            w1.permute(0, 2, 3, 1).reshape(16, 144).to(dt).float().numpy())
+        if dt == torch.float32:  # the 3xTF32 planes: hi = tf32(w), lo = tf32(w - hi)
+            hi, lo = tf32_split(taps)
+            assert torch.equal(pw.w1, hi) and torch.equal(pw.w1_lo, lo)
+            assert pw.w2_lo.shape == pw.w2.shape
+            torch.testing.assert_close(pw.w1 + pw.w1_lo, taps, rtol=2.0 ** -21, atol=0)
+        else:
+            assert pw.w1_lo is None and pw.w2_lo is None
+            np.testing.assert_array_equal(pw.w1.float().numpy(), taps.to(dt).float().numpy())
     assert t_resblock.pack_weights(w1, b1, w2, b2) is packed[torch.bfloat16]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
 def test_wrappers_dispatch_on_the_card_by_dtype(monkeypatch, dtype):
     """Each wrapper with its tensors taken for CUDA ones (``route`` asked as
-    for a CUDA device): bf16 reaches the tensor-core launcher, f32 and fp16
-    the ``simt.cu`` launcher; neither gives way to the plain version."""
+    for a CUDA device): K3 and K4 reach their tensor-core launcher in every
+    dtype; K1 and K2 reach theirs in bf16 and the ``simt.cu`` launcher in
+    f32 and fp16; none gives way to the plain version."""
     from dmme_tpu_torch import ops
 
     def as_cuda(device, dt, what):
@@ -526,7 +545,7 @@ def test_wrappers_dispatch_on_the_card_by_dtype(monkeypatch, dtype):
         name = mod.__name__.split(".")[-1]
         monkeypatch.setattr(mod, "route", as_cuda)
         monkeypatch.setattr(mod, "_launch", launcher(name))
-        monkeypatch.setattr(mod, "_launch_simt", launcher(name + "_simt"))
+    monkeypatch.setattr(t_group_norm, "_launch_simt", launcher("group_norm_simt"))
     monkeypatch.setattr(t_group_norm, "_launch_bwd", launcher("group_norm_bwd"))
     monkeypatch.setattr(t_group_norm, "_launch_bwd_simt", launcher("group_norm_bwd_simt"))
     for mod, fn in ((t_group_norm, "gn_silu_plain"), (t_group_norm, "gn_silu_bwd_plain"),
@@ -552,4 +571,5 @@ def test_wrappers_dispatch_on_the_card_by_dtype(monkeypatch, dtype):
     for call in calls.values():
         with pytest.raises(RuntimeError, match="launched"):
             call()
-    assert launched == [name + ("_simt" if simt else "") for name in calls]
+    assert launched == [name + ("_simt" if simt and name.startswith("group_norm") else "")
+                        for name in calls]
