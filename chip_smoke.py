@@ -9,8 +9,9 @@ if the package is missing, or if any phase fails. Phases:
 
 1. device  — the card's name and power limit (``nvidia-smi``), torch version;
 2. build   — compiles the CUDA sources of ``dmme_tpu_torch/ops/csrc`` in
-   parallel (K1 and K2 in ``group_norm.cu`` and, for f32/fp16, ``simt.cu``;
-   K3 and K4 in bf16, fp16 and f32 in ``attention.cu`` and ``resblock.cu``)
+   parallel (K1 and K2 in bf16, fp16 and f32 in ``group_norm.cu``, and at
+   widths outside its domain in ``simt.cu``; K3 and K4 in bf16, fp16 and f32
+   in ``attention.cu`` and ``resblock.cu``)
    and prints each
    kernel's registers and spill bytes (``-Xptxas -v``);
 3. kernels — records the inputs each kernel receives at every call site of
@@ -47,9 +48,14 @@ if the package is missing, or if any phase fails. Phases:
    dims 16, 48, 96, 160 and 512, a key split at a padded head dim; C_in 32
    and 96; C_out 32, 64 and 192; H×W that 64-pixel tiles of whole rows do
    not cover; C/G = 3; GroupNorms that take two passes, forward and
-   backward), each held against its plain version; K3 and K4 at those shapes
+   backward), each held against its plain version; K1–K4 at those shapes
    in fp16 and f32 too, within ``TOL_SIMT``, each called twice for identical
    bytes;
+6c. simt — K1 and K2 at widths outside ``group_norm.cu``'s domain (C = 12
+   with G = 4, C = 4 with G = 2, C = 2056 with G = 8) in bf16, fp16 and f32:
+   each call launches ``simt.cu`` (``simt_launches``/``simt_bwd_launches``,
+   no other counter) and is held against its plain version, twice for
+   identical bytes;
 7. train gradient — one ``loss_given`` + backward at batch 8, dropout 0, on
    the same weights and numpy t, ε: bf16 on the card against f32 on the CPU
    (relative L2 of the loss and of the gradient, overall and per top-level
@@ -79,17 +85,19 @@ if the package is missing, or if any phase fails. Phases:
 10. f32 and fp16 — fault C.5: ``LitDDPM()`` (f32) and ``LitDDPM(dtype="fp16")``
    each train one full-width step at batch 128 and take one DDIM step at
    n = 8 (K1/K2/K3 45/45/6 a step, K1/K3/K4 1/6/22 a forward), launching K1
-   and K2 of ``simt.cu`` and K3 and K4 on the tensor cores in that dtype (f32
-   as 3xTF32), and no bf16 kernel; every call site held against its plain
-   version (``TOL_SIMT``), twice for identical bytes, and timed beside its
-   bounds, SDPA (K3) and the cuDNN sequence (K4) (the table's ``*_f32`` and
-   ``*_fp16`` rows); the loss, gradient (dropout off), a UNet forward and the
-   DDIM step against f32 on the CPU, f32 within ``F32_REL_L2`` (1e-4), fp16's
-   forward and DDIM step within ``UNET_REL_L2``; the bf16 harness on the same
-   inputs is the control that must miss ``F32_REL_L2``; then each harness's
-   training step (median of 25, device busy, idle share) and one DDIM-50
-   request at n = 8 (``scripts/torch_f32_time.py``). Every bf16 path above
-   launches no f32 or fp16 kernel;
+   and K2 of ``group_norm.cu`` and K3 and K4 on the tensor cores in that
+   dtype (f32 as 3xTF32), and no bf16 or ``simt.cu`` kernel; every call site
+   held against its plain version (``TOL_SIMT``), twice for identical bytes,
+   and timed beside its bounds, SDPA (K3), the cuDNN sequence (K4),
+   ``F.group_norm`` + ``F.silu`` on the same inputs (K1; its autograd for
+   K2) (the table's ``*_f32`` and ``*_fp16`` rows); the loss, gradient
+   (dropout off), a UNet forward and the DDIM step against f32 on the CPU,
+   f32 within ``F32_REL_L2`` (1e-4), fp16's forward and DDIM step within
+   ``UNET_REL_L2``; the bf16 harness on the same inputs is the control that
+   must miss ``F32_REL_L2``; then each harness's training step (median of
+   25, device busy, idle share) and one DDIM-50 request at n = 8
+   (``scripts/torch_f32_time.py``). Every bf16 path above launches no f32,
+   fp16 or ``simt.cu`` kernel;
 11. IDDPM kernels — the IDDPM UNet of ``configs/iddpm/cifar10.yaml`` (FiLM at
    the 22 ``norm2`` sites, 4-head attention at 11 sites, ε ‖ v output; random
    biases, affines and FiLM ``condition`` Dense): K1, K3 and K4 at every call
@@ -113,7 +121,7 @@ if the package is missing, or if any phase fails. Phases:
    ``configs/iddpm/cifar10.yaml`` and ``configs/iddpm/shapes64_demo.yaml``
    (64 px, batch 64) for 2 steps with and without remat;
 16. f32 IDDPM — ``LitIDDPM()`` one step at batch 128 and one respaced step at
-   n = 8 (K1/K2 on ``simt.cu``, K3/K4 in f32 on the tensor cores), every call
+   n = 8 (K1/K2 on ``group_norm.cu``, K3/K4 in f32 on the tensor cores), every call
    site against its plain version; the
    loss, the gradient (the variance head included) and the step within
    ``F32_REL_L2`` of the CPU, a bf16 control missing it;
@@ -134,7 +142,7 @@ if the package is missing, or if any phase fails. Phases:
 21. flow fit and serve — phase 19 for ``configs/flow/shapes_demo.yaml`` (no
    grids) and phase 20 for ``LitFlow(dtype="bf16")``: ``default`` (25
    midpoint steps, 50 evaluations) and ``flow`` at 10 steps at n = 8;
-22. f32 EDM — ``LitEDM()`` one step at batch 128 (K1/K2 on ``simt.cu``, K3 in
+22. f32 EDM — ``LitEDM()`` one step at batch 128 (K1/K2 on ``group_norm.cu``, K3 in
    f32 on the tensor cores); the loss
    and gradient at batch 16 (σ from 0.002 to 80) and a mid-grid Heun step
    against f32 on the CPU within ``F32_REL_L2``, a bf16 control missing it;
@@ -142,7 +150,8 @@ if the package is missing, or if any phase fails. Phases:
    ``{"ok": true, "device": ...}``.
 
 ``--out`` also writes every measurement to a JSON file. ``--kernels-only``
-runs phases 1–3, 6, 6b and the LSUN forward of phase 4, then stops and
+runs phases 1–3, 6, 6b, 6c, the LSUN forward of phase 4 and phase 10's
+f32 and fp16 training steps with their K1 and K2 rows, then stops and
 prints no result line: a short first check of new kernels.
 """
 
@@ -187,7 +196,7 @@ UNET_REL_L2 = 5e-2
 # math summed in another order reads ~1e-6; the bf16 harness reads ~5e-3,
 # and fails this limit (the phase checks that it does)
 F32_REL_L2 = 1e-4
-# the f32/fp16 kernels (K1 and K2 of simt.cu, K3 and K4 on the tensor cores)
+# the f32/fp16 kernels (K1 and K2 of group_norm.cu, K3 and K4 on the tensor cores)
 # against their plain versions on the same inputs: (rtol, atol as a share of
 # the largest reference value, least atol). f32: the same arithmetic in
 # another order (K3 and K4 as 3xTF32, ~2^-21 a product), f32 rounding grown
@@ -301,9 +310,9 @@ def randomize_affines(torch, blocks, module, generator) -> None:
 
 
 #: the launch counters of the kernels that take f32 and fp16 activations,
-#: {route: {kernel: (module, attribute)}}: K1's and K2's in ``csrc/simt.cu``
-#: ("simt", both dtypes), K3's and K4's tensor-core instances in fp16 and in
-#: f32; set by main()
+#: {route: {kernel: (module, attribute)}}: K1's to K4's instances in fp16
+#: and in f32, and K1's and K2's in ``csrc/simt.cu`` ("simt", any dtype, at
+#: widths outside group_norm.cu's domain: none on a main path); set by main()
 WIDE = {}
 
 
@@ -320,15 +329,14 @@ def wide_counts() -> dict:
 
 def wide_expected(dtype_name: str, per_kernel: dict) -> dict:
     """What :func:`wide_counts` reads after ``per_kernel`` launches of K1–K4
-    in ``dtype_name`` ("f32" or "fp16"): K1 and K2 on ``simt.cu``, K3 and K4
-    on that dtype's tensor-core instance, nothing on the other's."""
-    return {r: {k: per_kernel[k] if r in ("simt", dtype_name) else 0 for k in d}
+    in ``dtype_name`` ("f32" or "fp16"): each on that dtype's instance,
+    nothing on the other's and nothing on ``simt.cu``."""
+    return {r: {k: per_kernel[k] if r == dtype_name else 0 for k in d}
             for r, d in WIDE.items()}
 
 
 def expect_bf16_only(where: str) -> dict:
-    """Fail if a bf16 path launched an f32 or fp16 kernel (``simt.cu``, or
-    K3's and K4's f32 and fp16 instances)."""
+    """Fail if a bf16 path launched an f32 or fp16 kernel or ``simt.cu``."""
     got = wide_counts()
     print(f"{where}: f32/fp16 launches {got}", flush=True)
     if any(v for d in got.values() for v in d.values()):
@@ -767,7 +775,8 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
 def gn_plan(k_gn, x, groups, backward: bool) -> dict:
     """K1's (or K2's) plan for the recorded input, as a dict."""
     n, h, w, c = x.shape
-    return k_gn.gn_plan(n, h, w, c, groups, k_gn.build.sm_count(x.device), backward)._asdict()
+    return k_gn.gn_plan(n, h, w, c, groups, k_gn.build.sm_count(x.device), backward,
+                        x.element_size())._asdict()
 
 
 def _train_row(kind, key, count, max_abs, ok, ms, plain_ms, a, k) -> dict:
@@ -1042,41 +1051,33 @@ def offpath_kernels(torch, k_gn, k_attn, k_res, dev) -> list:
     rows = []
     with torch.no_grad():
         # K1 and K2: C/G = 3, a 12x12 image, C = 1024, and samples that no
-        # cluster holds (two passes); per-sample affines and pre-biases
-        for n, h, w, c, per_sample, with_bias in ((4, 8, 8, 96, True, True),
-                                                  (2, 12, 12, 64, False, True),
-                                                  (2, 16, 16, 1024, True, False),
-                                                  (3, 32, 32, 512, True, True),
-                                                  (2, 64, 64, 256, False, True),
-                                                  (1, 256, 256, 128, True, True)):
+        # cluster holds (two passes); per-sample affines and pre-biases; in
+        # bf16, fp16 and f32 (the latter two within TOL_SIMT)
+        for dtype, (n, h, w, c, per_sample, with_bias) in (
+                (dt, shape) for dt in (torch.bfloat16, torch.float16, torch.float32)
+                for shape in ((4, 8, 8, 96, True, True), (2, 12, 12, 64, False, True),
+                              (2, 16, 16, 1024, True, False), (3, 32, 32, 512, True, True),
+                              (2, 64, 64, 256, False, True), (1, 256, 256, 128, True, True))):
             aff = (n, c) if per_sample else (c,)
-            x = rnd(n, h, w, c, dtype=torch.bfloat16)
+            x = rnd(n, h, w, c, dtype=dtype)
             gamma, beta = 1.0 + rnd(*aff, scale=0.1), rnd(*aff, scale=0.1)
             bias = rnd(n, c, scale=0.5) if with_bias else None
-            key = repr(((n, h, w, c), per_sample, with_bias))
-            y, mean, inv = k_gn.group_norm_silu_fwd(x, gamma, beta, 32, pre_bias=bias)
+            key = repr((str(dtype)[6:], (n, h, w, c), per_sample, with_bias))
+            got = k_gn.group_norm_silu_fwd(x, gamma, beta, 32, pre_bias=bias)
             again = k_gn.group_norm_silu_fwd(x, gamma, beta, 32, pre_bias=bias)
-            y_p, mean_p, inv_p = k_gn.gn_silu_plain(x, gamma, beta, bias, 32)
-            max_abs, _, ok = errors(y, y_p, *TOL["group_norm_silu"])
-            for got, want in ((mean, mean_p), (inv, inv_p)):
-                ok = ok and scaled_errors(got, want, *TOL_BWD["vec"])[2]
-            same = all(bool(torch.equal(u, v)) for u, v in zip((y, mean, inv), again))
+            max_abs, ok = _gn_errors(got, k_gn.gn_silu_plain(x, gamma, beta, bias, 32))
+            same = all(bool(torch.equal(u, v)) for u, v in zip(got, again))
             rows.append({"kernel": "group_norm_silu", "key": key, "max_abs_err": max_abs,
                          "ok": ok and same, "repeat_identical": same,
-                         "plan": k_gn.gn_plan(n, h, w, c, 32, k_gn.build.sm_count(dev))._asdict()})
-            dz = rnd(n, h, w, c, dtype=torch.bfloat16)
-            args = (x, dz, gamma, beta, bias, mean, inv, 32)
+                         "plan": gn_plan(k_gn, x, 32, False)})
+            dz = rnd(n, h, w, c, dtype=dtype)
+            args = (x, dz, gamma, beta, bias, got[1], got[2], 32)
             got, again = k_gn.group_norm_silu_bwd(*args), k_gn.group_norm_silu_bwd(*args)
-            max_abs, ok = 0.0, True
-            for name, g_, w_ in zip(("dx", "dgamma", "dbeta", "dbias"), got,
-                                    k_gn.gn_silu_bwd_plain(*args)):
-                e_abs, _, e_ok = scaled_errors(g_, w_, *TOL_BWD["dx" if name == "dx" else "vec"])
-                max_abs, ok = max(max_abs, e_abs), ok and e_ok
+            max_abs, ok = _gn_errors(got, k_gn.gn_silu_bwd_plain(*args))
             same = all(bool(torch.equal(u, v)) for u, v in zip(got, again))
             rows.append({"kernel": "group_norm_silu_bwd", "key": key, "max_abs_err": max_abs,
                          "ok": ok and same, "repeat_identical": same,
-                         "plan": k_gn.gn_plan(n, h, w, c, 32, k_gn.build.sm_count(dev),
-                                              True)._asdict()})
+                         "plan": gn_plan(k_gn, x, 32, True)})
         # K3: head dims off the 64-wide panels, 512, ragged T, a key split at a
         # padded head dim; q, k, v strided views of a packed projection; in
         # bf16, fp16 and f32 (the 3xTF32 kernel: D = 512 in halves of 16-key
@@ -1128,8 +1129,74 @@ def offpath_kernels(torch, k_gn, k_attn, k_res, dev) -> list:
     torch.cuda.synchronize()
     _rows_report(rows, "off-path shapes")
     print(f"off-path shapes: {len(rows)} calls within TOL {TOL} and K2 {TOL_BWD} (K1's mean "
-          f"and inverse std within {TOL_BWD['vec']}; K3 and K4 in fp16 and f32 within TOL_SIMT "
+          f"and inverse std within {TOL_BWD['vec']}; K1–K4 in fp16 and f32 within TOL_SIMT "
           f"{TOL_SIMT}); every call repeats byte for byte", flush=True)
+    return rows
+
+
+def _gn_errors(got, want) -> tuple:
+    """(max abs error, ok) of K1's (y, mean, inv) or K2's (dx, dγ, dβ, dbias)
+    against the plain version's: with bf16 activations y within ``TOL``, dx
+    and the f32 statistics and sums within ``TOL_BWD`` (atol a share of the
+    largest reference value); with fp16 or f32 ones every output within that
+    dtype's ``TOL_SIMT``, as :func:`wide_rows` holds them."""
+    dt = str(got[0].dtype)
+    max_abs, ok = 0.0, True
+    for i, (g, w) in enumerate(zip(got, want)):
+        if dt in TOL_SIMT:
+            rtol, share, least = TOL_SIMT[dt]
+            e, _, o = errors(g, w, rtol, max(share * float(w.float().abs().max()), least))
+        elif i == 0 and len(got) == 3:
+            e, _, o = errors(g, w, *TOL["group_norm_silu"])
+        else:
+            e, _, o = scaled_errors(g, w, *TOL_BWD["dx" if i == 0 else "vec"])
+        max_abs, ok = max(max_abs, e), ok and o and g.dtype == w.dtype
+    return max_abs, ok
+
+
+def simt_kernels(torch, k_gn, dev, ops) -> list:
+    """Phase 6c: K1 and K2 at widths outside ``group_norm.cu``'s domain in
+    bf16, fp16 and f32. Each call must launch ``simt.cu`` once (its counter
+    moves by one, no other counter moves), agree with its plain version
+    (:func:`_gn_errors`) and repeat byte for byte."""
+    gen = torch.Generator().manual_seed(SEED + 25)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=gen)).to(device=dev, dtype=dtype)
+
+    rows = []
+    with torch.no_grad():
+        for dtype, (n, h, w, c, groups) in (
+                (dt, shape) for dt in (torch.bfloat16, torch.float16, torch.float32)
+                for shape in ((2, 8, 8, 12, 4), (2, 6, 6, 4, 2), (1, 8, 8, 2056, 8))):
+            x, dz = rnd(n, h, w, c, dtype=dtype), rnd(n, h, w, c, dtype=dtype)
+            gamma, beta = 1.0 + rnd(n, c, scale=0.1), rnd(c, scale=0.1)
+            bias = rnd(n, c, scale=0.5)
+            key = repr((str(dtype)[6:], (n, h, w, c), groups))
+            for kind in ("group_norm_silu", "group_norm_silu_bwd"):
+                if kind == "group_norm_silu":
+                    args = (x, gamma, beta, groups)
+                    run = lambda: k_gn.group_norm_silu_fwd(*args, pre_bias=bias)  # noqa: E731
+                    want = k_gn.gn_silu_plain(x, gamma, beta, bias, groups)
+                else:
+                    args = (x, dz, gamma, beta, bias, want[1], want[2], groups)
+                    run = lambda: k_gn.group_norm_silu_bwd(*args)  # noqa: E731
+                    want = k_gn.gn_silu_bwd_plain(*args)
+                reset_counts(ops)
+                got = run()
+                torch.cuda.synchronize()
+                launched = {"bf16": counts(ops), **wide_counts()}
+                moved = {f"{r} {k}": v for r, d in launched.items() for k, v in d.items() if v}
+                max_abs, ok = _gn_errors(got, want)
+                same = all(bool(torch.equal(u, v)) for u, v in zip(got, run()))
+                rows.append({"kernel": kind, "key": key, "max_abs_err": max_abs,
+                             "launched": moved, "repeat_identical": same,
+                             "ok": ok and same and moved == {f"simt {kind}": 1}})
+    torch.cuda.synchronize()
+    _rows_report(rows, "simt.cu widths")
+    print(f"simt.cu widths: {len(rows)} calls, each one launch of simt.cu and no other kernel, "
+          f"within TOL/TOL_BWD (bf16) and TOL_SIMT {TOL_SIMT}; every call repeats byte for byte",
+          flush=True)
     return rows
 
 
@@ -1200,11 +1267,13 @@ def lsun_forward(torch, blocks, ddpm_models, init_weights, k_gn, k_attn, k_res, 
 
 def wide_rows(torch, k_gn, k_attn, k_res, calls, dtype) -> list:
     """The f32 or fp16 kernels at every recorded call site (K1 and K2 of
-    ``simt.cu``, K3 and K4 on the tensor cores), each held against its plain
-    version on the same inputs (``TOL_SIMT``, atol a share of the largest
-    reference value), timed, bounded, and called twice for identical bytes.
-    Beside K3, SDPA on the same inputs; beside K4, the cuDNN sequence; in
-    f32, K3's and K4's bound at the f32 CUDA-core rate too
+    ``group_norm.cu``, K3 and K4 on the tensor cores), each held against its
+    plain version on the same inputs (``TOL_SIMT``, atol a share of the
+    largest reference value), timed, bounded, and called twice for identical
+    bytes. Beside K3, SDPA on the same inputs; beside K4, the cuDNN sequence;
+    beside K1 and K2, ``F.group_norm`` + ``F.silu`` (its autograd for K2)
+    and the plan (``scripts/torch_gn_plans.py`` times the plans and
+    ``simt.cu`` there); in f32, K3's and K4's bound at the f32 CUDA-core rate too
     (``bound_cores_ms``), beside the 3xTF32 one."""
     rtol, share, least = TOL_SIMT[str(dtype)]
     rows = []
@@ -1216,9 +1285,11 @@ def wide_rows(torch, k_gn, k_attn, k_res, calls, dtype) -> list:
                     kern = lambda a=a, k=k: k_gn.group_norm_silu(*a, **k)  # noqa: E731
                     plain = lambda a=a, k=k: k_gn.gn_silu_plain(  # noqa: E731
                         a[0], a[1], a[2], k.get("pre_bias"), a[3], k.get("eps", k_gn.GN_EPS))[0]
+                    seq = gn_sequence(torch, a, k)
                 elif kind == "group_norm_silu_bwd":
                     kern = lambda a=a: k_gn.group_norm_silu_bwd(*a)  # noqa: E731
                     plain = lambda a=a: k_gn.gn_silu_bwd_plain(*a)  # noqa: E731
+                    seq = gn_sequence(torch, (a[0], a[2], a[3], a[7]), {"pre_bias": a[4]}, a[1])
                 elif kind == "attention":
                     kern = lambda a=a: k_attn.attention_heads(*a)  # noqa: E731
                     plain = lambda a=a: k_attn.attention_heads_plain(*a)  # noqa: E731
@@ -1260,6 +1331,10 @@ def wide_rows(torch, k_gn, k_attn, k_res, calls, dtype) -> list:
                         print(f"cudnn sequence at {key}: {err}", flush=True)
                 if kind in ("attention", "resblock") and dtype == torch.float32:
                     row["bound_cores_ms"] = bound_ms(kind, a, k, F32_FLOPS)[0]
+                if kind.startswith("group_norm"):
+                    backward = kind == "group_norm_silu_bwd"
+                    row["plan"] = gn_plan(k_gn, a[0], a[7] if backward else a[3], backward)
+                    row["torch_seq_ms"] = device_ms(torch, seq)
                 rows.append(row)
     for r in rows:
         print(f"{str(dtype)[6:]:8s} {r['kernel']:20s} {r['key']:52s} sites {r['sites']:2d} "
@@ -1268,6 +1343,8 @@ def wide_rows(torch, k_gn, k_attn, k_res, calls, dtype) -> list:
               + (f" cores bound {r['bound_cores_ms']:.4f}" if r.get("bound_cores_ms") else "")
               + (f" sdpa {r['library_ms']:.4f}" if r["library_ms"] else "")
               + (f" cudnn_seq {r['cudnn_seq_ms']:.4f}" if r.get("cudnn_seq_ms") else "")
+              + (f" torch_seq {r['torch_seq_ms']:.4f} plan {r['plan']}"
+                 if "torch_seq_ms" in r else "")
               + (" token-major" if r.get("plan", {}).get("trans") else "")
               + f" repeat {'identical' if r['repeat_identical'] else 'DIFFERENT'}"
               + ("" if r["ok"] else "  FAIL"), flush=True)
@@ -1286,12 +1363,23 @@ def per_site_sum(rows, kind: str) -> dict:
                          if kind == "attention" else None)
     out["max_abs_err"] = max(r["max_abs_err"] for r in rs)
     out["bound_by"] = max(rs, key=lambda r: r["bound_ms"] * r["sites"])["bound_by"]
-    # the library sequences beside K1 and K4, and K3's and K4's f32
+    # the library sequences beside K1, K2 and K4, and K3's and K4's f32
     # CUDA-core bound, where every row has one
     for seq in ("torch_seq_ms", "cudnn_seq_ms", "bound_cores_ms"):
         if rs and all(r.get(seq) is not None for r in rs):
             out[seq] = sum(r[seq] * r["sites"] for r in rs)
     return out
+
+
+def _print_per_path(name: str, per_path: dict, card: str) -> None:
+    for kind, v in per_path.items():
+        print(f"{name} {kind} summed over its call sites: ms {v['ms']:.4f} plain "
+              f"{v['plain_ms']:.4f} bound {v['bound_ms']:.4f} ({v['bound_by']})"
+              + (f" cores bound {v['bound_cores_ms']:.4f}" if v.get("bound_cores_ms") else "")
+              + (f" sdpa {v['library_ms']:.4f}" if v["library_ms"] else "")
+              + (f" cudnn_seq {v['cudnn_seq_ms']:.4f}" if v.get("cudnn_seq_ms") else "")
+              + (f" torch_seq {v['torch_seq_ms']:.4f}" if v.get("torch_seq_ms") else "")
+              + f" [{card}]", flush=True)
 
 
 def harness_timing(torch, dtype: str, dev) -> dict:
@@ -1308,12 +1396,12 @@ def harness_timing(torch, dtype: str, dev) -> dict:
 
 
 def f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
-              card: str) -> dict:
+              card: str, gn_only: bool = False) -> dict:
     """Phase 10: the default harness in f32 (fault C.5), then fp16. For each
     dtype, one full-width ``LitDDPM`` training step at batch 128 and one
     ``LitDDIM`` DDIM step at n = 8 on the card, launching K1/K2/K3 (45/45/6)
-    and K1/K3/K4 (1/6/22): K1 and K2 of ``simt.cu``, K3 and K4 on the tensor
-    cores in that dtype, and no bf16 kernel; every call site held against its
+    and K1/K3/K4 (1/6/22): K1 and K2 of ``group_norm.cu``, K3 and K4 on the
+    tensor cores in that dtype, and no bf16 or ``simt.cu`` kernel; every call site held against its
     plain version (:func:`wide_rows`). Then, dropout off, the loss and
     gradient of one step and one UNet forward (the DDIM step's ε prediction)
     on the same weights and inputs against f32 on the CPU: f32 within
@@ -1322,7 +1410,8 @@ def f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
     The DDIM step's output is held to the same limits. Last, each dtype's
     default harness timed (``scripts/torch_f32_time.py:time_dtype``): the
     training step's median ms, device busy and idle share, and one DDIM-50
-    request at n = 8."""
+    request at n = 8. With ``gn_only`` (``--kernels-only``): each dtype's
+    training step and its K1 and K2 rows, nothing else."""
     from dmme_tpu_torch.data import CIFAR10
     from dmme_tpu_torch.parallel import make_train_step
     from dmme_tpu_torch.training import LitDDIM, LitDDPM
@@ -1401,6 +1490,16 @@ def f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
             fail(f"the {name} step launched {rec['train']['launches']} bf16 and "
                  f"{rec['train']['wide']} f32/fp16 kernels, expected none and "
                  f"{wide_expected(name, want_train)}")
+        if gn_only:
+            rec["rows"] = wide_rows(torch, k_gn, k_attn, k_res, {
+                k: v for k, v in calls.items() if k.startswith("group_norm")}, dtype)
+            rec["per_path"] = {kind: per_site_sum(rec["rows"], kind)
+                               for kind in ("group_norm_silu", "group_norm_silu_bwd")}
+            _print_per_path(name, rec["per_path"], card)
+            out[name] = rec
+            del lit, state, calls
+            torch.cuda.empty_cache()
+            continue
 
         for mod in lit.model.modules():  # dropout off: the card and the CPU draw other masks
             if isinstance(mod, blocks.ResBlock):
@@ -1432,14 +1531,7 @@ def f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
         rec["per_path"] = {kind: per_site_sum(rows, kind)
                            for kind in ("group_norm_silu", "group_norm_silu_bwd", "attention")}
         rec["per_path"]["resblock"] = per_site_sum(rows_ddim, "resblock")
-        for kind, v in rec["per_path"].items():
-            print(f"{name} {kind} summed over its call sites: ms {v['ms']:.4f} plain "
-                  f"{v['plain_ms']:.4f} bound {v['bound_ms']:.4f} ({v['bound_by']})"
-                  + (f" cores bound {v['bound_cores_ms']:.4f}" if v.get("bound_cores_ms")
-                     else "")
-                  + (f" sdpa {v['library_ms']:.4f}" if v["library_ms"] else "")
-                  + (f" cudnn_seq {v['cudnn_seq_ms']:.4f}" if v.get("cudnn_seq_ms") else "")
-                  + f" [{card}]", flush=True)
+        _print_per_path(name, rec["per_path"], card)
 
         reset_counts(ops)
         got = measure(lit, dev)
@@ -1476,6 +1568,8 @@ def f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
               f"{rec['timing']['request_idle_share']:.3f}) [{card}]", flush=True)
         torch.cuda.empty_cache()
 
+    if gn_only:
+        return out
     # the control: the bf16 harness on the same weights and inputs, through the
     # same comparison, must miss F32_REL_L2 (the f32 check would see bf16 compute)
     lit = LitDDPM(dtype="bf16")
@@ -1880,8 +1974,8 @@ def f32_iddpm_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, o
     """Phase 16: ``LitIDDPM()`` (f32, T = 1000 cosine, dropout 0.3) takes one
     full-width training step at batch 128 and one 50-step respaced step at
     n = 8 on the card (K1/K2/K3 45/45/11 a step, K1/K3/K4 1/11/22 a forward:
-    K1 and K2 of ``simt.cu``, K3 and K4 in f32 on the tensor cores, no bf16
-    kernel), every call site held against its
+    K1 and K2 of ``group_norm.cu``, K3 and K4 in f32 on the tensor cores, no
+    bf16 kernel), every call site held against its
     plain version (:func:`wide_rows`). Then, dropout off, the hybrid
     ``loss_given`` (t from the seed, one sample at t = 1) with its gradient
     and the respaced step (injected noise) against f32 on the CPU, within
@@ -1959,11 +2053,7 @@ def f32_iddpm_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, o
     out["per_path"] = {kind: per_site_sum(rows, kind)
                        for kind in ("group_norm_silu", "group_norm_silu_bwd", "attention")}
     out["per_path"]["resblock"] = per_site_sum(rows_fwd, "resblock")
-    for kind, v in out["per_path"].items():
-        print(f"f32 IDDPM {kind} summed over its call sites: ms {v['ms']:.4f} plain "
-              f"{v['plain_ms']:.4f} bound {v['bound_ms']:.4f} ({v['bound_by']})"
-              + (f" sdpa {v['library_ms']:.4f}" if v["library_ms"] else "") + f" [{card}]",
-              flush=True)
+    _print_per_path("f32 IDDPM", out["per_path"], card)
 
     def measure(harness, device, w):
         params = {k: v.to(device).requires_grad_(True) for k, v in w.items()}
@@ -2474,7 +2564,7 @@ def continuous_serve(torch, np, blocks, dev, ops, card: str, family: str) -> dic
 def f32_edm_phase(torch, np, blocks, ddpm_models, init_weights, dev, ops, card: str) -> dict:
     """Phase 22: ``LitEDM()`` (f32, the harness's default dtype) takes one
     full-width training step at batch 128 on the card (K1/K2/K3 45/45/6:
-    K1 and K2 of ``simt.cu``, K3 in f32 on the tensor cores; no bf16
+    K1 and K2 of ``group_norm.cu``, K3 in f32 on the tensor cores; no bf16
     kernel). Then, dropout off, on the same weights: ``loss_given`` and its
     gradient at batch 16 with σ from 0.002 to 80, and the Heun step from the
     middle of the 18-step grid at n = 8 (two forwards, K1/K3/K4 2/12/44
@@ -2754,11 +2844,11 @@ def main() -> int:
     ops = {"group_norm_silu": (k_gn, "launches"), "group_norm_silu_bwd": (k_gn, "bwd_launches"),
            "attention": (k_attn, "launches"), "resblock": (k_res, "launches")}
     WIDE.update({"simt": {"group_norm_silu": (k_gn, "simt_launches"),
-                          "group_norm_silu_bwd": (k_gn, "simt_bwd_launches")},
-                 "fp16": {"attention": (k_attn, "fp16_launches"),
-                          "resblock": (k_res, "fp16_launches")},
-                 "f32": {"attention": (k_attn, "f32_launches"),
-                         "resblock": (k_res, "f32_launches")}})
+                          "group_norm_silu_bwd": (k_gn, "simt_bwd_launches")}})
+    WIDE.update({d: {"group_norm_silu": (k_gn, f"{d}_launches"),
+                     "group_norm_silu_bwd": (k_gn, f"{d}_bwd_launches"),
+                     "attention": (k_attn, f"{d}_launches"),
+                     "resblock": (k_res, f"{d}_launches")} for d in ("fp16", "f32")})
     report = {"card": card, "torch": torch.__version__, "device": device_name}
 
     phase("build")
@@ -2826,10 +2916,16 @@ def main() -> int:
                                                 init_weights, LitDDPM, dev, card)
         phase("off-path kernels: shapes outside the main path against their plain versions")
         report["offpath"] = offpath_kernels(torch, k_gn, k_attn, k_res, dev)
+        phase("simt.cu widths: K1 and K2 outside group_norm.cu's domain, in three dtypes")
+        report["simt"] = simt_kernels(torch, k_gn, dev, ops)
         phase("LSUN widths: one UNet forward at batch 1, bf16 on the card vs f32 on the CPU")
         torch.set_num_threads(max(1, os.cpu_count() or 1))
         report["lsun"] = lsun_forward(torch, blocks, ddpm_models, init_weights, k_gn, k_attn,
                                       k_res, ops, dev)
+        torch.cuda.empty_cache()
+        phase("f32 and fp16 K1 and K2: LitDDPM() and LitDDPM(dtype='fp16') training steps")
+        report["f32"] = f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev,
+                                  ops, card, gn_only=True)
         if args.out:
             write_report(args.out, report)
         print("--kernels-only: stopped after the kernel phases; no result line", flush=True)
@@ -2937,6 +3033,8 @@ def main() -> int:
     phase("off-path kernels: shapes outside the main path against their plain versions")
     report["offpath"] = offpath_kernels(torch, k_gn, k_attn, k_res, dev)
     torch.cuda.empty_cache()
+    phase("simt.cu widths: K1 and K2 outside group_norm.cu's domain, in three dtypes")
+    report["simt"] = simt_kernels(torch, k_gn, dev, ops)
 
     phase("train gradient: loss_given + backward at batch 8, bf16 on the card vs f32 on the CPU")
     report["train_gradient"] = train_gradient(torch, np, blocks, ddpm_models, init_weights,
@@ -2985,8 +3083,8 @@ def main() -> int:
     report["cli"] = cli_phase(torch, np, ops, dev, card)
     torch.cuda.empty_cache()
 
-    phase("f32 and fp16: LitDDPM() and LitDDIM() on the card (fault C.5): K1/K2 on simt.cu, "
-          "K3/K4 on the tensor cores")
+    phase("f32 and fp16: LitDDPM() and LitDDIM() on the card (fault C.5): K1/K2 on "
+          "group_norm.cu, K3/K4 on the tensor cores")
     report["f32"] = f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
                               card)
     torch.cuda.empty_cache()
@@ -3061,17 +3159,14 @@ def main() -> int:
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
     })
-    # the default harness's dtypes: K1 and K2 of simt.cu, K3 and K4 on the
-    # tensor cores, launches in the phase's training step and DDIM step
+    # the default harness's dtypes: K1–K4 in that dtype, launches in the
+    # phase's training step and DDIM step
     for dname in ("f32", "fp16"):
         rec = report["f32"][dname]
         for kname in ("group_norm_silu", "group_norm_silu_bwd", "attention", "resblock"):
-            route_ = "simt" if kname.startswith("group_norm") else dname
             row = _table_row(f"{kname}_{dname}", kname, rec["per_path"][kname],
-                             rec["train"]["wide"][route_][kname]
-                             + rec["ddim_step"]["wide"][route_][kname])
-            if route_ == "simt":
-                row["source"] = "dmme_tpu_torch/ops/csrc/simt.cu"
+                             rec["train"]["wide"][dname][kname]
+                             + rec["ddim_step"]["wide"][dname][kname])
             row["max_abs_err"] = max(r["max_abs_err"] for r in rec["rows"] + rec["rows_ddim"]
                                      if r["kernel"] == kname)
             table.append(row)
@@ -3114,7 +3209,7 @@ def main() -> int:
           "library_ms per UNet forward at batch 8, summed over the serving path's call sites. "
           f"K2: launches in the {FIT_STEPS} logged fit steps; times per training step at "
           f"batch {TRAIN_BATCH}, summed over its 45 call sites. *_f32, *_fp16: the default "
-          f"harness in that dtype (K1 and K2 of simt.cu, K3 and K4 on the tensor cores, f32 "
+          f"harness in that dtype (K1 and K2 of group_norm.cu, K3 and K4 on the tensor cores, f32 "
           f"as 3xTF32); launches in the f32 phase's training step and DDIM step; times per "
           f"training step at batch {TRAIN_BATCH} (K1, K2, K3) and per UNet forward at "
           f"n = {BATCH} (K4), summed over their call sites. *_iddpm: the IDDPM UNet of "

@@ -7,8 +7,10 @@ kernel, the tensor's device and its dtype alone, before any build or
 launch: a CPU tensor takes the plain version; a CUDA tensor launches a
 kernel or raises. K3 and K4 take bf16, fp16 and f32 activations on the
 tensor cores (``attention.cu``, ``resblock.cu``: fp16 as bf16 is taken, f32
-as 3xTF32); K1 and K2 take bf16 on ``group_norm.cu`` and f32 and fp16 on
-the CUDA cores in ``simt.cu``, as the TPU kernels compute in any dtype.
+as 3xTF32); K1 and K2 take the three on ``group_norm.cu``'s bulk-copy
+cluster kernels, and send a width outside their domain (C % 8 != 0 or
+C > 2048) to ``simt.cu`` in any of them, as the TPU kernels compute any
+dtype and width.
 
 * :mod:`.group_norm` — GroupNorm(+pre-bias, +per-sample affine)+SiLU forward and
   backward, CUDA C++ (sm_90a)
@@ -21,25 +23,26 @@ The CUDA sources live in ``csrc/`` and are built by :mod:`.build`.
 import torch
 
 #: where a CUDA tensor goes, by kernel and activation dtype: "kernel" (the
-#: tensor-core kernels of group_norm.cu, attention.cu and resblock.cu) or
-#: "simt" (the CUDA-core kernels of simt.cu)
+#: kernels of group_norm.cu, attention.cu and resblock.cu; group_norm.py
+#: sends a width outside group_norm.cu's domain to simt.cu)
 ROUTES = {
-    "group_norm_silu": {torch.bfloat16: "kernel", torch.float32: "simt", torch.float16: "simt"},
+    "group_norm_silu": {torch.bfloat16: "kernel", torch.float32: "kernel",
+                        torch.float16: "kernel"},
     "attention": {torch.bfloat16: "kernel", torch.float16: "kernel", torch.float32: "kernel"},
     "resblock": {torch.bfloat16: "kernel", torch.float16: "kernel", torch.float32: "kernel"},
 }
 #: bytes of shared memory a block may use on an H100
 SMEM_MAX = 232448
-#: the activation dtypes of ``csrc/simt.cu``, by the code its entry points take
-SIMT_DTYPES = {torch.float32: 0, torch.float16: 1}
+#: the activation dtypes of ``csrc/simt.cu`` and ``csrc/group_norm.cu``, by
+#: the code their entry points take
+DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
 def route(device: torch.device, dtype: torch.dtype, kernel: str) -> str:
     """Where ``kernel`` (a key of :data:`ROUTES`) sends a call on tensors of
-    ``device`` and ``dtype``: ``"cpu"`` (the plain version), ``"kernel"``
-    (CUDA: the tensor-core kernel) or ``"simt"`` (CUDA: the kernel of
-    ``simt.cu``). Raises for any other device, and for a dtype the kernel
-    lacks on CUDA."""
+    ``device`` and ``dtype``: ``"cpu"`` (the plain version) or ``"kernel"``
+    (CUDA: the hand-written kernel). Raises for any other device, and for a
+    dtype the kernel lacks on CUDA."""
     if device.type == "cpu":
         return "cpu"
     if device.type != "cuda":
@@ -54,9 +57,9 @@ def route(device: torch.device, dtype: torch.dtype, kernel: str) -> str:
 def simt_code(x: torch.Tensor, what: str) -> int:
     """The ``simt.cu`` dtype code of ``x``; raises for a dtype it lacks."""
     try:
-        return SIMT_DTYPES[x.dtype]
+        return DTYPE_CODES[x.dtype]
     except KeyError:
-        raise TypeError(f"{what} simt kernel takes f32 or fp16, got {x.dtype}") from None
+        raise TypeError(f"{what} simt kernel takes f32, fp16 or bf16, got {x.dtype}") from None
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:

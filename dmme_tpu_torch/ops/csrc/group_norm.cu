@@ -1,5 +1,6 @@
 // GroupNorm(+pre-bias, +per-sample affine)+SiLU for Hopper (sm_90a): the
-// forward (K1) and the backward (K2), bf16 activations, f32 statistics.
+// forward (K1) and the backward (K2), bf16, fp16 or f32 activations (the
+// element type a template parameter), f32 statistics and sums.
 //
 // K1 replaces the TPU kernel dmme_tpu/ops/group_norm.py:_fwd_kernel
 // (reached through _fwd_pallas), K2 replaces _bwd_kernel (through
@@ -14,7 +15,7 @@
 //       with s = sigmoid(y); per channel dbeta = sum(dy), dgamma =
 //       sum(dy*xh); per group m1, m2 = sum_c(dbeta*gamma), sum_c(dgamma*
 //       gamma) over HW*C/G; dx = inv*(dy*gamma - m1 - xh*m2) and per channel
-//       dbias = sum(dx) (of the f32 dx, before its bf16 rounding).
+//       dbias = sum(dx) (of the f32 dx, before its rounding to x's type).
 //
 // Bound on the card: bytes. A few tens of f32 operations per element, far
 // below the ~295 operations per byte where the H100 stops being
@@ -24,22 +25,28 @@
 //     channels. NHWC makes the slab one byte range, which thread 0 brings
 //     into shared memory with 1-D TMA bulk copies (cp.async.bulk) in chunks
 //     of <= 32 KB a tensor, one mbarrier each, so the statistics start on
-//     the first chunk while the others land. Threads map to 16-byte vectors of 8
-//     channels; every load and store is a whole 16-byte vector of a
-//     contiguous row, and any C % 8 == 0 with C % G == 0 works (C/G = 3
-//     included), since groups are summed from per-channel sums;
+//     the first chunk while the others land. Threads map to 8 channels, in
+//     every type: one 16-byte vector of bf16 or fp16, two of f32; every load
+//     and store is a whole 16-byte vector of a contiguous row, and any
+//     C % 8 == 0 with C % G == 0 works (C/G = 3 included), since groups are
+//     summed from per-channel sums. Only the vector's unpack and pack and
+//     the slab's bytes depend on the type, so the three types sum in the
+//     same order;
 //   - the slab stays in shared memory between the statistics and the
 //     apply (K2: x and dz between its two passes), so DRAM is read once;
 //   - a sample larger than a block's slab is split over a thread-block
-//     cluster of up to 8 blocks along its pixels. Each block's per-channel
-//     partial sums go to its shared memory; after a cluster barrier every
-//     block reads all of them through distributed shared memory in rank
-//     order, so all ranks hold the same totals, and rank 0 writes the
-//     per-sample outputs;
+//     cluster along its pixels, of up to 8 blocks (the portable size; at
+//     f32 K2's 32x32x256 sites, where 8 cannot hold a sample, a cluster of
+//     16 measured slower than two passes on an H100: PERF.md). Each block's
+//     per-channel partial sums go to its shared memory; after a cluster
+//     barrier every block reads all of them through distributed shared
+//     memory in rank order, so all ranks hold the same totals, and rank 0
+//     writes the per-sample outputs;
 //   - a sample that no cluster of 8 can hold (the 256x256 layers of the
-//     LSUN widths) takes two passes over global memory: per-(sample, chunk)
-//     f32 channel partials, a per-sample launch that sums them in chunk
-//     order, then the apply (K2: dx and its partials, then their sum);
+//     LSUN widths; f32 K2 at 32x32x256) takes two passes over global
+//     memory: per-(sample, chunk) f32 channel partials, a per-sample launch
+//     that sums them in chunk order, then the apply (K2: dx and its
+//     partials, then their sum);
 //   - the group sums run a warp a group, and the per-sample rows (gamma,
 //     beta, bias; K2's saved statistics) are staged in shared memory by all
 //     threads while the bulk copies are in flight, so no thread walks a
@@ -57,6 +64,8 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
@@ -64,7 +73,7 @@ using namespace hopper;
 
 namespace {
 
-constexpr int VEC = 8;          // bf16 channels a 16-byte vector
+constexpr int VEC = 8;          // channels a thread: a 16-byte vector of bf16 or fp16
 constexpr int MAX_CHUNKS = 16;  // bulk copies (and mbarriers) a block
 constexpr int MAX_CLUSTER = 8;
 
@@ -76,19 +85,65 @@ struct Vecs {
   int sg, sb, sp;
 };
 
-// by value: the 16-byte load happens once, into registers
-__device__ __forceinline__ void unpack8(uint4 v, float (&f)[VEC]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+// A thread's 8 channels of E: one 16-byte vector of bf16 or fp16, two of f32
+template <typename E>
+struct V8 {
+  uint4 q[sizeof(E) / 2];
+};
+
+// by value: the 16-byte loads happen once, into registers
+template <typename E>
+__device__ __forceinline__ void unpack8(const V8<E>& v, float (&f)[VEC]) {
+  if constexpr (std::is_same_v<E, float>) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
+    for (int j = 0; j < 2; ++j) {
+      f[4 * j] = __uint_as_float(v.q[j].x);
+      f[4 * j + 1] = __uint_as_float(v.q[j].y);
+      f[4 * j + 2] = __uint_as_float(v.q[j].z);
+      f[4 * j + 3] = __uint_as_float(v.q[j].w);
+    }
+  } else {
+    const uint32_t w[4] = {v.q[0].x, v.q[0].y, v.q[0].z, v.q[0].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 t;
+      if constexpr (std::is_same_v<E, __half>)
+        t = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      else
+        t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
   }
 }
-__device__ __forceinline__ uint4 pack8(const float (&f)[VEC]) {
-  return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
-                    pack_bf16(f[6], f[7]));
+// to nearest, even; fp16 keeps its subnormals (down to 2^-24)
+template <typename E>
+__device__ __forceinline__ V8<E> pack8(const float (&f)[VEC]) {
+  V8<E> v;
+  if constexpr (std::is_same_v<E, float>) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      v.q[j] = make_uint4(__float_as_uint(f[4 * j]), __float_as_uint(f[4 * j + 1]),
+                          __float_as_uint(f[4 * j + 2]), __float_as_uint(f[4 * j + 3]));
+  } else {
+    v.q[0] = make_uint4(pack2<E>(f[0], f[1]), pack2<E>(f[2], f[3]), pack2<E>(f[4], f[5]),
+                        pack2<E>(f[6], f[7]));
+  }
+  return v;
+}
+// A vector from global memory through the read-only path, and one stored
+// past L1 (each byte is written once)
+template <typename E>
+__device__ __forceinline__ V8<E> ldg8(const V8<E>* p) {
+  V8<E> v;
+#pragma unroll
+  for (int j = 0; j < (int)(sizeof(E) / 2); ++j) v.q[j] = __ldg(p->q + j);
+  return v;
+}
+template <typename E>
+__device__ __forceinline__ void stcg8(V8<E>* p, const V8<E>& v) {
+#pragma unroll
+  for (int j = 0; j < (int)(sizeof(E) / 2); ++j) __stcg(p->q + j, v.q[j]);
 }
 // two special-function operations (exp2, reciprocal) and no division
 __device__ __forceinline__ float sigmoid(float y) { return __fdividef(1.f, 1.f + __expf(-y)); }
@@ -141,15 +196,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The shared-memory layout of a one-pass block; the same arithmetic as
-// ops/group_norm.py:_smem_bytes. Offsets in bytes from the base: the slab (x, and dz for K2, each `tensor` bytes), the row sums,
+// The shared-memory layout of a one-pass block on `esize`-byte elements;
+// the same arithmetic as ops/group_norm.py:_smem_bytes. Offsets in bytes
+// from the base: the slab (x, and dz for K2, each `tensor` bytes), the row sums,
 // the channel partials and totals, and chan's 7 per-channel rows: [0, 2C)
 // coefficients, [2C, 3C) and [3C, 4C) the groups' mean and inverse std,
 // [4C, 7C) gamma, beta, bias; then one mbarrier a chunk.
 struct Layout {
   int tensor, red, part, tot, chan, bars, bytes;
-  __host__ __device__ Layout(bool bwd, int pixels, int C, int threads) {
-    tensor = ((pixels * C * 2 + 127) / 128) * 128;
+  __host__ __device__ Layout(bool bwd, int pixels, int C, int threads, int esize) {
+    tensor = ((pixels * C * esize + 127) / 128) * 128;
     red = (bwd ? 2 : 1) * tensor;
     part = red + 2 * threads * VEC * 4;  // 2 x rows x C floats, rows*C <= threads*8
     tot = part + 3 * C * 4;              // fwd: 2C sums; bwd: 2C pass 1 + C pass 2
@@ -166,13 +222,13 @@ __device__ __forceinline__ unsigned char* block_smem() {
   return smem_raw;
 }
 
-// Thread 0: bring `np` pixels of NSRC tensors (C bf16 channels a pixel,
+// Thread 0: bring `np` pixels of NSRC tensors (C channels of E a pixel,
 // src[i] to dst[i], `tensor` bytes apart in shared memory) into shared
 // memory in chunks of `chunk` pixels, one mbarrier a chunk. The caller
 // synchronises before any wait.
-template <int NSRC>
+template <typename E, int NSRC>
 __device__ __forceinline__ void load_slab(unsigned char* dst, int tensor,
-                                          const bf16* const (&src)[NSRC], int np, int chunk,
+                                          const E* const (&src)[NSRC], int np, int chunk,
                                           int C, uint64_t* bars) {
   if (threadIdx.x != 0) return;
   const int nchunks = (np + chunk - 1) / chunk;
@@ -180,12 +236,12 @@ __device__ __forceinline__ void load_slab(unsigned char* dst, int tensor,
   fence_barrier_init();
   for (int j = 0; j < nchunks; ++j) {
     const int px = min(chunk, np - j * chunk);
-    const uint32_t bytes = (uint32_t)px * C * 2;
+    const uint32_t bytes = (uint32_t)px * C * sizeof(E);
     mbar_arrive_expect_tx(&bars[j], NSRC * bytes);
     const size_t off = (size_t)j * chunk * C;
 #pragma unroll
     for (int i = 0; i < NSRC; ++i)
-      bulk_load(reinterpret_cast<bf16*>(dst + i * tensor) + off, src[i] + off, bytes, &bars[j]);
+      bulk_load(reinterpret_cast<E*>(dst + i * tensor) + off, src[i] + off, bytes, &bars[j]);
   }
 }
 
@@ -263,7 +319,8 @@ __device__ __forceinline__ void fwd_coefficients(const float* tot, float* chan, 
 }
 
 // y = silu(x*a + d) over `np` pixels of `src` (shared or global) into dst
-__device__ __forceinline__ void apply_fwd(const bf16* src, bf16* dst, const float* chan,
+template <typename E>
+__device__ __forceinline__ void apply_fwd(const E* src, E* dst, const float* chan,
                                           const Lanes& L, int np, int C) {
   if (!L.live) return;
   float a[VEC], d[VEC];
@@ -276,13 +333,13 @@ __device__ __forceinline__ void apply_fwd(const bf16* src, bf16* dst, const floa
 #pragma unroll 2
   for (int p = L.row; p < np; p += L.rows) {
     float f[VEC];
-    unpack8(reinterpret_cast<const uint4*>(src)[p * V + L.v], f);
+    unpack8(reinterpret_cast<const V8<E>*>(src)[p * V + L.v], f);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
       const float y = fmaf(f[i], a[i], d[i]);
       f[i] = y * sigmoid(y);
     }
-    __stcg(reinterpret_cast<uint4*>(dst) + (size_t)p * V + L.v, pack8(f));
+    stcg8(reinterpret_cast<V8<E>*>(dst) + (size_t)p * V + L.v, pack8<E>(f));
   }
 }
 
@@ -314,7 +371,8 @@ __device__ __forceinline__ void xhat_dy(const BwdCoef& k, int i, float x, float 
   dy = dz * (s * fmaf(y, 1.f - s, 1.f));
 }
 // pass 1 of K2 on one vector: per-channel sum(dy), sum(dy*xh)
-__device__ __forceinline__ void bwd_pass1(const BwdCoef& k, uint4 xv, uint4 dv,
+template <typename E>
+__device__ __forceinline__ void bwd_pass1(const BwdCoef& k, const V8<E>& xv, const V8<E>& dv,
                                           float (&acc)[2][VEC]) {
   float x[VEC], dz[VEC];
   unpack8(xv, x);
@@ -341,8 +399,9 @@ __device__ __forceinline__ void bwd_coef2(BwdCoef2& k2, const BwdCoef& k, const 
   }
 }
 // pass 2 of K2 on one vector: dx, and its per-channel sum
-__device__ __forceinline__ uint4 bwd_pass2(const BwdCoef& k, const BwdCoef2& k2, uint4 xv,
-                                           uint4 dv, float (&acc)[1][VEC]) {
+template <typename E>
+__device__ __forceinline__ V8<E> bwd_pass2(const BwdCoef& k, const BwdCoef2& k2, const V8<E>& xv,
+                                           const V8<E>& dv, float (&acc)[1][VEC]) {
   float x[VEC], dz[VEC];
   unpack8(xv, x);
   unpack8(dv, dz);
@@ -354,7 +413,7 @@ __device__ __forceinline__ uint4 bwd_pass2(const BwdCoef& k, const BwdCoef2& k2,
     acc[0][i] += du;
     x[i] = du;
   }
-  return pack8(x);
+  return pack8<E>(x);
 }
 
 // Per-group m1, m2 from the per-channel totals (tot[0..C) = dbeta,
@@ -386,13 +445,14 @@ __device__ __forceinline__ void bwd_group_means(const float* tot, float* chan, c
 // pixels [r*pixels, min(HW, (r+1)*pixels)) in shared memory. With one block
 // a sample the launch is a plain one, and the cluster barriers and
 // distributed loads act on the block's own implicit one-block cluster.
+template <typename E>
 __global__ void __launch_bounds__(512)
-gn_fwd_cluster_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, float* __restrict__ mean,
+gn_fwd_cluster_kernel(const E* __restrict__ x, E* __restrict__ y, float* __restrict__ mean,
                       float* __restrict__ inv, const Vecs vv, int HW, int C, int G, int pixels,
                       int chunk, float eps) {
-  const Layout lay(false, pixels, C, blockDim.x);
+  const Layout lay(false, pixels, C, blockDim.x, sizeof(E));
   unsigned char* sm = block_smem();
-  const bf16* slab = reinterpret_cast<const bf16*>(sm);
+  const E* slab = reinterpret_cast<const E*>(sm);
   float* red = reinterpret_cast<float*>(sm + lay.red);
   float* part = reinterpret_cast<float*>(sm + lay.part);
   float* tot = reinterpret_cast<float*>(sm + lay.tot);
@@ -403,8 +463,8 @@ gn_fwd_cluster_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, float* _
   const int p0 = rank * pixels, np = min(HW - p0, pixels);
   const size_t base = ((size_t)n * HW + p0) * C;
   {
-    const bf16* const src[1] = {x + base};
-    load_slab<1>(sm, lay.tensor, src, np, chunk, C, bars);
+    const E* const src[1] = {x + base};
+    load_slab<E, 1>(sm, lay.tensor, src, np, chunk, C, bars);
   }
   stage_rows(rows, vv, n, C);
   __syncthreads();
@@ -417,7 +477,7 @@ gn_fwd_cluster_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, float* _
     for (int p = L.row; p < np; p += L.rows) {
       while (ready <= p / chunk) mbar_wait(&bars[ready++], 0);
       float f[VEC];
-      unpack8(reinterpret_cast<const uint4*>(slab)[p * V + L.v], f);
+      unpack8(reinterpret_cast<const V8<E>*>(slab)[p * V + L.v], f);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         acc[0][i] += f[i];
@@ -436,16 +496,17 @@ gn_fwd_cluster_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, float* _
   cluster_wait();  // no block leaves while another may still read its partials
 }
 
+template <typename E>
 __global__ void __launch_bounds__(512)
-gn_bwd_cluster_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dz,
-                      bf16* __restrict__ dx, float* __restrict__ dgamma,
-                      float* __restrict__ dbeta, float* __restrict__ dbias,
-                      const float* __restrict__ mean, const float* __restrict__ inv,
-                      const Vecs vv, int HW, int C, int G, int pixels, int chunk) {
-  const Layout lay(true, pixels, C, blockDim.x);
+gn_bwd_cluster_kernel(const E* __restrict__ x, const E* __restrict__ dz, E* __restrict__ dx,
+                      float* __restrict__ dgamma, float* __restrict__ dbeta,
+                      float* __restrict__ dbias, const float* __restrict__ mean,
+                      const float* __restrict__ inv, const Vecs vv, int HW, int C, int G,
+                      int pixels, int chunk) {
+  const Layout lay(true, pixels, C, blockDim.x, sizeof(E));
   unsigned char* sm = block_smem();
-  const uint4* sx = reinterpret_cast<const uint4*>(sm);
-  const uint4* sdz = reinterpret_cast<const uint4*>(sm + lay.tensor);
+  const V8<E>* sx = reinterpret_cast<const V8<E>*>(sm);
+  const V8<E>* sdz = reinterpret_cast<const V8<E>*>(sm + lay.tensor);
   float* red = reinterpret_cast<float*>(sm + lay.red);
   float* part = reinterpret_cast<float*>(sm + lay.part);  // 2C pass 1, then C pass 2
   float* part2 = part + 2 * C;
@@ -457,8 +518,8 @@ gn_bwd_cluster_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dz,
   const int p0 = rank * pixels, np = min(HW - p0, pixels);
   const size_t base = ((size_t)n * HW + p0) * C;
   {
-    const bf16* const src[2] = {x + base, dz + base};
-    load_slab<2>(sm, lay.tensor, src, np, chunk, C, bars);
+    const E* const src[2] = {x + base, dz + base};
+    load_slab<E, 2>(sm, lay.tensor, src, np, chunk, C, bars);
   }
   stage_rows(rows, vv, n, C);
   for (int g = threadIdx.x; g < G; g += blockDim.x) {
@@ -478,7 +539,7 @@ gn_bwd_cluster_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dz,
 #pragma unroll 2
     for (int p = L.row; p < np; p += L.rows) {
       while (ready <= p / chunk) mbar_wait(&bars[ready++], 0);
-      bwd_pass1(k, sx[p * V + L.v], sdz[p * V + L.v], acc);
+      bwd_pass1<E>(k, sx[p * V + L.v], sdz[p * V + L.v], acc);
     }
   }
   block_channel_sums<2>(acc, L, red, part, C);
@@ -496,10 +557,11 @@ gn_bwd_cluster_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dz,
   if (L.live) {
     BwdCoef2 k2;
     bwd_coef2(k2, k, L, chan, C);
-    uint4* out = reinterpret_cast<uint4*>(dx + base);
+    V8<E>* out = reinterpret_cast<V8<E>*>(dx + base);
 #pragma unroll 2
     for (int p = L.row; p < np; p += L.rows)
-      __stcg(out + (size_t)p * V + L.v, bwd_pass2(k, k2, sx[p * V + L.v], sdz[p * V + L.v], acc2));
+      stcg8(out + (size_t)p * V + L.v,
+            bwd_pass2<E>(k, k2, sx[p * V + L.v], sdz[p * V + L.v], acc2));
   }
   block_channel_sums<1>(acc2, L, red, part2, C);
   cluster_sync();  // pass-2 partials are in place; every rank is past pass 1's reads
@@ -515,9 +577,9 @@ gn_bwd_cluster_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dz,
 // grid (blocks, N); block j of sample n takes pixels [j*pixels, ...) from
 // global memory and writes its 2 x C channel partials at
 // part[(n*blocks + j)*2C]
-template <bool BWD>
+template <typename E, bool BWD>
 __global__ void __launch_bounds__(256)
-gn_partial_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dz,
+gn_partial_kernel(const E* __restrict__ x, const E* __restrict__ dz,
                   const float* __restrict__ mean, const float* __restrict__ inv, const Vecs vv,
                   float* __restrict__ part, int HW, int C, int G, int pixels) {
   __shared__ __align__(16) float red[2 * 256 * VEC];
@@ -528,18 +590,18 @@ gn_partial_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dz,
   const int V = C / VEC;
   float acc[2][VEC] = {};
   if (L.live) {
-    const uint4* xs = reinterpret_cast<const uint4*>(x + base);
+    const V8<E>* xs = reinterpret_cast<const V8<E>*>(x + base);
     if constexpr (BWD) {
       BwdCoef k;
       bwd_coef(k, L, vv.gamma + n * vv.sg, vv.beta + n * vv.sb,
                vv.bias ? vv.bias + n * vv.sp : nullptr, mean + n * G, inv + n * G, C / G);
-      const uint4* ds = reinterpret_cast<const uint4*>(dz + base);
+      const V8<E>* ds = reinterpret_cast<const V8<E>*>(dz + base);
       for (int p = L.row; p < np; p += L.rows)
-        bwd_pass1(k, __ldg(xs + (size_t)p * V + L.v), __ldg(ds + (size_t)p * V + L.v), acc);
+        bwd_pass1<E>(k, ldg8(xs + (size_t)p * V + L.v), ldg8(ds + (size_t)p * V + L.v), acc);
     } else {
       for (int p = L.row; p < np; p += L.rows) {
         float f[VEC];
-        unpack8(__ldg(xs + (size_t)p * V + L.v), f);
+        unpack8(ldg8(xs + (size_t)p * V + L.v), f);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
           acc[0][i] += f[i];
@@ -589,8 +651,9 @@ gn_finalize_kernel(const float* __restrict__ part, int chunks, int Q, int mode, 
 
 // grid (blocks, N): K1's apply from global memory with the coefficients of
 // gn_finalize_kernel
+template <typename E>
 __global__ void __launch_bounds__(256)
-gn_apply_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, const float* __restrict__ coef,
+gn_apply_kernel(const E* __restrict__ x, E* __restrict__ y, const float* __restrict__ coef,
                 int HW, int C, int pixels) {
   const int j = blockIdx.x, n = blockIdx.y;
   const int p0 = j * pixels, np = min(HW - p0, pixels);
@@ -600,8 +663,9 @@ gn_apply_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, const float* _
 
 // grid (blocks, N): K2's pass 2 from global memory; dx and its chunk
 // partials (C floats a chunk)
+template <typename E>
 __global__ void __launch_bounds__(256)
-gn_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dz, bf16* __restrict__ dx,
+gn_dx_kernel(const E* __restrict__ x, const E* __restrict__ dz, E* __restrict__ dx,
              const float* __restrict__ mean, const float* __restrict__ inv, const Vecs vv,
              const float* __restrict__ coef, float* __restrict__ part, int HW, int C, int G,
              int pixels) {
@@ -618,12 +682,12 @@ gn_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dz, bf16* __re
              vv.bias ? vv.bias + n * vv.sp : nullptr, mean + n * G, inv + n * G, C / G);
     BwdCoef2 k2;
     bwd_coef2(k2, k, L, coef + (size_t)n * 2 * C, C);
-    const uint4* xs = reinterpret_cast<const uint4*>(x + base);
-    const uint4* ds = reinterpret_cast<const uint4*>(dz + base);
-    uint4* out = reinterpret_cast<uint4*>(dx + base);
+    const V8<E>* xs = reinterpret_cast<const V8<E>*>(x + base);
+    const V8<E>* ds = reinterpret_cast<const V8<E>*>(dz + base);
+    V8<E>* out = reinterpret_cast<V8<E>*>(dx + base);
     for (int p = L.row; p < np; p += L.rows) {
       const size_t e = (size_t)p * V + L.v;
-      __stcg(out + e, bwd_pass2(k, k2, __ldg(xs + e), __ldg(ds + e), acc));
+      stcg8(out + e, bwd_pass2<E>(k, k2, ldg8(xs + e), ldg8(ds + e), acc));
     }
   }
   block_channel_sums<1>(acc, L, red, part + ((size_t)n * gridDim.x + j) * C, C);
@@ -655,72 +719,113 @@ cudaError_t launch_cluster(Kernel kernel, int blocks, int N, int threads, int sm
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-}  // namespace
-
-// The plan's fields (ops/group_norm.py:gn_plan): `blocks` along a sample's
-// pixels, `pixels` a block (the last may take fewer), `chunk` pixels a bulk
-// copy, `threads` a block; two_pass == 0: one cluster of `blocks` per
-// sample, each holding its pixels in shared memory; two_pass == 1: part
-// holds N*blocks*2*C f32 and coef N*2*C f32 scratch (both null, and not
-// read, in one pass). x, y: (N, HW, C) bf16, 16-byte aligned, C % 8 == 0,
-// C % G == 0, C <= 8*threads; mean, inv: (N, G) f32 out. Returns a
-// cudaError_t.
-extern "C" int dmme_gn_silu_fwd(const void* x, void* y, float* mean, float* inv,
-                                const float* gamma, int sg, const float* beta, int sb,
-                                const float* bias, int sp, int N, int HW, int C, int G,
-                                float eps, int blocks, int pixels, int chunk, int threads,
-                                int two_pass, float* part, float* coef, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  bf16* yb = static_cast<bf16*>(y);
-  const Vecs vv{gamma, beta, bias, sg, sb, sp};
+template <typename E>
+int gn_fwd(const void* x, void* y, float* mean, float* inv, const Vecs& vv, int N, int HW,
+           int C, int G, float eps, int blocks, int pixels, int chunk, int threads, int two_pass,
+           float* part, float* coef, cudaStream_t s) {
+  const E* xe = static_cast<const E*>(x);
+  E* ye = static_cast<E*>(y);
   cudaError_t err;
   if (!two_pass) {
-    const int smem = Layout(false, pixels, C, threads).bytes;
-    err = launch_cluster(gn_fwd_cluster_kernel, blocks, N, threads, smem, s, xb, yb, mean, inv,
+    const int smem = Layout(false, pixels, C, threads, sizeof(E)).bytes;
+    err = launch_cluster(gn_fwd_cluster_kernel<E>, blocks, N, threads, smem, s, xe, ye, mean, inv,
                          vv, HW, C, G, pixels, chunk, eps);
   } else {
     const dim3 grid(blocks, N);
-    gn_partial_kernel<false><<<grid, 256, 0, s>>>(xb, nullptr, nullptr, nullptr, vv, part, HW,
-                                                   C, G, pixels);
+    gn_partial_kernel<E, false><<<grid, 256, 0, s>>>(xe, nullptr, nullptr, nullptr, vv, part, HW,
+                                                      C, G, pixels);
     gn_finalize_kernel<<<N, 256, 6 * C * 4, s>>>(part, blocks, 2, 0, vv, mean, inv, coef, HW, C,
                                                  G, eps);
-    gn_apply_kernel<<<grid, 256, 0, s>>>(xb, yb, coef, HW, C, pixels);
+    gn_apply_kernel<E><<<grid, 256, 0, s>>>(xe, ye, coef, HW, C, pixels);
     err = cudaSuccess;
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// K2: x, dz, dx (N, HW, C) bf16; mean, inv (N, G) f32 from K1; dgamma,
-// dbeta, dbias (N, C) f32 out. Two passes: part holds N*blocks*2*C f32,
-// part2 N*blocks*C and coef N*2*C (all null in one pass).
-extern "C" int dmme_gn_silu_bwd(const void* x, const void* dz, void* dx, float* dgamma,
-                                float* dbeta, float* dbias, const float* mean, const float* inv,
-                                const float* gamma, int sg, const float* beta, int sb,
-                                const float* bias, int sp, int N, int HW, int C, int G,
-                                int blocks, int pixels, int chunk, int threads, int two_pass,
-                                float* part, float* part2, float* coef, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* db = static_cast<const bf16*>(dz);
-  bf16* dxb = static_cast<bf16*>(dx);
-  const Vecs vv{gamma, beta, bias, sg, sb, sp};
+template <typename E>
+int gn_bwd(const void* x, const void* dz, void* dx, float* dgamma, float* dbeta, float* dbias,
+           const float* mean, const float* inv, const Vecs& vv, int N, int HW, int C, int G,
+           int blocks, int pixels, int chunk, int threads, int two_pass, float* part,
+           float* part2, float* coef, cudaStream_t s) {
+  const E* xe = static_cast<const E*>(x);
+  const E* de = static_cast<const E*>(dz);
+  E* dxe = static_cast<E*>(dx);
   cudaError_t err;
   if (!two_pass) {
-    const int smem = Layout(true, pixels, C, threads).bytes;
-    err = launch_cluster(gn_bwd_cluster_kernel, blocks, N, threads, smem, s, xb, db, dxb, dgamma,
-                         dbeta, dbias, mean, inv, vv, HW, C, G, pixels, chunk);
+    const int smem = Layout(true, pixels, C, threads, sizeof(E)).bytes;
+    err = launch_cluster(gn_bwd_cluster_kernel<E>, blocks, N, threads, smem, s, xe, de, dxe,
+                         dgamma, dbeta, dbias, mean, inv, vv, HW, C, G, pixels, chunk);
   } else {
     const dim3 grid(blocks, N);
-    gn_partial_kernel<true><<<grid, 256, 0, s>>>(xb, db, mean, inv, vv, part, HW, C, G, pixels);
+    gn_partial_kernel<E, true><<<grid, 256, 0, s>>>(xe, de, mean, inv, vv, part, HW, C, G,
+                                                     pixels);
     gn_finalize_kernel<<<N, 256, 6 * C * 4, s>>>(part, blocks, 2, 1, vv, dbeta, dgamma, coef,
                                                  HW, C, G, 0.f);
-    gn_dx_kernel<<<grid, 256, 0, s>>>(xb, db, dxb, mean, inv, vv, coef, part2, HW, C, G, pixels);
+    gn_dx_kernel<E><<<grid, 256, 0, s>>>(xe, de, dxe, mean, inv, vv, coef, part2, HW, C, G,
+                                         pixels);
     gn_finalize_kernel<<<N, 256, 6 * C * 4, s>>>(part2, blocks, 1, 2, vv, dbias, nullptr,
                                                  nullptr, HW, C, G, 0.f);
     err = cudaSuccess;
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype codes (ops/__init__.py:DTYPE_CODES): 0 f32, 1 fp16, 2 bf16.
+//
+// The plan's fields (ops/group_norm.py:gn_plan): `blocks` along a sample's
+// pixels, `pixels` a block (the last may take fewer), `chunk` pixels a bulk
+// copy, `threads` a block; two_pass == 0: one cluster of `blocks` (at most
+// 8) per sample, each holding its pixels in shared memory; two_pass == 1:
+// part holds N*blocks*2*C f32 and coef N*2*C f32 scratch (both null, and
+// not read, in one pass). x, y: (N, HW, C) in the dtype, 16-byte aligned,
+// C % 8 == 0, C % G == 0, C <= 8*threads; mean, inv: (N, G) f32 out.
+// Returns a cudaError_t.
+extern "C" int dmme_gn_silu_fwd(int dtype, const void* x, void* y, float* mean, float* inv,
+                                const float* gamma, int sg, const float* beta, int sb,
+                                const float* bias, int sp, int N, int HW, int C, int G,
+                                float eps, int blocks, int pixels, int chunk, int threads,
+                                int two_pass, float* part, float* coef, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Vecs vv{gamma, beta, bias, sg, sb, sp};
+  switch (dtype) {
+    case 0:
+      return gn_fwd<float>(x, y, mean, inv, vv, N, HW, C, G, eps, blocks, pixels, chunk,
+                           threads, two_pass, part, coef, s);
+    case 1:
+      return gn_fwd<__half>(x, y, mean, inv, vv, N, HW, C, G, eps, blocks, pixels, chunk,
+                            threads, two_pass, part, coef, s);
+    case 2:
+      return gn_fwd<bf16>(x, y, mean, inv, vv, N, HW, C, G, eps, blocks, pixels, chunk,
+                          threads, two_pass, part, coef, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2: x, dz, dx (N, HW, C) in the dtype; mean, inv (N, G) f32 from K1;
+// dgamma, dbeta, dbias (N, C) f32 out. Two passes: part holds N*blocks*2*C
+// f32, part2 N*blocks*C and coef N*2*C (all null in one pass).
+extern "C" int dmme_gn_silu_bwd(int dtype, const void* x, const void* dz, void* dx,
+                                float* dgamma, float* dbeta, float* dbias, const float* mean,
+                                const float* inv, const float* gamma, int sg, const float* beta,
+                                int sb, const float* bias, int sp, int N, int HW, int C, int G,
+                                int blocks, int pixels, int chunk, int threads, int two_pass,
+                                float* part, float* part2, float* coef, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Vecs vv{gamma, beta, bias, sg, sb, sp};
+  switch (dtype) {
+    case 0:
+      return gn_bwd<float>(x, dz, dx, dgamma, dbeta, dbias, mean, inv, vv, N, HW, C, G, blocks,
+                           pixels, chunk, threads, two_pass, part, part2, coef, s);
+    case 1:
+      return gn_bwd<__half>(x, dz, dx, dgamma, dbeta, dbias, mean, inv, vv, N, HW, C, G, blocks,
+                            pixels, chunk, threads, two_pass, part, part2, coef, s);
+    case 2:
+      return gn_bwd<bf16>(x, dz, dx, dgamma, dbeta, dbias, mean, inv, vv, N, HW, C, G, blocks,
+                          pixels, chunk, threads, two_pass, part, part2, coef, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

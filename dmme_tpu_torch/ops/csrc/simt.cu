@@ -1,18 +1,18 @@
-// K1 and K2 for f32 and fp16 activations, on the CUDA cores.
+// K1 and K2 at the widths group_norm.cu does not take, on the CUDA cores.
 //
 // The TPU kernels (dmme_tpu/ops/group_norm.py:_fwd_kernel and _bwd_kernel)
-// are written for any activation dtype. The Hopper kernels in group_norm.cu
-// are bf16 only: their TMA bulk copies and 16-byte vectors are laid out for
-// 2-byte bf16. This file holds the same two functions for f32 and fp16 (the
-// element type a template parameter, every sum in f32), in plain CUDA C++:
+// are written for any activation dtype and any C % G == 0. The Hopper
+// kernels in group_norm.cu take bf16, fp16 and f32 at C % 8 == 0 and
+// C <= 2048: their threads own 16-byte vectors of 8 channels.
+// ops/group_norm.py:kernel_takes sends every other width here, decided from
+// the shape before any launch. This file holds the same two functions for
+// f32, fp16 and bf16 (the element type a template parameter, every sum in
+// f32), in plain CUDA C++:
 //
 //   gn_fwd_kernel   K1: y = silu(GN(x + bias)·γ + β) and the (N, G) mean and
 //                   inverse std, a block per (group, sample);
 //   gn_bwd_kernel   K2: dx, and the (N, C) dγ, dβ, dbias sums, a block per
 //                   (group, sample).
-//
-// K3 and K4 take f32 and fp16 on the tensor cores (attention.cu and
-// resblock.cu: fp16 as bf16 is taken, f32 as 3xTF32).
 //
 // Bound on an H100: bytes. The design is the simplest that is right: a
 // GroupNorm group stays in one block (the block loops over its pixels twice,
@@ -20,6 +20,7 @@
 // threads in a fixed order (no atomics: repeated runs agree bit for bit).
 // Speed is later work.
 
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -31,10 +32,14 @@ constexpr int THREADS = 256;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half_rn(v); }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 __device__ __forceinline__ float silu(float y) { return y / (1.0f + expf(-y)); }
 
@@ -242,9 +247,27 @@ cudaError_t gn_fwd(const void* x, void* y, float* mean, float* inv, const float*
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t gn_bwd(const void* x, const void* dz, void* dx, float* dgamma, float* dbeta,
+                   float* dbias, const float* mean, const float* inv, const float* gamma, int sg,
+                   const float* beta, int sb, const float* bias, int sp, int n, int hw, int c,
+                   int groups, cudaStream_t stream) {
+  const size_t smem = gn_smem(c, groups);
+  auto kern = gn_bwd_kernel<T>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<dim3(groups, n), THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dz), static_cast<T*>(dx), dgamma, dbeta,
+      dbias, mean, inv, gamma, sg, beta, sb, bias, sp, hw, c, groups);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype codes: 0 f32, 1 fp16. Each entry point returns a cudaError_t.
+// dtype codes (ops/__init__.py:DTYPE_CODES): 0 f32, 1 fp16, 2 bf16. Each
+// entry point returns a cudaError_t.
 extern "C" {
 
 int dmme_simt_gn_fwd(int dtype_in, int dtype_out, const void* x, void* y, float* mean,
@@ -256,6 +279,9 @@ int dmme_simt_gn_fwd(int dtype_in, int dtype_out, const void* x, void* y, float*
     return gn_fwd<float, float>(x, y, mean, inv, gamma, sg, beta, sb, bias, sp, n, hw, c, groups, eps, st);
   if (dtype_in == 1 && dtype_out == 1)
     return gn_fwd<__half, __half>(x, y, mean, inv, gamma, sg, beta, sb, bias, sp, n, hw, c, groups, eps, st);
+  if (dtype_in == 2 && dtype_out == 2)
+    return gn_fwd<__nv_bfloat16, __nv_bfloat16>(x, y, mean, inv, gamma, sg, beta, sb, bias, sp, n,
+                                                hw, c, groups, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -264,27 +290,16 @@ int dmme_simt_gn_bwd(int dtype, const void* x, const void* dz, void* dx, float* 
                      const float* gamma, int sg, const float* beta, int sb, const float* bias,
                      int sp, int n, int hw, int c, int groups, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = gn_smem(c, groups);
-  const dim3 grid(groups, n);
-  if (dtype == 0) {
-    auto kern = gn_bwd_kernel<float>;
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    kern<<<grid, THREADS, smem, st>>>(static_cast<const float*>(x), static_cast<const float*>(dz),
-                                      static_cast<float*>(dx), dgamma, dbeta, dbias, mean, inv,
-                                      gamma, sg, beta, sb, bias, sp, hw, c, groups);
-  } else if (dtype == 1) {
-    auto kern = gn_bwd_kernel<__half>;
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    kern<<<grid, THREADS, smem, st>>>(static_cast<const __half*>(x),
-                                      static_cast<const __half*>(dz), static_cast<__half*>(dx),
-                                      dgamma, dbeta, dbias, mean, inv, gamma, sg, beta, sb, bias,
-                                      sp, hw, c, groups);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return gn_bwd<float>(x, dz, dx, dgamma, dbeta, dbias, mean, inv, gamma, sg, beta, sb, bias,
+                         sp, n, hw, c, groups, st);
+  if (dtype == 1)
+    return gn_bwd<__half>(x, dz, dx, dgamma, dbeta, dbias, mean, inv, gamma, sg, beta, sb, bias,
+                          sp, n, hw, c, groups, st);
+  if (dtype == 2)
+    return gn_bwd<__nv_bfloat16>(x, dz, dx, dgamma, dbeta, dbias, mean, inv, gamma, sg, beta, sb,
+                                 bias, sp, n, hw, c, groups, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -20,28 +20,38 @@ y = x̂·γ + β and dy = dz·σ(y)·(1 + y(1 − σ(y))), and writes dx in x's 
 with the group-mean corrections, dx = inv·(dy·γ − m1 − x̂·m2), plus the
 (N, C) f32 sums dγ = Σdy·x̂, dβ = Σdy and dbias = Σdx.
 
-Bound on the card: bytes, for both. Each does a few tens of f32
-operations per element, far below the H100's ~295 bf16 operations per
-byte, so the least time is one read of every input and one write of every
-output (x→y; x, dz→dx). Design (details in the source): a block owns a
-contiguous slab of one sample's NHWC pixels, all channels, brought into
-shared memory by TMA bulk copies and kept there between the statistics and
-the apply, so each input byte crosses DRAM once; threads own 16-byte
-vectors of 8 channels, and a group is summed from per-channel sums, so any
-C % 8 == 0 with C % G == 0 works. A sample larger than one block's slab is
-split over a thread-block cluster of up to 8 blocks that exchange their
-channel partials through distributed shared memory; one that no cluster
-holds takes two passes over global memory with per-chunk partials summed
-in chunk order. No float atomics: repeated runs agree bit for bit. The
-plan is :func:`gn_plan`, made once per shape. A γ or β shared by the batch
-is read through a row stride of 0, not copied per sample. Launches per
-call: 1 in one pass; 3 (K1) or 4 (K2) in two (``launches`` counts calls).
+Both take bf16, fp16 and f32 activations (the element type a template
+parameter of the kernels) with f32 statistics and sums. Bound on the card:
+bytes, for both. Each does a few tens of f32 operations per element, far
+below the H100's ~295 bf16 operations per byte, so the least time is one
+read of every input and one write of every output (x→y; x, dz→dx). Design
+(details in the source): a block owns a contiguous slab of one sample's
+NHWC pixels, all channels, brought into shared memory by TMA bulk copies
+and kept there between the statistics and the apply, so each input byte
+crosses DRAM once; threads own 8 channels (one 16-byte vector of bf16 or
+fp16, two of f32), and a group is summed from per-channel sums, so any
+C % 8 == 0 with C % G == 0 works, and the three dtypes sum in one order. A
+sample larger than one block's slab is split over a thread-block cluster
+of up to 8 blocks that exchange their channel partials through distributed
+shared memory; one that no cluster of 8 holds takes two passes over global
+memory with per-chunk partials summed in chunk order (the kernels take
+clusters of up to 16, but at the one training site where 8 cannot hold a
+sample, f32 K2 at 32×32×256, 16 measured slower than two passes on an
+H100: PERF.md). No float atomics: repeated runs agree bit for bit. The
+plan is :func:`gn_plan`, made once per shape and element size. A γ or β
+shared by the batch is read through a row stride of 0, not copied per
+sample. Launches per call: 1 in one pass; 3 (K1) or 4 (K2) in two. Calls
+are counted per dtype: ``launches`` and ``bwd_launches`` (bf16),
+``fp16_launches``, ``fp16_bwd_launches``, ``f32_launches``,
+``f32_bwd_launches``.
 
-f32 and fp16 activations take K1's and K2's versions in ``csrc/simt.cu``
+A width outside those kernels' domain (C % 8 != 0, or C > 2048) takes
+K1's and K2's versions in ``csrc/simt.cu`` in every dtype
 (:func:`_launch_simt`, :func:`_launch_bwd_simt`; ``simt_launches`` and
 ``simt_bwd_launches``): a block per (group, sample) sums per channel, then
 per group, in a fixed order, and passes over the group's pixels again for
-the output; one launch a call.
+the output; one launch a call. The choice is made from the shape and dtype
+before any build or launch (:func:`kernel_takes`), never after a failure.
 """
 
 from __future__ import annotations
@@ -52,26 +62,33 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from dmme_tpu_torch.ops import build, route, simt_code
+from dmme_tpu_torch.ops import DTYPE_CODES, build, route, simt_code
 
 GN_EPS = 1e-5
 
-#: K1 (forward) launches since the last reset (incremented only by its launcher)
+#: K1 (forward) and K2 (backward) launches since the last reset, per
+#: activation dtype (incremented only by their launchers): bf16, fp16, f32
 launches = 0
-#: K2 (backward) launches since the last reset (incremented only by its launcher)
 bwd_launches = 0
-#: launches of the f32/fp16 forward and backward of ``csrc/simt.cu``
-#: (:func:`dmme_tpu_torch.ops.route`), incremented only by their launchers
+fp16_launches = 0
+fp16_bwd_launches = 0
+f32_launches = 0
+f32_bwd_launches = 0
+#: launches of the forward and backward of ``csrc/simt.cu``, which take the
+#: widths outside ``group_norm.cu``'s domain (:func:`kernel_takes`), in every
+#: dtype; incremented only by their launchers
 simt_launches = 0
 simt_bwd_launches = 0
+# the counters of each dtype's launches: forward, backward
+_COUNTERS = {torch.bfloat16: ("launches", "bwd_launches"),
+             torch.float16: ("fp16_launches", "fp16_bwd_launches"),
+             torch.float32: ("f32_launches", "f32_bwd_launches")}
 
-_FWD = None
-_BWD = None
-_SIMT_FWD = None
-_SIMT_BWD = None
+#: the bound C entry points, by name
+_FNS: dict = {}
 
 # the plan's constants (csrc/group_norm.cu)
-VEC = 8                        # channels a 16-byte vector of bf16
+VEC = 8                        # channels a thread: a 16-byte vector of bf16 or fp16
 THREADS = 256                  # threads a block of K2 (where two fit an SM) and of two passes
 WIDE_THREADS = 512             # threads a one-pass K1 block, and a K2 block alone on its SM
 HALF_SM = 113 * 1024           # shared memory a block may take for two to share an SM
@@ -79,8 +96,11 @@ MAX_CHUNKS = 16                # bulk copies a block
 CHUNK_BYTES = 32 * 1024        # bytes a bulk copy of a tensor, where the slab allows
 MAX_CLUSTER = 8                # blocks a cluster: the portable limit
 # cluster sizes, smallest first: on an H100 a cluster of 4 was slower than one
-# of 8 (or of 2 with twice the slab) at every training site (PERF.md)
+# of 8 (or of 2 with twice the slab) at every bf16 and fp16 training site and
+# at f32 K2's; f32 K1 takes 4 too, which at 16x16x512 ran 0.0928 ms against
+# 0.1212 in clusters of 8 (PERF.md, scripts/torch_gn_plans.py)
 CLUSTERS = (1, 2, 8)
+F32_FWD_CLUSTERS = (1, 2, 4, 8)
 SLAB_TARGET = 128 * 1024       # slab bytes a block that a cluster aims for
 SLAB_MIN = 8 * 1024            # a cluster grows for the SMs down to slabs of this
 SMEM_MAX = 232448              # dynamic shared memory a block may take (227 KB)
@@ -154,12 +174,13 @@ def gn_silu_bwd_plain(x, dz, gamma, beta, bias, mean, inv, num_groups: int
     return du.to(x.dtype), dgamma, dbeta, du.sum(dim=(1, 2))
 
 
-def _smem_bytes(backward: bool, pixels: int, c: int, threads: int) -> int:
-    """Dynamic shared memory of a one-pass block: the slab (x, and dz for
-    the backward), the row sums of two quantities, the channel partials,
-    totals, coefficients and the sample's rows, the mbarriers and alignment
-    slack. The arithmetic of ``Layout`` in csrc/group_norm.cu."""
-    slab = -(-pixels * c * 2 // 128) * 128
+def _smem_bytes(backward: bool, pixels: int, c: int, threads: int, size: int = 2) -> int:
+    """Dynamic shared memory of a one-pass block on ``size``-byte elements:
+    the slab (x, and dz for the backward), the row sums of two quantities,
+    the channel partials, totals, coefficients and the sample's rows, the
+    mbarriers and alignment slack. The arithmetic of ``Layout`` in
+    csrc/group_norm.cu."""
+    slab = -(-pixels * c * size // 128) * 128
     return (2 if backward else 1) * slab + 2 * threads * VEC * 4 + 12 * c * 4 + MAX_CHUNKS * 8 + 128
 
 
@@ -179,74 +200,110 @@ class GNPlan(NamedTuple):
                 for b in range(self.blocks)]
 
 
+def kernel_takes(c: int) -> bool:
+    """Whether ``group_norm.cu`` takes C channels (C % 8 == 0, C <= 2048);
+    other widths go to ``simt.cu``."""
+    return c % VEC == 0 and c <= VEC * THREADS
+
+
+def chunk_pixels(pixels: int, c: int, size: int) -> int:
+    """Pixels a bulk copy of a one-pass block: ``CHUNK_BYTES`` a tensor,
+    unless that takes more than ``MAX_CHUNKS`` copies."""
+    return max(1, min(pixels, CHUNK_BYTES // (size * c)), -(-pixels // MAX_CHUNKS))
+
+
+def _one_pass(backward: bool, pixels: int, c: int, size: int) -> Tuple[int, int]:
+    """(threads, shared memory) of a one-pass block of ``pixels`` pixels."""
+    narrow = _smem_bytes(backward, pixels, c, THREADS, size)
+    wide = _smem_bytes(backward, pixels, c, WIDE_THREADS, size)
+    if (backward and narrow <= HALF_SM) or wide > SMEM_MAX:
+        return THREADS, narrow
+    return WIDE_THREADS, wide
+
+
 @functools.lru_cache(maxsize=None)
 def gn_plan(n: int, h: int, w: int, c: int, groups: int, sms: int,
-            backward: bool = False) -> GNPlan:
-    """K1's (or, with ``backward``, K2's) grid for (N, H, W, C) bf16 inputs
-    on a card with ``sms`` SMs, made once per shape. One pass where a
+            backward: bool = False, size: int = 2) -> GNPlan:
+    """K1's (or, with ``backward``, K2's) grid for (N, H, W, C) inputs of
+    ``size``-byte elements (2: bf16 and fp16, which share every plan; 4:
+    f32) on a card with ``sms`` SMs, made once per shape. One pass where a
     cluster of at most 8 blocks holds a sample in shared memory: the
-    smallest cluster of ``CLUSTERS`` whose blocks' slabs are at most
-    ``SLAB_TARGET`` bytes, then a larger one while the batch fills at most
-    half the SMs and the slabs stay above ``SLAB_MIN``. One-pass K1 blocks
+    smallest cluster of ``CLUSTERS`` (f32 K1: ``F32_FWD_CLUSTERS``) whose
+    blocks' slabs are at most ``SLAB_TARGET`` bytes, then a larger one while
+    the batch fills at most half the SMs and the slabs stay above
+    ``SLAB_MIN``. One-pass K1 blocks
     take ``WIDE_THREADS``. A K2 thread holds about twice K1's registers, so
     512 of them fill an SM's register file: K2 blocks take ``THREADS`` where
     two such blocks share an SM's shared memory, else ``WIDE_THREADS``; any
-    block takes ``THREADS`` where ``WIDE_THREADS`` would not fit.
-    Where 8 blocks cannot hold a sample, two passes over chunks of
+    block takes ``THREADS`` where ``WIDE_THREADS`` would not fit. Where 8
+    blocks cannot hold a sample, two passes over chunks of
     ``TWO_PASS_BYTES``."""
     if c % groups:
         raise ValueError(f"group_norm_silu kernel: {c} channels in {groups} groups")
-    if c % VEC or c > VEC * THREADS:
+    if not kernel_takes(c):
         raise ValueError(f"group_norm_silu kernel takes C % {VEC} == 0 and C <= "
                          f"{VEC * THREADS}, got {c}")
     hw = h * w
-    bpp = 2 * c * (2 if backward else 1)  # slab bytes a pixel
-    i = next((i for i, k in enumerate(CLUSTERS) if -(-hw // k) * bpp <= SLAB_TARGET),
-             len(CLUSTERS) - 1)
-    while (i + 1 < len(CLUSTERS) and 2 * n * CLUSTERS[i] <= sms
-           and -(-hw // CLUSTERS[i + 1]) * bpp >= SLAB_MIN):
+    bpp = size * c * (2 if backward else 1)  # slab bytes a pixel
+    sizes = F32_FWD_CLUSTERS if size == 4 and not backward else CLUSTERS
+    i = next((i for i, k in enumerate(sizes) if -(-hw // k) * bpp <= SLAB_TARGET),
+             len(sizes) - 1)
+    while (i + 1 < len(sizes) and 2 * n * sizes[i] <= sms
+           and -(-hw // sizes[i + 1]) * bpp >= SLAB_MIN):
         i += 1
-    pixels = -(-hw // CLUSTERS[i])
-    narrow = _smem_bytes(backward, pixels, c, THREADS)
-    wide = _smem_bytes(backward, pixels, c, WIDE_THREADS)
-    threads = THREADS if (backward and narrow <= HALF_SM) or wide > SMEM_MAX else WIDE_THREADS
-    smem = narrow if threads == THREADS else wide
+    pixels = -(-hw // sizes[i])
+    threads, smem = _one_pass(backward, pixels, c, size)
     if smem <= SMEM_MAX:
-        chunk = max(1, min(pixels, CHUNK_BYTES // (2 * c)), -(-pixels // MAX_CHUNKS))
-        return GNPlan(-(-hw // pixels), pixels, chunk, threads, smem, False)
+        return GNPlan(-(-hw // pixels), pixels, chunk_pixels(pixels, c, size), threads, smem,
+                      False)
     pixels = max(1, TWO_PASS_BYTES // bpp)
     return GNPlan(-(-hw // pixels), pixels, pixels, THREADS, 0, True)
 
 
+def _bound(source: str, name: str, argtypes):
+    """C function ``name`` of ``csrc/<source>.cu``, bound once."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(build.library(source), name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
 def _fwd_fn():
-    global _FWD
-    if _FWD is None:
-        fn = build.library("group_norm").dmme_gn_silu_fwd
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 4 + [vp, i, vp, i, vp, i] + [i] * 4 + [ctypes.c_float]
-                       + [i] * 5 + [vp] * 3)
-        fn.restype = i
-        _FWD = fn
-    return _FWD
+    return _bound("group_norm", "dmme_gn_silu_fwd",
+                  [_I] + [_VP] * 4 + [_VP, _I, _VP, _I, _VP, _I] + [_I] * 4 + [_F] + [_I] * 5
+                  + [_VP] * 3)
 
 
 def _bwd_fn():
-    global _BWD
-    if _BWD is None:
-        fn = build.library("group_norm").dmme_gn_silu_bwd
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 8 + [vp, i, vp, i, vp, i] + [i] * 4 + [i] * 5 + [vp] * 4
-        fn.restype = i
-        _BWD = fn
-    return _BWD
+    return _bound("group_norm", "dmme_gn_silu_bwd",
+                  [_I] + [_VP] * 8 + [_VP, _I, _VP, _I, _VP, _I] + [_I] * 4 + [_I] * 5
+                  + [_VP] * 4)
 
 
-def _check(x, num_groups: int, what: str) -> None:
+def _simt_fwd_fn():
+    return _bound("simt", "dmme_simt_gn_fwd",
+                  [_I, _I] + [_VP] * 5 + [_I, _VP, _I, _VP, _I] + [_I] * 4 + [_F, _VP])
+
+
+def _simt_bwd_fn():
+    return _bound("simt", "dmme_simt_gn_bwd",
+                  [_I] + [_VP] * 9 + [_I, _VP, _I, _VP, _I] + [_I] * 4 + [_VP])
+
+
+def _check(x, num_groups: int, what: str) -> int:
+    """The dtype code of ``x`` (``csrc/group_norm.cu``); raises for a dtype
+    or a width the kernel lacks."""
     c = x.shape[-1]
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by {num_groups} groups")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{what} kernel takes bf16 activations, got {x.dtype}")
+    if x.dtype not in _COUNTERS:
+        raise TypeError(f"{what} kernel takes bf16, fp16 or f32 activations, got {x.dtype}")
+    return DTYPE_CODES[x.dtype]
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -259,11 +316,15 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _count(x: torch.Tensor, backward: bool) -> None:
+    name = _COUNTERS[x.dtype][backward]
+    globals()[name] += 1
+
+
 def _launch(x, gamma, beta, bias, num_groups: int, eps: float):
-    global launches
     n, h, w, c = x.shape
-    _check(x, num_groups, "group_norm_silu")
-    plan = gn_plan(n, h, w, c, num_groups, build.sm_count(x.device))
+    code = _check(x, num_groups, "group_norm_silu")
+    plan = gn_plan(n, h, w, c, num_groups, build.sm_count(x.device), False, x.element_size())
     x = _aligned(x)
     (gamma, sg), (beta, sb) = broadcast_rows(gamma, n, c), broadcast_rows(beta, n, c)
     bias, sp = broadcast_rows(bias, n, c) if bias is not None else (None, 0)
@@ -275,27 +336,24 @@ def _launch(x, gamma, beta, bias, num_groups: int, eps: float):
         part = torch.empty((n * plan.blocks * 2 * c,), device=x.device, dtype=torch.float32)
         coef = torch.empty((n * 2 * c,), device=x.device, dtype=torch.float32)
     status = _fwd_fn()(
-        x.data_ptr(), y.data_ptr(), mean.data_ptr(), inv.data_ptr(), gamma.data_ptr(), sg,
+        code, x.data_ptr(), y.data_ptr(), mean.data_ptr(), inv.data_ptr(), gamma.data_ptr(), sg,
         beta.data_ptr(), sb, _ptr(bias), sp, n, h * w, c, num_groups, float(eps),
         plan.blocks, plan.pixels, plan.chunk, plan.threads, int(plan.two_pass),
         _ptr(part), _ptr(coef), torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "group_norm_silu kernel launch")
-    launches += 1
+    _count(x, False)
     return y, mean, inv
 
 
 def _launch_bwd(x, dz, gamma, beta, bias, mean, inv, num_groups: int):
-    global bwd_launches
     n, h, w, c = x.shape
-    _check(x, num_groups, "group_norm_silu backward")
-    if dz.dtype != x.dtype:
-        raise TypeError(f"group_norm_silu backward kernel takes bf16 dz, got {dz.dtype}")
+    code = _check(x, num_groups, "group_norm_silu backward")
     if dz.shape != x.shape:
         raise ValueError(f"dz shape {tuple(dz.shape)} differs from x's {tuple(x.shape)}")
     if mean.shape != (n, num_groups) or inv.shape != (n, num_groups):
         raise ValueError(f"statistics must be ({n}, {num_groups}), got {tuple(mean.shape)}")
-    plan = gn_plan(n, h, w, c, num_groups, build.sm_count(x.device), backward=True)
-    x, dz = _aligned(x), _aligned(dz)
+    plan = gn_plan(n, h, w, c, num_groups, build.sm_count(x.device), True, x.element_size())
+    x, dz = _aligned(x), _aligned(dz.to(x.dtype))
     mean, inv = mean.to(torch.float32).contiguous(), inv.to(torch.float32).contiguous()
     (gamma, sg), (beta, sb) = broadcast_rows(gamma, n, c), broadcast_rows(beta, n, c)
     bias, sp = broadcast_rows(bias, n, c) if bias is not None else (None, 0)
@@ -309,41 +367,20 @@ def _launch_bwd(x, dz, gamma, beta, bias, mean, inv, num_groups: int):
         part2 = torch.empty((n * plan.blocks * c,), **f32)
         coef = torch.empty((n * 2 * c,), **f32)
     status = _bwd_fn()(
-        x.data_ptr(), dz.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+        code, x.data_ptr(), dz.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
         dbias.data_ptr(), mean.data_ptr(), inv.data_ptr(), gamma.data_ptr(), sg,
         beta.data_ptr(), sb, _ptr(bias), sp, n, h * w, c, num_groups,
         plan.blocks, plan.pixels, plan.chunk, plan.threads, int(plan.two_pass),
         _ptr(part), _ptr(part2), _ptr(coef), torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "group_norm_silu backward kernel launch")
-    bwd_launches += 1
+    _count(x, True)
     return dx, dgamma, dbeta, dbias
 
 
-def _simt_fwd_fn():
-    global _SIMT_FWD
-    if _SIMT_FWD is None:
-        fn = build.library("simt").dmme_simt_gn_fwd
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i] + [vp] * 5 + [i, vp, i, vp, i] + [i] * 4 + [ctypes.c_float, vp]
-        fn.restype = i
-        _SIMT_FWD = fn
-    return _SIMT_FWD
-
-
-def _simt_bwd_fn():
-    global _SIMT_BWD
-    if _SIMT_BWD is None:
-        fn = build.library("simt").dmme_simt_gn_bwd
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [vp] * 9 + [i, vp, i, vp, i] + [i] * 4 + [vp]
-        fn.restype = i
-        _SIMT_BWD = fn
-    return _SIMT_BWD
-
-
 def _launch_simt(x, gamma, beta, bias, num_groups: int, eps: float):
-    """K1 for f32 or fp16 ``x`` (``csrc/simt.cu``): a block per (group,
-    sample), the same outputs as :func:`_launch`."""
+    """K1 on ``csrc/simt.cu``, for a width :func:`kernel_takes` refuses (any
+    C % G == 0; bf16, fp16 or f32): a block per (group, sample), the same
+    outputs as :func:`_launch`."""
     global simt_launches
     n, h, w, c = x.shape
     code = simt_code(x, "group_norm_silu")
@@ -365,8 +402,8 @@ def _launch_simt(x, gamma, beta, bias, num_groups: int, eps: float):
 
 
 def _launch_bwd_simt(x, dz, gamma, beta, bias, mean, inv, num_groups: int):
-    """K2 for f32 or fp16 ``x`` (``csrc/simt.cu``): the outputs of
-    :func:`_launch_bwd`."""
+    """K2 on ``csrc/simt.cu``, for the widths of :func:`_launch_simt`: the
+    outputs of :func:`_launch_bwd`."""
     global simt_bwd_launches
     n, h, w, c = x.shape
     code = simt_code(x, "group_norm_silu backward")
@@ -393,13 +430,21 @@ def _launch_bwd_simt(x, dz, gamma, beta, bias, mean, inv, num_groups: int):
     return dx, dgamma, dbeta, dbias
 
 
+def _where(x: torch.Tensor) -> str:
+    """"cpu", "kernel" or "simt" for ``x``, from its device, dtype and width."""
+    where = route(x.device, x.dtype, "group_norm_silu")
+    if where == "kernel" and not kernel_takes(x.shape[-1]):
+        return "simt"
+    return where
+
+
 def group_norm_silu_fwd(x, gamma, beta, num_groups: int, eps: float = GN_EPS,
                         pre_bias: Optional[torch.Tensor] = None):
     """(y, mean, inv): y = silu(GN(x + pre_bias)·γ + β) and the (N, G) f32
-    statistics. CPU tensors take :func:`gn_silu_plain`; bf16 CUDA tensors
-    K1, f32 and fp16 ones its ``simt.cu`` version
-    (:func:`~dmme_tpu_torch.ops.route`)."""
-    where = route(x.device, x.dtype, "group_norm_silu")
+    statistics. CPU tensors take :func:`gn_silu_plain`; bf16, fp16 and f32
+    CUDA tensors K1 (:func:`~dmme_tpu_torch.ops.route`), or its ``simt.cu``
+    version at a width outside K1's domain (:func:`kernel_takes`)."""
+    where = _where(x)
     if where == "kernel":
         return _launch(x, gamma, beta, pre_bias, num_groups, eps)
     if where == "simt":
@@ -410,9 +455,9 @@ def group_norm_silu_fwd(x, gamma, beta, num_groups: int, eps: float = GN_EPS,
 def group_norm_silu_bwd(x, dz, gamma, beta, pre_bias, mean, inv, num_groups: int):
     """(dx, dγ, dβ, dbias) of :func:`group_norm_silu_fwd` from its saved
     statistics; the three vectors (N, C) f32. CPU tensors take
-    :func:`gn_silu_bwd_plain`; bf16 CUDA tensors K2, f32 and fp16 ones its
-    ``simt.cu`` version."""
-    where = route(x.device, x.dtype, "group_norm_silu")
+    :func:`gn_silu_bwd_plain`; CUDA tensors K2, or its ``simt.cu`` version
+    as :func:`group_norm_silu_fwd` decides."""
+    where = _where(x)
     if where == "kernel":
         return _launch_bwd(x, dz, gamma, beta, pre_bias, mean, inv, num_groups)
     if where == "simt":

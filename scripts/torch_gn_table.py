@@ -62,7 +62,8 @@ def registers(report: dict) -> dict:
     regs = {}
     for name, u in report.get("ptxas", {}).get("group_norm", {}).items():
         for kernel, (_, needle) in KERNELS.items():
-            if needle in name:
+            # the kernels are templated on the element type: the bf16 instance
+            if needle in name and ("<" not in name or "bfloat16" in name):
                 regs[kernel] = f"{u['registers']} / {u['spill_stores']}+{u['spill_loads']} B"
     return regs
 

@@ -24,14 +24,15 @@ CSRC = Path(build.__file__).resolve().parent / "csrc"
 
 # (source, C function, module, binder, the module's cache of the binding,
 # the binder's arguments): K3 and K4 bind one entry point per activation
-# dtype, cached by dtype
+# dtype, cached by dtype; K1 and K2 one for all three (a dtype code first),
+# cached by name
 BINDINGS = [
-    ("group_norm", "dmme_gn_silu_fwd", t_group_norm, "_fwd_fn", "_FWD", ()),
-    ("group_norm", "dmme_gn_silu_bwd", t_group_norm, "_bwd_fn", "_BWD", ()),
+    ("group_norm", "dmme_gn_silu_fwd", t_group_norm, "_fwd_fn", "_FNS", ()),
+    ("group_norm", "dmme_gn_silu_bwd", t_group_norm, "_bwd_fn", "_FNS", ()),
     ("attention", "dmme_attention_fwd", t_attention, "_fn", "_FNS", (torch.bfloat16,)),
     ("resblock", "dmme_resblock_fwd", t_resblock, "_fn", "_FNS", (torch.bfloat16,)),
-    ("simt", "dmme_simt_gn_fwd", t_group_norm, "_simt_fwd_fn", "_SIMT_FWD", ()),
-    ("simt", "dmme_simt_gn_bwd", t_group_norm, "_simt_bwd_fn", "_SIMT_BWD", ()),
+    ("simt", "dmme_simt_gn_fwd", t_group_norm, "_simt_fwd_fn", "_FNS", ()),
+    ("simt", "dmme_simt_gn_bwd", t_group_norm, "_simt_bwd_fn", "_FNS", ()),
     ("attention", "dmme_attention_fwd_f16", t_attention, "_fn", "_FNS", (torch.float16,)),
     ("attention", "dmme_attention_fwd_f32", t_attention, "_fn", "_FNS", (torch.float32,)),
     ("resblock", "dmme_resblock_fwd_f16", t_resblock, "_fn", "_FNS", (torch.float16,)),
@@ -100,3 +101,19 @@ def test_each_dtype_binds_its_own_entry_point(monkeypatch):
         assert names == set(module.ENTRY.values()) and len(names) == 3
         with pytest.raises(KeyError):
             module._fn(torch.float64)
+
+
+def test_dtype_codes_match_the_sources():
+    """K1's, K2's and ``simt.cu``'s entry points take a dtype code first;
+    the codes the wrappers pass (``ops.DTYPE_CODES``) are the ones each
+    source's comment and switch name."""
+    from dmme_tpu_torch.ops import DTYPE_CODES
+
+    assert DTYPE_CODES == {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+    for source in ("group_norm", "simt"):
+        text = (CSRC / f"{source}.cu").read_text()
+        assert "0 f32, 1 fp16, 2 bf16" in text, source
+    text = (CSRC / "group_norm.cu").read_text()
+    for code, kind in ((0, "float"), (1, "__half"), (2, "bf16")):
+        assert re.search(rf"case {code}:\s*return gn_fwd<{kind}>", text), kind
+        assert re.search(rf"case {code}:\s*return gn_bwd<{kind}>", text), kind

@@ -137,6 +137,40 @@ class TestGroupNormSiLUBackward:
             assert g.dtype == torch.float32 and g.shape == w.shape, name
             np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **GN_GRAD_TOL)
 
+    @pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+    def test_fp16_plain_matches_interpret(self, backward):
+        """fp16 activations (the fp16 harness's), the same numpy inputs
+        rounded to fp16: ``_fwd_pallas``/``_bwd_pallas`` in interpret mode
+        against :func:`gn_silu_plain`/:func:`gn_silu_bwd_plain`. y and dx
+        are fp16 roundings of f32 values that agree to ~1e-6, so at most one
+        fp16 step apart (2^-10 relative, 2^-24 in the subnormal range); the
+        statistics and the (N, C) sums are f32 (``GN_TOL``,
+        ``GN_GRAD_TOL``)."""
+        r = np.random.default_rng(25)
+        n, c, groups = 2, 32, 8
+        x = _rand(r, n, 4, 4, c).astype(np.float16)
+        dz = (1e-3 * _rand(r, n, 4, 4, c)).astype(np.float16)  # small: subnormal dx
+        gamma, beta = 1.0 + 0.1 * _rand(r, n, c), 0.1 * _rand(r, n, c)
+        bias = 0.2 * _rand(r, n, c)
+        j = [jnp.asarray(a) for a in (x, gamma, beta, bias)]
+        t = torch.tensor
+        y, mean, inv = jax_group_norm_module._fwd_pallas(*j, groups, 1e-5, n, interpret=True)
+        if not backward:
+            got = t_group_norm.gn_silu_plain(t(x), t(gamma), t(beta), t(bias), groups)
+            want, tols = (y, mean, inv), (None, GN_TOL, GN_TOL)
+        else:
+            want = jax_group_norm_module._bwd_pallas(*j, mean, inv, jnp.asarray(dz), groups,
+                                                     1e-5, n, interpret=True)
+            got = t_group_norm.gn_silu_bwd_plain(
+                t(x), t(dz), t(gamma), t(beta), t(bias), t(np.asarray(mean)),
+                t(np.asarray(inv)), groups)
+            tols = (None, GN_GRAD_TOL, GN_GRAD_TOL, GN_GRAD_TOL)
+        assert got[0].dtype == torch.float16 and np.asarray(want[0]).dtype == np.float16
+        for i, (g, w, tol) in enumerate(zip(got, want, tols)):
+            g, w = g.float().numpy(), np.asarray(w).astype(np.float32)
+            np.testing.assert_allclose(g, w, err_msg=str(i),
+                                       **(tol or dict(rtol=2.0 ** -10, atol=2.0 ** -24)))
+
     def test_bf16_pre_bias_gets_a_bf16_grad(self):
         """The ResBlock's pre-bias arrives in bf16 from its Dense layer; its
         gradient goes back in bf16, and a (C,) affine's in f32 (C,)."""
@@ -287,18 +321,17 @@ class TestResBlock:
 
 
 @pytest.mark.parametrize("kernel", ["group_norm_silu", "group_norm_silu_bwd", "resblock"])
-def test_launchers_take_bf16_only(kernel):
-    """The tensor-core launchers refuse a dtype they have no kernel for
-    before they reach one: K1's and K2's take bf16 only (f32 here), K4's
-    bf16, fp16 and f32 (f64 here)."""
+def test_launchers_refuse_a_dtype_without_a_kernel(kernel):
+    """The launchers refuse a dtype they have no kernel for before they
+    reach one: K1's, K2's and K4's take bf16, fp16 and f32 (f64 here)."""
     x = torch.zeros((1, 4, 4, 64))
     v = torch.ones(64)
     with pytest.raises(TypeError, match="bf16"):
         if kernel == "group_norm_silu":
-            t_group_norm._launch(x, v, v, None, 32, 1e-5)
+            t_group_norm._launch(x.double(), v, v, None, 32, 1e-5)
         elif kernel == "group_norm_silu_bwd":
             stats = torch.zeros((1, 32))
-            t_group_norm._launch_bwd(x, x, v, v, None, stats, stats, 32)
+            t_group_norm._launch_bwd(x.double(), x.double(), v, v, None, stats, stats, 32)
         else:
             w = torch.zeros((64, 64, 3, 3))
             t_resblock._launch(x.double(), v, v, v, v, v, w, v, w, v, None, None, 32, 1e-5)
@@ -315,8 +348,11 @@ def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
     monkeypatch.setattr(build, "build_all", refuse)
     monkeypatch.setattr(t_group_norm, "_fwd_fn", refuse)
     monkeypatch.setattr(t_group_norm, "_bwd_fn", refuse)
-    before = (t_group_norm.launches, t_group_norm.bwd_launches, t_attention.launches,
-              t_resblock.launches)
+    counters = [(t_group_norm, name) for pair in t_group_norm._COUNTERS.values()
+                for name in pair] + [(t_group_norm, "simt_launches"),
+                                     (t_group_norm, "simt_bwd_launches"),
+                                     (t_attention, "launches"), (t_resblock, "launches")]
+    before = [getattr(m, a) for m, a in counters]
     r = np.random.default_rng(0)
     x = torch.tensor(_rand(r, 1, 4, 4, 8), requires_grad=True)
     t_group_norm.group_norm_silu(x, torch.ones(8), torch.zeros(8), 2).sum().backward()
@@ -329,8 +365,7 @@ def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
                                 t(args[6].transpose(3, 2, 0, 1).copy()), t(args[7]),
                                 t(args[8].transpose(3, 2, 0, 1).copy()), t(args[9]),
                                 num_groups=2)
-    assert (t_group_norm.launches, t_group_norm.bwd_launches, t_attention.launches,
-            t_resblock.launches) == before
+    assert [getattr(m, a) for m, a in counters] == before
 
 
 @pytest.mark.parametrize("requires_grad", ["x", "w1", "pre2"])
@@ -442,17 +477,16 @@ def test_sm_count_is_asked_once_per_device(monkeypatch):
         build._sm_count.cache_clear()
 
 
-ROUTE_CASES = [(kernel, dtype, "simt" if kernel == "group_norm_silu" and dtype != torch.bfloat16
-                 else "kernel")
+ROUTE_CASES = [(kernel, dtype, "kernel")
                for kernel in ("group_norm_silu", "attention", "resblock")
                for dtype in (torch.bfloat16, torch.float32, torch.float16)]
 
 
 @pytest.mark.parametrize("kernel,dtype,want", ROUTE_CASES)
-def test_route_sends_bf16_to_the_kernel_and_other_dtypes_to_the_plain_path(kernel, dtype, want):
-    """K3 and K4 send bf16, f32 and fp16 CUDA tensors to their tensor-core
-    kernels; K1 and K2 send bf16 to theirs and f32 and fp16 to those of
-    ``simt.cu``; only a CPU tensor takes the plain version."""
+def test_route_sends_every_dtype_on_the_card_to_its_kernel(kernel, dtype, want):
+    """K1–K4 send bf16, f32 and fp16 CUDA tensors to their hand-written
+    kernels (K1 and K2: ``group_norm.cu``, which sends a width outside its
+    domain to ``simt.cu``); only a CPU tensor takes the plain version."""
     from dmme_tpu_torch.ops import route
 
     assert route(torch.device("cuda"), dtype, kernel) == want
@@ -474,18 +508,19 @@ def test_route_raises_on_the_card_for_a_dtype_without_a_kernel(dtype, kernel):
 
 @pytest.mark.parametrize("kernel", ["group_norm_silu", "group_norm_silu_bwd", "attention",
                                     "resblock"])
-def test_simt_launchers_take_f32_and_fp16_only(kernel):
-    """The ``simt.cu`` launchers (K1, K2) refuse bf16, and K3's and K4's
-    launchers, which take f32 and fp16 on the tensor cores, refuse f64,
-    before they reach a kernel."""
+def test_simt_and_tensor_core_launchers_refuse_f64(kernel):
+    """The ``simt.cu`` launchers (K1, K2), which take f32, fp16 and bf16 at
+    the widths ``group_norm.cu`` refuses, and K3's and K4's launchers, which
+    take f32 and fp16 on the tensor cores, refuse f64 before they reach a
+    kernel."""
     x = torch.zeros((1, 4, 4, 64), dtype=torch.bfloat16)
     v = torch.ones(64)
     with pytest.raises(TypeError, match="f32"):
         if kernel == "group_norm_silu":
-            t_group_norm._launch_simt(x, v, v, None, 32, 1e-5)
+            t_group_norm._launch_simt(x.double(), v, v, None, 32, 1e-5)
         elif kernel == "group_norm_silu_bwd":
             stats = torch.zeros((1, 32))
-            t_group_norm._launch_bwd_simt(x, x, v, v, None, stats, stats, 32)
+            t_group_norm._launch_bwd_simt(x.double(), x.double(), v, v, None, stats, stats, 32)
         elif kernel == "attention":
             q = x.double()
             t_attention._launch(q, q, q, 0.125)
@@ -521,9 +556,8 @@ def test_pack_weights_caches_per_dtype():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
 def test_wrappers_dispatch_on_the_card_by_dtype(monkeypatch, dtype):
     """Each wrapper with its tensors taken for CUDA ones (``route`` asked as
-    for a CUDA device): K3 and K4 reach their tensor-core launcher in every
-    dtype; K1 and K2 reach theirs in bf16 and the ``simt.cu`` launcher in
-    f32 and fp16; none gives way to the plain version."""
+    for a CUDA device): K1–K4 reach their launcher in every dtype at a width
+    their kernels take (here C = 8); none gives way to the plain version."""
     from dmme_tpu_torch import ops
 
     def as_cuda(device, dt, what):
@@ -540,7 +574,6 @@ def test_wrappers_dispatch_on_the_card_by_dtype(monkeypatch, dtype):
     def refuse(*a, **k):
         raise AssertionError("a CUDA tensor reached a plain version")
 
-    simt = dtype != torch.bfloat16
     for mod in (t_group_norm, t_attention, t_resblock):
         name = mod.__name__.split(".")[-1]
         monkeypatch.setattr(mod, "route", as_cuda)
@@ -571,5 +604,63 @@ def test_wrappers_dispatch_on_the_card_by_dtype(monkeypatch, dtype):
     for call in calls.values():
         with pytest.raises(RuntimeError, match="launched"):
             call()
-    assert launched == [name + ("_simt" if simt and name.startswith("group_norm") else "")
-                        for name in calls]
+    assert launched == list(calls)
+
+
+def _as_cuda_launchers(monkeypatch):
+    """K1's and K2's wrappers with ``route`` asked as for a CUDA device and
+    their four launchers recording their name instead of launching."""
+    from dmme_tpu_torch import ops
+
+    launched = []
+    monkeypatch.setattr(t_group_norm, "route",
+                        lambda device, dt, what: ops.route(torch.device("cuda"), dt, what))
+    for name in ("_launch", "_launch_bwd", "_launch_simt", "_launch_bwd_simt"):
+        monkeypatch.setattr(t_group_norm, name,
+                            lambda *a, _n=name, **k: launched.append(_n) or (None,) * 4)
+    return launched
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("c,groups", [(12, 4), (4, 2), (2056, 8)])
+def test_widths_outside_the_kernels_domain_take_simt(monkeypatch, dtype, c, groups):
+    """``group_norm.cu`` takes C % 8 == 0 and C <= 2048; K1 and K2 at any
+    other width go to ``simt.cu`` in all three dtypes, decided from the
+    shape before any build or launch."""
+    launched = _as_cuda_launchers(monkeypatch)
+    assert not t_group_norm.kernel_takes(c)
+    x = torch.zeros((1, 2, 2, c), dtype=dtype)
+    v, stats = torch.ones(c), torch.zeros((1, groups))
+    t_group_norm.group_norm_silu_fwd(x, v, v, groups)
+    t_group_norm.group_norm_silu_bwd(x, x, v, v, None, stats, stats, groups)
+    assert launched == ["_launch_simt", "_launch_bwd_simt"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("c", [8, 96, 2048])
+def test_widths_inside_the_kernels_domain_take_group_norm_cu(monkeypatch, dtype, c):
+    """C % 8 == 0 up to 2048 (C/G = 3 included) takes ``group_norm.cu``."""
+    launched = _as_cuda_launchers(monkeypatch)
+    assert t_group_norm.kernel_takes(c)
+    x = torch.zeros((1, 2, 2, c), dtype=dtype)
+    v, stats = torch.ones(c), torch.zeros((1, 32 if c % 32 == 0 else 8))
+    groups = stats.shape[1]
+    t_group_norm.group_norm_silu_fwd(x, v, v, groups)
+    t_group_norm.group_norm_silu_bwd(x, x, v, v, None, stats, stats, groups)
+    assert launched == ["_launch", "_launch_bwd"]
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_each_dtype_counts_its_own_launches(monkeypatch, dtype, backward):
+    """A K1 or K2 launch moves its dtype's counter by one and no other: the
+    counters chip_smoke.py reads (``launches``/``bwd_launches`` for bf16,
+    ``fp16_*``, ``f32_*``, the ``simt_*`` pair)."""
+    names = [n for pair in t_group_norm._COUNTERS.values() for n in pair]
+    names += ["simt_launches", "simt_bwd_launches"]
+    for n in names:
+        monkeypatch.setattr(t_group_norm, n, 0)
+    t_group_norm._count(torch.zeros(1, dtype=dtype), backward)
+    prefix = {torch.bfloat16: "", torch.float16: "fp16_", torch.float32: "f32_"}[dtype]
+    want = prefix + ("bwd_launches" if backward else "launches")
+    assert {n: getattr(t_group_norm, n) for n in names} == {n: int(n == want) for n in names}
