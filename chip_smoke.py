@@ -146,7 +146,32 @@ if the package is missing, or if any phase fails. Phases:
    f32 on the tensor cores); the loss
    and gradient at batch 16 (σ from 0.002 to 80) and a mid-grid Heun step
    against f32 on the CPU within ``F32_REL_L2``, a bf16 control missing it;
-23. the kernel table as one JSON line, the card's name and power limit, then
+24. CFG kernels — the DDPM UNet with a class table (bf16, both switches):
+   a guided forward at n = 1, 8, 16 is one UNet call at N = 2n (labels ‖
+   the null token) with launches 1/6/22, and every K1/K3/K4 call at N = 2,
+   16, 32 is held against its plain version (``TOL``) and timed; K1, K2, K3
+   and the attention backward of one labelled ``LitDDPM(num_classes=2)``
+   training step at batch 128;
+25. CFG fit — ``trainer.main`` on ``configs/ddpm/shapes_cfg_demo.yaml``
+   (full width, 32,418,179 parameters, bf16, batch 128, labelled Shapes):
+   fit 20 steps, a resume to 30 bitwise equal to an uninterrupted run,
+   ``validate`` on the true labels, ``sample --trainer.sampler ddim``, the
+   labelled train step timed and profiled;
+26. CFG serve — ``LitDDIM(num_classes=2, guidance_scale=2)`` over HTTP:
+   DDIM-50 at n = 1, 8, 16 (50 guided calls at N = 2n each), ``dpm`` and
+   ``unipc`` at n = 8, the caching samplers answered 400, one request under
+   the profiler;
+27. guided IDDPM — ``LitIDDPM(num_classes=10, sample_steps=50)`` trains 3
+   steps and answers one n = 8 request (ε guided, v conditional);
+28. upsampler — the UNet of ``configs/ddpm/shapes_sr_demo.yaml`` in bf16
+   with both switches: K1–K4 at its call sites (C = 32–128, C/G = 4, K3 at
+   (T, D) = (64, 64)) against their plain versions; ``trainer.main fit``
+   for 20 steps; ``generate(low_res=)`` at n = 8; ``serve`` refused;
+29. f32 CFG — ``LitDDPM(num_classes=10)`` (f32) one step at batch 128; the
+   loss and gradient with dropped labels and replayed dropout masks, and a
+   guided DDIM step, within ``F32_REL_L2`` of the CPU, a bf16 control
+   missing it;
+30. the kernel table as one JSON line, the card's name and power limit, then
    ``{"ok": true, "device": ...}``.
 
 ``--out`` also writes every measurement to a JSON file. ``--kernels-only``
@@ -617,23 +642,29 @@ def scaled_errors(got, want, rtol: float, atol_share: float):
 
 
 def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cls, dev,
-                  card: str, ops=None) -> dict:
+                  card: str, ops=None, lit=None, batch_size: int = TRAIN_BATCH,
+                  labels: int = None) -> dict:
     """Phase 6: K1, K2, K3 and the attention backward at every call site of one
-    full-width bf16 training step at batch 128 of ``lit_cls(dtype="bf16")``,
-    each held against its plain version on the recorded inputs, with times
-    and bounds. With ``ops``, the step's launches are held too: 45/45/n/0
-    (K1/K2/K3/K4, n the model's attention sites)."""
+    full-width bf16 training step at batch 128 of ``lit_cls(dtype="bf16")``
+    (or of the harness ``lit`` at ``batch_size``; with ``labels``, on a
+    labelled batch of that many classes), each held against its plain
+    version on the recorded inputs, with times and bounds. With ``ops``, the
+    step's launches are held too: 2r + 1/2r + 1/n/0 (K1/K2/K3/K4, r the
+    model's ResBlocks, n its attention sites: 45/45/6/0 for the DDPM UNet)."""
     from dmme_tpu_torch.data import CIFAR10
 
-    lit = lit_cls(dtype="bf16")
+    lit = lit_cls(dtype="bf16") if lit is None else lit
     init_weights(lit.model, torch.Generator().manual_seed(SEED))
     randomize_affines(torch, blocks, lit.model, torch.Generator().manual_seed(SEED + 1))
     params = {k: v.detach().to(dev).requires_grad_(True)
               for k, v in lit.model.state_dict().items()}
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    batch = torch.randint(0, 256, (TRAIN_BATCH, 32, 32, 3), generator=gen, device=dev,
+    batch = torch.randint(0, 256, (batch_size, 32, 32, 3), generator=gen, device=dev,
                           dtype=torch.uint8)
-    loss_fn = lit.make_loss_fn(CIFAR10(batch_size=TRAIN_BATCH))  # flip, process, loss
+    if labels is not None:
+        batch = (batch, torch.randint(0, labels, (batch_size,), generator=gen, device=dev))
+    loss_fn = lit.make_loss_fn(CIFAR10(batch_size=batch_size))  # flip, process, loss
+    n_gn = 2 * sum(isinstance(m, blocks.ResBlock) for m in lit.model.modules()) + 1
 
     def step():
         loss = loss_fn(params, gen, batch)
@@ -647,13 +678,13 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
     sites = {k: sum(c for _, c, _, _ in v) for k, v in calls.items()}
     print(f"call sites per training step: {json.dumps(sites)}; launches {launches}", flush=True)
     n_attn = sum(isinstance(m, blocks.SelfAttention2d) for m in lit.model.modules())
-    want_sites = {"group_norm_silu": 45, "group_norm_silu_bwd": 45, "attention": n_attn,
+    want_sites = {"group_norm_silu": n_gn, "group_norm_silu_bwd": n_gn, "attention": n_attn,
                   "attention_bwd": n_attn}
     if sites != want_sites:
         fail(f"training step call sites {sites}, expected {want_sites}")
     if launches is not None:
         expect_bf16_only("training step")
-        want = {"group_norm_silu": 45, "group_norm_silu_bwd": 45, "attention": n_attn,
+        want = {"group_norm_silu": n_gn, "group_norm_silu_bwd": n_gn, "attention": n_attn,
                 "resblock": 0}
         if launches != want:
             fail(f"a training step launched {launches}, expected {want}")
@@ -766,7 +797,7 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
         per_step[kname]["max_abs_err"] = max(r["max_abs_err"] for r in rs)
         per_step[kname]["bound_by"] = max(rs, key=lambda r: r["bound_ms"] * r["sites"])[
             "bound_by"]
-        print(f"per training step (batch {TRAIN_BATCH}), {kname}: "
+        print(f"per training step (batch {batch_size}), {kname}: "
               + ", ".join(f"{f} {v:.4f}" for f, v in per_step[kname].items()
                           if isinstance(v, float)) + f" [{card}]", flush=True)
     return {"shapes": rows, "per_step": per_step, "launches": launches}
@@ -2146,6 +2177,15 @@ def cli_run(torch, ops, card: str, name: str, argv, want=None) -> dict:
     return rec
 
 
+def state_differences(torch, a: dict, b: dict) -> list:
+    """The tensors (parameters, EMA, Adam moments) in which two saved states differ."""
+    return [f"{part}.{k}" for part, x, y in (
+        ("params", a["params"], b["params"]), ("ema_params", a["ema_params"], b["ema_params"]),
+        ("mu", a["opt_state"]["mu"], b["opt_state"]["mu"]),
+        ("nu", a["opt_state"]["nu"], b["opt_state"]["nu"])) for k in x
+        if not torch.equal(x[k], y[k])]
+
+
 def cli_phase(torch, np, ops, dev, card: str) -> dict:
     """Phase 9b: the command line in this process (so the counters read its
     launches), ``dmme_tpu_torch.trainer.main``, on the repo's configs: fit at
@@ -2214,10 +2254,7 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
                              "--trainer.default_root_dir", whole,
                              "--trainer.callbacks", _cli_callback(whole)], fit_launches(30, 4))
     a, b = CheckpointManager(root).load(30), CheckpointManager(whole).load(30)
-    differ = [f"{part}.{k}" for part, x, y in (
-        ("params", a["params"], b["params"]), ("ema_params", a["ema_params"], b["ema_params"]),
-        ("mu", a["opt_state"]["mu"], b["opt_state"]["mu"]),
-        ("nu", a["opt_state"]["nu"], b["opt_state"]["nu"])) for k in x if not torch.equal(x[k], y[k])]
+    differ = state_differences(torch, a, b)
     same_counts = (a["step"], a["opt_state"]["count"]) == (b["step"], b["opt_state"]["count"])
     out["resume_bitwise"] = {"differing_tensors": len(differ), "first": differ[:8],
                              "step_and_count_equal": same_counts}
@@ -2671,6 +2708,524 @@ def f32_edm_phase(torch, np, blocks, ddpm_models, init_weights, dev, ops, card: 
     return out
 
 
+# the class-conditional demo (classifier-free guidance) and the upsampler demo
+CFG_CONFIG = "configs/ddpm/shapes_cfg_demo.yaml"
+SR_CONFIG = "configs/ddpm/shapes_sr_demo.yaml"
+CFG_CLASSES, CFG_SCALE = 2, 2.0  # shapes_cfg_demo.yaml: num_classes, guidance_scale
+# the DDPM UNet's parameters and the class table's 2 + 1 rows of 512
+CFG_PARAMS = 32_416_643 + (CFG_CLASSES + 1) * 512
+# the upsampler's UNet as the config gives it, in bf16 with both kernel switches on
+SR_KERNELS = ["--model.init_args.model.init_args.dtype", "bf16",
+              "--model.init_args.model.init_args.fused_norm", "true",
+              "--model.init_args.model.init_args.fused_block", "true"]
+SR_BATCH = 32  # shapes_sr_demo.yaml's batch size
+
+
+def eval_launches(blocks, model) -> dict:
+    """K1/K2/K3/K4 launches of one eval forward (both switches on): the
+    output norm, the attention sites, the ResBlocks."""
+    return {"group_norm_silu": 1, "group_norm_silu_bwd": 0,
+            "attention": sum(isinstance(m, blocks.SelfAttention2d) for m in model.modules()),
+            "resblock": sum(isinstance(m, blocks.ResBlock) for m in model.modules())}
+
+
+def train_launches(blocks, model) -> dict:
+    """K1/K2/K3/K4 launches of one training step."""
+    n_res = sum(isinstance(m, blocks.ResBlock) for m in model.modules())
+    return {"group_norm_silu": 2 * n_res + 1, "group_norm_silu_bwd": 2 * n_res + 1,
+            "attention": sum(isinstance(m, blocks.SelfAttention2d) for m in model.modules()),
+            "resblock": 0}
+
+
+def sr_harness(torch, argv=()):
+    """The harness of configs/ddpm/shapes_sr_demo.yaml with ``SR_KERNELS``
+    and ``argv`` applied."""
+    from dmme_tpu_torch import config as tcfg
+
+    over = SR_KERNELS + list(argv)
+    return tcfg.instantiate(tcfg.validate_config(
+        tcfg.apply_overrides(tcfg.load_config(SR_CONFIG), over))["model"])
+
+
+def _per_forward(rows, name: str, card: str, label: str) -> dict:
+    """Per-site sums of K1/K3/K4 over the call sites of forward ``name``."""
+    flat = [dict(r, sites=r["sites"][name]) for r in rows if name in r["sites"]]
+    per = {k: per_site_sum(flat, k) for k in ("group_norm_silu", "attention", "resblock")}
+    for k, v in per.items():
+        print(f"per {label}, {k}: " + ", ".join(
+            f"{f} {x:.4f}" for f, x in v.items() if isinstance(x, float)) + f" [{card}]",
+            flush=True)
+    return per
+
+
+def cfg_kernels(torch, np, blocks, k_gn, k_attn, k_res, build, ddpm_models, init_weights,
+                dev, ops, card: str) -> dict:
+    """Phase 24: the call sites classifier-free guidance gives K1–K4 on the
+    DDPM UNet with a class table (bf16, both switches, random biases,
+    affines and class rows). A guided forward of n requests is one UNet call
+    at N = 2n (labels ‖ the null token): at n = 1, 8, 16 its launches must be
+    1/6/22 and every K1/K3/K4 call of it at N = 2, 16, 32 is held against its
+    plain version (``TOL``) and timed; then K1, K2, K3 and the attention
+    backward at every call site of one ``LitDDPM(num_classes=2)`` training
+    step at batch 128 on labelled images (:func:`train_kernels`)."""
+    from dmme_tpu_torch.diffusion import classifier_free
+    from dmme_tpu_torch.training import LitDDPM
+
+    m = ddpm_models.UNet(dtype=torch.bfloat16, fused_norm=True, fused_block=True,
+                         num_classes=CFG_CLASSES)
+    init_weights(m, torch.Generator().manual_seed(SEED))
+    randomize_affines(torch, blocks, m, torch.Generator().manual_seed(SEED + 1))
+    m = m.to(dev).eval()
+    runs, out = {}, {"launches": {}}
+    for n in SERVE_BATCHES:
+        g = torch.Generator().manual_seed(SEED + 100 + n)
+        x = torch.randn((n, 32, 32, 3), generator=g).to(dev)
+        t = torch.randint(1, 1000, (n,), generator=g).to(dev)
+        y = torch.randint(0, CFG_CLASSES, (n,), generator=g).to(dev)
+        calls = []
+
+        def fn(params, xx, tt, _calls=calls, **kw):
+            _calls.append(xx.shape[0])
+            return m(xx, tt, **kw)
+
+        guided = classifier_free(fn, y, CFG_SCALE, CFG_CLASSES)
+        reset_counts(ops)
+        with torch.no_grad():
+            guided(None, x, t)
+        torch.cuda.synchronize()
+        launches = counts(ops)
+        expect_bf16_only(f"guided forward at n = {n}")
+        print(f"guided forward at n = {n}: UNet calls at N = {calls}, launches {launches} "
+              f"(expected {PER_FORWARD})", flush=True)
+        if calls != [2 * n] or launches != PER_FORWARD:
+            fail(f"the guided forward at n = {n} made calls {calls} with launches {launches}")
+        out["launches"][n] = launches
+        # the call the wrapper makes: x ‖ x, t ‖ t, y ‖ null
+        null = torch.full_like(y, CFG_CLASSES)
+        runs[f"cfg_N{2 * n}"] = (m, torch.cat([x, x]), torch.cat([t, t]), PER_FORWARD,
+                                 {"y": torch.cat([y, null])})
+    recorded, _ = record_forwards(torch, blocks, runs, dev)
+    rows, failures = forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded)
+    if failures:
+        fail(f"guided forward kernels disagree with their plain versions: {failures}")
+    out["rows"] = rows
+    out["per_forward"] = {name: _per_forward(rows, name, card, f"guided call, {name}")
+                          for name in runs}
+    del m, recorded
+    torch.cuda.empty_cache()
+    print(f"-- LitDDPM(dtype='bf16', num_classes={CFG_CLASSES}) training step at batch "
+          f"{TRAIN_BATCH}, labelled", flush=True)
+    out["train"] = train_kernels(torch, blocks, k_gn, k_attn, None, init_weights, None, dev,
+                                 card, ops, lit=LitDDPM(dtype="bf16", num_classes=CFG_CLASSES),
+                                 labels=CFG_CLASSES)
+    torch.cuda.empty_cache()
+    return out
+
+
+def sr_kernels(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, dev, ops,
+               card: str) -> dict:
+    """Phase 28 (kernels): the upsampler's UNet at the widths of
+    configs/ddpm/shapes_sr_demo.yaml (channels 32/64/64, 8 groups, C/G = 4,
+    attention at depth 3, input x_t ‖ cond of 6 channels), bf16 with both
+    switches: K1, K3 and K4 at every call site of an eval forward at n = 8
+    (launches 1/4/11) and K1, K2, K3 and the attention backward at every call
+    site of one training step at batch 32 (23/23/4/0), each held against its
+    plain version and timed."""
+    lit = sr_harness(torch)
+    m = lit.model
+    init_weights(m, torch.Generator().manual_seed(SEED))
+    randomize_affines(torch, blocks, m, torch.Generator().manual_seed(SEED + 1))
+    m = m.to(dev).eval()
+    want = eval_launches(blocks, m)
+    g = torch.Generator().manual_seed(SEED + 120)
+    x = torch.randn((BATCH, 32, 32, 2 * 3), generator=g)
+    t = torch.randint(1, 200, (BATCH,), generator=g)
+    reset_counts(ops)
+    with torch.no_grad():
+        m(x.to(dev), t.to(dev))
+    torch.cuda.synchronize()
+    launches = counts(ops)
+    expect_bf16_only("upsampler forward")
+    print(f"upsampler forward at n = {BATCH}: launches {launches} (expected {want})", flush=True)
+    if launches != want:
+        fail(f"the upsampler forward launched {launches}, expected {want}")
+    recorded, _ = record_forwards(torch, blocks, {"sr": (m, x, t, want)}, dev)
+    rows, failures = forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded)
+    if failures:
+        fail(f"upsampler forward kernels disagree with their plain versions: {failures}")
+    out = {"launches": launches, "rows": rows,
+           "per_forward": _per_forward(rows, "sr", card, f"upsampler forward at n = {BATCH}")}
+    del m, recorded
+    torch.cuda.empty_cache()
+    print(f"-- the upsampler's training step at batch {SR_BATCH}", flush=True)
+    out["train"] = train_kernels(torch, blocks, k_gn, k_attn, None, init_weights, None, dev,
+                                 card, ops, lit=sr_harness(torch), batch_size=SR_BATCH)
+    torch.cuda.empty_cache()
+    return out
+
+
+def cfg_fit(torch, np, blocks, ops, dev, card: str) -> dict:
+    """Phase 25: ``trainer.main`` on configs/ddpm/shapes_cfg_demo.yaml
+    (the full-width DDPM UNet with a 2-class table, bf16, batch 128, labelled
+    Shapes, 10 steps a call): the model's parameter count; fit 20 steps with
+    checkpoints at 10 and 20 (launches 45/45/6/0 a step); a resume to 30
+    against an uninterrupted 30-step run, bit for bit (the drop masks come
+    from the step's generator, restored with the step); ``validate`` on the
+    true labels (two eval forwards, 1/6/22 each); ``sample --trainer.sampler
+    ddim`` (DDIM-50 at n = 8: one guided call at N = 16 a step); then the
+    saved state's labelled train step timed (median step ms) and profiled
+    (idle share) under the library's default cuDNN settings."""
+    import shutil
+
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.data import Shapes
+    from dmme_tpu_torch.parallel import make_train_step
+    from dmme_tpu_torch.training import CheckpointManager
+
+    torch.backends.cudnn.deterministic = True
+    roots = {k: os.path.join("build", k) for k in ("cli_cfg", "cli_cfg_whole")}
+    for root in roots.values():
+        shutil.rmtree(root, ignore_errors=True)
+    cfg = ["--config", CFG_CONFIG, "--trainer.tensorboard", "false"]
+    fit_args = cfg + ["--trainer.ckpt_every_n_steps", "10", "--trainer.log_every_n_steps", "10"]
+    lit = tcfg.instantiate(tcfg.validate_config(tcfg.load_config(CFG_CONFIG))["model"])
+    n_params = sum(p.numel() for p in lit.model.parameters())
+    print(f"{CFG_CONFIG}: {type(lit).__name__}(num_classes={lit.num_classes}, cond_dropout="
+          f"{lit.cond_dropout}, guidance_scale={lit.guidance_scale}), dtype {lit.model.dtype}, "
+          f"{n_params:,} parameters (expected {CFG_PARAMS:,})", flush=True)
+    if n_params != CFG_PARAMS or lit.model.class_embed.weight.shape != (CFG_CLASSES + 1, 512):
+        fail(f"the CFG demo's model has {n_params} parameters")
+    per_step = train_launches(blocks, lit.model)
+    del lit
+    out = {"params": n_params}
+
+    def steps(n):
+        return {k: v * n for k, v in per_step.items()}
+
+    root = roots["cli_cfg"]
+    out["fit"] = cli_run(torch, ops, card, "cfg fit 20",
+                         ["fit", *fit_args, "--trainer.max_steps", "20",
+                          "--trainer.default_root_dir", root], steps(20))
+    logged = _jsonl(os.path.join(root, "metrics.jsonl"))
+    out["fit"]["losses"] = [r["loss"] for r in logged]
+    out["fit"]["step_ms_from_jsonl"] = [1e3 * TRAIN_BATCH / r["imgs_per_sec"] for r in logged]
+    out["fit"]["checkpoints"] = CheckpointManager(root).steps()
+    print(f"cfg fit: checkpoints {out['fit']['checkpoints']}, losses "
+          f"{[round(v, 5) for v in out['fit']['losses']]}, step ms from the JSONL "
+          f"{[round(v, 2) for v in out['fit']['step_ms_from_jsonl']]} [{card}]", flush=True)
+    if (out["fit"]["checkpoints"] != [10, 20] or len(logged) != 2
+            or not np.isfinite(out["fit"]["losses"]).all()):
+        fail(f"the CFG fit through the CLI left {out['fit']}")
+    out["resume"] = cli_run(torch, ops, card, "cfg resume 20 -> 30",
+                            ["fit", *fit_args, "--trainer.max_steps", "30", "--trainer.resume",
+                             "true", "--trainer.default_root_dir", root], steps(10))
+    whole = roots["cli_cfg_whole"]
+    out["whole"] = cli_run(torch, ops, card, "cfg uninterrupted 30",
+                           ["fit", *fit_args, "--trainer.max_steps", "30",
+                            "--trainer.default_root_dir", whole], steps(30))
+    a, b = CheckpointManager(root).load(30), CheckpointManager(whole).load(30)
+    differ = state_differences(torch, a, b)
+    out["resume_bitwise"] = {"differing_tensors": len(differ), "first": differ[:8]}
+    print(f"cfg resumed vs uninterrupted at step 30: {len(differ)} of {4 * len(a['params'])} "
+          f"tensors differ {differ[:8]}", flush=True)
+    if differ or a["step"] != b["step"]:
+        fail(f"the resumed CFG run is not bitwise the uninterrupted one: {differ[:8]}")
+    out["validate"] = cli_run(torch, ops, card, "cfg validate",
+                              ["validate", *cfg, "--trainer.default_root_dir", root,
+                               "--trainer.limit_val_batches", "2"],
+                              launches_for(PER_FORWARD, 2))
+    out["sample"] = cli_run(torch, ops, card, "cfg sample --trainer.sampler ddim",
+                            ["sample", *cfg, "--trainer.default_root_dir", root,
+                             "--trainer.sampler", "ddim"], launches_for(PER_FORWARD, 50))
+    png = os.path.join(root, "samples", "step_00000030_ddim50.png")
+    out["sample"]["png"] = os.path.exists(png)
+    if not out["sample"]["png"]:
+        fail(f"cfg sample wrote no {png}")
+
+    torch.backends.cudnn.deterministic = False
+    lit = tcfg.instantiate(tcfg.validate_config(tcfg.load_config(CFG_CONFIG))["model"])
+    state = CheckpointManager(root).restore(lit.init_state(0, device=dev))
+    dm = Shapes(size=4 * TRAIN_BATCH, batch_size=TRAIN_BATCH, with_labels=True)
+    dm.setup("fit")
+    it = dm.train_iter(SEED + 9)
+
+    def batch():
+        images, labels = next(it)
+        return (torch.from_numpy(images).pin_memory().to(dev, non_blocking=True),
+                torch.from_numpy(labels).to(dev))
+
+    step = make_train_step(lit.make_loss_fn(dm))
+    state, _ = step(state, batch(), SEED)  # first launches of this step object
+    state, out["timing"], out["profile_3_steps"], out["profile_1_step"] = timed_steps(
+        torch, np, step, state, batch, card)
+    del state, lit
+    for root in roots.values():
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def cfg_serve(torch, np, blocks, dev, ops, card: str) -> dict:
+    """Phase 26: ``LitDDIM(dtype="bf16", num_classes=2, guidance_scale=2)``
+    behind ``make_server`` (random weights, biases, affines and class rows):
+    ``default`` (DDIM-50) requests at n = 8 (repeated for identical bytes),
+    1 and 16, each one guided call at N = 2n a step (launches 50 × 1/6/22);
+    ``dpm`` and ``unipc`` at n = 8; ``cached``, ``deep`` and ``deep_dpm``
+    answered 400 with JAX's message; one n = 8 request under the profiler."""
+    from dmme_tpu_torch.serving import Sampler
+    from dmme_tpu_torch.training import LitDDIM, TrainState
+
+    lit = LitDDIM(dtype="bf16", timesteps=1000, sample_steps=50, tau_schedule="quadratic",
+                  num_classes=CFG_CLASSES, guidance_scale=CFG_SCALE)
+    lit.init_state(SEED)
+    randomize_affines(torch, blocks, lit.model, torch.Generator().manual_seed(SEED + 1))
+    state = TrainState.create({k: v.detach().clone() for k, v in lit.model.state_dict().items()},
+                              lit.make_optimizer())
+    sampler = Sampler(lit, state, img_size=32, device=dev)
+    url, stop = _serve(torch, sampler)
+    out = {}
+    try:
+        _post(url, {"n": 1, "seed": 99, "format": "npy"})  # warm
+        out["requests"] = solver_requests(np, url, ops, "CFG", card, [
+            ("default", None, launches_for(PER_FORWARD, 50))])
+        out["launches_by_n"] = {BATCH: out["requests"][0]["launches"]}
+        for n in (1, 16):
+            reset_counts(ops)
+            code, data, secs = _post(url, {"n": n, "seed": 3, "format": "npy"})
+            launches = counts(ops)
+            imgs = np.load(io.BytesIO(data)) if code == 200 else None
+            ok = bool(code == 200 and imgs.shape == (n, 32, 32, 3) and np.isfinite(imgs).all())
+            print(f"CFG: POST /sample n={n}: {secs:.3f} s, launches {launches} [{card}]"
+                  + ("" if ok else "  FAIL"), flush=True)
+            if not ok or launches != launches_for(PER_FORWARD, 50):
+                fail(f"CFG n = {n}: {code}, launches {launches}")
+            expect_bf16_only(f"CFG n = {n} request")
+            out["requests"].append({"n": n, "s": secs, "launches": launches})
+            out["launches_by_n"][n] = launches
+        out["solvers"] = solver_requests(np, url, ops, "CFG", card, [
+            (name, steps, launches_for(PER_FORWARD, steps)) for name, steps in SOLVERS
+            if name != "ddim"])
+        out["rejected"] = {name: rejected(url, "CFG", name, "does not support class-conditional")
+                           for name, _, _ in CACHING}
+    finally:
+        stop()
+    prof = profile_fn(torch, lambda: sampler.sample(BATCH, seed=5))
+    out["profile_n8"] = prof
+    print(f"CFG default n=8 under torch.profiler: wall {prof['wall_ms']:.2f} ms, device busy "
+          f"{prof['busy_ms']:.2f} ms, idle share {prof['idle_share']:.3f} [{card}]", flush=True)
+    for name, ms, count in prof["top"]:
+        print(f"    {ms:9.3f} ms {count:6d}x  {name}", flush=True)
+    return out
+
+
+def cfg_iddpm(torch, np, blocks, dev, ops, card: str) -> dict:
+    """Phase 27: guided IDDPM, the ε ‖ v split on the card:
+    ``LitIDDPM(num_classes=10, sample_steps=50, dtype="bf16")`` (the IDDPM
+    UNet with a 10-class table) trains 3 steps on labelled synthetic
+    CIFAR-10 at batch 128 (launches 45/45/11/0 a step), then answers one
+    n = 8 request over HTTP (50 guided calls at N = 16, launches 1/11/22
+    each), repeated for identical bytes."""
+    from dmme_tpu_torch.data import CIFAR10
+    from dmme_tpu_torch.serving import Sampler
+    from dmme_tpu_torch.training import LitIDDPM, fit
+
+    lit = LitIDDPM(num_classes=10, sample_steps=50, dtype="bf16")
+    dm = CIFAR10(synthetic=True, synthetic_size=4 * TRAIN_BATCH, batch_size=TRAIN_BATCH,
+                 with_labels=True)
+    reset_counts(ops)
+    state = fit(lit, dm, max_steps=3, log_every=1, device=dev)
+    torch.cuda.synchronize()
+    launches = counts(ops)
+    expect_bf16_only("guided IDDPM fit")
+    want = {k: 3 * v for k, v in PER_TRAIN_STEP_IDDPM.items()}
+    print(f"guided IDDPM fit 3 steps: launches {launches} (expected {want})", flush=True)
+    if launches != want:
+        fail(f"the guided IDDPM fit launched {launches}, expected {want}")
+    sampler = Sampler(lit, state, img_size=32, device=dev)
+    url, stop = _serve(torch, sampler)
+    try:
+        _post(url, {"n": 1, "seed": 99, "format": "npy"})  # warm
+        req = solver_requests(np, url, ops, "guided IDDPM", card, [
+            ("default", None, launches_for(PER_FORWARD_IDDPM, 50))])
+    finally:
+        stop()
+    return {"fit_launches": launches, "request": req}
+
+
+def sr_fit(torch, np, blocks, ops, dev, card: str) -> dict:
+    """Phase 28: ``trainer.main fit`` of configs/ddpm/shapes_sr_demo.yaml
+    (factor 2, T = 200, batch 32, Shapes; the UNet in bf16 with both kernel
+    switches, ``SR_KERNELS``) for 20 steps (launches 23/23/4/0 a step); then,
+    from the saved state, ``generate(low_res=)`` at n = 8 from 16×16 images
+    (200 ancestral steps at 32×32, launches 1/4/11 each), repeated for
+    identical bytes; ``serve`` refused."""
+    import shutil
+
+    from dmme_tpu_torch import serving
+    from dmme_tpu_torch.training import CheckpointManager
+
+    root = os.path.join("build", "cli_sr")
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--config", SR_CONFIG, *SR_KERNELS, "--trainer.log_every_n_steps", "10",
+            "--trainer.default_root_dir", root]
+    lit = sr_harness(torch)
+    per_step, per_fwd = train_launches(blocks, lit.model), eval_launches(blocks, lit.model)
+    out = {"fit": cli_run(torch, ops, card, f"sr fit {FIT_STEPS}",
+                          ["fit", *argv, "--trainer.max_steps", str(FIT_STEPS)],
+                          {k: v * FIT_STEPS for k, v in per_step.items()})}
+    state = CheckpointManager(root).restore(lit.init_state(0, device=dev))
+    g = torch.Generator().manual_seed(SEED + 130)
+    low = (torch.rand((BATCH, 16, 16, 3), generator=g) * 2 - 1).to(dev)
+    reset_counts(ops)
+    t0 = time.time()
+    hi = lit.generate(state, torch.Generator(device=dev).manual_seed(1), low_res=low)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = counts(ops)
+    again = lit.generate(state, torch.Generator(device=dev).manual_seed(1), low_res=low)
+    steps = lit.diffusion_model.timesteps
+    want = launches_for(per_fwd, steps)
+    out["generate"] = {"s": secs, "launches": launches, "shape": list(hi.shape),
+                       "identical": bool(torch.equal(hi, again)),
+                       "finite": bool(hi.isfinite().all())}
+    print(f"upsampler generate(low_res) 16x16 -> {tuple(hi.shape[1:3])} at n = {BATCH}: "
+          f"{secs:.3f} s ({steps} steps), launches {launches} (expected {want}), repeat "
+          f"identical {out['generate']['identical']} [{card}]", flush=True)
+    expect_bf16_only("upsampler generate")
+    if (launches != want or tuple(hi.shape) != (BATCH, 32, 32, 3)
+            or not (out["generate"]["identical"] and out["generate"]["finite"])):
+        fail(f"the upsampler's generate(low_res=): {out['generate']}")
+    try:
+        serving.Sampler(lit, state, 32, device=dev)
+    except ValueError as e:
+        out["serve_refused"] = str(e)
+    else:
+        fail("serve took a conditioned-input model")
+    print(f"serve refused: {out['serve_refused']}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_cfg_phase(torch, np, blocks, ddpm_models, init_weights, dev, ops, card: str) -> dict:
+    """Phase 29: ``LitDDPM(num_classes=10)`` at its default dtype (f32): one
+    training step at batch 128 on labelled images (K1/K2/K3 45/45/6 in f32,
+    no bf16 kernel); then, on the same weights, the loss and its gradient at
+    batch 8 with numpy t and ε, labels with three of eight dropped to the
+    null token, and dropout 0.1 on (the card's masks replayed on the CPU and
+    in the control), and one guided DDIM step at n = 8 (one call at N = 16,
+    w = 2), against f32 on the CPU within ``F32_REL_L2``; the bf16 harness
+    on the same inputs is the control that must miss it."""
+    from torch.func import functional_call
+
+    from dmme_tpu_torch.data import CIFAR10
+    from dmme_tpu_torch.diffusion import DDIM, classifier_free
+    from dmme_tpu_torch.parallel import make_train_step
+    from dmme_tpu_torch.training import LitDDPM
+
+    classes = 10
+    none = {k: 0 for k in ops}
+    w_model = ddpm_models.UNet(dtype=torch.float32, num_classes=classes)
+    init_weights(w_model, torch.Generator().manual_seed(SEED))
+    randomize_affines(torch, blocks, w_model, torch.Generator().manual_seed(SEED + 1))
+    weights = {k: v.detach().clone() for k, v in w_model.state_dict().items()}
+    dm = CIFAR10(synthetic=True, synthetic_size=2 * TRAIN_BATCH, batch_size=TRAIN_BATCH,
+                 with_labels=True)
+    dm.setup("fit")
+    images, labels = next(dm.train_iter(SEED))
+    batch = (torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev))
+
+    lit = LitDDPM(num_classes=classes)
+    state = lit.init_state(SEED, device=dev)
+    with torch.no_grad():
+        for k, v in state.params.items():
+            v.copy_(weights[k])
+    reset_counts(ops)
+    _, metrics = make_train_step(lit.make_loss_fn(dm))(state, batch, SEED)
+    torch.cuda.synchronize()
+    out = {"train": {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                     "launches": counts(ops), "wide": wide_counts()}}
+    print(f"LitDDPM(num_classes={classes}) one training step at batch {TRAIN_BATCH} (f32): loss "
+          f"{out['train']['loss']:.6f} grad_norm {out['train']['grad_norm']:.4f}; bf16 kernel "
+          f"launches {out['train']['launches']}; f32/fp16 launches {out['train']['wide']}",
+          flush=True)
+    want_step = wide_expected("f32", PER_TRAIN_STEP)
+    if out["train"]["launches"] != none or out["train"]["wide"] != want_step:
+        fail(f"the f32 CFG step launched {out['train']}, expected none and {want_step}")
+    if not (np.isfinite(out["train"]["loss"]) and np.isfinite(out["train"]["grad_norm"])):
+        fail("the f32 CFG training step is not finite")
+    del state
+
+    x0, t, eps = ddpm_draws(torch, np)
+    r = np.random.default_rng(SEED + 140)
+    y = torch.tensor(r.integers(0, classes, (BATCH,)), dtype=torch.int64)
+    y[[1, 4, 6]] = classes  # dropped to the null token, as label dropout does
+    y_guide = torch.tensor(r.integers(0, classes, (BATCH,)), dtype=torch.int64)
+    x_k = torch.tensor(r.standard_normal((BATCH, 32, 32, 3)).astype(np.float32))
+    ddim = DDIM.create(1000, 50, "quadratic")
+    k_step = 25  # a mid-grid step
+    masks = {}
+
+    def measure(dtype, device, replay, count=False):
+        model = ddpm_models.UNet(dtype=dtype, num_classes=classes, fused_norm=True,
+                                 fused_block=True).to(device)
+        params = {k: v.to(device).requires_grad_(True) for k, v in weights.items()}
+
+        def fn(p, x, tt, **kw):
+            return functional_call(model, p, (x, tt), kw)
+
+        undo = _dropout_masks(blocks, model, masks, replay)
+        try:
+            loss = lit.diffusion_model.loss_given(
+                lambda p, x, tt, **kw: fn(p, x, tt, y=y.to(device), **kw), params,
+                x0.to(device), t.to(device), eps.to(device), train=True,
+                generator=torch.Generator(device=device).manual_seed(SEED))
+            grads = torch.autograd.grad(loss, list(params.values()))
+        finally:
+            undo()
+        with torch.no_grad():
+            p = {k: v.detach() for k, v in params.items()}
+            if count:
+                torch.cuda.synchronize()
+                reset_counts(ops)
+            step = ddim.sampling_step(classifier_free(fn, y_guide.to(device), CFG_SCALE, classes),
+                                      p, x_k.to(device), k_step)
+            if count:
+                torch.cuda.synchronize()
+                out["ddim_launches"] = {"bf16": counts(ops), "wide": wide_counts()}
+        return {"loss": loss.detach().cpu(),
+                "grad": torch.cat([g.detach().float().flatten().cpu() for g in grads]),
+                "step": step.float().cpu()}
+
+    def readings(got, ref) -> dict:
+        return {"loss_rel_err": float(abs(got["loss"] - ref["loss"]) / abs(ref["loss"])),
+                "grad_rel_l2": rel_l2(got["grad"], ref["grad"]),
+                "step_rel_l2": rel_l2(got["step"], ref["step"])}
+
+    got = measure(torch.float32, dev, False, count=True)
+    ref = measure(torch.float32, torch.device("cpu"), True)
+    control = measure(torch.bfloat16, dev, True)
+    if not all(bool(v.isfinite().all()) for v in got.values()):
+        fail("the f32 CFG loss, gradient or guided step on the card is not finite")
+    f32_ddim = out["ddim_launches"]
+    want_ddim = wide_expected("f32", PER_FORWARD)
+    if f32_ddim["bf16"] != none or f32_ddim["wide"] != want_ddim:
+        fail(f"the f32 guided DDIM step launched {f32_ddim}, expected none and {want_ddim}")
+    out["vs_cpu"] = readings(got, ref)
+    out["bf16_control"] = readings(control, ref)
+    print(f"f32 CFG card vs f32 CPU (labels {y.tolist()}, {len(masks)} dropout masks replayed; "
+          f"guided DDIM step {k_step} of 50 at w = {CFG_SCALE}, launches {f32_ddim}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in out["vs_cpu"].items())
+          + f" (<= {F32_REL_L2}); bf16 control: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in out["bf16_control"].items()), flush=True)
+    if not all(v <= F32_REL_L2 for v in out["vs_cpu"].values()):
+        fail("the f32 CFG harness on the card disagrees with the f32 CPU reference")
+    if not (out["bf16_control"]["grad_rel_l2"] > F32_REL_L2
+            and out["bf16_control"]["step_rel_l2"] > F32_REL_L2):
+        fail("the f32 CFG comparison does not tell bf16 compute from f32")
+    return out
+
+
 def record_forwards(torch, blocks, runs, dev) -> tuple:
     """Record the K1/K3/K4 inputs of eval forwards. ``runs``: {name: (model,
     x, t, expected call sites[, forward keyword arguments])}; fails if a
@@ -3121,6 +3676,29 @@ def main() -> int:
     phase("f32 EDM: LitEDM() on the card (K3/K4 as 3xTF32)")
     report["f32_edm"] = f32_edm_phase(torch, np, blocks, ddpm_models, init_weights, dev, ops,
                                       card)
+    torch.cuda.empty_cache()
+
+    phase("CFG kernels: guided forwards at N = 2, 16, 32 and a labelled training step")
+    report["cfg_kernels"] = cfg_kernels(torch, np, blocks, k_gn, k_attn, k_res, build,
+                                        ddpm_models, init_weights, dev, ops, card)
+    phase(f"CFG fit: trainer.main on {CFG_CONFIG}, resume bitwise, validate, sample")
+    report["cfg_fit"] = cfg_fit(torch, np, blocks, ops, dev, card)
+    torch.backends.cudnn.deterministic = False
+    phase("CFG serve: LitDDIM(dtype='bf16', num_classes=2, guidance_scale=2) over HTTP")
+    report["cfg_serve"] = cfg_serve(torch, np, blocks, dev, ops, card)
+    torch.cuda.empty_cache()
+    phase("guided IDDPM: LitIDDPM(num_classes=10, sample_steps=50, dtype='bf16')")
+    report["cfg_iddpm"] = cfg_iddpm(torch, np, blocks, dev, ops, card)
+    torch.cuda.empty_cache()
+    phase(f"upsampler kernels: the UNet of {SR_CONFIG} at n = {BATCH} and batch {SR_BATCH}")
+    report["sr_kernels"] = sr_kernels(torch, np, blocks, k_gn, k_attn, k_res, build,
+                                      init_weights, dev, ops, card)
+    phase(f"upsampler fit: trainer.main fit --config {SR_CONFIG}, then generate(low_res=)")
+    report["sr_fit"] = sr_fit(torch, np, blocks, ops, dev, card)
+    torch.backends.cudnn.deterministic = True
+    phase("f32 CFG: LitDDPM(num_classes=10) on the card against the CPU")
+    report["f32_cfg"] = f32_cfg_phase(torch, np, blocks, ddpm_models, init_weights, dev, ops,
+                                      card)
 
     phase("kernels")
     sources = {
@@ -3199,6 +3777,25 @@ def main() -> int:
         for kname in ("group_norm_silu", "group_norm_silu_bwd", "attention"):
             table.append(_table_row(f"{kname}_{fam}_train", kname, per_step[kname],
                                     report[f"{fam}_fit"]["launches"][kname]))
+    # the class-conditional and upsampler paths: K1/K3/K4 per guided call at
+    # N = 2, 16, 32 (launches in the n = 1, 8, 16 requests of the CFG serve
+    # phase) and per upsampler forward at n = 8 (launches in its
+    # generate(low_res=)); K1/K2/K3 per labelled CFG training step at batch
+    # 128 and per upsampler step at batch 32 (launches in their CLI fits)
+    ck, sk = report["cfg_kernels"], report["sr_kernels"]
+    for n in SERVE_BATCHES:
+        for kname, v in ck["per_forward"][f"cfg_N{2 * n}"].items():
+            table.append(_table_row(f"{kname}_cfg_N{2 * n}", kname, v,
+                                    report["cfg_serve"]["launches_by_n"][n][kname]))
+    for kname, v in sk["per_forward"].items():
+        table.append(_table_row(f"{kname}_sr", kname, v,
+                                report["sr_fit"]["generate"]["launches"][kname]))
+    for tag, rec, fit_rec in (("cfg", ck, report["cfg_fit"]["fit"]),
+                              ("sr", sk, report["sr_fit"]["fit"])):
+        for kname in ("group_norm_silu", "group_norm_silu_bwd", "attention"):
+            table.append(_table_row(f"{kname}_{tag}_train", kname,
+                                    rec["train"]["per_step"][kname],
+                                    fit_rec["launches"][kname]))
     report["kernels"] = table
     print("kernels launched on their paths and held against their plain versions: "
           + "; ".join(f"{k['name']} ({k['route']}, {k['source']}, replaces {k['replaces']}, "
@@ -3219,8 +3816,13 @@ def main() -> int:
           f"launches in their default requests; *_cached, *_deep: the caching samplers' non-key "
           f"forwards, launches in the non-key steps of their n = {BATCH} requests; times per "
           f"n = {BATCH} forward. *_train: per batch-{TRAIN_BATCH} EDM or flow training step, "
-          f"launches in the {FIT_STEPS}-step CLI fit, EDM's with its three sampling grids)",
-          flush=True)
+          f"launches in the {FIT_STEPS}-step CLI fit, EDM's with its three sampling grids. "
+          f"*_cfg_N<N>: per guided UNet call at batch N (labels and null token), launches in "
+          f"the CFG serve request of n = N/2; *_sr: per upsampler forward at n = {BATCH}, "
+          f"launches in its generate(low_res=); *_cfg_train: per labelled CFG step at batch "
+          f"{TRAIN_BATCH}, launches in the 20-step CLI fit of {CFG_CONFIG}; *_sr_train: per "
+          f"upsampler step at batch {SR_BATCH}, launches in the {FIT_STEPS}-step CLI fit of "
+          f"{SR_CONFIG})", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import importlib
 import inspect
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Set
 
 import yaml
 
@@ -25,7 +25,6 @@ from dmme_tpu_torch.training.lit import resolve_dtype
 #: what the port has not ported yet, by JAX class path (or its prefix), with
 #: the ROADMAP item that ports it
 _NOT_PORTED = {
-    "dmme_tpu.training.LitUpsampler": "A.6: guidance, CFG, ADM and the other harnesses",
     "dmme_tpu.training.LitClassifier": "A.6: guidance, CFG, ADM and the other harnesses",
     "dmme_tpu.models.adm": "A.6: guidance, CFG, ADM and the other harnesses",
     "dmme_tpu.models.dit": "A.7: DiT and MoE",
@@ -36,12 +35,9 @@ _NOT_PORTED = {
     "dmme_tpu.data.LSUN": "A.12: LSUN and the remaining data",
     "dmme_tpu.data.ImageFolder64": "A.12: LSUN and the remaining data",
 }
-#: constructor arguments of ported classes that only the JAX package takes yet
-_ARGS_NOT_PORTED = {
-    "num_classes": "A.6: guidance, CFG, ADM and the other harnesses",
-    "cond_dropout": "A.6: guidance, CFG, ADM and the other harnesses",
-    "guidance_scale": "A.6: guidance, CFG, ADM and the other harnesses",
-}
+#: constructor arguments of ported classes that only the JAX package takes
+#: yet, with the ROADMAP item that ports them (none at present)
+_ARGS_NOT_PORTED: Dict[str, str] = {}
 
 
 class ConfigError(ValueError):
@@ -91,10 +87,12 @@ def instantiate(node: Any) -> Any:
 
 
 def _canon_kwargs(kwargs: Dict[str, Any]) -> Dict[str, Any]:
-    """A ``dtype`` name (``bf16``, ``fp32``/``f32``, ``fp16``, …) as the torch dtype."""
+    """A ``dtype`` or ``param_dtype`` name (``bf16``, ``fp32``/``f32``,
+    ``fp16``, …) as the torch dtype."""
     out = dict(kwargs)
-    if isinstance(out.get("dtype"), str):
-        out["dtype"] = resolve_dtype(out["dtype"])
+    for key in ("dtype", "param_dtype"):
+        if isinstance(out.get(key), str):
+            out[key] = resolve_dtype(out[key])
     return out
 
 
@@ -241,22 +239,37 @@ def _validate_class_tree(node: Any, where: str) -> None:
             _validate_class_tree(v, f"{where}[{i}]")
 
 
+def accepted_args(target) -> Optional[Set[str]]:
+    """The keyword arguments a class (or factory function) takes: its own,
+    and, where its constructor passes ``**kwargs`` on, those of the base
+    classes' constructors up the MRO to the first without ``**kwargs``.
+    None where any name would do or there is no introspectable signature."""
+    inits = ([c.__dict__["__init__"] for c in target.__mro__ if "__init__" in c.__dict__]
+             if inspect.isclass(target) else [target])
+    names: Set[str] = set()
+    for init in inits:
+        try:
+            params = inspect.signature(init).parameters
+        except (TypeError, ValueError):
+            return None
+        names |= {n for n, p in params.items() if n != "self" and p.kind not in (
+            inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)}
+        if not any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()):
+            return names
+    return None  # **kwargs all the way up
+
+
 def _check_signature(cls, init_args: Dict[str, Any], where: str) -> None:
-    try:
-        sig = inspect.signature(cls)
-    except (TypeError, ValueError):  # no introspectable signature
+    names = accepted_args(cls)
+    if names is None:
         return
-    params = sig.parameters
-    unknown = set(init_args) - set(params)
-    if any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()):
-        # **kwargs constructors take any name, but not one only the JAX package has
-        unknown &= set(_ARGS_NOT_PORTED)
+    unknown = set(init_args) - names
     if unknown:
         items = sorted({_ARGS_NOT_PORTED[k] for k in unknown if k in _ARGS_NOT_PORTED})
         if items:
             raise ConfigError(f"{where}.init_args {sorted(unknown)} for {cls.__name__}: not "
                               f"ported to dmme_tpu_torch yet (ROADMAP {', '.join(items)})")
-        _fail_unknown(unknown, f"{where}.init_args for {cls.__name__}", set(params))
+        _fail_unknown(unknown, f"{where}.init_args for {cls.__name__}", names)
 
 
 def describe_class(class_path: str) -> str:

@@ -1,5 +1,6 @@
 """Diffusion algorithms and samplers (mirrors ``dmme_tpu.diffusion``)."""
 
+from dmme_tpu_torch.diffusion.cfg import classifier_free
 from dmme_tpu_torch.diffusion.ddim import DDIM
 from dmme_tpu_torch.diffusion.ddpm import DDPM
 from dmme_tpu_torch.diffusion.deep_cache import DeepCachedDDIM, DeepCachedDPM
@@ -12,4 +13,5 @@ from dmme_tpu_torch.diffusion.iddpm import IDDPM, NoiseVariance
 from dmme_tpu_torch.diffusion.unipc import UniPC
 
 __all__ = ["DDPM", "DDIM", "IDDPM", "NoiseVariance", "DPMSolverPP", "UniPC", "EDM",
-           "FlowMatching", "CachedDDIM", "DeepCachedDDIM", "DeepCachedDPM", "make_sampler"]
+           "FlowMatching", "CachedDDIM", "DeepCachedDDIM", "DeepCachedDPM", "make_sampler",
+           "classifier_free"]

@@ -315,12 +315,17 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """flax default init, drawn from ``generator``: lecun-normal kernels,
-    zero biases, GroupNorm scale 1 and bias 0."""
+    zero biases, GroupNorm scale 1 and bias 0, and embedding tables normal
+    with variance 1/features (``nn.Embed``'s ``variance_scaling(1.0,
+    "fan_in", "normal", out_axis=0)``)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (Dense, Conv)):
                 _lecun_normal_(m.weight, generator)
                 m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                std = math.sqrt(1.0 / m.embedding_dim)
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator) * std)
             elif isinstance(m, GroupNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()

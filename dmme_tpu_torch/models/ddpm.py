@@ -19,10 +19,12 @@ def UNet(
     num_blocks: int = 2,
     attention_depths=(2,),
     dtype=torch.float32,
+    param_dtype=torch.float32,
+    remat: bool = False,
     fused_norm: bool = False,
     fused_block: bool = False,
+    num_classes=None,
     out_channels=None,
-    remat: bool = False,
 ) -> _UNet:
     return _UNet(
         in_channels=in_channels,
@@ -40,4 +42,6 @@ def UNet(
         fused_norm=fused_norm,
         fused_block=fused_block,
         remat=remat,
+        param_dtype=param_dtype,
+        num_classes=num_classes,
     )

@@ -20,9 +20,11 @@ def UNet(
     attention_depths=(2, 3),
     num_heads: int = 4,
     dtype=torch.float32,
+    param_dtype=torch.float32,
     remat: bool = False,
     fused_norm: bool = False,
     fused_block: bool = False,
+    num_classes=None,
 ) -> _UNet:
     return _UNet(
         in_channels=in_channels,
@@ -40,4 +42,6 @@ def UNet(
         fused_norm=fused_norm,
         fused_block=fused_block,
         remat=remat,
+        param_dtype=param_dtype,
+        num_classes=num_classes,
     )

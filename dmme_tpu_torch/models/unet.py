@@ -83,6 +83,15 @@ def build_topology(
     return tuple(down), middle, tuple(up)
 
 
+def check_param_dtype(param_dtype) -> None:
+    """The port keeps every parameter in float32; other parameter dtypes are
+    ROADMAP A.13."""
+    if param_dtype not in (torch.float32, "float32", "f32", "fp32"):
+        raise NotImplementedError(f"param_dtype={param_dtype}: parameters other than float32 "
+                                  "are not ported to dmme_tpu_torch yet (ROADMAP A.13: small "
+                                  "leftovers)")
+
+
 class UNet(nn.Module):
     """Timestep-conditioned UNet denoiser on NHWC tensors.
 
@@ -91,6 +100,12 @@ class UNet(nn.Module):
     GroupNorm+SiLU and fused ResBlock kernels; ``remat`` recomputes each
     ResBlock's activations in the backward of a training forward. None of
     the three changes a parameter.
+
+    With ``num_classes`` the model is class-conditional: a label embedding,
+    ``class_embed`` of ``num_classes + 1`` rows (the last is the null token of
+    classifier-free guidance), is added to the time embedding, so the labels
+    reach every ResBlock through its per-sample condition. Parameters are
+    float32; ``param_dtype`` takes no other value yet.
     """
 
     def __init__(
@@ -110,8 +125,11 @@ class UNet(nn.Module):
         fused_norm: bool = False,
         fused_block: bool = False,
         remat: bool = False,
+        param_dtype: torch.dtype = torch.float32,
+        num_classes: Optional[int] = None,
     ):
         super().__init__()
+        check_param_dtype(param_dtype)
         self.dtype = dtype
         self.remat = remat
         self.channels_per_depth = tuple(channels_per_depth)
@@ -128,6 +146,9 @@ class UNet(nn.Module):
                             num_groups, dropout, dtype, fused_norm, fused_block, remat)
 
         self.time_embed = TimeEmbedding(pos_dim, emb_dim, dtype)
+        self.num_classes = num_classes
+        if num_classes is not None:
+            self.class_embed = nn.Embedding(num_classes + 1, emb_dim)
         c = channels_per_depth[0]
         self.input_conv = conv3x3(in_channels, c, 1, dtype)
         skips = [c]
@@ -151,14 +172,16 @@ class UNet(nn.Module):
         self.out_norm = GNSiLU(num_groups, c, dtype) if fused_norm else GroupNorm(num_groups, c)
         self.output_conv = conv3x3(c, out_channels or in_channels, 1, dtype)
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor, *, train: bool = False,
+    def forward(self, x: torch.Tensor, t: torch.Tensor, *, y: Optional[torch.Tensor] = None,
+                train: bool = False,
                 generator: Optional[torch.Generator] = None, return_features: bool = False,
                 cached=None, cache_depth: Optional[int] = None,
                 deep_cache: Optional[torch.Tensor] = None, return_deep: bool = False):
         """Predict noise from NHWC ``x`` in [-1, 1] at timesteps ``t`` of shape
         (N,): integers, or floats for the continuous-time algorithms (EDM's
-        c_noise, flow's t·1000). ``train`` enables dropout, drawn from
-        ``generator``.
+        c_noise, flow's t·1000). ``y``: the (N,) integer labels of a
+        class-conditional model (``num_classes`` is the null token), required
+        there. ``train`` enables dropout, drawn from ``generator``.
 
         The feature-capture arguments serve the caching samplers
         (``diffusion/fast.py``, ``diffusion/deep_cache.py``):
@@ -188,6 +211,11 @@ class UNet(nn.Module):
                              if s.kind == "up" and s.depth == cache_depth) + 1
 
         emb = self.time_embed(t)
+        if self.num_classes is not None:
+            if y is None:
+                raise ValueError("a class-conditional UNet needs labels y")
+            # flax's nn.Embed(dtype=...) casts the table to the compute dtype
+            emb = emb + self.class_embed(y.to(device=emb.device, dtype=torch.int64)).to(self.dtype)
         reuse_deep = deep_cache is not None
         if cached is None:
             h = self.input_conv(x.to(self.dtype))

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from dmme_tpu_torch.diffusion.factory import MODULE_SAMPLERS, STEP_DEFAULTS, check_sampler
+from dmme_tpu_torch.training.evaluate import _reject_conditioned_input
 from dmme_tpu_torch.utils.device import resolve_device
 from dmme_tpu_torch.utils.norm import denorm
 from dmme_tpu_torch.utils.vis import make_history
@@ -51,11 +52,15 @@ def _bucket(n: int) -> int:
 class Sampler:
     """Serves samples of ``lit`` with the weights of ``state`` on one device.
     ``refresh_interval`` and ``cache_depth`` configure the feature-caching
-    samplers (``trainer.refresh_interval`` / ``trainer.cache_depth``)."""
+    samplers (``trainer.refresh_interval`` / ``trainer.cache_depth``). A
+    class-conditional model samples through classifier-free guidance on
+    uniform labels (a request names no labels, as in JAX); a
+    conditioned-input model (the upsampler) is refused here."""
 
     def __init__(self, lit, state, img_size: int,
                  device: Union[None, str, torch.device] = None, refresh_interval: int = 2,
                  cache_depth: int = 1):
+        _reject_conditioned_input(lit, "serve")
         self.lit = lit
         self.device = resolve_device(device)
         self.state = state.to(self.device)

@@ -127,13 +127,17 @@ def cmd_sample(config: Dict[str, Any], device) -> None:
     (:func:`dmme_tpu_torch.diffusion.factory.make_sampler`), cached | deep |
     deep_dpm with the feature-caching samplers, configured by
     ``trainer.refresh_interval`` and ``trainer.cache_depth``
-    (:func:`dmme_tpu_torch.diffusion.factory.make_module_sampler`)."""
+    (:func:`dmme_tpu_torch.diffusion.factory.make_module_sampler`). A
+    class-conditional model samples through classifier-free guidance on
+    uniform labels."""
     from dmme_tpu_torch.callbacks import GenerateImage
+    from dmme_tpu_torch.training.evaluate import _reject_conditioned_input
 
     model, data, tc, _ = _build(config)
     sampler = tc.get("sampler")
     if sampler:
         check_sampler(sampler)
+        _reject_conditioned_input(model, "sample --trainer.sampler")
     state, img_size, ckpt_dir = _restore_state(model, data, tc, device)
     n = int(tc.get("sample_batch") or 8)
     out_dir = os.path.join(ckpt_dir or ".", "samples")

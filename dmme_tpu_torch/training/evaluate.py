@@ -42,19 +42,35 @@ def validate(lit, datamodule, *, ckpt_dir: Optional[str] = None,
     params = state.ema_params if use_ema else state.params
 
     def eval_loss(p, generator, batch):
-        x = batch[0] if isinstance(batch, (tuple, list)) else batch
-        return lit.eval_loss(p, generator, datamodule.process(x))
+        # a labelled batch (images, labels) conditions a class-conditional
+        # model on its true labels; the harness binds any conditioning
+        x, y = batch if isinstance(batch, (tuple, list)) else (batch, None)
+        return lit.eval_loss(p, generator, datamodule.process(x), y)
 
     step = make_eval_step(eval_loss)
     losses = []
     for i, batch in enumerate(datamodule.test_iter()):
         if max_batches is not None and i >= max_batches:
             break
-        x = torch.from_numpy(np.ascontiguousarray(batch[0] if isinstance(batch, tuple)
-                                                  else batch)).to(device)
-        losses.append(float(step(params, x, step_generator(seed, i, device))))
+        batch = tuple(torch.from_numpy(np.ascontiguousarray(b)).to(device)
+                      for b in (batch if isinstance(batch, tuple) else (batch,)))
+        losses.append(float(step(params, batch if len(batch) > 1 else batch[0],
+                                 step_generator(seed, i, device))))
     return {"val/loss": float(np.mean(losses)) if losses else float("nan"),
             "num_batches": len(losses), "use_ema": use_ema}
+
+
+def _reject_conditioned_input(lit, where: str) -> None:
+    """Raise for a conditioned-input harness (the upsampler: network input
+    x_t ‖ cond) on a path that has no conditioning source to give it: the
+    server and ``sample --trainer.sampler``."""
+    get = getattr(lit, "model_in_channels", None)
+    solver_ch = getattr(lit, "latent_channels", getattr(lit, "img_channels", None))
+    if get is not None and solver_ch is not None and get() != solver_ch:
+        raise ValueError(
+            f"{where} has no conditioning source for a conditioned-input "
+            f"model ({type(lit).__name__}); sample through "
+            "lit.generate(..., low_res=...) — see scripts/upsample_demo.py")
 
 
 def test(*args, **kwargs):

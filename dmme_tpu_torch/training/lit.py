@@ -1,5 +1,6 @@
-"""``LitDDPM`` / ``LitDDIM`` / ``LitIDDPM`` / ``LitEDM`` / ``LitFlow``: the
-training and sampling harnesses of ``dmme_tpu/training/lit.py``.
+"""``LitDDPM`` / ``LitDDIM`` / ``LitIDDPM`` / ``LitEDM`` / ``LitFlow`` /
+``LitUpsampler``: the training and sampling harnesses of
+``dmme_tpu/training/lit.py``.
 
 The harness owns the denoiser module, the diffusion algorithm and the
 optimizer recipe; the weights live apart from the module in a
@@ -9,6 +10,12 @@ optimizer recipe; the weights live apart from the module in a
 The default denoiser is the DDPM UNet with the fused GroupNorm+SiLU and
 fused ResBlock kernels switched on; training ignores the fused ResBlock
 (it has no backward), as in JAX.
+
+With ``num_classes`` a harness trains a class-conditional model with label
+dropout to the null token and samples it through classifier-free guidance
+(:func:`~dmme_tpu_torch.diffusion.cfg.classifier_free`); the labels reach
+the network only through a bound model_fn, so the diffusion algorithms stay
+label-agnostic.
 """
 
 from __future__ import annotations
@@ -16,9 +23,11 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch.func import functional_call
 
-from dmme_tpu_torch.diffusion import DDIM, DDPM, EDM, IDDPM, FlowMatching, make_sampler
+from dmme_tpu_torch.diffusion import (DDIM, DDPM, EDM, IDDPM, FlowMatching, classifier_free,
+                                      make_sampler)
 from dmme_tpu_torch.diffusion.factory import MODULE_SAMPLERS, make_module_sampler
 from dmme_tpu_torch.models import ddpm as ddpm_models
 from dmme_tpu_torch.models import iddpm as iddpm_models
@@ -64,8 +73,13 @@ class LitDDPM:
         dtype: Union[str, torch.dtype] = torch.float32,
         ema_every_n_steps: int = 1,
         validate_original_weights: bool = False,
+        num_classes: Optional[int] = None,
+        cond_dropout: float = 0.1,
         parameterization: str = "eps",
         snr_gamma: Optional[float] = None,
+        guidance_scale: float = 1.0,
+        moe_aux_weight: float = 0.0,
+        moe_z_weight: float = 1e-3,
     ) -> None:
         self.lr = lr
         self.warmup = warmup
@@ -74,9 +88,21 @@ class LitDDPM:
         self.img_channels = img_channels
         self.ema_every_n_steps = ema_every_n_steps
         self.validate_original_weights = validate_original_weights
+        #: a class-conditional model, trained with ``cond_dropout`` of the
+        #: labels replaced by the null token ``num_classes`` and sampled
+        #: through classifier-free guidance at ``guidance_scale`` (1.0: the
+        #: plain conditional model)
+        self.num_classes = num_classes
+        self.cond_dropout = cond_dropout
+        self.guidance_scale = guidance_scale
+        #: the weights of a mixture-of-experts router's losses. JAX adds them
+        #: to the loss only where the model records router losses; no ported
+        #: model has a router (ROADMAP A.7), so the loss is JAX's without them
+        self.moe_aux_weight = moe_aux_weight
+        self.moe_z_weight = moe_z_weight
         if model is None:
             model = ddpm_models.UNet(in_channels=img_channels, dtype=resolve_dtype(dtype),
-                                     fused_norm=True, fused_block=True)
+                                     fused_norm=True, fused_block=True, num_classes=num_classes)
         self.model = model
         if diffusion_model is None:
             diffusion_model = DDPM.create(timesteps, parameterization=parameterization,
@@ -105,29 +131,71 @@ class LitDDPM:
         """The denoiser with ``params`` bound: ``model(x, t, **kwargs)``."""
         return functional_call(self.model, params, (x, t), kwargs)
 
+    def model_in_channels(self) -> int:
+        """Channels of the network's input (a conditioned-input harness, the
+        upsampler's x_t ‖ cond, takes more than ``img_channels``)."""
+        return self.img_channels
+
+    def labelled_model_fn(self, y: torch.Tensor):
+        """``model_fn`` with the (N,) labels ``y`` bound."""
+
+        def model_fn(params, x, t, **kwargs):
+            return self.model_fn(params, x, t, y=y, **kwargs)
+
+        return model_fn
+
+    def drop_labels(self, generator: torch.Generator, y: torch.Tensor) -> torch.Tensor:
+        """``y`` with each label replaced by the null token ``num_classes``
+        with probability ``cond_dropout``, drawn from ``generator``."""
+        drop = torch.rand(y.shape, generator=generator, device=generator.device) < self.cond_dropout
+        return torch.where(drop.to(y.device), self.num_classes, y)
+
     def make_loss_fn(self, datamodule=None):
         """``loss_fn(params, generator, batch)`` over raw uint8 batches: the
         datamodule's augment → process, then the diffusion loss with dropout.
-        Every draw (flip, t, ε, dropout) comes from ``generator``, in that
-        order. A labelled batch ``(images, labels)`` trains on the images."""
+        A labelled batch ``(images, labels)`` trains a class-conditional model
+        on its labels, ``cond_dropout`` of them dropped to the null token
+        (an unconditional model trains on the images). Every draw comes from
+        ``generator``, in the order of the JAX package's key splits: flip,
+        drop mask, then the algorithm's (t, ε) and the model's dropout."""
 
         def loss_fn(params, generator, batch):
-            x = batch[0] if isinstance(batch, (tuple, list)) else batch
+            x, y = batch if isinstance(batch, (tuple, list)) else (batch, None)
             if datamodule is not None:
                 x = datamodule.train_transform(generator, x)
-            return self.diffusion_model.loss(self.model_fn, params, generator, x, train=True)
+            model_fn = self.model_fn
+            if y is not None and self.num_classes is not None:
+                model_fn = self.labelled_model_fn(self.drop_labels(generator, y))
+            return self.diffusion_model.loss(model_fn, params, generator, x, train=True)
 
         return loss_fn
 
     @torch.no_grad()
-    def eval_loss(self, params, generator: torch.Generator, x: torch.Tensor) -> torch.Tensor:
+    def eval_loss(self, params, generator: torch.Generator, x: torch.Tensor,
+                  y: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Eval-mode diffusion loss on a processed batch: no dropout, no
-        gradient (so the UNet may take the fused ResBlock kernel)."""
-        return self.diffusion_model.loss(self.model_fn, params, generator, x, train=False)
+        gradient (so the UNet may take the fused ResBlock kernel). A
+        class-conditional model conditions on the true labels ``y``."""
+        model_fn = self.model_fn
+        if y is not None and self.num_classes is not None:
+            model_fn = self.labelled_model_fn(y)
+        return self.diffusion_model.loss(model_fn, params, generator, x, train=False)
 
-    def sampling_model_fn(self, generator, n: int):
-        """(model_fn, generator) for sampling; unconditional models pass through."""
-        return self.model_fn, generator
+    def sampling_model_fn(self, generator: Optional[torch.Generator], n: int,
+                          y: Optional[torch.Tensor] = None):
+        """(model_fn, generator) for sampling: unconditional models pass
+        through; class-conditional ones get the classifier-free wrapper at
+        ``guidance_scale`` on the labels ``y``, or on ``n`` labels drawn
+        uniformly from ``generator`` where ``y`` is None."""
+        if self.num_classes is None:
+            return self.model_fn, generator
+        if y is None:
+            if generator is None:
+                raise ValueError("sampling a class-conditional model needs labels y or a "
+                                 "generator to draw them from")
+            y = torch.randint(0, self.num_classes, (n,), generator=generator,
+                              device=generator.device)
+        return classifier_free(self.model_fn, y, self.guidance_scale, self.num_classes), generator
 
     def sample_space_shape(self, img_shape):
         """Image shape → the shape the diffusion solver integrates."""
@@ -141,10 +209,13 @@ class LitDDPM:
                  img_shape: Tuple[int, ...], *, use_ema: Optional[bool] = None,
                  x_T: Optional[torch.Tensor] = None, history_length: Optional[int] = None,
                  sampler: Optional[str] = None, steps: Optional[int] = None,
-                 refresh_interval: int = 2, cache_depth: int = 1):
+                 refresh_interval: int = 2, cache_depth: int = 1,
+                 y: Optional[torch.Tensor] = None):
         """Sample with the EMA weights unless ``validate_original_weights``
         (or ``use_ema=False``) asks for the raw ones. With ``history_length``,
-        returns ``(x_0, history)`` (see ``DDPM.generate``). ``sampler``
+        returns ``(x_0, history)`` (see ``DDPM.generate``). A class-conditional
+        model samples through classifier-free guidance on the labels ``y``,
+        drawn uniformly where None (:meth:`sampling_model_fn`). ``sampler``
         replaces the harness's own sampler: ddim | dpm | unipc | edm | flow
         with that solver in ``steps`` steps on the trained schedule or
         hyperparameters (:func:`~dmme_tpu_torch.diffusion.factory.make_sampler`),
@@ -158,10 +229,11 @@ class LitDDPM:
         if sampler in MODULE_SAMPLERS:
             algo = make_module_sampler(self.diffusion_model, sampler, steps,
                                        refresh_interval=refresh_interval,
-                                       cache_depth=cache_depth)
+                                       cache_depth=cache_depth,
+                                       conditional=self.num_classes is not None)
             return algo.generate(self.model, params, generator, img_shape, x_T=x_T,
                                  history_length=history_length)
-        model_fn, generator = self.sampling_model_fn(generator, img_shape[0])
+        model_fn, generator = self.sampling_model_fn(generator, img_shape[0], y)
         algo = self.sample_algorithm()
         if sampler is not None:
             algo, adapt = make_sampler(self.diffusion_model, sampler, steps)
@@ -224,13 +296,12 @@ class LitIDDPM(LitDDPM):
         sample_steps: Optional[int] = None,
         **kwargs: Any,
     ):
-        if kwargs.get("num_classes") is not None:
-            raise NotImplementedError("LitIDDPM(num_classes=...): class-conditional models are "
-                                      "not ported yet (ROADMAP A.6)")
-        kwargs.pop("num_classes", None)
         if model is None:
+            # LitDDPM's default model is never built here, so the labels
+            # must reach this one: an unconditional model would drop them
             model = iddpm_models.UNet(in_channels=img_channels, dtype=resolve_dtype(dtype),
-                                      fused_norm=True, fused_block=True)
+                                      fused_norm=True, fused_block=True,
+                                      num_classes=kwargs.get("num_classes"))
         if diffusion_model is None:
             diffusion_model = IDDPM.create(timesteps, loss_type, gamma, schedule, offset, start,
                                            end)
@@ -303,3 +374,113 @@ class LitFlow(LitDDPM):
                                                   t_sample=t_sample, logit_mean=logit_mean,
                                                   logit_std=logit_std)
         super().__init__(lr, warmup, decay, diffusion_model, model, **kwargs)
+
+
+class LitUpsampler(LitDDPM):
+    """Super-resolution harness: denoises the high-resolution x_t conditioned
+    on the low-resolution image, resized back up bilinearly and concatenated
+    on channels (network input 2·C). Training pairs are made inside the loss:
+    low = the exact ``factor``× average pool of the batch, cond = its
+    bilinear resize to the batch's size. The conditioning enters only
+    through a bound model_fn. The default network is the DDPM UNet with
+    ``in_channels = 2·C`` and ``out_channels = C``; sampling needs the
+    low-resolution input: ``generate(state, generator, low_res=...)``."""
+
+    def __init__(self, factor: int = 4, model: Optional[torch.nn.Module] = None,
+                 img_channels: int = 3, dtype: Union[str, torch.dtype] = torch.float32,
+                 **kwargs: Any) -> None:
+        self.factor = int(factor)
+        if self.factor < 2:
+            raise ValueError(f"factor must be at least 2, got {factor}")
+        if kwargs.get("num_classes") is not None:
+            # the labels would never reach the network: refuse them
+            raise NotImplementedError(
+                "LitUpsampler does not support num_classes yet; train an "
+                "unconditional upsampler or use a class-conditional base "
+                "model + unconditional upsampler (the common cascade setup)")
+        if model is None:
+            model = ddpm_models.UNet(in_channels=2 * img_channels, out_channels=img_channels,
+                                     dtype=resolve_dtype(dtype), fused_norm=True,
+                                     fused_block=True)
+        super().__init__(model=model, img_channels=img_channels, dtype=dtype, **kwargs)
+
+    def model_in_channels(self) -> int:
+        return 2 * self.img_channels  # x_t ‖ the resized low-resolution image
+
+    def downsample(self, x: torch.Tensor) -> torch.Tensor:
+        """The exact ``factor``× average pool of NHWC ``x``."""
+        n, h, w, c = x.shape
+        f = self.factor
+        if h % f or w % f:
+            raise ValueError(f"image {tuple(x.shape)} is not divisible by factor {f}")
+        return x.reshape(n, h // f, f, w // f, f, c).mean(dim=(2, 4))
+
+    def bound_model_fn(self, cond: torch.Tensor):
+        """``model_fn`` with ``cond`` (already at the high resolution)
+        concatenated to x_t on channels."""
+
+        def model_fn(params, x_t, t, **kwargs):
+            return self.model_fn(params, torch.cat([x_t, cond.to(x_t.dtype)], dim=-1), t,
+                                 **kwargs)
+
+        return model_fn
+
+    def make_loss_fn(self, datamodule=None):
+        """The diffusion loss of the high-resolution batch conditioned on its
+        own pooled-and-resized copy; draws as :meth:`LitDDPM.make_loss_fn`'s
+        (flip, t, ε, dropout)."""
+
+        def loss_fn(params, generator, batch):
+            x = batch[0] if isinstance(batch, (tuple, list)) else batch
+            if datamodule is not None:
+                x = datamodule.train_transform(generator, x)
+            cond = resize_bilinear(self.downsample(x), x.shape[1:3])
+            return self.diffusion_model.loss(self.bound_model_fn(cond), params, generator, x,
+                                             train=True)
+
+        return loss_fn
+
+    @torch.no_grad()
+    def eval_loss(self, params, generator: torch.Generator, x: torch.Tensor,
+                  y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cond = resize_bilinear(self.downsample(x), x.shape[1:3])
+        return self.diffusion_model.loss(self.bound_model_fn(cond), params, generator, x,
+                                         train=False)
+
+    def generate(self, state: TrainState, generator: Optional[torch.Generator],
+                 img_shape: Optional[Tuple[int, ...]] = None, *,
+                 low_res: Optional[torch.Tensor] = None, use_ema: Optional[bool] = None,
+                 x_T: Optional[torch.Tensor] = None, history_length: Optional[int] = None,
+                 y: Optional[torch.Tensor] = None):
+        """Upsample ``low_res`` ((N, h, w, C) in [−1, 1]) to (N, h·factor,
+        w·factor, C) with the harness's sampler. There is no unconditional
+        call: without ``low_res`` it raises, as it does for an ``img_shape``
+        other than the derived one. ``y`` is taken and ignored, as in JAX."""
+        if low_res is None:
+            raise ValueError(
+                "LitUpsampler.generate needs low_res=(N, h, w, C) in [-1, 1] "
+                "— an upsampler samples conditioned on a low-res input; see "
+                "scripts/upsample_demo.py (the CLI sample/test subcommands "
+                "have no conditioning source for upsampler configs)")
+        n, h, w, c = low_res.shape
+        out_shape = (n, h * self.factor, w * self.factor, c)
+        if img_shape is not None and tuple(img_shape) != out_shape:
+            raise ValueError(f"img_shape {tuple(img_shape)} conflicts with "
+                             f"low_res×factor = {out_shape}; omit img_shape or fix low_res")
+        if use_ema is None:
+            use_ema = not self.validate_original_weights
+        params = state.ema_params if use_ema else state.params
+        device = next(iter(params.values())).device
+        cond = resize_bilinear(low_res.to(device=device, dtype=torch.float32), out_shape[1:3])
+        return self.sample_algorithm().generate(self.bound_model_fn(cond), params, generator,
+                                                out_shape, x_T=x_T,
+                                                history_length=history_length)
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """NHWC ``x`` resized to ``size`` (H, W) by bilinear interpolation at
+    half-pixel centres, edges clamped: ``jax.image.resize(..., "linear")``
+    for upscaling (downscaling there widens the kernel; this does not)."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(int(v) for v in size), mode="bilinear",
+                      align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1)

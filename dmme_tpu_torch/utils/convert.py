@@ -3,7 +3,8 @@
 ``from_flax`` takes ``jax.tree_util.tree_map(np.asarray, variables)`` — nested
 dicts of numpy arrays, with or without the top-level ``"params"`` — and
 returns tensors keyed as the port's modules name them: conv kernels HWIO →
-OIHW, Dense kernels (in, out) → (out, in), GroupNorm ``scale`` → ``weight``.
+OIHW, Dense kernels (in, out) → (out, in), GroupNorm ``scale`` and
+``nn.Embed``'s ``embedding`` → ``weight``.
 It is the reverse of ``dmme_tpu/utils/torch_convert.py``, written anew here.
 """
 
@@ -24,7 +25,7 @@ def _leaf(name: str, value) -> tuple:
         if a.ndim == 2:  # (in, out) -> (out, in)
             return "weight", a.T
         raise ValueError(f"kernel of rank {a.ndim} has no counterpart")
-    if name == "scale":
+    if name in ("scale", "embedding"):  # GroupNorm scale; nn.Embed's (rows, features) table
         return "weight", a
     if name == "bias":
         return "bias", a

@@ -34,7 +34,8 @@ PORTED = {"configs/ddpm/cifar10.yaml", "configs/ddim/cifar10.yaml",
           "configs/ddpm/shapes256_demo.yaml", "configs/iddpm/cifar10.yaml",
           "configs/iddpm/shapes_demo.yaml", "configs/iddpm/shapes64_demo.yaml",
           "configs/edm/cifar10.yaml", "configs/edm/shapes_demo.yaml",
-          "configs/flow/shapes_demo.yaml"}
+          "configs/flow/shapes_demo.yaml", "configs/ddpm/shapes_cfg_demo.yaml",
+          "configs/ddpm/shapes_sr_demo.yaml"}
 
 TINY_YAML = """
 seed_everything: 7
@@ -225,7 +226,7 @@ def test_dtype_aliases_match_jax(alias, want):
     assert _dtype_name(tm.dtype) == _dtype_name(jm.dtype) == want
 
 
-@pytest.mark.parametrize("path,item", [("dmme_tpu.training.LitUpsampler", "A.6"),
+@pytest.mark.parametrize("path,item", [("dmme_tpu.training.LitClassifier", "A.6"),
                                        ("dmme_tpu.training.LitLatentDDPM", "A.8"),
                                        ("dmme_tpu.data.LSUN", "A.12"),
                                        ("dmme_tpu.models.dit.DiT", "A.7")])
@@ -411,13 +412,19 @@ def test_imagenet64_names_what_it_waits_for():
 
 @pytest.mark.parametrize("harness", ["LitIDDPM", "LitDDIM"])
 def test_num_classes_on_a_kwargs_harness_names_a6(tmp_path, harness):
-    """Harnesses that take ``**kwargs`` still reject the JAX package's
-    class-conditioning arguments at validation, naming ROADMAP A.6."""
+    """Harnesses that take ``**kwargs`` take the class-conditioning arguments
+    of ROADMAP A.6 (ported) at validation, and still reject at validation a
+    name that no constructor up their MRO takes, instead of dying later in a
+    bare ``TypeError``."""
     config = tcfg.load_config(_tiny_iddpm(tmp_path) if harness == "LitIDDPM"
                               else str(_tiny(tmp_path)))
     assert config["model"]["class_path"].endswith(harness)
-    config["model"]["init_args"]["num_classes"] = 10
-    with pytest.raises(tcfg.ConfigError, match="ROADMAP A.6"):
+    config["model"]["init_args"].update(num_classes=10, cond_dropout=0.2, guidance_scale=3.0)
+    tcfg.validate_config(config)
+    lit = tcfg.instantiate(config["model"])
+    assert (lit.num_classes, lit.cond_dropout, lit.guidance_scale) == (10, 0.2, 3.0)
+    config["model"]["init_args"]["num_clases"] = 10
+    with pytest.raises(tcfg.ConfigError, match=r"unknown key\(s\) \['num_clases'\]"):
         tcfg.validate_config(config)
 
 

@@ -403,5 +403,6 @@ def test_lit_iddpm_defaults_and_strided_generate(jax_params):
     assert x.shape == SHAPE and hist.shape == (3,) + SHAPE and torch.isfinite(x).all()
     again = lit.generate(state, torch.Generator().manual_seed(0), SHAPE)
     assert torch.equal(x, again)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        LitIDDPM(num_classes=10)
+    # class-conditional (ROADMAP A.6): the labels reach the default UNet
+    cond = LitIDDPM(num_classes=10)
+    assert cond.model.num_classes == 10 and cond.model.class_embed.weight.shape == (11, 512)
