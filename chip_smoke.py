@@ -171,7 +171,31 @@ if the package is missing, or if any phase fails. Phases:
    loss and gradient with dropped labels and replayed dropout masks, and a
    guided DDIM step, within ``F32_REL_L2`` of the CPU, a bf16 control
    missing it;
-30. the kernel table as one JSON line, the card's name and power limit, then
+30. ADM kernels — K3 at the 15 call sites of the ADM-32 generator of
+   ``configs/adm/cifar10_guided.yaml`` (57,094,662 parameters, 4 heads of
+   64 at T = 256, 64, 16; every weight random, the zero-initialised ones
+   too) at serving forwards of n = 1, 8, 16 and one ``LitIDDPM`` training
+   step at batch 128 (with the attention backward), at the 5 sites of the
+   classifier-32 of ``configs/adm/cifar10_classifier.yaml`` (4,287,627) at
+   one ``LitClassifier`` step at batch 256, and at both models' 20 inside
+   one ``ClassifierGuidedDDIM`` step at n = 8; each held against its plain
+   version (``TOL``) and timed beside SDPA; K1, K2 and K4 launch nothing;
+31. ADM against the CPU — the bf16 forward (``UNET_REL_L2``) and hybrid-loss
+   gradient (``GRAD_REL_L2``) at batch 8; the f32 ``LitIDDPM(model=ADM)``
+   and ``LitClassifier()`` within ``F32_REL_L2``, each with a bf16 control
+   that misses it; ``classifier_grad`` in bf16 and f32;
+32. ADM fit — ``trainer.main fit`` of both ADM configs (synthetic CIFAR-10,
+   the classifier's labelled) for 10 steps, the classifier resumed to 20
+   bitwise against an uninterrupted run, then 25 timed steps of each
+   (median, device busy, operations, idle share);
+33. guidance — a ``ClassifierGuidedDDIM`` 50-step request at n = 8 on the
+   trained cosine schedule (wall, launches, finite, identical bytes for a
+   repeated seed, profiled), and 20 ``ClassifierGuidedDDPM`` steps timed
+   and extrapolated to T = 1000;
+34. ADM serve — ``LitIDDPM(ADM-32, sample_steps=50)`` over HTTP: ``default``
+   at n = 1, 8, 16 and a repeat, ``ddim`` at n = 8, the caching samplers
+   answered 400, one request profiled;
+35. the kernel table as one JSON line, the card's name and power limit, then
    ``{"ok": true, "device": ...}``.
 
 ``--out`` also writes every measurement to a JSON file. ``--kernels-only``
@@ -319,16 +343,20 @@ def errors(got, want, rtol: float, atol: float):
 
 def randomize_affines(torch, blocks, module, generator) -> None:
     """Every Conv and Dense bias 0.1·N(0, 1), every GroupNorm weight
-    1 + 0.1·N(0, 1) and bias 0.1·N(0, 1), drawn from ``generator``. The flax
+    1 + 0.1·N(0, 1) and bias 0.1·N(0, 1), and every zero-initialised kernel
+    (ADM's ``ZeroConv``s) N(0, 1/fan_in), drawn from ``generator``. The flax
     init leaves them 0 and 1, where a kernel that dropped or misplaced one
-    would still agree with its plain version."""
-    def draw(p, mean):
-        p.copy_(mean + 0.1 * torch.randn(p.shape, generator=generator))
+    would still agree with its plain version (and a zero attention
+    projection would hide K3 altogether)."""
+    def draw(p, mean, std=0.1):
+        p.copy_(mean + std * torch.randn(p.shape, generator=generator))
 
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (blocks.Dense, blocks.Conv)):
                 draw(m.bias, 0.0)
+                if isinstance(m, blocks.ZeroConv):
+                    draw(m.weight, 0.0, m.weight[0].numel() ** -0.5)
             elif isinstance(m, blocks.GroupNorm):
                 draw(m.weight, 1.0)
                 draw(m.bias, 0.0)
@@ -643,14 +671,17 @@ def scaled_errors(got, want, rtol: float, atol_share: float):
 
 def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cls, dev,
                   card: str, ops=None, lit=None, batch_size: int = TRAIN_BATCH,
-                  labels: int = None) -> dict:
+                  labels: int = None, targets=None, sites: dict = None) -> dict:
     """Phase 6: K1, K2, K3 and the attention backward at every call site of one
     full-width bf16 training step at batch 128 of ``lit_cls(dtype="bf16")``
     (or of the harness ``lit`` at ``batch_size``; with ``labels``, on a
     labelled batch of that many classes), each held against its plain
     version on the recorded inputs, with times and bounds. With ``ops``, the
     step's launches are held too: 2r + 1/2r + 1/n/0 (K1/K2/K3/K4, r the
-    model's ResBlocks, n its attention sites: 45/45/6/0 for the DDPM UNet)."""
+    model's ResBlocks, n its attention sites: 45/45/6/0 for the DDPM UNet).
+    ``targets`` and ``sites`` replace the UNet's entry points
+    (:func:`train_targets`) and call sites, for a model that reaches the
+    kernels elsewhere (ADM: K3 and its backward only)."""
     from dmme_tpu_torch.data import CIFAR10
 
     lit = lit_cls(dtype="bf16") if lit is None else lit
@@ -664,7 +695,11 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
     if labels is not None:
         batch = (batch, torch.randint(0, labels, (batch_size,), generator=gen, device=dev))
     loss_fn = lit.make_loss_fn(CIFAR10(batch_size=batch_size))  # flip, process, loss
-    n_gn = 2 * sum(isinstance(m, blocks.ResBlock) for m in lit.model.modules()) + 1
+    if sites is None:
+        n_gn = 2 * sum(isinstance(m, blocks.ResBlock) for m in lit.model.modules()) + 1
+        n_attn = sum(isinstance(m, blocks.SelfAttention2d) for m in lit.model.modules())
+        sites = {"group_norm_silu": n_gn, "group_norm_silu_bwd": n_gn, "attention": n_attn,
+                 "attention_bwd": n_attn}
 
     def step():
         loss = loss_fn(params, gen, batch)
@@ -672,26 +707,37 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
 
     if ops is not None:
         reset_counts(ops)
-    calls = record_calls(train_targets(blocks, k_gn, k_attn), step)
+    calls = record_calls(train_targets(blocks, k_gn, k_attn) if targets is None else targets,
+                         step)
     torch.cuda.synchronize()
     launches = counts(ops) if ops is not None else None
-    sites = {k: sum(c for _, c, _, _ in v) for k, v in calls.items()}
-    print(f"call sites per training step: {json.dumps(sites)}; launches {launches}", flush=True)
-    n_attn = sum(isinstance(m, blocks.SelfAttention2d) for m in lit.model.modules())
-    want_sites = {"group_norm_silu": n_gn, "group_norm_silu_bwd": n_gn, "attention": n_attn,
-                  "attention_bwd": n_attn}
-    if sites != want_sites:
-        fail(f"training step call sites {sites}, expected {want_sites}")
+    got_sites = {k: sum(c for _, c, _, _ in v) for k, v in calls.items()}
+    print(f"call sites per training step: {json.dumps(got_sites)}; launches {launches}",
+          flush=True)
+    if got_sites != sites:
+        fail(f"training step call sites {got_sites}, expected {sites}")
     if launches is not None:
         expect_bf16_only("training step")
-        want = {"group_norm_silu": n_gn, "group_norm_silu_bwd": n_gn, "attention": n_attn,
-                "resblock": 0}
+        want = {"group_norm_silu": sites.get("group_norm_silu", 0),
+                "group_norm_silu_bwd": sites.get("group_norm_silu_bwd", 0),
+                "attention": sites["attention"], "resblock": 0}
         if launches != want:
             fail(f"a training step launched {launches}, expected {want}")
 
+    rows, per_step = step_rows(torch, k_gn, k_attn, calls, card,
+                               f"per training step (batch {batch_size})")
+    return {"shapes": rows, "per_step": per_step, "launches": launches}
+
+
+def step_rows(torch, k_gn, k_attn, calls, card: str, label: str) -> tuple:
+    """Hold each recorded call of K1, K2, K3 and the attention backward
+    (:func:`record_calls`' output) against its plain version, K1 and K2
+    twice for identical bytes, and time it beside its bound and library
+    yardstick; fails on a disagreement. Returns (rows, per-kernel sums over
+    the call sites, printed with ``label``)."""
     rows, failures = [], []
     with torch.no_grad():
-        for key, count, a, k in calls["group_norm_silu"]:
+        for key, count, a, k in calls.get("group_norm_silu", ()):
             rtol, atol = TOL["group_norm_silu"]
             kern = lambda a=a, k=k: k_gn.group_norm_silu(*a, **k)  # noqa: E731
             plain = lambda a=a, k=k: k_gn.gn_silu_plain(  # noqa: E731
@@ -705,7 +751,7 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
             row["repeat_identical"], row["plan"] = same, gn_plan(k_gn, a[0], a[3], False)
             row["torch_seq_ms"] = device_ms(torch, gn_sequence(torch, a, k))
             rows.append(row)
-        for key, count, a, k in calls["group_norm_silu_bwd"]:
+        for key, count, a, k in calls.get("group_norm_silu_bwd", ()):
             kern = lambda a=a: k_gn.group_norm_silu_bwd(*a)  # noqa: E731
             plain = lambda a=a: k_gn.gn_silu_bwd_plain(*a)  # noqa: E731
             got = kern()
@@ -786,7 +832,7 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
     if failures:
         fail(f"training kernels disagree with their plain versions: {failures}")
     per_step = {}
-    for kname in ("group_norm_silu", "group_norm_silu_bwd", "attention", "attention_bwd"):
+    for kname in calls:
         rs = [r for r in rows if r["kernel"] == kname]
         per_step[kname] = {f: sum(r[f] * r["sites"] for r in rs)
                            for f in ("ms", "plain_ms", "bound_ms")}
@@ -797,10 +843,10 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
         per_step[kname]["max_abs_err"] = max(r["max_abs_err"] for r in rs)
         per_step[kname]["bound_by"] = max(rs, key=lambda r: r["bound_ms"] * r["sites"])[
             "bound_by"]
-        print(f"per training step (batch {batch_size}), {kname}: "
+        print(f"{label}, {kname}: "
               + ", ".join(f"{f} {v:.4f}" for f, v in per_step[kname].items()
                           if isinstance(v, float)) + f" [{card}]", flush=True)
-    return {"shapes": rows, "per_step": per_step, "launches": launches}
+    return rows, per_step
 
 
 def gn_plan(k_gn, x, groups, backward: bool) -> dict:
@@ -889,7 +935,8 @@ def train_gradient(torch, np, blocks, ddpm_models, init_weights, algo, draws, de
     return out
 
 
-def timed_steps(torch, np, step, state, batch, card: str, bound_ms_=None) -> tuple:
+def timed_steps(torch, np, step, state, batch, card: str, bound_ms_=None,
+                batch_size: int = TRAIN_BATCH) -> tuple:
     """``TIMED_STEPS`` steps of ``step`` timed with CUDA events around each
     (no host wait between steps): median, min and max step ms, imgs/s on
     the host clock, peak memory; then three steps under torch.profiler (the
@@ -915,15 +962,15 @@ def timed_steps(torch, np, step, state, batch, card: str, bound_ms_=None) -> tup
     norms = [float(m["grad_norm"]) for m in metrics]
     timing = {"step_ms_median": statistics.median(step_ms), "step_ms_min": min(step_ms),
               "step_ms_max": max(step_ms),
-              "imgs_per_sec": TRAIN_BATCH * TIMED_STEPS / wall,
-              "imgs_per_sec_from_median": TRAIN_BATCH / (statistics.median(step_ms) / 1e3),
+              "imgs_per_sec": batch_size * TIMED_STEPS / wall,
+              "imgs_per_sec_from_median": batch_size / (statistics.median(step_ms) / 1e3),
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
               "bound_ms": bound_ms_, "losses": losses, "grad_norms": norms}
     bound = ""
     if bound_ms_ is not None:  # bench.py's work count is the DDPM recipe's
         bound = (f"; step bound {bound_ms_:.2f} ms ({TRAIN_STEP_TFLOP} TFLOP, "
                  f"bench.py:60-63, at {BF16_FLOPS / 1e12:.0f} TFLOP/s)")
-    print(f"{TIMED_STEPS} timed steps at batch {TRAIN_BATCH}: step {timing['step_ms_median']:.2f} ms "
+    print(f"{TIMED_STEPS} timed steps at batch {batch_size}: step {timing['step_ms_median']:.2f} ms "
           f"median (min {timing['step_ms_min']:.2f}, max {timing['step_ms_max']:.2f}; CUDA "
           f"events), {timing['imgs_per_sec']:.1f} imgs/s (host clock over the run), peak "
           f"memory {timing['peak_mem_gib']:.2f} GiB{bound} [{card}]", flush=True)
@@ -1655,14 +1702,15 @@ def iddpm_model(torch, blocks, init_weights, dtype, **kw):
     return m
 
 
-def condition_var_head(weights: dict) -> dict:
-    """``weights`` with the variance head set per ``VAR_HEAD_COND``."""
+def condition_var_head(weights: dict, conv: str = "output_conv") -> dict:
+    """``weights`` with the variance head of the output conv ``conv`` set
+    per ``VAR_HEAD_COND``."""
     scale, shift = VAR_HEAD_COND
     out = dict(weights)
-    w, b = weights["output_conv.weight"].clone(), weights["output_conv.bias"].clone()
+    w, b = weights[f"{conv}.weight"].clone(), weights[f"{conv}.bias"].clone()
     w[VAR_HEAD] *= scale
     b[VAR_HEAD] += shift
-    out["output_conv.weight"], out["output_conv.bias"] = w, b
+    out[f"{conv}.weight"], out[f"{conv}.bias"] = w, b
     return out
 
 
@@ -2747,10 +2795,11 @@ def sr_harness(torch, argv=()):
         tcfg.apply_overrides(tcfg.load_config(SR_CONFIG), over))["model"])
 
 
-def _per_forward(rows, name: str, card: str, label: str) -> dict:
-    """Per-site sums of K1/K3/K4 over the call sites of forward ``name``."""
+def _per_forward(rows, name: str, card: str, label: str,
+                 kinds=("group_norm_silu", "attention", "resblock")) -> dict:
+    """Per-site sums of ``kinds`` (K1/K3/K4) over the call sites of forward ``name``."""
     flat = [dict(r, sites=r["sites"][name]) for r in rows if name in r["sites"]]
-    per = {k: per_site_sum(flat, k) for k in ("group_norm_silu", "attention", "resblock")}
+    per = {k: per_site_sum(flat, k) for k in kinds}
     for k, v in per.items():
         print(f"per {label}, {k}: " + ", ".join(
             f"{f} {x:.4f}" for f, x in v.items() if isinstance(x, float)) + f" [{card}]",
@@ -3226,18 +3275,536 @@ def f32_cfg_phase(torch, np, blocks, ddpm_models, init_weights, dev, ops, card: 
     return out
 
 
-def record_forwards(torch, blocks, runs, dev) -> tuple:
-    """Record the K1/K3/K4 inputs of eval forwards. ``runs``: {name: (model,
-    x, t, expected call sites[, forward keyword arguments])}; fails if a
+ADM_GUIDED = "configs/adm/cifar10_guided.yaml"
+ADM_CLASSIFIER = "configs/adm/cifar10_classifier.yaml"
+ADM_PARAMS, CLASSIFIER_PARAMS = 57_094_662, 4_287_627
+CLASSIFIER_BATCH = 256  # configs/adm/cifar10_classifier.yaml's batch size
+CLASSES = 10
+# K3's call sites a forward: ADM-32 15 (4 heads of 64 at T = 256 ×7, 64 ×7,
+# 16 ×1), the classifier-32 5 (2 heads of 64 at T = 256 ×2, 64 ×2, 16 ×1);
+# ADM's GroupNorms, SiLUs and ResBlocks are library ops, so K1, K2 and K4
+# launch nothing on these paths
+ADM_SITES, CLASSIFIER_SITES = 15, 5
+PER_FORWARD_ADM = {"group_norm_silu": 0, "group_norm_silu_bwd": 0, "attention": ADM_SITES,
+                   "resblock": 0}
+# the guided samplers' scale in the request phases (tests/test_adm.py's)
+GUIDANCE_SCALE = 1.0
+# steps of the guided request, and of the timed ancestral guided loop
+GUIDED_STEPS, GUIDED_DDPM_TIMED = 50, 20
+
+
+def adm_targets(k_attn, adm, backward: bool):
+    """ADM's kernel entry point (``models/adm.py`` calls ``attention_heads``
+    from its own namespace), and with ``backward`` the attention backward."""
+    targets = [(adm, "attention_heads", "attention", _sig_attn)]
+    if backward:
+        targets.append((k_attn, "attention_bwd", "attention_bwd", _sig_attn))
+    return targets
+
+
+def adm_harness(torch, blocks, which: str, dtype: str = "bf16", argv=()):
+    """(harness, weights) of ``configs/adm/<which>.yaml`` with its model in
+    ``dtype`` (and ``argv`` applied): the seed's weights with every bias,
+    GroupNorm affine and zero-initialised kernel drawn at random, on the
+    CPU in f32, loaded into the harness's model."""
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.models import init_weights
+
+    key = ("--model.init_args.model.init_args.dtype" if which == "cifar10_guided"
+           else "--model.init_args.dtype")
+    cfg = tcfg.apply_overrides(tcfg.load_config(f"configs/adm/{which}.yaml"),
+                               [key, dtype, *argv])
+    lit = tcfg.instantiate(tcfg.validate_config(cfg)["model"])
+    init_weights(lit.model, torch.Generator().manual_seed(SEED))
+    randomize_affines(torch, blocks, lit.model, torch.Generator().manual_seed(SEED + 1))
+    return lit, {k: v.detach().clone() for k, v in lit.model.state_dict().items()}
+
+
+def _on(weights: dict, dev) -> dict:
+    return {k: v.to(dev) for k, v in weights.items()}
+
+
+def adm_kernels(torch, np, blocks, k_gn, k_attn, k_res, build, dev, ops, card: str) -> dict:
+    """Phase 30: K3 at ADM's call sites. The ADM-32 generator of
+    configs/adm/cifar10_guided.yaml (57,094,662 parameters, bf16, every
+    weight random): its 15 sites at serving forwards of n = 1, 8 and 16 and
+    at one ``LitIDDPM`` training step at batch 128 (K3 and its backward);
+    the classifier-32 of configs/adm/cifar10_classifier.yaml (4,287,627): its
+    5 sites at one ``LitClassifier`` step at batch 256, and both models' 20
+    (and the classifier's 5 backward) inside one ``ClassifierGuidedDDIM``
+    step at n = 8. Each call held against its plain version (``TOL``) and
+    timed beside its bound, SDPA and the plain time; K1, K2 and K4 launch
+    nothing and no f32, fp16 or ``simt.cu`` counter moves."""
+    import dataclasses
+
+    from dmme_tpu_torch.diffusion import ClassifierGuidedDDIM
+    from dmme_tpu_torch.models import adm, eps_only, init_weights
+
+    lit, weights = adm_harness(torch, blocks, "cifar10_guided")
+    n_params = sum(p.numel() for p in lit.model.parameters())
+    print(f"{ADM_GUIDED}: {type(lit).__name__} with {type(lit.model).__name__}, "
+          f"{n_params:,} parameters (expected {ADM_PARAMS:,})", flush=True)
+    if n_params != ADM_PARAMS:
+        fail(f"ADM-32 has {n_params} parameters")
+    m = lit.model.to(dev).eval()
+    runs = {}
+    for n in SERVE_BATCHES:
+        g = torch.Generator().manual_seed(SEED + 150 + n)
+        runs[f"adm_n{n}"] = (m, torch.randn((n, 32, 32, 3), generator=g),
+                             torch.randint(1, 1000, (n,), generator=g),
+                             {"attention": ADM_SITES})
+    reset_counts(ops)
+    recorded, _ = record_forwards(torch, blocks, runs, dev, adm_targets(k_attn, adm, False))
+    torch.cuda.synchronize()
+    launches = counts(ops)
+    expect_bf16_only("ADM forwards")
+    want = launches_for(PER_FORWARD_ADM, len(runs))
+    print(f"ADM forwards at n = {SERVE_BATCHES}: launches {launches} (expected {want})",
+          flush=True)
+    if launches != want:
+        fail(f"the ADM forwards launched {launches}, expected {want}")
+    rows, failures = forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded)
+    if failures:
+        fail(f"ADM forward kernels disagree with their plain versions: {failures}")
+    out = {"params": n_params, "forward_rows": rows, "forward_launches": launches,
+           "per_forward": {name: _per_forward(rows, name, card, f"ADM forward, {name}",
+                                              ("attention",)) for name in runs}}
+    del m, recorded
+    torch.cuda.empty_cache()
+
+    print(f"-- LitIDDPM(ADM-32) training step at batch {TRAIN_BATCH}", flush=True)
+    out["train"] = train_kernels(
+        torch, blocks, k_gn, k_attn, None, init_weights, None, dev, card, ops,
+        lit=adm_harness(torch, blocks, "cifar10_guided")[0],
+        targets=adm_targets(k_attn, adm, True),
+        sites={"attention": ADM_SITES, "attention_bwd": ADM_SITES})
+    torch.cuda.empty_cache()
+    print(f"-- LitClassifier(classifier-32) training step at batch {CLASSIFIER_BATCH}",
+          flush=True)
+    clf, clf_weights = adm_harness(torch, blocks, "cifar10_classifier")
+    n_clf = sum(p.numel() for p in clf.model.parameters())
+    if n_clf != CLASSIFIER_PARAMS:
+        fail(f"the classifier-32 has {n_clf} parameters, expected {CLASSIFIER_PARAMS}")
+    out["classifier_train"] = train_kernels(
+        torch, blocks, k_gn, k_attn, None, init_weights, None, dev, card, ops, lit=clf,
+        batch_size=CLASSIFIER_BATCH, labels=CLASSES, targets=adm_targets(k_attn, adm, True),
+        sites={"attention": CLASSIFIER_SITES, "attention_bwd": CLASSIFIER_SITES})
+    torch.cuda.empty_cache()
+
+    print(f"-- one ClassifierGuidedDDIM step at n = {BATCH}", flush=True)
+    algo = dataclasses.replace(ClassifierGuidedDDIM.create(1000, GUIDED_STEPS,
+                                                           guidance_scale=GUIDANCE_SCALE),
+                               schedule=lit.diffusion_model.schedule)
+    gp, cp = _on(weights, dev), _on(clf_weights, dev)
+    lit.model.to(dev)
+    clf.model.to(dev)
+    g = torch.Generator().manual_seed(SEED + 160)
+    x = torch.randn((BATCH, 32, 32, 3), generator=g).to(dev)
+    y = torch.randint(0, CLASSES, (BATCH,), generator=g).to(dev)
+
+    def step():
+        with torch.no_grad():  # as inside guided_generate
+            algo.guided_sampling_step(eps_only(lit.model_fn), gp, clf.model_fn, cp, y, x,
+                                      GUIDED_STEPS // 2)
+
+    reset_counts(ops)
+    calls = record_calls(adm_targets(k_attn, adm, True), step)
+    torch.cuda.synchronize()
+    launches = counts(ops)
+    expect_bf16_only("guided DDIM step")
+    sites = {k: sum(c for _, c, _, _ in v) for k, v in calls.items()}
+    want_sites = {"attention": ADM_SITES + CLASSIFIER_SITES, "attention_bwd": CLASSIFIER_SITES}
+    want = dict(PER_FORWARD_ADM, attention=ADM_SITES + CLASSIFIER_SITES)
+    print(f"guided DDIM step at n = {BATCH}: call sites {sites}, launches {launches}", flush=True)
+    if sites != want_sites or launches != want:
+        fail(f"the guided step has call sites {sites} and launches {launches}, expected "
+             f"{want_sites} and {want}")
+    rows, per_step = step_rows(torch, k_gn, k_attn, calls, card,
+                               f"per guided DDIM step at n = {BATCH}")
+    out["guided_step"] = {"rows": rows, "per_step": per_step, "launches": launches}
+    del lit, clf, gp, cp
+    torch.cuda.empty_cache()
+    return out
+
+
+def _loss_and_grads(torch, lit, weights, device, inputs, labels=None):
+    """The harness's deterministic loss core and every parameter's gradient
+    on ``device``: ``loss_given`` of the IDDPM hybrid loss (generator) or of
+    the classifier's cross-entropy (``labels``), on numpy-drawn ``inputs``
+    (x₀, t, ε)."""
+    lit.model.to(device)
+    params = {k: v.to(device).requires_grad_(True) for k, v in weights.items()}
+    x0, t, eps = (v.to(device) for v in inputs)
+    if labels is None:
+        loss = lit.diffusion_model.loss_given(lit.model_fn, params, x0, t, eps, train=True)
+    else:
+        loss = lit.loss_given(params, x0, labels.to(device), t, eps, train=True)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return {"loss": loss.detach().cpu(),
+            "grads": {k: g.detach().float().cpu() for k, g in zip(params, grads)}}
+
+
+def adm_vs_cpu(torch, np, blocks, dev, ops, card: str) -> dict:
+    """Phase 31: ADM-32 and the classifier-32 on the card against f32 on the
+    CPU, on the same random weights and numpy inputs at batch 8: the bf16
+    generator's forward (``UNET_REL_L2``) and its hybrid-loss gradient with
+    one sample at t = 1 (the variance head conditioned, ``VAR_HEAD_COND``;
+    ``GRAD_REL_L2``); the default-dtype (f32) ``LitIDDPM(model=ADM)`` and
+    ``LitClassifier()`` loss and gradient within ``F32_REL_L2``, each with a
+    bf16 control on the same inputs that must miss it; and
+    ``classifier_grad`` at n = 8 (bf16 within ``GRAD_REL_L2``, f32 within
+    ``F32_REL_L2``). The f32 paths launch K3 in f32 only."""
+    from dmme_tpu_torch.diffusion import classifier_grad
+
+    none = {k: 0 for k in ops}
+    r = np.random.default_rng(SEED + 170)
+    x0 = torch.tensor(np.clip(r.standard_normal((BATCH, 32, 32, 3)), -1, 1).astype(np.float32))
+    t = torch.tensor(r.integers(1, 1000, (BATCH,)), dtype=torch.int64)
+    t[0] = 1
+    eps = torch.tensor(r.standard_normal((BATCH, 32, 32, 3)).astype(np.float32))
+    y = torch.tensor(r.integers(0, CLASSES, (BATCH,)), dtype=torch.int64)
+    x_in = torch.tensor(r.standard_normal((BATCH, 32, 32, 3)).astype(np.float32))
+    out = {}
+
+    gen = {d: adm_harness(torch, blocks, "cifar10_guided", d) for d in ("bf16", "f32")}
+    weights = condition_var_head(gen["f32"][1], "out_conv")
+    ref_lit = gen["f32"][0]
+    # the bf16 forward at n = 8
+    gen["bf16"][0].model.load_state_dict(weights)
+    with torch.no_grad():
+        want = ref_lit.model_fn(weights, x_in, t).float()
+        reset_counts(ops)
+        got = gen["bf16"][0].model.to(dev)(x_in.to(dev), t.to(dev)).float().cpu()
+        torch.cuda.synchronize()
+    fwd_launches = counts(ops)
+    expect_bf16_only("ADM forward vs the CPU")
+    out["forward_rel_l2"] = rel_l2(got, want)
+    print(f"ADM-32 bf16 forward at n = {BATCH} vs f32 CPU: rel L2 {out['forward_rel_l2']:.3e} "
+          f"(<= {UNET_REL_L2}), launches {fwd_launches}", flush=True)
+    if not (out["forward_rel_l2"] <= UNET_REL_L2 and bool(got.isfinite().all())
+            and fwd_launches == PER_FORWARD_ADM):
+        fail(f"the ADM forward on the card: rel L2 {out['forward_rel_l2']}, launches "
+             f"{fwd_launches}")
+
+    def readings(a, b) -> dict:
+        flat = torch.cat([a["grads"][k].flatten() for k in a["grads"]])
+        ref = torch.cat([b["grads"][k].flatten() for k in a["grads"]])
+        return {"loss_rel_err": float(abs(a["loss"] - b["loss"]) / abs(b["loss"])),
+                "grad_rel_l2": rel_l2(flat, ref)}
+
+    inputs = (x0, t, eps)
+    ref = _loss_and_grads(torch, ref_lit, weights, torch.device("cpu"), inputs)
+    reset_counts(ops)
+    bf16 = _loss_and_grads(torch, gen["bf16"][0], weights, dev, inputs)
+    torch.cuda.synchronize()
+    bf16_launches = counts(ops)
+    expect_bf16_only("ADM training step vs the CPU")
+    bad = [k for k, g in bf16["grads"].items()
+           if not bool(g.isfinite().all()) or float(g.abs().max()) == 0.0]
+    if bad or bf16_launches != PER_FORWARD_ADM:
+        fail(f"ADM gradients zero or not finite on the card: {bad[:10]}; launches "
+             f"{bf16_launches}")
+    reset_counts(ops)
+    f32 = _loss_and_grads(torch, ref_lit, weights, dev, inputs)
+    torch.cuda.synchronize()
+    f32_launches = {"bf16": counts(ops), "wide": wide_counts()}
+    out["adm"] = {"bf16": readings(bf16, ref), "f32": readings(f32, ref), "t": t.tolist(),
+                  "f32_launches": f32_launches}
+    print(f"LitIDDPM(ADM-32) hybrid loss + gradient at batch {BATCH} (t {t.tolist()}), card "
+          f"vs f32 CPU: bf16 {out['adm']['bf16']} (<= {GRAD_REL_L2}); f32 "
+          f"{out['adm']['f32']} (<= {F32_REL_L2}), launches {f32_launches}", flush=True)
+    if not all(v <= GRAD_REL_L2 for v in out["adm"]["bf16"].values()):
+        fail("the bf16 ADM loss or gradient is too far from the CPU's")
+    if (f32_launches["bf16"] != none
+            or f32_launches["wide"] != wide_expected("f32", PER_FORWARD_ADM)):
+        fail(f"the f32 ADM step launched {f32_launches}")
+    if not all(v <= F32_REL_L2 for v in out["adm"]["f32"].values()):
+        fail("the f32 LitIDDPM(ADM) harness disagrees with the f32 CPU reference")
+    if not out["adm"]["bf16"]["grad_rel_l2"] > F32_REL_L2:
+        fail("the ADM comparison does not tell bf16 compute from f32")
+    del gen, ref, bf16, f32, ref_lit
+    torch.cuda.empty_cache()
+
+    clf = {d: adm_harness(torch, blocks, "cifar10_classifier", d) for d in ("bf16", "f32")}
+    cw = clf["f32"][1]
+    clf["bf16"][0].model.load_state_dict(cw)
+    ref = _loss_and_grads(torch, clf["f32"][0], cw, torch.device("cpu"), inputs, y)
+    bf16 = _loss_and_grads(torch, clf["bf16"][0], cw, dev, inputs, y)
+    reset_counts(ops)
+    f32 = _loss_and_grads(torch, clf["f32"][0], cw, dev, inputs, y)
+    torch.cuda.synchronize()
+    f32_launches = {"bf16": counts(ops), "wide": wide_counts()}
+    want_clf = dict(PER_FORWARD_ADM, attention=CLASSIFIER_SITES)
+    out["classifier"] = {"bf16": readings(bf16, ref), "f32": readings(f32, ref),
+                         "f32_launches": f32_launches}
+    print(f"LitClassifier() cross-entropy + gradient at batch {BATCH}, card vs f32 CPU: f32 "
+          f"{out['classifier']['f32']} (<= {F32_REL_L2}), launches {f32_launches}; bf16 "
+          f"control {out['classifier']['bf16']}", flush=True)
+    if (f32_launches["bf16"] != none
+            or f32_launches["wide"] != wide_expected("f32", want_clf)):
+        fail(f"the f32 classifier step launched {f32_launches}")
+    if not all(v <= F32_REL_L2 for v in out["classifier"]["f32"].values()):
+        fail("the f32 LitClassifier harness disagrees with the f32 CPU reference")
+    if not out["classifier"]["bf16"]["grad_rel_l2"] > F32_REL_L2:
+        fail("the classifier comparison does not tell bf16 compute from f32")
+
+    # ∇ₓ log p(y | x_t, t) at n = 8, as every guided step takes it
+    grads = {}
+    for name, device in (("cpu", torch.device("cpu")), ("bf16", dev), ("f32", dev)):
+        lit_ = clf["f32" if name == "cpu" else name][0]
+        lit_.model.to(device)
+        with torch.no_grad():
+            grads[name] = classifier_grad(lit_.model_fn, _on(cw, device), y.to(device),
+                                          x_in.to(device), t.to(device)).float().cpu()
+    out["classifier_grad"] = {d: rel_l2(grads[d], grads["cpu"]) for d in ("bf16", "f32")}
+    print(f"classifier_grad at n = {BATCH}, card vs f32 CPU: bf16 rel L2 "
+          f"{out['classifier_grad']['bf16']:.3e} (<= {GRAD_REL_L2}), f32 "
+          f"{out['classifier_grad']['f32']:.3e} (<= {F32_REL_L2})", flush=True)
+    if not (out["classifier_grad"]["bf16"] <= GRAD_REL_L2
+            and out["classifier_grad"]["f32"] <= F32_REL_L2
+            and float(grads["cpu"].abs().max()) > 0):
+        fail(f"classifier_grad on the card disagrees with the CPU: {out['classifier_grad']}")
+    del clf
+    torch.cuda.empty_cache()
+    return out
+
+
+def adm_cli(torch, np, ops, dev, card: str) -> dict:
+    """Phase 32: ``trainer.main fit`` of configs/adm/cifar10_guided.yaml (the
+    ADM generator, bf16, batch 128) and configs/adm/cifar10_classifier.yaml
+    (the noisy classifier, bf16, batch 256, labelled) on synthetic
+    CIFAR-10, 10 steps each with a checkpoint at 10 (K3 15 and 5 launches
+    a step, nothing else); the classifier resumed to 20 against an
+    uninterrupted 20-step run, bit for bit (deterministic cuDNN); then each
+    saved state's train step timed (25 steps: median, device busy,
+    operations, idle share) under the library's default cuDNN settings."""
+    import shutil
+
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.data import CIFAR10
+    from dmme_tpu_torch.parallel import make_train_step
+    from dmme_tpu_torch.training import CheckpointManager
+
+    torch.backends.cudnn.deterministic = True
+    roots = {k: os.path.join("build", k) for k in ("cli_adm", "cli_clf", "cli_clf_whole")}
+    for root in roots.values():
+        shutil.rmtree(root, ignore_errors=True)
+    common = ["--data.init_args.synthetic", "true", "--data.init_args.synthetic_size", "1024",
+              "--trainer.ckpt_every_n_steps", "10", "--trainer.log_every_n_steps", "10"]
+    per_step = {"cifar10_guided": dict(PER_FORWARD_ADM),
+                "cifar10_classifier": dict(PER_FORWARD_ADM, attention=CLASSIFIER_SITES)}
+
+    def steps(which, n):
+        return {k: v * n for k, v in per_step[which].items()}
+
+    def run(which, name, root, max_steps, n_steps, *extra):
+        return cli_run(torch, ops, card, name,
+                       ["fit", "--config", f"configs/adm/{which}.yaml", *common,
+                        "--trainer.max_steps", str(max_steps), "--trainer.default_root_dir",
+                        root, *extra], steps(which, n_steps))
+
+    out = {"fit": run("cifar10_guided", "adm fit 10", roots["cli_adm"], 10, 10),
+           "classifier_fit": run("cifar10_classifier", "classifier fit 10", roots["cli_clf"],
+                                 10, 10)}
+    for key, root in (("fit", roots["cli_adm"]), ("classifier_fit", roots["cli_clf"])):
+        logged = _jsonl(os.path.join(root, "metrics.jsonl"))
+        out[key]["losses"] = [r["loss"] for r in logged]
+        out[key]["checkpoints"] = CheckpointManager(root).steps()
+        print(f"{key}: checkpoints {out[key]['checkpoints']}, losses {out[key]['losses']}",
+              flush=True)
+        if out[key]["checkpoints"] != [10] or not np.isfinite(out[key]["losses"]).all():
+            fail(f"the ADM CLI {key} left {out[key]}")
+    out["resume"] = run("cifar10_classifier", "classifier resume 10 -> 20", roots["cli_clf"],
+                        20, 10, "--trainer.resume", "true")
+    out["whole"] = run("cifar10_classifier", "classifier uninterrupted 20",
+                       roots["cli_clf_whole"], 20, 20)
+    a = CheckpointManager(roots["cli_clf"]).load(20)
+    b = CheckpointManager(roots["cli_clf_whole"]).load(20)
+    differ = state_differences(torch, a, b)
+    out["resume_bitwise"] = {"differing_tensors": len(differ), "first": differ[:8]}
+    print(f"classifier resumed vs uninterrupted at step 20: {len(differ)} of "
+          f"{4 * len(a['params'])} tensors differ {differ[:8]}", flush=True)
+    if differ or a["step"] != b["step"]:
+        fail(f"the resumed classifier run is not bitwise the uninterrupted one: {differ[:8]}")
+
+    torch.backends.cudnn.deterministic = False
+    for which, root, key, bs in (("cifar10_guided", roots["cli_adm"], "timing", TRAIN_BATCH),
+                                 ("cifar10_classifier", roots["cli_clf"], "classifier_timing",
+                                  CLASSIFIER_BATCH)):
+        lit = tcfg.instantiate(tcfg.validate_config(
+            tcfg.load_config(f"configs/adm/{which}.yaml"))["model"])
+        state = CheckpointManager(root).restore(lit.init_state(0, device=dev))
+        labelled = which == "cifar10_classifier"
+        dm = CIFAR10(synthetic=True, synthetic_size=4 * bs, batch_size=bs,
+                     with_labels=labelled)
+        dm.setup("fit")
+        it = dm.train_iter(SEED + 11)
+
+        def batch(it=it, labelled=labelled):
+            b = next(it)
+            if labelled:
+                return (torch.from_numpy(b[0]).pin_memory().to(dev, non_blocking=True),
+                        torch.from_numpy(b[1]).to(dev))
+            return torch.from_numpy(b).pin_memory().to(dev, non_blocking=True)
+
+        step = make_train_step(lit.make_loss_fn(dm))
+        state, _ = step(state, batch(), SEED)  # first launches of this step object
+        print(f"-- {which}: the saved state's train step at batch {bs}", flush=True)
+        _, out[key], out[f"{key}_profile_3_steps"], out[f"{key}_profile_1_step"] = timed_steps(
+            torch, np, step, state, batch, card, batch_size=bs)
+        del state, lit
+    for root in roots.values():
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def adm_guidance(torch, np, blocks, dev, ops, card: str) -> dict:
+    """Phase 33: classifier-guided sampling on the card. The bf16 ADM-32 of
+    configs/adm/cifar10_guided.yaml (ε of its ε ‖ v, ``eps_only``) with the
+    bf16 classifier-32, random weights, guidance scale ``GUIDANCE_SCALE``:
+    a ``ClassifierGuidedDDIM`` 50-step request at n = 8 on the trained
+    cosine schedule (the dataclass built with it), after a warm one: wall
+    time, launches (20 K3 calls a step: 15 generator, 5 classifier, none of
+    K1, K2 or K4), finite, identical bytes for a repeated seed
+    (deterministic cuDNN); one under torch.profiler (busy, operations, idle
+    share); then 20 steps of ``ClassifierGuidedDDPM`` timed and
+    extrapolated to T = 1000."""
+    import dataclasses
+
+    from dmme_tpu_torch.diffusion import ClassifierGuidedDDIM, ClassifierGuidedDDPM
+    from dmme_tpu_torch.models import eps_only
+
+    torch.backends.cudnn.deterministic = True
+    lit, weights = adm_harness(torch, blocks, "cifar10_guided")
+    clf, clf_weights = adm_harness(torch, blocks, "cifar10_classifier")
+    lit.model.to(dev)
+    clf.model.to(dev)
+    gp, cp = _on(weights, dev), _on(clf_weights, dev)
+    schedule = lit.diffusion_model.schedule
+    ddim = dataclasses.replace(ClassifierGuidedDDIM.create(1000, GUIDED_STEPS,
+                                                           guidance_scale=GUIDANCE_SCALE),
+                               schedule=schedule)
+    y = (torch.arange(BATCH) % CLASSES).to(dev)
+    gen_fn = eps_only(lit.model_fn)
+
+    def request(seed):
+        out = ddim.guided_generate(gen_fn, gp, clf.model_fn, cp, y,
+                                   torch.Generator(device=dev).manual_seed(seed),
+                                   (BATCH, 32, 32, 3))
+        torch.cuda.synchronize()
+        return out
+
+    request(1)  # warm: cuDNN plans, first buffers
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    a = request(2)
+    wall = time.perf_counter() - t0
+    launches = counts(ops)
+    expect_bf16_only("guided DDIM request")
+    b = request(2)
+    want = launches_for(dict(PER_FORWARD_ADM, attention=ADM_SITES + CLASSIFIER_SITES),
+                        GUIDED_STEPS)
+    out = {"wall_s": wall, "launches": launches, "identical": bool(torch.equal(a, b)),
+           "finite": bool(a.isfinite().all()), "std": float(a.float().std()),
+           "absmax": float(a.float().abs().max())}
+    print(f"ClassifierGuidedDDIM {GUIDED_STEPS} steps at n = {BATCH} (scale {GUIDANCE_SCALE}, "
+          f"the trained cosine schedule): {wall:.3f} s, launches {launches} (expected {want}), "
+          f"finite {out['finite']}, std {out['std']:.4g}, max |x| {out['absmax']:.4g}, repeat "
+          f"{'identical' if out['identical'] else 'DIFFERENT'} [{card}]", flush=True)
+    if not (out["identical"] and out["finite"]) or launches != want:
+        fail(f"the guided DDIM request: {out}")
+    prof = profile_fn(torch, lambda: request(3))
+    out["profile"] = prof
+    print(f"guided DDIM-{GUIDED_STEPS} n = {BATCH} under torch.profiler: wall "
+          f"{prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms in "
+          f"{prof['device_ops']} operations, idle share {prof['idle_share']:.3f} [{card}]",
+          flush=True)
+    for name, ms, count in prof["top"]:
+        print(f"    {ms:9.3f} ms {count:6d}x  {name}", flush=True)
+
+    ddpm = dataclasses.replace(ClassifierGuidedDDPM.create(1000, GUIDANCE_SCALE),
+                               schedule=schedule).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((BATCH, 32, 32, 3), generator=g, device=dev)
+    with torch.no_grad():
+        x = ddpm.guided_sampling_step(gen_fn, gp, clf.model_fn, cp, y, x, 1000, g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(999, 999 - GUIDED_DDPM_TIMED, -1):
+            x = ddpm.guided_sampling_step(gen_fn, gp, clf.model_fn, cp, y, x, t, g)
+        torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / GUIDED_DDPM_TIMED
+    out["ddpm"] = {"step_s": per_step, "request_s_extrapolated": 1000 * per_step,
+                   "finite": bool(x.isfinite().all())}
+    print(f"ClassifierGuidedDDPM at n = {BATCH}: {1e3 * per_step:.3f} ms a step "
+          f"({GUIDED_DDPM_TIMED} steps, host clock), so {1000 * per_step:.1f} s a T = 1000 "
+          f"request [{card}]", flush=True)
+    if not out["ddpm"]["finite"]:
+        fail("the guided DDPM steps are not finite")
+    del lit, clf, gp, cp
+    torch.cuda.empty_cache()
+    return out
+
+
+def adm_serve(torch, np, blocks, dev, ops, card: str) -> dict:
+    """Phase 34: the ADM generator served. ``LitIDDPM`` of
+    configs/adm/cifar10_guided.yaml with ``sample_steps=50`` (bf16, random
+    weights) behind ``make_server``: ``default`` requests (the 50-step
+    respaced ancestral sampler) at n = 1, 8 and 16 and a repeat of 8 with
+    identical bytes (launches 15 K3 a forward, nothing else); ``ddim`` at
+    n = 8; ``cached``, ``deep`` and ``deep_dpm`` answered 400, as for every
+    variance-learning model; one n = 8 ``default`` request under the
+    profiler."""
+    from dmme_tpu_torch.serving import Sampler
+    from dmme_tpu_torch.training import TrainState
+
+    lit, weights = adm_harness(torch, blocks, "cifar10_guided",
+                               argv=["--model.init_args.sample_steps", "50"])
+    state = TrainState.create(weights, lit.make_optimizer())
+    sampler = Sampler(lit, state, img_size=32, device=dev)
+    url, stop = _serve(torch, sampler)
+    out = {}
+    try:
+        out["requests"], launches = default_requests(np, url, ops, "ADM", card)
+        want = launches_for(PER_FORWARD_ADM, 50 * 4)
+        print(f"ADM: launches during the four default requests {launches} (expected {want})",
+              flush=True)
+        if launches != want:
+            fail(f"ADM serve launched {launches}, expected {want}")
+        out["launches"] = launches
+        out["solvers"] = solver_requests(np, url, ops, "ADM", card, [
+            ("ddim", 50, launches_for(PER_FORWARD_ADM, 50))])
+        out["rejected"] = {name: rejected(url, "ADM", name, "variance-learning")
+                           for name, _, _ in CACHING}
+    finally:
+        stop()
+    prof = profile_fn(torch, lambda: sampler.sample(BATCH, seed=5))
+    out["profile_n8"] = prof
+    print(f"ADM default n=8 under torch.profiler: wall {prof['wall_ms']:.2f} ms, device busy "
+          f"{prof['busy_ms']:.2f} ms in {prof['device_ops']} operations, idle share "
+          f"{prof['idle_share']:.3f} [{card}]", flush=True)
+    for name, ms, count in prof["top"]:
+        print(f"    {ms:9.3f} ms {count:6d}x  {name}", flush=True)
+    del sampler, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def record_forwards(torch, blocks, runs, dev, targets=None) -> tuple:
+    """Record the K1/K3/K4 inputs of eval forwards (``targets``: the entry
+    points, by default :func:`serve_targets`). ``runs``: {name: (model, x,
+    t, expected call sites[, forward keyword arguments])}; fails if a
     forward's call sites differ.
     Returns ({kind: {signature: {"a", "k", "sites": {name: count}}}},
     {name: call sites})."""
-    recorded = {"group_norm_silu": {}, "attention": {}, "resblock": {}}
+    targets = serve_targets(blocks) if targets is None else targets
+    recorded = {kind: {} for _, _, kind, _ in targets}
     site_counts = {}
     for name, (m, xs, ts, want, *kw) in runs.items():
         kw = kw[0] if kw else {}
         with torch.no_grad():
-            calls = record_calls(serve_targets(blocks),
+            calls = record_calls(targets,
                                  lambda m=m, xs=xs, ts=ts, kw=kw: m(xs.to(dev), ts.to(dev), **kw))
         site_counts[name] = {k: sum(c for _, c, _, _ in v) for k, v in calls.items()}
         if site_counts[name] != {k: want[k] for k in site_counts[name]}:
@@ -3699,6 +4266,22 @@ def main() -> int:
     phase("f32 CFG: LitDDPM(num_classes=10) on the card against the CPU")
     report["f32_cfg"] = f32_cfg_phase(torch, np, blocks, ddpm_models, init_weights, dev, ops,
                                       card)
+    torch.cuda.empty_cache()
+
+    phase("ADM kernels: K3 at ADM-32's and the classifier-32's call sites (serving forwards, "
+          "training steps, a guided step)")
+    report["adm_kernels"] = adm_kernels(torch, np, blocks, k_gn, k_attn, k_res, build, dev, ops,
+                                        card)
+    phase("ADM against the CPU: the bf16 forward and gradient, the f32 harnesses, "
+          "classifier_grad")
+    report["adm_vs_cpu"] = adm_vs_cpu(torch, np, blocks, dev, ops, card)
+    phase(f"ADM fit: trainer.main fit --config {ADM_GUIDED} and {ADM_CLASSIFIER}, a resume")
+    report["adm_cli"] = adm_cli(torch, np, ops, dev, card)
+    phase(f"guidance: ClassifierGuidedDDIM-{GUIDED_STEPS} at n = {BATCH} and "
+          "ClassifierGuidedDDPM steps")
+    report["adm_guidance"] = adm_guidance(torch, np, blocks, dev, ops, card)
+    phase("ADM serve: LitIDDPM(ADM-32, sample_steps=50, dtype='bf16') over HTTP")
+    report["adm_serve"] = adm_serve(torch, np, blocks, dev, ops, card)
 
     phase("kernels")
     sources = {
@@ -3796,6 +4379,22 @@ def main() -> int:
             table.append(_table_row(f"{kname}_{tag}_train", kname,
                                     rec["train"]["per_step"][kname],
                                     fit_rec["launches"][kname]))
+    # ADM and guidance: K3 per ADM-32 forward at n = 8 (launches in the four
+    # default requests of its serve phase), per LitIDDPM(ADM) step at batch
+    # 128 and per classifier step at batch 256 (launches in their 10-step CLI
+    # fits), and per guided DDIM step at n = 8, generator and classifier
+    # (launches in the guided DDIM-50 request)
+    ak = report["adm_kernels"]
+    for name, v, n_launch in (
+            ("attention_adm", ak["per_forward"]["adm_n8"]["attention"],
+             report["adm_serve"]["launches"]["attention"]),
+            ("attention_adm_train", ak["train"]["per_step"]["attention"],
+             report["adm_cli"]["fit"]["launches"]["attention"]),
+            ("attention_classifier_train", ak["classifier_train"]["per_step"]["attention"],
+             report["adm_cli"]["classifier_fit"]["launches"]["attention"]),
+            ("attention_guided", ak["guided_step"]["per_step"]["attention"],
+             report["adm_guidance"]["launches"]["attention"])):
+        table.append(_table_row(name, "attention", v, n_launch))
     report["kernels"] = table
     print("kernels launched on their paths and held against their plain versions: "
           + "; ".join(f"{k['name']} ({k['route']}, {k['source']}, replaces {k['replaces']}, "
@@ -3822,7 +4421,12 @@ def main() -> int:
           f"launches in its generate(low_res=); *_cfg_train: per labelled CFG step at batch "
           f"{TRAIN_BATCH}, launches in the 20-step CLI fit of {CFG_CONFIG}; *_sr_train: per "
           f"upsampler step at batch {SR_BATCH}, launches in the {FIT_STEPS}-step CLI fit of "
-          f"{SR_CONFIG})", flush=True)
+          f"{SR_CONFIG}. attention_adm: per ADM-32 forward at n = {BATCH}, launches in its four "
+          f"default requests; attention_adm_train, attention_classifier_train: per step at batch "
+          f"{TRAIN_BATCH} and {CLASSIFIER_BATCH}, launches in the 10-step CLI fits of "
+          f"{ADM_GUIDED} and {ADM_CLASSIFIER}; attention_guided: per ClassifierGuidedDDIM step at "
+          f"n = {BATCH} (generator and classifier), launches in the guided "
+          f"DDIM-{GUIDED_STEPS} request)", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -8,13 +8,16 @@ tests. Activations keep the JAX package's NHWC layout at every public function.
 * ``dmme_tpu_torch.ops``       — hand-written Hopper kernels (CUDA C++) with a
   plain PyTorch version of each, taken for CPU tensors and, counted, for
   CUDA tensors outside the kernels' dtype (bf16)
-* ``dmme_tpu_torch.models``    — the DDPM UNet as ``nn.Module``s (``remat`` too)
-* ``dmme_tpu_torch.diffusion`` — DDPM / DDIM training loss and sampling
+* ``dmme_tpu_torch.models``    — the DDPM and IDDPM UNets and the ADM family
+  (generator, noisy classifier) as ``nn.Module``s
+* ``dmme_tpu_torch.diffusion`` — DDPM / DDIM / IDDPM / EDM / flow training
+  losses, the samplers, and classifier-free and classifier guidance
 * ``dmme_tpu_torch.data``      — CIFAR-10 (on-disk or synthetic) and the
   procedural ``Shapes``, flips on the device
-* ``dmme_tpu_torch.training``  — ``LitDDPM``/``LitDDIM``, ``TrainState``, the
-  optimizer chain, EMA, ``fit`` with checkpoints (``checkpoint``), resume,
-  restarts and loggers (``loggers``), and ``evaluate.validate``
+* ``dmme_tpu_torch.training``  — the harnesses (``LitDDPM`` … ``LitClassifier``),
+  ``TrainState``, the optimizer chain, EMA, ``fit`` with checkpoints
+  (``checkpoint``), resume, restarts and loggers (``loggers``), and
+  ``evaluate.validate``
 * ``dmme_tpu_torch.callbacks`` — ``GenerateImage``
 * ``dmme_tpu_torch.parallel``  — the train step (one device)
 * ``dmme_tpu_torch.serving``   — the HTTP sampling server
@@ -23,6 +26,20 @@ tests. Activations keep the JAX package's NHWC layout at every public function.
   ``python -m dmme_tpu_torch.trainer {fit,validate,sample,predict,serve} --config x.yaml``
 
 Entry points run on the CUDA device unless the caller passes ``device="cpu"``.
+The package root re-exports what the port has of ``dmme_tpu/__init__.py``'s
+names; ``datasets``, ``LSUN`` and ``ImageFolder64`` wait for ROADMAP A.12.
 """
 
 __version__ = "0.1.0"
+
+from dmme_tpu_torch.utils import (denorm, gaussian, gaussian_like, make_history, norm, pad,
+                                  uniform_int)
+from dmme_tpu_torch import equations, models, diffusion
+from dmme_tpu_torch import diffusion as diffusion_models  # the JAX package's alias
+from dmme_tpu_torch.training import LitClassifier, LitDDIM, LitDDPM, LitEDM, LitIDDPM
+from dmme_tpu_torch.data import CIFAR10
+from dmme_tpu_torch import callbacks
+
+__all__ = ["gaussian", "gaussian_like", "uniform_int", "pad", "norm", "denorm", "make_history",
+           "equations", "models", "diffusion", "diffusion_models", "callbacks", "LitDDPM",
+           "LitDDIM", "LitEDM", "LitIDDPM", "LitClassifier", "CIFAR10", "__version__"]

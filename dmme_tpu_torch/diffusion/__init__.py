@@ -9,9 +9,11 @@ from dmme_tpu_torch.diffusion.edm import EDM
 from dmme_tpu_torch.diffusion.factory import make_sampler
 from dmme_tpu_torch.diffusion.fast import CachedDDIM
 from dmme_tpu_torch.diffusion.flow import FlowMatching
+from dmme_tpu_torch.diffusion.guidance import (ClassifierGuidedDDIM, ClassifierGuidedDDPM,
+                                               classifier_grad)
 from dmme_tpu_torch.diffusion.iddpm import IDDPM, NoiseVariance
 from dmme_tpu_torch.diffusion.unipc import UniPC
 
 __all__ = ["DDPM", "DDIM", "IDDPM", "NoiseVariance", "DPMSolverPP", "UniPC", "EDM",
            "FlowMatching", "CachedDDIM", "DeepCachedDDIM", "DeepCachedDPM", "make_sampler",
-           "classifier_free"]
+           "classifier_free", "ClassifierGuidedDDPM", "ClassifierGuidedDDIM", "classifier_grad"]

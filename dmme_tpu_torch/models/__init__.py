@@ -1,8 +1,9 @@
-"""UNet denoisers as ``nn.Module``s (mirrors ``dmme_tpu.models``)."""
+"""Denoisers as ``nn.Module``s (mirrors ``dmme_tpu.models``): the DDPM and
+IDDPM UNets, and the ADM family with its noisy classifier (``adm``)."""
 
 import torch
 
-from dmme_tpu_torch.models import ddpm, iddpm
+from dmme_tpu_torch.models import adm, ddpm, iddpm
 from dmme_tpu_torch.models.blocks import init_weights
 from dmme_tpu_torch.models.unet import UNet, build_topology
 
@@ -19,4 +20,4 @@ def eps_only(model_fn):
     return fn
 
 
-__all__ = ["ddpm", "iddpm", "UNet", "build_topology", "init_weights", "eps_only"]
+__all__ = ["adm", "ddpm", "iddpm", "UNet", "build_topology", "init_weights", "eps_only"]

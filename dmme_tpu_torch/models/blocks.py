@@ -74,6 +74,11 @@ class Conv(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+class ZeroConv(Conv):
+    """A :class:`Conv` whose kernel starts at zero (flax's ``kernel_init=
+    zeros``): :func:`init_weights` leaves it at zero."""
+
+
 def conv3x3(c_in: int, c_out: int, stride: int = 1, dtype=torch.float32) -> Conv:
     return Conv(c_in, c_out, 3, stride, dtype)
 
@@ -314,13 +319,16 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """flax default init, drawn from ``generator``: lecun-normal kernels,
-    zero biases, GroupNorm scale 1 and bias 0, and embedding tables normal
-    with variance 1/features (``nn.Embed``'s ``variance_scaling(1.0,
-    "fan_in", "normal", out_axis=0)``)."""
+    """flax default init, drawn from ``generator``: lecun-normal kernels
+    (zero for a :class:`ZeroConv`), zero biases, GroupNorm scale 1 and bias
+    0, and embedding tables normal with variance 1/features (``nn.Embed``'s
+    ``variance_scaling(1.0, "fan_in", "normal", out_axis=0)``)."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (Dense, Conv)):
+            if isinstance(m, ZeroConv):
+                m.weight.zero_()
+                m.bias.zero_()
+            elif isinstance(m, (Dense, Conv)):
                 _lecun_normal_(m.weight, generator)
                 m.bias.zero_()
             elif isinstance(m, nn.Embedding):

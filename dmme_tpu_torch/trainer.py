@@ -46,6 +46,17 @@ def _build(config: Dict[str, Any]):
     return model, data, trainer_cfg, callbacks
 
 
+def _require_diffusion_harness(model, command: str) -> None:
+    """Raise for a harness that has no diffusion loss or sampler (the noisy
+    classifier): JAX's ``validate``, ``sample``, ``predict`` and ``serve``
+    fail on one too, deeper in."""
+    if not hasattr(model, "generate"):
+        raise ValueError(
+            f"{command} needs a diffusion harness; {type(model).__name__} trains a noisy "
+            "classifier and has nothing to sample or validate (sample its generator with "
+            "classifier guidance: dmme_tpu_torch.diffusion.ClassifierGuidedDDIM)")
+
+
 def cmd_fit(config: Dict[str, Any], device) -> None:
     from dmme_tpu_torch.training import fit
 
@@ -83,6 +94,7 @@ def cmd_validate(config: Dict[str, Any], device) -> None:
     from dmme_tpu_torch.training.evaluate import validate
 
     model, data, tc, _ = _build(config)
+    _require_diffusion_harness(model, "validate")
     results = validate(
         model, data,
         ckpt_dir=tc.get("default_root_dir"),
@@ -134,6 +146,7 @@ def cmd_sample(config: Dict[str, Any], device) -> None:
     from dmme_tpu_torch.training.evaluate import _reject_conditioned_input
 
     model, data, tc, _ = _build(config)
+    _require_diffusion_harness(model, "sample")
     sampler = tc.get("sampler")
     if sampler:
         check_sampler(sampler)
@@ -179,6 +192,7 @@ def cmd_predict(config: Dict[str, Any], device) -> None:
     from dmme_tpu_torch.utils.norm import denorm
 
     model, data, tc, _ = _build(config)
+    _require_diffusion_harness(model, "predict")
     state, img_size, ckpt_dir = _restore_state(model, data, tc, device)
     batch = int(tc.get("predict_batch") or getattr(data, "batch_size", None) or 16)
     n_batches = int(tc.get("limit_predict_batches") or 1)
@@ -199,6 +213,7 @@ def cmd_serve(config: Dict[str, Any], device) -> None:
     from dmme_tpu_torch import serving
 
     model, data, tc, _ = _build(config)
+    _require_diffusion_harness(model, "serve")
     state, img_size, _ = _restore_state(model, data, tc, device)
     serving.serve_forever(serving.Sampler(model, state, img_size, device=device,
                                           **_cache_options(tc)),

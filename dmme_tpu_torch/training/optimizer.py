@@ -8,7 +8,9 @@ not ``torch.optim``: the two differ where it matters for parity.
    ``torch.nn.utils.clip_grad_norm_``).
 2. Adam with b1 0.9, b2 0.999, eps 1e-8 outside the square root, the
    moments bias-corrected on count + 1.
-3. The step scaled by ``-schedule(count)``, the count before its increment.
+3. With ``weight_decay`` (``optax.adamw``'s, no mask): ``weight_decay·p``
+   added to Adam's update before the scaling, so it reaches every parameter.
+4. The step scaled by ``-schedule(count)``, the count before its increment.
 
 The state updates in place under ``torch.no_grad()`` with multi-tensor
 ``torch._foreach_*`` ops, a few launches per step for all tensors together.
@@ -41,13 +43,15 @@ class AdamState:
 
 @dataclasses.dataclass(frozen=True)
 class ClipAdam:
-    """Global-norm clip, then Adam at a scheduled learning rate."""
+    """Global-norm clip, then Adam (AdamW with ``weight_decay``) at a
+    scheduled learning rate."""
 
     max_norm: float
     schedule: Callable[[int], float]
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    weight_decay: float = 0.0
 
     def init(self, params: Dict[str, torch.Tensor]) -> AdamState:
         return AdamState(0, {k: torch.zeros_like(v) for k, v in params.items()},
@@ -76,5 +80,7 @@ class ClipAdam:
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         lr = self.schedule(state.count)
+        if self.weight_decay:  # p − lr·(adam + wd·p), the decay on the p before the step
+            torch._foreach_mul_([params[k] for k in keys], 1.0 - lr * self.weight_decay)
         torch._foreach_addcdiv_([params[k] for k in keys], mu, denom, value=-lr / bc1)
         state.count = count

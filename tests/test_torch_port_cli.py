@@ -35,7 +35,8 @@ PORTED = {"configs/ddpm/cifar10.yaml", "configs/ddim/cifar10.yaml",
           "configs/iddpm/shapes_demo.yaml", "configs/iddpm/shapes64_demo.yaml",
           "configs/edm/cifar10.yaml", "configs/edm/shapes_demo.yaml",
           "configs/flow/shapes_demo.yaml", "configs/ddpm/shapes_cfg_demo.yaml",
-          "configs/ddpm/shapes_sr_demo.yaml"}
+          "configs/ddpm/shapes_sr_demo.yaml", "configs/adm/cifar10_guided.yaml",
+          "configs/adm/cifar10_classifier.yaml"}
 
 TINY_YAML = """
 seed_everything: 7
@@ -226,7 +227,7 @@ def test_dtype_aliases_match_jax(alias, want):
     assert _dtype_name(tm.dtype) == _dtype_name(jm.dtype) == want
 
 
-@pytest.mark.parametrize("path,item", [("dmme_tpu.training.LitClassifier", "A.6"),
+@pytest.mark.parametrize("path,item", [("dmme_tpu.training.LitVAE", "A.8"),
                                        ("dmme_tpu.training.LitLatentDDPM", "A.8"),
                                        ("dmme_tpu.data.LSUN", "A.12"),
                                        ("dmme_tpu.models.dit.DiT", "A.7")])

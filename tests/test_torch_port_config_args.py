@@ -3,12 +3,14 @@
 A config names a class by its JAX path; the port resolves it to its own
 class (``config.resolve_class``) and validates the arguments against that
 class's constructor, following ``**kwargs`` up the MRO
-(``config.accepted_args``). This walks every JAX class the port resolves and
-holds that each argument the JAX constructor takes is taken by the port's
-or named, with its ROADMAP item, in ``config._ARGS_NOT_PORTED``. It also
-holds the arguments that were refused before (fault C.9): the MoE loss
-weights, ``CIFAR10(download=)`` and the UNets' ``param_dtype``, and which of
-the repo's configs validate.
+(``config.accepted_args``). This walks every JAX class the port resolves
+(the harnesses, data modules, callbacks and loggers, the UNet and ADM
+entries, and the guided samplers) and holds that each argument the JAX
+constructor takes is taken by the port's or named, with its ROADMAP item,
+in ``config._ARGS_NOT_PORTED``. It also holds the arguments that were
+refused before (fault C.9): the MoE loss weights, ``CIFAR10(download=)``
+and the UNets' ``param_dtype``, which of the repo's configs validate, and
+that both ADM configs fit through the command line at TINY widths.
 """
 
 import glob
@@ -34,12 +36,17 @@ _MODULES = ("dmme_tpu.training", "dmme_tpu.data", "dmme_tpu.callbacks",
             "dmme_tpu.training.loggers")
 _UNETS = ("dmme_tpu.models.ddpm.UNet", "dmme_tpu.models.iddpm.UNet",
           "dmme_tpu.models.unet.UNet")
+#: the ADM entries (factories and modules) and the guided samplers
+_ADM = ("dmme_tpu.models.adm.ADM", "dmme_tpu.models.adm.ADMG", "dmme_tpu.models.adm.ADMU",
+        "dmme_tpu.models.adm.classifier", "dmme_tpu.models.adm.UNetModel",
+        "dmme_tpu.models.adm.EncoderUNet", "dmme_tpu.diffusion.ClassifierGuidedDDPM",
+        "dmme_tpu.diffusion.ClassifierGuidedDDIM")
 #: flax's own module fields, not arguments of the model
 _FLAX_FIELDS = {"parent", "name"}
 
 
 def _jax_targets():
-    paths = list(_UNETS)
+    paths = list(_UNETS) + list(_ADM)
     for name in _MODULES:
         mod = importlib.import_module(name)
         for attr in sorted(dir(mod)):
@@ -67,9 +74,10 @@ TARGETS = _jax_targets()
 
 def test_the_walk_covers_the_ported_config_targets():
     for path in ("dmme_tpu.training.LitDDPM", "dmme_tpu.training.LitUpsampler",
-                 "dmme_tpu.training.LitIDDPM", "dmme_tpu.data.CIFAR10", "dmme_tpu.data.Shapes",
+                 "dmme_tpu.training.LitIDDPM", "dmme_tpu.training.LitClassifier",
+                 "dmme_tpu.data.CIFAR10", "dmme_tpu.data.Shapes",
                  "dmme_tpu.callbacks.GenerateImage", "dmme_tpu.training.loggers.WandbLogger",
-                 *_UNETS):
+                 *_UNETS, *_ADM):
         assert path in TARGETS
 
 
@@ -192,12 +200,11 @@ def test_param_dtype_f32_only(factory):
 # --------------------------------------------------- the configs that validate
 
 #: the repo's configs that the port validates, and the item each other waits for
-VALIDATES = {"ddim/cifar10", "ddpm/cifar10", "ddpm/cifar10_vpred", "ddpm/shapes256_demo",
-             "ddpm/shapes_cfg_demo", "ddpm/shapes_demo", "ddpm/shapes_sr_demo", "edm/cifar10",
-             "edm/shapes_demo", "flow/shapes_demo", "iddpm/cifar10", "iddpm/shapes64_demo",
-             "iddpm/shapes_demo"}
-WAITS = {"adm/cifar10_classifier": "A.6", "adm/cifar10_guided": "A.6",
-         "flow/cifar10_dit": "A.7", "flow/cifar10_dit_moe": "A.7", "flow/shapes_dit_demo": "A.7",
+VALIDATES = {"adm/cifar10_classifier", "adm/cifar10_guided", "ddim/cifar10", "ddpm/cifar10",
+             "ddpm/cifar10_vpred", "ddpm/shapes256_demo", "ddpm/shapes_cfg_demo",
+             "ddpm/shapes_demo", "ddpm/shapes_sr_demo", "edm/cifar10", "edm/shapes_demo",
+             "flow/shapes_demo", "iddpm/cifar10", "iddpm/shapes64_demo", "iddpm/shapes_demo"}
+WAITS = {"flow/cifar10_dit": "A.7", "flow/cifar10_dit_moe": "A.7", "flow/shapes_dit_demo": "A.7",
          "flow/shapes_dit_moe_demo": "A.7", "latent/shapes_latent_demo": "A.8",
          "latent/shapes_latent_flow_dit_demo": "A.8", "latent/shapes_vae_demo": "A.8",
          "ddpm/lsun_bedroom": "A.12", "ddpm/lsun_cat": "A.12", "ddpm/lsun_church": "A.12",
@@ -205,10 +212,12 @@ WAITS = {"adm/cifar10_classifier": "A.6", "adm/cifar10_guided": "A.6",
 
 
 def test_thirteen_of_twenty_six_configs_validate():
+    """Fifteen since the ADM configs (A.6c) validate; the name is the one
+    this test has had since thirteen did."""
     names = sorted(os.path.relpath(p, os.path.join(ROOT, "configs"))[:-len(".yaml")]
                    for p in glob.glob(os.path.join(ROOT, "configs", "*", "*.yaml")))
     assert len(names) == 26 and set(names) == VALIDATES | set(WAITS)
-    assert len(VALIDATES) == 13 and not VALIDATES & set(WAITS)
+    assert len(VALIDATES) == 15 and not VALIDATES & set(WAITS)
     for name in names:
         config = tcfg.load_config(os.path.join(ROOT, "configs", name + ".yaml"))
         if name in VALIDATES:
@@ -216,3 +225,41 @@ def test_thirteen_of_twenty_six_configs_validate():
             continue
         with pytest.raises(tcfg.ConfigError, match=rf"ROADMAP {WAITS[name]}\b"):
             tcfg.validate_config(config)
+
+
+# ------------------------------------------------ the ADM configs on the command line
+
+_TINY_ADM = ("model_channels: 32, channel_mult: [1, 2], num_res_blocks: 1, "
+             "attention_resolutions: [16], num_head_channels: 16")
+_ADM_ARGS = {
+    "adm/cifar10_guided": ["--model.init_args.model.init_args",
+                           "{image_size: 32, class_conditional: false, dtype: f32, "
+                           f"{_TINY_ADM}}}"],
+    "adm/cifar10_classifier": ["--model.init_args.dtype", "f32", "--model.init_args.model",
+                               "{class_path: dmme_tpu.models.adm.classifier, init_args: "
+                               f"{{image_size: 32, num_classes: 10, {_TINY_ADM}}}}}"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ADM_ARGS))
+def test_adm_config_fits_two_steps_on_the_cli(name, tmp_path, capsys):
+    """``fit`` of each ADM config for 2 steps at TINY widths on synthetic
+    CIFAR-10 (the classifier's labelled), through ``trainer.main``; the
+    classifier config then refuses ``sample`` and ``serve``, which JAX's
+    trainer cannot run on it either."""
+    from dmme_tpu_torch import trainer
+    from dmme_tpu_torch.training import CheckpointManager
+
+    argv = ["--config", os.path.join(ROOT, "configs", name + ".yaml"),
+            "--trainer.default_root_dir", str(tmp_path), "--trainer.max_steps", "2",
+            "--trainer.log_every_n_steps", "1", "--model.init_args.timesteps", "10",
+            "--data.init_args.synthetic", "true", "--data.init_args.synthetic_size", "16",
+            "--data.init_args.batch_size", "4", *_ADM_ARGS[name]]
+    trainer.main(["fit", *argv], device="cpu")
+    err = capsys.readouterr().err
+    assert "[step 2]" in err and "loss=" in err
+    assert CheckpointManager(str(tmp_path)).latest_step() == 2
+    if name == "adm/cifar10_classifier":
+        for command in ("sample", "serve"):
+            with pytest.raises(ValueError, match=rf"{command} needs a diffusion harness"):
+                trainer.main([command, *argv], device="cpu")
