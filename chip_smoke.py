@@ -195,7 +195,39 @@ if the package is missing, or if any phase fails. Phases:
 34. ADM serve — ``LitIDDPM(ADM-32, sample_steps=50)`` over HTTP: ``default``
    at n = 1, 8, 16 and a repeat, ``ddim`` at n = 8, the caching samplers
    answered 400, one request profiled;
-35. the kernel table as one JSON line, the card's name and power limit, then
+35. DiT kernels — K3 at the 12 call sites (6 heads of 64 at T = 64) of
+   DiT-S/4 of ``configs/flow/cifar10_dit.yaml`` (32,499,120 parameters) and
+   of the MoE-DiT of ``cifar10_dit_moe.yaml`` (82,143,456; 8 experts, top-2,
+   in blocks 1, 3, …, 11), every weight random (adaLN-Zero kernels and
+   expert biases too), at a serving forward of n = 8 and one ``LitFlow``
+   training step at batch 128 of each (with the attention backward); each
+   held against its plain version (``TOL``) and timed beside SDPA; K1, K2
+   and K4 launch nothing;
+36. DiT against the CPU — the bf16 forward at batch 8 (``UNET_REL_L2``, the
+   dense DiT); the f32 DiT and MoE-DiT flow harnesses' loss (the routers'
+   losses included) and gradient within ``F32_REL_L2``, each with a bf16
+   control that misses it;
+37. DiT fit — ``trainer.main fit`` of both DiT configs (synthetic CIFAR-10,
+   batch 128) for 10 steps, the DiT resumed from step 5 bitwise against an
+   uninterrupted run; the router losses that entered one MoE training loss
+   and each MoE block's routed fractions f_e; 25 timed steps of each
+   (median, device busy, operations, idle share, peak memory) and the MoE
+   blocks' dense dispatch timed alone;
+38. DiT serve — both DiT flow harnesses over HTTP: ``default`` (25 midpoint
+   steps, 50 evaluations) and ``flow`` at 10 steps at n = 8, repeated for
+   identical bytes, 12 K3 launches a forward, one request profiled;
+39. distillation — every kernel call of one progressive-distillation step at
+   batch 128 of the ε DDPM UNet (the teacher's two ``no_grad`` forwards: K4
+   at N = 128, 22 sites each; the v student's K1/K2/K3), held against its
+   plain version and timed, and the step timed; then
+   ``python -m dmme_tpu_torch.distill`` on a temporary copy of
+   ``configs/ddpm/cifar10.yaml`` whose teacher checkpoint a 2-step
+   ``trainer fit`` wrote: 2 rounds (500, then 250 steps) of 3 steps, and
+   the last student's DDIM-250 request at n = 8;
+40. inpainting — ``inpaint`` with ``LitDDPM``'s DDPM (T = 1000), the left
+   half of n = 8 images known, ``resample_steps=2``: 2000 forwards through
+   K1, K3 and K4, the known pixels back bit for bit;
+41. the kernel table as one JSON line, the card's name and power limit, then
    ``{"ok": true, "device": ...}``.
 
 ``--out`` also writes every measurement to a JSON file. ``--kernels-only``
@@ -343,11 +375,12 @@ def errors(got, want, rtol: float, atol: float):
 
 def randomize_affines(torch, blocks, module, generator) -> None:
     """Every Conv and Dense bias 0.1·N(0, 1), every GroupNorm weight
-    1 + 0.1·N(0, 1) and bias 0.1·N(0, 1), and every zero-initialised kernel
-    (ADM's ``ZeroConv``s) N(0, 1/fan_in), drawn from ``generator``. The flax
-    init leaves them 0 and 1, where a kernel that dropped or misplaced one
-    would still agree with its plain version (and a zero attention
-    projection would hide K3 altogether)."""
+    1 + 0.1·N(0, 1) and bias 0.1·N(0, 1), every zero-initialised kernel
+    (ADM's ``ZeroConv``s, DiT's adaLN-Zero ``ZeroDense``s) N(0, 1/fan_in)
+    and every MoE expert bias 0.1·N(0, 1), drawn from ``generator``. The
+    flax init leaves them 0 and 1, where a kernel that dropped or misplaced
+    one would still agree with its plain version (and a zero attention
+    projection or adaLN gate would hide K3 altogether)."""
     def draw(p, mean, std=0.1):
         p.copy_(mean + std * torch.randn(p.shape, generator=generator))
 
@@ -355,11 +388,14 @@ def randomize_affines(torch, blocks, module, generator) -> None:
         for m in module.modules():
             if isinstance(m, (blocks.Dense, blocks.Conv)):
                 draw(m.bias, 0.0)
-                if isinstance(m, blocks.ZeroConv):
+                if isinstance(m, (blocks.ZeroConv, blocks.ZeroDense)):
                     draw(m.weight, 0.0, m.weight[0].numel() ** -0.5)
             elif isinstance(m, blocks.GroupNorm):
                 draw(m.weight, 1.0)
                 draw(m.bias, 0.0)
+            elif hasattr(m, "init_parameters"):  # an MoE layer's expert biases
+                draw(m.b_in, 0.0)
+                draw(m.b_out, 0.0)
 
 
 #: the launch counters of the kernels that take f32 and fp16 activations,
@@ -3791,6 +3827,653 @@ def adm_serve(torch, np, blocks, dev, ops, card: str) -> dict:
     return out
 
 
+DIT_CONFIG = "configs/flow/cifar10_dit.yaml"
+MOE_CONFIG = "configs/flow/cifar10_dit_moe.yaml"
+DIT_PARAMS, MOE_PARAMS = 32_499_120, 82_143_456
+# K3's call sites a DiT-S/4 forward: 12 blocks of 6 heads of 64 at T = 64;
+# the DiT has no GroupNorm and no ResBlock, so K1, K2 and K4 launch nothing
+DIT_SITES = 12
+PER_FORWARD_DIT = {"group_norm_silu": 0, "group_norm_silu_bwd": 0, "attention": DIT_SITES,
+                   "resblock": 0}
+# the DiT CLI fits: steps before the resume, and in all
+DIT_FIT_HALF, DIT_FIT_STEPS = 5, 10
+# progressive distillation of configs/ddpm/cifar10.yaml: the first student's
+# steps (the ε teacher samples in 1000), rounds, train steps a round
+DISTILL_START, DISTILL_ROUNDS, DISTILL_STEPS = 500, 2, 3
+# launches of one distillation step at batch 128: the teacher's two pure
+# forwards (K1 at out_norm, K3 6 and K4 22 each), the student's training
+# forward and backward (K1 45, K2 45, K3 6)
+PER_DISTILL_STEP = {"group_norm_silu": 45 + 2, "group_norm_silu_bwd": 45, "attention": 6 + 12,
+                    "resblock": 2 * 22}
+# what the distillation driver may leave allocated on the card once it
+# returns (a round's teacher or student state is ≈ 0.1–0.5 GiB)
+DRIVER_LEFT_BYTES = 32 * 2**20
+# inpainting: LitDDPM's DDPM (T = 1000) at n = 8, the left half known,
+# RePaint harmonisation repeats
+INPAINT_RESAMPLE = 2
+
+
+def dit_harness(torch, blocks, path: str, dtype: str = "bf16", argv=()):
+    """(harness, weights) of the DiT config ``path`` with harness and model in
+    ``dtype`` (and ``argv`` applied): the seed's weights with every bias,
+    adaLN-Zero kernel and expert bias drawn at random, on the CPU in f32,
+    loaded into the harness's model."""
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.models import init_weights
+
+    cfg = tcfg.apply_overrides(tcfg.load_config(path), [
+        "--model.init_args.dtype", dtype, "--model.init_args.model.init_args.dtype", dtype,
+        *argv])
+    lit = tcfg.instantiate(tcfg.validate_config(cfg)["model"])
+    init_weights(lit.model, torch.Generator().manual_seed(SEED))
+    randomize_affines(torch, blocks, lit.model, torch.Generator().manual_seed(SEED + 1))
+    return lit, {k: v.detach().clone() for k, v in lit.model.state_dict().items()}
+
+
+def dit_targets(k_attn, backward: bool):
+    """The DiT's kernel entry point (``models/dit.py`` calls ``attention_heads``
+    from its own namespace), and with ``backward`` the attention backward."""
+    from dmme_tpu_torch.models import dit
+
+    targets = [(dit, "attention_heads", "attention", _sig_attn)]
+    if backward:
+        targets.append((k_attn, "attention_bwd", "attention_bwd", _sig_attn))
+    return targets
+
+
+def dit_kernels(torch, np, blocks, k_gn, k_attn, k_res, build, dev, ops, card: str) -> dict:
+    """Phase 35: K3 at the DiT's call sites. DiT-S/4 of configs/flow/
+    cifar10_dit.yaml (32,499,120 parameters) and the MoE-DiT of
+    cifar10_dit_moe.yaml (82,143,456; 8 experts, top-2, in blocks 1, 3, …,
+    11), bf16, every weight random: the 12 sites (6 heads of 64 at T = 64,
+    q, k and v strided views of the qkv projection) at serving forwards of
+    n = 8 and at one ``LitFlow`` training step at batch 128 of each (K3 and
+    its backward), each held against its plain version (``TOL``) and timed
+    beside SDPA; K1, K2 and K4 launch nothing."""
+    from dmme_tpu_torch.models import init_weights
+
+    out = {"forward_rows": [], "per_forward": {}}
+    for key, path, want_params in (("dit", DIT_CONFIG, DIT_PARAMS),
+                                   ("moe", MOE_CONFIG, MOE_PARAMS)):
+        lit, _ = dit_harness(torch, blocks, path)
+        n_params = sum(p.numel() for p in lit.model.parameters())
+        print(f"{path}: {type(lit).__name__} with {type(lit.model).__name__}, {n_params:,} "
+              f"parameters (expected {want_params:,})", flush=True)
+        if n_params != want_params:
+            fail(f"{path} has {n_params} parameters")
+        g = torch.Generator().manual_seed(SEED + 200)
+        runs = {f"{key}_n{BATCH}": (lit.model.to(dev).eval(),
+                                    torch.randn((BATCH, 32, 32, 3), generator=g),
+                                    1000.0 * torch.rand((BATCH,), generator=g),
+                                    {"attention": DIT_SITES})}
+        reset_counts(ops)
+        recorded, _ = record_forwards(torch, blocks, runs, dev, dit_targets(k_attn, False))
+        torch.cuda.synchronize()
+        launches = counts(ops)
+        expect_bf16_only(f"{key} forward")
+        print(f"{key} forward at n = {BATCH}: launches {launches} (expected {PER_FORWARD_DIT})",
+              flush=True)
+        if launches != PER_FORWARD_DIT:
+            fail(f"the {key} forward launched {launches}, expected {PER_FORWARD_DIT}")
+        rows, failures = forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded)
+        if failures:
+            fail(f"{key} forward kernels disagree with their plain versions: {failures}")
+        out["forward_rows"] += rows
+        name = f"{key}_n{BATCH}"
+        out["per_forward"][key] = _per_forward(rows, name, card, f"{key} forward, {name}",
+                                               ("attention",))
+        del lit, runs, recorded
+        torch.cuda.empty_cache()
+
+        print(f"-- LitFlow({key}) training step at batch {TRAIN_BATCH}", flush=True)
+        out[f"{key}_train"] = train_kernels(
+            torch, blocks, k_gn, k_attn, None, init_weights, None, dev, card, ops,
+            lit=dit_harness(torch, blocks, path)[0], targets=dit_targets(k_attn, True),
+            sites={"attention": DIT_SITES, "attention_bwd": DIT_SITES})
+        torch.cuda.empty_cache()
+    return out
+
+
+def _flow_loss_and_grads(torch, lit, weights, device, inputs):
+    """The flow harness's loss core with the routers' losses (``loss_given``
+    through ``loss_model_fn`` and ``add_moe_aux``, training mode, no draws)
+    and every parameter's gradient on ``device``, with the MoE blocks'
+    round-1 routed fractions of that call."""
+    lit.model.to(device)
+    params = {k: v.to(device).requires_grad_(True) for k, v in weights.items()}
+    x0, t, x1 = (v.to(device) for v in inputs)
+    box, stats = [], []
+    model_fn = lit.model_fn
+
+    def spy(p, x, tt, **kw):  # keeps the MoE blocks' statistics beside the collector
+        out = model_fn(p, x, tt, **kw)
+        stats.extend(kw.get("moe_losses") or [])
+        return out
+
+    lit.model_fn = spy
+    try:
+        loss = lit.add_moe_aux(lit.diffusion_model.loss_given(lit.loss_model_fn(box), params,
+                                                              x0, t, x1, train=True), box)
+    finally:
+        del lit.model_fn
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return {"loss": loss.detach().cpu(),
+            "grads": {k: g.detach().float().cpu() for k, g in zip(params, grads)},
+            "f_e": [s["f_e"].detach().cpu() for s in stats]}
+
+
+def dit_vs_cpu(torch, np, blocks, dev, ops, card: str) -> dict:
+    """Phase 36: DiT-S/4 and the MoE-DiT on the card against f32 on the CPU,
+    on the same random weights and numpy inputs at batch 8: the bf16 DiT
+    forward (``UNET_REL_L2``); the default-dtype (f32) harness's flow loss
+    (routers' losses included, training-mode routing) and gradient within
+    ``F32_REL_L2``, each with a bf16 control on the same inputs that must
+    miss it. The f32 paths launch K3 in f32 only, 12 a forward."""
+    none = {k: 0 for k in ops}
+    r = np.random.default_rng(SEED + 210)
+    x0 = torch.tensor(np.clip(r.standard_normal((BATCH, 32, 32, 3)), -1, 1).astype(np.float32))
+    t = torch.tensor(r.uniform(0.02, 0.98, (BATCH,)).astype(np.float32))
+    x1 = torch.tensor(r.standard_normal((BATCH, 32, 32, 3)).astype(np.float32))
+    out = {}
+    for key, path in (("dit", DIT_CONFIG), ("moe", MOE_CONFIG)):
+        lits = {d: dit_harness(torch, blocks, path, d) for d in ("bf16", "f32")}
+        weights = lits["f32"][1]
+        ref_lit, bf16_lit = lits["f32"][0], lits["bf16"][0]
+        bf16_lit.model.load_state_dict(weights)
+        with torch.no_grad():
+            want = ref_lit.model_fn(weights, x0, 1000.0 * t).float()
+            reset_counts(ops)
+            got = bf16_lit.model.to(dev)(x0.to(dev), (1000.0 * t).to(dev)).float().cpu()
+            torch.cuda.synchronize()
+        fwd_launches = counts(ops)
+        expect_bf16_only(f"{key} forward vs the CPU")
+        rec = {"forward_rel_l2": rel_l2(got, want)}
+        print(f"{key} bf16 forward at n = {BATCH} vs f32 CPU: rel L2 {rec['forward_rel_l2']:.3e} "
+              f"(<= {UNET_REL_L2} for the dense DiT), launches {fwd_launches}", flush=True)
+        if not (bool(got.isfinite().all()) and fwd_launches == PER_FORWARD_DIT
+                and (key == "moe" or rec["forward_rel_l2"] <= UNET_REL_L2)):
+            fail(f"the {key} forward on the card: {rec}, launches {fwd_launches}")
+
+        def readings(a, b) -> dict:
+            flat = torch.cat([a["grads"][k].flatten() for k in a["grads"]])
+            ref = torch.cat([b["grads"][k].flatten() for k in a["grads"]])
+            return {"loss_rel_err": float(abs(a["loss"] - b["loss"]) / abs(b["loss"])),
+                    "grad_rel_l2": rel_l2(flat, ref)}
+
+        inputs = (x0, t, x1)
+        ref = _flow_loss_and_grads(torch, ref_lit, weights, torch.device("cpu"), inputs)
+        bf16 = _flow_loss_and_grads(torch, bf16_lit, weights, dev, inputs)
+        reset_counts(ops)
+        f32 = _flow_loss_and_grads(torch, ref_lit, weights, dev, inputs)
+        torch.cuda.synchronize()
+        f32_launches = {"bf16": counts(ops), "wide": wide_counts()}
+        same_routing = all(torch.equal(a, b) for a, b in zip(f32["f_e"], ref["f_e"]))
+        rec.update({"bf16": readings(bf16, ref), "f32": readings(f32, ref),
+                    "f32_launches": f32_launches, "f32_routing_equal": same_routing,
+                    "f_e_cpu": [v.tolist() for v in ref["f_e"]]})
+        print(f"LitFlow({key}) loss + gradient at batch {BATCH}, card vs f32 CPU: f32 "
+              f"{rec['f32']} (<= {F32_REL_L2}), launches {f32_launches}; bf16 control "
+              f"{rec['bf16']}; f32 round-1 routed fractions equal the CPU's: {same_routing}",
+              flush=True)
+        if f32_launches["bf16"] != none or f32_launches["wide"] != wide_expected(
+                "f32", PER_FORWARD_DIT):
+            fail(f"the f32 {key} step launched {f32_launches}")
+        if not all(v <= F32_REL_L2 for v in rec["f32"].values()):
+            fail(f"the f32 LitFlow({key}) harness disagrees with the f32 CPU reference")
+        if not rec["bf16"]["grad_rel_l2"] > F32_REL_L2:
+            fail(f"the {key} comparison does not tell bf16 compute from f32")
+        out[key] = rec
+        del lits, ref, bf16, f32, ref_lit, bf16_lit
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_dispatch_ms(torch, lit, dev, batch: int = TRAIN_BATCH) -> dict:
+    """The dense one-hot dispatch of one MoE block at ``batch`` in its compute
+    dtype, timed alone: the combine tensor's construction from the two
+    rounds' choices and gates (``MoEMlp.combine_weights``), and the dispatch
+    and combine einsums forward and backward (JAX's form, no Pallas kernel),
+    at the shapes of the config's MoE blocks (s = batch · tokens an image)."""
+    moe = next(m for m in lit.model.modules() if type(m).__name__ == "MoEMlp")
+    d, e, dtype = moe.w_in.shape[1], moe.num_experts, moe.dtype
+    s = batch * (32 // lit.model.patch_size) ** 2
+    c = moe.capacity(s)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    logits = torch.randn((s, e), generator=g, device=dev)
+    probs, masks, gates, _ = moe.route(logits, True)
+    xs = torch.randn((s, d), generator=g, device=dev).to(dtype).requires_grad_(True)
+    out = torch.randn((e, c, d), generator=g, device=dev).to(dtype).requires_grad_(True)
+    gates = [x.detach().requires_grad_(True) for x in gates]
+
+    def build():
+        return moe.combine_weights(masks, gates, c)
+
+    def fwd_bwd():
+        combine = build()
+        dispatch = (combine > 0.0).to(dtype)
+        ein = torch.einsum("sec,sd->ecd", dispatch, xs)
+        y = torch.einsum("sec,ecd->sd", combine.to(dtype), out + ein)
+        torch.autograd.grad(y.float().sum(), [xs, out, *gates])
+
+    with torch.no_grad():
+        build_ms = device_ms(torch, build, reps=10)
+    rec = {"tokens": s, "capacity": c, "combine_build_ms": build_ms,
+           "einsums_fwd_bwd_ms": device_ms(torch, fwd_bwd, reps=10) - build_ms,
+           "flop_einsums_fwd": 2 * 2 * s * e * c * d}
+    return rec
+
+
+def dit_cli(torch, np, ops, dev, card: str) -> dict:
+    """Phase 37: ``trainer.main fit`` of configs/flow/cifar10_dit.yaml (DiT-S/4,
+    bf16, batch 128, synthetic CIFAR-10) for 5 steps with a checkpoint, a
+    resume to 10 against an uninterrupted 10-step run, bit for bit
+    (deterministic cuDNN), and of cifar10_dit_moe.yaml for 10 steps (K3 12
+    launches a step, nothing else); the router losses that entered one MoE
+    training loss and round 1's routed fractions f_e; each saved state's
+    train step timed (25 steps: median, device busy, operations, idle
+    share, peak memory) under the library's default cuDNN settings; and the
+    MoE blocks' dense dispatch timed alone (:func:`moe_dispatch_ms`)."""
+    import shutil
+
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.data import CIFAR10
+    from dmme_tpu_torch.parallel import make_train_step
+    from dmme_tpu_torch.training import CheckpointManager
+
+    torch.backends.cudnn.deterministic = True
+    roots = {k: os.path.join("build", k) for k in ("cli_dit", "cli_dit_whole", "cli_moe")}
+    for root in roots.values():
+        shutil.rmtree(root, ignore_errors=True)
+    common = ["--data.init_args.synthetic", "true", "--data.init_args.synthetic_size", "1024",
+              "--trainer.ckpt_every_n_steps", str(DIT_FIT_HALF), "--trainer.log_every_n_steps",
+              "1", "--trainer.callbacks", "[]"]
+
+    def run(path, name, root, max_steps, n_steps, *extra):
+        return cli_run(torch, ops, card, name,
+                       ["fit", "--config", path, *common, "--trainer.max_steps", str(max_steps),
+                        "--trainer.default_root_dir", root, *extra],
+                       launches_for(PER_FORWARD_DIT, n_steps))
+
+    out = {"fit": run(DIT_CONFIG, f"dit fit {DIT_FIT_HALF}", roots["cli_dit"], DIT_FIT_HALF,
+                      DIT_FIT_HALF)}
+    out["resume"] = run(DIT_CONFIG, f"dit resume {DIT_FIT_HALF} -> {DIT_FIT_STEPS}",
+                        roots["cli_dit"], DIT_FIT_STEPS, DIT_FIT_STEPS - DIT_FIT_HALF,
+                        "--trainer.resume", "true")
+    out["whole"] = run(DIT_CONFIG, f"dit uninterrupted {DIT_FIT_STEPS}", roots["cli_dit_whole"],
+                       DIT_FIT_STEPS, DIT_FIT_STEPS)
+    out["moe_fit"] = run(MOE_CONFIG, f"moe fit {DIT_FIT_STEPS}", roots["cli_moe"], DIT_FIT_STEPS,
+                         DIT_FIT_STEPS)
+    for key, root in (("whole", roots["cli_dit_whole"]), ("moe_fit", roots["cli_moe"])):
+        logged = _jsonl(os.path.join(root, "metrics.jsonl"))
+        out[key]["losses"] = [r["loss"] for r in logged]
+        out[key]["checkpoints"] = CheckpointManager(root).steps()
+        print(f"{key}: checkpoints {out[key]['checkpoints']}, losses "
+              f"{[round(v, 4) for v in out[key]['losses']]}", flush=True)
+        if (out[key]["checkpoints"] != [DIT_FIT_HALF, DIT_FIT_STEPS]
+                or len(logged) != DIT_FIT_STEPS or not np.isfinite(out[key]["losses"]).all()):
+            fail(f"the DiT CLI {key} left {out[key]}")
+    a = CheckpointManager(roots["cli_dit"]).load(DIT_FIT_STEPS)
+    b = CheckpointManager(roots["cli_dit_whole"]).load(DIT_FIT_STEPS)
+    differ = state_differences(torch, a, b)
+    out["resume_bitwise"] = {"differing_tensors": len(differ), "first": differ[:8]}
+    print(f"dit resumed vs uninterrupted at step {DIT_FIT_STEPS}: {len(differ)} of "
+          f"{4 * len(a['params'])} tensors differ {differ[:8]}", flush=True)
+    if differ or a["step"] != b["step"]:
+        fail(f"the resumed DiT run is not bitwise the uninterrupted one: {differ[:8]}")
+    del a, b
+
+    torch.backends.cudnn.deterministic = False
+    for key, path, root in (("dit", DIT_CONFIG, roots["cli_dit"]),
+                            ("moe", MOE_CONFIG, roots["cli_moe"])):
+        lit = tcfg.instantiate(tcfg.validate_config(tcfg.load_config(path))["model"])
+        state = CheckpointManager(root).restore(lit.init_state(0, device=dev))
+        dm = CIFAR10(synthetic=True, synthetic_size=4 * TRAIN_BATCH, batch_size=TRAIN_BATCH)
+        dm.setup("fit")
+        it = dm.train_iter(SEED + 13)
+
+        def batch(it=it):
+            return torch.from_numpy(next(it)).pin_memory().to(dev, non_blocking=True)
+
+        loss_fn = lit.make_loss_fn(dm)
+        n_moe = sum(type(m).__name__ == "MoEMlp" for m in lit.model.modules())
+        if key == "moe":
+            # the router losses that entered one training loss, and f_e
+            seen = {}
+            add, model_fn = lit.add_moe_aux, lit.model_fn
+
+            def spy_add(loss, box):
+                seen["loss"], seen["box"] = loss.detach(), [(float(a), float(z)) for a, z in box]
+                return add(loss, box)
+
+            def spy_fn(p, x, t, **kw):
+                y = model_fn(p, x, t, **kw)
+                seen["stats"] = kw.get("moe_losses")
+                return y
+
+            lit.add_moe_aux, lit.model_fn = spy_add, spy_fn
+            try:
+                with torch.no_grad():
+                    total = loss_fn(state.params, torch.Generator(device=dev).manual_seed(SEED),
+                                    batch())
+            finally:
+                del lit.add_moe_aux, lit.model_fn
+            stats = seen["stats"]
+            aux = sum(a for a, _ in seen["box"])
+            z = sum(z_ for _, z_ in seen["box"])
+            router = {"base_loss": float(seen["loss"]), "total_loss": float(total),
+                      "aux_sum": aux, "z_sum": z,
+                      "added": float(total) - float(seen["loss"]),
+                      "expected_added": lit.moe_aux_weight * aux + lit.moe_z_weight * z,
+                      "per_block": [{k: (v.tolist() if k == "f_e" else float(v))
+                                     for k, v in s.items()} for s in stats]}
+            out["router"] = router
+            print(f"MoE router losses in one training loss at step {state.step}: the "
+                  f"flow loss {router['base_loss']:.6f}, Σ(aux + align) {aux:.6f} at weight "
+                  f"{lit.moe_aux_weight}, Σz {z:.6f} at weight {lit.moe_z_weight}: total "
+                  f"{router['total_loss']:.6f} (added {router['added']:.6f}, expected "
+                  f"{router['expected_added']:.6f})", flush=True)
+            for i, s in enumerate(router["per_block"]):
+                print(f"  MoE block {i + 1} of {n_moe}: aux {s['moe_aux']:.4f} align "
+                      f"{s['moe_align']:.4f} z {s['moe_z']:.4f} f_e "
+                      f"{[round(v, 4) for v in s['f_e']]}", flush=True)
+            if (len(stats) != n_moe or abs(router["added"] - router["expected_added"])
+                    > 1e-5 * max(1.0, abs(router["total_loss"]))
+                    or not all(abs(sum(s["f_e"]) - 1.0) < 1e-5 for s in router["per_block"])):
+                fail(f"the MoE router losses did not enter the loss as JAX adds them: {router}")
+        step = make_train_step(loss_fn)
+        state, _ = step(state, batch(), SEED)  # first launches of this step object
+        print(f"-- {key}: the saved state's train step at batch {TRAIN_BATCH}", flush=True)
+        _, out[f"{key}_timing"], out[f"{key}_profile_3_steps"], out[f"{key}_profile_1_step"] = (
+            timed_steps(torch, np, step, state, batch, card))
+        if key == "moe":
+            rec = moe_dispatch_ms(torch, lit, dev)
+            per_step = n_moe * (rec["combine_build_ms"] + rec["einsums_fwd_bwd_ms"])
+            rec["per_step_ms"] = per_step
+            rec["share_of_busy"] = per_step / (out["moe_profile_3_steps"]["busy_ms"] / 3)
+            rec["share_of_median"] = per_step / out["moe_timing"]["step_ms_median"]
+            out["dispatch"] = rec
+            print(f"MoE dense dispatch at batch {TRAIN_BATCH} ({rec['tokens']} tokens, capacity "
+                  f"{rec['capacity']}): combine built in {rec['combine_build_ms']:.4f} ms, "
+                  f"dispatch and combine einsums forward + backward "
+                  f"{rec['einsums_fwd_bwd_ms']:.4f} ms a block; {n_moe} blocks {per_step:.3f} ms a "
+                  f"step, {rec['share_of_busy']:.3f} of its device busy, "
+                  f"{rec['share_of_median']:.3f} of its median [{card}]", flush=True)
+        del state, lit, step, loss_fn
+        torch.cuda.empty_cache()
+    for root in roots.values():
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def dit_serve(torch, np, blocks, dev, ops, card: str) -> dict:
+    """Phase 38: the DiT and MoE-DiT flow harnesses served. ``LitFlow`` of
+    each config (bf16, random weights) behind ``make_server``: ``default``
+    (25 midpoint steps, 50 evaluations) at n = 8 and ``flow`` at 10 steps,
+    each repeated for identical bytes, launches 12 K3 a forward and nothing
+    else; the discrete-schedule samplers answered 400; one n = 8 ``default``
+    request under the profiler."""
+    from dmme_tpu_torch.serving import Sampler
+    from dmme_tpu_torch.training import TrainState
+
+    out = {}
+    for key, path in (("dit", DIT_CONFIG), ("moe", MOE_CONFIG)):
+        lit, weights = dit_harness(torch, blocks, path)
+        state = TrainState.create(weights, lit.make_optimizer())
+        sampler = Sampler(lit, state, img_size=32, device=dev)
+        url, stop = _serve(torch, sampler)
+        rec = {}
+        try:
+            rec["requests"] = solver_requests(np, url, ops, key, card, [
+                ("default", None, launches_for(PER_FORWARD_DIT, FLOW_NFE)),
+                ("flow", 10, launches_for(PER_FORWARD_DIT, 2 * 10))])
+            rec["launches"] = rec["requests"][0]["launches"]
+            rec["rejected"] = {"cached": rejected(url, key, "cached", "discrete-schedule")}
+        finally:
+            stop()
+        prof = profile_fn(torch, lambda: sampler.sample(BATCH, seed=5))
+        rec["profile_n8"] = prof
+        print(f"{key} default n=8 under torch.profiler: wall {prof['wall_ms']:.2f} ms, device "
+              f"busy {prof['busy_ms']:.2f} ms in {prof['device_ops']} operations, idle share "
+              f"{prof['idle_share']:.3f} [{card}]", flush=True)
+        for name, ms, count in prof["top"]:
+            print(f"    {ms:9.3f} ms {count:6d}x  {name}", flush=True)
+        out[key] = rec
+        del sampler, state, lit, weights
+        torch.cuda.empty_cache()
+    return out
+
+
+def distill_kernels(torch, np, blocks, k_gn, k_attn, k_res, build, dev, ops, card: str) -> dict:
+    """Phase 39a: every kernel call of one progressive-distillation step at
+    batch 128 of the DDPM UNet of configs/ddpm/cifar10.yaml (bf16, random
+    weights): the ε teacher's two forwards under ``no_grad`` (K4 at N = 128,
+    22 sites each, K3 6 and K1 at ``out_norm``) and the v student's
+    training forward and backward (K1 45, K2 45, K3 6 and the attention
+    backward), launches 47/45/18/44; each call held against its plain
+    version (``TOL``, ``TOL_BWD``) and timed; then the step timed (25 steps:
+    median, device busy, operations, idle share, peak memory)."""
+    from dmme_tpu_torch.data import CIFAR10
+    from dmme_tpu_torch.diffusion import ProgressiveDistillation
+    from dmme_tpu_torch.models import init_weights
+    from dmme_tpu_torch.parallel import make_train_step
+    from dmme_tpu_torch.training import LitDDPM, LitDistill
+
+    teacher = LitDDPM(dtype="bf16")
+    init_weights(teacher.model, torch.Generator().manual_seed(SEED))
+    randomize_affines(torch, blocks, teacher.model, torch.Generator().manual_seed(SEED + 1))
+    tparams = {k: v.detach().clone().to(dev) for k, v in teacher.model.state_dict().items()}
+    lit = LitDistill(teacher_model=teacher.model.to(dev), teacher_params=tparams,
+                     distiller=ProgressiveDistillation.create(
+                         1000, DISTILL_START, teacher_parameterization="eps"),
+                     decay=0.999)
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in tparams.items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = torch.randint(0, 256, (TRAIN_BATCH, 32, 32, 3), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    dm = CIFAR10(batch_size=TRAIN_BATCH)
+    loss_fn = lit.make_loss_fn(dm)
+
+    def step():
+        loss = loss_fn(params, gen, batch)
+        torch.autograd.grad(loss, list(params.values()))
+
+    targets = train_targets(blocks, k_gn, k_attn) + [
+        (blocks, "resblock_forward", "resblock", _sig_res)]
+    reset_counts(ops)
+    calls = record_calls(targets, step)
+    torch.cuda.synchronize()
+    launches = counts(ops)
+    expect_bf16_only("distillation step")
+    sites = {k: sum(c for _, c, _, _ in v) for k, v in calls.items()}
+    want_sites = dict(PER_DISTILL_STEP, attention_bwd=6)
+    print(f"distillation step at batch {TRAIN_BATCH}: call sites {sites}, launches {launches} "
+          f"(expected {PER_DISTILL_STEP})", flush=True)
+    if sites != want_sites or launches != PER_DISTILL_STEP:
+        fail(f"the distillation step has call sites {sites} and launches {launches}")
+    k4 = {"resblock": {key: {"a": a, "k": k, "sites": {"distill": count}}
+                       for key, count, a, k in calls.pop("resblock")}}
+    rows, per_step = step_rows(torch, k_gn, k_attn, calls, card,
+                               f"per distillation step (batch {TRAIN_BATCH})")
+    k4_rows, failures = forward_rows(torch, k_gn, k_attn, k_res, build, dev, k4)
+    if failures:
+        fail(f"the teacher's K4 calls disagree with their plain versions: {failures}")
+    per_step["resblock"] = _per_forward(k4_rows, "distill", card,
+                                        f"distillation step (the teacher's 2 forwards at "
+                                        f"N = {TRAIN_BATCH})", ("resblock",))["resblock"]
+    out = {"rows": rows + k4_rows, "per_step": per_step, "launches": launches}
+    del params, calls, k4
+    torch.cuda.empty_cache()
+
+    state = lit.init_state(0, device=dev)
+    sdm = CIFAR10(synthetic=True, synthetic_size=4 * TRAIN_BATCH, batch_size=TRAIN_BATCH)
+    sdm.setup("fit")
+    it = sdm.train_iter(SEED + 17)
+
+    def batch_fn():
+        return torch.from_numpy(next(it)).pin_memory().to(dev, non_blocking=True)
+
+    tstep = make_train_step(lit.make_loss_fn(sdm))
+    state, _ = tstep(state, batch_fn(), SEED)
+    print(f"-- the distillation train step at batch {TRAIN_BATCH}", flush=True)
+    _, out["timing"], out["profile_3_steps"], out["profile_1_step"] = timed_steps(
+        torch, np, tstep, state, batch_fn, card)
+    del state, lit, teacher, tparams, tstep
+    k_res._PACKED.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def distill_driver(torch, np, ops, dev, card: str) -> dict:
+    """Phase 39b: ``python -m dmme_tpu_torch.distill`` in this process on a
+    temporary copy of configs/ddpm/cifar10.yaml (synthetic CIFAR-10, its
+    ``default_root_dir`` under build/): ``trainer.main fit`` writes the ε
+    teacher's checkpoint (2 steps), then the driver restores it and runs
+    ``DISTILL_ROUNDS`` rounds of ``DISTILL_STEPS`` steps (500 then 250
+    student steps; the first student a v model from scratch, the second
+    from the first's EMA), launches ``PER_DISTILL_STEP`` a step, a
+    checkpoint a round; then the last student's DDIM-250 request at n = 8
+    (launches 1/6/22 a forward, finite, repeatable)."""
+    import contextlib
+    import shutil
+
+    import yaml
+
+    from dmme_tpu_torch import distill
+    from dmme_tpu_torch.diffusion import ProgressiveDistillation
+    from dmme_tpu_torch.training import CheckpointManager, LitDDPM, LitDistill
+
+    torch.backends.cudnn.deterministic = True
+    root = os.path.join("build", "distill")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    with open("configs/ddpm/cifar10.yaml") as f:
+        config = yaml.safe_load(f)
+    config["trainer"].update(default_root_dir=os.path.join(root, "teacher"),
+                             log_every_n_steps=1, callbacks=[])
+    config["data"]["init_args"].update(synthetic=True, synthetic_size=1024)
+    path = os.path.join(root, "cifar10.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    out = {"teacher_fit": cli_run(torch, ops, card, "teacher fit 2",
+                                  ["fit", "--config", path, "--trainer.max_steps", "2"],
+                                  {k: 2 * v for k, v in PER_TRAIN_STEP.items()})}
+
+    reset_counts(ops)
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.time()
+    with contextlib.redirect_stdout(log):
+        rounds = distill.main(["--config", path, "--start-steps", str(DISTILL_START),
+                               "--rounds", str(DISTILL_ROUNDS), "--steps-per-round",
+                               str(DISTILL_STEPS), "--out", os.path.join(root, "out")])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = counts(ops)
+    expect_bf16_only("distillation driver")
+    print(log.getvalue().rstrip(), flush=True)
+    want = {k: v * DISTILL_STEPS * DISTILL_ROUNDS for k, v in PER_DISTILL_STEP.items()}
+    mem1 = torch.cuda.memory_allocated()
+    out["driver"] = {"wall_s": wall, "launches": launches, "rounds": rounds,
+                     "checkpoints": [CheckpointManager(d).steps() for _, d in rounds],
+                     "memory_allocated_before_gib": mem0 / 2**30,
+                     "memory_allocated_after_gib": mem1 / 2**30}
+    print(f"distillation driver: {DISTILL_ROUNDS} rounds {rounds} of {DISTILL_STEPS} steps in "
+          f"{wall:.2f} s wall, launches {launches} (expected {want}), checkpoints "
+          f"{out['driver']['checkpoints']}; allocated {mem0 / 2**30:.3f} GiB before, "
+          f"{mem1 / 2**30:.3f} GiB after [{card}]", flush=True)
+    restored = "# teacher restored from" in log.getvalue()
+    # nothing of the rounds stays allocated once the driver returns: not the
+    # teachers' weights through K4's packed-weight cache (fault C.10)
+    if (launches != want or not restored or mem1 - mem0 > DRIVER_LEFT_BYTES
+            or [s for s, _ in rounds] != [DISTILL_START // 2 ** k for k in range(DISTILL_ROUNDS)]
+            or out["driver"]["checkpoints"] != [[DISTILL_STEPS]] * DISTILL_ROUNDS):
+        fail(f"the distillation driver: {out['driver']}, teacher restored {restored}")
+
+    steps, last = rounds[-1]
+    student = LitDDPM(dtype="bf16").model
+    lit = LitDistill(teacher_model=student, teacher_params={},
+                     distiller=ProgressiveDistillation.create(1000, steps))
+    state = CheckpointManager(last).restore(lit.init_state(0, device=dev))
+
+    def request(seed):
+        x = lit.generate(state, torch.Generator(device=dev).manual_seed(seed),
+                         (BATCH, 32, 32, 3))
+        torch.cuda.synchronize()
+        return x
+
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    a = request(3)
+    secs = time.perf_counter() - t0
+    student_launches = counts(ops)
+    b = request(3)
+    want = launches_for(PER_FORWARD, steps)
+    out["student_request"] = {"steps": steps, "s": secs, "launches": student_launches,
+                              "finite": bool(a.isfinite().all()),
+                              "identical": bool(torch.equal(a, b)), "std": float(a.std())}
+    print(f"student DDIM-{steps} at n = {BATCH}: {secs:.3f} s, launches {student_launches} "
+          f"(expected {want}), finite {out['student_request']['finite']}, repeat "
+          f"{'identical' if out['student_request']['identical'] else 'DIFFERENT'} [{card}]",
+          flush=True)
+    if (student_launches != want or not out["student_request"]["finite"]
+            or not out["student_request"]["identical"]):
+        fail(f"the student request: {out['student_request']}")
+    del lit, state, student
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def inpaint_phase(torch, np, blocks, dev, ops, card: str) -> dict:
+    """Phase 40: RePaint inpainting with ``LitDDPM(dtype="bf16")``'s DDPM
+    (T = 1000) and UNet (random weights) at n = 8: the left half of numpy
+    images known, ``INPAINT_RESAMPLE`` repeats a step (2000 forwards,
+    launches 1/6/22 each); the known pixels must come back bit for bit, the
+    generated half differ from the known images, everything finite."""
+    from dmme_tpu_torch.diffusion import inpaint
+    from dmme_tpu_torch.models import init_weights
+    from dmme_tpu_torch.training import LitDDPM
+
+    torch.backends.cudnn.deterministic = True
+    lit = LitDDPM(dtype="bf16")
+    init_weights(lit.model, torch.Generator().manual_seed(SEED))
+    randomize_affines(torch, blocks, lit.model, torch.Generator().manual_seed(SEED + 1))
+    lit.model.to(dev).eval()
+    params = {k: v.detach() for k, v in lit.model.state_dict().items()}
+    r = np.random.default_rng(SEED + 220)
+    known = torch.tensor(np.clip(r.standard_normal((BATCH, 32, 32, 3)) / 2, -1, 1)
+                         .astype(np.float32)).to(dev)
+    mask = torch.zeros((1, 32, 32, 1), device=dev)
+    mask[:, :, :16] = 1.0
+    reset_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = inpaint(lit.diffusion_model, lit.model_fn, params,
+                torch.Generator(device=dev).manual_seed(SEED), known, mask,
+                resample_steps=INPAINT_RESAMPLE)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = counts(ops)
+    expect_bf16_only("inpainting")
+    forwards = lit.diffusion_model.timesteps * INPAINT_RESAMPLE
+    want = launches_for(PER_FORWARD, forwards)
+    exact = bool(torch.equal(x[:, :, :16], known[:, :, :16]))
+    generated = float((x[:, :, 16:] - known[:, :, 16:]).abs().max())
+    out = {"s": secs, "forwards": forwards, "launches": launches, "known_exact": exact,
+           "generated_max_abs_diff": generated, "finite": bool(x.isfinite().all()),
+           "std": float(x.std())}
+    print(f"inpaint T = {lit.diffusion_model.timesteps}, resample_steps {INPAINT_RESAMPLE}, "
+          f"n = {BATCH}: {secs:.3f} s ({forwards} forwards), launches {launches} (expected "
+          f"{want}); known half bit for bit: {exact}; generated half max |x − known| "
+          f"{generated:.4f}, finite {out['finite']} [{card}]", flush=True)
+    if launches != want or not (exact and out["finite"] and generated > 0.05):
+        fail(f"inpainting: {out}")
+    del lit, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def record_forwards(torch, blocks, runs, dev, targets=None) -> tuple:
     """Record the K1/K3/K4 inputs of eval forwards (``targets``: the entry
     points, by default :func:`serve_targets`). ``runs``: {name: (model, x,
@@ -3913,6 +4596,35 @@ def write_report(path: str, report: dict) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         json.dump(report, f, indent=1)
+
+
+def slice_rows(report: dict, shapes) -> list:
+    """The kernels line's rows of the DiT, distillation and inpainting paths.
+    DiT and MoE-DiT: K3 per forward at n = 8 (launches in the default flow
+    request) and per step at batch 128 (launches in the 10-step CLI fits);
+    distillation: K1/K2/K3/K4 per step at batch 128, the teacher's two
+    forwards and the student's step (launches in the driver's rounds);
+    inpainting: K1/K3/K4 per n = 8 forward at the DDPM serving shapes of
+    phase 3 (launches in the inpainting run)."""
+    rows = []
+    dk, dc, ds = report["dit_kernels"], report["dit_cli"], report["dit_serve"]
+    for key in ("dit", "moe"):
+        rows.append(_table_row(f"attention_{key}", "attention",
+                               dk["per_forward"][key]["attention"],
+                               ds[key]["launches"]["attention"]))
+        fit = dc["whole" if key == "dit" else "moe_fit"]
+        rows.append(_table_row(f"attention_{key}_train", "attention",
+                               dk[f"{key}_train"]["per_step"]["attention"],
+                               fit["launches"]["attention"]))
+    distill_launches = report["distill"]["driver"]["launches"]
+    for kname, v in report["distill_kernels"]["per_step"].items():
+        if kname != "attention_bwd":
+            rows.append(_table_row(f"{kname}_distill", kname, v, distill_launches[kname]))
+    serve_flat = [dict(r, sites=r["sites"]["both"]) for r in shapes if "both" in r["sites"]]
+    for kname in ("group_norm_silu", "attention", "resblock"):
+        rows.append(_table_row(f"{kname}_inpaint", kname, per_site_sum(serve_flat, kname),
+                               report["inpaint"]["launches"][kname]))
+    return rows
 
 
 def per_forward_summary(shapes, card: str) -> dict:
@@ -4282,6 +4994,29 @@ def main() -> int:
     report["adm_guidance"] = adm_guidance(torch, np, blocks, dev, ops, card)
     phase("ADM serve: LitIDDPM(ADM-32, sample_steps=50, dtype='bf16') over HTTP")
     report["adm_serve"] = adm_serve(torch, np, blocks, dev, ops, card)
+    torch.cuda.empty_cache()
+
+    phase(f"DiT kernels: K3 at the 12 call sites of {DIT_CONFIG} and {MOE_CONFIG} (a serving "
+          f"forward at n = {BATCH}, a training step at batch {TRAIN_BATCH})")
+    report["dit_kernels"] = dit_kernels(torch, np, blocks, k_gn, k_attn, k_res, build, dev, ops,
+                                        card)
+    phase("DiT against the CPU: the bf16 forward, the f32 DiT and MoE-DiT harnesses")
+    report["dit_vs_cpu"] = dit_vs_cpu(torch, np, blocks, dev, ops, card)
+    phase(f"DiT fit: trainer.main fit --config {DIT_CONFIG} (a resume) and {MOE_CONFIG}")
+    report["dit_cli"] = dit_cli(torch, np, ops, dev, card)
+    phase("DiT serve: the DiT and MoE-DiT flow harnesses over HTTP (25 midpoint steps)")
+    report["dit_serve"] = dit_serve(torch, np, blocks, dev, ops, card)
+    torch.backends.cudnn.deterministic = False
+    phase(f"distillation kernels: one step at batch {TRAIN_BATCH} (the teacher's K4 at "
+          f"N = {TRAIN_BATCH}, the student's K1/K2/K3)")
+    report["distill_kernels"] = distill_kernels(torch, np, blocks, k_gn, k_attn, k_res, build,
+                                                dev, ops, card)
+    phase(f"distillation driver: python -m dmme_tpu_torch.distill on configs/ddpm/cifar10.yaml, "
+          f"{DISTILL_ROUNDS} rounds from a teacher checkpoint, then a student request")
+    report["distill"] = distill_driver(torch, np, ops, dev, card)
+    phase(f"inpainting: RePaint with LitDDPM's DDPM (T = 1000), resample_steps "
+          f"{INPAINT_RESAMPLE}, n = {BATCH}")
+    report["inpaint"] = inpaint_phase(torch, np, blocks, dev, ops, card)
 
     phase("kernels")
     sources = {
@@ -4395,6 +5130,7 @@ def main() -> int:
             ("attention_guided", ak["guided_step"]["per_step"]["attention"],
              report["adm_guidance"]["launches"]["attention"])):
         table.append(_table_row(name, "attention", v, n_launch))
+    table += slice_rows(report, shapes)
     report["kernels"] = table
     print("kernels launched on their paths and held against their plain versions: "
           + "; ".join(f"{k['name']} ({k['route']}, {k['source']}, replaces {k['replaces']}, "
@@ -4426,7 +5162,14 @@ def main() -> int:
           f"{TRAIN_BATCH} and {CLASSIFIER_BATCH}, launches in the 10-step CLI fits of "
           f"{ADM_GUIDED} and {ADM_CLASSIFIER}; attention_guided: per ClassifierGuidedDDIM step at "
           f"n = {BATCH} (generator and classifier), launches in the guided "
-          f"DDIM-{GUIDED_STEPS} request)", flush=True)
+          f"DDIM-{GUIDED_STEPS} request. attention_dit, attention_moe: per DiT-S/4 and MoE-DiT "
+          f"forward at n = {BATCH} (12 sites), launches in their default flow requests; "
+          f"*_train: per step at batch {TRAIN_BATCH}, launches in the {DIT_FIT_STEPS}-step CLI "
+          f"fits. *_distill: per progressive-distillation step at batch {TRAIN_BATCH} (the "
+          f"teacher's two forwards: K4 at N = {TRAIN_BATCH}, K1 at out_norm, K3; the student's "
+          f"K1, K2, K3), launches in the driver's {DISTILL_ROUNDS} rounds of {DISTILL_STEPS} "
+          f"steps. *_inpaint: per n = {BATCH} DDPM forward, launches in the RePaint run)",
+          flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

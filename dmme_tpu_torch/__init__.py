@@ -8,13 +8,15 @@ tests. Activations keep the JAX package's NHWC layout at every public function.
 * ``dmme_tpu_torch.ops``       — hand-written Hopper kernels (CUDA C++) with a
   plain PyTorch version of each, taken for CPU tensors and, counted, for
   CUDA tensors outside the kernels' dtype (bf16)
-* ``dmme_tpu_torch.models``    — the DDPM and IDDPM UNets and the ADM family
-  (generator, noisy classifier) as ``nn.Module``s
+* ``dmme_tpu_torch.models``    — the DDPM and IDDPM UNets, the ADM family
+  (generator, noisy classifier) and the DiT with its mixture-of-experts FFN
+  as ``nn.Module``s
 * ``dmme_tpu_torch.diffusion`` — DDPM / DDIM / IDDPM / EDM / flow training
-  losses, the samplers, and classifier-free and classifier guidance
+  losses, the samplers, classifier-free and classifier guidance, RePaint
+  inpainting and progressive distillation
 * ``dmme_tpu_torch.data``      — CIFAR-10 (on-disk or synthetic) and the
   procedural ``Shapes``, flips on the device
-* ``dmme_tpu_torch.training``  — the harnesses (``LitDDPM`` … ``LitClassifier``),
+* ``dmme_tpu_torch.training``  — the harnesses (``LitDDPM`` … ``LitDistill``, ``LitClassifier``),
   ``TrainState``, the optimizer chain, EMA, ``fit`` with checkpoints
   (``checkpoint``), resume, restarts and loggers (``loggers``), and
   ``evaluate.validate``
@@ -24,6 +26,8 @@ tests. Activations keep the JAX package's NHWC layout at every public function.
 * ``dmme_tpu_torch.config``    — the YAML ``class_path`` trees of ``configs/``
 * ``dmme_tpu_torch.trainer``   — the command line:
   ``python -m dmme_tpu_torch.trainer {fit,validate,sample,predict,serve} --config x.yaml``
+* ``dmme_tpu_torch.distill``   — progressive distillation round by round:
+  ``python -m dmme_tpu_torch.distill --config x.yaml --rounds N``
 
 Entry points run on the CUDA device unless the caller passes ``device="cpu"``.
 The package root re-exports what the port has of ``dmme_tpu/__init__.py``'s

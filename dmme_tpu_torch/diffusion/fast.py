@@ -17,6 +17,7 @@ no later forward writes into (every kernel wrapper allocates its outputs).
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Any, Optional, Tuple
 
 import torch
@@ -30,12 +31,20 @@ class FeatureCache:
     calls it once a step. Call k (from 0) is a key step when k is a multiple
     of ``refresh_interval``: the module runs with ``base`` and ``capture``
     keyword arguments and its second output is kept; the other calls pass
-    ``base`` and the kept tensor as ``reuse``."""
+    ``base`` and the kept tensor as ``reuse``. A module without those
+    keyword arguments (a DiT has no feature capture) is refused here, before
+    any forward."""
 
     def __init__(self, module: torch.nn.Module, refresh_interval: int, base: dict,
                  capture: dict, reuse: str):
         if refresh_interval < 1:
             raise ValueError(f"refresh_interval must be >= 1, got {refresh_interval}")
+        taken = inspect.signature(module.forward).parameters
+        needed = [k for k in (*base, *capture, reuse) if k not in taken]
+        if needed:
+            raise ValueError(f"the caching samplers drive the UNet's feature capture "
+                             f"({', '.join(needed)}), which {type(module).__name__} does not "
+                             "have; use ddim or dpm")
         self.module, self.refresh_interval = module, refresh_interval
         self.base, self.capture, self.reuse = base, capture, reuse
         self.calls, self.cache = 0, None

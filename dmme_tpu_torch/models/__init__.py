@@ -1,10 +1,12 @@
 """Denoisers as ``nn.Module``s (mirrors ``dmme_tpu.models``): the DDPM and
-IDDPM UNets, and the ADM family with its noisy classifier (``adm``)."""
+IDDPM UNets, the ADM family with its noisy classifier (``adm``), and the
+Diffusion Transformer (``dit``) with its mixture-of-experts FFN (``moe``)."""
 
 import torch
 
-from dmme_tpu_torch.models import adm, ddpm, iddpm
+from dmme_tpu_torch.models import adm, blocks, ddpm, dit, iddpm, moe
 from dmme_tpu_torch.models.blocks import init_weights
+from dmme_tpu_torch.models.dit import DiT
 from dmme_tpu_torch.models.unet import UNet, build_topology
 
 
@@ -20,4 +22,5 @@ def eps_only(model_fn):
     return fn
 
 
-__all__ = ["adm", "ddpm", "iddpm", "UNet", "build_topology", "init_weights", "eps_only"]
+__all__ = ["adm", "ddpm", "iddpm", "dit", "moe", "blocks", "UNet", "DiT", "build_topology",
+           "init_weights", "eps_only"]

@@ -55,6 +55,11 @@ class Dense(nn.Module):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
 
 
+class ZeroDense(Dense):
+    """A :class:`Dense` whose kernel starts at zero (flax's ``kernel_init=
+    zeros``, DiT's adaLN-Zero layers): :func:`init_weights` leaves it at zero."""
+
+
 class Conv(nn.Module):
     """NHWC convolution with symmetric padding, OIHW weight, compute dtype."""
 
@@ -306,10 +311,12 @@ class ResBlock(nn.Module):
         )
 
 
-def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+def _lecun_normal_(w: torch.Tensor, generator: torch.Generator,
+                   fan_in: Optional[int] = None) -> None:
     """flax's default kernel init: truncated normal on [−2σ, 2σ] with
-    variance 1/fan_in, by the inverse CDF as ``jax.random.truncated_normal``."""
-    fan_in = w[0].numel()
+    variance 1/fan_in, by the inverse CDF as ``jax.random.truncated_normal``.
+    ``fan_in`` defaults to the elements of one output row (PyTorch's layouts)."""
+    fan_in = w[0].numel() if fan_in is None else fan_in
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
     u = torch.rand(w.shape, generator=generator, dtype=torch.float64) * (hi - lo) + lo
@@ -320,12 +327,16 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """flax default init, drawn from ``generator``: lecun-normal kernels
-    (zero for a :class:`ZeroConv`), zero biases, GroupNorm scale 1 and bias
-    0, and embedding tables normal with variance 1/features (``nn.Embed``'s
-    ``variance_scaling(1.0, "fan_in", "normal", out_axis=0)``)."""
+    (zero for a :class:`ZeroConv` or :class:`ZeroDense`), zero biases,
+    GroupNorm scale 1 and bias 0, and embedding tables normal with variance
+    1/features (``nn.Embed``'s ``variance_scaling(1.0, "fan_in", "normal",
+    out_axis=0)``). A module with an ``init_parameters(generator)`` method
+    (the MoE layer's expert stacks) draws its own parameters."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, ZeroConv):
+            if hasattr(m, "init_parameters"):
+                m.init_parameters(generator)
+            elif isinstance(m, (ZeroConv, ZeroDense)):
                 m.weight.zero_()
                 m.bias.zero_()
             elif isinstance(m, (Dense, Conv)):

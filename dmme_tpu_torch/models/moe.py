@@ -1,0 +1,158 @@
+"""Mixture-of-Experts FFN: token-choice top-k routing with a static capacity
+(mirrors ``dmme_tpu/models/moe.py``; Shazeer et al. 2017, GShard, Switch).
+
+Routing is the JAX package's one-hot form: a (tokens, experts, capacity)
+combine tensor built from the chosen experts and each token's position in
+its expert's queue, ``dispatch = combine > 0``, and the experts' FFNs as
+three einsums over the capacity axis. Tokens past an expert's capacity get
+a zero one-hot row (``jax.nn.one_hot`` of an index out of range) and reach
+the output only through the block's residual path.
+
+In training the router's logits take exploration noise (``router_noise``
+times the standard-normal draw the caller hands in) and the selection is
+balanced by ``sinkhorn_iters`` rounds of Sinkhorn normalisation, with a
+self-labelling cross-entropy toward it (``moe_align``). The gates come from
+the raw softmax in every mode. The router runs in f32 whatever the compute
+dtype.
+
+:meth:`MoEMlp.forward` returns the output and the call's router statistics,
+``{"moe_aux", "moe_align" (training with Sinkhorn only), "moe_z", "f_e"}``;
+the layer keeps nothing between calls. The harnesses add ``moe_aux`` and
+``moe_align`` at ``moe_aux_weight`` and ``moe_z`` at ``moe_z_weight``;
+``f_e`` (the round-1 routed fraction per expert) is a diagnostic only.
+Parameters keep flax's names and layouts: ``router`` (a Dense), ``w_in``
+(E, d, f), ``b_in`` (E, 1, f), ``w_out`` (E, f, d), ``b_out`` (E, 1, d).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dmme_tpu_torch.models.blocks import Dense, _lecun_normal_
+
+
+class MoEMlp(nn.Module):
+    """Drop-in replacement for a transformer FFN: (N, T, d) → (N, T, d).
+
+    Each expert takes at most ``ceil(tokens · top_k / E · capacity_factor)``
+    tokens a call (and no more than the tokens there are).
+    """
+
+    def __init__(self, dim: int, num_experts: int, mlp_dim: int, top_k: int = 2,
+                 capacity_factor: float = 1.25, router_noise: float = 1.0,
+                 sinkhorn_iters: int = 8, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        assert 1 <= top_k <= num_experts, (top_k, num_experts)
+        self.num_experts, self.mlp_dim, self.top_k = num_experts, mlp_dim, top_k
+        self.capacity_factor, self.router_noise = capacity_factor, router_noise
+        self.sinkhorn_iters, self.dtype = sinkhorn_iters, dtype
+        self.router = Dense(dim, num_experts, torch.float32)
+        self.w_in = nn.Parameter(torch.empty(num_experts, dim, mlp_dim))
+        self.b_in = nn.Parameter(torch.zeros(num_experts, 1, mlp_dim))
+        self.w_out = nn.Parameter(torch.empty(num_experts, mlp_dim, dim))
+        self.b_out = nn.Parameter(torch.zeros(num_experts, 1, dim))
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """flax's init of the expert stacks: ``lecun_normal`` over (E, d_in,
+        d_out), whose fan-in counts the expert axis (E · d_in), zero biases.
+        The router is a :class:`Dense`, drawn by ``init_weights``."""
+        e = self.num_experts
+        _lecun_normal_(self.w_in, generator, e * self.w_in.shape[1])
+        _lecun_normal_(self.w_out, generator, e * self.w_out.shape[1])
+        self.b_in.zero_()
+        self.b_out.zero_()
+
+    def capacity(self, tokens: int) -> int:
+        return min(max(1, math.ceil(tokens * self.top_k / self.num_experts
+                                    * self.capacity_factor)), tokens)
+
+    def route(self, logits: torch.Tensor, train: bool):
+        """(probs, masks, gates, stats) of the f32 router ``logits`` (S, E):
+        the softmax, each round's one-hot choice (S, E) and gate (S,), and
+        ``moe_align`` in ``stats`` where training balances the selection."""
+        e, k = self.num_experts, self.top_k
+        probs = torch.softmax(logits, dim=-1)
+        stats: Dict[str, torch.Tensor] = {}
+        sel = probs
+        if train and self.sinkhorn_iters > 0:
+            with torch.no_grad():
+                sel = probs.detach()
+                for _ in range(self.sinkhorn_iters):
+                    sel = sel / (torch.sum(sel, dim=0, keepdim=True) + 1e-9)
+                    sel = sel / (torch.sum(sel, dim=1, keepdim=True) + 1e-9)
+            stats["moe_align"] = -torch.mean(
+                torch.sum(sel * torch.log_softmax(logits, dim=-1), dim=-1))
+
+        # top-k token-choice assignment, one round per k; argmax takes the
+        # first maximum, as jnp.argmax does
+        remaining = sel
+        masks, gates = [], []
+        for _ in range(k):
+            mask = F.one_hot(torch.argmax(remaining, dim=-1), e).to(torch.float32)
+            gates.append(torch.sum(probs * mask, dim=-1))
+            masks.append(mask)
+            remaining = remaining * (1.0 - mask)
+        if k > 1:  # GShard: the chosen gates renormalised to sum to 1
+            denom = sum(gates) + 1e-9
+            gates = [g / denom for g in gates]
+        return probs, masks, gates, stats
+
+    def combine_weights(self, masks, gates, capacity: int) -> torch.Tensor:
+        """The (S, E, capacity) f32 combine tensor of the rounds' choices and
+        gates: each token's gate at its position in its expert's queue,
+        round-2 tokens queued behind round-1 occupants; a token past the
+        capacity gets a zero row (``jax.nn.one_hot`` of an index out of
+        range)."""
+        s, e = masks[0].shape
+        device = masks[0].device
+        slots = torch.arange(capacity, device=device, dtype=torch.float32)
+        combine = torch.zeros((s, e, capacity), device=device, dtype=torch.float32)
+        kept_counts = torch.zeros((e,), device=device, dtype=torch.float32)
+        for mask, gate in zip(masks, gates):
+            pos = torch.cumsum(mask, dim=0) - 1.0 + kept_counts[None, :]
+            pos = torch.sum(pos * mask, dim=-1)
+            kept = (pos < capacity).to(torch.float32) * torch.sum(mask, dim=-1)
+            kept_counts = kept_counts + torch.sum(mask * kept[:, None], dim=0)
+            pos_oh = (pos[:, None] == slots).to(torch.float32)
+            combine = combine + (gate * kept)[:, None, None] * (mask[:, :, None]
+                                                                * pos_oh[:, None, :])
+        return combine
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                noise: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(output, router statistics). ``train``: Sinkhorn-balanced
+        selection, and the caller's (S, E) standard-normal ``noise`` on the
+        router's logits at ``router_noise`` where it drew one (JAX adds it
+        only with a dropout stream)."""
+        n, t, d = x.shape
+        e, s = self.num_experts, n * t
+        xs = x.reshape(s, d)
+
+        logits = self.router(xs.to(torch.float32))
+        if train and self.router_noise > 0 and noise is not None:
+            logits = logits + self.router_noise * noise.to(device=logits.device,
+                                                           dtype=torch.float32)
+        probs, masks, gates, stats = self.route(logits, train)
+        combine = self.combine_weights(masks, gates, self.capacity(s))
+        dispatch = (combine > 0.0).to(self.dtype)  # a gate of exactly 0 dispatches nothing
+
+        expert_in = torch.einsum("sec,sd->ecd", dispatch, xs.to(self.dtype))
+        h = torch.einsum("ecd,edf->ecf", expert_in, self.w_in.to(self.dtype))
+        h = F.gelu(h + self.b_in.to(self.dtype), approximate="tanh")
+        out = torch.einsum("ecf,efd->ecd", h, self.w_out.to(self.dtype))
+        out = out + self.b_out.to(self.dtype)
+        y = torch.einsum("sec,ecd->sd", combine.to(self.dtype), out)
+
+        # Switch aux E·Σ f_e·P_e (round-1 routed fraction, mean prob), the
+        # raw router z-loss, and f_e itself (a diagnostic, never summed)
+        f_e = torch.mean(masks[0], dim=0)
+        stats["moe_aux"] = e * torch.sum(f_e * torch.mean(probs, dim=0))
+        stats["moe_z"] = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+        stats["f_e"] = f_e
+        return y.reshape(n, t, d), stats

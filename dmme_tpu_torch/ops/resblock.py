@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from collections import OrderedDict
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -142,7 +143,8 @@ class PackedWeights(NamedTuple):
     w2_lo: Optional[torch.Tensor] = None  # f32: w2's lo plane
 
 
-#: packed weights by the identity and in-place version of their sources
+#: packed weights by the identity and in-place version of their sources,
+#: with weak references to those sources
 _PACKED: "OrderedDict[tuple, tuple]" = OrderedDict()
 _PACKED_MAX = 64  # entries: 22 ResBlocks per UNet, so the weights of about 3 states
 
@@ -157,8 +159,11 @@ def pack_weights(w1, b1, w2, b2, wr=None, br=None,
     weights in ``dtype`` (the activations'; for f32 as two tf32 planes),
     made once per weight state.
     Entries are keyed on the dtype and the identity and in-place version of
-    the source tensors and hold those tensors, so no key is reused while its
-    entry lives; an in-place update of a source makes a new entry."""
+    the source tensors; an in-place update of a source makes a new entry.
+    An entry holds its sources only weakly and goes when any of them does,
+    so the cache keeps no weight state alive (a finished distillation
+    round's teacher is freed with its round) and no key outlives the
+    tensors whose identity it holds."""
     src = (w1, b1, w2, b2, wr, br)
     key = (dtype,) + tuple(None if t is None else (id(t), _version(t)) for t in src)
     hit = _PACKED.get(key)
@@ -181,9 +186,14 @@ def pack_weights(w1, b1, w2, b2, wr=None, br=None,
     if dtype == torch.float32:
         (w1p, w1_lo), (w2p, w2_lo) = tf32_split(w1p), tf32_split(w2p)
         wr_m = None if wr is None else w2p[:, 9 * cout:]
-    packed = PackedWeights(w1p, w2p, wr_m, b1.to(torch.float32).contiguous(), b2f.contiguous(),
-                           w1_lo, w2_lo)
-    _PACKED[key] = (src, packed)
+    # the packed biases are copies: an alias would keep its source alive
+    packed = PackedWeights(w1p, w2p, wr_m, b1.to(torch.float32, copy=True).contiguous(),
+                           b2f.clone() if b2f is b2 else b2f.contiguous(), w1_lo, w2_lo)
+
+    def drop(_ref, key=key):
+        _PACKED.pop(key, None)
+
+    _PACKED[key] = (tuple(weakref.ref(t, drop) for t in src if t is not None), packed)
     if len(_PACKED) > _PACKED_MAX:
         _PACKED.popitem(last=False)
     return packed

@@ -1,5 +1,5 @@
 """``LitDDPM`` / ``LitDDIM`` / ``LitIDDPM`` / ``LitEDM`` / ``LitFlow`` /
-``LitUpsampler``: the training and sampling harnesses of
+``LitUpsampler`` / ``LitDistill``: the training and sampling harnesses of
 ``dmme_tpu/training/lit.py``.
 
 The harness owns the denoiser module, the diffusion algorithm and the
@@ -15,11 +15,15 @@ With ``num_classes`` a harness trains a class-conditional model with label
 dropout to the null token and samples it through classifier-free guidance
 (:func:`~dmme_tpu_torch.diffusion.cfg.classifier_free`); the labels reach
 the network only through a bound model_fn, so the diffusion algorithms stay
-label-agnostic.
+label-agnostic. With ``moe_aux_weight > 0`` every harness's training loss
+adds the router losses a mixture-of-experts DiT records, through the shared
+:meth:`LitDDPM.loss_model_fn` and :meth:`LitDDPM.add_moe_aux`, as JAX's do;
+evaluation adds none.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -95,9 +99,10 @@ class LitDDPM:
         self.num_classes = num_classes
         self.cond_dropout = cond_dropout
         self.guidance_scale = guidance_scale
-        #: the weights of a mixture-of-experts router's losses. JAX adds them
-        #: to the loss only where the model records router losses; no ported
-        #: model has a router (ROADMAP A.7), so the loss is JAX's without them
+        #: > 0: add the router losses of a mixture-of-experts model (a DiT
+        #: with ``num_experts``) to the training loss, the Switch load-balance
+        #: and alignment losses at ``moe_aux_weight`` and the raw router
+        #: z-loss at ``moe_z_weight`` (:meth:`loss_model_fn`, :meth:`add_moe_aux`)
         self.moe_aux_weight = moe_aux_weight
         self.moe_z_weight = moe_z_weight
         if model is None:
@@ -163,12 +168,46 @@ class LitDDPM:
             x, y = batch if isinstance(batch, (tuple, list)) else (batch, None)
             if datamodule is not None:
                 x = datamodule.train_transform(generator, x)
-            model_fn = self.model_fn
+            box: list = []
+            model_fn = base_fn = self.loss_model_fn(box)
             if y is not None and self.num_classes is not None:
-                model_fn = self.labelled_model_fn(self.drop_labels(generator, y))
-            return self.diffusion_model.loss(model_fn, params, generator, x, train=True)
+                y_used = self.drop_labels(generator, y)
+
+                def model_fn(params, x_t, t, **kwargs):
+                    return base_fn(params, x_t, t, y=y_used, **kwargs)
+
+            loss = self.diffusion_model.loss(model_fn, params, generator, x, train=True)
+            return self.add_moe_aux(loss, box)
 
         return loss_fn
+
+    def loss_model_fn(self, box: list):
+        """The model_fn of a training loss. With ``moe_aux_weight > 0`` and a
+        model that records router losses (a ``moe_losses`` keyword), each
+        call appends (Σ moe_aux + moe_align, Σ moe_z) over its MoE blocks to
+        ``box``; otherwise it is :meth:`model_fn`. Every harness's loss goes
+        through it, and :meth:`add_moe_aux` closes the loss."""
+        if self.moe_aux_weight <= 0 or not records_router_losses(self.model):
+            return self.model_fn
+
+        def model_fn(params, x, t, **kwargs):
+            stats: list = []
+            out = self.model_fn(params, x, t, moe_losses=stats, **kwargs)
+            if stats:
+                box.append((sum(s["moe_aux"] + s.get("moe_align", 0.0) for s in stats),
+                            sum(s["moe_z"] for s in stats)))
+            return out
+
+        return model_fn
+
+    def add_moe_aux(self, loss: torch.Tensor, box: list) -> torch.Tensor:
+        """loss + moe_aux_weight·Σ aux + moe_z_weight·Σ z over what
+        :meth:`loss_model_fn` collected; the loss itself where nothing was."""
+        if not box:
+            return loss
+        aux = sum(a for a, _ in box)
+        z = sum(z_ for _, z_ in box)
+        return loss + self.moe_aux_weight * aux + self.moe_z_weight * z
 
     @torch.no_grad()
     def eval_loss(self, params, generator: torch.Generator, x: torch.Tensor,
@@ -415,13 +454,13 @@ class LitUpsampler(LitDDPM):
             raise ValueError(f"image {tuple(x.shape)} is not divisible by factor {f}")
         return x.reshape(n, h // f, f, w // f, f, c).mean(dim=(2, 4))
 
-    def bound_model_fn(self, cond: torch.Tensor):
-        """``model_fn`` with ``cond`` (already at the high resolution)
-        concatenated to x_t on channels."""
+    def bound_model_fn(self, cond: torch.Tensor, base_fn=None):
+        """``base_fn`` (:meth:`model_fn` by default) with ``cond`` (already
+        at the high resolution) concatenated to x_t on channels."""
+        base_fn = self.model_fn if base_fn is None else base_fn
 
         def model_fn(params, x_t, t, **kwargs):
-            return self.model_fn(params, torch.cat([x_t, cond.to(x_t.dtype)], dim=-1), t,
-                                 **kwargs)
+            return base_fn(params, torch.cat([x_t, cond.to(x_t.dtype)], dim=-1), t, **kwargs)
 
         return model_fn
 
@@ -435,8 +474,10 @@ class LitUpsampler(LitDDPM):
             if datamodule is not None:
                 x = datamodule.train_transform(generator, x)
             cond = resize_bilinear(self.downsample(x), x.shape[1:3])
-            return self.diffusion_model.loss(self.bound_model_fn(cond), params, generator, x,
-                                             train=True)
+            box: list = []
+            loss = self.diffusion_model.loss(self.bound_model_fn(cond, self.loss_model_fn(box)),
+                                             params, generator, x, train=True)
+            return self.add_moe_aux(loss, box)
 
         return loss_fn
 
@@ -475,6 +516,76 @@ class LitUpsampler(LitDDPM):
         return self.sample_algorithm().generate(self.bound_model_fn(cond), params, generator,
                                                 out_shape, x_T=x_T,
                                                 history_length=history_length)
+
+
+class LitDistill(LitDDPM):
+    """Progressive-distillation harness: trains a student to halve the
+    teacher's deterministic sampling steps
+    (:class:`~dmme_tpu_torch.diffusion.distill.ProgressiveDistillation`)
+    through the standard ``fit`` loop. The teacher's weights ride in the
+    loss closure and run without gradient; :meth:`generate` and the
+    callbacks sample with the student's N-step DDIM. The student is the
+    teacher's module unless ``model`` is given, and starts from copies of
+    ``init_params`` where given (the paper's practice for a v teacher);
+    ``python -m dmme_tpu_torch.distill`` drives the rounds."""
+
+    def __init__(self, teacher_model: torch.nn.Module, teacher_params: Dict[str, torch.Tensor],
+                 distiller, model: Optional[torch.nn.Module] = None, lr: float = 1e-4,
+                 warmup: int = 0, decay: float = 0.9999,
+                 init_params: Optional[Dict[str, torch.Tensor]] = None, **kwargs: Any):
+        if model is None:
+            model = teacher_model  # the same architecture by default
+        super().__init__(lr, warmup, decay, diffusion_model=distiller.student_sampler(),
+                         model=model, **kwargs)
+        self.distiller = distiller
+        self.teacher_model = teacher_model
+        self.teacher_params = teacher_params
+        self.init_params = init_params
+
+    def teacher_fn(self, params: Dict[str, torch.Tensor], x: torch.Tensor, t: torch.Tensor,
+                   **kwargs) -> torch.Tensor:
+        """The teacher's denoiser with ``params`` bound."""
+        return functional_call(self.teacher_model, params, (x, t), kwargs)
+
+    def init_state(self, generator: Union[int, torch.Generator] = 0,
+                   device: Union[None, str, torch.device] = None) -> TrainState:
+        """:meth:`LitDDPM.init_state`, then, with ``init_params``, parameters
+        and EMA set to two copies of them: neither aliases the other nor the
+        teacher (the step updates both in place)."""
+        state = super().init_state(generator, device)
+        if self.init_params is not None:
+            device = next(iter(state.params.values())).device
+            for dst in (state.params, state.ema_params):
+                for k in dst:
+                    dst[k] = self.init_params[k].detach().to(device=device,
+                                                             dtype=dst[k].dtype).clone()
+        return state
+
+    def make_loss_fn(self, datamodule=None):
+        """The distillation loss over raw batches: flip, process, then i, ε
+        and the student's dropout from the step's generator; the student's
+        router losses, if any, through :meth:`loss_model_fn` (the frozen
+        teacher's routers need none)."""
+        distillers = {}
+
+        def loss_fn(params, generator, batch):
+            x = batch[0] if isinstance(batch, (tuple, list)) else batch
+            if datamodule is not None:
+                x = datamodule.train_transform(generator, x)
+            if x.device not in distillers:  # the tables on the batch's device, once
+                distillers[x.device] = self.distiller.to(x.device)
+            box: list = []
+            loss = distillers[x.device].loss(self.teacher_fn, self.teacher_params,
+                                             self.loss_model_fn(box), params, generator, x,
+                                             train=True)
+            return self.add_moe_aux(loss, box)
+
+        return loss_fn
+
+
+def records_router_losses(model: torch.nn.Module) -> bool:
+    """Whether ``model``'s forward takes a ``moe_losses`` list (a DiT)."""
+    return "moe_losses" in inspect.signature(model.forward).parameters
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

@@ -4,7 +4,9 @@
 dicts of numpy arrays, with or without the top-level ``"params"`` — and
 returns tensors keyed as the port's modules name them: conv kernels HWIO →
 OIHW, Dense kernels (in, out) → (out, in), GroupNorm ``scale`` and
-``nn.Embed``'s ``embedding`` → ``weight``.
+``nn.Embed``'s ``embedding`` → ``weight``; the MoE layer's expert stacks
+(``w_in``, ``b_in``, ``w_out``, ``b_out``, (E, …) arrays) keep their names and
+layouts.
 It is the reverse of ``dmme_tpu/utils/torch_convert.py``, written anew here.
 """
 
@@ -15,6 +17,10 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+
+#: parameters that the port keeps under flax's name and layout
+_UNCHANGED = ("w_in", "b_in", "w_out", "b_out")
 
 
 def _leaf(name: str, value) -> tuple:
@@ -29,6 +35,8 @@ def _leaf(name: str, value) -> tuple:
         return "weight", a
     if name == "bias":
         return "bias", a
+    if name in _UNCHANGED:
+        return name, a
     raise ValueError(f"parameter {name!r} has no counterpart in the port")
 
 

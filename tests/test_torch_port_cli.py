@@ -36,7 +36,9 @@ PORTED = {"configs/ddpm/cifar10.yaml", "configs/ddim/cifar10.yaml",
           "configs/edm/cifar10.yaml", "configs/edm/shapes_demo.yaml",
           "configs/flow/shapes_demo.yaml", "configs/ddpm/shapes_cfg_demo.yaml",
           "configs/ddpm/shapes_sr_demo.yaml", "configs/adm/cifar10_guided.yaml",
-          "configs/adm/cifar10_classifier.yaml"}
+          "configs/adm/cifar10_classifier.yaml", "configs/flow/cifar10_dit.yaml",
+          "configs/flow/cifar10_dit_moe.yaml", "configs/flow/shapes_dit_demo.yaml",
+          "configs/flow/shapes_dit_moe_demo.yaml"}
 
 TINY_YAML = """
 seed_everything: 7
@@ -230,7 +232,7 @@ def test_dtype_aliases_match_jax(alias, want):
 @pytest.mark.parametrize("path,item", [("dmme_tpu.training.LitVAE", "A.8"),
                                        ("dmme_tpu.training.LitLatentDDPM", "A.8"),
                                        ("dmme_tpu.data.LSUN", "A.12"),
-                                       ("dmme_tpu.models.dit.DiT", "A.7")])
+                                       ("dmme_tpu.models.vae.ConvVAE", "A.8")])
 def test_an_unported_class_names_its_roadmap_item(path, item):
     with pytest.raises(tcfg.ConfigError, match=f"ROADMAP {item}"):
         tcfg.instantiate({"class_path": path, "init_args": {}})
@@ -501,11 +503,25 @@ def test_edm_flow_hyperparameters_equal_jax(path):
 @pytest.mark.parametrize("path", ["configs/flow/cifar10_dit.yaml",
                                   "configs/flow/cifar10_dit_moe.yaml"])
 def test_flow_dit_configs_still_name_a7(path):
-    """LitFlow is ported; its DiT denoiser is not, and names ROADMAP A.7."""
-    config = tcfg.load_config(os.path.join(ROOT, path))
+    """These configs named ROADMAP A.7 while the DiT waited for it (the
+    name is from then). Since A.7 they validate and build ``LitFlow`` over
+    the port's DiT with the config's widths and MoE settings, as JAX's
+    config builds its own."""
+    from dmme_tpu import config as jcfg
+
+    config = tcfg.validate_config(tcfg.load_config(os.path.join(ROOT, path)))
     assert config["model"]["class_path"] == "dmme_tpu.training.LitFlow"
-    with pytest.raises(tcfg.ConfigError, match=r"dit.*not ported.*ROADMAP A\.7"):
-        tcfg.validate_config(config)
+    lit, jlit = tcfg.instantiate(config["model"]), jcfg.instantiate(config["model"])
+    assert type(lit).__name__ == type(jlit).__name__ == "LitFlow"
+    assert type(lit.model).__name__ == type(jlit.model).__name__ == "DiT"
+    assert lit.moe_aux_weight == jlit.moe_aux_weight
+    blocks = [getattr(lit.model, f"block_{i}") for i in range(lit.model.depth)]
+    moe = [i for i, b in enumerate(blocks) if b.moe_mlp is not None]
+    assert (lit.model.hidden, lit.model.depth, blocks[0].num_heads, lit.model.patch_size) == (
+        jlit.model.hidden, jlit.model.depth, jlit.model.num_heads, jlit.model.patch_size)
+    assert moe == ([i for i in range(jlit.model.depth) if i % jlit.model.moe_stride == 1]
+                   if jlit.model.num_experts else [])
+    assert lit.model.dtype == torch.bfloat16
 
 
 def _serve_and_post(sampler, bodies):

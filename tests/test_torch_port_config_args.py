@@ -4,8 +4,8 @@ A config names a class by its JAX path; the port resolves it to its own
 class (``config.resolve_class``) and validates the arguments against that
 class's constructor, following ``**kwargs`` up the MRO
 (``config.accepted_args``). This walks every JAX class the port resolves
-(the harnesses, data modules, callbacks and loggers, the UNet and ADM
-entries, and the guided samplers) and holds that each argument the JAX
+(the harnesses, data modules, callbacks and loggers, the UNet, ADM and
+DiT entries, and the guided samplers) and holds that each argument the JAX
 constructor takes is taken by the port's or named, with its ROADMAP item,
 in ``config._ARGS_NOT_PORTED``. It also holds the arguments that were
 refused before (fault C.9): the MoE loss weights, ``CIFAR10(download=)``
@@ -36,6 +36,9 @@ _MODULES = ("dmme_tpu.training", "dmme_tpu.data", "dmme_tpu.callbacks",
             "dmme_tpu.training.loggers")
 _UNETS = ("dmme_tpu.models.ddpm.UNet", "dmme_tpu.models.iddpm.UNet",
           "dmme_tpu.models.unet.UNet")
+#: the DiT entries (the module and its presets)
+_DIT = ("dmme_tpu.models.dit.DiT", "dmme_tpu.models.dit.DiT_S", "dmme_tpu.models.dit.DiT_B",
+        "dmme_tpu.models.dit.DiT_L")
 #: the ADM entries (factories and modules) and the guided samplers
 _ADM = ("dmme_tpu.models.adm.ADM", "dmme_tpu.models.adm.ADMG", "dmme_tpu.models.adm.ADMU",
         "dmme_tpu.models.adm.classifier", "dmme_tpu.models.adm.UNetModel",
@@ -46,7 +49,7 @@ _FLAX_FIELDS = {"parent", "name"}
 
 
 def _jax_targets():
-    paths = list(_UNETS) + list(_ADM)
+    paths = list(_UNETS) + list(_ADM) + list(_DIT)
     for name in _MODULES:
         mod = importlib.import_module(name)
         for attr in sorted(dir(mod)):
@@ -77,7 +80,7 @@ def test_the_walk_covers_the_ported_config_targets():
                  "dmme_tpu.training.LitIDDPM", "dmme_tpu.training.LitClassifier",
                  "dmme_tpu.data.CIFAR10", "dmme_tpu.data.Shapes",
                  "dmme_tpu.callbacks.GenerateImage", "dmme_tpu.training.loggers.WandbLogger",
-                 *_UNETS, *_ADM):
+                 "dmme_tpu.training.LitDistill", *_UNETS, *_ADM, *_DIT):
         assert path in TARGETS
 
 
@@ -203,21 +206,23 @@ def test_param_dtype_f32_only(factory):
 VALIDATES = {"adm/cifar10_classifier", "adm/cifar10_guided", "ddim/cifar10", "ddpm/cifar10",
              "ddpm/cifar10_vpred", "ddpm/shapes256_demo", "ddpm/shapes_cfg_demo",
              "ddpm/shapes_demo", "ddpm/shapes_sr_demo", "edm/cifar10", "edm/shapes_demo",
-             "flow/shapes_demo", "iddpm/cifar10", "iddpm/shapes64_demo", "iddpm/shapes_demo"}
-WAITS = {"flow/cifar10_dit": "A.7", "flow/cifar10_dit_moe": "A.7", "flow/shapes_dit_demo": "A.7",
-         "flow/shapes_dit_moe_demo": "A.7", "latent/shapes_latent_demo": "A.8",
+             "flow/cifar10_dit", "flow/cifar10_dit_moe", "flow/shapes_demo",
+             "flow/shapes_dit_demo", "flow/shapes_dit_moe_demo", "iddpm/cifar10",
+             "iddpm/shapes64_demo", "iddpm/shapes_demo"}
+WAITS = {"latent/shapes_latent_demo": "A.8",
          "latent/shapes_latent_flow_dit_demo": "A.8", "latent/shapes_vae_demo": "A.8",
          "ddpm/lsun_bedroom": "A.12", "ddpm/lsun_cat": "A.12", "ddpm/lsun_church": "A.12",
          "iddpm/imagenet64": "A.12"}
 
 
 def test_thirteen_of_twenty_six_configs_validate():
-    """Fifteen since the ADM configs (A.6c) validate; the name is the one
-    this test has had since thirteen did."""
+    """Nineteen since the DiT configs (A.7) validate; the name is the one
+    this test has had since thirteen did. The seven left wait for A.8 (3)
+    and A.12 (4)."""
     names = sorted(os.path.relpath(p, os.path.join(ROOT, "configs"))[:-len(".yaml")]
                    for p in glob.glob(os.path.join(ROOT, "configs", "*", "*.yaml")))
     assert len(names) == 26 and set(names) == VALIDATES | set(WAITS)
-    assert len(VALIDATES) == 15 and not VALIDATES & set(WAITS)
+    assert len(VALIDATES) == 19 and not VALIDATES & set(WAITS)
     for name in names:
         config = tcfg.load_config(os.path.join(ROOT, "configs", name + ".yaml"))
         if name in VALIDATES:
