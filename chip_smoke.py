@@ -81,7 +81,9 @@ if the package is missing, or if any phase fails. Phases:
    with other weights (K4's weight cache); ``configs/ddpm/shapes_demo.yaml``
    for 20 steps in chunks of 10; ``configs/ddpm/shapes256_demo.yaml`` (LSUN
    widths, 256 px, batch 16) for 2 steps with and without ``remat``, the
-   peak memory lower with it;
+   peak memory lower with it; the Shapes configs' runs render only the
+   images their steps need (``SHAPES_CUT``), the configs' widths, batches
+   and steps otherwise;
 10. f32 and fp16 — fault C.5: ``LitDDPM()`` (f32) and ``LitDDPM(dtype="fp16")``
    each train one full-width step at batch 128 and take one DDIM step at
    n = 8 (K1/K2/K3 45/45/6 a step, K1/K3/K4 1/6/22 a forward), launching K1
@@ -227,7 +229,35 @@ if the package is missing, or if any phase fails. Phases:
 40. inpainting — ``inpaint`` with ``LitDDPM``'s DDPM (T = 1000), the left
    half of n = 8 images known, ``resample_steps=2``: 2000 forwards through
    K1, K3 and K4, the known pixels back bit for bit;
-41. the kernel table as one JSON line, the card's name and power limit, then
+41. latent kernels — the default latent UNet (``LitLatentDDPM``'s: the DDPM
+   UNet at in_channels 4, both switches) on 16x16x4 latents: every K1, K3
+   and K4 call of forwards at n = 1, 8, 16 (1/6/22 a forward; ResBlocks
+   down to 2x2, K3 at T = 4 and 64) and every K1, K2, K3 and attention
+   backward call of one step at batch 128 (45/45/6/0; the bf16 codec
+   encodes first, on library ops), the stage-2 config UNet's K3 and the
+   latent DiT's (8 sites, 4 heads of 64 at T = 64) at a forward and a step,
+   each held against its plain version, twice for identical bytes (every
+   forward phase's K1, K3 and K4 calls and every training phase's K3 calls
+   are repeated so since this phase), and timed;
+42. latent against the CPU — the bf16 codec's encode and decode and the
+   bf16 ``LitLatentDDPM`` loss and gradient (posterior noise, t, ε and
+   dropout injected) within ``UNET_REL_L2``/``GRAD_REL_L2`` of f32 on the
+   CPU; the f32 ``LitVAE()`` and ``LitLatentDDPM()`` within ``F32_REL_L2``,
+   each with a bf16 control that misses it;
+43. latent cli — ``trainer.main fit`` of configs/latent/shapes_vae_demo.yaml
+   (20 steps, chunks of 10), then of shapes_latent_demo.yaml (a resume from
+   10 to 20, bitwise the uninterrupted run) and
+   shapes_latent_flow_dit_demo.yaml from its run directory; the written
+   ``latent_scale.json`` equal to a recomputation; ``sample`` with and
+   without ``--trainer.sampler ddim`` (32x32x3 grids); the stage-1 config's
+   ``sample --trainer.sampler ddim`` refused; 25 timed steps at batch 128 of
+   ``LitVAE``, the default ``LitLatentDDPM(dtype="bf16")`` over the trained
+   codec and the latent DiT's ``LitLatentFlow``;
+44. latent serve — ``LitLatentDDPM`` over HTTP at 32 px: ``ddim`` and ``dpm``
+   at n = 8, one request profiled, the T = 1000 ancestral loop timed over
+   20 steps and extrapolated with the decode; the latent DiT's ``default``
+   flow request; a ``LitVAE``'s ``default`` (200) and ``ddim`` (400);
+45. the kernel table as one JSON line, the card's name and power limit, then
    ``{"ok": true, "device": ...}``.
 
 ``--out`` also writes every measurement to a JSON file. ``--kernels-only``
@@ -814,8 +844,10 @@ def step_rows(torch, k_gn, k_attn, calls, card: str, label: str) -> tuple:
             torch.cuda.synchronize()
             want = plain()
             max_abs, _, ok = errors(got, want, rtol, atol)
-            row = _train_row("attention", key, count, max_abs, ok, device_ms(torch, kern),
+            same = bool(torch.equal(got, kern()))
+            row = _train_row("attention", key, count, max_abs, ok and same, device_ms(torch, kern),
                              device_ms(torch, plain), a, k)
+            row["repeat_identical"] = same
             sdpa = lambda q=q, kk=kk, v=v, scale=scale: (  # noqa: E731
                 torch.nn.functional.scaled_dot_product_attention(
                     q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2), scale=scale))
@@ -2226,6 +2258,10 @@ def f32_iddpm_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, o
 
 
 CLI_ROOT = os.path.join("build", "cli_run")
+# the procedural Shapes images a CLI run renders: enough for the steps it
+# takes (the configs render 50,000 at 32 px, 20,000 at 64 and 2,048 at 256,
+# which took ≈ 6, 12 and 18 s a run on an H100 host, PERF.md)
+SHAPES_CUT = ["--data.init_args.size", "4096"]
 
 
 def _cli_callback(root: str) -> str:
@@ -2393,7 +2429,7 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
     shapes = roots["cli_shapes"]
     rec = run("shapes_demo 20", ["fit", "--config", "configs/ddpm/shapes_demo.yaml",
                                  "--trainer.max_steps", "20", "--trainer.log_every_n_steps",
-                                 "10", "--trainer.default_root_dir", shapes],
+                                 "10", "--trainer.default_root_dir", shapes, *SHAPES_CUT],
               fit_launches(20, 0))
     logged = _jsonl(os.path.join(shapes, "metrics.jsonl"))
     rec["losses"] = [r["loss"] for r in logged]
@@ -2410,6 +2446,7 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
         rec = run(f"shapes256_demo remat {remat}", [
             "fit", "--config", "configs/ddpm/shapes256_demo.yaml", "--trainer.max_steps", "2",
             "--trainer.steps_per_call", "1", "--trainer.log_every_n_steps", "1",
+            "--data.init_args.size", "64",
             "--trainer.default_root_dir", roots[name],
             "--model.init_args.model.init_args.remat", remat])
         peaks[remat] = rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -2426,7 +2463,7 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
     shapes = roots["cli_iddpm_shapes"]
     rec = run("iddpm shapes_demo 20", ["fit", "--config", "configs/iddpm/shapes_demo.yaml",
                                        "--trainer.max_steps", "20", "--trainer.log_every_n_steps",
-                                       "10", "--trainer.default_root_dir", shapes],
+                                       "10", "--trainer.default_root_dir", shapes, *SHAPES_CUT],
               {k: 20 * v for k, v in PER_TRAIN_STEP_IDDPM.items()})
     logged = _jsonl(os.path.join(shapes, "metrics.jsonl"))
     rec["losses"] = [r["loss"] for r in logged]
@@ -2452,6 +2489,7 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
         rec = run(f"iddpm shapes64_demo remat {remat}", [
             "fit", "--config", "configs/iddpm/shapes64_demo.yaml", "--trainer.max_steps", "2",
             "--trainer.steps_per_call", "1", "--trainer.log_every_n_steps", "1",
+            "--data.init_args.size", "256",
             "--trainer.default_root_dir", roots[name],
             "--model.init_args.model.init_args.remat", remat])
         peaks[remat] = rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -2971,7 +3009,7 @@ def cfg_fit(torch, np, blocks, ops, dev, card: str) -> dict:
     roots = {k: os.path.join("build", k) for k in ("cli_cfg", "cli_cfg_whole")}
     for root in roots.values():
         shutil.rmtree(root, ignore_errors=True)
-    cfg = ["--config", CFG_CONFIG, "--trainer.tensorboard", "false"]
+    cfg = ["--config", CFG_CONFIG, "--trainer.tensorboard", "false", *SHAPES_CUT]
     fit_args = cfg + ["--trainer.ckpt_every_n_steps", "10", "--trainer.log_every_n_steps", "10"]
     lit = tcfg.instantiate(tcfg.validate_config(tcfg.load_config(CFG_CONFIG))["model"])
     n_params = sum(p.numel() for p in lit.model.parameters())
@@ -4474,6 +4512,583 @@ def inpaint_phase(torch, np, blocks, dev, ops, card: str) -> dict:
     return out
 
 
+# latent diffusion (A.8): the codec of configs/latent/shapes_vae_demo.yaml
+# (factor 2: 32-px images to 16x16x4 latents, 1,542,219 parameters) and the
+# two stage-2 configs that read its run directory
+LATENT_VAE_CONFIG = "configs/latent/shapes_vae_demo.yaml"
+LATENT_DDPM_CONFIG = "configs/latent/shapes_latent_demo.yaml"
+LATENT_DIT_CONFIG = "configs/latent/shapes_latent_flow_dit_demo.yaml"
+LATENT_CODEC = dict(latent_channels=4, base_channels=64, channel_multipliers=(1, 2),
+                    num_res_blocks=2)
+VAE_PARAMS = 1_542_219
+LATENT = (16, 16, 4)
+LATENT_SCALE = 1.0  # an explicit latent scale where no calibration is under test
+NO_LAUNCHES = {"group_norm_silu": 0, "group_norm_silu_bwd": 0, "attention": 0, "resblock": 0}
+# the stage-2 config's UNet (128/256/256, attention at depth 2, no kernel
+# switches): K3 alone, at 6 sites a forward (T = 64 five times, T = 16 once)
+PER_FORWARD_LATENT_CFG = dict(NO_LAUNCHES, attention=6)
+# the latent DiT (hidden 256, depth 8, 4 heads of 64 at T = 64)
+LATENT_DIT_SITES = 8
+PER_FORWARD_LATENT_DIT = dict(NO_LAUNCHES, attention=LATENT_DIT_SITES)
+# the latent CLI fits: steps before the resume, and in all, in the configs'
+# chunks of 10 steps (a log line a chunk); the Shapes images rendered for
+# them; the steps of the stage-2 config's own (ancestral) sampler in `sample`
+# (the config trains T = 1000)
+LATENT_FIT_HALF, LATENT_FIT_STEPS, LATENT_CHUNK = 10, 20, 10
+LATENT_DATA = SHAPES_CUT
+LATENT_SAMPLE_T = 250
+
+
+def latent_codec(torch, blocks, dtype: str = "bf16", codec: dict = None):
+    """The configs' ConvVAE (or ``codec``'s widths; {} for the defaults) in
+    ``dtype``: flax's init from the seed with every bias and GroupNorm affine
+    drawn. Returns (module, its f32 weights)."""
+    from dmme_tpu_torch.models import init_weights
+    from dmme_tpu_torch.models.vae import ConvVAE
+    from dmme_tpu_torch.training.lit import resolve_dtype
+
+    vae = ConvVAE(**(LATENT_CODEC if codec is None else codec), dtype=resolve_dtype(dtype))
+    init_weights(vae, torch.Generator().manual_seed(SEED + 300))
+    randomize_affines(torch, blocks, vae, torch.Generator().manual_seed(SEED + 301))
+    return vae, {k: v.detach().clone() for k, v in vae.state_dict().items()}
+
+
+def latent_harness(torch, blocks, dtype: str = "bf16", model=None, flow: bool = False,
+                   codec: dict = None):
+    """``LitLatentDDPM`` (``LitLatentFlow`` with ``flow``) in ``dtype`` over
+    :func:`latent_codec` at ``LATENT_SCALE``, its denoiser the default latent
+    UNet (both switches) or ``model``, every weight random. Returns
+    (harness, the denoiser's weights)."""
+    from dmme_tpu_torch.models import init_weights
+    from dmme_tpu_torch.training import LitLatentDDPM, LitLatentFlow
+
+    vae, weights = latent_codec(torch, blocks, dtype, codec)
+    lit = (LitLatentFlow if flow else LitLatentDDPM)(
+        vae=vae, vae_params=weights, latent_scale=LATENT_SCALE, dtype=dtype, model=model)
+    init_weights(lit.model, torch.Generator().manual_seed(SEED))
+    randomize_affines(torch, blocks, lit.model, torch.Generator().manual_seed(SEED + 1))
+    return lit, {k: v.detach().clone() for k, v in lit.model.state_dict().items()}
+
+
+def latent_config_model(torch, path: str, dtype: str = "bf16"):
+    """The denoiser a stage-2 config names, in ``dtype``."""
+    from dmme_tpu_torch import config as tcfg
+
+    node = tcfg.load_config(path)["model"]["init_args"]["model"]
+    return tcfg.instantiate(dict(node, init_args=dict(node["init_args"], dtype=dtype)))
+
+
+def latent_kernels(torch, np, blocks, k_gn, k_attn, k_res, build, dev, ops, card: str) -> dict:
+    """Phase 41: the latent call sites. The default latent UNet (bf16, both
+    switches, random weights) on 16x16x4 latents: every K1, K3 and K4 call
+    of forwards at n = 1, 8, 16 (1/6/22 launches a forward; K4 and K1 at
+    2x2, K3 at T = 4 and 64), and every K1, K2, K3 and attention-backward
+    call of one ``LitLatentDDPM`` step at batch 128 (the bf16 codec encodes
+    the 32-px batch first, on library ops: 45/45/6/0); the stage-2 config
+    UNet's K3 at a step at batch 128 (6 sites); the latent DiT's K3 at a
+    forward at n = 8 and a ``LitLatentFlow`` step at batch 128 (8 sites,
+    4 heads of 64 at T = 64). Each held against its plain version
+    (``TOL``/``TOL_BWD``), twice for identical bytes, and timed; no f32,
+    fp16 or ``simt.cu`` counter moves."""
+    from dmme_tpu_torch.models import init_weights
+
+    out = {"forward_rows": [], "per_forward": {}}
+    lit, _ = latent_harness(torch, blocks)
+    model = lit.model.to(dev).eval()
+    runs = {}
+    for n in SERVE_BATCHES:
+        g = torch.Generator().manual_seed(SEED + 310 + n)
+        runs[f"latent_n{n}"] = (model, torch.randn((n, *LATENT), generator=g),
+                                torch.randint(1, 1000, (n,), generator=g), PER_FORWARD)
+    reset_counts(ops)
+    recorded, _ = record_forwards(torch, blocks, runs, dev)
+    torch.cuda.synchronize()
+    launches = counts(ops)
+    expect_bf16_only("latent UNet forwards")
+    want = launches_for(PER_FORWARD, len(SERVE_BATCHES))
+    bottom = sorted({e["a"][0].shape[1] for e in recorded["resblock"].values()})
+    tokens = sorted({e["a"][0].shape[1] for e in recorded["attention"].values()})
+    print(f"latent UNet forwards at n = {SERVE_BATCHES}: launches {launches} (expected {want}); "
+          f"ResBlock sides {bottom}, attention tokens {tokens}", flush=True)
+    if launches != want or bottom[0] != 2 or tokens[0] != 4:
+        fail(f"the latent forwards launched {launches} at sides {bottom}, tokens {tokens}")
+    rows, failures = forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded)
+    if failures:
+        fail(f"latent forward kernels disagree with their plain versions: {failures}")
+    out["forward_rows"] += rows
+    out["per_forward"]["latent"] = _per_forward(rows, f"latent_n{BATCH}", card,
+                                                f"latent UNet forward, n = {BATCH}")
+    del lit, model, runs, recorded
+    torch.cuda.empty_cache()
+
+    print(f"-- LitLatentDDPM (default latent UNet) training step at batch {TRAIN_BATCH}",
+          flush=True)
+    out["train"] = train_kernels(torch, blocks, k_gn, k_attn, None, init_weights, None, dev,
+                                 card, ops, lit=latent_harness(torch, blocks)[0])
+    torch.cuda.empty_cache()
+    k3 = [(blocks, "attention_heads", "attention", _sig_attn),
+          (k_attn, "attention_bwd", "attention_bwd", _sig_attn)]
+    print(f"-- LitLatentDDPM ({LATENT_DDPM_CONFIG}'s UNet) training step at batch {TRAIN_BATCH}",
+          flush=True)
+    out["cfg_train"] = train_kernels(
+        torch, blocks, k_gn, k_attn, None, init_weights, None, dev, card, ops,
+        lit=latent_harness(torch, blocks, model=latent_config_model(torch,
+                                                                    LATENT_DDPM_CONFIG))[0],
+        targets=k3, sites={"attention": 6, "attention_bwd": 6})
+    torch.cuda.empty_cache()
+
+    lit, _ = latent_harness(torch, blocks, model=latent_config_model(torch, LATENT_DIT_CONFIG),
+                            flow=True)
+    g = torch.Generator().manual_seed(SEED + 320)
+    name = f"latent_dit_n{BATCH}"
+    runs = {name: (lit.model.to(dev).eval(), torch.randn((BATCH, *LATENT), generator=g),
+                   1000.0 * torch.rand((BATCH,), generator=g), {"attention": LATENT_DIT_SITES})}
+    reset_counts(ops)
+    recorded, _ = record_forwards(torch, blocks, runs, dev, dit_targets(k_attn, False))
+    torch.cuda.synchronize()
+    launches = counts(ops)
+    expect_bf16_only("latent DiT forward")
+    if launches != PER_FORWARD_LATENT_DIT:
+        fail(f"the latent DiT forward launched {launches}, expected {PER_FORWARD_LATENT_DIT}")
+    rows, failures = forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded)
+    if failures:
+        fail(f"latent DiT kernels disagree with their plain versions: {failures}")
+    out["forward_rows"] += rows
+    out["per_forward"]["dit"] = _per_forward(rows, name, card, f"latent DiT forward, {name}",
+                                             ("attention",))
+    del lit, runs, recorded
+    torch.cuda.empty_cache()
+    print(f"-- LitLatentFlow ({LATENT_DIT_CONFIG}'s DiT) training step at batch {TRAIN_BATCH}",
+          flush=True)
+    out["dit_train"] = train_kernels(
+        torch, blocks, k_gn, k_attn, None, init_weights, None, dev, card, ops,
+        lit=latent_harness(torch, blocks, model=latent_config_model(torch, LATENT_DIT_CONFIG),
+                           flow=True)[0],
+        targets=dit_targets(k_attn, True),
+        sites={"attention": LATENT_DIT_SITES, "attention_bwd": LATENT_DIT_SITES})
+    torch.cuda.empty_cache()
+    return out
+
+
+def _latent_loss_and_grads(torch, blocks, lit, weights, device, inputs, masks, replay):
+    """A latent DDPM step's loss core on ``device``: the posterior sample on
+    the injected noise (``encode_target``), ``loss_given`` on the injected
+    t and ε with the dropout masks recorded on the card (replayed with
+    ``replay``), and every denoiser gradient."""
+    from dmme_tpu_torch.training.latent import LitVAE
+
+    params = {k: v.to(device).requires_grad_(True) for k, v in weights.items()}
+    x, zn, t, eps = (v.to(device) for v in inputs)
+    lit.model.to(device)
+    if isinstance(lit, LitVAE):  # the codec's own objective on the posterior noise
+        loss = lit.loss_given(params, x, zn)
+    else:
+        z = lit.encode_target(None, x, noise=zn)
+        undo = _dropout_masks(blocks, lit.model, masks, replay)
+        try:
+            loss = lit.diffusion_model.loss_given(
+                lit.model_fn, params, z, t, eps, train=True,
+                generator=torch.Generator(device=device).manual_seed(SEED))
+        finally:
+            undo()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return {"loss": loss.detach().cpu(),
+            "grads": {k: g.detach().float().cpu() for k, g in zip(params, grads)}}
+
+
+def latent_vs_cpu(torch, np, blocks, dev, ops, card: str) -> dict:
+    """Phase 42: the latent paths on the card against f32 on the CPU, on the
+    same random weights and numpy inputs at batch 8: the bf16 codec's
+    encode (mean, logvar) and decode (``UNET_REL_L2``; library ops, no
+    kernel launch); the bf16 ``LitLatentDDPM`` loss and gradient with the
+    posterior noise, t, ε and dropout injected (``GRAD_REL_L2``; 45/45/6/0);
+    the default f32 ``LitVAE()`` and ``LitLatentDDPM()`` loss and gradient
+    within ``F32_REL_L2``, each with a bf16 control that must miss it (the
+    f32 step launches K1/K2/K3 of f32 only)."""
+    r = np.random.default_rng(SEED + 330)
+    x = torch.tensor(np.clip(r.standard_normal((BATCH, 32, 32, 3)) / 2, -1, 1).astype(np.float32))
+    zn = torch.tensor(r.standard_normal((BATCH, *LATENT)).astype(np.float32))
+    t = torch.tensor(r.integers(1, 1000, (BATCH,)), dtype=torch.int64)
+    eps = torch.tensor(r.standard_normal((BATCH, *LATENT)).astype(np.float32))
+    inputs = (x, zn, t, eps)
+    out = {}
+
+    vae, weights = latent_codec(torch, blocks, "bf16")
+    ref, _ = latent_codec(torch, blocks, "f32")
+    with torch.no_grad():
+        want_mean, want_logvar = ref.encode(x)
+        want_rec = ref.decode(want_mean)
+        vae.to(dev)
+        reset_counts(ops)
+        mean, logvar = vae.encode(x.to(dev))
+        rec = vae.decode(want_mean.to(dev))
+        torch.cuda.synchronize()
+    launches = counts(ops)
+    expect_bf16_only("the bf16 codec")
+    codec = {"mean_rel_l2": rel_l2(mean.cpu(), want_mean),
+             "logvar_rel_l2": rel_l2(logvar.cpu(), want_logvar),
+             "decode_rel_l2": rel_l2(rec.cpu(), want_rec), "launches": launches,
+             "dtypes": [str(v.dtype) for v in (mean, logvar, rec)]}
+    out["codec"] = codec
+    print(f"bf16 ConvVAE at n = {BATCH} vs f32 CPU: {codec} (<= {UNET_REL_L2})", flush=True)
+    if (launches != NO_LAUNCHES or codec["dtypes"] != ["torch.float32"] * 3
+            or not all(codec[k] <= UNET_REL_L2 for k in ("mean_rel_l2", "logvar_rel_l2",
+                                                          "decode_rel_l2"))):
+        fail(f"the bf16 codec on the card: {codec}")
+    del vae, ref
+
+    def readings(a, b) -> dict:
+        flat = torch.cat([a["grads"][k].flatten() for k in a["grads"]])
+        ref_ = torch.cat([b["grads"][k].flatten() for k in a["grads"]])
+        return {"loss_rel_err": float(abs(a["loss"] - b["loss"]) / abs(b["loss"])),
+                "grad_rel_l2": rel_l2(flat, ref_)}
+
+    lits = {d: latent_harness(torch, blocks, d) for d in ("bf16", "f32")}
+    weights = lits["f32"][1]
+    masks = {}
+    reset_counts(ops)
+    bf16 = _latent_loss_and_grads(torch, blocks, lits["bf16"][0], weights, dev, inputs, masks,
+                                  False)
+    torch.cuda.synchronize()
+    bf16_launches = counts(ops)
+    expect_bf16_only("latent DDPM step vs the CPU")
+    ref = _latent_loss_and_grads(torch, blocks, lits["f32"][0], weights, torch.device("cpu"),
+                                 inputs, masks, True)
+    out["bf16"] = dict(readings(bf16, ref), launches=bf16_launches, masks=len(masks))
+    print(f"LitLatentDDPM bf16 loss + gradient at batch {BATCH} vs f32 CPU: {out['bf16']} "
+          f"(<= {GRAD_REL_L2})", flush=True)
+    if (bf16_launches != PER_TRAIN_STEP or out["bf16"]["grad_rel_l2"] > GRAD_REL_L2
+            or out["bf16"]["loss_rel_err"] > GRAD_REL_L2):
+        fail(f"the bf16 latent DDPM step on the card: {out['bf16']}")
+
+    # the f32 defaults: LitLatentDDPM() on the card (K1/K2/K3 in f32), the
+    # bf16 step above as its control
+    reset_counts(ops)
+    f32 = _latent_loss_and_grads(torch, blocks, lits["f32"][0], weights, dev, inputs, masks, True)
+    torch.cuda.synchronize()
+    f32_launches = {"bf16": counts(ops), "wide": wide_counts()}
+    out["f32"] = dict(readings(f32, ref), launches=f32_launches)
+    out["f32_control_bf16"] = readings(bf16, ref)
+    print(f"LitLatentDDPM() f32 on the card vs the CPU: {readings(f32, ref)} (<= {F32_REL_L2}), "
+          f"launches {f32_launches}; bf16 control {out['f32_control_bf16']}", flush=True)
+    if (f32_launches["bf16"] != NO_LAUNCHES
+            or f32_launches["wide"] != wide_expected("f32", PER_TRAIN_STEP)):
+        fail(f"the f32 latent step launched {f32_launches}")
+    if not all(v <= F32_REL_L2 for v in readings(f32, ref).values()):
+        fail("the f32 LitLatentDDPM() disagrees with the f32 CPU reference")
+    if not out["f32_control_bf16"]["grad_rel_l2"] > F32_REL_L2:
+        fail("the latent comparison does not tell bf16 compute from f32")
+    del lits, bf16, ref, f32
+    torch.cuda.empty_cache()
+
+    # LitVAE(): the default codec (latent 4, base 32, one block a level) in
+    # f32, its bf16 twin the control
+    from dmme_tpu_torch.training import LitVAE
+
+    vaes = {d: LitVAE(model=latent_codec(torch, blocks, d, {})[0]) for d in ("bf16", "f32")}
+    weights = dict(vaes["f32"].model.state_dict())
+    ref = _latent_loss_and_grads(torch, blocks, vaes["f32"], weights, torch.device("cpu"),
+                                 inputs, None, False)
+    reset_counts(ops)
+    f32 = _latent_loss_and_grads(torch, blocks, vaes["f32"], weights, dev, inputs, None, False)
+    bf16 = _latent_loss_and_grads(torch, blocks, vaes["bf16"], weights, dev, inputs, None, False)
+    torch.cuda.synchronize()
+    launches = {"bf16": counts(ops), "wide": wide_counts()}
+    out["vae_f32"], out["vae_control_bf16"] = readings(f32, ref), readings(bf16, ref)
+    print(f"LitVAE() f32 loss + gradient at batch {BATCH} vs the CPU: {out['vae_f32']} "
+          f"(<= {F32_REL_L2}); bf16 control {out['vae_control_bf16']}; launches {launches}",
+          flush=True)
+    if launches["bf16"] != NO_LAUNCHES or launches["wide"] != wide_expected("f32", NO_LAUNCHES):
+        fail(f"the codec launched a kernel: {launches}")
+    if not all(v <= F32_REL_L2 for v in out["vae_f32"].values()):
+        fail("the f32 LitVAE() disagrees with the f32 CPU reference")
+    if not out["vae_control_bf16"]["grad_rel_l2"] > F32_REL_L2:
+        fail("the codec comparison does not tell bf16 compute from f32")
+    return out
+
+
+def latent_cli(torch, np, ops, dev, card: str) -> dict:
+    """Phase 43: the two-stage recipe through ``trainer.main`` in this
+    process (deterministic cuDNN): ``fit`` of configs/latent/shapes_vae_demo.yaml
+    (bf16, batch 128, 20 steps in chunks of 10, checkpoints at 10 and 20; no
+    kernel launch), then of shapes_latent_demo.yaml (K3 6 a step) and
+    shapes_latent_flow_dit_demo.yaml (K3 8 a step) from that directory: the
+    latent scale calibrated and written to ``latent_scale.json``, equal to
+    the one recomputed from the same weights and data; stage 2 resumed from
+    step 10 to 20, bitwise the uninterrupted run; ``sample`` with and
+    without ``--trainer.sampler ddim`` (32x32x3 images), and the stage-1
+    config's ``sample --trainer.sampler ddim`` refused; then 25 timed steps
+    at batch 128 (median, device busy, operations, idle share, peak memory)
+    of the stage-1 ``LitVAE``, of ``LitLatentDDPM(dtype="bf16")`` with its
+    default UNet over the stage-1 codec (launches 45/45/6/0 a step) and of
+    the DiT config's ``LitLatentFlow``, under the library's cuDNN defaults."""
+    import shutil
+
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.data import Shapes
+    from dmme_tpu_torch.models.vae import ConvVAE
+    from dmme_tpu_torch.parallel import make_train_step
+    from dmme_tpu_torch.trainer import main as cli
+    from dmme_tpu_torch.training import CheckpointManager, LitLatentDDPM
+    from dmme_tpu_torch.training.latent import SCALE_FILENAME
+    from dmme_tpu_torch.utils.vis import make_history
+
+    torch.backends.cudnn.deterministic = True
+    roots = {k: os.path.join("build", f"cli_latent_{k}") for k in ("vae", "ddpm", "whole", "dit")}
+    for root in roots.values():
+        shutil.rmtree(root, ignore_errors=True)
+    common = [*LATENT_DATA, "--trainer.log_every_n_steps", "1", "--trainer.tensorboard", "false",
+              "--trainer.ckpt_every_n_steps", str(LATENT_FIT_HALF)]
+    stage2 = ["--model.init_args.vae_ckpt", roots["vae"]]
+
+    def run(path, name, root, max_steps, n_steps, per_step, *extra):
+        return cli_run(torch, ops, card, name,
+                       ["fit", "--config", path, *common, "--trainer.max_steps", str(max_steps),
+                        "--trainer.default_root_dir", root, *extra],
+                       launches_for(per_step, n_steps))
+
+    out = {"vae_fit": run(LATENT_VAE_CONFIG, f"stage 1 fit {LATENT_FIT_STEPS}", roots["vae"],
+                          LATENT_FIT_STEPS, LATENT_FIT_STEPS, NO_LAUNCHES)}
+    out["ddpm_fit"] = run(LATENT_DDPM_CONFIG, f"stage 2 DDPM fit {LATENT_FIT_HALF}",
+                          roots["ddpm"], LATENT_FIT_HALF, LATENT_FIT_HALF,
+                          PER_FORWARD_LATENT_CFG, *stage2)
+    with open(os.path.join(roots["vae"], SCALE_FILENAME)) as f:
+        saved = json.load(f)
+    cfg = tcfg.validate_config(tcfg.load_config(LATENT_DDPM_CONFIG))
+    probe = LitLatentDDPM(vae=ConvVAE(**LATENT_CODEC, dtype=torch.bfloat16),
+                          vae_params=CheckpointManager(roots["vae"]).load()["ema_params"],
+                          scale_probe_n=saved["probe_n"], dtype="bf16")
+    probe.init_state(0, device=dev)  # the probe runs on the state's device, as in fit
+    data = tcfg.instantiate(tcfg.apply_overrides(cfg, LATENT_DATA)["data"])
+    again = probe._resolve_scale(data)
+    out["scale"] = {"saved": saved, "recomputed": again, "equal": again == saved["latent_scale"]}
+    print(f"latent scale written by the stage-2 fit {saved}; recomputed from the same weights "
+          f"and data {again!r} (equal: {out['scale']['equal']})", flush=True)
+    if abs(again - saved["latent_scale"]) > 1e-6 * abs(again) or saved["probe_n"] != 256:
+        fail(f"the persisted latent scale is not the recomputed one: {out['scale']}")
+    del probe, data
+    out["ddpm_resume"] = run(LATENT_DDPM_CONFIG,
+                             f"stage 2 DDPM resume {LATENT_FIT_HALF} -> {LATENT_FIT_STEPS}",
+                             roots["ddpm"], LATENT_FIT_STEPS, LATENT_FIT_STEPS - LATENT_FIT_HALF,
+                             PER_FORWARD_LATENT_CFG, *stage2, "--trainer.resume", "true")
+    out["ddpm_whole"] = run(LATENT_DDPM_CONFIG, f"stage 2 DDPM uninterrupted {LATENT_FIT_STEPS}",
+                            roots["whole"], LATENT_FIT_STEPS, LATENT_FIT_STEPS,
+                            PER_FORWARD_LATENT_CFG, *stage2)
+    out["dit_fit"] = run(LATENT_DIT_CONFIG, f"stage 2 DiT fit {LATENT_FIT_STEPS}", roots["dit"],
+                         LATENT_FIT_STEPS, LATENT_FIT_STEPS, PER_FORWARD_LATENT_DIT, *stage2)
+    for key, root in (("vae_fit", "vae"), ("ddpm_whole", "whole"), ("dit_fit", "dit")):
+        logged = _jsonl(os.path.join(roots[root], "metrics.jsonl"))
+        out[key]["losses"] = [rec["loss"] for rec in logged]
+        out[key]["checkpoints"] = CheckpointManager(roots[root]).steps()
+        print(f"{key}: checkpoints {out[key]['checkpoints']}, losses "
+              f"{[round(v, 4) for v in out[key]['losses']]}", flush=True)
+        if (out[key]["checkpoints"] != [LATENT_FIT_HALF, LATENT_FIT_STEPS]
+                or len(logged) != LATENT_FIT_STEPS // LATENT_CHUNK
+                or not np.isfinite(out[key]["losses"]).all()):
+            fail(f"the latent CLI {key} left {out[key]}")
+    a = CheckpointManager(roots["ddpm"]).load(LATENT_FIT_STEPS)
+    b = CheckpointManager(roots["whole"]).load(LATENT_FIT_STEPS)
+    differ = state_differences(torch, a, b)
+    out["resume_bitwise"] = {"differing_tensors": len(differ), "first": differ[:8]}
+    print(f"stage 2 resumed vs uninterrupted at step {LATENT_FIT_STEPS}: {len(differ)} of "
+          f"{4 * len(a['params'])} tensors differ {differ[:8]}", flush=True)
+    if differ or a["step"] != b["step"]:
+        fail(f"the resumed stage-2 run is not bitwise the uninterrupted one: {differ[:8]}")
+    del a, b
+
+    # sample: the config's own sampler (ancestral DDPM at LATENT_SAMPLE_T
+    # steps: a 10-frame trajectory grid) and the DDIM-50 override on the
+    # trained T = 1000 schedule, 8 images of 32x32x3 each
+    argv = ["--config", LATENT_DDPM_CONFIG, *common, *stage2, "--trainer.default_root_dir",
+            roots["ddpm"], "--trainer.sample_batch", str(BATCH)]
+    from PIL import Image
+
+    out["sample"] = {}
+    for name, extra, forwards, frames in (
+            ("default", ["--model.init_args.timesteps", str(LATENT_SAMPLE_T)], LATENT_SAMPLE_T,
+             10), ("ddim", ["--trainer.sampler", "ddim"], 50, 1)):
+        rec = cli_run(torch, ops, card, f"stage 2 sample ({name})", ["sample", *argv, *extra],
+                      launches_for(PER_FORWARD_LATENT_CFG, forwards))
+        suffix = "" if name == "default" else "_ddim50"
+        path = os.path.join(roots["ddpm"], "samples", f"step_{LATENT_FIT_STEPS:08d}{suffix}.png")
+        with Image.open(path) as im:
+            rec["png"] = list(im.size[::-1])
+        want = list(make_history([np.zeros((BATCH, 32, 32, 3))] * frames).shape[:2])
+        rec["png_expected"] = want
+        print(f"stage 2 sample ({name}): {path} of {rec['png']} pixels, the grid of {frames} "
+              f"frame(s) of {BATCH} images of 32x32x3 ({want})", flush=True)
+        if rec["png"] != want:
+            fail(f"stage 2 sample ({name}) wrote a grid of {rec['png']}, expected {want}")
+        out["sample"][name] = rec
+    try:
+        cli(["sample", "--config", LATENT_VAE_CONFIG, *common, "--trainer.default_root_dir",
+             roots["vae"], "--trainer.sampler", "ddim"])
+    except ValueError as e:
+        out["vae_sampler_refused"] = str(e)
+    print(f"stage 1 sample --trainer.sampler ddim: {out.get('vae_sampler_refused')}", flush=True)
+    if "sampler overrides need a diffusion harness" not in out.get("vae_sampler_refused", ""):
+        fail("the stage-1 config took a sampler override")
+
+    # 25 timed steps of each harness at batch 128, from the saved states
+    torch.backends.cudnn.deterministic = False
+    harnesses = {
+        "vae": (LATENT_VAE_CONFIG, roots["vae"], []),
+        "ddpm_default": (None, roots["vae"], []),
+        "dit": (LATENT_DIT_CONFIG, roots["dit"], stage2),
+    }
+    for key, (path, root, extra) in harnesses.items():
+        if path is None:  # the harness default: the latent UNet with both switches, bf16
+            lit = LitLatentDDPM(vae=ConvVAE(**LATENT_CODEC, dtype=torch.bfloat16),
+                                vae_ckpt=roots["vae"], dtype="bf16")
+            state = lit.init_state(0, device=dev)
+        else:
+            lit = tcfg.instantiate(tcfg.validate_config(tcfg.apply_overrides(
+                tcfg.load_config(path), list(extra)))["model"])
+            state = CheckpointManager(root).restore(lit.init_state(0, device=dev))
+        dm = Shapes(size=4 * TRAIN_BATCH, batch_size=TRAIN_BATCH)
+        dm.setup("fit")
+        it = dm.train_iter(SEED + 17)
+
+        def batch(it=it):
+            return torch.from_numpy(next(it)).pin_memory().to(dev, non_blocking=True)
+
+        step = make_train_step(lit.make_loss_fn(dm))
+        state, _ = step(state, batch(), SEED)  # first launches of this step object
+        print(f"-- {key} ({type(lit).__name__}): train step at batch {TRAIN_BATCH}", flush=True)
+        reset_counts(ops)
+        _, out[f"{key}_timing"], out[f"{key}_profile_3_steps"], out[f"{key}_profile_1_step"] = (
+            timed_steps(torch, np, step, state, batch, card))
+        torch.cuda.synchronize()
+        out[f"{key}_launches"] = counts(ops)
+        expect_bf16_only(f"{key} timed steps")
+        per_step = {"vae": NO_LAUNCHES, "ddpm_default": PER_TRAIN_STEP,
+                    "dit": PER_FORWARD_LATENT_DIT}[key]
+        want = launches_for(per_step, TIMED_STEPS + 4)
+        if out[f"{key}_launches"] != want:
+            fail(f"the {key} steps launched {out[f'{key}_launches']}, expected {want}")
+        del state, lit, step
+        torch.cuda.empty_cache()
+    for root in roots.values():
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def latent_serve(torch, np, blocks, dev, ops, card: str) -> dict:
+    """Phase 44: the latent harnesses served at 32 px. ``LitLatentDDPM``
+    (bf16, default latent UNet and the configs' codec, random weights):
+    ``ddim`` (50 steps) and ``dpm`` (20) at n = 8, each repeated for
+    identical bytes, 1/6/22 launches a latent forward, images (8, 32, 32,
+    3); one ``ddim`` request profiled; the ``default`` ancestral loop (T =
+    1000) timed over 20 steps and extrapolated, with the decode. The latent
+    DiT's ``LitLatentFlow`` ``default`` (25 midpoint steps) at n = 8. A
+    ``LitVAE`` served: ``default`` answered 200 with decoded prior samples,
+    ``ddim`` 400 with JAX's message."""
+    from dmme_tpu_torch.serving import Sampler
+    from dmme_tpu_torch.training import LitVAE, TrainState
+
+    out = {}
+    lit, weights = latent_harness(torch, blocks)
+    sampler = Sampler(lit, TrainState.create(weights, lit.make_optimizer()), img_size=32,
+                      device=dev)
+    url, stop = _serve(torch, sampler)
+    try:
+        _post(url, {"n": BATCH, "seed": 99, "format": "npy", "sampler": "ddim", "steps": 2})
+        out["requests"] = solver_requests(np, url, ops, "latent DDPM", card, [
+            ("ddim", 50, launches_for(PER_FORWARD, 50)),
+            ("dpm", 20, launches_for(PER_FORWARD, 20))])
+    finally:
+        stop()
+    out["launches"] = {k: sum(r["launches"][k] for r in out["requests"]) for k in PER_FORWARD}
+    prof = profile_fn(torch, lambda: sampler.sample(BATCH, "ddim", 50, seed=5))
+    out["profile_ddim_n8"] = prof
+    print(f"latent DDPM ddim n=8 under torch.profiler: wall {prof['wall_ms']:.2f} ms, device "
+          f"busy {prof['busy_ms']:.2f} ms in {prof['device_ops']} operations, idle share "
+          f"{prof['idle_share']:.3f} [{card}]", flush=True)
+    for name, ms, count in prof["top"]:
+        print(f"    {ms:9.3f} ms {count:6d}x  {name}", flush=True)
+
+    # the default ancestral loop: 20 of its 1000 steps timed, then the decode
+    x = torch.randn((BATCH, *LATENT), generator=torch.Generator().manual_seed(SEED)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    algo, params = lit.diffusion_model.to(dev), sampler.state.ema_params
+    with torch.no_grad():
+        x = algo.sampling_step(lit.model_fn, params, x, 1000, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(999, 979, -1):
+            x = algo.sampling_step(lit.model_fn, params, x, t, gen)
+        torch.cuda.synchronize()
+        per_step = (time.perf_counter() - t0) / 20
+        t0 = time.perf_counter()
+        images = lit.to_images(x)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    out["t1000"] = {"step_s": per_step, "decode_s": decode_s,
+                    "request_s_extrapolated": 1000 * per_step + decode_s,
+                    "finite": bool(images.isfinite().all()), "shape": list(images.shape)}
+    print(f"latent DDPM ancestral sampling at n = {BATCH}: {1e3 * per_step:.3f} ms a step (20 "
+          f"steps, host clock), decode {1e3 * decode_s:.3f} ms, so "
+          f"{out['t1000']['request_s_extrapolated']:.2f} s a default request [{card}]", flush=True)
+    if not out["t1000"]["finite"] or out["t1000"]["shape"] != [BATCH, 32, 32, 3]:
+        fail(f"the latent ancestral steps: {out['t1000']}")
+    del sampler, lit, weights
+    torch.cuda.empty_cache()
+
+    lit, weights = latent_harness(torch, blocks, model=latent_config_model(torch,
+                                                                           LATENT_DIT_CONFIG),
+                                  flow=True)
+    sampler = Sampler(lit, TrainState.create(weights, lit.make_optimizer()), img_size=32,
+                      device=dev)
+    url, stop = _serve(torch, sampler)
+    try:
+        out["dit"] = {"requests": solver_requests(np, url, ops, "latent DiT", card, [
+            ("default", None, launches_for(PER_FORWARD_LATENT_DIT, FLOW_NFE))])}
+    finally:
+        stop()
+    out["dit"]["launches"] = out["dit"]["requests"][0]["launches"]
+    del sampler, lit, weights
+
+    vae, weights = latent_codec(torch, blocks)
+    lit = LitVAE(model=vae)
+    sampler = Sampler(lit, TrainState.create(weights, lit.make_optimizer()), img_size=32,
+                      device=dev)
+    url, stop = _serve(torch, sampler)
+    try:
+        out["vae"] = {"requests": solver_requests(np, url, ops, "LitVAE", card,
+                                                  [("default", None, NO_LAUNCHES)]),
+                      "ddim": rejected(url, "LitVAE", "ddim",
+                                       "sampler overrides need a diffusion harness")}
+    finally:
+        stop()
+    torch.cuda.empty_cache()
+    return out
+
+
+def latent_rows(report: dict) -> list:
+    """The kernels line's rows of the latent paths: K1/K3/K4 per latent UNet
+    forward at n = 8 (launches in the served ddim and dpm requests); K1/K2/K3
+    per default ``LitLatentDDPM`` step at batch 128 (launches in its timed
+    steps); K3 per step of the stage-2 config's UNet (launches in its
+    uninterrupted CLI fit) and per latent DiT forward at n = 8 and step at
+    batch 128 (launches in its default request and its CLI fit)."""
+    lk, ls, lc = report["latent_kernels"], report["latent_serve"], report["latent_cli"]
+    rows = [_table_row(f"{k}_latent", k, lk["per_forward"]["latent"][k], ls["launches"][k])
+            for k in ("group_norm_silu", "attention", "resblock")]
+    rows += [_table_row(f"{k}_latent_train", k, lk["train"]["per_step"][k],
+                        lc["ddpm_default_launches"][k])
+             for k in ("group_norm_silu", "group_norm_silu_bwd", "attention")]
+    rows.append(_table_row("attention_latent_cfg_train", "attention",
+                           lk["cfg_train"]["per_step"]["attention"],
+                           lc["ddpm_whole"]["launches"]["attention"]))
+    rows.append(_table_row("attention_latent_dit", "attention",
+                           lk["per_forward"]["dit"]["attention"],
+                           ls["dit"]["launches"]["attention"]))
+    rows.append(_table_row("attention_latent_dit_train", "attention",
+                           lk["dit_train"]["per_step"]["attention"],
+                           lc["dit_fit"]["launches"]["attention"]))
+    return rows
+
+
 def record_forwards(torch, blocks, runs, dev, targets=None) -> tuple:
     """Record the K1/K3/K4 inputs of eval forwards (``targets``: the entry
     points, by default :func:`serve_targets`). ``runs``: {name: (model, x,
@@ -4530,10 +5145,11 @@ def forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded) -> tuple:
                 torch.cuda.synchronize()
                 want = plain_fn()
                 max_abs, max_rel, ok = errors(got, want, rtol, atol)
+                same = bool(torch.equal(got, kern_fn()))  # a second call: the same bytes
                 rec = {
                     "kernel": kind_, "key": repr(key), "sites": e["sites"],
                     "max_abs_err": max_abs, "max_rel_err": max_rel,
-                    "rtol": rtol, "atol": atol, "ok": ok,
+                    "rtol": rtol, "atol": atol, "ok": ok and same, "repeat_identical": same,
                     "ms": device_ms(torch, kern_fn), "plain_ms": device_ms(torch, plain_fn),
                 }
                 rec["bound_ms"], rec["bound_by"] = bound_ms(kind_, a, k)
@@ -4571,8 +5187,9 @@ def forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded) -> tuple:
                       + (f" cudnn_seq {rec['cudnn_seq_ms']:.4f}" if rec.get("cudnn_seq_ms") else "")
                       + (f" torch_seq {rec['torch_seq_ms']:.4f} plan {rec['plan']}"
                          if kind_ == "group_norm_silu" else "")
-                      + ("" if ok else "  FAIL"), flush=True)
-                if not ok:
+                      + ("" if same else " repeat DIFFERENT")
+                      + ("" if rec["ok"] else "  FAIL"), flush=True)
+                if not rec["ok"]:
                     failures.append(f"{kind_} {key}")
     return shapes, failures
 
@@ -5017,6 +5634,25 @@ def main() -> int:
     phase(f"inpainting: RePaint with LitDDPM's DDPM (T = 1000), resample_steps "
           f"{INPAINT_RESAMPLE}, n = {BATCH}")
     report["inpaint"] = inpaint_phase(torch, np, blocks, dev, ops, card)
+    torch.cuda.empty_cache()
+
+    phase("latent kernels: the latent UNet's forwards at n = 1, 8, 16 (2x2 ResBlocks, T = 4 "
+          f"attention) and steps at batch {TRAIN_BATCH}; the stage-2 config UNet and DiT")
+    report["latent_kernels"] = latent_kernels(torch, np, blocks, k_gn, k_attn, k_res, build, dev,
+                                              ops, card)
+    torch.backends.cudnn.deterministic = True
+    phase("latent against the CPU: the bf16 codec and LitLatentDDPM step, the f32 LitVAE() "
+          "and LitLatentDDPM()")
+    report["latent_vs_cpu"] = latent_vs_cpu(torch, np, blocks, dev, ops, card)
+    torch.cuda.empty_cache()
+    phase(f"latent cli: trainer.main fit of {LATENT_VAE_CONFIG}, then {LATENT_DDPM_CONFIG} "
+          f"(a resume) and {LATENT_DIT_CONFIG} from its run; sample; timed steps")
+    report["latent_cli"] = latent_cli(torch, np, ops, dev, card)
+    torch.cuda.empty_cache()
+    phase("latent serve: LitLatentDDPM (ddim, dpm, the ancestral loop), the latent DiT flow "
+          "and a LitVAE over HTTP")
+    report["latent_serve"] = latent_serve(torch, np, blocks, dev, ops, card)
+    torch.cuda.empty_cache()
 
     phase("kernels")
     sources = {
@@ -5131,6 +5767,7 @@ def main() -> int:
              report["adm_guidance"]["launches"]["attention"])):
         table.append(_table_row(name, "attention", v, n_launch))
     table += slice_rows(report, shapes)
+    table += latent_rows(report)
     report["kernels"] = table
     print("kernels launched on their paths and held against their plain versions: "
           + "; ".join(f"{k['name']} ({k['route']}, {k['source']}, replaces {k['replaces']}, "
@@ -5168,8 +5805,15 @@ def main() -> int:
           f"fits. *_distill: per progressive-distillation step at batch {TRAIN_BATCH} (the "
           f"teacher's two forwards: K4 at N = {TRAIN_BATCH}, K1 at out_norm, K3; the student's "
           f"K1, K2, K3), launches in the driver's {DISTILL_ROUNDS} rounds of {DISTILL_STEPS} "
-          f"steps. *_inpaint: per n = {BATCH} DDPM forward, launches in the RePaint run)",
-          flush=True)
+          f"steps. *_inpaint: per n = {BATCH} DDPM forward, launches in the RePaint run. "
+          f"*_latent: per default latent UNet forward at n = {BATCH} on 16x16x4 latents, "
+          f"launches in its served ddim and dpm requests; *_latent_train: per default "
+          f"LitLatentDDPM step at batch {TRAIN_BATCH}, launches in its {TIMED_STEPS} timed and 4 "
+          f"profiled steps; attention_latent_cfg_train: per step of {LATENT_DDPM_CONFIG}'s UNet, "
+          f"launches in its uninterrupted {LATENT_FIT_STEPS}-step CLI fit; attention_latent_dit: "
+          f"per latent DiT forward at n = {BATCH}, launches in its default flow request; "
+          f"attention_latent_dit_train: per step at batch {TRAIN_BATCH}, launches in its "
+          f"{LATENT_FIT_STEPS}-step CLI fit)", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

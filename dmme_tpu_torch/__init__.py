@@ -9,14 +9,15 @@ tests. Activations keep the JAX package's NHWC layout at every public function.
   plain PyTorch version of each, taken for CPU tensors and, counted, for
   CUDA tensors outside the kernels' dtype (bf16)
 * ``dmme_tpu_torch.models``    — the DDPM and IDDPM UNets, the ADM family
-  (generator, noisy classifier) and the DiT with its mixture-of-experts FFN
-  as ``nn.Module``s
+  (generator, noisy classifier), the DiT with its mixture-of-experts FFN and
+  the KL-VAE codec of latent diffusion as ``nn.Module``s
 * ``dmme_tpu_torch.diffusion`` — DDPM / DDIM / IDDPM / EDM / flow training
   losses, the samplers, classifier-free and classifier guidance, RePaint
   inpainting and progressive distillation
 * ``dmme_tpu_torch.data``      — CIFAR-10 (on-disk or synthetic) and the
   procedural ``Shapes``, flips on the device
-* ``dmme_tpu_torch.training``  — the harnesses (``LitDDPM`` … ``LitDistill``, ``LitClassifier``),
+* ``dmme_tpu_torch.training``  — the harnesses (``LitDDPM`` … ``LitDistill``, ``LitClassifier``,
+  latent diffusion's ``LitVAE``, ``LitLatentDDPM`` and ``LitLatentFlow``),
   ``TrainState``, the optimizer chain, EMA, ``fit`` with checkpoints
   (``checkpoint``), resume, restarts and loggers (``loggers``), and
   ``evaluate.validate``

@@ -25,10 +25,6 @@ from dmme_tpu_torch.training.lit import resolve_dtype
 #: what the port has not ported yet, by JAX class path (or its prefix), with
 #: the ROADMAP item that ports it
 _NOT_PORTED = {
-    "dmme_tpu.training.LitVAE": "A.8: latent diffusion",
-    "dmme_tpu.training.LitLatentDDPM": "A.8: latent diffusion",
-    "dmme_tpu.training.LitLatentFlow": "A.8: latent diffusion",
-    "dmme_tpu.models.vae": "A.8: latent diffusion",
     "dmme_tpu.data.LSUN": "A.12: LSUN and the remaining data",
     "dmme_tpu.data.ImageFolder64": "A.12: LSUN and the remaining data",
 }

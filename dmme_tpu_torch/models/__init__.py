@@ -1,13 +1,15 @@
 """Denoisers as ``nn.Module``s (mirrors ``dmme_tpu.models``): the DDPM and
-IDDPM UNets, the ADM family with its noisy classifier (``adm``), and the
-Diffusion Transformer (``dit``) with its mixture-of-experts FFN (``moe``)."""
+IDDPM UNets, the ADM family with its noisy classifier (``adm``), the
+Diffusion Transformer (``dit``) with its mixture-of-experts FFN (``moe``),
+and latent diffusion's KL-VAE codec (``vae``)."""
 
 import torch
 
-from dmme_tpu_torch.models import adm, blocks, ddpm, dit, iddpm, moe
+from dmme_tpu_torch.models import adm, blocks, ddpm, dit, iddpm, moe, vae
 from dmme_tpu_torch.models.blocks import init_weights
 from dmme_tpu_torch.models.dit import DiT
 from dmme_tpu_torch.models.unet import UNet, build_topology
+from dmme_tpu_torch.models.vae import ConvVAE
 
 
 def eps_only(model_fn):
@@ -22,5 +24,6 @@ def eps_only(model_fn):
     return fn
 
 
-__all__ = ["adm", "ddpm", "iddpm", "dit", "moe", "blocks", "UNet", "DiT", "build_topology",
+__all__ = ["adm", "ddpm", "iddpm", "dit", "moe", "vae", "blocks", "UNet", "DiT", "ConvVAE",
+           "build_topology",
            "init_weights", "eps_only"]

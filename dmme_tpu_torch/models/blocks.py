@@ -185,11 +185,11 @@ class Downsample(nn.Module):
 
 
 class Upsample(nn.Module):
-    """Nearest ×2, then a 3×3 conv."""
+    """Nearest ×2, then a 3×3 conv to ``c_out`` channels (default: ``channels``)."""
 
-    def __init__(self, channels: int, dtype=torch.float32):
+    def __init__(self, channels: int, dtype=torch.float32, c_out: Optional[int] = None):
         super().__init__()
-        self.Conv_0 = conv3x3(channels, channels, 1, dtype)
+        self.Conv_0 = conv3x3(channels, channels if c_out is None else c_out, 1, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from dmme_tpu_torch.diffusion.factory import MODULE_SAMPLERS, STEP_DEFAULTS, check_sampler
-from dmme_tpu_torch.training.evaluate import _reject_conditioned_input
+from dmme_tpu_torch.training.evaluate import _reject_conditioned_input, reject_sampler_override
 from dmme_tpu_torch.utils.device import resolve_device
 from dmme_tpu_torch.utils.norm import denorm
 from dmme_tpu_torch.utils.vis import make_history
@@ -75,16 +75,17 @@ class Sampler:
         """(n, H, W, C) float32 in [0, 1]."""
         if not 1 <= n <= _BUCKETS[-1]:
             raise ValueError(f"n must be in [1, {_BUCKETS[-1]}], got {n}")
+        options = {}
         if sampler != "default":
             check_sampler(sampler)
-        shape = self.lit.sample_space_shape(
-            (_bucket(n), self.img_size, self.img_size, self.lit.img_channels))
+            reject_sampler_override(self.lit)
+            options = dict(sampler=sampler, steps=steps, refresh_interval=self.refresh_interval,
+                           cache_depth=self.cache_depth)
+        # an IMAGE shape: a latent harness's generate maps it and decodes
+        shape = (_bucket(n), self.img_size, self.img_size, self.lit.img_channels)
         with self._lock:  # one device: serialise generation
             generator = torch.Generator(device=self.device).manual_seed(int(seed))
-            out = self.lit.to_images(self.lit.generate(
-                self.state, generator, shape, steps=steps,
-                sampler=None if sampler == "default" else sampler,
-                refresh_interval=self.refresh_interval, cache_depth=self.cache_depth))
+            out = self.lit.generate(self.state, generator, shape, **options)
             out = denorm(out).to(torch.float32).cpu().numpy()
         return out[:n]
 

@@ -143,7 +143,8 @@ def cmd_sample(config: Dict[str, Any], device) -> None:
     class-conditional model samples through classifier-free guidance on
     uniform labels."""
     from dmme_tpu_torch.callbacks import GenerateImage
-    from dmme_tpu_torch.training.evaluate import _reject_conditioned_input
+    from dmme_tpu_torch.training.evaluate import (_reject_conditioned_input,
+                                                  reject_sampler_override)
 
     model, data, tc, _ = _build(config)
     _require_diffusion_harness(model, "sample")
@@ -151,6 +152,7 @@ def cmd_sample(config: Dict[str, Any], device) -> None:
     if sampler:
         check_sampler(sampler)
         _reject_conditioned_input(model, "sample --trainer.sampler")
+        reject_sampler_override(model)
     state, img_size, ckpt_dir = _restore_state(model, data, tc, device)
     n = int(tc.get("sample_batch") or 8)
     out_dir = os.path.join(ckpt_dir or ".", "samples")
@@ -165,10 +167,10 @@ def cmd_sample(config: Dict[str, Any], device) -> None:
     from dmme_tpu_torch.utils.vis import make_history
 
     steps = int(tc.get("sample_steps") or default_steps(sampler))
-    shape = model.sample_space_shape((n, img_size, img_size, model.img_channels))
-    out = model.to_images(model.generate(
-        state, torch.Generator(device=device).manual_seed(step), shape, sampler=sampler,
-        steps=steps, **_cache_options(tc)))
+    # an IMAGE shape: a latent harness's generate maps it and decodes
+    out = model.generate(state, torch.Generator(device=device).manual_seed(step),
+                         (n, img_size, img_size, model.img_channels), sampler=sampler,
+                         steps=steps, **_cache_options(tc))
     grid = make_history([denorm(out).to(torch.float32).cpu().numpy()])
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"step_{step:08d}_{sampler}{steps}.png")

@@ -73,6 +73,18 @@ def _reject_conditioned_input(lit, where: str) -> None:
             "lit.generate(..., low_res=...) — see scripts/upsample_demo.py")
 
 
+def reject_sampler_override(lit) -> None:
+    """Raise for a harness that has no diffusion solver to override (the
+    codec's ``LitVAE``, which samples its prior) on a path that names a
+    sampler: ``sample --trainer.sampler`` and the server's non-default
+    samplers. The message is the JAX package's."""
+    if not hasattr(lit, "diffusion_model"):
+        raise ValueError(
+            "sampler overrides need a diffusion harness; "
+            f"{type(lit).__name__} has no solver to override "
+            "(a LitVAE samples its prior — drop --trainer.sampler)")
+
+
 def test(*args, **kwargs):
     """FID and Inception Score over generated samples: not ported yet."""
     raise NotImplementedError("test (FID / Inception Score) is not ported yet "

@@ -162,12 +162,16 @@ class LitDDPM:
         on its labels, ``cond_dropout`` of them dropped to the null token
         (an unconditional model trains on the images). Every draw comes from
         ``generator``, in the order of the JAX package's key splits: flip,
-        drop mask, then the algorithm's (t, ε) and the model's dropout."""
+        drop mask, then the algorithm's (t, ε) and the model's dropout; a
+        latent harness draws its posterior sample between flip and drop mask
+        (:meth:`encode_target`)."""
 
         def loss_fn(params, generator, batch):
             x, y = batch if isinstance(batch, (tuple, list)) else (batch, None)
             if datamodule is not None:
                 x = datamodule.train_transform(generator, x)
+            # the latent seam (training/latent.py): the identity here, drawing nothing
+            x = self.encode_target(generator, x)
             box: list = []
             model_fn = base_fn = self.loss_model_fn(box)
             if y is not None and self.num_classes is not None:
@@ -215,6 +219,7 @@ class LitDDPM:
         """Eval-mode diffusion loss on a processed batch: no dropout, no
         gradient (so the UNet may take the fused ResBlock kernel). A
         class-conditional model conditions on the true labels ``y``."""
+        x = self.encode_eval(x)
         model_fn = self.model_fn
         if y is not None and self.num_classes is not None:
             model_fn = self.labelled_model_fn(y)
@@ -235,6 +240,18 @@ class LitDDPM:
             y = torch.randint(0, self.num_classes, (n,), generator=generator,
                               device=generator.device)
         return classifier_free(self.model_fn, y, self.guidance_scale, self.num_classes), generator
+
+    # the latent-space seam: the identity here; training/latent.py's
+    # LatentMixin overrides these hooks to train and sample in a frozen
+    # VAE's latent space, and maps image shapes in its own generate
+    def encode_target(self, generator: torch.Generator, x: torch.Tensor) -> torch.Tensor:
+        """The training target of a processed batch. Draws nothing here (every
+        pixel harness's draw order is pinned by tests)."""
+        return x
+
+    def encode_eval(self, x: torch.Tensor) -> torch.Tensor:
+        """The evaluation target of a processed batch."""
+        return x
 
     def sample_space_shape(self, img_shape):
         """Image shape → the shape the diffusion solver integrates."""
@@ -484,6 +501,7 @@ class LitUpsampler(LitDDPM):
     @torch.no_grad()
     def eval_loss(self, params, generator: torch.Generator, x: torch.Tensor,
                   y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.encode_eval(x)
         cond = resize_bilinear(self.downsample(x), x.shape[1:3])
         return self.diffusion_model.loss(self.bound_model_fn(cond), params, generator, x,
                                          train=False)

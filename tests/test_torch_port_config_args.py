@@ -4,8 +4,8 @@ A config names a class by its JAX path; the port resolves it to its own
 class (``config.resolve_class``) and validates the arguments against that
 class's constructor, following ``**kwargs`` up the MRO
 (``config.accepted_args``). This walks every JAX class the port resolves
-(the harnesses, data modules, callbacks and loggers, the UNet, ADM and
-DiT entries, and the guided samplers) and holds that each argument the JAX
+(the harnesses, data modules, callbacks and loggers, the UNet, ADM, DiT
+and VAE entries, and the guided samplers) and holds that each argument the JAX
 constructor takes is taken by the port's or named, with its ROADMAP item,
 in ``config._ARGS_NOT_PORTED``. It also holds the arguments that were
 refused before (fault C.9): the MoE loss weights, ``CIFAR10(download=)``
@@ -39,6 +39,8 @@ _UNETS = ("dmme_tpu.models.ddpm.UNet", "dmme_tpu.models.iddpm.UNet",
 #: the DiT entries (the module and its presets)
 _DIT = ("dmme_tpu.models.dit.DiT", "dmme_tpu.models.dit.DiT_S", "dmme_tpu.models.dit.DiT_B",
         "dmme_tpu.models.dit.DiT_L")
+#: latent diffusion's codec
+_VAE = ("dmme_tpu.models.vae.ConvVAE",)
 #: the ADM entries (factories and modules) and the guided samplers
 _ADM = ("dmme_tpu.models.adm.ADM", "dmme_tpu.models.adm.ADMG", "dmme_tpu.models.adm.ADMU",
         "dmme_tpu.models.adm.classifier", "dmme_tpu.models.adm.UNetModel",
@@ -49,7 +51,7 @@ _FLAX_FIELDS = {"parent", "name"}
 
 
 def _jax_targets():
-    paths = list(_UNETS) + list(_ADM) + list(_DIT)
+    paths = list(_UNETS) + list(_ADM) + list(_DIT) + list(_VAE)
     for name in _MODULES:
         mod = importlib.import_module(name)
         for attr in sorted(dir(mod)):
@@ -80,7 +82,9 @@ def test_the_walk_covers_the_ported_config_targets():
                  "dmme_tpu.training.LitIDDPM", "dmme_tpu.training.LitClassifier",
                  "dmme_tpu.data.CIFAR10", "dmme_tpu.data.Shapes",
                  "dmme_tpu.callbacks.GenerateImage", "dmme_tpu.training.loggers.WandbLogger",
-                 "dmme_tpu.training.LitDistill", *_UNETS, *_ADM, *_DIT):
+                 "dmme_tpu.training.LitDistill", "dmme_tpu.training.LitVAE",
+                 "dmme_tpu.training.LitLatentDDPM", "dmme_tpu.training.LitLatentFlow",
+                 "dmme_tpu.training.LatentMixin", *_UNETS, *_ADM, *_DIT, *_VAE):
         assert path in TARGETS
 
 
@@ -186,11 +190,12 @@ def test_cifar10_download_true_fetches_nothing(tmp_path, monkeypatch):
     CIFAR10(data_dir=str(tmp_path), download=True).prepare_data()
 
 
-@pytest.mark.parametrize("factory", _UNETS)
+@pytest.mark.parametrize("factory", _UNETS + _VAE)
 def test_param_dtype_f32_only(factory):
     """f32 parameters are the port's own; any other ``param_dtype`` raises
     naming ROADMAP A.13, from the config as from the constructor."""
-    small = {"channels_per_depth": [4, 8], "num_groups": 2, "pos_dim": 4, "emb_dim": 8}
+    small = ({"base_channels": 8, "num_groups": 2} if factory in _VAE else
+             {"channels_per_depth": [4, 8], "num_groups": 2, "pos_dim": 4, "emb_dim": 8})
     for value in ("float32", "f32"):
         model = tcfg.instantiate({"class_path": factory,
                                   "init_args": dict(small, param_dtype=value)})
@@ -208,21 +213,19 @@ VALIDATES = {"adm/cifar10_classifier", "adm/cifar10_guided", "ddim/cifar10", "dd
              "ddpm/shapes_demo", "ddpm/shapes_sr_demo", "edm/cifar10", "edm/shapes_demo",
              "flow/cifar10_dit", "flow/cifar10_dit_moe", "flow/shapes_demo",
              "flow/shapes_dit_demo", "flow/shapes_dit_moe_demo", "iddpm/cifar10",
-             "iddpm/shapes64_demo", "iddpm/shapes_demo"}
-WAITS = {"latent/shapes_latent_demo": "A.8",
-         "latent/shapes_latent_flow_dit_demo": "A.8", "latent/shapes_vae_demo": "A.8",
-         "ddpm/lsun_bedroom": "A.12", "ddpm/lsun_cat": "A.12", "ddpm/lsun_church": "A.12",
+             "iddpm/shapes64_demo", "iddpm/shapes_demo", "latent/shapes_latent_demo",
+             "latent/shapes_latent_flow_dit_demo", "latent/shapes_vae_demo"}
+WAITS = {"ddpm/lsun_bedroom": "A.12", "ddpm/lsun_cat": "A.12", "ddpm/lsun_church": "A.12",
          "iddpm/imagenet64": "A.12"}
 
 
 def test_thirteen_of_twenty_six_configs_validate():
-    """Nineteen since the DiT configs (A.7) validate; the name is the one
-    this test has had since thirteen did. The seven left wait for A.8 (3)
-    and A.12 (4)."""
+    """Twenty-two since the latent configs (A.8) validate; the name is the
+    one this test has had since thirteen did. The four left wait for A.12."""
     names = sorted(os.path.relpath(p, os.path.join(ROOT, "configs"))[:-len(".yaml")]
                    for p in glob.glob(os.path.join(ROOT, "configs", "*", "*.yaml")))
     assert len(names) == 26 and set(names) == VALIDATES | set(WAITS)
-    assert len(VALIDATES) == 19 and not VALIDATES & set(WAITS)
+    assert len(VALIDATES) == 22 and not VALIDATES & set(WAITS)
     for name in names:
         config = tcfg.load_config(os.path.join(ROOT, "configs", name + ".yaml"))
         if name in VALIDATES:

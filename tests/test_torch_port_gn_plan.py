@@ -5,7 +5,9 @@ The plan is checked at the 45 GroupNorm+SiLU sites of a full-width
 batch-128 training step (the DDPM and IDDPM UNets have the same sites), at
 the serving ``out_norm`` site at batch 1, 8 and 16, and at the
 GroupNorm+SiLU sites of the LSUN widths (``configs/ddpm/lsun_*.yaml``,
-256×256) at batch 1 and 2, for 2-byte elements (bf16 and fp16, which share
+256×256) at batch 1 and 2, and at the sites of latent diffusion's default
+UNet on 16×16×4 latents (training at batch 128, ``out_norm`` at 1, 8, 16),
+for 2-byte elements (bf16 and fp16, which share
 every plan) and 4-byte ones (f32); the sites come from UNet forwards on
 PyTorch's meta device. The card is an H100 SXM: 132 SMs, 227 KB of shared
 memory a block, clusters of up to 8 blocks (the portable size).
@@ -50,10 +52,11 @@ LSUN = dict(channels_per_depth=(128, 128, 256, 256, 512, 512), attention_depths=
 
 
 @functools.lru_cache(maxsize=None)
-def gn_sites(n: int, img: int, lsun: bool, iddpm: bool = False) -> tuple:
+def gn_sites(n: int, img: int, lsun: bool, iddpm: bool = False, channels: int = 3) -> tuple:
     """The (N, H, W, C) of every GroupNorm+SiLU call of a UNet forward with
     ``fused_norm`` on and ``fused_block`` off (as in training): the DDPM
-    UNet, at the LSUN widths with ``lsun``, or the IDDPM UNet."""
+    UNet, at the LSUN widths with ``lsun``, or the IDDPM UNet; ``channels``
+    in (4: latent diffusion's default UNet on img×img×4 latents)."""
     seen = []
 
     def gn_silu(x, gamma, beta, groups, eps=None, pre_bias=None):
@@ -70,8 +73,9 @@ def gn_sites(n: int, img: int, lsun: bool, iddpm: bool = False) -> tuple:
             setattr(blocks, k, fn)
         with torch.device("meta"), torch.no_grad():
             factory = iddpm_models.UNet if iddpm else ddpm_models.UNet
-            model = factory(dtype=torch.bfloat16, fused_norm=True, **(LSUN if lsun else {}))
-            model(torch.empty((n, img, img, 3)), torch.zeros((n,), dtype=torch.int64))
+            model = factory(in_channels=channels, dtype=torch.bfloat16, fused_norm=True,
+                            **(LSUN if lsun else {}))
+            model(torch.empty((n, img, img, channels)), torch.zeros((n,), dtype=torch.int64))
     finally:
         for k, fn in saved.items():
             setattr(blocks, k, fn)
@@ -180,6 +184,51 @@ def test_plan_at_the_serving_site(n):
     # few samples: the cluster widens toward the SMs, 8 blocks of 128 pixels
     assert (plan.blocks, plan.pixels, plan.two_pass) == (8, 128, False)
     assert plan.threads == t_gn.WIDE_THREADS
+
+
+# latent diffusion: the default latent UNet's 45 sites at batch 128 on
+# 16x16x4 latents, down to 2x2 (a group of 8 channels there holds 32 values),
+# and the (blocks, pixels, threads, two passes) of K1 and K2 in bf16 and f32;
+# its one serving site, out_norm at 16x16x128
+LATENT_SITES = {(2, 2, 256): 11, (2, 2, 512): 3, (4, 4, 256): 7, (4, 4, 512): 3,
+                (8, 8, 128): 3, (8, 8, 256): 5, (8, 8, 512): 2, (16, 16, 128): 8,
+                (16, 16, 256): 3}
+LATENT_PLANS = {  # {(H, W, C): ((K1 bf16, K2 bf16), (K1 f32, K2 f32))}
+    (2, 2, 256): (((1, 4, 512, False), (1, 4, 256, False)),) * 2,
+    (2, 2, 512): (((1, 4, 512, False), (1, 4, 256, False)),) * 2,
+    (4, 4, 256): (((1, 16, 512, False), (1, 16, 256, False)),) * 2,
+    (4, 4, 512): (((1, 16, 512, False), (1, 16, 256, False)),) * 2,
+    (8, 8, 128): (((1, 64, 512, False), (1, 64, 256, False)),) * 2,
+    (8, 8, 256): (((1, 64, 512, False), (1, 64, 256, False)),
+                  ((1, 64, 512, False), (1, 64, 512, False))),
+    (8, 8, 512): (((1, 64, 512, False), (1, 64, 512, False)),
+                  ((1, 64, 512, False), (2, 32, 512, False))),
+    (16, 16, 128): (((1, 256, 512, False), (1, 256, 512, False)),
+                    ((1, 256, 512, False), (2, 128, 512, False))),
+    (16, 16, 256): (((1, 256, 512, False), (2, 128, 512, False)),
+                    ((2, 128, 512, False), (8, 32, 256, False))),
+}
+
+
+def test_latent_training_sites_match_the_table():
+    sites = gn_sites(128, 16, False, channels=4)
+    assert len(sites) == 45 and _site_counts(sites) == LATENT_SITES
+
+
+@pytest.mark.parametrize("size", [2, 4])
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("h,w,c", sorted(LATENT_SITES))
+def test_plan_at_latent_training_sites(h, w, c, backward, size):
+    plan = _check_plan(128, h, w, c, backward, size)
+    got = (plan.blocks, plan.pixels, plan.threads, plan.two_pass)
+    assert got == LATENT_PLANS[(h, w, c)][size == 4][backward]
+
+
+@pytest.mark.parametrize("n", [1, 8, 16])
+def test_plan_at_the_latent_serving_site(n):
+    assert (n, 16, 16, 128) in gn_sites(n, 16, False, channels=4)
+    plan = _check_plan(n, 16, 16, 128, False)
+    assert (plan.blocks, plan.pixels, plan.threads, plan.two_pass) == (8, 32, 512, False)
 
 
 def _lsun_shapes():

@@ -1,9 +1,12 @@
 """Launch geometry of the port's CUDA kernels, planned in Python and checked
 on the CPU at every call site of the main path: K3 (attention) at serving
 batches 1, 8 and 16 and at training batch 128, K4 (fused ResBlock) at
-serving batches 1, 8 and 16; and at the LSUN widths of
+serving batches 1, 8 and 16; at the LSUN widths of
 ``configs/ddpm/lsun_*.yaml`` (channels 128/128/256/256/512/512, attention at
-depth 5, 256×256 inputs) at batch 1 and 2. The call sites come from a
+depth 5, 256×256 inputs) at batch 1 and 2; and on latent diffusion's 16×16×4
+latents (the latent harness's default UNet, the UNet of
+``configs/latent/shapes_latent_demo.yaml`` and the DiT of
+``shapes_latent_flow_dit_demo.yaml``). The call sites come from a
 full-width bf16 UNet forward on PyTorch's meta device (shapes only, no
 data), with the kernel entry points replaced by recorders. The card is an
 H100 SXM: 132 SMs.
@@ -18,6 +21,7 @@ import torch
 import dmme_tpu_torch.models.blocks as blocks
 from dmme_tpu_torch.models import ddpm as ddpm_models
 from dmme_tpu_torch.models import iddpm as iddpm_models
+from dmme_tpu_torch.models import unet as unet_models
 from dmme_tpu_torch.ops import SMEM_MAX
 from dmme_tpu_torch.ops import attention as t_attention
 from dmme_tpu_torch.ops import resblock as t_resblock
@@ -36,6 +40,11 @@ WIDTHS = {
     "iddpm": (iddpm_models.UNet, {}, 32),
     "iddpm64": (iddpm_models.UNet, dict(channels_per_depth=(128, 256, 384, 512), num_blocks=3,
                                         attention_depths=(3, 4), dropout=0.0), 64),
+    # latent diffusion on 16x16x4 latents: the latent harness's default UNet
+    # and the UNet of configs/latent/shapes_latent_demo.yaml (K3 only there)
+    "latent": (ddpm_models.UNet, dict(in_channels=4), 16),
+    "latent_cfg": (unet_models.UNet, dict(in_channels=4, channels_per_depth=(128, 256, 256),
+                                          attention_depths=(2,)), 16),
 }
 
 
@@ -68,7 +77,8 @@ def call_sites(n: int, widths: str = "cifar10") -> dict:
         with torch.device("meta"), torch.no_grad():
             model = unet(dtype=torch.bfloat16, fused_norm=True, fused_block=True, **kwargs)
             model.eval()
-            model(torch.empty((n, img, img, 3)), torch.zeros((n,), dtype=torch.int64))
+            model(torch.empty((n, img, img, kwargs.get("in_channels", 3))),
+                  torch.zeros((n,), dtype=torch.int64))
     finally:
         for k, fn in saved.items():
             setattr(blocks, k, fn)
@@ -455,6 +465,134 @@ def test_iddpm_attention_plans_are_pinned():
         assert seen == pinned, widths
 
 
+# Latent diffusion on 16x16x4 latents. The default latent UNet (both
+# switches) reaches K1/K4 at 2x2 (its bottom, 2x2x256) and K3 at T = 4
+# (its middle attention; 4 keys of one 32-key tile), T = 64 with D = 256 and
+# D = 128; the stage-2 config's UNet (128/256/256, no switches) K3 at T = 64
+# and 16; the DiT of shapes_latent_flow_dit_demo.yaml (hidden 256, patch 2)
+# K3 with 4 heads of 64 at T = 64. K3's plans depend on (T, H, D) alone at
+# these batches; K4's at the serving batches are pinned as MAIN_CONV pins
+# the pixel path's.
+LATENT_ATTENTION = {(64, 1, 128): (64, 64, 1, 1, 1, 1), (4, 1, 256): (64, 32, 1, 1, 1, 1),
+                    (64, 1, 256): (64, 32, 1, 2, 1, 2), (16, 1, 256): (64, 32, 1, 1, 1, 1),
+                    (64, 4, 64): (64, 64, 1, 1, 1, 1)}
+LATENT_CONV = {
+    (n, 2, 2, c, 256, proj): (64, (16, 2, 2), 1, 2, steps, splits, per)
+    for n in SERVE_BATCHES
+    for c, proj, steps, splits, per in ((256, 0, 36, 9, 4), (256, 512, 44, 11, 4),
+                                        (512, 0, 72, 18, 4))
+}
+LATENT_CONV.update({
+    (1, 4, 4, 256, 256, 0): (64, (4, 4, 4), 1, 2, 36, 9, 4),
+    (1, 4, 4, 256, 256, 512): (64, (4, 4, 4), 1, 2, 44, 11, 4),
+    (1, 4, 4, 512, 256, 0): (64, (4, 4, 4), 1, 2, 72, 18, 4),
+    (1, 8, 8, 128, 128, 256): (64, (1, 8, 8), 1, 1, 22, 5, 5),
+    (1, 8, 8, 128, 128, 512): (64, (1, 8, 8), 1, 1, 26, 6, 5),
+    (1, 8, 8, 128, 256, 0): (64, (1, 8, 8), 1, 2, 18, 4, 5),
+    (1, 8, 8, 256, 128, 0): (64, (1, 8, 8), 1, 1, 36, 9, 4),
+    (1, 8, 8, 256, 256, 0): (64, (1, 8, 8), 1, 2, 36, 9, 4),
+    (1, 8, 8, 256, 256, 128): (64, (1, 8, 8), 1, 2, 38, 8, 5),
+    (1, 8, 8, 256, 256, 512): (64, (1, 8, 8), 1, 2, 44, 11, 4),
+    (1, 8, 8, 512, 128, 0): (64, (1, 8, 8), 1, 1, 72, 18, 4),
+    (1, 8, 8, 512, 256, 0): (64, (1, 8, 8), 1, 2, 72, 18, 4),
+    (1, 16, 16, 128, 128, 0): (64, (1, 4, 16), 4, 1, 18, 4, 5),
+    (1, 16, 16, 128, 128, 256): (64, (1, 4, 16), 4, 1, 22, 5, 5),
+    (1, 16, 16, 256, 128, 0): (64, (1, 4, 16), 4, 1, 36, 9, 4),
+    (8, 4, 4, 256, 256, 0): (64, (4, 4, 4), 2, 2, 36, 9, 4),
+    (8, 4, 4, 256, 256, 512): (64, (4, 4, 4), 2, 2, 44, 11, 4),
+    (8, 4, 4, 512, 256, 0): (64, (4, 4, 4), 2, 2, 72, 18, 4),
+    (8, 8, 8, 128, 128, 256): (64, (1, 8, 8), 8, 1, 22, 5, 5),
+    (8, 8, 8, 128, 128, 512): (64, (1, 8, 8), 8, 1, 26, 6, 5),
+    (8, 8, 8, 128, 256, 0): (64, (1, 8, 8), 8, 2, 18, 4, 5),
+    (8, 8, 8, 256, 128, 0): (64, (1, 8, 8), 8, 1, 36, 9, 4),
+    (8, 8, 8, 256, 256, 0): (64, (1, 8, 8), 8, 2, 36, 8, 5),
+    (8, 8, 8, 256, 256, 128): (64, (1, 8, 8), 8, 2, 38, 8, 5),
+    (8, 8, 8, 256, 256, 512): (64, (1, 8, 8), 8, 2, 44, 8, 6),
+    (8, 8, 8, 512, 128, 0): (64, (1, 8, 8), 8, 1, 72, 15, 5),
+    (8, 8, 8, 512, 256, 0): (64, (1, 8, 8), 8, 2, 72, 8, 9),
+    (8, 16, 16, 128, 128, 0): (64, (1, 4, 16), 32, 1, 18, 4, 5),
+    (8, 16, 16, 128, 128, 256): (64, (1, 4, 16), 32, 1, 22, 4, 6),
+    (8, 16, 16, 256, 128, 0): (64, (1, 4, 16), 32, 1, 36, 4, 9),
+    (16, 4, 4, 256, 256, 0): (64, (4, 4, 4), 4, 2, 36, 9, 4),
+    (16, 4, 4, 256, 256, 512): (64, (4, 4, 4), 4, 2, 44, 11, 4),
+    (16, 4, 4, 512, 256, 0): (64, (4, 4, 4), 4, 2, 72, 15, 5),
+    (16, 8, 8, 128, 128, 256): (64, (1, 8, 8), 16, 1, 22, 5, 5),
+    (16, 8, 8, 128, 128, 512): (64, (1, 8, 8), 16, 1, 26, 6, 5),
+    (16, 8, 8, 128, 256, 0): (64, (1, 8, 8), 16, 2, 18, 4, 5),
+    (16, 8, 8, 256, 128, 0): (64, (1, 8, 8), 16, 1, 36, 8, 5),
+    (16, 8, 8, 256, 256, 0): (64, (1, 8, 8), 16, 2, 36, 4, 9),
+    (16, 8, 8, 256, 256, 128): (64, (1, 8, 8), 16, 2, 38, 4, 10),
+    (16, 8, 8, 256, 256, 512): (64, (1, 8, 8), 16, 2, 44, 4, 11),
+    (16, 8, 8, 512, 128, 0): (64, (1, 8, 8), 16, 1, 72, 8, 9),
+    (16, 8, 8, 512, 256, 0): (64, (1, 8, 8), 16, 2, 72, 4, 18),
+    (16, 16, 16, 128, 128, 0): (64, (1, 4, 16), 64, 1, 18, 2, 9),
+    (16, 16, 16, 128, 128, 256): (64, (1, 4, 16), 64, 1, 22, 2, 11),
+    (16, 16, 16, 256, 128, 0): (64, (1, 4, 16), 64, 1, 36, 2, 18),
+})
+#: the DiT's K3 call sites: (n, T, heads, D) at a serving and a training batch
+LATENT_DIT_SITES = [(n, 64, 4, 64) for n in SERVE_BATCHES + (TRAIN_BATCH,)]
+
+
+def test_latent_call_sites_per_forward():
+    """Latent UNet: 6 attention calls (T = 64 with D = 256 three times and
+    D = 128 twice, T = 4 once) and 22 ResBlocks down to 2x2; the config's
+    UNet: T = 16 in the middle, 17 ResBlocks."""
+    for widths, middle, res in (("latent", (8, 4, 1, 256), 22), ("latent_cfg", (8, 16, 1, 256),
+                                                                  17)):
+        sites = call_sites(8, widths)
+        counts = {}
+        for shape in sites["attention"]:
+            counts[shape] = counts.get(shape, 0) + 1
+        assert counts == {(8, 64, 1, 256): 3, (8, 64, 1, 128): 2, middle: 1}
+        assert len(sites["resblock"]) == res
+    assert {s[0][1] for s in call_sites(8, "latent")["resblock"]} == {16, 8, 4, 2}
+
+
+def _latent_attention():
+    for widths in ("latent", "latent_cfg"):
+        for n in SERVE_BATCHES + (TRAIN_BATCH,):
+            for shape in sorted(set(call_sites(n, widths)["attention"])):
+                yield n, shape
+    for shape in LATENT_DIT_SITES:
+        yield shape[0], shape
+
+
+@pytest.mark.parametrize("n,shape", list(_latent_attention()),
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_latent_attention_plan_covers_every_key_tile_once(n, shape):
+    _check_attention_plan(n, shape)
+    for size in (2, 4):
+        _check_attention_at(n, shape, size)
+
+
+@pytest.mark.parametrize("n,shape,cout,proj", [
+    (n, shape, cout, proj) for n in SERVE_BATCHES
+    for shape, cout, proj in sorted(set(call_sites(n, "latent")["resblock"]))],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_latent_resblock_plan_boxes_and_k_steps(n, shape, cout, proj):
+    """K4 down to 2x2: a box of 16 samples of 2x2, past the batch at n = 1 and 8."""
+    _check_resblock_plan(n, shape, cout, proj)
+
+
+def test_latent_plans_are_pinned():
+    seen_attn, seen_conv = {}, {}
+    for widths in ("latent", "latent_cfg"):
+        for n in SERVE_BATCHES + (TRAIN_BATCH,):
+            for nn, t, h, d in set(call_sites(n, widths)["attention"]):
+                plan = tuple(t_attention.attention_plan(nn, h, t, d, SMS))[:6]
+                assert seen_attn.setdefault((t, h, d), plan) == plan
+    for nn, t, h, d in LATENT_DIT_SITES:
+        seen_attn[(t, h, d)] = tuple(t_attention.attention_plan(nn, h, t, d, SMS))[:6]
+    for n in SERVE_BATCHES:
+        for (nn, h, w, cin), cout, proj in set(call_sites(n, "latent")["resblock"]):
+            for c_conv, c_proj in ((cin, 0), (cout, cin if proj else 0)):
+                p = t_resblock.conv_plan(nn, h, w, c_conv, cout, c_proj, SMS)
+                seen_conv[(nn, h, w, c_conv, cout, c_proj)] = (p.bm, p.box, p.m_tiles, p.n_tiles,
+                                                               p.steps, p.splits, p.per)
+    assert seen_attn == LATENT_ATTENTION
+    assert seen_conv == LATENT_CONV
+
+
 # K3 and K4 at both element sizes: 2 (bf16 and fp16, which share the 16-bit
 # kernels and their plans) and 4 (f32: K3's 3xTF32 mma.sync kernel, K4's
 # 3xTF32 wgmma convs). At every call site of every configuration above, the
@@ -462,7 +600,8 @@ def test_iddpm_attention_plans_are_pinned():
 # panels in 16 bits; K4's K step) is 128 bytes, f32 rows copy in 16-byte
 # pieces, and every key tile and K step falls in exactly one non-empty split.
 BATCHES = {"cifar10": SERVE_BATCHES + (TRAIN_BATCH,), "lsun": LSUN_BATCHES,
-           "iddpm": SERVE_BATCHES + (TRAIN_BATCH,), "iddpm64": SHAPES64_BATCHES}
+           "iddpm": SERVE_BATCHES + (TRAIN_BATCH,), "iddpm64": SHAPES64_BATCHES,
+           "latent": SERVE_BATCHES + (TRAIN_BATCH,), "latent_cfg": SERVE_BATCHES + (TRAIN_BATCH,)}
 
 
 def _sites_by_size():
