@@ -18,7 +18,7 @@ if the package is missing, or if any phase fails. Phases:
    one full-width bf16 UNet forward at each serving batch, 1, 8 and 16 (both
    switches on; at batch 8 also ``fused_norm`` only), then holds each kernel
    against its plain PyTorch version on those inputs, with times (CUDA
-   events, median of 25; K4's weights are packed once per weight state,
+   events, median of 15; K4's weights are packed once per weight state,
    before the timed runs) and the least time the card could take; beside
    K3, SDPA; beside K4, the same ResBlock as a cuDNN sequence
    (``cudnn_seq_ms``), which the port never calls;
@@ -64,7 +64,7 @@ if the package is missing, or if any phase fails. Phases:
 8. fit     — ``fit(LitDDPM(dtype="bf16"), CIFAR10(synthetic=True,
    batch_size=128))`` at the recipe's settings: warm steps, one step whose
    parameter and EMA updates are checked, 20 logged steps (loss and
-   grad_norm finite, launches per step), 25 steps timed with CUDA events
+   grad_norm finite, launches per step), 15 steps timed with CUDA events
    (median step ms, imgs/s), and three steps under ``torch.profiler``
    (device idle share; device time by kernel for one step);
 9. sample after training — a DDIM-50 n = 8 request from the trained raw
@@ -188,7 +188,7 @@ if the package is missing, or if any phase fails. Phases:
    that misses it; ``classifier_grad`` in bf16 and f32;
 32. ADM fit — ``trainer.main fit`` of both ADM configs (synthetic CIFAR-10,
    the classifier's labelled) for 10 steps, the classifier resumed to 20
-   bitwise against an uninterrupted run, then 25 timed steps of each
+   bitwise against an uninterrupted run, then 15 timed steps of each
    (median, device busy, operations, idle share);
 33. guidance — a ``ClassifierGuidedDDIM`` 50-step request at n = 8 on the
    trained cosine schedule (wall, launches, finite, identical bytes for a
@@ -212,7 +212,7 @@ if the package is missing, or if any phase fails. Phases:
 37. DiT fit — ``trainer.main fit`` of both DiT configs (synthetic CIFAR-10,
    batch 128) for 10 steps, the DiT resumed from step 5 bitwise against an
    uninterrupted run; the router losses that entered one MoE training loss
-   and each MoE block's routed fractions f_e; 25 timed steps of each
+   and each MoE block's routed fractions f_e; 15 timed steps of each
    (median, device busy, operations, idle share, peak memory) and the MoE
    blocks' dense dispatch timed alone;
 38. DiT serve — both DiT flow harnesses over HTTP: ``default`` (25 midpoint
@@ -250,14 +250,36 @@ if the package is missing, or if any phase fails. Phases:
    shapes_latent_flow_dit_demo.yaml from its run directory; the written
    ``latent_scale.json`` equal to a recomputation; ``sample`` with and
    without ``--trainer.sampler ddim`` (32x32x3 grids); the stage-1 config's
-   ``sample --trainer.sampler ddim`` refused; 25 timed steps at batch 128 of
+   ``sample --trainer.sampler ddim`` refused; 15 timed steps at batch 128 of
    ``LitVAE``, the default ``LitLatentDDPM(dtype="bf16")`` over the trained
    codec and the latent DiT's ``LitLatentFlow``;
 44. latent serve — ``LitLatentDDPM`` over HTTP at 32 px: ``ddim`` and ``dpm``
    at n = 8, one request profiled, the T = 1000 ancestral loop timed over
    20 steps and extrapolated with the decode; the latent DiT's ``default``
    flow request; a ``LitVAE``'s ``default`` (200) and ``ddim`` (400);
-45. the kernel table as one JSON line, the card's name and power limit, then
+45. eval inception — the FID network (``InceptionV3``, the stand-in
+   ``.pth`` of ``inception_standin`` loaded through ``load_torch_weights``)
+   at batch 128, f32 with TF32 off, against the unfolded twin on the card
+   and the CPU (``INCEPTION_REL_L2``), a TF32-on control that must miss it;
+   ``preprocess`` at 32 and 320 px against the CPU; the card's f32
+   ``FeatureStats`` of 256 + 256 samples against float64 (sums within
+   ``STATS_REL_L2``, moments beside the CPU's f32 ones, the FID within
+   ``FID_REL`` or what the CPU's f32 sums leave) and ``python -m
+   dmme_tpu_torch.fid`` on the same images; the feature function's ms with
+   TF32 off and on, the statistics update's, the forward's peak memory;
+46. eval test — ``trainer.main test`` (deterministic cuDNN, 2 batches of
+   128): ``configs/ddim/cifar10.yaml`` from a 20-step ``fit`` with
+   ``save_fid_stats``, with ``fid_stats`` (the same FID within 1e-6) and
+   repeated (bitwise the same results), with ``--trainer.sampler dpm``;
+   ``configs/ddpm/shapes_cfg_demo.yaml`` (guided calls at N = 256) and
+   ``configs/latent/shapes_latent_demo.yaml`` from phase 43's runs with
+   ``--trainer.sampler ddim``; the ``LitVAE`` config and ``cached``
+   refused with JAX's messages; launches per batch = steps × the call
+   sites of a meta-device forward, no f32, fp16 or ``simt.cu`` launch;
+   every K1/K3/K4 call of the first run held against its plain version
+   (``TOL``), twice for identical bytes, and timed; one test batch split
+   (generation s, Inception ms, statistics ms, idle share from a profile);
+47. the kernel table as one JSON line, the card's name and power limit, then
    ``{"ok": true, "device": ...}``.
 
 ``--out`` also writes every measurement to a JSON file. ``--kernels-only``
@@ -269,6 +291,7 @@ prints no result line: a short first check of new kernels.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -331,7 +354,7 @@ ATTN_BWD_REL_L2 = 2e-2
 # relative L2 of the flattened gradient
 GRAD_REL_L2 = 5e-2
 TRAIN_BATCH = 128
-FIT_WARM, FIT_STEPS, TIMED_STEPS = 3, 20, 25
+FIT_WARM, FIT_STEPS, TIMED_STEPS = 3, 20, 15
 # launches of one training step of the full-width UNet
 PER_TRAIN_STEP = {"group_norm_silu": 45, "group_norm_silu_bwd": 45, "attention": 6,
                   "resblock": 0}
@@ -374,7 +397,7 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(torch, fn, reps: int = 25) -> float:
+def device_ms(torch, fn, reps: int = 15) -> float:
     """Median device time of ``fn()`` in ms. A sleep kernel queued before each
     run lets the host enqueue the whole call before the start event fires, so
     the interval holds device time, not launch overhead."""
@@ -3650,7 +3673,7 @@ def adm_cli(torch, np, ops, dev, card: str) -> dict:
     CIFAR-10, 10 steps each with a checkpoint at 10 (K3 15 and 5 launches
     a step, nothing else); the classifier resumed to 20 against an
     uninterrupted 20-step run, bit for bit (deterministic cuDNN); then each
-    saved state's train step timed (25 steps: median, device busy,
+    saved state's train step timed (15 steps: median, device busy,
     operations, idle share) under the library's default cuDNN settings."""
     import shutil
 
@@ -4108,7 +4131,7 @@ def dit_cli(torch, np, ops, dev, card: str) -> dict:
     (deterministic cuDNN), and of cifar10_dit_moe.yaml for 10 steps (K3 12
     launches a step, nothing else); the router losses that entered one MoE
     training loss and round 1's routed fractions f_e; each saved state's
-    train step timed (25 steps: median, device busy, operations, idle
+    train step timed (15 steps: median, device busy, operations, idle
     share, peak memory) under the library's default cuDNN settings; and the
     MoE blocks' dense dispatch timed alone (:func:`moe_dispatch_ms`)."""
     import shutil
@@ -4288,7 +4311,7 @@ def distill_kernels(torch, np, blocks, k_gn, k_attn, k_res, build, dev, ops, car
     22 sites each, K3 6 and K1 at ``out_norm``) and the v student's
     training forward and backward (K1 45, K2 45, K3 6 and the attention
     backward), launches 47/45/18/44; each call held against its plain
-    version (``TOL``, ``TOL_BWD``) and timed; then the step timed (25 steps:
+    version (``TOL``, ``TOL_BWD``) and timed; then the step timed (15 steps:
     median, device busy, operations, idle share, peak memory)."""
     from dmme_tpu_torch.data import CIFAR10
     from dmme_tpu_torch.diffusion import ProgressiveDistillation
@@ -4817,7 +4840,7 @@ def latent_cli(torch, np, ops, dev, card: str) -> dict:
     the one recomputed from the same weights and data; stage 2 resumed from
     step 10 to 20, bitwise the uninterrupted run; ``sample`` with and
     without ``--trainer.sampler ddim`` (32x32x3 images), and the stage-1
-    config's ``sample --trainer.sampler ddim`` refused; then 25 timed steps
+    config's ``sample --trainer.sampler ddim`` refused; then 15 timed steps
     at batch 128 (median, device busy, operations, idle share, peak memory)
     of the stage-1 ``LitVAE``, of ``LitLatentDDPM(dtype="bf16")`` with its
     default UNet over the stage-1 codec (launches 45/45/6/0 a step) and of
@@ -4929,7 +4952,7 @@ def latent_cli(torch, np, ops, dev, card: str) -> dict:
     if "sampler overrides need a diffusion harness" not in out.get("vae_sampler_refused", ""):
         fail("the stage-1 config took a sampler override")
 
-    # 25 timed steps of each harness at batch 128, from the saved states
+    # TIMED_STEPS timed steps of each harness at batch 128, from the saved states
     torch.backends.cudnn.deterministic = False
     harnesses = {
         "vae": (LATENT_VAE_CONFIG, roots["vae"], []),
@@ -4968,8 +4991,10 @@ def latent_cli(torch, np, ops, dev, card: str) -> dict:
             fail(f"the {key} steps launched {out[f'{key}_launches']}, expected {want}")
         del state, lit, step
         torch.cuda.empty_cache()
-    for root in roots.values():
-        shutil.rmtree(root, ignore_errors=True)
+    for key, root in roots.items():
+        if key not in ("vae", "ddpm"):  # the eval phase tests from these, then removes them
+            shutil.rmtree(root, ignore_errors=True)
+    out["kept_roots"] = {k: roots[k] for k in ("vae", "ddpm")}
     return out
 
 
@@ -5089,6 +5114,497 @@ def latent_rows(report: dict) -> list:
     return rows
 
 
+EVAL_ROOT = os.path.join("build", "eval")
+EVAL_BATCHES = 2  # trainer.limit_test_batches of the eval paths
+EVAL_FIT_STEPS = 20
+DDIM_CONFIG = "configs/ddim/cifar10.yaml"
+EVAL_DATA = ["--data.init_args.synthetic", "true"]
+#: the f32 Inception on the card (TF32 off) against the unfolded twin on the
+#: card and against the port's forward on the CPU, relative L2
+INCEPTION_REL_L2 = 1e-5
+#: the card's f32 sums Σx and Σxxᵀ against float64 sums of the same features
+STATS_REL_L2 = 1e-6
+#: ``preprocess`` on the card against the CPU: both compute the bilinear
+#: weights in f32 from source coordinates (up to 320 px, ulp 3.1e-5); the CPU
+#: and JAX differ by 2.5e-5 at 320 px (tests/test_torch_port_eval.py)
+PREPROCESS_ATOL = 5e-5
+#: the FID of the card's f32 statistics against the float64 one: 256
+#: samples a side in 2048 dimensions leave rank-255 covariances, and the
+#: roundoff of the f32 sums enters the square root at ~1,800 eigenvalues
+FID_REL = 1e-3
+EVAL_KEYS = {"fid", "inception_score", "inception_score_std", "num_batches", "use_ema",
+             "sampler", "sample_steps"}
+
+
+def inception_standin(torch, path: str):
+    """A stand-in for pytorch-fid's ``pt_inception-2015-12-05`` file, in its
+    layout: tests/torch_inception.py's FID twin, ``randomize``d (random
+    weights and BN running statistics), its kernels and BN scales redrawn
+    at He scale so that the 2048 features follow the input (at ``randomize``'s
+    N(0, 0.1²) kernels they are nearly constant, and every FID ≈ 0). Written
+    to ``path``; returns the twin. The file is loaded by its path: ``tests``
+    has no ``__init__.py``, and an installed package of that name would win."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_inception", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                        "torch_inception.py"))
+    twin_module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin_module)
+    twin = twin_module.randomize(twin_module.TorchInceptionV3(variant="fid"), seed=SEED + 11)
+    g = torch.Generator().manual_seed(SEED + 11)
+    with torch.no_grad():
+        for m in twin.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                               * (2.0 / m.weight[0].numel()) ** 0.5)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=g) + 0.5)
+        twin.fc.weight.copy_(torch.randn(twin.fc.weight.shape, generator=g) / 2048 ** 0.5)
+    torch.save(twin.state_dict(), path)
+    return twin
+
+
+def meta_sites(torch, blocks, build_model, x_shape, **forward_kw) -> dict:
+    """K1/K3/K4 calls of one eval forward of ``build_model()`` at the NHWC
+    input ``x_shape``, counted on PyTorch's meta device (shapes only), as
+    tests/test_torch_port_kernel_plans.py counts them."""
+    seen = {"group_norm_silu": 0, "group_norm_silu_bwd": 0, "attention": 0, "resblock": 0}
+
+    def gn(x, gamma, beta, groups, eps=None, pre_bias=None):
+        seen["group_norm_silu"] += 1
+        return torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+
+    def attention(q, k, v, scale, *rest):
+        seen["attention"] += 1
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+    def resblock(x, *args, wr=None, br=None, num_groups=32, eps=None):
+        seen["resblock"] += 1
+        return torch.empty((*x.shape[:3], args[5].shape[0]), dtype=x.dtype, device=x.device)
+
+    patched = {"group_norm_silu": gn, "attention_heads": attention, "resblock_forward": resblock}
+    saved = {k: getattr(blocks, k) for k in patched}
+    try:
+        for k, fn in patched.items():
+            setattr(blocks, k, fn)
+        with torch.device("meta"), torch.no_grad():
+            model = build_model().eval()
+            model(torch.empty(x_shape), torch.zeros((x_shape[0],), dtype=torch.int64),
+                  **forward_kw)
+    finally:
+        for k, fn in saved.items():
+            setattr(blocks, k, fn)
+    return seen
+
+
+def _rel(got, want) -> float:
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+def eval_inception(torch, np, dev, card: str) -> dict:
+    """Phase 45: evaluation's network and statistics on the card. The
+    port's ``InceptionV3`` loads the stand-in ``.pth`` through
+    ``load_torch_weights`` (BN folded) and runs a batch of 128 CIFAR-sized
+    images at 299 px in f32 with TF32 off: against the unfolded twin on the
+    card and the port's forward on the CPU within ``INCEPTION_REL_L2``, and
+    with TF32 on, which must miss it; ``preprocess`` on the card against the
+    CPU at 32 and 320 px; the card's f32 ``FeatureStats`` of 256 + 256
+    samples against float64 sums (``STATS_REL_L2``), their moments beside the
+    CPU's f32 ones, the FID against the float64 one (``FID_REL``), and
+    ``python -m dmme_tpu_torch.fid`` on the same images; then the feature
+    function's ms per batch of 128 with TF32 off and on, the statistics
+    update's ms and the forward's peak memory."""
+    import copy
+
+    from dmme_tpu_torch.data import CIFAR10
+    from dmme_tpu_torch.eval import inception as tinc
+    from dmme_tpu_torch.eval.fid import FeatureStats, frechet_distance
+    from dmme_tpu_torch.fid import main as fid_tool
+    from dmme_tpu_torch.utils.device import ieee_f32
+
+    os.makedirs(EVAL_ROOT, exist_ok=True)
+    pth = os.path.join(EVAL_ROOT, "pt_inception_standin.pth")
+    twin = inception_standin(torch, pth).to(dev)
+    model = tinc.load_torch_weights(tinc.InceptionV3(), pth).eval()
+    cpu_model = copy.deepcopy(model)
+    model = model.to(dev)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    x01 = torch.rand((TRAIN_BATCH, 32, 32, 3), generator=gen)
+    x = tinc.preprocess(x01)
+    out = {"weights": pth}
+    with torch.no_grad():
+        with ieee_f32():
+            got = model(x.to(dev))
+            twin_out = twin(x.to(dev).permute(0, 3, 1, 2))
+        cpu = cpu_model(x)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = model(x.to(dev))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for i, name in enumerate(("features", "logits")):
+        rec = {"vs_twin": _rel(got[i].cpu(), twin_out[i].cpu()),
+               "vs_cpu": _rel(got[i].cpu(), cpu[i]), "tf32_vs_cpu": _rel(tf32[i].cpu(), cpu[i])}
+        out[name] = rec
+        print(f"Inception {name} at batch {TRAIN_BATCH}, f32 on the card, TF32 off: rel L2 "
+              f"{rec['vs_twin']:.3e} against the unfolded twin on the card, {rec['vs_cpu']:.3e} "
+              f"against the CPU (<= {INCEPTION_REL_L2}); TF32 on: {rec['tf32_vs_cpu']:.3e} "
+              f"against the CPU (must miss it)", flush=True)
+        if not (rec["vs_twin"] <= INCEPTION_REL_L2 and rec["vs_cpu"] <= INCEPTION_REL_L2):
+            fail(f"the f32 Inception {name} on the card disagree: {rec}")
+        if not rec["tf32_vs_cpu"] > INCEPTION_REL_L2:
+            fail(f"the TF32 control of the Inception {name} does not miss {INCEPTION_REL_L2}")
+    del twin, twin_out, cpu_model, tf32
+
+    out["preprocess"] = {}
+    for size in (32, 320):
+        xs = torch.rand((8, size, size, 3), generator=gen)
+        card_pre, cpu_pre = tinc.preprocess(xs.to(dev)).cpu(), tinc.preprocess(xs)
+        rec = {"rel_l2": _rel(card_pre, cpu_pre),
+               "max_abs": float((card_pre - cpu_pre).abs().max())}
+        out["preprocess"][size] = rec
+        print(f"preprocess {size} -> 299 on the card against the CPU: rel L2 {rec['rel_l2']:.3e}, "
+              f"max abs {rec['max_abs']:.3e} (<= {PREPROCESS_ATOL})", flush=True)
+        if not rec["max_abs"] <= PREPROCESS_ATOL:
+            fail(f"preprocess at {size} px differs on the card: {rec}")
+
+    # the statistics: 256 synthetic CIFAR-10 images against 256 of noise
+    feature_fn = tinc.make_feature_fn(pth, device=dev)
+    data = CIFAR10(synthetic=True, synthetic_size=2 * TRAIN_BATCH, batch_size=TRAIN_BATCH)
+    data.setup("test")
+    sets = {"cifar": data.test_data.astype(np.float32) / np.float32(255),
+            "noise": torch.rand((2 * TRAIN_BATCH, 32, 32, 3), generator=gen).numpy()}
+    feats, card_stats, cpu_stats = {}, {}, {}
+    for name, images in sets.items():
+        np.save(os.path.join(EVAL_ROOT, f"{name}.npy"), images)
+        parts = [feature_fn(images[i: i + TRAIN_BATCH])[0]
+                 for i in range(0, len(images), TRAIN_BATCH)]
+        s, c = FeatureStats.create(2048, device=dev), FeatureStats.create(2048)
+        for p in parts:
+            s, c = s.update(p), c.update(p.cpu())
+        feats[name] = torch.cat(parts).cpu().double().numpy()
+        card_stats[name], cpu_stats[name] = s, c
+    stats = {}
+    for name, f in feats.items():
+        s = card_stats[name]
+        mu64, cov64 = f.mean(axis=0), np.cov(f, rowvar=False)
+        mu, cov = s.moments()
+        mu_c, cov_c = cpu_stats[name].moments()
+        rec = {"sum_rel_l2": _rel(s.sum.cpu(), torch.from_numpy(f.sum(axis=0))),
+               "outer_rel_l2": _rel(s.outer.cpu(), torch.from_numpy(f.T @ f)),
+               "mu_rel_l2": float(np.linalg.norm(mu - mu64) / np.linalg.norm(mu64)),
+               "cov_rel_l2": float(np.linalg.norm(cov - cov64) / np.linalg.norm(cov64)),
+               "cpu_cov_rel_l2": float(np.linalg.norm(cov_c - cov64) / np.linalg.norm(cov64)),
+               "mean_sq_over_var": float(np.mean(mu64 ** 2) / np.mean(np.diag(cov64)))}
+        with torch.no_grad():  # the control: the same product with TF32 on
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                fd = torch.from_numpy(f).float().to(dev)
+                rec["tf32_outer_rel_l2"] = _rel(torch.matmul(fd.T, fd).cpu(),
+                                                torch.from_numpy(f.T @ f))
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        stats[name] = rec
+        print(f"FeatureStats of {len(f)} {name} feature vectors, f32 on the card against float64: "
+              f"Σx {rec['sum_rel_l2']:.3e}, Σxxᵀ {rec['outer_rel_l2']:.3e} (<= {STATS_REL_L2}; "
+              f"TF32 on: {rec['tf32_outer_rel_l2']:.3e}); moments μ {rec['mu_rel_l2']:.3e}, "
+              f"Σ {rec['cov_rel_l2']:.3e} (the CPU's f32 sums: {rec['cpu_cov_rel_l2']:.3e}; "
+              f"|μ|²/σ² {rec['mean_sq_over_var']:.1f} sets the cancellation)", flush=True)
+        if not (rec["sum_rel_l2"] <= STATS_REL_L2 and rec["outer_rel_l2"] <= STATS_REL_L2):
+            fail(f"the card's f32 feature sums of {name} miss {STATS_REL_L2}: {rec}")
+        if not rec["cov_rel_l2"] <= max(STATS_REL_L2, 4 * rec["cpu_cov_rel_l2"]):
+            fail(f"the card's covariance of {name} is worse than the CPU's f32 one: {rec}")
+    out["stats"] = stats
+    fid64 = frechet_distance(feats["cifar"].mean(0), np.cov(feats["cifar"], rowvar=False),
+                             feats["noise"].mean(0), np.cov(feats["noise"], rowvar=False))
+    fid_card = frechet_distance(*card_stats["cifar"].moments(), *card_stats["noise"].moments())
+    fid_cpu = frechet_distance(*cpu_stats["cifar"].moments(), *cpu_stats["noise"].moments())
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fid_tool([os.path.join(EVAL_ROOT, "cifar.npy"), os.path.join(EVAL_ROOT, "noise.npy"),
+                  "--weights", pth, "--batch-size", str(TRAIN_BATCH)])
+    fid_cli = float(buf.getvalue().strip().splitlines()[-1].split()[-1])
+    out["fid"] = {"float64": fid64, "card": fid_card, "cpu_f32": fid_cpu, "fid_tool": fid_cli,
+                  "card_rel": abs(fid_card - fid64) / abs(fid64),
+                  "cpu_rel": abs(fid_cpu - fid64) / abs(fid64)}
+    # the bound: FID_REL, or what the CPU's f32 sums of the same features leave
+    bound = out["fid"]["bound"] = max(FID_REL, 4 * out["fid"]["cpu_rel"])
+    print(f"FID cifar vs noise ({len(feats['cifar'])} a side): float64 {fid64:.6f}, the card's "
+          f"f32 statistics {fid_card:.6f} (rel {out['fid']['card_rel']:.3e}, <= {bound:.3e}: "
+          f"{'FID_REL' if bound == FID_REL else '4x the CPU f32 error'}), the CPU's f32 "
+          f"{fid_cpu:.6f} (rel {out['fid']['cpu_rel']:.3e}); python -m dmme_tpu_torch.fid "
+          f"on the card: {fid_cli:.6f}", flush=True)
+    if not out["fid"]["card_rel"] <= bound or abs(fid_cli - fid_card) > 1e-6 * abs(fid_card):
+        fail(f"the FID of the card's statistics is off: {out['fid']}")
+
+    xd = x01.to(dev)
+    deterministic = torch.backends.cudnn.deterministic
+    try:  # a user's cuDNN defaults (any algorithm), then the deterministic ones
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            tag = "_deterministic" if det else ""
+            out[f"inception{tag}_ms"] = device_ms(torch, lambda: feature_fn(xd), reps=10)
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            try:  # the same network and inputs with TF32 allowed, outside the feature function
+                with torch.no_grad():
+                    out[f"inception_tf32{tag}_ms"] = device_ms(
+                        torch, lambda: model(tinc.preprocess(xd)), reps=10)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    f0 = feature_fn(xd)[0]
+    s0 = FeatureStats.create(2048, device=dev)
+    out["stats_update_ms"] = device_ms(torch, lambda: s0.update(f0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    feature_fn(xd)
+    torch.cuda.synchronize()
+    out["forward_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    print(f"Inception feature function, batch {TRAIN_BATCH} at 32 -> 299 px, cuDNN's defaults: "
+          f"{out['inception_ms']:.3f} ms with TF32 off, {out['inception_tf32_ms']:.3f} ms with "
+          f"TF32 on (deterministic cuDNN: {out['inception_deterministic_ms']:.3f} and "
+          f"{out['inception_tf32_deterministic_ms']:.3f}); FeatureStats.update "
+          f"{out['stats_update_ms']:.4f} ms; forward peak {out['forward_peak_gib']:.3f} GiB "
+          f"above its weights [{card}]", flush=True)
+    del model, feature_fn, xd, f0, s0
+    torch.cuda.empty_cache()
+    return out
+
+
+def _test_run(torch, np, ops, card: str, name: str, argv, want: dict) -> dict:
+    """``trainer.main(["test", ...])`` through :func:`cli_run`, its printed
+    results parsed: JAX's keys, finite values, no ``warning``."""
+    import ast
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rec = cli_run(torch, ops, card, name, ["test", *argv], want)
+    print(buf.getvalue(), end="", flush=True)
+    results = ast.literal_eval([line for line in buf.getvalue().splitlines()
+                                if line.startswith("{'fid'")][-1])
+    rec["results"] = results
+    print(f"{name}: {results}", flush=True)
+    if (set(results) != EVAL_KEYS or results["num_batches"] != EVAL_BATCHES
+            or not all(np.isfinite(results[k]) for k in ("fid", "inception_score",
+                                                         "inception_score_std"))):
+        fail(f"{name} returned {results}")
+    return rec
+
+
+def eval_test(torch, np, blocks, k_gn, k_attn, k_res, build, ops, dev, card: str,
+              latent_roots: dict) -> dict:
+    """Phase 46: ``trainer.main test`` on the card (deterministic cuDNN),
+    ``limit_test_batches`` 2 of 128, the stand-in Inception weights:
+    configs/ddim/cifar10.yaml from a 20-step ``fit`` (DDIM-50: launches 50 ×
+    the UNet's call sites a batch, counted on the meta device) with
+    ``save_fid_stats``, with ``fid_stats`` (the same FID within 1e-6) and
+    repeated (bitwise the same results); with ``--trainer.sampler dpm``
+    (20 steps); configs/ddpm/shapes_cfg_demo.yaml with ``--trainer.sampler
+    ddim`` (one guided call at N = 256 a step); configs/latent/shapes_latent_demo.yaml
+    from the latent CLI phase's runs (``latent_roots``; removed here), the
+    fakes decoded to 32×32×3; the stage-1 ``LitVAE`` config and
+    ``--trainer.sampler cached`` refused with JAX's messages. Every
+    K1/K3/K4 call of the first run is held against its plain version
+    (``TOL``), repeated for identical bytes, and timed. Then one test batch
+    split: generation s, Inception ms, statistics ms, the device's idle
+    share from a profile."""
+    import shutil
+
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.models import ddpm as ddpm_models
+    from dmme_tpu_torch.trainer import main as cli
+
+    torch.backends.cudnn.deterministic = True
+    pth = os.path.join(EVAL_ROOT, "pt_inception_standin.pth")
+    roots = {k: os.path.join("build", f"eval_{k}") for k in ("ddim", "cfg")}
+    for root in roots.values():
+        shutil.rmtree(root, ignore_errors=True)
+    stats_path = os.path.join(EVAL_ROOT, "real_stats.npz")
+    out = {}
+    fit_rec = cli_run(torch, ops, card, f"eval: fit {EVAL_FIT_STEPS} of {DDIM_CONFIG}",
+                      ["fit", "--config", DDIM_CONFIG, *EVAL_DATA,
+                       "--trainer.max_steps", str(EVAL_FIT_STEPS),
+                       "--trainer.ckpt_every_n_steps", str(EVAL_FIT_STEPS),
+                       "--trainer.log_every_n_steps", "10", "--trainer.callbacks", "[]",
+                       "--trainer.default_root_dir", roots["ddim"]],
+                      launches_for(PER_TRAIN_STEP, EVAL_FIT_STEPS))
+    out["fit"] = fit_rec
+    sites = {"ddim": meta_sites(torch, blocks, lambda: ddpm_models.UNet(
+                 dtype=torch.bfloat16, fused_norm=True, fused_block=True),
+                 (TRAIN_BATCH, 32, 32, 3)),
+             "cfg": meta_sites(torch, blocks, lambda: ddpm_models.UNet(
+                 dtype=torch.bfloat16, fused_norm=True, fused_block=True, num_classes=2),
+                 (2 * TRAIN_BATCH, 32, 32, 3),
+                 y=torch.zeros((2 * TRAIN_BATCH,), dtype=torch.int64, device="meta")),
+             "latent": meta_sites(torch, blocks, lambda: tcfg.instantiate(
+                 tcfg.load_config(LATENT_DDPM_CONFIG)["model"]["init_args"]["model"]),
+                 (TRAIN_BATCH, 16, 16, 4))}
+    out["sites"] = sites
+    print(f"call sites of one forward on the meta device: {sites}", flush=True)
+    if sites["ddim"] != PER_FORWARD:
+        fail(f"the DDIM config's UNet has call sites {sites['ddim']}, expected {PER_FORWARD}")
+
+    ddim = ["--config", DDIM_CONFIG, *EVAL_DATA, "--trainer.default_root_dir", roots["ddim"],
+            "--trainer.limit_test_batches", str(EVAL_BATCHES), "--trainer.inception_weights", pth]
+    recorded = {}
+
+    def first():
+        out["save"] = _test_run(torch, np, ops, card, "eval: test DDIM-50, save_fid_stats",
+                                [*ddim, "--trainer.save_fid_stats", stats_path],
+                                launches_for(sites["ddim"], EVAL_BATCHES * 50))
+
+    calls = record_calls(serve_targets(blocks), first)
+    forwards = EVAL_BATCHES * 50
+    for kind, lst in calls.items():
+        recorded[kind] = {key: {"a": a, "k": k, "sites": {"eval": count // forwards}}
+                          for key, count, a, k in lst}
+    per_call = {k: sum(e["sites"]["eval"] for e in v.values()) for k, v in recorded.items()}
+    if per_call != {k: sites["ddim"][k] for k in per_call}:
+        fail(f"the recorded calls per forward {per_call} are not the call sites {sites['ddim']}")
+    out["stats"] = _test_run(torch, np, ops, card, "eval: test DDIM-50, fid_stats",
+                             [*ddim, "--trainer.fid_stats", stats_path],
+                             launches_for(sites["ddim"], forwards))
+    out["repeat"] = _test_run(torch, np, ops, card, "eval: test DDIM-50, repeated", ddim,
+                              launches_for(sites["ddim"], forwards))
+    a, b = out["save"]["results"], out["stats"]["results"]
+    if abs(a["fid"] - b["fid"]) > 1e-6 * abs(a["fid"]):
+        fail(f"the fid_stats run's FID {b['fid']} is not the save_fid_stats run's {a['fid']}")
+    if out["repeat"]["results"] != a:
+        fail(f"a repeated test differs: {out['repeat']['results']} against {a}")
+    out["dpm"] = _test_run(torch, np, ops, card, "eval: test --trainer.sampler dpm (20 steps)",
+                           [*ddim, "--trainer.sampler", "dpm"],
+                           launches_for(sites["ddim"], EVAL_BATCHES * 20))
+    out["cfg"] = _test_run(torch, np, ops, card, f"eval: test {CFG_CONFIG} --trainer.sampler ddim",
+                           ["--config", CFG_CONFIG, *SHAPES_CUT, "--trainer.default_root_dir",
+                            roots["cfg"], "--trainer.limit_test_batches", str(EVAL_BATCHES),
+                            "--trainer.inception_weights", pth, "--trainer.sampler", "ddim"],
+                           launches_for(sites["cfg"], forwards))
+    out["latent"] = _test_run(torch, np, ops, card,
+                              f"eval: test {LATENT_DDPM_CONFIG} --trainer.sampler ddim",
+                              ["--config", LATENT_DDPM_CONFIG, *LATENT_DATA,
+                               "--model.init_args.vae_ckpt", latent_roots["vae"],
+                               "--trainer.default_root_dir", latent_roots["ddpm"],
+                               "--trainer.limit_test_batches", str(EVAL_BATCHES),
+                               "--trainer.inception_weights", pth, "--trainer.sampler", "ddim"],
+                              launches_for(sites["latent"], forwards))
+    out["refused"] = {}
+    for key, argv, needle in (
+            ("vae", ["--config", LATENT_VAE_CONFIG, *LATENT_DATA, "--trainer.default_root_dir",
+                     latent_roots["vae"]], "evaluate() scores diffusion harnesses"),
+            ("cached", [*ddim, "--trainer.sampler", "cached"],
+             "unknown sampler 'cached' (ddim|dpm|edm|unipc|flow)")):
+        try:
+            cli(["test", *argv])
+        except ValueError as e:
+            out["refused"][key] = str(e)
+        print(f"eval: test refused ({key}): {out['refused'].get(key)}", flush=True)
+        if needle not in out["refused"].get(key, ""):
+            fail(f"test did not refuse {key} with JAX's message")
+
+    rows, failures = forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded)
+    if failures:
+        fail(f"the eval path's kernels disagree with their plain versions: {failures}")
+    out["rows"] = rows
+    out["per_forward"] = _per_forward(rows, "eval", card,
+                                      f"DDIM-50 forward of a test batch (N = {TRAIN_BATCH})")
+    del calls, recorded
+    k_res._PACKED.clear()
+    torch.cuda.empty_cache()
+    out["split"] = eval_batch_split(torch, np, dev, card, roots["ddim"], pth)
+    for root in (*roots.values(), *latent_roots.values()):
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def eval_batch_split(torch, np, dev, card: str, root: str, pth: str) -> dict:
+    """One ``test`` batch of 128 of the DDIM config's trained run, under a
+    user's cuDNN defaults, in parts: generation (DDIM-50, host clock), the
+    Inception feature function and the statistics update (CUDA events); the
+    whole batch on the host clock (median of 3), which extrapolates to a
+    50,000-sample FID, and under the profiler (device busy, idle share)."""
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.data import CIFAR10
+    from dmme_tpu_torch.eval import (FeatureStats, FrechetInceptionDistance, InceptionScore,
+                                     make_feature_fn)
+    from dmme_tpu_torch.parallel.train_step import step_generator
+    from dmme_tpu_torch.training import CheckpointManager
+    from dmme_tpu_torch.utils.norm import denorm
+
+    lit = tcfg.instantiate(tcfg.validate_config(tcfg.load_config(DDIM_CONFIG))["model"])
+    state = CheckpointManager(root).restore(lit.init_state(0, device=dev))
+    feature_fn = make_feature_fn(pth, device=dev)
+    data = CIFAR10(synthetic=True, synthetic_size=TRAIN_BATCH, batch_size=TRAIN_BATCH)
+    data.setup("test")
+    real = torch.from_numpy(data.test_data).to(dev).float() / 255.0
+    shape = tuple(real.shape)
+
+    def generate():
+        with torch.no_grad():
+            return lit.diffusion_model.generate(lit.model_fn, state.ema_params,
+                                                step_generator(SEED, 0, dev), shape)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    generate()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fake = denorm(generate())
+    torch.cuda.synchronize()
+    out = {"generation_s": time.perf_counter() - t0}
+    out["inception_ms"] = device_ms(torch, lambda: feature_fn(fake), reps=10)
+    feats = feature_fn(fake)[0]
+    empty = FeatureStats.create(2048, device=dev)
+    out["stats_ms"] = device_ms(torch, lambda: empty.update(feats))
+    fid, inception = FrechetInceptionDistance(), InceptionScore()
+
+    def batch():
+        fid.update(feature_fn(real)[0], real=True)
+        f, logits = feature_fn(denorm(generate()))
+        fid.update(f, real=False)
+        inception.update(logits)
+
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out["batch_wall_s"] = statistics.median(walls[1:])
+    prof = profile_fn(torch, batch)
+    out["profile"] = prof
+    # the profiler slows the host: the busy time over the unprofiled wall too
+    out["idle_share_host_clock"] = 1.0 - prof["busy_ms"] / (1e3 * out["batch_wall_s"])
+    torch.backends.cudnn.deterministic = deterministic
+    batches = -(-50_000 // TRAIN_BATCH)
+    out["fid50k_chip_s"] = batches * out["batch_wall_s"]
+    print(f"one test batch of {TRAIN_BATCH}: generation (DDIM-50) {out['generation_s']:.3f} s, "
+          f"Inception {out['inception_ms']:.3f} ms a pass (two a batch), statistics update "
+          f"{out['stats_ms']:.4f} ms; the whole batch {out['batch_wall_s']:.3f} s (median of 3); "
+          f"profiled: wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms in "
+          f"{prof['device_ops']} operations, idle share {prof['idle_share']:.3f} "
+          f"({out['idle_share_host_clock']:.3f} of the unprofiled wall); a 50,000-sample "
+          f"FID: {batches} batches ≈ {out['fid50k_chip_s']:.0f} s of chip time [{card}]",
+          flush=True)
+    for name, ms, count in prof["top"]:
+        print(f"    {ms:9.3f} ms {count:6d}x  {name}", flush=True)
+    del lit, state, feature_fn, fake, feats
+    torch.cuda.empty_cache()
+    return out
+
+
+def eval_rows(report: dict) -> list:
+    """The kernels line's rows of the evaluation path: K1/K3/K4 per DDIM-50
+    forward of a test batch at N = 128 (50 a batch), launches in the
+    ``save_fid_stats`` run's two batches."""
+    ev = report["eval_test"]
+    return [_table_row(f"{k}_eval", k, ev["per_forward"][k], ev["save"]["launches"][k])
+            for k in ("group_norm_silu", "attention", "resblock")]
+
+
 def record_forwards(torch, blocks, runs, dev, targets=None) -> tuple:
     """Record the K1/K3/K4 inputs of eval forwards (``targets``: the entry
     points, by default :func:`serve_targets`). ``runs``: {name: (model, x,
@@ -5116,7 +5632,7 @@ def record_forwards(torch, blocks, runs, dev, targets=None) -> tuple:
 
 def forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded) -> tuple:
     """Hold every recorded K1/K3/K4 call of a UNet forward against its plain
-    version (``TOL``) and time it: median of 25 CUDA-event runs, the bound,
+    version (``TOL``) and time it: median of 15 CUDA-event runs, the bound,
     SDPA beside K3, the library sequences beside K1 and K4. ``recorded``:
     {kind: {signature: {"a", "k", "sites"}}}. Returns (rows, failures)."""
     plain = {
@@ -5654,6 +6170,15 @@ def main() -> int:
     report["latent_serve"] = latent_serve(torch, np, blocks, dev, ops, card)
     torch.cuda.empty_cache()
 
+    phase(f"eval inception: the FID network at batch {TRAIN_BATCH} in f32 against its unfolded "
+          "twin and the CPU, preprocess, FeatureStats against float64, the FID tool")
+    report["eval_inception"] = eval_inception(torch, np, dev, card)
+    phase(f"eval test: trainer.main test on {DDIM_CONFIG} (save_fid_stats, fid_stats, a repeat, "
+          f"dpm), {CFG_CONFIG}, {LATENT_DDPM_CONFIG}; the refusals; one batch split")
+    report["eval_test"] = eval_test(torch, np, blocks, k_gn, k_attn, k_res, build, ops, dev,
+                                    card, report["latent_cli"]["kept_roots"])
+    torch.cuda.empty_cache()
+
     phase("kernels")
     sources = {
         "group_norm_silu": ("cuda", "dmme_tpu_torch/ops/csrc/group_norm.cu",
@@ -5768,6 +6293,7 @@ def main() -> int:
         table.append(_table_row(name, "attention", v, n_launch))
     table += slice_rows(report, shapes)
     table += latent_rows(report)
+    table += eval_rows(report)
     report["kernels"] = table
     print("kernels launched on their paths and held against their plain versions: "
           + "; ".join(f"{k['name']} ({k['route']}, {k['source']}, replaces {k['replaces']}, "
@@ -5813,7 +6339,9 @@ def main() -> int:
           f"launches in its uninterrupted {LATENT_FIT_STEPS}-step CLI fit; attention_latent_dit: "
           f"per latent DiT forward at n = {BATCH}, launches in its default flow request; "
           f"attention_latent_dit_train: per step at batch {TRAIN_BATCH}, launches in its "
-          f"{LATENT_FIT_STEPS}-step CLI fit)", flush=True)
+          f"{LATENT_FIT_STEPS}-step CLI fit. *_eval: per DDIM-50 forward of a test batch at "
+          f"N = {TRAIN_BATCH} (50 a batch), launches in the {EVAL_BATCHES} batches of the "
+          f"save_fid_stats test of {DDIM_CONFIG})", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

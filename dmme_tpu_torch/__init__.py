@@ -20,15 +20,20 @@ tests. Activations keep the JAX package's NHWC layout at every public function.
   latent diffusion's ``LitVAE``, ``LitLatentDDPM`` and ``LitLatentFlow``),
   ``TrainState``, the optimizer chain, EMA, ``fit`` with checkpoints
   (``checkpoint``), resume, restarts and loggers (``loggers``), and
-  ``evaluate.validate``
+  ``evaluate.validate``/``evaluate.test``
+* ``dmme_tpu_torch.eval``      — FID and the Inception Score: streaming
+  statistics, ``InceptionV3`` (FID-standard and torchvision topologies) and
+  its weight loaders
 * ``dmme_tpu_torch.callbacks`` — ``GenerateImage``
 * ``dmme_tpu_torch.parallel``  — the train step (one device)
 * ``dmme_tpu_torch.serving``   — the HTTP sampling server
 * ``dmme_tpu_torch.config``    — the YAML ``class_path`` trees of ``configs/``
 * ``dmme_tpu_torch.trainer``   — the command line:
-  ``python -m dmme_tpu_torch.trainer {fit,validate,sample,predict,serve} --config x.yaml``
+  ``python -m dmme_tpu_torch.trainer {fit,validate,test,sample,predict,serve} --config x.yaml``
 * ``dmme_tpu_torch.distill``   — progressive distillation round by round:
   ``python -m dmme_tpu_torch.distill --config x.yaml --rounds N``
+* ``dmme_tpu_torch.fid``       — the FID tool:
+  ``python -m dmme_tpu_torch.fid PATH1 PATH2 [--weights w.pth]``
 
 Entry points run on the CUDA device unless the caller passes ``device="cpu"``.
 The package root re-exports what the port has of ``dmme_tpu/__init__.py``'s

@@ -102,7 +102,7 @@ def make_sampler(base, name: str, steps: Optional[int] = None) -> Tuple[object, 
     division at t = T amplifies the ε error by 1/√ᾱ_T, so x̂₀ is clamped to
     [−1, 1] there (``clip_x0``)."""
     if name not in STEP_DEFAULTS:
-        raise ValueError(f"unknown sampler {name!r} ({'|'.join(STEP_DEFAULTS)})")
+        raise ValueError(f"unknown sampler {name!r} (ddim|dpm|edm|unipc|flow)")
     steps = int(steps or STEP_DEFAULTS[name])
     if name == "flow":
         if not isinstance(base, FlowMatching):

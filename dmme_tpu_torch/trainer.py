@@ -48,8 +48,8 @@ def _build(config: Dict[str, Any]):
 
 def _require_diffusion_harness(model, command: str) -> None:
     """Raise for a harness that has no diffusion loss or sampler (the noisy
-    classifier): JAX's ``validate``, ``sample``, ``predict`` and ``serve``
-    fail on one too, deeper in."""
+    classifier): JAX's ``validate``, ``test``, ``sample``, ``predict`` and
+    ``serve`` fail on one too, deeper in."""
     if not hasattr(model, "generate"):
         raise ValueError(
             f"{command} needs a diffusion harness; {type(model).__name__} trains a noisy "
@@ -84,9 +84,28 @@ def cmd_fit(config: Dict[str, Any], device) -> None:
 
 
 def cmd_test(config: Dict[str, Any], device) -> None:
-    from dmme_tpu_torch.training import evaluate
+    """FID and Inception Score over generated samples (``training.evaluate.test``)."""
+    from dmme_tpu_torch.training.evaluate import test
 
-    evaluate.test()
+    model, data, tc, _ = _build(config)
+    _require_diffusion_harness(model, "test")
+    results = test(
+        model, data,
+        ckpt_dir=tc.get("default_root_dir"),
+        ckpt_step=tc.get("ckpt_step"),
+        seed=int(config.get("seed_everything", 1337)),
+        max_batches=tc.get("limit_test_batches"),
+        # FID-standard InceptionV3 weights: pytorch-fid's .pth or the JAX package's .npz
+        inception_weights=tc.get("inception_weights"),
+        mesh=tc.get("mesh") or None,
+        fid_stats=tc.get("fid_stats"),            # precomputed real (μ, Σ) .npz
+        save_fid_stats=tc.get("save_fid_stats"),  # persist this run's real statistics
+        use_ema=None if tc.get("use_ema") is None else bool(tc.get("use_ema")),
+        sampler=tc.get("sampler"),                # e.g. dpm: FID at 20 network evaluations
+        sample_steps=tc.get("sample_steps"),
+        device=device,
+    )
+    print(results)
 
 
 def cmd_validate(config: Dict[str, Any], device) -> None:
@@ -237,7 +256,7 @@ def _introspective_help(config: Dict[str, Any]) -> str:
 COMMANDS = {
     "fit": cmd_fit,
     "validate": cmd_validate,  # mean eval loss, no generation
-    "test": cmd_test,          # FID / IS: not ported yet
+    "test": cmd_test,          # FID / IS over generated samples
     "sample": cmd_sample,      # a PNG grid
     "predict": cmd_predict,    # per-batch .npy samples
     "serve": cmd_serve,        # the HTTP sampling server

@@ -322,10 +322,14 @@ def test_print_config_and_help(tmp_path, capsys):
     assert "could not introspect" in capsys.readouterr().out
 
 
-def test_unported_subcommands_and_options_name_their_roadmap_item(tmp_path):
+def test_unported_subcommands_and_options_name_their_roadmap_item(tmp_path, capsys):
     cfg = str(_tiny(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        main(["test", "--config", cfg], device="cpu")
+    # test (FID / IS, A.9) is ported: it scores the TINY config and prints JAX's keys
+    main(["test", "--config", cfg, "--trainer.limit_test_batches", "1"], device="cpu")
+    results = eval(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(results) == {"fid", "inception_score", "inception_score_std", "num_batches",
+                            "use_ema", "sampler", "sample_steps", "warning"}
+    assert results["num_batches"] == 1 and np.isfinite(results["inception_score"])
     # a continuous-time family's sampler on a DDPM model: JAX's ValueError
     with pytest.raises(ValueError, match="sampler=edm needs an EDM-trained model"):
         main(["sample", "--config", cfg, "--trainer.sampler", "edm"], device="cpu")
