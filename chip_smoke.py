@@ -190,11 +190,11 @@ if the package is missing, or if any phase fails. Phases:
    the classifier's labelled) for 10 steps, the classifier resumed to 20
    bitwise against an uninterrupted run, then 15 timed steps of each
    (median, device busy, operations, idle share);
-33. guidance — a ``ClassifierGuidedDDIM`` 50-step request at n = 8 on the
+33. guidance — a ``ClassifierGuidedDDIM`` 25-step request at n = 8 on the
    trained cosine schedule (wall, launches, finite, identical bytes for a
    repeated seed, profiled), and 20 ``ClassifierGuidedDDPM`` steps timed
    and extrapolated to T = 1000;
-34. ADM serve — ``LitIDDPM(ADM-32, sample_steps=50)`` over HTTP: ``default``
+34. ADM serve — ``LitIDDPM(ADM-32, sample_steps=25)`` over HTTP: ``default``
    at n = 1, 8, 16 and a repeat, ``ddim`` at n = 8, the caching samplers
    answered 400, one request profiled;
 35. DiT kernels — K3 at the 12 call sites (6 heads of 64 at T = 64) of
@@ -279,7 +279,33 @@ if the package is missing, or if any phase fails. Phases:
    every K1/K3/K4 call of the first run held against its plain version
    (``TOL``), twice for identical bytes, and timed; one test batch split
    (generation s, Inception ms, statistics ms, idle share from a profile);
-47. the kernel table as one JSON line, the card's name and power limit, then
+47. LSUN fit — ``trainer.main fit`` of configs/ddpm/lsun_church.yaml as it
+   stands (batch 2 × 32 accumulated microbatches, 256 px, remat, bf16, the
+   LSUN widths; ``fused_norm`` and ``fused_block`` on and a log line a
+   step) for 2 steps on a
+   synthetic LMDB of 96 JPEGs (256×341 and 300×256) read by the native
+   scanner into the memmap decode cache, with the config's GenerateImage
+   and ``ProfileTrace`` over step 2: the steps' launches = 2 × 32 × a
+   microbatch's call sites and the grid's = 1000 × a sampling forward's,
+   each counted apart, no f32, fp16 or ``simt.cu`` launch; the trace names
+   K1, K2 and K3 (the step's idle share); the losses finite; one more step
+   resumed in streaming mode; the decode's host time, each step's and the
+   grid's host time, the peak memory; every K1/K3/K4 call of a
+   sampling forward at n = 4 and K1/K2/K3 call of one microbatch held
+   against its plain version (``TOL``), twice for identical bytes, and
+   timed; the bf16 microbatch loss, gradient and forward against f32 on the
+   CPU at 256 px;
+48. ImageNet-64 — ``trainer.main fit`` of configs/iddpm/imagenet64.yaml
+   with ``--trainer.mesh null`` (batch 128, 64 px, 4 heads of 96 and 128,
+   hybrid loss, cosine T = 4000, remat, ``fused_norm``) for 3 steps on a
+   synthetic ``train_data_batch_1.npz`` of 512 rows, then ``sample
+   --trainer.sampler ddim --trainer.sample_batch 8`` with ``fused_block``
+   (K4 at the 30 ResBlocks, C 384 and 768); launches as the call sites say;
+   the step (median of 15) and the request timed with their idle shares;
+   every K1/K2/K3 call of a step at batch 128 and K1/K3/K4 call of a
+   forward at n = 8 held against its plain version, twice, and timed; the
+   bf16 loss, gradient (batch 2) and forward against f32 on the CPU;
+49. the kernel table as one JSON line, the card's name and power limit, then
    ``{"ok": true, "device": ...}``.
 
 ``--out`` also writes every measurement to a JSON file. ``--kernels-only``
@@ -295,6 +321,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -397,18 +424,40 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: SM clock cycles in a millisecond of ``torch.cuda._sleep``, measured once
+_SLEEP_CYCLES_PER_MS = []
+
+
+def sleep_cycles(torch, host_s: float) -> int:
+    """Cycles of a sleep kernel that lasts four times ``host_s`` (a call's
+    host enqueue time), at least 0.1 ms and at most 2·10⁶ cycles (≈ 1 ms)."""
+    if not _SLEEP_CYCLES_PER_MS:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000)
+        start.record()
+        torch.cuda._sleep(2_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(2_000_000 / start.elapsed_time(end))
+    return int(min(2_000_000, max(0.1, 4e3 * host_s) * _SLEEP_CYCLES_PER_MS[0]))
+
+
 def device_ms(torch, fn, reps: int = 15) -> float:
     """Median device time of ``fn()`` in ms. A sleep kernel queued before each
-    run lets the host enqueue the whole call before the start event fires, so
+    run, four times as long as the last warm call took the host to enqueue,
+    lets the host enqueue the whole call before the start event fires, so
     the interval holds device time, not launch overhead."""
     for _ in range(3):
+        t0 = time.perf_counter()
         fn()
+        host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    cycles = sleep_cycles(torch, host_s)
     pairs = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(cycles)
         start.record()
         fn()
         end.record()
@@ -652,6 +701,29 @@ def profile_request(torch, sampler, n: int, name: str = "default") -> dict:
     return profile_fn(torch, lambda: sampler.sample(n, sampler=name, seed=5))
 
 
+#: a device event of a ``torch.profiler`` Chrome trace, as ``export_chrome_trace``
+#: writes it (category, name, then pid, tid, ts and dur)
+_DEVICE_EVENT = re.compile(r'"cat": "(kernel|gpu_memcpy|gpu_memset)",'
+                           r'\s*"name": "((?:[^"\\]|\\.)*)",'
+                           r'\s*"pid": [^,]*,\s*"tid": [^,]*,\s*"ts": ([0-9.e+-]+),'
+                           r'\s*"dur": ([0-9.e+-]+)')
+
+
+def device_events(path: str) -> list:
+    """(category, name, start µs, duration µs) of every kernel, copy and
+    memset in a Chrome trace that ``torch.profiler`` exported, read by
+    scanning the file: a JSON parse of a trace of 10^6 events takes tens of
+    seconds and gigabytes."""
+    with open(path) as f:
+        text = f.read()
+    events = [(cat, name, float(ts), float(dur))
+              for cat, name, ts, dur in _DEVICE_EVENT.findall(text)]
+    listed = sum(text.count(f'"cat": "{cat}"') for cat in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if len(events) != listed:
+        fail(f"{path}: {len(events)} device events read of the {listed} the file lists")
+    return events
+
+
 def profile_fn(torch, fn, top_n: int = 12) -> dict:
     """Device time by kernel over ``fn()``, read from a torch.profiler trace:
     busy time is the sum of kernel, copy and memset durations on the device;
@@ -669,14 +741,12 @@ def profile_fn(torch, fn, top_n: int = 12) -> dict:
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f).get("traceEvents", [])
+        events = device_events(path)
     groups = {}
-    for ev in events:
-        if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in ev:
-            g = groups.setdefault(_kernel_group(ev.get("name", "?")), [0.0, 0])
-            g[0] += ev["dur"] / 1e3
-            g[1] += 1
+    for _, name, _, dur in events:
+        g = groups.setdefault(_kernel_group(name), [0.0, 0])
+        g[0] += dur / 1e3
+        g[1] += 1
     busy = sum(v[0] for v in groups.values())
     if busy <= 0:
         fail("the profiler trace holds no device time")
@@ -760,17 +830,20 @@ def scaled_errors(got, want, rtol: float, atol_share: float):
 
 def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cls, dev,
                   card: str, ops=None, lit=None, batch_size: int = TRAIN_BATCH,
-                  labels: int = None, targets=None, sites: dict = None) -> dict:
+                  labels: int = None, targets=None, sites: dict = None, img_size: int = 32,
+                  dm=None) -> dict:
     """Phase 6: K1, K2, K3 and the attention backward at every call site of one
     full-width bf16 training step at batch 128 of ``lit_cls(dtype="bf16")``
-    (or of the harness ``lit`` at ``batch_size``; with ``labels``, on a
-    labelled batch of that many classes), each held against its plain
+    (or of the harness ``lit`` at ``batch_size`` and ``img_size`` through
+    the data module ``dm``, by default CIFAR-10's flip; with ``labels``, on
+    a labelled batch of that many classes), each held against its plain
     version on the recorded inputs, with times and bounds. With ``ops``, the
     step's launches are held too: 2r + 1/2r + 1/n/0 (K1/K2/K3/K4, r the
     model's ResBlocks, n its attention sites: 45/45/6/0 for the DDPM UNet).
     ``targets`` and ``sites`` replace the UNet's entry points
     (:func:`train_targets`) and call sites, for a model that reaches the
-    kernels elsewhere (ADM: K3 and its backward only)."""
+    kernels elsewhere (ADM: K3 and its backward only) or more than once
+    (under remat, :func:`config_sites`)."""
     from dmme_tpu_torch.data import CIFAR10
 
     lit = lit_cls(dtype="bf16") if lit is None else lit
@@ -779,11 +852,12 @@ def train_kernels(torch, blocks, k_gn, k_attn, ddpm_models, init_weights, lit_cl
     params = {k: v.detach().to(dev).requires_grad_(True)
               for k, v in lit.model.state_dict().items()}
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    batch = torch.randint(0, 256, (batch_size, 32, 32, 3), generator=gen, device=dev,
+    batch = torch.randint(0, 256, (batch_size, img_size, img_size, 3), generator=gen, device=dev,
                           dtype=torch.uint8)
     if labels is not None:
         batch = (batch, torch.randint(0, labels, (batch_size,), generator=gen, device=dev))
-    loss_fn = lit.make_loss_fn(CIFAR10(batch_size=batch_size))  # flip, process, loss
+    # flip, process, loss
+    loss_fn = lit.make_loss_fn(CIFAR10(batch_size=batch_size) if dm is None else dm)
     if sites is None:
         n_gn = 2 * sum(isinstance(m, blocks.ResBlock) for m in lit.model.modules()) + 1
         n_attn = sum(isinstance(m, blocks.SelfAttention2d) for m in lit.model.modules())
@@ -963,67 +1037,92 @@ def ddpm_draws(torch, np):
     return x0, t, eps
 
 
-def train_gradient(torch, np, blocks, ddpm_models, init_weights, algo, draws, dev, ops,
-                   label: str = "training step") -> dict:
-    """Phase 7: one ``algo.loss_given`` + backward at batch 8 on ``draws``
-    (x₀, the noise level, the noise), dropout 0, bf16 on the card against f32
-    on the CPU on the same weights."""
+def train_gradient(torch, blocks, init_weights, pair, algo, draws, dev, ops, want: dict,
+                   label: str = "training step", forward: bool = False) -> dict:
+    """Phase 7 (and the config paths' gradient checks): one
+    ``algo.loss_given`` + backward on ``draws`` (x₀, the noise level, the
+    noise) in bf16 on the card against f32 on the CPU. ``pair`` is (the
+    card's module, the reference module) of one architecture, dropout 0;
+    the card's seeded weights (biases and affines drawn, an ε ‖ v head
+    conditioned) go into both. The loss and the flattened gradient within
+    ``GRAD_REL_L2``, every gradient finite and non-zero on the card, the
+    launches ``want``; with ``forward``, one eval forward of each as well,
+    within ``UNET_REL_L2`` (its launches counted in ``want``)."""
     from torch.func import functional_call
 
-    card = ddpm_models.UNet(dtype=torch.bfloat16, dropout=0.0, fused_norm=True,
-                            fused_block=True)
+    card, ref = pair
     init_weights(card, torch.Generator().manual_seed(SEED))
     randomize_affines(torch, blocks, card, torch.Generator().manual_seed(SEED + 1))
-    ref = ddpm_models.UNet(dtype=torch.float32, dropout=0.0, fused_norm=True, fused_block=True)
-    ref.load_state_dict(card.state_dict(), strict=True)
-    card = card.to(dev)
+    weights = {k: v.detach().clone() for k, v in card.state_dict().items()}
     x0, t, eps = draws
+    if weights["output_conv.weight"].shape[0] == 2 * x0.shape[-1]:
+        weights = condition_var_head(weights)  # ε ‖ v: a well-conditioned variance head
+    ref.load_state_dict(weights, strict=True)
+    card = card.to(dev)
 
     def loss_and_grads(model, device):
-        params = {k: v.detach().to(device).requires_grad_(True)
-                  for k, v in model.state_dict().items()}
+        params = {k: v.to(device).requires_grad_(True) for k, v in weights.items()}
 
         def fn(p, x, tt, **kw):
             return functional_call(model, p, (x, tt), kw)
 
         loss = algo.loss_given(fn, params, x0.to(device), t.to(device), eps.to(device),
                                train=True)
-        return loss.detach().cpu(), dict(zip(params, (
-            g.cpu() for g in torch.autograd.grad(loss, list(params.values())))))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        y = None
+        if forward:
+            with torch.no_grad():
+                y = fn(params, x0.to(device), t.to(device)).float().cpu()
+        return float(loss.detach()), dict(zip(params, (g.float().cpu() for g in grads))), y
 
     reset_counts(ops)
-    loss_c, grads_c = loss_and_grads(card, dev)
+    loss_c, grads_c, y_c = loss_and_grads(card, dev)
     torch.cuda.synchronize()
     launches = counts(ops)
-    print(f"launches in one {label} (loss + backward): {launches}", flush=True)
+    print(f"launches in one {label} (loss + backward{' + forward' if forward else ''}): "
+          f"{launches} (expected {want})", flush=True)
     expect_bf16_only(label)
-    if launches != PER_TRAIN_STEP:
-        fail(f"a {label} launched {launches}, expected {PER_TRAIN_STEP}")
+    if launches != want:
+        fail(f"a {label} launched {launches}, expected {want}")
     bad = [k for k, g in grads_c.items()
            if not bool(g.isfinite().all()) or float(g.abs().max()) == 0.0]
     print(f"parameter tensors with a finite, non-zero gradient on the card: "
           f"{len(grads_c) - len(bad)} of {len(grads_c)}", flush=True)
     if bad:
         fail(f"gradients zero or not finite on the card: {bad[:10]}")
-    loss_r, grads_r = loss_and_grads(ref, torch.device("cpu"))
-    flat_c = torch.cat([g.float().flatten() for g in grads_c.values()])
-    flat_r = torch.cat([grads_r[k].flatten() for k in grads_c])
-    out = {"loss_card": float(loss_c), "loss_cpu": float(loss_r),
-           "loss_rel_err": abs(float(loss_c) - float(loss_r)) / abs(float(loss_r)),
-           "grad_rel_l2": rel_l2(flat_c, flat_r), "launches": launches, "per_module": {}}
+    t0 = time.time()
+    loss_r, grads_r, y_r = loss_and_grads(ref, torch.device("cpu"))
+    out = {"loss_card": loss_c, "loss_cpu": loss_r, "loss_rel_err": abs(loss_c - loss_r) / abs(loss_r),
+           "grad_rel_l2": rel_l2(torch.cat([g.flatten() for g in grads_c.values()]),
+                                 torch.cat([grads_r[k].flatten() for k in grads_c])),
+           "launches": launches, "per_module": {}, "cpu_s": time.time() - t0,
+           "shape": list(x0.shape)}
     for top in dict.fromkeys(k.split(".")[0] for k in grads_c):
         keys = [k for k in grads_c if k.split(".")[0] == top]
-        out["per_module"][top] = rel_l2(torch.cat([grads_c[k].float().flatten() for k in keys]),
+        out["per_module"][top] = rel_l2(torch.cat([grads_c[k].flatten() for k in keys]),
                                         torch.cat([grads_r[k].flatten() for k in keys]))
-    print(f"loss card {out['loss_card']:.6f} cpu {out['loss_cpu']:.6f} rel err "
+    if forward:
+        out["forward_rel_l2"] = rel_l2(y_c, y_r)
+    print(f"{label} at {tuple(x0.shape)}: loss card {loss_c:.6f} cpu {loss_r:.6f} rel err "
           f"{out['loss_rel_err']:.3e}; flattened gradient rel L2 {out['grad_rel_l2']:.3e} "
-          f"(<= {GRAD_REL_L2}); TF32 off for matmul and cuDNN", flush=True)
+          f"(<= {GRAD_REL_L2})"
+          + (f"; forward rel L2 {out['forward_rel_l2']:.3e} (<= {UNET_REL_L2})" if forward else "")
+          + f"; the CPU's f32 run {out['cpu_s']:.1f} s; TF32 off for matmul and cuDNN", flush=True)
     print("per top-level module: " + ", ".join(f"{k} {v:.2e}"
                                                for k, v in out["per_module"].items()), flush=True)
     if not (out["grad_rel_l2"] <= GRAD_REL_L2 and out["loss_rel_err"] <= GRAD_REL_L2):
         fail(f"the card's {label} is {out['grad_rel_l2']:.3e} (gradient) and "
              f"{out['loss_rel_err']:.3e} (loss) from the CPU's")
+    if forward and not out["forward_rel_l2"] <= UNET_REL_L2:
+        fail(f"the card's {label} forward is {out['forward_rel_l2']:.3e} from the CPU's")
     return out
+
+
+def unet_pair(torch, ddpm_models):
+    """Phase 7's (card, reference) pair: the DDPM UNet with both switches,
+    dropout 0, bf16 and f32."""
+    return tuple(ddpm_models.UNet(dtype=dtype, dropout=0.0, fused_norm=True, fused_block=True)
+                 for dtype in (torch.bfloat16, torch.float32))
 
 
 def timed_steps(torch, np, step, state, batch, card: str, bound_ms_=None,
@@ -3387,7 +3486,9 @@ PER_FORWARD_ADM = {"group_norm_silu": 0, "group_norm_silu_bwd": 0, "attention": 
 # the guided samplers' scale in the request phases (tests/test_adm.py's)
 GUIDANCE_SCALE = 1.0
 # steps of the guided request, and of the timed ancestral guided loop
-GUIDED_STEPS, GUIDED_DDPM_TIMED = 50, 20
+GUIDED_STEPS, GUIDED_DDPM_TIMED = 25, 20
+# the ADM generator's respaced steps when served (phase 34)
+ADM_SERVE_STEPS = 25
 
 
 def adm_targets(k_attn, adm, backward: bool):
@@ -3760,7 +3861,7 @@ def adm_guidance(torch, np, blocks, dev, ops, card: str) -> dict:
     """Phase 33: classifier-guided sampling on the card. The bf16 ADM-32 of
     configs/adm/cifar10_guided.yaml (ε of its ε ‖ v, ``eps_only``) with the
     bf16 classifier-32, random weights, guidance scale ``GUIDANCE_SCALE``:
-    a ``ClassifierGuidedDDIM`` 50-step request at n = 8 on the trained
+    a ``ClassifierGuidedDDIM`` ``GUIDED_STEPS``-step request at n = 8 on the trained
     cosine schedule (the dataclass built with it), after a warm one: wall
     time, launches (20 K3 calls a step: 15 generator, 5 classifier, none of
     K1, K2 or K4), finite, identical bytes for a repeated seed
@@ -3846,8 +3947,8 @@ def adm_guidance(torch, np, blocks, dev, ops, card: str) -> dict:
 
 def adm_serve(torch, np, blocks, dev, ops, card: str) -> dict:
     """Phase 34: the ADM generator served. ``LitIDDPM`` of
-    configs/adm/cifar10_guided.yaml with ``sample_steps=50`` (bf16, random
-    weights) behind ``make_server``: ``default`` requests (the 50-step
+    configs/adm/cifar10_guided.yaml with ``sample_steps=ADM_SERVE_STEPS``
+    (bf16, random weights) behind ``make_server``: ``default`` requests (the
     respaced ancestral sampler) at n = 1, 8 and 16 and a repeat of 8 with
     identical bytes (launches 15 K3 a forward, nothing else); ``ddim`` at
     n = 8; ``cached``, ``deep`` and ``deep_dpm`` answered 400, as for every
@@ -3857,21 +3958,21 @@ def adm_serve(torch, np, blocks, dev, ops, card: str) -> dict:
     from dmme_tpu_torch.training import TrainState
 
     lit, weights = adm_harness(torch, blocks, "cifar10_guided",
-                               argv=["--model.init_args.sample_steps", "50"])
+                               argv=["--model.init_args.sample_steps", str(ADM_SERVE_STEPS)])
     state = TrainState.create(weights, lit.make_optimizer())
     sampler = Sampler(lit, state, img_size=32, device=dev)
     url, stop = _serve(torch, sampler)
     out = {}
     try:
         out["requests"], launches = default_requests(np, url, ops, "ADM", card)
-        want = launches_for(PER_FORWARD_ADM, 50 * 4)
+        want = launches_for(PER_FORWARD_ADM, ADM_SERVE_STEPS * 4)
         print(f"ADM: launches during the four default requests {launches} (expected {want})",
               flush=True)
         if launches != want:
             fail(f"ADM serve launched {launches}, expected {want}")
         out["launches"] = launches
         out["solvers"] = solver_requests(np, url, ops, "ADM", card, [
-            ("ddim", 50, launches_for(PER_FORWARD_ADM, 50))])
+            ("ddim", ADM_SERVE_STEPS, launches_for(PER_FORWARD_ADM, ADM_SERVE_STEPS))])
         out["rejected"] = {name: rejected(url, "ADM", name, "variance-learning")
                            for name, _, _ in CACHING}
     finally:
@@ -5126,7 +5227,7 @@ INCEPTION_REL_L2 = 1e-5
 STATS_REL_L2 = 1e-6
 #: ``preprocess`` on the card against the CPU: both compute the bilinear
 #: weights in f32 from source coordinates (up to 320 px, ulp 3.1e-5); the CPU
-#: and JAX differ by 2.5e-5 at 320 px (tests/test_torch_port_eval.py)
+#: and JAX differ by 2.5e-5 at 320 px (tests/test_torch_port_eval_stats.py)
 PREPROCESS_ATOL = 5e-5
 #: the FID of the card's f32 statistics against the float64 one: 256
 #: samples a side in 2048 dimensions leave rank-255 covariances, and the
@@ -5144,13 +5245,7 @@ def inception_standin(torch, path: str):
     N(0, 0.1²) kernels they are nearly constant, and every FID ≈ 0). Written
     to ``path``; returns the twin. The file is loaded by its path: ``tests``
     has no ``__init__.py``, and an installed package of that name would win."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "torch_inception", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                                        "torch_inception.py"))
-    twin_module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(twin_module)
+    twin_module = repo_module("torch_inception", os.path.join("tests", "torch_inception.py"))
     twin = twin_module.randomize(twin_module.TorchInceptionV3(variant="fid"), seed=SEED + 11)
     g = torch.Generator().manual_seed(SEED + 11)
     with torch.no_grad():
@@ -5605,6 +5700,448 @@ def eval_rows(report: dict) -> list:
             for k in ("group_norm_silu", "attention", "resblock")]
 
 
+LSUN_CONFIG = "configs/ddpm/lsun_church.yaml"
+LSUN_ROOT = os.path.join("build", "lsun")
+LSUN_IMAGES = 96  # synthetic JPEGs in the LMDB
+LSUN_SIZES = ((256, 341), (300, 256))  # their (H, W), non-square as LSUN's
+LSUN_FIT_STEPS = 2
+#: the config's UNet leaves the kernels off: turn on K1/K2 (``fused_norm``) and K4
+#: (``fused_block``), as ``LitDDPM``'s default UNet has them
+LSUN_KERNELS = ["--model.init_args.model.init_args.fused_norm", "true",
+                "--model.init_args.model.init_args.fused_block", "true"]
+IN64_CONFIG = "configs/iddpm/imagenet64.yaml"
+IN64_ROOT = os.path.join("build", "in64")
+IN64_ROWS = 512  # rows of the synthetic train_data_batch_1.npz
+IN64_FIT_STEPS = 3
+#: the config's UNet leaves K4 off (``fused_block`` false): the sample turns it on
+IN64_BLOCK = ["--model.init_args.model.init_args.fused_block", "true"]
+IN64_BATCH = 2  # the gradient check's batch
+#: K1, K2, K3 kernels by name in a profiler trace
+TRACE_KERNELS = {"group_norm_silu": ("gn_fwd_cluster_kernel", "gn_apply_kernel"),
+                 "group_norm_silu_bwd": ("gn_bwd_cluster_kernel", "gn_dx_kernel"),
+                 "attention": ("attn_fwd_kernel",)}
+
+
+def repo_module(name: str, relpath: str):
+    """A module of the repository loaded by its path (``tests`` has no
+    ``__init__.py``, and an installed package of that name would win)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)), relpath))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def config_sites(torch, blocks, model_node) -> tuple:
+    """(per training microbatch, per eval forward) K1/K2/K3/K4 launches of a
+    config's UNet, counted from its modules on the meta device: a step
+    launches K1 at its 2r + 1 GroupNorm+SiLU sites (r ResBlocks, the output
+    norm) and K3 at its n attention sites (each inside a ResBlock), and
+    again at the ResBlocks' 2r and n under ``remat``, whose backward
+    recomputes them; K2 at the 2r + 1. An eval forward (``fused_block``
+    on) launches K1 once, K3 n times and K4 r times. Third: the calls of a
+    microbatch's entry points (:func:`train_targets`), the attention
+    backward's n among them."""
+    from dmme_tpu_torch import config as tcfg
+
+    with torch.device("meta"):
+        model = tcfg.instantiate(model_node)
+    r = sum(isinstance(m, blocks.ResBlock) for m in model.modules())
+    n = sum(isinstance(m, blocks.SelfAttention2d) for m in model.modules())
+    again = 2 if model_node["init_args"].get("remat") else 1
+    train = {"group_norm_silu": again * 2 * r + 1, "group_norm_silu_bwd": 2 * r + 1,
+             "attention": again * n, "resblock": 0}
+    if not model_node["init_args"].get("fused_block"):
+        fail(f"{model_node['class_path']}: the sampling forward's count needs fused_block")
+    forward = {"group_norm_silu": 1, "group_norm_silu_bwd": 0, "attention": n, "resblock": r}
+    calls = {k: train[k] for k in ("group_norm_silu", "group_norm_silu_bwd", "attention")}
+    return train, forward, dict(calls, attention_bwd=n)
+
+
+def write_lsun_lmdb(np, path: str) -> int:
+    """``LSUN_IMAGES`` JPEGs of ``LSUN_SIZES`` drawn from the seed (smooth
+    colour fields with noise, as photographs compress) into an LMDB at
+    ``path``, written by tests/lmdb_fixture.py. Returns its bytes."""
+    from PIL import Image
+
+    fixture = repo_module("lmdb_fixture", os.path.join("tests", "lmdb_fixture.py"))
+    rng = np.random.default_rng(SEED + 60)
+    kv = {}
+    for i in range(LSUN_IMAGES):
+        h, w = LSUN_SIZES[i % len(LSUN_SIZES)]
+        coarse = Image.fromarray(rng.integers(0, 256, (h // 32, w // 32, 3), np.uint8))
+        smooth = np.asarray(coarse.resize((w, h), Image.BILINEAR), np.int16)
+        img = np.clip(smooth + rng.integers(-12, 13, (h, w, 3)), 0, 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="JPEG", quality=90)
+        kv[f"{i:040x}".encode()] = buf.getvalue()
+    fixture.write_lmdb(os.path.join(path, "data.mdb"), kv)
+    return sum(len(v) for v in kv.values())
+
+
+def trace_kernels(path: str) -> dict:
+    """{kernel: launches} of K1, K2 and K3 in a profiler trace file, and the
+    traced window's device busy ms and idle share (kernels, copies and
+    memsets over the span of its device events)."""
+    device = device_events(path)
+    if not device:
+        fail(f"no device event in the trace {path}")
+    found = {k: sum(1 for cat, name, _, _ in device
+                    if cat == "kernel" and any(n in name for n in names))
+             for k, names in TRACE_KERNELS.items()}
+    busy = sum(d for *_, d in device) / 1e3
+    span = (max(t + d for *_, t, d in device) - min(t for *_, t, _ in device)) / 1e3
+    return {"launches": found, "busy_ms": busy, "span_ms": span, "idle_share": 1.0 - busy / span,
+            "device_events": len(device), "bytes": os.path.getsize(path)}
+
+
+def config_pair(torch, model_node) -> tuple:
+    """(card, reference) modules of a config's UNet: bf16 as configured, and
+    f32 without remat (the same math)."""
+    from dmme_tpu_torch import config as tcfg
+
+    args = model_node["init_args"]
+    return (tcfg.instantiate(dict(model_node, init_args=dict(args, dtype="bf16"))),
+            tcfg.instantiate(dict(model_node, init_args=dict(args, dtype="f32", remat=False))))
+
+
+def config_draws(torch, np, shape, timesteps: int, t_low: int) -> tuple:
+    """Numpy x₀ in [−1, 1], t from ``t_low`` and ε at ``shape``."""
+    r = np.random.default_rng(SEED + 61)
+    x0 = torch.tensor(np.clip(r.standard_normal(shape), -1, 1).astype(np.float32))
+    t = torch.tensor(r.integers(t_low, timesteps, (shape[0],)), dtype=torch.int64)
+    eps = torch.tensor(r.standard_normal(shape).astype(np.float32))
+    return x0, t, eps
+
+
+def lsun_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, dev,
+             card: str) -> dict:
+    """Phase 47: configs/ddpm/lsun_church.yaml on the card through
+    ``trainer.main``, its recipe as it stands (batch 2 × 32 accumulated
+    microbatches, 256 px, remat, bf16, the LSUN widths; ``LSUN_KERNELS`` and
+    ``log_every_n_steps`` 1 added), on a synthetic LMDB of ``LSUN_IMAGES``
+    JPEGs of mixed sizes read by the native scanner and decoded into the
+    memmap cache: ``LSUN_FIT_STEPS`` steps with the config's GenerateImage
+    (T = 1000 DDPM, 4 samples at 256 px, at the end) and ``ProfileTrace``
+    over step 2; the launches of the steps (steps × 32 × a microbatch's call
+    sites) and of the grid (1000 × a sampling forward's) each counted around
+    the grid, no f32, fp16 or ``simt.cu`` launch; the trace names K1, K2
+    and K3 (its device busy time and idle share are the step's); the losses
+    finite; one more step resumed in streaming mode; each step's host time
+    from the fit's log, the grid's, and the peak memory. Then the decode's
+    host time, every K1/K3/K4 call of a sampling forward at n = 4 and every
+    K1/K2/K3 call of one microbatch held against its plain version, twice
+    for identical bytes, and timed, and the bf16 microbatch gradient and
+    forward against the f32 CPU port at 256 px."""
+    import shutil
+
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.callbacks import GenerateImage
+    from dmme_tpu_torch.data import lsun as lsun_data
+    from dmme_tpu_torch.datasets import lsun as lsun_datasets
+    from dmme_tpu_torch.training import CheckpointManager
+
+    shutil.rmtree(LSUN_ROOT, ignore_errors=True)
+    data_dir, run = os.path.join(LSUN_ROOT, "data"), os.path.join(LSUN_ROOT, "run")
+    profile_dir = os.path.join(LSUN_ROOT, "profile")
+    t0 = time.time()
+    nbytes = write_lsun_lmdb(np, os.path.join(data_dir, "church_outdoor_train_lmdb"))
+    out = {"lmdb_bytes": nbytes, "lmdb_write_s": time.time() - t0}
+    data_args = ["--data.init_args.data_dir", data_dir]
+    config = tcfg.validate_config(tcfg.apply_overrides(tcfg.load_config(LSUN_CONFIG),
+                                                       LSUN_KERNELS + data_args))
+    accumulate = config["trainer"]["accumulate_grad_batches"]
+    imgsize, batch_size = (config["data"]["init_args"][k] for k in ("imgsize", "batch_size"))
+    model_node = config["model"]["init_args"]["model"]
+    train, forward, calls = config_sites(torch, blocks, model_node)
+    lit = tcfg.instantiate(config["model"])
+    timesteps = lit.diffusion_model.timesteps
+    n = config["trainer"]["callbacks"][0]["init_args"]["num_samples"]
+    print(f"LSUN: {LSUN_IMAGES} JPEGs of {LSUN_SIZES} (H, W), {nbytes / 2**20:.1f} MiB, written "
+          f"in {out['lmdb_write_s']:.1f} s; launches a training microbatch {train}, a sampling "
+          f"forward {forward}", flush=True)
+
+    # the decode's host time: the memmap mode's decode of every image (into
+    # RAM here), and batches of the streaming mode
+    dm = lsun_data.LSUN(data_dir=data_dir, category="church_outdoor", imgsize=imgsize,
+                        cache_decoded=False)
+    t0 = time.perf_counter()
+    dm.setup("fit")
+    out["decode_s"] = time.perf_counter() - t0
+    stream = lsun_data.LSUN(data_dir=data_dir, category="church_outdoor", imgsize=imgsize,
+                            batch_size=batch_size, streaming=True)
+    stream.setup("fit")
+    it = stream.train_iter(SEED)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(accumulate):
+        next(it)
+    out["stream_ms_per_batch"] = 1e3 * (time.perf_counter() - t0) / accumulate
+    it.close()
+    print(f"decode on {dm.num_workers} threads: {LSUN_IMAGES} images in {out['decode_s']:.3f} s "
+          f"({1e3 * out['decode_s'] / LSUN_IMAGES:.2f} ms an image); streaming "
+          f"{out['stream_ms_per_batch']:.2f} ms a batch of {batch_size} [{card}]", flush=True)
+    del dm, stream
+
+    callbacks = [dict(cb, init_args=dict(cb["init_args"], out_dir=os.path.join(run, "samples")))
+                 for cb in config["trainer"]["callbacks"]]
+    callbacks.append({"class_path": "dmme_tpu.callbacks.ProfileTrace",
+                      "init_args": {"start_step": 1, "num_steps": 1, "log_dir": profile_dir}})
+    argv = ["fit", "--config", LSUN_CONFIG, *LSUN_KERNELS, *data_args,
+            "--trainer.default_root_dir", run, "--trainer.max_steps", str(LSUN_FIT_STEPS),
+            "--trainer.log_every_n_steps", "1", "--trainer.callbacks", json.dumps(callbacks)]
+    backends, grid = [], []
+    opened, generate = lsun_datasets.open_lmdb, GenerateImage.generate_and_save
+
+    def recording(path, prefer_native=True):
+        reader = opened(path, prefer_native)
+        backends.append(reader.backend)
+        return reader
+
+    def counted(self, *args, **kwargs):
+        # the launches of the fit's training steps and of its grid, apart
+        torch.cuda.synchronize()
+        before, t0 = counts(ops), time.perf_counter()
+        path = generate(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        grid.append((before, counts(ops), time.perf_counter() - t0))
+        return path
+
+    lsun_datasets.open_lmdb = lsun_data.open_lmdb = recording
+    GenerateImage.generate_and_save = counted
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out["fit"] = cli_run(torch, ops, card, f"LSUN fit {LSUN_FIT_STEPS} steps", argv)
+        out["fit"]["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if len(grid) != 1:
+            fail(f"the LSUN fit's GenerateImage sampled {len(grid)} times, not once at its end")
+        before, after, out["grid_s"] = grid[0]
+        out["train_launches"] = {k: out["fit"]["launches"][k] - after[k] + before[k] for k in train}
+        out["sample_launches"] = {k: after[k] - before[k] for k in train}
+        want = {k: LSUN_FIT_STEPS * accumulate * v for k, v in train.items()}
+        print(f"LSUN fit: launches in the {LSUN_FIT_STEPS} steps {out['train_launches']} "
+              f"(expected {want}), in the grid {out['sample_launches']} (expected {timesteps} x "
+              f"{forward}); the grid's {timesteps}-step DDPM at n = {n} {out['grid_s']:.2f} s "
+              f"[{card}]", flush=True)
+        if out["train_launches"] != want:
+            fail(f"the LSUN fit's steps launched {out['train_launches']}, expected {want}")
+        if out["sample_launches"] != launches_for(forward, timesteps):
+            fail(f"the LSUN fit's grid launched {out['sample_launches']}, expected "
+                 f"{timesteps} x {forward}")
+        out["streaming"] = cli_run(
+            torch, ops, card, "LSUN fit, one more step streaming",
+            ["fit", "--config", LSUN_CONFIG, *LSUN_KERNELS, *data_args,
+             "--trainer.default_root_dir", run, "--trainer.max_steps", str(LSUN_FIT_STEPS + 1),
+             "--trainer.log_every_n_steps", "1", "--trainer.resume", "true",
+             "--data.init_args.streaming", "true", "--trainer.callbacks", "[]"],
+            {k: accumulate * v for k, v in train.items()})
+    finally:
+        lsun_datasets.open_lmdb = lsun_data.open_lmdb = opened
+        GenerateImage.generate_and_save = generate
+    out["backends"] = backends
+    cache = os.path.join(data_dir, f"church_outdoor_train_decoded_{imgsize}.npy")
+    logged = _jsonl(os.path.join(run, "metrics.jsonl"))
+    out["losses"] = [r["loss"] for r in logged]
+    # each optimizer step's host time, from imgs_per_sec over a logging
+    # interval of one step: step 1, step 2 under the profiler, the resumed
+    # streaming step
+    out["step_s"] = [accumulate * batch_size / r["imgs_per_sec"] for r in logged]
+    grids = os.listdir(os.path.join(run, "samples"))
+    traces = [os.path.join(profile_dir, f) for f in os.listdir(profile_dir)
+              if f.endswith(".pt.trace.json")]
+    out["trace"] = trace_kernels(traces[0]) if len(traces) == 1 else None
+    print(f"LSUN fit: readers {backends}; decode cache {cache} "
+          f"{np.load(cache, mmap_mode='r').shape if os.path.exists(cache) else 'MISSING'}; "
+          f"losses {out['losses']}; optimizer steps on the host clock {out['step_s']} s; grids "
+          f"{grids}; peak memory {out['fit']['peak_mem_gib']:.2f} GiB; the trace of step 2: "
+          f"{out['trace']} [{card}]", flush=True)
+    if not backends or set(backends) != {"native"}:
+        fail(f"the LSUN fit read its LMDB through {backends}, not the native scanner")
+    if not os.path.exists(cache) or np.load(cache, mmap_mode="r").shape != (
+            LSUN_IMAGES, imgsize, imgsize, 3):
+        fail(f"the LSUN fit did not write its decode cache {cache}")
+    if len(out["losses"]) != LSUN_FIT_STEPS + 1 or not all(np.isfinite(out["losses"])):
+        fail(f"the LSUN fits logged the losses {out['losses']}")
+    if not grids:
+        fail("the LSUN fit's GenerateImage wrote no grid")
+    if out["trace"] is None or not all(out["trace"]["launches"].values()):
+        fail(f"the LSUN fit's trace does not name K1, K2 and K3: {traces}, {out['trace']}")
+    state = CheckpointManager(run).restore(lit.init_state(0, device=dev))
+    if state.step != LSUN_FIT_STEPS + 1:
+        fail(f"the LSUN run's last checkpoint is at step {state.step}")
+    del state
+    dm = tcfg.instantiate(config["data"])
+    dm.setup("fit")
+    torch.cuda.empty_cache()
+
+    # every K1/K3/K4 call of a GenerateImage forward, then every K1/K2/K3
+    # call of one microbatch at batch 2, 256 px
+    init_weights(lit.model, torch.Generator().manual_seed(SEED))
+    randomize_affines(torch, blocks, lit.model, torch.Generator().manual_seed(SEED + 1))
+    g = torch.Generator().manual_seed(SEED + 63)
+    recorded, _ = record_forwards(torch, blocks, {"lsun_sample": (
+        lit.model.to(dev).eval(), torch.randn((n, imgsize, imgsize, 3), generator=g),
+        torch.randint(1, timesteps, (n,), generator=g), forward)}, dev)
+    rows, failures = forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded)
+    if failures:
+        fail(f"the LSUN sampling forward's kernels disagree with their plain versions: {failures}")
+    out.update(sample_rows=rows, per_sample_forward=_per_forward(
+        rows, "lsun_sample", card, f"LSUN sampling forward at n = {n}"))
+    del recorded
+    mb = train_kernels(torch, blocks, k_gn, k_attn, None, init_weights, None, dev, card, ops,
+                       lit=lit, batch_size=batch_size, sites=calls, img_size=imgsize, dm=dm)
+    out.update(rows=mb["shapes"], per_microbatch=mb["per_step"])
+    algo = lit.diffusion_model
+    del lit, dm
+    torch.cuda.empty_cache()
+    out["gradient"] = train_gradient(
+        torch, blocks, init_weights, config_pair(torch, model_node), algo,
+        config_draws(torch, np, (batch_size, imgsize, imgsize, 3), algo.timesteps, 1), dev, ops,
+        {k: train[k] + forward[k] for k in train}, "LSUN microbatch", forward=True)
+    shutil.rmtree(LSUN_ROOT, ignore_errors=True)
+    return out
+
+
+def in64_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, dev,
+             card: str) -> dict:
+    """Phase 48: configs/iddpm/imagenet64.yaml on the card through
+    ``trainer.main`` with ``--trainer.mesh null`` (the config's mesh waits for
+    ROADMAP A.11): batch 128, 64 px, 4 heads, the hybrid loss on the cosine
+    T = 4000 schedule, remat, ``fused_norm``, on a synthetic
+    ``train_data_batch_1.npz`` of ``IN64_ROWS`` channel-planar rows with
+    1-based labels: ``IN64_FIT_STEPS`` steps, then ``sample --trainer.sampler
+    ddim --trainer.sample_batch 8`` (DDIM-50, ``IN64_BLOCK`` on: K4 at the 30
+    ResBlocks); launches as the call sites say, no f32, fp16 or ``simt.cu``
+    launch. Every K1/K2/K3 call of a training step at batch 128 and every
+    K1/K3/K4 call of a forward at n = 8 held against its plain version, twice
+    for identical bytes, and timed beside its bound and library yardstick;
+    the bf16 gradient at batch 2 and the forward against the f32 CPU port;
+    the step and the request timed, with their idle shares."""
+    import shutil
+
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.parallel import make_train_step
+    from dmme_tpu_torch.training import CheckpointManager
+    from dmme_tpu_torch.training.loop import _place
+
+    shutil.rmtree(IN64_ROOT, ignore_errors=True)
+    data_dir, run = os.path.join(IN64_ROOT, "data"), os.path.join(IN64_ROOT, "run")
+    os.makedirs(data_dir)
+    rng = np.random.default_rng(SEED + 64)
+    np.savez(os.path.join(data_dir, "train_data_batch_1.npz"),
+             data=rng.integers(0, 256, (IN64_ROWS, 3 * 64 * 64), np.uint8),
+             labels=rng.integers(1, 1001, IN64_ROWS))
+    common = ["--config", IN64_CONFIG, "--trainer.mesh", "null", "--data.init_args.data_dir",
+              data_dir, "--trainer.default_root_dir", run]
+    config = tcfg.validate_config(tcfg.apply_overrides(tcfg.load_config(IN64_CONFIG),
+                                                       common[2:] + IN64_BLOCK))
+    batch_size = config["data"]["init_args"]["batch_size"]
+    model_node = config["model"]["init_args"]["model"]
+    train, forward, calls = config_sites(torch, blocks, model_node)
+    lit = tcfg.instantiate(config["model"])
+    print(f"ImageNet-64: {lit.model.__class__.__name__} with "
+          f"{sum(p.numel() for p in lit.model.parameters()):,} parameters; launches a training "
+          f"step {train}, a sampling forward {forward}", flush=True)
+    out = {"fit": cli_run(torch, ops, card, f"ImageNet-64 fit {IN64_FIT_STEPS} steps",
+                          ["fit", *common, "--trainer.max_steps", str(IN64_FIT_STEPS),
+                           "--trainer.log_every_n_steps", "1"],
+                          {k: IN64_FIT_STEPS * v for k, v in train.items()})}
+    out["losses"] = [r["loss"] for r in _jsonl(os.path.join(run, "metrics.jsonl"))]
+    if len(out["losses"]) != IN64_FIT_STEPS or not all(np.isfinite(out["losses"])):
+        fail(f"the ImageNet-64 fit logged the losses {out['losses']}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out["sample"] = cli_run(torch, ops, card, "ImageNet-64 sample, DDIM-50 at n = 8",
+                                ["sample", *common, *IN64_BLOCK, "--trainer.sampler", "ddim",
+                                 "--trainer.sample_batch", str(BATCH)],
+                                launches_for(forward, 50))
+    print(buf.getvalue(), end="", flush=True)
+    grids = [ln for ln in buf.getvalue().splitlines() if ln.endswith("_ddim50.png")]
+    if len(grids) != 1 or not os.path.exists(grids[0]):
+        fail(f"the ImageNet-64 sample wrote no grid: {grids}")
+    print(f"ImageNet-64: losses {out['losses']}; request {out['sample']['wall_s']:.3f} s "
+          f"(host clock, with the checkpoint restore) [{card}]", flush=True)
+
+    # the train step and one DDIM-50 request of the trained state, timed
+    state = CheckpointManager(run).restore(lit.init_state(0, device=dev))
+    dm = tcfg.instantiate(config["data"])
+    dm.setup("fit")
+    it = dm.train_iter(SEED + 8)
+    state, timing, prof3, prof1 = timed_steps(torch, np, make_train_step(lit.make_loss_fn(dm)),
+                                              state, lambda: _place(next(it), dev), card)
+    out["timing"] = dict(timing, profile_3_steps=prof3, profile_1_step=prof1)
+    gen = lambda: lit.generate(state, torch.Generator(device=dev).manual_seed(SEED),  # noqa: E731
+                               (BATCH, 64, 64, 3), sampler="ddim", steps=50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = gen()
+    torch.cuda.synchronize()
+    out["request_s"] = time.perf_counter() - t0
+    out["request_profile"] = prof = profile_fn(torch, gen)
+    print(f"ImageNet-64 DDIM-50 at n = {BATCH}: {out['request_s']:.3f} s; profiled: wall "
+          f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms in "
+          f"{prof['device_ops']} operations, idle share {prof['idle_share']:.3f} [{card}]",
+          flush=True)
+    if not (y.shape == (BATCH, 64, 64, 3) and bool(y.isfinite().all())):
+        fail(f"the ImageNet-64 request gave {tuple(y.shape)}, finite {bool(y.isfinite().all())}")
+    del state, y
+    k_res._PACKED.clear()
+    torch.cuda.empty_cache()
+
+    # every K1/K2/K3 call of a training step at batch 128, and every
+    # K1/K3/K4 call of a forward at n = 8 (the sample's)
+    step = train_kernels(torch, blocks, k_gn, k_attn, None, init_weights, None, dev, card, ops,
+                         lit=lit, batch_size=batch_size, sites=calls, img_size=64, dm=dm)
+    out.update(train_rows=step["shapes"], per_step=step["per_step"])
+    model = lit.model.to(dev).eval()  # the seed's weights of train_kernels, K4 on
+    g = torch.Generator().manual_seed(SEED + 66)
+    runs = {"in64": (model, torch.randn((BATCH, 64, 64, 3), generator=g),
+                     torch.randint(1, 4000, (BATCH,), generator=g), forward)}
+    reset_counts(ops)
+    recorded, _ = record_forwards(torch, blocks, runs, dev)
+    torch.cuda.synchronize()
+    if counts(ops) != forward:
+        fail(f"an ImageNet-64 forward launched {counts(ops)}, expected {forward}")
+    frows, failures = forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded)
+    if failures:
+        fail(f"ImageNet-64 forward kernels disagree with their plain versions: {failures}")
+    out.update(forward_rows=frows,
+               per_forward=_per_forward(frows, "in64", card, f"ImageNet-64 forward at n = {BATCH}"))
+    algo = lit.diffusion_model
+    del model, recorded, lit, dm
+    k_res._PACKED.clear()
+    torch.cuda.empty_cache()
+    out["gradient"] = train_gradient(
+        torch, blocks, init_weights, config_pair(torch, model_node), algo,
+        config_draws(torch, np, (IN64_BATCH, 64, 64, 3), algo.timesteps, 2), dev, ops,
+        {k: train[k] + forward[k] for k in train}, "ImageNet-64 step", forward=True)
+    shutil.rmtree(IN64_ROOT, ignore_errors=True)
+    return out
+
+
+def a12_rows(report: dict) -> list:
+    """The kernels line's rows of the LSUN and ImageNet-64 paths: K1/K2/K3
+    per LSUN microbatch (batch 2, 256 px; launches in the 2-step CLI fit's
+    64 microbatches) and K1/K3/K4 per LSUN sampling forward at n = 4 (launches
+    in the fit's GenerateImage grid, 1000 DDPM forwards), per ImageNet-64
+    training step at batch 128 (launches in its 3-step CLI fit) and
+    K1/K3/K4 per ImageNet-64 forward at n = 8 (launches in the DDIM-50
+    sample)."""
+    ls, im = report["lsun_fit"], report["in64_fit"]
+    rows = [_table_row(f"{k}_lsun_train", k, ls["per_microbatch"][k], ls["train_launches"][k])
+            for k in ("group_norm_silu", "group_norm_silu_bwd", "attention")]
+    rows += [_table_row(f"{k}_lsun_sample", k, ls["per_sample_forward"][k],
+                        ls["sample_launches"][k])
+             for k in ("group_norm_silu", "attention", "resblock")]
+    rows += [_table_row(f"{k}_in64_train", k, im["per_step"][k], im["fit"]["launches"][k])
+             for k in ("group_norm_silu", "group_norm_silu_bwd", "attention")]
+    rows += [_table_row(f"{k}_in64_serve", k, im["per_forward"][k], im["sample"]["launches"][k])
+             for k in ("group_norm_silu", "attention", "resblock")]
+    return rows
+
+
 def record_forwards(torch, blocks, runs, dev, targets=None) -> tuple:
     """Record the K1/K3/K4 inputs of eval forwards (``targets``: the entry
     points, by default :func:`serve_targets`). ``runs``: {name: (model, x,
@@ -6004,8 +6541,9 @@ def main() -> int:
     report["simt"] = simt_kernels(torch, k_gn, dev, ops)
 
     phase("train gradient: loss_given + backward at batch 8, bf16 on the card vs f32 on the CPU")
-    report["train_gradient"] = train_gradient(torch, np, blocks, ddpm_models, init_weights,
-                                              DDPM.create(1000), ddpm_draws(torch, np), dev, ops)
+    report["train_gradient"] = train_gradient(torch, blocks, init_weights,
+                                              unet_pair(torch, ddpm_models), DDPM.create(1000),
+                                              ddpm_draws(torch, np), dev, ops, PER_TRAIN_STEP)
     torch.cuda.empty_cache()
 
     # a user's defaults for the timed training: cuDNN may pick any algorithm
@@ -6068,9 +6606,10 @@ def main() -> int:
           "f32 CPU")
     from dmme_tpu_torch.diffusion import EDM
 
-    report["edm_gradient"] = train_gradient(torch, np, blocks, ddpm_models, init_weights,
-                                            EDM.create(), edm_draws(torch, np, BATCH, SEED + 80),
-                                            dev, ops, "EDM training step")
+    report["edm_gradient"] = train_gradient(torch, blocks, init_weights,
+                                            unet_pair(torch, ddpm_models), EDM.create(),
+                                            edm_draws(torch, np, BATCH, SEED + 80), dev, ops,
+                                            PER_TRAIN_STEP, "EDM training step")
     torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = False
     print("cudnn deterministic off for the EDM and flow fits", flush=True)
@@ -6125,7 +6664,7 @@ def main() -> int:
     phase(f"guidance: ClassifierGuidedDDIM-{GUIDED_STEPS} at n = {BATCH} and "
           "ClassifierGuidedDDPM steps")
     report["adm_guidance"] = adm_guidance(torch, np, blocks, dev, ops, card)
-    phase("ADM serve: LitIDDPM(ADM-32, sample_steps=50, dtype='bf16') over HTTP")
+    phase(f"ADM serve: LitIDDPM(ADM-32, sample_steps={ADM_SERVE_STEPS}, dtype='bf16') over HTTP")
     report["adm_serve"] = adm_serve(torch, np, blocks, dev, ops, card)
     torch.cuda.empty_cache()
 
@@ -6177,6 +6716,19 @@ def main() -> int:
           f"dpm), {CFG_CONFIG}, {LATENT_DDPM_CONFIG}; the refusals; one batch split")
     report["eval_test"] = eval_test(torch, np, blocks, k_gn, k_attn, k_res, build, ops, dev,
                                     card, report["latent_cli"]["kept_roots"])
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.deterministic = False
+    print("cudnn deterministic off for the LSUN and ImageNet-64 runs", flush=True)
+    phase(f"LSUN fit: trainer.main fit --config {LSUN_CONFIG} (batch 2 x 32 microbatches, 256 px, "
+          "remat) on a synthetic LMDB, ProfileTrace; one microbatch's kernels, the gradient")
+    report["lsun_fit"] = lsun_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops,
+                                  dev, card)
+    torch.cuda.empty_cache()
+    phase(f"ImageNet-64: trainer.main fit --config {IN64_CONFIG} --trainer.mesh null (batch 128, "
+          "64 px), sample DDIM-50 at n = 8; the kernels at its call sites, the gradient")
+    report["in64_fit"] = in64_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops,
+                                  dev, card)
     torch.cuda.empty_cache()
 
     phase("kernels")
@@ -6294,6 +6846,7 @@ def main() -> int:
     table += slice_rows(report, shapes)
     table += latent_rows(report)
     table += eval_rows(report)
+    table += a12_rows(report)
     report["kernels"] = table
     print("kernels launched on their paths and held against their plain versions: "
           + "; ".join(f"{k['name']} ({k['route']}, {k['source']}, replaces {k['replaces']}, "
@@ -6341,7 +6894,13 @@ def main() -> int:
           f"attention_latent_dit_train: per step at batch {TRAIN_BATCH}, launches in its "
           f"{LATENT_FIT_STEPS}-step CLI fit. *_eval: per DDIM-50 forward of a test batch at "
           f"N = {TRAIN_BATCH} (50 a batch), launches in the {EVAL_BATCHES} batches of the "
-          f"save_fid_stats test of {DDIM_CONFIG})", flush=True)
+          f"save_fid_stats test of {DDIM_CONFIG}. *_lsun_train: per microbatch of {LSUN_CONFIG} "
+          f"(batch 2, 256 px, remat), launches in its {LSUN_FIT_STEPS}-step CLI fit (32 "
+          f"microbatches a step); *_lsun_sample: per sampling forward at n = 4, launches in that "
+          f"fit's GenerateImage grid (1000 DDPM forwards); *_in64_train: per step of "
+          f"{IN64_CONFIG} at batch {TRAIN_BATCH}, launches in its {IN64_FIT_STEPS}-step CLI fit; "
+          f"*_in64_serve: per forward at n = {BATCH}, launches in its DDIM-50 sample)",
+          flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -14,8 +14,11 @@ tests. Activations keep the JAX package's NHWC layout at every public function.
 * ``dmme_tpu_torch.diffusion`` — DDPM / DDIM / IDDPM / EDM / flow training
   losses, the samplers, classifier-free and classifier guidance, RePaint
   inpainting and progressive distillation
-* ``dmme_tpu_torch.data``      — CIFAR-10 (on-disk or synthetic) and the
+* ``dmme_tpu_torch.data``      — CIFAR-10 (on-disk or synthetic), ImageNet-64
+  (``ImageFolder64``), LSUN over a dependency-free LMDB reader (``LSUN``,
+  ``LMDBReader``; ``dmme_tpu_torch.native`` builds its C++ scanner) and the
   procedural ``Shapes``, flips on the device
+* ``dmme_tpu_torch.datasets``  — LSUN's raw LMDB categories (``LSUNClass``, ``LSUN``)
 * ``dmme_tpu_torch.training``  — the harnesses (``LitDDPM`` … ``LitDistill``, ``LitClassifier``,
   latent diffusion's ``LitVAE``, ``LitLatentDDPM`` and ``LitLatentFlow``),
   ``TrainState``, the optimizer chain, EMA, ``fit`` with checkpoints
@@ -24,7 +27,8 @@ tests. Activations keep the JAX package's NHWC layout at every public function.
 * ``dmme_tpu_torch.eval``      — FID and the Inception Score: streaming
   statistics, ``InceptionV3`` (FID-standard and torchvision topologies) and
   its weight loaders
-* ``dmme_tpu_torch.callbacks`` — ``GenerateImage``
+* ``dmme_tpu_torch.callbacks`` — ``GenerateImage`` and ``ProfileTrace`` (a
+  ``torch.profiler`` trace of a window of steps; ``utils.profiling``)
 * ``dmme_tpu_torch.parallel``  — the train step (one device)
 * ``dmme_tpu_torch.serving``   — the HTTP sampling server
 * ``dmme_tpu_torch.config``    — the YAML ``class_path`` trees of ``configs/``
@@ -36,8 +40,7 @@ tests. Activations keep the JAX package's NHWC layout at every public function.
   ``python -m dmme_tpu_torch.fid PATH1 PATH2 [--weights w.pth]``
 
 Entry points run on the CUDA device unless the caller passes ``device="cpu"``.
-The package root re-exports what the port has of ``dmme_tpu/__init__.py``'s
-names; ``datasets``, ``LSUN`` and ``ImageFolder64`` wait for ROADMAP A.12.
+The package root re-exports ``dmme_tpu/__init__.py``'s names.
 """
 
 __version__ = "0.1.0"
@@ -47,9 +50,10 @@ from dmme_tpu_torch.utils import (denorm, gaussian, gaussian_like, make_history,
 from dmme_tpu_torch import equations, models, diffusion
 from dmme_tpu_torch import diffusion as diffusion_models  # the JAX package's alias
 from dmme_tpu_torch.training import LitClassifier, LitDDIM, LitDDPM, LitEDM, LitIDDPM
-from dmme_tpu_torch.data import CIFAR10
-from dmme_tpu_torch import callbacks
+from dmme_tpu_torch.data import CIFAR10, ImageFolder64, LSUN
+from dmme_tpu_torch import callbacks, datasets
 
 __all__ = ["gaussian", "gaussian_like", "uniform_int", "pad", "norm", "denorm", "make_history",
            "equations", "models", "diffusion", "diffusion_models", "callbacks", "LitDDPM",
-           "LitDDIM", "LitEDM", "LitIDDPM", "LitClassifier", "CIFAR10", "__version__"]
+           "LitDDIM", "LitEDM", "LitIDDPM", "LitClassifier", "CIFAR10", "ImageFolder64", "LSUN",
+           "datasets", "__version__"]

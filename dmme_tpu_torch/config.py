@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import importlib
 import inspect
+import re
 from typing import Any, Dict, List, Optional, Set
 
 import yaml
@@ -23,11 +24,8 @@ import yaml
 from dmme_tpu_torch.training.lit import resolve_dtype
 
 #: what the port has not ported yet, by JAX class path (or its prefix), with
-#: the ROADMAP item that ports it
-_NOT_PORTED = {
-    "dmme_tpu.data.LSUN": "A.12: LSUN and the remaining data",
-    "dmme_tpu.data.ImageFolder64": "A.12: LSUN and the remaining data",
-}
+#: the ROADMAP item that ports it (none at present: every config's classes are)
+_NOT_PORTED: Dict[str, str] = {}
 #: constructor arguments of ported classes that only the JAX package takes
 #: yet, with the ROADMAP item that ports them (none at present)
 _ARGS_NOT_PORTED: Dict[str, str] = {}
@@ -89,9 +87,23 @@ def _canon_kwargs(kwargs: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+class _ConfigLoader(yaml.SafeLoader):
+    """PyYAML's safe loader that also reads a float written without a dot
+    (``lr: 2e-5``, YAML 1.2) as a float. YAML 1.1, which PyYAML follows,
+    reads it as the string ``"2e-5"``: the JAX package loads
+    configs/ddpm/lsun_{bedroom,cat,church}.yaml's learning rates so, and its
+    warmup schedule then raises a ``TypeError``. Its overrides are read the
+    forgiving way (:func:`_parse_value`); so are the port's files."""
+
+
+_ConfigLoader.add_implicit_resolver(
+    "tag:yaml.org,2002:float", re.compile(r"^[-+]?[0-9][0-9_]*(?:\.[0-9_]*)?[eE][-+]?[0-9]+$"),
+    list("-+0123456789"))
+
+
 def load_config(path: str) -> Dict[str, Any]:
     with open(path) as f:
-        return yaml.safe_load(f) or {}
+        return yaml.load(f, Loader=_ConfigLoader) or {}
 
 
 def apply_overrides(config: Dict[str, Any], overrides: List[str]) -> Dict[str, Any]:

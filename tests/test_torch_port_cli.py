@@ -40,7 +40,9 @@ PORTED = {"configs/ddpm/cifar10.yaml", "configs/ddim/cifar10.yaml",
           "configs/flow/cifar10_dit_moe.yaml", "configs/flow/shapes_dit_demo.yaml",
           "configs/flow/shapes_dit_moe_demo.yaml", "configs/latent/shapes_vae_demo.yaml",
           "configs/latent/shapes_latent_demo.yaml",
-          "configs/latent/shapes_latent_flow_dit_demo.yaml"}
+          "configs/latent/shapes_latent_flow_dit_demo.yaml", "configs/ddpm/lsun_bedroom.yaml",
+          "configs/ddpm/lsun_cat.yaml", "configs/ddpm/lsun_church.yaml",
+          "configs/iddpm/imagenet64.yaml"}
 
 TINY_YAML = """
 seed_everything: 7
@@ -234,8 +236,15 @@ def test_dtype_aliases_match_jax(alias, want):
 @pytest.mark.parametrize("path,item", [("dmme_tpu.data.LSUN", "A.12"),
                                        ("dmme_tpu.data.ImageFolder64", "A.12")])
 def test_an_unported_class_names_its_roadmap_item(path, item):
-    with pytest.raises(tcfg.ConfigError, match=f"ROADMAP {item}"):
-        tcfg.instantiate({"class_path": path, "init_args": {}})
+    """LSUN and ImageFolder64 waited for ROADMAP ``item`` and now resolve to
+    the port's classes; a class the port lacks still raises naming its queue."""
+    from dmme_tpu_torch import data as tdata
+
+    assert tcfg.resolve_class(path) is getattr(tdata, path.rsplit(".", 1)[1])
+    assert not any(item in v for v in tcfg._NOT_PORTED.values())
+    with pytest.raises(tcfg.ConfigError, match="not ported to dmme_tpu_torch yet "
+                                               r"\(ROADMAP queue A\)"):
+        tcfg.instantiate({"class_path": path + "Missing", "init_args": {}})
 
 
 @pytest.mark.parametrize("path,name", [("dmme_tpu.training.LitVAE", "latent.LitVAE"),
@@ -421,17 +430,16 @@ def test_iddpm_sample_override_is_the_factory_on_the_restored_state(tmp_path):
 
 
 def test_imagenet64_names_what_it_waits_for():
-    """configs/iddpm/imagenet64.yaml: the model validates (the IDDPM UNet at
-    the ImageNet-64 widths), the data raises naming ROADMAP A.12, and with
-    other data its mesh raises naming A.11."""
+    """configs/iddpm/imagenet64.yaml validates (the IDDPM UNet at the
+    ImageNet-64 widths on ``ImageFolder64``, ported with ROADMAP A.12); its
+    mesh still makes ``fit`` raise naming A.11."""
     path = os.path.join(ROOT, "configs/iddpm/imagenet64.yaml")
-    config = tcfg.load_config(path)
-    tcfg.validate_config(dict(config, data=None))
-    with pytest.raises(tcfg.ConfigError, match=r"ImageFolder64.*not ported.*ROADMAP A\.12"):
-        tcfg.validate_config(config)
+    config = tcfg.validate_config(tcfg.load_config(path))
+    assert config["data"]["class_path"] == "dmme_tpu.data.ImageFolder64"
+    assert config["trainer"]["mesh"] == {"data": -1, "fsdp": 1}
     with pytest.raises(NotImplementedError, match=r"ROADMAP A\.11"):
-        main(["fit", "--config", path, "--data.class_path", "dmme_tpu.data.Shapes",
-              "--data.init_args", "{size: 8, batch_size: 4, img_size: 64}"], device="cpu")
+        main(["fit", "--config", path, "--data.init_args.synthetic", "true",
+              "--data.init_args.synthetic_size", "8"], device="cpu")
 
 
 @pytest.mark.parametrize("harness", ["LitIDDPM", "LitDDIM"])

@@ -209,23 +209,24 @@ def test_param_dtype_f32_only(factory):
 
 #: the repo's configs that the port validates, and the item each other waits for
 VALIDATES = {"adm/cifar10_classifier", "adm/cifar10_guided", "ddim/cifar10", "ddpm/cifar10",
-             "ddpm/cifar10_vpred", "ddpm/shapes256_demo", "ddpm/shapes_cfg_demo",
+             "ddpm/cifar10_vpred", "ddpm/lsun_bedroom", "ddpm/lsun_cat", "ddpm/lsun_church",
+             "ddpm/shapes256_demo", "ddpm/shapes_cfg_demo",
              "ddpm/shapes_demo", "ddpm/shapes_sr_demo", "edm/cifar10", "edm/shapes_demo",
              "flow/cifar10_dit", "flow/cifar10_dit_moe", "flow/shapes_demo",
              "flow/shapes_dit_demo", "flow/shapes_dit_moe_demo", "iddpm/cifar10",
-             "iddpm/shapes64_demo", "iddpm/shapes_demo", "latent/shapes_latent_demo",
-             "latent/shapes_latent_flow_dit_demo", "latent/shapes_vae_demo"}
-WAITS = {"ddpm/lsun_bedroom": "A.12", "ddpm/lsun_cat": "A.12", "ddpm/lsun_church": "A.12",
-         "iddpm/imagenet64": "A.12"}
+             "iddpm/imagenet64", "iddpm/shapes64_demo", "iddpm/shapes_demo",
+             "latent/shapes_latent_demo", "latent/shapes_latent_flow_dit_demo",
+             "latent/shapes_vae_demo"}
+WAITS: dict = {}
 
 
 def test_thirteen_of_twenty_six_configs_validate():
-    """Twenty-two since the latent configs (A.8) validate; the name is the
-    one this test has had since thirteen did. The four left wait for A.12."""
+    """All twenty-six since LSUN and ImageFolder64 (A.12) are ported; the
+    name is the one this test has had since thirteen did. None waits."""
     names = sorted(os.path.relpath(p, os.path.join(ROOT, "configs"))[:-len(".yaml")]
                    for p in glob.glob(os.path.join(ROOT, "configs", "*", "*.yaml")))
     assert len(names) == 26 and set(names) == VALIDATES | set(WAITS)
-    assert len(VALIDATES) == 22 and not VALIDATES & set(WAITS)
+    assert len(VALIDATES) == 26 and WAITS == {}
     for name in names:
         config = tcfg.load_config(os.path.join(ROOT, "configs", name + ".yaml"))
         if name in VALIDATES:

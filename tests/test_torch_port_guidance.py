@@ -343,9 +343,9 @@ def test_noise_helpers():
 
 
 def test_package_root_reexports_what_is_ported():
-    """The port's root exports the JAX root's names but those that wait for
-    ROADMAP A.12 (LSUN, ImageFolder64, datasets)."""
-    waiting = {"datasets", "LSUN", "ImageFolder64"}
+    """The port's root exports every name of the JAX root (LSUN,
+    ImageFolder64 and datasets since ROADMAP A.12), and ``callbacks``."""
+    waiting = set()
     assert set(dmme_tpu_torch.__all__) == set(dmme_tpu.__all__) - waiting | {"callbacks"}
     for name in dmme_tpu_torch.__all__:
         assert getattr(dmme_tpu_torch, name) is not None, name
