@@ -18,7 +18,8 @@ if the package is missing, or if any phase fails. Phases:
    one full-width bf16 UNet forward at each serving batch, 1, 8 and 16 (both
    switches on; at batch 8 also ``fused_norm`` only), then holds each kernel
    against its plain PyTorch version on those inputs, with times (CUDA
-   events, median of 15; K4's weights are packed once per weight state,
+   events, median of 15, of 5 for the plain versions; K4's weights are
+   packed once per weight state,
    before the timed runs) and the least time the card could take; beside
    K3, SDPA; beside K4, the same ResBlock as a cuDNN sequence
    (``cudnn_seq_ms``), which the port never calls;
@@ -296,16 +297,35 @@ if the package is missing, or if any phase fails. Phases:
    timed; the bf16 microbatch loss, gradient and forward against f32 on the
    CPU at 256 px;
 48. ImageNet-64 — ``trainer.main fit`` of configs/iddpm/imagenet64.yaml
-   with ``--trainer.mesh null`` (batch 128, 64 px, 4 heads of 96 and 128,
-   hybrid loss, cosine T = 4000, remat, ``fused_norm``) for 3 steps on a
-   synthetic ``train_data_batch_1.npz`` of 512 rows, then ``sample
-   --trainer.sampler ddim --trainer.sample_batch 8`` with ``fused_block``
-   (K4 at the 30 ResBlocks, C 384 and 768); launches as the call sites say;
-   the step (median of 15) and the request timed with their idle shares;
-   every K1/K2/K3 call of a step at batch 128 and K1/K3/K4 call of a
+   as written (batch 128, 64 px, 4 heads of 96 and 128, hybrid loss,
+   cosine T = 4000, remat, ``fused_norm``; its mesh ``{data: -1, fsdp: 1}``
+   a world of 1 over NCCL) for 3 steps on a synthetic
+   ``train_data_batch_1.npz`` of 512 rows, and again with ``--trainer.mesh
+   null``: the two saved states bitwise equal (deterministic cuDNN); then
+   ``sample --trainer.sampler ddim --trainer.sample_batch 8`` with
+   ``fused_block`` (K4 at the 30 ResBlocks, C 384 and 768); launches as the
+   call sites say; the step (median of 15) with and without the mesh (NCCL's
+   all-reduce in a profiled mesh step) and the request timed with their idle
+   shares; every K1/K2/K3 call of a step at batch 128 and K1/K3/K4 call of a
    forward at n = 8 held against its plain version, twice, and timed; the
    bf16 loss, gradient (batch 2) and forward against f32 on the CPU;
-49. the kernel table as one JSON line, the card's name and power limit, then
+49. two ranks on one card — ``python -m torch.distributed.run --standalone
+   --nproc_per_node 2 chip_smoke.py --rank-worker DIR`` (gloo on CUDA
+   tensors; NCCL refuses two ranks on one device): ``trainer.main fit`` of
+   configs/ddpm/cifar10.yaml (global batch 128, synthetic data, 3 steps)
+   with ``--trainer.mesh.data 2`` and with ``--trainer.mesh.fsdp 2``; the
+   data run's saved state bitwise that of one process here at batch 64
+   with ``accumulate_grad_batches 2``, the fsdp run's parameters within 1e-6
+   (relative L2) of it, each fsdp rank holding about half a data rank's
+   bytes of parameters, EMA and moments; each rank's launches a batch-64
+   step's (no f32, fp16 or ``simt.cu``); each rank's step and the gradient
+   all-reduce timed; K1/K2/K3 at every call site of a batch-64 step held
+   against their plain versions;
+50. two-rank test — in the same launch, ``trainer.main test`` of
+   configs/ddim/cifar10.yaml from phase 46's run with
+   ``--trainer.mesh.data 2``, one test batch a rank: phase 46's FID and IS
+   (the relative differences printed), each rank one batch's launches;
+51. the kernel table as one JSON line, the card's name and power limit, then
    ``{"ok": true, "device": ...}``.
 
 ``--out`` also writes every measurement to a JSON file. ``--kernels-only``
@@ -403,6 +423,12 @@ CACHING = (("cached", 50, PER_FORWARD_CACHED), ("deep", 50, PER_FORWARD_DEEP),
 # optimizer), a work count traced from the JAX package's XLA program, not a
 # time; over the card's bf16 peak it bounds a step from below
 TRAIN_STEP_TFLOP = 3.53
+
+
+# runs of each plain version timed (``device_ms``): they are yardsticks tens
+# to hundreds of times slower than the kernels, and 15 runs of them cost more
+# of the run's time budget than they add to the ratio's precision
+PLAIN_REPS = 5
 
 
 def fail(msg: str) -> None:
@@ -756,6 +782,17 @@ def profile_fn(torch, fn, top_n: int = 12) -> dict:
             "device_ops": ops, "top": top}
 
 
+def host_ops(torch, fn) -> dict:
+    """{name: host ms} of the operations a torch.profiler trace of ``fn()`` records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()}
+
+
 def _vector_bytes(v) -> int:
     """f32 bytes of an (N, C) or (C,) vector, one row when the batch shares it."""
     if v is None:
@@ -910,7 +947,8 @@ def step_rows(torch, k_gn, k_attn, calls, card: str, label: str) -> tuple:
             max_abs, _, ok = errors(got, plain(), rtol, atol)
             same = bool(torch.equal(got, kern()))
             row = _train_row("group_norm_silu", key, count, max_abs, ok and same,
-                             device_ms(torch, kern), device_ms(torch, plain), a, k)
+                             device_ms(torch, kern),
+                             device_ms(torch, plain, reps=PLAIN_REPS), a, k)
             row["repeat_identical"], row["plan"] = same, gn_plan(k_gn, a[0], a[3], False)
             row["torch_seq_ms"] = device_ms(torch, gn_sequence(torch, a, k))
             rows.append(row)
@@ -927,7 +965,8 @@ def step_rows(torch, k_gn, k_attn, calls, card: str, label: str) -> tuple:
                 max_abs, ok = max(max_abs, e_abs), ok and e_ok and g_.dtype == w_.dtype
             same = all(bool(torch.equal(g_, h_)) for g_, h_ in zip(got, kern()))
             row = _train_row("group_norm_silu_bwd", key, count, max_abs, ok and same,
-                             device_ms(torch, kern), device_ms(torch, plain), a, k)
+                             device_ms(torch, kern),
+                             device_ms(torch, plain, reps=PLAIN_REPS), a, k)
             row["repeat_identical"], row["plan"] = same, gn_plan(k_gn, a[0], a[7], True)
             row["torch_seq_ms"] = device_ms(
                 torch, gn_sequence(torch, (a[0], a[2], a[3], a[7]), {"pre_bias": a[4]}, a[1]))
@@ -943,7 +982,7 @@ def step_rows(torch, k_gn, k_attn, calls, card: str, label: str) -> tuple:
             max_abs, _, ok = errors(got, want, rtol, atol)
             same = bool(torch.equal(got, kern()))
             row = _train_row("attention", key, count, max_abs, ok and same, device_ms(torch, kern),
-                             device_ms(torch, plain), a, k)
+                             device_ms(torch, plain, reps=PLAIN_REPS), a, k)
             row["repeat_identical"] = same
             sdpa = lambda q=q, kk=kk, v=v, scale=scale: (  # noqa: E731
                 torch.nn.functional.scaled_dot_product_attention(
@@ -973,7 +1012,7 @@ def step_rows(torch, k_gn, k_attn, calls, card: str, label: str) -> tuple:
         sdpa = lambda o=sdpa_out, sl=sl, g_t=g_t: torch.autograd.grad(  # noqa: E731
             o, sl, g_t, retain_graph=True)
         row = _train_row("attention_bwd", key, count, max_abs, ok, device_ms(torch, kern),
-                         device_ms(torch, plain), a, k)
+                         device_ms(torch, plain, reps=PLAIN_REPS), a, k)
         row["rel_l2"], row["library_ms"] = rel, device_ms(torch, sdpa)
         rows.append(row)
     for r in rows:
@@ -1581,7 +1620,7 @@ def wide_rows(torch, k_gn, k_attn, k_res, calls, dtype) -> list:
                 same = all(bool(torch.equal(g_, h_)) for g_, h_ in
                            zip(got, again if isinstance(again, tuple) else (again,)))
                 row = _train_row(kind, key, count, max_abs, ok and same, device_ms(torch, kern),
-                                 device_ms(torch, plain), a, k)
+                                 device_ms(torch, plain, reps=PLAIN_REPS), a, k)
                 row["repeat_identical"] = same
                 if kind == "attention":
                     q, kk, v, scale = a
@@ -5609,7 +5648,8 @@ def eval_test(torch, np, blocks, k_gn, k_attn, k_res, build, ops, dev, card: str
     k_res._PACKED.clear()
     torch.cuda.empty_cache()
     out["split"] = eval_batch_split(torch, np, dev, card, roots["ddim"], pth)
-    for root in (*roots.values(), *latent_roots.values()):
+    out["kept_root"] = roots["ddim"]  # the two-rank test's (phase 50), removed there
+    for root in (roots["cfg"], *latent_roots.values()):
         shutil.rmtree(root, ignore_errors=True)
     return out
 
@@ -6007,34 +6047,38 @@ def lsun_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, d
 def in64_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, dev,
              card: str) -> dict:
     """Phase 48: configs/iddpm/imagenet64.yaml on the card through
-    ``trainer.main`` with ``--trainer.mesh null`` (the config's mesh waits for
-    ROADMAP A.11): batch 128, 64 px, 4 heads, the hybrid loss on the cosine
+    ``trainer.main`` as written, its mesh ``{data: -1, fsdp: 1}`` a world of 1
+    over NCCL: batch 128, 64 px, 4 heads, the hybrid loss on the cosine
     T = 4000 schedule, remat, ``fused_norm``, on a synthetic
     ``train_data_batch_1.npz`` of ``IN64_ROWS`` channel-planar rows with
-    1-based labels: ``IN64_FIT_STEPS`` steps, then ``sample --trainer.sampler
+    1-based labels: ``IN64_FIT_STEPS`` steps (deterministic cuDNN), the
+    backend printed ``nccl``; the same with ``--trainer.mesh null``, the two
+    saved states bitwise equal; then ``sample --trainer.sampler
     ddim --trainer.sample_batch 8`` (DDIM-50, ``IN64_BLOCK`` on: K4 at the 30
     ResBlocks); launches as the call sites say, no f32, fp16 or ``simt.cu``
     launch. Every K1/K2/K3 call of a training step at batch 128 and every
     K1/K3/K4 call of a forward at n = 8 held against its plain version, twice
     for identical bytes, and timed beside its bound and library yardstick;
     the bf16 gradient at batch 2 and the forward against the f32 CPU port;
-    the step and the request timed, with their idle shares."""
+    the step timed with and without the world-1 mesh (whose profiled step
+    holds NCCL's all-reduce) and the request timed, with their idle shares."""
     import shutil
 
     from dmme_tpu_torch import config as tcfg
-    from dmme_tpu_torch.parallel import make_train_step
+    from dmme_tpu_torch.parallel import make_mesh, make_train_step, shard_state, shutdown
     from dmme_tpu_torch.training import CheckpointManager
     from dmme_tpu_torch.training.loop import _place
 
     shutil.rmtree(IN64_ROOT, ignore_errors=True)
     data_dir, run = os.path.join(IN64_ROOT, "data"), os.path.join(IN64_ROOT, "run")
+    run_null = os.path.join(IN64_ROOT, "run_null")
     os.makedirs(data_dir)
     rng = np.random.default_rng(SEED + 64)
     np.savez(os.path.join(data_dir, "train_data_batch_1.npz"),
              data=rng.integers(0, 256, (IN64_ROWS, 3 * 64 * 64), np.uint8),
              labels=rng.integers(1, 1001, IN64_ROWS))
-    common = ["--config", IN64_CONFIG, "--trainer.mesh", "null", "--data.init_args.data_dir",
-              data_dir, "--trainer.default_root_dir", run]
+    common = ["--config", IN64_CONFIG, "--data.init_args.data_dir", data_dir,
+              "--trainer.default_root_dir", run]
     config = tcfg.validate_config(tcfg.apply_overrides(tcfg.load_config(IN64_CONFIG),
                                                        common[2:] + IN64_BLOCK))
     batch_size = config["data"]["init_args"]["batch_size"]
@@ -6044,10 +6088,34 @@ def in64_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, d
     print(f"ImageNet-64: {lit.model.__class__.__name__} with "
           f"{sum(p.numel() for p in lit.model.parameters()):,} parameters; launches a training "
           f"step {train}, a sampling forward {forward}", flush=True)
-    out = {"fit": cli_run(torch, ops, card, f"ImageNet-64 fit {IN64_FIT_STEPS} steps",
-                          ["fit", *common, "--trainer.max_steps", str(IN64_FIT_STEPS),
-                           "--trainer.log_every_n_steps", "1"],
-                          {k: IN64_FIT_STEPS * v for k, v in train.items()})}
+    fit_args = ["--trainer.max_steps", str(IN64_FIT_STEPS), "--trainer.log_every_n_steps", "1"]
+    if config["trainer"]["mesh"] != {"data": -1, "fsdp": 1}:
+        fail(f"{IN64_CONFIG} names the mesh {config['trainer']['mesh']}")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the two fits compared bit for bit
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = {"fit": cli_run(torch, ops, card, f"ImageNet-64 fit {IN64_FIT_STEPS} steps, the "
+                              "config's mesh", ["fit", *common, *fit_args],
+                              {k: IN64_FIT_STEPS * v for k, v in train.items()})}
+    print(buf.getvalue(), end="", flush=True)
+    out["backend"] = [ln for ln in buf.getvalue().splitlines() if ln.startswith("[initialize]")]
+    if len(out["backend"]) != 1 or "backend nccl, world 1" not in out["backend"][0]:
+        fail(f"the config's mesh did not join a world of 1 over NCCL: {out['backend']}")
+    out["fit_null"] = cli_run(torch, ops, card, f"ImageNet-64 fit {IN64_FIT_STEPS} steps, "
+                              "--trainer.mesh null",
+                              ["fit", "--config", IN64_CONFIG, "--trainer.mesh", "null",
+                               "--data.init_args.data_dir", data_dir,
+                               "--trainer.default_root_dir", run_null, *fit_args],
+                              {k: IN64_FIT_STEPS * v for k, v in train.items()})
+    torch.backends.cudnn.deterministic = deterministic
+    out["mesh_vs_null"] = state_differences(torch, CheckpointManager(run).load(IN64_FIT_STEPS),
+                                            CheckpointManager(run_null).load(IN64_FIT_STEPS))
+    print(f"ImageNet-64 with its mesh against --trainer.mesh null: "
+          f"{len(out['mesh_vs_null'])} tensors differ", flush=True)
+    if out["mesh_vs_null"]:
+        fail(f"the world-1 mesh changed the state: {out['mesh_vs_null'][:5]}")
+    shutil.rmtree(run_null, ignore_errors=True)
     out["losses"] = [r["loss"] for r in _jsonl(os.path.join(run, "metrics.jsonl"))]
     if len(out["losses"]) != IN64_FIT_STEPS or not all(np.isfinite(out["losses"])):
         fail(f"the ImageNet-64 fit logged the losses {out['losses']}")
@@ -6072,6 +6140,29 @@ def in64_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, d
     state, timing, prof3, prof1 = timed_steps(torch, np, make_train_step(lit.make_loss_fn(dm)),
                                               state, lambda: _place(next(it), dev), card)
     out["timing"] = dict(timing, profile_3_steps=prof3, profile_1_step=prof1)
+    # the same steps on the config's mesh (a world of 1 over NCCL: the
+    # gradients flattened into buckets and all-reduced, the safe point's vote
+    # skipped), and one profiled step's host operations
+    mesh = make_mesh()
+    try:
+        mstate = shard_state(CheckpointManager(run).restore(lit.init_state(0, device=dev)), mesh)
+        mstep = make_train_step(lit.make_loss_fn(dm), mesh=mesh)
+        mstate, mtiming, mprof3, mprof1 = timed_steps(
+            torch, np, mstep, mstate, lambda: _place(next(it), dev), card)
+        one = _place(next(it), dev)
+        names = host_ops(torch, lambda: mstep(mstate, one, SEED))
+    finally:
+        shutdown()
+    del mstate
+    out["mesh_timing"] = dict(mtiming, profile_3_steps=mprof3, profile_1_step=mprof1)
+    out["mesh_step_ops"] = {n: ms for n, ms in names.items() if "nccl" in n or "allreduce" in n}
+    print(f"ImageNet-64 step median: {timing['step_ms_median']:.2f} ms without a mesh, "
+          f"{mtiming['step_ms_median']:.2f} ms on the world-1 NCCL mesh; the profiled mesh "
+          f"step's collectives (host ms) " + ", ".join(
+              f"{n} {ms:.3f}" for n, ms in out["mesh_step_ops"].items()) + f" [{card}]",
+          flush=True)
+    if "nccl:all_reduce" not in names:
+        fail("NCCL's all-reduce is not in a profiled step of the world-1 mesh")
     gen = lambda: lit.generate(state, torch.Generator(device=dev).manual_seed(SEED),  # noqa: E731
                                (BATCH, 64, 64, 3), sampler="ddim", steps=50)
     torch.cuda.synchronize()
@@ -6142,6 +6233,314 @@ def a12_rows(report: dict) -> list:
     return rows
 
 
+# distribution (A.11): configs/ddpm/cifar10.yaml on two ranks that share the
+# card (gloo on CUDA tensors: NCCL refuses two ranks on one device), against
+# one process that accumulates two microbatches of half the batch
+DIST_ROOT = os.path.join("build", "dist")
+DIST_CONFIG = "configs/ddpm/cifar10.yaml"
+DIST_RANKS = 2
+DIST_STEPS = 3
+DIST_BATCH = TRAIN_BATCH // DIST_RANKS  # a rank's slice of the global batch
+DIST_TIMED = 3  # timed steps a mesh in each rank
+# synthetic CIFAR-10 of a whole number of global batches, so the epoch's
+# batches split the same way over ranks and over microbatches
+DIST_DATA = ["--data.init_args.synthetic", "true", "--data.init_args.synthetic_size", "1024"]
+#: the fsdp run's saved parameters against the data run's, relative L2
+DIST_FSDP_REL = 1e-6
+#: seconds the two-rank launch may take before its process group is killed
+DIST_TIMEOUT = 480
+
+
+def kernel_counters(k_gn, k_attn, k_res) -> dict:
+    """The bf16 launch counters of K1–K4 (``ops``); fills ``WIDE`` with the
+    f32, fp16 and ``simt.cu`` ones."""
+    WIDE.update({"simt": {"group_norm_silu": (k_gn, "simt_launches"),
+                          "group_norm_silu_bwd": (k_gn, "simt_bwd_launches")}})
+    WIDE.update({d: {"group_norm_silu": (k_gn, f"{d}_launches"),
+                     "group_norm_silu_bwd": (k_gn, f"{d}_bwd_launches"),
+                     "attention": (k_attn, f"{d}_launches"),
+                     "resblock": (k_res, f"{d}_launches")} for d in ("fp16", "f32")})
+    return {"group_norm_silu": (k_gn, "launches"), "group_norm_silu_bwd": (k_gn, "bwd_launches"),
+            "attention": (k_attn, "launches"), "resblock": (k_res, "launches")}
+
+
+def state_bytes(state) -> int:
+    """Bytes of the parameters, EMA and Adam moments a rank holds."""
+    return sum(t.numel() * t.element_size() for part in (
+        state.params, state.ema_params, state.opt_state.mu, state.opt_state.nu)
+        for t in part.values())
+
+
+def _dist_fit_argv(root: str, *extra) -> list:
+    return ["fit", "--config", DIST_CONFIG, *DIST_DATA, "--trainer.max_steps", str(DIST_STEPS),
+            "--trainer.log_every_n_steps", "1", "--trainer.callbacks", "[]",
+            "--trainer.default_root_dir", root, *extra]
+
+
+def dist_timing(torch, dev, rank: int) -> dict:
+    """In a rank: ``DIST_TIMED`` steps of the config's harness on a data=2
+    and an fsdp=2 mesh (host clock: gloo's collectives wait for the card),
+    and the gradient all-reduce alone (every parameter's f32, flat buckets)."""
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.parallel import global_batch, make_mesh, make_train_step, shard_state
+    from dmme_tpu_torch.parallel.mesh import flat_all_reduce
+
+    config = tcfg.validate_config(tcfg.apply_overrides(tcfg.load_config(DIST_CONFIG),
+                                                       DIST_DATA))
+    lit, dm = tcfg.instantiate(config["model"]), tcfg.instantiate(config["data"])
+    dm.setup("fit")
+    it = dm.train_iter(SEED, process_index=rank, process_count=DIST_RANKS)
+    out = {}
+    for kind, axes in (("data", {}), ("fsdp", {"fsdp": DIST_RANKS})):
+        mesh = make_mesh(device=dev, **axes)
+        state = shard_state(lit.init_state(0, device=dev), mesh)
+        step = make_train_step(lit.make_loss_fn(dm), mesh=mesh)
+        walls = []
+        for _ in range(DIST_TIMED + 1):
+            batch = global_batch(next(it), mesh, global_size=TRAIN_BATCH)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, SEED)
+            float(metrics["loss"])
+            walls.append(1e3 * (time.perf_counter() - t0))
+        out[f"{kind}_step_ms"] = statistics.median(walls[1:])
+        if kind == "data":
+            grads = [torch.zeros_like(v) for v in state.params.values()]
+        del state
+    out["allreduce_mb"] = sum(g.numel() * g.element_size() for g in grads) / 1e6
+    walls = []
+    for _ in range(DIST_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flat_all_reduce(grads, divisor=float(DIST_RANKS))
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    out["allreduce_ms"] = statistics.median(walls[1:])
+    return out
+
+
+def rank_worker(out: str, eval_root: str, pth: str) -> int:
+    """One rank of phases 49 and 50 under ``python -m torch.distributed.run
+    --standalone --nproc_per_node 2 chip_smoke.py --rank-worker DIR``: the
+    kernels loaded from the parent's build, the parent's TF32 and cuDNN
+    settings, the group joined once (``parallel.initialize``: gloo, the two
+    ranks share the card); then ``trainer.main fit`` on a data=2 and on an
+    fsdp=2 mesh, the steps and the all-reduce timed, ``trainer.main test``
+    on a data=2 mesh. Each command's launches, and each fit's state bytes,
+    go to ``DIR/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from dmme_tpu_torch import training
+    from dmme_tpu_torch.ops import attention as k_attn
+    from dmme_tpu_torch.ops import build
+    from dmme_tpu_torch.ops import group_norm as k_gn
+    from dmme_tpu_torch.ops import resblock as k_res
+    from dmme_tpu_torch.parallel import initialize, shutdown
+    from dmme_tpu_torch.trainer import main as cli
+
+    ops = kernel_counters(k_gn, k_attn, k_res)
+    build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dev = initialize()
+    rank = dist.get_rank()
+    rec = {"rank": rank, "backend": dist.get_backend(), "device": str(dev)}
+    fit, held = training.fit, {}
+
+    def holding_fit(*args, **kwargs):  # what the command's fit leaves each rank holding
+        state = fit(*args, **kwargs)
+        held.update(state_bytes=state_bytes(state), split_leaves=len(state.shard_axes))
+        return state
+
+    training.fit = holding_fit
+    try:
+        for kind, axis in (("data", "--trainer.mesh.data"), ("fsdp", "--trainer.mesh.fsdp")):
+            reset_counts(ops)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            cli(_dist_fit_argv(os.path.join(out, kind), axis, str(DIST_RANKS)))
+            torch.cuda.synchronize()
+            rec[kind] = dict(held, wall_s=time.time() - t0, launches=counts(ops),
+                             wide=wide_counts())
+    finally:
+        training.fit = fit
+    rec["timing"] = dist_timing(torch, dev, rank)
+    reset_counts(ops)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        cli(["test", "--config", DDIM_CONFIG, *EVAL_DATA, "--trainer.default_root_dir", eval_root,
+             "--trainer.limit_test_batches", str(EVAL_BATCHES), "--trainer.inception_weights",
+             pth, "--trainer.mesh.data", str(DIST_RANKS)])
+    torch.cuda.synchronize()
+    rec["test"] = {"wall_s": time.time() - t0, "launches": counts(ops), "wide": wide_counts(),
+                   "printed": buf.getvalue()}
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    shutdown()
+    return 0
+
+
+def _rel_l2(torch, a: dict, b: dict) -> float:
+    x = torch.cat([v.reshape(-1).double() for v in a.values()])
+    y = torch.cat([b[k].reshape(-1).double() for k in a])
+    return float((x - y).norm() / x.norm())
+
+
+def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: str,
+               eval_rec: dict) -> dict:
+    """Phases 49 and 50: configs/ddpm/cifar10.yaml (the 32,416,643-parameter
+    UNet, bf16, K1/K2/K3) on two ranks that share the card, each launched by
+    ``torch.distributed.run`` (:func:`rank_worker`; deterministic cuDNN),
+    at global batch 128 on synthetic data for ``DIST_STEPS`` steps: a data=2
+    fit whose saved state is bitwise that of one process at batch 64 with
+    ``accumulate_grad_batches 2`` (run here), an fsdp=2 fit within 1e-6
+    (relative L2) of it whose ranks each hold about half the data ranks'
+    bytes of parameters, EMA and moments; each rank's launches a batch-64
+    step's, none of f32, fp16 or ``simt.cu``; each rank's step and the
+    gradient all-reduce timed. Then ``trainer.main test`` of
+    configs/ddim/cifar10.yaml from phase 46's run on a data=2 mesh, one test
+    batch a rank: phase 46's FID and IS, each rank one batch's launches.
+    K1/K2/K3 at every call site of a batch-64 step held against their plain
+    versions here; the test's K1/K3/K4 shapes are phase 46's."""
+    import shutil
+
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.training import CheckpointManager
+
+    shutil.rmtree(DIST_ROOT, ignore_errors=True)
+    os.makedirs(DIST_ROOT)
+    torch.backends.cudnn.deterministic = True
+    out = {"one": cli_run(torch, ops, card, f"one process: fit {DIST_STEPS} steps at batch "
+                          f"{DIST_BATCH} x {DIST_RANKS} accumulated",
+                          _dist_fit_argv(os.path.join(DIST_ROOT, "one"), "--trainer.mesh", "null",
+                                         "--data.init_args.batch_size", str(DIST_BATCH),
+                                         "--trainer.accumulate_grad_batches", str(DIST_RANKS)),
+                          launches_for(PER_TRAIN_STEP, DIST_STEPS * DIST_RANKS))}
+    eval_root = eval_rec["kept_root"]
+    pth = os.path.join(EVAL_ROOT, "pt_inception_standin.pth")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(DIST_RANKS), os.path.abspath(__file__), "--rank-worker", DIST_ROOT,
+           "--eval-root", eval_root, "--inception", pth]
+    log_path = os.path.join(DIST_ROOT, "torchrun.log")
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DIST_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)  # the launcher and both ranks
+            proc.wait()
+            rc = None
+    out["launch_wall_s"] = time.time() - t0
+    with open(log_path) as f:
+        lines = [ln for ln in f.read().splitlines() if not ln.startswith("[W")]
+    print("\n".join(lines[-40:]), flush=True)
+    if rc != 0:
+        fail(f"the two-rank launch ended with {rc} after {out['launch_wall_s']:.1f} s")
+    ranks = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(DIST_ROOT, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    out["ranks"] = ranks
+    if {r["backend"] for r in ranks} != {"gloo"}:
+        fail(f"two ranks on one card joined over {[r['backend'] for r in ranks]}, not gloo")
+
+    # phase 49: the fits
+    per_rank = launches_for(PER_TRAIN_STEP, DIST_STEPS)
+    for r in ranks:
+        for kind in ("data", "fsdp"):
+            rec = r[kind]
+            print(f"rank {r['rank']} {kind}=2 fit: {rec['wall_s']:.2f} s wall, launches "
+                  f"{rec['launches']}, f32/fp16 launches {rec['wide']}, holds "
+                  f"{rec['state_bytes'] / 2**20:.1f} MiB of parameters, EMA and moments "
+                  f"({rec['split_leaves']} leaves split) [{card}]", flush=True)
+            if rec["launches"] != per_rank:
+                fail(f"rank {r['rank']}'s {kind} fit launched {rec['launches']}, "
+                     f"expected {per_rank}")
+            if any(v for d in rec["wide"].values() for v in d.values()):
+                fail(f"rank {r['rank']}'s {kind} fit launched the f32/fp16 kernels")
+        share = r["fsdp"]["state_bytes"] / r["data"]["state_bytes"]
+        print(f"rank {r['rank']}: fsdp state {share:.4f} of the data rank's", flush=True)
+        if not 0.45 <= share <= 0.55:
+            fail(f"an fsdp rank holds {share:.3f} of a data rank's state, not about half")
+        t = r["timing"]
+        print(f"rank {r['rank']}: a step at batch {DIST_BATCH} a rank (global {TRAIN_BATCH}) "
+              f"{t['data_step_ms']:.2f} ms on data=2, {t['fsdp_step_ms']:.2f} ms on fsdp=2 "
+              f"(host clock, median of {DIST_TIMED}); the gradient all-reduce of "
+              f"{t['allreduce_mb']:.1f} MB through gloo {t['allreduce_ms']:.2f} ms [{card}]",
+              flush=True)
+    saved = {k: CheckpointManager(os.path.join(DIST_ROOT, k)).load(DIST_STEPS)
+             for k in ("one", "data", "fsdp")}
+    out["data_vs_one"] = state_differences(torch, saved["data"], saved["one"])
+    out["fsdp_vs_data"] = {part: _rel_l2(torch, *(
+        s[part] if part in s else s["opt_state"][part] for s in (saved["data"], saved["fsdp"])))
+        for part in ("params", "ema_params", "mu", "nu")}
+    print(f"data=2 against one process accumulating 2: {len(out['data_vs_one'])} tensors differ; "
+          f"fsdp=2 against data=2, relative L2: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in out["fsdp_vs_data"].items()), flush=True)
+    if out["data_vs_one"]:
+        fail(f"the data=2 state differs from one process's in {out['data_vs_one'][:5]}")
+    if out["fsdp_vs_data"]["params"] > DIST_FSDP_REL:
+        fail(f"the fsdp=2 parameters are {out['fsdp_vs_data']['params']:.3e} from data=2's")
+
+    # phase 50: the two-rank test against phase 46's one process
+    want = eval_rec["repeat"]["results"]
+    printed = [ln for ln in ranks[0]["test"]["printed"].splitlines() if ln.startswith("{'fid'")]
+    if len(printed) != 1 or ranks[1]["test"]["printed"].count("{'fid'"):
+        fail("the two-rank test did not print its results on rank 0 alone")
+    import ast
+
+    got = ast.literal_eval(printed[0])
+    out["test"] = {"results": got, "want": want,
+                   "fid_rel": abs(got["fid"] - want["fid"]) / abs(want["fid"]),
+                   "is_rel": abs(got["inception_score"] - want["inception_score"])
+                   / abs(want["inception_score"])}
+    print(f"two-rank test: {got}; one process (phase 46): {want}; FID relative difference "
+          f"{out['test']['fid_rel']:.3e}, IS {out['test']['is_rel']:.3e} [{card}]", flush=True)
+    if (got["num_batches"] != EVAL_BATCHES or out["test"]["fid_rel"] > FID_REL
+            or out["test"]["is_rel"] > STATS_REL_L2):
+        fail(f"the two-rank test gave {got}, phase 46 {want}")
+    one_batch = launches_for(eval_rec["sites"]["ddim"], 50)
+    for r in ranks:
+        rec = r["test"]
+        print(f"rank {r['rank']} test: {rec['wall_s']:.2f} s wall, launches {rec['launches']} "
+              f"[{card}]", flush=True)
+        if rec["launches"] != one_batch or any(v for d in rec["wide"].values()
+                                               for v in d.values()):
+            fail(f"rank {r['rank']}'s test launched {rec['launches']} ({rec['wide']}), "
+                 f"expected one batch's {one_batch}")
+    shutil.rmtree(eval_root, ignore_errors=True)
+
+    # K1/K2/K3 at every call site of a rank's step (batch 64)
+    config = tcfg.validate_config(tcfg.load_config(DIST_CONFIG))
+    step = train_kernels(torch, blocks, k_gn, k_attn, None, init_weights, None, dev, card, ops,
+                         lit=tcfg.instantiate(config["model"]), batch_size=DIST_BATCH)
+    out.update(train_rows=step["shapes"], per_step=step["per_step"])
+    shutil.rmtree(DIST_ROOT, ignore_errors=True)
+    return out
+
+
+def dist_rows(report: dict) -> list:
+    """The kernels line's rows of the two-rank paths: K1/K2/K3 per rank step
+    at batch 64 (launches in both ranks' data=2 and fsdp=2 fits), K1/K3/K4
+    per DDIM-50 forward of a test batch at N = 128 (phase 46's shapes;
+    launches in both ranks' test)."""
+    d = report["dist"]
+    rows = [_table_row(f"{k}_mesh_train", k, d["per_step"][k],
+                       sum(r[kind]["launches"][k] for r in d["ranks"] for kind in ("data", "fsdp")))
+            for k in ("group_norm_silu", "group_norm_silu_bwd", "attention")]
+    rows += [_table_row(f"{k}_mesh_test", k, report["eval_test"]["per_forward"][k],
+                        sum(r["test"]["launches"][k] for r in d["ranks"]))
+             for k in ("group_norm_silu", "attention", "resblock")]
+    return rows
+
+
 def record_forwards(torch, blocks, runs, dev, targets=None) -> tuple:
     """Record the K1/K3/K4 inputs of eval forwards (``targets``: the entry
     points, by default :func:`serve_targets`). ``runs``: {name: (model, x,
@@ -6169,7 +6568,8 @@ def record_forwards(torch, blocks, runs, dev, targets=None) -> tuple:
 
 def forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded) -> tuple:
     """Hold every recorded K1/K3/K4 call of a UNet forward against its plain
-    version (``TOL``) and time it: median of 15 CUDA-event runs, the bound,
+    version (``TOL``) and time it: median of 15 CUDA-event runs (the plain
+    version's of ``PLAIN_REPS``), the bound,
     SDPA beside K3, the library sequences beside K1 and K4. ``recorded``:
     {kind: {signature: {"a", "k", "sites"}}}. Returns (rows, failures)."""
     plain = {
@@ -6203,7 +6603,8 @@ def forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded) -> tuple:
                     "kernel": kind_, "key": repr(key), "sites": e["sites"],
                     "max_abs_err": max_abs, "max_rel_err": max_rel,
                     "rtol": rtol, "atol": atol, "ok": ok and same, "repeat_identical": same,
-                    "ms": device_ms(torch, kern_fn), "plain_ms": device_ms(torch, plain_fn),
+                    "ms": device_ms(torch, kern_fn),
+                    "plain_ms": device_ms(torch, plain_fn, reps=PLAIN_REPS),
                 }
                 rec["bound_ms"], rec["bound_by"] = bound_ms(kind_, a, k)
                 rec["library_ms"] = None
@@ -6320,7 +6721,13 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="also write all measurements here (JSON)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel phases (build, serving and training shapes)")
+    ap.add_argument("--rank-worker", metavar="DIR", default=None,
+                    help="(internal) one rank of the two-rank phases, under torch.distributed.run")
+    ap.add_argument("--eval-root", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--inception", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rank_worker:
+        return rank_worker(args.rank_worker, args.eval_root, args.inception)
 
     import torch
 
@@ -6345,14 +6752,7 @@ def main() -> int:
     from dmme_tpu_torch.serving import SAMPLERS, Sampler, make_server
     from dmme_tpu_torch.training import LitDDIM, TrainState
 
-    ops = {"group_norm_silu": (k_gn, "launches"), "group_norm_silu_bwd": (k_gn, "bwd_launches"),
-           "attention": (k_attn, "launches"), "resblock": (k_res, "launches")}
-    WIDE.update({"simt": {"group_norm_silu": (k_gn, "simt_launches"),
-                          "group_norm_silu_bwd": (k_gn, "simt_bwd_launches")}})
-    WIDE.update({d: {"group_norm_silu": (k_gn, f"{d}_launches"),
-                     "group_norm_silu_bwd": (k_gn, f"{d}_bwd_launches"),
-                     "attention": (k_attn, f"{d}_launches"),
-                     "resblock": (k_res, f"{d}_launches")} for d in ("fp16", "f32")})
+    ops = kernel_counters(k_gn, k_attn, k_res)
     report = {"card": card, "torch": torch.__version__, "device": device_name}
 
     phase("build")
@@ -6725,10 +7125,18 @@ def main() -> int:
     report["lsun_fit"] = lsun_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops,
                                   dev, card)
     torch.cuda.empty_cache()
-    phase(f"ImageNet-64: trainer.main fit --config {IN64_CONFIG} --trainer.mesh null (batch 128, "
-          "64 px), sample DDIM-50 at n = 8; the kernels at its call sites, the gradient")
+    phase(f"ImageNet-64: trainer.main fit --config {IN64_CONFIG} as written (its mesh: a world "
+          "of 1 over NCCL) and with --trainer.mesh null (batch 128, 64 px), sample DDIM-50 at "
+          "n = 8; the step with and without the mesh; the kernels at its call sites, the gradient")
     report["in64_fit"] = in64_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops,
                                   dev, card)
+    torch.cuda.empty_cache()
+
+    phase(f"two ranks on one card: torch.distributed.run --nproc_per_node {DIST_RANKS} trainer "
+          f"fit of {DIST_CONFIG} on data=2 and fsdp=2 meshes (gloo) against one process "
+          f"accumulating 2; then trainer test of {DDIM_CONFIG} on a data=2 mesh")
+    report["dist"] = dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card,
+                                report["eval_test"])
     torch.cuda.empty_cache()
 
     phase("kernels")
@@ -6847,12 +7255,15 @@ def main() -> int:
     table += latent_rows(report)
     table += eval_rows(report)
     table += a12_rows(report)
+    table += dist_rows(report)
     report["kernels"] = table
     print("kernels launched on their paths and held against their plain versions: "
           + "; ".join(f"{k['name']} ({k['route']}, {k['source']}, replaces {k['replaces']}, "
                       f"{k['launches']} launches)" for k in table), flush=True)
+    report["run_s"] = time.time() - _T0
     if args.out:
         write_report(args.out, report)
+    print(f"the whole run: {report['run_s']:.1f} s [{card}]", flush=True)
     print("(K1, K3, K4: launches in the four serve requests; ms, plain_ms, bound_ms and "
           "library_ms per UNet forward at batch 8, summed over the serving path's call sites. "
           f"K2: launches in the {FIT_STEPS} logged fit steps; times per training step at "
@@ -6899,8 +7310,11 @@ def main() -> int:
           f"microbatches a step); *_lsun_sample: per sampling forward at n = 4, launches in that "
           f"fit's GenerateImage grid (1000 DDPM forwards); *_in64_train: per step of "
           f"{IN64_CONFIG} at batch {TRAIN_BATCH}, launches in its {IN64_FIT_STEPS}-step CLI fit; "
-          f"*_in64_serve: per forward at n = {BATCH}, launches in its DDIM-50 sample)",
-          flush=True)
+          f"*_in64_serve: per forward at n = {BATCH}, launches in its DDIM-50 sample. "
+          f"*_mesh_train: per step of a rank at batch {DIST_BATCH} ({DIST_CONFIG} on "
+          f"{DIST_RANKS} ranks), launches in both ranks' data and fsdp fits; *_mesh_test: per "
+          f"DDIM-50 forward of a test batch at N = {TRAIN_BATCH} (the *_eval shapes), launches "
+          f"in both ranks' test)", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -5,7 +5,9 @@ harness samples ``num_samples`` trajectories with the EMA weights, keeps
 ``vis_length`` evenly spaced frames of each (``generate(history_length=)``)
 and lays them out one trajectory a row. The grid goes to the logger
 (``log_image``) and to ``<out_dir>/step_<step>.png``, or ``.npy`` where
-the PNG cannot be written.
+the PNG cannot be written. On a mesh every rank calls it and rank 0 alone
+samples and writes, from the gathered weights under fsdp; they are not
+kept past the call.
 """
 
 from __future__ import annotations
@@ -55,9 +57,14 @@ class GenerateImage:
     def on_fit_end(self, lit, state, logger=None) -> None:
         self.generate_and_save(int(state.step), lit, state, logger=logger)
 
-    def generate_and_save(self, step: int, lit, state, logger=None) -> str:
+    def generate_and_save(self, step: int, lit, state, logger=None) -> Optional[str]:
         """Sample from a generator seeded with ``step`` on the weights' device;
-        returns the path written."""
+        returns the path written (None on a mesh's other ranks)."""
+        mesh = getattr(state, "mesh", None)
+        if mesh is not None:
+            state = state.whole(moments=False)  # a collective under fsdp
+            if mesh.rank != 0:
+                return None
         device = next(iter(state.ema_params.values())).device
         generator = torch.Generator(device=device).manual_seed(int(step))
         _, history = lit.generate(state, generator, self.shape, use_ema=self.use_ema,

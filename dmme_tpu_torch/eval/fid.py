@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from dmme_tpu_torch.parallel.mesh import flat_all_reduce
 from dmme_tpu_torch.utils.device import ieee_f32
 
 
@@ -113,6 +114,14 @@ class FrechetInceptionDistance:
             self.real = self._update(self.real, feats)
         else:
             self.fake = self._update(self.fake, feats)
+
+    def merge_across(self, mesh) -> None:
+        """Sum both distributions' statistics over the mesh's ranks (JAX's
+        ``psum`` of the stats across devices), on the mesh's device."""
+        if mesh.world == 1:
+            return
+        self.real, self.fake = self.real.to(mesh.device), self.fake.to(mesh.device)
+        flat_all_reduce([*self.real, *self.fake])
 
     def compute(self) -> float:
         if self._real_override is not None:

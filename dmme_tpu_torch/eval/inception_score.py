@@ -13,6 +13,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from dmme_tpu_torch.parallel.mesh import flat_all_reduce
 
 
 class ISStats(NamedTuple):
@@ -53,6 +56,19 @@ class InceptionScore:
         elif self.stats.n.device != logits.device:
             self.stats = ISStats(*(t.to(logits.device) for t in self.stats))
         self.stats = self._update(self.stats, logits)
+
+    def merge_across(self, mesh) -> None:
+        """Sum the four statistics over the mesh's ranks, on the mesh's
+        device; a rank that saw no logits takes the others' class count."""
+        if mesh.world == 1:
+            return
+        classes = torch.tensor([self.num_classes or 0])
+        dist.all_reduce(classes, op=dist.ReduceOp.MAX, group=mesh.control_group)
+        if self.stats is None:
+            self.num_classes = int(classes)
+            self.stats = ISStats.create(self.num_classes, mesh.device)
+        self.stats = ISStats(*(t.to(mesh.device) for t in self.stats))
+        flat_all_reduce(list(self.stats))
 
     def compute(self) -> Tuple[float, float]:
         """(kl_mean, kl_std); the score is exp(kl_mean).

@@ -1,0 +1,350 @@
+"""The mesh and the sharding layout (mirrors ``dmme_tpu/parallel/mesh.py``).
+
+JAX builds a device mesh, annotates shardings and lets XLA insert the
+collectives. The port runs one process a device (PyTorch's idiom), so a
+:class:`Mesh` is the ``torch.distributed`` process group seen through JAX's
+axis sizes, and the collectives are written out (``parallel/train_step.py``):
+
+* ``data``: data parallelism; the gradients are all-reduced.
+* ``fsdp``: ZeRO sharding; each leaf of 2¹⁴ elements or more is split along
+  the axis JAX's rule picks (:func:`fsdp_param_spec`), so a rank holds its
+  shard of the parameters, the EMA and both Adam moments; the parameters
+  are all-gathered for the forward and the gradients reduce-scattered.
+  The batch is split over data × fsdp, so every rank computes.
+* ``tensor``, ``spatial``, ``expert``: not ported; a size above 1 raises
+  naming ROADMAP A.11.
+
+Rank r of a (data, fsdp) mesh sits at (r // fsdp, r % fsdp), as JAX
+reshapes its device list, and takes slice r of the global batch. A spec
+is JAX's ``PartitionSpec`` as a tuple, in the port's layout: a mesh-axis
+name (or a tuple of them) or None per tensor axis, ``()`` for a whole
+(replicated) leaf.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from dmme_tpu_torch.parallel import distributed
+from dmme_tpu_torch.utils.device import resolve_device
+
+AXES = ("data", "fsdp", "expert", "tensor", "spatial")
+#: JAX's threshold: smaller leaves stay whole (their all-gather costs more than it saves)
+MIN_WEIGHT_SIZE = 2**14
+#: elements a bucket of a flattened collective holds at most (64 MiB of f32)
+BUCKET = 1 << 24
+#: modules whose 2-D ``weight`` is an embedding table, kept in flax's layout
+#: (``utils/convert.py``); every other 2-D ``weight`` is a Dense kernel transposed
+_EMBEDDINGS = ("class_embed", "label_emb")
+
+
+def mesh_shape(n: int, data: int = -1, fsdp: int = 1, tensor: int = 1, spatial: int = 1,
+               expert: int = 1) -> Dict[str, int]:
+    """JAX's axis sizes of a mesh over ``n`` devices (``data=-1`` absorbs
+    the rest), with its assertions and messages."""
+    if data == -1:
+        assert n % (fsdp * expert * tensor * spatial) == 0, (
+            n, fsdp, expert, tensor, spatial,
+        )
+        data = n // (fsdp * expert * tensor * spatial)
+    assert data * fsdp * expert * tensor * spatial == n, (
+        f"mesh {data}x{fsdp}x{expert}x{tensor}x{spatial} != {n} devices"
+    )
+    return {"data": data, "fsdp": fsdp, "expert": expert, "tensor": tensor, "spatial": spatial}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """A process group seen as JAX's ``(data, fsdp, expert, tensor, spatial)``
+    mesh: this rank, its device and the groups its collectives run in
+    (None: the whole world)."""
+
+    shape: Mapping[str, int]
+    rank: int
+    device: torch.device
+    backend: str
+    #: leaves smaller than this stay whole under fsdp (JAX's ``min_weight_size``)
+    min_weight_size: int = MIN_WEIGHT_SIZE
+    #: whether :func:`make_mesh` made the process group (and its owner shuts it down)
+    owns_group: bool = False
+    fsdp_group: Any = None
+    data_group: Any = None
+    #: a gloo group for the host's flags where the backend is NCCL
+    control_group: Any = None
+
+    @property
+    def world(self) -> int:
+        n = 1
+        for axis in AXES:
+            n *= self.shape[axis]
+        return n
+
+    @property
+    def fsdp(self) -> int:
+        return self.shape["fsdp"]
+
+    @property
+    def batch_ranks(self) -> int:
+        """The ranks the batch is split over: data × fsdp."""
+        return self.shape["data"] * self.shape["fsdp"]
+
+    @property
+    def fsdp_index(self) -> int:
+        return self.rank % self.fsdp
+
+
+def make_mesh(devices: Optional[Sequence[int]] = None, data: int = -1, fsdp: int = 1,
+              tensor: int = 1, spatial: int = 1, expert: int = 1, *, device=None,
+              min_weight_size: int = MIN_WEIGHT_SIZE) -> Mesh:
+    """The ``(data, fsdp, expert, tensor, spatial)`` mesh over the process
+    group, ``data=-1`` absorbing the rest. Without a group it first joins
+    one (:func:`~dmme_tpu_torch.parallel.distributed.initialize`: a world of
+    1 on a single process without a launcher), and the mesh then owns it.
+    ``devices`` is None or the group's ranks in order: the port's mesh spans
+    the whole group. ``device``: the rank's device (None: its card)."""
+    require_ported({"tensor": tensor, "spatial": spatial, "expert": expert})
+    owns = not dist.is_initialized()
+    if owns:
+        device = distributed.initialize(device=device)
+    else:
+        device = resolve_device(device)
+    try:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if devices is not None and list(devices) != list(range(world)):
+            raise ValueError(f"the port's mesh spans the whole process group: devices must be "
+                             f"None or its ranks 0..{world - 1} in order, got {list(devices)}")
+        shape = mesh_shape(world, data, fsdp, tensor, spatial, expert)
+        backend = dist.get_backend()
+        groups = _groups(shape, rank, backend)
+    except BaseException:
+        if owns:
+            distributed.shutdown()
+        raise
+    return Mesh(shape=shape, rank=rank, device=device, backend=backend,
+                min_weight_size=min_weight_size, owns_group=owns, **groups)
+
+
+def require_ported(shape: Mapping[str, int]) -> None:
+    """Raise for a ``tensor``, ``spatial`` or ``expert`` axis above 1."""
+    for axis in ("tensor", "spatial", "expert"):
+        if shape.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f"mesh axis {axis}={shape[axis]} is not ported yet (ROADMAP A.11, "
+                "distribution): the port shards the data and fsdp axes")
+
+
+def _groups(shape: Mapping[str, int], rank: int, backend: str) -> dict:
+    """The fsdp and data groups of ``rank`` (None where the axis spans the
+    world) and the control group; every rank makes every group, in order."""
+    data, fsdp = shape["data"], shape["fsdp"]
+    out = {}
+    if data > 1 and fsdp > 1:
+        for d in range(data):
+            ranks = [d * fsdp + f for f in range(fsdp)]
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                out["fsdp_group"] = group
+        for f in range(fsdp):
+            ranks = [d * fsdp + f for d in range(data)]
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                out["data_group"] = group
+    if backend != "gloo" and data * fsdp > 1:
+        out["control_group"] = dist.new_group(backend="gloo")
+    return out
+
+
+def batch_sharding(mesh: Mesh, chunked: bool = False, ndim: Optional[int] = None,
+                   shape: Optional[Sequence[int]] = None) -> tuple:
+    """The batch axis split over data × fsdp (axis 1 of ``chunked``
+    (steps, batch, …) inputs). ``ndim`` and ``shape`` are JAX's, for its
+    ``spatial`` axis, which the port does not shard."""
+    return ((None,) if chunked else ()) + (("data", "fsdp"),)
+
+
+def replicated(mesh: Mesh) -> tuple:
+    return ()
+
+
+def jax_axes(path: str, ndim: int) -> Tuple[int, ...]:
+    """The port's axis of each axis of the leaf in JAX's layout: conv
+    kernels HWIO ↔ OIHW, Dense kernels (in, out) ↔ (out, in), everything
+    else (biases, GroupNorm scales, embedding tables, MoE stacks) as is."""
+    module, _, name = path.rpartition(".")
+    if name == "weight" and ndim == 4:
+        return (2, 3, 1, 0)
+    if name == "weight" and ndim == 2 and module.rpartition(".")[2] not in _EMBEDDINGS:
+        return (1, 0)
+    return tuple(range(ndim))
+
+
+def fsdp_param_spec(shape: Sequence[int], mesh, min_weight_size: int = MIN_WEIGHT_SIZE,
+                    path: str = "") -> tuple:
+    """The spec of one parameter of the port's layout, named ``path`` as in
+    the ``state_dict``: JAX's decision on the leaf in JAX's layout
+    (``dmme_tpu/parallel/mesh.py:fsdp_param_spec``) carried through
+    :func:`jax_axes`. Under fsdp a leaf of ``min_weight_size`` elements or
+    more is split along its largest axis that the fsdp size divides, the
+    last of equals. ``mesh`` is anything with JAX's ``shape`` mapping."""
+    sizes = mesh.shape
+    tensor_size, fsdp_size, expert_size = (sizes.get(a, 1) for a in ("tensor", "fsdp", "expert"))
+    perm = jax_axes(path, len(shape))
+    jshape = [shape[p] for p in perm]
+    total = 1
+    for s in shape:
+        total *= int(s)
+    if total < min_weight_size:
+        return ()
+    spec: List[Optional[str]] = [None] * len(jshape)
+    ep_axis = tp_axis = None
+    if expert_size > 1 and len(jshape) == 3 and jshape[0] % expert_size == 0 \
+            and "moe" in path.lower():
+        ep_axis, spec[0] = 0, "expert"
+    if tensor_size > 1 and len(jshape) >= 2 and jshape[-1] % tensor_size == 0:
+        tp_axis = len(jshape) - 1
+        spec[tp_axis] = "tensor"
+    if fsdp_size > 1:
+        order = sorted(range(len(jshape)), key=lambda i: (jshape[i], i), reverse=True)
+        for i in order:
+            if i not in (tp_axis, ep_axis) and jshape[i] % fsdp_size == 0:
+                spec[i] = "fsdp"
+                break
+    if all(s is None for s in spec):
+        return ()
+    out: List[Optional[str]] = [None] * len(shape)
+    for i, p in enumerate(perm):
+        out[p] = spec[i]
+    return tuple(out)
+
+
+def params_sharding(params: Mapping[str, torch.Tensor], mesh,
+                    min_weight_size: int = MIN_WEIGHT_SIZE) -> Dict[str, tuple]:
+    """{name: spec} of a ``state_dict`` (fsdp-aware)."""
+    return {k: fsdp_param_spec(tuple(v.shape), mesh, min_weight_size, path=k)
+            for k, v in params.items()}
+
+
+def state_sharding(state, mesh, min_weight_size: int = MIN_WEIGHT_SIZE) -> dict:
+    """The specs of a train state in the structure of its checkpoint:
+    parameters, EMA and Adam moments follow the fsdp layout; the counters
+    are whole."""
+    specs = params_sharding(state.params, mesh, min_weight_size)
+    return {"step": (), "params": specs, "ema_params": dict(specs),
+            "opt_state": {"count": (), "mu": dict(specs), "nu": dict(specs)}}
+
+
+def split_axes(params: Mapping[str, torch.Tensor], mesh: Mesh,
+               min_weight_size: Optional[int] = None) -> Dict[str, int]:
+    """{name: the axis it is split along} of the leaves fsdp splits."""
+    if mesh.fsdp == 1:
+        return {}
+    size = mesh.min_weight_size if min_weight_size is None else min_weight_size
+    return {k: spec.index("fsdp") for k, spec in params_sharding(params, mesh, size).items()
+            if "fsdp" in spec}
+
+
+# --------------------------------------------------------------- collectives
+
+
+def agree(mesh: Mesh, flags: Sequence[bool]) -> List[bool]:
+    """Each flag OR-ed over the world, on the host (the safe points' vote)."""
+    t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int32)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.control_group)
+    return [bool(v) for v in t.tolist()]
+
+
+def barrier(mesh: Mesh) -> None:
+    """Wait for every rank (nothing to wait for in a world of 1)."""
+    if mesh.world > 1:
+        dist.barrier(group=mesh.control_group)
+
+
+def _buckets(tensors: Sequence[torch.Tensor]):
+    """Indices of ``tensors`` in runs of one dtype of at most ``BUCKET`` elements."""
+    run, size, dtype = [], 0, None
+    for i, t in enumerate(tensors):
+        if run and (t.dtype != dtype or size + t.numel() > BUCKET):
+            yield run
+            run, size = [], 0
+        run.append(i)
+        size += t.numel()
+        dtype = t.dtype
+    if run:
+        yield run
+
+
+def _copy_back(flat: torch.Tensor, tensors: Sequence[torch.Tensor], run) -> None:
+    """``flat``'s pieces into the tensors of ``run``, in one multi-tensor copy
+    (the host issues one launch, not one a tensor)."""
+    pieces = flat.split([tensors[i].numel() for i in run])
+    torch._foreach_copy_([tensors[i] for i in run],
+                         [p.view(tensors[i].shape) for i, p in zip(run, pieces)])
+
+
+def flat_all_reduce(tensors: Sequence[torch.Tensor], divisor: float = 1.0, group=None) -> None:
+    """Sum ``tensors`` over ``group`` and divide by ``divisor``, in place,
+    through flat buckets (one collective a bucket). The results go back
+    into the tensors themselves: the optimizer's multi-tensor kernels then
+    see the buffers (and alignments) they see without a mesh, and round
+    alike."""
+    for run in _buckets(tensors):
+        flat = torch.cat([tensors[i].reshape(-1) for i in run])
+        dist.all_reduce(flat, group=group)
+        if divisor != 1.0:
+            flat.div_(divisor)
+        _copy_back(flat, tensors, run)
+
+
+def broadcast_(tensors: Sequence[torch.Tensor]) -> None:
+    """Rank 0's values into every rank's ``tensors``, in place, in flat buckets."""
+    for run in _buckets(tensors):
+        flat = torch.cat([tensors[i].reshape(-1) for i in run])
+        dist.broadcast(flat, 0)
+        _copy_back(flat, tensors, run)
+
+
+def shard_of(mesh: Mesh, full: torch.Tensor, axis: int) -> torch.Tensor:
+    """This rank's fsdp shard of ``full``: chunk ``fsdp_index`` of ``axis``, contiguous."""
+    return full.chunk(mesh.fsdp, dim=axis)[mesh.fsdp_index].contiguous()
+
+
+def gather_leaves(mesh: Mesh, shards: Mapping[str, torch.Tensor],
+                  axes: Mapping[str, int]) -> Dict[str, torch.Tensor]:
+    """The whole tensors of the split leaves ``axes`` names, all-gathered
+    over the fsdp group in flat buckets (every rank calls it)."""
+    names = [k for k in shards if k in axes]
+    out = {}
+    for run in _buckets([shards[k] for k in names]):
+        keys = [names[i] for i in run]
+        mine = torch.cat([shards[k].reshape(-1) for k in keys])
+        rows = torch.empty((mesh.fsdp, mine.numel()), dtype=mine.dtype, device=mine.device)
+        dist.all_gather(list(rows.unbind(0)), mine, group=mesh.fsdp_group)
+        sizes = [shards[k].numel() for k in keys]
+        pieces = [row.split(sizes) for row in rows.unbind(0)]
+        for j, k in enumerate(keys):
+            shape = shards[k].shape
+            out[k] = torch.cat([p[j].view(shape) for p in pieces], dim=axes[k])
+    return out
+
+
+def scatter_leaves(mesh: Mesh, fulls: Mapping[str, torch.Tensor],
+                   axes: Mapping[str, int]) -> Dict[str, torch.Tensor]:
+    """This rank's shard of each split leaf of ``fulls``, summed over the
+    fsdp group (a reduce-scatter a flat bucket)."""
+    names = [k for k in fulls if k in axes]
+    out = {}
+    for run in _buckets([fulls[k] for k in names]):
+        keys = [names[i] for i in run]
+        chunks = [fulls[k].chunk(mesh.fsdp, dim=axes[k]) for k in keys]
+        rows = torch.stack([torch.cat([c[f].reshape(-1) for c in chunks])
+                            for f in range(mesh.fsdp)])
+        mine = torch.empty_like(rows[0])
+        dist.reduce_scatter(mine, list(rows.unbind(0)), group=mesh.fsdp_group)
+        for k, c, piece in zip(keys, chunks, mine.split([c[mesh.fsdp_index].numel()
+                                                         for c in chunks])):
+            out[k] = piece.view(c[mesh.fsdp_index].shape)
+    return out

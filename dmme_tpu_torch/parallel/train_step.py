@@ -1,4 +1,4 @@
-"""The train step (mirrors ``dmme_tpu/parallel/train_step.py``, one device).
+"""The train step (mirrors ``dmme_tpu/parallel/train_step.py``).
 
 JAX compiles the step with ``jit`` and donates the state; here the step
 runs eagerly and updates the state in place (see
@@ -7,14 +7,29 @@ runs eagerly and updates the state in place (see
 step comes from one ``torch.Generator`` on the batch's device, seeded from
 the run seed and the state's step, as ``fold_in(rng, state.step)`` seeds
 JAX's, so a resumed run can reproduce the stream.
+
+On a mesh (:mod:`dmme_tpu_torch.parallel.mesh`) each rank steps on its
+slice of the global batch, and the collectives JAX's partitioner inserts
+are written out. ``data``: the gradients and the loss are all-reduced in
+flat buckets and divided by the batch ranks R, so every rank clips and
+steps on the same gradients. ``fsdp``: the split leaves are all-gathered
+for the forward and their gradients reduce-scattered; the clip's norm sums
+the shards' squares over the ranks, and Adam and the EMA run on the shard.
+A rank cannot draw dropout over the global batch as JAX's one program
+does, so rank r of R draws as microbatch r of an accumulated step
+(:func:`microbatch_generators`): R ranks at global batch B compute what
+one process computes at batch B/R with ``accumulate_grad_batches=R``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable
+from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+
+from dmme_tpu_torch.parallel.mesh import (broadcast_, flat_all_reduce, gather_leaves,
+                                          scatter_leaves, shard_of, split_axes)
 
 LossFn = Callable[[Dict[str, torch.Tensor], torch.Generator, Any], torch.Tensor]
 
@@ -31,43 +46,86 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(mixed & ((1 << 63) - 1))
 
 
-def make_train_step(loss_fn: LossFn, debug_nans: bool = False):
+def microbatch_generators(generator: torch.Generator, k: int):
+    """The k generators of a step's microbatches, each seeded from the step
+    generator's seed and the microbatch's index (no draw from it, so no
+    device read)."""
+    return [step_generator(generator.initial_seed(), j, generator.device) for j in range(k)]
+
+
+def make_train_step(loss_fn: LossFn, debug_nans: bool = False, mesh=None):
     """``step(state, batch, seed) -> (state, metrics)``: the loss and its
     gradient with respect to every parameter, one optimizer step in place,
     and the metrics ``loss`` and ``grad_norm`` (the norm before clipping) as
     0-dim tensors on the device, read by the caller when it logs. A
     ``loss_fn`` marked ``is_grad_fn`` returns ``(loss, grads)`` itself
-    (gradient accumulation). With ``debug_nans`` the step reads both
-    metrics and raises ``FloatingPointError``, before the update, where one
-    is not finite."""
+    (gradient accumulation; on a mesh it draws each rank's microbatches
+    itself). With ``debug_nans`` the step reads both metrics and raises
+    ``FloatingPointError``, before the update, where one is not finite.
+    ``mesh``: the state is :func:`shard_state`'s and ``batch`` this rank's
+    slice; loss and gradients are the global batch's."""
     is_grad_fn = getattr(loss_fn, "is_grad_fn", False)
 
     def step(state, batch, seed: int):
         generator = step_generator(seed, state.step, _device(batch))
-        params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+        if mesh is not None and mesh.batch_ranks > 1 and not is_grad_fn:
+            generator = microbatch_generators(generator, mesh.batch_ranks)[mesh.rank]
+        whole = state.params
+        if state.shard_axes:
+            whole = dict(whole, **gather_leaves(mesh, whole, state.shard_axes))
+        params = {k: v.detach().requires_grad_(True) for k, v in whole.items()}
+        del whole
         if is_grad_fn:
             loss, grads = loss_fn(params, generator, batch)
         else:
             with torch.enable_grad():
                 loss = loss_fn(params, generator, batch)
                 grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-        metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads.values())}
+        del params
+        loss = loss.detach()
+        if mesh is None:
+            norm = global_norm(grads.values())
+        else:
+            loss, grads = reduce_gradients(mesh, loss, grads, state.shard_axes)
+            norm = sharded_norm(mesh, grads, state.shard_axes)
+        metrics = {"loss": loss, "grad_norm": norm}
         if debug_nans and not all(bool(torch.isfinite(v)) for v in metrics.values()):
             raise FloatingPointError(
                 f"step {state.step + 1}: loss {float(metrics['loss'])}, grad_norm "
                 f"{float(metrics['grad_norm'])} (debug_nans; the state is not updated)")
-        state.apply_gradients(grads)
+        state.apply_gradients(grads, norm if state.shard_axes else None)
         return state, metrics
 
     return step
 
 
-def make_train_chunk(loss_fn: LossFn, steps: int, debug_nans: bool = False):
+def reduce_gradients(mesh, loss: torch.Tensor, grads: Dict[str, torch.Tensor],
+                     shard_axes: Dict[str, int]):
+    """The global batch's loss and gradients from this rank's: every whole
+    leaf and the loss all-reduced over the world in flat buckets (in place),
+    every split leaf reduce-scattered over the fsdp group (then all-reduced
+    over the data group), all divided by the batch ranks. Returns (loss,
+    grads) with the split leaves as this rank's shards."""
+    ranks = float(mesh.batch_ranks)
+    loss = loss.reshape(1).clone()
+    flat_all_reduce([g for k, g in grads.items() if k not in shard_axes] + [loss],
+                    divisor=ranks)
+    if shard_axes:
+        shards = scatter_leaves(mesh, grads, shard_axes)
+        if mesh.shape["data"] > 1:
+            flat_all_reduce(list(shards.values()), group=mesh.data_group)
+        for v in shards.values():
+            v.div_(ranks)
+        grads = dict(grads, **shards)
+    return loss.reshape(()), grads
+
+
+def make_train_chunk(loss_fn: LossFn, steps: int, debug_nans: bool = False, mesh=None):
     """``chunk(state, batches, seed) -> (state, metrics)`` over ``batches``
     stacked on a leading axis of length ``steps``: the steps in order, with
     each metric stacked likewise. JAX scans the steps inside one program;
     here it is a Python loop over the same step."""
-    step = make_train_step(loss_fn, debug_nans)
+    step = make_train_step(loss_fn, debug_nans, mesh)
 
     def chunk(state, batches, seed: int):
         if isinstance(batches, (tuple, list)):
@@ -97,3 +155,47 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """ℓ2 norm over all elements of all tensors, in f32, on their device."""
     norms = torch._foreach_norm([t.to(torch.float32) for t in tensors])
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def sharded_norm(mesh, grads: Dict[str, torch.Tensor],
+                 shard_axes: Dict[str, int]) -> torch.Tensor:
+    """:func:`global_norm` of the whole gradients, of which ``shard_axes``'
+    leaves are this rank's shards: their squares summed over the fsdp group
+    (one all-reduce), the whole leaves' added once."""
+    if not shard_axes:
+        return global_norm(grads.values())
+    split = [g for k, g in grads.items() if k in shard_axes]
+    whole = [g for k, g in grads.items() if k not in shard_axes]
+    sq = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+        [t.to(torch.float32) for t in split]))).square().reshape(1)
+    flat_all_reduce([sq], group=mesh.fsdp_group)
+    if whole:
+        sq = sq + global_norm(whole).square()
+    return sq.sqrt().reshape(())
+
+
+def shard_state(state, mesh, min_weight_size: Optional[int] = None):
+    """Lay ``state`` out on ``mesh``, in place: rank 0's parameters, EMA and
+    Adam moments broadcast to every rank, then, under fsdp, each split leaf
+    (:func:`~dmme_tpu_torch.parallel.mesh.split_axes`; ``min_weight_size``
+    defaults to the mesh's) replaced by this rank's shard. Returns it."""
+    parts = [state.params, state.ema_params, state.opt_state.mu, state.opt_state.nu]
+    if mesh.world > 1:
+        broadcast_([t for part in parts for t in part.values()])
+    axes = split_axes(state.params, mesh, min_weight_size)
+    for part in parts:
+        for k, a in axes.items():
+            part[k] = shard_of(mesh, part[k], a)
+    state.mesh, state.shard_axes = mesh, axes
+    return state
+
+
+def shard_batch(batch, mesh, chunked: bool = False):
+    """This rank's slice of a GLOBAL batch (numpy arrays or tensors, or a
+    tuple of them): the batch axis (axis 1 if ``chunked``) split over the
+    batch ranks, slice ``mesh.rank``, on the rank's device."""
+    if isinstance(batch, tuple):
+        return tuple(shard_batch(b, mesh, chunked) for b in batch)
+    t = torch.as_tensor(batch)
+    part = t.chunk(mesh.batch_ranks, dim=1 if chunked else 0)[mesh.rank]
+    return part.contiguous().to(mesh.device)

@@ -19,6 +19,13 @@ The config schema is the JAX package's, and the repo's YAML runs unedited
 
 The command line always runs on the CUDA device. ``main(argv, device="cpu")``
 is the tests' way onto the CPU; ``device`` is not a config key.
+
+``trainer.mesh`` (``{data: -1, fsdp: 1}``) runs ``fit`` and ``test`` on a
+mesh of every rank of the process group. On a single process without a
+launcher that is a world of 1; under ``python -m torch.distributed.run
+--nproc_per_node N -m dmme_tpu_torch.trainer fit --config x.yaml
+--trainer.mesh.data N`` each of the N ranks runs the command on its card.
+A group the command made is shut down when it ends.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 from dmme_tpu_torch.config import (TRAINER_KEYS, apply_overrides, describe_class, instantiate,
                                    load_config, validate_config)
 from dmme_tpu_torch.diffusion.factory import check_sampler, default_steps
+from dmme_tpu_torch.parallel import make_mesh, shutdown
 from dmme_tpu_torch.parallel.train_step import step_generator
 from dmme_tpu_torch.utils.device import resolve_device
 
@@ -44,6 +52,21 @@ def _build(config: Dict[str, Any]):
     trainer_cfg = dict(config.get("trainer") or {})
     callbacks = instantiate(trainer_cfg.pop("callbacks", []) or [])
     return model, data, trainer_cfg, callbacks
+
+
+def _make_mesh(mesh_cfg, device):
+    """The mesh of ``trainer.mesh`` (None without one), as JAX's trainer builds it."""
+    if not mesh_cfg:
+        return None
+    return make_mesh(data=mesh_cfg.get("data", -1), fsdp=mesh_cfg.get("fsdp", 1),
+                     tensor=mesh_cfg.get("tensor", 1), spatial=mesh_cfg.get("spatial", 1),
+                     expert=mesh_cfg.get("expert", 1), device=device)
+
+
+def _release(mesh) -> None:
+    """Shut down the process group the command's mesh made, if it did."""
+    if mesh is not None and mesh.owns_group:
+        shutdown()
 
 
 def _require_diffusion_harness(model, command: str) -> None:
@@ -61,51 +84,61 @@ def cmd_fit(config: Dict[str, Any], device) -> None:
     from dmme_tpu_torch.training import fit
 
     model, data, tc, callbacks = _build(config)
-    fit(
-        model,
-        data,
-        max_steps=int(tc.get("max_steps", 800_000)),
-        seed=int(config.get("seed_everything", 1337)),
-        mesh=tc.get("mesh") or None,
-        log_every=int(tc.get("log_every_n_steps", 50)),
-        ckpt_dir=tc.get("default_root_dir"),
-        ckpt_every=int(tc.get("ckpt_every_n_steps", 100_000)),
-        ckpt_max_to_keep=tc.get("ckpt_max_to_keep", 3),  # None keeps every checkpoint
-        callbacks=callbacks,
-        resume=config.get("ckpt_path") is not None or bool(tc.get("resume", False)),
-        max_restarts=int(tc.get("max_restarts") or 0),
-        accumulate_grad_batches=int(tc.get("accumulate_grad_batches") or 1),
-        steps_per_call=int(tc.get("steps_per_call") or 1),
-        debug_nans=bool(tc.get("detect_anomaly", False)),
-        tensorboard=bool(tc.get("tensorboard", False)),  # event files under <root>/tb
-        loggers=instantiate(tc.get("loggers")) if tc.get("loggers") else None,
-        device=device,
-    )
+    mesh = _make_mesh(tc.get("mesh"), device)
+    try:
+        fit(
+            model,
+            data,
+            max_steps=int(tc.get("max_steps", 800_000)),
+            seed=int(config.get("seed_everything", 1337)),
+            mesh=mesh,
+            log_every=int(tc.get("log_every_n_steps", 50)),
+            ckpt_dir=tc.get("default_root_dir"),
+            ckpt_every=int(tc.get("ckpt_every_n_steps", 100_000)),
+            ckpt_max_to_keep=tc.get("ckpt_max_to_keep", 3),  # None keeps every checkpoint
+            callbacks=callbacks,
+            resume=config.get("ckpt_path") is not None or bool(tc.get("resume", False)),
+            max_restarts=int(tc.get("max_restarts") or 0),
+            accumulate_grad_batches=int(tc.get("accumulate_grad_batches") or 1),
+            steps_per_call=int(tc.get("steps_per_call") or 1),
+            debug_nans=bool(tc.get("detect_anomaly", False)),
+            tensorboard=bool(tc.get("tensorboard", False)),  # event files under <root>/tb
+            loggers=instantiate(tc.get("loggers")) if tc.get("loggers") else None,
+            device=device,
+        )
+    finally:
+        _release(mesh)
 
 
 def cmd_test(config: Dict[str, Any], device) -> None:
-    """FID and Inception Score over generated samples (``training.evaluate.test``)."""
+    """FID and Inception Score over generated samples (``training.evaluate.test``);
+    rank 0 prints them on a mesh."""
     from dmme_tpu_torch.training.evaluate import test
 
     model, data, tc, _ = _build(config)
     _require_diffusion_harness(model, "test")
-    results = test(
-        model, data,
-        ckpt_dir=tc.get("default_root_dir"),
-        ckpt_step=tc.get("ckpt_step"),
-        seed=int(config.get("seed_everything", 1337)),
-        max_batches=tc.get("limit_test_batches"),
-        # FID-standard InceptionV3 weights: pytorch-fid's .pth or the JAX package's .npz
-        inception_weights=tc.get("inception_weights"),
-        mesh=tc.get("mesh") or None,
-        fid_stats=tc.get("fid_stats"),            # precomputed real (μ, Σ) .npz
-        save_fid_stats=tc.get("save_fid_stats"),  # persist this run's real statistics
-        use_ema=None if tc.get("use_ema") is None else bool(tc.get("use_ema")),
-        sampler=tc.get("sampler"),                # e.g. dpm: FID at 20 network evaluations
-        sample_steps=tc.get("sample_steps"),
-        device=device,
-    )
-    print(results)
+    mesh = _make_mesh(tc.get("mesh"), device)
+    try:
+        results = test(
+            model, data,
+            ckpt_dir=tc.get("default_root_dir"),
+            ckpt_step=tc.get("ckpt_step"),
+            seed=int(config.get("seed_everything", 1337)),
+            max_batches=tc.get("limit_test_batches"),
+            # FID-standard InceptionV3 weights: pytorch-fid's .pth or the JAX package's .npz
+            inception_weights=tc.get("inception_weights"),
+            mesh=mesh,
+            fid_stats=tc.get("fid_stats"),            # precomputed real (μ, Σ) .npz
+            save_fid_stats=tc.get("save_fid_stats"),  # persist this run's real statistics
+            use_ema=None if tc.get("use_ema") is None else bool(tc.get("use_ema")),
+            sampler=tc.get("sampler"),                # e.g. dpm: FID at 20 network evaluations
+            sample_steps=tc.get("sample_steps"),
+            device=device,
+        )
+    finally:
+        _release(mesh)
+    if mesh is None or mesh.rank == 0:
+        print(results)
 
 
 def cmd_validate(config: Dict[str, Any], device) -> None:

@@ -15,6 +15,12 @@ under ``torch.no_grad()``: never ``inference_mode``, which leaves a tensor's
 version as it is, and the fused ResBlock kernel's packed-weight cache keys
 on that version (:func:`dmme_tpu_torch.ops.resblock.pack_weights`), so
 sampling after a restore reads the restored weights.
+
+On a mesh every rank calls ``save``: the ranks gather an fsdp state whole,
+rank 0 writes the same files a run without a mesh writes, and the others
+wait at a barrier (JAX leaves this to its checkpoint library). Every rank
+restores, taking its shard, so a checkpoint moves freely between runs with
+and without a mesh.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from dmme_tpu_torch.parallel.mesh import barrier, shard_of
 from dmme_tpu_torch.training.state import TrainState
 
 FILE = "state.pt"
@@ -60,11 +67,12 @@ def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor], what:
 
 class CheckpointManager:
     """Numbered checkpoints under ``directory``, the newest ``max_to_keep``
-    kept (``None`` keeps all)."""
+    kept (``None`` keeps all); ``mesh``: the ranks that save together."""
 
-    def __init__(self, directory: str, max_to_keep: Optional[int] = 3):
+    def __init__(self, directory: str, max_to_keep: Optional[int] = 3, mesh=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
 
     def steps(self) -> List[int]:
@@ -81,6 +89,18 @@ class CheckpointManager:
         """Write ``state`` as checkpoint ``step``. A step that is already saved
         is replaced only with ``force``; returns whether it wrote."""
         final = os.path.join(self.directory, str(int(step)))
+        if self.mesh is None:
+            return self._write(final, step, state, force)
+        barrier(self.mesh)  # every rank sees the directory as it was
+        wrote = not os.path.exists(final) or force
+        if wrote:
+            state = state.whole()
+            if self.mesh.rank == 0:
+                self._write(final, step, state, force)
+        barrier(self.mesh)
+        return wrote
+
+    def _write(self, final: str, step: int, state: TrainState, force: bool) -> bool:
         if os.path.exists(final) and not force:
             return False
         tmp = tempfile.mkdtemp(prefix=f".{int(step)}-", dir=self.directory)
@@ -122,6 +142,11 @@ class CheckpointManager:
         """Copy checkpoint ``step`` (default: the latest) into ``state_like``
         in place; returns it."""
         saved = self.load(step)
+        if state_like.shard_axes:  # this rank's shards of the whole tensors
+            for part in (saved["params"], saved["ema_params"], saved["opt_state"]["mu"],
+                         saved["opt_state"]["nu"]):
+                for k, a in state_like.shard_axes.items():
+                    part[k] = shard_of(state_like.mesh, part[k], a)
         _copy_into(state_like.params, saved["params"], "params")
         _copy_into(state_like.ema_params, saved["ema_params"], "ema_params")
         _copy_into(state_like.opt_state.mu, saved["opt_state"]["mu"], "mu")

@@ -4,7 +4,10 @@
 no generation. :func:`test` is the reference's test path: per test batch,
 FID(real) on the batch's images, a generated batch of the same shape with
 the EMA weights, FID(fake) and IS on it; then the FID and
-exp(E KL) as the Inception Score (:mod:`dmme_tpu_torch.eval`).
+exp(E KL) as the Inception Score (:mod:`dmme_tpu_torch.eval`). On a mesh
+rank r of R takes the batches i ≡ r (mod R), each drawn as the one-process
+run draws it, and the statistics are summed over the ranks before the
+closed forms.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from dmme_tpu_torch.parallel.mesh import flat_all_reduce, require_ported
 from dmme_tpu_torch.parallel.train_step import make_eval_step, step_generator
 from dmme_tpu_torch.training.checkpoint import CheckpointManager
 from dmme_tpu_torch.utils.device import resolve_device
@@ -111,7 +115,9 @@ def test(lit, datamodule, *, ckpt_dir: Optional[str] = None, ckpt_step: Optional
     package's ``.npz``; without one the Inception is random and the results
     carry a ``warning``. ``fid_stats``: precomputed real (μ, Σ) in
     pytorch-fid's ``.npz``, which skips the real pass; ``save_fid_stats``
-    writes this run's. ``device=None`` means the CUDA device."""
+    writes this run's (rank 0 on a mesh). ``device=None`` means the CUDA
+    device; ``mesh`` (``parallel.make_mesh``) splits the batches over its
+    ranks, on the mesh's device, with the weights whole on every rank."""
     from dmme_tpu_torch.diffusion.factory import make_sampler
     from dmme_tpu_torch.eval import FrechetInceptionDistance, InceptionScore, make_feature_fn
     from dmme_tpu_torch.utils.norm import denorm
@@ -133,12 +139,15 @@ def test(lit, datamodule, *, ckpt_dir: Optional[str] = None, ckpt_step: Optional
     else:
         algo, adapt = lit.diffusion_model, (lambda fn: fn)
     if mesh is not None:
-        raise NotImplementedError(
-            "test(mesh=...) is not ported yet (ROADMAP A.11, distribution)")
-    device = resolve_device(device)
+        require_ported(mesh.shape)
+    device = resolve_device(device) if mesh is None else mesh.device
+    ranks, rank = (1, 0) if mesh is None else (mesh.batch_ranks, mesh.rank)
     datamodule.prepare_data()
     datamodule.setup("test")
-    if state is None:
+    if state is not None:
+        if getattr(state, "shard_axes", None):  # an fsdp state: JAX replicates the weights
+            state = state.whole(moments=False)
+    else:
         state = lit.init_state(torch.Generator().manual_seed(seed), device=device)
         if ckpt_dir is not None:
             mgr = CheckpointManager(ckpt_dir)
@@ -156,6 +165,8 @@ def test(lit, datamodule, *, ckpt_dir: Optional[str] = None, ckpt_step: Optional
     for i, batch in enumerate(datamodule.test_iter()):
         if max_batches is not None and i >= max_batches:
             break
+        if i % ranks != rank:
+            continue
         images, labels = batch if isinstance(batch, tuple) else (batch, None)
         real = torch.from_numpy(np.ascontiguousarray(images)).to(device).to(torch.float32) / 255.0
         if fid_stats is None:  # precomputed statistics skip the real pass
@@ -174,7 +185,14 @@ def test(lit, datamodule, *, ckpt_dir: Optional[str] = None, ckpt_step: Optional
         inception.update(logits)
         n_batches += 1
 
-    if save_fid_stats is not None and fid_stats is None:
+    if mesh is not None:
+        fid.merge_across(mesh)
+        inception.merge_across(mesh)
+        if mesh.world > 1:
+            count = torch.tensor([n_batches], device=device)
+            flat_all_reduce([count])
+            n_batches = int(count)
+    if save_fid_stats is not None and fid_stats is None and rank == 0:
         fid.save_real_stats(save_fid_stats)
     kl_mean, kl_std = inception.compute()
     results = {

@@ -1,4 +1,4 @@
-"""``fit``: the training loop (mirrors ``dmme_tpu/training/loop.py``, one process).
+"""``fit``: the training loop (mirrors ``dmme_tpu/training/loop.py``).
 
 seed → (init, run) seeds → ``lit.init_state`` (or the latest checkpoint,
 with ``resume``) → ``train_iter(seed)`` fast-forwarded past the batches the
@@ -14,8 +14,14 @@ The state updates in place (JAX returns a new one). A step interrupted
 inside its update leaves a torn state, so an interrupt saves a checkpoint
 only at a safe point between steps: SIGTERM (preemption) and a first
 Ctrl-C are deferred to the next one, and a ``KeyboardInterrupt`` raised
-inside a step saves nothing. Meshes are not ported: ``mesh`` raises
-``NotImplementedError`` naming the ROADMAP item.
+inside a step saves nothing.
+
+On a mesh (``parallel.make_mesh``) every rank runs this loop: the state is
+laid out with ``shard_state``, each rank feeds its slice of the global
+batch (``train_iter(process_index=, process_count=)``), the train step
+reduces over the ranks, and at each safe point the ranks vote on stopping
+(one small all-reduce), so a signal to one rank stops all of them at the
+same step. Rank 0 writes the checkpoints, the metrics and the grids.
 """
 
 from __future__ import annotations
@@ -30,8 +36,11 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from dmme_tpu_torch.parallel.distributed import global_batch, world_size
+from dmme_tpu_torch.parallel.distributed import place as _place
+from dmme_tpu_torch.parallel.mesh import agree, require_ported
 from dmme_tpu_torch.parallel.train_step import (make_train_chunk, make_train_step,
-                                                step_generator)
+                                                microbatch_generators, shard_state)
 from dmme_tpu_torch.training.checkpoint import CheckpointManager
 from dmme_tpu_torch.training.metrics import MetricLogger
 from dmme_tpu_torch.training.state import TrainState
@@ -98,14 +107,22 @@ def _fit_once(
     ``ckpt_dir`` also holds ``metrics.jsonl`` (and ``tb/`` with
     ``tensorboard``); ``loggers`` replaces those backends. ``device=None``
     means the CUDA device and raises without one; the tests pass
-    ``device="cpu"``.
+    ``device="cpu"``. ``mesh``: a ``parallel.make_mesh`` mesh, whose device
+    the run takes; every rank of its group calls ``fit``, and a group of
+    more than one process needs one.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit(mesh=...) is not ported yet (ROADMAP A.11, distribution; old A.16)")
     if steps_per_call > 1 and accumulate_grad_batches > 1:
         raise ValueError("steps_per_call and accumulate_grad_batches exclude each other")
-    device = resolve_device(device)
+    if world_size() > 1 and mesh is None:
+        raise ValueError(
+            "multi-process fit() needs a mesh over the global device list "
+            "(e.g. make_mesh()); got mesh=None"
+        )
+    if mesh is not None:
+        require_ported(mesh.shape)
+    device = resolve_device(device) if mesh is None else mesh.device
+    ranks = 1 if mesh is None else mesh.batch_ranks
+    lead = mesh is None or mesh.rank == 0
 
     datamodule.prepare_data()
     datamodule.setup("fit")
@@ -114,24 +131,46 @@ def _fit_once(
     if state is None:
         state = lit.init_state(torch.Generator().manual_seed(init_seed), device=device)
 
-    ckpt = CheckpointManager(ckpt_dir, max_to_keep=ckpt_max_to_keep) if ckpt_dir else None
+    ckpt = (CheckpointManager(ckpt_dir, max_to_keep=ckpt_max_to_keep, mesh=mesh)
+            if ckpt_dir else None)
     if resume and ckpt is not None and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
+    if mesh is not None and state.mesh is None:
+        state = shard_state(state, mesh)
 
     loss_fn = lit.make_loss_fn(datamodule)
     if accumulate_grad_batches > 1:
-        loss_fn = _microbatched(loss_fn, accumulate_grad_batches)
+        loss_fn = _microbatched(loss_fn, accumulate_grad_batches, mesh)
     if steps_per_call > 1:
-        train_step = make_train_chunk(loss_fn, steps_per_call, debug_nans=debug_nans)
+        train_step = make_train_chunk(loss_fn, steps_per_call, debug_nans=debug_nans, mesh=mesh)
     else:
-        train_step = make_train_step(loss_fn, debug_nans=debug_nans)
+        train_step = make_train_step(loss_fn, debug_nans=debug_nans, mesh=mesh)
 
-    logger = MetricLogger(ckpt_dir, tensorboard=tensorboard, loggers=loggers)
+    logger = (MetricLogger(ckpt_dir, tensorboard=tensorboard, loggers=loggers) if lead
+              else MetricLogger(loggers=[]))
     for cb in callbacks:
         _call(cb, "on_fit_start", lit=lit, state=state, logger=logger)
 
-    # resume determinism: skip the batches the restored steps consumed
-    it = datamodule.train_iter(seed, skip_batches=state.step * max(accumulate_grad_batches, 1))
+    # resume determinism: skip the (global) batches the restored steps consumed
+    it_kwargs = {}
+    if ranks > 1:
+        params = inspect.signature(datamodule.train_iter).parameters
+        if "process_index" not in params and not any(
+                p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()):
+            raise ValueError(
+                f"{type(datamodule).__name__}.train_iter does not accept "
+                "process_index/process_count — required for multi-process "
+                "training (each host must feed its shard of the global "
+                "batch; see data/data_module.py)"
+            )
+        it_kwargs.update(process_index=mesh.rank, process_count=ranks)
+    it = datamodule.train_iter(seed, skip_batches=state.step * max(accumulate_grad_batches, 1),
+                               **it_kwargs)
+    if mesh is None:
+        place = lambda b, chunked: _place(b, device)  # noqa: E731
+    else:
+        place = lambda b, chunked: global_batch(  # noqa: E731
+            b, mesh, chunked, global_size=getattr(datamodule, "batch_size", None))
 
     # what an interrupt handler may save: the state, and whether it is whole
     # (False while a step updates it in place)
@@ -141,7 +180,7 @@ def _fit_once(
         try:
             state = _train_loop(lit, holder, max_steps, it, train_step, loss_fn, run_seed,
                                 steps_per_call, accumulate_grad_batches, log_every, ckpt,
-                                ckpt_every, callbacks, logger, device, debug_nans)
+                                ckpt_every, callbacks, logger, place, debug_nans, mesh)
             if ckpt is not None and ckpt.latest_step() != state.step:
                 ckpt.save(state.step, state, force=True)  # save-last
             for cb in callbacks:
@@ -202,30 +241,22 @@ def _install_handlers(holder) -> Callable[[], None]:
     return restore
 
 
-def _place(batch, device):
-    """A numpy batch (or tuple of them) as tensors on ``device``; through
-    pinned memory on a CUDA device, so the copy does not wait for the
-    kernels already queued."""
-    if isinstance(batch, tuple):
-        return tuple(_place(b, device) for b in batch)
-    t = torch.from_numpy(np.ascontiguousarray(batch))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
 def _stack(batches):
     if isinstance(batches[0], tuple):
         return tuple(np.stack(parts) for parts in zip(*batches))
     return np.stack(batches)
 
 
-def _step(holder, train_step, batch, run_seed):
+def _step(holder, train_step, batch, run_seed, mesh=None):
     """One train step (or chunk) on the held state, marked torn while it
-    runs; then the safe point, where a deferred signal interrupts."""
+    runs; then the safe point, where a deferred signal interrupts. On a
+    mesh of several ranks they vote first: a signal to any rank stops all."""
     holder["whole"] = False
     state, metrics = train_step(holder["state"], batch, run_seed)
     holder["state"], holder["whole"] = state, True
+    if mesh is not None and mesh.world > 1:
+        holder["preempted"], holder["interrupted"] = agree(
+            mesh, (holder["preempted"], holder["interrupted"]))
     if holder["preempted"] or holder["interrupted"]:
         raise KeyboardInterrupt
     return state, metrics
@@ -233,8 +264,9 @@ def _step(holder, train_step, batch, run_seed):
 
 def _train_loop(lit, holder, max_steps, it, train_step, loss_fn, run_seed, steps_per_call,
                 accumulate_grad_batches, log_every, ckpt, ckpt_every, callbacks, logger,
-                device, debug_nans):
+                place, debug_nans, mesh):
     state = holder["state"]
+    ranks = 1 if mesh is None else mesh.batch_ranks
     step = state.step
     t_last, imgs_since = time.time(), 0
     while step < max_steps:
@@ -247,12 +279,12 @@ def _train_loop(lit, holder, max_steps, it, train_step, loss_fn, run_seed, steps
             batch = _stack([next(it) for _ in range(accumulate_grad_batches)])
         else:
             batch = next(it)
-        batch = _place(batch, device)
-        state, metrics = _step(holder, train_step, batch, run_seed)
+        batch = place(batch, steps_per_call > 1 or accumulate_grad_batches > 1)
+        state, metrics = _step(holder, train_step, batch, run_seed, mesh)
         if steps_per_call > 1:
             metrics = {k: v[-1] for k, v in metrics.items()}
         lead = batch[0] if isinstance(batch, tuple) else batch
-        imgs_since += int(np.prod(lead.shape[:-3]))  # (..., H, W, C) leading dims
+        imgs_since += ranks * int(np.prod(lead.shape[:-3]))  # (..., H, W, C) leading dims
         step += stride
 
         if step % log_every < stride:
@@ -261,7 +293,7 @@ def _train_loop(lit, holder, max_steps, it, train_step, loss_fn, run_seed, steps
             m["imgs_per_sec"] = imgs_since / max(now - t_last, 1e-9)
             m["lr"] = lit.lr * min(1.0, step / max(lit.warmup, 1))
             t_last, imgs_since = now, 0
-            logger.log(step, m)
+            logger.log(step, m, echo=mesh is None or mesh.rank == 0)
             for cb in callbacks:
                 _call(cb, "on_log", step=step, lit=lit, state=state, metrics=m, logger=logger)
 
@@ -273,31 +305,26 @@ def _train_loop(lit, holder, max_steps, it, train_step, loss_fn, run_seed, steps
                   stride=stride)
 
     if step < max_steps:
-        single = make_train_step(loss_fn, debug_nans=debug_nans)
+        single = make_train_step(loss_fn, debug_nans=debug_nans, mesh=mesh)
         while step < max_steps:
-            state, _ = _step(holder, single, _place(next(it), device), run_seed)
+            state, _ = _step(holder, single, place(next(it), False), run_seed, mesh)
             step += 1
     return state
 
 
-def microbatch_generators(generator: torch.Generator, k: int):
-    """The k generators of a step's microbatches, each seeded from the step
-    generator's seed and the microbatch's index (no draw from it, so no
-    device read)."""
-    return [step_generator(generator.initial_seed(), j, generator.device) for j in range(k)]
-
-
-def _microbatched(loss_fn, k: int):
+def _microbatched(loss_fn, k: int, mesh=None):
     """Gradient accumulation over k microbatches stacked on a leading axis.
     Each microbatch's gradient is taken on its own and summed, so only one
     microbatch's activations live at a time; the loss and the gradient are
     the means over the k. Returns ``(params, generator, stacked) -> (loss,
     grads)``, marked ``is_grad_fn`` so the train step takes no gradient of
-    its own."""
+    its own. On a mesh of R batch ranks, rank r's microbatch j draws as
+    microbatch j·R + r of one process accumulating k·R."""
+    ranks, rank = (1, 0) if mesh is None else (mesh.batch_ranks, mesh.rank)
 
     def accum_grads(params, generator, stacked):
         total, acc = None, None
-        for j, g in enumerate(microbatch_generators(generator, k)):
+        for j, g in enumerate(microbatch_generators(generator, k * ranks)[rank::ranks]):
             mb = tuple(b[j] for b in stacked) if isinstance(stacked, tuple) else stacked[j]
             with torch.enable_grad():
                 loss = loss_fn(params, g, mb)

@@ -19,7 +19,7 @@ The state updates in place under ``torch.no_grad()`` with multi-tensor
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -59,12 +59,15 @@ class ClipAdam:
 
     @torch.no_grad()
     def update_(self, grads: Dict[str, torch.Tensor], state: AdamState,
-                params: Dict[str, torch.Tensor]) -> None:
+                params: Dict[str, torch.Tensor], norm: Optional[torch.Tensor] = None) -> None:
         """One step: ``params`` and ``state`` change in place; ``grads``
-        (keyed as ``params``) are read only."""
+        (keyed as ``params``) are read only. ``norm``: the gradients' global
+        norm where the caller has it (under fsdp ``grads`` are shards, and
+        the norm of the whole takes a collective)."""
         keys = list(params)
         g = [grads[k] for k in keys]
-        norm = global_norm(g)
+        if norm is None:
+            norm = global_norm(g)
         factor = torch.where(norm < self.max_norm, torch.ones_like(norm),
                              self.max_norm / norm)
         g = torch._foreach_mul(g, factor)

@@ -3,13 +3,20 @@
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Union
 
 import torch
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
-    """``None`` means the CUDA device; there is no silent CPU fallback."""
+    """``None`` means the CUDA device: under a launcher (``LOCAL_RANK`` set)
+    ``cuda:(LOCAL_RANK mod cards)``, the rank's card. There is no silent
+    CPU fallback."""
+    if device is None:
+        local = os.environ.get("LOCAL_RANK")
+        if local is not None and torch.cuda.is_available():
+            device = f"cuda:{int(local) % torch.cuda.device_count()}"
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")

@@ -26,6 +26,7 @@ from dmme_tpu_torch.data import CIFAR10
 from dmme_tpu_torch.models import ddpm as t_ddpm
 from dmme_tpu_torch.models import iddpm as t_iddpm
 from dmme_tpu_torch.models.vae import ConvVAE
+from dmme_tpu_torch.parallel.mesh import Mesh, mesh_shape
 from dmme_tpu_torch.parallel.train_step import step_generator
 from dmme_tpu_torch.trainer import main
 from dmme_tpu_torch.training import LitDDIM, LitIDDPM, LitUpsampler, LitVAE
@@ -185,6 +186,12 @@ def test_test_samples_the_full_grid_of_an_iddpm_with_sample_steps(monkeypatch):
     assert len(calls) == 2
 
 
+def _unported_mesh():
+    """A two-rank mesh with a ``spatial`` axis, built by hand (no process group)."""
+    return Mesh(shape=mesh_shape(2, spatial=2), rank=0, device=torch.device("cpu"),
+                backend="gloo")
+
+
 def _guard_cases():
     ddim = dict(lit=lambda: _tiny_ddim())
     return [
@@ -203,8 +210,8 @@ def _guard_cases():
          "unknown sampler 'deep' (ddim|dpm|edm|unipc|flow)"),
         ("deep_dpm", dict(ddim, sampler="deep_dpm"), ValueError,
          "unknown sampler 'deep_dpm' (ddim|dpm|edm|unipc|flow)"),
-        ("mesh", dict(ddim, mesh={"data": -1}), NotImplementedError,
-         "test(mesh=...) is not ported yet (ROADMAP A.11"),
+        ("mesh", dict(ddim, mesh=_unported_mesh()), NotImplementedError,
+         "mesh axis spatial=2 is not ported yet (ROADMAP A.11"),
     ]
 
 
@@ -266,8 +273,8 @@ def test_trainer_test_runbook_chain(twin, tmp_path, capsys):
     _close(second["fid"], first["fid"], METRIC_RTOL)
     with pytest.raises(ValueError, match=r"unknown sampler 'cached' \(ddim\|dpm\|edm"):
         main(["test", "--config", str(cfg), "--trainer.sampler", "cached"], device="cpu")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        main(["test", "--config", str(cfg), "--trainer.mesh.data", "-1"], device="cpu")
+    with pytest.raises(NotImplementedError, match=r"mesh axis expert=2 .*A\.11"):
+        main(["test", "--config", str(cfg), "--trainer.mesh.expert", "2"], device="cpu")
     with pytest.raises(ValueError, match="test needs a diffusion harness; LitClassifier"):
         main(["test", "--config", os.path.join(ROOT, "configs/adm/cifar10_classifier.yaml")],
              device="cpu")

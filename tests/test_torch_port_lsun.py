@@ -444,8 +444,9 @@ def test_imagenet64_tiny_fits_without_its_mesh_and_its_first_loss_matches_jax(tm
                                                                              capsys):
     """imagenet64.yaml at TINY widths (4 heads, attention at depths 3 and 4,
     the hybrid loss on the cosine schedule) on a synthetic archive: with its
-    own mesh ``fit`` raises naming A.11; with ``mesh: null`` it fits, and
-    the first batch's loss and gradient are JAX's."""
+    own mesh (``{data: -1, fsdp: 1}``, a world of 1 here) ``fit`` leaves the
+    state bitwise that of ``mesh: null``, and the first batch's loss and
+    gradient are JAX's."""
     rng = np.random.default_rng(7)
     np.savez(tmp_path / "train_data_batch_1.npz",
              data=_planar(rng.integers(0, 256, (16, 64, 64, 3), np.uint8)),
@@ -454,12 +455,16 @@ def test_imagenet64_tiny_fits_without_its_mesh_and_its_first_loss_matches_jax(tm
                        dict(data_dir=str(tmp_path), batch_size=4),
                        dict(channels_per_depth=[8, 8, 16, 16], pos_dim=4, emb_dim=8,
                             num_groups=2, num_blocks=1))
-    path = tmp_path / "with_mesh.yaml"
-    path.write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.11"):
-        main(["fit", "--config", str(path)], device="cpu")
-    cfg["trainer"]["mesh"] = None
+    assert cfg["trainer"]["mesh"] == {"data": -1, "fsdp": 1}
     _fit(cfg, tmp_path, capsys)
+    meshless = dict(cfg, trainer=dict(cfg["trainer"], mesh=None,
+                                      default_root_dir=str(tmp_path / "meshless")))
+    _fit(meshless, tmp_path, capsys)
+    a, b = (CheckpointManager(str(tmp_path / d)).load(2) for d in ("run", "meshless"))
+    for part in ("params", "ema_params"):
+        for k, v in a[part].items():
+            assert torch.equal(v, b[part][k]), f"{part}.{k}"
+    assert not torch.distributed.is_initialized()  # the command shut its group down
     _first_batch_loss_matches_jax(cfg, cfg["seed_everything"])
 
 

@@ -32,6 +32,7 @@ from dmme_tpu_torch.models import init_weights
 from dmme_tpu_torch.models.blocks import ResBlock
 from dmme_tpu_torch.ops import resblock as t_resblock
 from dmme_tpu_torch.parallel import make_eval_step, make_train_chunk, make_train_step
+from dmme_tpu_torch.parallel.mesh import Mesh, mesh_shape
 from dmme_tpu_torch.training import (LitDDIM, LitDDPM, MetricLogger, TrainState, fit,
                                      warmup_schedule)
 from dmme_tpu_torch.utils.convert import from_flax
@@ -292,7 +293,8 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=object()), "A.16"),
+    (dict(mesh=Mesh(shape=mesh_shape(2, tensor=2), rank=0, device=torch.device("cpu"),
+                    backend="gloo")), "A.11"),
 ])
 def test_fit_arguments_not_ported_raise(kwargs, item):
     lit = LitDDPM(model=t_ddpm.UNet(**TINY), timesteps=T)
