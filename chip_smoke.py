@@ -18,7 +18,7 @@ if the package is missing, or if any phase fails. Phases:
    one full-width bf16 UNet forward at each serving batch, 1, 8 and 16 (both
    switches on; at batch 8 also ``fused_norm`` only), then holds each kernel
    against its plain PyTorch version on those inputs, with times (CUDA
-   events, median of 15, of 5 for the plain versions; K4's weights are
+   events, median of 10, of 3 for the plain versions; K4's weights are
    packed once per weight state,
    before the timed runs) and the least time the card could take; beside
    K3, SDPA; beside K4, the same ResBlock as a cuDNN sequence
@@ -65,7 +65,7 @@ if the package is missing, or if any phase fails. Phases:
 8. fit     — ``fit(LitDDPM(dtype="bf16"), CIFAR10(synthetic=True,
    batch_size=128))`` at the recipe's settings: warm steps, one step whose
    parameter and EMA updates are checked, 20 logged steps (loss and
-   grad_norm finite, launches per step), 15 steps timed with CUDA events
+   grad_norm finite, launches per step), 10 steps timed with CUDA events
    (median step ms, imgs/s), and three steps under ``torch.profiler``
    (device idle share; device time by kernel for one step);
 9. sample after training — a DDIM-50 n = 8 request from the trained raw
@@ -189,7 +189,7 @@ if the package is missing, or if any phase fails. Phases:
    that misses it; ``classifier_grad`` in bf16 and f32;
 32. ADM fit — ``trainer.main fit`` of both ADM configs (synthetic CIFAR-10,
    the classifier's labelled) for 10 steps, the classifier resumed to 20
-   bitwise against an uninterrupted run, then 15 timed steps of each
+   bitwise against an uninterrupted run, then 10 timed steps of each
    (median, device busy, operations, idle share);
 33. guidance — a ``ClassifierGuidedDDIM`` 25-step request at n = 8 on the
    trained cosine schedule (wall, launches, finite, identical bytes for a
@@ -213,7 +213,7 @@ if the package is missing, or if any phase fails. Phases:
 37. DiT fit — ``trainer.main fit`` of both DiT configs (synthetic CIFAR-10,
    batch 128) for 10 steps, the DiT resumed from step 5 bitwise against an
    uninterrupted run; the router losses that entered one MoE training loss
-   and each MoE block's routed fractions f_e; 15 timed steps of each
+   and each MoE block's routed fractions f_e; 10 timed steps of each
    (median, device busy, operations, idle share, peak memory) and the MoE
    blocks' dense dispatch timed alone;
 38. DiT serve — both DiT flow harnesses over HTTP: ``default`` (25 midpoint
@@ -227,8 +227,8 @@ if the package is missing, or if any phase fails. Phases:
    ``configs/ddpm/cifar10.yaml`` whose teacher checkpoint a 2-step
    ``trainer fit`` wrote: 2 rounds (500, then 250 steps) of 3 steps, and
    the last student's DDIM-250 request at n = 8;
-40. inpainting — ``inpaint`` with ``LitDDPM``'s DDPM (T = 1000), the left
-   half of n = 8 images known, ``resample_steps=2``: 2000 forwards through
+40. inpainting — ``inpaint`` with ``LitDDPM``'s UNet and DDPM (T = 500), the left
+   half of n = 8 images known, ``resample_steps=2``: 1000 forwards through
    K1, K3 and K4, the known pixels back bit for bit;
 41. latent kernels — the default latent UNet (``LitLatentDDPM``'s: the DDPM
    UNet at in_channels 4, both switches) on 16x16x4 latents: every K1, K3
@@ -251,7 +251,7 @@ if the package is missing, or if any phase fails. Phases:
    shapes_latent_flow_dit_demo.yaml from its run directory; the written
    ``latent_scale.json`` equal to a recomputation; ``sample`` with and
    without ``--trainer.sampler ddim`` (32x32x3 grids); the stage-1 config's
-   ``sample --trainer.sampler ddim`` refused; 15 timed steps at batch 128 of
+   ``sample --trainer.sampler ddim`` refused; 10 timed steps at batch 128 of
    ``LitVAE``, the default ``LitLatentDDPM(dtype="bf16")`` over the trained
    codec and the latent DiT's ``LitLatentFlow``;
 44. latent serve — ``LitLatentDDPM`` over HTTP at 32 px: ``ddim`` and ``dpm``
@@ -304,7 +304,7 @@ if the package is missing, or if any phase fails. Phases:
    null``: the two saved states bitwise equal (deterministic cuDNN); then
    ``sample --trainer.sampler ddim --trainer.sample_batch 8`` with
    ``fused_block`` (K4 at the 30 ResBlocks, C 384 and 768); launches as the
-   call sites say; the step (median of 15) with and without the mesh (NCCL's
+   call sites say; the step (median of 10) with and without the mesh (NCCL's
    all-reduce in a profiled mesh step) and the request timed with their idle
    shares; every K1/K2/K3 call of a step at batch 128 and K1/K3/K4 call of a
    forward at n = 8 held against its plain version, twice, and timed; the
@@ -320,7 +320,19 @@ if the package is missing, or if any phase fails. Phases:
    bytes of parameters, EMA and moments; each rank's launches a batch-64
    step's (no f32, fp16 or ``simt.cu``); each rank's step and the gradient
    all-reduce timed; K1/K2/K3 at every call site of a batch-64 step held
-   against their plain versions;
+   against their plain versions. In the same launch, the ``expert`` axis:
+   ``trainer.main fit`` of configs/flow/cifar10_dit_moe.yaml at full width
+   (the MoE-DiT, bf16, global batch 128, 3 steps, every zero-initialised
+   weight drawn) with ``--trainer.mesh "{data: -1, expert: 2}"``: each
+   step's loss and grad norm within 1e-2 of one process here at batch 64
+   accumulating 2, the first step's reduced gradient gathered whole within
+   ``GRAD_REL_L2`` of that process's, the run's checkpoint restored here
+   without a mesh bit for bit its ranks' gathered state, each rank holding
+   861,310,464 B of parameters, EMA and moments (the whole less half the
+   expert stacks), 12 K3 launches a step and nothing else; the transport of
+   the all-to-alls printed; a rank's step and one block's all-to-all
+   timed; K3 at every call site of a rank's batch-64 step held against its
+   plain version;
 50. two-rank test — in the same launch, ``trainer.main test`` of
    configs/ddim/cifar10.yaml from phase 46's run with
    ``--trainer.mesh.data 2``, one test batch a rank: phase 46's FID and IS
@@ -401,7 +413,7 @@ ATTN_BWD_REL_L2 = 2e-2
 # relative L2 of the flattened gradient
 GRAD_REL_L2 = 5e-2
 TRAIN_BATCH = 128
-FIT_WARM, FIT_STEPS, TIMED_STEPS = 3, 20, 15
+FIT_WARM, FIT_STEPS, TIMED_STEPS = 3, 20, 10
 # launches of one training step of the full-width UNet
 PER_TRAIN_STEP = {"group_norm_silu": 45, "group_norm_silu_bwd": 45, "attention": 6,
                   "resblock": 0}
@@ -426,9 +438,9 @@ TRAIN_STEP_TFLOP = 3.53
 
 
 # runs of each plain version timed (``device_ms``): they are yardsticks tens
-# to hundreds of times slower than the kernels, and 15 runs of them cost more
-# of the run's time budget than they add to the ratio's precision
-PLAIN_REPS = 5
+# to hundreds of times slower than the kernels, and more runs of them cost
+# more of the run's time budget than they add to the ratio's precision
+PLAIN_REPS = 3
 
 
 def fail(msg: str) -> None:
@@ -468,7 +480,7 @@ def sleep_cycles(torch, host_s: float) -> int:
     return int(min(2_000_000, max(0.1, 4e3 * host_s) * _SLEEP_CYCLES_PER_MS[0]))
 
 
-def device_ms(torch, fn, reps: int = 15) -> float:
+def device_ms(torch, fn, reps: int = 10) -> float:
     """Median device time of ``fn()`` in ms. A sleep kernel queued before each
     run, four times as long as the last warm call took the host to enqueue,
     lets the host enqueue the whole call before the start event fires, so
@@ -3813,7 +3825,7 @@ def adm_cli(torch, np, ops, dev, card: str) -> dict:
     CIFAR-10, 10 steps each with a checkpoint at 10 (K3 15 and 5 launches
     a step, nothing else); the classifier resumed to 20 against an
     uninterrupted 20-step run, bit for bit (deterministic cuDNN); then each
-    saved state's train step timed (15 steps: median, device busy,
+    saved state's train step timed (10 steps: median, device busy,
     operations, idle share) under the library's default cuDNN settings."""
     import shutil
 
@@ -4049,9 +4061,10 @@ PER_DISTILL_STEP = {"group_norm_silu": 45 + 2, "group_norm_silu_bwd": 45, "atten
 # what the distillation driver may leave allocated on the card once it
 # returns (a round's teacher or student state is ≈ 0.1–0.5 GiB)
 DRIVER_LEFT_BYTES = 32 * 2**20
-# inpainting: LitDDPM's DDPM (T = 1000) at n = 8, the left half known,
-# RePaint harmonisation repeats
-INPAINT_RESAMPLE = 2
+# inpainting: LitDDPM's UNet and a DDPM of INPAINT_T steps at n = 8, the
+# left half known, RePaint harmonisation repeats (each step's forward is the
+# n = 8 serving forward whatever T is, so T sets only the depth)
+INPAINT_T, INPAINT_RESAMPLE = 500, 2
 
 
 def dit_harness(torch, blocks, path: str, dtype: str = "bf16", argv=()):
@@ -4271,7 +4284,7 @@ def dit_cli(torch, np, ops, dev, card: str) -> dict:
     (deterministic cuDNN), and of cifar10_dit_moe.yaml for 10 steps (K3 12
     launches a step, nothing else); the router losses that entered one MoE
     training loss and round 1's routed fractions f_e; each saved state's
-    train step timed (15 steps: median, device busy, operations, idle
+    train step timed (10 steps: median, device busy, operations, idle
     share, peak memory) under the library's default cuDNN settings; and the
     MoE blocks' dense dispatch timed alone (:func:`moe_dispatch_ms`)."""
     import shutil
@@ -4451,7 +4464,7 @@ def distill_kernels(torch, np, blocks, k_gn, k_attn, k_res, build, dev, ops, car
     22 sites each, K3 6 and K1 at ``out_norm``) and the v student's
     training forward and backward (K1 45, K2 45, K3 6 and the attention
     backward), launches 47/45/18/44; each call held against its plain
-    version (``TOL``, ``TOL_BWD``) and timed; then the step timed (15 steps:
+    version (``TOL``, ``TOL_BWD``) and timed; then the step timed (10 steps:
     median, device busy, operations, idle share, peak memory)."""
     from dmme_tpu_torch.data import CIFAR10
     from dmme_tpu_torch.diffusion import ProgressiveDistillation
@@ -4627,17 +4640,18 @@ def distill_driver(torch, np, ops, dev, card: str) -> dict:
 
 
 def inpaint_phase(torch, np, blocks, dev, ops, card: str) -> dict:
-    """Phase 40: RePaint inpainting with ``LitDDPM(dtype="bf16")``'s DDPM
-    (T = 1000) and UNet (random weights) at n = 8: the left half of numpy
-    images known, ``INPAINT_RESAMPLE`` repeats a step (2000 forwards,
-    launches 1/6/22 each); the known pixels must come back bit for bit, the
+    """Phase 40: RePaint inpainting with ``LitDDPM(dtype="bf16",
+    timesteps=INPAINT_T)``'s DDPM (T = 500) and UNet (random weights) at
+    n = 8: the left half of numpy images known, ``INPAINT_RESAMPLE``
+    repeats a step (1000 forwards, launches 1/6/22 each); the known pixels
+    must come back bit for bit, the
     generated half differ from the known images, everything finite."""
     from dmme_tpu_torch.diffusion import inpaint
     from dmme_tpu_torch.models import init_weights
     from dmme_tpu_torch.training import LitDDPM
 
     torch.backends.cudnn.deterministic = True
-    lit = LitDDPM(dtype="bf16")
+    lit = LitDDPM(dtype="bf16", timesteps=INPAINT_T)
     init_weights(lit.model, torch.Generator().manual_seed(SEED))
     randomize_affines(torch, blocks, lit.model, torch.Generator().manual_seed(SEED + 1))
     lit.model.to(dev).eval()
@@ -4980,7 +4994,7 @@ def latent_cli(torch, np, ops, dev, card: str) -> dict:
     the one recomputed from the same weights and data; stage 2 resumed from
     step 10 to 20, bitwise the uninterrupted run; ``sample`` with and
     without ``--trainer.sampler ddim`` (32x32x3 images), and the stage-1
-    config's ``sample --trainer.sampler ddim`` refused; then 15 timed steps
+    config's ``sample --trainer.sampler ddim`` refused; then 10 timed steps
     at batch 128 (median, device busy, operations, idle share, peak memory)
     of the stage-1 ``LitVAE``, of ``LitLatentDDPM(dtype="bf16")`` with its
     default UNet over the stage-1 codec (launches 45/45/6/0 a step) and of
@@ -6249,6 +6263,16 @@ DIST_DATA = ["--data.init_args.synthetic", "true", "--data.init_args.synthetic_s
 DIST_FSDP_REL = 1e-6
 #: seconds the two-rank launch may take before its process group is killed
 DIST_TIMEOUT = 480
+# the expert axis (A.11): the MoE-DiT of MOE_CONFIG on two ranks sharing the
+# card, against one process at a rank's batch accumulating DIST_RANKS
+EXPERT_MESH = "{data: -1, expert: 2}"
+#: a rank's parameters, EMA and Adam moments (f32, 16 B a parameter): the
+#: whole model less half of the 56,623,104 elements of the split expert stacks
+EXPERT_BYTES, EXPERT_STACKS = 861_310_464, 12
+#: a rank's and the accumulating process's losses and grad norms, relative
+EXPERT_LOSS_REL = 1e-2
+#: one MoE block's dispatch buffer a rank: (E, C, d), C = ⌈64·64·2/8·1.25⌉
+EXPERT_A2A = (8, 1280, 384)
 
 
 def kernel_counters(k_gn, k_attn, k_res) -> dict:
@@ -6271,10 +6295,73 @@ def state_bytes(state) -> int:
         for t in part.values())
 
 
-def _dist_fit_argv(root: str, *extra) -> list:
-    return ["fit", "--config", DIST_CONFIG, *DIST_DATA, "--trainer.max_steps", str(DIST_STEPS),
+def _dist_fit_argv(root: str, *extra, config: str = DIST_CONFIG) -> list:
+    return ["fit", "--config", config, *DIST_DATA, "--trainer.max_steps", str(DIST_STEPS),
             "--trainer.log_every_n_steps", "1", "--trainer.callbacks", "[]",
             "--trainer.default_root_dir", root, *extra]
+
+
+@contextlib.contextmanager
+def drawn_init(torch):
+    """Harnesses' ``init_state`` with every bias, adaLN-Zero kernel and
+    expert bias drawn too (:func:`randomize_affines`, seeded): at flax's
+    zeros a DiT's MoE branches are gated off and their experts, their
+    all-to-alls' backward included, take no gradient."""
+    import dmme_tpu_torch.models.blocks as blocks
+    from dmme_tpu_torch.training import lit as lit_mod
+
+    original = lit_mod.init_weights
+
+    def init_weights(model, generator):
+        original(model, generator)
+        randomize_affines(torch, blocks, model, torch.Generator().manual_seed(SEED + 1))
+
+    lit_mod.init_weights = init_weights
+    try:
+        yield
+    finally:
+        lit_mod.init_weights = original
+
+
+@contextlib.contextmanager
+def first_gradients(torch, out: dict):
+    """``out["grads"]``: the gradients the first ``apply_gradients`` of a run
+    receives (on a mesh the reduced ones, the expert shards gathered whole:
+    a collective every rank reaches at the same step)."""
+    from dmme_tpu_torch.parallel.mesh import gather_leaves
+    from dmme_tpu_torch.training import TrainState
+
+    original = TrainState.apply_gradients
+
+    def apply(state, grads, norm=None):
+        if "grads" not in out:
+            whole = dict(grads)
+            if state.expert_axes:
+                whole.update(gather_leaves(state.mesh, whole, state.expert_axes, "expert"))
+            out["grads"] = {k: v.detach().clone() for k, v in whole.items()}
+        return original(state, grads, norm)
+
+    TrainState.apply_gradients = apply
+    try:
+        yield out
+    finally:
+        TrainState.apply_gradients = original
+
+
+def digest(torch, tensors: dict) -> dict:
+    """{name: [the sum, a position-weighted sum] of the tensor's 32-bit
+    words as int64}: bit-for-bit equal tensors give equal digests."""
+    out = {}
+    for k, t in tensors.items():
+        w = t.detach().contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+        pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        out[k] = [int(w.sum()), int((w * pos).sum())]
+    return out
+
+
+def state_digest(torch, state) -> dict:
+    return {"params": digest(torch, state.params), "ema": digest(torch, state.ema_params),
+            "mu": digest(torch, state.opt_state.mu), "nu": digest(torch, state.opt_state.nu)}
 
 
 def dist_timing(torch, dev, rank: int) -> dict:
@@ -6319,6 +6406,45 @@ def dist_timing(torch, dev, rank: int) -> dict:
     return out
 
 
+def expert_timing(torch, dev, rank: int) -> dict:
+    """In a rank: ``DIST_TIMED`` steps of the MoE-DiT harness on the
+    ``{data: -1, expert: 2}`` mesh (host clock), and the all-to-all alone
+    on one block's ``EXPERT_A2A`` bf16 dispatch buffer (gloo, handed the
+    CUDA tensors directly, as the layer hands them)."""
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.models.moe import ExpertGroup, _exchange
+    from dmme_tpu_torch.parallel import global_batch, make_mesh, make_train_step, shard_state
+
+    config = tcfg.validate_config(tcfg.apply_overrides(tcfg.load_config(MOE_CONFIG), DIST_DATA))
+    lit, dm = tcfg.instantiate(config["model"]), tcfg.instantiate(config["data"])
+    dm.setup("fit")
+    it = dm.train_iter(SEED, process_index=rank, process_count=DIST_RANKS)
+    mesh = make_mesh(expert=DIST_RANKS, device=dev)
+    state = shard_state(lit.init_state(0, device=dev), mesh, model=lit.model)
+    step = make_train_step(lit.make_loss_fn(dm), mesh=mesh)
+    walls = []
+    for _ in range(DIST_TIMED + 1):
+        batch = global_batch(next(it), mesh, global_size=TRAIN_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, SEED)
+        float(metrics["loss"])
+        walls.append(1e3 * (time.perf_counter() - t0))
+    del state
+    where = ExpertGroup(mesh.expert_group, mesh.expert, mesh.index("expert"))
+    buf = torch.randn(EXPERT_A2A, device=dev).to(torch.bfloat16)
+    a2a = []
+    for _ in range(DIST_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _exchange(buf, where)
+        torch.cuda.synchronize()
+        a2a.append(1e3 * (time.perf_counter() - t0))
+    return {"step_ms": statistics.median(walls[1:]), "a2a_ms": statistics.median(a2a[1:]),
+            "a2a_mb": buf.numel() * buf.element_size() / 1e6,
+            "transport": f"{mesh.backend}, direct on CUDA tensors"}
+
+
 def rank_worker(out: str, eval_root: str, pth: str) -> int:
     """One rank of phases 49 and 50 under ``python -m torch.distributed.run
     --standalone --nproc_per_node 2 chip_smoke.py --rank-worker DIR``: the
@@ -6353,6 +6479,8 @@ def rank_worker(out: str, eval_root: str, pth: str) -> int:
     def holding_fit(*args, **kwargs):  # what the command's fit leaves each rank holding
         state = fit(*args, **kwargs)
         held.update(state_bytes=state_bytes(state), split_leaves=len(state.shard_axes))
+        if state.expert_axes:
+            held["state"] = state
         return state
 
     training.fit = holding_fit
@@ -6365,9 +6493,31 @@ def rank_worker(out: str, eval_root: str, pth: str) -> int:
             torch.cuda.synchronize()
             rec[kind] = dict(held, wall_s=time.time() - t0, launches=counts(ops),
                              wide=wide_counts())
+        # the expert axis: the MoE-DiT, its first reduced gradient and its
+        # gathered state kept for the checks here and in the parent
+        first = {}
+        with drawn_init(torch), first_gradients(torch, first):
+            reset_counts(ops)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            cli(_dist_fit_argv(os.path.join(out, "expert"), "--trainer.mesh", EXPERT_MESH,
+                               config=MOE_CONFIG))
+            torch.cuda.synchronize()
+            state = held.pop("state")
+            rec["expert"] = dict(held, wall_s=time.time() - t0, launches=counts(ops),
+                                 wide=wide_counts(), split_leaves=len(state.expert_axes))
+        whole = state.whole()  # a collective: both ranks
+        if rank == 0:
+            rec["expert"]["digest"] = state_digest(torch, whole)
+            rec["expert"]["params"] = sum(v.numel() for v in whole.params.values())
+            want = torch.load(os.path.join(out, "moe_one_grads.pt"), map_location=dev)
+            rec["expert"]["grad_rel"] = _rel_l2(torch, want, first["grads"])
+        del state, whole, first
+        torch.cuda.empty_cache()
     finally:
         training.fit = fit
     rec["timing"] = dist_timing(torch, dev, rank)
+    rec["timing"]["expert"] = expert_timing(torch, dev, rank)
     reset_counts(ops)
     buf = io.StringIO()
     torch.cuda.synchronize()
@@ -6415,12 +6565,22 @@ def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: st
     shutil.rmtree(DIST_ROOT, ignore_errors=True)
     os.makedirs(DIST_ROOT)
     torch.backends.cudnn.deterministic = True
+    accumulate = ["--trainer.mesh", "null", "--data.init_args.batch_size", str(DIST_BATCH),
+                  "--trainer.accumulate_grad_batches", str(DIST_RANKS)]
     out = {"one": cli_run(torch, ops, card, f"one process: fit {DIST_STEPS} steps at batch "
                           f"{DIST_BATCH} x {DIST_RANKS} accumulated",
-                          _dist_fit_argv(os.path.join(DIST_ROOT, "one"), "--trainer.mesh", "null",
-                                         "--data.init_args.batch_size", str(DIST_BATCH),
-                                         "--trainer.accumulate_grad_batches", str(DIST_RANKS)),
+                          _dist_fit_argv(os.path.join(DIST_ROOT, "one"), *accumulate),
                           launches_for(PER_TRAIN_STEP, DIST_STEPS * DIST_RANKS))}
+    first = {}
+    with drawn_init(torch), first_gradients(torch, first):
+        out["moe_one"] = cli_run(torch, ops, card, f"one process: fit {MOE_CONFIG} {DIST_STEPS} "
+                                 f"steps at batch {DIST_BATCH} x {DIST_RANKS} accumulated",
+                                 _dist_fit_argv(os.path.join(DIST_ROOT, "moe_one"), *accumulate,
+                                                config=MOE_CONFIG),
+                                 launches_for(PER_FORWARD_DIT, DIST_STEPS * DIST_RANKS))
+    torch.save(first["grads"], os.path.join(DIST_ROOT, "moe_one_grads.pt"))
+    del first
+    torch.cuda.empty_cache()
     eval_root = eval_rec["kept_root"]
     pth = os.path.join(EVAL_ROOT, "pt_inception_standin.pth")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
@@ -6475,6 +6635,7 @@ def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: st
               f"(host clock, median of {DIST_TIMED}); the gradient all-reduce of "
               f"{t['allreduce_mb']:.1f} MB through gloo {t['allreduce_ms']:.2f} ms [{card}]",
               flush=True)
+    expert_phase(torch, np, out, ranks, card)
     saved = {k: CheckpointManager(os.path.join(DIST_ROOT, k)).load(DIST_STEPS)
              for k in ("one", "data", "fsdp")}
     out["data_vs_one"] = state_differences(torch, saved["data"], saved["one"])
@@ -6522,8 +6683,70 @@ def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: st
     step = train_kernels(torch, blocks, k_gn, k_attn, None, init_weights, None, dev, card, ops,
                          lit=tcfg.instantiate(config["model"]), batch_size=DIST_BATCH)
     out.update(train_rows=step["shapes"], per_step=step["per_step"])
+    # K3 at every call site of a rank's expert step (batch 64; attention
+    # sits outside the MoE layers, so a rank's shapes are a plain step's)
+    out["expert_step"] = train_kernels(
+        torch, blocks, k_gn, k_attn, None, init_weights, None, dev, card, ops,
+        lit=dit_harness(torch, blocks, MOE_CONFIG)[0], targets=dit_targets(k_attn, True),
+        sites={"attention": DIT_SITES, "attention_bwd": DIT_SITES}, batch_size=DIST_BATCH)
     shutil.rmtree(DIST_ROOT, ignore_errors=True)
     return out
+
+
+def expert_phase(torch, np, out: dict, ranks: list, card: str) -> None:
+    """Phase 49's checks of the expert fit (:func:`rank_worker`) against
+    the accumulating process ``out["moe_one"]``, into ``out["expert"]``."""
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.training import CheckpointManager
+
+    per_rank = launches_for(PER_FORWARD_DIT, DIST_STEPS)
+    for r in ranks:
+        rec, t = r["expert"], r["timing"]["expert"]
+        print(f"rank {r['rank']} expert=2 fit of {MOE_CONFIG}: {rec['wall_s']:.2f} s wall, "
+              f"launches {rec['launches']}, f32/fp16 launches {rec['wide']}, holds "
+              f"{rec['state_bytes']:,} B of parameters, EMA and moments "
+              f"({rec['state_bytes'] / (16 * MOE_PARAMS):.4f} of the whole's "
+              f"{16 * MOE_PARAMS:,}; {rec['split_leaves']} stacks split); a step at batch "
+              f"{DIST_BATCH} a rank {t['step_ms']:.2f} ms (host clock, median of {DIST_TIMED}); "
+              f"the all-to-all of one block's {t['a2a_mb']:.2f} MB dispatch buffer "
+              f"{t['a2a_ms']:.3f} ms, transport {t['transport']} [{card}]", flush=True)
+        if rec["launches"] != per_rank or any(v for d in rec["wide"].values()
+                                              for v in d.values()):
+            fail(f"rank {r['rank']}'s expert fit launched {rec['launches']} ({rec['wide']}), "
+                 f"expected {per_rank}")
+        if rec["state_bytes"] != EXPERT_BYTES or rec["split_leaves"] != EXPERT_STACKS:
+            fail(f"an expert rank holds {rec['state_bytes']} B in {rec['split_leaves']} split "
+                 f"stacks, expected {EXPERT_BYTES} in {EXPERT_STACKS}")
+    lead = ranks[0]["expert"]
+    mesh_rows = _jsonl(os.path.join(DIST_ROOT, "expert", "metrics.jsonl"))
+    one_rows = _jsonl(os.path.join(DIST_ROOT, "moe_one", "metrics.jsonl"))
+    rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(mesh_rows, one_rows)]
+           for k in ("loss", "grad_norm")}
+    # the mesh run's checkpoint, restored here without a mesh
+    lit = tcfg.instantiate(tcfg.validate_config(tcfg.load_config(MOE_CONFIG))["model"])
+    state = CheckpointManager(os.path.join(DIST_ROOT, "expert")).restore(
+        lit.init_state(0, device="cuda"))
+    restored = state_digest(torch, state)
+    n_params = sum(v.numel() for v in state.params.values())
+    del state, lit
+    torch.cuda.empty_cache()
+    out["expert"] = {"loss_rel": rel["loss"], "grad_norm_rel": rel["grad_norm"],
+                     "grad_rel_l2": lead["grad_rel"], "params": lead["params"],
+                     "checkpoint_bitwise": restored == lead["digest"],
+                     "transport": ranks[0]["timing"]["expert"]["transport"]}
+    print(f"expert=2 against one process accumulating {DIST_RANKS}: loss relative "
+          f"{rel['loss']}, grad norm relative {rel['grad_norm']}, the first reduced gradient "
+          f"{lead['grad_rel']:.3e} relative L2 (limit {GRAD_REL_L2}); the checkpoint restored "
+          f"without a mesh {'is' if out['expert']['checkpoint_bitwise'] else 'is NOT'} bit for "
+          f"bit the ranks' gathered state ({lead['params']:,} parameters gathered, {n_params:,} "
+          f"restored) [{card}]", flush=True)
+    if (len(mesh_rows) != DIST_STEPS or len(one_rows) != DIST_STEPS
+            or max(rel["loss"] + rel["grad_norm"]) > EXPERT_LOSS_REL):
+        fail(f"the expert=2 run's losses and grad norms are {rel} from the accumulating run's")
+    if not lead["grad_rel"] <= GRAD_REL_L2:
+        fail(f"the expert=2 run's first gradient is {lead['grad_rel']} from the accumulating's")
+    if not out["expert"]["checkpoint_bitwise"] or {lead["params"], n_params} != {MOE_PARAMS}:
+        fail("the expert=2 checkpoint restored without a mesh is not the gathered state")
 
 
 def dist_rows(report: dict) -> list:
@@ -6538,6 +6761,9 @@ def dist_rows(report: dict) -> list:
     rows += [_table_row(f"{k}_mesh_test", k, report["eval_test"]["per_forward"][k],
                         sum(r["test"]["launches"][k] for r in d["ranks"]))
              for k in ("group_norm_silu", "attention", "resblock")]
+    rows.append(_table_row("attention_expert_train", "attention",
+                           d["expert_step"]["per_step"]["attention"],
+                           sum(r["expert"]["launches"]["attention"] for r in d["ranks"])))
     return rows
 
 
@@ -6568,7 +6794,7 @@ def record_forwards(torch, blocks, runs, dev, targets=None) -> tuple:
 
 def forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded) -> tuple:
     """Hold every recorded K1/K3/K4 call of a UNet forward against its plain
-    version (``TOL``) and time it: median of 15 CUDA-event runs (the plain
+    version (``TOL``) and time it: median of 10 CUDA-event runs (the plain
     version's of ``PLAIN_REPS``), the bound,
     SDPA beside K3, the library sequences beside K1 and K4. ``recorded``:
     {kind: {signature: {"a", "k", "sites"}}}. Returns (rows, failures)."""
@@ -7086,7 +7312,7 @@ def main() -> int:
     phase(f"distillation driver: python -m dmme_tpu_torch.distill on configs/ddpm/cifar10.yaml, "
           f"{DISTILL_ROUNDS} rounds from a teacher checkpoint, then a student request")
     report["distill"] = distill_driver(torch, np, ops, dev, card)
-    phase(f"inpainting: RePaint with LitDDPM's DDPM (T = 1000), resample_steps "
+    phase(f"inpainting: RePaint with LitDDPM's UNet, a DDPM of T = {INPAINT_T}, resample_steps "
           f"{INPAINT_RESAMPLE}, n = {BATCH}")
     report["inpaint"] = inpaint_phase(torch, np, blocks, dev, ops, card)
     torch.cuda.empty_cache()
@@ -7133,8 +7359,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase(f"two ranks on one card: torch.distributed.run --nproc_per_node {DIST_RANKS} trainer "
-          f"fit of {DIST_CONFIG} on data=2 and fsdp=2 meshes (gloo) against one process "
-          f"accumulating 2; then trainer test of {DDIM_CONFIG} on a data=2 mesh")
+          f"fit of {DIST_CONFIG} on data=2 and fsdp=2 meshes and of {MOE_CONFIG} on "
+          f"{EXPERT_MESH} (gloo) against one process accumulating 2; then trainer test of "
+          f"{DDIM_CONFIG} on a data=2 mesh")
     report["dist"] = dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card,
                                 report["eval_test"])
     torch.cuda.empty_cache()
@@ -7314,7 +7541,8 @@ def main() -> int:
           f"*_mesh_train: per step of a rank at batch {DIST_BATCH} ({DIST_CONFIG} on "
           f"{DIST_RANKS} ranks), launches in both ranks' data and fsdp fits; *_mesh_test: per "
           f"DDIM-50 forward of a test batch at N = {TRAIN_BATCH} (the *_eval shapes), launches "
-          f"in both ranks' test)", flush=True)
+          f"in both ranks' test; attention_expert_train: per step of a rank at batch {DIST_BATCH} "
+          f"of {MOE_CONFIG} on {EXPERT_MESH}, launches in both ranks' expert fits)", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -62,7 +62,7 @@ class GenerateImage:
         returns the path written (None on a mesh's other ranks)."""
         mesh = getattr(state, "mesh", None)
         if mesh is not None:
-            state = state.whole(moments=False)  # a collective under fsdp
+            state = state.whole(moments=False)  # a collective where the state is sharded
             if mesh.rank != 0:
                 return None
         device = next(iter(state.ema_params.values())).device

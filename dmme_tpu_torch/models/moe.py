@@ -22,18 +22,75 @@ the layer keeps nothing between calls. The harnesses add ``moe_aux`` and
 ``f_e`` (the round-1 routed fraction per expert) is a diagnostic only.
 Parameters keep flax's names and layouts: ``router`` (a Dense), ``w_in``
 (E, d, f), ``b_in`` (E, 1, f), ``w_out`` (E, f, d), ``b_out`` (E, 1, d).
+
+Expert parallelism (the mesh's ``expert`` axis, GShard): where
+``parallel.shard_state`` splits the stacks over an expert group of P ranks,
+it hands each layer its :class:`ExpertGroup` (:func:`place_experts`), and a
+forward that is given a rank's (E/P, …) shards of ``w_in``/``w_out`` routes
+its own tokens exactly as above (its own capacity, balance and statistics),
+sends each expert's (C, d) queue to the rank that holds the expert and gets
+the group's queues for its own E/P experts (an all-to-all,
+:class:`AllToAll`, whose backward is the reverse all-to-all), runs those
+experts on (E/P, P·C, d), and sends the outputs back by a second all-to-all
+before the combine. Given whole stacks the layer issues no collective.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from dmme_tpu_torch.models.blocks import Dense, _lecun_normal_
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ExpertGroup:
+    """Where a layer's experts live on an ``expert`` mesh axis: the process
+    group of the ``size`` ranks that exchange their tokens (None: the
+    world) and this rank's place ``index`` in it (it holds experts
+    [index·E/size, (index+1)·E/size))."""
+
+    group: Any
+    size: int
+    index: int
+
+
+def _exchange(x: torch.Tensor, where: ExpertGroup) -> torch.Tensor:
+    """Chunk i of ``x``'s leading axis to rank i of the group, chunk j of
+    the result from rank j (one all-to-all of equal splits, on the tensors
+    as they are: NCCL and gloo both take CUDA tensors)."""
+    src = x.contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=where.group)
+    return out
+
+
+class AllToAll(torch.autograd.Function):
+    """:func:`_exchange` with the reverse exchange as its backward (an
+    all-to-all of equal splits is its own transpose)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, where: ExpertGroup) -> torch.Tensor:
+        ctx.where = where
+        return _exchange(x, where)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _exchange(grad, ctx.where), None
+
+
+def place_experts(model: nn.Module, where: Optional[ExpertGroup]) -> None:
+    """Hand every :class:`MoEMlp` of ``model`` its expert group (None: the
+    stacks are whole)."""
+    for m in model.modules():
+        if isinstance(m, MoEMlp):
+            m.expert_group = where
 
 
 class MoEMlp(nn.Module):
@@ -56,6 +113,8 @@ class MoEMlp(nn.Module):
         self.b_in = nn.Parameter(torch.zeros(num_experts, 1, mlp_dim))
         self.w_out = nn.Parameter(torch.empty(num_experts, mlp_dim, dim))
         self.b_out = nn.Parameter(torch.zeros(num_experts, 1, dim))
+        #: where the experts live when the stacks are split (:func:`place_experts`)
+        self.expert_group: Optional[ExpertGroup] = None
 
     def init_parameters(self, generator: torch.Generator) -> None:
         """flax's init of the expert stacks: ``lecun_normal`` over (E, d_in,
@@ -123,6 +182,31 @@ class MoEMlp(nn.Module):
                                                                 * pos_oh[:, None, :])
         return combine
 
+    def _split(self) -> Optional[ExpertGroup]:
+        """The expert group where the bound ``w_in`` is a rank's shard of
+        the stack, None where it is whole."""
+        held = self.w_in.shape[0]
+        if held == self.num_experts:
+            return None
+        where = self.expert_group
+        if where is None or held * where.size != self.num_experts:
+            raise ValueError(f"w_in holds {held} of {self.num_experts} experts, but the layer's "
+                             f"expert group is {where}: lay the state out with "
+                             "parallel.shard_state(..., model=)")
+        return where
+
+    def _local(self, b: torch.Tensor, where: ExpertGroup) -> torch.Tensor:
+        """This rank's experts' rows of a bias held whole (or already a shard)."""
+        local = self.num_experts // where.size
+        return b if b.shape[0] == local else b[where.index * local:(where.index + 1) * local]
+
+    def _experts(self, h: torch.Tensor, b_in: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+        """The bound experts' FFNs on their (E', tokens, d) queues."""
+        h = torch.einsum("ecd,edf->ecf", h, self.w_in.to(self.dtype))
+        h = F.gelu(h + b_in.to(self.dtype), approximate="tanh")
+        out = torch.einsum("ecf,efd->ecd", h, self.w_out.to(self.dtype))
+        return out + b_out.to(self.dtype)
+
     def forward(self, x: torch.Tensor, train: bool = False,
                 noise: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -143,10 +227,16 @@ class MoEMlp(nn.Module):
         dispatch = (combine > 0.0).to(self.dtype)  # a gate of exactly 0 dispatches nothing
 
         expert_in = torch.einsum("sec,sd->ecd", dispatch, xs.to(self.dtype))
-        h = torch.einsum("ecd,edf->ecf", expert_in, self.w_in.to(self.dtype))
-        h = F.gelu(h + self.b_in.to(self.dtype), approximate="tanh")
-        out = torch.einsum("ecf,efd->ecd", h, self.w_out.to(self.dtype))
-        out = out + self.b_out.to(self.dtype)
+        where = self._split()
+        if where is None:
+            out = self._experts(expert_in, self.b_in, self.b_out)
+        else:  # the queues to their experts' ranks, the experts, and back
+            p, c, local = where.size, expert_in.shape[1], e // where.size
+            got = AllToAll.apply(expert_in, where)  # (P·E/P, C, d): block i from rank i
+            got = got.reshape(p, local, c, d).transpose(0, 1).reshape(local, p * c, d)
+            out = self._experts(got, *(self._local(b, where) for b in (self.b_in, self.b_out)))
+            out = out.reshape(local, p, c, d).transpose(0, 1)
+            out = AllToAll.apply(out, where).reshape(e, c, d)
         y = torch.einsum("sec,ecd->sd", combine.to(self.dtype), out)
 
         # Switch aux E·Σ f_e·P_e (round-1 routed fraction, mean prob), the

@@ -10,12 +10,22 @@ axis sizes, and the collectives are written out (``parallel/train_step.py``):
   the axis JAX's rule picks (:func:`fsdp_param_spec`), so a rank holds its
   shard of the parameters, the EMA and both Adam moments; the parameters
   are all-gathered for the forward and the gradients reduce-scattered.
-  The batch is split over data × fsdp, so every rank computes.
-* ``tensor``, ``spatial``, ``expert``: not ported; a size above 1 raises
-  naming ROADMAP A.11.
+* ``expert``: expert parallelism (GShard) for the MoE layers: each rank-3
+  expert stack of a ``moe`` module (E, d_in, d_out) of 2¹⁴ elements or
+  more is split along E when the axis divides it, so a rank holds E/P
+  experts of its expert group (size P); the tokens of the group go to
+  their experts and back by two all-to-alls a MoE layer
+  (``models/moe.py``). The expert shards are never gathered for the
+  forward. Each rank routes its own tokens as one routing group (its own
+  capacity, balance and router losses), as JAX's accumulation routes a
+  microbatch. A stack can carry both axes: ``expert`` on E and ``fsdp``
+  on another axis, by JAX's rule.
+* ``tensor``, ``spatial``: not ported; a size above 1 raises naming
+  ROADMAP A.11.
 
-Rank r of a (data, fsdp) mesh sits at (r // fsdp, r % fsdp), as JAX
-reshapes its device list, and takes slice r of the global batch. A spec
+Rank r sits at (d, f, e) of the (data, fsdp, expert) grid, row-major, as
+JAX reshapes its device list, and takes slice r of the global batch,
+which is split over data × fsdp × expert. A spec
 is JAX's ``PartitionSpec`` as a tuple, in the port's layout: a mesh-axis
 name (or a tuple of them) or None per tensor axis, ``()`` for a whole
 (replicated) leaf.
@@ -24,6 +34,8 @@ name (or a tuple of them) or None per tensor axis, ``()`` for a whole
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -71,7 +83,14 @@ class Mesh:
     min_weight_size: int = MIN_WEIGHT_SIZE
     #: whether :func:`make_mesh` made the process group (and its owner shuts it down)
     owns_group: bool = False
+    #: the groups of the ranks that differ from this one only along the
+    #: named axes (:data:`GROUPS`); None where such a group is the world,
+    #: or this rank alone (then no collective runs over it)
     fsdp_group: Any = None
+    expert_group: Any = None
+    #: the replicas of an fsdp shard, of an expert shard, of a shard of both
+    fsdp_replicas: Any = None
+    expert_replicas: Any = None
     data_group: Any = None
     #: a gloo group for the host's flags where the backend is NCCL
     control_group: Any = None
@@ -88,13 +107,24 @@ class Mesh:
         return self.shape["fsdp"]
 
     @property
+    def expert(self) -> int:
+        return self.shape["expert"]
+
+    @property
     def batch_ranks(self) -> int:
-        """The ranks the batch is split over: data × fsdp."""
-        return self.shape["data"] * self.shape["fsdp"]
+        """The ranks the batch is split over: data × fsdp × expert."""
+        return self.shape["data"] * self.shape["fsdp"] * self.shape["expert"]
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis`` (``data``, ``fsdp`` or ``expert``)."""
+        return _coords(self.shape, self.rank)[axis]
 
     @property
     def fsdp_index(self) -> int:
-        return self.rank % self.fsdp
+        return self.index("fsdp")
+
+    def size(self, *axes: str) -> int:
+        return math.prod(self.shape[a] for a in axes)
 
 
 def make_mesh(devices: Optional[Sequence[int]] = None, data: int = -1, fsdp: int = 1,
@@ -129,41 +159,69 @@ def make_mesh(devices: Optional[Sequence[int]] = None, data: int = -1, fsdp: int
 
 
 def require_ported(shape: Mapping[str, int]) -> None:
-    """Raise for a ``tensor``, ``spatial`` or ``expert`` axis above 1."""
-    for axis in ("tensor", "spatial", "expert"):
+    """Raise for a ``tensor`` or ``spatial`` axis above 1."""
+    for axis in ("tensor", "spatial"):
         if shape.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"mesh axis {axis}={shape[axis]} is not ported yet (ROADMAP A.11, "
-                "distribution): the port shards the data and fsdp axes")
+                "distribution): the port shards the data, fsdp and expert axes")
+
+
+#: the batch axes of the grid a rank sits on, row-major
+GRID = ("data", "fsdp", "expert")
+#: {Mesh field: the axes along which its ranks differ}
+GROUPS = {"fsdp_group": ("fsdp",), "expert_group": ("expert",),
+          "fsdp_replicas": ("data", "expert"), "expert_replicas": ("data", "fsdp"),
+          "data_group": ("data",)}
+
+
+def _coords(shape: Mapping[str, int], rank: int) -> Dict[str, int]:
+    """``rank``'s (data, fsdp, expert) coordinates, row-major."""
+    out = {}
+    for axis in reversed(GRID):
+        rank, out[axis] = divmod(rank, shape[axis])
+    return out
+
+
+def _rank(shape: Mapping[str, int], coords: Mapping[str, int]) -> int:
+    r = 0
+    for axis in GRID:
+        r = r * shape[axis] + coords[axis]
+    return r
 
 
 def _groups(shape: Mapping[str, int], rank: int, backend: str) -> dict:
-    """The fsdp and data groups of ``rank`` (None where the axis spans the
-    world) and the control group; every rank makes every group, in order."""
-    data, fsdp = shape["data"], shape["fsdp"]
-    out = {}
-    if data > 1 and fsdp > 1:
-        for d in range(data):
-            ranks = [d * fsdp + f for f in range(fsdp)]
-            group = dist.new_group(ranks)
-            if rank in ranks:
-                out["fsdp_group"] = group
-        for f in range(fsdp):
-            ranks = [d * fsdp + f for d in range(data)]
-            group = dist.new_group(ranks)
-            if rank in ranks:
-                out["data_group"] = group
-    if backend != "gloo" and data * fsdp > 1:
+    """The groups of :data:`GROUPS` that hold ``rank`` (None where a group
+    is the world or the rank alone) and the control group; every rank makes
+    every group, in the same order."""
+    world = math.prod(shape[a] for a in GRID)
+    out, made = {}, {}
+    for name, axes in GROUPS.items():
+        varying = tuple(a for a in axes if shape[a] > 1)
+        if not varying or math.prod(shape[a] for a in varying) == world:
+            continue
+        if varying not in made:  # a group already made for the same ranks serves again
+            fixed = [a for a in GRID if a not in varying]
+            for at in itertools.product(*(range(shape[a]) for a in fixed)):
+                ranks = [_rank(shape, dict(zip(fixed, at), **dict(zip(varying, v))))
+                         for v in itertools.product(*(range(shape[a]) for a in varying))]
+                group = dist.new_group(sorted(ranks))
+                if rank in ranks:
+                    made[varying] = group
+        out[name] = made[varying]
+    if backend != "gloo" and world > 1:
         out["control_group"] = dist.new_group(backend="gloo")
     return out
 
 
 def batch_sharding(mesh: Mesh, chunked: bool = False, ndim: Optional[int] = None,
                    shape: Optional[Sequence[int]] = None) -> tuple:
-    """The batch axis split over data × fsdp (axis 1 of ``chunked``
-    (steps, batch, …) inputs). ``ndim`` and ``shape`` are JAX's, for its
-    ``spatial`` axis, which the port does not shard."""
-    return ((None,) if chunked else ()) + (("data", "fsdp"),)
+    """The batch axis split over data × fsdp, and × expert where that axis
+    is above 1, as JAX's (axis 1 of ``chunked`` (steps, batch, …) inputs).
+    ``ndim`` and ``shape`` are JAX's, for its ``spatial`` axis, which the
+    port does not shard."""
+    axes = ("data", "fsdp", "expert") if mesh.shape.get("expert", 1) > 1 else ("data", "fsdp")
+    return ((None,) if chunked else ()) + (axes,)
 
 
 def replicated(mesh: Mesh) -> tuple:
@@ -238,13 +296,21 @@ def state_sharding(state, mesh, min_weight_size: int = MIN_WEIGHT_SIZE) -> dict:
 
 
 def split_axes(params: Mapping[str, torch.Tensor], mesh: Mesh,
-               min_weight_size: Optional[int] = None) -> Dict[str, int]:
-    """{name: the axis it is split along} of the leaves fsdp splits."""
-    if mesh.fsdp == 1:
+               min_weight_size: Optional[int] = None, axis: str = "fsdp") -> Dict[str, int]:
+    """{name: the tensor axis it is split along} of the leaves that the
+    mesh axis ``axis`` (``fsdp`` or ``expert``) splits."""
+    if mesh.shape[axis] == 1:
         return {}
     size = mesh.min_weight_size if min_weight_size is None else min_weight_size
-    return {k: spec.index("fsdp") for k, spec in params_sharding(params, mesh, size).items()
-            if "fsdp" in spec}
+    return {k: spec.index(axis) for k, spec in params_sharding(params, mesh, size).items()
+            if axis in spec}
+
+
+def expert_axes(params: Mapping[str, torch.Tensor], mesh: Mesh,
+                min_weight_size: Optional[int] = None) -> Dict[str, int]:
+    """{name: the tensor axis it is split along} of the expert stacks the
+    ``expert`` axis splits (axis 0, E), by JAX's rule."""
+    return split_axes(params, mesh, min_weight_size, "expert")
 
 
 # --------------------------------------------------------------- collectives
@@ -307,22 +373,24 @@ def broadcast_(tensors: Sequence[torch.Tensor]) -> None:
         _copy_back(flat, tensors, run)
 
 
-def shard_of(mesh: Mesh, full: torch.Tensor, axis: int) -> torch.Tensor:
-    """This rank's fsdp shard of ``full``: chunk ``fsdp_index`` of ``axis``, contiguous."""
-    return full.chunk(mesh.fsdp, dim=axis)[mesh.fsdp_index].contiguous()
+def shard_of(mesh: Mesh, full: torch.Tensor, axis: int, along: str = "fsdp") -> torch.Tensor:
+    """This rank's shard of ``full`` on the mesh axis ``along``: chunk
+    ``mesh.index(along)`` of tensor axis ``axis``, contiguous."""
+    return full.chunk(mesh.shape[along], dim=axis)[mesh.index(along)].contiguous()
 
 
 def gather_leaves(mesh: Mesh, shards: Mapping[str, torch.Tensor],
-                  axes: Mapping[str, int]) -> Dict[str, torch.Tensor]:
-    """The whole tensors of the split leaves ``axes`` names, all-gathered
-    over the fsdp group in flat buckets (every rank calls it)."""
+                  axes: Mapping[str, int], along: str = "fsdp") -> Dict[str, torch.Tensor]:
+    """The tensors of the leaves ``axes`` names, all-gathered along the
+    mesh axis ``along`` (over its group) in flat buckets (every rank calls it)."""
     names = [k for k in shards if k in axes]
+    n = mesh.shape[along]
     out = {}
     for run in _buckets([shards[k] for k in names]):
         keys = [names[i] for i in run]
         mine = torch.cat([shards[k].reshape(-1) for k in keys])
-        rows = torch.empty((mesh.fsdp, mine.numel()), dtype=mine.dtype, device=mine.device)
-        dist.all_gather(list(rows.unbind(0)), mine, group=mesh.fsdp_group)
+        rows = torch.empty((n, mine.numel()), dtype=mine.dtype, device=mine.device)
+        dist.all_gather(list(rows.unbind(0)), mine, group=getattr(mesh, f"{along}_group"))
         sizes = [shards[k].numel() for k in keys]
         pieces = [row.split(sizes) for row in rows.unbind(0)]
         for j, k in enumerate(keys):

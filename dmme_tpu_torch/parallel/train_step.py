@@ -13,12 +13,16 @@ slice of the global batch, and the collectives JAX's partitioner inserts
 are written out. ``data``: the gradients and the loss are all-reduced in
 flat buckets and divided by the batch ranks R, so every rank clips and
 steps on the same gradients. ``fsdp``: the split leaves are all-gathered
-for the forward and their gradients reduce-scattered; the clip's norm sums
-the shards' squares over the ranks, and Adam and the EMA run on the shard.
-A rank cannot draw dropout over the global batch as JAX's one program
-does, so rank r of R draws as microbatch r of an accumulated step
-(:func:`microbatch_generators`): R ranks at global batch B compute what
-one process computes at batch B/R with ``accumulate_grad_batches=R``.
+for the forward and their gradients reduce-scattered; Adam and the EMA run
+on the shard. ``expert``: the MoE layers run on the rank's expert shards
+(never gathered; their all-to-alls bring the expert group's tokens), so a
+shard's gradient already sums its group's tokens and is summed only over
+the ranks that hold the same shard. The clip's norm counts each distinct
+shard once. A rank cannot draw dropout or router noise over the global
+batch as JAX's one program does, so rank r of R draws as microbatch r of
+an accumulated step (:func:`microbatch_generators`), and routes its own
+tokens as one routing group: R ranks at global batch B compute what one
+process computes at batch B/R with ``accumulate_grad_batches=R``.
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ from typing import Any, Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from dmme_tpu_torch.parallel.mesh import (broadcast_, flat_all_reduce, gather_leaves,
-                                          scatter_leaves, shard_of, split_axes)
+from dmme_tpu_torch.models.moe import ExpertGroup, place_experts
+from dmme_tpu_torch.parallel.mesh import (GROUPS, broadcast_, expert_axes, flat_all_reduce,
+                                          gather_leaves, scatter_leaves, shard_of, split_axes)
 
 LossFn = Callable[[Dict[str, torch.Tensor], torch.Generator, Any], torch.Tensor]
 
@@ -86,38 +91,49 @@ def make_train_step(loss_fn: LossFn, debug_nans: bool = False, mesh=None):
         if mesh is None:
             norm = global_norm(grads.values())
         else:
-            loss, grads = reduce_gradients(mesh, loss, grads, state.shard_axes)
-            norm = sharded_norm(mesh, grads, state.shard_axes)
+            loss, grads = reduce_gradients(mesh, loss, grads, state.shard_axes,
+                                           state.expert_axes)
+            norm = sharded_norm(mesh, grads, state.shard_axes, state.expert_axes)
         metrics = {"loss": loss, "grad_norm": norm}
         if debug_nans and not all(bool(torch.isfinite(v)) for v in metrics.values()):
             raise FloatingPointError(
                 f"step {state.step + 1}: loss {float(metrics['loss'])}, grad_norm "
                 f"{float(metrics['grad_norm'])} (debug_nans; the state is not updated)")
-        state.apply_gradients(grads, norm if state.shard_axes else None)
+        state.apply_gradients(grads, norm if state.sharded else None)
         return state, metrics
 
     return step
 
 
 def reduce_gradients(mesh, loss: torch.Tensor, grads: Dict[str, torch.Tensor],
-                     shard_axes: Dict[str, int]):
-    """The global batch's loss and gradients from this rank's: every whole
-    leaf and the loss all-reduced over the world in flat buckets (in place),
-    every split leaf reduce-scattered over the fsdp group (then all-reduced
-    over the data group), all divided by the batch ranks. Returns (loss,
-    grads) with the split leaves as this rank's shards."""
+                     shard_axes: Dict[str, int], expert_axes: Dict[str, int]):
+    """The global batch's loss and gradients from this rank's, all divided
+    by the batch ranks: every whole leaf and the loss all-reduced over the
+    world in flat buckets (in place); every fsdp-split leaf reduce-scattered
+    over the fsdp group; then each split leaf summed over the replicas of
+    its shard (an expert shard's gradient already holds its expert group's
+    tokens). Returns (loss, grads) with the fsdp leaves as this rank's shards."""
     ranks = float(mesh.batch_ranks)
     loss = loss.reshape(1).clone()
-    flat_all_reduce([g for k, g in grads.items() if k not in shard_axes] + [loss],
-                    divisor=ranks)
+    flat_all_reduce([g for k, g in grads.items() if k not in shard_axes and k not in expert_axes]
+                    + [loss], divisor=ranks)
     if shard_axes:
-        shards = scatter_leaves(mesh, grads, shard_axes)
-        if mesh.shape["data"] > 1:
-            flat_all_reduce(list(shards.values()), group=mesh.data_group)
-        for v in shards.values():
-            v.div_(ranks)
-        grads = dict(grads, **shards)
+        grads = dict(grads, **scatter_leaves(mesh, grads, shard_axes))
+    split = [k for k in grads if k in shard_axes or k in expert_axes]
+    for name in ("fsdp_replicas", "expert_replicas", "data_group"):
+        leaves = [grads[k] for k in split if _replicas(k, shard_axes, expert_axes) == name]
+        if leaves and mesh.size(*GROUPS[name]) > 1:
+            flat_all_reduce(leaves, group=getattr(mesh, name))
+    for k in split:
+        grads[k].div_(ranks)
     return loss.reshape(()), grads
+
+
+def _replicas(name: str, shard_axes, expert_axes) -> str:
+    """The group of the ranks that hold the same shard of split leaf ``name``."""
+    if name in shard_axes and name in expert_axes:
+        return "data_group"
+    return "fsdp_replicas" if name in shard_axes else "expert_replicas"
 
 
 def make_train_chunk(loss_fn: LossFn, steps: int, debug_nans: bool = False, mesh=None):
@@ -157,36 +173,59 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def sharded_norm(mesh, grads: Dict[str, torch.Tensor],
-                 shard_axes: Dict[str, int]) -> torch.Tensor:
-    """:func:`global_norm` of the whole gradients, of which ``shard_axes``'
-    leaves are this rank's shards: their squares summed over the fsdp group
-    (one all-reduce), the whole leaves' added once."""
-    if not shard_axes:
+def sharded_norm(mesh, grads: Dict[str, torch.Tensor], shard_axes: Dict[str, int],
+                 expert_axes: Dict[str, int]) -> torch.Tensor:
+    """:func:`global_norm` of the whole gradients, of which the split leaves
+    are this rank's shards: their squares summed over the world (one
+    all-reduce), each distinct shard counted once (by the first of its
+    replicas), the whole leaves' added once."""
+    split = {k for k in grads if k in shard_axes or k in expert_axes}
+    if not split:
         return global_norm(grads.values())
-    split = [g for k, g in grads.items() if k in shard_axes]
-    whole = [g for k, g in grads.items() if k not in shard_axes]
-    sq = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
-        [t.to(torch.float32) for t in split]))).square().reshape(1)
-    flat_all_reduce([sq], group=mesh.fsdp_group)
+    mine = [g for k, g in grads.items() if k in split and all(
+        mesh.index(a) == 0 for a in GROUPS[_replicas(k, shard_axes, expert_axes)])]
+    sq = (global_norm(mine).square() if mine
+          else torch.zeros((), dtype=torch.float32, device=grads[next(iter(split))].device))
+    sq = sq.reshape(1)
+    flat_all_reduce([sq])
+    whole = [g for k, g in grads.items() if k not in split]
     if whole:
         sq = sq + global_norm(whole).square()
     return sq.sqrt().reshape(())
 
 
-def shard_state(state, mesh, min_weight_size: Optional[int] = None):
+def shard_state(state, mesh, min_weight_size: Optional[int] = None, model=None):
     """Lay ``state`` out on ``mesh``, in place: rank 0's parameters, EMA and
-    Adam moments broadcast to every rank, then, under fsdp, each split leaf
-    (:func:`~dmme_tpu_torch.parallel.mesh.split_axes`; ``min_weight_size``
-    defaults to the mesh's) replaced by this rank's shard. Returns it."""
+    Adam moments broadcast to every rank, then each split leaf replaced by
+    this rank's shard: its expert shard (the ``expert`` axis, by JAX's rule:
+    :func:`~dmme_tpu_torch.parallel.mesh.expert_axes`), then its fsdp shard
+    of that (:func:`~dmme_tpu_torch.parallel.mesh.split_axes`;
+    ``min_weight_size`` defaults to the mesh's). ``model``: the module the
+    params bind to, whose MoE layers learn where their experts live (an
+    expert mesh that splits a stack needs it). Returns the state."""
     parts = [state.params, state.ema_params, state.opt_state.mu, state.opt_state.nu]
     if mesh.world > 1:
         broadcast_([t for part in parts for t in part.values()])
+    experts = expert_axes(state.params, mesh, min_weight_size)
     axes = split_axes(state.params, mesh, min_weight_size)
     for part in parts:
+        for k, a in experts.items():
+            part[k] = shard_of(mesh, part[k], a, "expert")
         for k, a in axes.items():
             part[k] = shard_of(mesh, part[k], a)
-    state.mesh, state.shard_axes = mesh, axes
+    if model is not None:
+        where = None
+        if experts:
+            where = ExpertGroup(mesh.expert_group, mesh.expert, mesh.index("expert"))
+            if mesh.rank == 0:
+                print(f"[shard_state] {len(experts)} expert stacks split over {mesh.expert} "
+                      f"ranks; all-to-all over {mesh.backend}, direct on {mesh.device.type} "
+                      "tensors", flush=True)
+        place_experts(model, where)
+    elif experts:
+        raise ValueError(f"the expert axis splits {len(experts)} MoE stacks: pass the model "
+                         "(shard_state(..., model=)) so that its layers learn their experts")
+    state.mesh, state.shard_axes, state.expert_axes = mesh, axes, experts
     return state
 
 

@@ -16,11 +16,11 @@ version as it is, and the fused ResBlock kernel's packed-weight cache keys
 on that version (:func:`dmme_tpu_torch.ops.resblock.pack_weights`), so
 sampling after a restore reads the restored weights.
 
-On a mesh every rank calls ``save``: the ranks gather an fsdp state whole,
-rank 0 writes the same files a run without a mesh writes, and the others
-wait at a barrier (JAX leaves this to its checkpoint library). Every rank
-restores, taking its shard, so a checkpoint moves freely between runs with
-and without a mesh.
+On a mesh every rank calls ``save``: the ranks gather a sharded state
+(fsdp, expert) whole, rank 0 writes the same files a run without a mesh
+writes, and the others wait at a barrier (JAX leaves this to its
+checkpoint library). Every rank restores, taking its shards, so a
+checkpoint moves freely between runs with and without a mesh.
 """
 
 from __future__ import annotations
@@ -142,9 +142,11 @@ class CheckpointManager:
         """Copy checkpoint ``step`` (default: the latest) into ``state_like``
         in place; returns it."""
         saved = self.load(step)
-        if state_like.shard_axes:  # this rank's shards of the whole tensors
+        if state_like.sharded:  # this rank's shards of the whole tensors
             for part in (saved["params"], saved["ema_params"], saved["opt_state"]["mu"],
                          saved["opt_state"]["nu"]):
+                for k, a in state_like.expert_axes.items():
+                    part[k] = shard_of(state_like.mesh, part[k], a, "expert")
                 for k, a in state_like.shard_axes.items():
                     part[k] = shard_of(state_like.mesh, part[k], a)
         _copy_into(state_like.params, saved["params"], "params")

@@ -145,7 +145,7 @@ def test(lit, datamodule, *, ckpt_dir: Optional[str] = None, ckpt_step: Optional
     datamodule.prepare_data()
     datamodule.setup("test")
     if state is not None:
-        if getattr(state, "shard_axes", None):  # an fsdp state: JAX replicates the weights
+        if getattr(state, "sharded", False):  # fsdp or expert shards: JAX replicates the weights
             state = state.whole(moments=False)
     else:
         state = lit.init_state(torch.Generator().manual_seed(seed), device=device)

@@ -17,7 +17,8 @@ Ctrl-C are deferred to the next one, and a ``KeyboardInterrupt`` raised
 inside a step saves nothing.
 
 On a mesh (``parallel.make_mesh``) every rank runs this loop: the state is
-laid out with ``shard_state``, each rank feeds its slice of the global
+laid out with ``shard_state`` (which also tells the model's MoE layers
+where their experts live on an ``expert`` axis), each rank feeds its slice of the global
 batch (``train_iter(process_index=, process_count=)``), the train step
 reduces over the ranks, and at each safe point the ranks vote on stopping
 (one small all-reduce), so a signal to one rank stops all of them at the
@@ -136,7 +137,7 @@ def _fit_once(
     if resume and ckpt is not None and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
     if mesh is not None and state.mesh is None:
-        state = shard_state(state, mesh)
+        state = shard_state(state, mesh, model=getattr(lit, "model", None))
 
     loss_fn = lit.make_loss_fn(datamodule)
     if accumulate_grad_batches > 1:

@@ -2,8 +2,9 @@
 
 {step, params, ema_params, opt_state} with the optimizer and the EMA
 settings beside them, and, after ``parallel.shard_state``, the mesh and the
-axis each fsdp-split leaf is split along: its parameters, EMA and moments
-are then this rank's shards (:meth:`TrainState.whole` gathers them). JAX
+axis each split leaf is split along, on the ``fsdp`` and on the ``expert``
+mesh axis: its parameters, EMA and moments are then this rank's shards
+(:meth:`TrainState.whole` gathers them). JAX
 returns a new state from each step and donates the old one; here the step
 updates the tensors in place, under
 ``torch.no_grad()``. An in-place update bumps each tensor's version
@@ -39,6 +40,13 @@ class TrainState:
     mesh: Any = None
     #: {name: axis} of the leaves held as this rank's fsdp shard
     shard_axes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: {name: axis} of the MoE stacks held as this rank's expert shard
+    expert_axes: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    @property
+    def sharded(self) -> bool:
+        """Whether this rank holds shards of some leaves."""
+        return bool(self.shard_axes or self.expert_axes)
 
     @classmethod
     def create(cls, params: Dict[str, torch.Tensor], tx: ClipAdam, ema_decay: float = 0.9999,
@@ -64,14 +72,16 @@ class TrainState:
         return self
 
     def whole(self, moments: bool = True) -> "TrainState":
-        """This state with every shard gathered whole, off the mesh: under
-        fsdp a collective that every rank calls; else the state itself.
-        Without ``moments`` the copy has no optimizer state (to sample)."""
-        if not self.shard_axes:
+        """This state with every shard gathered whole, off the mesh: with
+        shards a collective that every rank calls (the fsdp shards, then the
+        expert shards); else the state itself. Without ``moments`` the copy
+        has no optimizer state (to sample)."""
+        if not self.sharded:
             return self
 
         def full(d):
-            return dict(d, **gather_leaves(self.mesh, d, self.shard_axes))
+            d = dict(d, **gather_leaves(self.mesh, d, self.shard_axes))
+            return dict(d, **gather_leaves(self.mesh, d, self.expert_axes, "expert"))
 
         opt = None
         if moments:
@@ -79,7 +89,7 @@ class TrainState:
                                       nu=full(self.opt_state.nu))
         return dataclasses.replace(self, params=full(self.params),
                                    ema_params=full(self.ema_params), opt_state=opt,
-                                   mesh=None, shard_axes={})
+                                   mesh=None, shard_axes={}, expert_axes={})
 
     def to(self, device) -> "TrainState":
         """A copy on ``device`` (the same tensors where they already live there)."""
