@@ -18,7 +18,7 @@ if the package is missing, or if any phase fails. Phases:
    one full-width bf16 UNet forward at each serving batch, 1, 8 and 16 (both
    switches on; at batch 8 also ``fused_norm`` only), then holds each kernel
    against its plain PyTorch version on those inputs, with times (CUDA
-   events, median of 10, of 3 for the plain versions; K4's weights are
+   events, median of 5, of 3 for the plain versions; K4's weights are
    packed once per weight state,
    before the timed runs) and the least time the card could take; beside
    K3, SDPA; beside K4, the same ResBlock as a cuDNN sequence
@@ -73,10 +73,10 @@ if the package is missing, or if any phase fails. Phases:
    weight cache is cleared;
 9b. cli — ``dmme_tpu_torch.trainer.main`` in this process (deterministic
    cuDNN): ``fit`` of ``configs/ddim/cifar10.yaml`` (synthetic data, full
-   width, batch 128, bf16) for 20 steps with checkpoints at 10 and 20, JSONL,
-   TensorBoard and GenerateImage grids (DDIM-50, n = 8) at 10 and 20, the
-   launches 45/45/6/0 a step and 1/0/6/22 a sampling forward; a resume to 30
-   against an uninterrupted 30-step run, bit for bit (parameters, EMA, Adam
+   width, batch 128, bf16) for 10 steps with checkpoints at 5 and 10, JSONL,
+   TensorBoard and GenerateImage grids (DDIM-50, n = 8) at 5 and 10, the
+   launches 45/45/6/0 a step and 1/0/6/22 a sampling forward; a resume to 15
+   against an uninterrupted 15-step run, bit for bit (parameters, EMA, Adam
    moments); ``sample`` and ``predict`` from the resumed checkpoint, predict's
    bytes equal to ``generate`` on a state restored in place after sampling
    with other weights (K4's weight cache); ``configs/ddpm/shapes_demo.yaml``
@@ -94,7 +94,8 @@ if the package is missing, or if any phase fails. Phases:
    and timed beside its bounds, SDPA (K3), the cuDNN sequence (K4),
    ``F.group_norm`` + ``F.silu`` on the same inputs (K1; its autograd for
    K2) (the table's ``*_f32`` and ``*_fp16`` rows); the loss, gradient
-   (dropout off), a UNet forward and the DDIM step against f32 on the CPU,
+   (dropout off, at batch ``CPU_REF_BATCH``), a UNet forward and the DDIM
+   step against f32 on the CPU,
    f32 within ``F32_REL_L2`` (1e-4), fp16's forward and DDIM step within
    ``UNET_REL_L2``; the bf16 harness on the same inputs is the control that
    must miss ``F32_REL_L2``; then each harness's training step (median of
@@ -280,14 +281,15 @@ if the package is missing, or if any phase fails. Phases:
    every K1/K3/K4 call of the first run held against its plain version
    (``TOL``), twice for identical bytes, and timed; one test batch split
    (generation s, Inception ms, statistics ms, idle share from a profile);
-47. LSUN fit — ``trainer.main fit`` of configs/ddpm/lsun_church.yaml as it
-   stands (batch 2 × 32 accumulated microbatches, 256 px, remat, bf16, the
-   LSUN widths; ``fused_norm`` and ``fused_block`` on and a log line a
-   step) for 2 steps on a
+47. LSUN fit — ``trainer.main fit`` of configs/ddpm/lsun_church.yaml
+   (batch 2, 256 px, remat, bf16, the LSUN widths; ``fused_norm`` and
+   ``fused_block`` on and a log line a step; cut in depth by
+   ``LSUN_DEPTH``: 8 accumulated microbatches a step, not 32, and a DDPM of
+   T = 100, not 1000) for 2 steps on a
    synthetic LMDB of 96 JPEGs (256×341 and 300×256) read by the native
    scanner into the memmap decode cache, with the config's GenerateImage
-   and ``ProfileTrace`` over step 2: the steps' launches = 2 × 32 × a
-   microbatch's call sites and the grid's = 1000 × a sampling forward's,
+   and ``ProfileTrace`` over step 2: the steps' launches = 2 × 8 × a
+   microbatch's call sites and the grid's = 100 × a sampling forward's,
    each counted apart, no f32, fp16 or ``simt.cu`` launch; the trace names
    K1, K2 and K3 (the step's idle share); the losses finite; one more step
    resumed in streaming mode; the decode's host time, each step's and the
@@ -332,7 +334,20 @@ if the package is missing, or if any phase fails. Phases:
    expert stacks), 12 K3 launches a step and nothing else; the transport of
    the all-to-alls printed; a rank's step and one block's all-to-all
    timed; K3 at every call site of a rank's batch-64 step held against its
-   plain version;
+   plain version. In the same launch, the ``tensor`` axis:
+   ``trainer.main fit`` of configs/ddpm/lsun_church.yaml at full width
+   (``fused_norm`` on, every bias and GroupNorm affine drawn; 2 steps of 2
+   microbatches, not 32) with ``--trainer.mesh "{data: -1, tensor: 2}"``:
+   each rank holding 782,362,672 B in 140 split kernels, each step's loss
+   and grad norm within 1e-2 of one process here on the same batches
+   without a mesh, the first reduced gradient gathered whole within
+   ``GRAD_REL_L2`` of that process's, the checkpoint restored here without
+   a mesh bit for bit the gathered state, each rank's launches the one
+   process's and its K1/K2 call sites at the shard shapes (C/2 channels,
+   G/2 groups) those of the half-width UNet, its K3 sites phase 47's; no
+   f32, fp16 or ``simt.cu`` launch; a rank's step and its largest
+   activation all-gather timed; K1/K2 at every call site of the half-width
+   UNet's microbatch held against their plain versions;
 50. two-rank test — in the same launch, ``trainer.main test`` of
    configs/ddim/cifar10.yaml from phase 46's run with
    ``--trainer.mesh.data 2``, one test batch a rank: phase 46's FID and IS
@@ -414,6 +429,10 @@ ATTN_BWD_REL_L2 = 2e-2
 GRAD_REL_L2 = 5e-2
 TRAIN_BATCH = 128
 FIT_WARM, FIT_STEPS, TIMED_STEPS = 3, 20, 10
+#: the batch of the f32 phases' loss and gradient against the CPU: the card's
+#: kernels are held at batch 128 against their plain versions there, and the
+#: CPU's f32 reference of a batch-128 step cost most of those phases' time
+CPU_REF_BATCH = 16
 # launches of one training step of the full-width UNet
 PER_TRAIN_STEP = {"group_norm_silu": 45, "group_norm_silu_bwd": 45, "attention": 6,
                   "resblock": 0}
@@ -441,6 +460,9 @@ TRAIN_STEP_TFLOP = 3.53
 # to hundreds of times slower than the kernels, and more runs of them cost
 # more of the run's time budget than they add to the ratio's precision
 PLAIN_REPS = 3
+# timed runs of a kernel or library yardstick (``device_ms``) after its two
+# warm calls: timing a call site cost most of the whole run's time
+KERNEL_REPS = 5
 
 
 def fail(msg: str) -> None:
@@ -480,12 +502,12 @@ def sleep_cycles(torch, host_s: float) -> int:
     return int(min(2_000_000, max(0.1, 4e3 * host_s) * _SLEEP_CYCLES_PER_MS[0]))
 
 
-def device_ms(torch, fn, reps: int = 10) -> float:
+def device_ms(torch, fn, reps: int = KERNEL_REPS) -> float:
     """Median device time of ``fn()`` in ms. A sleep kernel queued before each
     run, four times as long as the last warm call took the host to enqueue,
     lets the host enqueue the whole call before the start event fires, so
     the interval holds device time, not launch overhead."""
-    for _ in range(3):
+    for _ in range(2):
         t0 = time.perf_counter()
         fn()
         host_s = time.perf_counter() - t0
@@ -763,7 +785,9 @@ def device_events(path: str) -> list:
 
 
 def profile_fn(torch, fn, top_n: int = 12) -> dict:
-    """Device time by kernel over ``fn()``, read from a torch.profiler trace:
+    """Device time by kernel over ``fn()``, read from a torch.profiler trace
+    of the device's activity alone (the host's operations are not recorded:
+    nothing here reads them, and recording them cost seconds a trace):
     busy time is the sum of kernel, copy and memset durations on the device;
     idle share is 1 − busy / wall."""
     import tempfile
@@ -771,7 +795,7 @@ def profile_fn(torch, fn, top_n: int = 12) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -983,7 +1007,7 @@ def step_rows(torch, k_gn, k_attn, calls, card: str, label: str) -> tuple:
             row["torch_seq_ms"] = device_ms(
                 torch, gn_sequence(torch, (a[0], a[2], a[3], a[7]), {"pre_bias": a[4]}, a[1]))
             rows.append(row)
-        for key, count, a, k in calls["attention"]:
+        for key, count, a, k in calls.get("attention", ()):
             rtol, atol = TOL["attention"]
             q, kk, v, scale = a
             kern = lambda a=a: k_attn.attention_heads(*a)  # noqa: E731
@@ -1002,7 +1026,7 @@ def step_rows(torch, k_gn, k_attn, calls, card: str, label: str) -> tuple:
             row["library_ms"] = device_ms(torch, sdpa)
             row["plan"] = attention_plan(k_attn, *a[:3])
             rows.append(row)
-    for key, count, a, k in calls["attention_bwd"]:
+    for key, count, a, k in calls.get("attention_bwd", ()):
         q, kk, v, g, scale = a
 
         def kern(a=a):
@@ -1740,10 +1764,10 @@ def f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
     want_ddim = {"group_norm_silu": 1, "group_norm_silu_bwd": 0, "attention": 6, "resblock": 22}
     none = {k: 0 for k in ops}
     r = np.random.default_rng(SEED + 40)
-    x0 = torch.tensor(np.clip(r.standard_normal((TRAIN_BATCH, 32, 32, 3)), -1, 1),
+    x0 = torch.tensor(np.clip(r.standard_normal((CPU_REF_BATCH, 32, 32, 3)), -1, 1),
                       dtype=torch.float32)
-    t = torch.tensor(r.integers(1, 1000, (TRAIN_BATCH,)), dtype=torch.int64)
-    eps = torch.tensor(r.standard_normal((TRAIN_BATCH, 32, 32, 3)), dtype=torch.float32)
+    t = torch.tensor(r.integers(1, 1000, (CPU_REF_BATCH,)), dtype=torch.int64)
+    eps = torch.tensor(r.standard_normal((CPU_REF_BATCH, 32, 32, 3)), dtype=torch.float32)
     xs = torch.tensor(r.standard_normal((BATCH, 32, 32, 3)), dtype=torch.float32)
     ts = torch.full((BATCH,), 980, dtype=torch.int64)
     dm = CIFAR10(synthetic=True, synthetic_size=2 * TRAIN_BATCH, batch_size=TRAIN_BATCH)
@@ -2297,7 +2321,8 @@ def f32_iddpm_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, o
     K1 and K2 of ``group_norm.cu``, K3 and K4 in f32 on the tensor cores, no
     bf16 kernel), every call site held against its
     plain version (:func:`wide_rows`). Then, dropout off, the hybrid
-    ``loss_given`` (t from the seed, one sample at t = 1) with its gradient
+    ``loss_given`` at batch ``CPU_REF_BATCH`` (t from the seed, one sample
+    at t = 1) with its gradient
     and the respaced step (injected noise) against f32 on the CPU, within
     ``F32_REL_L2``, the variance head's gradient included; the bf16 harness
     on the same inputs is the control that must miss that limit."""
@@ -2308,11 +2333,11 @@ def f32_iddpm_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, o
     none = {k: 0 for k in ops}
     want_step = PER_TRAIN_STEP_IDDPM
     r = np.random.default_rng(SEED + 60)
-    x0 = torch.tensor(np.clip(r.standard_normal((TRAIN_BATCH, 32, 32, 3)), -1, 1),
+    x0 = torch.tensor(np.clip(r.standard_normal((CPU_REF_BATCH, 32, 32, 3)), -1, 1),
                       dtype=torch.float32)
-    t = torch.tensor(r.integers(1, 1000, (TRAIN_BATCH,)), dtype=torch.int64)
+    t = torch.tensor(r.integers(1, 1000, (CPU_REF_BATCH,)), dtype=torch.int64)
     t[0] = 1
-    eps = torch.tensor(r.standard_normal((TRAIN_BATCH, 32, 32, 3)), dtype=torch.float32)
+    eps = torch.tensor(r.standard_normal((CPU_REF_BATCH, 32, 32, 3)), dtype=torch.float32)
     xs = torch.tensor(r.standard_normal((BATCH, 32, 32, 3)), dtype=torch.float32)
     noise = torch.tensor(r.standard_normal((BATCH, 32, 32, 3)), dtype=torch.float32)
     dm = CIFAR10(synthetic=True, synthetic_size=2 * TRAIN_BATCH, batch_size=TRAIN_BATCH)
@@ -2435,13 +2460,16 @@ CLI_ROOT = os.path.join("build", "cli_run")
 # takes (the configs render 50,000 at 32 px, 20,000 at 64 and 2,048 at 256,
 # which took ≈ 6, 12 and 18 s a run on an H100 host, PERF.md)
 SHAPES_CUT = ["--data.init_args.size", "4096"]
+#: the checkpoint, log and grid cadence of the CLI and CFG fits: a fit of
+#: two cadences, resumed to three against an uninterrupted run of three
+CLI_CADENCE = 5
 
 
-def _cli_callback(root: str) -> str:
-    """GenerateImage every 10 steps into ``<root>/samples``, as a YAML value
-    that replaces the config's callback list."""
+def _cli_callback(root: str, every: int = 10) -> str:
+    """GenerateImage every ``every`` steps into ``<root>/samples``, as a YAML
+    value that replaces the config's callback list."""
     return ("[{class_path: dmme_tpu.callbacks.GenerateImage, init_args: {imgsize: [3, 32, 32], "
-            f"every_n_steps: 10, out_dir: {root}/samples}}}}]")
+            f"every_n_steps: {every}, out_dir: {root}/samples}}}}]")
 
 
 def _jsonl(path: str) -> list:
@@ -2483,8 +2511,8 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
     """Phase 9b: the command line in this process (so the counters read its
     launches), ``dmme_tpu_torch.trainer.main``, on the repo's configs: fit at
     full width with checkpoints, JSONL, TensorBoard and GenerateImage grids;
-    a resume to step 30 against an uninterrupted 30-step run, bit for bit;
-    sample and predict from the resumed checkpoint, predict against
+    a resume to step 3k against an uninterrupted 3k-step run, bit for bit
+    (k = ``CLI_CADENCE``); sample and predict from the resumed checkpoint, predict against
     ``generate`` on a state restored in place; the Shapes recipe in chunks
     of 10 steps; the LSUN widths at 256 px with and without remat."""
     import shutil
@@ -2504,10 +2532,11 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
     for root in roots.values():
         shutil.rmtree(root, ignore_errors=True)
     ddim_cfg = ["--config", "configs/ddim/cifar10.yaml", "--data.init_args.synthetic", "true"]
-    fit_args = ddim_cfg + ["--trainer.ckpt_every_n_steps", "10", "--trainer.log_every_n_steps",
-                           "10", "--trainer.tensorboard", "true"]
+    k = CLI_CADENCE
+    fit_args = ddim_cfg + ["--trainer.ckpt_every_n_steps", str(k), "--trainer.log_every_n_steps",
+                           str(k), "--trainer.tensorboard", "true"]
     out = {}
-    sample_steps, gens = 50, {20: 3, 30: 4}
+    sample_steps = 50
 
     def run(name, argv, want=None):
         out[name] = cli_run(torch, ops, card, name, argv, want)
@@ -2520,45 +2549,49 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
                 "attention": 6 * steps + 6 * fwd, "resblock": 22 * fwd}
 
     root = roots["cli_run"]
-    rec = run("fit 20", ["fit", *fit_args, "--trainer.max_steps", "20",
-                         "--trainer.default_root_dir", root,
-                         "--trainer.callbacks", _cli_callback(root)], fit_launches(20, 3))
+    rec = run(f"fit {2 * k}", ["fit", *fit_args, "--trainer.max_steps", str(2 * k),
+                               "--trainer.default_root_dir", root,
+                               "--trainer.callbacks", _cli_callback(root, k)],
+              fit_launches(2 * k, 3))
     logged = _jsonl(os.path.join(root, "metrics.jsonl"))
     step_ms = [1e3 * TRAIN_BATCH / r["imgs_per_sec"] for r in logged]
     rec["logged_steps"], rec["step_ms_from_jsonl"] = [r["step"] for r in logged], step_ms
     grids = sorted(os.listdir(os.path.join(root, "samples")))
     tb = [f for f in os.listdir(os.path.join(root, "tb")) if f.startswith("events.out")]
     rec.update(checkpoints=CheckpointManager(root).steps(), grids=grids, tb_files=tb)
-    print(f"fit 20: checkpoints {rec['checkpoints']}, JSONL steps {rec['logged_steps']} (losses "
-          f"{[round(r['loss'], 5) for r in logged]}), TensorBoard {tb}, grids {grids}; step ms "
+    print(f"fit {2 * k}: checkpoints {rec['checkpoints']}, JSONL steps {rec['logged_steps']} "
+          f"(losses {[round(r['loss'], 5) for r in logged]}), TensorBoard {tb}, grids {grids}; "
+          f"step ms "
           f"from the JSONL imgs_per_sec {[round(v, 2) for v in step_ms]} (median "
           f"{statistics.median(step_ms):.2f}; a window holds the checkpoint and grid of its "
           f"first step) [{card}]", flush=True)
-    if (rec["checkpoints"] != [10, 20] or rec["logged_steps"] != [10, 20] or len(tb) != 1
-            or grids != ["step_00000010.png", "step_00000020.png"]
+    if (rec["checkpoints"] != [k, 2 * k] or rec["logged_steps"] != [k, 2 * k] or len(tb) != 1
+            or grids != [f"step_{k:08d}.png", f"step_{2 * k:08d}.png"]
             or not all(np.isfinite(r["loss"]) for r in logged)):
         fail(f"fit through the CLI left {rec}")
 
-    run("resume 20 -> 30", ["fit", *fit_args, "--trainer.max_steps", "30", "--trainer.resume",
-                            "true", "--trainer.default_root_dir", root,
-                            "--trainer.callbacks", _cli_callback(root)], fit_launches(10, 2))
+    run(f"resume {2 * k} -> {3 * k}", ["fit", *fit_args, "--trainer.max_steps", str(3 * k),
+                                       "--trainer.resume", "true", "--trainer.default_root_dir",
+                                       root, "--trainer.callbacks", _cli_callback(root, k)],
+        fit_launches(k, 2))
     whole = roots["cli_run_whole"]
-    run("uninterrupted 30", ["fit", *fit_args, "--trainer.max_steps", "30",
-                             "--trainer.default_root_dir", whole,
-                             "--trainer.callbacks", _cli_callback(whole)], fit_launches(30, 4))
-    a, b = CheckpointManager(root).load(30), CheckpointManager(whole).load(30)
+    run(f"uninterrupted {3 * k}", ["fit", *fit_args, "--trainer.max_steps", str(3 * k),
+                                   "--trainer.default_root_dir", whole,
+                                   "--trainer.callbacks", _cli_callback(whole, k)],
+        fit_launches(3 * k, 4))
+    a, b = CheckpointManager(root).load(3 * k), CheckpointManager(whole).load(3 * k)
     differ = state_differences(torch, a, b)
     same_counts = (a["step"], a["opt_state"]["count"]) == (b["step"], b["opt_state"]["count"])
     out["resume_bitwise"] = {"differing_tensors": len(differ), "first": differ[:8],
                              "step_and_count_equal": same_counts}
-    print(f"resumed vs uninterrupted at step 30: {len(differ)} of "
+    print(f"resumed vs uninterrupted at step {3 * k}: {len(differ)} of "
           f"{4 * len(a['params'])} tensors differ {differ[:8]}; step and Adam count equal: "
           f"{same_counts}", flush=True)
     if differ or not same_counts:
         fail(f"the resumed run is not bitwise the uninterrupted one: {differ[:8]}")
 
     run("sample", ["sample", *ddim_cfg, "--trainer.default_root_dir", root])
-    png = os.path.join(root, "samples", "step_00000030.png")
+    png = os.path.join(root, "samples", f"step_{3 * k:08d}.png")
     run("predict", ["predict", *ddim_cfg, "--trainer.default_root_dir", root,
                     "--trainer.predict_batch", str(BATCH)])
     pred = np.load(os.path.join(root, "predictions", "pred_00000.npy"))
@@ -2584,12 +2617,12 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
     # what the loop's cadences cost at full width: one checkpoint, one grid
     timed = os.path.join(root, "timed")
     t0 = time.time()
-    CheckpointManager(timed).save(30, state)
+    CheckpointManager(timed).save(3 * k, state)
     save_s = time.time() - t0
-    nbytes = os.path.getsize(os.path.join(timed, "30", "state.pt"))
+    nbytes = os.path.getsize(os.path.join(timed, str(3 * k), "state.pt"))
     torch.cuda.synchronize()
     t0 = time.time()
-    GenerateImage(imgsize=(3, 32, 32), out_dir=timed).generate_and_save(30, lit, state)
+    GenerateImage(imgsize=(3, 32, 32), out_dir=timed).generate_and_save(3 * k, lit, state)
     torch.cuda.synchronize()
     out["cadence_cost"] = {"checkpoint_s": save_s, "checkpoint_bytes": nbytes,
                            "grid_s": time.time() - t0}
@@ -3183,7 +3216,9 @@ def cfg_fit(torch, np, blocks, ops, dev, card: str) -> dict:
     for root in roots.values():
         shutil.rmtree(root, ignore_errors=True)
     cfg = ["--config", CFG_CONFIG, "--trainer.tensorboard", "false", *SHAPES_CUT]
-    fit_args = cfg + ["--trainer.ckpt_every_n_steps", "10", "--trainer.log_every_n_steps", "10"]
+    k = 10  # the config's steps_per_call: the cadences snap to its chunks
+    fit_args = cfg + ["--trainer.ckpt_every_n_steps", str(k), "--trainer.log_every_n_steps",
+                      str(k)]
     lit = tcfg.instantiate(tcfg.validate_config(tcfg.load_config(CFG_CONFIG))["model"])
     n_params = sum(p.numel() for p in lit.model.parameters())
     print(f"{CFG_CONFIG}: {type(lit).__name__}(num_classes={lit.num_classes}, cond_dropout="
@@ -3199,9 +3234,9 @@ def cfg_fit(torch, np, blocks, ops, dev, card: str) -> dict:
         return {k: v * n for k, v in per_step.items()}
 
     root = roots["cli_cfg"]
-    out["fit"] = cli_run(torch, ops, card, "cfg fit 20",
-                         ["fit", *fit_args, "--trainer.max_steps", "20",
-                          "--trainer.default_root_dir", root], steps(20))
+    out["fit"] = cli_run(torch, ops, card, f"cfg fit {2 * k}",
+                         ["fit", *fit_args, "--trainer.max_steps", str(2 * k),
+                          "--trainer.default_root_dir", root], steps(2 * k))
     logged = _jsonl(os.path.join(root, "metrics.jsonl"))
     out["fit"]["losses"] = [r["loss"] for r in logged]
     out["fit"]["step_ms_from_jsonl"] = [1e3 * TRAIN_BATCH / r["imgs_per_sec"] for r in logged]
@@ -3209,20 +3244,21 @@ def cfg_fit(torch, np, blocks, ops, dev, card: str) -> dict:
     print(f"cfg fit: checkpoints {out['fit']['checkpoints']}, losses "
           f"{[round(v, 5) for v in out['fit']['losses']]}, step ms from the JSONL "
           f"{[round(v, 2) for v in out['fit']['step_ms_from_jsonl']]} [{card}]", flush=True)
-    if (out["fit"]["checkpoints"] != [10, 20] or len(logged) != 2
+    if (out["fit"]["checkpoints"] != [k, 2 * k] or len(logged) != 2
             or not np.isfinite(out["fit"]["losses"]).all()):
         fail(f"the CFG fit through the CLI left {out['fit']}")
-    out["resume"] = cli_run(torch, ops, card, "cfg resume 20 -> 30",
-                            ["fit", *fit_args, "--trainer.max_steps", "30", "--trainer.resume",
-                             "true", "--trainer.default_root_dir", root], steps(10))
+    out["resume"] = cli_run(torch, ops, card, f"cfg resume {2 * k} -> {3 * k}",
+                            ["fit", *fit_args, "--trainer.max_steps", str(3 * k),
+                             "--trainer.resume", "true", "--trainer.default_root_dir", root],
+                            steps(k))
     whole = roots["cli_cfg_whole"]
-    out["whole"] = cli_run(torch, ops, card, "cfg uninterrupted 30",
-                           ["fit", *fit_args, "--trainer.max_steps", "30",
-                            "--trainer.default_root_dir", whole], steps(30))
-    a, b = CheckpointManager(root).load(30), CheckpointManager(whole).load(30)
+    out["whole"] = cli_run(torch, ops, card, f"cfg uninterrupted {3 * k}",
+                           ["fit", *fit_args, "--trainer.max_steps", str(3 * k),
+                            "--trainer.default_root_dir", whole], steps(3 * k))
+    a, b = CheckpointManager(root).load(3 * k), CheckpointManager(whole).load(3 * k)
     differ = state_differences(torch, a, b)
     out["resume_bitwise"] = {"differing_tensors": len(differ), "first": differ[:8]}
-    print(f"cfg resumed vs uninterrupted at step 30: {len(differ)} of {4 * len(a['params'])} "
+    print(f"cfg resumed vs uninterrupted at step {3 * k}: {len(differ)} of {4 * len(a['params'])} "
           f"tensors differ {differ[:8]}", flush=True)
     if differ or a["step"] != b["step"]:
         fail(f"the resumed CFG run is not bitwise the uninterrupted one: {differ[:8]}")
@@ -3233,7 +3269,7 @@ def cfg_fit(torch, np, blocks, ops, dev, card: str) -> dict:
     out["sample"] = cli_run(torch, ops, card, "cfg sample --trainer.sampler ddim",
                             ["sample", *cfg, "--trainer.default_root_dir", root,
                              "--trainer.sampler", "ddim"], launches_for(PER_FORWARD, 50))
-    png = os.path.join(root, "samples", "step_00000030_ddim50.png")
+    png = os.path.join(root, "samples", f"step_{3 * k:08d}_ddim50.png")
     out["sample"]["png"] = os.path.exists(png)
     if not out["sample"]["png"]:
         fail(f"cfg sample wrote no {png}")
@@ -5761,6 +5797,9 @@ LSUN_SIZES = ((256, 341), (300, 256))  # their (H, W), non-square as LSUN's
 LSUN_FIT_STEPS = 2
 #: the config's UNet leaves the kernels off: turn on K1/K2 (``fused_norm``) and K4
 #: (``fused_block``), as ``LitDDPM``'s default UNet has them
+#: phase 47's cuts in depth: 8 microbatches a step (the config accumulates
+#: 32) and a DDPM of 100 steps, whose grid samples 100 forwards, not 1000
+LSUN_DEPTH = ["--trainer.accumulate_grad_batches", "8", "--model.init_args.timesteps", "100"]
 LSUN_KERNELS = ["--model.init_args.model.init_args.fused_norm", "true",
                 "--model.init_args.model.init_args.fused_block", "true"]
 IN64_CONFIG = "configs/iddpm/imagenet64.yaml"
@@ -5814,8 +5853,8 @@ def config_sites(torch, blocks, model_node) -> tuple:
     return train, forward, dict(calls, attention_bwd=n)
 
 
-def write_lsun_lmdb(np, path: str) -> int:
-    """``LSUN_IMAGES`` JPEGs of ``LSUN_SIZES`` drawn from the seed (smooth
+def write_lsun_lmdb(np, path: str, images: int = LSUN_IMAGES) -> int:
+    """``images`` JPEGs of ``LSUN_SIZES`` drawn from the seed (smooth
     colour fields with noise, as photographs compress) into an LMDB at
     ``path``, written by tests/lmdb_fixture.py. Returns its bytes."""
     from PIL import Image
@@ -5823,7 +5862,7 @@ def write_lsun_lmdb(np, path: str) -> int:
     fixture = repo_module("lmdb_fixture", os.path.join("tests", "lmdb_fixture.py"))
     rng = np.random.default_rng(SEED + 60)
     kv = {}
-    for i in range(LSUN_IMAGES):
+    for i in range(images):
         h, w = LSUN_SIZES[i % len(LSUN_SIZES)]
         coarse = Image.fromarray(rng.integers(0, 256, (h // 32, w // 32, 3), np.uint8))
         smooth = np.asarray(coarse.resize((w, h), Image.BILINEAR), np.int16)
@@ -5873,14 +5912,15 @@ def config_draws(torch, np, shape, timesteps: int, t_low: int) -> tuple:
 def lsun_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, dev,
              card: str) -> dict:
     """Phase 47: configs/ddpm/lsun_church.yaml on the card through
-    ``trainer.main``, its recipe as it stands (batch 2 × 32 accumulated
-    microbatches, 256 px, remat, bf16, the LSUN widths; ``LSUN_KERNELS`` and
-    ``log_every_n_steps`` 1 added), on a synthetic LMDB of ``LSUN_IMAGES``
-    JPEGs of mixed sizes read by the native scanner and decoded into the
-    memmap cache: ``LSUN_FIT_STEPS`` steps with the config's GenerateImage
-    (T = 1000 DDPM, 4 samples at 256 px, at the end) and ``ProfileTrace``
-    over step 2; the launches of the steps (steps × 32 × a microbatch's call
-    sites) and of the grid (1000 × a sampling forward's) each counted around
+    ``trainer.main``, its recipe (batch 2, 256 px, remat, bf16, the LSUN
+    widths; ``LSUN_KERNELS`` and ``log_every_n_steps`` 1 added) cut in depth
+    by ``LSUN_DEPTH`` (microbatches a step, the DDPM's T), on a synthetic
+    LMDB of ``LSUN_IMAGES`` JPEGs of mixed sizes read by the native scanner
+    and decoded into the memmap cache: ``LSUN_FIT_STEPS`` steps with the
+    config's GenerateImage (a T-step DDPM, 4 samples at 256 px, at the end)
+    and ``ProfileTrace`` over step 2; the launches of the steps (steps ×
+    microbatches × a microbatch's call sites) and of the grid (T × a
+    sampling forward's) each counted around
     the grid, no f32, fp16 or ``simt.cu`` launch; the trace names K1, K2
     and K3 (its device busy time and idle share are the step's); the losses
     finite; one more step resumed in streaming mode; each step's host time
@@ -5905,7 +5945,7 @@ def lsun_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, d
     out = {"lmdb_bytes": nbytes, "lmdb_write_s": time.time() - t0}
     data_args = ["--data.init_args.data_dir", data_dir]
     config = tcfg.validate_config(tcfg.apply_overrides(tcfg.load_config(LSUN_CONFIG),
-                                                       LSUN_KERNELS + data_args))
+                                                       LSUN_KERNELS + LSUN_DEPTH + data_args))
     accumulate = config["trainer"]["accumulate_grad_batches"]
     imgsize, batch_size = (config["data"]["init_args"][k] for k in ("imgsize", "batch_size"))
     model_node = config["model"]["init_args"]["model"]
@@ -5943,7 +5983,7 @@ def lsun_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, d
                  for cb in config["trainer"]["callbacks"]]
     callbacks.append({"class_path": "dmme_tpu.callbacks.ProfileTrace",
                       "init_args": {"start_step": 1, "num_steps": 1, "log_dir": profile_dir}})
-    argv = ["fit", "--config", LSUN_CONFIG, *LSUN_KERNELS, *data_args,
+    argv = ["fit", "--config", LSUN_CONFIG, *LSUN_KERNELS, *LSUN_DEPTH, *data_args,
             "--trainer.default_root_dir", run, "--trainer.max_steps", str(LSUN_FIT_STEPS),
             "--trainer.log_every_n_steps", "1", "--trainer.callbacks", json.dumps(callbacks)]
     backends, grid = [], []
@@ -5986,7 +6026,7 @@ def lsun_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, d
                  f"{timesteps} x {forward}")
         out["streaming"] = cli_run(
             torch, ops, card, "LSUN fit, one more step streaming",
-            ["fit", "--config", LSUN_CONFIG, *LSUN_KERNELS, *data_args,
+            ["fit", "--config", LSUN_CONFIG, *LSUN_KERNELS, *LSUN_DEPTH, *data_args,
              "--trainer.default_root_dir", run, "--trainer.max_steps", str(LSUN_FIT_STEPS + 1),
              "--trainer.log_every_n_steps", "1", "--trainer.resume", "true",
              "--data.init_args.streaming", "true", "--trainer.callbacks", "[]"],
@@ -6229,8 +6269,8 @@ def in64_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, d
 def a12_rows(report: dict) -> list:
     """The kernels line's rows of the LSUN and ImageNet-64 paths: K1/K2/K3
     per LSUN microbatch (batch 2, 256 px; launches in the 2-step CLI fit's
-    64 microbatches) and K1/K3/K4 per LSUN sampling forward at n = 4 (launches
-    in the fit's GenerateImage grid, 1000 DDPM forwards), per ImageNet-64
+    16 microbatches) and K1/K3/K4 per LSUN sampling forward at n = 4 (launches
+    in the fit's GenerateImage grid, 100 DDPM forwards), per ImageNet-64
     training step at batch 128 (launches in its 3-step CLI fit) and
     K1/K3/K4 per ImageNet-64 forward at n = 8 (launches in the DDIM-50
     sample)."""
@@ -6273,6 +6313,22 @@ EXPERT_BYTES, EXPERT_STACKS = 861_310_464, 12
 EXPERT_LOSS_REL = 1e-2
 #: one MoE block's dispatch buffer a rank: (E, C, d), C = ⌈64·64·2/8·1.25⌉
 EXPERT_A2A = (8, 1280, 384)
+# the tensor axis (A.11): the UNet of LSUN_CONFIG column-split over two ranks
+# sharing the card, against one process on the same batches without a mesh
+TENSOR_MESH = "{data: -1, tensor: 2}"
+#: microbatches of batch 2 a step (the config accumulates 32) and steps
+TENSOR_ACCUM, TENSOR_STEPS = 2, 2
+#: synthetic JPEGs of the tensor fits' LMDB: every microbatch a fresh pair
+TENSOR_IMAGES = 2 * TENSOR_ACCUM * TENSOR_STEPS
+#: a rank's parameters, EMA and Adam moments (f32, 16 B a parameter):
+#: 48,897,667 of the 97,689,219 parameters, 140 kernels split on their
+#: output channels, every leaf of 2¹⁴ elements or more among them
+TENSOR_BYTES, TENSOR_SPLIT, LSUN_PARAMS = 782_362_672, 140, 97_689_219
+#: the mesh run's losses and grad norms against the one process's, relative
+TENSOR_LOSS_REL = 1e-2
+#: the largest activation a rank all-gathers: its shard of the first up
+#: block's concatenation at 256×256, (2, 256, 256, (128 + 128) / 2), bf16
+TENSOR_GATHER = (2, 256, 256, 128)
 
 
 def kernel_counters(k_gn, k_attn, k_res) -> dict:
@@ -6297,6 +6353,16 @@ def state_bytes(state) -> int:
 
 def _dist_fit_argv(root: str, *extra, config: str = DIST_CONFIG) -> list:
     return ["fit", "--config", config, *DIST_DATA, "--trainer.max_steps", str(DIST_STEPS),
+            "--trainer.log_every_n_steps", "1", "--trainer.callbacks", "[]",
+            "--trainer.default_root_dir", root, *extra]
+
+
+def _tensor_fit_argv(root: str, *extra) -> list:
+    """``LSUN_CONFIG`` as phase 47 runs it (K1/K2 on), ``TENSOR_STEPS`` steps
+    of ``TENSOR_ACCUM`` microbatches on the LMDB under ``DIST_ROOT/lsun``."""
+    return ["fit", "--config", LSUN_CONFIG, *LSUN_KERNELS, "--data.init_args.data_dir",
+            os.path.join(DIST_ROOT, "lsun"), "--trainer.accumulate_grad_batches",
+            str(TENSOR_ACCUM), "--trainer.max_steps", str(TENSOR_STEPS),
             "--trainer.log_every_n_steps", "1", "--trainer.callbacks", "[]",
             "--trainer.default_root_dir", root, *extra]
 
@@ -6326,8 +6392,8 @@ def drawn_init(torch):
 @contextlib.contextmanager
 def first_gradients(torch, out: dict):
     """``out["grads"]``: the gradients the first ``apply_gradients`` of a run
-    receives (on a mesh the reduced ones, the expert shards gathered whole:
-    a collective every rank reaches at the same step)."""
+    receives (on a mesh the reduced ones, the expert and tensor shards
+    gathered whole: a collective every rank reaches at the same step)."""
     from dmme_tpu_torch.parallel.mesh import gather_leaves
     from dmme_tpu_torch.training import TrainState
 
@@ -6338,6 +6404,8 @@ def first_gradients(torch, out: dict):
             whole = dict(grads)
             if state.expert_axes:
                 whole.update(gather_leaves(state.mesh, whole, state.expert_axes, "expert"))
+            if state.tensor_axes:
+                whole.update(gather_leaves(state.mesh, whole, state.tensor_axes, "tensor"))
             out["grads"] = {k: v.detach().clone() for k, v in whole.items()}
         return original(state, grads, norm)
 
@@ -6445,18 +6513,43 @@ def expert_timing(torch, dev, rank: int) -> dict:
             "transport": f"{mesh.backend}, direct on CUDA tensors"}
 
 
+def tensor_timing(torch, dev) -> dict:
+    """In a rank: the all-gather of the tensor fit's largest activation
+    (``TENSOR_GATHER``, bf16) over the tensor group, as the UNet gathers it
+    (``TensorGroup.gather``: gloo on the CUDA tensors directly), host clock."""
+    from dmme_tpu_torch.parallel import make_mesh
+    from dmme_tpu_torch.parallel.tensor import TensorGroup
+
+    mesh = make_mesh(tensor=DIST_RANKS, device=dev)
+    group = TensorGroup(mesh.tensor_group, mesh.tensor, mesh.index("tensor"))
+    x = torch.randn(TENSOR_GATHER, device=dev).to(torch.bfloat16)
+    walls = []
+    for _ in range(DIST_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole = group.gather(x)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return {"gather_ms": statistics.median(walls[1:]),
+            "gather_mb": whole.numel() * whole.element_size() / 1e6,
+            "transport": f"{mesh.backend}, direct on CUDA tensors"}
+
+
 def rank_worker(out: str, eval_root: str, pth: str) -> int:
     """One rank of phases 49 and 50 under ``python -m torch.distributed.run
     --standalone --nproc_per_node 2 chip_smoke.py --rank-worker DIR``: the
     kernels loaded from the parent's build, the parent's TF32 and cuDNN
     settings, the group joined once (``parallel.initialize``: gloo, the two
     ranks share the card); then ``trainer.main fit`` on a data=2 and on an
-    fsdp=2 mesh, the steps and the all-reduce timed, ``trainer.main test``
-    on a data=2 mesh. Each command's launches, and each fit's state bytes,
-    go to ``DIR/rank<r>.json``."""
+    fsdp=2 mesh, of ``MOE_CONFIG`` on ``EXPERT_MESH`` and of ``LSUN_CONFIG``
+    on ``TENSOR_MESH``, the steps, the all-reduce, the all-to-all and the
+    largest activation gather timed, ``trainer.main test`` on a data=2 mesh.
+    Each command's launches, and each fit's state bytes, go to
+    ``DIR/rank<r>.json``."""
     import torch
     import torch.distributed as dist
 
+    import dmme_tpu_torch.models.blocks as blocks
     from dmme_tpu_torch import training
     from dmme_tpu_torch.ops import attention as k_attn
     from dmme_tpu_torch.ops import build
@@ -6479,7 +6572,7 @@ def rank_worker(out: str, eval_root: str, pth: str) -> int:
     def holding_fit(*args, **kwargs):  # what the command's fit leaves each rank holding
         state = fit(*args, **kwargs)
         held.update(state_bytes=state_bytes(state), split_leaves=len(state.shard_axes))
-        if state.expert_axes:
+        if state.expert_axes or state.tensor_axes:
             held["state"] = state
         return state
 
@@ -6514,10 +6607,36 @@ def rank_worker(out: str, eval_root: str, pth: str) -> int:
             rec["expert"]["grad_rel"] = _rel_l2(torch, want, first["grads"])
         del state, whole, first
         torch.cuda.empty_cache()
+        # the tensor axis: the LSUN UNet column-split over both ranks, its
+        # first reduced gradient, its gathered state and the call sites of
+        # K1, K2 and K3 on the shards kept for the checks in the parent
+        first = {}
+        with drawn_init(torch), first_gradients(torch, first):
+            reset_counts(ops)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            calls = record_calls(train_targets(blocks, k_gn, k_attn), lambda: cli(
+                _tensor_fit_argv(os.path.join(out, "tensor"), "--trainer.mesh", TENSOR_MESH)))
+            torch.cuda.synchronize()
+            state = held.pop("state")
+            rec["tensor"] = dict(held, wall_s=time.time() - t0, launches=counts(ops),
+                                 wide=wide_counts(), split_leaves=len(state.tensor_axes),
+                                 sites={kind: {repr(key): n for key, n, _, _ in v}
+                                        for kind, v in calls.items()})
+        del calls
+        whole = state.whole()  # a collective: both ranks
+        if rank == 0:
+            rec["tensor"]["digest"] = state_digest(torch, whole)
+            rec["tensor"]["params"] = sum(v.numel() for v in whole.params.values())
+            want = torch.load(os.path.join(out, "tensor_one_grads.pt"), map_location=dev)
+            rec["tensor"]["grad_rel"] = _rel_l2(torch, want, first["grads"])
+        del state, whole, first
+        torch.cuda.empty_cache()
     finally:
         training.fit = fit
     rec["timing"] = dist_timing(torch, dev, rank)
     rec["timing"]["expert"] = expert_timing(torch, dev, rank)
+    rec["timing"]["tensor"] = tensor_timing(torch, dev)
     reset_counts(ops)
     buf = io.StringIO()
     torch.cuda.synchronize()
@@ -6542,7 +6661,7 @@ def _rel_l2(torch, a: dict, b: dict) -> float:
 
 
 def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: str,
-               eval_rec: dict) -> dict:
+               eval_rec: dict, lsun_rec: dict) -> dict:
     """Phases 49 and 50: configs/ddpm/cifar10.yaml (the 32,416,643-parameter
     UNet, bf16, K1/K2/K3) on two ranks that share the card, each launched by
     ``torch.distributed.run`` (:func:`rank_worker`; deterministic cuDNN),
@@ -6556,7 +6675,11 @@ def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: st
     configs/ddim/cifar10.yaml from phase 46's run on a data=2 mesh, one test
     batch a rank: phase 46's FID and IS, each rank one batch's launches.
     K1/K2/K3 at every call site of a batch-64 step held against their plain
-    versions here; the test's K1/K3/K4 shapes are phase 46's."""
+    versions here; the test's K1/K3/K4 shapes are phase 46's. In the same
+    launch the expert fit (:func:`expert_phase`) and the tensor fit of
+    ``LSUN_CONFIG`` against one process here on its batches
+    (:func:`tensor_phase`, :func:`tensor_kernels`; ``lsun_rec``: phase 47's
+    record, whose microbatch K3 sites the tensor ranks share)."""
     import shutil
 
     from dmme_tpu_torch import config as tcfg
@@ -6579,6 +6702,23 @@ def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: st
                                                 config=MOE_CONFIG),
                                  launches_for(PER_FORWARD_DIT, DIST_STEPS * DIST_RANKS))
     torch.save(first["grads"], os.path.join(DIST_ROOT, "moe_one_grads.pt"))
+    del first
+    torch.cuda.empty_cache()
+    # the tensor fit's reference: the LSUN UNet in one process, no mesh, on
+    # the same batches and draws (the tensor ranks share one batch slice)
+    write_lsun_lmdb(np, os.path.join(DIST_ROOT, "lsun", "church_outdoor_train_lmdb"),
+                    TENSOR_IMAGES)
+    config = tcfg.validate_config(tcfg.apply_overrides(tcfg.load_config(LSUN_CONFIG),
+                                                       LSUN_KERNELS))
+    out["tensor_sites"] = config_sites(torch, blocks, config["model"]["init_args"]["model"])[0]
+    first = {}
+    with drawn_init(torch), first_gradients(torch, first):
+        out["tensor_one"] = cli_run(
+            torch, ops, card, f"one process: fit {LSUN_CONFIG} {TENSOR_STEPS} steps of "
+            f"{TENSOR_ACCUM} microbatches, no mesh",
+            _tensor_fit_argv(os.path.join(DIST_ROOT, "tensor_one"), "--trainer.mesh", "null"),
+            launches_for(out["tensor_sites"], TENSOR_STEPS * TENSOR_ACCUM))
+    torch.save(first["grads"], os.path.join(DIST_ROOT, "tensor_one_grads.pt"))
     del first
     torch.cuda.empty_cache()
     eval_root = eval_rec["kept_root"]
@@ -6636,6 +6776,7 @@ def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: st
               f"{t['allreduce_mb']:.1f} MB through gloo {t['allreduce_ms']:.2f} ms [{card}]",
               flush=True)
     expert_phase(torch, np, out, ranks, card)
+    tensor_phase(torch, out, ranks, card)
     saved = {k: CheckpointManager(os.path.join(DIST_ROOT, k)).load(DIST_STEPS)
              for k in ("one", "data", "fsdp")}
     out["data_vs_one"] = state_differences(torch, saved["data"], saved["one"])
@@ -6689,8 +6830,111 @@ def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: st
         torch, blocks, k_gn, k_attn, None, init_weights, None, dev, card, ops,
         lit=dit_harness(torch, blocks, MOE_CONFIG)[0], targets=dit_targets(k_attn, True),
         sites={"attention": DIT_SITES, "attention_bwd": DIT_SITES}, batch_size=DIST_BATCH)
+    out["tensor_step"] = tensor_kernels(torch, blocks, k_gn, k_attn, init_weights, dev, card,
+                                        out, lsun_rec)
     shutil.rmtree(DIST_ROOT, ignore_errors=True)
     return out
+
+
+def tensor_phase(torch, out: dict, ranks: list, card: str) -> None:
+    """Phase 49's checks of the tensor fit (:func:`rank_worker`) against
+    the one process ``out["tensor_one"]``, into ``out["tensor"]``: each
+    rank's launches those of the one process, none of f32, fp16 or
+    ``simt.cu``; its bytes ``TENSOR_BYTES`` in ``TENSOR_SPLIT`` split
+    kernels; the losses and grad norms within ``TENSOR_LOSS_REL``, the
+    first reduced gradient within ``GRAD_REL_L2`` (relative L2); the
+    checkpoint restored without a mesh bitwise the gathered state."""
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.training import CheckpointManager
+
+    want = out["tensor_one"]["launches"]
+    for r in ranks:
+        rec, t = r["tensor"], r["timing"]["tensor"]
+        print(f"rank {r['rank']} tensor=2 fit of {LSUN_CONFIG}: {rec['wall_s']:.2f} s wall, "
+              f"launches {rec['launches']} (one process {want}), f32/fp16/simt launches "
+              f"{rec['wide']}, holds {rec['state_bytes']:,} B of parameters, EMA and moments "
+              f"({rec['state_bytes'] / (16 * LSUN_PARAMS):.4f} of the whole's "
+              f"{16 * LSUN_PARAMS:,}; {rec['split_leaves']} kernels split); the all-gather of "
+              f"the largest activation ({t['gather_mb']:.2f} MB whole) {t['gather_ms']:.2f} ms, "
+              f"transport {t['transport']} [{card}]", flush=True)
+        if rec["launches"] != want or any(v for d in rec["wide"].values() for v in d.values()):
+            fail(f"rank {r['rank']}'s tensor fit launched {rec['launches']} ({rec['wide']}), "
+                 f"expected the one process's {want}")
+        if rec["state_bytes"] != TENSOR_BYTES or rec["split_leaves"] != TENSOR_SPLIT:
+            fail(f"a tensor rank holds {rec['state_bytes']} B in {rec['split_leaves']} split "
+                 f"kernels, expected {TENSOR_BYTES} in {TENSOR_SPLIT}")
+    lead = ranks[0]["tensor"]
+    mesh_rows = _jsonl(os.path.join(DIST_ROOT, "tensor", "metrics.jsonl"))
+    one_rows = _jsonl(os.path.join(DIST_ROOT, "tensor_one", "metrics.jsonl"))
+    rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(mesh_rows, one_rows)]
+           for k in ("loss", "grad_norm")}
+    step_s = {name: [2 * TENSOR_ACCUM / row["imgs_per_sec"] for row in rows]
+              for name, rows in (("mesh", mesh_rows), ("one", one_rows))}
+    lit = tcfg.instantiate(tcfg.validate_config(tcfg.load_config(LSUN_CONFIG))["model"])
+    state = CheckpointManager(os.path.join(DIST_ROOT, "tensor")).restore(
+        lit.init_state(0, device="cuda"))
+    restored = state_digest(torch, state)
+    n_params = sum(v.numel() for v in state.params.values())
+    del state, lit
+    torch.cuda.empty_cache()
+    out["tensor"] = {"loss_rel": rel["loss"], "grad_norm_rel": rel["grad_norm"],
+                     "grad_rel_l2": lead["grad_rel"], "params": lead["params"],
+                     "checkpoint_bitwise": restored == lead["digest"], "step_s": step_s,
+                     "gather_ms": [r["timing"]["tensor"]["gather_ms"] for r in ranks]}
+    print(f"tensor=2 against one process: loss relative {rel['loss']}, grad norm relative "
+          f"{rel['grad_norm']} (limit {TENSOR_LOSS_REL}), the first reduced gradient "
+          f"{lead['grad_rel']:.3e} relative L2 (limit {GRAD_REL_L2}); a step of "
+          f"{TENSOR_ACCUM} microbatches on rank 0 {step_s['mesh']} s, in the one process "
+          f"{step_s['one']} s (host clock); the checkpoint restored without a mesh "
+          f"{'is' if out['tensor']['checkpoint_bitwise'] else 'is NOT'} bit for bit the ranks' "
+          f"gathered state ({lead['params']:,} parameters gathered, {n_params:,} restored) "
+          f"[{card}]", flush=True)
+    if (len(mesh_rows) != TENSOR_STEPS or len(one_rows) != TENSOR_STEPS
+            or max(rel["loss"] + rel["grad_norm"]) > TENSOR_LOSS_REL):
+        fail(f"the tensor=2 run's losses and grad norms are {rel} from the one process's")
+    if not lead["grad_rel"] <= GRAD_REL_L2:
+        fail(f"the tensor=2 run's first gradient is {lead['grad_rel']} from the one process's")
+    if not out["tensor"]["checkpoint_bitwise"] or {lead["params"], n_params} != {LSUN_PARAMS}:
+        fail("the tensor=2 checkpoint restored without a mesh is not the gathered state")
+
+
+def tensor_kernels(torch, blocks, k_gn, k_attn, init_weights, dev, card: str, out: dict,
+                   lsun_rec: dict) -> dict:
+    """K1 and K2 at every call site of a tensor rank's microbatch, held
+    against their plain versions and timed: the LSUN UNet at half its
+    channels and groups has a rank's shard shapes (C/2 channels in G/2
+    groups at every GroupNorm, the FiLM-free pre-bias (N, C/2)). Fails
+    unless each rank's K1/K2 call sites in the tensor fit are these, and
+    its K3 sites phase 47's microbatch's (the attention runs whole)."""
+    from dmme_tpu_torch import config as tcfg
+
+    config = tcfg.validate_config(tcfg.apply_overrides(tcfg.load_config(LSUN_CONFIG),
+                                                       LSUN_KERNELS))
+    node = config["model"]["init_args"]["model"]
+    args = node["init_args"]
+    half = dict(node, init_args=dict(args, channels_per_depth=[
+        c // DIST_RANKS for c in args["channels_per_depth"]],
+        num_groups=args.get("num_groups", 32) // DIST_RANKS))
+    lit = tcfg.instantiate(dict(config["model"], init_args=dict(config["model"]["init_args"],
+                                                                model=half)))
+    gn = (blocks, "group_norm_silu", "group_norm_silu", _sig_gn)
+    gn_bwd = (k_gn, "group_norm_silu_bwd", "group_norm_silu_bwd", _sig_gn_bwd)
+    sites = {k: out["tensor_sites"][k] for k in ("group_norm_silu", "group_norm_silu_bwd")}
+    step = train_kernels(torch, blocks, k_gn, k_attn, None, init_weights, None, dev, card,
+                         lit=lit, batch_size=2, sites=sites, img_size=LSUN_IMG,
+                         targets=[gn, gn_bwd])
+    micro = TENSOR_STEPS * TENSOR_ACCUM
+    want = {k: {r["key"]: micro * r["sites"] for r in step["shapes"] if r["kernel"] == k}
+            for k in sites}
+    want.update({k: {r["key"]: micro * r["sites"] for r in lsun_rec["rows"] if r["kernel"] == k}
+                 for k in ("attention", "attention_bwd")})
+    for r in out["ranks"]:
+        if r["tensor"]["sites"] != want:
+            fail(f"rank {r['rank']}'s tensor fit called the kernels at {r['tensor']['sites']}, "
+                 f"expected {want}")
+    print(f"each rank's K1/K2 call sites in the tensor fit are the half-width UNet's, its K3 "
+          f"sites phase 47's: {want} [{card}]", flush=True)
+    return step
 
 
 def expert_phase(torch, np, out: dict, ranks: list, card: str) -> None:
@@ -6764,6 +7008,11 @@ def dist_rows(report: dict) -> list:
     rows.append(_table_row("attention_expert_train", "attention",
                            d["expert_step"]["per_step"]["attention"],
                            sum(r["expert"]["launches"]["attention"] for r in d["ranks"])))
+    per_rank = dict(d["tensor_step"]["per_step"],
+                    attention=report["lsun_fit"]["per_microbatch"]["attention"])
+    rows += [_table_row(f"{k}_tensor_train", k, per_rank[k],
+                        sum(r["tensor"]["launches"][k] for r in d["ranks"]))
+             for k in ("group_norm_silu", "group_norm_silu_bwd", "attention")]
     return rows
 
 
@@ -6794,7 +7043,7 @@ def record_forwards(torch, blocks, runs, dev, targets=None) -> tuple:
 
 def forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded) -> tuple:
     """Hold every recorded K1/K3/K4 call of a UNet forward against its plain
-    version (``TOL``) and time it: median of 10 CUDA-event runs (the plain
+    version (``TOL``) and time it: median of ``KERNEL_REPS`` CUDA-event runs (the plain
     version's of ``PLAIN_REPS``), the bound,
     SDPA beside K3, the library sequences beside K1 and K4. ``recorded``:
     {kind: {signature: {"a", "k", "sites"}}}. Returns (rows, failures)."""
@@ -7346,8 +7595,9 @@ def main() -> int:
 
     torch.backends.cudnn.deterministic = False
     print("cudnn deterministic off for the LSUN and ImageNet-64 runs", flush=True)
-    phase(f"LSUN fit: trainer.main fit --config {LSUN_CONFIG} (batch 2 x 32 microbatches, 256 px, "
-          "remat) on a synthetic LMDB, ProfileTrace; one microbatch's kernels, the gradient")
+    phase(f"LSUN fit: trainer.main fit --config {LSUN_CONFIG} (batch 2 x 8 microbatches, 256 px, "
+          "remat, T = 100) on a synthetic LMDB, ProfileTrace; one microbatch's kernels, the "
+          "gradient")
     report["lsun_fit"] = lsun_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops,
                                   dev, card)
     torch.cuda.empty_cache()
@@ -7360,10 +7610,11 @@ def main() -> int:
 
     phase(f"two ranks on one card: torch.distributed.run --nproc_per_node {DIST_RANKS} trainer "
           f"fit of {DIST_CONFIG} on data=2 and fsdp=2 meshes and of {MOE_CONFIG} on "
-          f"{EXPERT_MESH} (gloo) against one process accumulating 2; then trainer test of "
-          f"{DDIM_CONFIG} on a data=2 mesh")
+          f"{EXPERT_MESH} (gloo) against one process accumulating 2, of {LSUN_CONFIG} on "
+          f"{TENSOR_MESH} against one process; then trainer test of {DDIM_CONFIG} on a data=2 "
+          "mesh")
     report["dist"] = dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card,
-                                report["eval_test"])
+                                report["eval_test"], report["lsun_fit"])
     torch.cuda.empty_cache()
 
     phase("kernels")
@@ -7533,16 +7784,19 @@ def main() -> int:
           f"{LATENT_FIT_STEPS}-step CLI fit. *_eval: per DDIM-50 forward of a test batch at "
           f"N = {TRAIN_BATCH} (50 a batch), launches in the {EVAL_BATCHES} batches of the "
           f"save_fid_stats test of {DDIM_CONFIG}. *_lsun_train: per microbatch of {LSUN_CONFIG} "
-          f"(batch 2, 256 px, remat), launches in its {LSUN_FIT_STEPS}-step CLI fit (32 "
+          f"(batch 2, 256 px, remat), launches in its {LSUN_FIT_STEPS}-step CLI fit (8 "
           f"microbatches a step); *_lsun_sample: per sampling forward at n = 4, launches in that "
-          f"fit's GenerateImage grid (1000 DDPM forwards); *_in64_train: per step of "
+          f"fit's GenerateImage grid (100 DDPM forwards); *_in64_train: per step of "
           f"{IN64_CONFIG} at batch {TRAIN_BATCH}, launches in its {IN64_FIT_STEPS}-step CLI fit; "
           f"*_in64_serve: per forward at n = {BATCH}, launches in its DDIM-50 sample. "
           f"*_mesh_train: per step of a rank at batch {DIST_BATCH} ({DIST_CONFIG} on "
           f"{DIST_RANKS} ranks), launches in both ranks' data and fsdp fits; *_mesh_test: per "
           f"DDIM-50 forward of a test batch at N = {TRAIN_BATCH} (the *_eval shapes), launches "
           f"in both ranks' test; attention_expert_train: per step of a rank at batch {DIST_BATCH} "
-          f"of {MOE_CONFIG} on {EXPERT_MESH}, launches in both ranks' expert fits)", flush=True)
+          f"of {MOE_CONFIG} on {EXPERT_MESH}, launches in both ranks' expert fits; "
+          f"*_tensor_train: per microbatch of a rank of {LSUN_CONFIG} on {TENSOR_MESH} (K1 and "
+          f"K2 at its shard shapes, K3 whole), launches in both ranks' {TENSOR_STEPS}-step "
+          f"tensor fits of {TENSOR_ACCUM} microbatches a step)", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -8,6 +8,16 @@ weights are OIHW and Dense weights (out, in), PyTorch's own layouts;
 parameters onto them. Module and parameter names follow the JAX tree, so a
 ``state_dict`` key reads ``down_1.norm2.weight`` where flax has
 ``down_1/norm2/scale``.
+
+On a ``tensor`` mesh axis (``parallel/tensor.py``) the same modules run on
+channel shards: a :class:`Conv` or :class:`Dense` bound to a column shard
+of its kernel computes the rank's slice of the output channels with that
+slice of its whole bias (:attr:`Conv.sharded`); a GroupNorm given a shard
+of its channels normalizes the shard's G/T groups with its slice of the
+affine; a block given a shard gathers it whole before each layer that
+reads every channel (:func:`shard_of_output`, :func:`whole_output`). Each
+module then holds the ``TensorGroup`` (``UNet.place_tensor``); with whole
+weights it is never read.
 """
 
 from __future__ import annotations
@@ -42,7 +52,39 @@ def sinusoidal_position_embedding(t: torch.Tensor, dim: int,
     return torch.cat([torch.sin(args), torch.cos(args)], dim=-1).to(dtype)
 
 
-class Dense(nn.Module):
+class _Columns(nn.Module):
+    """A layer whose kernel may be bound as a column shard: the rank's
+    1/T of its output rows (the ``tensor`` axis) beside the whole bias."""
+
+    #: the ``TensorGroup`` of a tensor-split model (``UNet.place_tensor``)
+    tensor_group = None
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the bound kernel is a column shard."""
+        return self.weight.shape[0] != self.bias.shape[0]
+
+    def _bias(self) -> torch.Tensor:
+        """The bias of the bound kernel's rows: the rank's slice where it is a shard."""
+        return self.tensor_group.shard(self.bias) if self.sharded else self.bias
+
+
+def whole_output(layer: "_Columns", x: torch.Tensor) -> torch.Tensor:
+    """``layer`` on its whole input ``x``, its output whole: gathered over
+    the tensor group where the bound kernel is a column shard."""
+    y = layer(x)
+    return layer.tensor_group.gather(y) if layer.sharded else y
+
+
+def shard_of_output(layer: "_Columns", x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's channel shard of ``layer`` on its whole input ``x``: what
+    a column shard of the kernel computes, or the rank's slice of the
+    output of a kernel left whole (run alike on every rank)."""
+    y = layer(x)
+    return y if layer.sharded else group.shard(y)
+
+
+class Dense(_Columns):
     """``flax.linen.Dense``: y = x·Wᵀ + b in the compute dtype."""
 
     def __init__(self, in_features: int, out_features: int, dtype=torch.float32):
@@ -52,7 +94,7 @@ class Dense(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self._bias().to(self.dtype))
 
 
 class ZeroDense(Dense):
@@ -60,7 +102,7 @@ class ZeroDense(Dense):
     zeros``, DiT's adaLN-Zero layers): :func:`init_weights` leaves it at zero."""
 
 
-class Conv(nn.Module):
+class Conv(_Columns):
     """NHWC convolution with symmetric padding, OIHW weight, compute dtype."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 3, stride: int = 1,
@@ -75,7 +117,7 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # the NCHW view of an NHWC tensor is channels_last, which cuDNN keeps
         y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), self.weight.to(self.dtype),
-                     self.bias.to(self.dtype), self.stride, self.padding)
+                     self._bias().to(self.dtype), self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
 
 
@@ -93,7 +135,11 @@ def conv1x1(c_in: int, c_out: int, dtype=torch.float32) -> Conv:
 
 
 class GroupNorm(nn.Module):
-    """``flax.linen.GroupNorm`` with torch-parity eps, f32 in and out."""
+    """``flax.linen.GroupNorm`` with torch-parity eps, f32 in and out. Given
+    a tensor group's channel shard, it normalizes the shard's G/T groups."""
+
+    #: the ``TensorGroup`` of a tensor-split model (``UNet.place_tensor``)
+    tensor_group = None
 
     def __init__(self, num_groups: int, channels: int):
         super().__init__()
@@ -101,9 +147,24 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
+    def affine(self, channels: int):
+        """(scale, shift, groups) for an input of ``channels`` channels: the
+        whole ones, or the rank's slice and G/T groups of a channel shard.
+        Raises where the shard is not a whole number of groups."""
+        c = self.weight.shape[0]
+        if channels == c:
+            return self.weight, self.bias, self.num_groups
+        group = self.tensor_group
+        size = 0 if group is None else group.size
+        if channels * size != c or self.num_groups % size:
+            raise ValueError(f"GroupNorm({self.num_groups} groups, {c} channels) given {channels} "
+                             f"channels: a tensor group of {size} ranks must split its groups "
+                             f"whole (groups and channels divisible by {size})")
+        return group.shard(self.weight), group.shard(self.bias), self.num_groups // size
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.to(torch.float32).permute(0, 3, 1, 2), self.num_groups,
-                         self.weight, self.bias, GN_EPS)
+        weight, bias, groups = self.affine(x.shape[-1])
+        y = F.group_norm(x.to(torch.float32).permute(0, 3, 1, 2), groups, weight, bias, GN_EPS)
         return y.permute(0, 2, 3, 1)
 
 
@@ -117,14 +178,15 @@ class GNSiLU(GroupNorm):
         self.dtype = dtype
 
     def forward(self, x, pre_bias=None, film_scale=None, film_shift=None):
+        weight, bias, groups = self.affine(x.shape[-1])
         if film_scale is not None:
             # GN(x)·(s+1)+shift with the GN affine folded in, per sample
             fs = film_scale.to(torch.float32) + 1.0
-            gamma = self.weight[None, :] * fs
-            beta = self.bias[None, :] * fs + film_shift.to(torch.float32)
+            gamma = weight[None, :] * fs
+            beta = bias[None, :] * fs + film_shift.to(torch.float32)
         else:
-            gamma, beta = self.weight, self.bias
-        y = group_norm_silu(x, gamma, beta, self.num_groups, GN_EPS, pre_bias=pre_bias)
+            gamma, beta = weight, bias
+        y = group_norm_silu(x, gamma, beta, groups, GN_EPS, pre_bias=pre_bias)
         return y.to(self.dtype)
 
 
@@ -140,7 +202,7 @@ class TimeEmbedding(nn.Module):
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         emb = sinusoidal_position_embedding(t, self.pos_dim, self.dtype)
-        return F.silu(self.Dense_1(F.silu(self.Dense_0(emb))))
+        return F.silu(whole_output(self.Dense_1, F.silu(whole_output(self.Dense_0, emb))))
 
 
 class SelfAttention2d(nn.Module):
@@ -148,7 +210,10 @@ class SelfAttention2d(nn.Module):
 
     The softmax scale is ``dim**-0.5`` over the full channel dim even with
     several heads, and the qkv projection packs channels as (3, heads, hd),
-    as in the JAX package.
+    as in the JAX package. Given a tensor group's channel shard, the block
+    gathers the normalized input, gathers the projection's column shards
+    (a rank's rows of the packed (3, heads, hd) layout are not its heads),
+    runs the attention whole on every rank and keeps its shard of ``proj``.
     """
 
     def __init__(self, dim: int, num_groups: int = 32, num_heads: int = 1,
@@ -162,38 +227,51 @@ class SelfAttention2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, h, w, c = x.shape
-        heads = self.num_heads
+        heads, dim = self.num_heads, self.dim
         # F.group_norm returns channel-major storage on CUDA; casting to NHWC
         # in the same copy keeps the projection channels-last, so q, k and v
         # are views with unit stride along the head dim that K3 reads in place
         hx = self.GroupNorm_0(x).to(self.dtype, memory_format=torch.contiguous_format)
-        qkv = self.qkv_proj(hx).reshape(n, h * w, 3, heads, c // heads)
+        split = c != dim  # a tensor group's channel shard
+        if split:
+            hx = self.tensor_group.gather(hx)
+        qkv = whole_output(self.qkv_proj, hx).reshape(n, h * w, 3, heads, dim // heads)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (n, hw, heads, hd) views
-        out = attention_heads(q, k, v, self.dim ** -0.5).reshape(n, h, w, c)
+        out = attention_heads(q, k, v, dim ** -0.5).reshape(n, h, w, dim)
+        if split:
+            return x + shard_of_output(self.proj, out, self.tensor_group)
         return x + self.proj(out)
 
 
 class Downsample(nn.Module):
-    """Stride-2 3×3 conv, padding 1."""
+    """Stride-2 3×3 conv, padding 1 (a channel shard in, a shard out)."""
 
     def __init__(self, channels: int, dtype=torch.float32):
         super().__init__()
         self.Conv_0 = conv3x3(channels, channels, 2, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[-1] != self.Conv_0.weight.shape[1]:  # a tensor group's channel shard
+            group = self.Conv_0.tensor_group
+            return shard_of_output(self.Conv_0, group.gather(x), group)
         return self.Conv_0(x)
 
 
 class Upsample(nn.Module):
-    """Nearest ×2, then a 3×3 conv to ``c_out`` channels (default: ``channels``)."""
+    """Nearest ×2, then a 3×3 conv to ``c_out`` channels (default:
+    ``channels``); a channel shard is gathered before the ×2."""
 
     def __init__(self, channels: int, dtype=torch.float32, c_out: Optional[int] = None):
         super().__init__()
         self.Conv_0 = conv3x3(channels, channels if c_out is None else c_out, 1, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = self.Conv_0.tensor_group
+        split = x.shape[-1] != self.Conv_0.weight.shape[1]  # a tensor group's channel shard
+        if split:
+            x = group.gather(x)
         x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-        return self.Conv_0(x)
+        return shard_of_output(self.Conv_0, x, group) if split else self.Conv_0(x)
 
 
 class ResBlock(nn.Module):
@@ -212,6 +290,14 @@ class ResBlock(nn.Module):
     through the fused GroupNorm kernel; ``fused_block`` runs the whole block,
     in eval, through the fused ResBlock kernel. Parameters are the same
     either way.
+
+    Given a tensor group's channel shard of ``x`` (``whole``: the whole
+    ``x``, where the caller has it), the block returns its shard of the
+    output: both norms, the dropout (its slice of the whole mask) and the
+    sum run on the shard, each conv reads the gathered activation, the
+    condition is the rank's slice of the whole (N, c_out) or, under FiLM,
+    the rank's slice of each half of the gathered (N, 2·c_out) (a rank's
+    rows of the packed [shift | scale] are not its channels).
     """
 
     def __init__(self, c_in: int, c_out: int, emb_dim: int, with_attention: bool = False,
@@ -235,10 +321,12 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                mask: Optional[torch.Tensor] = None, recompute: bool = False) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None, recompute: bool = False,
+                whole: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``mask`` and ``recompute`` are the remat recomputation's: it runs
         the block on the dropout mask drawn the first time."""
-        if self.fused_block and not train:
+        split = x.shape[-1] != self.norm1.weight.shape[0]  # a tensor group's channel shard
+        if self.fused_block and not train and not split:
             h = self._fused_block(x, emb)
             return h if self.attention is None else self.attention(h)
         if train and self.dropout > 0.0 and not recompute:
@@ -251,36 +339,51 @@ class ResBlock(nn.Module):
             # runs in the backward, after the outer binding has ended
             params = dict(self.named_parameters())
 
-            def body(x, emb, mask, *weights):
+            def body(x, emb, mask, whole, *weights):
                 return functional_call(self, dict(zip(params, weights)), (x, emb),
-                                       {"train": True, "mask": mask, "recompute": True})
+                                       {"train": True, "mask": mask, "recompute": True,
+                                        "whole": whole})
 
-            return checkpoint(body, x, emb, mask, *params.values(), use_reentrant=False)
-        h = self._standard(x, emb, mask)
+            return checkpoint(body, x, emb, mask, whole, *params.values(), use_reentrant=False)
+        h = self._standard(x, emb, mask, whole) if split else self._standard(x, emb, mask)
         return h if self.attention is None else self.attention(h)
 
-    def _standard(self, x, emb, mask):
+    def _standard(self, x, emb, mask, whole=None):
+        group = self.conv1.tensor_group
+        split = x.shape[-1] != self.norm1.weight.shape[0]
         if self.fused_norm:
             h = self.norm1(x)
         else:
             h = F.silu(self.norm1(x).to(self.dtype))
-        h = self.conv1(h)
-        cond = self.condition(emb)
+        if split:
+            h = shard_of_output(self.conv1, group.gather(h), group)
+        else:
+            h = self.conv1(h)
         if self.film:
-            shift, scale = torch.chunk(cond, 2, dim=-1)  # (N, C) each
+            shift, scale = torch.chunk(whole_output(self.condition, emb), 2, dim=-1)  # (N, C) each
+            if split:
+                shift, scale = group.shard(shift), group.shard(scale)
             if self.fused_norm:
                 h = self.norm2(h, film_scale=scale, film_shift=shift)
             else:
                 h = self.norm2(h).to(self.dtype)
                 h = F.silu(h * (scale[:, None, None, :] + 1.0) + shift[:, None, None, :])
-        elif self.fused_norm:
-            # GN(h + cond) + SiLU in one kernel: the pre-bias folds into the statistics
-            h = self.norm2(h, pre_bias=cond)
         else:
-            h = F.silu(self.norm2(h + cond[:, None, None, :]).to(self.dtype))
+            cond = shard_of_output(self.condition, emb, group) if split else self.condition(emb)
+            if self.fused_norm:
+                # GN(h + cond) + SiLU in one kernel: the pre-bias folds into the statistics
+                h = self.norm2(h, pre_bias=cond)
+            else:
+                h = F.silu(self.norm2(h + cond[:, None, None, :]).to(self.dtype))
         if mask is not None:
-            h = torch.where(mask, h / (1.0 - self.dropout),
+            h = torch.where(group.shard(mask) if split else mask, h / (1.0 - self.dropout),
                             torch.zeros((), dtype=h.dtype, device=h.device))
+        if split:
+            h = shard_of_output(self.conv2, group.gather(h), group)
+            if self.residual is not None:
+                whole = group.gather(x) if whole is None else whole
+                return h + shard_of_output(self.residual, whole, group)
+            return h + x
         h = self.conv2(h)
         skip = x if self.residual is None else self.residual(x)
         return h + skip

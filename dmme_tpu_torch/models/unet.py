@@ -4,12 +4,18 @@
 Skip-connection discipline: the down path records the feature map after the
 input conv and after every down layer, Downsamples included; every up-path
 ResBlock pops one record and concatenates it along channels.
+
+On a ``tensor`` mesh axis (``parallel/tensor.py``) the UNet runs on channel
+shards (:meth:`UNet.place_tensor`): every activation between layers, the
+skips included, is the rank's slice of its channels, and the up path's
+concatenation is gathered whole and re-split, since a rank's slice of
+``cat([h, skip])`` is not the concatenation of the two slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal, Optional, Sequence, Tuple
+from typing import Literal, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -22,6 +28,8 @@ from dmme_tpu_torch.models.blocks import (
     TimeEmbedding,
     Upsample,
     conv3x3,
+    shard_of_output,
+    whole_output,
 )
 
 
@@ -106,7 +114,17 @@ class UNet(nn.Module):
     classifier-free guidance), is added to the time embedding, so the labels
     reach every ResBlock through its per-sample condition. Parameters are
     float32; ``param_dtype`` takes no other value yet.
+
+    Bound to a tensor group's shards of its split leaves (after
+    :meth:`place_tensor`), a training forward runs tensor-parallel and
+    returns the whole output on every rank of the group; bound to whole
+    weights, the same module runs as on one device and issues no
+    collective.
     """
+
+    #: (module, parameter, whole shape) of one tensor-split leaf: the
+    #: forward runs tensor-parallel when that leaf is bound as a shard
+    _tensor_probe = None
 
     def __init__(
         self,
@@ -172,6 +190,37 @@ class UNet(nn.Module):
         self.out_norm = GNSiLU(num_groups, c, dtype) if fused_norm else GroupNorm(num_groups, c)
         self.output_conv = conv3x3(c, out_channels or in_channels, 1, dtype)
 
+    def place_tensor(self, where, split: Mapping[str, int] = ()) -> None:
+        """Hand every module the ``TensorGroup`` ``where`` (None: whole
+        weights only). ``split``: the names of the leaves the tensor axis
+        splits (``parallel.mesh.tensor_axes``), at least one. Raises where a
+        GroupNorm's groups do not split whole over the group."""
+        self._tensor_probe = None
+        if where is not None:
+            if not split:
+                raise ValueError("the tensor axis splits no leaf of this UNet: a tensor mesh "
+                                 "needs at least one split kernel (lower min_weight_size)")
+            for m in self.modules():
+                if isinstance(m, GroupNorm) and (m.num_groups % where.size
+                                                 or m.weight.shape[0] % where.size):
+                    raise ValueError(f"GroupNorm({m.num_groups} groups, {m.weight.shape[0]} "
+                                     f"channels) cannot split whole over {where.size} tensor "
+                                     "ranks")
+            name = next(iter(split))
+            module, _, leaf = name.rpartition(".")
+            self._tensor_probe = (module, leaf, tuple(self.get_parameter(name).shape))
+        for m in self.modules():
+            m.tensor_group = where
+
+    def _tensor_split(self):
+        """The ``TensorGroup`` where the bound weights are its shards, else None."""
+        probe = self._tensor_probe
+        if probe is None:
+            return None
+        module, leaf, shape = probe
+        bound = getattr(self.get_submodule(module), leaf)
+        return self.tensor_group if tuple(bound.shape) != shape else None
+
     def forward(self, x: torch.Tensor, t: torch.Tensor, *, y: Optional[torch.Tensor] = None,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None, return_features: bool = False,
@@ -193,7 +242,16 @@ class UNet(nn.Module):
           deep core: ``return_deep`` also returns the core's output, and
           ``deep_cache=<that tensor>`` skips the core (down suffix, middle,
           up prefix) and runs only the shallow layers, with fresh skips.
+
+        Bound to tensor shards (:meth:`place_tensor`), every rank of the
+        group returns the whole output, whose backward divides its gradient
+        by the group's size (``TensorGroup.to_partial``).
         """
+        group = self._tensor_split()
+        if group is not None and (return_features or return_deep or cached is not None
+                                  or cache_depth is not None or deep_cache is not None):
+            raise ValueError("the feature-capture arguments sample on whole weights; a "
+                             "tensor-split UNet samples after TrainState.whole()")
         n_shallow_down = n_deep_up = None
         if deep_cache is not None and cache_depth is None:
             raise ValueError("deep_cache requires cache_depth")
@@ -215,10 +273,16 @@ class UNet(nn.Module):
             if y is None:
                 raise ValueError("a class-conditional UNet needs labels y")
             # flax's nn.Embed(dtype=...) casts the table to the compute dtype
-            emb = emb + self.class_embed(y.to(device=emb.device, dtype=torch.int64)).to(self.dtype)
+            label = self.class_embed(y.to(device=emb.device, dtype=torch.int64))
+            if label.shape[-1] != emb.shape[-1]:  # a column shard of the table
+                label = group.gather(label)
+            emb = emb + label.to(self.dtype)
         reuse_deep = deep_cache is not None
         if cached is None:
-            h = self.input_conv(x.to(self.dtype))
+            if group is None:
+                h = self.input_conv(x.to(self.dtype))
+            else:
+                h = shard_of_output(self.input_conv, x.to(self.dtype), group)
             skips = [h]
             n_down = n_shallow_down if reuse_deep else len(self.down_specs)
             for i, spec in enumerate(self.down_specs[:n_down]):
@@ -242,8 +306,12 @@ class UNet(nn.Module):
             if i < up_start:
                 continue
             layer = getattr(self, f"up_{i}")
-            if spec.kind == "res":
+            if spec.kind == "res" and group is None:
                 h = layer(torch.cat([h, skips.pop()], dim=-1), emb, train, generator)
+            elif spec.kind == "res":
+                # a rank's slice of the concatenation is not that of its parts
+                whole = group.gather_cat(h, skips.pop())
+                h = layer(group.shard(whole), emb, train, generator, whole=whole)
             else:
                 h = layer(h)
             if return_deep and n_deep_up is not None and i == n_deep_up - 1:
@@ -254,6 +322,8 @@ class UNet(nn.Module):
             h = self.out_norm(h)
         else:
             h = torch.nn.functional.silu(self.out_norm(h).to(self.dtype))
+        if group is not None:
+            return group.to_partial(whole_output(self.output_conv, group.gather(h)))
         h = self.output_conv(h)
         if return_deep:
             if deep is None:

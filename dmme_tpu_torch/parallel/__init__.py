@@ -1,5 +1,5 @@
 """Meshes, sharding and the train step (mirrors ``dmme_tpu.parallel``):
-data, fsdp and expert parallelism over ``torch.distributed``."""
+data, fsdp, expert and tensor parallelism over ``torch.distributed``."""
 
 from dmme_tpu_torch.parallel.distributed import global_batch, initialize, shutdown
 from dmme_tpu_torch.parallel.mesh import (

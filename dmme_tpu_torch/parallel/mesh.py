@@ -20,12 +20,23 @@ axis sizes, and the collectives are written out (``parallel/train_step.py``):
   capacity, balance and router losses), as JAX's accumulation routes a
   microbatch. A stack can carry both axes: ``expert`` on E and ``fsdp``
   on another axis, by JAX's rule.
-* ``tensor``, ``spatial``: not ported; a size above 1 raises naming
-  ROADMAP A.11.
+* ``tensor``: tensor (channel) parallelism for the UNet (Megatron's column
+  split): each conv and Dense kernel, and embedding table, of 2¹⁴ elements
+  or more whose output axis the axis divides is split on it, so a rank of
+  a tensor group (size T) holds 1/T of the output channels of each, with
+  their EMA and moments; biases and GroupNorm affines stay whole. The T
+  ranks share one batch slice; activations flow channel-split between
+  them and are all-gathered before each layer that reads every channel
+  (``parallel/tensor.py``, ``models/blocks.py``). The split weights are
+  never gathered for the forward. A leaf can carry ``tensor`` on its
+  output axis and ``fsdp`` on another.
+* ``spatial``: not ported; a size above 1 raises naming ROADMAP A.11.
 
-Rank r sits at (d, f, e) of the (data, fsdp, expert) grid, row-major, as
-JAX reshapes its device list, and takes slice r of the global batch,
-which is split over data × fsdp × expert. A spec
+Rank r sits at (d, f, e, t) of the (data, fsdp, expert, tensor) grid,
+row-major, as JAX reshapes its device list, so a tensor group is T
+consecutive ranks. Its batch index is its (d, f, e) coordinate: it takes
+that slice of the global batch, which is split over data × fsdp × expert
+(the batch ranks), and draws as that batch rank. A spec
 is JAX's ``PartitionSpec`` as a tuple, in the port's layout: a mesh-axis
 name (or a tuple of them) or None per tensor axis, ``()`` for a whole
 (replicated) leaf.
@@ -88,10 +99,10 @@ class Mesh:
     #: or this rank alone (then no collective runs over it)
     fsdp_group: Any = None
     expert_group: Any = None
-    #: the replicas of an fsdp shard, of an expert shard, of a shard of both
-    fsdp_replicas: Any = None
-    expert_replicas: Any = None
-    data_group: Any = None
+    tensor_group: Any = None
+    #: {axes: group} of every set of grid axes a split leaf's replicas
+    #: differ along (:func:`replica_axes`), None as above
+    replica_groups: Mapping[Tuple[str, ...], Any] = dataclasses.field(default_factory=dict)
     #: a gloo group for the host's flags where the backend is NCCL
     control_group: Any = None
 
@@ -111,12 +122,23 @@ class Mesh:
         return self.shape["expert"]
 
     @property
+    def tensor(self) -> int:
+        return self.shape["tensor"]
+
+    @property
     def batch_ranks(self) -> int:
         """The ranks the batch is split over: data × fsdp × expert."""
         return self.shape["data"] * self.shape["fsdp"] * self.shape["expert"]
 
+    @property
+    def batch_index(self) -> int:
+        """This rank's place among the batch ranks, its (data, fsdp, expert)
+        coordinate row-major: the slice of the global batch it takes and
+        the batch rank it draws as (its tensor group shares both)."""
+        return self.rank // self.shape["tensor"]
+
     def index(self, axis: str) -> int:
-        """This rank's coordinate along ``axis`` (``data``, ``fsdp`` or ``expert``)."""
+        """This rank's coordinate along ``axis`` (``data``, ``fsdp``, ``expert`` or ``tensor``)."""
         return _coords(self.shape, self.rank)[axis]
 
     @property
@@ -125,6 +147,11 @@ class Mesh:
 
     def size(self, *axes: str) -> int:
         return math.prod(self.shape[a] for a in axes)
+
+    def replicas(self, axes: Tuple[str, ...]):
+        """The group of the ranks that differ from this one along ``axes``
+        (:func:`replica_axes`; None: the world, or this rank alone)."""
+        return self.replica_groups.get(_varying(self.shape, axes))
 
 
 def make_mesh(devices: Optional[Sequence[int]] = None, data: int = -1, fsdp: int = 1,
@@ -159,24 +186,33 @@ def make_mesh(devices: Optional[Sequence[int]] = None, data: int = -1, fsdp: int
 
 
 def require_ported(shape: Mapping[str, int]) -> None:
-    """Raise for a ``tensor`` or ``spatial`` axis above 1."""
-    for axis in ("tensor", "spatial"):
-        if shape.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis}={shape[axis]} is not ported yet (ROADMAP A.11, "
-                "distribution): the port shards the data, fsdp and expert axes")
+    """Raise for a ``spatial`` axis above 1."""
+    if shape.get("spatial", 1) > 1:
+        raise NotImplementedError(
+            f"mesh axis spatial={shape['spatial']} is not ported yet (ROADMAP A.11, "
+            "distribution): the port shards the data, fsdp, expert and tensor axes")
 
 
-#: the batch axes of the grid a rank sits on, row-major
-GRID = ("data", "fsdp", "expert")
+#: the axes of the grid a rank sits on, row-major (tensor innermost)
+GRID = ("data", "fsdp", "expert", "tensor")
+#: the axes that split leaves
+SPLITTING = ("fsdp", "expert", "tensor")
 #: {Mesh field: the axes along which its ranks differ}
-GROUPS = {"fsdp_group": ("fsdp",), "expert_group": ("expert",),
-          "fsdp_replicas": ("data", "expert"), "expert_replicas": ("data", "fsdp"),
-          "data_group": ("data",)}
+GROUPS = {"fsdp_group": ("fsdp",), "expert_group": ("expert",), "tensor_group": ("tensor",)}
+
+
+def replica_axes(split: Sequence[str]) -> Tuple[str, ...]:
+    """The grid axes along which the ranks holding the same shard of a leaf
+    differ: every axis but the ``split`` ones that split it."""
+    return tuple(a for a in GRID if a not in split)
+
+
+def _varying(shape: Mapping[str, int], axes: Sequence[str]) -> Tuple[str, ...]:
+    return tuple(a for a in GRID if a in axes and shape[a] > 1)
 
 
 def _coords(shape: Mapping[str, int], rank: int) -> Dict[str, int]:
-    """``rank``'s (data, fsdp, expert) coordinates, row-major."""
+    """``rank``'s (data, fsdp, expert, tensor) coordinates, row-major."""
     out = {}
     for axis in reversed(GRID):
         rank, out[axis] = divmod(rank, shape[axis])
@@ -191,24 +227,27 @@ def _rank(shape: Mapping[str, int], coords: Mapping[str, int]) -> int:
 
 
 def _groups(shape: Mapping[str, int], rank: int, backend: str) -> dict:
-    """The groups of :data:`GROUPS` that hold ``rank`` (None where a group
-    is the world or the rank alone) and the control group; every rank makes
+    """The groups of :data:`GROUPS` and the replica groups of every split
+    (each set of splitting axes) that hold ``rank`` (None where a group is
+    the world or the rank alone), and the control group; every rank makes
     every group, in the same order."""
     world = math.prod(shape[a] for a in GRID)
-    out, made = {}, {}
-    for name, axes in GROUPS.items():
-        varying = tuple(a for a in axes if shape[a] > 1)
-        if not varying or math.prod(shape[a] for a in varying) == world:
-            continue
-        if varying not in made:  # a group already made for the same ranks serves again
-            fixed = [a for a in GRID if a not in varying]
-            for at in itertools.product(*(range(shape[a]) for a in fixed)):
-                ranks = [_rank(shape, dict(zip(fixed, at), **dict(zip(varying, v))))
-                         for v in itertools.product(*(range(shape[a]) for a in varying))]
-                group = dist.new_group(sorted(ranks))
-                if rank in ranks:
-                    made[varying] = group
-        out[name] = made[varying]
+    made = {}
+    wanted = list(GROUPS.values()) + [replica_axes(split) for n in range(len(SPLITTING) + 1)
+                                      for split in itertools.combinations(SPLITTING, n)]
+    for axes in wanted:
+        varying = _varying(shape, axes)
+        if not varying or math.prod(shape[a] for a in varying) == world or varying in made:
+            continue  # the rank alone, the world, or a group already made for the same ranks
+        fixed = [a for a in GRID if a not in varying]
+        for at in itertools.product(*(range(shape[a]) for a in fixed)):
+            ranks = [_rank(shape, dict(zip(fixed, at), **dict(zip(varying, v))))
+                     for v in itertools.product(*(range(shape[a]) for a in varying))]
+            group = dist.new_group(sorted(ranks))
+            if rank in ranks:
+                made[varying] = group
+    out = {name: made.get(_varying(shape, axes)) for name, axes in GROUPS.items()}
+    out["replica_groups"] = made
     if backend != "gloo" and world > 1:
         out["control_group"] = dist.new_group(backend="gloo")
     return out
@@ -298,7 +337,7 @@ def state_sharding(state, mesh, min_weight_size: int = MIN_WEIGHT_SIZE) -> dict:
 def split_axes(params: Mapping[str, torch.Tensor], mesh: Mesh,
                min_weight_size: Optional[int] = None, axis: str = "fsdp") -> Dict[str, int]:
     """{name: the tensor axis it is split along} of the leaves that the
-    mesh axis ``axis`` (``fsdp`` or ``expert``) splits."""
+    mesh axis ``axis`` (``fsdp``, ``expert`` or ``tensor``) splits."""
     if mesh.shape[axis] == 1:
         return {}
     size = mesh.min_weight_size if min_weight_size is None else min_weight_size
@@ -311,6 +350,14 @@ def expert_axes(params: Mapping[str, torch.Tensor], mesh: Mesh,
     """{name: the tensor axis it is split along} of the expert stacks the
     ``expert`` axis splits (axis 0, E), by JAX's rule."""
     return split_axes(params, mesh, min_weight_size, "expert")
+
+
+def tensor_axes(params: Mapping[str, torch.Tensor], mesh: Mesh,
+                min_weight_size: Optional[int] = None) -> Dict[str, int]:
+    """{name: the tensor axis it is split along} of the leaves the
+    ``tensor`` axis splits: the output axis of each conv and Dense kernel
+    and the features of each embedding table, by JAX's rule."""
+    return split_axes(params, mesh, min_weight_size, "tensor")
 
 
 # --------------------------------------------------------------- collectives

@@ -17,12 +17,18 @@ for the forward and their gradients reduce-scattered; Adam and the EMA run
 on the shard. ``expert``: the MoE layers run on the rank's expert shards
 (never gathered; their all-to-alls bring the expert group's tokens), so a
 shard's gradient already sums its group's tokens and is summed only over
-the ranks that hold the same shard. The clip's norm counts each distinct
-shard once. A rank cannot draw dropout or router noise over the global
-batch as JAX's one program does, so rank r of R draws as microbatch r of
-an accumulated step (:func:`microbatch_generators`), and routes its own
-tokens as one routing group: R ranks at global batch B compute what one
-process computes at batch B/R with ``accumulate_grad_batches=R``.
+the ranks that hold the same shard. ``tensor``: the UNet runs on channel
+shards (``parallel/tensor.py``); a split kernel's gradient is its shard's
+whole gradient, summed over its replicas only, and a whole leaf's is a
+partial sum over the tensor group, which the world all-reduce completes;
+the loss, alike on the T ranks of a group, is divided by T before that
+all-reduce. The clip's norm counts each distinct shard once. A rank cannot
+draw dropout or router noise over the global batch as JAX's one program
+does, so batch rank r of R (``Mesh.batch_index``, shared by a tensor
+group) draws as microbatch r of an accumulated step
+(:func:`microbatch_generators`), and routes its own tokens as one routing
+group: R batch ranks at global batch B compute what one process computes
+at batch B/R with ``accumulate_grad_batches=R``.
 """
 
 from __future__ import annotations
@@ -33,8 +39,10 @@ import numpy as np
 import torch
 
 from dmme_tpu_torch.models.moe import ExpertGroup, place_experts
-from dmme_tpu_torch.parallel.mesh import (GROUPS, broadcast_, expert_axes, flat_all_reduce,
-                                          gather_leaves, scatter_leaves, shard_of, split_axes)
+from dmme_tpu_torch.parallel.mesh import (broadcast_, expert_axes, flat_all_reduce,
+                                          gather_leaves, replica_axes, scatter_leaves, shard_of,
+                                          split_axes, tensor_axes)
+from dmme_tpu_torch.parallel.tensor import TensorGroup
 
 LossFn = Callable[[Dict[str, torch.Tensor], torch.Generator, Any], torch.Tensor]
 
@@ -74,7 +82,7 @@ def make_train_step(loss_fn: LossFn, debug_nans: bool = False, mesh=None):
     def step(state, batch, seed: int):
         generator = step_generator(seed, state.step, _device(batch))
         if mesh is not None and mesh.batch_ranks > 1 and not is_grad_fn:
-            generator = microbatch_generators(generator, mesh.batch_ranks)[mesh.rank]
+            generator = microbatch_generators(generator, mesh.batch_ranks)[mesh.batch_index]
         whole = state.params
         if state.shard_axes:
             whole = dict(whole, **gather_leaves(mesh, whole, state.shard_axes))
@@ -91,9 +99,8 @@ def make_train_step(loss_fn: LossFn, debug_nans: bool = False, mesh=None):
         if mesh is None:
             norm = global_norm(grads.values())
         else:
-            loss, grads = reduce_gradients(mesh, loss, grads, state.shard_axes,
-                                           state.expert_axes)
-            norm = sharded_norm(mesh, grads, state.shard_axes, state.expert_axes)
+            loss, grads = reduce_gradients(mesh, loss, grads, state.split)
+            norm = sharded_norm(mesh, grads, state.split)
         metrics = {"loss": loss, "grad_norm": norm}
         if debug_nans and not all(bool(torch.isfinite(v)) for v in metrics.values()):
             raise FloatingPointError(
@@ -106,34 +113,44 @@ def make_train_step(loss_fn: LossFn, debug_nans: bool = False, mesh=None):
 
 
 def reduce_gradients(mesh, loss: torch.Tensor, grads: Dict[str, torch.Tensor],
-                     shard_axes: Dict[str, int], expert_axes: Dict[str, int]):
+                     split: Dict[str, Dict[str, int]]):
     """The global batch's loss and gradients from this rank's, all divided
-    by the batch ranks: every whole leaf and the loss all-reduced over the
-    world in flat buckets (in place); every fsdp-split leaf reduce-scattered
-    over the fsdp group; then each split leaf summed over the replicas of
-    its shard (an expert shard's gradient already holds its expert group's
-    tokens). Returns (loss, grads) with the fsdp leaves as this rank's shards."""
+    by the batch ranks: every whole leaf and the loss (divided by the
+    tensor size first: a tensor group's ranks compute it alike) all-reduced
+    over the world in flat buckets (in place); every fsdp-split leaf
+    reduce-scattered over the fsdp group; then each split leaf summed over
+    the replicas of its shard (an expert shard's gradient already holds its
+    expert group's tokens, a tensor shard's its group's whole gradient).
+    ``split``: {mesh axis: {name: axis}} of the split leaves
+    (``TrainState.split``). Returns (loss, grads) with the fsdp leaves as
+    this rank's shards."""
     ranks = float(mesh.batch_ranks)
-    loss = loss.reshape(1).clone()
-    flat_all_reduce([g for k, g in grads.items() if k not in shard_axes and k not in expert_axes]
-                    + [loss], divisor=ranks)
-    if shard_axes:
-        grads = dict(grads, **scatter_leaves(mesh, grads, shard_axes))
-    split = [k for k in grads if k in shard_axes or k in expert_axes]
-    for name in ("fsdp_replicas", "expert_replicas", "data_group"):
-        leaves = [grads[k] for k in split if _replicas(k, shard_axes, expert_axes) == name]
-        if leaves and mesh.size(*GROUPS[name]) > 1:
-            flat_all_reduce(leaves, group=getattr(mesh, name))
-    for k in split:
-        grads[k].div_(ranks)
+    loss = loss.reshape(1) / mesh.tensor
+    flat_all_reduce([g for k, g in grads.items() if not _splitting(k, split)] + [loss],
+                    divisor=ranks)
+    if split["fsdp"]:
+        grads = dict(grads, **scatter_leaves(mesh, grads, split["fsdp"]))
+    by_replicas: Dict[tuple, list] = {}
+    for k in grads:
+        if _splitting(k, split):
+            by_replicas.setdefault(_replicas(k, split), []).append(k)
+    for axes, names in by_replicas.items():
+        if mesh.size(*axes) > 1:
+            flat_all_reduce([grads[k] for k in names], group=mesh.replicas(axes))
+        for k in names:
+            grads[k].div_(ranks)
     return loss.reshape(()), grads
 
 
-def _replicas(name: str, shard_axes, expert_axes) -> str:
-    """The group of the ranks that hold the same shard of split leaf ``name``."""
-    if name in shard_axes and name in expert_axes:
-        return "data_group"
-    return "fsdp_replicas" if name in shard_axes else "expert_replicas"
+def _splitting(name: str, split) -> tuple:
+    """The mesh axes that split leaf ``name``."""
+    return tuple(axis for axis, names in split.items() if name in names)
+
+
+def _replicas(name: str, split) -> tuple:
+    """The grid axes along which the ranks holding the same shard of split
+    leaf ``name`` differ."""
+    return replica_axes(_splitting(name, split))
 
 
 def make_train_chunk(loss_fn: LossFn, steps: int, debug_nans: bool = False, mesh=None):
@@ -173,22 +190,22 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def sharded_norm(mesh, grads: Dict[str, torch.Tensor], shard_axes: Dict[str, int],
-                 expert_axes: Dict[str, int]) -> torch.Tensor:
+def sharded_norm(mesh, grads: Dict[str, torch.Tensor],
+                 split: Dict[str, Dict[str, int]]) -> torch.Tensor:
     """:func:`global_norm` of the whole gradients, of which the split leaves
     are this rank's shards: their squares summed over the world (one
     all-reduce), each distinct shard counted once (by the first of its
     replicas), the whole leaves' added once."""
-    split = {k for k in grads if k in shard_axes or k in expert_axes}
-    if not split:
+    parted = {k for k in grads if _splitting(k, split)}
+    if not parted:
         return global_norm(grads.values())
-    mine = [g for k, g in grads.items() if k in split and all(
-        mesh.index(a) == 0 for a in GROUPS[_replicas(k, shard_axes, expert_axes)])]
+    mine = [g for k, g in grads.items() if k in parted
+            and all(mesh.index(a) == 0 for a in _replicas(k, split))]
     sq = (global_norm(mine).square() if mine
-          else torch.zeros((), dtype=torch.float32, device=grads[next(iter(split))].device))
+          else torch.zeros((), dtype=torch.float32, device=grads[next(iter(parted))].device))
     sq = sq.reshape(1)
     flat_all_reduce([sq])
-    whole = [g for k, g in grads.items() if k not in split]
+    whole = [g for k, g in grads.items() if k not in parted]
     if whole:
         sq = sq + global_norm(whole).square()
     return sq.sqrt().reshape(())
@@ -198,22 +215,33 @@ def shard_state(state, mesh, min_weight_size: Optional[int] = None, model=None):
     """Lay ``state`` out on ``mesh``, in place: rank 0's parameters, EMA and
     Adam moments broadcast to every rank, then each split leaf replaced by
     this rank's shard: its expert shard (the ``expert`` axis, by JAX's rule:
-    :func:`~dmme_tpu_torch.parallel.mesh.expert_axes`), then its fsdp shard
-    of that (:func:`~dmme_tpu_torch.parallel.mesh.split_axes`;
+    :func:`~dmme_tpu_torch.parallel.mesh.expert_axes`) or its tensor shard
+    (:func:`~dmme_tpu_torch.parallel.mesh.tensor_axes`), then its fsdp
+    shard of that (:func:`~dmme_tpu_torch.parallel.mesh.split_axes`;
     ``min_weight_size`` defaults to the mesh's). ``model``: the module the
-    params bind to, whose MoE layers learn where their experts live (an
-    expert mesh that splits a stack needs it). Returns the state."""
-    parts = [state.params, state.ema_params, state.opt_state.mu, state.opt_state.nu]
-    if mesh.world > 1:
-        broadcast_([t for part in parts for t in part.values()])
+    params bind to, whose MoE layers learn where their experts live and
+    whose UNet learns its ``TensorGroup`` (an expert mesh that splits a
+    stack, and any tensor mesh, need it; a model without a tensor-parallel
+    forward raises there, before the state changes). Returns the state."""
     experts = expert_axes(state.params, mesh, min_weight_size)
+    tensors = tensor_axes(state.params, mesh, min_weight_size)
     axes = split_axes(state.params, mesh, min_weight_size)
-    for part in parts:
-        for k, a in experts.items():
-            part[k] = shard_of(mesh, part[k], a, "expert")
-        for k, a in axes.items():
-            part[k] = shard_of(mesh, part[k], a)
+    if model is None and (experts or mesh.tensor > 1):
+        raise ValueError(f"the {'expert' if experts else 'tensor'} axis splits "
+                         f"{len(experts or tensors)} leaves: pass the model (shard_state(..., "
+                         "model=)) so that its layers learn where their shards live")
+    if mesh.tensor > 1 and not hasattr(model, "place_tensor"):
+        raise NotImplementedError(
+            f"mesh axis tensor={mesh.tensor}: the port runs the tensor axis for the UNet "
+            f"families only; {type(model).__name__} has no tensor-parallel forward yet "
+            "(ROADMAP A.11, distribution)")
     if model is not None:
+        if mesh.tensor > 1:
+            model.place_tensor(TensorGroup(mesh.tensor_group, mesh.tensor,
+                                           mesh.index("tensor")), tensors)
+            if mesh.rank == 0:
+                print(f"[shard_state] {len(tensors)} leaves split over {mesh.tensor} tensor "
+                      f"ranks; activations gathered over {mesh.backend}", flush=True)
         where = None
         if experts:
             where = ExpertGroup(mesh.expert_group, mesh.expert, mesh.index("expert"))
@@ -222,19 +250,27 @@ def shard_state(state, mesh, min_weight_size: Optional[int] = None, model=None):
                       f"ranks; all-to-all over {mesh.backend}, direct on {mesh.device.type} "
                       "tensors", flush=True)
         place_experts(model, where)
-    elif experts:
-        raise ValueError(f"the expert axis splits {len(experts)} MoE stacks: pass the model "
-                         "(shard_state(..., model=)) so that its layers learn their experts")
+    parts = [state.params, state.ema_params, state.opt_state.mu, state.opt_state.nu]
+    if mesh.world > 1:
+        broadcast_([t for part in parts for t in part.values()])
+    for part in parts:
+        for k, a in experts.items():
+            part[k] = shard_of(mesh, part[k], a, "expert")
+        for k, a in tensors.items():
+            part[k] = shard_of(mesh, part[k], a, "tensor")
+        for k, a in axes.items():
+            part[k] = shard_of(mesh, part[k], a)
     state.mesh, state.shard_axes, state.expert_axes = mesh, axes, experts
+    state.tensor_axes = tensors
     return state
 
 
 def shard_batch(batch, mesh, chunked: bool = False):
     """This rank's slice of a GLOBAL batch (numpy arrays or tensors, or a
     tuple of them): the batch axis (axis 1 if ``chunked``) split over the
-    batch ranks, slice ``mesh.rank``, on the rank's device."""
+    batch ranks, slice ``mesh.batch_index``, on the rank's device."""
     if isinstance(batch, tuple):
         return tuple(shard_batch(b, mesh, chunked) for b in batch)
     t = torch.as_tensor(batch)
-    part = t.chunk(mesh.batch_ranks, dim=1 if chunked else 0)[mesh.rank]
+    part = t.chunk(mesh.batch_ranks, dim=1 if chunked else 0)[mesh.batch_index]
     return part.contiguous().to(mesh.device)

@@ -147,6 +147,8 @@ class CheckpointManager:
                          saved["opt_state"]["nu"]):
                 for k, a in state_like.expert_axes.items():
                     part[k] = shard_of(state_like.mesh, part[k], a, "expert")
+                for k, a in state_like.tensor_axes.items():
+                    part[k] = shard_of(state_like.mesh, part[k], a, "tensor")
                 for k, a in state_like.shard_axes.items():
                     part[k] = shard_of(state_like.mesh, part[k], a)
         _copy_into(state_like.params, saved["params"], "params")

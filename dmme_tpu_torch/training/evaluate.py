@@ -116,8 +116,9 @@ def test(lit, datamodule, *, ckpt_dir: Optional[str] = None, ckpt_step: Optional
     carry a ``warning``. ``fid_stats``: precomputed real (μ, Σ) in
     pytorch-fid's ``.npz``, which skips the real pass; ``save_fid_stats``
     writes this run's (rank 0 on a mesh). ``device=None`` means the CUDA
-    device; ``mesh`` (``parallel.make_mesh``) splits the batches over its
-    ranks, on the mesh's device, with the weights whole on every rank."""
+    device; ``mesh`` (``parallel.make_mesh``) splits the batches over all
+    its ranks (a tensor group's too), on the mesh's device, with the
+    weights whole on every rank."""
     from dmme_tpu_torch.diffusion.factory import make_sampler
     from dmme_tpu_torch.eval import FrechetInceptionDistance, InceptionScore, make_feature_fn
     from dmme_tpu_torch.utils.norm import denorm
@@ -141,11 +142,13 @@ def test(lit, datamodule, *, ckpt_dir: Optional[str] = None, ckpt_step: Optional
     if mesh is not None:
         require_ported(mesh.shape)
     device = resolve_device(device) if mesh is None else mesh.device
-    ranks, rank = (1, 0) if mesh is None else (mesh.batch_ranks, mesh.rank)
+    # the weights are whole on every rank, so each rank of the world scores
+    # batches of its own, whatever axes the mesh has
+    ranks, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
     datamodule.prepare_data()
     datamodule.setup("test")
     if state is not None:
-        if getattr(state, "sharded", False):  # fsdp or expert shards: JAX replicates the weights
+        if getattr(state, "sharded", False):  # any shards: JAX replicates the weights
             state = state.whole(moments=False)
     else:
         state = lit.init_state(torch.Generator().manual_seed(seed), device=device)

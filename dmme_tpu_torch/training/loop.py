@@ -18,8 +18,10 @@ inside a step saves nothing.
 
 On a mesh (``parallel.make_mesh``) every rank runs this loop: the state is
 laid out with ``shard_state`` (which also tells the model's MoE layers
-where their experts live on an ``expert`` axis), each rank feeds its slice of the global
-batch (``train_iter(process_index=, process_count=)``), the train step
+where their experts live on an ``expert`` axis, and a UNet its tensor group
+on a ``tensor`` axis), each rank feeds the slice of the global batch of its
+batch index, which a tensor group shares
+(``train_iter(process_index=, process_count=)``), the train step
 reduces over the ranks, and at each safe point the ranks vote on stopping
 (one small all-reduce), so a signal to one rank stops all of them at the
 same step. Rank 0 writes the checkpoints, the metrics and the grids.
@@ -164,7 +166,7 @@ def _fit_once(
                 "training (each host must feed its shard of the global "
                 "batch; see data/data_module.py)"
             )
-        it_kwargs.update(process_index=mesh.rank, process_count=ranks)
+        it_kwargs.update(process_index=mesh.batch_index, process_count=ranks)
     it = datamodule.train_iter(seed, skip_batches=state.step * max(accumulate_grad_batches, 1),
                                **it_kwargs)
     if mesh is None:
@@ -319,9 +321,9 @@ def _microbatched(loss_fn, k: int, mesh=None):
     microbatch's activations live at a time; the loss and the gradient are
     the means over the k. Returns ``(params, generator, stacked) -> (loss,
     grads)``, marked ``is_grad_fn`` so the train step takes no gradient of
-    its own. On a mesh of R batch ranks, rank r's microbatch j draws as
-    microbatch j·R + r of one process accumulating k·R."""
-    ranks, rank = (1, 0) if mesh is None else (mesh.batch_ranks, mesh.rank)
+    its own. On a mesh of R batch ranks, batch rank r's microbatch j draws
+    as microbatch j·R + r of one process accumulating k·R."""
+    ranks, rank = (1, 0) if mesh is None else (mesh.batch_ranks, mesh.batch_index)
 
     def accum_grads(params, generator, stacked):
         total, acc = None, None

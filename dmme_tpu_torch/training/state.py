@@ -2,9 +2,9 @@
 
 {step, params, ema_params, opt_state} with the optimizer and the EMA
 settings beside them, and, after ``parallel.shard_state``, the mesh and the
-axis each split leaf is split along, on the ``fsdp`` and on the ``expert``
-mesh axis: its parameters, EMA and moments are then this rank's shards
-(:meth:`TrainState.whole` gathers them). JAX
+axis each split leaf is split along, on the ``fsdp``, ``expert`` and
+``tensor`` mesh axes: its parameters, EMA and moments are then this rank's
+shards (:meth:`TrainState.whole` gathers them). JAX
 returns a new state from each step and donates the old one; here the step
 updates the tensors in place, under
 ``torch.no_grad()``. An in-place update bumps each tensor's version
@@ -42,11 +42,18 @@ class TrainState:
     shard_axes: Dict[str, int] = dataclasses.field(default_factory=dict)
     #: {name: axis} of the MoE stacks held as this rank's expert shard
     expert_axes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: {name: axis} of the kernels held as this rank's tensor (column) shard
+    tensor_axes: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def sharded(self) -> bool:
         """Whether this rank holds shards of some leaves."""
-        return bool(self.shard_axes or self.expert_axes)
+        return bool(self.shard_axes or self.expert_axes or self.tensor_axes)
+
+    @property
+    def split(self) -> Dict[str, Dict[str, int]]:
+        """{mesh axis: {name: axis}} of the split leaves."""
+        return {"fsdp": self.shard_axes, "expert": self.expert_axes, "tensor": self.tensor_axes}
 
     @classmethod
     def create(cls, params: Dict[str, torch.Tensor], tx: ClipAdam, ema_decay: float = 0.9999,
@@ -74,14 +81,15 @@ class TrainState:
     def whole(self, moments: bool = True) -> "TrainState":
         """This state with every shard gathered whole, off the mesh: with
         shards a collective that every rank calls (the fsdp shards, then the
-        expert shards); else the state itself. Without ``moments`` the copy
-        has no optimizer state (to sample)."""
+        expert and the tensor shards); else the state itself. Without
+        ``moments`` the copy has no optimizer state (to sample)."""
         if not self.sharded:
             return self
 
         def full(d):
             d = dict(d, **gather_leaves(self.mesh, d, self.shard_axes))
-            return dict(d, **gather_leaves(self.mesh, d, self.expert_axes, "expert"))
+            d = dict(d, **gather_leaves(self.mesh, d, self.expert_axes, "expert"))
+            return dict(d, **gather_leaves(self.mesh, d, self.tensor_axes, "tensor"))
 
         opt = None
         if moments:
@@ -89,7 +97,7 @@ class TrainState:
                                       nu=full(self.opt_state.nu))
         return dataclasses.replace(self, params=full(self.params),
                                    ema_params=full(self.ema_params), opt_state=opt,
-                                   mesh=None, shard_axes={}, expert_axes={})
+                                   mesh=None, shard_axes={}, expert_axes={}, tensor_axes={})
 
     def to(self, device) -> "TrainState":
         """A copy on ``device`` (the same tensors where they already live there)."""

@@ -344,8 +344,8 @@ def test_unported_subcommands_and_options_name_their_roadmap_item(tmp_path, caps
         main(["sample", "--config", cfg, "--trainer.sampler", "edm"], device="cpu")
     with pytest.raises(ValueError, match="sampler=flow needs a flow-matching-trained model"):
         main(["sample", "--config", cfg, "--trainer.sampler", "flow"], device="cpu")
-    with pytest.raises(NotImplementedError, match=r"mesh axis tensor=2 .*ROADMAP A\.11"):
-        main(["fit", "--config", cfg, "--trainer.mesh.tensor", "2"], device="cpu")
+    with pytest.raises(NotImplementedError, match=r"mesh axis spatial=2 .*ROADMAP A\.11"):
+        main(["fit", "--config", cfg, "--trainer.mesh.spatial", "2"], device="cpu")
 
 
 def test_serve_builds_a_sampler_on_the_restored_state(tmp_path, monkeypatch):
@@ -432,16 +432,16 @@ def test_iddpm_sample_override_is_the_factory_on_the_restored_state(tmp_path):
 def test_imagenet64_names_what_it_waits_for():
     """configs/iddpm/imagenet64.yaml validates (the IDDPM UNet at the
     ImageNet-64 widths on ``ImageFolder64``, ported with ROADMAP A.12) and
-    its ``{data: -1, fsdp: 1}`` mesh is ported (A.11); a ``tensor`` axis
+    its ``{data: -1, fsdp: 1}`` mesh is ported (A.11); a ``spatial`` axis
     on top of it still makes ``fit`` raise naming A.11, before any data is
     read or any process group made."""
     path = os.path.join(ROOT, "configs/iddpm/imagenet64.yaml")
     config = tcfg.validate_config(tcfg.load_config(path))
     assert config["data"]["class_path"] == "dmme_tpu.data.ImageFolder64"
     assert config["trainer"]["mesh"] == {"data": -1, "fsdp": 1}
-    with pytest.raises(NotImplementedError, match=r"mesh axis tensor=2 .*ROADMAP A\.11"):
+    with pytest.raises(NotImplementedError, match=r"mesh axis spatial=2 .*ROADMAP A\.11"):
         main(["fit", "--config", path, "--data.init_args.synthetic", "true",
-              "--data.init_args.synthetic_size", "8", "--trainer.mesh.tensor", "2"],
+              "--data.init_args.synthetic_size", "8", "--trainer.mesh.spatial", "2"],
              device="cpu")
     assert not torch.distributed.is_initialized()
 

@@ -273,8 +273,8 @@ def test_trainer_test_runbook_chain(twin, tmp_path, capsys):
     _close(second["fid"], first["fid"], METRIC_RTOL)
     with pytest.raises(ValueError, match=r"unknown sampler 'cached' \(ddim\|dpm\|edm"):
         main(["test", "--config", str(cfg), "--trainer.sampler", "cached"], device="cpu")
-    with pytest.raises(NotImplementedError, match=r"mesh axis tensor=2 .*A\.11"):
-        main(["test", "--config", str(cfg), "--trainer.mesh.tensor", "2"], device="cpu")
+    with pytest.raises(NotImplementedError, match=r"mesh axis spatial=2 .*A\.11"):
+        main(["test", "--config", str(cfg), "--trainer.mesh.spatial", "2"], device="cpu")
     with pytest.raises(AssertionError, match=r"\(1, 1, 2, 1, 1\)"):  # expert is ported
         main(["test", "--config", str(cfg), "--trainer.mesh.expert", "2"], device="cpu")
     with pytest.raises(ValueError, match="test needs a diffusion harness; LitClassifier"):

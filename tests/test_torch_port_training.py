@@ -293,7 +293,7 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=Mesh(shape=mesh_shape(2, tensor=2), rank=0, device=torch.device("cpu"),
+    (dict(mesh=Mesh(shape=mesh_shape(2, spatial=2), rank=0, device=torch.device("cpu"),
                     backend="gloo")), "A.11"),
 ])
 def test_fit_arguments_not_ported_raise(kwargs, item):
