@@ -18,7 +18,7 @@ if the package is missing, or if any phase fails. Phases:
    one full-width bf16 UNet forward at each serving batch, 1, 8 and 16 (both
    switches on; at batch 8 also ``fused_norm`` only), then holds each kernel
    against its plain PyTorch version on those inputs, with times (CUDA
-   events, median of 5, of 3 for the plain versions; K4's weights are
+   events, median of 5, of 2 for the plain versions; K4's weights are
    packed once per weight state,
    before the timed runs) and the least time the card could take; beside
    K3, SDPA; beside K4, the same ResBlock as a cuDNN sequence
@@ -36,8 +36,8 @@ if the package is missing, or if any phase fails. Phases:
    feature-caching samplers ``cached``, ``deep`` and ``deep_dpm`` at n = 8
    (refresh interval 2: launches 1/6/22 a key forward, 1/4/14 a ``cached``
    and 1/0/5 a ``deep`` non-key one), ``edm`` and ``flow`` answered 400;
-   then one request of n = 1 and of n = 8 under ``torch.profiler``: device
-   time by kernel and the device's idle share;
+   then one request of n = 8 under ``torch.profiler``: device time by
+   kernel and the device's idle share;
 6. train kernels — records the inputs of K1, K2, K3 and the attention
    backward at every call site of one full-width bf16 training step at batch
    128 (dropout on, random biases and affines) and holds each against its
@@ -65,9 +65,9 @@ if the package is missing, or if any phase fails. Phases:
 8. fit     — ``fit(LitDDPM(dtype="bf16"), CIFAR10(synthetic=True,
    batch_size=128))`` at the recipe's settings: warm steps, one step whose
    parameter and EMA updates are checked, 20 logged steps (loss and
-   grad_norm finite, launches per step), 10 steps timed with CUDA events
+   grad_norm finite, launches per step), 5 steps timed with CUDA events
    (median step ms, imgs/s), and three steps under ``torch.profiler``
-   (device idle share; device time by kernel for one step);
+   (device idle share; device time by kernel, a third of theirs);
 9. sample after training — a DDIM-50 n = 8 request from the trained raw
    weights through K4, equal byte for byte to the same request after K4's
    weight cache is cleared;
@@ -158,7 +158,7 @@ if the package is missing, or if any phase fails. Phases:
    training step at batch 128;
 25. CFG fit — ``trainer.main`` on ``configs/ddpm/shapes_cfg_demo.yaml``
    (full width, 32,418,179 parameters, bf16, batch 128, labelled Shapes):
-   fit 20 steps, a resume to 30 bitwise equal to an uninterrupted run,
+   fit 10 steps (5 a call), a resume to 15 bitwise equal to an uninterrupted run,
    ``validate`` on the true labels, ``sample --trainer.sampler ddim``, the
    labelled train step timed and profiled;
 26. CFG serve — ``LitDDIM(num_classes=2, guidance_scale=2)`` over HTTP:
@@ -190,7 +190,7 @@ if the package is missing, or if any phase fails. Phases:
    that misses it; ``classifier_grad`` in bf16 and f32;
 32. ADM fit — ``trainer.main fit`` of both ADM configs (synthetic CIFAR-10,
    the classifier's labelled) for 10 steps, the classifier resumed to 20
-   bitwise against an uninterrupted run, then 10 timed steps of each
+   bitwise against an uninterrupted run, then 5 timed steps of each
    (median, device busy, operations, idle share);
 33. guidance — a ``ClassifierGuidedDDIM`` 25-step request at n = 8 on the
    trained cosine schedule (wall, launches, finite, identical bytes for a
@@ -214,7 +214,7 @@ if the package is missing, or if any phase fails. Phases:
 37. DiT fit — ``trainer.main fit`` of both DiT configs (synthetic CIFAR-10,
    batch 128) for 10 steps, the DiT resumed from step 5 bitwise against an
    uninterrupted run; the router losses that entered one MoE training loss
-   and each MoE block's routed fractions f_e; 10 timed steps of each
+   and each MoE block's routed fractions f_e; 5 timed steps of each
    (median, device busy, operations, idle share, peak memory) and the MoE
    blocks' dense dispatch timed alone;
 38. DiT serve — both DiT flow harnesses over HTTP: ``default`` (25 midpoint
@@ -226,10 +226,10 @@ if the package is missing, or if any phase fails. Phases:
    plain version and timed, and the step timed; then
    ``python -m dmme_tpu_torch.distill`` on a temporary copy of
    ``configs/ddpm/cifar10.yaml`` whose teacher checkpoint a 2-step
-   ``trainer fit`` wrote: 2 rounds (500, then 250 steps) of 3 steps, and
-   the last student's DDIM-250 request at n = 8;
-40. inpainting — ``inpaint`` with ``LitDDPM``'s UNet and DDPM (T = 500), the left
-   half of n = 8 images known, ``resample_steps=2``: 1000 forwards through
+   ``trainer fit`` wrote: 2 rounds (100, then 50 steps) of 3 steps, and
+   the last student's DDIM-50 request at n = 8;
+40. inpainting — ``inpaint`` with ``LitDDPM``'s UNet and DDPM (T = 100), the left
+   half of n = 8 images known, ``resample_steps=2``: 200 forwards through
    K1, K3 and K4, the known pixels back bit for bit;
 41. latent kernels — the default latent UNet (``LitLatentDDPM``'s: the DDPM
    UNet at in_channels 4, both switches) on 16x16x4 latents: every K1, K3
@@ -247,12 +247,12 @@ if the package is missing, or if any phase fails. Phases:
    CPU; the f32 ``LitVAE()`` and ``LitLatentDDPM()`` within ``F32_REL_L2``,
    each with a bf16 control that misses it;
 43. latent cli — ``trainer.main fit`` of configs/latent/shapes_vae_demo.yaml
-   (20 steps, chunks of 10), then of shapes_latent_demo.yaml (a resume from
-   10 to 20, bitwise the uninterrupted run) and
+   (10 steps, chunks of 5), then of shapes_latent_demo.yaml (a resume from
+   5 to 10, bitwise the uninterrupted run) and
    shapes_latent_flow_dit_demo.yaml from its run directory; the written
    ``latent_scale.json`` equal to a recomputation; ``sample`` with and
    without ``--trainer.sampler ddim`` (32x32x3 grids); the stage-1 config's
-   ``sample --trainer.sampler ddim`` refused; 10 timed steps at batch 128 of
+   ``sample --trainer.sampler ddim`` refused; 5 timed steps at batch 128 of
    ``LitVAE``, the default ``LitLatentDDPM(dtype="bf16")`` over the trained
    codec and the latent DiT's ``LitLatentFlow``;
 44. latent serve — ``LitLatentDDPM`` over HTTP at 32 px: ``ddim`` and ``dpm``
@@ -284,20 +284,21 @@ if the package is missing, or if any phase fails. Phases:
 47. LSUN fit — ``trainer.main fit`` of configs/ddpm/lsun_church.yaml
    (batch 2, 256 px, remat, bf16, the LSUN widths; ``fused_norm`` and
    ``fused_block`` on and a log line a step; cut in depth by
-   ``LSUN_DEPTH``: 8 accumulated microbatches a step, not 32, and a DDPM of
+   ``LSUN_DEPTH``: 4 accumulated microbatches a step, not 32, and a DDPM of
    T = 100, not 1000) for 2 steps on a
    synthetic LMDB of 96 JPEGs (256×341 and 300×256) read by the native
    scanner into the memmap decode cache, with the config's GenerateImage
-   and ``ProfileTrace`` over step 2: the steps' launches = 2 × 8 × a
+   and ``ProfileTrace`` over step 2: the steps' launches = 2 × 4 × a
    microbatch's call sites and the grid's = 100 × a sampling forward's,
    each counted apart, no f32, fp16 or ``simt.cu`` launch; the trace names
    K1, K2 and K3 (the step's idle share); the losses finite; one more step
-   resumed in streaming mode; the decode's host time, each step's and the
+   of 2 microbatches resumed in streaming mode; the decode's host time,
+   each step's and the
    grid's host time, the peak memory; every K1/K3/K4 call of a
    sampling forward at n = 4 and K1/K2/K3 call of one microbatch held
    against its plain version (``TOL``), twice for identical bytes, and
-   timed; the bf16 microbatch loss, gradient and forward against f32 on the
-   CPU at 256 px;
+   timed; the bf16 loss, gradient and forward of one 256-px image against
+   f32 on the CPU;
 48. ImageNet-64 — ``trainer.main fit`` of configs/iddpm/imagenet64.yaml
    as written (batch 128, 64 px, 4 heads of 96 and 128, hybrid loss,
    cosine T = 4000, remat, ``fused_norm``; its mesh ``{data: -1, fsdp: 1}``
@@ -306,7 +307,7 @@ if the package is missing, or if any phase fails. Phases:
    null``: the two saved states bitwise equal (deterministic cuDNN); then
    ``sample --trainer.sampler ddim --trainer.sample_batch 8`` with
    ``fused_block`` (K4 at the 30 ResBlocks, C 384 and 768); launches as the
-   call sites say; the step (median of 10) with and without the mesh (NCCL's
+   call sites say; the step (median of 5) with and without the mesh (NCCL's
    all-reduce in a profiled mesh step) and the request timed with their idle
    shares; every K1/K2/K3 call of a step at batch 128 and K1/K3/K4 call of a
    forward at n = 8 held against its plain version, twice, and timed; the
@@ -336,7 +337,7 @@ if the package is missing, or if any phase fails. Phases:
    timed; K3 at every call site of a rank's batch-64 step held against its
    plain version. In the same launch, the ``tensor`` axis:
    ``trainer.main fit`` of configs/ddpm/lsun_church.yaml at full width
-   (``fused_norm`` on, every bias and GroupNorm affine drawn; 2 steps of 2
+   (``fused_norm`` on, every bias and GroupNorm affine drawn; 1 step of 2
    microbatches, not 32) with ``--trainer.mesh "{data: -1, tensor: 2}"``:
    each rank holding 782,362,672 B in 140 split kernels, each step's loss
    and grad norm within 1e-2 of one process here on the same batches
@@ -347,7 +348,20 @@ if the package is missing, or if any phase fails. Phases:
    G/2 groups) those of the half-width UNet, its K3 sites phase 47's; no
    f32, fp16 or ``simt.cu`` launch; a rank's step and its largest
    activation all-gather timed; K1/K2 at every call site of the half-width
-   UNet's microbatch held against their plain versions;
+   UNet's microbatch held against their plain versions. In the same
+   launch, the ``tensor`` axis for the DiTs: ``trainer.main fit`` of
+   configs/flow/cifar10_dit.yaml and configs/flow/cifar10_dit_moe.yaml at
+   full width (bf16, global batch 128 on both ranks, 2 steps, every
+   zero-initialised weight drawn) with ``--trainer.mesh "{data: -1,
+   tensor: 2}"``: each rank holding 260,561,664 B and 658,509,312 B in 65
+   split kernels, each step's loss and grad norm within 1e-2 of one process
+   here on the same batches without a mesh, the first reduced gradient
+   (the routers' too) gathered whole within ``GRAD_REL_L2`` of that
+   process's, the checkpoint restored here without a mesh bit for bit the
+   gathered state; each rank's launches the one process's (12 K3 a step:
+   the attention runs whole) at phase 35's K3 call sites, K3 held against
+   its plain version on the rank's own inputs; no f32, fp16 or ``simt.cu``
+   launch; a rank's step and its largest activation all-gather timed;
 50. two-rank test — in the same launch, ``trainer.main test`` of
    configs/ddim/cifar10.yaml from phase 46's run with
    ``--trainer.mesh.data 2``, one test batch a rank: phase 46's FID and IS
@@ -428,11 +442,13 @@ ATTN_BWD_REL_L2 = 2e-2
 # relative L2 of the flattened gradient
 GRAD_REL_L2 = 5e-2
 TRAIN_BATCH = 128
-FIT_WARM, FIT_STEPS, TIMED_STEPS = 3, 20, 10
+FIT_WARM, FIT_STEPS, TIMED_STEPS = 3, 20, 5
+# timed steps of the default harness in f32 and fp16 (the script's 25)
+HARNESS_TIMED_STEPS = 10
 #: the batch of the f32 phases' loss and gradient against the CPU: the card's
 #: kernels are held at batch 128 against their plain versions there, and the
 #: CPU's f32 reference of a batch-128 step cost most of those phases' time
-CPU_REF_BATCH = 16
+CPU_REF_BATCH = 8
 # launches of one training step of the full-width UNet
 PER_TRAIN_STEP = {"group_norm_silu": 45, "group_norm_silu_bwd": 45, "attention": 6,
                   "resblock": 0}
@@ -459,7 +475,10 @@ TRAIN_STEP_TFLOP = 3.53
 # runs of each plain version timed (``device_ms``): they are yardsticks tens
 # to hundreds of times slower than the kernels, and more runs of them cost
 # more of the run's time budget than they add to the ratio's precision
-PLAIN_REPS = 3
+PLAIN_REPS = 2
+# warm calls before a plain version's timed runs: the error check has just
+# run it once on the same inputs
+PLAIN_WARM = 1
 # timed runs of a kernel or library yardstick (``device_ms``) after its two
 # warm calls: timing a call site cost most of the whole run's time
 KERNEL_REPS = 5
@@ -470,10 +489,22 @@ def fail(msg: str) -> None:
 
 
 _T0 = time.time()
+#: [(name, start)] of the run's phases
+_PHASES = []
 
 
 def phase(name: str) -> None:
-    print(f"\n== {name} == ({time.time() - _T0:.1f} s into the run)", flush=True)
+    now = time.time()
+    if _PHASES:
+        print(f"(phase {len(_PHASES)} took {now - _PHASES[-1][1]:.1f} s)", flush=True)
+    _PHASES.append((name, now))
+    print(f"\n== {name} == ({now - _T0:.1f} s into the run)", flush=True)
+
+
+def phase_seconds() -> list:
+    """[(phase, seconds)] of the run's phases so far, the last one up to now."""
+    ends = [t for _, t in _PHASES[1:]] + [time.time()]
+    return [(name, end - t) for (name, t), end in zip(_PHASES, ends)]
 
 
 def nvidia_smi() -> str:
@@ -502,12 +533,13 @@ def sleep_cycles(torch, host_s: float) -> int:
     return int(min(2_000_000, max(0.1, 4e3 * host_s) * _SLEEP_CYCLES_PER_MS[0]))
 
 
-def device_ms(torch, fn, reps: int = KERNEL_REPS) -> float:
-    """Median device time of ``fn()`` in ms. A sleep kernel queued before each
-    run, four times as long as the last warm call took the host to enqueue,
-    lets the host enqueue the whole call before the start event fires, so
-    the interval holds device time, not launch overhead."""
-    for _ in range(2):
+def device_ms(torch, fn, reps: int = KERNEL_REPS, warm: int = 2) -> float:
+    """Median device time of ``fn()`` in ms over ``reps`` runs after ``warm``
+    (at least 1). A sleep kernel queued before each run, four times as long
+    as the last warm call took the host to enqueue, lets the host enqueue
+    the whole call before the start event fires, so the interval holds
+    device time, not launch overhead."""
+    for _ in range(warm):
         t0 = time.perf_counter()
         fn()
         host_s = time.perf_counter() - t0
@@ -984,7 +1016,7 @@ def step_rows(torch, k_gn, k_attn, calls, card: str, label: str) -> tuple:
             same = bool(torch.equal(got, kern()))
             row = _train_row("group_norm_silu", key, count, max_abs, ok and same,
                              device_ms(torch, kern),
-                             device_ms(torch, plain, reps=PLAIN_REPS), a, k)
+                             device_ms(torch, plain, reps=PLAIN_REPS, warm=PLAIN_WARM), a, k)
             row["repeat_identical"], row["plan"] = same, gn_plan(k_gn, a[0], a[3], False)
             row["torch_seq_ms"] = device_ms(torch, gn_sequence(torch, a, k))
             rows.append(row)
@@ -1002,7 +1034,7 @@ def step_rows(torch, k_gn, k_attn, calls, card: str, label: str) -> tuple:
             same = all(bool(torch.equal(g_, h_)) for g_, h_ in zip(got, kern()))
             row = _train_row("group_norm_silu_bwd", key, count, max_abs, ok and same,
                              device_ms(torch, kern),
-                             device_ms(torch, plain, reps=PLAIN_REPS), a, k)
+                             device_ms(torch, plain, reps=PLAIN_REPS, warm=PLAIN_WARM), a, k)
             row["repeat_identical"], row["plan"] = same, gn_plan(k_gn, a[0], a[7], True)
             row["torch_seq_ms"] = device_ms(
                 torch, gn_sequence(torch, (a[0], a[2], a[3], a[7]), {"pre_bias": a[4]}, a[1]))
@@ -1018,7 +1050,7 @@ def step_rows(torch, k_gn, k_attn, calls, card: str, label: str) -> tuple:
             max_abs, _, ok = errors(got, want, rtol, atol)
             same = bool(torch.equal(got, kern()))
             row = _train_row("attention", key, count, max_abs, ok and same, device_ms(torch, kern),
-                             device_ms(torch, plain, reps=PLAIN_REPS), a, k)
+                             device_ms(torch, plain, reps=PLAIN_REPS, warm=PLAIN_WARM), a, k)
             row["repeat_identical"] = same
             sdpa = lambda q=q, kk=kk, v=v, scale=scale: (  # noqa: E731
                 torch.nn.functional.scaled_dot_product_attention(
@@ -1048,7 +1080,7 @@ def step_rows(torch, k_gn, k_attn, calls, card: str, label: str) -> tuple:
         sdpa = lambda o=sdpa_out, sl=sl, g_t=g_t: torch.autograd.grad(  # noqa: E731
             o, sl, g_t, retain_graph=True)
         row = _train_row("attention_bwd", key, count, max_abs, ok, device_ms(torch, kern),
-                         device_ms(torch, plain, reps=PLAIN_REPS), a, k)
+                         device_ms(torch, plain, reps=PLAIN_REPS, warm=PLAIN_WARM), a, k)
         row["rel_l2"], row["library_ms"] = rel, device_ms(torch, sdpa)
         rows.append(row)
     for r in rows:
@@ -1205,9 +1237,10 @@ def timed_steps(torch, np, step, state, batch, card: str, bound_ms_=None,
     """``TIMED_STEPS`` steps of ``step`` timed with CUDA events around each
     (no host wait between steps): median, min and max step ms, imgs/s on
     the host clock, peak memory; then three steps under torch.profiler (the
-    device's idle share) and one by kernel. ``batch()`` gives a device batch;
-    ``bound_ms_`` is a step's least time where known. Returns (state,
-    timing, profile of 3 steps, profile of 1 step)."""
+    device's idle share, and a step's time by kernel: a third of theirs).
+    ``batch()`` gives a device batch; ``bound_ms_`` is a step's least time
+    where known. Returns (state, timing, profile of 3 steps, a step's
+    share of it)."""
     torch.cuda.reset_peak_memory_stats()
     batches = [batch() for _ in range(TIMED_STEPS)]
     torch.cuda.synchronize()
@@ -1245,20 +1278,21 @@ def timed_steps(torch, np, step, state, batch, card: str, bound_ms_=None,
         fail("a timed step gave a loss or grad_norm that is not finite")
     del batches
 
-    # the device's idle share over three steps, and one step by kernel
+    # the device's idle share over three steps, and a third of them by kernel
     three = [batch() for _ in range(3)]
-    one = [batch()]
     holder = {"state": state}
 
     def run(bs):
         for b in bs:
             holder["state"], _ = step(holder["state"], b, SEED)
 
-    prof3 = profile_fn(torch, lambda: run(three))
-    prof1 = profile_fn(torch, lambda: run(one), top_n=16)
+    prof3 = profile_fn(torch, lambda: run(three), top_n=16)
+    prof1 = dict(prof3, wall_ms=prof3["wall_ms"] / 3, busy_ms=prof3["busy_ms"] / 3,
+                 device_ops=prof3["device_ops"] // 3,
+                 top=[(name, ms / 3, count // 3) for name, ms, count in prof3["top"]])
     print(f"3 steps under torch.profiler: wall {prof3['wall_ms']:.2f} ms, device busy "
           f"{prof3['busy_ms']:.2f} ms, idle share {prof3['idle_share']:.3f}", flush=True)
-    print(f"1 step by kernel: wall {prof1['wall_ms']:.2f} ms, device busy "
+    print(f"a step by kernel (a third of the 3): wall {prof1['wall_ms']:.2f} ms, device busy "
           f"{prof1['busy_ms']:.2f} ms in {prof1['device_ops']} kernels, copies and memsets, "
           f"idle share {prof1['idle_share']:.3f}; against the unprofiled median step "
           f"{1.0 - prof3['busy_ms'] / 3 / timing['step_ms_median']:.3f} [{card}]", flush=True)
@@ -1656,7 +1690,7 @@ def wide_rows(torch, k_gn, k_attn, k_res, calls, dtype) -> list:
                 same = all(bool(torch.equal(g_, h_)) for g_, h_ in
                            zip(got, again if isinstance(again, tuple) else (again,)))
                 row = _train_row(kind, key, count, max_abs, ok and same, device_ms(torch, kern),
-                                 device_ms(torch, plain, reps=PLAIN_REPS), a, k)
+                                 device_ms(torch, plain, reps=PLAIN_REPS, warm=PLAIN_WARM), a, k)
                 row["repeat_identical"] = same
                 if kind == "attention":
                     q, kk, v, scale = a
@@ -1727,7 +1761,8 @@ def _print_per_path(name: str, per_path: dict, card: str) -> None:
 
 def harness_timing(torch, dtype: str, dev) -> dict:
     """``scripts/torch_f32_time.py:time_dtype`` on this checkout's package:
-    the ``LitDDPM(dtype=...)`` step and a DDIM-50 request at n = 8."""
+    the ``LitDDPM(dtype=...)`` step (median of ``HARNESS_TIMED_STEPS``) and a
+    DDIM-50 request at n = 8."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
@@ -1735,7 +1770,7 @@ def harness_timing(torch, dtype: str, dev) -> dict:
     spec = importlib.util.spec_from_file_location("torch_f32_time", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.time_dtype(torch, dtype, dev)
+    return mod.time_dtype(torch, dtype, dev, steps=HARNESS_TIMED_STEPS)
 
 
 def f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
@@ -1903,7 +1938,8 @@ def f32_phase(torch, np, blocks, init_weights, k_gn, k_attn, k_res, dev, ops,
         del lit, state, p_dev
         torch.cuda.empty_cache()
         rec["timing"] = harness_timing(torch, name, dev)
-        print(f"LitDDPM({name!r}): step {rec['timing']['step_ms']:.3f} ms median of 25 (device "
+        print(f"LitDDPM({name!r}): step {rec['timing']['step_ms']:.3f} ms median of "
+              f"{HARNESS_TIMED_STEPS} (device "
               f"busy {rec['timing']['step_busy_ms']:.3f} ms, idle share "
               f"{rec['timing']['step_idle_share']:.3f}); DDIM-50 n=8 request "
               f"{rec['timing']['request_s']:.3f} s (device busy "
@@ -3047,6 +3083,9 @@ SR_KERNELS = ["--model.init_args.model.init_args.dtype", "bf16",
               "--model.init_args.model.init_args.fused_norm", "true",
               "--model.init_args.model.init_args.fused_block", "true"]
 SR_BATCH = 32  # shapes_sr_demo.yaml's batch size
+#: the CFG fit's steps a call and its checkpoint cadence (the config's 10
+#: steps a call, cut: a chunk of 5 holds the same checks)
+CFG_CADENCE = 5
 
 
 def eval_launches(blocks, model) -> dict:
@@ -3196,9 +3235,10 @@ def sr_kernels(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, dev,
 def cfg_fit(torch, np, blocks, ops, dev, card: str) -> dict:
     """Phase 25: ``trainer.main`` on configs/ddpm/shapes_cfg_demo.yaml
     (the full-width DDPM UNet with a 2-class table, bf16, batch 128, labelled
-    Shapes, 10 steps a call): the model's parameter count; fit 20 steps with
-    checkpoints at 10 and 20 (launches 45/45/6/0 a step); a resume to 30
-    against an uninterrupted 30-step run, bit for bit (the drop masks come
+    Shapes, ``CFG_CADENCE`` (5) steps a call, not the config's 10): the
+    model's parameter count; fit 10 steps with checkpoints at 5 and 10
+    (launches 45/45/6/0 a step); a resume to 15 against an uninterrupted
+    15-step run, bit for bit (the drop masks come
     from the step's generator, restored with the step); ``validate`` on the
     true labels (two eval forwards, 1/6/22 each); ``sample --trainer.sampler
     ddim`` (DDIM-50 at n = 8: one guided call at N = 16 a step); then the
@@ -3215,8 +3255,9 @@ def cfg_fit(torch, np, blocks, ops, dev, card: str) -> dict:
     roots = {k: os.path.join("build", k) for k in ("cli_cfg", "cli_cfg_whole")}
     for root in roots.values():
         shutil.rmtree(root, ignore_errors=True)
-    cfg = ["--config", CFG_CONFIG, "--trainer.tensorboard", "false", *SHAPES_CUT]
-    k = 10  # the config's steps_per_call: the cadences snap to its chunks
+    k = CFG_CADENCE  # the steps a call: the cadences snap to its chunks
+    cfg = ["--config", CFG_CONFIG, "--trainer.tensorboard", "false", *SHAPES_CUT,
+           "--trainer.steps_per_call", str(k)]
     fit_args = cfg + ["--trainer.ckpt_every_n_steps", str(k), "--trainer.log_every_n_steps",
                       str(k)]
     lit = tcfg.instantiate(tcfg.validate_config(tcfg.load_config(CFG_CONFIG))["model"])
@@ -3573,7 +3614,7 @@ PER_FORWARD_ADM = {"group_norm_silu": 0, "group_norm_silu_bwd": 0, "attention": 
 # the guided samplers' scale in the request phases (tests/test_adm.py's)
 GUIDANCE_SCALE = 1.0
 # steps of the guided request, and of the timed ancestral guided loop
-GUIDED_STEPS, GUIDED_DDPM_TIMED = 25, 20
+GUIDED_STEPS, GUIDED_DDPM_TIMED = 25, 10
 # the ADM generator's respaced steps when served (phase 34)
 ADM_SERVE_STEPS = 25
 
@@ -4088,7 +4129,7 @@ PER_FORWARD_DIT = {"group_norm_silu": 0, "group_norm_silu_bwd": 0, "attention": 
 DIT_FIT_HALF, DIT_FIT_STEPS = 5, 10
 # progressive distillation of configs/ddpm/cifar10.yaml: the first student's
 # steps (the ε teacher samples in 1000), rounds, train steps a round
-DISTILL_START, DISTILL_ROUNDS, DISTILL_STEPS = 500, 2, 3
+DISTILL_START, DISTILL_ROUNDS, DISTILL_STEPS = 100, 2, 3
 # launches of one distillation step at batch 128: the teacher's two pure
 # forwards (K1 at out_norm, K3 6 and K4 22 each), the student's training
 # forward and backward (K1 45, K2 45, K3 6)
@@ -4100,7 +4141,7 @@ DRIVER_LEFT_BYTES = 32 * 2**20
 # inpainting: LitDDPM's UNet and a DDPM of INPAINT_T steps at n = 8, the
 # left half known, RePaint harmonisation repeats (each step's forward is the
 # n = 8 serving forward whatever T is, so T sets only the depth)
-INPAINT_T, INPAINT_RESAMPLE = 500, 2
+INPAINT_T, INPAINT_RESAMPLE = 100, 2
 
 
 def dit_harness(torch, blocks, path: str, dtype: str = "bf16", argv=()):
@@ -4578,10 +4619,10 @@ def distill_driver(torch, np, ops, dev, card: str) -> dict:
     temporary copy of configs/ddpm/cifar10.yaml (synthetic CIFAR-10, its
     ``default_root_dir`` under build/): ``trainer.main fit`` writes the ε
     teacher's checkpoint (2 steps), then the driver restores it and runs
-    ``DISTILL_ROUNDS`` rounds of ``DISTILL_STEPS`` steps (500 then 250
+    ``DISTILL_ROUNDS`` rounds of ``DISTILL_STEPS`` steps (100 then 50
     student steps; the first student a v model from scratch, the second
     from the first's EMA), launches ``PER_DISTILL_STEP`` a step, a
-    checkpoint a round; then the last student's DDIM-250 request at n = 8
+    checkpoint a round; then the last student's DDIM-50 request at n = 8
     (launches 1/6/22 a forward, finite, repeatable)."""
     import contextlib
     import shutil
@@ -4677,9 +4718,9 @@ def distill_driver(torch, np, ops, dev, card: str) -> dict:
 
 def inpaint_phase(torch, np, blocks, dev, ops, card: str) -> dict:
     """Phase 40: RePaint inpainting with ``LitDDPM(dtype="bf16",
-    timesteps=INPAINT_T)``'s DDPM (T = 500) and UNet (random weights) at
+    timesteps=INPAINT_T)``'s DDPM (T = 100) and UNet (random weights) at
     n = 8: the left half of numpy images known, ``INPAINT_RESAMPLE``
-    repeats a step (1000 forwards, launches 1/6/22 each); the known pixels
+    repeats a step (200 forwards, launches 1/6/22 each); the known pixels
     must come back bit for bit, the
     generated half differ from the known images, everything finite."""
     from dmme_tpu_torch.diffusion import inpaint
@@ -4743,13 +4784,13 @@ PER_FORWARD_LATENT_CFG = dict(NO_LAUNCHES, attention=6)
 # the latent DiT (hidden 256, depth 8, 4 heads of 64 at T = 64)
 LATENT_DIT_SITES = 8
 PER_FORWARD_LATENT_DIT = dict(NO_LAUNCHES, attention=LATENT_DIT_SITES)
-# the latent CLI fits: steps before the resume, and in all, in the configs'
-# chunks of 10 steps (a log line a chunk); the Shapes images rendered for
-# them; the steps of the stage-2 config's own (ancestral) sampler in `sample`
-# (the config trains T = 1000)
-LATENT_FIT_HALF, LATENT_FIT_STEPS, LATENT_CHUNK = 10, 20, 10
+# the latent CLI fits: steps before the resume, and in all, in chunks of 5
+# steps (the configs' 10, cut: a log line a chunk); the Shapes images
+# rendered for them; the steps of the stage-2 config's own (ancestral)
+# sampler in `sample` (the config trains T = 1000)
+LATENT_FIT_HALF, LATENT_FIT_STEPS, LATENT_CHUNK = 5, 10, 5
 LATENT_DATA = SHAPES_CUT
-LATENT_SAMPLE_T = 250
+LATENT_SAMPLE_T = 50
 
 
 def latent_codec(torch, blocks, dtype: str = "bf16", codec: dict = None):
@@ -5023,14 +5064,14 @@ def latent_vs_cpu(torch, np, blocks, dev, ops, card: str) -> dict:
 def latent_cli(torch, np, ops, dev, card: str) -> dict:
     """Phase 43: the two-stage recipe through ``trainer.main`` in this
     process (deterministic cuDNN): ``fit`` of configs/latent/shapes_vae_demo.yaml
-    (bf16, batch 128, 20 steps in chunks of 10, checkpoints at 10 and 20; no
+    (bf16, batch 128, 10 steps in chunks of 5, checkpoints at 5 and 10; no
     kernel launch), then of shapes_latent_demo.yaml (K3 6 a step) and
     shapes_latent_flow_dit_demo.yaml (K3 8 a step) from that directory: the
     latent scale calibrated and written to ``latent_scale.json``, equal to
     the one recomputed from the same weights and data; stage 2 resumed from
-    step 10 to 20, bitwise the uninterrupted run; ``sample`` with and
+    step 5 to 10, bitwise the uninterrupted run; ``sample`` with and
     without ``--trainer.sampler ddim`` (32x32x3 images), and the stage-1
-    config's ``sample --trainer.sampler ddim`` refused; then 10 timed steps
+    config's ``sample --trainer.sampler ddim`` refused; then 5 timed steps
     at batch 128 (median, device busy, operations, idle share, peak memory)
     of the stage-1 ``LitVAE``, of ``LitLatentDDPM(dtype="bf16")`` with its
     default UNet over the stage-1 codec (launches 45/45/6/0 a step) and of
@@ -5051,7 +5092,8 @@ def latent_cli(torch, np, ops, dev, card: str) -> dict:
     for root in roots.values():
         shutil.rmtree(root, ignore_errors=True)
     common = [*LATENT_DATA, "--trainer.log_every_n_steps", "1", "--trainer.tensorboard", "false",
-              "--trainer.ckpt_every_n_steps", str(LATENT_FIT_HALF)]
+              "--trainer.ckpt_every_n_steps", str(LATENT_FIT_HALF),
+              "--trainer.steps_per_call", str(LATENT_CHUNK)]
     stage2 = ["--model.init_args.vae_ckpt", roots["vae"]]
 
     def run(path, name, root, max_steps, n_steps, per_step, *extra):
@@ -5176,7 +5218,7 @@ def latent_cli(torch, np, ops, dev, card: str) -> dict:
         expect_bf16_only(f"{key} timed steps")
         per_step = {"vae": NO_LAUNCHES, "ddpm_default": PER_TRAIN_STEP,
                     "dit": PER_FORWARD_LATENT_DIT}[key]
-        want = launches_for(per_step, TIMED_STEPS + 4)
+        want = launches_for(per_step, TIMED_STEPS + 3)
         if out[f"{key}_launches"] != want:
             fail(f"the {key} steps launched {out[f'{key}_launches']}, expected {want}")
         del state, lit, step
@@ -5306,6 +5348,7 @@ def latent_rows(report: dict) -> list:
 
 EVAL_ROOT = os.path.join("build", "eval")
 EVAL_BATCHES = 2  # trainer.limit_test_batches of the eval paths
+SPLIT_BATCHES = 2  # timed test batches of the split (after a warm one)
 EVAL_FIT_STEPS = 20
 DDIM_CONFIG = "configs/ddim/cifar10.yaml"
 EVAL_DATA = ["--data.init_args.synthetic", "true"]
@@ -5708,7 +5751,7 @@ def eval_batch_split(torch, np, dev, card: str, root: str, pth: str) -> dict:
     """One ``test`` batch of 128 of the DDIM config's trained run, under a
     user's cuDNN defaults, in parts: generation (DDIM-50, host clock), the
     Inception feature function and the statistics update (CUDA events); the
-    whole batch on the host clock (median of 3), which extrapolates to a
+    whole batch on the host clock (median of ``SPLIT_BATCHES``), which extrapolates to a
     50,000-sample FID, and under the profiler (device busy, idle share)."""
     from dmme_tpu_torch import config as tcfg
     from dmme_tpu_torch.data import CIFAR10
@@ -5752,7 +5795,7 @@ def eval_batch_split(torch, np, dev, card: str, root: str, pth: str) -> dict:
         inception.update(logits)
 
     walls = []
-    for _ in range(4):
+    for _ in range(1 + SPLIT_BATCHES):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         batch()
@@ -5768,7 +5811,8 @@ def eval_batch_split(torch, np, dev, card: str, root: str, pth: str) -> dict:
     out["fid50k_chip_s"] = batches * out["batch_wall_s"]
     print(f"one test batch of {TRAIN_BATCH}: generation (DDIM-50) {out['generation_s']:.3f} s, "
           f"Inception {out['inception_ms']:.3f} ms a pass (two a batch), statistics update "
-          f"{out['stats_ms']:.4f} ms; the whole batch {out['batch_wall_s']:.3f} s (median of 3); "
+          f"{out['stats_ms']:.4f} ms; the whole batch {out['batch_wall_s']:.3f} s (median of "
+          f"{SPLIT_BATCHES}); "
           f"profiled: wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms in "
           f"{prof['device_ops']} operations, idle share {prof['idle_share']:.3f} "
           f"({out['idle_share_host_clock']:.3f} of the unprofiled wall); a 50,000-sample "
@@ -5799,7 +5843,14 @@ LSUN_FIT_STEPS = 2
 #: (``fused_block``), as ``LitDDPM``'s default UNet has them
 #: phase 47's cuts in depth: 8 microbatches a step (the config accumulates
 #: 32) and a DDPM of 100 steps, whose grid samples 100 forwards, not 1000
-LSUN_DEPTH = ["--trainer.accumulate_grad_batches", "8", "--model.init_args.timesteps", "100"]
+LSUN_DEPTH = ["--trainer.accumulate_grad_batches", "4", "--model.init_args.timesteps", "100"]
+#: the card-against-CPU gradient's batch: the f32 CPU reference at 256 px
+#: took 37 s at the config's batch of 2; its kernels' shapes at batch 2 are
+#: held by the microbatch's rows
+LSUN_GRAD_BATCH = 1
+#: microbatches of the streaming step: the streaming reader's check needs
+#: one optimizer step, not the config's depth
+LSUN_STREAM_ACCUM = 2
 LSUN_KERNELS = ["--model.init_args.model.init_args.fused_norm", "true",
                 "--model.init_args.model.init_args.fused_block", "true"]
 IN64_CONFIG = "configs/iddpm/imagenet64.yaml"
@@ -6029,8 +6080,9 @@ def lsun_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, d
             ["fit", "--config", LSUN_CONFIG, *LSUN_KERNELS, *LSUN_DEPTH, *data_args,
              "--trainer.default_root_dir", run, "--trainer.max_steps", str(LSUN_FIT_STEPS + 1),
              "--trainer.log_every_n_steps", "1", "--trainer.resume", "true",
+             "--trainer.accumulate_grad_batches", str(LSUN_STREAM_ACCUM),
              "--data.init_args.streaming", "true", "--trainer.callbacks", "[]"],
-            {k: accumulate * v for k, v in train.items()})
+            {k: LSUN_STREAM_ACCUM * v for k, v in train.items()})
     finally:
         lsun_datasets.open_lmdb = lsun_data.open_lmdb = opened
         GenerateImage.generate_and_save = generate
@@ -6041,7 +6093,8 @@ def lsun_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, d
     # each optimizer step's host time, from imgs_per_sec over a logging
     # interval of one step: step 1, step 2 under the profiler, the resumed
     # streaming step
-    out["step_s"] = [accumulate * batch_size / r["imgs_per_sec"] for r in logged]
+    out["step_s"] = [m * batch_size / r["imgs_per_sec"] for m, r in zip(
+        [accumulate] * LSUN_FIT_STEPS + [LSUN_STREAM_ACCUM], logged)]
     grids = os.listdir(os.path.join(run, "samples"))
     traces = [os.path.join(profile_dir, f) for f in os.listdir(profile_dir)
               if f.endswith(".pt.trace.json")]
@@ -6092,8 +6145,8 @@ def lsun_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, d
     torch.cuda.empty_cache()
     out["gradient"] = train_gradient(
         torch, blocks, init_weights, config_pair(torch, model_node), algo,
-        config_draws(torch, np, (batch_size, imgsize, imgsize, 3), algo.timesteps, 1), dev, ops,
-        {k: train[k] + forward[k] for k in train}, "LSUN microbatch", forward=True)
+        config_draws(torch, np, (LSUN_GRAD_BATCH, imgsize, imgsize, 3), algo.timesteps, 1), dev,
+        ops, {k: train[k] + forward[k] for k in train}, "LSUN microbatch", forward=True)
     shutil.rmtree(LSUN_ROOT, ignore_errors=True)
     return out
 
@@ -6295,7 +6348,7 @@ DIST_CONFIG = "configs/ddpm/cifar10.yaml"
 DIST_RANKS = 2
 DIST_STEPS = 3
 DIST_BATCH = TRAIN_BATCH // DIST_RANKS  # a rank's slice of the global batch
-DIST_TIMED = 3  # timed steps a mesh in each rank
+DIST_TIMED = 2  # timed steps a mesh in each rank
 # synthetic CIFAR-10 of a whole number of global batches, so the epoch's
 # batches split the same way over ranks and over microbatches
 DIST_DATA = ["--data.init_args.synthetic", "true", "--data.init_args.synthetic_size", "1024"]
@@ -6317,7 +6370,7 @@ EXPERT_A2A = (8, 1280, 384)
 # sharing the card, against one process on the same batches without a mesh
 TENSOR_MESH = "{data: -1, tensor: 2}"
 #: microbatches of batch 2 a step (the config accumulates 32) and steps
-TENSOR_ACCUM, TENSOR_STEPS = 2, 2
+TENSOR_ACCUM, TENSOR_STEPS = 2, 1
 #: synthetic JPEGs of the tensor fits' LMDB: every microbatch a fresh pair
 TENSOR_IMAGES = 2 * TENSOR_ACCUM * TENSOR_STEPS
 #: a rank's parameters, EMA and Adam moments (f32, 16 B a parameter):
@@ -6329,6 +6382,20 @@ TENSOR_LOSS_REL = 1e-2
 #: the largest activation a rank all-gathers: its shard of the first up
 #: block's concatenation at 256×256, (2, 256, 256, (128 + 128) / 2), bf16
 TENSOR_GATHER = (2, 256, 256, 128)
+# the tensor axis for the DiT and the MoE-DiT: each config column-split over
+# two ranks sharing the card ({data: -1, tensor: 2} on two ranks is one
+# tensor group: both ranks take the whole global batch of 128), every
+# zero-initialised weight drawn, against one process without a mesh
+DIT_TENSOR = {"dit": DIT_CONFIG, "moe": MOE_CONFIG}
+DIT_TENSOR_STEPS = 2
+#: a rank's parameters, EMA and Adam moments (f32, 16 B a parameter): 65
+#: kernels split on their output channels, every leaf of 2¹⁴ elements or
+#: more among them (16,285,104 of 32,499,120 and 41,156,832 of 82,143,456)
+DIT_TENSOR_BYTES, DIT_TENSOR_SPLIT = {"dit": 260_561_664, "moe": 658_509_312}, 65
+#: the largest activation a rank all-gathers, its bf16 shard: a dense
+#: block's MLP hidden layer (N, T, 1536 / 2) and a MoE block's experts'
+#: (E, C, 1536 / 2), C = ⌈8,192 tokens · 2 / 8 · 1.25⌉
+DIT_TENSOR_GATHER = {"dit": (TRAIN_BATCH, 64, 768), "moe": (8, 2560, 768)}
 
 
 def kernel_counters(k_gn, k_attn, k_res) -> dict:
@@ -6351,8 +6418,8 @@ def state_bytes(state) -> int:
         for t in part.values())
 
 
-def _dist_fit_argv(root: str, *extra, config: str = DIST_CONFIG) -> list:
-    return ["fit", "--config", config, *DIST_DATA, "--trainer.max_steps", str(DIST_STEPS),
+def _dist_fit_argv(root: str, *extra, config: str = DIST_CONFIG, steps: int = DIST_STEPS) -> list:
+    return ["fit", "--config", config, *DIST_DATA, "--trainer.max_steps", str(steps),
             "--trainer.log_every_n_steps", "1", "--trainer.callbacks", "[]",
             "--trainer.default_root_dir", root, *extra]
 
@@ -6432,37 +6499,17 @@ def state_digest(torch, state) -> dict:
             "mu": digest(torch, state.opt_state.mu), "nu": digest(torch, state.opt_state.nu)}
 
 
-def dist_timing(torch, dev, rank: int) -> dict:
-    """In a rank: ``DIST_TIMED`` steps of the config's harness on a data=2
-    and an fsdp=2 mesh (host clock: gloo's collectives wait for the card),
-    and the gradient all-reduce alone (every parameter's f32, flat buckets)."""
+def dist_timing(torch, dev) -> dict:
+    """In a rank: the gradient all-reduce alone (every parameter of
+    ``DIST_CONFIG``'s model in f32, flat buckets), host clock, the median
+    of ``DIST_TIMED`` after a warm one. (A rank's step: the fits' logged
+    steps, :func:`fit_step_ms`.)"""
     from dmme_tpu_torch import config as tcfg
-    from dmme_tpu_torch.parallel import global_batch, make_mesh, make_train_step, shard_state
     from dmme_tpu_torch.parallel.mesh import flat_all_reduce
 
-    config = tcfg.validate_config(tcfg.apply_overrides(tcfg.load_config(DIST_CONFIG),
-                                                       DIST_DATA))
-    lit, dm = tcfg.instantiate(config["model"]), tcfg.instantiate(config["data"])
-    dm.setup("fit")
-    it = dm.train_iter(SEED, process_index=rank, process_count=DIST_RANKS)
-    out = {}
-    for kind, axes in (("data", {}), ("fsdp", {"fsdp": DIST_RANKS})):
-        mesh = make_mesh(device=dev, **axes)
-        state = shard_state(lit.init_state(0, device=dev), mesh)
-        step = make_train_step(lit.make_loss_fn(dm), mesh=mesh)
-        walls = []
-        for _ in range(DIST_TIMED + 1):
-            batch = global_batch(next(it), mesh, global_size=TRAIN_BATCH)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, metrics = step(state, batch, SEED)
-            float(metrics["loss"])
-            walls.append(1e3 * (time.perf_counter() - t0))
-        out[f"{kind}_step_ms"] = statistics.median(walls[1:])
-        if kind == "data":
-            grads = [torch.zeros_like(v) for v in state.params.values()]
-        del state
-    out["allreduce_mb"] = sum(g.numel() * g.element_size() for g in grads) / 1e6
+    lit = tcfg.instantiate(tcfg.validate_config(tcfg.load_config(DIST_CONFIG))["model"])
+    grads = [torch.zeros(v.shape, device=dev) for v in lit.model.state_dict().values()]
+    out = {"allreduce_mb": sum(g.numel() * g.element_size() for g in grads) / 1e6}
     walls = []
     for _ in range(DIST_TIMED + 1):
         torch.cuda.synchronize()
@@ -6474,31 +6521,14 @@ def dist_timing(torch, dev, rank: int) -> dict:
     return out
 
 
-def expert_timing(torch, dev, rank: int) -> dict:
-    """In a rank: ``DIST_TIMED`` steps of the MoE-DiT harness on the
-    ``{data: -1, expert: 2}`` mesh (host clock), and the all-to-all alone
-    on one block's ``EXPERT_A2A`` bf16 dispatch buffer (gloo, handed the
-    CUDA tensors directly, as the layer hands them)."""
-    from dmme_tpu_torch import config as tcfg
+def expert_timing(torch, dev) -> dict:
+    """In a rank: the all-to-all alone on one block's ``EXPERT_A2A`` bf16
+    dispatch buffer over the ``{data: -1, expert: 2}`` mesh's expert group
+    (gloo, handed the CUDA tensors directly, as the layer hands them)."""
     from dmme_tpu_torch.models.moe import ExpertGroup, _exchange
-    from dmme_tpu_torch.parallel import global_batch, make_mesh, make_train_step, shard_state
+    from dmme_tpu_torch.parallel import make_mesh
 
-    config = tcfg.validate_config(tcfg.apply_overrides(tcfg.load_config(MOE_CONFIG), DIST_DATA))
-    lit, dm = tcfg.instantiate(config["model"]), tcfg.instantiate(config["data"])
-    dm.setup("fit")
-    it = dm.train_iter(SEED, process_index=rank, process_count=DIST_RANKS)
     mesh = make_mesh(expert=DIST_RANKS, device=dev)
-    state = shard_state(lit.init_state(0, device=dev), mesh, model=lit.model)
-    step = make_train_step(lit.make_loss_fn(dm), mesh=mesh)
-    walls = []
-    for _ in range(DIST_TIMED + 1):
-        batch = global_batch(next(it), mesh, global_size=TRAIN_BATCH)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch, SEED)
-        float(metrics["loss"])
-        walls.append(1e3 * (time.perf_counter() - t0))
-    del state
     where = ExpertGroup(mesh.expert_group, mesh.expert, mesh.index("expert"))
     buf = torch.randn(EXPERT_A2A, device=dev).to(torch.bfloat16)
     a2a = []
@@ -6508,31 +6538,59 @@ def expert_timing(torch, dev, rank: int) -> dict:
         _exchange(buf, where)
         torch.cuda.synchronize()
         a2a.append(1e3 * (time.perf_counter() - t0))
-    return {"step_ms": statistics.median(walls[1:]), "a2a_ms": statistics.median(a2a[1:]),
+    return {"a2a_ms": statistics.median(a2a[1:]),
             "a2a_mb": buf.numel() * buf.element_size() / 1e6,
             "transport": f"{mesh.backend}, direct on CUDA tensors"}
 
 
+def fit_step_ms(kind: str, images: int = TRAIN_BATCH) -> float:
+    """A two-rank fit's step on the host clock (gloo's collectives wait for
+    the card): the median of its logged steps after the first, from the
+    ``images`` of a global batch and rank 0's ``imgs_per_sec``."""
+    rows = _jsonl(os.path.join(DIST_ROOT, kind, "metrics.jsonl"))
+    return statistics.median(1e3 * images / r["imgs_per_sec"] for r in rows[1:])
+
+
 def tensor_timing(torch, dev) -> dict:
-    """In a rank: the all-gather of the tensor fit's largest activation
-    (``TENSOR_GATHER``, bf16) over the tensor group, as the UNet gathers it
+    """In a rank: the all-gather of each tensor fit's largest activation
+    (the shards ``TENSOR_GATHER`` of the LSUN UNet and ``DIT_TENSOR_GATHER``
+    of the DiTs, bf16) over the tensor group, as the models gather them
     (``TensorGroup.gather``: gloo on the CUDA tensors directly), host clock."""
     from dmme_tpu_torch.parallel import make_mesh
     from dmme_tpu_torch.parallel.tensor import TensorGroup
 
     mesh = make_mesh(tensor=DIST_RANKS, device=dev)
     group = TensorGroup(mesh.tensor_group, mesh.tensor, mesh.index("tensor"))
-    x = torch.randn(TENSOR_GATHER, device=dev).to(torch.bfloat16)
-    walls = []
-    for _ in range(DIST_TIMED + 1):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        whole = group.gather(x)
-        torch.cuda.synchronize()
-        walls.append(1e3 * (time.perf_counter() - t0))
-    return {"gather_ms": statistics.median(walls[1:]),
-            "gather_mb": whole.numel() * whole.element_size() / 1e6,
-            "transport": f"{mesh.backend}, direct on CUDA tensors"}
+    out = {}
+    for key, shape in (("lsun", TENSOR_GATHER), *DIT_TENSOR_GATHER.items()):
+        x = torch.randn(shape, device=dev).to(torch.bfloat16)
+        walls = []
+        for _ in range(DIST_TIMED + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            whole = group.gather(x)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        out[key] = {"gather_ms": statistics.median(walls[1:]),
+                    "gather_mb": whole.numel() * whole.element_size() / 1e6}
+    return dict(out.pop("lsun"), **out, transport=f"{mesh.backend}, direct on CUDA tensors")
+
+
+def k3_held(torch, k_attn, calls) -> float:
+    """K3 against its plain version on the first inputs of each recorded
+    call site (:func:`record_calls`) within ``TOL``, or fail; the largest
+    absolute difference."""
+    rtol, atol = TOL["attention"]
+    worst = 0.0
+    with torch.no_grad():
+        for key, _, a, _ in calls["attention"]:
+            a = [t.detach() if torch.is_tensor(t) else t for t in a]
+            max_abs, _, ok = errors(k_attn.attention_heads(*a),
+                                    k_attn.attention_heads_plain(*a), rtol, atol)
+            if not ok:
+                fail(f"K3 at {key} is {max_abs} from its plain version")
+            worst = max(worst, max_abs)
+    return worst
 
 
 def rank_worker(out: str, eval_root: str, pth: str) -> int:
@@ -6541,9 +6599,11 @@ def rank_worker(out: str, eval_root: str, pth: str) -> int:
     kernels loaded from the parent's build, the parent's TF32 and cuDNN
     settings, the group joined once (``parallel.initialize``: gloo, the two
     ranks share the card); then ``trainer.main fit`` on a data=2 and on an
-    fsdp=2 mesh, of ``MOE_CONFIG`` on ``EXPERT_MESH`` and of ``LSUN_CONFIG``
-    on ``TENSOR_MESH``, the steps, the all-reduce, the all-to-all and the
-    largest activation gather timed, ``trainer.main test`` on a data=2 mesh.
+    fsdp=2 mesh, of ``MOE_CONFIG`` on ``EXPERT_MESH`` and of ``LSUN_CONFIG``,
+    ``DIT_CONFIG`` and ``MOE_CONFIG`` on ``TENSOR_MESH`` (K3 held against
+    its plain version on each DiT rank's own inputs), the all-reduce, the
+    all-to-all and the largest activation gathers timed, ``trainer.main
+    test`` on a data=2 mesh.
     Each command's launches, and each fit's state bytes, go to
     ``DIR/rank<r>.json``."""
     import torch
@@ -6632,10 +6692,11 @@ def rank_worker(out: str, eval_root: str, pth: str) -> int:
             rec["tensor"]["grad_rel"] = _rel_l2(torch, want, first["grads"])
         del state, whole, first
         torch.cuda.empty_cache()
+        rec.update(dit_tensor_fits(torch, k_attn, ops, cli, held, out, dev, rank))
     finally:
         training.fit = fit
-    rec["timing"] = dist_timing(torch, dev, rank)
-    rec["timing"]["expert"] = expert_timing(torch, dev, rank)
+    rec["timing"] = dist_timing(torch, dev)
+    rec["timing"]["expert"] = expert_timing(torch, dev)
     rec["timing"]["tensor"] = tensor_timing(torch, dev)
     reset_counts(ops)
     buf = io.StringIO()
@@ -6654,6 +6715,63 @@ def rank_worker(out: str, eval_root: str, pth: str) -> int:
     return 0
 
 
+def dit_tensor_references(torch, ops, card: str) -> dict:
+    """The DiT tensor fits' references: each config of ``DIT_TENSOR`` fitted
+    here in one process, no mesh, on the batches and draws of the tensor
+    group, every zero-initialised weight drawn; its first gradients saved
+    under ``DIST_ROOT`` for the ranks. {"<key>_tensor_one": the run}."""
+    out = {}
+    for key, config in DIT_TENSOR.items():
+        first = {}
+        with drawn_init(torch), first_gradients(torch, first):
+            out[f"{key}_tensor_one"] = cli_run(
+                torch, ops, card, f"one process: fit {config} {DIT_TENSOR_STEPS} steps at batch "
+                f"{TRAIN_BATCH}, no mesh",
+                _dist_fit_argv(os.path.join(DIST_ROOT, f"{key}_tensor_one"), "--trainer.mesh",
+                               "null", config=config, steps=DIT_TENSOR_STEPS),
+                launches_for(PER_FORWARD_DIT, DIT_TENSOR_STEPS))
+        torch.save(first["grads"], os.path.join(DIST_ROOT, f"{key}_tensor_one_grads.pt"))
+        del first
+        torch.cuda.empty_cache()
+    return out
+
+
+def dit_tensor_fits(torch, k_attn, ops, cli, held: dict, out: str, dev, rank: int) -> dict:
+    """In a rank: ``trainer.main fit`` (``cli``) of each config of
+    ``DIT_TENSOR`` on ``TENSOR_MESH``, every zero-initialised weight drawn:
+    {"<key>_tensor": its wall time, launches, the bytes it leaves the rank
+    holding (``held``, filled by the rank's ``fit``), its K3 call sites and
+    K3 against its plain version on their inputs; on rank 0 also the
+    gathered state's digest and its first reduced gradient against the one
+    process's (``<out>/<key>_tensor_one_grads.pt``)}."""
+    recs = {}
+    for key, config in DIT_TENSOR.items():
+        tag, first = f"{key}_tensor", {}
+        with drawn_init(torch), first_gradients(torch, first):
+            reset_counts(ops)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            argv = _dist_fit_argv(os.path.join(out, tag), "--trainer.mesh", TENSOR_MESH,
+                                  config=config, steps=DIT_TENSOR_STEPS)
+            calls = record_calls(dit_targets(k_attn, False), lambda argv=argv: cli(argv))
+            torch.cuda.synchronize()
+            state = held.pop("state")
+            recs[tag] = dict(held, wall_s=time.time() - t0, launches=counts(ops),
+                             wide=wide_counts(), split_leaves=len(state.tensor_axes),
+                             sites={repr(s): n for s, n, _, _ in calls["attention"]},
+                             k3_max_abs=k3_held(torch, k_attn, calls))
+        del calls
+        whole = state.whole()  # a collective: both ranks
+        if rank == 0:
+            recs[tag]["digest"] = state_digest(torch, whole)
+            recs[tag]["params"] = sum(v.numel() for v in whole.params.values())
+            want = torch.load(os.path.join(out, f"{tag}_one_grads.pt"), map_location=dev)
+            recs[tag]["grad_rel"] = _rel_l2(torch, want, first["grads"])
+        del state, whole, first
+        torch.cuda.empty_cache()
+    return recs
+
+
 def _rel_l2(torch, a: dict, b: dict) -> float:
     x = torch.cat([v.reshape(-1).double() for v in a.values()])
     y = torch.cat([b[k].reshape(-1).double() for k in a])
@@ -6661,7 +6779,7 @@ def _rel_l2(torch, a: dict, b: dict) -> float:
 
 
 def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: str,
-               eval_rec: dict, lsun_rec: dict) -> dict:
+               eval_rec: dict, lsun_rec: dict, dit_rec: dict) -> dict:
     """Phases 49 and 50: configs/ddpm/cifar10.yaml (the 32,416,643-parameter
     UNet, bf16, K1/K2/K3) on two ranks that share the card, each launched by
     ``torch.distributed.run`` (:func:`rank_worker`; deterministic cuDNN),
@@ -6679,7 +6797,11 @@ def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: st
     launch the expert fit (:func:`expert_phase`) and the tensor fit of
     ``LSUN_CONFIG`` against one process here on its batches
     (:func:`tensor_phase`, :func:`tensor_kernels`; ``lsun_rec``: phase 47's
-    record, whose microbatch K3 sites the tensor ranks share)."""
+    record, whose microbatch K3 sites the tensor ranks share), and the
+    tensor fits of ``DIT_CONFIG`` and ``MOE_CONFIG`` against one process
+    here on their batches (:func:`dit_tensor_phase`; ``dit_rec``: phase
+    35's record, whose batch-128 training step's K3 sites a DiT tensor rank
+    shares)."""
     import shutil
 
     from dmme_tpu_torch import config as tcfg
@@ -6721,6 +6843,7 @@ def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: st
     torch.save(first["grads"], os.path.join(DIST_ROOT, "tensor_one_grads.pt"))
     del first
     torch.cuda.empty_cache()
+    out.update(dit_tensor_references(torch, ops, card))
     eval_root = eval_rec["kept_root"]
     pth = os.path.join(EVAL_ROOT, "pt_inception_standin.pth")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
@@ -6770,13 +6893,17 @@ def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: st
         if not 0.45 <= share <= 0.55:
             fail(f"an fsdp rank holds {share:.3f} of a data rank's state, not about half")
         t = r["timing"]
-        print(f"rank {r['rank']}: a step at batch {DIST_BATCH} a rank (global {TRAIN_BATCH}) "
-              f"{t['data_step_ms']:.2f} ms on data=2, {t['fsdp_step_ms']:.2f} ms on fsdp=2 "
-              f"(host clock, median of {DIST_TIMED}); the gradient all-reduce of "
-              f"{t['allreduce_mb']:.1f} MB through gloo {t['allreduce_ms']:.2f} ms [{card}]",
+        print(f"rank {r['rank']}: the gradient all-reduce of {t['allreduce_mb']:.1f} MB through "
+              f"gloo {t['allreduce_ms']:.2f} ms (host clock, median of {DIST_TIMED}) [{card}]",
               flush=True)
+    out["step_ms"] = {kind: fit_step_ms(kind) for kind in ("data", "fsdp", "expert")}
+    print(f"a step at batch {DIST_BATCH} a rank (global {TRAIN_BATCH}): "
+          f"{out['step_ms']['data']:.2f} ms on data=2, {out['step_ms']['fsdp']:.2f} ms on "
+          f"fsdp=2, {out['step_ms']['expert']:.2f} ms on {EXPERT_MESH} (host clock, the median "
+          f"of the fits' logged steps after the first) [{card}]", flush=True)
     expert_phase(torch, np, out, ranks, card)
     tensor_phase(torch, out, ranks, card)
+    dit_tensor_phase(torch, out, ranks, card, dit_rec, dev)
     saved = {k: CheckpointManager(os.path.join(DIST_ROOT, k)).load(DIST_STEPS)
              for k in ("one", "data", "fsdp")}
     out["data_vs_one"] = state_differences(torch, saved["data"], saved["one"])
@@ -6898,6 +7025,87 @@ def tensor_phase(torch, out: dict, ranks: list, card: str) -> None:
         fail("the tensor=2 checkpoint restored without a mesh is not the gathered state")
 
 
+def dit_tensor_phase(torch, out: dict, ranks: list, card: str, dit_rec: dict, dev) -> None:
+    """Phase 49's checks of the DiT and MoE-DiT tensor fits
+    (:func:`rank_worker`) against the one processes ``out["<key>_tensor_one"]``,
+    into ``out["<key>_tensor"]``: each rank's launches those of the one
+    process, none of f32, fp16 or ``simt.cu``, its K3 call sites those of
+    phase 35's batch-128 step (the attention runs whole on every rank) and
+    K3 within ``TOL`` of its plain version on the rank's own inputs; its
+    bytes ``DIT_TENSOR_BYTES`` in ``DIT_TENSOR_SPLIT`` split kernels; the
+    losses and grad norms within ``TENSOR_LOSS_REL``, the first reduced
+    gradient within ``GRAD_REL_L2`` (relative L2); the checkpoint restored
+    without a mesh bitwise the gathered state."""
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.training import CheckpointManager
+
+    for key, config in DIT_TENSOR.items():
+        tag, n_params = f"{key}_tensor", DIT_PARAMS if key == "dit" else MOE_PARAMS
+        want = out[f"{tag}_one"]["launches"]
+        sites = {r["key"]: DIT_TENSOR_STEPS * r["sites"] for r in dit_rec[f"{key}_train"]["shapes"]
+                 if r["kernel"] == "attention"}
+        for r in ranks:
+            rec, t = r[tag], r["timing"]["tensor"][key]
+            print(f"rank {r['rank']} tensor=2 fit of {config}: {rec['wall_s']:.2f} s wall, "
+                  f"launches {rec['launches']} (one process {want}), f32/fp16/simt launches "
+                  f"{rec['wide']}, K3 sites {rec['sites']} (phase 35's step x "
+                  f"{DIT_TENSOR_STEPS}: {sites}), K3 max_abs {rec['k3_max_abs']:.3e} from its "
+                  f"plain version on the rank's inputs; holds {rec['state_bytes']:,} B of "
+                  f"parameters, EMA and moments ({rec['state_bytes'] / (16 * n_params):.4f} of "
+                  f"the whole's {16 * n_params:,}; {rec['split_leaves']} kernels split); the "
+                  f"all-gather of the largest activation ({t['gather_mb']:.2f} MB whole) "
+                  f"{t['gather_ms']:.2f} ms [{card}]", flush=True)
+            if rec["launches"] != want or any(v for d in rec["wide"].values() for v in d.values()):
+                fail(f"rank {r['rank']}'s {key} tensor fit launched {rec['launches']} "
+                     f"({rec['wide']}), expected the one process's {want}")
+            if rec["sites"] != sites:
+                fail(f"rank {r['rank']}'s {key} tensor fit called K3 at {rec['sites']}, "
+                     f"expected {sites}")
+            if (rec["state_bytes"] != DIT_TENSOR_BYTES[key]
+                    or rec["split_leaves"] != DIT_TENSOR_SPLIT):
+                fail(f"a {key} tensor rank holds {rec['state_bytes']} B in "
+                     f"{rec['split_leaves']} split kernels, expected {DIT_TENSOR_BYTES[key]} in "
+                     f"{DIT_TENSOR_SPLIT}")
+        lead = ranks[0][tag]
+        mesh_rows = _jsonl(os.path.join(DIST_ROOT, tag, "metrics.jsonl"))
+        one_rows = _jsonl(os.path.join(DIST_ROOT, f"{tag}_one", "metrics.jsonl"))
+        rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(mesh_rows, one_rows)]
+               for k in ("loss", "grad_norm")}
+        step_s = {name: [TRAIN_BATCH / row["imgs_per_sec"] for row in rows]
+                  for name, rows in (("mesh", mesh_rows), ("one", one_rows))}
+        cfg = tcfg.apply_overrides(tcfg.load_config(config), DIST_DATA)
+        lit = tcfg.instantiate(tcfg.validate_config(cfg)["model"])
+        state = CheckpointManager(os.path.join(DIST_ROOT, tag)).restore(
+            lit.init_state(0, device=dev))
+        restored = state_digest(torch, state)
+        restored_params = sum(v.numel() for v in state.params.values())
+        del state, lit
+        torch.cuda.empty_cache()
+        out[tag] = {"loss_rel": rel["loss"], "grad_norm_rel": rel["grad_norm"],
+                    "grad_rel_l2": lead["grad_rel"], "params": lead["params"],
+                    "checkpoint_bitwise": restored == lead["digest"], "step_s": step_s,
+                    "gather_ms": [r["timing"]["tensor"][key]["gather_ms"] for r in ranks],
+                    "k3_max_abs": max(r[tag]["k3_max_abs"] for r in ranks)}
+        print(f"{key} tensor=2 against one process: loss relative {rel['loss']}, grad norm "
+              f"relative {rel['grad_norm']} (limit {TENSOR_LOSS_REL}), the first reduced "
+              f"gradient {lead['grad_rel']:.3e} relative L2 (limit {GRAD_REL_L2}); a step on "
+              f"rank 0 {step_s['mesh']} s, in the one process {step_s['one']} s (host clock); "
+              f"the checkpoint restored without a mesh "
+              f"{'is' if out[tag]['checkpoint_bitwise'] else 'is NOT'} bit for bit the ranks' "
+              f"gathered state ({lead['params']:,} parameters gathered, {restored_params:,} "
+              f"restored) [{card}]", flush=True)
+        if (len(mesh_rows) != DIT_TENSOR_STEPS or len(one_rows) != DIT_TENSOR_STEPS
+                or max(rel["loss"] + rel["grad_norm"]) > TENSOR_LOSS_REL):
+            fail(f"the {key} tensor=2 run's losses and grad norms are {rel} from the one "
+                 "process's")
+        if not lead["grad_rel"] <= GRAD_REL_L2:
+            fail(f"the {key} tensor=2 run's first gradient is {lead['grad_rel']} from the one "
+                 "process's")
+        if not out[tag]["checkpoint_bitwise"] or {lead["params"], restored_params} != {n_params}:
+            fail(f"the {key} tensor=2 checkpoint restored without a mesh is not the gathered "
+                 "state")
+
+
 def tensor_kernels(torch, blocks, k_gn, k_attn, init_weights, dev, card: str, out: dict,
                    lsun_rec: dict) -> dict:
     """K1 and K2 at every call site of a tensor rank's microbatch, held
@@ -6950,8 +7158,7 @@ def expert_phase(torch, np, out: dict, ranks: list, card: str) -> None:
               f"launches {rec['launches']}, f32/fp16 launches {rec['wide']}, holds "
               f"{rec['state_bytes']:,} B of parameters, EMA and moments "
               f"({rec['state_bytes'] / (16 * MOE_PARAMS):.4f} of the whole's "
-              f"{16 * MOE_PARAMS:,}; {rec['split_leaves']} stacks split); a step at batch "
-              f"{DIST_BATCH} a rank {t['step_ms']:.2f} ms (host clock, median of {DIST_TIMED}); "
+              f"{16 * MOE_PARAMS:,}; {rec['split_leaves']} stacks split); "
               f"the all-to-all of one block's {t['a2a_mb']:.2f} MB dispatch buffer "
               f"{t['a2a_ms']:.3f} ms, transport {t['transport']} [{card}]", flush=True)
         if rec["launches"] != per_rank or any(v for d in rec["wide"].values()
@@ -7013,6 +7220,12 @@ def dist_rows(report: dict) -> list:
     rows += [_table_row(f"{k}_tensor_train", k, per_rank[k],
                         sum(r["tensor"]["launches"][k] for r in d["ranks"]))
              for k in ("group_norm_silu", "group_norm_silu_bwd", "attention")]
+    for key in DIT_TENSOR:
+        v = report["dit_kernels"][f"{key}_train"]["per_step"]["attention"]
+        row = _table_row(f"attention_{key}_tensor_train", "attention", v,
+                         sum(r[f"{key}_tensor"]["launches"]["attention"] for r in d["ranks"]))
+        row["max_abs_err"] = max(v["max_abs_err"], d[f"{key}_tensor"]["k3_max_abs"])
+        rows.append(row)
     return rows
 
 
@@ -7079,7 +7292,7 @@ def forward_rows(torch, k_gn, k_attn, k_res, build, dev, recorded) -> tuple:
                     "max_abs_err": max_abs, "max_rel_err": max_rel,
                     "rtol": rtol, "atol": atol, "ok": ok and same, "repeat_identical": same,
                     "ms": device_ms(torch, kern_fn),
-                    "plain_ms": device_ms(torch, plain_fn, reps=PLAIN_REPS),
+                    "plain_ms": device_ms(torch, plain_fn, reps=PLAIN_REPS, warm=PLAIN_WARM),
                 }
                 rec["bound_ms"], rec["bound_by"] = bound_ms(kind_, a, k)
                 rec["library_ms"] = None
@@ -7382,17 +7595,19 @@ def main() -> int:
 
     phase("where the device time goes: one request under torch.profiler")
     report["profile"] = {}
-    for n in (1, 8):
+    for n in (BATCH,):
         prof = profile_request(torch, sampler, n)
         report["profile"][n] = prof
         print(f"n={n}: wall {prof['wall_ms']:.2f} ms (profiled), device busy "
               f"{prof['busy_ms']:.2f} ms, idle share {prof['idle_share']:.3f}", flush=True)
         for name, ms, count in prof["top"]:
             print(f"    {ms:9.3f} ms {count:6d}x  {name}", flush=True)
-    # each caching sampler beside the exact solver it approximates
+    # each caching sampler beside the exact solver it approximates (ddim:
+    # the default request at n = 8 above, LitDDIM's DDIM-50)
     report["profile_samplers"] = {}
     for name in ("ddim", "cached", "deep", "dpm", "deep_dpm"):
-        prof = profile_request(torch, sampler, BATCH, name)
+        prof = (report["profile"][BATCH] if name == "ddim"
+                else profile_request(torch, sampler, BATCH, name))
         report["profile_samplers"][name] = prof
         print(f"{name} n={BATCH}: wall {prof['wall_ms']:.2f} ms (profiled), device busy "
               f"{prof['busy_ms']:.2f} ms in {prof['device_ops']} operations, idle share "
@@ -7610,11 +7825,11 @@ def main() -> int:
 
     phase(f"two ranks on one card: torch.distributed.run --nproc_per_node {DIST_RANKS} trainer "
           f"fit of {DIST_CONFIG} on data=2 and fsdp=2 meshes and of {MOE_CONFIG} on "
-          f"{EXPERT_MESH} (gloo) against one process accumulating 2, of {LSUN_CONFIG} on "
-          f"{TENSOR_MESH} against one process; then trainer test of {DDIM_CONFIG} on a data=2 "
-          "mesh")
+          f"{EXPERT_MESH} (gloo) against one process accumulating 2, of {LSUN_CONFIG}, "
+          f"{DIT_CONFIG} and {MOE_CONFIG} on {TENSOR_MESH} against one process; then trainer "
+          f"test of {DDIM_CONFIG} on a data=2 mesh")
     report["dist"] = dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card,
-                                report["eval_test"], report["lsun_fit"])
+                                report["eval_test"], report["lsun_fit"], report["dit_kernels"])
     torch.cuda.empty_cache()
 
     phase("kernels")
@@ -7739,6 +7954,10 @@ def main() -> int:
           + "; ".join(f"{k['name']} ({k['route']}, {k['source']}, replaces {k['replaces']}, "
                       f"{k['launches']} launches)" for k in table), flush=True)
     report["run_s"] = time.time() - _T0
+    report["phase_s"] = phase_seconds()
+    print("seconds each phase took: " + "; ".join(
+        f"{i} {name.split(':')[0]} {s:.1f}" for i, (name, s) in enumerate(report["phase_s"], 1)),
+        flush=True)
     if args.out:
         write_report(args.out, report)
     print(f"the whole run: {report['run_s']:.1f} s [{card}]", flush=True)
@@ -7760,7 +7979,8 @@ def main() -> int:
           f"*_cfg_N<N>: per guided UNet call at batch N (labels and null token), launches in "
           f"the CFG serve request of n = N/2; *_sr: per upsampler forward at n = {BATCH}, "
           f"launches in its generate(low_res=); *_cfg_train: per labelled CFG step at batch "
-          f"{TRAIN_BATCH}, launches in the 20-step CLI fit of {CFG_CONFIG}; *_sr_train: per "
+          f"{TRAIN_BATCH}, launches in the {2 * CFG_CADENCE}-step CLI fit of {CFG_CONFIG}; "
+          f"*_sr_train: per "
           f"upsampler step at batch {SR_BATCH}, launches in the {FIT_STEPS}-step CLI fit of "
           f"{SR_CONFIG}. attention_adm: per ADM-32 forward at n = {BATCH}, launches in its four "
           f"default requests; attention_adm_train, attention_classifier_train: per step at batch "
@@ -7776,7 +7996,7 @@ def main() -> int:
           f"steps. *_inpaint: per n = {BATCH} DDPM forward, launches in the RePaint run. "
           f"*_latent: per default latent UNet forward at n = {BATCH} on 16x16x4 latents, "
           f"launches in its served ddim and dpm requests; *_latent_train: per default "
-          f"LitLatentDDPM step at batch {TRAIN_BATCH}, launches in its {TIMED_STEPS} timed and 4 "
+          f"LitLatentDDPM step at batch {TRAIN_BATCH}, launches in its {TIMED_STEPS} timed and 3 "
           f"profiled steps; attention_latent_cfg_train: per step of {LATENT_DDPM_CONFIG}'s UNet, "
           f"launches in its uninterrupted {LATENT_FIT_STEPS}-step CLI fit; attention_latent_dit: "
           f"per latent DiT forward at n = {BATCH}, launches in its default flow request; "
@@ -7796,7 +8016,10 @@ def main() -> int:
           f"of {MOE_CONFIG} on {EXPERT_MESH}, launches in both ranks' expert fits; "
           f"*_tensor_train: per microbatch of a rank of {LSUN_CONFIG} on {TENSOR_MESH} (K1 and "
           f"K2 at its shard shapes, K3 whole), launches in both ranks' {TENSOR_STEPS}-step "
-          f"tensor fits of {TENSOR_ACCUM} microbatches a step)", flush=True)
+          f"tensor fits of {TENSOR_ACCUM} microbatches a step; attention_dit_tensor_train, "
+          f"attention_moe_tensor_train: per step of a rank at batch {TRAIN_BATCH} of "
+          f"{DIT_CONFIG} and {MOE_CONFIG} on {TENSOR_MESH} (K3 whole, phase 35's shapes), "
+          f"launches in both ranks' {DIT_TENSOR_STEPS}-step tensor fits)", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

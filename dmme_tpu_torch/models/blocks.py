@@ -16,14 +16,14 @@ slice of its whole bias (:attr:`Conv.sharded`); a GroupNorm given a shard
 of its channels normalizes the shard's G/T groups with its slice of the
 affine; a block given a shard gathers it whole before each layer that
 reads every channel (:func:`shard_of_output`, :func:`whole_output`). Each
-module then holds the ``TensorGroup`` (``UNet.place_tensor``); with whole
-weights it is never read.
+module then holds the ``TensorGroup`` (:meth:`TensorParallel.place_tensor`);
+with whole weights it is never read.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -52,11 +52,55 @@ def sinusoidal_position_embedding(t: torch.Tensor, dim: int,
     return torch.cat([torch.sin(args), torch.cos(args)], dim=-1).to(dtype)
 
 
+class TensorParallel(nn.Module):
+    """A model that runs tensor-parallel where its weights are bound as a
+    tensor group's shards (the UNet, the DiT): :meth:`place_tensor` hands
+    every module the group, and :meth:`_tensor_split` tells a forward
+    whether the weights bound now are shards (then it runs tensor-parallel
+    and returns its whole output through ``TensorGroup.to_partial``) or
+    whole (then it runs as on one device and issues no collective)."""
+
+    #: (module, parameter, whole shape) of one tensor-split leaf: the
+    #: forward runs tensor-parallel when that leaf is bound as a shard
+    _tensor_probe = None
+
+    def place_tensor(self, where, split: Mapping[str, int] = ()) -> None:
+        """Hand every module the ``TensorGroup`` ``where`` (None: whole
+        weights only). ``split``: the names of the leaves the tensor axis
+        splits (``parallel.mesh.tensor_axes``), at least one. Raises where a
+        GroupNorm's groups do not split whole over the group."""
+        self._tensor_probe = None
+        if where is not None:
+            if not split:
+                raise ValueError("the tensor axis splits no leaf of this model: a tensor mesh "
+                                 "needs at least one split kernel (lower min_weight_size)")
+            for m in self.modules():
+                if isinstance(m, GroupNorm) and (m.num_groups % where.size
+                                                 or m.weight.shape[0] % where.size):
+                    raise ValueError(f"GroupNorm({m.num_groups} groups, {m.weight.shape[0]} "
+                                     f"channels) cannot split whole over {where.size} tensor "
+                                     "ranks")
+            name = next(iter(split))
+            module, _, leaf = name.rpartition(".")
+            self._tensor_probe = (module, leaf, tuple(self.get_parameter(name).shape))
+        for m in self.modules():
+            m.tensor_group = where
+
+    def _tensor_split(self):
+        """The ``TensorGroup`` where the bound weights are its shards, else None."""
+        probe = self._tensor_probe
+        if probe is None:
+            return None
+        module, leaf, shape = probe
+        bound = getattr(self.get_submodule(module), leaf)
+        return self.tensor_group if tuple(bound.shape) != shape else None
+
+
 class _Columns(nn.Module):
     """A layer whose kernel may be bound as a column shard: the rank's
     1/T of its output rows (the ``tensor`` axis) beside the whole bias."""
 
-    #: the ``TensorGroup`` of a tensor-split model (``UNet.place_tensor``)
+    #: the ``TensorGroup`` of a tensor-split model (:meth:`TensorParallel.place_tensor`)
     tensor_group = None
 
     @property
@@ -138,7 +182,7 @@ class GroupNorm(nn.Module):
     """``flax.linen.GroupNorm`` with torch-parity eps, f32 in and out. Given
     a tensor group's channel shard, it normalizes the shard's G/T groups."""
 
-    #: the ``TensorGroup`` of a tensor-split model (``UNet.place_tensor``)
+    #: the ``TensorGroup`` of a tensor-split model (:meth:`TensorParallel.place_tensor`)
     tensor_group = None
 
     def __init__(self, num_groups: int, channels: int):

@@ -25,6 +25,23 @@ a ``moe_losses`` list appends each MoE block's router statistics to it, in
 block order. ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``); the block's dropout mask and router noise
 are drawn once, before, and the recomputation replays them.
+
+On a ``tensor`` mesh axis (``parallel/tensor.py``) the DiT runs on a tensor
+group's column shards (:meth:`~dmme_tpu_torch.models.blocks.TensorParallel.
+place_tensor`), as the UNet does: the token activations between layers are
+the rank's contiguous 1/T of the hidden channels, the gated residual sums
+run on the shard, and the shard is all-gathered before each layer that
+reads every channel. A block gathers its input before each LayerNorm, so
+the statistics are the whole row's, computed alike on every rank; adaLN's
+packed (N, 6·hidden) modulation and qkv's (3, heads, hd) columns are not a
+rank's channels, so both are gathered whole and sliced. The attention runs
+whole on every rank (K3 at the same shapes as one process), and ``proj``
+keeps the rank's columns of its output; the MLP's hidden layer runs on
+``mlp_in``'s columns and is gathered before ``mlp_out``. A MoE block hands
+its layer the whole normalized input (so every rank routes alike, bitwise)
+and takes back the rank's channels; its router statistics, alike on every
+rank, go through ``TensorGroup.to_partial`` as the output does. The final
+layer's output is gathered whole before the unpatchify.
 """
 
 from __future__ import annotations
@@ -38,7 +55,8 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from dmme_tpu_torch.models.blocks import Conv, Dense, TimeEmbedding, ZeroDense
+from dmme_tpu_torch.models.blocks import (Conv, Dense, TensorParallel, TimeEmbedding, ZeroDense,
+                                          shard_of_output, whole_output)
 from dmme_tpu_torch.models.moe import MoEMlp
 from dmme_tpu_torch.models.unet import check_param_dtype
 from dmme_tpu_torch.ops.attention import attention_heads
@@ -88,7 +106,11 @@ class PatchEmbed(Conv):
 class DiTBlock(nn.Module):
     """One transformer block with adaLN-Zero conditioning: a zero-initialised
     Dense on SiLU(c) gives shift/scale/gate for the attention and the MLP
-    branch, so both residual branches start gated off."""
+    branch, so both residual branches start gated off. Given a tensor
+    group's channel shard of ``x``, it returns its shard of the output."""
+
+    #: the ``TensorGroup`` of a tensor-split model (:meth:`TensorParallel.place_tensor`)
+    tensor_group = None
 
     def __init__(self, hidden: int, num_heads: int, mlp_ratio: float = 4.0,
                  dropout: float = 0.0, num_experts: int = 0, moe_top_k: int = 2,
@@ -98,7 +120,7 @@ class DiTBlock(nn.Module):
         assert hidden % num_heads == 0, (hidden, num_heads)
         self.hidden, self.num_heads, self.dropout = hidden, num_heads, dropout
         self.dtype, self.remat = dtype, remat
-        mlp_dim = int(hidden * mlp_ratio)
+        self.mlp_dim = mlp_dim = int(hidden * mlp_ratio)
         self.adaln_mod = ZeroDense(hidden, 6 * hidden, dtype)
         self.qkv = Dense(hidden, 3 * hidden, dtype)
         self.proj = Dense(hidden, hidden, dtype)
@@ -112,12 +134,12 @@ class DiTBlock(nn.Module):
 
     def draw(self, x: torch.Tensor, generator: Optional[torch.Generator]):
         """The training draws of one call on ``x``: the MLP's dropout keep
-        mask (dense blocks with dropout) and the router noise (MoE blocks,
-        with a generator), None where not drawn."""
+        mask (dense blocks with dropout; whole, also where ``mlp_in`` is a
+        column shard) and the router noise (MoE blocks, with a generator),
+        None where not drawn."""
         mask = noise = None
         if self.moe_mlp is None and self.dropout > 0.0:
-            n, t, d = x.shape
-            mask = torch.rand((n, t, self.mlp_in.weight.shape[0]), generator=generator,
+            mask = torch.rand((x.shape[0], x.shape[1], self.mlp_dim), generator=generator,
                               device=x.device) < 1.0 - self.dropout
         if self.moe_mlp is not None and self.moe_mlp.router_noise > 0 and generator is not None:
             noise = torch.randn((x.shape[0] * x.shape[1], self.moe_mlp.num_experts),
@@ -153,35 +175,52 @@ class DiTBlock(nn.Module):
         mask, noise = draws if train else (None, None)
 
         n, t, d = x.shape
-        heads, head_dim = self.num_heads, d // self.num_heads
-        mod = self.adaln_mod(F.silu(c))[:, None, :]
+        group = self.tensor_group
+        split = d != self.hidden  # a tensor group's channel shard
+        heads, head_dim = self.num_heads, self.hidden // self.num_heads
+        # the packed modulation whole: a rank's columns of it are not its channels
+        mod = whole_output(self.adaln_mod, F.silu(c))[:, None, :]
         sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
+        if split:
+            g1, g2 = group.shard(g1), group.shard(g2)
 
-        h = _modulate(layer_norm(x, self.dtype), sh1, sc1)
-        qkv = self.qkv(h).reshape(n, t, 3, heads, head_dim)
+        h = _modulate(layer_norm(group.gather(x) if split else x, self.dtype), sh1, sc1)
+        qkv = whole_output(self.qkv, h).reshape(n, t, 3, heads, head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (n, t, heads, hd) views
-        attn = attention_heads(q, k, v, head_dim ** -0.5)
-        x = x + g1 * self.proj(attn.reshape(n, t, d))
+        attn = attention_heads(q, k, v, head_dim ** -0.5).reshape(n, t, self.hidden)
+        x = x + g1 * (shard_of_output(self.proj, attn, group) if split else self.proj(attn))
 
-        h = _modulate(layer_norm(x, self.dtype), sh2, sc2)
+        h = _modulate(layer_norm(group.gather(x) if split else x, self.dtype), sh2, sc2)
         if self.moe_mlp is not None:
             h, stats = self.moe_mlp(h, train=train, noise=noise)
+            if split:
+                h = h if h.shape[-1] == d else group.shard(h)
+                stats = {k: group.to_partial(v) for k, v in stats.items()}
             if moe_losses is not None:
                 moe_losses.append(stats)
         else:
-            h = F.gelu(self.mlp_in(h), approximate="tanh")
+            h = self.mlp_in(h)
+            columns = split and self.mlp_in.sharded
+            h = F.gelu(h, approximate="tanh")
             if mask is not None:
-                h = torch.where(mask, h / (1.0 - self.dropout),
+                h = torch.where(group.shard(mask) if columns else mask, h / (1.0 - self.dropout),
                                 torch.zeros((), dtype=h.dtype, device=h.device))
-            h = self.mlp_out(h)
+            if columns:
+                h = group.gather(h)
+            h = shard_of_output(self.mlp_out, h, group) if split else self.mlp_out(h)
         return x + g2 * h
 
 
-class DiT(nn.Module):
+class DiT(TensorParallel):
     """Diffusion Transformer over NHWC images. Defaults: DiT-S-ish at patch
     4 (64 tokens on 32×32). ``num_classes`` adds a class table with a
     trailing null row, as the UNets', for classifier-free guidance.
-    Parameters are float32; ``param_dtype`` takes no other value yet."""
+    Parameters are float32; ``param_dtype`` takes no other value yet.
+
+    Bound to a tensor group's shards of its split leaves (after
+    :meth:`place_tensor`), a forward runs tensor-parallel and returns the
+    whole output on every rank of the group; bound to whole weights, the
+    same module runs as on one device and issues no collective."""
 
     def __init__(self, patch_size: int = 4, hidden: int = 384, depth: int = 12,
                  num_heads: int = 6, mlp_ratio: float = 4.0, in_channels: int = 3,
@@ -225,22 +264,34 @@ class DiT(nn.Module):
         assert ih % p == 0 and iw % p == 0, f"image {ih}x{iw} not divisible by patch {p}"
         assert ic == self.in_channels, (ic, self.in_channels)
         gh, gw = ih // p, iw // p
+        group = self._tensor_split()
 
-        h = self.patch_embed(x).reshape(n, gh * gw, self.hidden)
-        h = h + posemb_sincos_2d(gh, gw, self.hidden, self.dtype, x.device)[None]
-        c = self.time_embed(t)
+        pos = posemb_sincos_2d(gh, gw, self.hidden, self.dtype, x.device)[None]
+        if group is None:
+            h = self.patch_embed(x)
+        else:  # the rank's channels of the tokens
+            h = shard_of_output(self.patch_embed, x, group)
+            pos = group.shard(pos)
+        h = h.reshape(n, gh * gw, -1) + pos
+        c = self.time_embed(t)  # whole: adaLN reads every channel of it
         if self.num_classes is not None:
             assert y is not None, "class-conditional DiT needs labels y"
-            c = c + self.class_embed(y.to(device=c.device, dtype=torch.int64)).to(self.dtype)
+            label = self.class_embed(y.to(device=c.device, dtype=torch.int64))
+            if label.shape[-1] != c.shape[-1]:  # a column shard of the table
+                label = group.gather(label)
+            c = c + label.to(self.dtype)
         for i in range(self.depth):
             h = getattr(self, f"block_{i}")(h, c, train=train, generator=generator,
                                             moe_losses=moe_losses)
 
-        mod = self.final_mod(F.silu(c))[:, None, :]
+        mod = whole_output(self.final_mod, F.silu(c))[:, None, :]
         shift, scale = torch.chunk(mod, 2, dim=-1)
-        h = self.final_proj(_modulate(layer_norm(h, self.dtype), shift, scale))
+        if group is not None:
+            h = group.gather(h)
+        h = whole_output(self.final_proj, _modulate(layer_norm(h, self.dtype), shift, scale))
         h = h.reshape(n, gh, gw, p, p, self.out_channels)
-        return h.permute(0, 1, 3, 2, 4, 5).reshape(n, ih, iw, self.out_channels).to(torch.float32)
+        out = h.permute(0, 1, 3, 2, 4, 5).reshape(n, ih, iw, self.out_channels).to(torch.float32)
+        return out if group is None else group.to_partial(out)
 
 
 def DiT_S(patch_size: int = 4, **kwargs) -> DiT:

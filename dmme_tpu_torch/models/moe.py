@@ -33,6 +33,19 @@ the group's queues for its own E/P experts (an all-to-all,
 :class:`AllToAll`, whose backward is the reverse all-to-all), runs those
 experts on (E/P, P·C, d), and sends the outputs back by a second all-to-all
 before the combine. Given whole stacks the layer issues no collective.
+
+Tensor parallelism (the mesh's ``tensor`` axis, in a tensor-split DiT):
+JAX's rule splits ``w_in`` (E, d, f) on f and ``w_out`` (E, f, d) on d, and
+the ``router`` and the biases too once they reach its size threshold. The
+layer takes the whole input, alike on every rank of the tensor group, so
+the group routes alike, bitwise (a router bound as a column shard has its
+logits gathered whole). Each expert's hidden layer runs on ``w_in``'s
+columns with the rank's slice of ``b_in`` and is all-gathered along f
+before ``w_out``, whose columns give the rank's slice of d (with that slice
+of ``b_out``); the combine then returns the rank's (N, T, d/T) channels.
+With both axes a stack is split on E first, then on its last axis
+(``('expert', None, 'tensor')``): the all-to-alls run within the ranks of
+one tensor index, which hold the same columns of their experts.
 """
 
 from __future__ import annotations
@@ -46,7 +59,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from dmme_tpu_torch.models.blocks import Dense, _lecun_normal_
+from dmme_tpu_torch.models.blocks import Dense, _lecun_normal_, whole_output
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -99,6 +112,9 @@ class MoEMlp(nn.Module):
     Each expert takes at most ``ceil(tokens · top_k / E · capacity_factor)``
     tokens a call (and no more than the tokens there are).
     """
+
+    #: the ``TensorGroup`` of a tensor-split model (``TensorParallel.place_tensor``)
+    tensor_group = None
 
     def __init__(self, dim: int, num_experts: int, mlp_dim: int, top_k: int = 2,
                  capacity_factor: float = 1.25, router_noise: float = 1.0,
@@ -200,12 +216,21 @@ class MoEMlp(nn.Module):
         local = self.num_experts // where.size
         return b if b.shape[0] == local else b[where.index * local:(where.index + 1) * local]
 
+    def _columns(self, b: torch.Tensor, width: int) -> torch.Tensor:
+        """A bias for an output of ``width`` columns: as it is, or the rank's
+        slice of it held whole where the kernel is a column shard."""
+        return b if b.shape[-1] == width else self.tensor_group.shard(b)
+
     def _experts(self, h: torch.Tensor, b_in: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
-        """The bound experts' FFNs on their (E', tokens, d) queues."""
+        """The bound experts' FFNs on their (E', tokens, d) queues: (E',
+        tokens, d), or the rank's d/T where ``w_out`` is a column shard (the
+        hidden layer of a column shard of ``w_in`` gathered whole first)."""
         h = torch.einsum("ecd,edf->ecf", h, self.w_in.to(self.dtype))
-        h = F.gelu(h + b_in.to(self.dtype), approximate="tanh")
+        h = F.gelu(h + self._columns(b_in, h.shape[-1]).to(self.dtype), approximate="tanh")
+        if h.shape[-1] != self.mlp_dim:
+            h = self.tensor_group.gather(h)
         out = torch.einsum("ecf,efd->ecd", h, self.w_out.to(self.dtype))
-        return out + b_out.to(self.dtype)
+        return out + self._columns(b_out, out.shape[-1]).to(self.dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 noise: Optional[torch.Tensor] = None
@@ -213,12 +238,13 @@ class MoEMlp(nn.Module):
         """(output, router statistics). ``train``: Sinkhorn-balanced
         selection, and the caller's (S, E) standard-normal ``noise`` on the
         router's logits at ``router_noise`` where it drew one (JAX adds it
-        only with a dropout stream)."""
+        only with a dropout stream). The output is the rank's d/T channels
+        where ``w_out`` is a tensor group's column shard."""
         n, t, d = x.shape
         e, s = self.num_experts, n * t
         xs = x.reshape(s, d)
 
-        logits = self.router(xs.to(torch.float32))
+        logits = whole_output(self.router, xs.to(torch.float32))
         if train and self.router_noise > 0 and noise is not None:
             logits = logits + self.router_noise * noise.to(device=logits.device,
                                                            dtype=torch.float32)
@@ -235,8 +261,8 @@ class MoEMlp(nn.Module):
             got = AllToAll.apply(expert_in, where)  # (P·E/P, C, d): block i from rank i
             got = got.reshape(p, local, c, d).transpose(0, 1).reshape(local, p * c, d)
             out = self._experts(got, *(self._local(b, where) for b in (self.b_in, self.b_out)))
-            out = out.reshape(local, p, c, d).transpose(0, 1)
-            out = AllToAll.apply(out, where).reshape(e, c, d)
+            out = out.reshape(local, p, c, -1).transpose(0, 1)
+            out = AllToAll.apply(out, where).reshape(e, c, -1)
         y = torch.einsum("sec,ecd->sd", combine.to(self.dtype), out)
 
         # Switch aux E·Σ f_e·P_e (round-1 routed fraction, mean prob), the
@@ -245,4 +271,4 @@ class MoEMlp(nn.Module):
         stats["moe_aux"] = e * torch.sum(f_e * torch.mean(probs, dim=0))
         stats["moe_z"] = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
         stats["f_e"] = f_e
-        return y.reshape(n, t, d), stats
+        return y.reshape(n, t, -1), stats

@@ -15,7 +15,7 @@ concatenation is gathered whole and re-split, since a rank's slice of
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal, Mapping, Optional, Sequence, Tuple
+from typing import Literal, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -25,6 +25,7 @@ from dmme_tpu_torch.models.blocks import (
     GNSiLU,
     GroupNorm,
     ResBlock,
+    TensorParallel,
     TimeEmbedding,
     Upsample,
     conv3x3,
@@ -100,7 +101,7 @@ def check_param_dtype(param_dtype) -> None:
                                   "leftovers)")
 
 
-class UNet(nn.Module):
+class UNet(TensorParallel):
     """Timestep-conditioned UNet denoiser on NHWC tensors.
 
     ``film=False, num_heads=1`` is the DDPM UNet; ``film=True`` with several
@@ -121,10 +122,6 @@ class UNet(nn.Module):
     weights, the same module runs as on one device and issues no
     collective.
     """
-
-    #: (module, parameter, whole shape) of one tensor-split leaf: the
-    #: forward runs tensor-parallel when that leaf is bound as a shard
-    _tensor_probe = None
 
     def __init__(
         self,
@@ -189,37 +186,6 @@ class UNet(nn.Module):
         assert not skips, "unconsumed skip connections — topology mismatch"
         self.out_norm = GNSiLU(num_groups, c, dtype) if fused_norm else GroupNorm(num_groups, c)
         self.output_conv = conv3x3(c, out_channels or in_channels, 1, dtype)
-
-    def place_tensor(self, where, split: Mapping[str, int] = ()) -> None:
-        """Hand every module the ``TensorGroup`` ``where`` (None: whole
-        weights only). ``split``: the names of the leaves the tensor axis
-        splits (``parallel.mesh.tensor_axes``), at least one. Raises where a
-        GroupNorm's groups do not split whole over the group."""
-        self._tensor_probe = None
-        if where is not None:
-            if not split:
-                raise ValueError("the tensor axis splits no leaf of this UNet: a tensor mesh "
-                                 "needs at least one split kernel (lower min_weight_size)")
-            for m in self.modules():
-                if isinstance(m, GroupNorm) and (m.num_groups % where.size
-                                                 or m.weight.shape[0] % where.size):
-                    raise ValueError(f"GroupNorm({m.num_groups} groups, {m.weight.shape[0]} "
-                                     f"channels) cannot split whole over {where.size} tensor "
-                                     "ranks")
-            name = next(iter(split))
-            module, _, leaf = name.rpartition(".")
-            self._tensor_probe = (module, leaf, tuple(self.get_parameter(name).shape))
-        for m in self.modules():
-            m.tensor_group = where
-
-    def _tensor_split(self):
-        """The ``TensorGroup`` where the bound weights are its shards, else None."""
-        probe = self._tensor_probe
-        if probe is None:
-            return None
-        module, leaf, shape = probe
-        bound = getattr(self.get_submodule(module), leaf)
-        return self.tensor_group if tuple(bound.shape) != shape else None
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, *, y: Optional[torch.Tensor] = None,
                 train: bool = False,

@@ -20,16 +20,17 @@ axis sizes, and the collectives are written out (``parallel/train_step.py``):
   capacity, balance and router losses), as JAX's accumulation routes a
   microbatch. A stack can carry both axes: ``expert`` on E and ``fsdp``
   on another axis, by JAX's rule.
-* ``tensor``: tensor (channel) parallelism for the UNet (Megatron's column
-  split): each conv and Dense kernel, and embedding table, of 2¹⁴ elements
-  or more whose output axis the axis divides is split on it, so a rank of
-  a tensor group (size T) holds 1/T of the output channels of each, with
-  their EMA and moments; biases and GroupNorm affines stay whole. The T
-  ranks share one batch slice; activations flow channel-split between
-  them and are all-gathered before each layer that reads every channel
+* ``tensor``: tensor (channel) parallelism for the UNet and the DiT
+  (Megatron's column split): each conv and Dense kernel, embedding table
+  and MoE stack of 2¹⁴ elements or more whose last axis the axis divides
+  (in JAX's layout) is split on it, so a rank of a tensor group (size T)
+  holds 1/T of the output channels of each, with their EMA and moments;
+  biases and GroupNorm affines stay whole. The T ranks share one batch
+  slice; activations flow channel-split between them and are
+  all-gathered before each layer that reads every channel
   (``parallel/tensor.py``, ``models/blocks.py``). The split weights are
   never gathered for the forward. A leaf can carry ``tensor`` on its
-  output axis and ``fsdp`` on another.
+  output axis and ``fsdp`` on another, and a MoE stack ``expert`` on E.
 * ``spatial``: not ported; a size above 1 raises naming ROADMAP A.11.
 
 Rank r sits at (d, f, e, t) of the (data, fsdp, expert, tensor) grid,

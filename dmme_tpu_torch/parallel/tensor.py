@@ -35,8 +35,8 @@ computes on it seeds the convention. Hence:
   is right as it stands.
 
 :class:`TensorGroup` is what ``parallel.shard_state`` hands the model
-(``UNet.place_tensor``). Its collectives take the tensors as they are,
-CUDA ones included, over gloo or NCCL.
+(``TensorParallel.place_tensor`` of the UNet and the DiT). Its collectives
+take the tensors as they are, CUDA ones included, over gloo or NCCL.
 """
 
 from __future__ import annotations

@@ -17,8 +17,8 @@ for the forward and their gradients reduce-scattered; Adam and the EMA run
 on the shard. ``expert``: the MoE layers run on the rank's expert shards
 (never gathered; their all-to-alls bring the expert group's tokens), so a
 shard's gradient already sums its group's tokens and is summed only over
-the ranks that hold the same shard. ``tensor``: the UNet runs on channel
-shards (``parallel/tensor.py``); a split kernel's gradient is its shard's
+the ranks that hold the same shard. ``tensor``: the UNet and the DiT run
+on channel shards (``parallel/tensor.py``); a split kernel's gradient is its shard's
 whole gradient, summed over its replicas only, and a whole leaf's is a
 partial sum over the tensor group, which the world all-reduce completes;
 the loss, alike on the T ranks of a group, is divided by T before that
@@ -220,8 +220,8 @@ def shard_state(state, mesh, min_weight_size: Optional[int] = None, model=None):
     shard of that (:func:`~dmme_tpu_torch.parallel.mesh.split_axes`;
     ``min_weight_size`` defaults to the mesh's). ``model``: the module the
     params bind to, whose MoE layers learn where their experts live and
-    whose UNet learns its ``TensorGroup`` (an expert mesh that splits a
-    stack, and any tensor mesh, need it; a model without a tensor-parallel
+    whose UNet or DiT learns its ``TensorGroup`` (an expert mesh that splits
+    a stack, and any tensor mesh, need it; a model without a tensor-parallel
     forward raises there, before the state changes). Returns the state."""
     experts = expert_axes(state.params, mesh, min_weight_size)
     tensors = tensor_axes(state.params, mesh, min_weight_size)
@@ -232,9 +232,9 @@ def shard_state(state, mesh, min_weight_size: Optional[int] = None, model=None):
                          "model=)) so that its layers learn where their shards live")
     if mesh.tensor > 1 and not hasattr(model, "place_tensor"):
         raise NotImplementedError(
-            f"mesh axis tensor={mesh.tensor}: the port runs the tensor axis for the UNet "
-            f"families only; {type(model).__name__} has no tensor-parallel forward yet "
-            "(ROADMAP A.11, distribution)")
+            f"mesh axis tensor={mesh.tensor}: {type(model).__name__} has no tensor-parallel "
+            "forward yet (ADM's UNetModel, the noisy classifier's EncoderUNet and the codec's "
+            "ConvVAE have none; ROADMAP A.11, distribution)")
     if model is not None:
         if mesh.tensor > 1:
             model.place_tensor(TensorGroup(mesh.tensor_group, mesh.tensor,

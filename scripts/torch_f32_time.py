@@ -67,8 +67,9 @@ def busy_ms(torch, fn) -> tuple:
     return wall, busy
 
 
-def time_dtype(torch, dtype: str, dev) -> dict:
-    """The readings above for ``LitDDPM(dtype=dtype)`` on ``dev``."""
+def time_dtype(torch, dtype: str, dev, steps: int = STEPS) -> dict:
+    """The readings above for ``LitDDPM(dtype=dtype)`` on ``dev``, the step's
+    median over ``steps``."""
     from dmme_tpu_torch.data import CIFAR10
     from dmme_tpu_torch.parallel import make_train_step
     from dmme_tpu_torch.training import LitDDIM, LitDDPM
@@ -83,7 +84,7 @@ def time_dtype(torch, dtype: str, dev) -> dict:
         state, _ = step(state, batch, SEED)
     torch.cuda.synchronize()
     pairs = []
-    for _ in range(STEPS):
+    for _ in range(steps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         state, metrics = step(state, batch, SEED)

@@ -13,7 +13,10 @@ and ``{fsdp: 2, tensor: 2}`` (JAX's ``min_weight_size=64``) the TINY DDPM
 UNet (dropout 0.1), a TINY IDDPM UNet (FiLM, two heads, fused, remat) and
 a class-conditional one: each rank's forward and injected loss, which
 this process holds against JAX's single-device ``apply`` on the same
-weights; three steps, which this process holds against one process at
+weights; on ``{data: -1, tensor: 2}`` the same for the denoisers of
+``LitUpsampler``, ``LitLatentDDPM`` (the frozen codec outside the state)
+and ``LitLatentFlow`` (a tiny DiT), laid out from their harnesses' states,
+each rank on its batch slice; three steps, which this process holds against one process at
 half the batch accumulating 2, every leaf's first gradient included; and
 checkpoints between the mesh and no mesh, bit for bit.
 """
@@ -32,14 +35,17 @@ import torch
 
 from dmme_tpu.diffusion import DDPM as JaxDDPM
 from dmme_tpu.diffusion import IDDPM as JaxIDDPM
+from dmme_tpu.diffusion import FlowMatching as JaxFlow
 from dmme_tpu.models import as_model_fn as jax_model_fn
 from dmme_tpu.models import ddpm as jax_ddpm
+from dmme_tpu.models import dit as jax_dit
 from dmme_tpu.models import iddpm as jax_iddpm
+from dmme_tpu.models import vae as jax_vae
 from dmme_tpu.parallel import fsdp_param_spec as jax_fsdp_param_spec
 from dmme_tpu.parallel import make_mesh as jax_make_mesh
+from dmme_tpu.training import LitUpsampler as JaxLitUpsampler
 from dmme_tpu_torch.models import ddpm as t_ddpm
-from dmme_tpu_torch.models.adm import UNetModel
-from dmme_tpu_torch.models.dit import DiT
+from dmme_tpu_torch.models.adm import EncoderUNet, UNetModel
 from dmme_tpu_torch.models.vae import ConvVAE
 from dmme_tpu_torch.parallel import mesh as tmesh
 from dmme_tpu_torch.parallel import shard_state
@@ -135,14 +141,18 @@ def _hand_mesh(**axes):
     return tmesh.Mesh(shape=shape, rank=0, device=torch.device("cpu"), backend="gloo")
 
 
-@pytest.mark.parametrize("family", ["dit", "adm", "codec", "none"])
+@pytest.mark.parametrize("family", ["adm", "classifier", "codec", "none"])
 def test_families_without_a_tensor_forward_raise_naming_a11(family):
     """shard_state refuses a tensor mesh for a model with no tensor-parallel
-    forward (naming A.11), and without the model, before the state changes."""
-    build = {"dit": lambda: DiT(patch_size=8, hidden=32, depth=1, num_heads=2, pos_dim=16),
-             "adm": lambda: UNetModel(image_size=16, model_channels=32, channel_mult=(1, 2),
+    forward (naming A.11), and without the model, before the state changes.
+    The DiT has one (tests/test_torch_port_tensor_dit.py)."""
+    build = {"adm": lambda: UNetModel(image_size=16, model_channels=32, channel_mult=(1, 2),
                                       num_res_blocks=1, attention_resolutions=(),
                                       num_head_channels=32),
+             "classifier": lambda: EncoderUNet(image_size=16, model_channels=32,
+                                               channel_mult=(1, 2), num_res_blocks=1,
+                                               attention_resolutions=(), num_head_channels=32,
+                                               num_classes=10),
              "codec": lambda: ConvVAE(latent_channels=4, base_channels=32,
                                       channel_multipliers=(1, 2), num_res_blocks=1),
              "none": lambda: None}
@@ -203,6 +213,89 @@ def _forward_inputs():
     return out
 
 
+#: the harness cases' global batch of images (16 px: 8×8 latents at the codec's factor 2)
+HARNESS_SHAPE = (4, 16, 16, 3)
+
+
+def _random_params(shapes, r):
+    """Kernels of variance 1/fan_in, GroupNorm scales 1 + 0.1·N(0, 1), every
+    other leaf 0.1·N(0, 1) (the DiT's zero-initialised layers drawn too)."""
+
+    def fill(path, leaf):
+        name = path[-1].key
+        if name == "kernel":
+            v = r.standard_normal(leaf.shape) / np.sqrt(np.prod(leaf.shape[:-1]))
+        elif name == "scale":
+            v = 1.0 + 0.1 * r.standard_normal(leaf.shape)
+        else:
+            v = 0.1 * r.standard_normal(leaf.shape)
+        return v.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def _harness_inputs():
+    """{harness: its JAX denoiser, params, the denoiser's global input
+    ``x_in`` at ``t``, the images ``x``, the injected draws (a, b) of its
+    ``loss_given`` and the latent ones' codec and posterior noise}."""
+    r = np.random.default_rng(7)
+    jvae = jax_vae.ConvVAE(**worker.CODEC)
+    vparams = _random_params(jax.eval_shape(jvae.init, jax.random.PRNGKey(0),
+                                            jnp.zeros((1, 8, 8, 3)), jax.random.PRNGKey(1)), r)
+    n = HARNESS_SHAPE[0]
+    x = np.clip(r.standard_normal(HARNESS_SHAPE), -1, 1).astype(np.float32)
+    out = {}
+    for name, kw in worker.HARNESS_MODELS.items():
+        model = (jax_dit.DiT if name == "latent_flow_dit" else jax_ddpm.UNet)(**kw)
+        hw = HARNESS_SHAPE[1] // (1 if name == "upsampler" else 2)
+        in_shape = (n, hw, hw, kw["in_channels"])
+        params = _random_params(jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                                               jnp.zeros(in_shape), jnp.zeros((n,), jnp.int32)),
+                                r)
+        d = dict(model=model, params=params, x=x,
+                 x_in=r.standard_normal(in_shape).astype(np.float32),
+                 t=r.integers(2, worker.TIMESTEPS, n).astype(np.int32))
+        target = HARNESS_SHAPE if name == "upsampler" else in_shape  # x₀'s shape
+        d["b"] = r.standard_normal(target).astype(np.float32)
+        d["a"] = (r.uniform(0.05, 0.95, n).astype(np.float32) if name == "latent_flow_dit"
+                  else r.integers(2, worker.TIMESTEPS, n).astype(np.int32))
+        if name != "upsampler":
+            d.update(noise=r.standard_normal(in_shape).astype(np.float32), codec=vparams,
+                     vae=jvae)
+        out[name] = d
+    return out
+
+
+def _jax_harness(name, d):
+    """[(JAX's denoiser output, its injected loss)] of harness ``name`` on
+    each batch rank's slice of its inputs ``d``: the upsampler conditioned
+    on its pooled-and-resized images, the latent ones on the codec's latents."""
+    algo = JaxFlow.create() if name == "latent_flow_dit" else JaxDDPM.create(worker.TIMESTEPS)
+
+    @jax.jit
+    def run(params, codec, x, x_in, t, a, b, noise):
+        if name == "upsampler":
+            jlit = JaxLitUpsampler(factor=worker.UPSAMPLE, model=d["model"],
+                                   timesteps=worker.TIMESTEPS)
+            x0 = x
+            model_fn = jlit.bound_model_fn(jax.image.resize(jlit.downsample(x), x.shape,
+                                                            "linear"))
+        else:
+            mean, logvar = d["vae"].apply(codec, x, method=jax_vae.ConvVAE.encode)
+            x0 = (mean + jnp.exp(0.5 * logvar) * noise) * worker.LATENT_SCALE
+            model_fn = jax_model_fn(d["model"])
+        return d["model"].apply(params, x_in, t), algo.loss_given(model_fn, params, x0, a, b)
+
+    out = []
+    for s in range(2):
+        part = slice(2 * s, 2 * s + 2)
+        y, loss = run(d["params"], d.get("codec"), *(
+            jnp.asarray(d[k][part]) if k in d else None
+            for k in ("x", "x_in", "t", "a", "b", "noise")))
+        out.append((np.asarray(y), float(loss)))
+    return out
+
+
 def _plain_checkpoint(directory):
     """A mesh-less run's checkpoint at step 3 of the checkpoint UNet, every
     tensor drawn (the moments too)."""
@@ -216,8 +309,10 @@ def _plain_checkpoint(directory):
 
 
 class _Group:
-    """The spawned workers: their pipes drained by threads while they run,
-    killed at the deadline (as ``parallel.mp_check.spawn``)."""
+    """The spawned workers (``script``): their pipes drained by threads while
+    they run, killed at the deadline (as ``parallel.mp_check.spawn``)."""
+
+    script = worker.__file__
 
     def __init__(self, out):
         self.out, self.deadline = out, time.monotonic() + DEADLINE
@@ -228,7 +323,7 @@ class _Group:
             env.pop(key, None)
         port = free_port()
         self.procs = [subprocess.Popen(
-            [sys.executable, worker.__file__, out, str(rank), str(WORLD), str(port)],
+            [sys.executable, self.script, out, str(rank), str(WORLD), str(port)],
             env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for rank in range(WORLD)]
         self.logs = [[] for _ in self.procs]
@@ -269,10 +364,18 @@ def group(tmp_path_factory):
                        "x0": torch.tensor(d["x0"]), "eps": torch.tensor(d["eps"]),
                        "y": None if d["y"] is None else torch.tensor(d["y"], dtype=torch.int64)}
                 for kind, d in inputs.items()}, os.path.join(out, "forward_input.pt"))
+    harnesses = _harness_inputs()
+    torch.save({name: {"state": from_flax(d["params"]),
+                       "codec": from_flax(d["codec"]) if "codec" in d else None,
+                       **{k: torch.tensor(d[k]) for k in ("x", "x_in", "a", "b", "noise", "t")
+                          if k in d}}
+                for name, d in harnesses.items()}, os.path.join(out, "harness_input.pt"))
     _plain_checkpoint(os.path.join(out, "plain"))
     g = _Group(out)
     try:
-        yield dict(group=g, inputs=inputs)
+        # JAX's harness results while the workers run: each batch rank's slice
+        wants = {name: _jax_harness(name, d) for name, d in harnesses.items()}
+        yield dict(group=g, inputs=inputs, harnesses=harnesses, harness_wants=wants)
     finally:
         for p in g.procs:
             if p.poll() is None:
@@ -317,6 +420,25 @@ def test_tensor_parallel_forward_and_loss_match_jax(group, name, kind):
         got = torch.load(os.path.join(out, f"forward.{r}.pt"))[f"{name}/{kind}"]
         assert got["split"], "the tensor axis split nothing"
         np.testing.assert_allclose(got["y"].numpy(), want, rtol=0, atol=FORWARD_ATOL,
+                                   err_msg=f"rank {r}")
+        np.testing.assert_allclose(float(got["loss"]), loss, rtol=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("name", list(worker.HARNESS_MODELS))
+def test_tensor_parallel_harness_denoisers_match_jax(group, name):
+    """Each harness's state laid out on {data: -1, tensor: 2} holds the
+    denoiser's leaves only (the latent codec stays outside it) and splits
+    some; every rank's denoiser output on its batch slice within 2e-5 of
+    JAX's single-device ``apply``, and its loss with injected draws (the
+    upsampler's cond and the codec's latents made by the harness) within
+    rtol 2e-4 of JAX's ``loss_given`` on the slice."""
+    d, want = group["harnesses"][name], group["harness_wants"][name]
+    out = group["group"].wait()
+    for r in range(WORLD):
+        got = torch.load(os.path.join(out, f"harness.{r}.pt"))[name]
+        assert got["keys"] == sorted(from_flax(d["params"])) and got["split"]
+        y, loss = want[got["slice"]]
+        np.testing.assert_allclose(got["y"].numpy(), y, rtol=0, atol=FORWARD_ATOL,
                                    err_msg=f"rank {r}")
         np.testing.assert_allclose(float(got["loss"]), loss, rtol=LOSS_RTOL)
 

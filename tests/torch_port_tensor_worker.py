@@ -5,10 +5,13 @@
 The process joins a group of ``world`` ranks once and runs, in order, on
 each tensor mesh of ``MESHES``: the tensor-parallel forward and injected
 loss of each TINY UNet of ``KINDS`` on the test's weights and inputs
-(``forward``), three-step fits of each from one drawn state (``steps``),
-and the checkpoint round trip (``checkpoints``). Rank 0 writes what the
-test compares under ``<dir>``, every rank its notes. It imports neither
-JAX nor the JAX package.
+(``forward``); on ``{data: -1, tensor: 2}`` those of the denoisers of
+``LitUpsampler``, ``LitLatentDDPM`` and ``LitLatentFlow`` laid out by
+``shard_state`` from their harnesses' states, on the rank's batch slice
+(``harnesses``); three-step fits of each UNet of ``KINDS`` from one drawn
+state (``steps``), and the checkpoint round trip (``checkpoints``). Rank 0
+writes what the test compares under ``<dir>``, every rank its notes. It
+imports neither JAX nor the JAX package.
 """
 
 import os
@@ -23,12 +26,15 @@ from torch.func import functional_call  # noqa: E402
 
 from dmme_tpu_torch.data import CIFAR10  # noqa: E402
 from dmme_tpu_torch.models import ddpm, iddpm  # noqa: E402
+from dmme_tpu_torch.models.dit import DiT  # noqa: E402
+from dmme_tpu_torch.models.vae import ConvVAE  # noqa: E402
 from dmme_tpu_torch.parallel import initialize, make_mesh, shard_state, shutdown  # noqa: E402
 from dmme_tpu_torch.parallel.mesh import gather_leaves, shard_of, tensor_axes  # noqa: E402
 from dmme_tpu_torch.parallel.tensor import TensorGroup  # noqa: E402
 from dmme_tpu_torch.training import (CheckpointManager, LitDDPM, LitIDDPM,  # noqa: E402
-                                     TrainState, fit)
+                                     LitLatentDDPM, LitLatentFlow, LitUpsampler, TrainState, fit)
 from dmme_tpu_torch.training.checkpoint import FILE  # noqa: E402
+from dmme_tpu_torch.training.lit import resize_bilinear  # noqa: E402
 
 TINY = dict(pos_dim=4, emb_dim=8, num_groups=2, channels_per_depth=(4, 8, 8, 8), num_blocks=1)
 #: {kind: (harness, UNet keywords)}: the DDPM UNet with dropout 0.1; the
@@ -48,6 +54,22 @@ MIN_WEIGHT_SIZE = 64
 GLOBAL_BATCH = 8
 STEPS = 3
 CKPT = ("fsdp2_tensor2", "ddpm")
+#: the denoisers of the harnesses that run a UNet or a DiT through
+#: ``place_tensor``: the upsampler's (input x_t ‖ cond, 2·C channels), the
+#: latent DDPM's over the frozen codec (which stays outside the state and
+#: runs whole on every rank), and the latent flow DiT of
+#: configs/latent/shapes_latent_flow_dit_demo.yaml at a tiny width
+HARNESS_MODELS = {
+    "upsampler": dict(in_channels=6, out_channels=3, pos_dim=4, emb_dim=8, num_groups=2,
+                      channels_per_depth=(4, 8, 16), num_blocks=1, dropout=0.0,
+                      attention_depths=(3,)),
+    "latent_ddpm": dict(in_channels=4, pos_dim=4, emb_dim=8, num_groups=2,
+                        channels_per_depth=(4, 8, 16, 16), num_blocks=1, dropout=0.0),
+    "latent_flow_dit": dict(in_channels=4, patch_size=2, hidden=32, depth=2, num_heads=2,
+                            pos_dim=16)}
+CODEC = dict(latent_channels=4, base_channels=16, channel_multipliers=(1, 2), num_res_blocks=1)
+LATENT_SCALE = 0.75
+UPSAMPLE = 2
 
 
 def model(kind):
@@ -100,8 +122,8 @@ class Recorder:
 class FirstGradients:
     """Keeps the reduced gradients of a run's first optimizer step, where
     ``TrainState.apply_gradients`` receives them, every shard gathered
-    whole (a collective every rank reaches at the same step), and ends
-    ``spy`` there."""
+    whole (fsdp, then expert, then tensor: a collective every rank reaches
+    at the same step), and ends ``spy`` there."""
 
     def __init__(self, spy=None):
         self.grads, self.spy = None, spy
@@ -116,6 +138,7 @@ class FirstGradients:
                 whole = dict(grads)
                 if state.mesh is not None:
                     whole.update(gather_leaves(state.mesh, whole, state.shard_axes))
+                    whole.update(gather_leaves(state.mesh, whole, state.expert_axes, "expert"))
                     whole.update(gather_leaves(state.mesh, whole, state.tensor_axes, "tensor"))
                 self.grads = {k: v.detach().clone() for k, v in whole.items()}
             return self.original(state, grads, norm)
@@ -171,6 +194,47 @@ def forward(out, rank, world):
                     params, g["x0"], g["t"], g["eps"])
             got[f"{name}/{kind}"] = {"y": y, "loss": loss, "split": sorted(split)}
     torch.save(got, os.path.join(out, f"forward.{rank}.pt"))
+
+
+def harness(name, codec=None):
+    """The harness of ``HARNESS_MODELS[name]``; ``codec``: the latent ones' state dict."""
+    kw = HARNESS_MODELS[name]
+    if name == "upsampler":
+        return LitUpsampler(factor=UPSAMPLE, model=ddpm.UNet(**kw), timesteps=TIMESTEPS)
+    latent = dict(vae=ConvVAE(**CODEC), vae_params=codec, latent_scale=LATENT_SCALE)
+    if name == "latent_ddpm":
+        return LitLatentDDPM(model=ddpm.UNet(**kw), timesteps=TIMESTEPS, **latent)
+    return LitLatentFlow(model=DiT(**kw), **latent)
+
+
+def harnesses(out, rank, world):
+    """Each harness's state (the test's weights) laid out on ``{data: -1,
+    tensor: 2}`` by ``shard_state``; the denoiser's forward and its loss
+    with injected draws on the rank's batch slice: the upsampler's on the
+    x_t ‖ cond of the slice, the latent ones' on the codec's latents of the
+    slice under the given posterior noise."""
+    given = torch.load(os.path.join(out, "harness_input.pt"), weights_only=False)
+    mesh = make_mesh(device="cpu", min_weight_size=MIN_WEIGHT_SIZE, **MESHES["data2_tensor2"])
+    got = {}
+    for name in HARNESS_MODELS:
+        g = {k: v.chunk(mesh.batch_ranks)[mesh.batch_index] if torch.is_tensor(v) else v
+             for k, v in given[name].items()}
+        h = harness(name, g.get("codec"))
+        state = h.init_state(0, device="cpu")
+        keys = sorted(state.params)
+        state.params, state.ema_params = dict(g["state"]), dict(g["state"])
+        state = shard_state(state, mesh, model=h.model)
+        with torch.no_grad():
+            y = functional_call(h.model, state.params, (g["x_in"], g["t"]))
+            if name == "upsampler":
+                cond = resize_bilinear(h.downsample(g["x"]), g["x"].shape[1:3])
+                x0, model_fn = g["x"], h.bound_model_fn(cond)
+            else:
+                x0, model_fn = h.encode_target(None, g["x"], noise=g["noise"]), h.model_fn
+            loss = h.diffusion_model.loss_given(model_fn, state.params, x0, g["a"], g["b"])
+        got[name] = {"y": y, "loss": loss, "keys": keys, "split": sorted(state.tensor_axes),
+                     "slice": mesh.batch_index}
+    torch.save(got, os.path.join(out, f"harness.{rank}.pt"))
 
 
 def steps(out, rank, world):
@@ -237,7 +301,7 @@ def main(argv) -> int:
     out, rank, world, port = argv[0], int(argv[1]), int(argv[2]), int(argv[3])
     initialize(f"localhost:{port}", world, rank, device="cpu")
     try:
-        for scenario in (forward, steps, checkpoints):
+        for scenario in (forward, harnesses, steps, checkpoints):
             scenario(out, rank, world)
             print(f"[tensor worker {rank}] {scenario.__name__} done", file=sys.stderr, flush=True)
     finally:
