@@ -22,7 +22,11 @@ if the package is missing, or if any phase fails. Phases:
    packed once per weight state,
    before the timed runs) and the least time the card could take; beside
    K3, SDPA; beside K4, the same ResBlock as a cuDNN sequence
-   (``cudnn_seq_ms``), which the port never calls;
+   (``cudnn_seq_ms``), which the port never calls; then the split K1/K2
+   entries of the ``spatial`` axis at every K1 site of an LSUN microbatch
+   (bf16) and one fp16 and f32 shape, a sample's two halves' sums added on
+   the card, against their plain versions and the one-call K1/K2, timed on
+   a half;
 4. unet    — the full-width UNet forward on the card in bf16 under both switch
    settings against the same module and weights on the CPU in f32; then one
    forward at the LSUN widths (``configs/ddpm/lsun_*.yaml``: channels
@@ -80,9 +84,9 @@ if the package is missing, or if any phase fails. Phases:
    moments); ``sample`` and ``predict`` from the resumed checkpoint, predict's
    bytes equal to ``generate`` on a state restored in place after sampling
    with other weights (K4's weight cache); ``configs/ddpm/shapes_demo.yaml``
-   for 20 steps in chunks of 10; ``configs/ddpm/shapes256_demo.yaml`` (LSUN
-   widths, 256 px, batch 16) for 2 steps with and without ``remat``, the
-   peak memory lower with it; the Shapes configs' runs render only the
+   for 20 steps in chunks of 10 (whether remat lowers the peak memory is
+   held at the LSUN and ImageNet-64 widths in phases 47 and 48); the Shapes
+   configs' runs render only the
    images their steps need (``SHAPES_CUT``), the configs' widths, batches
    and steps otherwise;
 10. f32 and fp16 — fault C.5: ``LitDDPM()`` (f32) and ``LitDDPM(dtype="fp16")``
@@ -297,7 +301,9 @@ if the package is missing, or if any phase fails. Phases:
    grid's host time, the peak memory; every K1/K3/K4 call of a
    sampling forward at n = 4 and K1/K2/K3 call of one microbatch held
    against its plain version (``TOL``), twice for identical bytes, and
-   timed; the bf16 loss, gradient and forward of one 256-px image against
+   timed; whether remat lowers a microbatch's peak memory
+   (``remat_peaks``); the bf16 loss, gradient and forward of one 128-px
+   image against
    f32 on the CPU;
 48. ImageNet-64 — ``trainer.main fit`` of configs/iddpm/imagenet64.yaml
    as written (batch 128, 64 px, 4 heads of 96 and 128, hybrid loss,
@@ -312,6 +318,7 @@ if the package is missing, or if any phase fails. Phases:
    shares; every K1/K2/K3 call of a step at batch 128 and K1/K3/K4 call of a
    forward at n = 8 held against its plain version, twice, and timed; the
    bf16 loss, gradient (batch 2) and forward against f32 on the CPU;
+   whether remat lowers a training step's peak memory (``remat_peaks``);
 49. two ranks on one card — ``python -m torch.distributed.run --standalone
    --nproc_per_node 2 chip_smoke.py --rank-worker DIR`` (gloo on CUDA
    tensors; NCCL refuses two ranks on one device): ``trainer.main fit`` of
@@ -361,7 +368,20 @@ if the package is missing, or if any phase fails. Phases:
    gathered state; each rank's launches the one process's (12 K3 a step:
    the attention runs whole) at phase 35's K3 call sites, K3 held against
    its plain version on the rank's own inputs; no f32, fp16 or ``simt.cu``
-   launch; a rank's step and its largest activation all-gather timed;
+   launch; a rank's step and its largest activation all-gather timed. In
+   the same launch, the ``spatial`` axis: ``trainer.main fit`` of
+   configs/ddpm/lsun_church.yaml as the tensor fit runs it, with
+   ``--trainer.mesh "{data: -1, spatial: 2}"`` (each rank H/2 rows of every
+   activation): the losses, grad norms and first gradient held against the
+   tensor fit's one process (the same batches and draws) as the tensor
+   fit's are, both ranks' states bitwise equal and the checkpoint restored
+   without a mesh bitwise theirs; each rank's launches the split K1/K2
+   entries (``group_norm.cu``) at the one process's K1/K2 counts, K3 at its
+   count, nothing of the one-call K1/K2, f32, fp16 or ``simt.cu``; the
+   split entries and K3 held against their plain versions on each rank's
+   own inputs; each rank's peak memory below the one process's; its halo
+   exchanges and statistics all-reduces a microbatch counted and its
+   largest halo exchange timed;
 50. two-rank test — in the same launch, ``trainer.main test`` of
    configs/ddim/cifar10.yaml from phase 46's run with
    ``--trainer.mesh.data 2``, one test batch a rank: phase 46's FID and IS
@@ -378,9 +398,11 @@ prints no result line: a short first check of new kernels.
 from __future__ import annotations
 
 import argparse
+import ast
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -447,8 +469,9 @@ FIT_WARM, FIT_STEPS, TIMED_STEPS = 3, 20, 5
 HARNESS_TIMED_STEPS = 10
 #: the batch of the f32 phases' loss and gradient against the CPU: the card's
 #: kernels are held at batch 128 against their plain versions there, and the
-#: CPU's f32 reference of a batch-128 step cost most of those phases' time
-CPU_REF_BATCH = 8
+#: CPU's f32 reference cost most of those phases' time (8 until the spatial
+#: fit needed the seconds)
+CPU_REF_BATCH = 4
 # launches of one training step of the full-width UNet
 PER_TRAIN_STEP = {"group_norm_silu": 45, "group_norm_silu_bwd": 45, "attention": 6,
                   "resblock": 0}
@@ -662,10 +685,12 @@ def train_targets(blocks, k_gn, k_attn):
             (k_attn, "attention_bwd", "attention_bwd", _sig_attn)]
 
 
-def record_calls(targets, fn):
+def record_calls(targets, fn, inputs: bool = True):
     """Run ``fn()`` with each ``(module, attribute, kind, signature)`` entry
     point wrapped so that the first call of each distinct signature keeps
-    its inputs. Returns {kind: [(signature, count, args, kwargs)]}."""
+    its inputs (with ``inputs`` false, only the counts: a run whose peak
+    memory is read holds nothing more). Returns {kind: [(signature, count,
+    args, kwargs)]}."""
     seen = {kind: {} for _, _, kind, _ in targets}
     originals = []
 
@@ -674,7 +699,7 @@ def record_calls(targets, fn):
         originals.append((module, attr, orig))
 
         def wrapped(*a, _orig=orig, _kind=kind, _sig=sig, **k):
-            entry = seen[_kind].setdefault(_sig(*a, **k), [0, a, k])
+            entry = seen[_kind].setdefault(_sig(*a, **k), [0, a, k] if inputs else [0, (), {}])
             entry[0] += 1
             return _orig(*a, **k)
 
@@ -2550,7 +2575,9 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
     a resume to step 3k against an uninterrupted 3k-step run, bit for bit
     (k = ``CLI_CADENCE``); sample and predict from the resumed checkpoint, predict against
     ``generate`` on a state restored in place; the Shapes recipe in chunks
-    of 10 steps; the LSUN widths at 256 px with and without remat."""
+    of 10 steps. (Whether remat lowers the peak memory at the LSUN and the
+    ImageNet-64 widths is held in phases 53 and 54 on those configs' own
+    UNets: :func:`remat_peaks`.)"""
     import shutil
 
     from dmme_tpu_torch import config as tcfg
@@ -2562,9 +2589,7 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
     torch.backends.cudnn.deterministic = True
     print("cudnn deterministic on for the CLI phase", flush=True)
     roots = {k: os.path.join("build", k) for k in ("cli_run", "cli_run_whole", "cli_shapes",
-                                                      "cli_remat", "cli_noremat",
-                                                      "cli_iddpm_shapes", "cli_iddpm_sample",
-                                                      "cli_iddpm64_remat", "cli_iddpm64_noremat")}
+                                                      "cli_iddpm_shapes", "cli_iddpm_sample")}
     for root in roots.values():
         shutil.rmtree(root, ignore_errors=True)
     ddim_cfg = ["--config", "configs/ddim/cifar10.yaml", "--data.init_args.synthetic", "true"]
@@ -2681,27 +2706,7 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
     if rec["checkpoints"] != [20] or len(logged) != 2 or not np.isfinite(rec["losses"]).all():
         fail(f"shapes_demo through the CLI left {rec}")
 
-    peaks = {}
-    for name, remat in (("cli_remat", "true"), ("cli_noremat", "false")):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        rec = run(f"shapes256_demo remat {remat}", [
-            "fit", "--config", "configs/ddpm/shapes256_demo.yaml", "--trainer.max_steps", "2",
-            "--trainer.steps_per_call", "1", "--trainer.log_every_n_steps", "1",
-            "--data.init_args.size", "64",
-            "--trainer.default_root_dir", roots[name],
-            "--model.init_args.model.init_args.remat", remat])
-        peaks[remat] = rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        rec["losses"] = [r["loss"] for r in _jsonl(os.path.join(roots[name], "metrics.jsonl"))]
-        print(f"shapes256_demo (LSUN widths, 256 px, batch 16) remat {remat}: peak memory "
-              f"{rec['peak_gib']:.3f} GiB, losses {rec['losses']} [{card}]", flush=True)
-        if len(rec["losses"]) != 2 or not np.isfinite(rec["losses"]).all():
-            fail(f"shapes256_demo remat {remat} left {rec}")
-    if not peaks["true"] < peaks["false"]:
-        fail(f"remat did not lower the peak memory: {peaks}")
-
-    # IDDPM: the Shapes recipe, a DPM-Solver++ grid of the CIFAR-10 recipe,
-    # and the ImageNet-64 widths at 64 px with and without remat
+    # IDDPM: the Shapes recipe and a DPM-Solver++ grid of the CIFAR-10 recipe
     shapes = roots["cli_iddpm_shapes"]
     rec = run("iddpm shapes_demo 20", ["fit", "--config", "configs/iddpm/shapes_demo.yaml",
                                        "--trainer.max_steps", "20", "--trainer.log_every_n_steps",
@@ -2724,25 +2729,6 @@ def cli_phase(torch, np, ops, dev, card: str) -> dict:
     print(f"iddpm cifar10 sample --trainer.sampler dpm: {rec['grid']}", flush=True)
     if rec["grid"] != ["step_00000000_dpm20.png"]:
         fail(f"the IDDPM dpm sample wrote {rec['grid']}")
-    peaks = {}
-    for name, remat in (("cli_iddpm64_remat", "true"), ("cli_iddpm64_noremat", "false")):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        rec = run(f"iddpm shapes64_demo remat {remat}", [
-            "fit", "--config", "configs/iddpm/shapes64_demo.yaml", "--trainer.max_steps", "2",
-            "--trainer.steps_per_call", "1", "--trainer.log_every_n_steps", "1",
-            "--data.init_args.size", "256",
-            "--trainer.default_root_dir", roots[name],
-            "--model.init_args.model.init_args.remat", remat])
-        peaks[remat] = rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        rec["losses"] = [r["loss"] for r in _jsonl(os.path.join(roots[name], "metrics.jsonl"))]
-        print(f"iddpm shapes64_demo (ImageNet-64 widths, 104,685,958 parameters, 64 px, batch "
-              f"64) remat {remat}: peak memory {rec['peak_gib']:.3f} GiB, losses "
-              f"{rec['losses']}, {rec['wall_s']:.2f} s [{card}]", flush=True)
-        if len(rec["losses"]) != 2 or not np.isfinite(rec["losses"]).all():
-            fail(f"iddpm shapes64_demo remat {remat} left {rec}")
-    if not peaks["true"] < peaks["false"]:
-        fail(f"remat did not lower the IDDPM peak memory: {peaks}")
     for root in roots.values():
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -5601,9 +5587,11 @@ def eval_inception(torch, np, dev, card: str) -> dict:
     return out
 
 
-def _test_run(torch, np, ops, card: str, name: str, argv, want: dict) -> dict:
+def _test_run(torch, np, ops, card: str, name: str, argv, want: dict,
+              batches: int = EVAL_BATCHES) -> dict:
     """``trainer.main(["test", ...])`` through :func:`cli_run`, its printed
-    results parsed: JAX's keys, finite values, no ``warning``."""
+    results parsed: JAX's keys, ``batches`` scored, finite values, no
+    ``warning``."""
     import ast
 
     buf = io.StringIO()
@@ -5614,7 +5602,7 @@ def _test_run(torch, np, ops, card: str, name: str, argv, want: dict) -> dict:
                                 if line.startswith("{'fid'")][-1])
     rec["results"] = results
     print(f"{name}: {results}", flush=True)
-    if (set(results) != EVAL_KEYS or results["num_batches"] != EVAL_BATCHES
+    if (set(results) != EVAL_KEYS or results["num_batches"] != batches
             or not all(np.isfinite(results[k]) for k in ("fid", "inception_score",
                                                          "inception_score_std"))):
         fail(f"{name} returned {results}")
@@ -5701,22 +5689,23 @@ def eval_test(torch, np, blocks, k_gn, k_attn, k_res, build, ops, dev, card: str
         fail(f"the fid_stats run's FID {b['fid']} is not the save_fid_stats run's {a['fid']}")
     if out["repeat"]["results"] != a:
         fail(f"a repeated test differs: {out['repeat']['results']} against {a}")
+    # the other samplers and configs score one batch each (a run's depth)
+    one = ["--trainer.limit_test_batches", "1"]
     out["dpm"] = _test_run(torch, np, ops, card, "eval: test --trainer.sampler dpm (20 steps)",
-                           [*ddim, "--trainer.sampler", "dpm"],
-                           launches_for(sites["ddim"], EVAL_BATCHES * 20))
+                           [*ddim, "--trainer.sampler", "dpm", *one],
+                           launches_for(sites["ddim"], 20), batches=1)
     out["cfg"] = _test_run(torch, np, ops, card, f"eval: test {CFG_CONFIG} --trainer.sampler ddim",
                            ["--config", CFG_CONFIG, *SHAPES_CUT, "--trainer.default_root_dir",
-                            roots["cfg"], "--trainer.limit_test_batches", str(EVAL_BATCHES),
-                            "--trainer.inception_weights", pth, "--trainer.sampler", "ddim"],
-                           launches_for(sites["cfg"], forwards))
+                            roots["cfg"], *one, "--trainer.inception_weights", pth,
+                            "--trainer.sampler", "ddim"],
+                           launches_for(sites["cfg"], 50), batches=1)
     out["latent"] = _test_run(torch, np, ops, card,
                               f"eval: test {LATENT_DDPM_CONFIG} --trainer.sampler ddim",
                               ["--config", LATENT_DDPM_CONFIG, *LATENT_DATA,
                                "--model.init_args.vae_ckpt", latent_roots["vae"],
-                               "--trainer.default_root_dir", latent_roots["ddpm"],
-                               "--trainer.limit_test_batches", str(EVAL_BATCHES),
+                               "--trainer.default_root_dir", latent_roots["ddpm"], *one,
                                "--trainer.inception_weights", pth, "--trainer.sampler", "ddim"],
-                              launches_for(sites["latent"], forwards))
+                              launches_for(sites["latent"], 50), batches=1)
     out["refused"] = {}
     for key, argv, needle in (
             ("vae", ["--config", LATENT_VAE_CONFIG, *LATENT_DATA, "--trainer.default_root_dir",
@@ -5844,10 +5833,11 @@ LSUN_FIT_STEPS = 2
 #: phase 47's cuts in depth: 8 microbatches a step (the config accumulates
 #: 32) and a DDPM of 100 steps, whose grid samples 100 forwards, not 1000
 LSUN_DEPTH = ["--trainer.accumulate_grad_batches", "4", "--model.init_args.timesteps", "100"]
-#: the card-against-CPU gradient's batch: the f32 CPU reference at 256 px
-#: took 37 s at the config's batch of 2; its kernels' shapes at batch 2 are
-#: held by the microbatch's rows
-LSUN_GRAD_BATCH = 1
+#: the card-against-CPU gradient's batch and size: the f32 CPU reference at
+#: 256 px took 37 s at the config's batch of 2 and ≈ 14 s at 1; its kernels'
+#: shapes at batch 2 and 256 px are held by the microbatch's rows, so the
+#: gradient of the same UNet runs at 128 px
+LSUN_GRAD_BATCH, LSUN_GRAD_SIZE = 1, 128
 #: microbatches of the streaming step: the streaming reader's check needs
 #: one optimizer step, not the config's depth
 LSUN_STREAM_ACCUM = 2
@@ -5960,6 +5950,47 @@ def config_draws(torch, np, shape, timesteps: int, t_low: int) -> tuple:
     return x0, t, eps
 
 
+def remat_peaks(torch, blocks, lit, dm, batch_size: int, img_size: int, dev, card: str,
+                label: str) -> dict:
+    """The peak memory one training microbatch's loss and gradient
+    allocate on the card (``lit``'s UNet at the config's widths, batch and
+    size, flip and draws of its loss) with its ResBlocks' remat on and off:
+    remat must lower it. {True: GiB, False: GiB}."""
+    params = {k: v.detach().to(dev).requires_grad_(True)
+              for k, v in lit.model.state_dict().items()}
+    batch = torch.randint(0, 256, (batch_size, img_size, img_size, 3), device=dev,
+                          dtype=torch.uint8,
+                          generator=torch.Generator(device=dev).manual_seed(SEED))
+    loss_fn = lit.make_loss_fn(dm)
+    res = [m for m in lit.model.modules() if isinstance(m, blocks.ResBlock)]
+    was = [m.remat for m in res]
+    peaks = {}
+    try:
+        for remat in (True, False):
+            for m in res:
+                m.remat = remat
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            loss = loss_fn(params, torch.Generator(device=dev).manual_seed(SEED), batch)
+            torch.autograd.grad(loss, list(params.values()))
+            del loss
+            torch.cuda.synchronize()
+            peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    finally:
+        for m, r in zip(res, was):
+            m.remat = r
+    del params, batch
+    torch.cuda.empty_cache()
+    print(f"{label}: a microbatch's loss and gradient (batch {batch_size}, {img_size} px) "
+          f"allocate a peak of {peaks[True]:.3f} GiB with remat, {peaks[False]:.3f} GiB without "
+          f"[{card}]", flush=True)
+    if not peaks[True] < peaks[False]:
+        fail(f"{label}: remat did not lower the peak memory: {peaks}")
+    return peaks
+
+
 def lsun_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, dev,
              card: str) -> dict:
     """Phase 47: configs/ddpm/lsun_church.yaml on the card through
@@ -5979,7 +6010,7 @@ def lsun_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, d
     host time, every K1/K3/K4 call of a sampling forward at n = 4 and every
     K1/K2/K3 call of one microbatch held against its plain version, twice
     for identical bytes, and timed, and the bf16 microbatch gradient and
-    forward against the f32 CPU port at 256 px."""
+    forward against the f32 CPU port (at ``LSUN_GRAD_SIZE``)."""
     import shutil
 
     from dmme_tpu_torch import config as tcfg
@@ -6140,12 +6171,15 @@ def lsun_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, d
     mb = train_kernels(torch, blocks, k_gn, k_attn, None, init_weights, None, dev, card, ops,
                        lit=lit, batch_size=batch_size, sites=calls, img_size=imgsize, dm=dm)
     out.update(rows=mb["shapes"], per_microbatch=mb["per_step"])
+    out["remat_peak_gib"] = remat_peaks(torch, blocks, lit, dm, batch_size, imgsize, dev, card,
+                                        "LSUN widths")
     algo = lit.diffusion_model
     del lit, dm
     torch.cuda.empty_cache()
     out["gradient"] = train_gradient(
         torch, blocks, init_weights, config_pair(torch, model_node), algo,
-        config_draws(torch, np, (LSUN_GRAD_BATCH, imgsize, imgsize, 3), algo.timesteps, 1), dev,
+        config_draws(torch, np, (LSUN_GRAD_BATCH, LSUN_GRAD_SIZE, LSUN_GRAD_SIZE, 3),
+                     algo.timesteps, 1), dev,
         ops, {k: train[k] + forward[k] for k in train}, "LSUN microbatch", forward=True)
     shutil.rmtree(LSUN_ROOT, ignore_errors=True)
     return out
@@ -6293,6 +6327,8 @@ def in64_fit(torch, np, blocks, k_gn, k_attn, k_res, build, init_weights, ops, d
     step = train_kernels(torch, blocks, k_gn, k_attn, None, init_weights, None, dev, card, ops,
                          lit=lit, batch_size=batch_size, sites=calls, img_size=64, dm=dm)
     out.update(train_rows=step["shapes"], per_step=step["per_step"])
+    out["remat_peak_gib"] = remat_peaks(torch, blocks, lit, dm, batch_size, 64, dev, card,
+                                        "ImageNet-64 widths")
     model = lit.model.to(dev).eval()  # the seed's weights of train_kernels, K4 on
     g = torch.Generator().manual_seed(SEED + 66)
     runs = {"in64": (model, torch.randn((BATCH, 64, 64, 3), generator=g),
@@ -6400,13 +6436,15 @@ DIT_TENSOR_GATHER = {"dit": (TRAIN_BATCH, 64, 768), "moe": (8, 2560, 768)}
 
 def kernel_counters(k_gn, k_attn, k_res) -> dict:
     """The bf16 launch counters of K1–K4 (``ops``); fills ``WIDE`` with the
-    f32, fp16 and ``simt.cu`` ones."""
+    f32, fp16 and ``simt.cu`` ones and those of the split entries (which
+    only an H-split fit moves)."""
     WIDE.update({"simt": {"group_norm_silu": (k_gn, "simt_launches"),
                           "group_norm_silu_bwd": (k_gn, "simt_bwd_launches")}})
     WIDE.update({d: {"group_norm_silu": (k_gn, f"{d}_launches"),
                      "group_norm_silu_bwd": (k_gn, f"{d}_bwd_launches"),
                      "attention": (k_attn, f"{d}_launches"),
                      "resblock": (k_res, f"{d}_launches")} for d in ("fp16", "f32")})
+    WIDE["split"] = split_counters(k_gn)  # the spatial axis's H-shard entries, every dtype
     return {"group_norm_silu": (k_gn, "launches"), "group_norm_silu_bwd": (k_gn, "bwd_launches"),
             "attention": (k_attn, "launches"), "resblock": (k_res, "launches")}
 
@@ -6601,9 +6639,10 @@ def rank_worker(out: str, eval_root: str, pth: str) -> int:
     ranks share the card); then ``trainer.main fit`` on a data=2 and on an
     fsdp=2 mesh, of ``MOE_CONFIG`` on ``EXPERT_MESH`` and of ``LSUN_CONFIG``,
     ``DIT_CONFIG`` and ``MOE_CONFIG`` on ``TENSOR_MESH`` (K3 held against
-    its plain version on each DiT rank's own inputs), the all-reduce, the
-    all-to-all and the largest activation gathers timed, ``trainer.main
-    test`` on a data=2 mesh.
+    its plain version on each DiT rank's own inputs), of ``LSUN_CONFIG`` on
+    ``SPATIAL_MESH`` (:func:`spatial_fit`), the all-reduce, the all-to-all,
+    the largest activation gathers and the largest halo exchange timed,
+    ``trainer.main test`` on a data=2 mesh.
     Each command's launches, and each fit's state bytes, go to
     ``DIR/rank<r>.json``."""
     import torch
@@ -6634,6 +6673,8 @@ def rank_worker(out: str, eval_root: str, pth: str) -> int:
         held.update(state_bytes=state_bytes(state), split_leaves=len(state.shard_axes))
         if state.expert_axes or state.tensor_axes:
             held["state"] = state
+        if state.mesh and state.mesh.spatial > 1:  # the harness and data too
+            held.update(state=state, lit=args[0], datamodule=args[1])
         return state
 
     training.fit = holding_fit
@@ -6692,12 +6733,16 @@ def rank_worker(out: str, eval_root: str, pth: str) -> int:
             rec["tensor"]["grad_rel"] = _rel_l2(torch, want, first["grads"])
         del state, whole, first
         torch.cuda.empty_cache()
+        # the spatial axis: the LSUN UNet H-split over both ranks on the same
+        # batches and draws, the tensor fit's one process its reference
+        rec["spatial"] = spatial_fit(torch, blocks, k_gn, k_attn, ops, cli, held, out, dev, rank)
         rec.update(dit_tensor_fits(torch, k_attn, ops, cli, held, out, dev, rank))
     finally:
         training.fit = fit
     rec["timing"] = dist_timing(torch, dev)
     rec["timing"]["expert"] = expert_timing(torch, dev)
     rec["timing"]["tensor"] = tensor_timing(torch, dev)
+    rec["timing"]["spatial"] = spatial_timing(torch, dev, rec["spatial"]["traffic"]["largest_halo"])
     reset_counts(ops)
     buf = io.StringIO()
     torch.cuda.synchronize()
@@ -6713,6 +6758,518 @@ def rank_worker(out: str, eval_root: str, pth: str) -> int:
         json.dump(rec, f)
     shutdown()
     return 0
+
+
+# the spatial axis (A.11): the UNet of LSUN_CONFIG H-split over two ranks
+# sharing the card ({data: -1, spatial: 2} on two ranks is one spatial
+# group: both take the whole batch and draw as one batch rank), on the
+# tensor fit's batches, so the tensor fit's one process is its reference
+SPATIAL_MESH = "{data: -1, spatial: 2}"
+#: the split entries of K1 and K2 on an H-shard, in launch order
+#: (``ops/group_norm.py:SPLIT_ENTRIES``), and the kernel each one splits
+SPLIT_KERNEL = {"sums": "group_norm_silu", "apply": "group_norm_silu",
+                "bwd_sums": "group_norm_silu_bwd", "bwd_dx": "group_norm_silu_bwd"}
+#: the fp16 and f32 shape the split entries are held at beside the bf16
+#: lsun_church levels: (N, H, W, C) of a whole sample, split in two along H
+SPLIT_WIDE_SHAPE = (2, 32, 32, 256)
+SPLIT_GROUPS = 32
+
+
+def split_counters(k_gn) -> dict:
+    """{entry: (module, counter)} of the split entries' launches in every
+    dtype (``fp16_`` and ``f32_`` prefixed names for the wide ones)."""
+    return {f"{p}{e}": (k_gn, f"{p}{e}_launches") for p in ("", "fp16_", "f32_")
+            for e in SPLIT_KERNEL}
+
+
+def lsun_gn_sites(torch, blocks) -> list:
+    """The distinct K1 call sites (whole (N, H, W, C), pre-bias or not) of a
+    training microbatch of ``LSUN_CONFIG``'s UNet at batch 2 with
+    ``fused_norm``, from one forward on the meta device."""
+    from dmme_tpu_torch import config as tcfg
+
+    config = tcfg.validate_config(tcfg.apply_overrides(tcfg.load_config(LSUN_CONFIG),
+                                                       LSUN_KERNELS))
+    node = config["model"]["init_args"]["model"]
+    seen = set()
+
+    def gn(x, gamma, beta, groups, eps=None, pre_bias=None):
+        seen.add((tuple(x.shape), pre_bias is not None))
+        return torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+
+    def attention(q, k, v, scale, *rest):
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+    saved = blocks.group_norm_silu, blocks.attention_heads
+    try:
+        blocks.group_norm_silu, blocks.attention_heads = gn, attention
+        with torch.device("meta"), torch.no_grad():
+            model = tcfg.instantiate(dict(node, init_args=dict(node["init_args"],
+                                                               fused_block=False)))
+            model.eval()(torch.empty((2, LSUN_IMG, LSUN_IMG, 3)),
+                         torch.zeros((2,), dtype=torch.int64))
+    finally:
+        blocks.group_norm_silu, blocks.attention_heads = saved
+    return sorted(seen)
+
+
+def _split_bytes(entry: str, x, groups: int, pre: bool) -> tuple:
+    """(bytes, f32 operations) of one split entry on the shard ``x``: each
+    input read once and each output written once (x, dz, dx and y in x's
+    dtype; the (N, 2C) sums, the (C,) affines, the (N, C) pre-bias and the
+    (N, G) statistics in f32)."""
+    n, _, _, c = x.shape
+    act, sums, vecs = x.numel() * x.element_size(), 2 * n * c * 4, 2 * c * 4 + (
+        n * c * 4 if pre else 0)
+    stats = 2 * n * groups * 4
+    return {"sums": (act + sums, 3 * x.numel()),
+            "apply": (2 * act + sums + vecs + stats, 10 * x.numel()),
+            "bwd_sums": (2 * act + vecs + stats + sums, 15 * x.numel()),
+            "bwd_dx": (3 * act + vecs + stats + sums + n * c * 4, 20 * x.numel())}[entry]
+
+
+def _plain_apply(k_gn):
+    """``gn_silu_apply_plain`` taking the split ``apply`` wrapper's arguments
+    (x, sums, γ, β, groups, pixels, eps, pre-bias)."""
+    return lambda x, sums, gamma, beta, groups, pixels, eps, pre: k_gn.gn_silu_apply_plain(
+        x, sums, gamma, beta, pre, groups, pixels, eps)
+
+
+def split_kernels(torch, blocks, k_gn, dev, card: str) -> dict:
+    """Phase 3's split entries (the spatial axis's K1 and K2 on H-shards):
+    at every K1 site of an ``LSUN_CONFIG`` microbatch at batch 2 in bf16,
+    and at ``SPLIT_WIDE_SHAPE`` in fp16 and f32, a sample's rows split in
+    two: ``sums`` on each half, the two added on the card, ``apply`` on
+    each half; K2's pair likewise from K1's statistics. Each held against
+    its plain version and against the one-call K1/K2 on the whole tensor
+    under ``TOL`` (``_gn_errors``), each entry's counter moved twice a case
+    and the others not, repeat-identical bytes; the bf16 entries timed on a
+    half (a rank's shard) beside their plain versions and bounds.
+    Returns {"rows": one a case and entry}."""
+    F = torch.float32
+    sites = lsun_gn_sites(torch, blocks)
+    cases = [(shape, pre, torch.bfloat16) for shape, pre in sites]
+    cases += [(SPLIT_WIDE_SHAPE, True, dt) for dt in (torch.float16, torch.float32)]
+    counters = split_counters(k_gn)
+    rows, failures = [], []
+    for shape, pre, dt in cases:
+        g = torch.Generator(device=dev).manual_seed(SEED + shape[1] + shape[3])
+        n, h, w, c = shape
+        x = torch.randn(shape, generator=g, device=dev).to(dt)
+        dz = torch.randn(shape, generator=g, device=dev).to(dt)
+        gamma = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
+        beta = 0.1 * torch.randn(c, generator=g, device=dev)
+        bias = 0.1 * torch.randn((n, c), generator=g, device=dev) if pre else None
+        halves = [t.contiguous() for t in x.chunk(2, dim=1)]
+        dzs = [t.contiguous() for t in dz.chunk(2, dim=1)]
+        pixels = h * w
+        with torch.no_grad():
+            for _, attr in counters.values():
+                setattr(k_gn, attr, 0)
+
+            def fwd(sums_fn, apply_fn):
+                s = sums_fn(halves[0]) + sums_fn(halves[1])
+                outs = [apply_fn(t, s, gamma, beta, SPLIT_GROUPS, pixels, k_gn.GN_EPS, bias)
+                        for t in halves]
+                return (torch.cat([o[0] for o in outs], 1), outs[0][1], outs[0][2]), outs
+
+            def bwd(sums_fn, dx_fn, mean, inv):
+                mine = [sums_fn(t, d, gamma, beta, bias, mean, inv, SPLIT_GROUPS)
+                        for t, d in zip(halves, dzs)]
+                total = mine[0] + mine[1]
+                outs = [dx_fn(t, d, gamma, beta, bias, mean, inv, total, SPLIT_GROUPS, pixels)
+                        for t, d in zip(halves, dzs)]
+                return (torch.cat([o[0] for o in outs], 1), total[:, c:], total[:, :c],
+                        outs[0][1] + outs[1][1])
+
+            got, outs = fwd(k_gn.group_norm_silu_sums, k_gn.group_norm_silu_apply)
+            want_plain, _ = fwd(k_gn.gn_silu_sums_plain, _plain_apply(k_gn))
+            one = k_gn.group_norm_silu_fwd(x, gamma, beta, SPLIT_GROUPS, k_gn.GN_EPS, bias)
+            same_stats = bool(torch.equal(outs[0][1], outs[1][1])
+                              and torch.equal(outs[0][2], outs[1][2]))
+            mean, inv = one[1], one[2]
+            gotb = bwd(k_gn.group_norm_silu_bwd_sums, k_gn.group_norm_silu_bwd_dx, mean, inv)
+            want_plain_b = bwd(k_gn.gn_silu_bwd_sums_plain, k_gn.gn_silu_bwd_dx_plain, mean, inv)
+            one_b = k_gn.group_norm_silu_bwd(x, dz, gamma, beta, bias, mean, inv, SPLIT_GROUPS)
+            again = fwd(k_gn.group_norm_silu_sums, k_gn.group_norm_silu_apply)[0]
+            againb = bwd(k_gn.group_norm_silu_bwd_sums, k_gn.group_norm_silu_bwd_dx, mean, inv)
+            torch.cuda.synchronize()
+        prefix = {torch.bfloat16: "", torch.float16: "fp16_", torch.float32: "f32_"}[dt]
+        moved = {k: getattr(m, a) for k, (m, a) in counters.items()}
+        want_moved = {k: 4 if k in {prefix + e for e in SPLIT_KERNEL} else 0 for k in counters}
+        e_plain, ok_plain = _gn_errors(got, want_plain)
+        e_one, ok_one = _gn_errors(got, one)
+        eb_plain, okb_plain = _gn_errors(gotb, want_plain_b)
+        eb_one, okb_one = _gn_errors(gotb, one_b)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got + gotb, again + againb))
+        ok = (ok_plain and ok_one and okb_plain and okb_one and same and same_stats
+              and moved == want_moved)
+        key = f"{tuple(shape)} {str(dt)[6:]} pre_bias {pre}"
+        print(f"split K1/K2 at {key}: K1 pair max_abs {e_plain:.3e} vs plain, {e_one:.3e} vs "
+              f"one-call K1; K2 pair {eb_plain:.3e} vs plain, {eb_one:.3e} vs one-call K2; "
+              f"repeat {'identical' if same else 'DIFFERENT'}; counters {moved}"
+              + ("" if ok else "  FAIL"), flush=True)
+        if not ok:
+            failures.append(key)
+        row = {"shape": list(shape), "dtype": str(dt), "pre_bias": pre,
+               "max_abs_err": max(e_plain, e_one, eb_plain, eb_one), "ok": ok}
+        if dt == torch.bfloat16 and (pre or (shape, True) not in sites):
+            # each entry timed on a half (a rank's shard), once a shard shape
+            t, d = halves[0], dzs[0]
+            s = k_gn.group_norm_silu_sums(halves[0]) + k_gn.group_norm_silu_sums(halves[1])
+            sb = k_gn.group_norm_silu_bwd_sums(t, d, gamma, beta, bias, mean, inv, SPLIT_GROUPS)
+            calls = {
+                "sums": (lambda: k_gn.group_norm_silu_sums(t),
+                         lambda: k_gn.gn_silu_sums_plain(t)),
+                "apply": (lambda: k_gn.group_norm_silu_apply(t, s, gamma, beta, SPLIT_GROUPS,
+                                                             pixels, k_gn.GN_EPS, bias),
+                          lambda: _plain_apply(k_gn)(t, s, gamma, beta, SPLIT_GROUPS, pixels,
+                                                     k_gn.GN_EPS, bias)),
+                "bwd_sums": (lambda: k_gn.group_norm_silu_bwd_sums(
+                    t, d, gamma, beta, bias, mean, inv, SPLIT_GROUPS),
+                    lambda: k_gn.gn_silu_bwd_sums_plain(t, d, gamma, beta, bias, mean, inv,
+                                                        SPLIT_GROUPS)),
+                "bwd_dx": (lambda: k_gn.group_norm_silu_bwd_dx(
+                    t, d, gamma, beta, bias, mean, inv, sb, SPLIT_GROUPS, pixels),
+                    lambda: k_gn.gn_silu_bwd_dx_plain(t, d, gamma, beta, bias, mean, inv, sb,
+                                                      SPLIT_GROUPS, pixels))}
+            with torch.no_grad():
+                for entry, (kern, plain) in calls.items():
+                    nbytes, ops_ = _split_bytes(entry, t, SPLIT_GROUPS, pre)
+                    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / F32_FLOPS
+                    row[entry] = {"ms": device_ms(torch, kern),
+                                  "plain_ms": device_ms(torch, plain, reps=PLAIN_REPS,
+                                                        warm=PLAIN_WARM),
+                                  "bound_ms": 1e3 * max(t_bytes, t_ops),
+                                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            print(f"    on a rank's shard {tuple(t.shape)}: " + "; ".join(
+                f"{e} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound {v['bound_ms']:.4f} "
+                f"{v['bound_by']})" for e, v in row.items() if e in SPLIT_KERNEL)
+                + f" [{card}]", flush=True)
+        del x, dz, halves, dzs, got, gotb, want_plain, want_plain_b, one, one_b, again, againb
+        rows.append(row)
+    print(f"split entries held against their plain versions and the one-call K1/K2: tolerances "
+          f"K1 {TOL['group_norm_silu']}, K2 dx {TOL_BWD['dx']} and sums {TOL_BWD['vec']}, f32 "
+          f"and fp16 {TOL_SIMT}", flush=True)
+    for _, attr in counters.values():
+        setattr(k_gn, attr, 0)
+    if failures:
+        fail(f"the split K1/K2 entries disagree at {failures}")
+    return {"rows": rows}
+
+
+def _sig_sums(x):
+    return (tuple(x.shape),)
+
+
+def _sig_apply(x, sums, gamma, beta, groups, pixels, eps=None, pre_bias=None):
+    return (tuple(x.shape), pre_bias is not None)
+
+
+def _sig_split_bwd(x, dz, gamma, beta, pre_bias, *rest):
+    return (tuple(x.shape), pre_bias is not None)
+
+
+def split_targets(k_gn, blocks):
+    """The four split entries, as the autograd Function of an H-split
+    GN+SiLU reaches them (a call site: the shard's shape, and whether it
+    has a pre-bias), and K3 (whole on every rank)."""
+    sigs = {"sums": _sig_sums, "apply": _sig_apply, "bwd_sums": _sig_split_bwd,
+            "bwd_dx": _sig_split_bwd}
+    return [(k_gn, f"group_norm_silu_{e}", e, sigs[e]) for e in SPLIT_KERNEL] + [
+        (blocks, "attention_heads", "attention", _sig_attn)]
+
+
+def split_held(torch, k_gn, calls) -> dict:
+    """In a rank: each split entry again on the first inputs of each of its
+    recorded call sites (:func:`record_calls`) against its plain version:
+    y within ``TOL``, the sums and dx within ``TOL_BWD`` (``_gn_errors``), or
+    fail. {entry: the largest absolute difference}."""
+    plain = {"sums": k_gn.gn_silu_sums_plain, "apply": _plain_apply(k_gn),
+             "bwd_sums": k_gn.gn_silu_bwd_sums_plain, "bwd_dx": k_gn.gn_silu_bwd_dx_plain}
+    out = {}
+    with torch.no_grad():
+        for entry in SPLIT_KERNEL:
+            worst = 0.0
+            for key, _, a, k in calls[entry]:
+                a = [t.detach() if torch.is_tensor(t) else t for t in a]
+                got = getattr(k_gn, f"group_norm_silu_{entry}")(*a, **k)
+                want = plain[entry](*a, **k)
+                if torch.is_tensor(got):  # the (N, 2C) sums
+                    e, _, ok = scaled_errors(got, want, *TOL_BWD["vec"])
+                else:
+                    e, ok = _gn_errors(tuple(got), tuple(want))
+                if not ok:
+                    fail(f"the split entry {entry} at {key} is {e} from its plain version")
+                worst = max(worst, e)
+            out[entry] = worst
+    return out
+
+
+@contextlib.contextmanager
+def spatial_traffic(torch):
+    """Counts of the spatial group's collectives while open: halo exchanges
+    (each an all-gather of every rank's two edge rows: forward and
+    backward), the statistics' all-reduces and the row gathers, and the
+    largest halo exchange's edge rows (shape, dtype)."""
+    from dmme_tpu_torch.parallel import spatial as sp
+
+    got = {"halos": 0, "all_reduces": 0, "gathers": 0, "largest_halo": None}
+    edges, reduce_, gather = sp._edges, sp.SpatialGroup.reduce_, sp._all_gather_rows
+
+    def counted_edges(a, b, where):
+        got["halos"] += 1
+        big = got["largest_halo"]
+        if big is None or a.numel() > math.prod(big[0]):
+            got["largest_halo"] = (list(a.shape), str(a.dtype))
+        return edges(a, b, where)
+
+    def counted_reduce(self, t):
+        got["all_reduces"] += 1
+        return reduce_(self, t)
+
+    def counted_gather(x, where):
+        got["gathers"] += 1
+        return gather(x, where)
+
+    sp._edges, sp.SpatialGroup.reduce_, sp._all_gather_rows = (counted_edges, counted_reduce,
+                                                                counted_gather)
+    try:
+        yield got
+    finally:
+        sp._edges, sp.SpatialGroup.reduce_, sp._all_gather_rows = edges, reduce_, gather
+
+
+@contextlib.contextmanager
+def step_peaks(torch, out: dict):
+    """``out["fwd_bwd"]``: the device memory allocated at its peak, less
+    ``out["base"]``, as each ``TrainState.apply_gradients`` starts (the
+    microbatches' forwards and backwards and their accumulated gradients,
+    before the optimizer's temporaries), the largest over a run's steps;
+    ``out["fit"]`` the same over the whole run, read when it closes."""
+    from dmme_tpu_torch.training import TrainState
+
+    original = TrainState.apply_gradients
+
+    def apply(state, grads, norm=None):
+        torch.cuda.synchronize()
+        out["fwd_bwd"] = max(out.get("fwd_bwd", 0),
+                             torch.cuda.max_memory_allocated() - out["base"])
+        return original(state, grads, norm)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["base"] = torch.cuda.memory_allocated()
+    TrainState.apply_gradients = apply
+    try:
+        yield out
+    finally:
+        TrainState.apply_gradients = original
+        torch.cuda.synchronize()
+        out["fit"] = torch.cuda.max_memory_allocated() - out["base"]
+
+
+def spatial_fit(torch, blocks, k_gn, k_attn, ops, cli, held: dict, out: str, dev,
+                rank: int) -> dict:
+    """In a rank: ``trainer.main fit`` (``cli``) of ``LSUN_CONFIG`` on
+    ``SPATIAL_MESH``, on the tensor fit's batches with every bias drawn: its
+    wall time, launches (the split counters among the wide ones), its peak
+    memory (:func:`step_peaks`), the call sites of the split entries and of
+    K3, the collectives of the spatial group, the state's digest (every
+    leaf is whole on every rank); on rank 0 its first reduced gradient
+    against the one process's (``<out>/tensor_one_grads.pt``). Then one more
+    microbatch of the fitted model on both ranks, its call sites recorded
+    (the fit records no inputs, which its peak would hold) and each split
+    entry and K3 held against its plain version on this rank's inputs."""
+    first, peaks = {}, {}
+    with drawn_init(torch), first_gradients(torch, first), spatial_traffic(torch) as traffic:
+        reset_counts(ops)
+        t0 = time.time()
+        with step_peaks(torch, peaks):
+            calls = record_calls(split_targets(k_gn, blocks), lambda: cli(
+                _tensor_fit_argv(os.path.join(out, "spatial"), "--trainer.mesh", SPATIAL_MESH)),
+                inputs=False)
+        wall = time.time() - t0
+        state = held.pop("state")
+    lit, dm = held.pop("lit"), held.pop("datamodule")
+    rec = dict(held, wall_s=wall, peak_bytes=peaks["fwd_bwd"], fit_peak_bytes=peaks["fit"],
+               launches=counts(ops), wide=wide_counts(), traffic=dict(traffic),
+               digest=state_digest(torch, state),
+               params=sum(v.numel() for v in state.params.values()),
+               sites={kind: {repr(key): n for key, n, _, _ in v} for kind, v in calls.items()})
+    if rank == 0:
+        want = torch.load(os.path.join(out, "tensor_one_grads.pt"), map_location=dev)
+        rec["grad_rel"] = _rel_l2(torch, want, first["grads"])
+    del first
+    # one more microbatch on both ranks (the spatial group shares its batch)
+    params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+    batch = torch.randint(0, 256, (2, LSUN_IMG, LSUN_IMG, 3), dtype=torch.uint8, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(SEED))
+    loss_fn = lit.make_loss_fn(dm)
+
+    def microbatch():
+        loss = loss_fn(params, torch.Generator(device=dev).manual_seed(SEED), batch)
+        torch.autograd.grad(loss, list(params.values()))
+
+    calls = record_calls(split_targets(k_gn, blocks), microbatch)
+    rec.update(split_max_abs=split_held(torch, k_gn, calls),
+               k3_max_abs=k3_held(torch, k_attn, calls))
+    del state, params, calls, lit, dm
+    torch.cuda.empty_cache()
+    return rec
+
+
+def spatial_timing(torch, dev, largest) -> dict:
+    """In a rank: the halo exchange of the spatial fit's largest edge rows
+    (``largest``: their shape and dtype) over the spatial group, as the
+    model exchanges them (gloo on the CUDA tensors directly), host clock,
+    the median of ``DIST_TIMED`` after a warm one."""
+    from dmme_tpu_torch.parallel import make_mesh
+    from dmme_tpu_torch.parallel.spatial import SpatialGroup, _edges
+
+    mesh = make_mesh(spatial=DIST_RANKS, device=dev)
+    where = SpatialGroup(mesh.spatial_group, mesh.spatial, mesh.index("spatial"))
+    shape, dtype = largest
+    a = torch.randn(shape, device=dev).to(getattr(torch, dtype.removeprefix("torch.")))
+    walls = []
+    for _ in range(DIST_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _edges(a, a, where)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return {"halo_ms": statistics.median(walls[1:]), "halo_shape": shape,
+            "halo_kb": 2 * DIST_RANKS * a.numel() * a.element_size() / 1e3,
+            "transport": f"{mesh.backend}, direct on CUDA tensors"}
+
+
+def spatial_phase(torch, out: dict, ranks: list, card: str) -> None:
+    """Phase 49's checks of the spatial fit (:func:`spatial_fit`) against the
+    tensor fit's one process ``out["tensor_one"]`` (the same batches and
+    draws), into ``out["spatial"]``: each rank's split K1/K2 launches the one
+    process's K1/K2 launches, its K3 launches the one process's, no launch
+    of the one-call K1/K2, of f32, fp16 or ``simt.cu``; its split entries and
+    K3 held on its own inputs; the losses and grad norms within
+    ``TENSOR_LOSS_REL``, the first reduced gradient within ``GRAD_REL_L2``
+    (relative L2); both ranks' states bitwise equal, and the checkpoint
+    restored without a mesh bitwise theirs; each rank's peak below the one
+    process's."""
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.training import CheckpointManager
+
+    one = out["tensor_one"]
+    want = dict(one["launches"], group_norm_silu=0, group_norm_silu_bwd=0)
+    want_split = {"sums": one["launches"]["group_norm_silu"],
+                  "apply": one["launches"]["group_norm_silu"],
+                  "bwd_sums": one["launches"]["group_norm_silu_bwd"],
+                  "bwd_dx": one["launches"]["group_norm_silu_bwd"]}
+    micro = TENSOR_STEPS * TENSOR_ACCUM
+    for r in ranks:
+        rec, t = r["spatial"], r["timing"]["spatial"]
+        wide = {route: dict(d) for route, d in rec["wide"].items()}
+        split = {e: wide["split"].pop(e) for e in SPLIT_KERNEL}
+        tr = rec["traffic"]
+        print(f"rank {r['rank']} spatial=2 fit of {LSUN_CONFIG}: {rec['wall_s']:.2f} s wall, "
+              f"launches {rec['launches']}, split K1/K2 {split} (one process K1/K2 "
+              f"{one['launches']}), other wide launches {wide}; peak allocated through the "
+              f"microbatches' forwards and backwards {rec['peak_bytes'] / 2**30:.3f} GiB (one "
+              f"process {one['peak_bytes'] / 2**30:.3f} GiB), through the whole fit "
+              f"{rec['fit_peak_bytes'] / 2**30:.3f} GiB (one process "
+              f"{one['fit_peak_bytes'] / 2**30:.3f} GiB); a microbatch's "
+              f"halo exchanges "
+              f"{tr['halos'] / micro:g}, statistics all-reduces {tr['all_reduces'] / micro:g}, "
+              f"row gathers {tr['gathers'] / micro:g}; the largest halo exchange "
+              f"({t['halo_shape']} edge rows, {t['halo_kb']:.1f} KB gathered) "
+              f"{t['halo_ms']:.3f} ms, transport {t['transport']}; split entries against their "
+              f"plain versions {rec['split_max_abs']}, K3 {rec['k3_max_abs']:.3e} [{card}]",
+              flush=True)
+        if rec["launches"] != want or split != want_split or any(
+                v for d in wide.values() for v in d.values()):
+            fail(f"rank {r['rank']}'s spatial fit launched {rec['launches']}, split {split}, "
+                 f"wide {wide}; expected {want} and split {want_split}")
+        if not rec["peak_bytes"] < one["peak_bytes"]:
+            fail(f"a spatial rank's peak {rec['peak_bytes']} is not below the one process's "
+                 f"{one['peak_bytes']}")
+    lead = ranks[0]["spatial"]
+    mesh_rows = _jsonl(os.path.join(DIST_ROOT, "spatial", "metrics.jsonl"))
+    one_rows = _jsonl(os.path.join(DIST_ROOT, "tensor_one", "metrics.jsonl"))
+    rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(mesh_rows, one_rows)]
+           for k in ("loss", "grad_norm")}
+    lit = tcfg.instantiate(tcfg.validate_config(tcfg.load_config(LSUN_CONFIG))["model"])
+    state = CheckpointManager(os.path.join(DIST_ROOT, "spatial")).restore(
+        lit.init_state(0, device="cuda"))
+    restored = state_digest(torch, state)
+    del state, lit
+    torch.cuda.empty_cache()
+    out["spatial"] = {
+        "loss_rel": rel["loss"], "grad_norm_rel": rel["grad_norm"],
+        "grad_rel_l2": lead["grad_rel"], "params": lead["params"],
+        "ranks_bitwise": all(r["spatial"]["digest"] == lead["digest"] for r in ranks),
+        "checkpoint_bitwise": restored == lead["digest"],
+        "step_s": [2 * TENSOR_ACCUM / row["imgs_per_sec"] for row in mesh_rows],
+        "peak_bytes": [r["spatial"]["peak_bytes"] for r in ranks],
+        "one_peak_bytes": one["peak_bytes"],
+        "fit_peak_bytes": [r["spatial"]["fit_peak_bytes"] for r in ranks],
+        "one_fit_peak_bytes": one["fit_peak_bytes"],
+        "wall_s": [r["spatial"]["wall_s"] for r in ranks],
+        "per_microbatch": {k: lead["traffic"][k] / micro
+                           for k in ("halos", "all_reduces", "gathers")},
+        "halo_ms": [r["timing"]["spatial"]["halo_ms"] for r in ranks]}
+    print(f"spatial=2 against one process: loss relative {rel['loss']}, grad norm relative "
+          f"{rel['grad_norm']} (limit {TENSOR_LOSS_REL}), the first reduced gradient "
+          f"{lead['grad_rel']:.3e} relative L2 (limit {GRAD_REL_L2}); a step of {TENSOR_ACCUM} "
+          f"microbatches on rank 0 {out['spatial']['step_s']} s (host clock); the two ranks' "
+          f"states {'are' if out['spatial']['ranks_bitwise'] else 'are NOT'} bitwise equal; the "
+          f"checkpoint restored without a mesh "
+          f"{'is' if out['spatial']['checkpoint_bitwise'] else 'is NOT'} bit for bit theirs "
+          f"[{card}]", flush=True)
+    if (len(mesh_rows) != TENSOR_STEPS or len(one_rows) != TENSOR_STEPS
+            or max(rel["loss"] + rel["grad_norm"]) > TENSOR_LOSS_REL):
+        fail(f"the spatial=2 run's losses and grad norms are {rel} from the one process's")
+    if not lead["grad_rel"] <= GRAD_REL_L2:
+        fail(f"the spatial=2 run's first gradient is {lead['grad_rel']} from the one process's")
+    if not (out["spatial"]["ranks_bitwise"] and out["spatial"]["checkpoint_bitwise"]
+            and lead["params"] == LSUN_PARAMS):
+        fail("the spatial=2 ranks' states differ, or the checkpoint restored without a mesh "
+             "is not theirs")
+
+
+def spatial_rows(report: dict) -> list:
+    """The kernels line's rows of the spatial fit: each split entry per
+    rank microbatch (phase 3's time at each shard shape, the fit's call
+    sites on rank 0 a microbatch), launches in both ranks' fit; K3 per
+    microbatch (phase 47's, whole on every rank), launches likewise."""
+    d = report["dist"]
+    micro = TENSOR_STEPS * TENSOR_ACCUM
+    timed = {}  # by shard shape: each was timed once, with its pre-bias where it has one
+    for row in report["split"]["rows"]:
+        if "sums" in row:
+            n, h, w, c = row["shape"]
+            timed[(n, h // DIST_RANKS, w, c)] = row
+    lead = d["ranks"][0]["spatial"]
+    rows = []
+    for entry, kname in SPLIT_KERNEL.items():
+        v = {f: 0.0 for f in ("ms", "plain_ms", "bound_ms")}
+        worst, by = 0.0, {}
+        for key, count in lead["sites"][entry].items():
+            row = timed[ast.literal_eval(key)[0]]
+            for f in v:
+                v[f] += row[entry][f] * count / micro
+            by[row[entry]["bound_by"]] = by.get(row[entry]["bound_by"], 0.0) + (
+                row[entry]["bound_ms"] * count)
+            worst = max(worst, row["max_abs_err"])
+        v.update(library_ms=None, bound_by=max(by, key=by.get),
+                 max_abs_err=max(worst, *(r["spatial"]["split_max_abs"][entry]
+                                          for r in d["ranks"])))
+        cname = entry if entry.startswith("bwd") else f"fwd_{entry}"  # group_norm.cu's name
+        r = _table_row(f"group_norm_silu_{cname}_spatial_train", kname, v,
+                       sum(r["spatial"]["wide"]["split"][entry] for r in d["ranks"]))
+        rows.append(r)
+    k3 = _table_row("attention_spatial_train", "attention",
+                    report["lsun_fit"]["per_microbatch"]["attention"],
+                    sum(r["spatial"]["launches"]["attention"] for r in d["ranks"]))
+    k3["max_abs_err"] = max(k3["max_abs_err"], *(r["spatial"]["k3_max_abs"] for r in d["ranks"]))
+    return rows + [k3]
 
 
 def dit_tensor_references(torch, ops, card: str) -> dict:
@@ -6801,7 +7358,8 @@ def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: st
     tensor fits of ``DIT_CONFIG`` and ``MOE_CONFIG`` against one process
     here on their batches (:func:`dit_tensor_phase`; ``dit_rec``: phase
     35's record, whose batch-128 training step's K3 sites a DiT tensor rank
-    shares)."""
+    shares), and the spatial fit of ``LSUN_CONFIG`` against the tensor
+    fit's one process (:func:`spatial_phase`)."""
     import shutil
 
     from dmme_tpu_torch import config as tcfg
@@ -6833,13 +7391,14 @@ def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: st
     config = tcfg.validate_config(tcfg.apply_overrides(tcfg.load_config(LSUN_CONFIG),
                                                        LSUN_KERNELS))
     out["tensor_sites"] = config_sites(torch, blocks, config["model"]["init_args"]["model"])[0]
-    first = {}
-    with drawn_init(torch), first_gradients(torch, first):
+    first, peaks = {}, {}
+    with drawn_init(torch), first_gradients(torch, first), step_peaks(torch, peaks):
         out["tensor_one"] = cli_run(
             torch, ops, card, f"one process: fit {LSUN_CONFIG} {TENSOR_STEPS} steps of "
             f"{TENSOR_ACCUM} microbatches, no mesh",
             _tensor_fit_argv(os.path.join(DIST_ROOT, "tensor_one"), "--trainer.mesh", "null"),
             launches_for(out["tensor_sites"], TENSOR_STEPS * TENSOR_ACCUM))
+    out["tensor_one"].update(peak_bytes=peaks["fwd_bwd"], fit_peak_bytes=peaks["fit"])
     torch.save(first["grads"], os.path.join(DIST_ROOT, "tensor_one_grads.pt"))
     del first
     torch.cuda.empty_cache()
@@ -6903,6 +7462,7 @@ def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: st
           f"of the fits' logged steps after the first) [{card}]", flush=True)
     expert_phase(torch, np, out, ranks, card)
     tensor_phase(torch, out, ranks, card)
+    spatial_phase(torch, out, ranks, card)
     dit_tensor_phase(torch, out, ranks, card, dit_rec, dev)
     saved = {k: CheckpointManager(os.path.join(DIST_ROOT, k)).load(DIST_STEPS)
              for k in ("one", "data", "fsdp")}
@@ -7498,6 +8058,8 @@ def main() -> int:
         fail(f"kernels disagree with their plain versions: {failures}")
     del recorded
     report["per_forward"] = per_forward_summary(shapes, card)
+    # the spatial axis's split K1/K2 entries at the LSUN levels, halves added here
+    report["split"] = split_kernels(torch, blocks, k_gn, dev, card)
     if args.kernels_only:
         phase("train kernels: one full-width bf16 training step at batch 128")
         from dmme_tpu_torch.training import LitDDPM
@@ -7826,8 +8388,9 @@ def main() -> int:
     phase(f"two ranks on one card: torch.distributed.run --nproc_per_node {DIST_RANKS} trainer "
           f"fit of {DIST_CONFIG} on data=2 and fsdp=2 meshes and of {MOE_CONFIG} on "
           f"{EXPERT_MESH} (gloo) against one process accumulating 2, of {LSUN_CONFIG}, "
-          f"{DIT_CONFIG} and {MOE_CONFIG} on {TENSOR_MESH} against one process; then trainer "
-          f"test of {DDIM_CONFIG} on a data=2 mesh")
+          f"{DIT_CONFIG} and {MOE_CONFIG} on {TENSOR_MESH} and of {LSUN_CONFIG} on "
+          f"{SPATIAL_MESH} against one process; then trainer test of {DDIM_CONFIG} on a data=2 "
+          f"mesh")
     report["dist"] = dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card,
                                 report["eval_test"], report["lsun_fit"], report["dit_kernels"])
     torch.cuda.empty_cache()
@@ -7949,6 +8512,7 @@ def main() -> int:
     table += eval_rows(report)
     table += a12_rows(report)
     table += dist_rows(report)
+    table += spatial_rows(report)
     report["kernels"] = table
     print("kernels launched on their paths and held against their plain versions: "
           + "; ".join(f"{k['name']} ({k['route']}, {k['source']}, replaces {k['replaces']}, "
@@ -8019,7 +8583,13 @@ def main() -> int:
           f"tensor fits of {TENSOR_ACCUM} microbatches a step; attention_dit_tensor_train, "
           f"attention_moe_tensor_train: per step of a rank at batch {TRAIN_BATCH} of "
           f"{DIT_CONFIG} and {MOE_CONFIG} on {TENSOR_MESH} (K3 whole, phase 35's shapes), "
-          f"launches in both ranks' {DIT_TENSOR_STEPS}-step tensor fits)", flush=True)
+          f"launches in both ranks' {DIT_TENSOR_STEPS}-step tensor fits; "
+          f"group_norm_silu_{{fwd_sums,fwd_apply,bwd_sums,bwd_dx}}_spatial_train: the split "
+          f"K1/K2 entries (dmme_gn_silu_*) per microbatch of a rank of "
+          f"{LSUN_CONFIG} on {SPATIAL_MESH} (phase 3's times at its H-shards), launches in both "
+          f"ranks' {TENSOR_STEPS}-step spatial fits of {TENSOR_ACCUM} microbatches a step; "
+          f"attention_spatial_train: K3 per such microbatch (whole, phase 47's shapes))",
+          flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -18,6 +18,15 @@ affine; a block given a shard gathers it whole before each layer that
 reads every channel (:func:`shard_of_output`, :func:`whole_output`). Each
 module then holds the ``TensorGroup`` (:meth:`TensorParallel.place_tensor`);
 with whole weights it is never read.
+
+On a ``spatial`` mesh axis (``parallel/spatial.py``) the same modules run
+on the rank's rows of each activation, given the ``SpatialGroup`` as
+their ``spatial`` argument (None: whole images): a 3×3 :class:`Conv`
+takes a halo row from each neighbour and pads W only, a 1×1 one runs on
+the rows; :class:`GroupNorm` and :class:`GNSiLU` take their statistics
+over the whole sample (the group's sums all-reduced);
+:class:`SelfAttention2d` gathers its input whole and keeps its rows of
+the output. The model holds the group (:meth:`SpatialParallel.place_spatial`).
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from dmme_tpu_torch.ops.attention import attention_heads
-from dmme_tpu_torch.ops.group_norm import group_norm_silu
+from dmme_tpu_torch.ops.group_norm import group_norm_silu, group_norm_silu_rows
 from dmme_tpu_torch.ops.resblock import resblock_forward
 
 # torch nn.GroupNorm's epsilon (flax defaults to 1e-6)
@@ -94,6 +103,33 @@ class TensorParallel(nn.Module):
         module, leaf, shape = probe
         bound = getattr(self.get_submodule(module), leaf)
         return self.tensor_group if tuple(bound.shape) != shape else None
+
+
+def on_rows(layer: nn.Module, spatial, *args, **kwargs) -> torch.Tensor:
+    """``layer(*args, **kwargs)``, given ``spatial=`` where the input is a
+    spatial group's rows (with whole images, the one-device call as it is)."""
+    return layer(*args, **kwargs) if spatial is None else layer(*args, spatial=spatial, **kwargs)
+
+
+class SpatialParallel(nn.Module):
+    """A model that runs on H-shards in training where a ``spatial`` mesh
+    axis placed it (the UNet): :meth:`place_spatial` hands it the
+    ``SpatialGroup``, and :meth:`_spatial_split` tells a forward whether to
+    run on the rank's rows (a training forward of a placed model; it then
+    returns its whole output through ``SpatialGroup.to_partial``) or on
+    whole images, as on one device with no collective (every other
+    forward: a spatial mesh samples, validates and tests on whole images)."""
+
+    #: the ``SpatialGroup`` of a spatial mesh (:meth:`place_spatial`), or None
+    spatial_group = None
+
+    def place_spatial(self, where) -> None:
+        """Hand the model the ``SpatialGroup`` ``where`` (None: whole images only)."""
+        self.spatial_group = where
+
+    def _spatial_split(self, train: bool):
+        """The ``SpatialGroup`` where this forward runs on H-shards, else None."""
+        return self.spatial_group if train else None
 
 
 class _Columns(nn.Module):
@@ -158,10 +194,22 @@ class Conv(_Columns):
         self.padding = kernel_size // 2
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
+        """``spatial``: the ``SpatialGroup`` whose rows ``x`` is (None: whole
+        images); a 3×3 conv then takes a halo row from each neighbour (at
+        stride 2 the upper one only) and pads W alone."""
+        if spatial is None or self.padding == 0:
+            return self._conv(x, self.padding)
+        return self.valid_rows(spatial.halo(x, lower=self.stride == 1))
+
+    def valid_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv on rows that already carry their halo: no H padding."""
+        return self._conv(x, (0, self.padding))
+
+    def _conv(self, x: torch.Tensor, padding) -> torch.Tensor:
         # the NCHW view of an NHWC tensor is channels_last, which cuDNN keeps
         y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), self.weight.to(self.dtype),
-                     self._bias().to(self.dtype), self.stride, self.padding)
+                     self._bias().to(self.dtype), self.stride, padding)
         return y.permute(0, 2, 3, 1)
 
 
@@ -206,10 +254,28 @@ class GroupNorm(nn.Module):
                              f"whole (groups and channels divisible by {size})")
         return group.shard(self.weight), group.shard(self.bias), self.num_groups // size
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
+        """``spatial``: the ``SpatialGroup`` whose rows ``x`` is (None: whole
+        images); the statistics are then the whole sample's,
+        E[x²] − E[x]² from the group's all-reduced f32 sums."""
         weight, bias, groups = self.affine(x.shape[-1])
+        if spatial is not None:
+            return self._rows(x, weight, bias, groups, spatial)
         y = F.group_norm(x.to(torch.float32).permute(0, 3, 1, 2), groups, weight, bias, GN_EPS)
         return y.permute(0, 2, 3, 1)
+
+    @staticmethod
+    def _rows(x, weight, bias, groups, spatial):
+        n, h, w, c = x.shape
+        xf = x.to(torch.float32)
+        sums = spatial.all_reduce_sum(torch.stack([xf.sum(dim=(1, 2)),
+                                                   torch.square(xf).sum(dim=(1, 2))]))
+        count = h * spatial.size * w * (c // groups)
+        mean, sq = (sums.reshape(2, n, groups, c // groups).sum(-1) / count).unbind(0)
+        inv = torch.rsqrt(sq - torch.square(mean) + GN_EPS)
+        xg = xf.reshape(n, h, w, groups, c // groups)
+        y = (xg - mean[:, None, None, :, None]) * inv[:, None, None, :, None]
+        return y.reshape(n, h, w, c) * weight + bias
 
 
 class GNSiLU(GroupNorm):
@@ -221,7 +287,9 @@ class GNSiLU(GroupNorm):
         super().__init__(num_groups, channels)
         self.dtype = dtype
 
-    def forward(self, x, pre_bias=None, film_scale=None, film_shift=None):
+    def forward(self, x, pre_bias=None, film_scale=None, film_shift=None, spatial=None):
+        """``spatial``: the ``SpatialGroup`` whose rows ``x`` is (None:
+        whole images), through the split entries (``group_norm_silu_rows``)."""
         weight, bias, groups = self.affine(x.shape[-1])
         if film_scale is not None:
             # GN(x)·(s+1)+shift with the GN affine folded in, per sample
@@ -230,7 +298,10 @@ class GNSiLU(GroupNorm):
             beta = bias[None, :] * fs + film_shift.to(torch.float32)
         else:
             gamma, beta = weight, bias
-        y = group_norm_silu(x, gamma, beta, groups, GN_EPS, pre_bias=pre_bias)
+        if spatial is not None:
+            y = group_norm_silu_rows(x, gamma, beta, groups, GN_EPS, pre_bias, where=spatial)
+        else:
+            y = group_norm_silu(x, gamma, beta, groups, GN_EPS, pre_bias=pre_bias)
         return y.to(self.dtype)
 
 
@@ -258,6 +329,9 @@ class SelfAttention2d(nn.Module):
     gathers the normalized input, gathers the projection's column shards
     (a rank's rows of the packed (3, heads, hd) layout are not its heads),
     runs the attention whole on every rank and keeps its shard of ``proj``.
+    Given a spatial group's rows (``spatial``), it gathers them whole along
+    H, runs the norm, the projection and the attention whole on every rank
+    and keeps its rows of the output (``proj`` runs on those rows).
     """
 
     def __init__(self, dim: int, num_groups: int = 32, num_heads: int = 1,
@@ -269,7 +343,10 @@ class SelfAttention2d(nn.Module):
         self.qkv_proj = conv1x1(dim, 3 * dim, dtype)
         self.proj = conv1x1(dim, dim, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
+        rows = x
+        if spatial is not None:
+            x = spatial.gather(x)
         n, h, w, c = x.shape
         heads, dim = self.num_heads, self.dim
         # F.group_norm returns channel-major storage on CUDA; casting to NHWC
@@ -282,6 +359,8 @@ class SelfAttention2d(nn.Module):
         qkv = whole_output(self.qkv_proj, hx).reshape(n, h * w, 3, heads, dim // heads)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (n, hw, heads, hd) views
         out = attention_heads(q, k, v, dim ** -0.5).reshape(n, h, w, dim)
+        if spatial is not None:
+            return rows + self.proj(spatial.rows(out))
         if split:
             return x + shard_of_output(self.proj, out, self.tensor_group)
         return x + self.proj(out)
@@ -294,11 +373,11 @@ class Downsample(nn.Module):
         super().__init__()
         self.Conv_0 = conv3x3(channels, channels, 2, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
         if x.shape[-1] != self.Conv_0.weight.shape[1]:  # a tensor group's channel shard
             group = self.Conv_0.tensor_group
             return shard_of_output(self.Conv_0, group.gather(x), group)
-        return self.Conv_0(x)
+        return on_rows(self.Conv_0, spatial, x)
 
 
 class Upsample(nn.Module):
@@ -309,13 +388,13 @@ class Upsample(nn.Module):
         super().__init__()
         self.Conv_0 = conv3x3(channels, channels if c_out is None else c_out, 1, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
         group = self.Conv_0.tensor_group
         split = x.shape[-1] != self.Conv_0.weight.shape[1]  # a tensor group's channel shard
         if split:
             x = group.gather(x)
         x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-        return shard_of_output(self.Conv_0, x, group) if split else self.Conv_0(x)
+        return shard_of_output(self.Conv_0, x, group) if split else on_rows(self.Conv_0, spatial, x)
 
 
 class ResBlock(nn.Module):
@@ -342,6 +421,10 @@ class ResBlock(nn.Module):
     condition is the rank's slice of the whole (N, c_out) or, under FiLM,
     the rank's slice of each half of the gathered (N, 2·c_out) (a rank's
     rows of the packed [shift | scale] are not its channels).
+
+    Given a spatial group's rows of ``x`` (``spatial``), every layer runs on
+    the rows (:class:`Conv`, :class:`GroupNorm`, :class:`GNSiLU` and the
+    attention take ``spatial``); the dropout mask is the whole one.
     """
 
     def __init__(self, c_in: int, c_out: int, emb_dim: int, with_attention: bool = False,
@@ -366,11 +449,12 @@ class ResBlock(nn.Module):
     def forward(self, x: torch.Tensor, emb: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 mask: Optional[torch.Tensor] = None, recompute: bool = False,
-                whole: Optional[torch.Tensor] = None) -> torch.Tensor:
+                whole: Optional[torch.Tensor] = None, spatial=None) -> torch.Tensor:
         """``mask`` and ``recompute`` are the remat recomputation's: it runs
-        the block on the dropout mask drawn the first time."""
+        the block on the dropout mask drawn the first time (and the same
+        halos and all-reduces, in the same order on every rank)."""
         split = x.shape[-1] != self.norm1.weight.shape[0]  # a tensor group's channel shard
-        if self.fused_block and not train and not split:
+        if self.fused_block and not train and not split and spatial is None:
             h = self._fused_block(x, emb)
             return h if self.attention is None else self.attention(h)
         if train and self.dropout > 0.0 and not recompute:
@@ -386,39 +470,42 @@ class ResBlock(nn.Module):
             def body(x, emb, mask, whole, *weights):
                 return functional_call(self, dict(zip(params, weights)), (x, emb),
                                        {"train": True, "mask": mask, "recompute": True,
-                                        "whole": whole})
+                                        "whole": whole, "spatial": spatial})
 
             return checkpoint(body, x, emb, mask, whole, *params.values(), use_reentrant=False)
-        h = self._standard(x, emb, mask, whole) if split else self._standard(x, emb, mask)
-        return h if self.attention is None else self.attention(h)
+        if split:
+            h = self._standard(x, emb, mask, whole)
+        else:
+            h = on_rows(self._standard, spatial, x, emb, mask)
+        return h if self.attention is None else on_rows(self.attention, spatial, h)
 
-    def _standard(self, x, emb, mask, whole=None):
+    def _standard(self, x, emb, mask, whole=None, spatial=None):
         group = self.conv1.tensor_group
         split = x.shape[-1] != self.norm1.weight.shape[0]
         if self.fused_norm:
-            h = self.norm1(x)
+            h = on_rows(self.norm1, spatial, x)
         else:
-            h = F.silu(self.norm1(x).to(self.dtype))
+            h = F.silu(on_rows(self.norm1, spatial, x).to(self.dtype))
         if split:
             h = shard_of_output(self.conv1, group.gather(h), group)
         else:
-            h = self.conv1(h)
+            h = on_rows(self.conv1, spatial, h)
         if self.film:
             shift, scale = torch.chunk(whole_output(self.condition, emb), 2, dim=-1)  # (N, C) each
             if split:
                 shift, scale = group.shard(shift), group.shard(scale)
             if self.fused_norm:
-                h = self.norm2(h, film_scale=scale, film_shift=shift)
+                h = on_rows(self.norm2, spatial, h, film_scale=scale, film_shift=shift)
             else:
-                h = self.norm2(h).to(self.dtype)
+                h = on_rows(self.norm2, spatial, h).to(self.dtype)
                 h = F.silu(h * (scale[:, None, None, :] + 1.0) + shift[:, None, None, :])
         else:
             cond = shard_of_output(self.condition, emb, group) if split else self.condition(emb)
             if self.fused_norm:
                 # GN(h + cond) + SiLU in one kernel: the pre-bias folds into the statistics
-                h = self.norm2(h, pre_bias=cond)
+                h = on_rows(self.norm2, spatial, h, pre_bias=cond)
             else:
-                h = F.silu(self.norm2(h + cond[:, None, None, :]).to(self.dtype))
+                h = F.silu(on_rows(self.norm2, spatial, h + cond[:, None, None, :]).to(self.dtype))
         if mask is not None:
             h = torch.where(group.shard(mask) if split else mask, h / (1.0 - self.dropout),
                             torch.zeros((), dtype=h.dtype, device=h.device))
@@ -428,7 +515,7 @@ class ResBlock(nn.Module):
                 whole = group.gather(x) if whole is None else whole
                 return h + shard_of_output(self.residual, whole, group)
             return h + x
-        h = self.conv2(h)
+        h = on_rows(self.conv2, spatial, h)
         skip = x if self.residual is None else self.residual(x)
         return h + skip
 
@@ -466,10 +553,12 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator,
     fan_in = w[0].numel() if fan_in is None else fan_in
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
-    u = torch.rand(w.shape, generator=generator, dtype=torch.float64) * (hi - lo) + lo
-    z = math.sqrt(2.0) * torch.special.erfinv(u)
+    # in place, in one f64 buffer: the same operations in the same order as
+    # sqrt(2)·erfinv(u·(hi − lo) + lo)·std, without a temporary a step
+    z = torch.rand(w.shape, generator=generator, dtype=torch.float64).mul_(hi - lo).add_(lo)
+    torch.special.erfinv(z, out=z).mul_(math.sqrt(2.0)).mul_(std)
     with torch.no_grad():
-        w.copy_((z * std).to(w.dtype))
+        w.copy_(z)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -10,6 +10,12 @@ shards (:meth:`UNet.place_tensor`): every activation between layers, the
 skips included, is the rank's slice of its channels, and the up path's
 concatenation is gathered whole and re-split, since a rank's slice of
 ``cat([h, skip])`` is not the concatenation of the two slices.
+
+On a ``spatial`` mesh axis (``parallel/spatial.py``) a training forward
+runs on H-shards (:meth:`UNet.place_spatial`): the input conv reads the
+rank's rows of the whole input with a halo row each side, every
+activation between layers, the skips included, is the rank's rows (the
+concatenations are local), and the output is gathered whole.
 """
 
 from __future__ import annotations
@@ -25,10 +31,12 @@ from dmme_tpu_torch.models.blocks import (
     GNSiLU,
     GroupNorm,
     ResBlock,
+    SpatialParallel,
     TensorParallel,
     TimeEmbedding,
     Upsample,
     conv3x3,
+    on_rows,
     shard_of_output,
     whole_output,
 )
@@ -101,7 +109,7 @@ def check_param_dtype(param_dtype) -> None:
                                   "leftovers)")
 
 
-class UNet(TensorParallel):
+class UNet(TensorParallel, SpatialParallel):
     """Timestep-conditioned UNet denoiser on NHWC tensors.
 
     ``film=False, num_heads=1`` is the DDPM UNet; ``film=True`` with several
@@ -120,7 +128,9 @@ class UNet(TensorParallel):
     :meth:`place_tensor`), a training forward runs tensor-parallel and
     returns the whole output on every rank of the group; bound to whole
     weights, the same module runs as on one device and issues no
-    collective.
+    collective. After :meth:`place_spatial`, a training forward runs on the
+    rank's rows of every activation and returns the whole output on every
+    rank of the spatial group; any other forward runs on whole images.
     """
 
     def __init__(
@@ -187,6 +197,19 @@ class UNet(TensorParallel):
         self.out_norm = GNSiLU(num_groups, c, dtype) if fused_norm else GroupNorm(num_groups, c)
         self.output_conv = conv3x3(c, out_channels or in_channels, 1, dtype)
 
+    def check_rows(self, height: int, size: int) -> None:
+        """Raise unless every level's rows of a ``height``-row input split
+        into whole shards over ``size`` spatial ranks, an even number a
+        shard where a Downsample halves them: ``height`` divisible by
+        ``size`` · 2^(depths − 1)."""
+        levels = len(self.channels_per_depth)
+        unit = size * 2 ** (levels - 1)
+        if height % unit:
+            raise ValueError(
+                f"an H-split UNet of {levels} depths over {size} spatial ranks needs a height "
+                f"divisible by {unit} (whole, even row shards at every level), got {height} "
+                "(ROADMAP A.11)")
+
     def forward(self, x: torch.Tensor, t: torch.Tensor, *, y: Optional[torch.Tensor] = None,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None, return_features: bool = False,
@@ -211,13 +234,22 @@ class UNet(TensorParallel):
 
         Bound to tensor shards (:meth:`place_tensor`), every rank of the
         group returns the whole output, whose backward divides its gradient
-        by the group's size (``TensorGroup.to_partial``).
+        by the group's size (``TensorGroup.to_partial``); so does a
+        training forward of a UNet placed on a spatial axis
+        (:meth:`place_spatial`, ``SpatialGroup.to_partial``).
         """
         group = self._tensor_split()
-        if group is not None and (return_features or return_deep or cached is not None
-                                  or cache_depth is not None or deep_cache is not None):
+        spatial = self._spatial_split(train)
+        capture = (return_features or return_deep or cached is not None
+                   or cache_depth is not None or deep_cache is not None)
+        if group is not None and capture:
             raise ValueError("the feature-capture arguments sample on whole weights; a "
                              "tensor-split UNet samples after TrainState.whole()")
+        if spatial is not None:
+            if capture:
+                raise ValueError("the feature-capture arguments sample on whole images; an "
+                                 "H-split UNet runs on row shards in training only")
+            self.check_rows(x.shape[1], spatial.size)
         n_shallow_down = n_deep_up = None
         if deep_cache is not None and cache_depth is None:
             raise ValueError("deep_cache requires cache_depth")
@@ -245,7 +277,9 @@ class UNet(TensorParallel):
             emb = emb + label.to(self.dtype)
         reuse_deep = deep_cache is not None
         if cached is None:
-            if group is None:
+            if spatial is not None:
+                h = self.input_conv.valid_rows(spatial.window(x.to(self.dtype)))
+            elif group is None:
                 h = self.input_conv(x.to(self.dtype))
             else:
                 h = shard_of_output(self.input_conv, x.to(self.dtype), group)
@@ -253,7 +287,8 @@ class UNet(TensorParallel):
             n_down = n_shallow_down if reuse_deep else len(self.down_specs)
             for i, spec in enumerate(self.down_specs[:n_down]):
                 layer = getattr(self, f"down_{i}")
-                h = layer(h, emb, train, generator) if spec.kind == "res" else layer(h)
+                h = (on_rows(layer, spatial, h, emb, train, generator) if spec.kind == "res"
+                     else on_rows(layer, spatial, h))
                 skips.append(h)
         else:
             h, skips = cached
@@ -266,28 +301,31 @@ class UNet(TensorParallel):
             up_start = n_deep_up
         else:
             for i in range(len(self.middle_specs)):
-                h = getattr(self, f"middle_{i}")(h, emb, train, generator)
+                h = on_rows(getattr(self, f"middle_{i}"), spatial, h, emb, train, generator)
             up_start = 0
         for i, spec in enumerate(self.up_specs):
             if i < up_start:
                 continue
             layer = getattr(self, f"up_{i}")
             if spec.kind == "res" and group is None:
-                h = layer(torch.cat([h, skips.pop()], dim=-1), emb, train, generator)
+                h = on_rows(layer, spatial, torch.cat([h, skips.pop()], dim=-1), emb, train,
+                            generator)
             elif spec.kind == "res":
                 # a rank's slice of the concatenation is not that of its parts
                 whole = group.gather_cat(h, skips.pop())
                 h = layer(group.shard(whole), emb, train, generator, whole=whole)
             else:
-                h = layer(h)
+                h = on_rows(layer, spatial, h)
             if return_deep and n_deep_up is not None and i == n_deep_up - 1:
                 deep = h
         assert not skips, "unconsumed skip connections — topology mismatch"
 
         if self.fused_norm:
-            h = self.out_norm(h)
+            h = on_rows(self.out_norm, spatial, h)
         else:
-            h = torch.nn.functional.silu(self.out_norm(h).to(self.dtype))
+            h = torch.nn.functional.silu(on_rows(self.out_norm, spatial, h).to(self.dtype))
+        if spatial is not None:
+            return spatial.to_partial(spatial.gather(self.output_conv(h, spatial)))
         if group is not None:
             return group.to_partial(whole_output(self.output_conv, group.gather(h)))
         h = self.output_conv(h)

@@ -615,8 +615,11 @@ gn_partial_kernel(const E* __restrict__ x, const E* __restrict__ dz,
 
 // grid N: the chunk partials of sample n summed in chunk order into
 // shared memory (Q*C floats), then, by `mode`: 0 K1's statistics (mean,
-// inv and the per-channel a, d into coef[n*2C]); 1 K2's dbeta, dgamma and
-// the per-channel m1, m2 into coef[n*2C]; 2 K2's dbias.
+// inv and the per-channel a, d into coef[n*2C]); 1 K2's dbeta, dgamma
+// (where out0 is not null) and the per-channel m1, m2 into coef[n*2C]; 2
+// the Q*C sums themselves into out0[n*Q*C] (K2's dbias, and the split
+// entries' (N, 2C) channel sums). `HW` is the pixels the statistics are
+// taken over: the whole sample's, also where the partials are a shard's.
 __global__ void __launch_bounds__(256)
 gn_finalize_kernel(const float* __restrict__ part, int chunks, int Q, int mode, const Vecs vv,
                    float* __restrict__ out0, float* __restrict__ out1, float* __restrict__ coef,
@@ -637,13 +640,15 @@ gn_finalize_kernel(const float* __restrict__ part, int chunks, int Q, int mode, 
     fwd_coefficients(tot, chan, gam, vv.beta + n * vv.sb, vv.bias ? vv.bias + n * vv.sp : nullptr,
                      HW, C, G, eps, out0 + n * G, out1 + n * G);
   } else if (mode == 1) {
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      out0[(size_t)n * C + c] = tot[c];      // dbeta
-      out1[(size_t)n * C + c] = tot[C + c];  // dgamma
+    if (out0) {
+      for (int c = threadIdx.x; c < C; c += blockDim.x) {
+        out0[(size_t)n * C + c] = tot[c];      // dbeta
+        out1[(size_t)n * C + c] = tot[C + c];  // dgamma
+      }
     }
     bwd_group_means(tot, chan, gam, HW, C, G);
   } else {
-    for (int c = threadIdx.x; c < C; c += blockDim.x) out0[(size_t)n * C + c] = tot[c];
+    for (int i = threadIdx.x; i < qc; i += blockDim.x) out0[(size_t)n * qc + i] = tot[i];
     return;
   }
   for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) coef[(size_t)n * 2 * C + i] = chan[i];
@@ -772,6 +777,71 @@ int gn_bwd(const void* x, const void* dz, void* dx, float* dgamma, float* dbeta,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- H-shards (split statistics)
+// The spatial mesh axis gives a rank H/S rows of every sample, so a
+// sample's statistics are the sum of the ranks' channel sums. Each half of
+// K1 and K2 is then a launch sequence of its own around an all-reduce of
+// (N, 2C) f32 sums, made between them in Python; the kernels are the two
+// passes' above, with the same fixed summation order inside a rank:
+//   fwd_sums:  the shard's sum(x), sum(x^2) per channel (partials, then a
+//              chunk-order sum) -> (N, 2C); the pre-bias is folded in by
+//              fwd_apply over the whole sample's pixel count, as K1 folds it
+//   fwd_apply: from the group's (N, 2C) totals: mean, inv and the
+//              coefficients, then y on the shard's rows
+//   bwd_sums:  K2's pass-1 channel sums, sum(dy) and sum(dy*xh), over the
+//              shard's rows -> (N, 2C), which are also the shard's dbeta
+//              and dgamma partials
+//   bwd_dx:    from the group's totals: the group means, then dx on the
+//              shard and its dbias partial
+// `pixels` a block's chunk of the shard (ops/group_norm.py:split_plan),
+// `blocks` the chunks a sample.
+template <typename E>
+int gn_fwd_sums(const void* x, float* sums, float* part, int N, int HW, int C, int blocks,
+                int pixels, cudaStream_t s) {
+  const Vecs none{nullptr, nullptr, nullptr, 0, 0, 0};
+  gn_partial_kernel<E, false><<<dim3(blocks, N), 256, 0, s>>>(
+      static_cast<const E*>(x), nullptr, nullptr, nullptr, none, part, HW, C, 1, pixels);
+  gn_finalize_kernel<<<N, 256, 6 * C * 4, s>>>(part, blocks, 2, 2, none, sums, nullptr, nullptr,
+                                               HW, C, 1, 0.f);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int gn_fwd_apply(const void* x, void* y, float* mean, float* inv, const float* sums,
+                 const Vecs& vv, int N, int HW, int total, int C, int G, float eps, int blocks,
+                 int pixels, float* coef, cudaStream_t s) {
+  gn_finalize_kernel<<<N, 256, 6 * C * 4, s>>>(sums, 1, 2, 0, vv, mean, inv, coef, total, C, G,
+                                               eps);
+  gn_apply_kernel<E><<<dim3(blocks, N), 256, 0, s>>>(static_cast<const E*>(x), static_cast<E*>(y),
+                                                      coef, HW, C, pixels);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int gn_bwd_sums(const void* x, const void* dz, const float* mean, const float* inv,
+                const Vecs& vv, float* sums, float* part, int N, int HW, int C, int G, int blocks,
+                int pixels, cudaStream_t s) {
+  gn_partial_kernel<E, true><<<dim3(blocks, N), 256, 0, s>>>(
+      static_cast<const E*>(x), static_cast<const E*>(dz), mean, inv, vv, part, HW, C, G, pixels);
+  gn_finalize_kernel<<<N, 256, 6 * C * 4, s>>>(part, blocks, 2, 2, vv, sums, nullptr, nullptr, HW,
+                                               C, G, 0.f);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int gn_bwd_dx(const void* x, const void* dz, void* dx, float* dbias, const float* mean,
+              const float* inv, const float* sums, const Vecs& vv, int N, int HW, int total, int C,
+              int G, int blocks, int pixels, float* part2, float* coef, cudaStream_t s) {
+  gn_finalize_kernel<<<N, 256, 6 * C * 4, s>>>(sums, 1, 2, 1, vv, nullptr, nullptr, coef, total,
+                                               C, G, 0.f);
+  gn_dx_kernel<E><<<dim3(blocks, N), 256, 0, s>>>(
+      static_cast<const E*>(x), static_cast<const E*>(dz), static_cast<E*>(dx), mean, inv, vv,
+      coef, part2, HW, C, G, pixels);
+  gn_finalize_kernel<<<N, 256, 6 * C * 4, s>>>(part2, blocks, 1, 2, vv, dbias, nullptr, nullptr,
+                                               HW, C, G, 0.f);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype codes (ops/__init__.py:DTYPE_CODES): 0 f32, 1 fp16, 2 bf16.
@@ -826,6 +896,83 @@ extern "C" int dmme_gn_silu_bwd(int dtype, const void* x, const void* dz, void* 
     case 2:
       return gn_bwd<bf16>(x, dz, dx, dgamma, dbeta, dbias, mean, inv, vv, N, HW, C, G, blocks,
                           pixels, chunk, threads, two_pass, part, part2, coef, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split entries (H-shards of the spatial mesh axis; see gn_fwd_sums
+// above). x, y, dz, dx: the shard's (N, HW, C) in the dtype, 16-byte
+// aligned, C % 8 == 0, C <= 2048, C % G == 0; `total` the whole sample's
+// pixels (HW times the group's size); sums (N, 2C) f32; part N*blocks*2*C,
+// part2 N*blocks*C and coef N*2*C f32 scratch. Each returns a cudaError_t.
+extern "C" int dmme_gn_silu_fwd_sums(int dtype, const void* x, float* sums, float* part, int N,
+                                     int HW, int C, int blocks, int pixels, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return gn_fwd_sums<float>(x, sums, part, N, HW, C, blocks, pixels, s);
+    case 1: return gn_fwd_sums<__half>(x, sums, part, N, HW, C, blocks, pixels, s);
+    case 2: return gn_fwd_sums<bf16>(x, sums, part, N, HW, C, blocks, pixels, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int dmme_gn_silu_fwd_apply(int dtype, const void* x, void* y, float* mean, float* inv,
+                                      const float* sums, const float* gamma, int sg,
+                                      const float* beta, int sb, const float* bias, int sp, int N,
+                                      int HW, int total, int C, int G, float eps, int blocks,
+                                      int pixels, float* coef, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Vecs vv{gamma, beta, bias, sg, sb, sp};
+  switch (dtype) {
+    case 0:
+      return gn_fwd_apply<float>(x, y, mean, inv, sums, vv, N, HW, total, C, G, eps, blocks,
+                                 pixels, coef, s);
+    case 1:
+      return gn_fwd_apply<__half>(x, y, mean, inv, sums, vv, N, HW, total, C, G, eps, blocks,
+                                  pixels, coef, s);
+    case 2:
+      return gn_fwd_apply<bf16>(x, y, mean, inv, sums, vv, N, HW, total, C, G, eps, blocks,
+                                pixels, coef, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int dmme_gn_silu_bwd_sums(int dtype, const void* x, const void* dz, const float* mean,
+                                     const float* inv, const float* gamma, int sg,
+                                     const float* beta, int sb, const float* bias, int sp,
+                                     float* sums, float* part, int N, int HW, int C, int G,
+                                     int blocks, int pixels, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Vecs vv{gamma, beta, bias, sg, sb, sp};
+  switch (dtype) {
+    case 0:
+      return gn_bwd_sums<float>(x, dz, mean, inv, vv, sums, part, N, HW, C, G, blocks, pixels, s);
+    case 1:
+      return gn_bwd_sums<__half>(x, dz, mean, inv, vv, sums, part, N, HW, C, G, blocks, pixels, s);
+    case 2:
+      return gn_bwd_sums<bf16>(x, dz, mean, inv, vv, sums, part, N, HW, C, G, blocks, pixels, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int dmme_gn_silu_bwd_dx(int dtype, const void* x, const void* dz, void* dx,
+                                   float* dbias, const float* mean, const float* inv,
+                                   const float* sums, const float* gamma, int sg,
+                                   const float* beta, int sb, const float* bias, int sp, int N,
+                                   int HW, int total, int C, int G, int blocks, int pixels,
+                                   float* part2, float* coef, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Vecs vv{gamma, beta, bias, sg, sb, sp};
+  switch (dtype) {
+    case 0:
+      return gn_bwd_dx<float>(x, dz, dx, dbias, mean, inv, sums, vv, N, HW, total, C, G, blocks,
+                              pixels, part2, coef, s);
+    case 1:
+      return gn_bwd_dx<__half>(x, dz, dx, dbias, mean, inv, sums, vv, N, HW, total, C, G, blocks,
+                               pixels, part2, coef, s);
+    case 2:
+      return gn_bwd_dx<bf16>(x, dz, dx, dbias, mean, inv, sums, vv, N, HW, total, C, G, blocks,
+                             pixels, part2, coef, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -52,6 +52,20 @@ K1's and K2's versions in ``csrc/simt.cu`` in every dtype
 per group, in a fixed order, and passes over the group's pixels again for
 the output; one launch a call. The choice is made from the shape and dtype
 before any build or launch (:func:`kernel_takes`), never after a failure.
+
+On an H-shard of the ``spatial`` mesh axis (``parallel/spatial.py``) a
+rank holds H/S rows of each sample, so K1 and K2 split in two around an
+all-reduce of (N, 2C) f32 channel sums over the spatial group
+(:class:`GroupNormSiLURows`): ``sums`` (Σx, Σx² over the rows), then
+``apply`` (the statistics over the whole sample's pixels, the pre-bias
+folded in as K1 folds it, then y on the rows); backward ``bwd_sums`` (K2's
+Σdy and Σdy·x̂ over the rows, which are also the rows' dβ and dγ), then
+``bwd_dx`` (the group means from the totals, dx and the rows' dbias).
+Four C entry points of ``group_norm.cu`` on its two-pass kernels, each
+counted per dtype (``sums_launches`` … ``f32_bwd_dx_launches``); their
+plain versions (:func:`gn_silu_sums_plain` and its siblings) do the same
+arithmetic. A width outside ``group_norm.cu``'s domain raises there: no
+``simt.cu`` or plain fallback on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -83,6 +97,15 @@ simt_bwd_launches = 0
 _COUNTERS = {torch.bfloat16: ("launches", "bwd_launches"),
              torch.float16: ("fp16_launches", "fp16_bwd_launches"),
              torch.float32: ("f32_launches", "f32_bwd_launches")}
+#: launches of the four split entries (an H-shard of the ``spatial`` mesh
+#: axis: :func:`group_norm_silu_rows`) since the last reset, per dtype
+#: (bf16; ``fp16_``/``f32_`` prefixed), incremented only by their launchers
+sums_launches = apply_launches = bwd_sums_launches = bwd_dx_launches = 0
+fp16_sums_launches = fp16_apply_launches = fp16_bwd_sums_launches = fp16_bwd_dx_launches = 0
+f32_sums_launches = f32_apply_launches = f32_bwd_sums_launches = f32_bwd_dx_launches = 0
+#: the split entries, in the order a forward and its backward launch them
+SPLIT_ENTRIES = ("sums", "apply", "bwd_sums", "bwd_dx")
+_PREFIX = {torch.bfloat16: "", torch.float16: "fp16_", torch.float32: "f32_"}
 
 #: the bound C entry points, by name
 _FNS: dict = {}
@@ -121,14 +144,30 @@ def gn_silu_plain(x, gamma, beta, bias, num_groups: int, eps: float = GN_EPS
     """Plain PyTorch version of the kernel: the same folded one-pass math.
     ``gamma``/``beta``: (C,) or (N, C); ``bias``: None or (N, C).
     Returns (y, mean, inv)."""
-    n, h, w, c = x.shape
+    return gn_silu_apply_plain(x, gn_silu_sums_plain(x), gamma, beta, bias, num_groups,
+                               x.shape[1] * x.shape[2], eps)
+
+
+def gn_silu_sums_plain(x) -> torch.Tensor:
+    """Plain version of the split forward's first half: Σx and Σx² per
+    (sample, channel) over x's rows, in f32: (N, 2C)."""
+    xf = x.to(torch.float32)
+    return torch.cat([xf.sum(dim=(1, 2)), torch.square(xf).sum(dim=(1, 2))], dim=-1)
+
+
+def gn_silu_apply_plain(x, sums, gamma, beta, bias, num_groups: int, pixels: int,
+                        eps: float = GN_EPS) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the split forward's second half: the statistics of
+    a sample of ``pixels`` pixels from its (N, 2C) channel sums ``sums``
+    (:func:`gn_silu_sums_plain`, summed over its row shards), the pre-bias
+    folded in, then y on x's rows. Returns (y, mean, inv)."""
+    n, _, _, c = x.shape
     gamma, beta = broadcast_rows(gamma, n, c)[0], broadcast_rows(beta, n, c)[0]
     bias = (torch.zeros((n, c), device=x.device, dtype=torch.float32) if bias is None
             else broadcast_rows(bias, n, c)[0])
-    hw, cg = h * w, c // num_groups
+    hw, cg = pixels, c // num_groups
     xf = x.to(torch.float32)
-    chan_sum = xf.sum(dim=(1, 2))
-    chan_sq = torch.square(xf).sum(dim=(1, 2))
+    chan_sum, chan_sq = sums[:, :c], sums[:, c:]
     usum = chan_sum + hw * bias
     usq = chan_sq + 2.0 * bias * chan_sum + hw * torch.square(bias)
     mean_g = usum.reshape(n, num_groups, cg).sum(-1) / (hw * cg)
@@ -172,6 +211,52 @@ def gn_silu_bwd_plain(x, dz, gamma, beta, bias, mean, inv, num_groups: int
     m2 = (dxhat * xhat).sum(dim=(1, 2)).reshape(n, num_groups, cg).sum(-1) / cnt
     du = per_channel(inv) * (dxhat - per_channel(m1) - xhat * per_channel(m2))
     return du.to(x.dtype), dgamma, dbeta, du.sum(dim=(1, 2))
+
+
+def gn_silu_bwd_sums_plain(x, dz, gamma, beta, bias, mean, inv, num_groups: int) -> torch.Tensor:
+    """Plain version of the split backward's first half: K2's channel sums
+    Σdy and Σdy·x̂ over x's rows, in f32: (N, 2C), the rows' dβ and dγ."""
+    xhat, dy, _ = _xhat_dy(x, dz, gamma, beta, bias, mean, inv, num_groups)
+    return torch.cat([dy.sum(dim=(1, 2)), (dy * xhat).sum(dim=(1, 2))], dim=-1)
+
+
+def gn_silu_bwd_dx_plain(x, dz, gamma, beta, bias, mean, inv, sums, num_groups: int,
+                         pixels: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the split backward's second half: from a sample's
+    (N, 2C) sums (:func:`gn_silu_bwd_sums_plain`, summed over its row
+    shards) of ``pixels`` pixels, the group means m1 = Σ_c γ·Σdy and m2 =
+    Σ_c γ·Σdy·x̂ over the group's elements, then dx on x's rows and its
+    (N, C) f32 sum (the rows' dbias). Returns (dx in x's dtype, dbias)."""
+    n, _, _, c = x.shape
+    xhat, dy, gamma = _xhat_dy(x, dz, gamma, beta, bias, mean, inv, num_groups)
+    cg = c // num_groups
+    cnt = pixels * cg
+    m1 = (sums[:, :c] * gamma).reshape(n, num_groups, cg).sum(-1) / cnt
+    m2 = (sums[:, c:] * gamma).reshape(n, num_groups, cg).sum(-1) / cnt
+
+    def per_channel(v):  # (N, G) -> (N, 1, 1, C)
+        return v.repeat_interleave(cg, dim=1)[:, None, None, :]
+
+    du = per_channel(inv) * (dy * gamma[:, None, None, :] - per_channel(m1)
+                             - xhat * per_channel(m2))
+    return du.to(x.dtype), du.sum(dim=(1, 2))
+
+
+def _xhat_dy(x, dz, gamma, beta, bias, mean, inv, num_groups: int):
+    """K2's x̂ and dy on x's rows in f32, and γ as (N, C) f32 rows."""
+    n, _, _, c = x.shape
+    gamma, beta = broadcast_rows(gamma, n, c)[0], broadcast_rows(beta, n, c)[0]
+    bias = (torch.zeros((n, c), device=x.device, dtype=torch.float32) if bias is None
+            else broadcast_rows(bias, n, c)[0])
+    cg = c // num_groups
+
+    def per_channel(v):  # (N, G) -> (N, 1, 1, C)
+        return v.to(torch.float32).repeat_interleave(cg, dim=1)[:, None, None, :]
+
+    xhat = (x.to(torch.float32) + bias[:, None, None, :] - per_channel(mean)) * per_channel(inv)
+    y = xhat * gamma[:, None, None, :] + beta[:, None, None, :]
+    s = torch.sigmoid(y)
+    return xhat, dz.to(torch.float32) * (s * (1.0 + y * (1.0 - s))), gamma
 
 
 def _smem_bytes(backward: bool, pixels: int, c: int, threads: int, size: int = 2) -> int:
@@ -430,6 +515,159 @@ def _launch_bwd_simt(x, dz, gamma, beta, bias, mean, inv, num_groups: int):
     return dx, dgamma, dbeta, dbias
 
 
+def split_plan(h: int, w: int, c: int, size: int, backward: bool) -> Tuple[int, int]:
+    """(blocks, pixels) of a split entry's passes over an (N, h, w, C) shard
+    of ``size``-byte elements: the two-pass kernels' chunks of
+    ``TWO_PASS_BYTES`` (x, and dz for the backward)."""
+    pixels = max(1, TWO_PASS_BYTES // (size * c * (2 if backward else 1)))
+    return -(-(h * w) // pixels), pixels
+
+
+def _split_fn(name: str, argtypes):
+    return _bound("group_norm", f"dmme_gn_silu_{name}", argtypes)
+
+
+def _count_split(x: torch.Tensor, entry: str) -> None:
+    name = f"{_PREFIX[x.dtype]}{entry}_launches"
+    globals()[name] += 1
+
+
+def _launch_sums(x):
+    n, h, w, c = x.shape
+    code = _check(x, 1, "group_norm_silu split sums")
+    blocks, pixels = split_plan(h, w, c, x.element_size(), False)
+    x = _aligned(x)
+    f32 = dict(device=x.device, dtype=torch.float32)
+    sums = torch.empty((n, 2 * c), **f32)
+    part = torch.empty((n * blocks * 2 * c,), **f32)
+    status = _split_fn("fwd_sums", [_I, _VP, _VP, _VP] + [_I] * 5 + [_VP])(
+        code, x.data_ptr(), sums.data_ptr(), part.data_ptr(), n, h * w, c, blocks, pixels,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, "group_norm_silu split sums kernel launch")
+    _count_split(x, "sums")
+    return sums
+
+
+def _launch_apply(x, sums, gamma, beta, bias, num_groups: int, pixels_total: int, eps: float):
+    n, h, w, c = x.shape
+    code = _check(x, num_groups, "group_norm_silu split apply")
+    blocks, pixels = split_plan(h, w, c, x.element_size(), False)
+    x, sums = _aligned(x), sums.to(torch.float32).contiguous()
+    (gamma, sg), (beta, sb) = broadcast_rows(gamma, n, c), broadcast_rows(beta, n, c)
+    bias, sp = broadcast_rows(bias, n, c) if bias is not None else (None, 0)
+    y = torch.empty_like(x)
+    mean = torch.empty((n, num_groups), device=x.device, dtype=torch.float32)
+    inv = torch.empty_like(mean)
+    coef = torch.empty((n * 2 * c,), device=x.device, dtype=torch.float32)
+    status = _split_fn("fwd_apply", [_I] + [_VP] * 5 + [_VP, _I, _VP, _I, _VP, _I] + [_I] * 5
+                       + [_F, _I, _I, _VP, _VP])(
+        code, x.data_ptr(), y.data_ptr(), mean.data_ptr(), inv.data_ptr(), sums.data_ptr(),
+        gamma.data_ptr(), sg, beta.data_ptr(), sb, _ptr(bias), sp, n, h * w, pixels_total, c,
+        num_groups, float(eps), blocks, pixels, coef.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, "group_norm_silu split apply kernel launch")
+    _count_split(x, "apply")
+    return y, mean, inv
+
+
+def _launch_bwd_sums(x, dz, gamma, beta, bias, mean, inv, num_groups: int):
+    n, h, w, c = x.shape
+    code = _check(x, num_groups, "group_norm_silu split backward sums")
+    blocks, pixels = split_plan(h, w, c, x.element_size(), True)
+    x, dz = _aligned(x), _aligned(dz.to(x.dtype))
+    mean, inv = mean.to(torch.float32).contiguous(), inv.to(torch.float32).contiguous()
+    (gamma, sg), (beta, sb) = broadcast_rows(gamma, n, c), broadcast_rows(beta, n, c)
+    bias, sp = broadcast_rows(bias, n, c) if bias is not None else (None, 0)
+    f32 = dict(device=x.device, dtype=torch.float32)
+    sums = torch.empty((n, 2 * c), **f32)
+    part = torch.empty((n * blocks * 2 * c,), **f32)
+    status = _split_fn("bwd_sums", [_I] + [_VP] * 4 + [_VP, _I, _VP, _I, _VP, _I] + [_VP, _VP]
+                       + [_I] * 6 + [_VP])(
+        code, x.data_ptr(), dz.data_ptr(), mean.data_ptr(), inv.data_ptr(), gamma.data_ptr(),
+        sg, beta.data_ptr(), sb, _ptr(bias), sp, sums.data_ptr(), part.data_ptr(), n, h * w, c,
+        num_groups, blocks, pixels, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, "group_norm_silu split backward sums kernel launch")
+    _count_split(x, "bwd_sums")
+    return sums
+
+
+def _launch_bwd_dx(x, dz, gamma, beta, bias, mean, inv, sums, num_groups: int,
+                   pixels_total: int):
+    n, h, w, c = x.shape
+    code = _check(x, num_groups, "group_norm_silu split backward dx")
+    blocks, pixels = split_plan(h, w, c, x.element_size(), True)
+    x, dz = _aligned(x), _aligned(dz.to(x.dtype))
+    mean, inv = mean.to(torch.float32).contiguous(), inv.to(torch.float32).contiguous()
+    sums = sums.to(torch.float32).contiguous()
+    (gamma, sg), (beta, sb) = broadcast_rows(gamma, n, c), broadcast_rows(beta, n, c)
+    bias, sp = broadcast_rows(bias, n, c) if bias is not None else (None, 0)
+    dx = torch.empty_like(x)
+    f32 = dict(device=x.device, dtype=torch.float32)
+    dbias = torch.empty((n, c), **f32)
+    part2 = torch.empty((n * blocks * c,), **f32)
+    coef = torch.empty((n * 2 * c,), **f32)
+    status = _split_fn("bwd_dx", [_I] + [_VP] * 7 + [_VP, _I, _VP, _I, _VP, _I] + [_I] * 7
+                       + [_VP] * 3)(
+        code, x.data_ptr(), dz.data_ptr(), dx.data_ptr(), dbias.data_ptr(), mean.data_ptr(),
+        inv.data_ptr(), sums.data_ptr(), gamma.data_ptr(), sg, beta.data_ptr(), sb, _ptr(bias),
+        sp, n, h * w, pixels_total, c, num_groups, blocks, pixels, part2.data_ptr(),
+        coef.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, "group_norm_silu split backward dx kernel launch")
+    _count_split(x, "bwd_dx")
+    return dx, dbias
+
+
+def _split_where(x: torch.Tensor) -> str:
+    """"cpu" or "kernel" for an H-shard ``x``: a width outside
+    ``group_norm.cu``'s domain raises (no ``simt.cu`` split path)."""
+    where = route(x.device, x.dtype, "group_norm_silu")
+    if where == "kernel" and not kernel_takes(x.shape[-1]):
+        raise NotImplementedError(
+            f"group_norm_silu on an H-shard of the spatial mesh axis takes C % {VEC} == 0 and "
+            f"C <= {VEC * THREADS} (group_norm.cu's split entries), got C = {x.shape[-1]}; "
+            "simt.cu has no split statistics (ROADMAP A.11)")
+    return where
+
+
+def group_norm_silu_sums(x) -> torch.Tensor:
+    """(N, 2C) f32 Σx, Σx² of an H-shard ``x`` per (sample, channel): the
+    split entry ``fwd_sums`` on a CUDA tensor, :func:`gn_silu_sums_plain`
+    on a CPU one."""
+    if _split_where(x) == "kernel":
+        return _launch_sums(x)
+    return gn_silu_sums_plain(x)
+
+
+def group_norm_silu_apply(x, sums, gamma, beta, num_groups: int, pixels: int,
+                          eps: float = GN_EPS, pre_bias: Optional[torch.Tensor] = None):
+    """(y, mean, inv) of an H-shard ``x`` from the whole sample's (N, 2C)
+    sums over its ``pixels`` pixels: ``fwd_apply`` on a CUDA tensor,
+    :func:`gn_silu_apply_plain` on a CPU one."""
+    if _split_where(x) == "kernel":
+        return _launch_apply(x, sums, gamma, beta, pre_bias, num_groups, pixels, eps)
+    return gn_silu_apply_plain(x, sums, gamma, beta, pre_bias, num_groups, pixels, eps)
+
+
+def group_norm_silu_bwd_sums(x, dz, gamma, beta, pre_bias, mean, inv,
+                             num_groups: int) -> torch.Tensor:
+    """(N, 2C) f32 Σdy, Σdy·x̂ of an H-shard: ``bwd_sums`` on a CUDA
+    tensor, :func:`gn_silu_bwd_sums_plain` on a CPU one."""
+    if _split_where(x) == "kernel":
+        return _launch_bwd_sums(x, dz, gamma, beta, pre_bias, mean, inv, num_groups)
+    return gn_silu_bwd_sums_plain(x, dz, gamma, beta, pre_bias, mean, inv, num_groups)
+
+
+def group_norm_silu_bwd_dx(x, dz, gamma, beta, pre_bias, mean, inv, sums, num_groups: int,
+                           pixels: int):
+    """(dx, dbias) of an H-shard from the whole sample's (N, 2C) backward
+    sums: ``bwd_dx`` on a CUDA tensor, :func:`gn_silu_bwd_dx_plain` on a
+    CPU one."""
+    if _split_where(x) == "kernel":
+        return _launch_bwd_dx(x, dz, gamma, beta, pre_bias, mean, inv, sums, num_groups, pixels)
+    return gn_silu_bwd_dx_plain(x, dz, gamma, beta, pre_bias, mean, inv, sums, num_groups,
+                                pixels)
+
+
 def _where(x: torch.Tensor) -> str:
     """"cpu", "kernel" or "simt" for ``x``, from its device, dtype and width."""
     where = route(x.device, x.dtype, "group_norm_silu")
@@ -503,3 +741,42 @@ def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     ResBlock's additive conditioning). Output in x's dtype.
     """
     return GroupNormSiLU.apply(x, gamma, beta, pre_bias, num_groups, eps)
+
+
+class GroupNormSiLURows(torch.autograd.Function):
+    """:class:`GroupNormSiLU` on an H-shard of the ``spatial`` mesh axis
+    (``parallel/spatial.py``): the rank's channel sums, all-reduced over
+    the spatial group, then the rows normalized with the whole sample's
+    statistics; the backward likewise, its group means from the
+    all-reduced sums. dγ, dβ and dbias are the rows' partial sums (the
+    world all-reduce of whole leaves completes them)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, pre_bias, num_groups: int, eps: float, where):
+        pixels = x.shape[1] * where.size * x.shape[2]
+        sums = where.reduce_(group_norm_silu_sums(x))
+        y, mean, inv = group_norm_silu_apply(x, sums, gamma, beta, num_groups, pixels, eps,
+                                             pre_bias)
+        ctx.save_for_backward(x, gamma, beta, pre_bias, mean, inv)
+        ctx.num_groups, ctx.pixels, ctx.where = num_groups, pixels, where
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta, pre_bias, mean, inv = ctx.saved_tensors
+        c = x.shape[-1]
+        mine = group_norm_silu_bwd_sums(x, dy, gamma, beta, pre_bias, mean, inv, ctx.num_groups)
+        total = ctx.where.reduce_(mine.clone())
+        dx, dbias = group_norm_silu_bwd_dx(x, dy, gamma, beta, pre_bias, mean, inv, total,
+                                           ctx.num_groups, ctx.pixels)
+        return (dx, _grad_like(mine[:, c:], gamma), _grad_like(mine[:, :c], beta),
+                None if pre_bias is None else _grad_like(dbias, pre_bias), None, None, None)
+
+
+def group_norm_silu_rows(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                         num_groups: int, eps: float = GN_EPS,
+                         pre_bias: Optional[torch.Tensor] = None, *, where) -> torch.Tensor:
+    """:func:`group_norm_silu` of the whole sample on this rank's rows
+    ``x`` of it, ``where`` the ``parallel.spatial.SpatialGroup`` that holds
+    the other rows (:class:`GroupNormSiLURows`)."""
+    return GroupNormSiLURows.apply(x, gamma, beta, pre_bias, num_groups, eps, where)

@@ -1,5 +1,5 @@
 """Meshes, sharding and the train step (mirrors ``dmme_tpu.parallel``):
-data, fsdp, expert and tensor parallelism over ``torch.distributed``."""
+data, fsdp, expert, tensor and spatial parallelism over ``torch.distributed``."""
 
 from dmme_tpu_torch.parallel.distributed import global_batch, initialize, shutdown
 from dmme_tpu_torch.parallel.mesh import (
@@ -10,6 +10,7 @@ from dmme_tpu_torch.parallel.mesh import (
     replicated,
     state_sharding,
 )
+from dmme_tpu_torch.parallel.spatial import SpatialGroup
 from dmme_tpu_torch.parallel.train_step import (
     global_norm,
     make_eval_step,
@@ -35,4 +36,5 @@ __all__ = [
     "initialize",
     "global_batch",
     "shutdown",
+    "SpatialGroup",
 ]

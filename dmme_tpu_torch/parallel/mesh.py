@@ -31,13 +31,20 @@ axis sizes, and the collectives are written out (``parallel/train_step.py``):
   (``parallel/tensor.py``, ``models/blocks.py``). The split weights are
   never gathered for the forward. A leaf can carry ``tensor`` on its
   output axis and ``fsdp`` on another, and a MoE stack ``expert`` on E.
-* ``spatial``: not ported; a size above 1 raises naming ROADMAP A.11.
+* ``spatial``: spatial (sequence) parallelism for the UNet: the S ranks
+  of a spatial group share one batch slice, and each holds H/S rows of
+  every activation; the 3×3 convs exchange one halo row with each
+  neighbour and the GroupNorms all-reduce their statistics over the group
+  (``parallel/spatial.py``, ``models/blocks.py``). No leaf is ever split
+  on it. It does not compose with ``tensor`` or ``expert`` yet (ROADMAP
+  A.11).
 
-Rank r sits at (d, f, e, t) of the (data, fsdp, expert, tensor) grid,
-row-major, as JAX reshapes its device list, so a tensor group is T
-consecutive ranks. Its batch index is its (d, f, e) coordinate: it takes
-that slice of the global batch, which is split over data × fsdp × expert
-(the batch ranks), and draws as that batch rank. A spec
+Rank r sits at (d, f, e, t, s) of the (data, fsdp, expert, tensor,
+spatial) grid, row-major, as JAX reshapes its device list, so a tensor
+group is T consecutive ranks and a spatial group S. Its batch index is its
+(d, f, e) coordinate: it takes that slice of the global batch, which is
+split over data × fsdp × expert (the batch ranks), and draws as that batch
+rank. A spec
 is JAX's ``PartitionSpec`` as a tuple, in the port's layout: a mesh-axis
 name (or a tuple of them) or None per tensor axis, ``()`` for a whole
 (replicated) leaf.
@@ -101,6 +108,7 @@ class Mesh:
     fsdp_group: Any = None
     expert_group: Any = None
     tensor_group: Any = None
+    spatial_group: Any = None
     #: {axes: group} of every set of grid axes a split leaf's replicas
     #: differ along (:func:`replica_axes`), None as above
     replica_groups: Mapping[Tuple[str, ...], Any] = dataclasses.field(default_factory=dict)
@@ -127,6 +135,10 @@ class Mesh:
         return self.shape["tensor"]
 
     @property
+    def spatial(self) -> int:
+        return self.shape["spatial"]
+
+    @property
     def batch_ranks(self) -> int:
         """The ranks the batch is split over: data × fsdp × expert."""
         return self.shape["data"] * self.shape["fsdp"] * self.shape["expert"]
@@ -135,11 +147,11 @@ class Mesh:
     def batch_index(self) -> int:
         """This rank's place among the batch ranks, its (data, fsdp, expert)
         coordinate row-major: the slice of the global batch it takes and
-        the batch rank it draws as (its tensor group shares both)."""
-        return self.rank // self.shape["tensor"]
+        the batch rank it draws as (its tensor and spatial groups share both)."""
+        return self.rank // (self.shape["tensor"] * self.shape["spatial"])
 
     def index(self, axis: str) -> int:
-        """This rank's coordinate along ``axis`` (``data``, ``fsdp``, ``expert`` or ``tensor``)."""
+        """This rank's coordinate along ``axis`` (a name of :data:`GRID`)."""
         return _coords(self.shape, self.rank)[axis]
 
     @property
@@ -187,19 +199,24 @@ def make_mesh(devices: Optional[Sequence[int]] = None, data: int = -1, fsdp: int
 
 
 def require_ported(shape: Mapping[str, int]) -> None:
-    """Raise for a ``spatial`` axis above 1."""
-    if shape.get("spatial", 1) > 1:
+    """Raise for a ``spatial`` axis above 1 composed with ``tensor`` or
+    ``expert`` above 1 (not ported yet)."""
+    spatial = shape.get("spatial", 1)
+    others = {a: shape.get(a, 1) for a in ("tensor", "expert") if shape.get(a, 1) > 1}
+    if spatial > 1 and others:
+        with_ = ", ".join(f"{a}={n}" for a, n in others.items())
         raise NotImplementedError(
-            f"mesh axis spatial={shape['spatial']} is not ported yet (ROADMAP A.11, "
-            "distribution): the port shards the data, fsdp, expert and tensor axes")
+            f"mesh axis spatial={spatial} composed with {with_} is not ported yet (ROADMAP "
+            "A.11, distribution): the spatial axis composes with data and fsdp only")
 
 
-#: the axes of the grid a rank sits on, row-major (tensor innermost)
-GRID = ("data", "fsdp", "expert", "tensor")
-#: the axes that split leaves
+#: the axes of the grid a rank sits on, row-major (spatial innermost)
+GRID = ("data", "fsdp", "expert", "tensor", "spatial")
+#: the axes that split leaves (``spatial`` splits activations only)
 SPLITTING = ("fsdp", "expert", "tensor")
 #: {Mesh field: the axes along which its ranks differ}
-GROUPS = {"fsdp_group": ("fsdp",), "expert_group": ("expert",), "tensor_group": ("tensor",)}
+GROUPS = {"fsdp_group": ("fsdp",), "expert_group": ("expert",), "tensor_group": ("tensor",),
+          "spatial_group": ("spatial",)}
 
 
 def replica_axes(split: Sequence[str]) -> Tuple[str, ...]:
@@ -213,7 +230,7 @@ def _varying(shape: Mapping[str, int], axes: Sequence[str]) -> Tuple[str, ...]:
 
 
 def _coords(shape: Mapping[str, int], rank: int) -> Dict[str, int]:
-    """``rank``'s (data, fsdp, expert, tensor) coordinates, row-major."""
+    """``rank``'s coordinates on :data:`GRID`, row-major."""
     out = {}
     for axis in reversed(GRID):
         rank, out[axis] = divmod(rank, shape[axis])
@@ -256,12 +273,26 @@ def _groups(shape: Mapping[str, int], rank: int, backend: str) -> dict:
 
 def batch_sharding(mesh: Mesh, chunked: bool = False, ndim: Optional[int] = None,
                    shape: Optional[Sequence[int]] = None) -> tuple:
-    """The batch axis split over data × fsdp, and × expert where that axis
-    is above 1, as JAX's (axis 1 of ``chunked`` (steps, batch, …) inputs).
-    ``ndim`` and ``shape`` are JAX's, for its ``spatial`` axis, which the
-    port does not shard."""
-    axes = ("data", "fsdp", "expert") if mesh.shape.get("expert", 1) > 1 else ("data", "fsdp")
-    return ((None,) if chunked else ()) + (axes,)
+    """JAX's spec of a batch leaf: the batch axis split over data × fsdp,
+    and × expert where that axis is above 1 (axis 1 of ``chunked`` (steps,
+    batch, …) inputs); with a ``spatial`` axis above 1, the H axis of an
+    image leaf split over it too. ``shape`` tells an image leaf by JAX's
+    gate: trailing (H, W, C) with C ≤ 16, H divisible by the spatial size
+    and at least two rows a shard; ``ndim`` alone (JAX's legacy form) by
+    its rank. The port's step takes whole images on each rank of a spatial
+    group and splits the rows inside the model (``parallel/spatial.py``)."""
+    spec = ((None,) if chunked else ()) + (
+        ("data", "fsdp", "expert") if mesh.shape.get("expert", 1) > 1 else ("data", "fsdp"),)
+    spatial = mesh.shape.get("spatial", 1)
+    if spatial > 1:
+        if shape is not None:
+            image = (len(shape) >= len(spec) + 3 and shape[-1] <= 16
+                     and shape[-3] % spatial == 0 and shape[-3] >= 2 * spatial)
+        else:
+            image = ndim is not None and ndim >= len(spec) + 3
+        if image:
+            spec = spec + ("spatial",)
+    return spec
 
 
 def replicated(mesh: Mesh) -> tuple:

@@ -22,10 +22,15 @@ on channel shards (``parallel/tensor.py``); a split kernel's gradient is its sha
 whole gradient, summed over its replicas only, and a whole leaf's is a
 partial sum over the tensor group, which the world all-reduce completes;
 the loss, alike on the T ranks of a group, is divided by T before that
-all-reduce. The clip's norm counts each distinct shard once. A rank cannot
-draw dropout or router noise over the global batch as JAX's one program
-does, so batch rank r of R (``Mesh.batch_index``, shared by a tensor
-group) draws as microbatch r of an accumulated step
+all-reduce. ``spatial``: the UNet runs on the rank's rows of each
+activation (``parallel/spatial.py``); no leaf is split on it, so every
+gradient is a partial sum over the spatial group that the same
+all-reduces complete (a split leaf's replicas include the spatial ranks),
+and the loss is divided by S as by T. The clip's norm counts each
+distinct shard once. A rank cannot draw dropout or router noise over the
+global batch as JAX's one program does, so batch rank r of R
+(``Mesh.batch_index``, shared by a tensor group and by a spatial group)
+draws as microbatch r of an accumulated step
 (:func:`microbatch_generators`), and routes its own tokens as one routing
 group: R batch ranks at global batch B compute what one process computes
 at batch B/R with ``accumulate_grad_batches=R``.
@@ -42,6 +47,7 @@ from dmme_tpu_torch.models.moe import ExpertGroup, place_experts
 from dmme_tpu_torch.parallel.mesh import (broadcast_, expert_axes, flat_all_reduce,
                                           gather_leaves, replica_axes, scatter_leaves, shard_of,
                                           split_axes, tensor_axes)
+from dmme_tpu_torch.parallel.spatial import SpatialGroup
 from dmme_tpu_torch.parallel.tensor import TensorGroup
 
 LossFn = Callable[[Dict[str, torch.Tensor], torch.Generator, Any], torch.Tensor]
@@ -116,7 +122,8 @@ def reduce_gradients(mesh, loss: torch.Tensor, grads: Dict[str, torch.Tensor],
                      split: Dict[str, Dict[str, int]]):
     """The global batch's loss and gradients from this rank's, all divided
     by the batch ranks: every whole leaf and the loss (divided by the
-    tensor size first: a tensor group's ranks compute it alike) all-reduced
+    tensor and spatial sizes first: the ranks of such a group compute it
+    alike) all-reduced
     over the world in flat buckets (in place); every fsdp-split leaf
     reduce-scattered over the fsdp group; then each split leaf summed over
     the replicas of its shard (an expert shard's gradient already holds its
@@ -125,7 +132,7 @@ def reduce_gradients(mesh, loss: torch.Tensor, grads: Dict[str, torch.Tensor],
     (``TrainState.split``). Returns (loss, grads) with the fsdp leaves as
     this rank's shards."""
     ranks = float(mesh.batch_ranks)
-    loss = loss.reshape(1) / mesh.tensor
+    loss = loss.reshape(1) / (mesh.tensor * mesh.spatial)
     flat_all_reduce([g for k, g in grads.items() if not _splitting(k, split)] + [loss],
                     divisor=ranks)
     if split["fsdp"]:
@@ -220,8 +227,9 @@ def shard_state(state, mesh, min_weight_size: Optional[int] = None, model=None):
     shard of that (:func:`~dmme_tpu_torch.parallel.mesh.split_axes`;
     ``min_weight_size`` defaults to the mesh's). ``model``: the module the
     params bind to, whose MoE layers learn where their experts live and
-    whose UNet or DiT learns its ``TensorGroup`` (an expert mesh that splits
-    a stack, and any tensor mesh, need it; a model without a tensor-parallel
+    whose UNet or DiT learns its ``TensorGroup``, and whose UNet its
+    ``SpatialGroup`` (an expert mesh that splits a stack, and any tensor or
+    spatial mesh, need it; a model without a tensor-parallel or an H-split
     forward raises there, before the state changes). Returns the state."""
     experts = expert_axes(state.params, mesh, min_weight_size)
     tensors = tensor_axes(state.params, mesh, min_weight_size)
@@ -230,12 +238,23 @@ def shard_state(state, mesh, min_weight_size: Optional[int] = None, model=None):
         raise ValueError(f"the {'expert' if experts else 'tensor'} axis splits "
                          f"{len(experts or tensors)} leaves: pass the model (shard_state(..., "
                          "model=)) so that its layers learn where their shards live")
+    if mesh.spatial > 1 and not hasattr(model, "place_spatial"):
+        raise NotImplementedError(
+            f"mesh axis spatial={mesh.spatial}: {type(model).__name__} has no H-split forward "
+            "yet (the UNet has one; ADM's UNetModel, the noisy classifier's EncoderUNet, the "
+            "codec's ConvVAE, the DiT and the MoE-DiT have none; ROADMAP A.11, distribution)")
     if mesh.tensor > 1 and not hasattr(model, "place_tensor"):
         raise NotImplementedError(
             f"mesh axis tensor={mesh.tensor}: {type(model).__name__} has no tensor-parallel "
             "forward yet (ADM's UNetModel, the noisy classifier's EncoderUNet and the codec's "
             "ConvVAE have none; ROADMAP A.11, distribution)")
     if model is not None:
+        if mesh.spatial > 1:
+            model.place_spatial(SpatialGroup(mesh.spatial_group, mesh.spatial,
+                                             mesh.index("spatial")))
+            if mesh.rank == 0:
+                print(f"[shard_state] activations split along H over {mesh.spatial} spatial "
+                      f"ranks; halos and statistics over {mesh.backend}", flush=True)
         if mesh.tensor > 1:
             model.place_tensor(TensorGroup(mesh.tensor_group, mesh.tensor,
                                            mesh.index("tensor")), tensors)

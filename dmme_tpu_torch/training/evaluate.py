@@ -117,7 +117,7 @@ def test(lit, datamodule, *, ckpt_dir: Optional[str] = None, ckpt_step: Optional
     pytorch-fid's ``.npz``, which skips the real pass; ``save_fid_stats``
     writes this run's (rank 0 on a mesh). ``device=None`` means the CUDA
     device; ``mesh`` (``parallel.make_mesh``) splits the batches over all
-    its ranks (a tensor group's too), on the mesh's device, with the
+    its ranks (a tensor or spatial group's too), on the mesh's device, with the
     weights whole on every rank."""
     from dmme_tpu_torch.diffusion.factory import make_sampler
     from dmme_tpu_torch.eval import FrechetInceptionDistance, InceptionScore, make_feature_fn

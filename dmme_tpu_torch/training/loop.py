@@ -18,9 +18,10 @@ inside a step saves nothing.
 
 On a mesh (``parallel.make_mesh``) every rank runs this loop: the state is
 laid out with ``shard_state`` (which also tells the model's MoE layers
-where their experts live on an ``expert`` axis, and a UNet or a DiT its
-tensor group on a ``tensor`` axis), each rank feeds the slice of the
-global batch of its batch index, which a tensor group shares
+where their experts live on an ``expert`` axis, a UNet or a DiT its
+tensor group on a ``tensor`` axis, and a UNet its spatial group on a
+``spatial`` axis), each rank feeds the slice of the global batch of its
+batch index, which a tensor or spatial group shares
 (``train_iter(process_index=, process_count=)``), the train step
 reduces over the ranks, and at each safe point the ranks vote on stopping
 (one small all-reduce), so a signal to one rank stops all of them at the

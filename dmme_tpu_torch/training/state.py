@@ -4,7 +4,8 @@
 settings beside them, and, after ``parallel.shard_state``, the mesh and the
 axis each split leaf is split along, on the ``fsdp``, ``expert`` and
 ``tensor`` mesh axes: its parameters, EMA and moments are then this rank's
-shards (:meth:`TrainState.whole` gathers them). JAX
+shards (:meth:`TrainState.whole` gathers them); the ``spatial`` axis splits
+no leaf, so on it every rank holds the whole state. JAX
 returns a new state from each step and donates the old one; here the step
 updates the tensors in place, under
 ``torch.no_grad()``. An in-place update bumps each tensor's version

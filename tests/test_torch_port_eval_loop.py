@@ -187,8 +187,9 @@ def test_test_samples_the_full_grid_of_an_iddpm_with_sample_steps(monkeypatch):
 
 
 def _unported_mesh():
-    """A two-rank mesh with a ``spatial`` axis, built by hand (no process group)."""
-    return Mesh(shape=mesh_shape(2, spatial=2), rank=0, device=torch.device("cpu"),
+    """A four-rank mesh with a ``spatial`` axis composed with ``tensor``,
+    built by hand (no process group)."""
+    return Mesh(shape=mesh_shape(4, tensor=2, spatial=2), rank=0, device=torch.device("cpu"),
                 backend="gloo")
 
 
@@ -211,7 +212,7 @@ def _guard_cases():
         ("deep_dpm", dict(ddim, sampler="deep_dpm"), ValueError,
          "unknown sampler 'deep_dpm' (ddim|dpm|edm|unipc|flow)"),
         ("mesh", dict(ddim, mesh=_unported_mesh()), NotImplementedError,
-         "mesh axis spatial=2 is not ported yet (ROADMAP A.11"),
+         "mesh axis spatial=2 composed with tensor=2 is not ported yet (ROADMAP A.11"),
     ]
 
 
@@ -273,7 +274,7 @@ def test_trainer_test_runbook_chain(twin, tmp_path, capsys):
     _close(second["fid"], first["fid"], METRIC_RTOL)
     with pytest.raises(ValueError, match=r"unknown sampler 'cached' \(ddim\|dpm\|edm"):
         main(["test", "--config", str(cfg), "--trainer.sampler", "cached"], device="cpu")
-    with pytest.raises(NotImplementedError, match=r"mesh axis spatial=2 .*A\.11"):
+    with pytest.raises(AssertionError, match=r"\(1, 1, 1, 1, 2\)"):  # spatial is ported
         main(["test", "--config", str(cfg), "--trainer.mesh.spatial", "2"], device="cpu")
     with pytest.raises(AssertionError, match=r"\(1, 1, 2, 1, 1\)"):  # expert is ported
         main(["test", "--config", str(cfg), "--trainer.mesh.expert", "2"], device="cpu")

@@ -1,8 +1,8 @@
 """The port's mesh layer against the JAX package's, in this process.
 
 Mesh sizes and their assertions against ``dmme_tpu.parallel.make_mesh``
-over the tests' 8 virtual CPU devices; the refusal of the ``spatial``
-axis (ROADMAP A.11); the fsdp split-or-whole
+over the tests' 8 virtual CPU devices, and each parallel axis on one
+process (JAX's size assertion; ROADMAP A.11); the fsdp split-or-whole
 decision and its axis for every leaf of the TINY and the CIFAR-10 UNet
 against JAX's ``fsdp_param_spec`` through the layout permutation (HWIO →
 OIHW, (in, out) → (out, in)); the statistics merges against JAX's ``psum``
@@ -85,20 +85,17 @@ def test_mesh_size_errors_match_jax(n, axes):
 
 @pytest.mark.parametrize("axis", ["tensor", "spatial", "expert"])
 def test_unported_axes_raise_naming_a11(axis):
-    """``spatial`` raises before any process group is made; ``expert`` and
-    ``tensor`` are ported, and on one process raise JAX's size assertion
-    and leave no group behind."""
-    if axis != "spatial":
-        with pytest.raises(AssertionError) as want:
-            jax_make_mesh(jax.devices()[:1], **{axis: 2})
-        with pytest.raises(AssertionError) as got:
-            parallel.make_mesh(device="cpu", **{axis: 2})
-        assert got.value.args == want.value.args
-        assert got.value.args == (((1, 1, 2, 1, 1) if axis == "expert" else (1, 1, 1, 2, 1)),)
-    else:
-        with pytest.raises(NotImplementedError,
-                           match=rf"mesh axis {axis}=2 is not ported yet \(ROADMAP A\.11"):
-            parallel.make_mesh(device="cpu", **{axis: 2})
+    """``expert``, ``tensor`` and ``spatial`` are ported (A.11), and on one
+    process raise JAX's size assertion and leave no group behind
+    (``spatial`` composed with ``tensor`` or ``expert`` still raises naming
+    A.11: tests/test_torch_port_spatial.py)."""
+    with pytest.raises(AssertionError) as want:
+        jax_make_mesh(jax.devices()[:1], **{axis: 2})
+    with pytest.raises(AssertionError) as got:
+        parallel.make_mesh(device="cpu", **{axis: 2})
+    assert got.value.args == want.value.args
+    assert got.value.args == ({"expert": (1, 1, 2, 1, 1), "tensor": (1, 1, 1, 2, 1),
+                               "spatial": (1, 1, 1, 1, 2)}[axis],)
     assert not dist.is_initialized()
 
 

@@ -293,8 +293,8 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=Mesh(shape=mesh_shape(2, spatial=2), rank=0, device=torch.device("cpu"),
-                    backend="gloo")), "A.11"),
+    (dict(mesh=Mesh(shape=mesh_shape(4, tensor=2, spatial=2), rank=0,
+                    device=torch.device("cpu"), backend="gloo")), "A.11"),
 ])
 def test_fit_arguments_not_ported_raise(kwargs, item):
     lit = LitDDPM(model=t_ddpm.UNet(**TINY), timesteps=T)
