@@ -24,9 +24,10 @@ if the package is missing, or if any phase fails. Phases:
    K3, SDPA; beside K4, the same ResBlock as a cuDNN sequence
    (``cudnn_seq_ms``), which the port never calls; then the split K1/K2
    entries of the ``spatial`` axis at every K1 site of an LSUN microbatch
-   (bf16) and one fp16 and f32 shape, a sample's two halves' sums added on
-   the card, against their plain versions and the one-call K1/K2, timed on
-   a half;
+   (bf16), at each site's channel shard of a tensor rank (C/2 channels in
+   G/2 groups) and at one fp16 and f32 shape, a sample's two halves' sums
+   added on the card, against their plain versions and the one-call K1/K2,
+   timed on a half;
 4. unet    — the full-width UNet forward on the card in bf16 under both switch
    settings against the same module and weights on the CPU in f32; then one
    forward at the LSUN widths (``configs/ddpm/lsun_*.yaml``: channels
@@ -381,12 +382,33 @@ if the package is missing, or if any phase fails. Phases:
    split entries and K3 held against their plain versions on each rank's
    own inputs; each rank's peak memory below the one process's; its halo
    exchanges and statistics all-reduces a microbatch counted and its
-   largest halo exchange timed;
+   largest halo exchange timed (the tensor rank's peak is read too);
 50. two-rank test — in the same launch, ``trainer.main test`` of
    configs/ddim/cifar10.yaml from phase 46's run with
    ``--trainer.mesh.data 2``, one test batch a rank: phase 46's FID and IS
    (the relative differences printed), each rank one batch's launches;
-51. the kernel table as one JSON line, the card's name and power limit, then
+51. four ranks on one card — ``python -m torch.distributed.run
+   --standalone --nproc_per_node 4 chip_smoke.py --quad-worker DIR`` (gloo
+   on CUDA tensors), on phase 49's files: ``trainer.main fit`` of
+   configs/ddpm/lsun_church.yaml as the tensor fit runs it, with
+   ``--trainer.mesh "{data: -1, tensor: 2, spatial: 2}"`` (each rank H/2
+   rows of C/2 channels of every activation): the losses, grad norms and
+   first gradient held against the tensor fit's one process, the two ranks
+   of each spatial group bitwise equal, the checkpoint restored without a
+   mesh bitwise the gathered state, each rank holding 782,362,672 B in 140
+   split kernels; each rank's launches the split K1/K2 entries at the
+   spatial rank's call sites with C halved and the one process's counts, K3
+   at its sites, nothing else; the split entries and K3 held against their
+   plain versions on each rank's inputs; the group collectives a
+   microbatch, a rank's step, the largest halo and channel all-gather
+   timed, the peak beside the spatial and tensor ranks'. Then
+   ``trainer.main fit`` of configs/ddpm/cifar10.yaml (global batch 128,
+   synthetic data, 3 steps) with ``--trainer.mesh "{data: -1, expert: 2,
+   spatial: 2}"``: its parameters and EMA within 1e-5 (relative L2) of
+   phase 49's one process at batch 64 accumulating 2, every rank bitwise
+   equal and the checkpoint theirs, each rank a batch-64 step's launches on
+   the split entries;
+52. the kernel table as one JSON line, the card's name and power limit, then
    ``{"ok": true, "device": ...}``.
 
 ``--out`` also writes every measurement to a JSON file. ``--kernels-only``
@@ -2102,9 +2124,9 @@ def _dropout_masks(blocks, model, record: dict, replay: bool):
             blk.forward = fwd
             patched.append((blk, "forward"))
         else:
-            def std(x, emb, mask, _b=blk, _n=name):
+            def std(x, emb, mask, whole=None, spatial=None, _b=blk, _n=name):
                 record[_n] = mask.cpu()
-                return type(_b)._standard(_b, x, emb, mask)
+                return type(_b)._standard(_b, x, emb, mask, whole, spatial)
             blk._standard = std
             patched.append((blk, "_standard"))
 
@@ -6631,6 +6653,31 @@ def k3_held(torch, k_attn, calls) -> float:
     return worst
 
 
+@contextlib.contextmanager
+def holding(training, held: dict):
+    """While open, ``training.fit`` leaves in ``held`` what a command's fit
+    leaves its rank holding: the bytes of its parameters, EMA and moments
+    and its fsdp-split leaves, and the state itself where the mesh splits a
+    leaf on ``expert`` or ``tensor`` or has a ``spatial`` axis (then the
+    harness and the data too)."""
+    fit = training.fit
+
+    def holding_fit(*args, **kwargs):
+        state = fit(*args, **kwargs)
+        held.update(state_bytes=state_bytes(state), split_leaves=len(state.shard_axes))
+        if state.expert_axes or state.tensor_axes:
+            held["state"] = state
+        if state.mesh and state.mesh.spatial > 1:
+            held.update(state=state, lit=args[0], datamodule=args[1])
+        return state
+
+    training.fit = holding_fit
+    try:
+        yield held
+    finally:
+        training.fit = fit
+
+
 def rank_worker(out: str, eval_root: str, pth: str) -> int:
     """One rank of phases 49 and 50 under ``python -m torch.distributed.run
     --standalone --nproc_per_node 2 chip_smoke.py --rank-worker DIR``: the
@@ -6666,19 +6713,7 @@ def rank_worker(out: str, eval_root: str, pth: str) -> int:
     dev = initialize()
     rank = dist.get_rank()
     rec = {"rank": rank, "backend": dist.get_backend(), "device": str(dev)}
-    fit, held = training.fit, {}
-
-    def holding_fit(*args, **kwargs):  # what the command's fit leaves each rank holding
-        state = fit(*args, **kwargs)
-        held.update(state_bytes=state_bytes(state), split_leaves=len(state.shard_axes))
-        if state.expert_axes or state.tensor_axes:
-            held["state"] = state
-        if state.mesh and state.mesh.spatial > 1:  # the harness and data too
-            held.update(state=state, lit=args[0], datamodule=args[1])
-        return state
-
-    training.fit = holding_fit
-    try:
+    with holding(training, {}) as held:
         for kind, axis in (("data", "--trainer.mesh.data"), ("fsdp", "--trainer.mesh.fsdp")):
             reset_counts(ops)
             torch.cuda.synchronize()
@@ -6709,19 +6744,22 @@ def rank_worker(out: str, eval_root: str, pth: str) -> int:
         del state, whole, first
         torch.cuda.empty_cache()
         # the tensor axis: the LSUN UNet column-split over both ranks, its
-        # first reduced gradient, its gathered state and the call sites of
-        # K1, K2 and K3 on the shards kept for the checks in the parent
-        first = {}
+        # first reduced gradient, its gathered state, its peak and the call
+        # sites of K1, K2 and K3 on the shards kept for the checks in the parent
+        first, peaks = {}, {}
         with drawn_init(torch), first_gradients(torch, first):
             reset_counts(ops)
             torch.cuda.synchronize()
             t0 = time.time()
-            calls = record_calls(train_targets(blocks, k_gn, k_attn), lambda: cli(
-                _tensor_fit_argv(os.path.join(out, "tensor"), "--trainer.mesh", TENSOR_MESH)))
+            with step_peaks(torch, peaks):
+                calls = record_calls(train_targets(blocks, k_gn, k_attn), lambda: cli(
+                    _tensor_fit_argv(os.path.join(out, "tensor"), "--trainer.mesh",
+                                     TENSOR_MESH)), inputs=False)
             torch.cuda.synchronize()
             state = held.pop("state")
             rec["tensor"] = dict(held, wall_s=time.time() - t0, launches=counts(ops),
                                  wide=wide_counts(), split_leaves=len(state.tensor_axes),
+                                 peak_bytes=peaks["fwd_bwd"],
                                  sites={kind: {repr(key): n for key, n, _, _ in v}
                                         for kind, v in calls.items()})
         del calls
@@ -6737,8 +6775,6 @@ def rank_worker(out: str, eval_root: str, pth: str) -> int:
         # batches and draws, the tensor fit's one process its reference
         rec["spatial"] = spatial_fit(torch, blocks, k_gn, k_attn, ops, cli, held, out, dev, rank)
         rec.update(dit_tensor_fits(torch, k_attn, ops, cli, held, out, dev, rank))
-    finally:
-        training.fit = fit
     rec["timing"] = dist_timing(torch, dev)
     rec["timing"]["expert"] = expert_timing(torch, dev)
     rec["timing"]["tensor"] = tensor_timing(torch, dev)
@@ -6773,6 +6809,21 @@ SPLIT_KERNEL = {"sums": "group_norm_silu", "apply": "group_norm_silu",
 #: lsun_church levels: (N, H, W, C) of a whole sample, split in two along H
 SPLIT_WIDE_SHAPE = (2, 32, 32, 256)
 SPLIT_GROUPS = 32
+# the spatial axis composed (A.11): four ranks sharing the card, launched
+# after the two-rank phase on its files under DIST_ROOT. The UNet of
+# LSUN_CONFIG on COMPOSED_MESH (spatial groups {0, 1} and {2, 3}, tensor
+# groups {0, 2} and {1, 3}: one batch slice), against the tensor fit's one
+# process; the UNet of DIST_CONFIG on EXPERT_SPATIAL_MESH (the expert axis
+# splits no UNet leaf: two batch ranks of two spatial ranks), against the
+# data fit's one process accumulating 2
+QUAD_RANKS = 4
+COMPOSED_MESH = "{data: -1, tensor: 2, spatial: 2}"
+EXPERT_SPATIAL_MESH = "{data: -1, expert: 2, spatial: 2}"
+#: the expert x spatial run's saved parameters and EMA against the one
+#: process's, relative L2
+EXPERT_SPATIAL_REL = 1e-5
+#: seconds the four-rank launch may take before its process group is killed
+QUAD_TIMEOUT = 420
 
 
 def split_counters(k_gn) -> dict:
@@ -6838,21 +6889,27 @@ def _plain_apply(k_gn):
 def split_kernels(torch, blocks, k_gn, dev, card: str) -> dict:
     """Phase 3's split entries (the spatial axis's K1 and K2 on H-shards):
     at every K1 site of an ``LSUN_CONFIG`` microbatch at batch 2 in bf16,
-    and at ``SPLIT_WIDE_SHAPE`` in fp16 and f32, a sample's rows split in
-    two: ``sums`` on each half, the two added on the card, ``apply`` on
-    each half; K2's pair likewise from K1's statistics. Each held against
-    its plain version and against the one-call K1/K2 on the whole tensor
-    under ``TOL`` (``_gn_errors``), each entry's counter moved twice a case
-    and the others not, repeat-identical bytes; the bf16 entries timed on a
-    half (a rank's shard) beside their plain versions and bounds.
+    at each such site's channel shard of a tensor rank (C/2 channels in G/2
+    groups: a composed rank's shard, split in two along H), and at
+    ``SPLIT_WIDE_SHAPE`` in fp16 and f32, a sample's rows split in two:
+    ``sums`` on each half, the two added on the card, ``apply`` on each
+    half; K2's pair likewise from K1's statistics. Each held against its
+    plain version and against the one-call K1/K2 on the whole tensor under
+    ``TOL`` (``_gn_errors``), each entry's counter moved twice a case and
+    the others not, repeat-identical bytes; the bf16 entries timed on a
+    half (a rank's shard) beside their plain versions and bounds, once a
+    shard shape and group count (with its pre-bias where it has one).
     Returns {"rows": one a case and entry}."""
     F = torch.float32
     sites = lsun_gn_sites(torch, blocks)
-    cases = [(shape, pre, torch.bfloat16) for shape, pre in sites]
-    cases += [(SPLIT_WIDE_SHAPE, True, dt) for dt in (torch.float16, torch.float32)]
+    cases = [(shape, pre, torch.bfloat16, SPLIT_GROUPS) for shape, pre in sites]
+    cases += [((*shape[:3], shape[3] // DIST_RANKS), pre, torch.bfloat16,
+               SPLIT_GROUPS // DIST_RANKS) for shape, pre in sites]
+    cases += [(SPLIT_WIDE_SHAPE, True, dt, SPLIT_GROUPS) for dt in (torch.float16, torch.float32)]
+    with_pre = {(shape, groups) for shape, pre, _, groups in cases if pre}
     counters = split_counters(k_gn)
     rows, failures = [], []
-    for shape, pre, dt in cases:
+    for shape, pre, dt, groups in cases:
         g = torch.Generator(device=dev).manual_seed(SEED + shape[1] + shape[3])
         n, h, w, c = shape
         x = torch.randn(shape, generator=g, device=dev).to(dt)
@@ -6869,28 +6926,28 @@ def split_kernels(torch, blocks, k_gn, dev, card: str) -> dict:
 
             def fwd(sums_fn, apply_fn):
                 s = sums_fn(halves[0]) + sums_fn(halves[1])
-                outs = [apply_fn(t, s, gamma, beta, SPLIT_GROUPS, pixels, k_gn.GN_EPS, bias)
+                outs = [apply_fn(t, s, gamma, beta, groups, pixels, k_gn.GN_EPS, bias)
                         for t in halves]
                 return (torch.cat([o[0] for o in outs], 1), outs[0][1], outs[0][2]), outs
 
             def bwd(sums_fn, dx_fn, mean, inv):
-                mine = [sums_fn(t, d, gamma, beta, bias, mean, inv, SPLIT_GROUPS)
+                mine = [sums_fn(t, d, gamma, beta, bias, mean, inv, groups)
                         for t, d in zip(halves, dzs)]
                 total = mine[0] + mine[1]
-                outs = [dx_fn(t, d, gamma, beta, bias, mean, inv, total, SPLIT_GROUPS, pixels)
+                outs = [dx_fn(t, d, gamma, beta, bias, mean, inv, total, groups, pixels)
                         for t, d in zip(halves, dzs)]
                 return (torch.cat([o[0] for o in outs], 1), total[:, c:], total[:, :c],
                         outs[0][1] + outs[1][1])
 
             got, outs = fwd(k_gn.group_norm_silu_sums, k_gn.group_norm_silu_apply)
             want_plain, _ = fwd(k_gn.gn_silu_sums_plain, _plain_apply(k_gn))
-            one = k_gn.group_norm_silu_fwd(x, gamma, beta, SPLIT_GROUPS, k_gn.GN_EPS, bias)
+            one = k_gn.group_norm_silu_fwd(x, gamma, beta, groups, k_gn.GN_EPS, bias)
             same_stats = bool(torch.equal(outs[0][1], outs[1][1])
                               and torch.equal(outs[0][2], outs[1][2]))
             mean, inv = one[1], one[2]
             gotb = bwd(k_gn.group_norm_silu_bwd_sums, k_gn.group_norm_silu_bwd_dx, mean, inv)
             want_plain_b = bwd(k_gn.gn_silu_bwd_sums_plain, k_gn.gn_silu_bwd_dx_plain, mean, inv)
-            one_b = k_gn.group_norm_silu_bwd(x, dz, gamma, beta, bias, mean, inv, SPLIT_GROUPS)
+            one_b = k_gn.group_norm_silu_bwd(x, dz, gamma, beta, bias, mean, inv, groups)
             again = fwd(k_gn.group_norm_silu_sums, k_gn.group_norm_silu_apply)[0]
             againb = bwd(k_gn.group_norm_silu_bwd_sums, k_gn.group_norm_silu_bwd_dx, mean, inv)
             torch.cuda.synchronize()
@@ -6904,38 +6961,38 @@ def split_kernels(torch, blocks, k_gn, dev, card: str) -> dict:
         same = all(bool(torch.equal(a, b)) for a, b in zip(got + gotb, again + againb))
         ok = (ok_plain and ok_one and okb_plain and okb_one and same and same_stats
               and moved == want_moved)
-        key = f"{tuple(shape)} {str(dt)[6:]} pre_bias {pre}"
+        key = f"{tuple(shape)} {str(dt)[6:]} G {groups} pre_bias {pre}"
         print(f"split K1/K2 at {key}: K1 pair max_abs {e_plain:.3e} vs plain, {e_one:.3e} vs "
               f"one-call K1; K2 pair {eb_plain:.3e} vs plain, {eb_one:.3e} vs one-call K2; "
               f"repeat {'identical' if same else 'DIFFERENT'}; counters {moved}"
               + ("" if ok else "  FAIL"), flush=True)
         if not ok:
             failures.append(key)
-        row = {"shape": list(shape), "dtype": str(dt), "pre_bias": pre,
+        row = {"shape": list(shape), "groups": groups, "dtype": str(dt), "pre_bias": pre,
                "max_abs_err": max(e_plain, e_one, eb_plain, eb_one), "ok": ok}
-        if dt == torch.bfloat16 and (pre or (shape, True) not in sites):
+        if dt == torch.bfloat16 and (pre or (shape, groups) not in with_pre):
             # each entry timed on a half (a rank's shard), once a shard shape
             t, d = halves[0], dzs[0]
             s = k_gn.group_norm_silu_sums(halves[0]) + k_gn.group_norm_silu_sums(halves[1])
-            sb = k_gn.group_norm_silu_bwd_sums(t, d, gamma, beta, bias, mean, inv, SPLIT_GROUPS)
+            sb = k_gn.group_norm_silu_bwd_sums(t, d, gamma, beta, bias, mean, inv, groups)
             calls = {
                 "sums": (lambda: k_gn.group_norm_silu_sums(t),
                          lambda: k_gn.gn_silu_sums_plain(t)),
-                "apply": (lambda: k_gn.group_norm_silu_apply(t, s, gamma, beta, SPLIT_GROUPS,
+                "apply": (lambda: k_gn.group_norm_silu_apply(t, s, gamma, beta, groups,
                                                              pixels, k_gn.GN_EPS, bias),
-                          lambda: _plain_apply(k_gn)(t, s, gamma, beta, SPLIT_GROUPS, pixels,
+                          lambda: _plain_apply(k_gn)(t, s, gamma, beta, groups, pixels,
                                                      k_gn.GN_EPS, bias)),
                 "bwd_sums": (lambda: k_gn.group_norm_silu_bwd_sums(
-                    t, d, gamma, beta, bias, mean, inv, SPLIT_GROUPS),
+                    t, d, gamma, beta, bias, mean, inv, groups),
                     lambda: k_gn.gn_silu_bwd_sums_plain(t, d, gamma, beta, bias, mean, inv,
-                                                        SPLIT_GROUPS)),
+                                                        groups)),
                 "bwd_dx": (lambda: k_gn.group_norm_silu_bwd_dx(
-                    t, d, gamma, beta, bias, mean, inv, sb, SPLIT_GROUPS, pixels),
+                    t, d, gamma, beta, bias, mean, inv, sb, groups, pixels),
                     lambda: k_gn.gn_silu_bwd_dx_plain(t, d, gamma, beta, bias, mean, inv, sb,
-                                                      SPLIT_GROUPS, pixels))}
+                                                      groups, pixels))}
             with torch.no_grad():
                 for entry, (kern, plain) in calls.items():
-                    nbytes, ops_ = _split_bytes(entry, t, SPLIT_GROUPS, pre)
+                    nbytes, ops_ = _split_bytes(entry, t, groups, pre)
                     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / F32_FLOPS
                     row[entry] = {"ms": device_ms(torch, kern),
                                   "plain_ms": device_ms(torch, plain, reps=PLAIN_REPS,
@@ -7041,6 +7098,35 @@ def spatial_traffic(torch):
 
 
 @contextlib.contextmanager
+def tensor_traffic(torch):
+    """Counts of the tensor group's collectives while open: the channel
+    all-gathers (forward; ``TensorGroup.gather``, ``gather_cat``) and their
+    reduce-scatters (backward), and the largest all-gather's shard (shape,
+    dtype)."""
+    from dmme_tpu_torch.parallel import tensor as tp
+
+    got = {"channel_gathers": 0, "channel_scatters": 0, "largest_gather": None}
+    gather, scatter = tp._all_gather, tp._reduce_scatter
+
+    def counted_gather(x, where):
+        got["channel_gathers"] += 1
+        big = got["largest_gather"]
+        if big is None or x.numel() > math.prod(big[0]):
+            got["largest_gather"] = (list(x.shape), str(x.dtype))
+        return gather(x, where)
+
+    def counted_scatter(g, where):
+        got["channel_scatters"] += 1
+        return scatter(g, where)
+
+    tp._all_gather, tp._reduce_scatter = counted_gather, counted_scatter
+    try:
+        yield got
+    finally:
+        tp._all_gather, tp._reduce_scatter = gather, scatter
+
+
+@contextlib.contextmanager
 def step_peaks(torch, out: dict):
     """``out["fwd_bwd"]``: the device memory allocated at its peak, less
     ``out["base"]``, as each ``TrainState.apply_gradients`` starts (the
@@ -7070,38 +7156,43 @@ def step_peaks(torch, out: dict):
 
 
 def spatial_fit(torch, blocks, k_gn, k_attn, ops, cli, held: dict, out: str, dev,
-                rank: int) -> dict:
+                rank: int, tag: str = "spatial", mesh: str = SPATIAL_MESH) -> dict:
     """In a rank: ``trainer.main fit`` (``cli``) of ``LSUN_CONFIG`` on
-    ``SPATIAL_MESH``, on the tensor fit's batches with every bias drawn: its
+    ``mesh`` (``SPATIAL_MESH``, or ``COMPOSED_MESH`` with ``tensor``), into
+    ``<out>/<tag>``, on the tensor fit's batches with every bias drawn: its
     wall time, launches (the split counters among the wide ones), its peak
     memory (:func:`step_peaks`), the call sites of the split entries and of
-    K3, the collectives of the spatial group, the state's digest (every
-    leaf is whole on every rank); on rank 0 its first reduced gradient
-    against the one process's (``<out>/tensor_one_grads.pt``). Then one more
-    microbatch of the fitted model on both ranks, its call sites recorded
-    (the fit records no inputs, which its peak would hold) and each split
-    entry and K3 held against its plain version on this rank's inputs."""
+    K3, the collectives of the spatial and tensor groups, the digest of the
+    state the rank holds and (a collective where a leaf is split) of the
+    gathered one; on rank 0 its first reduced gradient against the one
+    process's (``<out>/tensor_one_grads.pt``). Then one more microbatch of
+    the fitted model on every rank, its call sites recorded (the fit records
+    no inputs, which its peak would hold) and each split entry and K3 held
+    against its plain version on this rank's inputs."""
     first, peaks = {}, {}
-    with drawn_init(torch), first_gradients(torch, first), spatial_traffic(torch) as traffic:
+    with (drawn_init(torch), first_gradients(torch, first), spatial_traffic(torch) as traffic,
+          tensor_traffic(torch) as gathers):
         reset_counts(ops)
         t0 = time.time()
         with step_peaks(torch, peaks):
             calls = record_calls(split_targets(k_gn, blocks), lambda: cli(
-                _tensor_fit_argv(os.path.join(out, "spatial"), "--trainer.mesh", SPATIAL_MESH)),
-                inputs=False)
+                _tensor_fit_argv(os.path.join(out, tag), "--trainer.mesh", mesh)), inputs=False)
         wall = time.time() - t0
         state = held.pop("state")
     lit, dm = held.pop("lit"), held.pop("datamodule")
+    whole = state.whole()  # a collective where a leaf is split: every rank
     rec = dict(held, wall_s=wall, peak_bytes=peaks["fwd_bwd"], fit_peak_bytes=peaks["fit"],
-               launches=counts(ops), wide=wide_counts(), traffic=dict(traffic),
-               digest=state_digest(torch, state),
-               params=sum(v.numel() for v in state.params.values()),
+               launches=counts(ops), wide=wide_counts(), traffic=dict(traffic, **gathers),
+               digest=state_digest(torch, state), whole_digest=state_digest(torch, whole),
+               params=sum(v.numel() for v in whole.params.values()),
+               tensor_split=len(state.tensor_axes),
                sites={kind: {repr(key): n for key, n, _, _ in v} for kind, v in calls.items()})
+    del whole
     if rank == 0:
         want = torch.load(os.path.join(out, "tensor_one_grads.pt"), map_location=dev)
         rec["grad_rel"] = _rel_l2(torch, want, first["grads"])
     del first
-    # one more microbatch on both ranks (the spatial group shares its batch)
+    # one more microbatch on every rank (the spatial and tensor groups share its batch)
     params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
     batch = torch.randint(0, 256, (2, LSUN_IMG, LSUN_IMG, 3), dtype=torch.uint8, device=dev,
                           generator=torch.Generator(device=dev).manual_seed(SEED))
@@ -7141,6 +7232,307 @@ def spatial_timing(torch, dev, largest) -> dict:
     return {"halo_ms": statistics.median(walls[1:]), "halo_shape": shape,
             "halo_kb": 2 * DIST_RANKS * a.numel() * a.element_size() / 1e3,
             "transport": f"{mesh.backend}, direct on CUDA tensors"}
+
+
+def quad_worker(out: str) -> int:
+    """One rank of the four-rank launch under ``python -m
+    torch.distributed.run --standalone --nproc_per_node 4 chip_smoke.py
+    --quad-worker DIR``: the kernels loaded from the parent's build, the
+    parent's TF32 and cuDNN settings, the group joined once (gloo, the four
+    ranks share the card); then ``trainer.main fit`` of ``LSUN_CONFIG`` on
+    ``COMPOSED_MESH`` (:func:`spatial_fit`) and of ``DIST_CONFIG`` on
+    ``EXPERT_SPATIAL_MESH``, and the largest halo exchange and channel
+    all-gather of the composed fit timed. Each fit's record goes to
+    ``DIR/quad<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    import dmme_tpu_torch.models.blocks as blocks
+    from dmme_tpu_torch import training
+    from dmme_tpu_torch.ops import attention as k_attn
+    from dmme_tpu_torch.ops import build
+    from dmme_tpu_torch.ops import group_norm as k_gn
+    from dmme_tpu_torch.ops import resblock as k_res
+    from dmme_tpu_torch.parallel import initialize, shutdown
+    from dmme_tpu_torch.trainer import main as cli
+
+    ops = kernel_counters(k_gn, k_attn, k_res)
+    build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dev = initialize()
+    rank = dist.get_rank()
+    rec = {"rank": rank, "backend": dist.get_backend(), "device": str(dev)}
+    with holding(training, {}) as held:
+        rec["composed"] = spatial_fit(torch, blocks, k_gn, k_attn, ops, cli, held, out, dev, rank,
+                                      tag="composed", mesh=COMPOSED_MESH)
+        reset_counts(ops)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cli(_dist_fit_argv(os.path.join(out, "expert_spatial"), "--trainer.mesh",
+                           EXPERT_SPATIAL_MESH))
+        torch.cuda.synchronize()
+        state = held.pop("state")
+        del held["lit"], held["datamodule"]
+        rec["expert_spatial"] = dict(held, wall_s=time.time() - t0, launches=counts(ops),
+                                     wide=wide_counts(), digest=state_digest(torch, state))
+        del state
+    rec["timing"] = composed_timing(torch, dev, rec["composed"]["traffic"])
+    with open(os.path.join(out, f"quad{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    shutdown()
+    return 0
+
+
+def composed_timing(torch, dev, traffic: dict) -> dict:
+    """In a rank of the four-rank launch: the composed fit's largest halo
+    exchange over its spatial group and its largest channel all-gather over
+    its tensor group (``traffic``: their shapes and dtypes), as the model
+    makes them (gloo on the CUDA tensors directly), host clock, the median
+    of ``DIST_TIMED`` after a warm one."""
+    from dmme_tpu_torch.parallel import make_mesh
+    from dmme_tpu_torch.parallel.spatial import SpatialGroup, _edges
+    from dmme_tpu_torch.parallel.tensor import TensorGroup
+
+    mesh = make_mesh(tensor=2, spatial=2, device=dev)
+    where = SpatialGroup(mesh.spatial_group, mesh.spatial, mesh.index("spatial"))
+    group = TensorGroup(mesh.tensor_group, mesh.tensor, mesh.index("tensor"))
+    out = {"transport": f"{mesh.backend}, direct on CUDA tensors"}
+    for key, (shape, dtype), run in (("halo", traffic["largest_halo"], lambda a: _edges(a, a, where)),
+                                     ("gather", traffic["largest_gather"], group.gather)):
+        a = torch.randn(shape, device=dev).to(getattr(torch, dtype.removeprefix("torch.")))
+        walls = []
+        for _ in range(DIST_TIMED + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(a)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        size = 2 * mesh.spatial if key == "halo" else mesh.tensor
+        out.update({f"{key}_ms": statistics.median(walls[1:]), f"{key}_shape": shape,
+                    f"{key}_kb": size * a.numel() * a.element_size() / 1e3})
+    return out
+
+
+def _halved_sites(sites: dict) -> dict:
+    """A spatial rank's split-entry call sites (``repr`` of (shape, …)) at a
+    tensor rank's channel shard: the shape's C halved."""
+    out = {}
+    for key, n in sites.items():
+        shape, *rest = ast.literal_eval(key)
+        out[repr((tuple(shape[:3]) + (shape[3] // DIST_RANKS,), *rest))] = n
+    return out
+
+
+def launch_ranks(cmd: list, log_path: str, timeout: float, what: str) -> float:
+    """Run the ``torch.distributed.run`` command ``cmd`` in its own session,
+    its output to ``log_path`` (the last lines printed), killed with its
+    ranks at ``timeout``; fail unless it ends with 0. Returns its wall
+    seconds."""
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)  # the launcher and its ranks
+            proc.wait()
+            rc = None
+    wall = time.time() - t0
+    with open(log_path) as f:
+        lines = [ln for ln in f.read().splitlines() if not ln.startswith("[W")]
+    print("\n".join(lines[-40:]), flush=True)
+    if rc != 0:
+        fail(f"the {what} launch ended with {rc} after {wall:.1f} s")
+    return wall
+
+
+def quad_phase(torch, dist_out: dict, card: str) -> dict:
+    """The four-rank launch (:func:`quad_worker`) and its checks. The
+    composed fit against the tensor fit's one process
+    (``dist_out["tensor_one"]``, the same batches and draws): each rank's
+    launches the split entries at the spatial rank's call sites with C
+    halved (C/2 channels in G/2 groups) and the one process's counts, K3 at
+    the spatial rank's sites, nothing of the one-call K1/K2, f32, fp16 or
+    ``simt.cu``; its split entries and K3 held on its own inputs; its bytes
+    ``TENSOR_BYTES`` in ``TENSOR_SPLIT`` split kernels; the losses and grad
+    norms within ``TENSOR_LOSS_REL``, the first reduced gradient within
+    ``GRAD_REL_L2``; the ranks of each spatial group bitwise equal, every
+    rank's gathered state alike and the checkpoint restored without a mesh
+    bitwise it. The expert x spatial fit against the data fit's one process
+    accumulating 2 (``DIST_ROOT/one``): the saved parameters and EMA within
+    ``EXPERT_SPATIAL_REL``, the losses and grad norms within
+    ``EXPERT_LOSS_REL``, every rank's state bitwise equal and the checkpoint
+    bitwise it, each rank's launches the split entries at a batch-64 step's
+    counts. Prints the collectives a microbatch, a rank's step, the largest
+    halo and channel all-gather timed and the peaks beside the spatial and
+    tensor ranks'."""
+    from dmme_tpu_torch import config as tcfg
+    from dmme_tpu_torch.training import CheckpointManager
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(QUAD_RANKS), os.path.abspath(__file__), "--quad-worker", DIST_ROOT]
+    out = {"launch_wall_s": launch_ranks(cmd, os.path.join(DIST_ROOT, "torchrun_quad.log"),
+                                         QUAD_TIMEOUT, "four-rank")}
+    ranks = []
+    for r in range(QUAD_RANKS):
+        with open(os.path.join(DIST_ROOT, f"quad{r}.json")) as f:
+            ranks.append(json.load(f))
+    out["ranks"] = ranks
+    if {r["backend"] for r in ranks} != {"gloo"}:
+        fail(f"four ranks on one card joined over {[r['backend'] for r in ranks]}, not gloo")
+
+    # the composed fit
+    one, pair = dist_out["tensor_one"], dist_out["ranks"]
+    want = dict(one["launches"], group_norm_silu=0, group_norm_silu_bwd=0)
+    want_split = {"sums": one["launches"]["group_norm_silu"],
+                  "apply": one["launches"]["group_norm_silu"],
+                  "bwd_sums": one["launches"]["group_norm_silu_bwd"],
+                  "bwd_dx": one["launches"]["group_norm_silu_bwd"]}
+    spatial_sites = pair[0]["spatial"]["sites"]
+    want_sites = {e: _halved_sites(spatial_sites[e]) for e in SPLIT_KERNEL}
+    want_sites["attention"] = spatial_sites["attention"]
+    micro = TENSOR_STEPS * TENSOR_ACCUM
+    for r in ranks:
+        rec, t = r["composed"], r["timing"]
+        wide = {route: dict(d) for route, d in rec["wide"].items()}
+        split = {e: wide["split"].pop(e) for e in SPLIT_KERNEL}
+        tr = rec["traffic"]
+        peers = pair[r["rank"] % DIST_RANKS]
+        print(f"rank {r['rank']} tensor=2 x spatial=2 fit of {LSUN_CONFIG}: {rec['wall_s']:.2f} s "
+              f"wall, launches {rec['launches']}, split K1/K2 {split} (one process K1/K2 "
+              f"{one['launches']}), other wide launches {wide}; holds {rec['state_bytes']:,} B of "
+              f"parameters, EMA and moments ({rec['tensor_split']} kernels split); peak allocated "
+              f"through the microbatches' forwards and backwards "
+              f"{rec['peak_bytes'] / 2**30:.3f} GiB (a spatial rank "
+              f"{peers['spatial']['peak_bytes'] / 2**30:.3f}, a tensor rank "
+              f"{peers['tensor']['peak_bytes'] / 2**30:.3f}, one process "
+              f"{one['peak_bytes'] / 2**30:.3f} GiB); a microbatch's halo exchanges "
+              f"{tr['halos'] / micro:g}, statistics all-reduces {tr['all_reduces'] / micro:g} and "
+              f"row gathers {tr['gathers'] / micro:g} over the spatial group, channel all-gathers "
+              f"{tr['channel_gathers'] / micro:g} and reduce-scatters "
+              f"{tr['channel_scatters'] / micro:g} over the tensor group; the largest halo "
+              f"exchange ({t['halo_shape']} edge rows, {t['halo_kb']:.1f} KB gathered) "
+              f"{t['halo_ms']:.3f} ms, the largest channel all-gather ({t['gather_shape']} a "
+              f"rank, {t['gather_kb']:.1f} KB gathered) {t['gather_ms']:.3f} ms, transport "
+              f"{t['transport']}; split entries against their plain versions "
+              f"{rec['split_max_abs']}, K3 {rec['k3_max_abs']:.3e} [{card}]", flush=True)
+        sites = {k: rec["sites"][k] for k in want_sites}
+        if rec["launches"] != want or split != want_split or any(
+                v for d in wide.values() for v in d.values()):
+            fail(f"rank {r['rank']}'s composed fit launched {rec['launches']}, split {split}, "
+                 f"wide {wide}; expected {want} and split {want_split}")
+        if sites != want_sites:
+            fail(f"rank {r['rank']}'s composed fit called the kernels at {sites}, expected the "
+                 f"spatial rank's sites at C/2: {want_sites}")
+        if rec["state_bytes"] != TENSOR_BYTES or rec["tensor_split"] != TENSOR_SPLIT:
+            fail(f"a composed rank holds {rec['state_bytes']} B in {rec['tensor_split']} split "
+                 f"kernels, expected {TENSOR_BYTES} in {TENSOR_SPLIT}")
+    lead = ranks[0]["composed"]
+    mesh_rows = _jsonl(os.path.join(DIST_ROOT, "composed", "metrics.jsonl"))
+    one_rows = _jsonl(os.path.join(DIST_ROOT, "tensor_one", "metrics.jsonl"))
+    rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(mesh_rows, one_rows)]
+           for k in ("loss", "grad_norm")}
+    lit = tcfg.instantiate(tcfg.validate_config(tcfg.load_config(LSUN_CONFIG))["model"])
+    state = CheckpointManager(os.path.join(DIST_ROOT, "composed")).restore(
+        lit.init_state(0, device="cuda"))
+    restored = state_digest(torch, state)
+    del state, lit
+    torch.cuda.empty_cache()
+    spatial_groups = [[r["composed"]["digest"] for r in ranks[i:i + 2]] for i in (0, 2)]
+    out["composed"] = {
+        "loss_rel": rel["loss"], "grad_norm_rel": rel["grad_norm"],
+        "grad_rel_l2": lead["grad_rel"], "params": lead["params"],
+        "spatial_groups_bitwise": all(a == b for a, b in spatial_groups),
+        "tensor_shards_differ": spatial_groups[0][0] != spatial_groups[1][0],
+        "gathered_alike": all(r["composed"]["whole_digest"] == lead["whole_digest"]
+                              for r in ranks),
+        "checkpoint_bitwise": restored == lead["whole_digest"],
+        "step_s": [2 * TENSOR_ACCUM / row["imgs_per_sec"] for row in mesh_rows],
+        "peak_bytes": [r["composed"]["peak_bytes"] for r in ranks],
+        "spatial_peak_bytes": [r["spatial"]["peak_bytes"] for r in pair],
+        "tensor_peak_bytes": [r["tensor"]["peak_bytes"] for r in pair],
+        "one_peak_bytes": one["peak_bytes"],
+        "fit_peak_bytes": [r["composed"]["fit_peak_bytes"] for r in ranks],
+        "wall_s": [r["composed"]["wall_s"] for r in ranks],
+        "per_microbatch": {k: lead["traffic"][k] / micro for k in (
+            "halos", "all_reduces", "gathers", "channel_gathers", "channel_scatters")},
+        "halo_ms": [r["timing"]["halo_ms"] for r in ranks],
+        "gather_ms": [r["timing"]["gather_ms"] for r in ranks]}
+    c = out["composed"]
+    print(f"tensor=2 x spatial=2 against one process: loss relative {rel['loss']}, grad norm "
+          f"relative {rel['grad_norm']} (limit {TENSOR_LOSS_REL}), the first reduced gradient "
+          f"{lead['grad_rel']:.3e} relative L2 (limit {GRAD_REL_L2}); a step of {TENSOR_ACCUM} "
+          f"microbatches on rank 0 {c['step_s']} s (host clock); the ranks of each spatial group "
+          f"{'are' if c['spatial_groups_bitwise'] else 'are NOT'} bitwise equal, every rank's "
+          f"gathered state {'is' if c['gathered_alike'] else 'is NOT'} alike, the checkpoint "
+          f"restored without a mesh {'is' if c['checkpoint_bitwise'] else 'is NOT'} bit for bit "
+          f"it ({lead['params']:,} parameters) [{card}]", flush=True)
+    if (len(mesh_rows) != TENSOR_STEPS or len(one_rows) != TENSOR_STEPS
+            or max(rel["loss"] + rel["grad_norm"]) > TENSOR_LOSS_REL):
+        fail(f"the composed run's losses and grad norms are {rel} from the one process's")
+    if not lead["grad_rel"] <= GRAD_REL_L2:
+        fail(f"the composed run's first gradient is {lead['grad_rel']} from the one process's")
+    if not (c["spatial_groups_bitwise"] and c["tensor_shards_differ"] and c["gathered_alike"]
+            and c["checkpoint_bitwise"] and lead["params"] == LSUN_PARAMS):
+        fail("the composed ranks' states differ within a spatial group or gathered, or the "
+             "checkpoint restored without a mesh is not theirs")
+
+    # the expert x spatial fit of DIST_CONFIG
+    per_rank = launches_for(PER_TRAIN_STEP, DIST_STEPS)
+    want = dict(per_rank, group_norm_silu=0, group_norm_silu_bwd=0)
+    want_split = {e: per_rank[k] for e, k in SPLIT_KERNEL.items()}
+    for r in ranks:
+        rec = r["expert_spatial"]
+        wide = {route: dict(d) for route, d in rec["wide"].items()}
+        split = {e: wide["split"].pop(e) for e in SPLIT_KERNEL}
+        print(f"rank {r['rank']} expert=2 x spatial=2 fit of {DIST_CONFIG}: {rec['wall_s']:.2f} s "
+              f"wall, launches {rec['launches']}, split K1/K2 {split}, other wide launches "
+              f"{wide} [{card}]", flush=True)
+        if rec["launches"] != want or split != want_split or any(
+                v for d in wide.values() for v in d.values()):
+            fail(f"rank {r['rank']}'s expert x spatial fit launched {rec['launches']}, split "
+                 f"{split}, wide {wide}; expected {want} and split {want_split}")
+    saved = {k: CheckpointManager(os.path.join(DIST_ROOT, k)).load(DIST_STEPS)
+             for k in ("one", "expert_spatial")}
+    parts = ("params", "ema_params", "mu", "nu")
+    got = {part: (s[part] if part in s else s["opt_state"][part]) for s in (
+        saved["expert_spatial"],) for part in parts}
+    diff = {part: _rel_l2(torch, saved["one"][part] if part in saved["one"]
+                          else saved["one"]["opt_state"][part], got[part]) for part in parts}
+    mesh_rows = _jsonl(os.path.join(DIST_ROOT, "expert_spatial", "metrics.jsonl"))
+    one_rows = _jsonl(os.path.join(DIST_ROOT, "one", "metrics.jsonl"))
+    rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(mesh_rows, one_rows)]
+           for k in ("loss", "grad_norm")}
+    lead = ranks[0]["expert_spatial"]["digest"]
+    saved_digest = {"params": digest(torch, got["params"]), "ema": digest(torch, got["ema_params"]),
+                    "mu": digest(torch, got["mu"]), "nu": digest(torch, got["nu"])}
+    out["expert_spatial"] = {
+        "vs_one": diff, "loss_rel": rel["loss"], "grad_norm_rel": rel["grad_norm"],
+        "ranks_bitwise": all(r["expert_spatial"]["digest"] == lead for r in ranks),
+        "checkpoint_bitwise": saved_digest == lead,
+        "step_ms": statistics.median(1e3 * TRAIN_BATCH / row["imgs_per_sec"]
+                                     for row in mesh_rows[1:]),
+        "wall_s": [r["expert_spatial"]["wall_s"] for r in ranks]}
+    e = out["expert_spatial"]
+    print(f"expert=2 x spatial=2 against one process at batch {DIST_BATCH} accumulating "
+          f"{DIST_RANKS}: relative L2 " + ", ".join(f"{k} {v:.3e}" for k, v in diff.items())
+          + f" (parameters and EMA limit {EXPERT_SPATIAL_REL}); loss relative {rel['loss']}, "
+          f"grad norm relative {rel['grad_norm']} (limit {EXPERT_LOSS_REL}); a rank's step "
+          f"{e['step_ms']:.2f} ms (host clock, median after the first); every rank's state "
+          f"{'is' if e['ranks_bitwise'] else 'is NOT'} bitwise equal, the checkpoint "
+          f"{'is' if e['checkpoint_bitwise'] else 'is NOT'} bit for bit theirs [{card}]",
+          flush=True)
+    if max(diff["params"], diff["ema_params"]) > EXPERT_SPATIAL_REL:
+        fail(f"the expert x spatial state is {diff} from the one process's")
+    if len(mesh_rows) != DIST_STEPS or max(rel["loss"] + rel["grad_norm"]) > EXPERT_LOSS_REL:
+        fail(f"the expert x spatial run's losses and grad norms are {rel} from the one process's")
+    if not (e["ranks_bitwise"] and e["checkpoint_bitwise"]):
+        fail("the expert x spatial ranks' states differ, or the checkpoint is not theirs")
+    return out
 
 
 def spatial_phase(torch, out: dict, ranks: list, card: str) -> None:
@@ -7234,41 +7626,41 @@ def spatial_phase(torch, out: dict, ranks: list, card: str) -> None:
              "is not theirs")
 
 
-def spatial_rows(report: dict) -> list:
-    """The kernels line's rows of the spatial fit: each split entry per
-    rank microbatch (phase 3's time at each shard shape, the fit's call
-    sites on rank 0 a microbatch), launches in both ranks' fit; K3 per
-    microbatch (phase 47's, whole on every rank), launches likewise."""
-    d = report["dist"]
+def split_fit_rows(report: dict, ranks: list, fit: str, groups: int) -> list:
+    """The kernels line's rows of an H-split fit ``fit`` of ``LSUN_CONFIG``
+    (its ranks' records ``ranks``; GroupNorms of ``groups`` groups on a
+    rank): each split entry per rank microbatch (phase 3's time at each
+    shard shape and group count, the fit's call sites on rank 0 a
+    microbatch), launches in all the ranks' fit; K3 per microbatch (phase
+    47's, whole on every rank), launches likewise."""
     micro = TENSOR_STEPS * TENSOR_ACCUM
-    timed = {}  # by shard shape: each was timed once, with its pre-bias where it has one
+    timed = {}  # by shard shape and groups: each was timed once, with its pre-bias where it has one
     for row in report["split"]["rows"]:
         if "sums" in row:
             n, h, w, c = row["shape"]
-            timed[(n, h // DIST_RANKS, w, c)] = row
-    lead = d["ranks"][0]["spatial"]
+            timed[(n, h // DIST_RANKS, w, c, row["groups"])] = row
+    lead = ranks[0][fit]
     rows = []
     for entry, kname in SPLIT_KERNEL.items():
         v = {f: 0.0 for f in ("ms", "plain_ms", "bound_ms")}
         worst, by = 0.0, {}
         for key, count in lead["sites"][entry].items():
-            row = timed[ast.literal_eval(key)[0]]
+            row = timed[(*ast.literal_eval(key)[0], groups)]
             for f in v:
                 v[f] += row[entry][f] * count / micro
             by[row[entry]["bound_by"]] = by.get(row[entry]["bound_by"], 0.0) + (
                 row[entry]["bound_ms"] * count)
             worst = max(worst, row["max_abs_err"])
         v.update(library_ms=None, bound_by=max(by, key=by.get),
-                 max_abs_err=max(worst, *(r["spatial"]["split_max_abs"][entry]
-                                          for r in d["ranks"])))
+                 max_abs_err=max(worst, *(r[fit]["split_max_abs"][entry] for r in ranks)))
         cname = entry if entry.startswith("bwd") else f"fwd_{entry}"  # group_norm.cu's name
-        r = _table_row(f"group_norm_silu_{cname}_spatial_train", kname, v,
-                       sum(r["spatial"]["wide"]["split"][entry] for r in d["ranks"]))
+        r = _table_row(f"group_norm_silu_{cname}_{fit}_train", kname, v,
+                       sum(r[fit]["wide"]["split"][entry] for r in ranks))
         rows.append(r)
-    k3 = _table_row("attention_spatial_train", "attention",
+    k3 = _table_row(f"attention_{fit}_train", "attention",
                     report["lsun_fit"]["per_microbatch"]["attention"],
-                    sum(r["spatial"]["launches"]["attention"] for r in d["ranks"]))
-    k3["max_abs_err"] = max(k3["max_abs_err"], *(r["spatial"]["k3_max_abs"] for r in d["ranks"]))
+                    sum(r[fit]["launches"]["attention"] for r in ranks))
+    k3["max_abs_err"] = max(k3["max_abs_err"], *(r[fit]["k3_max_abs"] for r in ranks))
     return rows + [k3]
 
 
@@ -7408,23 +7800,8 @@ def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: st
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
            str(DIST_RANKS), os.path.abspath(__file__), "--rank-worker", DIST_ROOT,
            "--eval-root", eval_root, "--inception", pth]
-    log_path = os.path.join(DIST_ROOT, "torchrun.log")
-    t0 = time.time()
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
-                                start_new_session=True)
-        try:
-            rc = proc.wait(timeout=DIST_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, 9)  # the launcher and both ranks
-            proc.wait()
-            rc = None
-    out["launch_wall_s"] = time.time() - t0
-    with open(log_path) as f:
-        lines = [ln for ln in f.read().splitlines() if not ln.startswith("[W")]
-    print("\n".join(lines[-40:]), flush=True)
-    if rc != 0:
-        fail(f"the two-rank launch ended with {rc} after {out['launch_wall_s']:.1f} s")
+    out["launch_wall_s"] = launch_ranks(cmd, os.path.join(DIST_ROOT, "torchrun.log"),
+                                        DIST_TIMEOUT, "two-rank")
     ranks = []
     for r in range(DIST_RANKS):
         with open(os.path.join(DIST_ROOT, f"rank{r}.json")) as f:
@@ -7519,8 +7896,7 @@ def dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card: st
         sites={"attention": DIT_SITES, "attention_bwd": DIT_SITES}, batch_size=DIST_BATCH)
     out["tensor_step"] = tensor_kernels(torch, blocks, k_gn, k_attn, init_weights, dev, card,
                                         out, lsun_rec)
-    shutil.rmtree(DIST_ROOT, ignore_errors=True)
-    return out
+    return out  # DIST_ROOT stays for the four-rank launch (quad_phase)
 
 
 def tensor_phase(torch, out: dict, ranks: list, card: str) -> None:
@@ -7971,11 +8347,15 @@ def main() -> int:
                     help="stop after the kernel phases (build, serving and training shapes)")
     ap.add_argument("--rank-worker", metavar="DIR", default=None,
                     help="(internal) one rank of the two-rank phases, under torch.distributed.run")
+    ap.add_argument("--quad-worker", metavar="DIR", default=None,
+                    help="(internal) one rank of the four-rank phase, under torch.distributed.run")
     ap.add_argument("--eval-root", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--inception", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank_worker:
         return rank_worker(args.rank_worker, args.eval_root, args.inception)
+    if args.quad_worker:
+        return quad_worker(args.quad_worker)
 
     import torch
 
@@ -8394,6 +8774,13 @@ def main() -> int:
     report["dist"] = dist_phase(torch, np, blocks, k_gn, k_attn, init_weights, ops, dev, card,
                                 report["eval_test"], report["lsun_fit"], report["dit_kernels"])
     torch.cuda.empty_cache()
+    phase(f"four ranks on one card: torch.distributed.run --nproc_per_node {QUAD_RANKS} trainer "
+          f"fit of {LSUN_CONFIG} on {COMPOSED_MESH} against the tensor fit's one process, and of "
+          f"{DIST_CONFIG} on {EXPERT_SPATIAL_MESH} against one process accumulating 2")
+    report["quad"] = quad_phase(torch, report["dist"], card)
+    import shutil
+
+    shutil.rmtree(DIST_ROOT, ignore_errors=True)
 
     phase("kernels")
     sources = {
@@ -8512,7 +8899,9 @@ def main() -> int:
     table += eval_rows(report)
     table += a12_rows(report)
     table += dist_rows(report)
-    table += spatial_rows(report)
+    table += split_fit_rows(report, report["dist"]["ranks"], "spatial", SPLIT_GROUPS)
+    table += split_fit_rows(report, report["quad"]["ranks"], "composed",
+                            SPLIT_GROUPS // DIST_RANKS)
     report["kernels"] = table
     print("kernels launched on their paths and held against their plain versions: "
           + "; ".join(f"{k['name']} ({k['route']}, {k['source']}, replaces {k['replaces']}, "
@@ -8588,7 +8977,10 @@ def main() -> int:
           f"K1/K2 entries (dmme_gn_silu_*) per microbatch of a rank of "
           f"{LSUN_CONFIG} on {SPATIAL_MESH} (phase 3's times at its H-shards), launches in both "
           f"ranks' {TENSOR_STEPS}-step spatial fits of {TENSOR_ACCUM} microbatches a step; "
-          f"attention_spatial_train: K3 per such microbatch (whole, phase 47's shapes))",
+          f"attention_spatial_train: K3 per such microbatch (whole, phase 47's shapes); "
+          f"*_composed_train: the same per microbatch of a rank of {LSUN_CONFIG} on "
+          f"{COMPOSED_MESH} (its rows of its channel shard: phase 3's times at C/2 channels in "
+          f"G/2 groups), launches in the four ranks' fits)",
           flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)

@@ -27,6 +27,14 @@ the rows; :class:`GroupNorm` and :class:`GNSiLU` take their statistics
 over the whole sample (the group's sums all-reduced);
 :class:`SelfAttention2d` gathers its input whole and keeps its rows of
 the output. The model holds the group (:meth:`SpatialParallel.place_spatial`).
+
+The two compose: a rank of a mesh with both axes holds its rows of its
+channel shard of each activation. The channel gathers before a layer
+that reads every channel run over the tensor group (the ranks that hold
+the same rows), then a 3×3 conv's halo rows, whole in C, over the
+spatial group; the GroupNorm sums of the shard's G/T groups are
+all-reduced over the spatial group (the ranks that hold the same
+channels); the attention gathers the rows, then the channels.
 """
 
 from __future__ import annotations
@@ -149,18 +157,20 @@ class _Columns(nn.Module):
         return self.tensor_group.shard(self.bias) if self.sharded else self.bias
 
 
-def whole_output(layer: "_Columns", x: torch.Tensor) -> torch.Tensor:
+def whole_output(layer: "_Columns", x: torch.Tensor, spatial=None) -> torch.Tensor:
     """``layer`` on its whole input ``x``, its output whole: gathered over
-    the tensor group where the bound kernel is a column shard."""
-    y = layer(x)
+    the tensor group where the bound kernel is a column shard. ``spatial``:
+    the ``SpatialGroup`` whose rows ``x`` is (a :class:`Conv`'s halo)."""
+    y = on_rows(layer, spatial, x)
     return layer.tensor_group.gather(y) if layer.sharded else y
 
 
-def shard_of_output(layer: "_Columns", x: torch.Tensor, group) -> torch.Tensor:
+def shard_of_output(layer: "_Columns", x: torch.Tensor, group, spatial=None) -> torch.Tensor:
     """This rank's channel shard of ``layer`` on its whole input ``x``: what
     a column shard of the kernel computes, or the rank's slice of the
-    output of a kernel left whole (run alike on every rank)."""
-    y = layer(x)
+    output of a kernel left whole (run alike on every rank). ``spatial``:
+    the ``SpatialGroup`` whose rows ``x`` is (a :class:`Conv`'s halo)."""
+    y = on_rows(layer, spatial, x)
     return y if layer.sharded else group.shard(y)
 
 
@@ -331,7 +341,12 @@ class SelfAttention2d(nn.Module):
     runs the attention whole on every rank and keeps its shard of ``proj``.
     Given a spatial group's rows (``spatial``), it gathers them whole along
     H, runs the norm, the projection and the attention whole on every rank
-    and keeps its rows of the output (``proj`` runs on those rows).
+    and keeps its rows of the output (``proj`` runs on those rows). Given
+    both (a rank's rows of its channel shard), it gathers the rows along H
+    over the spatial group, normalizes the shard's G/T groups on whole H
+    (no statistics all-reduce), gathers the channels over the tensor
+    group, runs the attention whole and keeps its rows of its shard of
+    ``proj``.
     """
 
     def __init__(self, dim: int, num_groups: int = 32, num_heads: int = 1,
@@ -360,7 +375,7 @@ class SelfAttention2d(nn.Module):
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (n, hw, heads, hd) views
         out = attention_heads(q, k, v, dim ** -0.5).reshape(n, h, w, dim)
         if spatial is not None:
-            return rows + self.proj(spatial.rows(out))
+            x, out = rows, spatial.rows(out)
         if split:
             return x + shard_of_output(self.proj, out, self.tensor_group)
         return x + self.proj(out)
@@ -376,7 +391,7 @@ class Downsample(nn.Module):
     def forward(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
         if x.shape[-1] != self.Conv_0.weight.shape[1]:  # a tensor group's channel shard
             group = self.Conv_0.tensor_group
-            return shard_of_output(self.Conv_0, group.gather(x), group)
+            return shard_of_output(self.Conv_0, group.gather(x), group, spatial)
         return on_rows(self.Conv_0, spatial, x)
 
 
@@ -394,7 +409,9 @@ class Upsample(nn.Module):
         if split:
             x = group.gather(x)
         x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-        return shard_of_output(self.Conv_0, x, group) if split else on_rows(self.Conv_0, spatial, x)
+        if split:
+            return shard_of_output(self.Conv_0, x, group, spatial)
+        return on_rows(self.Conv_0, spatial, x)
 
 
 class ResBlock(nn.Module):
@@ -425,6 +442,14 @@ class ResBlock(nn.Module):
     Given a spatial group's rows of ``x`` (``spatial``), every layer runs on
     the rows (:class:`Conv`, :class:`GroupNorm`, :class:`GNSiLU` and the
     attention take ``spatial``); the dropout mask is the whole one.
+
+    Given both (a ``tensor`` axis composed with ``spatial``: ``x`` is the
+    rank's rows of its channel shard), the norms, the dropout and the sum
+    run on it; each conv gathers the rows' channels over the tensor group
+    and then, whole in C, takes its halo rows over the spatial group (the
+    gather first: at T = 2 the same bytes as a halo of the C/T edge rows
+    before a gather of h + 2 rows, and the conv's own H-split path
+    unchanged); the 1×1 ``residual`` and the condition take no halo.
     """
 
     def __init__(self, c_in: int, c_out: int, emb_dim: int, with_attention: bool = False,
@@ -473,10 +498,7 @@ class ResBlock(nn.Module):
                                         "whole": whole, "spatial": spatial})
 
             return checkpoint(body, x, emb, mask, whole, *params.values(), use_reentrant=False)
-        if split:
-            h = self._standard(x, emb, mask, whole)
-        else:
-            h = on_rows(self._standard, spatial, x, emb, mask)
+        h = self._standard(x, emb, mask, whole, spatial)
         return h if self.attention is None else on_rows(self.attention, spatial, h)
 
     def _standard(self, x, emb, mask, whole=None, spatial=None):
@@ -487,7 +509,7 @@ class ResBlock(nn.Module):
         else:
             h = F.silu(on_rows(self.norm1, spatial, x).to(self.dtype))
         if split:
-            h = shard_of_output(self.conv1, group.gather(h), group)
+            h = shard_of_output(self.conv1, group.gather(h), group, spatial)
         else:
             h = on_rows(self.conv1, spatial, h)
         if self.film:
@@ -510,7 +532,7 @@ class ResBlock(nn.Module):
             h = torch.where(group.shard(mask) if split else mask, h / (1.0 - self.dropout),
                             torch.zeros((), dtype=h.dtype, device=h.device))
         if split:
-            h = shard_of_output(self.conv2, group.gather(h), group)
+            h = shard_of_output(self.conv2, group.gather(h), group, spatial)
             if self.residual is not None:
                 whole = group.gather(x) if whole is None else whole
                 return h + shard_of_output(self.residual, whole, group)

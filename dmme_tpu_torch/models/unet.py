@@ -16,11 +16,20 @@ runs on H-shards (:meth:`UNet.place_spatial`): the input conv reads the
 rank's rows of the whole input with a halo row each side, every
 activation between layers, the skips included, is the rank's rows (the
 concatenations are local), and the output is gathered whole.
+
+On both axes a training forward runs on the rank's rows of its channel
+shard of every activation: the input conv reads its rows' window of the
+whole input and keeps its channel shard, the up path gathers each
+concatenation's channels over the tensor group (rows stay local), and at
+the exit the channels are gathered over the tensor group, the output conv
+runs on the rows with their halo, and the rows are gathered over the
+spatial group.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Literal, Optional, Sequence, Tuple
 
 import torch
@@ -37,9 +46,9 @@ from dmme_tpu_torch.models.blocks import (
     Upsample,
     conv3x3,
     on_rows,
-    shard_of_output,
     whole_output,
 )
+from dmme_tpu_torch.parallel.tensor import ToPartial
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +140,8 @@ class UNet(TensorParallel, SpatialParallel):
     collective. After :meth:`place_spatial`, a training forward runs on the
     rank's rows of every activation and returns the whole output on every
     rank of the spatial group; any other forward runs on whole images.
+    After both, a training forward runs on the rank's rows of its channel
+    shards and returns the whole output on every rank of the two groups.
     """
 
     def __init__(
@@ -236,7 +247,10 @@ class UNet(TensorParallel, SpatialParallel):
         group returns the whole output, whose backward divides its gradient
         by the group's size (``TensorGroup.to_partial``); so does a
         training forward of a UNet placed on a spatial axis
-        (:meth:`place_spatial`, ``SpatialGroup.to_partial``).
+        (:meth:`place_spatial`, ``SpatialGroup.to_partial``). Placed on
+        both, a training forward returns the whole output on each of the
+        T·S ranks that share its batch slice, and its backward divides by
+        T·S once.
         """
         group = self._tensor_split()
         spatial = self._spatial_split(train)
@@ -279,10 +293,10 @@ class UNet(TensorParallel, SpatialParallel):
         if cached is None:
             if spatial is not None:
                 h = self.input_conv.valid_rows(spatial.window(x.to(self.dtype)))
-            elif group is None:
-                h = self.input_conv(x.to(self.dtype))
             else:
-                h = shard_of_output(self.input_conv, x.to(self.dtype), group)
+                h = self.input_conv(x.to(self.dtype))
+            if group is not None and not self.input_conv.sharded:
+                h = group.shard(h)  # a kernel left whole: the rank's channels of it
             skips = [h]
             n_down = n_shallow_down if reuse_deep else len(self.down_specs)
             for i, spec in enumerate(self.down_specs[:n_down]):
@@ -313,7 +327,8 @@ class UNet(TensorParallel, SpatialParallel):
             elif spec.kind == "res":
                 # a rank's slice of the concatenation is not that of its parts
                 whole = group.gather_cat(h, skips.pop())
-                h = layer(group.shard(whole), emb, train, generator, whole=whole)
+                h = on_rows(layer, spatial, group.shard(whole), emb, train, generator,
+                            whole=whole)
             else:
                 h = on_rows(layer, spatial, h)
             if return_deep and n_deep_up is not None and i == n_deep_up - 1:
@@ -324,10 +339,14 @@ class UNet(TensorParallel, SpatialParallel):
             h = on_rows(self.out_norm, spatial, h)
         else:
             h = torch.nn.functional.silu(on_rows(self.out_norm, spatial, h).to(self.dtype))
-        if spatial is not None:
-            return spatial.to_partial(spatial.gather(self.output_conv(h, spatial)))
-        if group is not None:
-            return group.to_partial(whole_output(self.output_conv, group.gather(h)))
+        if group is not None or spatial is not None:
+            if group is not None:
+                h = group.gather(h)
+            h = whole_output(self.output_conv, h, spatial)
+            if spatial is not None:
+                h = spatial.gather(h)
+            # alike on the T·S ranks of the batch slice: divided once by T·S
+            return ToPartial.apply(h, math.prod(g.size for g in (group, spatial) if g))
         h = self.output_conv(h)
         if return_deep:
             if deep is None:

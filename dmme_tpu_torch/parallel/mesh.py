@@ -36,8 +36,14 @@ axis sizes, and the collectives are written out (``parallel/train_step.py``):
   every activation; the 3×3 convs exchange one halo row with each
   neighbour and the GroupNorms all-reduce their statistics over the group
   (``parallel/spatial.py``, ``models/blocks.py``). No leaf is ever split
-  on it. It does not compose with ``tensor`` or ``expert`` yet (ROADMAP
-  A.11).
+  on it. It composes with every other axis. Beside ``tensor``, a rank
+  holds its H/S rows of its C/T channel shard of each activation: the
+  halos, row gathers and statistics all-reduces run over its spatial
+  group (the ranks of its tensor index, so the same channels), the
+  channel gathers over its tensor group (the ranks of its rows). Beside
+  ``expert``, a UNet has no leaf the axis splits (JAX's rule needs
+  ``moe`` in the path), so ``expert`` is one more batch axis there; the
+  MoE-DiT has no H-split forward yet (ROADMAP A.11).
 
 Rank r sits at (d, f, e, t, s) of the (data, fsdp, expert, tensor,
 spatial) grid, row-major, as JAX reshapes its device list, so a tensor
@@ -176,7 +182,6 @@ def make_mesh(devices: Optional[Sequence[int]] = None, data: int = -1, fsdp: int
     1 on a single process without a launcher), and the mesh then owns it.
     ``devices`` is None or the group's ranks in order: the port's mesh spans
     the whole group. ``device``: the rank's device (None: its card)."""
-    require_ported({"tensor": tensor, "spatial": spatial, "expert": expert})
     owns = not dist.is_initialized()
     if owns:
         device = distributed.initialize(device=device)
@@ -196,18 +201,6 @@ def make_mesh(devices: Optional[Sequence[int]] = None, data: int = -1, fsdp: int
         raise
     return Mesh(shape=shape, rank=rank, device=device, backend=backend,
                 min_weight_size=min_weight_size, owns_group=owns, **groups)
-
-
-def require_ported(shape: Mapping[str, int]) -> None:
-    """Raise for a ``spatial`` axis above 1 composed with ``tensor`` or
-    ``expert`` above 1 (not ported yet)."""
-    spatial = shape.get("spatial", 1)
-    others = {a: shape.get(a, 1) for a in ("tensor", "expert") if shape.get(a, 1) > 1}
-    if spatial > 1 and others:
-        with_ = ", ".join(f"{a}={n}" for a, n in others.items())
-        raise NotImplementedError(
-            f"mesh axis spatial={spatial} composed with {with_} is not ported yet (ROADMAP "
-            "A.11, distribution): the spatial axis composes with data and fsdp only")
 
 
 #: the axes of the grid a rank sits on, row-major (spatial innermost)

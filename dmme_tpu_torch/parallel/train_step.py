@@ -26,8 +26,15 @@ all-reduce. ``spatial``: the UNet runs on the rank's rows of each
 activation (``parallel/spatial.py``); no leaf is split on it, so every
 gradient is a partial sum over the spatial group that the same
 all-reduces complete (a split leaf's replicas include the spatial ranks),
-and the loss is divided by S as by T. The clip's norm counts each
-distinct shard once. A rank cannot draw dropout or router noise over the
+and the loss is divided by S as by T. The axes compose: on ``tensor``
+and ``spatial`` together a rank runs on its rows of its channel shards
+(halos, row gathers and statistics all-reduces over its spatial group,
+channel gathers over its tensor group), a split kernel's gradient is the
+part its rows give, summed over its replicas (the spatial ranks among
+them), every whole leaf's a partial sum over the T·S ranks of its batch
+slice, and the loss is divided by T·S; ``expert`` beside ``spatial``
+splits no UNet leaf and is one more batch axis. The clip's norm counts
+each distinct shard once. A rank cannot draw dropout or router noise over the
 global batch as JAX's one program does, so batch rank r of R
 (``Mesh.batch_index``, shared by a tensor group and by a spatial group)
 draws as microbatch r of an accumulated step
@@ -228,9 +235,11 @@ def shard_state(state, mesh, min_weight_size: Optional[int] = None, model=None):
     ``min_weight_size`` defaults to the mesh's). ``model``: the module the
     params bind to, whose MoE layers learn where their experts live and
     whose UNet or DiT learns its ``TensorGroup``, and whose UNet its
-    ``SpatialGroup`` (an expert mesh that splits a stack, and any tensor or
-    spatial mesh, need it; a model without a tensor-parallel or an H-split
-    forward raises there, before the state changes). Returns the state."""
+    ``SpatialGroup``, both where the mesh has both axes (an expert mesh
+    that splits a stack, and any tensor or spatial mesh, need it; a model
+    without a tensor-parallel or an H-split forward raises there, before
+    the state changes: the MoE-DiT on an ``{expert, spatial}`` mesh too).
+    Returns the state."""
     experts = expert_axes(state.params, mesh, min_weight_size)
     tensors = tensor_axes(state.params, mesh, min_weight_size)
     axes = split_axes(state.params, mesh, min_weight_size)

@@ -28,8 +28,9 @@ launcher that is a world of 1; under ``python -m torch.distributed.run
 (``--trainer.mesh '{data: -1, expert: N}'`` splits a MoE-DiT's experts
 over them; ``--trainer.mesh '{data: -1, tensor: 2}'`` splits a UNet's
 or a DiT's channels over pairs of them; ``--trainer.mesh '{data: -1,
-spatial: 2}'`` or ``--trainer.mesh.spatial 2`` splits a UNet's rows). A
-group the command made is shut down when it ends.
+spatial: 2}'`` or ``--trainer.mesh.spatial 2`` splits a UNet's rows, and
+``--trainer.mesh '{data: -1, tensor: 2, spatial: 2}'`` both, over fours of
+them). A group the command made is shut down when it ends.
 """
 
 from __future__ import annotations

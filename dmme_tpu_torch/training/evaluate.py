@@ -17,7 +17,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from dmme_tpu_torch.parallel.mesh import flat_all_reduce, require_ported
+from dmme_tpu_torch.parallel.mesh import flat_all_reduce
 from dmme_tpu_torch.parallel.train_step import make_eval_step, step_generator
 from dmme_tpu_torch.training.checkpoint import CheckpointManager
 from dmme_tpu_torch.utils.device import resolve_device
@@ -139,8 +139,6 @@ def test(lit, datamodule, *, ckpt_dir: Optional[str] = None, ckpt_step: Optional
                          "set sampler (ddim|dpm|unipc|edm) too")
     else:
         algo, adapt = lit.diffusion_model, (lambda fn: fn)
-    if mesh is not None:
-        require_ported(mesh.shape)
     device = resolve_device(device) if mesh is None else mesh.device
     # the weights are whole on every rank, so each rank of the world scores
     # batches of its own, whatever axes the mesh has

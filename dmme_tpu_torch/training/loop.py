@@ -42,7 +42,7 @@ import torch
 
 from dmme_tpu_torch.parallel.distributed import global_batch, world_size
 from dmme_tpu_torch.parallel.distributed import place as _place
-from dmme_tpu_torch.parallel.mesh import agree, require_ported
+from dmme_tpu_torch.parallel.mesh import agree
 from dmme_tpu_torch.parallel.train_step import (make_train_chunk, make_train_step,
                                                 microbatch_generators, shard_state)
 from dmme_tpu_torch.training.checkpoint import CheckpointManager
@@ -122,8 +122,6 @@ def _fit_once(
             "multi-process fit() needs a mesh over the global device list "
             "(e.g. make_mesh()); got mesh=None"
         )
-    if mesh is not None:
-        require_ported(mesh.shape)
     device = resolve_device(device) if mesh is None else mesh.device
     ranks = 1 if mesh is None else mesh.batch_ranks
     lead = mesh is None or mesh.rank == 0

@@ -26,7 +26,6 @@ from dmme_tpu_torch.data import CIFAR10
 from dmme_tpu_torch.models import ddpm as t_ddpm
 from dmme_tpu_torch.models import iddpm as t_iddpm
 from dmme_tpu_torch.models.vae import ConvVAE
-from dmme_tpu_torch.parallel.mesh import Mesh, mesh_shape
 from dmme_tpu_torch.parallel.train_step import step_generator
 from dmme_tpu_torch.trainer import main
 from dmme_tpu_torch.training import LitDDIM, LitIDDPM, LitUpsampler, LitVAE
@@ -186,13 +185,6 @@ def test_test_samples_the_full_grid_of_an_iddpm_with_sample_steps(monkeypatch):
     assert len(calls) == 2
 
 
-def _unported_mesh():
-    """A four-rank mesh with a ``spatial`` axis composed with ``tensor``,
-    built by hand (no process group)."""
-    return Mesh(shape=mesh_shape(4, tensor=2, spatial=2), rank=0, device=torch.device("cpu"),
-                backend="gloo")
-
-
 def _guard_cases():
     ddim = dict(lit=lambda: _tiny_ddim())
     return [
@@ -211,8 +203,6 @@ def _guard_cases():
          "unknown sampler 'deep' (ddim|dpm|edm|unipc|flow)"),
         ("deep_dpm", dict(ddim, sampler="deep_dpm"), ValueError,
          "unknown sampler 'deep_dpm' (ddim|dpm|edm|unipc|flow)"),
-        ("mesh", dict(ddim, mesh=_unported_mesh()), NotImplementedError,
-         "mesh axis spatial=2 composed with tensor=2 is not ported yet (ROADMAP A.11"),
     ]
 
 

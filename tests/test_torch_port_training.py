@@ -32,7 +32,6 @@ from dmme_tpu_torch.models import init_weights
 from dmme_tpu_torch.models.blocks import ResBlock
 from dmme_tpu_torch.ops import resblock as t_resblock
 from dmme_tpu_torch.parallel import make_eval_step, make_train_chunk, make_train_step
-from dmme_tpu_torch.parallel.mesh import Mesh, mesh_shape
 from dmme_tpu_torch.training import (LitDDIM, LitDDPM, MetricLogger, TrainState, fit,
                                      warmup_schedule)
 from dmme_tpu_torch.utils.convert import from_flax
@@ -290,17 +289,6 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         lit.init_state(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fit(lit, CIFAR10(synthetic=True, synthetic_size=8, batch_size=4), max_steps=1)
-
-
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=Mesh(shape=mesh_shape(4, tensor=2, spatial=2), rank=0,
-                    device=torch.device("cpu"), backend="gloo")), "A.11"),
-])
-def test_fit_arguments_not_ported_raise(kwargs, item):
-    lit = LitDDPM(model=t_ddpm.UNet(**TINY), timesteps=T)
-    with pytest.raises(NotImplementedError, match=item):
-        fit(lit, CIFAR10(synthetic=True, synthetic_size=8, batch_size=4), max_steps=1,
-            device="cpu", **kwargs)
 
 
 def test_eval_loss_and_eval_step_take_no_gradient(jax_params):
